@@ -6,8 +6,8 @@ projection), ``constraint_gradient_rows``, ``local_constraint_normals``,
 ``make_compact_constraint_rows`` (shape KKT rows), ``make_enforce_tilts``,
 ``make_frozen_enforce_tilts``, ``make_tilt_constraint_rows`` and
 ``make_compact_tilt_rows`` (leaflet-tilt constraints).  Only the modules of
-the kozlov coupled-tilt lane are ported; any other name raises
-NotImplementedError.
+the kozlov coupled-tilt lane and the hard volume constraint are ported;
+any other name raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from types import ModuleType
 from typing import Dict
 
 PORTED = (
+    "volume",
     "pin_to_plane",
     "pin_to_circle",
     "rim_slope_match_out",

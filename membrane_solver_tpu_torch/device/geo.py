@@ -1,11 +1,18 @@
 """Mesh geometry over dense tensors.
 
 Counterpart of ``membrane_solver_tpu/device/geo.py``: triangle normals and
-areas, barycentric vertex areas, area-weighted vertex normals, P1 shape
-gradients, cotan curvature data (Meyer mixed-Voronoi areas with the obtuse
-branches), and the |K| norm whose gradient falls back to the vertex normal
-at K = 0.  Arrays are at exact size (no capacity padding); validity masks
-are kept and masked rows contribute exactly zero.
+areas, barycentric vertex areas, area-weighted vertex normals, cotan
+curvature data (Meyer mixed-Voronoi areas with the obtuse branches),
+interior angles and angle defects, body volumes, and the |K| norm whose
+gradient falls back to the vertex normal at K = 0.  Arrays are
+at exact size (no capacity padding); validity masks are kept and masked
+rows contribute exactly zero.
+
+:func:`surface_corner_terms` and :func:`curvature_corners` are the plain
+twins of the CUDA kernels in ``kernels/tri_kernels``.  This module stays
+plain PyTorch: the energy modules take the surface and curvature terms
+from ``kernels/tri_kernels``, which launches the kernels for a CUDA tensor
+and runs these twins for a CPU one.
 
 Scatter-adds are ``index_add``: deterministic on the CPU, and on CUDA the
 float atomics make the summation order vary from run to run.
@@ -95,22 +102,6 @@ def vertex_normals(
     )
 
 
-def p1_shape_gradients(geo: TriangleGeometry) -> torch.Tensor:
-    """P1 per-triangle shape gradients, shape (F, 3 corners, 3 xyz).
-
-    g_i = (n x e_i) / |n|^2 with e_i the edge opposite corner i
-    (e_0 = v2 - v1, e_1 = v0 - v2, e_2 = v1 - v0).
-    """
-    e0 = geo.v2 - geo.v1
-    e1 = geo.v0 - geo.v2
-    e2 = geo.v1 - geo.v0
-    inv_n2 = 1.0 / torch.clamp(geo.double_area**2, min=EPS_AREA**2)
-    g0 = torch.linalg.cross(geo.normal, e0) * inv_n2[:, None]
-    g1 = torch.linalg.cross(geo.normal, e1) * inv_n2[:, None]
-    g2 = torch.linalg.cross(geo.normal, e2) * inv_n2[:, None]
-    return torch.stack([g0, g1, g2], dim=1)
-
-
 def kink_threshold(dtype) -> float:
     """|K|-kink fallback threshold, above the dtype's cancellation noise.
 
@@ -160,15 +151,39 @@ class CurvatureData:
     corner_areas: torch.Tensor  # (F, 3) per-corner mixed-area contributions
 
 
-def curvature_data(
-    positions: torch.Tensor,
-    tri_rows: torch.Tensor,
-    tri_valid: torch.Tensor,
-    n_rows: int,
-) -> CurvatureData:
-    v0 = positions[tri_rows[:, 0]]
-    v1 = positions[tri_rows[:, 1]]
-    v2 = positions[tri_rows[:, 2]]
+def surface_corner_terms(v0, v1, v2, gamma):
+    """Per-triangle surface energy and its corner gradients: (e, g0, g1, g2).
+
+    ``e = gamma * A`` and ``g_k = dE/dv_k = gamma/2 * n_hat x (v_{k+2} -
+    v_{k+1})``, zero where the doubled area is below ``EPS_AREA``.  Plain
+    twin of the ``tri_surface_fwd`` CUDA kernel (``kernels/tri_kernels``),
+    which replaces the JAX package's ``_surface_kernel``; the Pallas
+    kernel's corner gradients are this function's with the opposite sign
+    (its cross product takes the edge first).
+    """
+    n = torch.linalg.cross(v1 - v0, v2 - v0)
+    dbl = torch.sqrt(_dot(n, n))
+    ok = dbl >= EPS_AREA
+    n_hat = torch.where(ok[:, None], n / torch.clamp(dbl, min=EPS_AREA)[:, None], 0.0)
+    area = torch.where(ok, 0.5 * dbl, 0.0)
+    half_g = (0.5 * gamma)[:, None]
+    g0 = half_g * torch.linalg.cross(n_hat, v2 - v1)
+    g1 = half_g * torch.linalg.cross(n_hat, v0 - v2)
+    g2 = half_g * torch.linalg.cross(n_hat, v1 - v0)
+    return gamma * area, g0, g1, g2
+
+
+def curvature_corners(v0, v1, v2, tri_valid):
+    """Per-triangle cotan curvature terms: (cot, k0, k1, k2, va, tri_areas).
+
+    Cotangent weights (T, 3), the corner mean-curvature vectors k0..k2
+    (T, 3), the Meyer mixed-Voronoi corner areas va (T, 3) with the obtuse
+    branches, all masked by ``tri_valid``, and the unmasked triangle areas
+    (T,).  The per-triangle part of :func:`curvature_data` and the plain
+    twin of the ``tri_curvature_fwd`` CUDA kernel (``kernels/tri_kernels``),
+    which replaces the JAX package's ``_curvature_kernel``; its autograd is
+    the twin of ``tri_curvature_bwd``.
+    """
     e0 = v2 - v1
     e1 = v0 - v2
     e2 = v1 - v0
@@ -182,11 +197,10 @@ def curvature_data(
     c1 = _dot(-e2, e0) / dbl
     c2 = _dot(-e0, e1) / dbl
 
-    mask = tri_valid.to(positions.dtype)
+    mask = tri_valid.to(v0.dtype)
     k0 = 0.5 * (c1[:, None] * (-e1) + c2[:, None] * e2) * mask[:, None]
     k1 = 0.5 * (c2[:, None] * (-e2) + c0[:, None] * e0) * mask[:, None]
     k2 = 0.5 * (c0[:, None] * (-e0) + c1[:, None] * e1) * mask[:, None]
-    k_vecs = scatter_add_rows(k0, k1, k2, tri_rows, n_rows)
 
     tri_areas = 0.5 * dbl
     obt0 = c0 < 0
@@ -203,16 +217,93 @@ def curvature_data(
     va1 = torch.where(obt0 | obt2, tri_areas / 4.0, va1)
     va2 = torch.where(obt2, tri_areas / 2.0, va2)
     va2 = torch.where(obt0 | obt1, tri_areas / 4.0, va2)
-    va0 = va0 * mask
-    va1 = va1 * mask
-    va2 = va2 * mask
-    vertex_areas = scatter_add_rows(va0, va1, va2, tri_rows, n_rows)
+    va = torch.stack([va0 * mask, va1 * mask, va2 * mask], dim=1)
+    cot = torch.stack([c0, c1, c2], dim=1) * mask[:, None]
+    return cot, k0, k1, k2, va, tri_areas
 
-    weights = torch.stack([c0, c1, c2], dim=1) * mask[:, None]
-    corner_areas = torch.stack([va0, va1, va2], dim=1)
+
+def curvature_data(
+    positions: torch.Tensor,
+    tri_rows: torch.Tensor,
+    tri_valid: torch.Tensor,
+    n_rows: int,
+) -> CurvatureData:
+    """Cotan curvature data: :func:`curvature_corners` scattered to vertices."""
+    corners = (positions[tri_rows[:, 0]], positions[tri_rows[:, 1]], positions[tri_rows[:, 2]])
+    cot, k0, k1, k2, va, _tri_areas = curvature_corners(*corners, tri_valid)
+    return scatter_curvature(cot, k0, k1, k2, va, tri_rows, n_rows)
+
+
+def scatter_curvature(cot, k0, k1, k2, va, tri_rows: torch.Tensor, n_rows: int) -> CurvatureData:
+    """CurvatureData from the per-triangle terms of :func:`curvature_corners`."""
     return CurvatureData(
-        k_vecs=k_vecs, vertex_areas=vertex_areas, weights=weights, corner_areas=corner_areas
+        k_vecs=scatter_add_rows(k0, k1, k2, tri_rows, n_rows),
+        vertex_areas=scatter_add_rows(va[:, 0], va[:, 1], va[:, 2], tri_rows, n_rows),
+        weights=cot,
+        corner_areas=va,
     )
+
+
+def interior_angles(
+    positions: torch.Tensor, tri_rows: torch.Tensor, tri_valid: torch.Tensor
+) -> torch.Tensor:
+    """Per-corner interior angles, shape (F, 3); zero on invalid rows."""
+    v0 = positions[tri_rows[:, 0]]
+    v1 = positions[tri_rows[:, 1]]
+    v2 = positions[tri_rows[:, 2]]
+    tiny = 1e-300 if positions.dtype == torch.float64 else 1e-30
+
+    def corner_angle(p, a, b):
+        u = a - p
+        w = b - p
+        nu = torch.linalg.vector_norm(u, dim=1)
+        nw = torch.linalg.vector_norm(w, dim=1)
+        cosang = _dot(u, w) / torch.clamp(nu * nw, min=tiny)
+        return torch.arccos(torch.clamp(cosang, -1.0, 1.0))
+
+    angles = torch.stack(
+        [corner_angle(v0, v1, v2), corner_angle(v1, v2, v0), corner_angle(v2, v0, v1)], dim=1
+    )
+    return torch.where(tri_valid[:, None], angles, 0.0)
+
+
+def angle_defects(
+    positions: torch.Tensor,
+    tri_rows: torch.Tensor,
+    tri_valid: torch.Tensor,
+    vertex_valid: torch.Tensor,
+    boundary_vertex_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Integrated Gaussian curvature 2*pi - sum(angles); boundary rows zeroed."""
+    ang = interior_angles(positions, tri_rows, tri_valid)
+    angle_sum = scatter_add_rows(ang[:, 0], ang[:, 1], ang[:, 2], tri_rows, positions.shape[0])
+    defects = torch.where(vertex_valid, 2.0 * torch.pi - angle_sum, 0.0)
+    # vertices with no incident triangles contribute nothing
+    defects = torch.where(angle_sum > 0, defects, 0.0)
+    if boundary_vertex_mask is not None:
+        defects = torch.where(boundary_vertex_mask, 0.0, defects)
+    return defects
+
+
+def body_volumes(
+    positions: torch.Tensor,
+    tri_rows: torch.Tensor,
+    tri_valid: torch.Tensor,
+    tri_body: torch.Tensor,
+    n_bodies: int,
+) -> torch.Tensor:
+    """Divergence-theorem volumes per body slot: sum v0.(v1 x v2)/6 over facets.
+
+    ``tri_body`` holds ``n_bodies`` (or more) for a facet of no body; those
+    land in a spare row that is dropped, as the JAX package's segment sum
+    over ``n_bodies + 1`` segments does.
+    """
+    v0 = positions[tri_rows[:, 0]]
+    v1 = positions[tri_rows[:, 1]]
+    v2 = positions[tri_rows[:, 2]]
+    contrib = torch.where(tri_valid, _dot(torch.linalg.cross(v1, v2), v0) / 6.0, 0.0)
+    out = contrib.new_zeros(n_bodies + 1)
+    return out.index_add(0, torch.clamp(tri_body, 0, n_bodies), contrib)[:n_bodies]
 
 
 def min_edge_length(

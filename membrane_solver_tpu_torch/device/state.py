@@ -11,7 +11,7 @@ validity masks (all true here).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Collection, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -154,10 +154,11 @@ _STATIC_PARAM_KEYS: Tuple[str, ...] = (
 )
 
 # The values of the static options that the port implements: the kozlov
-# coupled-tilt lane's own, plus the defaults that select the same branches.
+# coupled-tilt lane's own, the bending models, plus the defaults that select
+# the same branches.
 # Any other value raises NotImplementedError when the problem is compiled.
 _PORTED_STATIC_VALUES: Dict[str, Tuple[str, ...]] = {
-    "bending_energy_model": ("helfrich",),
+    "bending_energy_model": ("helfrich", "willmore"),
     "bending_gradient_mode": ("analytic",),
     "tilt_solver": ("cg",),
     "tilt_solve_mode": ("coupled",),
@@ -471,6 +472,7 @@ def problem_from_numpy(
     topo: Mapping[str, Any],
     params: Mapping[str, Any],
     *,
+    vertex_tables: Collection[str] = (),
     device="cpu",
     dtype=torch.float64,
 ) -> Tuple[MeshState, Topology, Dict[str, torch.Tensor]]:
@@ -482,7 +484,9 @@ def problem_from_numpy(
     the JAX package's compiled problem.  Capacity-padding rows are dropped:
     vertex, triangle, edge and body arrays keep their valid rows, and each
     padded extras table keeps the live rows of its validity mask (at least
-    one row, as an empty table compiles to one invalid row).
+    one row, as an empty table compiles to one invalid row).  The extras
+    keys in ``vertex_tables`` hold one row per vertex and keep the live
+    vertex rows (an energy module lists its own in ``VERTEX_TABLES``).
     """
     t = lambda a: to_tensor(a, device, dtype)  # noqa: E731
     nv = int(np.sum(topo["vertex_valid"]))
@@ -506,7 +510,7 @@ def problem_from_numpy(
             arr = arr[: max(int(np.sum(raw_extras[mask_key])), 1)]
         elif name.startswith("tri_present"):
             arr = arr[:nf]
-        elif arr.ndim and name.startswith(("absent", "row_weights")):
+        elif arr.ndim and (name.startswith(("absent", "row_weights")) or key in vertex_tables):
             arr = arr[:nv]
         extras[key] = t(arr)
     port_state = MeshState(**{k: t(np.asarray(state[k])[:nv]) for k in

@@ -5,8 +5,9 @@ Counterpart of ``membrane_solver_tpu/energy/__init__.py``.  A module
 ``energy(geo, state, topo, params)`` or ``make_energy(spec)`` returning a
 function of the same arguments, plus the optional hooks the JAX package
 defines (``make_inloop_energy``, ``make_tilt_frozen``, ``compile_topology``).
-Only the modules of the kozlov coupled-tilt lane are ported; any other name
-raises NotImplementedError.
+Only the modules of the kozlov coupled-tilt lane and of the Helfrich
+vesicle lane (volume, bending, gaussian_curvature) are ported; any other
+name raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -17,6 +18,9 @@ from typing import Dict
 
 PORTED = (
     "surface",
+    "volume",
+    "bending",
+    "gaussian_curvature",
     "tilt_in",
     "tilt_out",
     "bending_tilt_in",

@@ -21,8 +21,8 @@ from __future__ import annotations
 import torch
 
 from membrane_solver_tpu_torch.device import geo as dgeo
-from membrane_solver_tpu_torch.device.tilt_ops import p1_triangle_divergence
 from membrane_solver_tpu_torch.energy import param
+from membrane_solver_tpu_torch.kernels import tri_kernels
 
 USES_TILT_LEAFLETS = True
 
@@ -48,7 +48,7 @@ def _fields(positions, topo, params, kappa_key, c0_key, tri_present=None):
     keep = topo.tri_valid if tri_present is None else (topo.tri_valid & tri_present)
     geo = dgeo.triangle_geometry(positions, topo.tri_rows, keep)
     vnormals = dgeo.vertex_normals(geo, topo.tri_rows, keep, n_rows)
-    curv = dgeo.curvature_data(positions, topo.tri_rows, topo.tri_valid, n_rows)
+    curv = tri_kernels.curvature_data(positions, topo.tri_rows, topo.tri_valid, n_rows)
     safe_vor = torch.clamp(curv.vertex_areas, min=1e-12)
     H = dgeo.directional_norm(curv.k_vecs, vnormals) / (2.0 * safe_vor)
 
@@ -88,7 +88,7 @@ def leaflet_bending_tilt_energy(
         )
 
     # --- corner form at frozen positions: value + exact tilt gradient -----
-    div_tri, _, _ = p1_triangle_divergence(
+    div_tri, _, _ = tri_kernels.p1_triangle_divergence(
         positions.detach(), tilts, topo.tri_rows, topo.tri_valid
     )
     div_term = div_sign * div_tri
@@ -123,7 +123,7 @@ def leaflet_bending_tilt_energy(
         coef_a_eff = 0.5 * kappa * term_v**2
         coef_a_vor = -2.0 * kappa * term_v * ratio * xf["H"]
 
-    curv_k = dgeo.curvature_data(positions, topo.tri_rows, keep, n_rows)
+    curv_k = tri_kernels.curvature_data(positions, topo.tri_rows, keep, n_rows)
     va_k = _redistributed_va(curv_k.corner_areas, topo, keep)
     a_eff_k = dgeo.scatter_add_rows(va_k[:, 0], va_k[:, 1], va_k[:, 2], topo.tri_rows, n_rows)
     surrogate = (
@@ -159,7 +159,8 @@ def make_leaflet_bending_tilt_frozen(
     The surrogate contributes zero value and zero tilt gradient, so the
     per-iteration energy is the corner form alone, with the base term, the
     effective corner areas and the P1 shape gradients baked once per relax
-    call.
+    call.  The shape gradients come from the ``p1_div_fwd`` kernel (one
+    launch per relax; its divergence of the current tilts goes unused).
     """
 
     def precompute(state, topo, params):
@@ -170,11 +171,14 @@ def make_leaflet_bending_tilt_frozen(
         base_f, va_eff_f, _a, _k, _i, xf = _fields(
             positions, topo, params, kappa_key, c0_key, tri_present
         )
-        geo = dgeo.triangle_geometry(positions, topo.tri_rows, topo.tri_valid)
+        tilts = state.tilts_in if leaflet == "in" else state.tilts_out
+        _div, _area, g = tri_kernels.p1_triangle_divergence(
+            positions.detach(), tilts.detach(), topo.tri_rows, topo.tri_valid
+        )
         return {
             "base_c": base_f[topo.tri_rows],
             "va_eff": va_eff_f,
-            "g": dgeo.p1_shape_gradients(geo),
+            "g": g,
             "keep": xf["keep"],
         }
 

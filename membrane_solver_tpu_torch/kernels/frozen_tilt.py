@@ -23,23 +23,15 @@ kappa_in, kappa_out, ks_in, ks_out].
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from membrane_solver_tpu_torch.kernels import _build
+
 LAUNCHES = {"fwd": 0, "bwd": 0}
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "frozen_tilt.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-)
+KERNEL = _build.Source("frozen_tilt")
+SOURCE = KERNEL.path
 
 _lib = None
 
@@ -115,35 +107,12 @@ def reference_grads(tin_c, tout_c, g, payload, k_vec):
 # ----------------------------------------------------------------------
 # build and launch
 # ----------------------------------------------------------------------
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return str(Path(cuda_home) / "bin" / "nvcc")
-
-
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"frozen_tilt-{digest[:16]}.so"
-
-
 def build() -> ctypes.CDLL:
     """Compile the kernels (once per source hash) and load them."""
     global _lib
     if _lib is not None:
         return _lib
-    out = library_path()
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
+    (lib,) = _build.build(KERNEL)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.frozen_tilt_energy.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, ptr]
     lib.frozen_tilt_energy.restype = i32
@@ -151,11 +120,6 @@ def build() -> ctypes.CDLL:
     lib.frozen_tilt_grad.restype = i32
     _lib = lib
     return lib
-
-
-def build_log() -> str:
-    """The compiler's output (ptxas register and spill report) of the build."""
-    return library_path().with_suffix(".log").read_text()
 
 
 def _check_inputs(tin_c, tout_c, g, payload, k_vec) -> int:

@@ -7,7 +7,8 @@ eagerly, the loops are Python loops, and each loop decision reads a device
 scalar.  Gradients come from autograd through the energy assembly.
 
 Ported branches: gradient descent, fixed and adaptive step sizes, the
-plain (unguarded) coupled tilt relax, the sequential line search.
+plain (unguarded) coupled tilt relax, the sequential line search, the
+volume constraint's enforcement and post-step drift check.
 """
 
 from __future__ import annotations
@@ -307,12 +308,20 @@ def make_constraint_enforcer(spec: ProblemSpec) -> Callable | None:
         maker = getattr(mod, "make_enforce", None)
         fn = maker(spec) if maker is not None else getattr(mod, "enforce", None)
         if fn is not None:
-            enforcers.append(fn)
+            enforcers.append((name, fn))
     if not enforcers:
         return None
 
     def enforce(state, topo, params, context="minimize"):
-        for fn in enforcers:
+        for name, fn in enforcers:
+            # the volume projection is skipped inside minimization when
+            # volume_projection_during_minimization is off
+            if (
+                name == "volume"
+                and context == "minimize"
+                and not spec.volume_projection_during_minimization
+            ):
+                continue
             state = fn(state, topo, params, context=context)
         return state
 
@@ -448,6 +457,9 @@ class MinimizeOptions:
     stepper: str = "gradient_descent"
     step_size_mode: str = "adaptive"  # or "fixed"
     enforce_in_line_search: bool = False
+    # lagrange mode without per-trial geometric volume projection: check the
+    # post-step volume drift and hard-project when it exceeds volume_tolerance
+    volume_drift_check: bool = False
 
 
 def make_guarded_relax(spec: ProblemSpec) -> Callable:
@@ -485,7 +497,9 @@ def minimize_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
     total = make_total_energy(spec)
     energy_vg = make_energy_vg(spec)
     gradient_projector = make_gradient_projector(spec)
-    enforcer = make_constraint_enforcer(spec) if options.enforce_in_line_search else None
+    constraint_enforcer = make_constraint_enforcer(spec)
+    enforcer = constraint_enforcer if options.enforce_in_line_search else None
+    strong_enforcer = constraint_enforcer if options.volume_drift_check else None
     tilt_enforcer = _tr.make_tilt_enforcer(spec)
     do_tilt_relax = _tr.spec_uses_leaflet_tilts(spec)
     relax = make_guarded_relax(spec) if do_tilt_relax else None
@@ -518,6 +532,20 @@ def minimize_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
             with torch.no_grad():
                 return total(st, topo, params)
 
+        def volume_drifted(st) -> bool:
+            """Some constrained body's relative volume error exceeds volume_tolerance."""
+            vols = dgeo.body_volumes(
+                st.positions, topo.tri_rows, topo.tri_valid, topo.tri_body,
+                topo.body_valid.shape[0],
+            )
+            target = topo.body_target_volume
+            rel = torch.abs(vols - target) / torch.clamp(torch.abs(target), min=1.0)
+            active = topo.body_valid & topo.body_has_target
+            max_rel = torch.max(torch.where(active, rel, 0.0))
+            tol = params.get("volume_tolerance")
+            tol = np_dtype(1e-3) if tol is None else np_dtype(tol.item())
+            return bool(np_dtype(max_rel.item()) > tol)
+
         step_size = np_dtype(step_size)
         zero_steps = int(zero_step_counter)
         i = 0
@@ -542,6 +570,8 @@ def minimize_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
                 state_of_trial,
             )
             state = ls.state
+            if strong_enforcer is not None and ls.success and volume_drifted(state):
+                state = strong_enforcer(state, topo, params, context="mesh_operation")
             step_size = np_dtype(fixed_step) if fixed_mode else ls.new_step
             at_floor = step_size <= step_size_floor
             zero_steps = 0 if ls.success else (zero_steps + 1 if at_floor else 0)

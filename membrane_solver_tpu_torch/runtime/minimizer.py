@@ -221,6 +221,13 @@ class Minimizer:
         for key in ("tilt_thetaB_optimize", "gauss_bonnet_monitor"):
             if bool(gp.get(key, False)):
                 raise NotImplementedError(f"{key} is not ported to membrane_solver_tpu_torch")
+        if "gaussian_curvature" in self.energy_module_names:
+            for key in ("gaussian_curvature_check_defects", "gaussian_curvature_strict_topology"):
+                if bool(gp.get(key, False)):
+                    raise NotImplementedError(
+                        f"{key} (the Gauss-Bonnet topology validation) is not ported to "
+                        "membrane_solver_tpu_torch"
+                    )
         raw_interval = gp.get("tilt_projection_interval")
         if raw_interval is not None and int(raw_interval) < 1:
             raise ValueError("tilt_projection_interval must be >= 1.")
@@ -259,10 +266,23 @@ class Minimizer:
             p = self.problem()
 
         gp = self.global_params
+        mode = str(gp.get("volume_constraint_mode", "lagrange"))
+        proj_flag = bool(gp.get("volume_projection_during_minimization", True))
+        has_volume_targets = any(
+            (b.target_volume if b.target_volume is not None else b.options.get("target_volume"))
+            is not None
+            for b in self.mesh.bodies.values()
+        )
         options = jit_core.MinimizeOptions(
             stepper=self.stepper.name,
             step_size_mode=str(gp.get("step_size_mode", "adaptive") or "adaptive").lower(),
             enforce_in_line_search=has_enforceable,
+            volume_drift_check=(
+                mode == "lagrange"
+                and not proj_flag
+                and has_volume_targets
+                and "volume" in self.constraint_module_names
+            ),
         )
         block = jit_core.minimize_block(p.spec, options)
         fixed_step = float(gp.get("step_size", self.step_size) or self.step_size)
@@ -270,7 +290,7 @@ class Minimizer:
         inner = int(gp.get("tilt_coupled_steps", gp.get("tilt_inner_steps", 0)) or 0)
         if str(gp.get("tilt_solver", "cg") or "cg").lower() == "cg":
             inner = int(gp.get("tilt_cg_max_iters", inner) or inner)
-        if tilt_mode != "coupled":
+        if _tr.spec_uses_leaflet_tilts(p.spec) and tilt_mode != "coupled":
             raise NotImplementedError(
                 f"tilt_solve_mode={tilt_mode!r} is not ported to membrane_solver_tpu_torch"
             )

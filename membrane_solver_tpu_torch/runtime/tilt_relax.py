@@ -30,6 +30,7 @@ import torch
 from membrane_solver_tpu_torch.device import geo as dgeo
 from membrane_solver_tpu_torch.device.state import MeshState, ProblemSpec, Topology
 from membrane_solver_tpu_torch.energy import get_module, param
+from membrane_solver_tpu_torch.kernels import tri_kernels
 
 MAX_BACKTRACKS = 12
 STEP_FLOOR = 1e-16
@@ -193,7 +194,7 @@ def jacobi_preconditioner(positions, topo, params):
         vertex_areas_out = dgeo.scatter_add_rows(a3, a3, a3, topo.tri_rows, n_rows)
     else:
         vertex_areas_out = vertex_areas
-    curv = dgeo.curvature_data(positions, topo.tri_rows, topo.tri_valid, n_rows)
+    curv = tri_kernels.curvature_data(positions, topo.tri_rows, topo.tri_valid, n_rows)
     c0, c1, c2 = curv.weights[:, 0], curv.weights[:, 1], curv.weights[:, 2]
 
     def diag_for(k_tilt, k_smooth, fixed_mask, areas):

@@ -68,6 +68,48 @@ def make_minimizer(port: bool, kw=None, refines: int = 0, gp=None, **port_kw):
     return mn
 
 
+VESICLE_FIXTURE = FIXTURE.parent / "helfrich_cube_L5_f64_jax.json"
+VESICLE_PROTOCOL = json.loads(VESICLE_FIXTURE.read_text())["protocol"]
+
+
+def vesicle_data(port: bool, protocol=None) -> dict:
+    """The vesicle lane's input dict (meshgen cube with the protocol's modules)."""
+    protocol = VESICLE_PROTOCOL if protocol is None else protocol
+    _pkg_, build, _refinement = _pkg(port)
+    data = build("cube")
+    if protocol["drop_instructions"]:
+        data.pop("instructions", None)
+    data["energy_modules"] = list(protocol["energy_modules"])
+    data["constraint_modules"] = list(protocol["constraint_modules"])
+    data["global_parameters"].update(protocol["global_parameters"])
+    return data
+
+
+def make_vesicle_minimizer(port: bool, refines: int, data=None, **port_kw):
+    """The Helfrich vesicle protocol up to the first step, with ``refines`` triangle refines.
+
+    As ``tools/record_torch_port_fixture.py`` defines it (the fixture's
+    ``protocol`` block): cube -> polygonal refine -> ``refines`` rounds of
+    triangle refine, invalidate, enforce constraints after mesh ops.
+    ``data`` replaces the input dict (default :func:`vesicle_data`).
+    """
+    pkg, _build, refinement = _pkg(port)
+    data = vesicle_data(port) if data is None else data
+    if port:
+        port_kw.setdefault("device", "cpu")
+        mn = pkg.Minimizer(pkg.parse_geometry(data), quiet=True, **port_kw)
+    else:
+        mn = pkg.Minimizer(pkg.parse_geometry(data), quiet=True)
+    mn.step_size = VESICLE_PROTOCOL["step_size"]
+    for _ in range(VESICLE_PROTOCOL["polygonal_refines"]):
+        mn.mesh = refinement.refine_polygonal_facets(mn.mesh)
+    for _ in range(refines):
+        mn.mesh = refinement.refine_triangle_mesh(mn.mesh)
+        mn.invalidate()
+        mn.enforce_constraints_after_mesh_ops()
+    return mn
+
+
 def jax_arrays(problem):
     """(state, topo, params) of a JAX CompiledProblem as numpy mappings."""
     state = {k: np.asarray(getattr(problem.state, k)) for k in STATE_FIELDS}
@@ -84,9 +126,16 @@ def jax_arrays(problem):
 def port_from_jax(problem, dtype=torch.float64):
     """The port's (state, topo, params) built from a JAX compiled problem."""
     from membrane_solver_tpu_torch.device.state import problem_from_numpy
+    from membrane_solver_tpu_torch.energy import get_module
 
     state, topo, params = jax_arrays(problem)
-    return problem_from_numpy(state, topo, params, device="cpu", dtype=dtype)
+    vertex_tables = {
+        f"energy:{name}/{key}"
+        for name in problem.spec.energy_modules
+        for key in getattr(get_module(name), "VERTEX_TABLES", ())
+    }
+    return problem_from_numpy(state, topo, params, vertex_tables=vertex_tables,
+                              device="cpu", dtype=dtype)
 
 
 def perturbation(nv: int, seed: int, amp: float = 0.05):

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from membrane_solver_tpu.pallas_kernels import frozen_tilt as jft
+from membrane_solver_tpu_torch.kernels import _build
 from membrane_solver_tpu_torch.kernels import frozen_tilt as ft
 
 ENERGY_RTOL = 1e-6
@@ -104,10 +105,11 @@ def test_launchers_refuse_cpu_tensors():
 
 
 def test_build_command_targets_hopper_and_is_keyed_by_source():
-    flags = " ".join(ft.NVCC_FLAGS)
+    flags = " ".join(ft.KERNEL.flags)
     assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
-    path = ft.library_path()
-    assert path.parent == ft.BUILD_DIR and path.suffix == ".so"
+    path = ft.KERNEL.library_path()
+    assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
+    assert path.name.startswith("frozen_tilt-")
     assert ft.SOURCE.is_file() and ft.SOURCE.suffix == ".cu"
 
 

@@ -1,0 +1,333 @@
+"""The per-triangle kernels' plain twins and wrappers against the JAX package.
+
+Three groups, on the JAX kernel tests' seeded inputs (T = 200 triangles,
+the last 7 invalid):
+
+- each twin against the JAX package's Pallas function in interpret mode
+  (the JAX tests' CPU route) at float32, with that file's tolerances:
+  surface energy rel 2e-6, corner gradients rel 2e-5; curvature and
+  divergence rel 5e-5, atol 1e-5;
+- each twin against the stock ``geo`` / ``tilt_ops`` functions at float64
+  to 1e-12, and the curvature backward (autograd of the twin) against
+  ``jax.vjp`` of the per-triangle part of ``geo.curvature_data``;
+- the wrappers: the CPU path runs the twins and launches nothing, the
+  launchers refuse CPU tensors, the divergence refuses differentiable
+  positions; and, on a card only, each CUDA kernel against its twin.
+
+The Pallas surface kernel's corner gradients are the negated area gradient
+(its cross product takes the edge first; it is called from no solver
+path), so the twin's gradients are held against minus them and against
+``jax.grad`` of the stock surface energy.
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from _torch_port_harness import assert_close
+
+from membrane_solver_tpu.device import geo as jgeo
+from membrane_solver_tpu.device import tilt_ops as jtops
+from membrane_solver_tpu.pallas_kernels import (
+    curvature_corners_pallas,
+    p1_divergence_pallas,
+    surface_corner_grads_pallas,
+)
+from membrane_solver_tpu_torch.device import geo as tgeo
+from membrane_solver_tpu_torch.device import tilt_ops as ttops
+from membrane_solver_tpu_torch.kernels import _build
+from membrane_solver_tpu_torch.kernels import tri_kernels as tk
+
+F64_RTOL = 1e-12
+GAMMA = 1.7
+
+
+def _inputs(dtype, T=200, Nv=90, seed=11):
+    """The JAX kernel tests' triangles: (positions, tri_rows, valid, tilts) as numpy."""
+    rng = np.random.default_rng(seed)
+    tri_rows = rng.integers(0, Nv, size=(T, 3))
+    tri_rows[:, 1] = (tri_rows[:, 0] + 1 + tri_rows[:, 1] % (Nv - 2)) % Nv
+    tri_rows[:, 2] = (tri_rows[:, 1] + 1 + tri_rows[:, 2] % (Nv - 2)) % Nv
+    positions = rng.standard_normal((Nv, 3)).astype(dtype)
+    tilts = (0.3 * rng.standard_normal((Nv, 3))).astype(dtype)
+    valid = np.ones(T, dtype=bool)
+    valid[-7:] = False
+    return positions, tri_rows, valid, tilts
+
+
+def _torch(*arrays, device="cpu"):
+    return [torch.as_tensor(a, device=device) for a in arrays]
+
+
+def _corners_np(x, rows):
+    return [x[rows[:, i]] for i in range(3)]
+
+
+# ----------------------------------------------------------------------
+# twins vs the JAX Pallas kernels (interpret mode), float32
+# ----------------------------------------------------------------------
+def test_surface_twin_matches_pallas_f32():
+    pos, rows, valid, _ = _inputs(np.float32)
+    gamma = np.where(valid, np.float32(GAMMA), np.float32(0.0))
+    want = surface_corner_grads_pallas(*map(jnp.asarray, _corners_np(pos, rows)), jnp.asarray(gamma))
+    got = tgeo.surface_corner_terms(*_torch(*_corners_np(pos, rows)), torch.as_tensor(gamma))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=2e-6, atol=1e-7)
+    for g_port, g_pallas in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g_port.numpy(), -np.asarray(g_pallas), rtol=2e-5, atol=1e-6)
+
+
+def test_curvature_twin_matches_pallas_f32():
+    pos, rows, valid, _ = _inputs(np.float32)
+    want = curvature_corners_pallas(*map(jnp.asarray, _corners_np(pos, rows)), jnp.asarray(valid))
+    got = tgeo.curvature_corners(*_torch(*_corners_np(pos, rows)), torch.as_tensor(valid))
+    # per-corner values compared as the JAX tests do: scattered to vertices,
+    # where a cotangent near a branch tie cannot pick a different Meyer branch
+    nv = pos.shape[0]
+    t_rows = torch.as_tensor(rows)
+    j_rows = jnp.asarray(rows, jnp.int32)
+    for i, name in ((1, "k0"), (2, "k1"), (3, "k2")):
+        np.testing.assert_allclose(got[i].numpy(), np.asarray(want[i]), rtol=5e-5, atol=1e-5,
+                                   err_msg=name)
+    k_port = tgeo.scatter_add_rows(got[1], got[2], got[3], t_rows, nv)
+    k_pallas = jgeo.scatter_add_rows(want[1], want[2], want[3], j_rows, nv)
+    np.testing.assert_allclose(k_port.numpy(), np.asarray(k_pallas), rtol=5e-5, atol=1e-5)
+    va_port = tgeo.scatter_add_rows(got[4][:, 0], got[4][:, 1], got[4][:, 2], t_rows, nv)
+    va_pallas = jgeo.scatter_add_rows(want[4][:, 0], want[4][:, 1], want[4][:, 2], j_rows, nv)
+    np.testing.assert_allclose(va_port.numpy(), np.asarray(va_pallas), rtol=5e-5, atol=1e-5)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=5e-5, atol=1e-5)
+    np.testing.assert_allclose(got[5].numpy(), np.asarray(want[5]), rtol=5e-5, atol=1e-5)
+
+
+def test_p1_divergence_twin_matches_pallas_f32():
+    pos, rows, _valid, tilts = _inputs(np.float32)
+    args = _corners_np(pos, rows) + _corners_np(tilts, rows)
+    want = p1_divergence_pallas(*map(jnp.asarray, args))
+    got = ttops.p1_divergence_corners(*_torch(*args))
+    for g, w, name in zip(got, want, ("div", "area", "g0", "g1", "g2")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=5e-5, atol=1e-5, err_msg=name)
+
+
+# ----------------------------------------------------------------------
+# twins vs the stock JAX functions, float64
+# ----------------------------------------------------------------------
+def test_surface_twin_matches_stock_area_and_its_gradient_f64():
+    pos, rows, valid, _ = _inputs(np.float64)
+    gamma = np.where(valid, GAMMA, 0.0)
+    j_rows = jnp.asarray(rows, jnp.int32)
+
+    def jax_energy(p):
+        geo = jgeo.triangle_geometry(p, j_rows, jnp.asarray(valid))
+        return jnp.sum(jnp.asarray(gamma) * geo.area)
+
+    want_e_tri = gamma * np.asarray(jgeo.triangle_geometry(jnp.asarray(pos), j_rows,
+                                                           jnp.asarray(valid)).area)
+    want_grad = jax.grad(jax_energy)(jnp.asarray(pos))
+    e, g0, g1, g2 = tgeo.surface_corner_terms(*_torch(*_corners_np(pos, rows)),
+                                              torch.as_tensor(gamma))
+    assert_close(e, want_e_tri, F64_RTOL, "e_tri")
+    grad = tgeo.scatter_add_rows(g0, g1, g2, torch.as_tensor(rows), pos.shape[0])
+    assert_close(grad, want_grad, F64_RTOL, "surface gradient")
+
+
+def test_surface_wrapper_gradient_matches_jax_grad_f64():
+    pos, rows, valid, _ = _inputs(np.float64)
+    gamma = np.where(valid, GAMMA, 0.0)
+    j_rows = jnp.asarray(rows, jnp.int32)
+    want = jax.grad(lambda p: jnp.sum(jnp.asarray(gamma) * jgeo.triangle_geometry(
+        p, j_rows, jnp.asarray(valid)).area))(jnp.asarray(pos))
+    x = torch.as_tensor(pos).requires_grad_(True)
+    e = tk.surface_energies(x, torch.as_tensor(rows), torch.as_tensor(gamma))
+    (got,) = torch.autograd.grad(2.0 * torch.sum(e), (x,))
+    assert_close(got, 2.0 * np.asarray(want), F64_RTOL, "wrapper surface gradient")
+
+
+def test_curvature_twin_matches_stock_curvature_data_f64():
+    pos, rows, valid, _ = _inputs(np.float64)
+    nv = pos.shape[0]
+    jc = jgeo.curvature_data(jnp.asarray(pos), jnp.asarray(rows, jnp.int32), jnp.asarray(valid), nv)
+    cot, k0, k1, k2, va, areas = tgeo.curvature_corners(*_torch(*_corners_np(pos, rows)),
+                                                        torch.as_tensor(valid))
+    t_rows = torch.as_tensor(rows)
+    assert_close(cot, jc.weights, F64_RTOL, "cot", atol_scale=1.0)
+    assert_close(va, jc.corner_areas, F64_RTOL, "va", atol_scale=1.0)
+    assert_close(tgeo.scatter_add_rows(k0, k1, k2, t_rows, nv), jc.k_vecs, F64_RTOL, "k",
+                 atol_scale=1.0)
+    assert_close(tgeo.scatter_add_rows(va[:, 0], va[:, 1], va[:, 2], t_rows, nv),
+                 jc.vertex_areas, F64_RTOL, "vertex areas", atol_scale=1.0)
+    e1 = pos[rows[:, 0]] - pos[rows[:, 2]]
+    e2 = pos[rows[:, 1]] - pos[rows[:, 0]]
+    assert_close(areas, 0.5 * np.linalg.norm(np.cross(e1, e2), axis=1), F64_RTOL, "tri areas")
+
+
+def test_p1_divergence_twin_matches_stock_f64():
+    pos, rows, valid, tilts = _inputs(np.float64)
+    div, area, g0, g1, g2 = ttops.p1_divergence_corners(
+        *_torch(*(_corners_np(pos, rows) + _corners_np(tilts, rows)))
+    )
+    j_rows = jnp.asarray(rows, jnp.int32)
+    jdiv, jarea, jg = jtops.p1_triangle_divergence(
+        jnp.asarray(pos), jnp.asarray(tilts), j_rows, jnp.asarray(valid)
+    )
+    live = torch.as_tensor(valid)
+    assert_close(div[live], np.asarray(jdiv)[valid], F64_RTOL, "div", atol_scale=1.0)
+    assert_close(area[live], np.asarray(jarea)[valid], F64_RTOL, "area")
+    assert_close(torch.stack([g0, g1, g2], dim=1), jg, F64_RTOL, "g", atol_scale=1.0)
+    # the port's p1_triangle_divergence keeps the stock function's masks
+    tdiv, tarea, tg = ttops.p1_triangle_divergence(*_torch(pos, tilts, rows, valid))
+    for got, want, name in zip((tdiv, tarea, tg), (jdiv, jarea, jg), ("div", "area", "g")):
+        assert_close(got, want, F64_RTOL, name, atol_scale=1.0)
+
+
+def _jax_curvature_per_triangle(corners, valid):
+    """The per-triangle part of jax geo.curvature_data on unshared corners.
+
+    ``corners`` (T, 3, 3): giving every triangle its own three vertex rows
+    makes the scatter an identity, so k_vecs and vertex_areas are the corner
+    vectors and corner areas.
+    """
+    T = corners.shape[0]
+    pos = corners.reshape(3 * T, 3)
+    rows = jnp.arange(3 * T, dtype=jnp.int32).reshape(T, 3)
+    c = jgeo.curvature_data(pos, rows, valid, 3 * T)
+    e1 = corners[:, 0] - corners[:, 2]
+    e2 = corners[:, 1] - corners[:, 0]
+    areas = 0.5 * jnp.maximum(jgeo.safe_norm(jnp.cross(e1, e2)), jgeo.EPS_AREA)
+    return c.weights, c.k_vecs.reshape(T, 3, 3), c.corner_areas, areas
+
+
+@pytest.mark.parametrize("case", ["random", "right_triangles"])
+def test_curvature_backward_matches_jax_vjp_f64(case):
+    """K3b's twin (autograd of curvature_corners) against jax.vjp, every output weighted."""
+    pos, rows, valid, _ = _inputs(np.float64)
+    corners = np.stack(_corners_np(pos, rows), axis=1)
+    if case == "right_triangles":
+        # dyadic right triangles: cotangent exactly 0 at one corner (the
+        # refined cube's faces), the Meyer branch boundary
+        corners = np.zeros_like(corners)
+        corners[:, 1, 0] = 0.25
+        corners[:, 2, 1] = 0.5
+        corners += np.arange(corners.shape[0])[:, None, None] * 0.125
+    T = corners.shape[0]
+    rng = np.random.default_rng(3)
+    cts = (rng.standard_normal((T, 3)), rng.standard_normal((T, 3, 3)),
+           rng.standard_normal((T, 3)), rng.standard_normal(T))
+    _out, vjp = jax.vjp(lambda c: _jax_curvature_per_triangle(c, jnp.asarray(valid)),
+                        jnp.asarray(corners))
+    (want,) = vjp(tuple(map(jnp.asarray, cts)))
+
+    x = torch.as_tensor(corners.reshape(3 * T, 3)).requires_grad_(True)
+    t_rows = torch.arange(3 * T).reshape(T, 3)
+    cot, k0, k1, k2, va, areas = tk.curvature_corners(x, t_rows, torch.as_tensor(valid))
+    g_cot, g_k, g_va, g_area = _torch(*cts)
+    obj = (torch.sum(cot * g_cot) + torch.sum(torch.stack([k0, k1, k2], 1) * g_k)
+           + torch.sum(va * g_va) + torch.sum(areas * g_area))
+    (got,) = torch.autograd.grad(obj, (x,))
+    assert_close(got.reshape(T, 3, 3), want, F64_RTOL, "curvature vjp", atol_scale=1.0)
+    # the twin of the backward kernel, called directly, is the same product
+    direct = tk.curvature_corners_vjp(x.detach(), t_rows, torch.as_tensor(valid),
+                                      g_cot, g_k, g_va, g_area)
+    assert torch.equal(direct, got.reshape(T, 3, 3))
+
+
+# ----------------------------------------------------------------------
+# wrappers and dispatch
+# ----------------------------------------------------------------------
+def test_cpu_wrappers_run_the_twins_and_launch_nothing():
+    pos, rows, valid, tilts = _inputs(np.float64)
+    p, t_rows, v, tl = _torch(pos, rows, valid, tilts)
+    before = dict(tk.LAUNCHES)
+    corners = [p[t_rows[:, i]] for i in range(3)]
+    gamma = torch.where(v, GAMMA, 0.0).to(p.dtype)
+    curv = tk.curvature_data(p, t_rows, v, p.shape[0])
+    want_curv = tgeo.curvature_data(p, t_rows, v, p.shape[0])
+    for got, want in (
+        ((tk.surface_energies(p, t_rows, gamma),), tgeo.surface_corner_terms(*corners, gamma)[:1]),
+        (tk.curvature_corners(p, t_rows, v), tgeo.curvature_corners(*corners, v)),
+        ((curv.k_vecs, curv.vertex_areas, curv.weights, curv.corner_areas),
+         (want_curv.k_vecs, want_curv.vertex_areas, want_curv.weights, want_curv.corner_areas)),
+        (tk.p1_divergence(p, tl, t_rows),
+         ttops.p1_divergence_corners(*corners, *[tl[t_rows[:, i]] for i in range(3)])),
+        (tk.p1_triangle_divergence(p, tl, t_rows, v), ttops.p1_triangle_divergence(p, tl, t_rows, v)),
+    ):
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert tk.LAUNCHES == before
+
+
+def test_p1_divergence_gradient_reaches_the_tilts_only():
+    pos, rows, valid, tilts = _inputs(np.float64)
+    p, t_rows, v, tl = _torch(pos, rows, valid, tilts)
+    a = tl.clone().requires_grad_(True)
+    div, *_rest = tk.p1_divergence(p, a, t_rows)
+    w = torch.linspace(-1.0, 1.0, div.shape[0], dtype=div.dtype)
+    (got,) = torch.autograd.grad(torch.sum(w * div), (a,))
+    b = tl.clone().requires_grad_(True)
+    corners = [p[t_rows[:, i]] for i in range(3)]
+    div_ad, *_r = ttops.p1_divergence_corners(*corners, *[b[t_rows[:, i]] for i in range(3)])
+    (want,) = torch.autograd.grad(torch.sum(w * div_ad), (b,))
+    assert_close(got, want, F64_RTOL, "tilt gradient")
+    with pytest.raises(ValueError, match="frozen positions"):
+        tk.p1_divergence(p.clone().requires_grad_(True), tl, t_rows)
+
+
+def test_launchers_refuse_cpu_tensors():
+    """A launch never falls back: a tensor off the card is refused before any build."""
+    pos, rows, valid, tilts = _torch(*_inputs(np.float64, T=4, Nv=6))
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.launch_surface(pos, rows, torch.ones(4, dtype=pos.dtype))
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.launch_curvature(pos, rows, valid)
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.launch_p1_div(pos, tilts, rows)
+    z = torch.zeros(4, 3, dtype=pos.dtype)
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.launch_curvature_bwd(pos, rows, valid, z, z[:, :, None].expand(4, 3, 3), z, z[:, 0])
+
+
+def test_build_targets_hopper_without_contraction_and_is_keyed_by_source():
+    flags = " ".join(tk.KERNEL.flags)
+    assert "arch=compute_90a,code=sm_90a" in flags and "-fmad=false" in flags
+    path = tk.KERNEL.library_path()
+    assert path.parent == _build.BUILD_DIR and path.name.startswith("tri_kernels-")
+    assert tk.SOURCE.is_file() and tk.SOURCE.suffix == ".cu"
+    text = tk.SOURCE.read_text()
+    for entry in ("tri_surface_fwd", "tri_curvature_fwd", "tri_curvature_bwd", "tri_p1_div_fwd"):
+        assert f'extern "C" int {entry}(' in text
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_kernels_match_twins(dtype):
+    """Card only: each CUDA kernel against its twin at T = 200."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    pos, rows, valid, tilts = _inputs(np_dtype)
+    p, t_rows, v, tl = _torch(pos, rows, valid, tilts, device="cuda")
+    rtol = 1e-12 if dtype == torch.float64 else 5e-5
+    corners = [p[t_rows[:, i]] for i in range(3)]
+    gamma = torch.where(v, GAMMA, 0.0).to(dtype)
+    e, g = tk.launch_surface(p, t_rows, gamma)
+    want = tgeo.surface_corner_terms(*corners, gamma)
+    assert_close(e, want[0], rtol, "surface e")
+    assert_close(g, torch.stack(want[1:], 1), rtol, "surface g")
+    cot, k, va, area = tk.launch_curvature(p, t_rows, v)
+    want = tgeo.curvature_corners(*corners, v)
+    live = torch.abs(want[0]) > 1e-6  # rows clear of a Meyer branch tie
+    live = live.all(dim=1)
+    for got, w, name in ((cot, want[0], "cot"), (k, torch.stack(want[1:4], 1), "k"),
+                         (va, want[4], "va"), (area, want[5], "area")):
+        assert_close(got[live], w[live], rtol, name, atol_scale=1.0)
+    cts = [torch.randn(s, dtype=dtype, device="cuda") for s in ((200, 3), (200, 3, 3), (200, 3), (200,))]
+    dp = tk.launch_curvature_bwd(p, t_rows, v, *cts)
+    want = tk.curvature_corners_vjp(p, t_rows, v, *cts)
+    assert_close(dp[live], want[live], rtol, "curvature bwd", atol_scale=1.0)
+    div, area, g = tk.launch_p1_div(p, tl, t_rows)
+    want = ttops.p1_divergence_corners(*corners, *[tl[t_rows[:, i]] for i in range(3)])
+    assert_close(div, want[0], rtol, "div", atol_scale=1.0)
+    assert_close(g, torch.stack(want[2:], 1), rtol, "g", atol_scale=1.0)
+    torch.cuda.synchronize()

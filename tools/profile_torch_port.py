@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
-"""Where the time of one outer step goes: the PyTorch port, kozlov L3, one GPU.
+"""Where the time of one outer step goes: the PyTorch port, one GPU.
 
-For float32 and then float64, in one process on one card:
+For each lane that ``chip_smoke.py`` runs (kozlov L3, then the Helfrich
+vesicle helfrich_cube L5) and for float32 and then float64, in one process
+on one card:
 
-1. the protocol that ``chip_smoke.py`` runs (the JAX fixture's ``protocol``
-   block: ``kozlov_1disk``, bench global parameters, three refinement
-   rounds, five ``minimize(1)`` calls), then 2 warm-up steps;
+1. the lane's protocol as its JAX fixture's ``protocol`` block records it
+   (kozlov: ``kozlov_1disk``, bench global parameters, three refinement
+   rounds; vesicle: meshgen cube, surface + bending + hard volume, five
+   refinement rounds; then five ``minimize(1)`` calls), then 2 warm-up
+   steps;
 2. unprofiled ms/step: host clock around ``minimize(10)``, a device sync on
-   both sides; the frozen-tilt kernels' launches per step over that run;
-3. synced split: the four layers of an outer step (tilt relax, energy and
-   shape gradient, KKT projection, line search) each wrapped in device syncs
-   and timed on the host clock over 5 steps.  The syncs add their own cost,
-   so these rows compare only with each other;
+   both sides; every hand kernel's launches per step over that run;
+3. synced split: the layers of an outer step (tilt relax, where the lane
+   has tilts; energy and shape gradient; KKT projection; line search) each
+   wrapped in device syncs and timed on the host clock over 5 steps.  The
+   syncs add their own cost, so these rows compare only with each other;
 4. ``torch.profiler`` over 3 unsynced steps: device-side operations (kernels
    and copies) per step, device busy ms per step (the sum of their device
    time; one stream, so they do not overlap), the busy share against the
@@ -104,18 +108,17 @@ def device_profile(torch, mn):
     return wall_ms / n, sum(e.count for e in rows) / n, busy_ms / n, top
 
 
-def profile_dtype(torch, chip_smoke, ft, fixture, dtype) -> tuple[dict, list[str]]:
-    mn, _energies, setup_s = chip_smoke.run_protocol(torch, dtype, fixture["protocol"])
+def profile_dtype(torch, chip_smoke, counters, fixture, dtype, lane) -> tuple[dict, list[str]]:
+    mn, _energies, _steps, setup_s = chip_smoke.run_protocol(torch, dtype, fixture["protocol"])
     mn.minimize(chip_smoke.WARMUP_STEPS)
 
-    for key in ft.LAUNCHES:
-        ft.LAUNCHES[key] = 0
+    chip_smoke.reset_counts(counters)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     n = int(mn.minimize(TIMED_STEPS)["iterations"])
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / n
-    launches = {k: v / n for k, v in ft.LAUNCHES.items()}
+    launches = {k: v / n for k, v in chip_smoke.read_counts(counters).items()}
 
     totals = collections.defaultdict(float)
     with synced_split(torch, totals):
@@ -128,11 +131,11 @@ def profile_dtype(torch, chip_smoke, ft, fixture, dtype) -> tuple[dict, list[str
     prof_wall, ops, busy, top = device_profile(torch, mn)
     syncs = chip_smoke.count_syncs(torch, mn)
 
-    name = str(dtype).removeprefix("torch.")
+    name = f"{lane} {str(dtype).removeprefix('torch.')}"
     rec = {
         "setup_s": setup_s,
         "ms_per_step": ms,
-        "frozen_tilt_launches_per_step": launches,
+        "kernel_launches_per_step": launches,
         "synced_wall_ms_per_step": split_wall,
         "synced_split_ms_per_step": split,
         "profiled_wall_ms_per_step": prof_wall,
@@ -160,15 +163,22 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     import chip_smoke
     from membrane_solver_tpu_torch.kernels import frozen_tilt as ft
+    from membrane_solver_tpu_torch.kernels import tri_kernels as tk
 
-    fixture = chip_smoke.load_fixture()
+    counters = {"frozen_tilt": ft.LAUNCHES, "tri_kernels": tk.LAUNCHES}
+    lanes = {"kozlov_L3": chip_smoke.KOZLOV_FIXTURE,
+             "helfrich_cube_L5": chip_smoke.VESICLE_FIXTURE}
     device = chip_smoke.phase_device(torch)
     result, report = {"device": device}, []
-    for name in ("float32", "float64"):
-        rec, lines = profile_dtype(torch, chip_smoke, ft, fixture, getattr(torch, name))
-        result[name] = rec
-        report += lines
-        print(lines[0], flush=True)
+    for lane, path in lanes.items():
+        fixture = chip_smoke.load_fixture(path)
+        result[lane] = {}
+        for name in ("float32", "float64"):
+            rec, lines = profile_dtype(torch, chip_smoke, counters, fixture,
+                                       getattr(torch, name), lane)
+            result[lane][name] = rec
+            report += lines
+            print(lines[0], flush=True)
     if args.output is not None:
         args.output.parent.mkdir(parents=True, exist_ok=True)
         args.output.write_text("\n".join(report) + "\n")

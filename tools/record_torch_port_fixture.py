@@ -1,27 +1,41 @@
 #!/usr/bin/env python3
-"""Record the JAX package's kozlov L3 trajectory for the PyTorch port.
+"""Record the JAX package's reference trajectories for the PyTorch port.
 
-Runs the kozlov coupled-tilt protocol with ``membrane_solver_tpu`` on the CPU
-in float64:
+Runs two protocols with ``membrane_solver_tpu`` on the CPU in float64 and
+writes one JSON file each to ``tests/fixtures/torch_port/``:
+
+``kozlov_L3_f64_jax.json`` (the kozlov coupled-tilt lane):
 
 1. ``meshgen.build("kozlov_1disk")`` -> ``parse_geometry``, with the bench
    global parameters (coupled tilt solve, fixed step 0.005);
 2. ``Minimizer``, then ``step_size = 0.005``;
 3. three refinement rounds (polygonal -> triangle refine, invalidate,
-   enforce constraints after mesh ops);
+   enforce constraints after mesh ops): 10,817 vertices, 21,504 triangles;
 4. five calls of ``minimize(1)``.
 
-and writes the vertex/triangle counts, the energy before the first step and
-the five per-step energies to
-``tests/fixtures/torch_port/kozlov_L3_f64_jax.json``.  ``chip_smoke.py``
-holds the port's float64 run on the GPU against this file, so the GPU
-machine needs no JAX.
+``helfrich_cube_L5_f64_jax.json`` (the Helfrich vesicle: surface tension
+plus Helfrich bending under a hard volume constraint, cube -> sphere):
+
+1. ``meshgen.build("cube")`` without its instructions, energy modules
+   ``surface`` + ``bending``, constraint module ``volume``, global
+   parameters ``bending_modulus`` 1.0 and ``volume_constraint_mode``
+   "lagrange" (the cube keeps its target volume 1.0 and its per-trial
+   volume projection);
+2. ``Minimizer`` with its defaults (step 0.001, adaptive step size);
+3. ``refine_polygonal_facets`` once, then five rounds of triangle refine,
+   invalidate, enforce constraints after mesh ops: 12,290 vertices,
+   24,576 triangles;
+4. five calls of ``minimize(1)``.
+
+Each file holds the vertex/triangle counts, the energy before the first
+step and the per-step energies.  ``chip_smoke.py`` holds the port's float64
+runs on the GPU against these files, so the GPU machine needs no JAX.
 
 Usage::
 
-    python tools/record_torch_port_fixture.py [-o PATH]
+    python tools/record_torch_port_fixture.py [--output-dir DIR]
 
-The file's ``protocol`` block is the one definition of the protocol:
+Each file's ``protocol`` block is the one definition of its protocol:
 ``chip_smoke.py`` and the port's CPU tests read it from there.
 """
 
@@ -34,7 +48,7 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
-OUT = REPO / "tests" / "fixtures" / "torch_port" / "kozlov_L3_f64_jax.json"
+OUT_DIR = REPO / "tests" / "fixtures" / "torch_port"
 
 # the bench lane's global parameters (bench.py LANES["kozlov"])
 BENCH_GP = {
@@ -45,12 +59,20 @@ BENCH_GP = {
     "step_size": 0.005,
     "step_size_mode": "fixed",
 }
-STEP_SIZE = 0.005
-REFINES = 3  # 10,817 vertices, 21,504 triangles
+KOZLOV_STEP_SIZE = 0.005
+KOZLOV_REFINES = 3  # 10,817 vertices, 21,504 triangles
 STEPS = 5
 
+# the vesicle lane: the reference's bending lane module set
+# (tests/fixtures/reference_lane_traces.json "bending"; tools/suite.py)
+VESICLE_GP = {"bending_modulus": 1.0, "volume_constraint_mode": "lagrange"}
+VESICLE_ENERGY = ["surface", "bending"]
+VESICLE_CONSTRAINTS = ["volume"]
+VESICLE_STEP_SIZE = 0.001  # the Minimizer's default
+VESICLE_REFINES = 5  # 12,290 vertices, 24,576 triangles
 
-def run() -> dict:
+
+def _jax():
     os.environ.setdefault("MEMBRANE_SOLVER_X64", "1")
     os.environ.setdefault("MEMBRANE_SOLVER_AOT_CACHE", "0")
     os.environ.setdefault("MEMBRANE_SOLVER_COMPILE_CACHE", "0")
@@ -58,53 +80,112 @@ def run() -> dict:
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from membrane_solver_tpu import Minimizer, parse_geometry
+    import membrane_solver_tpu as pkg
     from membrane_solver_tpu.meshgen import build
-    from membrane_solver_tpu.runtime.refinement import (
-        refine_polygonal_facets,
-        refine_triangle_mesh,
-    )
+    from membrane_solver_tpu.runtime import refinement
 
-    mesh = parse_geometry(build("kozlov_1disk"))
+    return pkg, build, refinement
+
+
+def _trajectory(mn) -> dict:
+    energy0 = float(mn.compute_energy())
+    breakdown = {k: float(v) for k, v in mn.compute_energy_breakdown().items()}
+    energies, step_sizes = [], []
+    for _ in range(STEPS):
+        energies.append(float(mn.minimize(1)["energy"]))
+        step_sizes.append(float(mn.step_size))
+    return {
+        "n_vertices": len(mn.mesh.vertices),
+        "n_triangles": len(mn.mesh.facets),
+        "energy_before": energy0,
+        "breakdown_before": breakdown,
+        "energies": energies,
+        "step_sizes": step_sizes,
+    }
+
+
+def run_kozlov() -> dict:
+    pkg, build, refinement = _jax()
+    mesh = pkg.parse_geometry(build("kozlov_1disk"))
     mesh.global_parameters.update(BENCH_GP)
-    mn = Minimizer(mesh, quiet=True)
-    mn.step_size = STEP_SIZE
-    for _ in range(REFINES):
-        m = refine_polygonal_facets(mn.mesh)
-        m = refine_triangle_mesh(m)
+    mn = pkg.Minimizer(mesh, quiet=True)
+    mn.step_size = KOZLOV_STEP_SIZE
+    for _ in range(KOZLOV_REFINES):
+        m = refinement.refine_polygonal_facets(mn.mesh)
+        m = refinement.refine_triangle_mesh(m)
         mn.mesh = m
         mn.invalidate()
         mn.enforce_constraints_after_mesh_ops()
-    energy0 = float(mn.compute_energy())
-    energies = []
-    for _ in range(STEPS):
-        energies.append(float(mn.minimize(1)["energy"]))
-    return {
+    rec = {
         "protocol": {
             "mesh": "meshgen kozlov_1disk",
             "global_parameters": BENCH_GP,
-            "step_size": STEP_SIZE,
-            "refines": REFINES,
+            "step_size": KOZLOV_STEP_SIZE,
+            "refines": KOZLOV_REFINES,
             "steps": STEPS,
             "dtype": "float64",
             "package": "membrane_solver_tpu",
             "platform": "cpu",
         },
-        "n_vertices": len(mn.mesh.vertices),
-        "n_triangles": len(mn.mesh.facets),
-        "energy_before": energy0,
-        "energies": energies,
     }
+    rec.update(_trajectory(mn))
+    return rec
+
+
+def vesicle_protocol(refines: int = VESICLE_REFINES) -> dict:
+    return {
+        "mesh": "meshgen cube",
+        "drop_instructions": True,
+        "energy_modules": VESICLE_ENERGY,
+        "constraint_modules": VESICLE_CONSTRAINTS,
+        "global_parameters": VESICLE_GP,
+        "step_size": VESICLE_STEP_SIZE,
+        "polygonal_refines": 1,
+        "refines": refines,
+        "steps": STEPS,
+        "dtype": "float64",
+        "package": "membrane_solver_tpu",
+        "platform": "cpu",
+    }
+
+
+def build_vesicle(pkg, build, refinement, protocol: dict, **minimizer_kw):
+    """The vesicle protocol up to the first step, for either package."""
+    data = build("cube")
+    if protocol["drop_instructions"]:
+        data.pop("instructions", None)
+    data["energy_modules"] = list(protocol["energy_modules"])
+    data["constraint_modules"] = list(protocol["constraint_modules"])
+    data["global_parameters"].update(protocol["global_parameters"])
+    mn = pkg.Minimizer(pkg.parse_geometry(data), quiet=True, **minimizer_kw)
+    mn.step_size = protocol["step_size"]
+    for _ in range(protocol["polygonal_refines"]):
+        mn.mesh = refinement.refine_polygonal_facets(mn.mesh)
+    for _ in range(protocol["refines"]):
+        mn.mesh = refinement.refine_triangle_mesh(mn.mesh)
+        mn.invalidate()
+        mn.enforce_constraints_after_mesh_ops()
+    return mn
+
+
+def run_vesicle() -> dict:
+    pkg, build, refinement = _jax()
+    protocol = vesicle_protocol()
+    rec = {"protocol": protocol}
+    rec.update(_trajectory(build_vesicle(pkg, build, refinement, protocol)))
+    return rec
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("-o", "--output", type=Path, default=OUT)
+    ap.add_argument("--output-dir", type=Path, default=OUT_DIR)
     args = ap.parse_args()
-    rec = run()
-    args.output.parent.mkdir(parents=True, exist_ok=True)
-    args.output.write_text(json.dumps(rec, indent=1) + "\n")
-    print(json.dumps(rec))
+    args.output_dir.mkdir(parents=True, exist_ok=True)
+    for name, run in (("kozlov_L3_f64_jax.json", run_kozlov),
+                      ("helfrich_cube_L5_f64_jax.json", run_vesicle)):
+        rec = run()
+        (args.output_dir / name).write_text(json.dumps(rec, indent=1) + "\n")
+        print(name, json.dumps(rec), flush=True)
 
 
 if __name__ == "__main__":
