@@ -6,39 +6,64 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions.  No CUDA device -> exit 2 before anything else.
 2. build: compiles the CUDA sources of ``membrane_solver_tpu_torch/csrc``
-   (``frozen_tilt.cu``, ``tri_kernels.cu``) with nvcc, one process per
-   source, all started together; prints the seconds taken and the ptxas
-   report.
-3. kernels: every kernel against its plain PyTorch twin on the card, with
-   median CUDA-event times of kernel and twin:
-   - frozen-tilt forward and gradient, float32, seeded inputs at T = 301 and
-     T = 21,504: energy to rel 1e-6, gradient to 5e-6 * max|g|;
-   - the four per-triangle kernels (surface, curvature forward and
-     backward, P1 divergence), float32 and float64, on seeded triangles
-     (T = 301) and on the vesicle lane's own 24,576 triangles (the lane's
-     start positions plus a seeded 1e-3 perturbation): float32 to the JAX
-     kernel tests' bounds (surface e rel 2e-6 / atol 1e-7, corner gradients
-     rel 2e-5 / atol 1e-6, curvature and divergence rel 5e-5 / atol 1e-5,
-     curvature backward 5e-5 * max|g|), float64 to 1e-12 * max(|want|, 1)
-     (curvature backward 1e-11 * max|g|).  Curvature rows within 1e-6 of a
-     Meyer branch tie (a cotangent at 0) are left out: there the two sides
-     may take different branches.
+   (``frozen_tilt.cu``, ``tri_kernels.cu``, ``vertex_sum.cu``, which share
+   ``vertex_sum.cuh``) with nvcc, one process per source, all started
+   together; prints the seconds taken and the ptxas report.
+3. kernels: every kernel against its plain PyTorch twin on the card, on the
+   kozlov L3 lane's topology (10,817 vertices, 21,504 triangles) and the
+   vesicle lane's (12,290 / 24,576), both built as phases 4-7 build them:
+   - the frozen-tilt entry point, float32, seeded vertex tilts, P1
+     gradients and payload at T = 301 and on the kozlov L3 topology, energy
+     alone and energy plus vertex gradients: energy to rel 1e-6, gradients
+     to 5e-6 * max|g|;
+   - the vertex-sum kernel, float32 and float64, widths 1 and 3, on the
+     kozlov L3 corner CSR: equal to its twin bit for bit (the same
+     additions in the same order);
+   - the per-triangle kernels (surface, curvature forward and backward with
+     per-triangle outputs, P1 divergence), float32 and float64, on seeded
+     triangles (T = 301) and on the vesicle lane's own triangles (its start
+     positions plus a seeded 1e-3 perturbation), and the curvature data
+     entry point and its backward (vertex sums) on both lanes: float32 to
+     the JAX kernel tests' bounds (surface e rel 2e-6 / atol 1e-7, corner
+     gradients rel 2e-5 / atol 1e-6, curvature and divergence rel 5e-5 /
+     atol 1e-5, curvature backward 5e-5 * max|g|), float64 to
+     1e-12 * max(|want|, 1) (curvature backward 1e-11 * max|g|).  Curvature
+     rows within 1e-6 of a Meyer branch tie (a cotangent at 0), and the
+     vertex sums that include one, are left out: there the two sides may
+     take different branches;
+   - determinism: two energy-plus-gradient calls of the frozen-tilt entry
+     point, and two ``curvature_data`` forward-plus-backward calls, on the
+     same inputs must give the same bits;
+   - one energy-plus-gradient call of each of the two entry points under
+     ``torch.profiler``: no index, scatter, gather, sort or reduction
+     kernel of PyTorch's own may appear among its device operations;
+   - timing, at the kozlov L3 lane's shapes, float32 (the rows that
+     ``tools/time_torch_kernels.py`` also times on the vesicle lane and at
+     float64): for every kernel, twin and
+     caller, the device ms per call (``torch.profiler``'s device time of
+     the operations one call issues, over 200 back-to-back calls), the
+     event ms per call (CUDA events around 200 back-to-back calls), the
+     host µs per call (the same loop, no sync) and the bound; the callers
+     (a relax energy evaluation, an ``eval_grads``-style energy and vertex
+     gradient, ``curvature_data`` forward, forward plus backward) also the
+     median µs of one call followed by a device sync.
 4. kozlov L3, float32: the kozlov coupled-tilt protocol that its fixture's
    ``protocol`` block records (meshgen ``kozlov_1disk`` with the bench
    global parameters -> three refinement rounds -> 10,817 vertices, 21,504
    triangles -> five ``minimize(1)`` calls), then ``minimize(2)`` as warm-up
    and ``minimize(10)`` timed.  Every energy must be finite and the last
    below the first.  Host syncs of one step are counted with
-   ``torch.cuda.set_sync_debug_mode``.
+   ``torch.cuda.set_sync_debug_mode`` and listed by the source line that
+   issued them.
 5. kozlov L3, float64: the same protocol; its five energies must match the
    JAX package's recorded trajectory
    (``tests/fixtures/torch_port/kozlov_L3_f64_jax.json``) to rel 1e-8, and
    the float32 energies of phase 4 must lie within rel 2e-3 of them.  Then
-   the four per-triangle kernels against their twins, at float32 and
-   float64 with phase 3's tolerances, on this lane's own 21,504 triangles
-   as the run left them: one set per leaflet, with that leaflet's tilts and
-   the ``tri_valid & tri_present`` mask its bending-tilt curvature call
-   takes.
+   the per-triangle kernels and the curvature data against their twins, at
+   float32 and float64 with phase 3's tolerances, on this lane's own 21,504
+   triangles as the run left them: one set per leaflet, with that leaflet's
+   tilts and the ``tri_valid & tri_present`` mask its bending-tilt
+   curvature call takes.
 6. helfrich_cube L5, float32: the Helfrich vesicle protocol of
    ``helfrich_cube_L5_f64_jax.json`` (meshgen cube, surface + Helfrich
    bending, hard volume constraint -> polygonal refine and five triangle
@@ -49,12 +74,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 
 Phases 4-7 each drive one path with every kernel launch counter set to 0
 just before and read just after; a kernel of that path that was never
-launched fails the run (the frozen-tilt kernels lie on the float32 kozlov
-path only; the per-triangle surface and curvature kernels on all four; the
-divergence kernel on the kozlov paths).
+launched fails the run (the frozen-tilt entry point, both variants, lies on
+the float32 kozlov path only; surface, curvature data forward and backward
+and the vertex sum on all four; the divergence on the kozlov paths).
 
-The line before the last is a JSON object ``{"kernels": [...]}``; the last
-line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object ``{"kernels": [...]}``: per entry
+point, its launches over phases 4-7, its largest error against its twin,
+and phase 3's device ms per call (``ms``), its twin's (``plain_ms``), the
+bound, and, for the vertex sum, ``index_add_``'s (``library_ms``).  The
+last line is ``{"ok": true, "device": {...}}``.
 
 Usage (from the repository root, on a machine with a CUDA GPU)::
 
@@ -63,8 +91,10 @@ Usage (from the repository root, on a machine with a CUDA GPU)::
 
 from __future__ import annotations
 
+import collections
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -78,21 +108,40 @@ REPO = Path(__file__).resolve().parent
 FIXTURES = REPO / "tests" / "fixtures" / "torch_port"
 KOZLOV_FIXTURE = FIXTURES / "kozlov_L3_f64_jax.json"
 VESICLE_FIXTURE = FIXTURES / "helfrich_cube_L5_f64_jax.json"
-FT_SOURCE = "membrane_solver_tpu_torch/csrc/frozen_tilt.cu"
-TK_SOURCE = "membrane_solver_tpu_torch/csrc/tri_kernels.cu"
-# the Pallas kernel bodies these replace (_fwd_kernel, _bwd_kernel), both
-# launched through the pallas_call at frozen_tilt.py:186
-REPLACES_FWD = "membrane_solver_tpu/pallas_kernels/frozen_tilt.py:83"
-REPLACES_BWD = "membrane_solver_tpu/pallas_kernels/frozen_tilt.py:111"
-# tri_kernels.py: _surface_kernel, _curvature_kernel, curvature_corners_pallas
-# (whose backward JAX takes from the stock geo.curvature_data; the Pallas
-# kernel has none), _p1_div_kernel
-TK_REPLACES = {
-    "surface_fwd": "membrane_solver_tpu/pallas_kernels/tri_kernels.py:80",
-    "curvature_fwd": "membrane_solver_tpu/pallas_kernels/tri_kernels.py:143",
-    "curvature_bwd": "membrane_solver_tpu/pallas_kernels/tri_kernels.py:193",
-    "p1_div_fwd": "membrane_solver_tpu/pallas_kernels/tri_kernels.py:228",
+CSRC = "membrane_solver_tpu_torch/csrc/"
+# entry point -> (source, the TPU kernel or JAX function it replaces, the
+# name of its timing rows, its launch counter)
+KERNELS = {
+    # the Pallas _fwd_kernel and _bwd_kernel, both behind the pallas_call at
+    # frozen_tilt.py:186
+    "frozen_tilt_energy": ("frozen_tilt.cu", "pallas_kernels/frozen_tilt.py:83",
+                           "frozen_tilt_energy", "frozen_tilt.energy"),
+    "frozen_tilt_energy_grad": ("frozen_tilt.cu", "pallas_kernels/frozen_tilt.py:111",
+                                "frozen_tilt_energy_grad", "frozen_tilt.energy_grad"),
+    # no Pallas kernel: the JAX package's segment sums (geo.scatter_add_rows)
+    "vertex_sum": ("vertex_sum.cuh", "device/geo.py:95", "vertex_sum",
+                   "vertex_sum.vertex_sum"),
+    "tri_surface_fwd": ("tri_kernels.cu", "pallas_kernels/tri_kernels.py:80", "surface_fwd",
+                        "tri_kernels.surface_fwd"),
+    # _curvature_kernel with the stock geo.curvature_data scatter after it
+    "tri_curvature_data": ("tri_kernels.cu", "pallas_kernels/tri_kernels.py:143",
+                           "curvature_data", "tri_kernels.curvature_data"),
+    # the backward JAX takes for curvature_corners_pallas (stock AD)
+    "tri_curvature_data_bwd": ("tri_kernels.cu", "pallas_kernels/tri_kernels.py:193",
+                               "curvature_data_bwd", "tri_kernels.curvature_data_bwd"),
+    "tri_p1_div_fwd": ("tri_kernels.cu", "pallas_kernels/tri_kernels.py:228", "p1_div_fwd",
+                       "tri_kernels.p1_div_fwd"),
 }
+# the per-entry-point error keys of phases 3 and 5
+ERRORS = {"frozen_tilt_energy": ("ft_energy",), "frozen_tilt_energy_grad": ("ft_energy", "ft_grad"),
+          "vertex_sum": ("vertex_sum",), "tri_surface_fwd": ("surface_fwd",),
+          "tri_curvature_data": ("curvature_data", "curvature_fwd"),
+          "tri_curvature_data_bwd": ("curvature_data_bwd", "curvature_bwd"),
+          "tri_p1_div_fwd": ("p1_div_fwd",)}
+# PyTorch's own kernels that the two redesigned entry points must not issue
+LIBRARY_KERNEL = re.compile(r"index|scatter|gather|sort|reduce", re.IGNORECASE)
+OWN_KERNELS = ("frozen_tilt_kernel", "vertex_sum_kernel", "curvature_fwd_kernel",
+               "curvature_bwd_kernel")
 
 DEVICE = "cuda"
 WARMUP_STEPS = 2
@@ -110,19 +159,49 @@ TK_BWD = {"float32": 5e-5, "float64": 1e-11}  # of max|g|
 TIE = 1e-6  # |cot| below this: a Meyer branch tie
 
 
+# The card's published peaks (H100 SXM data sheet: memory rate, float32 and
+# float64 outside the tensor cores).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+# Floating-point operations per triangle, counted from the CUDA sources and
+# rounded up (the gradient row is the frozen-tilt gradient's own work, on top
+# of the energy's).  Every kernel here is bound by bytes by a factor of ten or
+# more, so these only need the right order.
+FLOPS_PER_TRI = {
+    "frozen_tilt_energy": 190,
+    "frozen_tilt_grad": 270,
+    "surface_fwd": 65,
+    "curvature_fwd": 140,
+    "curvature_bwd": 320,
+    "p1_div_fwd": 80,
+}
+
+
+def bound_ms(moved_bytes: int, flops: float, dtype_name: str) -> tuple[float, str]:
+    """The least time the card could take: (ms, "bytes" or "operations")."""
+    t_bytes = moved_bytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
 def say(phase: str, **fields) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
 
 
-def phase_device(torch) -> dict:
+def smi_line() -> str:
+    """``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``, first card."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     )
     if smi.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
-    smi_line = smi.stdout.strip().splitlines()[0]
-    print(smi_line, flush=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_device(torch) -> dict:
+    smi_text = smi_line()
+    print(smi_text, flush=True)
     device = {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
@@ -133,101 +212,309 @@ def phase_device(torch) -> dict:
     return device
 
 
-def phase_build(ft, tk) -> None:
+def phase_build(mods) -> None:
     from membrane_solver_tpu_torch.kernels import _build
 
     t0 = time.perf_counter()
-    _build.build(ft.KERNEL, tk.KERNEL)  # one nvcc per source, in parallel
-    ft.build()
-    tk.build()
+    _build.build(*(m.KERNEL for m in mods))  # one nvcc per source, in parallel
+    for m in mods:
+        m.build()
     seconds = time.perf_counter() - t0
     say("2 build", seconds=f"{seconds:.3f}",
-        libraries=",".join(k.library_path().name for k in (ft.KERNEL, tk.KERNEL)))
-    for kernel in (ft.KERNEL, tk.KERNEL):
-        for ln in kernel.log().splitlines():
+        libraries=",".join(m.KERNEL.library_path().name for m in mods))
+    for m in mods:
+        for ln in m.KERNEL.log().splitlines():
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
-                say("2 build ptxas", source=kernel.name, line=repr(ln.strip()))
+                say("2 build ptxas", source=m.KERNEL.name, line=repr(ln.strip()))
 
 
-def _inputs(torch, T: int, seed: int):
-    rng = np.random.default_rng(seed)
-    f32 = np.float32
-    arrays = (
-        rng.standard_normal((T, 3, 3)).astype(f32),
-        rng.standard_normal((T, 3, 3)).astype(f32),
-        rng.standard_normal((T, 3, 3)).astype(f32),
-        np.abs(rng.standard_normal((T, 20))).astype(f32),
-        rng.uniform(0.5, 2.0, 6).astype(f32),
-    )
-    return [torch.from_numpy(a).cuda() for a in arrays]
+LOOP = 200  # back-to-back calls per timing
 
 
-def _median_ms(torch, fn, reps: int = 50, warmup: int = 5) -> float:
+def time_call(torch, fn, calls: int = LOOP, warmup: int = 5) -> dict:
+    """Device and host time per call of ``fn`` over ``calls`` back-to-back calls.
+
+    Inputs are prepared by the caller, outside the window.  Returns
+    - ``event_ms``: CUDA events around the loop, divided by ``calls`` (the
+      device's wall time per call; where the host is slower than the
+      device this is the host's pace);
+    - ``host_us``: ``time.perf_counter`` around the same loop, no sync;
+    - ``device_ms``: the device time of the operations one call issues,
+      summed from ``torch.profiler`` over a second loop (no host gaps);
+    - ``ops_per_call`` and ``ops``: those operations, by name.
+    """
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_s = time.perf_counter() - t0
+    end.record()
+    end.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if not rows:
+        raise RuntimeError("the profiler recorded no device-side operation")
+    return {
+        "event_ms": start.elapsed_time(end) / calls,
+        "host_us": host_s * 1e6 / calls,
+        "device_ms": sum(e.self_device_time_total for e in rows) / 1e3 / calls,
+        "ops_per_call": sum(e.count for e in rows) / calls,
+        "ops": {e.key: e.count / calls for e in rows},
+    }
+
+
+def synced_us(torch, fn, reps: int = 50, warmup: int = 5) -> float:
+    """Median host µs of one call followed by a device sync: what a caller that reads the result waits."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e6)
     return statistics.median(times)
 
 
-def phase_kernels(torch, ft) -> dict:
-    """Frozen-tilt kernel vs twin on the card; returns errors and times at the largest T."""
-    out = {}
-    for T, seed in ((301, 7), (21_504, 13)):
-        tin, tout, g, pay, k = _inputs(torch, T, seed)
-        e_kernel = float(ft.fused_tilt_energy(tin, tout, g, pay, k))
-        e_twin = float(ft.reference_energy(tin, tout, g, pay, k))
-        e_err = abs(e_kernel - e_twin)
-        if not (math.isfinite(e_kernel) and e_err <= ENERGY_RTOL * abs(e_twin)):
-            raise AssertionError(f"T={T}: kernel energy {e_kernel!r} vs twin {e_twin!r}")
+def device_ops(torch, fn) -> list:
+    """Names of the device operations one call of ``fn`` issues (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
-        a = tin.clone().requires_grad_(True)
-        b = tout.clone().requires_grad_(True)
-        gk = torch.autograd.grad(ft.fused_tilt_energy(a, b, g, pay, k), (a, b))
-        ga = torch.autograd.grad(ft.reference_energy(a, b, g, pay, k), (a, b))
-        gt = ft.reference_grads(tin, tout, g, pay, k)
-        g_err = 0.0
-        for got, want_ad, want_twin in zip(gk, ga, gt):
-            scale = float(torch.max(torch.abs(want_ad)))
-            err = max(float(torch.max(torch.abs(got - want_ad))),
-                      float(torch.max(torch.abs(got - want_twin))))
-            if not err <= GRAD_RTOL * scale:
-                raise AssertionError(f"T={T}: kernel gradient error {err!r} > {GRAD_RTOL} * {scale!r}")
-            g_err = max(g_err, err)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
         torch.cuda.synchronize()
-        say("3 kernels", T=T, energy_abs_err=repr(e_err), energy_rel_err=repr(e_err / abs(e_twin)),
-            grad_max_abs_err=repr(g_err))
-        out = {"T": T, "energy_abs_err": e_err, "grad_abs_err": g_err}
-
-    ones = torch.ones((), dtype=torch.float32, device="cuda")
-
-    def twin_fwd_bwd():
-        a = tin.detach().requires_grad_(True)
-        b = tout.detach().requires_grad_(True)
-        torch.autograd.grad(ft.reference_energy(a, b, g, pay, k), (a, b))
-
-    times = {
-        "kernel_fwd_ms": _median_ms(torch, lambda: ft.launch_energy(tin, tout, g, pay, k)),
-        "kernel_bwd_ms": _median_ms(torch, lambda: ft.launch_grads(tin, tout, g, pay, k, ones)),
-        "twin_fwd_ms": _median_ms(torch, lambda: ft.reference_energy(tin, tout, g, pay, k)),
-        "twin_grads_ms": _median_ms(torch, lambda: ft.reference_grads(tin, tout, g, pay, k)),
-        "twin_fwd_bwd_ms": _median_ms(torch, twin_fwd_bwd),
-    }
-    say("3 kernels timing", T=out["T"], **{k_: f"{v:.6f}" for k_, v in times.items()})
-    out.update(times)
-    return out
+    return [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
 
 
 # ----------------------------------------------------------------------
-# the per-triangle kernels against their twins
+# timing rows: (name, kind, fn, inputs and outputs' tensors, flops)
 # ----------------------------------------------------------------------
+CALLER_CALLS = 50  # caller-level loops issue several operations per call
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _flat(out):
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _flat(o)]
+    if hasattr(out, "k_vecs"):  # CurvatureData
+        return [out.k_vecs, out.vertex_areas, out.weights, out.corner_areas]
+    return [out] if out is not None else []
+
+
+def frozen_tilt_rows(torch, ft, topo, n_vertices: int) -> list:
+    """(name, kind, fn, inputs, flops) for the frozen-tilt entry point, its twin and callers, float32.
+
+    ``inputs`` are the function's own: the CSR counts only for the vertex
+    sum, whose input it is (the entry point's gradient would need no CSR
+    under another scatter design).
+    """
+    from membrane_solver_tpu_torch.kernels import vertex_sum as vs
+
+    rows = topo.tri_rows
+    T = rows.shape[0]
+    tin, tout, g, pay, k = _ft_inputs(torch, rows, n_vertices, 13)
+    csr = topo.corner_csr()
+    ws = ft.Workspace(T, rows.device)
+    base = (tin, tout, rows, csr, g, pay, k)
+    e_in = (tin, tout, rows, g, pay, k)
+    corner = torch.randn((T, 3, 3), dtype=torch.float32, device=rows.device,
+                         generator=torch.Generator(device=rows.device).manual_seed(13))
+    flat_rows = rows.reshape(-1)
+    out = torch.zeros((n_vertices, 3), dtype=torch.float32, device=rows.device)
+    flops_e = FLOPS_PER_TRI["frozen_tilt_energy"] * T
+    flops_g = flops_e + FLOPS_PER_TRI["frozen_tilt_grad"] * T
+
+    def relax_energy():
+        with torch.no_grad():
+            return ft.frozen_tilt_energy(*base, ws)
+
+    def eval_grads():
+        a, b = tin.detach().requires_grad_(True), tout.detach().requires_grad_(True)
+        return torch.autograd.grad(ft.frozen_tilt_energy(a, b, *base[2:], ws), (a, b))
+
+    return [
+        ("frozen_tilt_energy", "kernel", lambda: ft.launch(*base, ws, grad=False), e_in, flops_e),
+        ("frozen_tilt_energy_grad", "kernel", lambda: ft.launch(*base, ws, grad=True), e_in,
+         flops_g),
+        ("frozen_tilt_energy", "twin", lambda: ft.reference_vertex(*base, grad=False), e_in,
+         flops_e),
+        ("frozen_tilt_energy_grad", "twin", lambda: ft.reference_vertex(*base, grad=True), e_in,
+         flops_g),
+        ("vertex_sum", "kernel", lambda: vs.launch(corner, csr), (corner, csr.offsets, csr.slots),
+         corner.numel()),
+        ("vertex_sum", "twin", lambda: vs.reference(corner, csr), (corner, csr.offsets, csr.slots),
+         corner.numel()),
+        ("vertex_sum", "library", lambda: out.index_add_(0, flat_rows, corner.reshape(-1, 3)),
+         (corner, flat_rows), corner.numel()),
+        ("frozen_tilt relax energy", "caller", relax_energy, e_in, flops_e),
+        ("frozen_tilt eval_grads", "caller", eval_grads, e_in, flops_g),
+    ]
+
+
+def tri_rows_of(torch, tk, topo, positions, dtype) -> list:
+    """(name, kind, fn, inputs, flops) for the per-triangle kernels, twins and callers."""
+    from membrane_solver_tpu_torch.device import geo as dgeo
+    from membrane_solver_tpu_torch.device import tilt_ops
+
+    rng = np.random.default_rng(19)
+    rows, v = topo.tri_rows, topo.tri_valid
+    T, n = rows.shape[0], positions.shape[0]
+    dev = rows.device
+    p = positions.to(dtype).contiguous()
+    tl = torch.as_tensor(0.3 * rng.standard_normal((n, 3)), dtype=dtype, device=dev)
+    gamma = torch.where(v, 1.0, 0.0).to(dtype)
+    cts = [torch.as_tensor(rng.standard_normal(s), dtype=dtype, device=dev)
+           for s in ((T, 3), (T, 3, 3), (T, 3), (T,))]
+    g_kvecs = torch.as_tensor(rng.standard_normal((n, 3)), dtype=dtype, device=dev)
+    g_varea = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=dev)
+    csr = topo.corner_csr()
+    d_in = (p, rows, v)
+    b_in = d_in + (g_kvecs, g_varea)
+    F = FLOPS_PER_TRI
+
+    def corners(x):
+        return [x[rows[:, i]] for i in range(3)]
+
+    def data_fwd():
+        with torch.no_grad():
+            return tk.curvature_data(p, rows, v, csr)
+
+    def data_fwd_bwd():
+        x = p.detach().requires_grad_(True)
+        cd = tk.curvature_data(x, rows, v, csr)
+        return torch.autograd.grad((cd.k_vecs, cd.vertex_areas), (x,), (g_kvecs, g_varea))
+
+    return [
+        ("surface_fwd", "kernel", lambda: tk.launch_surface(p, rows, gamma), (p, rows, gamma),
+         F["surface_fwd"] * T),
+        ("surface_fwd", "twin", lambda: dgeo.surface_corner_terms(*corners(p), gamma),
+         (p, rows, gamma), F["surface_fwd"] * T),
+        ("curvature_fwd", "kernel", lambda: tk.launch_curvature(p, rows, v), d_in,
+         F["curvature_fwd"] * T),
+        ("curvature_fwd", "twin", lambda: dgeo.curvature_corners(*corners(p), v), d_in,
+         F["curvature_fwd"] * T),
+        ("curvature_bwd", "kernel", lambda: tk.launch_curvature_bwd(p, rows, v, *cts),
+         (p, rows, v, *cts), F["curvature_bwd"] * T),
+        ("curvature_bwd", "twin", lambda: tk.curvature_corners_vjp(p, rows, v, *cts),
+         (p, rows, v, *cts), F["curvature_bwd"] * T),
+        ("p1_div_fwd", "kernel", lambda: tk.launch_p1_div(p, tl, rows), (p, tl, rows),
+         F["p1_div_fwd"] * T),
+        ("p1_div_fwd", "twin",
+         lambda: tilt_ops.p1_divergence_corners(*corners(p), *corners(tl)), (p, tl, rows),
+         F["p1_div_fwd"] * T),
+        ("curvature_data", "kernel", lambda: tk.launch_curvature_data(p, rows, v, csr), d_in,
+         F["curvature_fwd"] * T),
+        ("curvature_data", "twin", lambda: tk.curvature_data_reference(p, rows, v, csr), d_in,
+         F["curvature_fwd"] * T),
+        ("curvature_data_bwd", "kernel",
+         lambda: tk.launch_curvature_data_bwd(p, rows, v, csr, g_kvecs, g_varea, None, None),
+         b_in, F["curvature_bwd"] * T),
+        ("curvature_data_bwd", "twin",
+         lambda: tk.curvature_data_vjp_reference(p, rows, v, csr, g_kvecs, g_varea, None, None),
+         b_in, F["curvature_bwd"] * T),
+        ("curvature_data", "caller", data_fwd, d_in, F["curvature_fwd"] * T),
+        ("curvature_data fwd+bwd", "caller", data_fwd_bwd, b_in,
+         (F["curvature_fwd"] + F["curvature_bwd"]) * T),
+    ]
+
+
+def measure(torch, rows: list, lane: str, dtype_name: str) -> list:
+    """Times each row (``time_call``; callers also ``synced_us``) and computes its bound."""
+    recs = []
+    for name, kind, fn, inputs, flops in rows:
+        outputs = _flat(fn())
+        torch.cuda.synchronize()
+        calls = CALLER_CALLS if kind == "caller" else LOOP
+        timing = time_call(torch, fn, calls=calls)
+        moved = _nbytes(inputs) + _nbytes(outputs)
+        bound, bound_by = bound_ms(moved, flops, dtype_name)
+        rec = {"name": name, "kind": kind, "lane": lane, "dtype": dtype_name, "calls": calls,
+               **{k: v for k, v in timing.items() if k != "ops"},
+               "bytes": moved, "bound_ms": bound, "bound_by": bound_by,
+               "ops": {k[:80]: c for k, c in timing["ops"].items()}}
+        if kind == "caller":
+            rec["synced_us"] = synced_us(torch, fn)
+        recs.append(rec)
+    return recs
+
+
+# ----------------------------------------------------------------------
+# phase 3: every kernel against its twin
+# ----------------------------------------------------------------------
+def _ft_inputs(torch, rows, nv: int, seed: int):
+    """Seeded (t_in, t_out, g, payload, k_vec) float32 on the card for ``rows``' triangles."""
+    rng = np.random.default_rng(seed)
+    T = rows.shape[0]
+    f32 = np.float32
+    arrays = (
+        rng.standard_normal((nv, 3)).astype(f32),
+        rng.standard_normal((nv, 3)).astype(f32),
+        rng.standard_normal((T, 3, 3)).astype(f32),
+        np.abs(rng.standard_normal((T, 20))).astype(f32),
+        rng.uniform(0.5, 2.0, 6).astype(f32),
+    )
+    return [torch.from_numpy(a).to(DEVICE) for a in arrays]
+
+
+def check_frozen_tilt(torch, ft, rows, nv: int, seed: int) -> dict:
+    """The entry point (energy alone, energy and gradients) vs its twin; max abs errors."""
+    from membrane_solver_tpu_torch.device.state import corner_csr
+
+    t_in, t_out, g, pay, k = _ft_inputs(torch, rows, nv, seed)
+    csr = corner_csr(rows, nv)
+    ws = ft.Workspace(rows.shape[0], rows.device)
+    want_e, want_in, want_out = ft.reference_vertex(t_in, t_out, rows, csr, g, pay, k, grad=True)
+    e_only, _, _ = ft.launch(t_in, t_out, rows, csr, g, pay, k, ws, grad=False)
+    e, gin, gout = ft.launch(t_in, t_out, rows, csr, g, pay, k, ws, grad=True)
+    e_err = max(abs(float(x) - float(want_e)) for x in (e_only, e))
+    if not (math.isfinite(e_err) and e_err <= ENERGY_RTOL * abs(float(want_e))):
+        raise AssertionError(f"T={rows.shape[0]}: kernel energy {float(e)!r} vs twin {float(want_e)!r}")
+    g_err, g_rel = 0.0, 0.0
+    for got, want in ((gin, want_in), (gout, want_out)):
+        err = float(torch.max(torch.abs(got - want)))
+        scale = float(torch.max(torch.abs(want)))
+        if not err <= GRAD_RTOL * scale:
+            raise AssertionError(f"T={rows.shape[0]}: vertex gradient error {err!r} > "
+                                 f"{GRAD_RTOL} * {scale!r}")
+        g_err, g_rel = max(g_err, err), max(g_rel, err / scale)
+    return {"ft_energy": e_err, "ft_grad": g_err, "energy_rel_err": e_err / abs(float(want_e)),
+            "grad_rel_err": g_rel}
+
+
+def check_vertex_sum(torch, vs, rows, nv: int) -> float:
+    """The vertex-sum kernel against its twin: equal bits, float32 and float64, widths 1 and 3."""
+    from membrane_solver_tpu_torch.device.state import corner_csr
+
+    csr = corner_csr(rows, nv)
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    for dtype in (torch.float32, torch.float64):
+        for shape in ((rows.shape[0], 3), (rows.shape[0], 3, 3)):
+            vals = torch.randn(shape, dtype=dtype, device=DEVICE, generator=gen)
+            got, want = vs.launch(vals, csr), vs.reference(vals, csr)
+            if not torch.equal(got, want):
+                err = float(torch.max(torch.abs(got - want)))
+                raise AssertionError(f"vertex_sum {dtype} {shape}: differs from its twin by {err!r}")
+    return 0.0
+
+
 def _seeded_triangles(T: int, seed: int):
     """(positions, tri_rows, valid, tilts) as float64 numpy: random distinct-corner triangles."""
     rng = np.random.default_rng(seed)
@@ -240,15 +527,13 @@ def _seeded_triangles(T: int, seed: int):
     return rng.standard_normal((nv, 3)), rows, valid, 0.3 * rng.standard_normal((nv, 3))
 
 
-def _lane_triangles(torch, seed: int):
-    """The vesicle lane's own triangles: its start positions, perturbed by 1e-3, as numpy."""
-    mn = build_lane(torch, load_fixture(VESICLE_FIXTURE)["protocol"], torch.float64)
-    p = mn.problem()
+def _lane_triangles(prob, seed: int):
+    """A lane's own triangles: its start positions, perturbed by 1e-3, as numpy."""
     rng = np.random.default_rng(seed)
-    pos = p.state.positions.cpu().numpy()
+    pos = prob.state.positions.detach().cpu().numpy()
     pos = pos + 1e-3 * rng.standard_normal(pos.shape)
-    rows = p.topo.tri_rows.cpu().numpy()
-    return pos, rows, p.topo.tri_valid.cpu().numpy(), 0.3 * rng.standard_normal(pos.shape)
+    rows = prob.topo.tri_rows.cpu().numpy()
+    return pos, rows, prob.topo.tri_valid.cpu().numpy(), 0.3 * rng.standard_normal(pos.shape)
 
 
 def _tk_check(torch, name, got, want, dtype, kind, rows=None) -> float:
@@ -270,10 +555,22 @@ def _tk_check(torch, name, got, want, dtype, kind, rows=None) -> float:
     return max_err
 
 
-def check_tri_kernels(torch, tk, arrays, dtype, seed: int) -> dict:
-    """The four per-triangle kernels vs their twins on one input set; max abs errors."""
+def _bwd_check(torch, name, got, want, dtype, rows) -> float:
+    err = float(torch.max(torch.abs(got[rows] - want[rows])))
+    scale = float(torch.max(torch.abs(want[rows])))
+    if not err <= TK_BWD[str(dtype).removeprefix("torch.")] * scale:
+        raise AssertionError(f"{name} ({dtype}): max abs err {err!r}, max|g| {scale!r}")
+    return err
+
+
+def check_tri_kernels(torch, tk, arrays, dtype, seed: int, data: bool) -> tuple[dict, int]:
+    """The per-triangle kernels (and, with ``data``, the curvature data) vs their twins.
+
+    Returns the max abs errors and the number of rows left out at a tie.
+    """
     from membrane_solver_tpu_torch.device import geo as dgeo
     from membrane_solver_tpu_torch.device import tilt_ops
+    from membrane_solver_tpu_torch.device.state import corner_csr
 
     pos, rows, valid, tilts = arrays
     dev = DEVICE
@@ -306,11 +603,25 @@ def check_tri_kernels(torch, tk, arrays, dtype, seed: int) -> dict:
            for s in ((T, 3), (T, 3, 3), (T, 3), (T,))]
     dp = tk.launch_curvature_bwd(p, t_rows, v, *cts)
     want = tk.curvature_corners_vjp(p, t_rows, v, *cts)
-    bwd_err = float(torch.max(torch.abs(dp[clear] - want[clear])))
-    scale = float(torch.max(torch.abs(want[clear])))
-    if not bwd_err <= TK_BWD[str(dtype).removeprefix("torch.")] * scale:
-        raise AssertionError(f"curvature bwd ({dtype}): max abs err {bwd_err!r}, max|g| {scale!r}")
-    errs["curvature_bwd"] = bwd_err
+    errs["curvature_bwd"] = _bwd_check(torch, "curvature bwd", dp, want, dtype, clear)
+
+    if data:
+        csr = corner_csr(t_rows, p.shape[0])
+        vclear = torch.ones(p.shape[0], dtype=torch.bool, device=dev)
+        vclear[t_rows[~clear].reshape(-1)] = False  # vertex sums free of tie rows
+        got = tk.launch_curvature_data(p, t_rows, v, csr)
+        want = tk.curvature_data_reference(p, t_rows, v, csr)
+        errs["curvature_data"] = max(
+            _tk_check(torch, "curvature data " + name, a, b, dtype, "curv", rows_ok)
+            for a, b, name, rows_ok in zip(got, want, ("cot", "va", "k_vecs", "vertex_areas"),
+                                           (clear, clear, vclear, vclear)))
+        ups = (torch.as_tensor(rng.standard_normal((p.shape[0], 3)), dtype=dtype, device=dev),
+               torch.as_tensor(rng.standard_normal(p.shape[0]), dtype=dtype, device=dev),
+               cts[0], cts[2])
+        dpos = tk.launch_curvature_data_bwd(p, t_rows, v, csr, *ups)
+        want = tk.curvature_data_vjp_reference(p, t_rows, v, csr, *ups)
+        errs["curvature_data_bwd"] = _bwd_check(torch, "curvature data bwd", dpos, want, dtype,
+                                                vclear)
 
     div, area, g = tk.launch_p1_div(p, tl, t_rows)
     want = tilt_ops.p1_divergence_corners(*corners, *[tl[t_rows[:, i]] for i in range(3)])
@@ -323,43 +634,12 @@ def check_tri_kernels(torch, tk, arrays, dtype, seed: int) -> dict:
     return errs, int(T - int(torch.sum(clear)))
 
 
-def time_tri_kernels(torch, tk, arrays, dtype) -> dict:
-    """Median CUDA-event ms of each kernel and of its twin (corner gathers included)."""
-    from membrane_solver_tpu_torch.device import geo as dgeo
-    from membrane_solver_tpu_torch.device import tilt_ops
-
-    pos, rows, valid, tilts = arrays
-    p = torch.as_tensor(pos, dtype=dtype, device=DEVICE)
-    t_rows = torch.as_tensor(rows, dtype=torch.int64, device=DEVICE)
-    v = torch.as_tensor(valid, device=DEVICE)
-    tl = torch.as_tensor(tilts, dtype=dtype, device=DEVICE)
-    gamma = torch.where(v, 1.0, 0.0).to(dtype)
-    T = t_rows.shape[0]
-    cts = [torch.ones(s, dtype=dtype, device=DEVICE) for s in ((T, 3), (T, 3, 3), (T, 3), (T,))]
-
-    def corners(x):
-        return [x[t_rows[:, i]] for i in range(3)]
-
-    pairs = {
-        "surface_fwd": (lambda: tk.launch_surface(p, t_rows, gamma),
-                        lambda: dgeo.surface_corner_terms(*corners(p), gamma)),
-        "curvature_fwd": (lambda: tk.launch_curvature(p, t_rows, v),
-                          lambda: dgeo.curvature_corners(*corners(p), v)),
-        "curvature_bwd": (lambda: tk.launch_curvature_bwd(p, t_rows, v, *cts),
-                          lambda: tk.curvature_corners_vjp(p, t_rows, v, *cts)),
-        "p1_div_fwd": (lambda: tk.launch_p1_div(p, tl, t_rows),
-                       lambda: tilt_ops.p1_divergence_corners(*corners(p), *corners(tl))),
-    }
-    return {name: (_median_ms(torch, kern), _median_ms(torch, twin))
-            for name, (kern, twin) in pairs.items()}
-
-
 def check_tri_sets(torch, tk, phase: str, sets, errs_out: dict) -> None:
-    """check_tri_kernels at float32 and float64 on each (label, arrays, seed); folds max errors."""
+    """check_tri_kernels at float32 and float64 on each (label, arrays, seed, data); folds max errors."""
     for dtype in (torch.float32, torch.float64):
         name = str(dtype).removeprefix("torch.")
-        for label, arrays, seed in sets:
-            errs, ties = check_tri_kernels(torch, tk, arrays, dtype, seed)
+        for label, arrays, seed, data in sets:
+            errs, ties = check_tri_kernels(torch, tk, arrays, dtype, seed, data)
             say(phase, dtype=name, inputs=repr(label), live_rows=int(np.sum(arrays[2])),
                 tie_rows_left_out=ties, **{k: repr(v) for k, v in errs.items()})
             for k, v in errs.items():
@@ -382,23 +662,91 @@ def kozlov_triangles(torch, mn) -> list:
         present = present_triangles(p.topo, leaflet)
         keep = p.topo.tri_valid if present is None else p.topo.tri_valid & present
         sets.append((f"kozlov leaflet {leaflet} T={rows.shape[0]}",
-                     (pos, rows, keep.cpu().numpy(), tilts.detach().cpu().numpy()), 19))
+                     (pos, rows, keep.cpu().numpy(), tilts.detach().cpu().numpy()), 19, True))
     return sets
 
 
-def phase_tri_kernels(torch, tk) -> dict:
-    lane = _lane_triangles(torch, seed=17)
-    out = {"errs": {}, "ms": {}}
-    check_tri_sets(torch, tk, "3 tri kernels", (("T=301", _seeded_triangles(301, 7), 7),
-                                                (f"lane T={lane[1].shape[0]}", lane, 17)),
-                   out["errs"])
-    for dtype in (torch.float32, torch.float64):
-        name = str(dtype).removeprefix("torch.")
-        times = time_tri_kernels(torch, tk, lane, dtype)
-        say("3 tri kernels timing", dtype=name, T=lane[1].shape[0],
-            **{f"{k}_ms": f"{a:.6f}/{b:.6f}" for k, (a, b) in times.items()})
-        out["ms"][name] = times
-    return out
+def check_determinism(torch, ft, tk, kozlov) -> dict:
+    """Two energy-plus-gradient calls of each redesigned entry point give the same bits.
+
+    Also runs one such call of each under torch.profiler and fails on a
+    PyTorch index, scatter, gather, sort or reduction kernel among its
+    device operations.  Returns the device operations by entry point.
+    """
+    topo, nv = kozlov.topo, kozlov.n_vertices
+    rows, csr = topo.tri_rows, topo.corner_csr()
+    t_in, t_out, g, pay, k = _ft_inputs(torch, rows, nv, 23)
+    ws = ft.Workspace(rows.shape[0], rows.device)
+    pos = kozlov.state.positions.detach().to(torch.float32)
+    rng = np.random.default_rng(29)
+    ups = [torch.as_tensor(rng.standard_normal(s), dtype=torch.float32, device=DEVICE)
+           for s in ((nv, 3), (nv,), (rows.shape[0], 3))]
+
+    def frozen_tilt():
+        a, b = t_in.detach().requires_grad_(True), t_out.detach().requires_grad_(True)
+        e = ft.frozen_tilt_energy(a, b, rows, csr, g, pay, k, ws)
+        return (e.detach(),) + torch.autograd.grad(e, (a, b))
+
+    def curvature():
+        x = pos.detach().requires_grad_(True)
+        cd = tk.curvature_data(x, rows, topo.tri_valid, csr)
+        outs = (cd.k_vecs, cd.vertex_areas, cd.corner_areas)
+        return tuple(o.detach() for o in outs) + torch.autograd.grad(outs, (x,), tuple(ups))
+
+    ops = {}
+    for name, fn in (("frozen_tilt_energy", frozen_tilt), ("curvature_data", curvature)):
+        first, second = fn(), fn()
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            raise AssertionError(f"{name}: two energy-plus-gradient calls differ")
+        ops[name] = device_ops(torch, fn)
+        bad = [n for n in ops[name]
+               if LIBRARY_KERNEL.search(n) and not any(o in n for o in OWN_KERNELS)]
+        if bad:
+            raise AssertionError(f"{name}: PyTorch's own index/scatter/reduction kernels ran: {bad}")
+        say("3 determinism", entry=name, repeat_equal=True,
+            device_ops=json.dumps([n[:60] for n in ops[name]]))
+    return ops
+
+
+def time_kernels(torch, ft, tk, kozlov) -> dict:
+    """Every timing row at the kozlov L3 lane's shapes, float32, keyed by (name, kind)."""
+    rows = frozen_tilt_rows(torch, ft, kozlov.topo, kozlov.n_vertices)
+    rows += tri_rows_of(torch, tk, kozlov.topo, kozlov.state.positions.detach(), torch.float32)
+    recs = measure(torch, rows, "kozlov_L3", "float32")
+    for r in recs:
+        say("3 timing", **{k: (f"{v:.6f}" if isinstance(v, float) else v)
+                           for k, v in r.items() if k != "ops"})
+    return {(r["name"], r["kind"]): r for r in recs}
+
+
+def phase_kernels(torch, mods, kozlov, vesicle) -> dict:
+    """Phase 3 on the two lanes' topologies: checks, determinism, profile check, timing."""
+    ft, tk, vs = mods
+    errs = {}
+    for label, rows, nv, seed in (
+            ("T=301", *_seeded_ft_rows(torch, 301, 7), 7),
+            (f"kozlov T={kozlov.n_tris}", kozlov.topo.tri_rows, kozlov.n_vertices, 13)):
+        e = check_frozen_tilt(torch, ft, rows, nv, seed)
+        say("3 frozen tilt", inputs=repr(label), energy_abs_err=repr(e["ft_energy"]),
+            energy_rel_err=repr(e["energy_rel_err"]), grad_max_abs_err=repr(e["ft_grad"]),
+            grad_err_of_max_g=repr(e["grad_rel_err"]))
+        for key in ("ft_energy", "ft_grad"):
+            errs[key] = max(errs.get(key, 0.0), e[key])
+    errs["vertex_sum"] = check_vertex_sum(torch, vs, kozlov.topo.tri_rows, kozlov.n_vertices)
+    say("3 vertex sum", T=kozlov.n_tris, equal_to_twin=True)
+    check_tri_sets(torch, tk, "3 tri kernels", (
+        ("T=301", _seeded_triangles(301, 7), 7, False),
+        (f"vesicle T={vesicle.n_tris}", _lane_triangles(vesicle, 17), 17, True),
+        (f"kozlov T={kozlov.n_tris}", _lane_triangles(kozlov, 17), 17, True),
+    ), errs)
+    check_determinism(torch, ft, tk, kozlov)
+    return {"errs": errs, "timing": time_kernels(torch, ft, tk, kozlov)}
+
+
+def _seeded_ft_rows(torch, T: int, seed: int):
+    """(tri_rows on the card, vertex count) of seeded distinct-corner triangles."""
+    _pos, rows, _valid, _tilts = _seeded_triangles(T, seed)
+    return torch.as_tensor(rows, device=DEVICE), T // 2 + 3
 
 
 # ----------------------------------------------------------------------
@@ -484,8 +832,8 @@ def timed_steps(torch, mn) -> float:
     return (time.perf_counter() - t0) * 1e3 / max(int(res["iterations"]), 1)
 
 
-def count_syncs(torch, mn) -> int:
-    """Synchronizing CUDA operations in one minimize(1) call."""
+def count_syncs(torch, mn) -> tuple[int, list]:
+    """Synchronizing CUDA operations in one minimize(1) call: (count, [(n, "file:line")], most first)."""
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -494,7 +842,10 @@ def count_syncs(torch, mn) -> int:
             mn.minimize(1)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchronizing" in str(w.message) for w in caught)
+    sites = collections.Counter(
+        f"{Path(w.filename).relative_to(REPO) if Path(w.filename).is_relative_to(REPO) else w.filename}"
+        f":{w.lineno}" for w in caught if "synchronizing" in str(w.message))
+    return sum(sites.values()), [(n, site) for site, n in sites.most_common()]
 
 
 def reset_counts(counters) -> None:
@@ -533,8 +884,9 @@ def phase_path(torch, counters, label: str, fixture: dict, dtype, expect: tuple,
         out["dev_f32"] = max(devs)
         fields["rel_dev_f32_vs_f64_per_step"] = json.dumps(devs)
         fields["max_rel_dev_f32_vs_f64"] = repr(out["dev_f32"])
-    fields["syncs_per_step"] = count_syncs(torch, mn)
+    fields["syncs_per_step"], sites = count_syncs(torch, mn)
     say(label, **fields)
+    say(label + " sync sites", sites=json.dumps(sites))
     missing = [k for k in expect if not launches[k] > 0]
     if missing:
         raise AssertionError(f"{label}: the path did not launch {missing}: {launches}")
@@ -542,6 +894,26 @@ def phase_path(torch, counters, label: str, fixture: dict, dtype, expect: tuple,
         raise AssertionError(f"{label}: f64 trajectory deviates from the JAX fixture by {out['dev_jax']!r}")
     if "dev_f32" in out and not out["dev_f32"] <= F32_RTOL:
         raise AssertionError(f"{label}: f32 trajectory deviates from f64 by {out['dev_f32']!r}")
+    return out
+
+
+def kernels_line(kern: dict, runs: dict) -> list:
+    """The ``{"kernels": [...]}`` entries: one per entry point, every key filled."""
+    out = []
+    for name, (source, replaces, row, counter) in KERNELS.items():
+        timing = kern["timing"]
+        k_row, twin = timing[(row, "kernel")], timing[(row, "twin")]
+        library = timing.get((row, "library"))
+        out.append({
+            "name": name, "route": "cuda", "source": CSRC + source,
+            "replaces": "membrane_solver_tpu/" + replaces,
+            "launches": sum(run["launches"][counter] for run in runs.values()),
+            "max_abs_err": max(kern["errs"][k] for k in ERRORS[name]),
+            "ms": k_row["device_ms"], "plain_ms": twin["device_ms"],
+            "bound_ms": k_row["bound_ms"], "bound_by": k_row["bound_by"],
+            "library_ms": None if library is None else library["device_ms"],
+            "event_ms": k_row["event_ms"], "host_us": k_row["host_us"],
+        })
     return out
 
 
@@ -554,51 +926,36 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from membrane_solver_tpu_torch.kernels import frozen_tilt as ft
     from membrane_solver_tpu_torch.kernels import tri_kernels as tk
+    from membrane_solver_tpu_torch.kernels import vertex_sum as vs
 
     kozlov = load_fixture(KOZLOV_FIXTURE)
     vesicle = load_fixture(VESICLE_FIXTURE)
     device = phase_device(torch)
-    phase_build(ft, tk)
-    kern = phase_kernels(torch, ft)
-    tri = phase_tri_kernels(torch, tk)
+    phase_build((ft, tk, vs))
+    kern = phase_kernels(torch, (ft, tk, vs),
+                         build_lane(torch, kozlov["protocol"], torch.float64).problem(),
+                         build_lane(torch, vesicle["protocol"], torch.float64).problem())
 
-    counters = {"frozen_tilt": ft.LAUNCHES, "tri_kernels": tk.LAUNCHES}
-    tri_all = tuple(f"tri_kernels.{k}" for k in tk.LAUNCHES)
-    tri_vesicle = ("tri_kernels.surface_fwd", "tri_kernels.curvature_fwd",
-                   "tri_kernels.curvature_bwd")
+    counters = {"frozen_tilt": ft.LAUNCHES, "tri_kernels": tk.LAUNCHES,
+                "vertex_sum": vs.LAUNCHES}
+    shared = ("tri_kernels.surface_fwd", "tri_kernels.curvature_data",
+              "tri_kernels.curvature_data_bwd", "vertex_sum.vertex_sum")
+    kozlov_path = shared + ("tri_kernels.p1_div_fwd",)
     runs = {}
     runs["k32"] = phase_path(torch, counters, "4 kozlov_L3 f32", kozlov, torch.float32,
-                             ("frozen_tilt.fwd", "frozen_tilt.bwd") + tri_all)
-    runs["k64"] = phase_path(torch, counters, "5 kozlov_L3 f64", kozlov, torch.float64, tri_all,
-                             f32_energies=runs["k32"]["energies"])
+                             kozlov_path + ("frozen_tilt.energy", "frozen_tilt.energy_grad"))
+    runs["k64"] = phase_path(torch, counters, "5 kozlov_L3 f64", kozlov, torch.float64,
+                             kozlov_path, f32_energies=runs["k32"]["energies"])
     check_tri_sets(torch, tk, "5 kozlov_L3 tri kernels", kozlov_triangles(torch, runs["k64"]["mn"]),
-                   tri["errs"])
+                   kern["errs"])
     runs["v32"] = phase_path(torch, counters, "6 helfrich_cube_L5 f32", vesicle, torch.float32,
-                             tri_vesicle)
+                             shared)
     runs["v64"] = phase_path(torch, counters, "7 helfrich_cube_L5 f64", vesicle, torch.float64,
-                             tri_vesicle, f32_energies=runs["v32"]["energies"])
+                             shared, f32_energies=runs["v32"]["energies"])
     if "jax" in sys.modules or any(m.split(".")[0] == "membrane_solver_tpu" for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
 
-    def launches(key):
-        return sum(run["launches"][key] for run in runs.values())
-
-    kernels = [
-        {"name": "frozen_tilt_energy", "route": "cuda", "source": FT_SOURCE,
-         "replaces": REPLACES_FWD, "launches": launches("frozen_tilt.fwd"),
-         "max_abs_err": kern["energy_abs_err"], "ms": kern["kernel_fwd_ms"],
-         "plain_ms": kern["twin_fwd_ms"]},
-        {"name": "frozen_tilt_grad", "route": "cuda", "source": FT_SOURCE,
-         "replaces": REPLACES_BWD, "launches": launches("frozen_tilt.bwd"),
-         "max_abs_err": kern["grad_abs_err"], "ms": kern["kernel_bwd_ms"],
-         "plain_ms": kern["twin_grads_ms"]},
-    ]
-    for name, replaces in TK_REPLACES.items():
-        ms, plain_ms = tri["ms"]["float32"][name]
-        kernels.append({"name": f"tri_{name}", "route": "cuda", "source": TK_SOURCE,
-                        "replaces": replaces, "launches": launches(f"tri_kernels.{name}"),
-                        "max_abs_err": tri["errs"][name], "ms": ms, "plain_ms": plain_ms})
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernels_line(kern, runs)}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 

@@ -2,19 +2,34 @@
 //
 // Replace the Pallas kernels of membrane_solver_tpu/pallas_kernels/tri_kernels.py:
 //
-//   tri_surface_fwd     <- _surface_kernel   (surface_corner_grads_pallas)
-//   tri_curvature_fwd   <- _curvature_kernel (curvature_corners_pallas)
-//   tri_curvature_bwd      (its backward; the Pallas kernel had none: JAX
-//                           differentiates the stock geo.curvature_data)
-//   tri_p1_div_fwd      <- _p1_div_kernel    (p1_divergence_pallas)
+//   tri_surface_fwd       <- _surface_kernel   (surface_corner_grads_pallas)
+//   tri_curvature_data    <- _curvature_kernel (curvature_corners_pallas) and
+//                            the stock geo.curvature_data scatter after it
+//   tri_curvature_data_bwd   (its backward; the Pallas kernel had none: JAX
+//                            differentiates the stock geo.curvature_data)
+//   tri_p1_div_fwd        <- _p1_div_kernel    (p1_divergence_pallas)
+//
+// tri_curvature_fwd and tri_curvature_bwd run the same two curvature kernels
+// with per-triangle outputs and upstreams (curvature_corners).
 //
 // Each thread reads its three corners straight from the (Nv, 3) positions
 // (and tilts) through the (T, 3) int64 tri_rows, so the corner gather is in
 // the kernel; it writes row-major per-triangle outputs in the layout of the
-// JAX functions (corner vectors as (T, 3, 3), index corner * 3 + xyz).  The
-// scatter back to vertices stays an index_add in the wrapper, as the JAX
-// kernels leave it to their caller.  A row index outside [0, Nv) makes that
-// triangle's outputs NaN instead of reading out of bounds.
+// JAX functions (corner vectors as (T, 3, 3), index corner * 3 + xyz).  A row
+// index outside [0, Nv) makes that triangle's outputs NaN instead of reading
+// out of bounds.
+//
+// The curvature data is one call each way, with no atomics.  Forward: the
+// curvature kernel writes the cotangents and Meyer corner areas (outputs)
+// and the corner mean-curvature vectors (to a scratch that stays in L2),
+// then the vertex-sum kernel (vertex_sum.cuh) adds the corner vectors and
+// areas into k_vecs (Nv, 3) and vertex_areas (Nv,) in the order of the
+// topology's corner CSR.  Backward: the backward kernel reads the vertex
+// upstream of k_vecs and vertex_areas through tri_rows itself, adds the
+// per-triangle upstream of the cotangents and corner areas, writes corner
+// gradients to a scratch, and the vertex-sum kernel adds them into (Nv, 3).
+// Any upstream pointer may be null (zero).  The sums run in a fixed order,
+// so both directions give the same bits on every run.
 //
 // The arithmetic follows the plain twins in device/geo.py and
 // device/tilt_ops.py operation by operation; the file is built with
@@ -22,20 +37,21 @@
 // obtuse-branch tests (c < 0) on the same side as the twin's where the
 // cotangent sits at a tie (the right triangles of a refined cube).
 //
-// What bounds it on an H100: memory traffic and launch latency.  Per
-// triangle the curvature forward reads 3 int64 rows + 9 coordinates and
-// writes 16 values (~230 bytes at float64); at 24,576 triangles that is
-// ~6 MB, about 2 us of HBM time at 3.35 TB/s, against several us of launch
-// overhead, so the design stays a plain elementwise pass: no shared memory,
-// no padding (the ragged edge is a bounds check), registers only.  The
-// backward recomputes the forward in registers rather than reading saved
-// intermediates, which trades ~100 flops for ~200 bytes per triangle.  The
-// next moves are a fused scatter to vertices and fusing the surface and
-// curvature passes, which read the same corners.
+// What bounds it on an H100: memory traffic and latency.  At the kozlov L3
+// lane (Nv = 10,817, T = 21,504, float32) the curvature data moves 1.36 MB
+// (positions, int64 tri_rows, the mask, cotangents, corner areas, k_vecs,
+// vertex areas), about 0.4 us at 3.35 TB/s, and some 140 flops per triangle:
+// the design stays an elementwise pass per triangle plus a gather per
+// vertex, registers only.  The backward recomputes the forward in registers
+// rather than reading saved intermediates, which trades ~100 flops for ~200
+// bytes per triangle.  The next move is one pass for the surface and
+// curvature forwards, which read the same corners.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "vertex_sum.cuh"
 
 namespace {
 
@@ -185,7 +201,7 @@ __global__ void curvature_fwd_kernel(const T* __restrict__ pos, const int64_t* _
     const T q = nan_of<T>();
     for (int i = 0; i < 3; ++i) cot[3 * t + i] = va[3 * t + i] = q;
     for (int i = 0; i < 9; ++i) kv[9 * t + i] = q;
-    tri_area[t] = q;
+    if (tri_area) tri_area[t] = q;
     return;
   }
   const Curv<T> s = curv_of(v);
@@ -212,7 +228,7 @@ __global__ void curvature_fwd_kernel(const T* __restrict__ pos, const int64_t* _
   cot[3 * t + 0] = s.c0 * m;
   cot[3 * t + 1] = s.c1 * m;
   cot[3 * t + 2] = s.c2 * m;
-  tri_area[t] = area;
+  if (tri_area) tri_area[t] = area;
 }
 
 // Adjoint of the Meyer corner area of corner i, whose two "other" corners
@@ -235,11 +251,25 @@ __device__ __forceinline__ void va_adjoint(T g, bool obt_i, bool obt_other, bool
   }
 }
 
+// Upstream of corner value i of triangle t: the per-triangle array's entry
+// (if given) plus the vertex array's row under that corner (if given).
+template <typename T>
+__device__ __forceinline__ T upstream(const T* __restrict__ per_tri, int64_t i,
+                                      const T* __restrict__ per_vertex, int64_t j) {
+  T g = per_tri ? per_tri[i] : T(0);
+  if (per_vertex) g += per_vertex[j];
+  return g;
+}
+
+// g_cot, g_kv (T, 3, 3), g_va, g_area: per-triangle upstreams; g_kvecs
+// (Nv, 3) and g_varea (Nv,): upstreams of the vertex sums of the corner
+// vectors and corner areas.  Each may be null.
 template <typename T>
 __global__ void curvature_bwd_kernel(const T* __restrict__ pos, const int64_t* __restrict__ rows,
                                      const bool* __restrict__ valid, const T* __restrict__ g_cot,
                                      const T* __restrict__ g_kv, const T* __restrict__ g_va,
-                                     const T* __restrict__ g_area, T* __restrict__ dp, int n,
+                                     const T* __restrict__ g_area, const T* __restrict__ g_kvecs,
+                                     const T* __restrict__ g_varea, T* __restrict__ dp, int n,
                                      int64_t nv) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n) return;
@@ -252,16 +282,21 @@ __global__ void curvature_bwd_kernel(const T* __restrict__ pos, const int64_t* _
   const Curv<T> s = curv_of(v);
   const T m = valid[t] ? T(1) : T(0);
   const T half = T(0.5);
-  const V3<T> gk0 = {g_kv[9 * t + 0], g_kv[9 * t + 1], g_kv[9 * t + 2]};
-  const V3<T> gk1 = {g_kv[9 * t + 3], g_kv[9 * t + 4], g_kv[9 * t + 5]};
-  const V3<T> gk2 = {g_kv[9 * t + 6], g_kv[9 * t + 7], g_kv[9 * t + 8]};
+  const int64_t r0 = rows[3 * t], r1 = rows[3 * t + 1], r2 = rows[3 * t + 2];
+  const int64_t k0 = 9 * (int64_t)t;
+  const V3<T> gk0 = {upstream(g_kv, k0 + 0, g_kvecs, 3 * r0), upstream(g_kv, k0 + 1, g_kvecs, 3 * r0 + 1),
+                     upstream(g_kv, k0 + 2, g_kvecs, 3 * r0 + 2)};
+  const V3<T> gk1 = {upstream(g_kv, k0 + 3, g_kvecs, 3 * r1), upstream(g_kv, k0 + 4, g_kvecs, 3 * r1 + 1),
+                     upstream(g_kv, k0 + 5, g_kvecs, 3 * r1 + 2)};
+  const V3<T> gk2 = {upstream(g_kv, k0 + 6, g_kvecs, 3 * r2), upstream(g_kv, k0 + 7, g_kvecs, 3 * r2 + 1),
+                     upstream(g_kv, k0 + 8, g_kvecs, 3 * r2 + 2)};
 
   // adjoints of the cotangents, the squared lengths, the area and the edges
-  T gc0 = g_cot[3 * t + 0] * m;
-  T gc1 = g_cot[3 * t + 1] * m;
-  T gc2 = g_cot[3 * t + 2] * m;
+  T gc0 = (g_cot ? g_cot[3 * t + 0] : T(0)) * m;
+  T gc1 = (g_cot ? g_cot[3 * t + 1] : T(0)) * m;
+  T gc2 = (g_cot ? g_cot[3 * t + 2] : T(0)) * m;
   T gl0 = T(0), gl1 = T(0), gl2 = T(0);
-  T gA = g_area[t];
+  T gA = g_area ? g_area[t] : T(0);
   V3<T> ge0 = {T(0), T(0), T(0)}, ge1 = ge0, ge2 = ge0;
 
   // k0 = m/2 (c1 (-e1) + c2 e2), k1 = m/2 (c2 (-e2) + c0 e0), k2 = m/2 (c0 (-e0) + c1 e1)
@@ -281,12 +316,15 @@ __global__ void curvature_bwd_kernel(const T* __restrict__ pos, const int64_t* _
 
   // Meyer corner areas (masked)
   const bool any_obt = s.obt0 || s.obt1 || s.obt2;
-  va_adjoint(g_va[3 * t + 0] * m, s.obt0, s.obt1 || s.obt2, any_obt, s.l1, s.c1, s.l2, s.c2, gA,
-             gl1, gc1, gl2, gc2);
-  va_adjoint(g_va[3 * t + 1] * m, s.obt1, s.obt0 || s.obt2, any_obt, s.l2, s.c2, s.l0, s.c0, gA,
-             gl2, gc2, gl0, gc0);
-  va_adjoint(g_va[3 * t + 2] * m, s.obt2, s.obt0 || s.obt1, any_obt, s.l0, s.c0, s.l1, s.c1, gA,
-             gl0, gc0, gl1, gc1);
+  const T gva0 = upstream(g_va, 3 * (int64_t)t + 0, g_varea, r0) * m;
+  const T gva1 = upstream(g_va, 3 * (int64_t)t + 1, g_varea, r1) * m;
+  const T gva2 = upstream(g_va, 3 * (int64_t)t + 2, g_varea, r2) * m;
+  va_adjoint(gva0, s.obt0, s.obt1 || s.obt2, any_obt, s.l1, s.c1, s.l2, s.c2, gA, gl1, gc1, gl2,
+             gc2);
+  va_adjoint(gva1, s.obt1, s.obt0 || s.obt2, any_obt, s.l2, s.c2, s.l0, s.c0, gA, gl2, gc2, gl0,
+             gc0);
+  va_adjoint(gva2, s.obt2, s.obt0 || s.obt1, any_obt, s.l0, s.c0, s.l1, s.c1, gA, gl0, gc0, gl1,
+             gc1);
 
   // area = dbl / 2; c_i = d_i / dbl with d0 = -e1.e2, d1 = -e2.e0, d2 = -e0.e1
   T gdbl = half * gA;
@@ -401,11 +439,83 @@ extern "C" int tri_curvature_bwd(int f64, const void* pos, const int64_t* rows, 
     if (f64) {
       curvature_bwd_kernel<double><<<blocks_for(n), kThreads, 0, st>>>(
           (const double*)pos, rows, valid, (const double*)g_cot, (const double*)g_kv,
-          (const double*)g_va, (const double*)g_area, (double*)dp, n, nv);
+          (const double*)g_va, (const double*)g_area, nullptr, nullptr, (double*)dp, n, nv);
     } else {
       curvature_bwd_kernel<float><<<blocks_for(n), kThreads, 0, st>>>(
           (const float*)pos, rows, valid, (const float*)g_cot, (const float*)g_kv,
-          (const float*)g_va, (const float*)g_area, (float*)dp, n, nv);
+          (const float*)g_va, (const float*)g_area, nullptr, nullptr, (float*)dp, n, nv);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+namespace {
+
+template <typename T>
+void curvature_data(const T* pos, const int64_t* rows, const bool* valid, const int32_t* offsets,
+                    const int32_t* slots, T* cot, T* va, T* k_scratch, T* k_vecs, T* vertex_areas,
+                    int n, int64_t nv, cudaStream_t st) {
+  curvature_fwd_kernel<T><<<blocks_for(n), kThreads, 0, st>>>(pos, rows, valid, cot, k_scratch,
+                                                               va, nullptr, n, nv);
+  vertex_sum::launch<T, 3, 1>(offsets, slots, k_scratch, k_vecs, va, vertex_areas, (int)nv, st);
+}
+
+template <typename T>
+void curvature_data_bwd(const T* pos, const int64_t* rows, const bool* valid,
+                        const int32_t* offsets, const int32_t* slots, const T* g_kvecs,
+                        const T* g_varea, const T* g_cot, const T* g_va, T* dc_scratch, T* dpos,
+                        int n, int64_t nv, cudaStream_t st) {
+  curvature_bwd_kernel<T><<<blocks_for(n), kThreads, 0, st>>>(
+      pos, rows, valid, g_cot, nullptr, g_va, nullptr, g_kvecs, g_varea, dc_scratch, n, nv);
+  vertex_sum::launch<T, 3>(offsets, slots, dc_scratch, dpos, nullptr, nullptr, (int)nv, st);
+}
+
+}  // namespace
+
+// Cotan curvature data in one call: cot (T, 3) and va (T, 3) per corner,
+// k_vecs (Nv, 3) and vertex_areas (Nv,) summed over the corner CSR
+// (offsets (Nv + 1,), slots (3T,)); k_scratch is (T, 3, 3).
+extern "C" int tri_curvature_data(int f64, const void* pos, const int64_t* rows,
+                                  const bool* valid, const int32_t* offsets,
+                                  const int32_t* slots, void* cot, void* va, void* k_scratch,
+                                  void* k_vecs, void* vertex_areas, int n, int64_t nv,
+                                  void* stream) {
+  if (n > 0) {
+    cudaStream_t st = (cudaStream_t)stream;
+    if (f64) {
+      curvature_data<double>((const double*)pos, rows, valid, offsets, slots, (double*)cot,
+                             (double*)va, (double*)k_scratch, (double*)k_vecs,
+                             (double*)vertex_areas, n, nv, st);
+    } else {
+      curvature_data<float>((const float*)pos, rows, valid, offsets, slots, (float*)cot,
+                            (float*)va, (float*)k_scratch, (float*)k_vecs, (float*)vertex_areas,
+                            n, nv, st);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+// Its backward in one call: dpos (Nv, 3) from the upstream of k_vecs
+// (Nv, 3), vertex_areas (Nv,), cot (T, 3) and va (T, 3), any of them null;
+// dc_scratch is (T, 3, 3).
+extern "C" int tri_curvature_data_bwd(int f64, const void* pos, const int64_t* rows,
+                                      const bool* valid, const int32_t* offsets,
+                                      const int32_t* slots, const void* g_kvecs,
+                                      const void* g_varea, const void* g_cot, const void* g_va,
+                                      void* dc_scratch, void* dpos, int n, int64_t nv,
+                                      void* stream) {
+  if (n > 0) {
+    cudaStream_t st = (cudaStream_t)stream;
+    if (f64) {
+      curvature_data_bwd<double>((const double*)pos, rows, valid, offsets, slots,
+                                 (const double*)g_kvecs, (const double*)g_varea,
+                                 (const double*)g_cot, (const double*)g_va, (double*)dc_scratch,
+                                 (double*)dpos, n, nv, st);
+    } else {
+      curvature_data_bwd<float>((const float*)pos, rows, valid, offsets, slots,
+                                (const float*)g_kvecs, (const float*)g_varea,
+                                (const float*)g_cot, (const float*)g_va, (float*)dc_scratch,
+                                (float*)dpos, n, nv, st);
     }
   }
   return (int)cudaGetLastError();

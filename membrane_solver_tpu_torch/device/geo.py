@@ -15,7 +15,10 @@ from ``kernels/tri_kernels``, which launches the kernels for a CUDA tensor
 and runs these twins for a CPU one.
 
 Scatter-adds are ``index_add``: deterministic on the CPU, and on CUDA the
-float atomics make the summation order vary from run to run.
+float atomics make the summation order vary from run to run.  The cotan
+curvature data on the solver's path goes through
+``kernels/tri_kernels.curvature_data`` instead, whose vertex sums run in
+a fixed order on both devices.
 """
 
 from __future__ import annotations
@@ -231,11 +234,6 @@ def curvature_data(
     """Cotan curvature data: :func:`curvature_corners` scattered to vertices."""
     corners = (positions[tri_rows[:, 0]], positions[tri_rows[:, 1]], positions[tri_rows[:, 2]])
     cot, k0, k1, k2, va, _tri_areas = curvature_corners(*corners, tri_valid)
-    return scatter_curvature(cot, k0, k1, k2, va, tri_rows, n_rows)
-
-
-def scatter_curvature(cot, k0, k1, k2, va, tri_rows: torch.Tensor, n_rows: int) -> CurvatureData:
-    """CurvatureData from the per-triangle terms of :func:`curvature_corners`."""
     return CurvatureData(
         k_vecs=scatter_add_rows(k0, k1, k2, tri_rows, n_rows),
         vertex_areas=scatter_add_rows(va[:, 0], va[:, 1], va[:, 2], tri_rows, n_rows),

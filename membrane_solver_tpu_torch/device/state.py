@@ -11,6 +11,7 @@ validity masks (all true here).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Collection, Dict, Mapping, Tuple
 
 import numpy as np
@@ -30,6 +31,48 @@ class MeshState:
     tilts: torch.Tensor
     tilts_in: torch.Tensor
     tilts_out: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class CornerCSR:
+    """Which triangle corners touch each vertex, as a CSR.
+
+    ``slots[offsets[v]:offsets[v + 1]]`` hold ``tri * 3 + corner`` for every
+    corner at vertex row ``v``, in triangle order (a stable sort by vertex).
+    The vertex-sum kernel and its twin (``kernels/vertex_sum``) add corner
+    rows into vertex rows in this order, so the sums are deterministic.
+    """
+
+    offsets: torch.Tensor  # (N + 1,) int32
+    slots: torch.Tensor  # (3T,) int32
+
+    @property
+    def n_rows(self) -> int:
+        return self.offsets.shape[0] - 1
+
+    @functools.cached_property
+    def max_degree(self) -> int:
+        """Corners at the busiest vertex: the twin's loop count (one host read, at first use)."""
+        return int(torch.max(self.offsets[1:] - self.offsets[:-1])) if self.n_rows else 0
+
+
+def corner_csr(tri_rows: torch.Tensor, n_rows: int) -> CornerCSR:
+    """The :class:`CornerCSR` of ``tri_rows`` (T, 3) over ``n_rows`` vertex rows.
+
+    Plain PyTorch, once per topology, with one host read (the range check):
+    a stable sort by vertex, then each vertex's first slot by binary search.
+    """
+    flat = tri_rows.reshape(-1)
+    if flat.numel() >= 2**31 or n_rows >= 2**31:
+        raise ValueError(f"{flat.numel()} corners / {n_rows} rows exceed the int32 CSR")
+    if flat.numel():
+        lo, hi = (int(x) for x in torch.stack(torch.aminmax(flat)).tolist())
+        if lo < 0 or hi >= n_rows:
+            raise ValueError(f"tri_rows span [{lo}, {hi}], outside the {n_rows} vertex rows")
+    by_vertex, slots = torch.sort(flat, stable=True)
+    first = torch.arange(n_rows + 1, dtype=flat.dtype, device=flat.device)
+    offsets = torch.searchsorted(by_vertex, first).to(torch.int32)
+    return CornerCSR(offsets=offsets, slots=slots.to(torch.int32))
 
 
 @dataclasses.dataclass
@@ -54,6 +97,18 @@ class Topology:
     body_volume_stiffness: torch.Tensor
     # per-module compiled extras, namespaced "kind:module/key"
     extras: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+
+    def corner_csr(self) -> CornerCSR:
+        """The vertex-to-corner CSR of ``tri_rows``, built at first use and kept.
+
+        Kept beside the ``tri_rows`` tensor it was built from, so a topology
+        whose ``tri_rows`` is replaced builds a new one.
+        """
+        cached = self.__dict__.get("_corner_csr")
+        if cached is None or cached[0] is not self.tri_rows:
+            cached = (self.tri_rows, corner_csr(self.tri_rows, self.vertex_valid.shape[0]))
+            self.__dict__["_corner_csr"] = cached
+        return cached[1]
 
 
 _TOPO_FIELDS = tuple(f.name for f in dataclasses.fields(Topology) if f.name != "extras")

@@ -77,7 +77,7 @@ def bending_fields(state, topo):
     n_rows = positions.shape[0]
     geo = dgeo.triangle_geometry(positions, topo.tri_rows, topo.tri_valid)
     vnormals = dgeo.vertex_normals(geo, topo.tri_rows, topo.tri_valid, n_rows)
-    curv = tri_kernels.curvature_data(positions, topo.tri_rows, topo.tri_valid, n_rows)
+    curv = tri_kernels.curvature_data(positions, topo.tri_rows, topo.tri_valid, topo.corner_csr())
     safe_vor = torch.clamp(curv.vertex_areas, min=1e-12)
     # |K| with the normal-direction gradient fallback at flat states
     H = dgeo.directional_norm(curv.k_vecs, vnormals) / (2.0 * safe_vor)

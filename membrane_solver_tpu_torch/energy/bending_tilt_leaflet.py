@@ -48,7 +48,7 @@ def _fields(positions, topo, params, kappa_key, c0_key, tri_present=None):
     keep = topo.tri_valid if tri_present is None else (topo.tri_valid & tri_present)
     geo = dgeo.triangle_geometry(positions, topo.tri_rows, keep)
     vnormals = dgeo.vertex_normals(geo, topo.tri_rows, keep, n_rows)
-    curv = tri_kernels.curvature_data(positions, topo.tri_rows, topo.tri_valid, n_rows)
+    curv = tri_kernels.curvature_data(positions, topo.tri_rows, topo.tri_valid, topo.corner_csr())
     safe_vor = torch.clamp(curv.vertex_areas, min=1e-12)
     H = dgeo.directional_norm(curv.k_vecs, vnormals) / (2.0 * safe_vor)
 
@@ -123,7 +123,7 @@ def leaflet_bending_tilt_energy(
         coef_a_eff = 0.5 * kappa * term_v**2
         coef_a_vor = -2.0 * kappa * term_v * ratio * xf["H"]
 
-    curv_k = tri_kernels.curvature_data(positions, topo.tri_rows, keep, n_rows)
+    curv_k = tri_kernels.curvature_data(positions, topo.tri_rows, keep, topo.corner_csr())
     va_k = _redistributed_va(curv_k.corner_areas, topo, keep)
     a_eff_k = dgeo.scatter_add_rows(va_k[:, 0], va_k[:, 1], va_k[:, 2], topo.tri_rows, n_rows)
     surrogate = (

@@ -3,7 +3,7 @@
 Each source is compiled on its own by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds), at first use, into the ignored ``_build/`` directory, keyed by a
-hash of the source and the flags.  :func:`build` starts every missing
+hash of the source, the shared ``csrc/*.cuh`` headers and the flags.  :func:`build` starts every missing
 compile at once and waits for all of them, so several sources build in
 parallel.
 """
@@ -47,7 +47,11 @@ class Source:
         return NVCC_FLAGS + self.extra_flags
 
     def library_path(self) -> Path:
-        digest = hashlib.sha256(self.path.read_bytes() + " ".join(self.flags).encode()).hexdigest()
+        """The library's path, keyed by the source, the shared headers and the flags."""
+        text = self.path.read_bytes()
+        for header in sorted(self.path.parent.glob("*.cuh")):
+            text += header.read_bytes()
+        digest = hashlib.sha256(text + " ".join(self.flags).encode()).hexdigest()
         return BUILD_DIR / f"{self.name}-{digest[:16]}.so"
 
     def log(self) -> str:

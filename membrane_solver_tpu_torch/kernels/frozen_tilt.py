@@ -4,20 +4,30 @@ Counterpart of ``membrane_solver_tpu/pallas_kernels/frozen_tilt.py``.  One
 pass per triangle evaluates the four triangle-supported frozen tilt
 energies of the caveolin/Kozlov lanes (lumped tilt mass of both leaflets,
 the two bending-tilt corner forms, and the tilt-smoothness Dirichlet terms
-when active); the backward pass is analytic.  The kernels live in
-``csrc/frozen_tilt.cu``, are compiled with ``nvcc`` for ``sm_90a`` at first
-use into ``_build/`` (keyed by a hash of the source), and are bound with
+when active); the gradient is analytic.  The kernels live in
+``csrc/frozen_tilt.cu`` (with the shared vertex-sum kernel of
+``csrc/vertex_sum.cuh``), are compiled with ``nvcc`` for ``sm_90a`` at first
+use into ``_build/`` (keyed by a hash of the sources), and are bound with
 ``ctypes``.
 
-Dispatch: a CUDA float32 tensor launches the kernel (after shape,
-contiguity and dtype checks); any other CUDA tensor raises.  A CPU tensor
-runs the twins, :func:`reference_energy` and :func:`reference_grads`,
-which have the same arithmetic.  ``LAUNCHES`` counts kernel launches.
+The entry point, :func:`frozen_tilt_energy`, takes vertex tilts: one ctypes
+call gathers the corners through ``tri_rows``, sums the energy into one
+device scalar and, when a tilt requires grad, scatters the corner gradients
+to vertices in the topology's corner-CSR order (no atomics: the same bits
+on every run).  Its backward scales the gradients the forward saved and
+launches nothing.
 
-Inputs: tin_c, tout_c (T, 3, 3) gathered corner tilts; g (T, 3, 3) P1 shape
-gradients; payload (T, 20) = [A_in, A_out, base_in(3), va_in(3),
-base_out(3), va_out(3), w_in(3), w_out(3)]; k_vec (6,) = [k_in, k_out,
-kappa_in, kappa_out, ks_in, ks_out].
+Dispatch: CUDA float32 tensors launch the kernels (after shape, contiguity,
+alignment and dtype checks); any other CUDA tensor raises.  CPU tensors run
+the twins: :func:`reference_energy` and :func:`reference_grads` on gathered
+corners, and the vertex-sum twin, in :func:`reference_vertex`.
+``LAUNCHES`` counts the energy-only and energy-plus-gradient calls.
+
+Inputs: t_in, t_out (N, 3) vertex tilts; tri_rows (T, 3) int64; the
+topology's :class:`~membrane_solver_tpu_torch.device.state.CornerCSR`; g
+(T, 3, 3) P1 shape gradients; payload (T, 20) = [A_in, A_out, base_in(3),
+va_in(3), base_out(3), va_out(3), w_in(3), w_out(3)]; k_vec (6,) = [k_in,
+k_out, kappa_in, kappa_out, ks_in, ks_out].
 """
 
 from __future__ import annotations
@@ -26,12 +36,15 @@ import ctypes
 
 import torch
 
+from membrane_solver_tpu_torch.device.state import CornerCSR
 from membrane_solver_tpu_torch.kernels import _build
+from membrane_solver_tpu_torch.kernels import vertex_sum as vs
 
-LAUNCHES = {"fwd": 0, "bwd": 0}
+LAUNCHES = {"energy": 0, "energy_grad": 0}
 
 KERNEL = _build.Source("frozen_tilt")
 SOURCE = KERNEL.path
+BLOCK = 128  # triangles per block: one energy partial each (csrc/frozen_tilt.cu kThreads)
 
 _lib = None
 
@@ -48,7 +61,7 @@ def _split(payload, k_vec):
 
 
 def reference_energy(tin_c, tout_c, g, payload, k_vec):
-    """Plain twin of the forward kernel: the scalar frozen-tilt energy."""
+    """The scalar frozen-tilt energy of (T, 3, 3) gathered corner tilts."""
     (A_in, A_out, base_in, va_in, base_out, va_out, w_in, w_out,
      k_in, k_out, kap_in, kap_out, ks_in, ks_out) = _split(payload, k_vec)
     sq_in = torch.sum(tin_c * tin_c, dim=(1, 2))
@@ -87,7 +100,7 @@ def _dirichlet_grad(t, w, half_k):
 
 
 def reference_grads(tin_c, tout_c, g, payload, k_vec):
-    """Plain twin of the gradient kernel: (dE/dtin_c, dE/dtout_c), each (T, 3, 3)."""
+    """The corner gradients (dE/dtin_c, dE/dtout_c), each (T, 3, 3)."""
     (A_in, A_out, base_in, va_in, base_out, va_out, w_in, w_out,
      k_in, k_out, kap_in, kap_out, ks_in, ks_out) = _split(payload, k_vec)
     div_in = torch.sum(tin_c * g, dim=(1, 2))
@@ -104,6 +117,21 @@ def reference_grads(tin_c, tout_c, g, payload, k_vec):
     )
 
 
+def reference_vertex(t_in, t_out, tri_rows, csr, g, payload, k_vec, grad: bool):
+    """Plain twin of the entry point: (energy 0-dim, dE/dt_in, dE/dt_out) or (energy, None, None).
+
+    Gathers the corners, evaluates :func:`reference_energy` and, with
+    ``grad``, sums :func:`reference_grads` into vertex rows in CSR order
+    (``vertex_sum.reference``).
+    """
+    tin_c, tout_c = t_in[tri_rows], t_out[tri_rows]
+    e = reference_energy(tin_c, tout_c, g, payload, k_vec)
+    if not grad:
+        return e, None, None
+    din_c, dout_c = reference_grads(tin_c, tout_c, g, payload, k_vec)
+    return e, vs.reference(din_c, csr), vs.reference(dout_c, csr)
+
+
 # ----------------------------------------------------------------------
 # build and launch
 # ----------------------------------------------------------------------
@@ -114,95 +142,126 @@ def build() -> ctypes.CDLL:
         return _lib
     (lib,) = _build.build(KERNEL)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.frozen_tilt_energy.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, ptr]
-    lib.frozen_tilt_energy.restype = i32
-    lib.frozen_tilt_grad.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, ptr]
-    lib.frozen_tilt_grad.restype = i32
+    lib.frozen_tilt_vertex.argtypes = [ptr] * 15 + [i32, i32, i32, ptr]
+    lib.frozen_tilt_vertex.restype = i32
+    lib.frozen_tilt_block_size.restype = i32
+    if lib.frozen_tilt_block_size() != BLOCK:
+        raise RuntimeError(f"frozen_tilt.cu uses {lib.frozen_tilt_block_size()}-triangle blocks, "
+                           f"the wrapper {BLOCK}")
     _lib = lib
     return lib
 
 
-def _check_inputs(tin_c, tout_c, g, payload, k_vec) -> int:
-    T = tin_c.shape[0]
+class Workspace:
+    """Scratch of the CUDA entry point for T triangles, allocated once per relax.
+
+    Two (T, 3, 3) corner-gradient slabs, one double energy partial per block
+    of ``BLOCK`` triangles, and the last-block counter (zeroed here; each
+    launch leaves it at zero).  Calls that share a workspace must run in
+    order on one stream.
+    """
+
+    def __init__(self, n_triangles: int, device):
+        f32 = {"dtype": torch.float32, "device": device}
+        self.n_triangles = n_triangles
+        self.din_c = torch.empty((n_triangles, 3, 3), **f32)
+        self.dout_c = torch.empty((n_triangles, 3, 3), **f32)
+        self.partials = torch.empty(-(-n_triangles // BLOCK), dtype=torch.float64, device=device)
+        self.counter = torch.zeros(1, dtype=torch.int32, device=device)
+
+
+def _check_inputs(t_in, t_out, tri_rows, g, payload, k_vec) -> tuple[int, int]:
+    if not t_in.is_cuda:
+        raise ValueError(f"the frozen_tilt launch takes CUDA tensors, got {t_in.device}")
+    N, T = t_in.shape[0], tri_rows.shape[0]
+    if T < 1 or T >= 2**31 or N >= 2**31:
+        raise ValueError(f"{T} triangles / {N} vertices: outside the kernel's int range")
     expected = {
-        "tin_c": (tin_c, (T, 3, 3)),
-        "tout_c": (tout_c, (T, 3, 3)),
-        "g": (g, (T, 3, 3)),
-        "payload": (payload, (T, 20)),
-        "k_vec": (k_vec, (6,)),
+        "t_in": (t_in, (N, 3), torch.float32),
+        "t_out": (t_out, (N, 3), torch.float32),
+        "tri_rows": (tri_rows, (T, 3), torch.int64),
+        "g": (g, (T, 3, 3), torch.float32),
+        "payload": (payload, (T, 20), torch.float32),
+        "k_vec": (k_vec, (6,), torch.float32),
     }
-    for name, (x, shape) in expected.items():
-        if not x.is_cuda or x.device != tin_c.device:
-            raise ValueError(f"{name} must lie on {tin_c.device}, got {x.device}")
-        if x.dtype != torch.float32:
-            raise TypeError(f"the frozen_tilt kernel takes float32; {name} is {x.dtype}")
+    for name, (x, shape, dtype) in expected.items():
+        if x.device != t_in.device:
+            raise ValueError(f"{name} must lie on {t_in.device}, got {x.device}")
+        if x.dtype != dtype:
+            raise TypeError(f"the frozen_tilt kernel takes {dtype} {name}, got {x.dtype}")
         if tuple(x.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if T >= 2**31:
-        raise ValueError(f"{T} triangles exceed the kernel's int index")
-    return T
+    for name, x in (("g", g), ("payload", payload)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary (bulk copies)")
+    return N, T
 
 
-def _raise_on(code: int, what: str) -> None:
+def launch(t_in, t_out, tri_rows, csr: CornerCSR, g, payload, k_vec, ws: Workspace, grad: bool):
+    """(energy (1,), dE/dt_in (N, 3), dE/dt_out (N, 3)) from one call; gradients None without ``grad``."""
+    N, T = _check_inputs(t_in, t_out, tri_rows, g, payload, k_vec)
+    if ws.n_triangles != T or ws.din_c.device != t_in.device:
+        raise ValueError(f"the workspace holds {ws.n_triangles} triangles on {ws.din_c.device}")
+    if grad:
+        vs.check_csr(csr, t_in, T)
+        if csr.n_rows != N:
+            raise ValueError(f"the CSR covers {csr.n_rows} vertex rows, the tilts {N}")
+    lib = build()
+    energy = torch.empty(1, dtype=torch.float32, device=t_in.device)
+    gin = torch.empty_like(t_in) if grad else None
+    gout = torch.empty_like(t_out) if grad else None
+    code = lib.frozen_tilt_vertex(
+        t_in.data_ptr(), t_out.data_ptr(), tri_rows.data_ptr(),
+        csr.offsets.data_ptr() if grad else None, csr.slots.data_ptr() if grad else None,
+        g.data_ptr(), payload.data_ptr(), k_vec.data_ptr(), ws.din_c.data_ptr(),
+        ws.dout_c.data_ptr(), ws.partials.data_ptr(), ws.counter.data_ptr(), energy.data_ptr(),
+        gin.data_ptr() if grad else None, gout.data_ptr() if grad else None,
+        T, N, int(grad), torch.cuda.current_stream(t_in.device).cuda_stream,
+    )
     if code != 0:
-        raise RuntimeError(f"{what} launch failed: cudaError {code}")
+        raise RuntimeError(f"frozen_tilt_vertex launch failed: cudaError {code}")
+    if grad:
+        LAUNCHES["energy_grad"] += 1
+        vs.LAUNCHES["vertex_sum"] += 1
+    else:
+        LAUNCHES["energy"] += 1
+    return energy, gin, gout
 
 
-def launch_energy(tin_c, tout_c, g, payload, k_vec) -> torch.Tensor:
-    """Per-triangle energies (T,) from the forward kernel."""
-    T = _check_inputs(tin_c, tout_c, g, payload, k_vec)
-    lib = build()
-    energy = torch.empty(T, dtype=torch.float32, device=tin_c.device)
-    stream = torch.cuda.current_stream(tin_c.device).cuda_stream
-    code = lib.frozen_tilt_energy(
-        tin_c.data_ptr(), tout_c.data_ptr(), g.data_ptr(), payload.data_ptr(),
-        k_vec.data_ptr(), energy.data_ptr(), T, stream,
-    )
-    _raise_on(code, "frozen_tilt_energy")
-    LAUNCHES["fwd"] += 1
-    return energy
+def _evaluate(t_in, t_out, tri_rows, csr, g, payload, k_vec, ws, grad):
+    if t_in.is_cuda:
+        if ws is None:
+            ws = Workspace(tri_rows.shape[0], t_in.device)
+        e, gin, gout = launch(t_in, t_out, tri_rows, csr, g, payload, k_vec, ws, grad)
+        return e.reshape(()), gin, gout
+    return reference_vertex(t_in, t_out, tri_rows, csr, g, payload, k_vec, grad)
 
 
-def launch_grads(tin_c, tout_c, g, payload, k_vec, ct):
-    """(dE/dtin_c, dE/dtout_c) scaled by the 1-element device tensor ``ct``."""
-    T = _check_inputs(tin_c, tout_c, g, payload, k_vec)
-    ct = ct.reshape(1)
-    if not ct.is_cuda or ct.dtype != torch.float32:
-        raise TypeError(f"the incoming gradient must be a CUDA float32 scalar, got {ct}")
-    lib = build()
-    din = torch.empty_like(tin_c)
-    dout = torch.empty_like(tout_c)
-    stream = torch.cuda.current_stream(tin_c.device).cuda_stream
-    code = lib.frozen_tilt_grad(
-        tin_c.data_ptr(), tout_c.data_ptr(), g.data_ptr(), payload.data_ptr(),
-        k_vec.data_ptr(), ct.data_ptr(), din.data_ptr(), dout.data_ptr(), T, stream,
-    )
-    _raise_on(code, "frozen_tilt_grad")
-    LAUNCHES["bwd"] += 1
-    return din, dout
-
-
-class _FusedTiltEnergy(torch.autograd.Function):
+class _FrozenTiltEnergy(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, tin_c, tout_c, g, payload, k_vec):
-        ctx.save_for_backward(tin_c, tout_c, g, payload, k_vec)
-        if tin_c.is_cuda:
-            return torch.sum(launch_energy(tin_c, tout_c, g, payload, k_vec))
-        return reference_energy(tin_c, tout_c, g, payload, k_vec)
+    def forward(ctx, t_in, t_out, tri_rows, csr, g, payload, k_vec, ws):
+        e, gin, gout = _evaluate(t_in.detach(), t_out.detach(), tri_rows, csr, g, payload, k_vec,
+                                 ws, True)
+        ctx.save_for_backward(gin, gout)
+        return e
 
     @staticmethod
     def backward(ctx, ct):
-        tin_c, tout_c, g, payload, k_vec = ctx.saved_tensors
-        if tin_c.is_cuda:
-            din, dout = launch_grads(tin_c, tout_c, g, payload, k_vec, ct.contiguous())
-        else:
-            din, dout = reference_grads(tin_c, tout_c, g, payload, k_vec)
-            din, dout = ct * din, ct * dout
-        return din, dout, None, None, None
+        gin, gout = ctx.saved_tensors
+        return ct * gin, ct * gout, None, None, None, None, None, None
 
 
-def fused_tilt_energy(tin_c, tout_c, g, payload, k_vec):
-    """Scalar frozen-tilt energy of the four triangle modules (autograd-aware)."""
-    return _FusedTiltEnergy.apply(tin_c, tout_c, g, payload, k_vec)
+def frozen_tilt_energy(t_in, t_out, tri_rows, csr, g, payload, k_vec, ws=None):
+    """Scalar frozen-tilt energy of vertex tilts, differentiable in ``t_in`` and ``t_out``.
+
+    When autograd needs a tilt gradient, one call computes the energy and
+    both vertex gradients and the backward scales them; otherwise the call
+    computes the energy alone.  ``ws`` is a :class:`Workspace` for the CUDA
+    path (made per call when None).
+    """
+    if torch.is_grad_enabled() and (t_in.requires_grad or t_out.requires_grad):
+        return _FrozenTiltEnergy.apply(t_in, t_out, tri_rows, csr, g, payload, k_vec, ws)
+    e, _gin, _gout = _evaluate(t_in, t_out, tri_rows, csr, g, payload, k_vec, ws, False)
+    return e

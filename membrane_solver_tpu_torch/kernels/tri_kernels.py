@@ -1,22 +1,32 @@
 """Per-triangle geometry kernels: CUDA wrappers, autograd Functions, dispatch.
 
-Counterpart of ``membrane_solver_tpu/pallas_kernels/tri_kernels.py``.  Four
-kernels in ``csrc/tri_kernels.cu``, each for float32 and float64, compiled
-with ``nvcc`` for ``sm_90a`` at first use (``kernels/_build``) and bound
-with ``ctypes``:
+Counterpart of ``membrane_solver_tpu/pallas_kernels/tri_kernels.py``.  The
+kernels live in ``csrc/tri_kernels.cu`` (with the shared vertex-sum kernel
+of ``csrc/vertex_sum.cuh``), each for float32 and float64, compiled with
+``nvcc`` for ``sm_90a`` at first use (``kernels/_build``) and bound with
+``ctypes``.  Entry points, each one ctypes call:
 
 - ``surface_fwd``: per-triangle surface energy ``gamma * A`` and its corner
   gradients (twin: ``geo.surface_corner_terms``);
-- ``curvature_fwd``: cotan weights, corner mean-curvature vectors, Meyer
-  corner areas and triangle areas (twin: ``geo.curvature_corners``);
-- ``curvature_bwd``: the vector-Jacobian product of ``curvature_fwd`` with
-  respect to the corner positions (twin: autograd of
-  ``geo.curvature_corners``);
+- ``curvature_data``: the cotan curvature data of ``geo.curvature_data``:
+  cotangent weights and Meyer corner areas per corner, and the corner
+  mean-curvature vectors and corner areas summed into vertex rows by the
+  vertex-sum kernel in corner-CSR order (twin: ``geo.curvature_corners``
+  and ``vertex_sum.reference``);
+- ``curvature_data_bwd``: its vector-Jacobian product with respect to the
+  positions, from the vertex upstream of ``k_vecs`` and ``vertex_areas``
+  (read through ``tri_rows`` in the kernel) and the per-corner upstream of
+  the weights and corner areas, summed into vertex rows (twin: autograd of
+  ``geo.curvature_corners``, then ``vertex_sum.reference``);
+- ``curvature_fwd`` / ``curvature_bwd``: the same two curvature kernels
+  with per-triangle outputs and upstreams (:func:`curvature_corners`; off
+  the solver's path, kept for the tests and the card checks);
 - ``p1_div_fwd``: P1 shape gradients, tilt divergence and area (twin:
   ``tilt_ops.p1_divergence_corners``).
 
-Each kernel gathers its corners through ``tri_rows`` itself; the scatter of
-corner gradients back to vertex rows is an ``index_add`` here.
+Each kernel gathers its corners through ``tri_rows`` itself.  The
+curvature data needs no ``index_add`` either way; the surface and
+divergence backwards still scatter with one.
 
 Dispatch: the public functions (:func:`surface_energies`,
 :func:`curvature_corners` and :func:`curvature_data`, :func:`p1_divergence`
@@ -24,9 +34,8 @@ and :func:`p1_triangle_divergence`) are autograd-aware, and the energy
 modules call them in place of the plain ``geo`` / ``tilt_ops`` functions.  A
 CUDA tensor launches the kernels, after device, dtype, shape and
 contiguity checks that raise on anything else; a CPU tensor runs the
-twins.  The backward passes are the same code on both devices apart from
-the curvature backward, which is the ``curvature_bwd`` kernel on the card
-and autograd of the twin on the CPU.  ``LAUNCHES`` counts kernel launches.
+twins.  ``LAUNCHES`` counts calls of each entry point; the vertex-sum
+launches they make count in ``vertex_sum.LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -37,9 +46,12 @@ import torch
 
 from membrane_solver_tpu_torch.device import geo as dgeo
 from membrane_solver_tpu_torch.device import tilt_ops
+from membrane_solver_tpu_torch.device.state import CornerCSR
 from membrane_solver_tpu_torch.kernels import _build
+from membrane_solver_tpu_torch.kernels import vertex_sum as vs
 
-LAUNCHES = {"surface_fwd": 0, "curvature_fwd": 0, "curvature_bwd": 0, "p1_div_fwd": 0}
+LAUNCHES = {"surface_fwd": 0, "curvature_data": 0, "curvature_data_bwd": 0, "p1_div_fwd": 0,
+            "curvature_fwd": 0, "curvature_bwd": 0}
 
 # -fmad=false: no contracted multiply-adds, so the obtuse-branch tests see
 # the twin's rounding (see the note in the source)
@@ -60,6 +72,8 @@ def build() -> ctypes.CDLL:
         "tri_surface_fwd": [i32, ptr, ptr, ptr, ptr, ptr, i32, i64, ptr],
         "tri_curvature_fwd": [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i64, ptr],
         "tri_curvature_bwd": [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i64, ptr],
+        "tri_curvature_data": [i32] + [ptr] * 10 + [i32, i64, ptr],
+        "tri_curvature_data_bwd": [i32] + [ptr] * 11 + [i32, i64, ptr],
         "tri_p1_div_fwd": [i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i64, ptr],
     }
     for name, argtypes in signatures.items():
@@ -161,6 +175,64 @@ def launch_curvature_bwd(positions, tri_rows, tri_valid, g_cot, g_k, g_va, g_are
     return dp
 
 
+def _check_csr(positions, tri_rows, csr: CornerCSR) -> None:
+    vs.check_csr(csr, positions, tri_rows.shape[0])
+    if csr.n_rows != positions.shape[0]:
+        raise ValueError(f"the CSR covers {csr.n_rows} vertex rows, the positions "
+                         f"{positions.shape[0]}")
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def launch_curvature_data(positions, tri_rows, tri_valid, csr: CornerCSR):
+    """(cot (T, 3), va (T, 3), k_vecs (Nv, 3), vertex_areas (Nv,)) from ``tri_curvature_data``."""
+    T = _check_rows(positions, tri_rows)
+    _check(positions, positions.dtype, tri_valid=(tri_valid, (T,), torch.bool))
+    _check_csr(positions, tri_rows, csr)
+    lib = build()
+    nv = positions.shape[0]
+    kw = {"dtype": positions.dtype, "device": positions.device}
+    cot, va, k_scratch, k_vecs, vertex_areas = (
+        torch.empty(s, **kw) for s in ((T, 3), (T, 3), (T, 3, 3), (nv, 3), (nv,)))
+    code = lib.tri_curvature_data(
+        int(positions.dtype == torch.float64), positions.data_ptr(), tri_rows.data_ptr(),
+        tri_valid.data_ptr(), csr.offsets.data_ptr(), csr.slots.data_ptr(), cot.data_ptr(),
+        va.data_ptr(), k_scratch.data_ptr(), k_vecs.data_ptr(), vertex_areas.data_ptr(),
+        T, nv, _stream(positions),
+    )
+    _raise_on(code, "tri_curvature_data")
+    LAUNCHES["curvature_data"] += 1
+    vs.LAUNCHES["vertex_sum"] += 1
+    return cot, va, k_vecs, vertex_areas
+
+
+def launch_curvature_data_bwd(positions, tri_rows, tri_valid, csr: CornerCSR, g_kvecs, g_varea,
+                              g_cot, g_va):
+    """dE/dpositions (Nv, 3) from ``tri_curvature_data_bwd``; any upstream may be None (zero)."""
+    T = _check_rows(positions, tri_rows)
+    nv = positions.shape[0]
+    upstream = {"g_kvecs": (g_kvecs, (nv, 3), None), "g_varea": (g_varea, (nv,), None),
+                "g_cot": (g_cot, (T, 3), None), "g_va": (g_va, (T, 3), None)}
+    _check(positions, positions.dtype, tri_valid=(tri_valid, (T,), torch.bool),
+           **{k: v for k, v in upstream.items() if v[0] is not None})
+    _check_csr(positions, tri_rows, csr)
+    lib = build()
+    dc_scratch = torch.empty((T, 3, 3), dtype=positions.dtype, device=positions.device)
+    dpos = torch.empty((nv, 3), dtype=positions.dtype, device=positions.device)
+    code = lib.tri_curvature_data_bwd(
+        int(positions.dtype == torch.float64), positions.data_ptr(), tri_rows.data_ptr(),
+        tri_valid.data_ptr(), csr.offsets.data_ptr(), csr.slots.data_ptr(), _ptr(g_kvecs),
+        _ptr(g_varea), _ptr(g_cot), _ptr(g_va), dc_scratch.data_ptr(), dpos.data_ptr(),
+        T, nv, _stream(positions),
+    )
+    _raise_on(code, "tri_curvature_data_bwd")
+    LAUNCHES["curvature_data_bwd"] += 1
+    vs.LAUNCHES["vertex_sum"] += 1
+    return dpos
+
+
 def launch_p1_div(positions, tilts, tri_rows):
     """(div (T,), area (T,), g (T, 3, 3)) from the ``p1_div_fwd`` kernel."""
     T = _check_rows(positions, tri_rows)
@@ -200,6 +272,27 @@ def curvature_corners_vjp(positions, tri_rows, tri_valid, g_cot, g_k, g_va, g_ar
             (g_cot, g_k[:, 0], g_k[:, 1], g_k[:, 2], g_va, g_area),
         )
     return torch.stack(grads, dim=1)
+
+
+def curvature_data_reference(positions, tri_rows, tri_valid, csr: CornerCSR):
+    """Plain twin of ``tri_curvature_data``: (cot, va, k_vecs, vertex_areas)."""
+    cot, k0, k1, k2, va, _area = dgeo.curvature_corners(*_corners(positions, tri_rows), tri_valid)
+    k_vecs = vs.reference(torch.stack([k0, k1, k2], dim=1), csr)
+    return cot, va, k_vecs, vs.reference(va, csr)
+
+
+def curvature_data_vjp_reference(positions, tri_rows, tri_valid, csr: CornerCSR, g_kvecs,
+                                 g_varea, g_cot, g_va):
+    """Plain twin of ``tri_curvature_data_bwd``: the corner upstream, autograd, the vertex sum."""
+    T = tri_rows.shape[0]
+    zeros = positions.new_zeros((T, 3))
+    g_k = zeros[:, :, None].expand(T, 3, 3) if g_kvecs is None else g_kvecs[tri_rows]
+    g_va_c = zeros if g_va is None else g_va
+    if g_varea is not None:
+        g_va_c = g_va_c + g_varea[tri_rows]
+    dc = curvature_corners_vjp(positions, tri_rows, tri_valid, zeros if g_cot is None else g_cot,
+                               g_k, g_va_c, zeros[:, 0])
+    return vs.reference(dc, csr)
 
 
 class _Surface(torch.autograd.Function):
@@ -245,6 +338,34 @@ class _Curvature(torch.autograd.Function):
         return _scatter_corners(dc, tri_rows, positions.shape[0]), None, None
 
 
+class _CurvatureData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, positions, tri_rows, tri_valid, csr):
+        ctx.set_materialize_grads(False)  # an unused output passes None: no zeros are made
+        if positions.is_cuda:
+            cot, va, k_vecs, vertex_areas = launch_curvature_data(
+                positions.contiguous(), tri_rows, tri_valid, csr)
+        else:
+            cot, va, k_vecs, vertex_areas = curvature_data_reference(
+                positions, tri_rows, tri_valid, csr)
+        ctx.save_for_backward(positions, tri_rows, tri_valid)
+        ctx.csr = csr
+        return k_vecs, vertex_areas, cot, va
+
+    @staticmethod
+    def backward(ctx, g_kvecs, g_varea, g_cot, g_va):
+        upstream = [None if g is None else g.contiguous() for g in (g_kvecs, g_varea, g_cot, g_va)]
+        if all(g is None for g in upstream):
+            return None, None, None, None
+        positions, tri_rows, tri_valid = ctx.saved_tensors
+        if positions.is_cuda:
+            dpos = launch_curvature_data_bwd(positions.contiguous(), tri_rows, tri_valid, ctx.csr,
+                                             *upstream)
+        else:
+            dpos = curvature_data_vjp_reference(positions, tri_rows, tri_valid, ctx.csr, *upstream)
+        return dpos, None, None, None
+
+
 class _P1Divergence(torch.autograd.Function):
     @staticmethod
     def forward(ctx, positions, tilts, tri_rows):
@@ -285,10 +406,15 @@ def curvature_corners(positions, tri_rows, tri_valid):
     return cot, k[:, 0], k[:, 1], k[:, 2], va, area
 
 
-def curvature_data(positions, tri_rows, tri_valid, n_rows) -> dgeo.CurvatureData:
-    """``geo.curvature_data`` with its per-triangle terms from :func:`curvature_corners`."""
-    cot, k0, k1, k2, va, _area = curvature_corners(positions, tri_rows, tri_valid)
-    return dgeo.scatter_curvature(cot, k0, k1, k2, va, tri_rows, n_rows)
+def curvature_data(positions, tri_rows, tri_valid, csr: CornerCSR) -> dgeo.CurvatureData:
+    """``geo.curvature_data``, differentiable in ``positions``, one kernel call each way.
+
+    ``csr`` is the corner CSR of ``tri_rows`` (``Topology.corner_csr()``);
+    the vertex sums follow its order, so repeated calls give the same bits.
+    """
+    k_vecs, vertex_areas, cot, va = _CurvatureData.apply(positions, tri_rows, tri_valid, csr)
+    return dgeo.CurvatureData(k_vecs=k_vecs, vertex_areas=vertex_areas, weights=cot,
+                              corner_areas=va)
 
 
 def p1_divergence(positions, tilts, tri_rows):

@@ -14,9 +14,10 @@ Counterpart of ``membrane_solver_tpu/runtime/tilt_relax.py``
 
 The JAX package runs this as ``lax.while_loop``s; here it is a Python loop,
 and each accept/stop decision reads a device scalar (a host sync).  At
-float32 the four triangle energies go through the fused frozen-tilt kernel
-(``kernels/frozen_tilt``) on every device: the CUDA kernel for CUDA tensors,
-its plain twin on the CPU.
+float32 the four triangle energies go through the fused frozen-tilt entry
+point (``kernels/frozen_tilt``) on every device: one call of the CUDA
+kernels for CUDA tensors, which gathers the corners, sums the energy and
+scatters the vertex gradients itself, and its plain twin on the CPU.
 """
 
 from __future__ import annotations
@@ -194,7 +195,7 @@ def jacobi_preconditioner(positions, topo, params):
         vertex_areas_out = dgeo.scatter_add_rows(a3, a3, a3, topo.tri_rows, n_rows)
     else:
         vertex_areas_out = vertex_areas
-    curv = tri_kernels.curvature_data(positions, topo.tri_rows, topo.tri_valid, n_rows)
+    curv = tri_kernels.curvature_data(positions, topo.tri_rows, topo.tri_valid, topo.corner_csr())
     c0, c1, c2 = curv.weights[:, 0], curv.weights[:, 1], curv.weights[:, 2]
 
     def diag_for(k_tilt, k_smooth, fixed_mask, areas):
@@ -260,13 +261,16 @@ def build_fused_tilt_energy(e_names, e_fns, e_frozen, topo, params, dtype):
 
     Eligible at float32 when all four triangle tilt modules are active (the
     port runs them with lumped mass and default bending-tilt modes only).
-    Returns ``(fused_fn(tin_c, tout_c) -> scalar, rest)`` with ``rest`` the
-    remaining (fn, frozen) pairs evaluated per module.  Validity masks are
+    Returns ``(fused_fn(t_in, t_out) -> scalar, rest)`` on vertex tilts, with
+    ``rest`` the remaining (fn, frozen) pairs evaluated per module (none of
+    them reads the shared corner gather, which the fused path no longer
+    makes).  The entry point's scratch is allocated here, once per relax
+    call.  Validity masks are
     folded into the payload: A and va are zero wherever the per-module path
     masks the term, and g is zero on invalid triangles.  The tilt-smoothness
     columns of the payload stay zero: those modules are not ported.
     """
-    from membrane_solver_tpu_torch.kernels.frozen_tilt import fused_tilt_energy
+    from membrane_solver_tpu_torch.kernels import frozen_tilt as ft
 
     if dtype != torch.float32 or not set(FUSED_NAMES) <= set(e_names):
         return None
@@ -303,9 +307,11 @@ def build_fused_tilt_energy(e_names, e_fns, e_frozen, topo, params, dtype):
         ]
     ).to(dtype)
     rest = [(fn, f) for name, fn, f in zip(e_names, e_fns, e_frozen) if name not in FUSED_NAMES]
+    csr = topo.corner_csr()
+    ws = ft.Workspace(topo.tri_rows.shape[0], payload.device) if payload.is_cuda else None
 
-    def fused_fn(tin_c, tout_c):
-        return fused_tilt_energy(tin_c, tout_c, g, payload, k_vec)
+    def fused_fn(t_in, t_out):
+        return ft.frozen_tilt_energy(t_in, t_out, topo.tri_rows, csr, g, payload, k_vec, ws)
 
     return fused_fn, rest
 
@@ -350,12 +356,9 @@ def make_relax_leaflet_tilts(spec: ProblemSpec) -> Callable:
             fused_fn, rest = fused
 
             def energy_pair(t_in, t_out):
-                tin_c = t_in[topo.tri_rows]
-                tout_c = t_out[topo.tri_rows]
-                e = fused_fn(tin_c, tout_c)
-                ctx = {"tin_c": tin_c, "tout_c": tout_c}
+                e = fused_fn(t_in, t_out)
                 for fn, f in rest:
-                    e = e + fn(t_in, t_out, f, topo, params, ctx)
+                    e = e + fn(t_in, t_out, f, topo, params)
                 return e
 
         else:

@@ -10,6 +10,10 @@ the last 7 invalid):
 - each twin against the stock ``geo`` / ``tilt_ops`` functions at float64
   to 1e-12, and the curvature backward (autograd of the twin) against
   ``jax.vjp`` of the per-triangle part of ``geo.curvature_data``;
+- the curvature data entry point (``tri_kernels.curvature_data``, one call
+  each way with the corner-CSR vertex sums) and its backward against the
+  JAX package's stock ``geo.curvature_data`` and ``jax.vjp`` at float64 to
+  1e-12, on the small kozlov and vesicle meshes with seeded perturbations;
 - the wrappers: the CPU path runs the twins and launches nothing, the
   launchers refuse CPU tensors, the divergence refuses differentiable
   positions; and, on a card only, each CUDA kernel against its twin.
@@ -27,7 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_port_harness import assert_close
+from _torch_port_harness import SMALL, assert_close, make_minimizer, make_vesicle_minimizer
 
 from membrane_solver_tpu.device import geo as jgeo
 from membrane_solver_tpu.device import tilt_ops as jtops
@@ -38,8 +42,10 @@ from membrane_solver_tpu.pallas_kernels import (
 )
 from membrane_solver_tpu_torch.device import geo as tgeo
 from membrane_solver_tpu_torch.device import tilt_ops as ttops
+from membrane_solver_tpu_torch.device.state import corner_csr
 from membrane_solver_tpu_torch.kernels import _build
 from membrane_solver_tpu_torch.kernels import tri_kernels as tk
+from membrane_solver_tpu_torch.kernels import vertex_sum as vs
 
 F64_RTOL = 1e-12
 GAMMA = 1.7
@@ -232,22 +238,85 @@ def test_curvature_backward_matches_jax_vjp_f64(case):
     assert torch.equal(direct, got.reshape(T, 3, 3))
 
 
+@pytest.fixture(scope="module", params=["kozlov_L1", "vesicle_L1"])
+def mesh_arrays(request):
+    """(positions, tri_rows, tri_valid) of a small lane mesh, positions perturbed by a seed."""
+    if request.param == "kozlov_L1":
+        mn = make_minimizer(True, kw=SMALL, refines=1, dtype=torch.float64)
+    else:
+        mn = make_vesicle_minimizer(True, refines=1, dtype=torch.float64)
+    p = mn.problem()
+    pos = p.state.positions.numpy()
+    pos = pos + 0.01 * np.random.default_rng(23).standard_normal(pos.shape)
+    valid = p.topo.tri_valid.numpy().copy()
+    valid[::17] = False  # some masked rows, as a leaflet's presence mask gives
+    return pos, p.topo.tri_rows.numpy(), valid
+
+
+def test_curvature_data_matches_jax_stock_and_its_vjp_f64(mesh_arrays):
+    """curvature_data and its backward (CSR vertex sums) against geo.curvature_data and jax.vjp."""
+    pos, rows, valid = mesh_arrays
+    nv, T = pos.shape[0], rows.shape[0]
+    rng = np.random.default_rng(29)
+    cts = (rng.standard_normal((nv, 3)), rng.standard_normal(nv), rng.standard_normal((T, 3)),
+           rng.standard_normal((T, 3)))
+    j_rows, j_valid = jnp.asarray(rows, jnp.int32), jnp.asarray(valid)
+
+    def jax_data(p):
+        c = jgeo.curvature_data(p, j_rows, j_valid, nv)
+        return c.k_vecs, c.vertex_areas, c.weights, c.corner_areas
+
+    want, vjp = jax.vjp(jax_data, jnp.asarray(pos))
+    (want_grad,) = vjp(tuple(map(jnp.asarray, cts)))
+    t_rows = torch.as_tensor(rows)
+    x = torch.as_tensor(pos).requires_grad_(True)
+    cd = tk.curvature_data(x, t_rows, torch.as_tensor(valid), corner_csr(t_rows, nv))
+    got = (cd.k_vecs, cd.vertex_areas, cd.weights, cd.corner_areas)
+    for g, w, name in zip(got, want, ("k_vecs", "vertex_areas", "weights", "corner_areas")):
+        assert_close(g, w, F64_RTOL, name, atol_scale=1.0)
+    (grad,) = torch.autograd.grad(sum(torch.sum(g * torch.as_tensor(c)) for g, c in zip(got, cts)),
+                                  (x,))
+    assert_close(grad, want_grad, F64_RTOL, "curvature_data vjp", atol_scale=1.0)
+
+
+def test_curvature_data_backward_with_unused_outputs_f64(mesh_arrays):
+    """Outputs left out of the loss pass no upstream: the same gradient as zero upstream."""
+    pos, rows, valid = mesh_arrays
+    t_rows, v = torch.as_tensor(rows), torch.as_tensor(valid)
+    csr = corner_csr(t_rows, pos.shape[0])
+    w = torch.as_tensor(np.random.default_rng(31).standard_normal((pos.shape[0], 3)))
+    x = torch.as_tensor(pos).requires_grad_(True)
+    (got,) = torch.autograd.grad(torch.sum(w * tk.curvature_data(x, t_rows, v, csr).k_vecs), (x,))
+    y = torch.as_tensor(pos).requires_grad_(True)
+    (want,) = torch.autograd.grad(torch.sum(w * tgeo.curvature_data(y, t_rows, v,
+                                                                    pos.shape[0]).k_vecs), (y,))
+    assert_close(got, want, F64_RTOL, "k_vecs-only gradient", atol_scale=1.0)
+    direct = tk.curvature_data_vjp_reference(torch.as_tensor(pos), t_rows, v, csr, w, None, None,
+                                             None)
+    assert torch.equal(direct, got)
+
+
 # ----------------------------------------------------------------------
 # wrappers and dispatch
 # ----------------------------------------------------------------------
 def test_cpu_wrappers_run_the_twins_and_launch_nothing():
     pos, rows, valid, tilts = _inputs(np.float64)
     p, t_rows, v, tl = _torch(pos, rows, valid, tilts)
-    before = dict(tk.LAUNCHES)
+    before, before_vs = dict(tk.LAUNCHES), dict(vs.LAUNCHES)
     corners = [p[t_rows[:, i]] for i in range(3)]
     gamma = torch.where(v, GAMMA, 0.0).to(p.dtype)
-    curv = tk.curvature_data(p, t_rows, v, p.shape[0])
+    csr = corner_csr(t_rows, p.shape[0])
+    curv = tk.curvature_data(p, t_rows, v, csr)
+    cot, k0, k1, k2, va, _area = tgeo.curvature_corners(*corners, v)
+    # the vertex sums: the CSR-order twin exactly, the stock index_add to round-off
     want_curv = tgeo.curvature_data(p, t_rows, v, p.shape[0])
+    assert_close(curv.k_vecs, want_curv.k_vecs, F64_RTOL, "k_vecs", atol_scale=1.0)
+    assert_close(curv.vertex_areas, want_curv.vertex_areas, F64_RTOL, "vertex areas")
     for got, want in (
         ((tk.surface_energies(p, t_rows, gamma),), tgeo.surface_corner_terms(*corners, gamma)[:1]),
         (tk.curvature_corners(p, t_rows, v), tgeo.curvature_corners(*corners, v)),
         ((curv.k_vecs, curv.vertex_areas, curv.weights, curv.corner_areas),
-         (want_curv.k_vecs, want_curv.vertex_areas, want_curv.weights, want_curv.corner_areas)),
+         (vs.reference(torch.stack([k0, k1, k2], 1), csr), vs.reference(va, csr), cot, va)),
         (tk.p1_divergence(p, tl, t_rows),
          ttops.p1_divergence_corners(*corners, *[tl[t_rows[:, i]] for i in range(3)])),
         (tk.p1_triangle_divergence(p, tl, t_rows, v), ttops.p1_triangle_divergence(p, tl, t_rows, v)),
@@ -255,7 +324,7 @@ def test_cpu_wrappers_run_the_twins_and_launch_nothing():
         assert len(got) == len(want)
         for a, b in zip(got, want):
             assert torch.equal(a, b)
-    assert tk.LAUNCHES == before
+    assert tk.LAUNCHES == before and vs.LAUNCHES == before_vs
 
 
 def test_p1_divergence_gradient_reaches_the_tilts_only():
@@ -286,6 +355,11 @@ def test_launchers_refuse_cpu_tensors():
     z = torch.zeros(4, 3, dtype=pos.dtype)
     with pytest.raises(ValueError, match="CUDA"):
         tk.launch_curvature_bwd(pos, rows, valid, z, z[:, :, None].expand(4, 3, 3), z, z[:, 0])
+    csr = corner_csr(rows, pos.shape[0])
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.launch_curvature_data(pos, rows, valid, csr)
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.launch_curvature_data_bwd(pos, rows, valid, csr, pos, pos[:, 0], None, None)
 
 
 def test_build_targets_hopper_without_contraction_and_is_keyed_by_source():
@@ -295,8 +369,10 @@ def test_build_targets_hopper_without_contraction_and_is_keyed_by_source():
     assert path.parent == _build.BUILD_DIR and path.name.startswith("tri_kernels-")
     assert tk.SOURCE.is_file() and tk.SOURCE.suffix == ".cu"
     text = tk.SOURCE.read_text()
-    for entry in ("tri_surface_fwd", "tri_curvature_fwd", "tri_curvature_bwd", "tri_p1_div_fwd"):
+    for entry in ("tri_surface_fwd", "tri_curvature_fwd", "tri_curvature_bwd", "tri_p1_div_fwd",
+                  "tri_curvature_data", "tri_curvature_data_bwd"):
         assert f'extern "C" int {entry}(' in text
+    assert '#include "vertex_sum.cuh"' in text
 
 
 @pytest.mark.cuda
@@ -330,4 +406,21 @@ def test_cuda_kernels_match_twins(dtype):
     want = ttops.p1_divergence_corners(*corners, *[tl[t_rows[:, i]] for i in range(3)])
     assert_close(div, want[0], rtol, "div", atol_scale=1.0)
     assert_close(g, torch.stack(want[2:], 1), rtol, "g", atol_scale=1.0)
+    # the curvature data: live-row corners and, where no row of a vertex is
+    # at a tie, its sums; two calls give the same bits
+    csr = corner_csr(t_rows, p.shape[0])
+    got = tk.launch_curvature_data(p, t_rows, v, csr)
+    assert all(torch.equal(a, b) for a, b in zip(got, tk.launch_curvature_data(p, t_rows, v, csr)))
+    want = tk.curvature_data_reference(p, t_rows, v, csr)
+    clear = torch.ones(p.shape[0], dtype=torch.bool, device="cuda")
+    clear[t_rows[~live].reshape(-1)] = False
+    for a, b, name, rows_ok in zip(got, want, ("cot", "va", "k_vecs", "vertex_areas"),
+                                   (live, live, clear, clear)):
+        assert_close(a[rows_ok], b[rows_ok], rtol, name, atol_scale=1.0)
+    g_kv, g_va = torch.randn(p.shape[0], 3, dtype=dtype, device="cuda"), cts[2]
+    dpos = tk.launch_curvature_data_bwd(p, t_rows, v, csr, g_kv, None, None, g_va)
+    again = tk.launch_curvature_data_bwd(p, t_rows, v, csr, g_kv, None, None, g_va)
+    assert torch.equal(dpos, again)
+    want = tk.curvature_data_vjp_reference(p, t_rows, v, csr, g_kv, None, None, g_va)
+    assert_close(dpos[clear], want[clear], rtol, "curvature data bwd", atol_scale=1.0)
     torch.cuda.synchronize()

@@ -21,7 +21,8 @@ on one card:
    time; one stream, so they do not overlap), the busy share against the
    profiled wall time and against step 2's unprofiled ms/step, and the
    operations with the most device time;
-5. host syncs in one step (``torch.cuda.set_sync_debug_mode``).
+5. host syncs in one step (``torch.cuda.set_sync_debug_mode``), with the
+   source lines that issued them.
 
 Prints one summary line per dtype and, last, one JSON object with every
 number; ``-o FILE`` also writes the full report (top operations) there.
@@ -129,7 +130,7 @@ def profile_dtype(torch, chip_smoke, counters, fixture, dtype, lane) -> tuple[di
     split = {k: v / n_split for k, v in totals.items()}
 
     prof_wall, ops, busy, top = device_profile(torch, mn)
-    syncs = chip_smoke.count_syncs(torch, mn)
+    syncs, sync_sites = chip_smoke.count_syncs(torch, mn)
 
     name = f"{lane} {str(dtype).removeprefix('torch.')}"
     rec = {
@@ -144,6 +145,7 @@ def profile_dtype(torch, chip_smoke, counters, fixture, dtype, lane) -> tuple[di
         "busy_share_of_profiled_wall": busy / prof_wall,
         "busy_share_of_unprofiled_step": busy / ms,
         "host_syncs_per_step": syncs,
+        "host_sync_sites": sync_sites,
     }
     report = [f"[{name}] " + json.dumps(rec)]
     report += [f"[{name}] {t:10.3f} ms/step {c:9.1f} ops/step  {key[:110]}" for t, c, key in top]
@@ -164,8 +166,10 @@ def main() -> int:
     import chip_smoke
     from membrane_solver_tpu_torch.kernels import frozen_tilt as ft
     from membrane_solver_tpu_torch.kernels import tri_kernels as tk
+    from membrane_solver_tpu_torch.kernels import vertex_sum as vs
 
-    counters = {"frozen_tilt": ft.LAUNCHES, "tri_kernels": tk.LAUNCHES}
+    counters = {"frozen_tilt": ft.LAUNCHES, "tri_kernels": tk.LAUNCHES,
+                "vertex_sum": vs.LAUNCHES}
     lanes = {"kozlov_L3": chip_smoke.KOZLOV_FIXTURE,
              "helfrich_cube_L5": chip_smoke.VESICLE_FIXTURE}
     device = chip_smoke.phase_device(torch)
