@@ -7,8 +7,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    versions.  No CUDA device -> exit 2 before anything else.
 2. build: compiles the CUDA sources of ``membrane_solver_tpu_torch/csrc``
    (``frozen_tilt.cu``, ``tri_kernels.cu``, ``vertex_sum.cu``, which share
-   ``vertex_sum.cuh``) with nvcc, one process per source, all started
-   together; prints the seconds taken and the ptxas report.
+   ``vertex_sum.cuh`` and ``block_sum.cuh``) with nvcc, one process per
+   source, all started together; prints the seconds taken and the ptxas
+   report.
 3. kernels: every kernel against its plain PyTorch twin on the card, on the
    kozlov L3 lane's topology (10,817 vertices, 21,504 triangles) and the
    vesicle lane's (12,290 / 24,576), both built as phases 4-7 build them:
@@ -20,21 +21,29 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      kozlov L3 corner CSR: equal to its twin bit for bit (the same
      additions in the same order);
    - the per-triangle kernels (surface, curvature forward and backward with
-     per-triangle outputs, P1 divergence), float32 and float64, on seeded
+     per-triangle outputs), float32 and float64, on seeded
      triangles (T = 301) and on the vesicle lane's own triangles (its start
      positions plus a seeded 1e-3 perturbation), and the curvature data
      entry point and its backward (vertex sums) on both lanes: float32 to
      the JAX kernel tests' bounds (surface e rel 2e-6 / atol 1e-7, corner
-     gradients rel 2e-5 / atol 1e-6, curvature and divergence rel 5e-5 /
-     atol 1e-5, curvature backward 5e-5 * max|g|), float64 to
+     gradients rel 2e-5 / atol 1e-6, curvature and the masked divergence
+     rel 5e-5 / atol 1e-5, curvature backward 5e-5 * max|g|), float64 to
      1e-12 * max(|want|, 1) (curvature backward 1e-11 * max|g|).  Curvature
      rows within 1e-6 of a Meyer branch tie (a cotangent at 0), and the
      vertex sums that include one, are left out: there the two sides may
      take different branches;
-   - determinism: two energy-plus-gradient calls of the frozen-tilt entry
-     point, and two ``curvature_data`` forward-plus-backward calls, on the
-     same inputs must give the same bits;
-   - one energy-plus-gradient call of each of the two entry points under
+   - on the same three sets, float32 and float64, the surface and
+     divergence whole calls: the surface energy (tension mask and sum in
+     the kernel) alone and with its vertex gradient, the masked divergence
+     and its tilt backward (the weighted vertex sum): energy to rel 2e-6
+     (float32) / 1e-12 (float64), vertex gradients to 2e-5 / 1e-12 and the
+     tilt backward to 5e-5 / 1e-12 of max|g|, the divergence to the
+     per-triangle kernels' bounds;
+   - determinism: two energy-plus-gradient calls of the frozen-tilt and
+     the surface entry points, and two forward-plus-backward calls of
+     ``curvature_data`` and of ``p1_triangle_divergence``, on the same
+     inputs must give the same bits;
+   - one such call of each of the four entry points under
      ``torch.profiler``: no index, scatter, gather, sort or reduction
      kernel of PyTorch's own may appear among its device operations;
    - timing, at the kozlov L3 lane's shapes, float32 (the rows that
@@ -45,8 +54,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
      event ms per call (CUDA events around 200 back-to-back calls), the
      host µs per call (the same loop, no sync) and the bound; the callers
      (a relax energy evaluation, an ``eval_grads``-style energy and vertex
-     gradient, ``curvature_data`` forward, forward plus backward) also the
-     median µs of one call followed by a device sync.
+     gradient, ``curvature_data`` forward, forward plus backward, the
+     surface energy module forward plus backward, the bending-tilt
+     divergence, forward plus tilt backward) also the median µs of one
+     call followed by a device sync.
 4. kozlov L3, float32: the kozlov coupled-tilt protocol that its fixture's
    ``protocol`` block records (meshgen ``kozlov_1disk`` with the bench
    global parameters -> three refinement rounds -> 10,817 vertices, 21,504
@@ -59,8 +70,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    JAX package's recorded trajectory
    (``tests/fixtures/torch_port/kozlov_L3_f64_jax.json``) to rel 1e-8, and
    the float32 energies of phase 4 must lie within rel 2e-3 of them.  Then
-   the per-triangle kernels and the curvature data against their twins, at
-   float32 and float64 with phase 3's tolerances, on this lane's own 21,504
+   the per-triangle kernels, the surface and divergence whole calls and the
+   curvature data against their twins, at float32 and float64 with phase
+   3's tolerances, on this lane's own 21,504
    triangles as the run left them: one set per leaflet, with that leaflet's
    tilts and the ``tri_valid & tri_present`` mask its bending-tilt
    curvature call takes.
@@ -75,8 +87,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 Phases 4-7 each drive one path with every kernel launch counter set to 0
 just before and read just after; a kernel of that path that was never
 launched fails the run (the frozen-tilt entry point, both variants, lies on
-the float32 kozlov path only; surface, curvature data forward and backward
-and the vertex sum on all four; the divergence on the kozlov paths).
+the float32 kozlov path only; the surface energy, both variants, the
+curvature data forward and backward and the vertex sum on all four; the
+divergence forward on the kozlov paths; its tilt backward on none, so
+phase 3 alone launches it).
 
 The line before the last is a JSON object ``{"kernels": [...]}``: per entry
 point, its launches over phases 4-7, its largest error against its twin,
@@ -92,6 +106,7 @@ Usage (from the repository root, on a machine with a CUDA GPU)::
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import math
 import re
@@ -99,6 +114,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 import warnings
 from pathlib import Path
 
@@ -121,27 +137,38 @@ KERNELS = {
     # no Pallas kernel: the JAX package's segment sums (geo.scatter_add_rows)
     "vertex_sum": ("vertex_sum.cuh", "device/geo.py:95", "vertex_sum",
                    "vertex_sum.vertex_sum"),
-    "tri_surface_fwd": ("tri_kernels.cu", "pallas_kernels/tri_kernels.py:80", "surface_fwd",
-                        "tri_kernels.surface_fwd"),
+    # _surface_kernel with the tension mask, the energy sum and the scatter
+    # of its corner gradients
+    "tri_surface_energy": ("tri_kernels.cu", "pallas_kernels/tri_kernels.py:80", "surface_energy",
+                           "tri_kernels.surface_energy"),
+    "tri_surface_energy_grad": ("tri_kernels.cu", "pallas_kernels/tri_kernels.py:80",
+                                "surface_energy_grad", "tri_kernels.surface_energy_grad"),
     # _curvature_kernel with the stock geo.curvature_data scatter after it
     "tri_curvature_data": ("tri_kernels.cu", "pallas_kernels/tri_kernels.py:143",
                            "curvature_data", "tri_kernels.curvature_data"),
     # the backward JAX takes for curvature_corners_pallas (stock AD)
     "tri_curvature_data_bwd": ("tri_kernels.cu", "pallas_kernels/tri_kernels.py:193",
                                "curvature_data_bwd", "tri_kernels.curvature_data_bwd"),
-    "tri_p1_div_fwd": ("tri_kernels.cu", "pallas_kernels/tri_kernels.py:228", "p1_div_fwd",
-                       "tri_kernels.p1_div_fwd"),
+    # _p1_div_kernel with the stock p1_triangle_divergence masks
+    "tri_p1_div": ("tri_kernels.cu", "pallas_kernels/tri_kernels.py:228", "p1_div",
+                   "tri_kernels.p1_div"),
+    # the backward JAX takes for the divergence in the tilts (stock AD); no
+    # lane path differentiates the tilts, so phase 3 alone launches it
+    "tri_p1_div_bwd": ("tri_kernels.cu", "pallas_kernels/tri_kernels.py:262", "p1_div_bwd",
+                       "tri_kernels.p1_div_bwd"),
 }
 # the per-entry-point error keys of phases 3 and 5
 ERRORS = {"frozen_tilt_energy": ("ft_energy",), "frozen_tilt_energy_grad": ("ft_energy", "ft_grad"),
-          "vertex_sum": ("vertex_sum",), "tri_surface_fwd": ("surface_fwd",),
+          "vertex_sum": ("vertex_sum",),
+          "tri_surface_energy": ("surface_energy", "surface_fwd"),
+          "tri_surface_energy_grad": ("surface_energy", "surface_grad", "surface_fwd"),
           "tri_curvature_data": ("curvature_data", "curvature_fwd"),
           "tri_curvature_data_bwd": ("curvature_data_bwd", "curvature_bwd"),
-          "tri_p1_div_fwd": ("p1_div_fwd",)}
-# PyTorch's own kernels that the two redesigned entry points must not issue
+          "tri_p1_div": ("p1_div",), "tri_p1_div_bwd": ("p1_div_bwd",)}
+# PyTorch's own kernels that the redesigned entry points must not issue
 LIBRARY_KERNEL = re.compile(r"index|scatter|gather|sort|reduce", re.IGNORECASE)
 OWN_KERNELS = ("frozen_tilt_kernel", "vertex_sum_kernel", "curvature_fwd_kernel",
-               "curvature_bwd_kernel")
+               "curvature_bwd_kernel", "surface_kernel", "p1_div_kernel")
 
 DEVICE = "cuda"
 WARMUP_STEPS = 2
@@ -156,6 +183,10 @@ F32_RTOL = 2e-3  # f32 vs f64 trajectory
 TK_F32 = {"e": (2e-6, 1e-7), "g": (2e-5, 1e-6), "curv": (5e-5, 1e-5)}
 TK_F64 = 1e-12
 TK_BWD = {"float32": 5e-5, "float64": 1e-11}  # of max|g|
+# the surface and divergence whole calls: energy rel; vertex sums of max|g|
+WC_ENERGY = {"float32": 2e-6, "float64": 1e-12}
+WC_SURFACE_GRAD = {"float32": 2e-5, "float64": 1e-12}
+WC_DIV_BWD = {"float32": 5e-5, "float64": 1e-12}
 TIE = 1e-6  # |cot| below this: a Meyer branch tie
 
 
@@ -170,10 +201,12 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 FLOPS_PER_TRI = {
     "frozen_tilt_energy": 190,
     "frozen_tilt_grad": 270,
-    "surface_fwd": 65,
+    "surface_energy": 30,
+    "surface_grad": 45,
     "curvature_fwd": 140,
     "curvature_bwd": 320,
-    "p1_div_fwd": 80,
+    "p1_div": 80,
+    "p1_div_bwd": 18,
 }
 
 
@@ -373,6 +406,7 @@ def tri_rows_of(torch, tk, topo, positions, dtype) -> list:
     """(name, kind, fn, inputs, flops) for the per-triangle kernels, twins and callers."""
     from membrane_solver_tpu_torch.device import geo as dgeo
     from membrane_solver_tpu_torch.device import tilt_ops
+    from membrane_solver_tpu_torch.energy import surface
 
     rng = np.random.default_rng(19)
     rows, v = topo.tri_rows, topo.tri_valid
@@ -402,11 +436,55 @@ def tri_rows_of(torch, tk, topo, positions, dtype) -> list:
         cd = tk.curvature_data(x, rows, v, csr)
         return torch.autograd.grad((cd.k_vecs, cd.vertex_areas), (x,), (g_kvecs, g_varea))
 
+    tension = topo.tri_surface_tension.to(dtype)
+    s_topo = dataclasses.replace(topo, tri_surface_tension=tension)
+    s_in = (p, rows, v, tension)
+    ws = tk.Workspace(T, dtype, dev)
+
+    def surface_fwd_bwd():
+        x = p.detach().requires_grad_(True)
+        e = surface.energy(None, types.SimpleNamespace(positions=x), s_topo, {})
+        return (e.detach(),) + torch.autograd.grad(e, (x,))
+
+    ct_div = cts[3]
+    div_in = (p, tl, rows, v)
+
+    def div_fwd():
+        with torch.no_grad():
+            return tk.p1_triangle_divergence(p, tl, rows, v, csr)
+
+    def div_fwd_bwd():
+        t = tl.detach().requires_grad_(True)
+        div, area, g = tk.p1_triangle_divergence(p, t, rows, v, csr)
+        return (div.detach(), area, g) + torch.autograd.grad(div, (t,), (ct_div,))
+
+    g_div = tilt_ops.p1_triangle_divergence(p, tl, rows, v)[2]
+    bwd_in = (g_div, v, ct_div)
+    e_flops, g_flops = F["surface_energy"] * T, (F["surface_energy"] + F["surface_grad"]) * T
+
     return [
+        ("surface_energy", "kernel",
+         lambda: tk.launch_surface_energy(p, rows, v, tension, csr, ws, grad=False), s_in,
+         e_flops),
+        ("surface_energy", "twin",
+         lambda: tk.surface_energy_reference(p, rows, v, tension, csr, False), s_in, e_flops),
+        ("surface_energy_grad", "kernel",
+         lambda: tk.launch_surface_energy(p, rows, v, tension, csr, ws, grad=True), s_in,
+         g_flops),
+        ("surface_energy_grad", "twin",
+         lambda: tk.surface_energy_reference(p, rows, v, tension, csr, True), s_in, g_flops),
+        ("p1_div", "kernel", lambda: tk.launch_p1_divergence(p, tl, rows, v), div_in,
+         F["p1_div"] * T),
+        ("p1_div", "twin", lambda: tilt_ops.p1_triangle_divergence(p, tl, rows, v), div_in,
+         F["p1_div"] * T),
+        ("p1_div_bwd", "kernel", lambda: tk.launch_p1_div_bwd(g_div, v, ct_div, csr), bwd_in,
+         F["p1_div_bwd"] * T),
+        ("p1_div_bwd", "twin", lambda: tk.p1_div_vjp_reference(g_div, v, ct_div, csr), bwd_in,
+         F["p1_div_bwd"] * T),
         ("surface_fwd", "kernel", lambda: tk.launch_surface(p, rows, gamma), (p, rows, gamma),
-         F["surface_fwd"] * T),
+         g_flops),
         ("surface_fwd", "twin", lambda: dgeo.surface_corner_terms(*corners(p), gamma),
-         (p, rows, gamma), F["surface_fwd"] * T),
+         (p, rows, gamma), g_flops),
         ("curvature_fwd", "kernel", lambda: tk.launch_curvature(p, rows, v), d_in,
          F["curvature_fwd"] * T),
         ("curvature_fwd", "twin", lambda: dgeo.curvature_corners(*corners(p), v), d_in,
@@ -415,11 +493,6 @@ def tri_rows_of(torch, tk, topo, positions, dtype) -> list:
          (p, rows, v, *cts), F["curvature_bwd"] * T),
         ("curvature_bwd", "twin", lambda: tk.curvature_corners_vjp(p, rows, v, *cts),
          (p, rows, v, *cts), F["curvature_bwd"] * T),
-        ("p1_div_fwd", "kernel", lambda: tk.launch_p1_div(p, tl, rows), (p, tl, rows),
-         F["p1_div_fwd"] * T),
-        ("p1_div_fwd", "twin",
-         lambda: tilt_ops.p1_divergence_corners(*corners(p), *corners(tl)), (p, tl, rows),
-         F["p1_div_fwd"] * T),
         ("curvature_data", "kernel", lambda: tk.launch_curvature_data(p, rows, v, csr), d_in,
          F["curvature_fwd"] * T),
         ("curvature_data", "twin", lambda: tk.curvature_data_reference(p, rows, v, csr), d_in,
@@ -433,6 +506,10 @@ def tri_rows_of(torch, tk, topo, positions, dtype) -> list:
         ("curvature_data", "caller", data_fwd, d_in, F["curvature_fwd"] * T),
         ("curvature_data fwd+bwd", "caller", data_fwd_bwd, b_in,
          (F["curvature_fwd"] + F["curvature_bwd"]) * T),
+        ("surface energy fwd+bwd", "caller", surface_fwd_bwd, s_in, g_flops),
+        ("bending-tilt divergence", "caller", div_fwd, div_in, F["p1_div"] * T),
+        ("divergence fwd+tilt bwd", "caller", div_fwd_bwd, div_in + (ct_div,),
+         (F["p1_div"] + F["p1_div_bwd"]) * T),
     ]
 
 
@@ -563,13 +640,60 @@ def _bwd_check(torch, name, got, want, dtype, rows) -> float:
     return err
 
 
+def _sum_check(torch, name, got, want, rtol: float) -> float:
+    """Max abs error of a vertex sum (or a scalar) against its twin, within rtol of max|want|."""
+    err = float(torch.max(torch.abs(got - want)))
+    scale = float(torch.max(torch.abs(want)))
+    if not err <= rtol * scale:
+        raise AssertionError(f"{name}: max abs err {err!r} beyond {rtol} * {scale!r}")
+    return err
+
+
+def check_whole_calls(torch, tk, p, t_rows, v, tl, csr, seed: int) -> dict:
+    """The surface and divergence whole calls vs their twins: max abs errors.
+
+    The surface energy alone and with its vertex gradient (a seeded tension
+    on every triangle, masked by ``v`` in the kernel), the masked divergence
+    and its tilt backward (on the twin's shape gradients and a seeded
+    upstream).
+    """
+    from membrane_solver_tpu_torch.device import tilt_ops
+
+    dtype, T = p.dtype, t_rows.shape[0]
+    name = str(dtype).removeprefix("torch.")
+    rng = np.random.default_rng(seed + 1)
+    tension = torch.as_tensor(rng.uniform(0.5, 2.0, T), dtype=dtype, device=DEVICE)
+    ws = tk.Workspace(T, dtype, DEVICE)
+    e_only, _ = tk.launch_surface_energy(p, t_rows, v, tension, csr, ws, grad=False)
+    e, dpos = tk.launch_surface_energy(p, t_rows, v, tension, csr, ws, grad=True)
+    want_e, want_g = tk.surface_energy_reference(p, t_rows, v, tension, csr, True)
+    errs = {
+        "surface_energy": max(_sum_check(torch, f"surface energy ({name})", x[0], want_e,
+                                         WC_ENERGY[name]) for x in (e_only, e)),
+        "surface_grad": _sum_check(torch, f"surface vertex gradient ({name})", dpos, want_g,
+                                   WC_SURFACE_GRAD[name]),
+    }
+    div, area, g = tk.launch_p1_divergence(p, tl, t_rows, v)
+    want = tilt_ops.p1_triangle_divergence(p, tl, t_rows, v)
+    errs["p1_div"] = max(
+        _tk_check(torch, "masked p1 div", div, want[0], dtype, "curv"),
+        _tk_check(torch, "masked p1 area", area, want[1], dtype, "curv"),
+        _tk_check(torch, "masked p1 g", g, want[2], dtype, "curv"),
+    )
+    ct = torch.as_tensor(rng.standard_normal(T), dtype=dtype, device=DEVICE)
+    errs["p1_div_bwd"] = _sum_check(torch, f"p1 div tilt backward ({name})",
+                                    tk.launch_p1_div_bwd(want[2], v, ct, csr),
+                                    tk.p1_div_vjp_reference(want[2], v, ct, csr), WC_DIV_BWD[name])
+    return errs
+
+
 def check_tri_kernels(torch, tk, arrays, dtype, seed: int, data: bool) -> tuple[dict, int]:
-    """The per-triangle kernels (and, with ``data``, the curvature data) vs their twins.
+    """The per-triangle kernels, the surface and divergence whole calls (and, with
+    ``data``, the curvature data) vs their twins.
 
     Returns the max abs errors and the number of rows left out at a tie.
     """
     from membrane_solver_tpu_torch.device import geo as dgeo
-    from membrane_solver_tpu_torch.device import tilt_ops
     from membrane_solver_tpu_torch.device.state import corner_csr
 
     pos, rows, valid, tilts = arrays
@@ -580,7 +704,8 @@ def check_tri_kernels(torch, tk, arrays, dtype, seed: int, data: bool) -> tuple[
     tl = torch.as_tensor(tilts, dtype=dtype, device=dev)
     T = t_rows.shape[0]
     corners = [p[t_rows[:, i]] for i in range(3)]
-    errs = {}
+    csr = corner_csr(t_rows, p.shape[0])
+    errs = check_whole_calls(torch, tk, p, t_rows, v, tl, csr, seed)
 
     gamma = torch.where(v, 1.7, 0.0).to(dtype)
     e, g = tk.launch_surface(p, t_rows, gamma)
@@ -606,7 +731,6 @@ def check_tri_kernels(torch, tk, arrays, dtype, seed: int, data: bool) -> tuple[
     errs["curvature_bwd"] = _bwd_check(torch, "curvature bwd", dp, want, dtype, clear)
 
     if data:
-        csr = corner_csr(t_rows, p.shape[0])
         vclear = torch.ones(p.shape[0], dtype=torch.bool, device=dev)
         vclear[t_rows[~clear].reshape(-1)] = False  # vertex sums free of tie rows
         got = tk.launch_curvature_data(p, t_rows, v, csr)
@@ -623,13 +747,6 @@ def check_tri_kernels(torch, tk, arrays, dtype, seed: int, data: bool) -> tuple[
         errs["curvature_data_bwd"] = _bwd_check(torch, "curvature data bwd", dpos, want, dtype,
                                                 vclear)
 
-    div, area, g = tk.launch_p1_div(p, tl, t_rows)
-    want = tilt_ops.p1_divergence_corners(*corners, *[tl[t_rows[:, i]] for i in range(3)])
-    errs["p1_div_fwd"] = max(
-        _tk_check(torch, "p1 div", div, want[0], dtype, "curv"),
-        _tk_check(torch, "p1 area", area, want[1], dtype, "curv"),
-        _tk_check(torch, "p1 g", g, torch.stack(want[2:], 1), dtype, "curv"),
-    )
     torch.cuda.synchronize()
     return errs, int(T - int(torch.sum(clear)))
 
@@ -669,6 +786,8 @@ def kozlov_triangles(torch, mn) -> list:
 def check_determinism(torch, ft, tk, kozlov) -> dict:
     """Two energy-plus-gradient calls of each redesigned entry point give the same bits.
 
+    The frozen-tilt energy and the surface energy with their gradients, the
+    curvature data and the divergence forward with their backwards.
     Also runs one such call of each under torch.profiler and fails on a
     PyTorch index, scatter, gather, sort or reduction kernel among its
     device operations.  Returns the device operations by entry point.
@@ -693,8 +812,24 @@ def check_determinism(torch, ft, tk, kozlov) -> dict:
         outs = (cd.k_vecs, cd.vertex_areas, cd.corner_areas)
         return tuple(o.detach() for o in outs) + torch.autograd.grad(outs, (x,), tuple(ups))
 
+    tension = topo.tri_surface_tension.to(torch.float32)
+    s_ws = tk.Workspace(rows.shape[0], torch.float32, DEVICE)
+    tilts = torch.as_tensor(0.3 * rng.standard_normal((nv, 3)), dtype=torch.float32, device=DEVICE)
+    ct = torch.as_tensor(rng.standard_normal(rows.shape[0]), dtype=torch.float32, device=DEVICE)
+
+    def surface():
+        x = pos.detach().requires_grad_(True)
+        e = tk.surface_energy(x, rows, topo.tri_valid, tension, csr, s_ws)
+        return (e.detach(),) + torch.autograd.grad(e, (x,))
+
+    def divergence():
+        t = tilts.detach().requires_grad_(True)
+        div, area, grads = tk.p1_triangle_divergence(pos, t, rows, topo.tri_valid, csr)
+        return (div.detach(), area, grads) + torch.autograd.grad(div, (t,), (ct,))
+
     ops = {}
-    for name, fn in (("frozen_tilt_energy", frozen_tilt), ("curvature_data", curvature)):
+    for name, fn in (("frozen_tilt_energy", frozen_tilt), ("curvature_data", curvature),
+                     ("surface_energy", surface), ("p1_triangle_divergence", divergence)):
         first, second = fn(), fn()
         if not all(torch.equal(a, b) for a, b in zip(first, second)):
             raise AssertionError(f"{name}: two energy-plus-gradient calls differ")
@@ -938,9 +1073,10 @@ def main() -> int:
 
     counters = {"frozen_tilt": ft.LAUNCHES, "tri_kernels": tk.LAUNCHES,
                 "vertex_sum": vs.LAUNCHES}
-    shared = ("tri_kernels.surface_fwd", "tri_kernels.curvature_data",
-              "tri_kernels.curvature_data_bwd", "vertex_sum.vertex_sum")
-    kozlov_path = shared + ("tri_kernels.p1_div_fwd",)
+    shared = ("tri_kernels.surface_energy", "tri_kernels.surface_energy_grad",
+              "tri_kernels.curvature_data", "tri_kernels.curvature_data_bwd",
+              "vertex_sum.vertex_sum")
+    kozlov_path = shared + ("tri_kernels.p1_div",)
     runs = {}
     runs["k32"] = phase_path(torch, counters, "4 kozlov_L3 f32", kozlov, torch.float32,
                              kozlov_path + ("frozen_tilt.energy", "frozen_tilt.energy_grad"))

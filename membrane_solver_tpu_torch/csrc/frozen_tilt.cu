@@ -30,8 +30,9 @@
 //     leaflets through tri_rows.  The energy is summed in the kernel: warp
 //     shuffles, then the block's warps, then one partial per block; the last
 //     block to finish (a device counter that it resets itself) adds the
-//     partials in block order and writes the scalar.  Every sum runs in a
-//     fixed order, in double, so the result is the same bits on every run.
+//     partials in block order and writes the scalar (block_sum.cuh).  Every
+//     sum runs in a fixed order, in double, so the result is the same bits
+//     on every run.
 //     With the gradient, each thread also puts its corners' dE/dt_in and
 //     dE/dt_out into shared memory, and the block writes them to a
 //     (T, 3, 3) scratch per leaflet, which stays in L2, as coalesced 16-byte
@@ -61,12 +62,12 @@
 
 #include <cstdint>
 
+#include "block_sum.cuh"
 #include "vertex_sum.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
 constexpr int kPay = 20;  // payload floats per triangle
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -106,26 +107,6 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(smem_u32(bar)), "r"(parity)
         : "memory");
   } while (!done);
-}
-
-// Sum over the block in a fixed order (a shuffle-down tree in each warp,
-// then warp 0 over the warps); the result is valid in thread 0.  Every
-// thread of the block must call it.
-__device__ __forceinline__ double block_sum(double v, double* s_warp) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  if (lane == 0) s_warp[warp] = v;
-  __syncthreads();
-  v = 0.0;
-  if (warp == 0) {
-    v = lane < kWarps ? s_warp[lane] : 0.0;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  }
-  __syncthreads();  // s_warp may be written again
-  return v;
 }
 
 __device__ __forceinline__ float div_of(const float* t, const float* g) {
@@ -184,8 +165,6 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ alignas(128) float s_pay[kThreads * kPay];
   __shared__ alignas(128) float s_g[kThreads * 9];
   __shared__ alignas(8) uint64_t s_bar;
-  __shared__ double s_warp[kWarps];
-  __shared__ bool s_last;
 
   const int tid = threadIdx.x;
   const int first = blockIdx.x * kThreads;
@@ -307,24 +286,9 @@ __global__ void __launch_bounds__(kThreads)
     store_slab(dout_c + (int64_t)first * 9, s_out, here * 9);
   }
 
-  // 4. the energy: block partial, then the last block adds the partials in order
-  const double block = block_sum(e_thread, s_warp);
-  if (tid == 0) {
-    partials[blockIdx.x] = block;
-    __threadfence();
-    s_last = atomicAdd(counter, 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (s_last) {
-    __threadfence();
-    double acc = 0.0;
-    for (int i = tid; i < (int)gridDim.x; i += kThreads) acc += __ldcg(partials + i);
-    acc = block_sum(acc, s_warp);
-    if (tid == 0) {
-      energy[0] = (float)acc;
-      *counter = 0u;  // ready for the next launch on the stream
-    }
-  }
+  // 4. the energy: block partials, added in block order by the last block
+  double total;
+  if (block_sum::grid_sum<kThreads>(e_thread, partials, counter, &total)) energy[0] = (float)total;
 }
 
 }  // namespace

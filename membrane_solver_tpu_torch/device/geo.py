@@ -15,9 +15,9 @@ from ``kernels/tri_kernels``, which launches the kernels for a CUDA tensor
 and runs these twins for a CPU one.
 
 Scatter-adds are ``index_add``: deterministic on the CPU, and on CUDA the
-float atomics make the summation order vary from run to run.  The cotan
-curvature data on the solver's path goes through
-``kernels/tri_kernels.curvature_data`` instead, whose vertex sums run in
+float atomics make the summation order vary from run to run.  The surface
+energy, the cotan curvature data and the P1 divergence on the solver's
+path go through ``kernels/tri_kernels`` instead, whose vertex sums run in
 a fixed order on both devices.
 """
 

@@ -98,17 +98,25 @@ class Topology:
     # per-module compiled extras, namespaced "kind:module/key"
     extras: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
-    def corner_csr(self) -> CornerCSR:
-        """The vertex-to-corner CSR of ``tri_rows``, built at first use and kept.
+    def kept(self, key, make):
+        """``make()``, built at first use for ``key`` and kept with this topology.
 
-        Kept beside the ``tri_rows`` tensor it was built from, so a topology
-        whose ``tri_rows`` is replaced builds a new one.
+        Kept beside the ``tri_rows`` tensor it was built for, so a topology
+        whose ``tri_rows`` is replaced builds anew.  Holds the corner CSR and
+        the kernels' scratch (``kernels/tri_kernels.workspace``).
         """
-        cached = self.__dict__.get("_corner_csr")
-        if cached is None or cached[0] is not self.tri_rows:
-            cached = (self.tri_rows, corner_csr(self.tri_rows, self.vertex_valid.shape[0]))
-            self.__dict__["_corner_csr"] = cached
-        return cached[1]
+        store = self.__dict__.get("_kept")
+        if store is None or store[0] is not self.tri_rows:
+            store = (self.tri_rows, {})
+            self.__dict__["_kept"] = store
+        if key not in store[1]:
+            store[1][key] = make()
+        return store[1][key]
+
+    def corner_csr(self) -> CornerCSR:
+        """The vertex-to-corner CSR of ``tri_rows``, built at first use and kept."""
+        return self.kept("corner_csr",
+                         lambda: corner_csr(self.tri_rows, self.vertex_valid.shape[0]))
 
 
 _TOPO_FIELDS = tuple(f.name for f in dataclasses.fields(Topology) if f.name != "extras")

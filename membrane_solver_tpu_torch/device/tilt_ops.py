@@ -2,9 +2,9 @@
 
 Counterpart of ``membrane_solver_tpu/device/tilt_ops.py``
 (``p1_triangle_divergence``): div(t) = sum_i t_i . g_i with
-g_i = (n x e_i)/|n|^2.  Plain PyTorch: :func:`p1_divergence_corners` is the
-twin of the ``tri_p1_div_fwd`` CUDA kernel, which the energy modules reach
-through ``kernels/tri_kernels``.
+g_i = (n x e_i)/|n|^2.  Plain PyTorch: :func:`p1_triangle_divergence` is the
+twin of the ``tri_p1_div`` CUDA kernel (masks included); the energy
+modules reach the kernel through ``kernels/tri_kernels``.
 """
 
 from __future__ import annotations
@@ -19,9 +19,9 @@ def p1_divergence_corners(v0, v1, v2, t0, t1, t2):
 
     The P1 shape gradients ``g_i = (n x e_i) / max(|n|^2, EPS^2)`` with
     ``n = e1 x e2`` and ``e_i`` the edge opposite corner i, the divergence
-    ``sum_i t_i . g_i`` and the area ``|n| / 2``.  Plain twin of the
-    ``tri_p1_div_fwd`` CUDA kernel (``kernels/tri_kernels``), which replaces
-    the JAX package's ``_p1_div_kernel``.
+    ``sum_i t_i . g_i`` and the area ``|n| / 2``: the per-triangle part of
+    :func:`p1_triangle_divergence`, whose CUDA kernel (``tri_p1_div``,
+    ``kernels/tri_kernels``) replaces the JAX package's ``_p1_div_kernel``.
     """
     e0 = v2 - v1
     e1 = v0 - v2

@@ -89,7 +89,7 @@ def leaflet_bending_tilt_energy(
 
     # --- corner form at frozen positions: value + exact tilt gradient -----
     div_tri, _, _ = tri_kernels.p1_triangle_divergence(
-        positions.detach(), tilts, topo.tri_rows, topo.tri_valid
+        positions.detach(), tilts, topo.tri_rows, topo.tri_valid, topo.corner_csr()
     )
     div_term = div_sign * div_tri
     base_c = base[topo.tri_rows]
@@ -159,8 +159,8 @@ def make_leaflet_bending_tilt_frozen(
     The surrogate contributes zero value and zero tilt gradient, so the
     per-iteration energy is the corner form alone, with the base term, the
     effective corner areas and the P1 shape gradients baked once per relax
-    call.  The shape gradients come from the ``p1_div_fwd`` kernel (one
-    launch per relax; its divergence of the current tilts goes unused).
+    call.  The shape gradients come from the ``p1_div`` kernel (one launch
+    per relax; its divergence of the current tilts goes unused).
     """
 
     def precompute(state, topo, params):
@@ -173,7 +173,7 @@ def make_leaflet_bending_tilt_frozen(
         )
         tilts = state.tilts_in if leaflet == "in" else state.tilts_out
         _div, _area, g = tri_kernels.p1_triangle_divergence(
-            positions.detach(), tilts.detach(), topo.tri_rows, topo.tri_valid
+            positions.detach(), tilts.detach(), topo.tri_rows, topo.tri_valid, topo.corner_csr()
         )
         return {
             "base_c": base_f[topo.tri_rows],

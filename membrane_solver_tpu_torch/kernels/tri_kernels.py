@@ -1,13 +1,17 @@
 """Per-triangle geometry kernels: CUDA wrappers, autograd Functions, dispatch.
 
 Counterpart of ``membrane_solver_tpu/pallas_kernels/tri_kernels.py``.  The
-kernels live in ``csrc/tri_kernels.cu`` (with the shared vertex-sum kernel
-of ``csrc/vertex_sum.cuh``), each for float32 and float64, compiled with
-``nvcc`` for ``sm_90a`` at first use (``kernels/_build``) and bound with
-``ctypes``.  Entry points, each one ctypes call:
+kernels live in ``csrc/tri_kernels.cu`` (with the shared vertex-sum and
+block-sum kernels of ``csrc/vertex_sum.cuh`` and ``csrc/block_sum.cuh``),
+each for float32 and float64, compiled with ``nvcc`` for ``sm_90a`` at
+first use (``kernels/_build``) and bound with ``ctypes``.  Entry points on
+the solver's path, each one ctypes call:
 
-- ``surface_fwd``: per-triangle surface energy ``gamma * A`` and its corner
-  gradients (twin: ``geo.surface_corner_terms``);
+- ``surface_energy``: the surface energy ``sum_t [valid_t] gamma_t A_t``
+  as one device scalar, the tension mask and the sum in the kernel, and,
+  when the positions require grad, its vertex gradient summed in
+  corner-CSR order (twin: ``geo.surface_corner_terms`` and
+  ``vertex_sum.reference``); its backward scales the saved gradient;
 - ``curvature_data``: the cotan curvature data of ``geo.curvature_data``:
   cotangent weights and Meyer corner areas per corner, and the corner
   mean-curvature vectors and corner areas summed into vertex rows by the
@@ -18,24 +22,28 @@ of ``csrc/vertex_sum.cuh``), each for float32 and float64, compiled with
   (read through ``tri_rows`` in the kernel) and the per-corner upstream of
   the weights and corner areas, summed into vertex rows (twin: autograd of
   ``geo.curvature_corners``, then ``vertex_sum.reference``);
-- ``curvature_fwd`` / ``curvature_bwd``: the same two curvature kernels
-  with per-triangle outputs and upstreams (:func:`curvature_corners`; off
-  the solver's path, kept for the tests and the card checks);
-- ``p1_div_fwd``: P1 shape gradients, tilt divergence and area (twin:
-  ``tilt_ops.p1_divergence_corners``).
+- ``p1_div``: the masked P1 divergence, the masked area and the P1 shape
+  gradients of ``tilt_ops.p1_triangle_divergence`` (its twin);
+- ``p1_div_bwd``: its backward in the tilts, ``[valid_t] dE/ddiv_t g[t, c]``
+  summed into vertex rows in corner-CSR order by the weighted vertex sum
+  (twin: :func:`p1_div_vjp_reference`).
 
-Each kernel gathers its corners through ``tri_rows`` itself.  The
-curvature data needs no ``index_add`` either way; the surface and
-divergence backwards still scatter with one.
+Off the solver's path, kept for the tests and the card checks:
+``surface_fwd`` and ``curvature_fwd`` / ``curvature_bwd``, the same
+kernels with per-triangle outputs and no sums (:func:`curvature_corners`
+is the autograd-aware form of the curvature pair).
 
-Dispatch: the public functions (:func:`surface_energies`,
-:func:`curvature_corners` and :func:`curvature_data`, :func:`p1_divergence`
-and :func:`p1_triangle_divergence`) are autograd-aware, and the energy
-modules call them in place of the plain ``geo`` / ``tilt_ops`` functions.  A
-CUDA tensor launches the kernels, after device, dtype, shape and
-contiguity checks that raise on anything else; a CPU tensor runs the
-twins.  ``LAUNCHES`` counts calls of each entry point; the vertex-sum
-launches they make count in ``vertex_sum.LAUNCHES``.
+Each kernel gathers its corners through ``tri_rows`` itself, and every sum
+runs in a fixed order (no atomic scatter): two calls give the same bits.
+
+Dispatch: the public functions (:func:`surface_energy`,
+:func:`curvature_data`, :func:`p1_triangle_divergence`,
+:func:`curvature_corners`) are autograd-aware, and the energy modules call
+them in place of the plain ``geo`` / ``tilt_ops`` functions.  A CUDA tensor
+launches the kernels, after device, dtype, shape, contiguity and alignment
+checks that raise on anything else; a CPU tensor runs the twins.
+``LAUNCHES`` counts calls of each entry point; the vertex-sum launches they
+make count in ``vertex_sum.LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -50,13 +58,15 @@ from membrane_solver_tpu_torch.device.state import CornerCSR
 from membrane_solver_tpu_torch.kernels import _build
 from membrane_solver_tpu_torch.kernels import vertex_sum as vs
 
-LAUNCHES = {"surface_fwd": 0, "curvature_data": 0, "curvature_data_bwd": 0, "p1_div_fwd": 0,
-            "curvature_fwd": 0, "curvature_bwd": 0}
+LAUNCHES = {"surface_energy": 0, "surface_energy_grad": 0, "curvature_data": 0,
+            "curvature_data_bwd": 0, "p1_div": 0, "p1_div_bwd": 0,
+            "surface_fwd": 0, "curvature_fwd": 0, "curvature_bwd": 0}
 
 # -fmad=false: no contracted multiply-adds, so the obtuse-branch tests see
 # the twin's rounding (see the note in the source)
 KERNEL = _build.Source("tri_kernels", extra_flags=("-fmad=false",))
 SOURCE = KERNEL.path
+TILE = 128  # triangles per block of the surface and divergence kernels (csrc kTile)
 
 _lib = None
 
@@ -70,16 +80,22 @@ def build() -> ctypes.CDLL:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     signatures = {
         "tri_surface_fwd": [i32, ptr, ptr, ptr, ptr, ptr, i32, i64, ptr],
+        "tri_surface_energy": [i32] + [ptr] * 11 + [i32, i64, i32, ptr],
         "tri_curvature_fwd": [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i64, ptr],
         "tri_curvature_bwd": [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i64, ptr],
         "tri_curvature_data": [i32] + [ptr] * 10 + [i32, i64, ptr],
         "tri_curvature_data_bwd": [i32] + [ptr] * 11 + [i32, i64, ptr],
-        "tri_p1_div_fwd": [i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i64, ptr],
+        "tri_p1_div": [i32] + [ptr] * 7 + [i32, i64, ptr],
+        "tri_p1_div_bwd": [i32] + [ptr] * 6 + [i64, ptr],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = i32
+    lib.tri_tile_size.restype = i32
+    if lib.tri_tile_size() != TILE:
+        raise RuntimeError(f"tri_kernels.cu uses {lib.tri_tile_size()}-triangle blocks, "
+                           f"the wrapper {TILE}")
     _lib = lib
     return lib
 
@@ -108,10 +124,13 @@ def _check_rows(positions, tri_rows) -> int:
     T = tri_rows.shape[0]
     if positions.dim() != 2 or positions.shape[1] != 3:
         raise ValueError(f"positions must be (Nv, 3), got {tuple(positions.shape)}")
-    if T >= 2**31:
-        raise ValueError(f"{T} triangles exceed the kernel's int index")
+    if T >= 2**31 or positions.shape[0] >= 2**31:
+        raise ValueError(f"{T} triangles / {positions.shape[0]} vertices exceed the kernel's "
+                         "int index")
     _check(positions, positions.dtype,
            positions=(positions, positions.shape, None), tri_rows=(tri_rows, (T, 3), torch.int64))
+    if tri_rows.data_ptr() % 16:
+        raise ValueError("tri_rows must start on a 16-byte boundary (16-byte slab loads)")
     return T
 
 
@@ -124,20 +143,86 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _f64(x: torch.Tensor) -> int:
+    return int(x.dtype == torch.float64)
+
+
 def launch_surface(positions, tri_rows, gamma):
-    """(e (T,), g (T, 3, 3)) from the ``surface_fwd`` kernel."""
+    """(e (T,), g (T, 3, 3)) per triangle from ``tri_surface_fwd`` (no mask, no sum)."""
     T = _check_rows(positions, tri_rows)
     _check(positions, positions.dtype, gamma=(gamma, (T,), None))
     lib = build()
     e = torch.empty(T, dtype=positions.dtype, device=positions.device)
     g = torch.empty((T, 3, 3), dtype=positions.dtype, device=positions.device)
     code = lib.tri_surface_fwd(
-        int(positions.dtype == torch.float64), positions.data_ptr(), tri_rows.data_ptr(),
-        gamma.data_ptr(), e.data_ptr(), g.data_ptr(), T, positions.shape[0], _stream(positions),
+        _f64(positions), positions.data_ptr(), tri_rows.data_ptr(), gamma.data_ptr(),
+        e.data_ptr(), g.data_ptr(), T, positions.shape[0], _stream(positions),
     )
     _raise_on(code, "tri_surface_fwd")
     LAUNCHES["surface_fwd"] += 1
     return e, g
+
+
+class Workspace:
+    """Scratch of ``tri_surface_energy`` for T triangles of one dtype on one card.
+
+    A (T, 3, 3) corner-gradient slab, one double energy partial per block of
+    ``TILE`` triangles, and the last-block counter (zeroed here; each launch
+    leaves it at zero).  Kept per topology by :func:`workspace`; calls that
+    share one must run in order on one stream.
+    """
+
+    def __init__(self, n_triangles: int, dtype, device):
+        self.n_triangles = n_triangles
+        self.corners = torch.empty((n_triangles, 3, 3), dtype=dtype, device=device)
+        self.partials = torch.empty(-(-n_triangles // TILE), dtype=torch.float64, device=device)
+        self.counter = torch.zeros(1, dtype=torch.int32, device=device)
+
+
+def workspace(topo, positions) -> Workspace | None:
+    """The topology's :class:`Workspace` for ``positions``' dtype and card; None on the CPU.
+
+    Built at first use and kept with the topology (``Topology.kept``), so
+    the solver's calls allocate no scratch.
+    """
+    if not positions.is_cuda:
+        return None
+    return topo.kept(("tri_kernels.workspace", positions.dtype, positions.device),
+                     lambda: Workspace(topo.tri_rows.shape[0], positions.dtype, positions.device))
+
+
+def launch_surface_energy(positions, tri_rows, tri_valid, tension, csr: CornerCSR, ws: Workspace,
+                          grad: bool):
+    """(energy (1,), dE/dpositions (Nv, 3) or None) from one ``tri_surface_energy`` call."""
+    T = _check_rows(positions, tri_rows)
+    if T < 1:
+        raise ValueError("the surface energy kernel needs at least one triangle")
+    _check(positions, positions.dtype, tri_valid=(tri_valid, (T,), torch.bool),
+           tension=(tension, (T,), None))
+    if (ws.n_triangles != T or ws.corners.device != positions.device
+            or ws.corners.dtype != positions.dtype):
+        raise ValueError(f"the workspace holds {ws.n_triangles} {ws.corners.dtype} triangles on "
+                         f"{ws.corners.device}")
+    if grad:
+        _check_csr(positions, tri_rows, csr)
+    lib = build()
+    nv = positions.shape[0]
+    energy = torch.empty(1, dtype=positions.dtype, device=positions.device)
+    dpos = torch.empty((nv, 3), dtype=positions.dtype, device=positions.device) if grad else None
+    code = lib.tri_surface_energy(
+        _f64(positions), positions.data_ptr(), tri_rows.data_ptr(), tri_valid.data_ptr(),
+        tension.data_ptr(), csr.offsets.data_ptr() if grad else None,
+        csr.slots.data_ptr() if grad else None, ws.corners.data_ptr(), ws.partials.data_ptr(),
+        ws.counter.data_ptr(), energy.data_ptr(), _ptr(dpos), T, nv, int(grad),
+        _stream(positions),
+    )
+    _raise_on(code, "tri_surface_energy")
+    if grad:
+        LAUNCHES["surface_energy_grad"] += 1
+        vs.LAUNCHES["vertex_sum"] += 1
+    else:
+        LAUNCHES["surface_energy"] += 1
+    return energy, dpos
 
 
 def launch_curvature(positions, tri_rows, tri_valid):
@@ -233,33 +318,61 @@ def launch_curvature_data_bwd(positions, tri_rows, tri_valid, csr: CornerCSR, g_
     return dpos
 
 
-def launch_p1_div(positions, tilts, tri_rows):
-    """(div (T,), area (T,), g (T, 3, 3)) from the ``p1_div_fwd`` kernel."""
+def launch_p1_divergence(positions, tilts, tri_rows, tri_valid):
+    """(div (T,), area (T,), g (T, 3, 3)) from ``tri_p1_div``, masked as
+    ``tilt_ops.p1_triangle_divergence`` masks them."""
     T = _check_rows(positions, tri_rows)
-    _check(positions, positions.dtype, tilts=(tilts, positions.shape, None))
+    _check(positions, positions.dtype, tilts=(tilts, positions.shape, None),
+           tri_valid=(tri_valid, (T,), torch.bool))
     lib = build()
     kw = {"dtype": positions.dtype, "device": positions.device}
     div, area, g = (torch.empty(s, **kw) for s in ((T,), (T,), (T, 3, 3)))
-    code = lib.tri_p1_div_fwd(
-        int(positions.dtype == torch.float64), positions.data_ptr(), tilts.data_ptr(),
-        tri_rows.data_ptr(), div.data_ptr(), area.data_ptr(), g.data_ptr(),
-        T, positions.shape[0], _stream(positions),
+    code = lib.tri_p1_div(
+        _f64(positions), positions.data_ptr(), tilts.data_ptr(), tri_rows.data_ptr(),
+        tri_valid.data_ptr(), div.data_ptr(), area.data_ptr(), g.data_ptr(), T,
+        positions.shape[0], _stream(positions),
     )
-    _raise_on(code, "tri_p1_div_fwd")
-    LAUNCHES["p1_div_fwd"] += 1
+    _raise_on(code, "tri_p1_div")
+    LAUNCHES["p1_div"] += 1
     return div, area, g
 
 
+def launch_p1_div_bwd(g, tri_valid, g_div, csr: CornerCSR):
+    """dE/dtilts (Nv, 3) = sum over each vertex's CSR slots (t, c) of [valid_t] g_div_t g[t, c]."""
+    T = g.shape[0]
+    _check(g, g.dtype, g=(g, (T, 3, 3), None), tri_valid=(tri_valid, (T,), torch.bool),
+           g_div=(g_div, (T,), None))
+    vs.check_csr(csr, g, T)
+    lib = build()
+    dtilts = torch.empty((csr.n_rows, 3), dtype=g.dtype, device=g.device)
+    code = lib.tri_p1_div_bwd(
+        _f64(g), csr.offsets.data_ptr(), csr.slots.data_ptr(), g.data_ptr(), tri_valid.data_ptr(),
+        g_div.data_ptr(), dtilts.data_ptr(), csr.n_rows, _stream(g),
+    )
+    _raise_on(code, "tri_p1_div_bwd")
+    LAUNCHES["p1_div_bwd"] += 1
+    vs.LAUNCHES["vertex_sum"] += 1
+    return dtilts
+
+
 # ----------------------------------------------------------------------
-# autograd Functions (kernels on the card, twins on the CPU)
+# plain twins and autograd Functions (kernels on the card, twins on the CPU)
 # ----------------------------------------------------------------------
 def _corners(x, tri_rows):
     return x[tri_rows[:, 0]], x[tri_rows[:, 1]], x[tri_rows[:, 2]]
 
 
-def _scatter_corners(dc, tri_rows, n_rows):
-    """Sum (T, 3, 3) corner rows into (n_rows, 3) vertex rows."""
-    return dgeo.scatter_add_rows(dc[:, 0], dc[:, 1], dc[:, 2], tri_rows, n_rows)
+def surface_energy_reference(positions, tri_rows, tri_valid, tension, csr: CornerCSR, grad: bool):
+    """Plain twin of ``tri_surface_energy``: (energy 0-dim, dE/dpositions or None)."""
+    gamma = torch.where(tri_valid, tension, 0.0)
+    e, g0, g1, g2 = dgeo.surface_corner_terms(*_corners(positions, tri_rows), gamma)
+    dpos = vs.reference(torch.stack([g0, g1, g2], dim=1), csr) if grad else None
+    return torch.sum(e), dpos
+
+
+def p1_div_vjp_reference(g, tri_valid, g_div, csr: CornerCSR):
+    """Plain twin of ``tri_p1_div_bwd``: the weighted vertex sum of the shape gradients."""
+    return vs.reference(g, csr, weight=torch.where(tri_valid, g_div, 0.0))
 
 
 def curvature_corners_vjp(positions, tri_rows, tri_valid, g_cot, g_k, g_va, g_area):
@@ -295,28 +408,32 @@ def curvature_data_vjp_reference(positions, tri_rows, tri_valid, csr: CornerCSR,
     return vs.reference(dc, csr)
 
 
-class _Surface(torch.autograd.Function):
+def _surface(positions, tri_rows, tri_valid, tension, csr, ws, grad):
+    if positions.is_cuda:
+        if ws is None:
+            ws = Workspace(tri_rows.shape[0], positions.dtype, positions.device)
+        e, dpos = launch_surface_energy(positions.contiguous(), tri_rows, tri_valid,
+                                        tension.contiguous(), csr, ws, grad)
+        return e.reshape(()), dpos
+    return surface_energy_reference(positions, tri_rows, tri_valid, tension, csr, grad)
+
+
+class _SurfaceEnergy(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, positions, tri_rows, gamma):
-        if positions.is_cuda:
-            e, g = launch_surface(positions.contiguous(), tri_rows, gamma.contiguous())
-        else:
-            e, g0, g1, g2 = dgeo.surface_corner_terms(*_corners(positions, tri_rows), gamma)
-            g = torch.stack([g0, g1, g2], dim=1)
-        ctx.save_for_backward(g, tri_rows)
-        ctx.n_rows = positions.shape[0]
-        ctx.mark_non_differentiable(g)
-        return e, g
+    def forward(ctx, positions, tri_rows, tri_valid, tension, csr, ws):
+        e, dpos = _surface(positions.detach(), tri_rows, tri_valid, tension, csr, ws, True)
+        ctx.save_for_backward(dpos)
+        return e
 
     @staticmethod
-    def backward(ctx, grad_e, _grad_g):
-        g, tri_rows = ctx.saved_tensors
-        return _scatter_corners(grad_e[:, None, None] * g, tri_rows, ctx.n_rows), None, None
+    def backward(ctx, ct):
+        (dpos,) = ctx.saved_tensors
+        return ct * dpos, None, None, None, None, None
 
 
 class _Curvature(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, positions, tri_rows, tri_valid):
+    def forward(ctx, positions, tri_rows, tri_valid, csr):
         if positions.is_cuda:
             cot, k, va, area = launch_curvature(positions.contiguous(), tri_rows, tri_valid)
         else:
@@ -325,6 +442,7 @@ class _Curvature(torch.autograd.Function):
             )
             k = torch.stack([k0, k1, k2], dim=1)
         ctx.save_for_backward(positions, tri_rows, tri_valid)
+        ctx.csr = csr
         return cot, k, va, area
 
     @staticmethod
@@ -333,9 +451,9 @@ class _Curvature(torch.autograd.Function):
         upstream = [x.contiguous() for x in (g_cot, g_k, g_va, g_area)]
         if positions.is_cuda:
             dc = launch_curvature_bwd(positions.contiguous(), tri_rows, tri_valid, *upstream)
-        else:
-            dc = curvature_corners_vjp(positions, tri_rows, tri_valid, *upstream)
-        return _scatter_corners(dc, tri_rows, positions.shape[0]), None, None
+            return vs.launch(dc, ctx.csr), None, None, None
+        dc = curvature_corners_vjp(positions, tri_rows, tri_valid, *upstream)
+        return vs.reference(dc, ctx.csr), None, None, None
 
 
 class _CurvatureData(torch.autograd.Function):
@@ -368,41 +486,55 @@ class _CurvatureData(torch.autograd.Function):
 
 class _P1Divergence(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, positions, tilts, tri_rows):
+    def forward(ctx, positions, tilts, tri_rows, tri_valid, csr):
+        ctx.set_materialize_grads(False)  # no upstream of div: no launch
         if positions.is_cuda:
-            div, area, g = launch_p1_div(positions.contiguous(), tilts.contiguous(), tri_rows)
+            div, area, g = launch_p1_divergence(positions.contiguous(), tilts.contiguous(),
+                                                tri_rows, tri_valid)
         else:
-            div, area, g0, g1, g2 = tilt_ops.p1_divergence_corners(
-                *_corners(positions, tri_rows), *_corners(tilts, tri_rows)
-            )
-            g = torch.stack([g0, g1, g2], dim=1)
-        ctx.save_for_backward(g, tri_rows)
-        ctx.n_rows = tilts.shape[0]
+            div, area, g = tilt_ops.p1_triangle_divergence(positions, tilts, tri_rows, tri_valid)
+        ctx.save_for_backward(g, tri_valid)
+        ctx.csr = csr
         ctx.mark_non_differentiable(area, g)
         return div, area, g
 
     @staticmethod
     def backward(ctx, grad_div, _grad_area, _grad_g):
-        g, tri_rows = ctx.saved_tensors
-        return None, _scatter_corners(grad_div[:, None, None] * g, tri_rows, ctx.n_rows), None
+        if grad_div is None:
+            return None, None, None, None, None
+        g, tri_valid = ctx.saved_tensors
+        if g.is_cuda:
+            dtilts = launch_p1_div_bwd(g, tri_valid, grad_div.contiguous(), ctx.csr)
+        else:
+            dtilts = p1_div_vjp_reference(g, tri_valid, grad_div, ctx.csr)
+        return None, dtilts, None, None, None
 
 
 # ----------------------------------------------------------------------
 # public entry points
 # ----------------------------------------------------------------------
-def surface_energies(positions, tri_rows, gamma):
-    """Surface energy per triangle (T,), ``gamma * A``, differentiable in ``positions``.
+def surface_energy(positions, tri_rows, tri_valid, tension, csr: CornerCSR, ws=None):
+    """Scalar surface energy ``sum_t [valid_t] tension_t A_t``, differentiable in ``positions``.
 
-    ``gamma`` (T,) is the per-triangle tension, zero on triangles that must
-    not count.  The backward scales the corner gradients the forward saved.
+    When autograd needs the position gradient, one call computes the energy
+    and the vertex gradient (summed in the order of ``csr``, the topology's
+    corner CSR) and the backward scales it; otherwise the call computes the
+    energy alone.  ``ws`` is the topology's :class:`Workspace` for the CUDA
+    path (:func:`workspace`; made per call when None).
     """
-    e, _g = _Surface.apply(positions, tri_rows, gamma)
+    if torch.is_grad_enabled() and positions.requires_grad:
+        return _SurfaceEnergy.apply(positions, tri_rows, tri_valid, tension, csr, ws)
+    e, _dpos = _surface(positions, tri_rows, tri_valid, tension, csr, ws, False)
     return e
 
 
-def curvature_corners(positions, tri_rows, tri_valid):
-    """(cot, k0, k1, k2, va, tri_areas) of ``geo.curvature_corners``, differentiable."""
-    cot, k, va, area = _Curvature.apply(positions, tri_rows, tri_valid)
+def curvature_corners(positions, tri_rows, tri_valid, csr: CornerCSR):
+    """(cot, k0, k1, k2, va, tri_areas) of ``geo.curvature_corners``, differentiable.
+
+    The backward's corner gradients go to the vertices through the vertex
+    sum over ``csr``, the corner CSR of ``tri_rows``.
+    """
+    cot, k, va, area = _Curvature.apply(positions, tri_rows, tri_valid, csr)
     return cot, k[:, 0], k[:, 1], k[:, 2], va, area
 
 
@@ -417,18 +549,14 @@ def curvature_data(positions, tri_rows, tri_valid, csr: CornerCSR) -> dgeo.Curva
                               corner_areas=va)
 
 
-def p1_divergence(positions, tilts, tri_rows):
-    """(div, area, g0, g1, g2) of ``tilt_ops.p1_divergence_corners`` at frozen positions.
+def p1_triangle_divergence(positions, tilts, tri_rows, tri_valid, csr: CornerCSR):
+    """``tilt_ops.p1_triangle_divergence`` at frozen positions: (div, area, g (T, 3, 3)).
 
+    One kernel call forward (masks included), one backward in the tilts
+    (the weighted vertex sum over ``csr``, the corner CSR of ``tri_rows``).
     Differentiable in ``tilts`` only: a call whose positions require grad
     raises instead of dropping their gradient.
     """
     if positions.requires_grad and torch.is_grad_enabled():
-        raise ValueError("p1_divergence takes frozen positions; detach them first")
-    div, area, g = _P1Divergence.apply(positions, tilts, tri_rows)
-    return div, area, g[:, 0], g[:, 1], g[:, 2]
-
-
-def p1_triangle_divergence(positions, tilts, tri_rows, tri_valid):
-    """``tilt_ops.p1_triangle_divergence`` at frozen positions, from :func:`p1_divergence`."""
-    return tilt_ops.mask_divergence(*p1_divergence(positions, tilts, tri_rows), tri_valid)
+        raise ValueError("p1_triangle_divergence takes frozen positions; detach them first")
+    return _P1Divergence.apply(positions, tilts, tri_rows, tri_valid, csr)

@@ -5,9 +5,10 @@ them per vertex.  The vertex-sum kernel (``csrc/vertex_sum.cuh``, one
 thread per vertex) adds each vertex's corner rows in the order of the
 topology's :class:`~membrane_solver_tpu_torch.device.state.CornerCSR`, so
 the sums are the same bits on every run, where ``index_add`` on the card
-adds with float atomics in a changing order.  The frozen-tilt and curvature
-entry points launch it inside their own calls, and their CPU paths take
-:func:`reference`, which adds in the same order; :func:`launch` runs it
+adds with float atomics in a changing order.  The frozen-tilt, surface,
+curvature and divergence entry points launch it inside their own calls
+(the divergence's tilt backward in its weighted form), and their CPU
+paths take :func:`reference`, which adds in the same order; :func:`launch` runs it
 alone (``csrc/vertex_sum.cu``) on CUDA tensors, after device, dtype, shape
 and contiguity checks that raise on anything else.
 ``LAUNCHES["vertex_sum"]`` counts every launch of the kernel, from this
@@ -32,12 +33,14 @@ HEADER = SOURCE.with_suffix(".cuh")
 _lib = None
 
 
-def reference(corner_values: torch.Tensor, csr: CornerCSR) -> torch.Tensor:
+def reference(corner_values: torch.Tensor, csr: CornerCSR, weight=None) -> torch.Tensor:
     """Plain twin: (T, 3, *w) corner rows summed into (N, *w) vertex rows in CSR order.
 
     Round k adds every vertex's k-th corner (zero past its last), so each
     vertex row is ``((0 + c_0) + c_1) + ...`` in slot order, as the kernel
-    adds; ``x + 0`` is exact, so the padding changes no bit.
+    adds; ``x + 0`` is exact, so the padding changes no bit.  With ``weight``
+    (T,), each corner row is first multiplied by its triangle's weight, as
+    the weighted kernel does (``launch_weighted`` in ``csrc/vertex_sum.cuh``).
     """
     T = corner_values.shape[0]
     width = corner_values.shape[2:]
@@ -48,7 +51,10 @@ def reference(corner_values: torch.Tensor, csr: CornerCSR) -> torch.Tensor:
     out = flat.new_zeros((csr.n_rows, flat.shape[1]))
     for k in range(csr.max_degree):
         live = degree > k
-        rows = flat[slots[torch.where(live, starts + k, 0)]]
+        slot = slots[torch.where(live, starts + k, 0)]
+        rows = flat[slot]
+        if weight is not None:
+            rows = weight[slot // 3][:, None] * rows
         out = out + torch.where(live[:, None], rows, 0.0)
     return out.reshape((csr.n_rows,) + tuple(width))
 

@@ -10,10 +10,15 @@ the last 7 invalid):
 - each twin against the stock ``geo`` / ``tilt_ops`` functions at float64
   to 1e-12, and the curvature backward (autograd of the twin) against
   ``jax.vjp`` of the per-triangle part of ``geo.curvature_data``;
-- the curvature data entry point (``tri_kernels.curvature_data``, one call
-  each way with the corner-CSR vertex sums) and its backward against the
-  JAX package's stock ``geo.curvature_data`` and ``jax.vjp`` at float64 to
-  1e-12, on the small kozlov and vesicle meshes with seeded perturbations;
+- the whole-call entry points, each one call each way with the corner-CSR
+  vertex sums, against the JAX package at float64 to 1e-12, on the seeded
+  set and on the small kozlov and vesicle meshes with seeded perturbations:
+  ``tri_kernels.curvature_data`` and its backward against the stock
+  ``geo.curvature_data`` and ``jax.vjp``; ``tri_kernels.surface_energy``
+  (tension mask and sum inside) and its gradient against
+  ``energy/surface.energy`` and ``jax.grad``, with mixed tensions and
+  invalid triangles; ``tri_kernels.p1_triangle_divergence`` (masks inside)
+  against ``tilt_ops.p1_triangle_divergence`` and its tilt ``jax.vjp``;
 - the wrappers: the CPU path runs the twins and launches nothing, the
   launchers refuse CPU tensors, the divergence refuses differentiable
   positions; and, on a card only, each CUDA kernel against its twin.
@@ -26,6 +31,9 @@ path), so the twin's gradients are held against minus them and against
 
 from __future__ import annotations
 
+import functools
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,6 +43,7 @@ from _torch_port_harness import SMALL, assert_close, make_minimizer, make_vesicl
 
 from membrane_solver_tpu.device import geo as jgeo
 from membrane_solver_tpu.device import tilt_ops as jtops
+from membrane_solver_tpu.energy import surface as jsurface
 from membrane_solver_tpu.pallas_kernels import (
     curvature_corners_pallas,
     p1_divergence_pallas,
@@ -140,13 +149,16 @@ def test_surface_twin_matches_stock_area_and_its_gradient_f64():
 
 def test_surface_wrapper_gradient_matches_jax_grad_f64():
     pos, rows, valid, _ = _inputs(np.float64)
-    gamma = np.where(valid, GAMMA, 0.0)
+    tension = np.full(rows.shape[0], GAMMA)
     j_rows = jnp.asarray(rows, jnp.int32)
-    want = jax.grad(lambda p: jnp.sum(jnp.asarray(gamma) * jgeo.triangle_geometry(
+    gamma = jnp.asarray(np.where(valid, GAMMA, 0.0))
+    want = jax.grad(lambda p: jnp.sum(gamma * jgeo.triangle_geometry(
         p, j_rows, jnp.asarray(valid)).area))(jnp.asarray(pos))
     x = torch.as_tensor(pos).requires_grad_(True)
-    e = tk.surface_energies(x, torch.as_tensor(rows), torch.as_tensor(gamma))
-    (got,) = torch.autograd.grad(2.0 * torch.sum(e), (x,))
+    t_rows = torch.as_tensor(rows)
+    e = tk.surface_energy(x, t_rows, torch.as_tensor(valid), torch.as_tensor(tension),
+                          corner_csr(t_rows, pos.shape[0]))
+    (got,) = torch.autograd.grad(2.0 * e, (x,))
     assert_close(got, 2.0 * np.asarray(want), F64_RTOL, "wrapper surface gradient")
 
 
@@ -226,7 +238,8 @@ def test_curvature_backward_matches_jax_vjp_f64(case):
 
     x = torch.as_tensor(corners.reshape(3 * T, 3)).requires_grad_(True)
     t_rows = torch.arange(3 * T).reshape(T, 3)
-    cot, k0, k1, k2, va, areas = tk.curvature_corners(x, t_rows, torch.as_tensor(valid))
+    cot, k0, k1, k2, va, areas = tk.curvature_corners(x, t_rows, torch.as_tensor(valid),
+                                                      corner_csr(t_rows, 3 * T))
     g_cot, g_k, g_va, g_area = _torch(*cts)
     obj = (torch.sum(cot * g_cot) + torch.sum(torch.stack([k0, k1, k2], 1) * g_k)
            + torch.sum(va * g_va) + torch.sum(areas * g_area))
@@ -238,10 +251,10 @@ def test_curvature_backward_matches_jax_vjp_f64(case):
     assert torch.equal(direct, got.reshape(T, 3, 3))
 
 
-@pytest.fixture(scope="module", params=["kozlov_L1", "vesicle_L1"])
-def mesh_arrays(request):
+@functools.lru_cache(maxsize=None)
+def _lane_arrays(name):
     """(positions, tri_rows, tri_valid) of a small lane mesh, positions perturbed by a seed."""
-    if request.param == "kozlov_L1":
+    if name == "kozlov_L1":
         mn = make_minimizer(True, kw=SMALL, refines=1, dtype=torch.float64)
     else:
         mn = make_vesicle_minimizer(True, refines=1, dtype=torch.float64)
@@ -251,6 +264,26 @@ def mesh_arrays(request):
     valid = p.topo.tri_valid.numpy().copy()
     valid[::17] = False  # some masked rows, as a leaflet's presence mask gives
     return pos, p.topo.tri_rows.numpy(), valid
+
+
+@pytest.fixture(scope="module", params=["kozlov_L1", "vesicle_L1"])
+def mesh_arrays(request):
+    """(positions, tri_rows, tri_valid) of a small lane mesh, positions perturbed by a seed."""
+    return _lane_arrays(request.param)
+
+
+@pytest.fixture(scope="module", params=["seeded", "kozlov_L1", "vesicle_L1"])
+def whole_call_arrays(request):
+    """(positions, tri_rows, tri_valid, tilts, tension), float64: mixed tensions, some zero."""
+    rng = np.random.default_rng(37)
+    if request.param == "seeded":
+        pos, rows, valid, tilts = _inputs(np.float64)
+    else:
+        pos, rows, valid = _lane_arrays(request.param)
+        tilts = 0.3 * rng.standard_normal(pos.shape)
+    tension = rng.uniform(0.5, 2.0, rows.shape[0])
+    tension[::5] = 0.0
+    return pos, rows, valid, tilts, tension
 
 
 def test_curvature_data_matches_jax_stock_and_its_vjp_f64(mesh_arrays):
@@ -296,6 +329,53 @@ def test_curvature_data_backward_with_unused_outputs_f64(mesh_arrays):
     assert torch.equal(direct, got)
 
 
+def test_surface_energy_matches_jax_energy_and_grad_f64(whole_call_arrays):
+    """surface_energy (mask and sum inside, CSR vertex sum) against energy/surface.energy."""
+    pos, rows, valid, _tilts, tension = whole_call_arrays
+    j_rows, j_valid = jnp.asarray(rows, jnp.int32), jnp.asarray(valid)
+    j_topo = types.SimpleNamespace(tri_surface_tension=jnp.asarray(tension))
+
+    def jax_energy(p):
+        return jsurface.energy(jgeo.triangle_geometry(p, j_rows, j_valid), None, j_topo, None)
+
+    want_e, want_g = jax.value_and_grad(jax_energy)(jnp.asarray(pos))
+    t_rows, v, ten = torch.as_tensor(rows), torch.as_tensor(valid), torch.as_tensor(tension)
+    csr = corner_csr(t_rows, pos.shape[0])
+    x = torch.as_tensor(pos).requires_grad_(True)
+    e = tk.surface_energy(x, t_rows, v, ten, csr)
+    (grad,) = torch.autograd.grad(e, (x,))
+    assert e.shape == ()
+    assert_close(e.detach(), np.asarray(want_e), F64_RTOL, "surface energy")
+    assert_close(grad, want_g, F64_RTOL, "surface gradient")
+    # the energy-only call and the twin called directly give the same bits
+    assert torch.equal(tk.surface_energy(torch.as_tensor(pos), t_rows, v, ten, csr), e.detach())
+    ref_e, ref_g = tk.surface_energy_reference(torch.as_tensor(pos), t_rows, v, ten, csr, True)
+    assert torch.equal(ref_e, e.detach()) and torch.equal(ref_g, grad)
+
+
+def test_p1_triangle_divergence_matches_jax_and_its_tilt_vjp_f64(whole_call_arrays):
+    """p1_triangle_divergence (masks inside, weighted CSR sum backward) against JAX."""
+    pos, rows, valid, tilts, _tension = whole_call_arrays
+    assert not valid.all()
+    j_rows, j_valid = jnp.asarray(rows, jnp.int32), jnp.asarray(valid)
+    want, vjp = jax.vjp(lambda t: jtops.p1_triangle_divergence(jnp.asarray(pos), t, j_rows,
+                                                               j_valid), jnp.asarray(tilts))
+    ct = np.random.default_rng(41).standard_normal(rows.shape[0])
+    (want_dt,) = vjp((jnp.asarray(ct), jnp.zeros_like(want[1]), jnp.zeros_like(want[2])))
+    p, t_rows, v = torch.as_tensor(pos), torch.as_tensor(rows), torch.as_tensor(valid)
+    a = torch.as_tensor(tilts).requires_grad_(True)
+    csr = corner_csr(t_rows, pos.shape[0])
+    got = tk.p1_triangle_divergence(p, a, t_rows, v, csr)
+    # the port's plain function exactly, the JAX package's to round-off
+    plain = ttops.p1_triangle_divergence(p, torch.as_tensor(tilts), t_rows, v)
+    for g, q, w, name in zip(got, plain, want, ("div", "area", "g")):
+        assert torch.equal(g.detach(), q), name
+        assert_close(g.detach(), w, F64_RTOL, name, atol_scale=1.0)
+    (dt,) = torch.autograd.grad(got[0], (a,), (torch.as_tensor(ct),))
+    assert_close(dt, want_dt, F64_RTOL, "tilt vjp", atol_scale=1.0)
+    assert torch.equal(dt, tk.p1_div_vjp_reference(got[2], v, torch.as_tensor(ct), csr))
+
+
 # ----------------------------------------------------------------------
 # wrappers and dispatch
 # ----------------------------------------------------------------------
@@ -304,7 +384,8 @@ def test_cpu_wrappers_run_the_twins_and_launch_nothing():
     p, t_rows, v, tl = _torch(pos, rows, valid, tilts)
     before, before_vs = dict(tk.LAUNCHES), dict(vs.LAUNCHES)
     corners = [p[t_rows[:, i]] for i in range(3)]
-    gamma = torch.where(v, GAMMA, 0.0).to(p.dtype)
+    tension = torch.full((t_rows.shape[0],), GAMMA, dtype=p.dtype)
+    gamma = torch.where(v, tension, 0.0)
     csr = corner_csr(t_rows, p.shape[0])
     curv = tk.curvature_data(p, t_rows, v, csr)
     cot, k0, k1, k2, va, _area = tgeo.curvature_corners(*corners, v)
@@ -313,34 +394,35 @@ def test_cpu_wrappers_run_the_twins_and_launch_nothing():
     assert_close(curv.k_vecs, want_curv.k_vecs, F64_RTOL, "k_vecs", atol_scale=1.0)
     assert_close(curv.vertex_areas, want_curv.vertex_areas, F64_RTOL, "vertex areas")
     for got, want in (
-        ((tk.surface_energies(p, t_rows, gamma),), tgeo.surface_corner_terms(*corners, gamma)[:1]),
-        (tk.curvature_corners(p, t_rows, v), tgeo.curvature_corners(*corners, v)),
+        ((tk.surface_energy(p, t_rows, v, tension, csr),),
+         (torch.sum(tgeo.surface_corner_terms(*corners, gamma)[0]),)),
+        (tk.curvature_corners(p, t_rows, v, csr), tgeo.curvature_corners(*corners, v)),
         ((curv.k_vecs, curv.vertex_areas, curv.weights, curv.corner_areas),
          (vs.reference(torch.stack([k0, k1, k2], 1), csr), vs.reference(va, csr), cot, va)),
-        (tk.p1_divergence(p, tl, t_rows),
-         ttops.p1_divergence_corners(*corners, *[tl[t_rows[:, i]] for i in range(3)])),
-        (tk.p1_triangle_divergence(p, tl, t_rows, v), ttops.p1_triangle_divergence(p, tl, t_rows, v)),
+        (tk.p1_triangle_divergence(p, tl, t_rows, v, csr),
+         ttops.p1_triangle_divergence(p, tl, t_rows, v)),
     ):
         assert len(got) == len(want)
         for a, b in zip(got, want):
             assert torch.equal(a, b)
+    assert tk.workspace(types.SimpleNamespace(), p) is None  # no scratch off the card
     assert tk.LAUNCHES == before and vs.LAUNCHES == before_vs
 
 
 def test_p1_divergence_gradient_reaches_the_tilts_only():
     pos, rows, valid, tilts = _inputs(np.float64)
     p, t_rows, v, tl = _torch(pos, rows, valid, tilts)
+    csr = corner_csr(t_rows, p.shape[0])
     a = tl.clone().requires_grad_(True)
-    div, *_rest = tk.p1_divergence(p, a, t_rows)
+    div, *_rest = tk.p1_triangle_divergence(p, a, t_rows, v, csr)
     w = torch.linspace(-1.0, 1.0, div.shape[0], dtype=div.dtype)
     (got,) = torch.autograd.grad(torch.sum(w * div), (a,))
     b = tl.clone().requires_grad_(True)
-    corners = [p[t_rows[:, i]] for i in range(3)]
-    div_ad, *_r = ttops.p1_divergence_corners(*corners, *[b[t_rows[:, i]] for i in range(3)])
+    div_ad, *_r = ttops.p1_triangle_divergence(p, b, t_rows, v)
     (want,) = torch.autograd.grad(torch.sum(w * div_ad), (b,))
     assert_close(got, want, F64_RTOL, "tilt gradient")
     with pytest.raises(ValueError, match="frozen positions"):
-        tk.p1_divergence(p.clone().requires_grad_(True), tl, t_rows)
+        tk.p1_triangle_divergence(p.clone().requires_grad_(True), tl, t_rows, v, csr)
 
 
 def test_launchers_refuse_cpu_tensors():
@@ -350,8 +432,6 @@ def test_launchers_refuse_cpu_tensors():
         tk.launch_surface(pos, rows, torch.ones(4, dtype=pos.dtype))
     with pytest.raises(ValueError, match="CUDA"):
         tk.launch_curvature(pos, rows, valid)
-    with pytest.raises(ValueError, match="CUDA"):
-        tk.launch_p1_div(pos, tilts, rows)
     z = torch.zeros(4, 3, dtype=pos.dtype)
     with pytest.raises(ValueError, match="CUDA"):
         tk.launch_curvature_bwd(pos, rows, valid, z, z[:, :, None].expand(4, 3, 3), z, z[:, 0])
@@ -360,6 +440,13 @@ def test_launchers_refuse_cpu_tensors():
         tk.launch_curvature_data(pos, rows, valid, csr)
     with pytest.raises(ValueError, match="CUDA"):
         tk.launch_curvature_data_bwd(pos, rows, valid, csr, pos, pos[:, 0], None, None)
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.launch_surface_energy(pos, rows, valid, torch.ones(4, dtype=pos.dtype), csr,
+                                 None, grad=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.launch_p1_divergence(pos, tilts, rows, valid)
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.launch_p1_div_bwd(torch.zeros(4, 3, 3, dtype=pos.dtype), valid, pos[:4, 0], csr)
 
 
 def test_build_targets_hopper_without_contraction_and_is_keyed_by_source():
@@ -369,10 +456,12 @@ def test_build_targets_hopper_without_contraction_and_is_keyed_by_source():
     assert path.parent == _build.BUILD_DIR and path.name.startswith("tri_kernels-")
     assert tk.SOURCE.is_file() and tk.SOURCE.suffix == ".cu"
     text = tk.SOURCE.read_text()
-    for entry in ("tri_surface_fwd", "tri_curvature_fwd", "tri_curvature_bwd", "tri_p1_div_fwd",
-                  "tri_curvature_data", "tri_curvature_data_bwd"):
+    for entry in ("tri_surface_fwd", "tri_curvature_fwd", "tri_curvature_bwd",
+                  "tri_curvature_data", "tri_curvature_data_bwd", "tri_surface_energy",
+                  "tri_p1_div", "tri_p1_div_bwd", "tri_tile_size"):
         assert f'extern "C" int {entry}(' in text
-    assert '#include "vertex_sum.cuh"' in text
+    assert '#include "vertex_sum.cuh"' in text and '#include "block_sum.cuh"' in text
+    assert f"constexpr int kTile = {tk.TILE};" in text
 
 
 @pytest.mark.cuda
@@ -402,10 +491,6 @@ def test_cuda_kernels_match_twins(dtype):
     dp = tk.launch_curvature_bwd(p, t_rows, v, *cts)
     want = tk.curvature_corners_vjp(p, t_rows, v, *cts)
     assert_close(dp[live], want[live], rtol, "curvature bwd", atol_scale=1.0)
-    div, area, g = tk.launch_p1_div(p, tl, t_rows)
-    want = ttops.p1_divergence_corners(*corners, *[tl[t_rows[:, i]] for i in range(3)])
-    assert_close(div, want[0], rtol, "div", atol_scale=1.0)
-    assert_close(g, torch.stack(want[2:], 1), rtol, "g", atol_scale=1.0)
     # the curvature data: live-row corners and, where no row of a vertex is
     # at a tie, its sums; two calls give the same bits
     csr = corner_csr(t_rows, p.shape[0])
@@ -423,4 +508,23 @@ def test_cuda_kernels_match_twins(dtype):
     assert torch.equal(dpos, again)
     want = tk.curvature_data_vjp_reference(p, t_rows, v, csr, g_kv, None, None, g_va)
     assert_close(dpos[clear], want[clear], rtol, "curvature data bwd", atol_scale=1.0)
+    # the whole calls: surface energy (alone, with its gradient) and the
+    # masked divergence with its tilt backward; repeats give the same bits
+    tension = torch.linspace(0.5, 2.0, 200, dtype=dtype, device="cuda")
+    ws = tk.Workspace(200, dtype, "cuda")
+    e_only, _ = tk.launch_surface_energy(p, t_rows, v, tension, csr, ws, grad=False)
+    e, dpos = tk.launch_surface_energy(p, t_rows, v, tension, csr, ws, grad=True)
+    again = tk.launch_surface_energy(p, t_rows, v, tension, csr, ws, grad=True)
+    assert torch.equal(e, again[0]) and torch.equal(dpos, again[1]) and torch.equal(e, e_only)
+    want_e, want_g = tk.surface_energy_reference(p, t_rows, v, tension, csr, True)
+    assert_close(e[0], want_e, 2e-6 if dtype == torch.float32 else rtol, "surface energy")
+    assert_close(dpos, want_g, rtol, "surface vertex gradient")
+    got = tk.launch_p1_divergence(p, tl, t_rows, v)
+    want = ttops.p1_triangle_divergence(p, tl, t_rows, v)
+    for a, b, name in zip(got, want, ("div", "area", "g")):
+        assert_close(a, b, rtol, "masked " + name, atol_scale=1.0)
+    ct = torch.randn(200, dtype=dtype, device="cuda")
+    dt = tk.launch_p1_div_bwd(got[2], v, ct, csr)
+    assert torch.equal(dt, tk.launch_p1_div_bwd(got[2], v, ct, csr))
+    assert_close(dt, tk.p1_div_vjp_reference(got[2], v, ct, csr), rtol, "div bwd")
     torch.cuda.synchronize()

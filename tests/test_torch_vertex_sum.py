@@ -6,8 +6,9 @@ kernel and its twin (``kernels/vertex_sum``) add corner rows into vertex
 rows in that order.  Here, on the CPU: every slot appears exactly once,
 under its own vertex; the twin equals the ``index_add`` scatter of
 ``geo.scatter_add_rows`` (exactly on integer-valued rows, to round-off
-otherwise) and adds in slot order bit for bit; the topology keeps its CSR;
-the launcher refuses CPU tensors.  On a card only, the kernel against the
+otherwise) and adds in slot order bit for bit; its weighted form equals the
+plain sum of pre-scaled rows bit for bit; the topology keeps its CSR; the
+launcher refuses CPU tensors.  On a card only, the kernel against the
 twin, bit for bit.
 """
 
@@ -94,6 +95,24 @@ def test_reference_adds_in_slot_order_bit_for_bit(topology):
             acc = acc + flat[s]
         want[v] = acc
     assert torch.equal(vs.reference(vals, csr), want)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("width", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_weighted_reference_equals_sum_of_prescaled_rows(topology, width, dtype, masked):
+    """The weighted twin (the divergence backward's) is the plain sum of w_t * row, bit for bit."""
+    rows, nv = topology
+    csr = corner_csr(rows, nv)
+    rng = np.random.default_rng(17)
+    T = rows.shape[0]
+    shape = (T, 3) + ((3,) if width == 3 else ())
+    vals = torch.as_tensor(rng.standard_normal(shape), dtype=dtype)
+    weight = torch.as_tensor(rng.standard_normal(T), dtype=dtype)
+    if masked:
+        weight = torch.where(torch.as_tensor(rng.random(T) < 0.8), weight, 0.0)
+    scaled = weight.reshape((T,) + (1,) * (len(shape) - 1)) * vals
+    assert torch.equal(vs.reference(vals, csr, weight=weight), vs.reference(scaled, csr))
 
 
 def test_topology_keeps_its_csr_and_rebuilds_for_new_rows():

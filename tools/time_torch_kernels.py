@@ -25,7 +25,7 @@ every row; ``-o FILE`` also writes that object there.
 
 Usage (from the repository root, on a machine with a CUDA GPU)::
 
-    python3 tools/time_torch_kernels.py [-o FILE]
+    python3 tools/time_torch_kernels.py [-o FILE] [--lane LANE ...] [--dtype DTYPE ...]
 """
 
 from __future__ import annotations
@@ -36,12 +36,19 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
+LANES = ("kozlov_L3", "helfrich_cube_L5")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("-o", "--output", type=Path, help="also write the JSON object here")
+    ap.add_argument("--lane", action="append", choices=LANES,
+                    help="time only this lane (repeatable; default: both)")
+    ap.add_argument("--dtype", action="append", choices=("float32", "float64"),
+                    help="time only this dtype (repeatable; default: both)")
     args = ap.parse_args()
+    lanes = args.lane or list(LANES)
+    dtypes = args.dtype or ["float32", "float64"]
 
     import torch
 
@@ -59,16 +66,17 @@ def main() -> int:
     _build.build(ft.KERNEL, tk.KERNEL, vs.KERNEL)
     result = {"device": device, "smi": cs.smi_line(), "rows": []}
 
-    lanes = (("kozlov_L3", cs.KOZLOV_FIXTURE), ("helfrich_cube_L5", cs.VESICLE_FIXTURE))
-    for lane, path in lanes:
-        prob = cs.build_lane(torch, cs.load_fixture(path)["protocol"], torch.float64).problem()
+    fixtures = {"kozlov_L3": cs.KOZLOV_FIXTURE, "helfrich_cube_L5": cs.VESICLE_FIXTURE}
+    for lane in lanes:
+        prob = cs.build_lane(torch, cs.load_fixture(fixtures[lane])["protocol"],
+                             torch.float64).problem()
         batches = []
-        if lane == "kozlov_L3":
+        if lane == "kozlov_L3" and "float32" in dtypes:
             batches.append(("float32", cs.frozen_tilt_rows(torch, ft, prob.topo, prob.n_vertices)))
-        for dtype in (torch.float32, torch.float64):
-            batches.append((str(dtype).removeprefix("torch."),
-                            cs.tri_rows_of(torch, tk, prob.topo, prob.state.positions.detach(),
-                                           dtype)))
+        for name in dtypes:
+            batches.append((name, cs.tri_rows_of(torch, tk, prob.topo,
+                                                 prob.state.positions.detach(),
+                                                 getattr(torch, name))))
         for name, rows in batches:
             recs = cs.measure(torch, rows, lane, name)
             result["rows"] += recs
