@@ -83,17 +83,42 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    calls at the adaptive step), then 2 warm-up and 10 timed steps.
 7. helfrich_cube L5, float64: the same; rel 1e-8 against the JAX fixture,
    and phase 6's energies within rel 2e-3 of these.
+8. cube_cli L5, float32: the command list of
+   ``tests/fixtures/torch_port/cube_cli_L5_f64_jax.json`` (the recipe of
+   ``meshes/cube.json``, ``g50; r; u; V2; ...; g200`` to 770 vertices; the
+   stepper segment ``bfgs; g10; hessian 2; cg; g20; gd``; then ``r; u; V2;
+   g20; r; u; V2; cg; g20; energy stats`` up to 12,290 vertices and 24,576
+   triangles) through the port's command layer, in the command context
+   that ``cli.make_context`` builds for ``-q --non-interactive -i
+   meshes/cube.json --f32``.  Per command: the energy, the vertex and facet
+   counts, the host seconds (a device sync on both sides), ms per step for
+   ``g`` commands, and after each ``u`` a digest of the connectivity; then
+   the host syncs of one more ``g1`` by source line.
+9. cube_cli L5, float64: the same without ``--f32``; every energy within
+   rel 1e-8 of the JAX fixture with equal vertex and facet counts, and
+   phase 8's energies within rel max(2e-3, 2 x the JAX package's own
+   float32 deviation on these commands, the fixture's
+   ``float32_reference``: 2.34e-3) of these.  Near the recipe's minimum
+   float32 line searches fail and the step size decays, in JAX as in the
+   port, so a float32 run falls behind on the L5 extension.  Phase 8's
+   connectivity after each ``u`` is printed beside this phase's.
+10. the console entry: ``python -m membrane_solver_tpu_torch
+    --non-interactive -q -i meshes/cube.json -o <tmp>`` in a subprocess, on
+    the card (no ``--cpu``); it must exit 0, and the saved mesh, reloaded
+    and evaluated by the port at float64 on the card, must be within rel
+    1e-8 of the fixture's energy after the recipe (4.835205065742603).
 
-Phases 4-7 each drive one path with every kernel launch counter set to 0
+Phases 4-9 each drive one path with every kernel launch counter set to 0
 just before and read just after; a kernel of that path that was never
 launched fails the run (the frozen-tilt entry point, both variants, lies on
-the float32 kozlov path only; the surface energy, both variants, the
-curvature data forward and backward and the vertex sum on all four; the
+the float32 kozlov path only; the surface energy, both variants, and the
+vertex sum on all six; the curvature data forward on all six (on the cube
+paths through ``energy stats``), its backward on phases 4-7; the
 divergence forward on the kozlov paths; its tilt backward on none, so
 phase 3 alone launches it).
 
 The line before the last is a JSON object ``{"kernels": [...]}``: per entry
-point, its launches over phases 4-7, its largest error against its twin,
+point, its launches over phases 4-9, its largest error against its twin,
 and phase 3's device ms per call (``ms``), its twin's (``plain_ms``), the
 bound, and, for the vertex sum, ``index_add_``'s (``library_ms``).  The
 last line is ``{"ok": true, "device": {...}}``.
@@ -107,6 +132,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
 import json
 import math
 import re
@@ -124,6 +150,7 @@ REPO = Path(__file__).resolve().parent
 FIXTURES = REPO / "tests" / "fixtures" / "torch_port"
 KOZLOV_FIXTURE = FIXTURES / "kozlov_L3_f64_jax.json"
 VESICLE_FIXTURE = FIXTURES / "helfrich_cube_L5_f64_jax.json"
+CUBE_CLI_FIXTURE = FIXTURES / "cube_cli_L5_f64_jax.json"
 CSRC = "membrane_solver_tpu_torch/csrc/"
 # entry point -> (source, the TPU kernel or JAX function it replaces, the
 # name of its timing rows, its launch counter)
@@ -178,6 +205,7 @@ ENERGY_RTOL = 1e-6  # frozen-tilt kernel vs twin energy (f32 reduction order)
 GRAD_RTOL = 5e-6  # frozen-tilt kernel vs twin gradient, relative to max|g|
 F64_RTOL = 1e-8  # f64 trajectory vs the JAX fixture (CUDA scatter order)
 F32_RTOL = 2e-3  # f32 vs f64 trajectory
+CONSOLE_TIMEOUT_S = 300  # phase 10's subprocess
 # per-triangle kernels vs twins: (rtol, atol) elementwise at float32 (the JAX
 # kernel tests' bounds), rtol of max(|want|, 1) at float64
 TK_F32 = {"e": (2e-6, 1e-7), "g": (2e-5, 1e-6), "curv": (5e-5, 1e-5)}
@@ -967,14 +995,14 @@ def timed_steps(torch, mn) -> float:
     return (time.perf_counter() - t0) * 1e3 / max(int(res["iterations"]), 1)
 
 
-def count_syncs(torch, mn) -> tuple[int, list]:
-    """Synchronizing CUDA operations in one minimize(1) call: (count, [(n, "file:line")], most first)."""
+def count_syncs(torch, step) -> tuple[int, list]:
+    """Synchronizing CUDA operations in one call of ``step()``: (count, [(n, "file:line")], most first)."""
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            mn.minimize(1)
+            step()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     sites = collections.Counter(
@@ -1019,7 +1047,7 @@ def phase_path(torch, counters, label: str, fixture: dict, dtype, expect: tuple,
         out["dev_f32"] = max(devs)
         fields["rel_dev_f32_vs_f64_per_step"] = json.dumps(devs)
         fields["max_rel_dev_f32_vs_f64"] = repr(out["dev_f32"])
-    fields["syncs_per_step"], sites = count_syncs(torch, mn)
+    fields["syncs_per_step"], sites = count_syncs(torch, lambda: mn.minimize(1))
     say(label, **fields)
     say(label + " sync sites", sites=json.dumps(sites))
     missing = [k for k in expect if not launches[k] > 0]
@@ -1030,6 +1058,123 @@ def phase_path(torch, counters, label: str, fixture: dict, dtype, expect: tuple,
     if "dev_f32" in out and not out["dev_f32"] <= F32_RTOL:
         raise AssertionError(f"{label}: f32 trajectory deviates from f64 by {out['dev_f32']!r}")
     return out
+
+
+def connectivity_digest(mesh) -> str:
+    """sha256 of the facets' signed edge lists and the edges' endpoints, by id."""
+    text = json.dumps([sorted((int(f), [int(e) for e in mesh.facets[f].edge_indices])
+                              for f in mesh.facets),
+                       sorted((int(e), int(mesh.edges[e].tail_index), int(mesh.edges[e].head_index))
+                              for e in mesh.edges)])
+    return hashlib.sha256(text.encode()).hexdigest()[:16]
+
+
+def cli_context(torch, protocol: dict, dtype):
+    """The command context ``cli.main`` builds for the protocol's command line, on the card."""
+    from membrane_solver_tpu_torch import cli
+
+    argv = [str(REPO / a) if a == protocol["mesh"] else a for a in protocol["cli_args"]]
+    args = cli.build_parser().parse_args(argv + (["--f32"] if dtype == torch.float32 else []))
+    return cli.make_context(args, cli.load_mesh_interactive(args.input, interactive=False))
+
+
+def phase_cli(torch, counters, label: str, fixture: dict, dtype, expect: tuple, f32=None) -> dict:
+    """The fixture's command list through the command layer, counts reset just before and read after."""
+    from membrane_solver_tpu_torch.commands import execute_command_line
+
+    proto, trace = fixture["protocol"], fixture["trace"]
+    reset_counts(counters)
+    ctx = cli_context(torch, proto, dtype)
+    rows, digests = [], []
+    for cmd in proto["commands"]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        execute_command_line(ctx, cmd)
+        ctx.sync_mesh()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        mn = ctx.minimizer
+        row = {"cmd": cmd, "energy": float(mn.compute_energy()),
+               "n_vertices": len(ctx.mesh.vertices), "n_facets": len(ctx.mesh.facets),
+               "host_s": seconds}
+        name = cmd.split()[0]
+        if name[0] == "g" and name[1:].isdigit():
+            row["ms_per_step"] = seconds * 1e3 / int(name[1:])
+        if cmd == "u":
+            digests.append(connectivity_digest(ctx.mesh))
+            row["connectivity"] = digests[-1]
+        rows.append(row)
+        say(label + " command", **{k: (f"{v:.6f}" if k in ("host_s", "ms_per_step") else repr(v))
+                                   for k, v in row.items()})
+    syncs, sites = count_syncs(torch, lambda: execute_command_line(ctx, "g1"))
+    launches = read_counts(counters)
+    energies = [r["energy"] for r in rows]
+    out = {"energies": energies, "rows": rows, "digests": digests, "launches": launches}
+    fields = {"vertices": rows[-1]["n_vertices"], "facets": rows[-1]["n_facets"],
+              "launches": json.dumps(launches), "g1_host_syncs": syncs}
+    if not all(math.isfinite(e) for e in energies):
+        raise AssertionError(f"{label}: non-finite energies: {energies}")
+    if dtype == torch.float64:
+        if len(rows) != len(trace):
+            raise AssertionError(f"{label}: {len(rows)} commands, the fixture has {len(trace)}")
+        counts = [(r["n_vertices"], r["n_facets"]) for r in rows]
+        want = [(t["n_vertices"], t["n_facets"]) for t in trace]
+        if counts != want:
+            raise AssertionError(f"{label}: entity counts {counts} differ from the fixture's {want}")
+        devs = [abs(r["energy"] - t["energy"]) / abs(t["energy"]) for r, t in zip(rows, trace)]
+        out["dev_jax"] = max(devs)
+        fields["max_rel_dev_vs_jax"] = repr(out["dev_jax"])
+        fields["rel_dev_vs_jax_per_command"] = json.dumps(devs)
+    f32_bound = max(F32_RTOL, 2 * fixture["float32_reference"]["max_rel_dev_vs_float64"])
+    if f32 is not None:
+        devs = [abs(a - b) / abs(b) for a, b in zip(f32["energies"], energies, strict=True)]
+        out["dev_f32"] = max(devs)
+        fields["max_rel_dev_f32_vs_f64"] = repr(out["dev_f32"])
+        fields["f32_bound"] = repr(f32_bound)
+        fields["rel_dev_f32_vs_f64_per_command"] = json.dumps(devs)
+        fields["f32_connectivity_after_u_equal"] = json.dumps(
+            [a == b for a, b in zip(f32["digests"], digests, strict=True)])
+    say(label, **fields)
+    say(label + " g1 sync sites", sites=json.dumps(sites))
+    missing = [k for k in expect if not launches[k] > 0]
+    if missing:
+        raise AssertionError(f"{label}: the path did not launch {missing}: {launches}")
+    if "dev_jax" in out and not out["dev_jax"] <= F64_RTOL:
+        raise AssertionError(f"{label}: f64 energies deviate from the JAX fixture by {out['dev_jax']!r}")
+    if "dev_f32" in out and not out["dev_f32"] <= f32_bound:
+        raise AssertionError(f"{label}: f32 energies deviate from f64 by {out['dev_f32']!r}")
+    return out
+
+
+def phase_console(torch, fixture: dict) -> None:
+    """``python -m membrane_solver_tpu_torch`` on the card; the saved mesh re-evaluated at float64."""
+    import tempfile
+
+    from membrane_solver_tpu_torch import Minimizer, load_data, parse_geometry
+
+    proto = fixture["protocol"]
+    want = fixture["trace"][len(proto["recipe"]) - 1]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "cube_out.json"
+        cmd = [sys.executable, "-m", "membrane_solver_tpu_torch", "--non-interactive", "-q",
+               "-i", str(REPO / proto["mesh"]), "-o", str(out)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                              timeout=CONSOLE_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"console run exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+        mesh = parse_geometry(load_data(out))
+    energy = float(Minimizer(mesh, device=DEVICE, dtype=torch.float64, quiet=True).compute_energy())
+    dev = abs(energy - want["energy"]) / abs(want["energy"])
+    say("10 console", command=repr(" ".join(cmd[1:])), rc=proc.returncode, seconds=f"{seconds:.3f}",
+        vertices=len(mesh.vertices), facets=len(mesh.facets), energy=repr(energy),
+        want=repr(want["energy"]), rel_dev=repr(dev))
+    if (len(mesh.vertices), len(mesh.facets)) != (want["n_vertices"], want["n_facets"]):
+        raise AssertionError(f"console run saved {len(mesh.vertices)} vertices, "
+                             f"{len(mesh.facets)} facets; want {want}")
+    if not dev <= F64_RTOL:
+        raise AssertionError(f"console run's energy {energy!r} deviates from {want['energy']!r}")
 
 
 def kernels_line(kern: dict, runs: dict) -> list:
@@ -1065,6 +1210,7 @@ def main() -> int:
 
     kozlov = load_fixture(KOZLOV_FIXTURE)
     vesicle = load_fixture(VESICLE_FIXTURE)
+    cube_cli = json.loads(CUBE_CLI_FIXTURE.read_text())
     device = phase_device(torch)
     phase_build((ft, tk, vs))
     kern = phase_kernels(torch, (ft, tk, vs),
@@ -1088,6 +1234,16 @@ def main() -> int:
                              shared)
     runs["v64"] = phase_path(torch, counters, "7 helfrich_cube_L5 f64", vesicle, torch.float64,
                              shared, f32_energies=runs["v32"]["energies"])
+    cli_path = ("tri_kernels.surface_energy", "tri_kernels.surface_energy_grad",
+                "tri_kernels.curvature_data", "vertex_sum.vertex_sum")
+    runs["c32"] = phase_cli(torch, counters, "8 cube_cli_L5 f32", cube_cli, torch.float32,
+                            cli_path)
+    runs["c64"] = phase_cli(torch, counters, "9 cube_cli_L5 f64", cube_cli, torch.float64,
+                            cli_path, f32=runs["c32"])
+    phase_console(torch, cube_cli)
+    # phases 8-10 have imported the CLI and the command layer by now
+    if not {"membrane_solver_tpu_torch.cli", "membrane_solver_tpu_torch.commands"} <= set(sys.modules):
+        raise AssertionError("the CLI and the command layer were not imported")
     if "jax" in sys.modules or any(m.split(".")[0] == "membrane_solver_tpu" for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
 

@@ -1,7 +1,7 @@
-"""Tilt-field operators: P1 divergence per triangle.
+"""Tilt-field operators: P1 divergence per triangle and per vertex.
 
 Counterpart of ``membrane_solver_tpu/device/tilt_ops.py``
-(``p1_triangle_divergence``): div(t) = sum_i t_i . g_i with
+(``p1_triangle_divergence``, ``p1_vertex_divergence``): div(t) = sum_i t_i . g_i with
 g_i = (n x e_i)/|n|^2.  Plain PyTorch: :func:`p1_triangle_divergence` is the
 twin of the ``tri_p1_div`` CUDA kernel (masks included); the energy
 modules reach the kernel through ``kernels/tri_kernels``.
@@ -63,3 +63,18 @@ def mask_divergence(div, area, g0, g1, g2, tri_valid: torch.Tensor):
     div = torch.where(tri_valid, div, 0.0)
     area = torch.where(tri_valid & (2.0 * area >= dgeo.EPS_AREA), area, 0.0)
     return div, area, torch.stack([g0, g1, g2], dim=1)
+
+
+def p1_vertex_divergence(
+    positions: torch.Tensor,
+    tilts: torch.Tensor,
+    tri_rows: torch.Tensor,
+    tri_valid: torch.Tensor,
+) -> torch.Tensor:
+    """Area-weighted average of incident triangle divergences per vertex."""
+    div, areas, _ = p1_triangle_divergence(positions, tilts, tri_rows, tri_valid)
+    n_rows = positions.shape[0]
+    w = areas / 3.0
+    num = dgeo.scatter_add_rows(w * div, w * div, w * div, tri_rows, n_rows)
+    den = dgeo.scatter_add_rows(w, w, w, tri_rows, n_rows)
+    return torch.where(den > 1e-15, num / torch.clamp(den, min=1e-15), 0.0)

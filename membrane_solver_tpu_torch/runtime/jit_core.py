@@ -6,9 +6,10 @@ iteration as a fixed-shape ``lax.while_loop``; here the same steps run
 eagerly, the loops are Python loops, and each loop decision reads a device
 scalar.  Gradients come from autograd through the energy assembly.
 
-Ported branches: gradient descent, fixed and adaptive step sizes, the
-plain (unguarded) coupled tilt relax, the sequential line search, the
-volume constraint's enforcement and post-step drift check.
+Ported branches: the gradient-descent, conjugate-gradient and BFGS
+steppers, fixed and adaptive step sizes, the plain (unguarded) coupled
+tilt relax, the sequential line search, the volume constraint's
+enforcement and post-step drift check.
 """
 
 from __future__ import annotations
@@ -421,17 +422,115 @@ def armijo_line_search(
 
 
 # ----------------------------------------------------------------------
-# steppers
+# steppers (functional state)
 # ----------------------------------------------------------------------
-def stepper_direction(kind: str, grad: torch.Tensor) -> torch.Tensor:
-    """Descent direction of the stepper: gradient descent only.
+@dataclasses.dataclass
+class StepperState:
+    """Carry for CG (prev grad/direction) and BFGS (prev x + dense H^-1).
 
-    The projected gradient already has its fixed rows zeroed.  The JAX
-    package's conjugate-gradient and BFGS directions are not ported.
+    GD ignores everything.  The tensors are at the exact vertex count (the
+    port has no capacity padding); the H block exists only for BFGS.  The
+    two counters are host values: the eager loop decides success on the
+    host, so reading them costs no device sync.
     """
-    if kind != "gradient_descent":
-        raise NotImplementedError(f"stepper {kind!r} is not ported to membrane_solver_tpu_torch")
-    return -grad
+
+    prev_grad: torch.Tensor  # (Nv, 3)
+    prev_dir: torch.Tensor  # (Nv, 3)  [CG]
+    prev_x: torch.Tensor | None  # (Nv, 3)  [BFGS]
+    H: torch.Tensor | None  # (3Nv, 3Nv) inverse-Hessian approx [BFGS]
+    have_prev: bool
+    iter_count: int  # successful steps since last reset
+
+
+def fresh_stepper_state(n_vertices: int, kind: str = "gradient_descent", *,
+                        dtype=torch.float64, device="cpu") -> StepperState:
+    z = torch.zeros((n_vertices, 3), dtype=dtype, device=device)
+    bfgs = kind == "bfgs"
+    return StepperState(
+        prev_grad=z,
+        prev_dir=z,
+        prev_x=z if bfgs else None,
+        H=torch.eye(3 * n_vertices, dtype=dtype, device=device) if bfgs else None,
+        have_prev=False,
+        iter_count=0,
+    )
+
+
+CG_RESTART_INTERVAL = 10
+
+
+def stepper_direction(
+    kind: str,
+    grad: torch.Tensor,
+    ss: StepperState,
+    fixed_mask: torch.Tensor,
+    positions: torch.Tensor,
+) -> Tuple[torch.Tensor, StepperState]:
+    """Descent direction for the active stepper kind.
+
+    - CG: *per-vertex-row* Polak-Ribiere beta with per-row reset to
+      steepest descent where beta < 0; full restart to -g with no history
+      or every 10th successful step; fixed rows zeroed.
+    - BFGS: dense inverse-Hessian over movable DOFs (full-size with masked
+      s/y so fixed rows stay at identity), update V H V^T + rho s s^T when
+      the curvature condition y.s > 1e-12 holds, else reset H to identity;
+      direction -H g.  The condition is taken on the device (``where``), so
+      the update costs no host read.
+
+    Returns (direction, mid-state).  BFGS replaces H at direction time;
+    prev_x/prev_grad are stored only on success
+    (:func:`stepper_update_on_success`).
+    """
+    if kind == "gradient_descent":
+        return -grad, ss
+    if kind == "conjugate_gradient":
+        if not ss.have_prev or ss.iter_count % CG_RESTART_INTERVAL == 0:
+            direction = -grad
+        else:
+            numer = torch.sum(grad * (grad - ss.prev_grad), dim=1)
+            denom = torch.sum(ss.prev_grad * ss.prev_grad, dim=1) + 1e-20
+            beta_pr = numer / denom
+            cg_dir = -grad + beta_pr[:, None] * ss.prev_dir
+            direction = torch.where((beta_pr < 0)[:, None], -grad, cg_dir)
+        return torch.where(fixed_mask[:, None], 0.0, direction), ss
+    if kind == "bfgs":
+        n = grad.shape[0]
+        movable = (~fixed_mask)[:, None].to(grad.dtype)
+        g = (grad * movable).reshape(-1)
+        H_after = ss.H
+        if ss.have_prev:
+            x = (positions * movable).reshape(-1)
+            s = x - (ss.prev_x * movable).reshape(-1)
+            y = g - (ss.prev_grad * movable).reshape(-1)
+            ys = torch.dot(y, s)
+            eye = torch.eye(3 * n, dtype=grad.dtype, device=grad.device)
+            rho = 1.0 / ys
+            V = eye - rho * torch.outer(s, y)
+            updated = V @ ss.H @ V.T + rho * torch.outer(s, s)
+            H_after = torch.where(ys > 1e-12, updated, eye)
+        direction = -(H_after @ g).reshape(n, 3)
+        direction = torch.where(fixed_mask[:, None], 0.0, direction)
+        return direction, dataclasses.replace(ss, H=H_after)
+    raise ValueError(f"unknown stepper kind {kind!r}")
+
+
+def stepper_update_on_success(
+    kind: str,
+    ss: StepperState,
+    grad: torch.Tensor,
+    direction: torch.Tensor,
+    positions: torch.Tensor,
+) -> StepperState:
+    if kind == "gradient_descent":
+        return ss
+    return dataclasses.replace(
+        ss,
+        prev_grad=grad,
+        prev_dir=direction,
+        prev_x=positions if ss.prev_x is not None else None,
+        have_prev=True,
+        iter_count=ss.iter_count + 1,
+    )
 
 
 # ----------------------------------------------------------------------
@@ -486,11 +585,13 @@ def make_guarded_relax(spec: ProblemSpec) -> Callable:
 
 
 def minimize_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
-    """Return block(state, topo, params, n_steps, ...) -> (state, MinimizeStats).
+    """Return block(state, topo, params, ss, n_steps, ...) -> (state, ss, MinimizeStats).
 
     Per iteration: coupled leaflet tilt relax, energy and projected shape
-    gradient, the stepper's descent direction, Armijo line search with
-    per-trial constraint enforcement, zero-step bookkeeping.
+    gradient, the stepper's descent direction from its state ``ss``, Armijo
+    line search with per-trial constraint enforcement, zero-step
+    bookkeeping.  The stepper keeps its history only after an accepted step
+    that took no drift projection, and starts afresh otherwise.
     """
     from membrane_solver_tpu_torch.runtime import tilt_relax as _tr
 
@@ -512,10 +613,11 @@ def minimize_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
             g = gradient_projector(g, state, topo, params)
         return E, torch.where(topo.fixed_mask[:, None], 0.0, g)
 
-    def block(state, topo, params, n_steps, step_size, fixed_step, tol,
+    def block(state, topo, params, ss, n_steps, step_size, fixed_step, tol,
               step_size_floor, max_zero_steps, zero_step_counter, tilt_inner_iters):
         np_dtype = _np_dtype(state.positions.dtype)
         movable = ~topo.fixed_mask
+        kind = options.stepper
 
         def state_of_trial(p):
             # geometric enforcement, tilt-constraint re-enforcement, then
@@ -564,14 +666,25 @@ def minimize_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
                 converged, step_success, last_acc_E = True, True, E
                 break
             step_in = np_dtype(fixed_step) if fixed_mode else step_size
-            direction = stepper_direction(options.stepper, grad)
+            direction, ss_mid = stepper_direction(
+                kind, grad, ss, topo.fixed_mask, state.positions
+            )
             ls = armijo_line_search(
                 energy_of_state, state, grad, direction, step_in, E, movable, topo,
                 state_of_trial,
             )
+            base_positions = state.positions
             state = ls.state
-            if strong_enforcer is not None and ls.success and volume_drifted(state):
+            drifted = strong_enforcer is not None and ls.success and volume_drifted(state)
+            if drifted:
                 state = strong_enforcer(state, topo, params, context="mesh_operation")
+            if kind != "gradient_descent":
+                ss = (
+                    stepper_update_on_success(kind, ss_mid, grad, direction, base_positions)
+                    if ls.success and not drifted
+                    else fresh_stepper_state(grad.shape[0], kind, dtype=grad.dtype,
+                                             device=grad.device)
+                )
             step_size = np_dtype(fixed_step) if fixed_mode else ls.new_step
             at_floor = step_size <= step_size_floor
             zero_steps = 0 if ls.success else (zero_steps + 1 if at_floor else 0)
@@ -591,6 +704,6 @@ def minimize_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
             terminated_early=terminated_early,
             zero_step_counter=zero_steps,
         )
-        return state, stats
+        return state, ss, stats
 
     return block

@@ -2,10 +2,11 @@
 
 Counterpart of ``membrane_solver_tpu/runtime/minimizer.py``: mesh
 compilation, chunk scheduling, constraint enforcement after mesh
-operations, and result bookkeeping.  The device and dtype are explicit
-constructor arguments.  Not ported: latency-aware placement and the AOT
-cache (JAX-only), the theta_B scalar scan, mesh-quality auto-repair, and
-host-side scalar-parameter hooks; a run that would reach one of them raises
+operations, the stepper state across ``minimize`` calls, the mesh-quality
+auto-repair cadence, and result bookkeeping.  The device and dtype are
+explicit constructor arguments.  Not ported: latency-aware placement and
+the AOT cache (JAX-only), the theta_B scalar scan, and host-side
+scalar-parameter hooks; a run that would reach one of them raises
 NotImplementedError.
 """
 
@@ -63,10 +64,6 @@ class Minimizer:
         self.mesh = mesh
         self.global_params = global_params if global_params is not None else mesh.global_parameters
         self.stepper = stepper if stepper is not None else GradientDescent()
-        if self.stepper.name != "gradient_descent":
-            raise NotImplementedError(
-                f"stepper {self.stepper.name!r} is not ported to membrane_solver_tpu_torch"
-            )
         self.step_size = float(step_size)
         self.tol = float(tol)
         self.quiet = quiet
@@ -77,6 +74,8 @@ class Minimizer:
             constraint_modules if constraint_modules is not None else mesh.constraint_modules
         )
         self._problem: Optional[CompiledProblem] = None
+        # CG/BFGS history; lives across minimize calls until invalidate()
+        self._stepper_state: Optional[jit_core.StepperState] = None
         self._params_fingerprint = None
         self._mesh_token = None
         self._validated_topology_token = None
@@ -95,6 +94,16 @@ class Minimizer:
     def invalidate(self) -> None:
         """Force recompilation of the device tensors from the host mesh."""
         self._problem = None
+        self._stepper_state = None
+
+    def set_mesh(self, mesh: Mesh) -> None:
+        self.mesh = mesh
+        self.invalidate()
+
+    def _fresh_stepper_state(self, p: CompiledProblem) -> jit_core.StepperState:
+        return jit_core.fresh_stepper_state(
+            p.n_vertices, self.stepper.name, dtype=self.dtype, device=self.device
+        )
 
     def _fingerprint_params(self):
         gp = self.global_params.to_dict()
@@ -122,6 +131,7 @@ class Minimizer:
                 constraint_modules=self.constraint_module_names,
             )
             self._params_fingerprint = fp
+            self._stepper_state = self._fresh_stepper_state(self._problem)
         return self._problem
 
     def _sync_host(self) -> None:
@@ -211,13 +221,6 @@ class Minimizer:
     # ------------------------------------------------------------------
     def _check_ported_run(self, n_steps: int) -> None:
         gp = self.global_params
-        repair_every = int(gp.get("mesh_quality_auto_repair_every", 0) or 0)
-        if bool(gp.get("mesh_quality_auto_repair_enabled", False)) and 0 < repair_every < n_steps:
-            raise NotImplementedError(
-                "mesh_quality_auto_repair (every "
-                f"{repair_every} steps, {n_steps} requested) is not ported to "
-                "membrane_solver_tpu_torch"
-            )
         for key in ("tilt_thetaB_optimize", "gauss_bonnet_monitor"):
             if bool(gp.get(key, False)):
                 raise NotImplementedError(f"{key} is not ported to membrane_solver_tpu_torch")
@@ -285,6 +288,10 @@ class Minimizer:
             ),
         )
         block = jit_core.minimize_block(p.spec, options)
+        if self._stepper_state is None:
+            self._stepper_state = self._fresh_stepper_state(p)
+        repair_every = int(gp.get("mesh_quality_auto_repair_every", 0) or 0)
+        repair_enabled = bool(gp.get("mesh_quality_auto_repair_enabled", False))
         fixed_step = float(gp.get("step_size", self.step_size) or self.step_size)
         tilt_mode = str(gp.get("tilt_solve_mode", "fixed") or "fixed")
         inner = int(gp.get("tilt_coupled_steps", gp.get("tilt_inner_steps", 0)) or 0)
@@ -304,11 +311,18 @@ class Minimizer:
             if callback is not None:
                 self._sync_host()
                 callback(self.mesh, iterations_done)
-            chunk = n_steps - iterations_done if self.quiet else 1  # per-step reporting
+            if repair_enabled and repair_every > 0:
+                until_repair = repair_every - (iterations_done % repair_every)
+            else:
+                until_repair = n_steps
+            chunk = min(n_steps - iterations_done, until_repair)
+            if not self.quiet:
+                chunk = 1  # per-step reporting
             step_size_used = self.step_size
-            p.state, stats = block(
-                p.state, p.topo, p.params, chunk, self.step_size, fixed_step, self.tol,
-                self.step_size_floor, self.max_zero_steps, zero_step_counter, inner,
+            p.state, self._stepper_state, stats = block(
+                p.state, p.topo, p.params, self._stepper_state, chunk, self.step_size,
+                fixed_step, self.tol, self.step_size_floor, self.max_zero_steps,
+                zero_step_counter, inner,
             )
             iterations_done += stats.iterations
             self.step_size = stats.step_size
@@ -331,6 +345,22 @@ class Minimizer:
                     zero_step_counter,
                     self.step_size_floor,
                 )
+            # auto mesh-quality repair at the cadence boundary (host-side
+            # equiangulation, runtime/quality.py); a repair replaces the mesh,
+            # so the problem and the block are rebuilt
+            elif (
+                repair_enabled
+                and repair_every > 0
+                and iterations_done < n_steps
+                and iterations_done % repair_every == 0
+            ):
+                from membrane_solver_tpu_torch.runtime.quality import (
+                    maybe_auto_mesh_quality_repair,
+                )
+
+                if maybe_auto_mesh_quality_repair(self):
+                    p = self.problem()
+                    block = jit_core.minimize_block(p.spec, options)
 
         if has_enforceable:
             enforce = jit_core.make_constraint_enforcer(p.spec)

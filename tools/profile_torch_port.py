@@ -130,7 +130,7 @@ def profile_dtype(torch, chip_smoke, counters, fixture, dtype, lane) -> tuple[di
     split = {k: v / n_split for k, v in totals.items()}
 
     prof_wall, ops, busy, top = device_profile(torch, mn)
-    syncs, sync_sites = chip_smoke.count_syncs(torch, mn)
+    syncs, sync_sites = chip_smoke.count_syncs(torch, lambda: mn.minimize(1))
 
     name = f"{lane} {str(dtype).removeprefix('torch.')}"
     rec = {

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Record the JAX package's reference trajectories for the PyTorch port.
 
-Runs two protocols with ``membrane_solver_tpu`` on the CPU in float64 and
+Runs three protocols with ``membrane_solver_tpu`` on the CPU in float64 and
 writes one JSON file each to ``tests/fixtures/torch_port/``:
 
 ``kozlov_L3_f64_jax.json`` (the kozlov coupled-tilt lane):
@@ -27,13 +27,32 @@ plus Helfrich bending under a hard volume constraint, cube -> sphere):
    24,576 triangles;
 4. five calls of ``minimize(1)``.
 
-Each file holds the vertex/triangle counts, the energy before the first
-step and the per-step energies.  ``chip_smoke.py`` holds the port's float64
-runs on the GPU against these files, so the GPU machine needs no JAX.
+Each of these two files holds the vertex/triangle counts, the energy
+before the first step and the per-step energies.
+
+``cube_cli_L5_f64_jax.json`` (the CLI's cube recipe, extended to L5): the
+command context as ``cli.main`` builds it for ``-q --non-interactive -i
+meshes/cube.json`` (gradient descent, the file's step size, tol 1e-6; no
+capacity plan, which would pad BFGS's dense inverse Hessian to the
+recipe's final 12,290 vertices), then, through
+``commands.execute_command_line``, the file's own recipe (``g50; r; u;
+V2; ...; g200``, 770 vertices), the stepper segment ``bfgs; g10; hessian
+2; cg; g20; gd``, and ``r; u; V2; g20; r; u; V2; cg; g20; energy stats``
+up to 12,290 vertices and 24,576 triangles.  Per command: the energy, the
+vertex and facet counts, the total volume and the step size after it.  Its
+``float32_reference`` block holds the same commands run by the JAX package
+at float32 (a child process with ``MEMBRANE_SOLVER_X64=0``): per-command
+energies and their largest relative deviation from the float64 trace.  On
+this protocol float32 line searches fail near the recipe's minimum, the
+step size decays, and the float32 run falls behind, so ``chip_smoke.py``
+bounds the port's float32-vs-float64 deviation by twice this value.
+
+``chip_smoke.py`` holds the port's float64 runs on the GPU against these
+files, so the GPU machine needs no JAX.
 
 Usage::
 
-    python tools/record_torch_port_fixture.py [--output-dir DIR]
+    python tools/record_torch_port_fixture.py [--output-dir DIR] [--only NAME ...]
 
 Each file's ``protocol`` block is the one definition of its protocol:
 ``chip_smoke.py`` and the port's CPU tests read it from there.
@@ -44,6 +63,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import subprocess
 import sys
 from pathlib import Path
 
@@ -176,14 +196,96 @@ def run_vesicle() -> dict:
     return rec
 
 
+CUBE_MESH = "meshes/cube.json"
+STEPPER_SEGMENT = ["bfgs", "g10", "hessian 2", "cg", "g20", "gd"]
+L5_EXTENSION = ["r", "u", "V2", "g20", "r", "u", "V2", "cg", "g20", "energy stats"]
+
+
+def cube_cli_protocol() -> dict:
+    recipe = json.loads((REPO / CUBE_MESH).read_text())["instructions"]
+    return {
+        "mesh": CUBE_MESH,
+        "cli_args": ["-q", "--non-interactive", "-i", CUBE_MESH],
+        "recipe": list(recipe),
+        "stepper_segment": STEPPER_SEGMENT,
+        "l5_extension": L5_EXTENSION,
+        "commands": list(recipe) + STEPPER_SEGMENT + L5_EXTENSION,
+        "dtype": "float64",
+        "package": "membrane_solver_tpu",
+        "platform": "cpu",
+    }
+
+
+def command_record(ctx, cmd: str) -> dict:
+    """One command's row: the state after it, read from either package's context."""
+    mn = ctx.minimizer
+    return {
+        "cmd": cmd,
+        "energy": float(mn.compute_energy()),
+        "n_vertices": len(mn.mesh.vertices),
+        "n_facets": len(mn.mesh.facets),
+        "volume": float(mn.mesh.compute_total_volume()),
+        "step_size": float(mn.step_size),
+    }
+
+
+def cube_cli_trace(protocol: dict) -> list:
+    """The protocol's commands in the JAX package, at the precision this process runs."""
+    pkg, _build, _refinement = _jax()
+    from membrane_solver_tpu.commands import CommandContext, execute_command_line
+    from membrane_solver_tpu.runtime.steppers import make_stepper
+
+    mesh = pkg.parse_geometry(pkg.load_data(REPO / protocol["mesh"]))
+    gp = mesh.global_parameters
+    # as cli.main builds it, less the capacity plan (see the docstring)
+    mn = pkg.Minimizer(mesh, stepper=make_stepper("gd"),
+                       step_size=float(gp.get("step_size", 1e-3)), tol=1e-6, quiet=True)
+    ctx = CommandContext(mesh=mesh, minimizer=mn, stepper=mn.stepper)
+    trace = []
+    for cmd in protocol["commands"]:
+        execute_command_line(ctx, cmd)
+        ctx.sync_mesh()
+        trace.append(command_record(ctx, cmd))
+    return trace
+
+
+def run_cube_cli() -> dict:
+    protocol = cube_cli_protocol()
+    trace = cube_cli_trace(protocol)
+    child = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--cube-cli-float32"],
+        env={**os.environ, "MEMBRANE_SOLVER_X64": "0"}, capture_output=True, text=True,
+        check=True,
+    )
+    energies = json.loads(child.stdout.strip().splitlines()[-1])
+    devs = [abs(a - t["energy"]) / abs(t["energy"]) for a, t in zip(energies, trace, strict=True)]
+    f32 = {"package": "membrane_solver_tpu", "platform": "cpu", "dtype": "float32",
+           "energies": energies, "max_rel_dev_vs_float64": max(devs)}
+    return {"protocol": protocol, "trace": trace, "float32_reference": f32}
+
+
+FIXTURES = {
+    "kozlov_L3_f64_jax.json": run_kozlov,
+    "helfrich_cube_L5_f64_jax.json": run_vesicle,
+    "cube_cli_L5_f64_jax.json": run_cube_cli,
+}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--output-dir", type=Path, default=OUT_DIR)
+    ap.add_argument("--only", nargs="+", choices=sorted(FIXTURES),
+                    help="record these files only (default: all)")
+    ap.add_argument("--cube-cli-float32", action="store_true",
+                    help=argparse.SUPPRESS)  # the child of run_cube_cli
     args = ap.parse_args()
+    if args.cube_cli_float32:
+        trace = cube_cli_trace(cube_cli_protocol())
+        print(json.dumps([t["energy"] for t in trace]), flush=True)
+        return
     args.output_dir.mkdir(parents=True, exist_ok=True)
-    for name, run in (("kozlov_L3_f64_jax.json", run_kozlov),
-                      ("helfrich_cube_L5_f64_jax.json", run_vesicle)):
-        rec = run()
+    for name in args.only or FIXTURES:
+        rec = FIXTURES[name]()
         (args.output_dir / name).write_text(json.dumps(rec, indent=1) + "\n")
         print(name, json.dumps(rec), flush=True)
 
