@@ -99,26 +99,57 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    phase 8's energies within rel max(2e-3, 2 x the JAX package's own
    float32 deviation on these commands, the fixture's
    ``float32_reference``: 2.34e-3) of these.  Near the recipe's minimum
-   float32 line searches fail and the step size decays, in JAX as in the
-   port, so a float32 run falls behind on the L5 extension.  Phase 8's
-   connectivity after each ``u`` is printed beside this phase's.
+   a float32 run's line searches can fail and its step size decay (the
+   JAX package's does, at ``g200``), and it then falls behind on the L5
+   extension.  Phase 8's connectivity after each ``u`` is printed beside
+   this phase's.
+    Phase 8 also holds its connectivity after each ``u`` against the JAX
+    package's own float32 run (the fixture's ``float32_reference``
+    digests) and prints whether they are equal.
 10. the console entry: ``python -m membrane_solver_tpu_torch
     --non-interactive -q -i meshes/cube.json -o <tmp>`` in a subprocess, on
     the card (no ``--cpu``); it must exit 0, and the saved mesh, reloaded
     and evaluated by the port at float64 on the card, must be within rel
     1e-8 of the fixture's energy after the recipe (4.835205065742603).
+11. square_to_circle L1, float32: the shape family's lane, the command list
+    of ``tests/fixtures/torch_port/square_to_circle_L1_f64_jax.json``
+    (meshgen ``square_to_circle`` at n = 56, 3,249 vertices and 6,272
+    triangles, written to a JSON file and loaded by the CLI; its recipe
+    ``g40; r; g40; u; V4; g60`` refines it to 12,769 vertices and 25,088
+    triangles; ``surface`` at zero tension and ``line_tension`` on the
+    boundary, under the hard ``global_area`` constraint, whose projection
+    takes its area and gradient from the surface whole call) through the
+    command layer as phases 8-9 run theirs, with the same per-command
+    lines.
+12. square_to_circle L1, float64: the same; every energy within rel 1e-8 of
+    the fixture with equal counts, phase 11's within rel max(2e-3, 2 x the
+    JAX package's own float32 deviation) of these.  Then, on this lane's
+    12,769 vertices and 25,088 triangles as the run left them, the area
+    constraints' entry ``surface_energy_and_gradient`` against its twin at
+    the lane's own tension (``surface``, zero here) and at unit tension
+    (``global_area``), float32 and float64, with phase 3's whole-call
+    bounds, and phase 3's tri-kernel checks on the same triangles scaled
+    to unit mean edge length.
 
-Phases 4-9 each drive one path with every kernel launch counter set to 0
-just before and read just after; a kernel of that path that was never
-launched fails the run (the frozen-tilt entry point, both variants, lies on
-the float32 kozlov path only; the surface energy, both variants, and the
-vertex sum on all six; the curvature data forward on all six (on the cube
-paths through ``energy stats``), its backward on phases 4-7; the
-divergence forward on the kozlov paths; its tilt backward on none, so
+Every lane phase (4-9, 11-12) also checks determinism: from the state its
+protocol leaves (phases 4-7: the five steps; phases 8-9 and 11-12: the
+command list), it saves the state, runs ``minimize(2)`` (``g2`` through the
+command layer), takes a sha256 of the positions, the tilts and the
+energies, restores the state and runs again; a ``[... determinism]`` line
+prints both digests, and unequal digests fail the run.  The last line
+before the kernels line gives the whole run's seconds.
+
+Phases 4-9 and 11-12 each drive one path with every kernel launch counter
+set to 0 just before and read just after; a kernel of that path that was
+never launched fails the run (the frozen-tilt entry point, both variants,
+lies on the float32 kozlov path only; the surface energy, both variants,
+and the vertex sum on all eight; the curvature data forward on phases 4-9
+(on the cube paths through ``energy stats``), its backward on phases 4-7;
+the divergence forward on the kozlov paths; its tilt backward on none, so
 phase 3 alone launches it).
 
 The line before the last is a JSON object ``{"kernels": [...]}``: per entry
-point, its launches over phases 4-9, its largest error against its twin,
+point, its launches over phases 4-9 and 11-12, its largest error against its twin,
 and phase 3's device ms per call (``ms``), its twin's (``plain_ms``), the
 bound, and, for the vertex sum, ``index_add_``'s (``library_ms``).  The
 last line is ``{"ok": true, "device": {...}}``.
@@ -151,6 +182,7 @@ FIXTURES = REPO / "tests" / "fixtures" / "torch_port"
 KOZLOV_FIXTURE = FIXTURES / "kozlov_L3_f64_jax.json"
 VESICLE_FIXTURE = FIXTURES / "helfrich_cube_L5_f64_jax.json"
 CUBE_CLI_FIXTURE = FIXTURES / "cube_cli_L5_f64_jax.json"
+SQUARE_FIXTURE = FIXTURES / "square_to_circle_L1_f64_jax.json"
 CSRC = "membrane_solver_tpu_torch/csrc/"
 # entry point -> (source, the TPU kernel or JAX function it replaces, the
 # name of its timing rows, its launch counter)
@@ -632,12 +664,19 @@ def _seeded_triangles(T: int, seed: int):
     return rng.standard_normal((nv, 3)), rows, valid, 0.3 * rng.standard_normal((nv, 3))
 
 
-def _lane_triangles(prob, seed: int):
-    """A lane's own triangles: its start positions, perturbed by 1e-3, as numpy."""
+def _lane_triangles(prob, seed: int, unit_edges: bool = False):
+    """A lane's own triangles: its positions, perturbed by 1e-3, as numpy.
+
+    With ``unit_edges``, the positions are first scaled to a mean edge
+    length of 1: the float32 bounds are absolute at that scale, and every
+    kernel here is scale-covariant.
+    """
     rng = np.random.default_rng(seed)
     pos = prob.state.positions.detach().cpu().numpy()
-    pos = pos + 1e-3 * rng.standard_normal(pos.shape)
     rows = prob.topo.tri_rows.cpu().numpy()
+    if unit_edges:
+        pos = pos / np.mean(np.linalg.norm(pos[rows] - pos[np.roll(rows, 1, axis=1)], axis=2))
+    pos = pos + 1e-3 * rng.standard_normal(pos.shape)
     return pos, rows, prob.topo.tri_valid.cpu().numpy(), 0.3 * rng.standard_normal(pos.shape)
 
 
@@ -809,6 +848,44 @@ def kozlov_triangles(torch, mn) -> list:
         sets.append((f"kozlov leaflet {leaflet} T={rows.shape[0]}",
                      (pos, rows, keep.cpu().numpy(), tilts.detach().cpu().numpy()), 19, True))
     return sets
+
+
+def check_area_calls(torch, tk, phase: str, prob, errs_out: dict) -> None:
+    """The surface whole call as the square_to_circle path calls it, on that lane's last triangles.
+
+    ``surface_energy_and_gradient`` against ``surface_energy_reference(...,
+    True)`` at the topology's own tension (``surface``, zero on this lane)
+    and at unit tension (``global_area``), both masked by ``tri_valid``, at
+    float32 and float64 with phase 3's whole-call bounds; then phase 3's
+    tri-kernel checks on the same triangles, scaled to unit mean edge
+    length (the lane's edges are ~0.009 long, and a 1e-3 perturbation there
+    makes slivers whose float32 divergence exceeds the unit-scale bounds by
+    round-off alone).
+    """
+    topo = prob.topo
+    rows, valid, csr = topo.tri_rows, topo.tri_valid, topo.corner_csr()
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).removeprefix("torch.")
+        pos = prob.state.positions.detach().to(dtype)
+        ws = tk.workspace(topo, pos)
+        tension = topo.tri_surface_tension.to(dtype)
+        for module, t in (("surface", tension), ("global_area", torch.ones_like(tension))):
+            e, g = tk.surface_energy_and_gradient(pos, rows, valid, t, csr, ws)
+            want_e, want_g = tk.surface_energy_reference(pos, rows, valid, t, csr, True)
+            errs = {
+                "surface_energy": _sum_check(torch, f"{module} area call energy ({name})", e,
+                                             want_e, WC_ENERGY[name]),
+                "surface_grad": _sum_check(torch, f"{module} area call gradient ({name})", g,
+                                           want_g, WC_SURFACE_GRAD[name]),
+            }
+            say(phase, dtype=name, module=module, T=rows.shape[0], max_tension=repr(float(t.max())),
+                energy=repr(float(e)), **{k: repr(v) for k, v in errs.items()})
+            for k, v in errs.items():
+                errs_out[k] = max(errs_out.get(k, 0.0), v)
+    check_tri_sets(torch, tk, phase + " tri kernels",
+                   ((f"square_to_circle T={rows.shape[0]}, unit edges",
+                     _lane_triangles(prob, 17, unit_edges=True), 17, True),),
+                   errs_out)
 
 
 def check_determinism(torch, ft, tk, kozlov) -> dict:
@@ -1021,11 +1098,66 @@ def read_counts(counters) -> dict:
     return {f"{mod}.{key}": n for mod, launches in counters.items() for key, n in launches.items()}
 
 
+STATE_FIELDS = ("positions", "tilts", "tilts_in", "tilts_out")
+
+
+def snapshot(mn) -> dict:
+    """What a run from the minimizer's current state starts from: host mesh, step, stepper."""
+    mn.problem()
+    mn._sync_host()
+    verts = {vid: tuple(getattr(v, f).copy() for f in ("position", "tilt", "tilt_in", "tilt_out"))
+             for vid, v in mn.mesh.vertices.items()}
+    return {"verts": verts, "step_size": mn.step_size, "stepper": mn._stepper_state}
+
+
+def restore(mn, snap: dict) -> None:
+    """Back to ``snap``: the host mesh written back, the problem compiled anew from it."""
+    for vid, arrays in snap["verts"].items():
+        v = mn.mesh.vertices[vid]
+        for f, a in zip(("position", "tilt", "tilt_in", "tilt_out"), arrays):
+            getattr(v, f)[:] = a
+    mn.invalidate()
+    mn.problem()
+    mn._stepper_state = snap["stepper"]
+    mn.step_size = snap["step_size"]
+
+
+def state_digest(torch, mn, energies) -> str:
+    """sha256 of the device positions and tilts and of the energies, as bytes."""
+    state = mn.problem().state
+    h = hashlib.sha256()
+    for f in STATE_FIELDS:
+        h.update(getattr(state, f).detach().cpu().numpy().tobytes())
+    h.update(np.asarray(energies, dtype=np.float64).tobytes())
+    return h.hexdigest()
+
+
+def check_repeat(torch, label: str, mn, run) -> list:
+    """Run ``run()`` twice from one saved state; unequal digests fail.
+
+    ``run`` makes two steps and returns the energies it reports; the phase
+    goes on from the second run's state.
+    """
+    snap = snapshot(mn)
+    digests = []
+    for _ in range(2):
+        restore(mn, snap)
+        energies = run()
+        torch.cuda.synchronize()
+        digests.append(state_digest(torch, mn, energies))
+    say(label + " determinism", steps=2, first=digests[0], second=digests[1],
+        equal=digests[0] == digests[1])
+    if digests[0] != digests[1]:
+        raise AssertionError(f"{label}: two runs from one state differ: {digests}")
+    return digests
+
+
 def phase_path(torch, counters, label: str, fixture: dict, dtype, expect: tuple,
                f32_energies=None) -> dict:
     """Drive one lane at one dtype with the launch counts reset just before and read just after."""
     reset_counts(counters)
     mn, energies, steps, setup_s = run_protocol(torch, dtype, fixture["protocol"])
+    check_repeat(torch, label, mn, lambda: [float(mn.minimize(2)["energy"])])
     ms = timed_steps(torch, mn)
     launches = read_counts(counters)
     p = mn.problem()
@@ -1070,12 +1202,26 @@ def connectivity_digest(mesh) -> str:
 
 
 def cli_context(torch, protocol: dict, dtype):
-    """The command context ``cli.main`` builds for the protocol's command line, on the card."""
-    from membrane_solver_tpu_torch import cli
+    """The command context ``cli.main`` builds for the protocol's command line, on the card.
 
-    argv = [str(REPO / a) if a == protocol["mesh"] else a for a in protocol["cli_args"]]
-    args = cli.build_parser().parse_args(argv + (["--f32"] if dtype == torch.float32 else []))
-    return cli.make_context(args, cli.load_mesh_interactive(args.input, interactive=False))
+    A meshgen protocol's lane is first written to a JSON file, as
+    ``python -m membrane_solver_tpu_torch.meshgen NAME --set k=v -o FILE``
+    writes it, and the CLI loads that file.
+    """
+    import tempfile
+
+    from membrane_solver_tpu_torch import cli
+    from membrane_solver_tpu_torch.meshgen import build
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_path = REPO / protocol["mesh"]
+        if "meshgen" in protocol:
+            spec = protocol["meshgen"]
+            mesh_path = Path(tmp) / protocol["mesh"]
+            mesh_path.write_text(json.dumps(build(spec["name"], **spec["args"])))
+        argv = [str(mesh_path) if a == protocol["mesh"] else a for a in protocol["cli_args"]]
+        args = cli.build_parser().parse_args(argv + (["--f32"] if dtype == torch.float32 else []))
+        return cli.make_context(args, cli.load_mesh_interactive(args.input, interactive=False))
 
 
 def phase_cli(torch, counters, label: str, fixture: dict, dtype, expect: tuple, f32=None) -> dict:
@@ -1083,6 +1229,7 @@ def phase_cli(torch, counters, label: str, fixture: dict, dtype, expect: tuple, 
     from membrane_solver_tpu_torch.commands import execute_command_line
 
     proto, trace = fixture["protocol"], fixture["trace"]
+    jax_f32 = fixture["float32_reference"]
     reset_counts(counters)
     ctx = cli_context(torch, proto, dtype)
     rows, digests = [], []
@@ -1103,15 +1250,32 @@ def phase_cli(torch, counters, label: str, fixture: dict, dtype, expect: tuple, 
         if cmd == "u":
             digests.append(connectivity_digest(ctx.mesh))
             row["connectivity"] = digests[-1]
+            if dtype == torch.float32:
+                # the JAX package's own float32 run after the same command
+                i = len(rows)
+                row["jax_f32_counts"] = jax_f32["counts"][i]
+                row["jax_f32_connectivity"] = jax_f32["connectivity"][i]
+                row["jax_f32_connectivity_equal"] = jax_f32["connectivity"][i] == digests[-1]
         rows.append(row)
         say(label + " command", **{k: (f"{v:.6f}" if k in ("host_s", "ms_per_step") else repr(v))
                                    for k, v in row.items()})
+
+    def g2():
+        execute_command_line(ctx, "g2")
+        ctx.sync_mesh()
+        return [float(ctx.minimizer.compute_energy())]
+
+    check_repeat(torch, label, ctx.minimizer, g2)
     syncs, sites = count_syncs(torch, lambda: execute_command_line(ctx, "g1"))
     launches = read_counts(counters)
     energies = [r["energy"] for r in rows]
-    out = {"energies": energies, "rows": rows, "digests": digests, "launches": launches}
+    out = {"energies": energies, "rows": rows, "digests": digests, "launches": launches,
+           "mn": ctx.minimizer}
     fields = {"vertices": rows[-1]["n_vertices"], "facets": rows[-1]["n_facets"],
               "launches": json.dumps(launches), "g1_host_syncs": syncs}
+    if dtype == torch.float32:
+        fields["jax_f32_connectivity_after_u_equal"] = json.dumps(
+            [r["jax_f32_connectivity_equal"] for r in rows if r["cmd"] == "u"])
     if not all(math.isfinite(e) for e in energies):
         raise AssertionError(f"{label}: non-finite energies: {energies}")
     if dtype == torch.float64:
@@ -1198,6 +1362,7 @@ def kernels_line(kern: dict, runs: dict) -> list:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -1211,6 +1376,7 @@ def main() -> int:
     kozlov = load_fixture(KOZLOV_FIXTURE)
     vesicle = load_fixture(VESICLE_FIXTURE)
     cube_cli = json.loads(CUBE_CLI_FIXTURE.read_text())
+    square = json.loads(SQUARE_FIXTURE.read_text())
     device = phase_device(torch)
     phase_build((ft, tk, vs))
     kern = phase_kernels(torch, (ft, tk, vs),
@@ -1241,12 +1407,21 @@ def main() -> int:
     runs["c64"] = phase_cli(torch, counters, "9 cube_cli_L5 f64", cube_cli, torch.float64,
                             cli_path, f32=runs["c32"])
     phase_console(torch, cube_cli)
+    square_path = ("tri_kernels.surface_energy", "tri_kernels.surface_energy_grad",
+                   "vertex_sum.vertex_sum")
+    runs["s32"] = phase_cli(torch, counters, "11 square_to_circle_L1 f32", square, torch.float32,
+                            square_path)
+    runs["s64"] = phase_cli(torch, counters, "12 square_to_circle_L1 f64", square, torch.float64,
+                            square_path, f32=runs["s32"])
+    check_area_calls(torch, tk, "12 square_to_circle_L1 area calls", runs["s64"]["mn"].problem(),
+                     kern["errs"])
     # phases 8-10 have imported the CLI and the command layer by now
     if not {"membrane_solver_tpu_torch.cli", "membrane_solver_tpu_torch.commands"} <= set(sys.modules):
         raise AssertionError("the CLI and the command layer were not imported")
     if "jax" in sys.modules or any(m.split(".")[0] == "membrane_solver_tpu" for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
 
+    say("total", seconds=f"{time.perf_counter() - t_start:.3f}")
     print(json.dumps({"kernels": kernels_line(kern, runs)}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

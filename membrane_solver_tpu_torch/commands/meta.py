@@ -261,7 +261,7 @@ class TiltStatsCommand(Command):
             if not mags.size or not np.any(mags):
                 continue
             div = p1_vertex_divergence(
-                p.state.positions, arr, p.topo.tri_rows, p.topo.tri_valid
+                p.state.positions, arr, p.topo.tri_rows, p.topo.tri_valid, p.topo.corner_csr()
             ).cpu().numpy()[:nv]
             print(
                 f"{label}: |t| mean={mags.mean():.6f} max={mags.max():.6f}  "

@@ -18,6 +18,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from membrane_solver_tpu_torch.device.state import kept_slot_csr
+from membrane_solver_tpu_torch.kernels import vertex_sum
+
 
 def _has(options):
     cons = (options or {}).get("constraints")
@@ -174,19 +177,19 @@ def constraint_gradient_rows(state, topo, params):
     k = rows.shape[0]
     out = positions.new_zeros((2 * k, positions.shape[0], 3))
     idx = torch.arange(k, device=rows.device)
-    out = out.index_put((2 * idx, rows), torch.where(valid[:, None], normal, 0.0),
-                        accumulate=True)
-    return out.index_put((2 * idx + 1, rows), torch.where(valid[:, None], radial_hat, 0.0),
-                         accumulate=True)
+    out = out.index_put((2 * idx, rows), torch.where(valid[:, None], normal, 0.0))
+    return out.index_put((2 * idx + 1, rows), torch.where(valid[:, None], radial_hat, 0.0))
 
 
 def local_constraint_normals(state, topo, params):
-    """(Nv, 2, 3) per-vertex normals (plane + radial)."""
-    positions = state.positions
-    rows, valid, normal, radial_hat = _normal_pairs(positions, topo)
-    pair = torch.stack([normal.expand_as(radial_hat), radial_hat], dim=1)
-    pair = torch.where(valid[:, None, None], pair, 0.0)
-    nv = positions.shape[0]
-    safe = torch.where(valid, rows, nv)
-    out = positions.new_zeros((nv + 1, 2, 3))
-    return out.index_add(0, safe, pair)[:nv]
+    """(Nv, 2, 3) per-vertex normals (plane + radial).
+
+    Duplicate entries of a vertex sum, in a fixed order (``vertex_sum.row_sum``).
+    """
+    rows, valid, normal, radial_hat = _normal_pairs(state.positions, topo)
+    csr = kept_slot_csr(topo, "constraint:pin_to_circle/normals", rows,
+                        state.positions.shape[0], keep=valid)
+    return torch.stack([
+        vertex_sum.row_sum(torch.where(valid[:, None], n, 0.0), csr)
+        for n in (normal.expand_as(radial_hat), radial_hat)
+    ], dim=1)

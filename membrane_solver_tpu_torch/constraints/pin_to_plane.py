@@ -15,6 +15,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from membrane_solver_tpu_torch.device.state import kept_slot_csr
+from membrane_solver_tpu_torch.kernels import vertex_sum
+
 
 def _has(options, name="pin_to_plane"):
     cons = (options or {}).get("constraints")
@@ -119,18 +122,19 @@ def constraint_gradient_rows(state, topo, params):
     k = rows.shape[0]
     out = positions.new_zeros((k, positions.shape[0], 3))
     row_idx = torch.arange(k, device=rows.device)
-    return out.index_put((row_idx, rows), torch.where(valid[:, None], normals, 0.0),
-                         accumulate=True)
+    return out.index_put((row_idx, rows), torch.where(valid[:, None], normals, 0.0))
 
 
 def local_constraint_normals(state, topo, params):
-    """(Nv, 1, 3) per-vertex constraint normals (the local form of the rows)."""
-    rows = _x(topo, "rows")
+    """(Nv, 1, 3) per-vertex constraint normals (the local form of the rows).
+
+    A vertex pinned twice (itself and through an edge, or through two
+    edges) sums its normals, in a fixed order (``vertex_sum.row_sum``).
+    """
     valid = _x(topo, "valid") & ~_x(topo, "vertex_fixed")
     positions = state.positions
     normals = _x(topo, "normal").to(positions.dtype)
-    nv = positions.shape[0]
-    safe = torch.where(valid, rows, nv)
-    out = positions.new_zeros((nv + 1, 3))
-    out = out.index_add(0, safe, torch.where(valid[:, None], normals, 0.0))
-    return out[:nv, None, :]
+    csr = kept_slot_csr(topo, "constraint:pin_to_plane/normals", _x(topo, "rows"),
+                        positions.shape[0], keep=valid)
+    out = vertex_sum.row_sum(torch.where(valid[:, None], normals, 0.0), csr)
+    return out[:, None, :]

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from membrane_solver_tpu_torch.device import geo as dgeo
+from membrane_solver_tpu_torch.device.state import check_unique_rows
 from membrane_solver_tpu_torch.energy import param
 
 _KEY = "constraint:rim_slope_match_out"
@@ -128,6 +129,9 @@ def compile_topology(layout) -> dict:
         )
 
     rim, outer, disk = _rings(layout) or ([], [], [])
+    # the rim, outer and disk rows are distinct, so the index_add and
+    # index_put calls below add one value per row (exact in any order)
+    check_unique_rows(rim + outer + disk, "rim_slope_match_out rim, outer and disk rings")
     rim_arr, rim_valid = ring(rim)
     outer_arr, outer_valid = ring(outer)
     disk_arr, disk_valid = ring(disk)
@@ -230,7 +234,7 @@ def _rim_directions(positions, topo):
     """(valid, phi, weights, r_dir, use) with r_dir tangent to the live surface."""
     valid, phi, _inv_dr, r_hat, weights, _normal = matching_data(positions, topo)
     geo = dgeo.triangle_geometry(positions, topo.tri_rows, topo.tri_valid)
-    vnormals = dgeo.vertex_normals(geo, topo.tri_rows, topo.tri_valid, positions.shape[0])
+    vnormals = dgeo.vertex_normals(geo, topo.tri_valid, topo.corner_csr())
     r_dir, dir_ok = _tangent_radial(r_hat, vnormals, _x(topo, "rim"))
     return phi, weights, r_dir, valid & dir_ok
 
@@ -369,8 +373,8 @@ def make_constraint_gradient_rows(spec):
         k = rim.shape[0]
         idx = torch.arange(k, device=rim.device)
         g = positions.new_zeros((k, positions.shape[0], 3))
-        g = g.index_put((idx, rim), coeff[:, None] * nvec, accumulate=True)
-        return g.index_put((idx, outer), -coeff[:, None] * nvec, accumulate=True)
+        g = g.index_put((idx, rim), coeff[:, None] * nvec)
+        return g.index_put((idx, outer), -coeff[:, None] * nvec)
 
     return fn
 
@@ -388,8 +392,10 @@ def make_compact_constraint_rows(spec):
         positions = state.positions
         rim, outer, coeff, valid, nvec = _shape_rows(positions, topo)
         slot_vals = torch.stack([coeff[:, None] * nvec, -coeff[:, None] * nvec], dim=1)
+        # rows fixed per topology (the KKT projector keeps their slot CSR);
+        # a rim vertex that this state leaves out has a zero coefficient
         slot_rows = torch.stack([rim, outer], dim=1)
-        slot_rows = torch.where(valid[:, None], slot_rows, positions.shape[0] - 1)
+        slot_rows = torch.where(_x(topo, "valid")[:, None], slot_rows, positions.shape[0] - 1)
         return slot_vals, slot_rows
 
     return fn

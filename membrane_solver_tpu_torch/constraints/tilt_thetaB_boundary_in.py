@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from membrane_solver_tpu_torch.device import geo as dgeo
+from membrane_solver_tpu_torch.device.state import check_unique_rows
 from membrane_solver_tpu_torch.energy import param
 
 _PREFIX = "constraint:tilt_thetaB_boundary_in"
@@ -45,6 +46,7 @@ def compile_topology(layout) -> dict:
             rows.append(layout.row_of[int(vid)])
     if not rows:
         return empty
+    check_unique_rows(rows, "tilt_thetaB_boundary_in rows")  # the index_add of _apply
     center = np.asarray(gp.get("tilt_thetaB_center") or [0, 0, 0], dtype=float)
     raw_n = gp.get("tilt_thetaB_normal")
     if raw_n is not None:
@@ -78,7 +80,7 @@ def _directions(positions, topo):
     good = valid & (r_len > 1e-12)
     r_hat = torch.where(good[:, None], rel_p / torch.clamp(r_len, min=1e-12)[:, None], 0.0)
     geo = dgeo.triangle_geometry(positions, topo.tri_rows, topo.tri_valid)
-    vnorm = dgeo.vertex_normals(geo, topo.tri_rows, topo.tri_valid, positions.shape[0])[rows]
+    vnorm = dgeo.vertex_normals(geo, topo.tri_valid, topo.corner_csr())[rows]
     r_dir = r_hat - torch.sum(r_hat * vnorm, dim=1, keepdim=True) * vnorm
     nrm = torch.linalg.vector_norm(r_dir, dim=1)
     ok = good & (nrm > 1e-12)

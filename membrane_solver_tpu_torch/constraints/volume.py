@@ -45,7 +45,7 @@ def _volume_and_gradient(positions, topo, body_slot: int):
     g0 = c12 * (m / 6.0)
     g1 = torch.linalg.cross(v2, v0) * (m / 6.0)
     g2 = torch.linalg.cross(v0, v1) * (m / 6.0)
-    grad = dgeo.scatter_add_rows(g0, g1, g2, topo.tri_rows, positions.shape[0])
+    grad = dgeo.scatter_add_rows(g0, g1, g2, topo.corner_csr())
     return vol, grad
 
 

@@ -9,7 +9,8 @@
 //
 // The vertex-to-corner map is a CSR built once per topology
 // (device/state.corner_csr): slots[offsets[v] .. offsets[v+1]) hold
-// tri * 3 + corner for every corner of vertex v, in triangle order.  A source
+// tri * 3 + corner for every corner of vertex v, corner-major (corner 0 of
+// each triangle in triangle order, then corners 1 and 2).  A source
 // array holds one row of W values per corner slot, (T, 3, W) row-major, and
 // the output one row per vertex, (N, W).  Two sources go through one launch
 // (Wb = 0 for one).  The weighted form (launch_weighted) scales each corner

@@ -9,16 +9,17 @@ at exact size (no capacity padding); validity masks are kept and masked
 rows contribute exactly zero.
 
 :func:`surface_corner_terms` and :func:`curvature_corners` are the plain
-twins of the CUDA kernels in ``kernels/tri_kernels``.  This module stays
-plain PyTorch: the energy modules take the surface and curvature terms
-from ``kernels/tri_kernels``, which launches the kernels for a CUDA tensor
-and runs these twins for a CPU one.
+twins of the CUDA kernels in ``kernels/tri_kernels``: the energy modules
+take the surface and curvature terms from ``kernels/tri_kernels``, which
+launches the kernels for a CUDA tensor and runs these twins for a CPU one.
 
-Scatter-adds are ``index_add``: deterministic on the CPU, and on CUDA the
-float atomics make the summation order vary from run to run.  The surface
-energy, the cotan curvature data and the P1 divergence on the solver's
-path go through ``kernels/tri_kernels`` instead, whose vertex sums run in
-a fixed order on both devices.
+Every sum runs in a fixed order, so two runs give the same bits on the
+card too: the corner-to-vertex sums (:func:`scatter_add_rows`) go through
+the vertex-sum kernel in the order of the topology's corner CSR
+(``kernels/vertex_sum.vertex_sum``; its plain twin on the CPU), which is
+the JAX package's scatter order, and the per-body sums (:func:`body_sums`)
+are masked reductions on the card, one row per body, in place of the JAX
+package's segment sums.
 """
 
 from __future__ import annotations
@@ -26,6 +27,9 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from membrane_solver_tpu_torch.device.state import CornerCSR
+from membrane_solver_tpu_torch.kernels import vertex_sum as vs
 
 EPS_AREA = 1e-12
 
@@ -78,27 +82,55 @@ def scatter_add_rows(
     values0: torch.Tensor,
     values1: torch.Tensor,
     values2: torch.Tensor,
-    tri_rows: torch.Tensor,
-    n_rows: int,
+    csr: CornerCSR,
 ) -> torch.Tensor:
-    """Scatter three per-triangle corner value arrays into per-vertex rows."""
-    out = values0.new_zeros((n_rows,) + tuple(values0.shape[1:]))
-    out = out.index_add(0, tri_rows[:, 0], values0)
-    out = out.index_add(0, tri_rows[:, 1], values1)
-    return out.index_add(0, tri_rows[:, 2], values2)
+    """Sum three per-triangle corner value arrays (T,) or (T, 3) into vertex rows.
+
+    ``csr`` is the topology's corner CSR (``Topology.corner_csr()``): the
+    rows are added in its order, by the vertex-sum kernel on the card and
+    its twin on the CPU, and the backward gathers.
+    """
+    return vs.vertex_sum(torch.stack([values0, values1, values2], dim=1), csr)
 
 
-def barycentric_vertex_areas(geo: TriangleGeometry, tri_rows: torch.Tensor, n_rows: int):
+def body_sums(values: torch.Tensor, tri_body: torch.Tensor, n_bodies: int) -> torch.Tensor:
+    """Per-triangle values (T,) summed per body slot: (n_bodies,).
+
+    Triangles whose ``tri_body`` is ``n_bodies`` or more (no body) are
+    dropped, as the JAX package's spare segment is.  On the card,
+    :func:`masked_body_sums` (no atomics); on the CPU, ``index_add``, which
+    adds in triangle order there, as the JAX package's segment sum does.
+    The masked reduction differs from that order at round-off, and the CG
+    stepper on the symmetric cube amplifies round-off past the CPU parity
+    tests' bars (``tests/test_torch_steppers.py``,
+    ``test_stepper_history_survives_between_calls[cg-10]``), so the CPU keeps
+    the segment sum's bits.
+    """
+    if values.is_cuda:
+        return masked_body_sums(values, tri_body, n_bodies)
+    out = values.new_zeros(n_bodies + 1)
+    return out.index_add(0, torch.clamp(tri_body, 0, n_bodies), values)[:n_bodies]
+
+
+def masked_body_sums(values: torch.Tensor, tri_body: torch.Tensor, n_bodies: int) -> torch.Tensor:
+    """:func:`body_sums` as a masked (n_bodies, T) reduction, on any device.
+
+    A PyTorch reduction adds in a fixed order for a fixed shape, so two
+    calls give the same bits; ``n_bodies`` is small and static.
+    """
+    slots = torch.arange(n_bodies, device=tri_body.device)[:, None]
+    return torch.sum(torch.where(tri_body[None, :] == slots, values[None, :], 0.0), dim=1)
+
+
+def barycentric_vertex_areas(geo: TriangleGeometry, csr: CornerCSR):
     third = geo.area / 3.0
-    return scatter_add_rows(third, third, third, tri_rows, n_rows)
+    return scatter_add_rows(third, third, third, csr)
 
 
-def vertex_normals(
-    geo: TriangleGeometry, tri_rows: torch.Tensor, tri_valid: torch.Tensor, n_rows: int
-) -> torch.Tensor:
+def vertex_normals(geo: TriangleGeometry, tri_valid: torch.Tensor, csr: CornerCSR) -> torch.Tensor:
     """Area-weighted unit vertex normals (zero where the accumulation vanishes)."""
     n = torch.where(tri_valid[:, None], geo.normal, 0.0)
-    acc = scatter_add_rows(n, n, n, tri_rows, n_rows)
+    acc = scatter_add_rows(n, n, n, csr)
     norms = safe_norm(acc, eps=1e-15)
     return torch.where(
         norms[:, None] > 1e-15, acc / torch.clamp(norms, min=1e-15)[:, None], 0.0
@@ -229,14 +261,14 @@ def curvature_data(
     positions: torch.Tensor,
     tri_rows: torch.Tensor,
     tri_valid: torch.Tensor,
-    n_rows: int,
+    csr: CornerCSR,
 ) -> CurvatureData:
-    """Cotan curvature data: :func:`curvature_corners` scattered to vertices."""
+    """Cotan curvature data: :func:`curvature_corners` summed into vertex rows over ``csr``."""
     corners = (positions[tri_rows[:, 0]], positions[tri_rows[:, 1]], positions[tri_rows[:, 2]])
     cot, k0, k1, k2, va, _tri_areas = curvature_corners(*corners, tri_valid)
     return CurvatureData(
-        k_vecs=scatter_add_rows(k0, k1, k2, tri_rows, n_rows),
-        vertex_areas=scatter_add_rows(va[:, 0], va[:, 1], va[:, 2], tri_rows, n_rows),
+        k_vecs=scatter_add_rows(k0, k1, k2, csr),
+        vertex_areas=scatter_add_rows(va[:, 0], va[:, 1], va[:, 2], csr),
         weights=cot,
         corner_areas=va,
     )
@@ -270,11 +302,12 @@ def angle_defects(
     tri_rows: torch.Tensor,
     tri_valid: torch.Tensor,
     vertex_valid: torch.Tensor,
+    csr: CornerCSR,
     boundary_vertex_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Integrated Gaussian curvature 2*pi - sum(angles); boundary rows zeroed."""
     ang = interior_angles(positions, tri_rows, tri_valid)
-    angle_sum = scatter_add_rows(ang[:, 0], ang[:, 1], ang[:, 2], tri_rows, positions.shape[0])
+    angle_sum = scatter_add_rows(ang[:, 0], ang[:, 1], ang[:, 2], csr)
     defects = torch.where(vertex_valid, 2.0 * torch.pi - angle_sum, 0.0)
     # vertices with no incident triangles contribute nothing
     defects = torch.where(angle_sum > 0, defects, 0.0)
@@ -293,15 +326,14 @@ def body_volumes(
     """Divergence-theorem volumes per body slot: sum v0.(v1 x v2)/6 over facets.
 
     ``tri_body`` holds ``n_bodies`` (or more) for a facet of no body; those
-    land in a spare row that is dropped, as the JAX package's segment sum
-    over ``n_bodies + 1`` segments does.
+    are dropped (:func:`body_sums`), as the JAX package's segment sum over
+    ``n_bodies + 1`` segments drops its spare one.
     """
     v0 = positions[tri_rows[:, 0]]
     v1 = positions[tri_rows[:, 1]]
     v2 = positions[tri_rows[:, 2]]
     contrib = torch.where(tri_valid, _dot(torch.linalg.cross(v1, v2), v0) / 6.0, 0.0)
-    out = contrib.new_zeros(n_bodies + 1)
-    return out.index_add(0, torch.clamp(tri_body, 0, n_bodies), contrib)[:n_bodies]
+    return body_sums(contrib, tri_body, n_bodies)
 
 
 def min_edge_length(

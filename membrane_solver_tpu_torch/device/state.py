@@ -38,13 +38,19 @@ class CornerCSR:
     """Which triangle corners touch each vertex, as a CSR.
 
     ``slots[offsets[v]:offsets[v + 1]]`` hold ``tri * 3 + corner`` for every
-    corner at vertex row ``v``, in triangle order (a stable sort by vertex).
-    The vertex-sum kernel and its twin (``kernels/vertex_sum``) add corner
-    rows into vertex rows in this order, so the sums are deterministic.
+    corner at vertex row ``v``: corner 0 of every triangle in triangle
+    order, then corner 1, then corner 2 (:func:`corner_csr`), the order in
+    which the JAX package's scatter (``.at[tri_rows[:, k]].add`` for k = 0,
+    1, 2) adds them on the CPU.  ``rows`` (T, 3) is the inverse map, the
+    vertex row of each corner (the backward of a vertex sum gathers through
+    it).  The vertex-sum kernel and its twin (``kernels/vertex_sum``) add
+    corner rows into vertex rows in this order, so the sums are
+    deterministic.
     """
 
     offsets: torch.Tensor  # (N + 1,) int32
     slots: torch.Tensor  # (3T,) int32
+    rows: torch.Tensor  # (T, 3) int64
 
     @property
     def n_rows(self) -> int:
@@ -56,23 +62,75 @@ class CornerCSR:
         return int(torch.max(self.offsets[1:] - self.offsets[:-1])) if self.n_rows else 0
 
 
+def _csr(keys: torch.Tensor, n_rows: int, slot_of, rows: torch.Tensor) -> CornerCSR:
+    """CSR of ``keys`` (the vertex row of each position) in position order within a row.
+
+    A stable sort by vertex, then each vertex's first position by binary
+    search; ``slot_of`` maps sorted positions to slots.
+    """
+    by_vertex, order = torch.sort(keys, stable=True)
+    first = torch.arange(n_rows + 1, dtype=keys.dtype, device=keys.device)
+    offsets = torch.searchsorted(by_vertex, first).to(torch.int32)
+    return CornerCSR(offsets=offsets, slots=slot_of(order).to(torch.int32), rows=rows)
+
+
 def corner_csr(tri_rows: torch.Tensor, n_rows: int) -> CornerCSR:
     """The :class:`CornerCSR` of ``tri_rows`` (T, 3) over ``n_rows`` vertex rows.
 
-    Plain PyTorch, once per topology, with one host read (the range check):
-    a stable sort by vertex, then each vertex's first slot by binary search.
+    Plain PyTorch, once per topology, with one host read (the range check).
     """
-    flat = tri_rows.reshape(-1)
-    if flat.numel() >= 2**31 or n_rows >= 2**31:
-        raise ValueError(f"{flat.numel()} corners / {n_rows} rows exceed the int32 CSR")
-    if flat.numel():
-        lo, hi = (int(x) for x in torch.stack(torch.aminmax(flat)).tolist())
+    T = tri_rows.shape[0]
+    if 3 * T >= 2**31 or n_rows >= 2**31:
+        raise ValueError(f"{3 * T} corners / {n_rows} rows exceed the int32 CSR")
+    if T:
+        lo, hi = (int(x) for x in torch.stack(torch.aminmax(tri_rows)).tolist())
         if lo < 0 or hi >= n_rows:
             raise ValueError(f"tri_rows span [{lo}, {hi}], outside the {n_rows} vertex rows")
-    by_vertex, slots = torch.sort(flat, stable=True)
-    first = torch.arange(n_rows + 1, dtype=flat.dtype, device=flat.device)
-    offsets = torch.searchsorted(by_vertex, first).to(torch.int32)
-    return CornerCSR(offsets=offsets, slots=slots.to(torch.int32))
+    # corner-major positions j = corner * T + tri, slot = tri * 3 + corner
+    return _csr(tri_rows.T.reshape(-1), n_rows, lambda j: (j % T) * 3 + j // T, tri_rows)
+
+
+def slot_csr(rows: torch.Tensor, n_rows: int) -> CornerCSR:
+    """A :class:`CornerCSR` of K target rows in ``[0, n_rows]`` (any shape, read flat).
+
+    For sums of K slot values into vertex rows (``kernels/vertex_sum.row_sum``),
+    added in the order of the flat list, as the JAX package's ``.at[rows].add``
+    adds them on the CPU.  The list is padded to a multiple of 3 with the
+    spare row ``n_rows``, and the CSR covers ``n_rows + 1`` rows, the spare
+    one last.  Callers build ``rows`` themselves, so the range is not read
+    back.
+    """
+    flat = rows.reshape(-1).to(INDEX)
+    flat = torch.cat([flat, flat.new_full(((-flat.numel()) % 3,), n_rows)])
+    return _csr(flat, n_rows + 1, lambda j: j, flat.reshape(-1, 3))
+
+
+def kept_slot_csr(topo: Topology, key: str, rows: torch.Tensor, n_rows: int,
+                  keep: torch.Tensor | None = None) -> CornerCSR:
+    """The :func:`slot_csr` of ``rows``, built at first use for ``key`` and kept with ``topo``.
+
+    ``rows`` must be fixed per topology.  Entries where ``keep`` is False
+    are aimed at the spare row and dropped.  Later calls with the same key
+    return the kept CSR without reading ``rows`` again.
+    """
+
+    def make():
+        target = rows if keep is None else torch.where(keep, rows, n_rows)
+        return slot_csr(target, n_rows)
+
+    return topo.kept(("slot_csr", key), make)
+
+
+def check_unique_rows(rows, what: str) -> None:
+    """Raise unless the vertex rows ``rows`` are distinct.
+
+    A module whose scatter (``index_add``) rows are distinct adds at most one
+    value into each row, which is exact in any order; it calls this where it
+    compiles the rows instead of summing over a slot CSR.
+    """
+    rows = np.asarray(rows).reshape(-1)
+    if np.unique(rows).size != rows.size:
+        raise ValueError(f"{what}: a vertex row repeats; its sums need a fixed order")
 
 
 @dataclasses.dataclass
@@ -148,7 +206,12 @@ class ProblemSpec:
 
 @dataclasses.dataclass
 class CompileLayout:
-    """Host-side layout handed to the modules' compile_topology hooks."""
+    """Host-side layout handed to the modules' compile_topology hooks.
+
+    ``row_of[vertex_id]`` -> vertex row, ``edge_slot_of[edge_id]`` -> edge
+    row, ``tri_slot_of[facet_id]`` -> triangle row, ``body_slot_of[body_id]``
+    -> body slot, as in the JAX package's layout (without its capacities).
+    """
 
     mesh: Mesh
     vertex_ids: np.ndarray
@@ -157,6 +220,10 @@ class CompileLayout:
     tri_facet_ids: list
     n_vertices: int
     n_tris: int
+    edge_slot_of: Dict[int, int] = dataclasses.field(default_factory=dict)
+    tri_slot_of: Dict[int, int] = dataclasses.field(default_factory=dict)
+    body_ids: list = dataclasses.field(default_factory=list)
+    body_slot_of: Dict[int, int] = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -461,6 +528,10 @@ def compile_state(
         tri_facet_ids=list(tri_fids),
         n_vertices=nv,
         n_tris=nf,
+        edge_slot_of={int(eid): i for i, eid in enumerate(edge_items)},
+        tri_slot_of={int(fid): i for i, fid in enumerate(tri_fids)},
+        body_ids=list(body_items),
+        body_slot_of={int(bid): i for i, bid in enumerate(body_items)},
     )
     extras: Dict[str, torch.Tensor] = {}
     extra_static = []

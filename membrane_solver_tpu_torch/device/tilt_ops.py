@@ -70,11 +70,11 @@ def p1_vertex_divergence(
     tilts: torch.Tensor,
     tri_rows: torch.Tensor,
     tri_valid: torch.Tensor,
+    csr,
 ) -> torch.Tensor:
-    """Area-weighted average of incident triangle divergences per vertex."""
+    """Area-weighted average of incident triangle divergences per vertex (sums over ``csr``)."""
     div, areas, _ = p1_triangle_divergence(positions, tilts, tri_rows, tri_valid)
-    n_rows = positions.shape[0]
     w = areas / 3.0
-    num = dgeo.scatter_add_rows(w * div, w * div, w * div, tri_rows, n_rows)
-    den = dgeo.scatter_add_rows(w, w, w, tri_rows, n_rows)
+    num = dgeo.scatter_add_rows(w * div, w * div, w * div, csr)
+    den = dgeo.scatter_add_rows(w, w, w, csr)
     return torch.where(den > 1e-15, num / torch.clamp(den, min=1e-15), 0.0)

@@ -5,9 +5,11 @@ Counterpart of ``membrane_solver_tpu/energy/__init__.py``.  A module
 ``energy(geo, state, topo, params)`` or ``make_energy(spec)`` returning a
 function of the same arguments, plus the optional hooks the JAX package
 defines (``make_inloop_energy``, ``make_tilt_frozen``, ``compile_topology``).
-Only the modules of the kozlov coupled-tilt lane and of the Helfrich
-vesicle lane (volume, bending, gaussian_curvature) are ported; any other
-name raises NotImplementedError.
+Ported: the modules of the kozlov coupled-tilt lane, of the Helfrich
+vesicle lane (volume, bending, gaussian_curvature) and of the shape family
+(line_tension, jordan_area, edge_length_penalty, body_area_penalty,
+expression, and the reference's empty ``dummy_module``); any other name
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -26,6 +28,12 @@ PORTED = (
     "bending_tilt_in",
     "bending_tilt_out",
     "tilt_thetaB_contact_in",
+    "line_tension",
+    "jordan_area",
+    "edge_length_penalty",
+    "body_area_penalty",
+    "expression",
+    "dummy_module",
 )
 
 _CACHE: Dict[str, ModuleType] = {}

@@ -56,7 +56,7 @@ def compile_topology(layout) -> dict:
     return {"has_kappa": has_kappa, "kappa": kappa, "has_c0": has_c0, "c0": c0}
 
 
-def effective_vertex_areas(curv: dgeo.CurvatureData, topo, n_rows: int) -> torch.Tensor:
+def effective_vertex_areas(curv: dgeo.CurvatureData, topo) -> torch.Tensor:
     """Mixed-Voronoi areas with boundary corners redistributed to interior ones."""
     va = curv.corner_areas
     tri_is_b = topo.boundary_vertex_mask[topo.tri_rows]
@@ -68,20 +68,19 @@ def effective_vertex_areas(curv: dgeo.CurvatureData, topo, n_rows: int) -> torch
     va_eff = torch.where(
         redistribute[:, None], torch.where(interior, va + extra[:, None], 0.0), va
     )
-    return dgeo.scatter_add_rows(va_eff[:, 0], va_eff[:, 1], va_eff[:, 2], topo.tri_rows, n_rows)
+    return dgeo.scatter_add_rows(va_eff[:, 0], va_eff[:, 1], va_eff[:, 2], topo.corner_csr())
 
 
 def bending_fields(state, topo):
     """(H, curvature data, A_eff, interior mask)."""
     positions = state.positions
-    n_rows = positions.shape[0]
     geo = dgeo.triangle_geometry(positions, topo.tri_rows, topo.tri_valid)
-    vnormals = dgeo.vertex_normals(geo, topo.tri_rows, topo.tri_valid, n_rows)
+    vnormals = dgeo.vertex_normals(geo, topo.tri_valid, topo.corner_csr())
     curv = tri_kernels.curvature_data(positions, topo.tri_rows, topo.tri_valid, topo.corner_csr())
     safe_vor = torch.clamp(curv.vertex_areas, min=1e-12)
     # |K| with the normal-direction gradient fallback at flat states
     H = dgeo.directional_norm(curv.k_vecs, vnormals) / (2.0 * safe_vor)
-    a_eff = effective_vertex_areas(curv, topo, n_rows)
+    a_eff = effective_vertex_areas(curv, topo)
     interior = topo.vertex_valid & ~topo.boundary_vertex_mask
     return H, curv, a_eff, interior
 

@@ -44,10 +44,9 @@ def _redistributed_va(corner_areas, topo, keep):
 
 def _fields(positions, topo, params, kappa_key, c0_key, tri_present=None):
     """Full-value leaflet fields: (base, va_eff, a_eff, kappa, interior, extra)."""
-    n_rows = positions.shape[0]
     keep = topo.tri_valid if tri_present is None else (topo.tri_valid & tri_present)
     geo = dgeo.triangle_geometry(positions, topo.tri_rows, keep)
-    vnormals = dgeo.vertex_normals(geo, topo.tri_rows, keep, n_rows)
+    vnormals = dgeo.vertex_normals(geo, keep, topo.corner_csr())
     curv = tri_kernels.curvature_data(positions, topo.tri_rows, topo.tri_valid, topo.corner_csr())
     safe_vor = torch.clamp(curv.vertex_areas, min=1e-12)
     H = dgeo.directional_norm(curv.k_vecs, vnormals) / (2.0 * safe_vor)
@@ -60,9 +59,7 @@ def _fields(positions, topo, params, kappa_key, c0_key, tri_present=None):
     base_term = torch.where(interior, 2.0 * H - c0, 0.0)
 
     va_eff = _redistributed_va(curv.corner_areas, topo, keep)
-    a_eff = dgeo.scatter_add_rows(
-        va_eff[:, 0], va_eff[:, 1], va_eff[:, 2], topo.tri_rows, n_rows
-    )
+    a_eff = dgeo.scatter_add_rows(va_eff[:, 0], va_eff[:, 1], va_eff[:, 2], topo.corner_csr())
     extra = {
         "H": H,
         "safe_vor": safe_vor,
@@ -78,7 +75,6 @@ def leaflet_bending_tilt_energy(
     tri_present=None,
 ):
     positions = state.positions
-    n_rows = positions.shape[0]
     # Every field of the corner form and every surrogate coefficient is
     # detached in the JAX package (stop_gradient of the positions or of the
     # coefficient itself), so the fields are computed once, without a graph.
@@ -104,8 +100,7 @@ def leaflet_bending_tilt_energy(
             va_eff[:, 0] * div_term,
             va_eff[:, 1] * div_term,
             va_eff[:, 2] * div_term,
-            topo.tri_rows,
-            n_rows,
+            topo.corner_csr(),
         )
         div_eff = torch.where(
             a_eff > 1e-20, div_eff_num / torch.clamp(a_eff, min=1e-20), 0.0
@@ -125,7 +120,7 @@ def leaflet_bending_tilt_energy(
 
     curv_k = tri_kernels.curvature_data(positions, topo.tri_rows, keep, topo.corner_csr())
     va_k = _redistributed_va(curv_k.corner_areas, topo, keep)
-    a_eff_k = dgeo.scatter_add_rows(va_k[:, 0], va_k[:, 1], va_k[:, 2], topo.tri_rows, n_rows)
+    a_eff_k = dgeo.scatter_add_rows(va_k[:, 0], va_k[:, 1], va_k[:, 2], topo.corner_csr())
     surrogate = (
         torch.sum(coef_K * curv_k.k_vecs)
         + torch.sum(coef_a_eff * a_eff_k)

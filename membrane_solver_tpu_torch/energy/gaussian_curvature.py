@@ -33,9 +33,7 @@ def compile_topology(layout) -> dict:
 def gauss_bonnet_total(positions, topo):
     """G = sum interior defects (2pi - theta) + boundary turning (pi - theta)."""
     ang = dgeo.interior_angles(positions, topo.tri_rows, topo.tri_valid)
-    angle_sum = dgeo.scatter_add_rows(
-        ang[:, 0], ang[:, 1], ang[:, 2], topo.tri_rows, positions.shape[0]
-    )
+    angle_sum = dgeo.scatter_add_rows(ang[:, 0], ang[:, 1], ang[:, 2], topo.corner_csr())
     has_angles = angle_sum > 0
     interior = topo.vertex_valid & ~topo.boundary_vertex_mask & has_angles
     boundary = topo.vertex_valid & topo.boundary_vertex_mask & has_angles

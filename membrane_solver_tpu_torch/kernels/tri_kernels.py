@@ -28,6 +28,9 @@ the solver's path, each one ctypes call:
   summed into vertex rows in corner-CSR order by the weighted vertex sum
   (twin: :func:`p1_div_vjp_reference`).
 
+``surface_energy_and_gradient`` is the same call without autograd, for the
+area constraints (``global_area``, ``body_area``).
+
 Off the solver's path, kept for the tests and the card checks:
 ``surface_fwd`` and ``curvature_fwd`` / ``curvature_bwd``, the same
 kernels with per-triangle outputs and no sums (:func:`curvature_corners`
@@ -526,6 +529,15 @@ def surface_energy(positions, tri_rows, tri_valid, tension, csr: CornerCSR, ws=N
         return _SurfaceEnergy.apply(positions, tri_rows, tri_valid, tension, csr, ws)
     e, _dpos = _surface(positions, tri_rows, tri_valid, tension, csr, ws, False)
     return e
+
+
+def surface_energy_and_gradient(positions, tri_rows, tri_valid, tension, csr: CornerCSR, ws=None):
+    """(energy 0-dim, dE/dpositions (Nv, 3)) of :func:`surface_energy` from one call, no graph.
+
+    For the area constraints, which take the total area and its gradient
+    (unit tension on the triangles they hold) at every projection step.
+    """
+    return _surface(positions.detach(), tri_rows, tri_valid, tension, csr, ws, True)
 
 
 def curvature_corners(positions, tri_rows, tri_valid, csr: CornerCSR):

@@ -11,6 +11,13 @@ curvature and divergence entry points launch it inside their own calls
 paths take :func:`reference`, which adds in the same order; :func:`launch` runs it
 alone (``csrc/vertex_sum.cu``) on CUDA tensors, after device, dtype, shape
 and contiguity checks that raise on anything else.
+
+The plain modules sum through it too: :func:`vertex_sum` is the
+differentiable entry (the kernel for a CUDA tensor, the twin for a CPU one;
+its backward gathers through ``csr.rows``) behind ``geo.scatter_add_rows``,
+and :func:`row_sum` adds K slot values into vertex rows over a
+``state.slot_csr`` (the KKT corrections and the per-vertex constraint
+normals, whose rows may repeat).
 ``LAUNCHES["vertex_sum"]`` counts every launch of the kernel, from this
 module's wrapper and from the entry points that launch it.
 """
@@ -108,3 +115,43 @@ def launch(corner_values: torch.Tensor, csr: CornerCSR) -> torch.Tensor:
         raise RuntimeError(f"vertex_sum_rows launch failed: cudaError {code}")
     LAUNCHES["vertex_sum"] += 1
     return out
+
+
+class _VertexSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, corner_values, csr):
+        ctx.csr = csr
+        if corner_values.is_cuda:
+            return launch(corner_values.contiguous(), csr)
+        return reference(corner_values, csr)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad[ctx.csr.rows], None
+
+
+def vertex_sum(corner_values: torch.Tensor, csr: CornerCSR) -> torch.Tensor:
+    """(T, 3, *w) corner rows summed into (N, *w) vertex rows in CSR order, differentiable.
+
+    The kernel on the card (w is 1 or 3), :func:`reference` on the CPU; the
+    backward gathers the vertex upstream to the corners through ``csr.rows``.
+    A call that autograd does not follow (the projections, the line search's
+    energy-only trials) skips the Function and its host cost.
+    """
+    if torch.is_grad_enabled() and corner_values.requires_grad:
+        return _VertexSum.apply(corner_values, csr)
+    if corner_values.is_cuda:
+        return launch(corner_values.contiguous(), csr)
+    return reference(corner_values, csr)
+
+
+def row_sum(values: torch.Tensor, csr: CornerCSR) -> torch.Tensor:
+    """(K, *w) slot values summed into ``csr.n_rows - 1`` rows in a fixed order.
+
+    ``csr`` is the ``state.slot_csr`` of the K target rows; the slots it pads
+    and any slot aimed at the spare last row are dropped with that row.
+    """
+    n_slots = csr.slots.shape[0]
+    pad = values.new_zeros((n_slots - values.shape[0],) + tuple(values.shape[1:]))
+    corner = torch.cat([values, pad]).reshape((n_slots // 3, 3) + tuple(values.shape[1:]))
+    return vertex_sum(corner, csr)[:-1]

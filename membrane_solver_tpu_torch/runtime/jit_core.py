@@ -21,8 +21,9 @@ import numpy as np
 import torch
 
 from membrane_solver_tpu_torch.device import geo as dgeo
-from membrane_solver_tpu_torch.device.state import MeshState, ProblemSpec, Topology
+from membrane_solver_tpu_torch.device.state import MeshState, ProblemSpec, Topology, kept_slot_csr
 from membrane_solver_tpu_torch.energy import get_module
+from membrane_solver_tpu_torch.kernels import vertex_sum
 
 # Armijo line-search constants (as in the JAX package)
 LS_MAX_ITER = 10
@@ -202,7 +203,11 @@ def make_gradient_projector(spec: ProblemSpec) -> Callable | None:
     3. Dense rows: the small dense solve.
 
     Channels 2 and 3 are solved jointly after premultiplying every row by
-    the local projector.
+    the local projector.  A vertex may sit in several compact rows, so the
+    compact correction is summed over a slot CSR in a fixed order
+    (``vertex_sum.row_sum``), not scattered with atomics.  The compact
+    builders' slot rows are fixed per topology (a slot that a state leaves
+    out carries a zero value), so the CSR is built once and kept with it.
     """
     from membrane_solver_tpu_torch.constraints import get_constraint
 
@@ -261,6 +266,7 @@ def make_gradient_projector(spec: ProblemSpec) -> Callable | None:
             vals = vals - torch.einsum("ksm,ksmc->ksc", coeff, nh)
 
         kc = vals.shape[0]
+        csr = kept_slot_csr(topo, "kkt/compact_rows", rows_c, n_rows)
         eq = (rows_c[:, None, :, None] == rows_c[None, :, None, :]).to(grad.dtype)
         dots = torch.einsum("iac,jbc->ijab", vals, vals)
         A_cc = torch.sum(dots * eq, dim=(2, 3))
@@ -269,10 +275,7 @@ def make_gradient_projector(spec: ProblemSpec) -> Callable | None:
         if dense_rows is None:
             A = A_cc + 1e-18 * torch.eye(kc, dtype=grad.dtype, device=grad.device)
             lam = solve_kkt_with_rescue(A, b_c)
-            corr = torch.zeros_like(grad).index_put(
-                (rows_c,), lam[:, None, None] * vals, accumulate=True
-            )
-            return grad - corr
+            return grad - vertex_sum.row_sum((lam[:, None, None] * vals).reshape(-1, 3), csr)
 
         kd = dense_rows.shape[0]
         Gd = dense_rows.reshape(kd, -1)
@@ -283,9 +286,7 @@ def make_gradient_projector(spec: ProblemSpec) -> Callable | None:
         ) + 1e-18 * torch.eye(kc + kd, dtype=grad.dtype, device=grad.device)
         b = torch.cat([b_c, Gd @ grad.reshape(-1)])
         lam = solve_kkt_with_rescue(A, b)
-        corr = torch.zeros_like(grad).index_put(
-            (rows_c,), lam[:kc, None, None] * vals, accumulate=True
-        )
+        corr = vertex_sum.row_sum((lam[:kc, None, None] * vals).reshape(-1, 3), csr)
         corr = corr + (lam[kc:] @ Gd).reshape(grad.shape)
         return grad - corr
 
@@ -332,7 +333,7 @@ def make_constraint_enforcer(spec: ProblemSpec) -> Callable | None:
 def project_all_tilts(state: MeshState, topo: Topology) -> MeshState:
     """Tangent-project all three tilt fields onto the current surface."""
     geo = dgeo.triangle_geometry(state.positions, topo.tri_rows, topo.tri_valid)
-    nrm = dgeo.vertex_normals(geo, topo.tri_rows, topo.tri_valid, state.positions.shape[0])
+    nrm = dgeo.vertex_normals(geo, topo.tri_valid, topo.corner_csr())
     return dataclasses.replace(
         state,
         tilts=dgeo.project_to_tangent(state.tilts, nrm),

@@ -29,9 +29,10 @@ import numpy as np
 import torch
 
 from membrane_solver_tpu_torch.device import geo as dgeo
-from membrane_solver_tpu_torch.device.state import MeshState, ProblemSpec, Topology
+from membrane_solver_tpu_torch.device.state import MeshState, ProblemSpec, Topology, slot_csr
 from membrane_solver_tpu_torch.energy import get_module, param
 from membrane_solver_tpu_torch.kernels import tri_kernels
+from membrane_solver_tpu_torch.kernels import vertex_sum
 
 MAX_BACKTRACKS = 12
 STEP_FLOOR = 1e-16
@@ -138,13 +139,16 @@ def make_compact_tilt_collector(spec: ProblemSpec):
     return collect
 
 
-def make_compact_tilt_projector(compact):
+def make_compact_tilt_projector(compact, n_rows: int):
     """KKT projector over the (in, out) tilt DOFs from compact slot rows.
 
     The normal-equation matrix is assembled from slots (rows interact only
     where a slot vertex and leaflet agree) plus the rank-1 background cross
     terms, and LU-factored once per relax call; each application is a slot
-    gather, a triangular solve pair and a slot scatter.
+    gather, a triangular solve pair and a slot sum (``vertex_sum.row_sum``
+    over a slot CSR of the (leaflet, vertex) rows of ``n_rows`` vertices, in
+    a fixed order: the in-rows of two constraints may share a vertex).  The
+    rows follow the positions, so the CSR is built here with the factor.
     """
     if compact is None:
         return lambda gin, gout: (gin, gout)
@@ -165,6 +169,7 @@ def make_compact_tilt_projector(compact):
             A = A + torch.sum(f1 * f2) * (c1[:, None] * c2[None, :])
     A = A + 1e-18 * torch.eye(k, dtype=vals.dtype, device=vals.device)
     lu, piv, _info = torch.linalg.lu_factor_ex(A)
+    csr = slot_csr(leaf * n_rows + rows, 2 * n_rows)
 
     def project(gin, gout):
         g2 = torch.stack([gin, gout])
@@ -172,9 +177,8 @@ def make_compact_tilt_projector(compact):
         for c, f in bgs:
             b = b + c * torch.sum(f * g2)
         lam = torch.linalg.lu_solve(lu, piv, b[:, None])[:, 0]
-        corr = torch.zeros_like(g2).index_put(
-            (leaf, rows), lam[:, None, None] * vals, accumulate=True
-        )
+        corr = vertex_sum.row_sum((lam[:, None, None] * vals).reshape(-1, 3), csr)
+        corr = corr.reshape(2, n_rows, 3)
         for c, f in bgs:
             corr = corr + torch.dot(lam, c) * f
         return gin - corr[0], gout - corr[1]
@@ -186,13 +190,12 @@ def jacobi_preconditioner(positions, topo, params):
     """(M_inv_in, M_inv_out): tilt-modulus mass plus bending cotan row sums."""
     from membrane_solver_tpu_torch.energy.leaflet_presence import present_triangles
 
-    n_rows = positions.shape[0]
     geo = dgeo.triangle_geometry(positions, topo.tri_rows, topo.tri_valid)
-    vertex_areas = dgeo.barycentric_vertex_areas(geo, topo.tri_rows, n_rows)
+    vertex_areas = dgeo.barycentric_vertex_areas(geo, topo.corner_csr())
     present_out = present_triangles(topo, "out")
     if present_out is not None:
         a3 = torch.where(present_out, geo.area, 0.0) / 3.0
-        vertex_areas_out = dgeo.scatter_add_rows(a3, a3, a3, topo.tri_rows, n_rows)
+        vertex_areas_out = dgeo.scatter_add_rows(a3, a3, a3, topo.corner_csr())
     else:
         vertex_areas_out = vertex_areas
     curv = tri_kernels.curvature_data(positions, topo.tri_rows, topo.tri_valid, topo.corner_csr())
@@ -204,8 +207,7 @@ def jacobi_preconditioner(positions, topo, params):
             0.5 * k_smooth * (c1 + c2),
             0.5 * k_smooth * (c2 + c0),
             0.5 * k_smooth * (c0 + c1),
-            topo.tri_rows,
-            n_rows,
+            topo.corner_csr(),
         )
         diag = diag + rowsum
         diag = torch.where(diag > 1e-12, diag, 1.0)
@@ -338,9 +340,8 @@ def make_relax_leaflet_tilts(spec: ProblemSpec) -> Callable:
         dtype = state.positions.dtype
         np_dtype = np.float64 if dtype == torch.float64 else np.float32
         positions = state.positions
-        n_rows = positions.shape[0]
         geo = dgeo.triangle_geometry(positions, topo.tri_rows, topo.tri_valid)
-        normals = dgeo.vertex_normals(geo, topo.tri_rows, topo.tri_valid, n_rows)
+        normals = dgeo.vertex_normals(geo, topo.tri_valid, topo.corner_csr())
         fixed_in = topo.tilt_fixed_in_mask[:, None]
         fixed_out = topo.tilt_fixed_out_mask[:, None]
 
@@ -384,7 +385,8 @@ def make_relax_leaflet_tilts(spec: ProblemSpec) -> Callable:
 
         # the constraint rows depend on positions only: factor once
         projector = make_compact_tilt_projector(
-            compact_collector(state, topo, params) if compact_collector else None
+            compact_collector(state, topo, params) if compact_collector else None,
+            positions.shape[0],
         )
 
         def eval_grads(t_in, t_out):

@@ -38,13 +38,19 @@ def port_context(*extra_args):
     return cli.make_context(args, cli.load_mesh_interactive(args.input, interactive=False))
 
 
-def jax_context():
-    """The JAX command context as its cli.main builds it (less the capacity plan)."""
+def jax_context(edit_mesh=None):
+    """The JAX command context as its cli.main builds it (less the capacity plan).
+
+    ``edit_mesh(mesh)`` runs before the Minimizer is built, where cli.main
+    applies its flags.
+    """
     import membrane_solver_tpu as jpkg
     from membrane_solver_tpu.commands import CommandContext as JCtx
     from membrane_solver_tpu.runtime.steppers import make_stepper
 
     mesh = jpkg.parse_geometry(jpkg.load_data(CUBE))
+    if edit_mesh is not None:
+        edit_mesh(mesh)
     gp = mesh.global_parameters
     mn = jpkg.Minimizer(mesh, stepper=make_stepper("gd"),
                         step_size=float(gp.get("step_size", 1e-3)), tol=1e-6, quiet=True)
@@ -222,10 +228,51 @@ def test_visualization_commands_raise(line):
 
 
 def test_line_tension_edges_reach_the_unported_module():
-    ctx = port_context()
-    with pytest.raises(NotImplementedError, match="line_tension"):
-        cli.main(["--cpu", "--non-interactive", "-q", "-i", str(CUBE),
-                  "--line-tension", "0.5", "--line-tension-edges", str(min(ctx.mesh.edges))])
+    """``--line-tension`` and ``--line-tension-edges`` run as in the JAX package.
+
+    The name is older than the port of ``line_tension``: the two flags reach
+    the ported module, and the tagged cube runs ``g5; r; g3`` as the JAX
+    package does (rel 1e-10)."""
+    from membrane_solver_tpu.commands import execute_command_line as jrun
+
+    edges = sorted(port_context().mesh.edges)[:4]
+    ctx = port_context("--line-tension", "0.5", "--line-tension-edges",
+                       ",".join(str(e) for e in edges))
+    assert "line_tension" in ctx.mesh.energy_modules
+    assert ctx.mesh.global_parameters.get("line_tension") == 0.5
+    def tag(mesh):  # what the JAX cli.main does with the two flags
+        mesh.global_parameters.set("line_tension", 0.5)
+        for eid in edges:
+            mesh.edges[eid].options.setdefault("energy", []).append("line_tension")
+        mesh.energy_modules.append("line_tension")
+
+    jctx = jax_context(tag)
+    lines = ["g5", "r", "g3"]
+    got, want = record(ctx, execute_command_line, lines), record(jctx, jrun, lines)
+    for g, w in zip(got, want, strict=True):
+        assert (g["n_vertices"], g["n_facets"]) == (w["n_vertices"], w["n_facets"])
+        assert g["energy"] == pytest.approx(w["energy"], rel=1e-10), g["cmd"]
+    breakdown = ctx.minimizer.compute_energy_breakdown()
+    assert breakdown["line_tension"] > 0.0
+
+
+def test_placeholder_constraints_load_through_the_cli(tmp_path):
+    """A mesh that lists the reference's empty constraint modules runs as without them."""
+    data = json.loads(CUBE.read_text())
+    data["instructions"] = ["g5"]
+    plain = tmp_path / "plain.json"
+    plain.write_text(json.dumps(data))
+    data["constraint_modules"] = list(data.get("constraint_modules", [])) + [
+        "edge", "fix_facet_angle", "fix_vertex_position", "dummy_module"]
+    listed = tmp_path / "listed.json"
+    listed.write_text(json.dumps(data))
+    energies = []
+    for path in (plain, listed):
+        out = tmp_path / f"out_{path.name}"
+        assert cli.main(["--cpu", "--non-interactive", "-q", "-i", str(path), "-o", str(out)]) == 0
+        energies.append(float(cli.Minimizer(cli.load_mesh_interactive(str(out), False),
+                                            device="cpu", quiet=True).compute_energy()))
+    assert energies[1] == energies[0]
 
 
 # ----------------------------------------------------------------------

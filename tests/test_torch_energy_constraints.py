@@ -185,7 +185,7 @@ def test_compact_tilt_projector_matches_jax(lane):
         jnp.asarray(gin), jnp.asarray(gout)
     )
     tcompact = trelax.make_compact_tilt_collector(tspec)(ts, topo, params)
-    got = trelax.make_compact_tilt_projector(tcompact)(
+    got = trelax.make_compact_tilt_projector(tcompact, nv)(
         torch.as_tensor(gin[:nv]), torch.as_tensor(gout[:nv])
     )
     for g, w, name in zip(got, want, ("in", "out")):

@@ -143,8 +143,8 @@ def test_unported_module_and_rim_flag_raise():
     from membrane_solver_tpu_torch import Minimizer
 
     data, parse = _small_mesh()
-    data["energy_modules"] = list(data["energy_modules"]) + ["line_tension"]
-    with pytest.raises(NotImplementedError, match="line_tension"):
+    data["energy_modules"] = list(data["energy_modules"]) + ["tilt_smoothness_in"]
+    with pytest.raises(NotImplementedError, match="tilt_smoothness_in"):
         Minimizer(parse(data), device="cpu", quiet=True).problem()
 
     # rim and outer rings of unequal size: the interpolated pairing

@@ -21,7 +21,7 @@ from membrane_solver_tpu.device import geo as jgeo
 from membrane_solver_tpu.device import tilt_ops as jtops
 from membrane_solver_tpu_torch.device import geo as tgeo
 from membrane_solver_tpu_torch.device import tilt_ops as ttops
-from membrane_solver_tpu_torch.device.state import MeshState, Topology
+from membrane_solver_tpu_torch.device.state import MeshState, Topology, corner_csr
 
 GEO_RTOL = 1e-12
 
@@ -104,17 +104,17 @@ def test_geometry_functions_match_jax(pair, perturbed):
     for name in ("normal", "double_area", "area", "unit_normal"):
         assert_close(getattr(tg, name), np.asarray(getattr(jg, name))[:nf], GEO_RTOL, name)
     assert_close(
-        tgeo.barycentric_vertex_areas(tg, topo.tri_rows, nv),
+        tgeo.barycentric_vertex_areas(tg, topo.corner_csr()),
         np.asarray(jgeo.barycentric_vertex_areas(jg, jt.tri_rows, jp.spec.nv_cap))[:nv],
         GEO_RTOL, "vertex areas",
     )
     assert_close(
-        tgeo.vertex_normals(tg, topo.tri_rows, topo.tri_valid, nv),
+        tgeo.vertex_normals(tg, topo.tri_valid, topo.corner_csr()),
         np.asarray(jgeo.vertex_normals(jg, jt.tri_rows, jt.tri_valid, jp.spec.nv_cap))[:nv],
         GEO_RTOL, "vertex normals",
     )
     jc = jgeo.curvature_data(js.positions, jt.tri_rows, jt.tri_valid, jp.spec.nv_cap)
-    tc = tgeo.curvature_data(ts.positions, topo.tri_rows, topo.tri_valid, nv)
+    tc = tgeo.curvature_data(ts.positions, topo.tri_rows, topo.tri_valid, topo.corner_csr())
     for name, rows in (("k_vecs", nv), ("vertex_areas", nv), ("weights", nf),
                        ("corner_areas", nf)):
         assert_close(getattr(tc, name), np.asarray(getattr(jc, name))[:rows], GEO_RTOL, name,
@@ -134,7 +134,7 @@ def test_scatter_add_rows_matches_jax():
     rows = rng.integers(0, 40, size=(300, 3))
     vals = [rng.standard_normal((300, 3)) for _ in range(3)]
     want = jgeo.scatter_add_rows(*map(jnp.asarray, vals), jnp.asarray(rows, jnp.int32), 40)
-    got = tgeo.scatter_add_rows(*map(torch.as_tensor, vals), torch.as_tensor(rows), 40)
+    got = tgeo.scatter_add_rows(*map(torch.as_tensor, vals), corner_csr(torch.as_tensor(rows), 40))
     assert_close(got, want, GEO_RTOL, "scatter_add_rows")
 
 
@@ -167,9 +167,9 @@ def test_directional_norm_gradient_matches_jax(pair, perturbed):
 
     jval, jgrad = jax.value_and_grad(jax_obj)(js.positions)
     x = ts.positions.clone().requires_grad_(True)
-    curv = tgeo.curvature_data(x, topo.tri_rows, topo.tri_valid, nv)
+    curv = tgeo.curvature_data(x, topo.tri_rows, topo.tri_valid, topo.corner_csr())
     g = tgeo.triangle_geometry(x, topo.tri_rows, topo.tri_valid)
-    vn = tgeo.vertex_normals(g, topo.tri_rows, topo.tri_valid, nv)
+    vn = tgeo.vertex_normals(g, topo.tri_valid, topo.corner_csr())
     tval = torch.sum(tgeo.directional_norm(curv.k_vecs, vn) * torch.as_tensor(w_np[:nv]))
     (tgrad,) = torch.autograd.grad(tval, (x,))
     assert float(tval.detach()) == pytest.approx(float(jval), rel=1e-10, abs=1e-13)

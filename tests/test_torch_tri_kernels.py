@@ -106,10 +106,10 @@ def test_curvature_twin_matches_pallas_f32():
     for i, name in ((1, "k0"), (2, "k1"), (3, "k2")):
         np.testing.assert_allclose(got[i].numpy(), np.asarray(want[i]), rtol=5e-5, atol=1e-5,
                                    err_msg=name)
-    k_port = tgeo.scatter_add_rows(got[1], got[2], got[3], t_rows, nv)
+    k_port = tgeo.scatter_add_rows(got[1], got[2], got[3], corner_csr(t_rows, nv))
     k_pallas = jgeo.scatter_add_rows(want[1], want[2], want[3], j_rows, nv)
     np.testing.assert_allclose(k_port.numpy(), np.asarray(k_pallas), rtol=5e-5, atol=1e-5)
-    va_port = tgeo.scatter_add_rows(got[4][:, 0], got[4][:, 1], got[4][:, 2], t_rows, nv)
+    va_port = tgeo.scatter_add_rows(got[4][:, 0], got[4][:, 1], got[4][:, 2], corner_csr(t_rows, nv))
     va_pallas = jgeo.scatter_add_rows(want[4][:, 0], want[4][:, 1], want[4][:, 2], j_rows, nv)
     np.testing.assert_allclose(va_port.numpy(), np.asarray(va_pallas), rtol=5e-5, atol=1e-5)
     np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=5e-5, atol=1e-5)
@@ -143,7 +143,7 @@ def test_surface_twin_matches_stock_area_and_its_gradient_f64():
     e, g0, g1, g2 = tgeo.surface_corner_terms(*_torch(*_corners_np(pos, rows)),
                                               torch.as_tensor(gamma))
     assert_close(e, want_e_tri, F64_RTOL, "e_tri")
-    grad = tgeo.scatter_add_rows(g0, g1, g2, torch.as_tensor(rows), pos.shape[0])
+    grad = tgeo.scatter_add_rows(g0, g1, g2, corner_csr(torch.as_tensor(rows), pos.shape[0]))
     assert_close(grad, want_grad, F64_RTOL, "surface gradient")
 
 
@@ -171,9 +171,9 @@ def test_curvature_twin_matches_stock_curvature_data_f64():
     t_rows = torch.as_tensor(rows)
     assert_close(cot, jc.weights, F64_RTOL, "cot", atol_scale=1.0)
     assert_close(va, jc.corner_areas, F64_RTOL, "va", atol_scale=1.0)
-    assert_close(tgeo.scatter_add_rows(k0, k1, k2, t_rows, nv), jc.k_vecs, F64_RTOL, "k",
+    assert_close(tgeo.scatter_add_rows(k0, k1, k2, corner_csr(t_rows, nv)), jc.k_vecs, F64_RTOL, "k",
                  atol_scale=1.0)
-    assert_close(tgeo.scatter_add_rows(va[:, 0], va[:, 1], va[:, 2], t_rows, nv),
+    assert_close(tgeo.scatter_add_rows(va[:, 0], va[:, 1], va[:, 2], corner_csr(t_rows, nv)),
                  jc.vertex_areas, F64_RTOL, "vertex areas", atol_scale=1.0)
     e1 = pos[rows[:, 0]] - pos[rows[:, 2]]
     e2 = pos[rows[:, 1]] - pos[rows[:, 0]]
@@ -321,8 +321,7 @@ def test_curvature_data_backward_with_unused_outputs_f64(mesh_arrays):
     x = torch.as_tensor(pos).requires_grad_(True)
     (got,) = torch.autograd.grad(torch.sum(w * tk.curvature_data(x, t_rows, v, csr).k_vecs), (x,))
     y = torch.as_tensor(pos).requires_grad_(True)
-    (want,) = torch.autograd.grad(torch.sum(w * tgeo.curvature_data(y, t_rows, v,
-                                                                    pos.shape[0]).k_vecs), (y,))
+    (want,) = torch.autograd.grad(torch.sum(w * tgeo.curvature_data(y, t_rows, v, csr).k_vecs), (y,))
     assert_close(got, want, F64_RTOL, "k_vecs-only gradient", atol_scale=1.0)
     direct = tk.curvature_data_vjp_reference(torch.as_tensor(pos), t_rows, v, csr, w, None, None,
                                              None)
@@ -389,8 +388,8 @@ def test_cpu_wrappers_run_the_twins_and_launch_nothing():
     csr = corner_csr(t_rows, p.shape[0])
     curv = tk.curvature_data(p, t_rows, v, csr)
     cot, k0, k1, k2, va, _area = tgeo.curvature_corners(*corners, v)
-    # the vertex sums: the CSR-order twin exactly, the stock index_add to round-off
-    want_curv = tgeo.curvature_data(p, t_rows, v, p.shape[0])
+    # the vertex sums: the CSR-order twin, the plain geo function (the same order)
+    want_curv = tgeo.curvature_data(p, t_rows, v, csr)
     assert_close(curv.k_vecs, want_curv.k_vecs, F64_RTOL, "k_vecs", atol_scale=1.0)
     assert_close(curv.vertex_areas, want_curv.vertex_areas, F64_RTOL, "vertex areas")
     for got, want in (

@@ -158,7 +158,7 @@ def test_angle_defects_match_jax(lane, masked):
                               jp.topo.vertex_valid,
                               jp.topo.boundary_vertex_mask if masked else None)
     got = tgeo.angle_defects(ts.positions, topo.tri_rows, topo.tri_valid, topo.vertex_valid,
-                             topo.boundary_vertex_mask if masked else None)
+                             topo.corner_csr(), topo.boundary_vertex_mask if masked else None)
     assert_close(got, np.asarray(want)[: jp.n_vertices], RTOL, "angle defects", atol_scale=1.0)
     assert float(torch.max(torch.abs(got))) > 0.0
 

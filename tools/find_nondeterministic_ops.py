@@ -1,0 +1,120 @@
+#!/usr/bin/env python3
+"""List the PyTorch operations on the port's solver path that CUDA runs nondeterministically.
+
+Turns on ``torch.use_deterministic_algorithms(True, warn_only=True)`` for
+this process only (the package never does), drives the port's lanes on the
+card at a small size, and prints every warning PyTorch raises for an
+operation without a deterministic CUDA implementation, by the source line
+that issued it.  An empty list means the lanes' CUDA operations add in a
+fixed order.  The lanes: kozlov (meshgen ``kozlov_1disk``, small, one
+refinement), the Helfrich vesicle (meshgen cube, surface + bending, hard
+volume, two refinements), the cube recipe's stepper segment through the
+command layer (``bfgs; g5; cg; g5``) and ``square_to_circle`` at n = 8
+through the command layer, each at float32 and float64.
+
+Usage (on a machine with a CUDA GPU)::
+
+    python3 tools/find_nondeterministic_ops.py [-o nondeterministic_ops.json]
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import sys
+import warnings
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def lanes(torch, dtype):
+    """(name, callable) pairs, each driving one lane a few steps on the card."""
+    from membrane_solver_tpu_torch import Minimizer, parse_geometry
+    from membrane_solver_tpu_torch.commands import CommandContext, execute_command_line
+    from membrane_solver_tpu_torch.meshgen import build
+    from membrane_solver_tpu_torch.runtime.refinement import (
+        refine_polygonal_facets,
+        refine_triangle_mesh,
+    )
+    from membrane_solver_tpu_torch.runtime.steppers import make_stepper
+
+    def kozlov():
+        mesh = parse_geometry(build("kozlov_1disk", n_sectors=8, n_outer_rings=4, n_disk_rings=2))
+        mesh.global_parameters.update({"tilt_solve_mode": "coupled", "tilt_step_size": 0.15,
+                                       "tilt_inner_steps": 40, "tilt_tol": 1e-10,
+                                       "step_size": 0.005, "step_size_mode": "fixed"})
+        mn = Minimizer(mesh, device="cuda", dtype=dtype, quiet=True)
+        mn.mesh = refine_triangle_mesh(refine_polygonal_facets(mn.mesh))
+        mn.invalidate()
+        mn.enforce_constraints_after_mesh_ops()
+        mn.minimize(3)
+
+    def vesicle():
+        data = build("cube")
+        data.pop("instructions", None)
+        data["energy_modules"] = ["surface", "bending"]
+        data["constraint_modules"] = ["volume"]
+        data["global_parameters"].update({"bending_modulus": 1.0,
+                                          "volume_constraint_mode": "lagrange"})
+        mn = Minimizer(parse_geometry(data), device="cuda", dtype=dtype, quiet=True)
+        mn.mesh = refine_polygonal_facets(mn.mesh)
+        for _ in range(2):
+            mn.mesh = refine_triangle_mesh(mn.mesh)
+            mn.invalidate()
+            mn.enforce_constraints_after_mesh_ops()
+        mn.minimize(3)
+
+    def command_lane(name, lines, **kw):
+        def run():
+            mesh = parse_geometry(build(name, **kw))
+            gp = mesh.global_parameters
+            mn = Minimizer(mesh, stepper=make_stepper("gd"),
+                           step_size=float(gp.get("step_size", 1e-3)), tol=1e-6, quiet=True,
+                           device="cuda", dtype=dtype)
+            ctx = CommandContext(mesh=mesh, minimizer=mn, stepper=mn.stepper)
+            for line in lines:
+                execute_command_line(ctx, line)
+                ctx.sync_mesh()
+        return run
+
+    return [("kozlov", kozlov), ("vesicle", vesicle),
+            ("cube steppers", command_lane("cube", ["g5", "r", "bfgs", "g5", "cg", "g5"])),
+            ("square_to_circle", command_lane("square_to_circle",
+                                              ["g40", "r", "g40", "u", "V4", "g60"], n=8))]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("-o", "--output", type=Path)
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("find_nondeterministic_ops: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    found = {}
+    for dtype in (torch.float32, torch.float64):
+        for name, run in lanes(torch, dtype):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                run()
+                torch.cuda.synchronize()
+            sites = collections.Counter(
+                f"{Path(w.filename).name}:{w.lineno} {str(w.message).splitlines()[0][:120]}"
+                for w in caught if "deterministic" in str(w.message))
+            key = f"{name} {str(dtype).removeprefix('torch.')}"
+            found[key] = [(n, site) for site, n in sites.most_common()]
+            print(f"[nondeterministic ops] lane={key!r} sites={json.dumps(found[key])}",
+                  flush=True)
+    if args.output is not None:
+        args.output.parent.mkdir(parents=True, exist_ok=True)
+        args.output.write_text(json.dumps(found, indent=1) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -16,6 +16,12 @@ on one card:
    has tilts; energy and shape gradient; KKT projection; line search) each
    wrapped in device syncs and timed on the host clock over 5 steps.  The
    syncs add their own cost, so these rows compare only with each other;
+   ``compile`` is ``minimize``'s recompile of the problem from the host mesh
+   (``device/state.compile_state``, once per call), and ``outside_layers``
+   the synced wall time less those five (the rest of ``minimize``'s entry
+   and exit work and the host loop between layers).
+   Steps 2 and 3 run three times in turn (each run goes on from the state
+   the last one left); the record gives every run and the median;
 4. ``torch.profiler`` over 3 unsynced steps: device-side operations (kernels
    and copies) per step, device busy ms per step (the sum of their device
    time; one stream, so they do not overlap), the busy share against the
@@ -30,6 +36,9 @@ number; ``-o FILE`` also writes the full report (top operations) there.
 Usage (from the repository root, on a machine with a CUDA GPU)::
 
     python3 tools/profile_torch_port.py [-o FILE]
+
+The tool reads only the ``chip_smoke.py`` and the package beside it, so a
+copy of it in an unpacked older tree times that tree.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ import argparse
 import collections
 import contextlib
 import json
+import statistics
 import sys
 import time
 from pathlib import Path
@@ -46,18 +56,19 @@ REPO = Path(__file__).resolve().parent.parent
 TIMED_STEPS = 10
 SPLIT_STEPS = 5
 PROFILED_STEPS = 3
+REPEATS = 3  # timed and synced runs per lane and dtype: the host's pace varies between runs
 TOP_OPS = 12
 
 
 @contextlib.contextmanager
 def synced_split(torch, totals: dict):
-    """Time the four layers of ``jit_core.minimize_block`` with device syncs.
+    """Time the four layers of ``jit_core.minimize_block``, and the recompile, with device syncs.
 
     ``minimize_block`` looks its layer factories up on the module each time a
-    block is built, so wrapping them there reaches every ``minimize`` call
-    made inside the ``with``.
+    block is built, and the minimizer its ``compile_state``, so wrapping them
+    there reaches every ``minimize`` call made inside the ``with``.
     """
-    from membrane_solver_tpu_torch.runtime import jit_core
+    from membrane_solver_tpu_torch.runtime import jit_core, minimizer
 
     def timed(name, fn):
         def run(*args, **kwargs):
@@ -82,11 +93,14 @@ def synced_split(torch, totals: dict):
     jit_core.make_energy_vg = lambda spec: timed("energy_vg", orig["make_energy_vg"](spec))
     jit_core.make_gradient_projector = projector
     jit_core.armijo_line_search = timed("line_search", orig["armijo_line_search"])
+    compile_state = minimizer.compile_state
+    minimizer.compile_state = timed("compile", compile_state)
     try:
         yield
     finally:
         for n, fn in orig.items():
             setattr(jit_core, n, fn)
+        minimizer.compile_state = compile_state
 
 
 def device_profile(torch, mn):
@@ -109,10 +123,8 @@ def device_profile(torch, mn):
     return wall_ms / n, sum(e.count for e in rows) / n, busy_ms / n, top
 
 
-def profile_dtype(torch, chip_smoke, counters, fixture, dtype, lane) -> tuple[dict, list[str]]:
-    mn, _energies, _steps, setup_s = chip_smoke.run_protocol(torch, dtype, fixture["protocol"])
-    mn.minimize(chip_smoke.WARMUP_STEPS)
-
+def timed_run(torch, chip_smoke, counters, mn) -> tuple[float, dict, float, dict]:
+    """(unprofiled ms/step, launches/step, synced wall ms/step, synced split ms/step)."""
     chip_smoke.reset_counts(counters)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -128,6 +140,20 @@ def profile_dtype(torch, chip_smoke, counters, fixture, dtype, lane) -> tuple[di
         torch.cuda.synchronize()
         split_wall = (time.perf_counter() - t0) * 1e3 / n_split
     split = {k: v / n_split for k, v in totals.items()}
+    # the rest of the step: minimize's entry and exit work beside the recompile, the host loop
+    split["outside_layers"] = split_wall - sum(split.values())
+    return ms, launches, split_wall, split
+
+
+def profile_dtype(torch, chip_smoke, counters, fixture, dtype, lane) -> tuple[dict, list[str]]:
+    mn, _energies, _steps, setup_s = chip_smoke.run_protocol(torch, dtype, fixture["protocol"])
+    mn.minimize(chip_smoke.WARMUP_STEPS)
+
+    runs = [timed_run(torch, chip_smoke, counters, mn) for _ in range(REPEATS)]
+    ms = statistics.median(r[0] for r in runs)
+    launches = runs[0][1]
+    split_wall = statistics.median(r[2] for r in runs)
+    split = {k: statistics.median(r[3].get(k, 0.0) for r in runs) for k in runs[0][3]}
 
     prof_wall, ops, busy, top = device_profile(torch, mn)
     syncs, sync_sites = chip_smoke.count_syncs(torch, lambda: mn.minimize(1))
@@ -136,9 +162,12 @@ def profile_dtype(torch, chip_smoke, counters, fixture, dtype, lane) -> tuple[di
     rec = {
         "setup_s": setup_s,
         "ms_per_step": ms,
+        "ms_per_step_runs": [r[0] for r in runs],
         "kernel_launches_per_step": launches,
         "synced_wall_ms_per_step": split_wall,
+        "synced_wall_ms_per_step_runs": [r[2] for r in runs],
         "synced_split_ms_per_step": split,
+        "synced_split_ms_per_step_runs": [r[3] for r in runs],
         "profiled_wall_ms_per_step": prof_wall,
         "device_ops_per_step": ops,
         "device_busy_ms_per_step": busy,

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Record the JAX package's reference trajectories for the PyTorch port.
 
-Runs three protocols with ``membrane_solver_tpu`` on the CPU in float64 and
+Runs four protocols with ``membrane_solver_tpu`` on the CPU in float64 and
 writes one JSON file each to ``tests/fixtures/torch_port/``:
 
 ``kozlov_L3_f64_jax.json`` (the kozlov coupled-tilt lane):
@@ -46,6 +46,20 @@ energies and their largest relative deviation from the float64 trace.  On
 this protocol float32 line searches fail near the recipe's minimum, the
 step size decays, and the float32 run falls behind, so ``chip_smoke.py``
 bounds the port's float32-vs-float64 deviation by twice this value.
+
+``square_to_circle_L1_f64_jax.json`` (the shape family's lane: line
+tension on the boundary of a flat square sheet under a hard global area
+constraint, surface tension 0): meshgen ``square_to_circle`` at ``n`` = 56
+(3,249 vertices, 6,272 triangles), written to a JSON file and run through
+the same command context with the builder's own recipe ``g40; r; g40; u;
+V4; g60`` (12,769 vertices and 25,088 triangles after ``r``), with the
+same per-command rows and ``float32_reference``.
+
+In both command-layer files the ``float32_reference`` rows also hold, per
+command, the vertex and facet counts and the connectivity digest of
+``chip_smoke.connectivity_digest`` (the facets' signed edge lists and the
+edges' endpoints), so the GPU run can tell whether its float32 mesh
+operations part from the JAX package's own float32 ones.
 
 ``chip_smoke.py`` holds the port's float64 runs on the GPU against these
 files, so the GPU machine needs no JAX.
@@ -199,6 +213,8 @@ def run_vesicle() -> dict:
 CUBE_MESH = "meshes/cube.json"
 STEPPER_SEGMENT = ["bfgs", "g10", "hessian 2", "cg", "g20", "gd"]
 L5_EXTENSION = ["r", "u", "V2", "g20", "r", "u", "V2", "cg", "g20", "energy stats"]
+# square_to_circle's sheet size: 12,769 vertices after the recipe's ``r``
+SQUARE_N = 56
 
 
 def cube_cli_protocol() -> dict:
@@ -210,6 +226,22 @@ def cube_cli_protocol() -> dict:
         "stepper_segment": STEPPER_SEGMENT,
         "l5_extension": L5_EXTENSION,
         "commands": list(recipe) + STEPPER_SEGMENT + L5_EXTENSION,
+        "dtype": "float64",
+        "package": "membrane_solver_tpu",
+        "platform": "cpu",
+    }
+
+
+def square_to_circle_protocol(n: int = SQUARE_N) -> dict:
+    """The builder's recipe at sheet size ``n``; ``mesh`` names the JSON file to write."""
+    _pkg, build, _refinement = _jax()
+    recipe = build("square_to_circle", n=n)["instructions"]
+    return {
+        "mesh": "square_to_circle.json",
+        "meshgen": {"name": "square_to_circle", "args": {"n": n}},
+        "cli_args": ["-q", "--non-interactive", "-i", "square_to_circle.json"],
+        "recipe": list(recipe),
+        "commands": list(recipe),
         "dtype": "float64",
         "package": "membrane_solver_tpu",
         "platform": "cpu",
@@ -229,13 +261,31 @@ def command_record(ctx, cmd: str) -> dict:
     }
 
 
-def cube_cli_trace(protocol: dict) -> list:
-    """The protocol's commands in the JAX package, at the precision this process runs."""
+def mesh_path(protocol: dict, workdir: Path) -> Path:
+    """The protocol's input file: a repository mesh, or its meshgen lane written to ``workdir``."""
+    spec = protocol.get("meshgen")
+    if spec is None:
+        return REPO / protocol["mesh"]
+    _pkg, build, _refinement = _jax()
+    path = workdir / protocol["mesh"]
+    path.write_text(json.dumps(build(spec["name"], **spec["args"])))
+    return path
+
+
+def cli_trace(protocol: dict, digests: bool = False) -> list:
+    """The protocol's commands in the JAX package, at the precision this process runs.
+
+    With ``digests``, each row also holds the connectivity digest after it.
+    """
+    import tempfile
+
     pkg, _build, _refinement = _jax()
+    from chip_smoke import connectivity_digest
     from membrane_solver_tpu.commands import CommandContext, execute_command_line
     from membrane_solver_tpu.runtime.steppers import make_stepper
 
-    mesh = pkg.parse_geometry(pkg.load_data(REPO / protocol["mesh"]))
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = pkg.parse_geometry(pkg.load_data(mesh_path(protocol, Path(tmp))))
     gp = mesh.global_parameters
     # as cli.main builds it, less the capacity plan (see the docstring)
     mn = pkg.Minimizer(mesh, stepper=make_stepper("gd"),
@@ -246,28 +296,40 @@ def cube_cli_trace(protocol: dict) -> list:
         execute_command_line(ctx, cmd)
         ctx.sync_mesh()
         trace.append(command_record(ctx, cmd))
+        if digests:
+            trace[-1]["connectivity"] = connectivity_digest(ctx.mesh)
     return trace
 
 
-def run_cube_cli() -> dict:
-    protocol = cube_cli_protocol()
-    trace = cube_cli_trace(protocol)
+CLI_PROTOCOLS = {
+    "cube_cli_L5_f64_jax.json": cube_cli_protocol,
+    "square_to_circle_L1_f64_jax.json": square_to_circle_protocol,
+}
+
+
+def run_cli_fixture(name: str) -> dict:
+    """The float64 trace in this process, the float32 one in a child with x64 off."""
+    protocol = CLI_PROTOCOLS[name]()
+    trace = cli_trace(protocol)
     child = subprocess.run(
-        [sys.executable, str(Path(__file__).resolve()), "--cube-cli-float32"],
+        [sys.executable, str(Path(__file__).resolve()), "--cli-float32", name],
         env={**os.environ, "MEMBRANE_SOLVER_X64": "0"}, capture_output=True, text=True,
         check=True,
     )
-    energies = json.loads(child.stdout.strip().splitlines()[-1])
-    devs = [abs(a - t["energy"]) / abs(t["energy"]) for a, t in zip(energies, trace, strict=True)]
+    rows = json.loads(child.stdout.strip().splitlines()[-1])
+    devs = [abs(r["energy"] - t["energy"]) / abs(t["energy"])
+            for r, t in zip(rows, trace, strict=True)]
     f32 = {"package": "membrane_solver_tpu", "platform": "cpu", "dtype": "float32",
-           "energies": energies, "max_rel_dev_vs_float64": max(devs)}
+           "energies": [r["energy"] for r in rows], "max_rel_dev_vs_float64": max(devs),
+           "counts": [[r["n_vertices"], r["n_facets"]] for r in rows],
+           "connectivity": [r["connectivity"] for r in rows]}
     return {"protocol": protocol, "trace": trace, "float32_reference": f32}
 
 
 FIXTURES = {
     "kozlov_L3_f64_jax.json": run_kozlov,
     "helfrich_cube_L5_f64_jax.json": run_vesicle,
-    "cube_cli_L5_f64_jax.json": run_cube_cli,
+    **{name: (lambda name=name: run_cli_fixture(name)) for name in CLI_PROTOCOLS},
 }
 
 
@@ -276,12 +338,12 @@ def main() -> None:
     ap.add_argument("--output-dir", type=Path, default=OUT_DIR)
     ap.add_argument("--only", nargs="+", choices=sorted(FIXTURES),
                     help="record these files only (default: all)")
-    ap.add_argument("--cube-cli-float32", action="store_true",
-                    help=argparse.SUPPRESS)  # the child of run_cube_cli
+    ap.add_argument("--cli-float32", choices=sorted(CLI_PROTOCOLS),
+                    help=argparse.SUPPRESS)  # the child of run_cli_fixture
     args = ap.parse_args()
-    if args.cube_cli_float32:
-        trace = cube_cli_trace(cube_cli_protocol())
-        print(json.dumps([t["energy"] for t in trace]), flush=True)
+    if args.cli_float32:
+        rows = cli_trace(CLI_PROTOCOLS[args.cli_float32](), digests=True)
+        print(json.dumps(rows), flush=True)
         return
     args.output_dir.mkdir(parents=True, exist_ok=True)
     for name in args.only or FIXTURES:
