@@ -131,25 +131,60 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
     bounds, and phase 3's tri-kernel checks on the same triangles scaled
     to unit mean edge length.
 
-Every lane phase (4-9, 11-12) also checks determinism: from the state its
-protocol leaves (phases 4-7: the five steps; phases 8-9 and 11-12: the
-command list), it saves the state, runs ``minimize(2)`` (``g2`` through the
-command layer), takes a sha256 of the positions, the tilts and the
-energies, restores the state and runs again; a ``[... determinism]`` line
-prints both digests, and unequal digests fail the run.  The last line
-before the kernels line gives the whole run's seconds.
+13. rect_tilt_source L0, float32: the single-field tilt lane, the command
+    list of ``tests/fixtures/torch_port/rect_tilt_source_L0_f64_jax.json``
+    (meshgen ``rect_tilt_source`` at nx = 160, ny = 64: 10,465 vertices and
+    20,480 right isosceles triangles on the builder's 5 x 2 sheet, a unit
+    tilt held on one edge; ``surface`` at zero tension, ``tilt`` and
+    ``tilt_smoothness``; its recipe ``g5``, nested tilt solve with 60 inner
+    CG steps, as five ``g1``) through the command layer as phases 8-9 run
+    theirs, with the same per-command lines, then a ``g1 split`` line: the
+    host seconds of one more ``g1``, of one ``minimize(1)`` and of the
+    ``g`` command's host collision scan, each synced.
+14. rect_tilt_source L0, float64: the same; every energy within rel 1e-8 of
+    the fixture with equal counts, phase 13's within rel max(2e-3, 2 x the
+    JAX package's own float32 deviation) of these.  The curvature data's
+    backward must not launch on either run (the smoothness term takes its
+    cotangents on detached positions).  Then phase 3's tri-kernel checks,
+    float32 and float64, on the sheet's triangles as the run left them
+    (the flat sheet's right angles make nearly every row a Meyer branch
+    tie, which the checks leave out and count) and on the same triangles
+    perturbed by 1e-3.
+15. kozlov L3 theta_B scan, float64 then float32: phase 5's (phase 4's)
+    minimizer, back at the state its five protocol steps left (the saved
+    state of its determinism check; no second refinement), with the scan
+    parameters of ``tests/fixtures/torch_port/kozlov_L3_thetaB_f64_jax.json``
+    (a scan every iteration, delta 0.01) and one ``minimize(3)``: relax ->
+    scan -> step each iteration.  Per scan, the three candidates' energies
+    beside the reference's and the selected theta_B, which must equal the
+    fixture's (float64) or the JAX package's own float32 selections
+    (float32); every candidate energy and the final one within rel 1e-8 of
+    the fixture (float64) or within rel max(2e-3, 2 x the JAX package's own
+    float32 deviation) of the float64 run (float32); the ``compile_state``
+    calls during the call (the minimize-entry enforcement's recompile, as
+    in the JAX package, and none after it: a scan's theta_B write
+    refreshes the parameters only); the scans' host seconds.
 
-Phases 4-9 and 11-12 each drive one path with every kernel launch counter
+Every lane phase (4-9, 11-15) also checks determinism: from the state its
+protocol leaves (phases 4-7: the five steps; phases 8-9 and 11-14: the
+command list; phase 15: its ``minimize(3)``), it saves the state, runs
+``minimize(2)`` (``g2`` through the command layer), takes a sha256 of the
+positions, the tilts and the energies, restores the state and runs again;
+a ``[... determinism]`` line prints both digests, and unequal digests fail
+the run.  The last line before the kernels line gives the whole run's
+seconds.
+
+Phases 4-9 and 11-15 each drive one path with every kernel launch counter
 set to 0 just before and read just after; a kernel of that path that was
 never launched fails the run (the frozen-tilt entry point, both variants,
-lies on the float32 kozlov path only; the surface energy, both variants,
-and the vertex sum on all eight; the curvature data forward on phases 4-9
-(on the cube paths through ``energy stats``), its backward on phases 4-7;
-the divergence forward on the kozlov paths; its tilt backward on none, so
-phase 3 alone launches it).
+lies on the float32 kozlov paths only, phases 4 and 15; the surface energy, both variants,
+and the vertex sum on all eleven; the curvature data forward on phases
+4-9 and 13-15 (on the cube paths through ``energy stats``), its backward on
+phases 4-7 and 15; the divergence forward on the kozlov paths; its tilt
+backward on none, so phase 3 alone launches it).
 
 The line before the last is a JSON object ``{"kernels": [...]}``: per entry
-point, its launches over phases 4-9 and 11-12, its largest error against its twin,
+point, its launches over phases 4-9 and 11-15, its largest error against its twin,
 and phase 3's device ms per call (``ms``), its twin's (``plain_ms``), the
 bound, and, for the vertex sum, ``index_add_``'s (``library_ms``).  The
 last line is ``{"ok": true, "device": {...}}``.
@@ -183,6 +218,8 @@ KOZLOV_FIXTURE = FIXTURES / "kozlov_L3_f64_jax.json"
 VESICLE_FIXTURE = FIXTURES / "helfrich_cube_L5_f64_jax.json"
 CUBE_CLI_FIXTURE = FIXTURES / "cube_cli_L5_f64_jax.json"
 SQUARE_FIXTURE = FIXTURES / "square_to_circle_L1_f64_jax.json"
+RECT_FIXTURE = FIXTURES / "rect_tilt_source_L0_f64_jax.json"
+THETAB_FIXTURE = FIXTURES / "kozlov_L3_thetaB_f64_jax.json"
 CSRC = "membrane_solver_tpu_torch/csrc/"
 # entry point -> (source, the TPU kernel or JAX function it replaces, the
 # name of its timing rows, its launch counter)
@@ -700,6 +737,8 @@ def _tk_check(torch, name, got, want, dtype, kind, rows=None) -> float:
 
 
 def _bwd_check(torch, name, got, want, dtype, rows) -> float:
+    if not bool(torch.any(rows)):
+        return 0.0  # every row at a tie
     err = float(torch.max(torch.abs(got[rows] - want[rows])))
     scale = float(torch.max(torch.abs(want[rows])))
     if not err <= TK_BWD[str(dtype).removeprefix("torch.")] * scale:
@@ -848,6 +887,16 @@ def kozlov_triangles(torch, mn) -> list:
         sets.append((f"kozlov leaflet {leaflet} T={rows.shape[0]}",
                      (pos, rows, keep.cpu().numpy(), tilts.detach().cpu().numpy()), 19, True))
     return sets
+
+
+def sheet_triangles(prob) -> list:
+    """The rect sheet's triangles as a run left them, and the same perturbed by 1e-3."""
+    pos = prob.state.positions.detach().cpu().numpy()
+    rows = prob.topo.tri_rows.cpu().numpy()
+    tilts = 0.3 * np.random.default_rng(37).standard_normal(pos.shape)
+    valid = prob.topo.tri_valid.cpu().numpy()
+    return [(f"rect sheet T={rows.shape[0]}", (pos, rows, valid, tilts), 37, True),
+            (f"rect sheet T={rows.shape[0]} +1e-3", _lane_triangles(prob, 37), 37, True)]
 
 
 def check_area_calls(torch, tk, phase: str, prob, errs_out: dict) -> None:
@@ -1102,12 +1151,13 @@ STATE_FIELDS = ("positions", "tilts", "tilts_in", "tilts_out")
 
 
 def snapshot(mn) -> dict:
-    """What a run from the minimizer's current state starts from: host mesh, step, stepper."""
+    """What a run from the minimizer's current state starts from: host mesh, step, stepper, theta_B."""
     mn.problem()
     mn._sync_host()
     verts = {vid: tuple(getattr(v, f).copy() for f in ("position", "tilt", "tilt_in", "tilt_out"))
              for vid, v in mn.mesh.vertices.items()}
-    return {"verts": verts, "step_size": mn.step_size, "stepper": mn._stepper_state}
+    return {"verts": verts, "step_size": mn.step_size, "stepper": mn._stepper_state,
+            "thetaB": mn.global_params.get("tilt_thetaB_value")}
 
 
 def restore(mn, snap: dict) -> None:
@@ -1116,6 +1166,8 @@ def restore(mn, snap: dict) -> None:
         v = mn.mesh.vertices[vid]
         for f, a in zip(("position", "tilt", "tilt_in", "tilt_out"), arrays):
             getattr(v, f)[:] = a
+    if snap["thetaB"] is not None:  # the theta_B scan writes it
+        mn.global_params.set("tilt_thetaB_value", snap["thetaB"])
     mn.invalidate()
     mn.problem()
     mn._stepper_state = snap["stepper"]
@@ -1132,11 +1184,11 @@ def state_digest(torch, mn, energies) -> str:
     return h.hexdigest()
 
 
-def check_repeat(torch, label: str, mn, run) -> list:
+def check_repeat(torch, label: str, mn, run) -> dict:
     """Run ``run()`` twice from one saved state; unequal digests fail.
 
     ``run`` makes two steps and returns the energies it reports; the phase
-    goes on from the second run's state.
+    goes on from the second run's state.  Returns the saved state.
     """
     snap = snapshot(mn)
     digests = []
@@ -1149,7 +1201,7 @@ def check_repeat(torch, label: str, mn, run) -> list:
         equal=digests[0] == digests[1])
     if digests[0] != digests[1]:
         raise AssertionError(f"{label}: two runs from one state differ: {digests}")
-    return digests
+    return snap
 
 
 def phase_path(torch, counters, label: str, fixture: dict, dtype, expect: tuple,
@@ -1157,7 +1209,7 @@ def phase_path(torch, counters, label: str, fixture: dict, dtype, expect: tuple,
     """Drive one lane at one dtype with the launch counts reset just before and read just after."""
     reset_counts(counters)
     mn, energies, steps, setup_s = run_protocol(torch, dtype, fixture["protocol"])
-    check_repeat(torch, label, mn, lambda: [float(mn.minimize(2)["energy"])])
+    snap = check_repeat(torch, label, mn, lambda: [float(mn.minimize(2)["energy"])])
     ms = timed_steps(torch, mn)
     launches = read_counts(counters)
     p = mn.problem()
@@ -1168,7 +1220,7 @@ def phase_path(torch, counters, label: str, fixture: dict, dtype, expect: tuple,
     fields = {"vertices": p.n_vertices, "triangles": p.n_tris, "setup_s": f"{setup_s:.3f}",
               "energies": json.dumps(energies), "steps": json.dumps(steps),
               "ms_per_step": f"{ms:.3f}", "launches": json.dumps(launches)}
-    out = {"energies": energies, "ms": ms, "launches": launches, "mn": mn}
+    out = {"energies": energies, "ms": ms, "launches": launches, "mn": mn, "snap": snap}
     if dtype == torch.float64:
         ref = fixture["energies"]
         out["dev_jax"] = max(abs(a - b) / abs(b) for a, b in zip(energies, ref, strict=True))
@@ -1224,8 +1276,29 @@ def cli_context(torch, protocol: dict, dtype):
         return cli.make_context(args, cli.load_mesh_interactive(args.input, interactive=False))
 
 
-def phase_cli(torch, counters, label: str, fixture: dict, dtype, expect: tuple, f32=None) -> dict:
-    """The fixture's command list through the command layer, counts reset just before and read after."""
+def g1_split(torch, ctx) -> dict:
+    """Host seconds, synced, of one ``g1`` command, one ``minimize(1)`` and the ``g`` command's collision scan."""
+    from membrane_solver_tpu_torch.commands import execute_command_line
+    from membrane_solver_tpu_torch.runtime.topology_guards import detect_vertex_edge_collisions
+
+    def timed(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    return {"g1_s": timed(lambda: execute_command_line(ctx, "g1")),
+            "minimize_1_s": timed(lambda: ctx.minimizer.minimize(1)),
+            "collision_scan_s": timed(lambda: detect_vertex_edge_collisions(ctx.mesh))}
+
+
+def phase_cli(torch, counters, label: str, fixture: dict, dtype, expect: tuple, f32=None,
+              split: bool = False) -> dict:
+    """The fixture's command list through the command layer, counts reset just before and read after.
+
+    With ``split``, a ``g1`` split (:func:`g1_split`) follows the counted run.
+    """
     from membrane_solver_tpu_torch.commands import execute_command_line
 
     proto, trace = fixture["protocol"], fixture["trace"]
@@ -1300,6 +1373,8 @@ def phase_cli(torch, counters, label: str, fixture: dict, dtype, expect: tuple, 
             [a == b for a, b in zip(f32["digests"], digests, strict=True)])
     say(label, **fields)
     say(label + " g1 sync sites", sites=json.dumps(sites))
+    if split:
+        say(label + " g1 split", **{k: f"{v:.6f}" for k, v in g1_split(torch, ctx).items()})
     missing = [k for k in expect if not launches[k] > 0]
     if missing:
         raise AssertionError(f"{label}: the path did not launch {missing}: {launches}")
@@ -1307,6 +1382,99 @@ def phase_cli(torch, counters, label: str, fixture: dict, dtype, expect: tuple, 
         raise AssertionError(f"{label}: f64 energies deviate from the JAX fixture by {out['dev_jax']!r}")
     if "dev_f32" in out and not out["dev_f32"] <= f32_bound:
         raise AssertionError(f"{label}: f32 energies deviate from f64 by {out['dev_f32']!r}")
+    return out
+
+
+def thetaB_energies(trace: list, final: float) -> list:
+    """Every candidate's energy, scan by scan, then the call's final energy."""
+    return [c["energy"] for r in trace for c in r["candidate_energies"]] + [final]
+
+
+def phase_thetaB(torch, counters, label: str, fixture: dict, mn, snap: dict, expect: tuple,
+                 f64=None) -> dict:
+    """The theta_B scan on kozlov L3 from a saved state, counts reset just before and read after.
+
+    At float64 (``f64`` None) the selected theta_B and the energies are held
+    against the fixture; at float32 the selections against the JAX
+    package's own float32 run (the fixture's ``float32_reference``) and
+    the energies against ``f64``, the float64 phase's result.
+    """
+    from membrane_solver_tpu_torch.device import state as tstate
+    from membrane_solver_tpu_torch.runtime import tilt_optimization as topt
+
+    proto = fixture["protocol"]
+    restore(mn, snap)
+    mn.global_params.update(proto["global_parameters"])
+    mn.problem()  # the compile the new static options need, before the call
+    mn.mesh._thetaB_scan_trace = []
+    scan_s, compiles_at = [], []
+    real = topt.optimize_thetaB_scalar
+
+    def timed(minimizer, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real(minimizer, **kw)
+        torch.cuda.synchronize()
+        scan_s.append(time.perf_counter() - t0)
+
+    reset_counts(counters)
+    compiles0 = tstate.COMPILES["compile_state"]
+    topt.optimize_thetaB_scalar = timed
+    try:
+        t0 = time.perf_counter()
+        res = mn.minimize(proto["minimize"], callback=lambda _mesh, _i: compiles_at.append(
+            tstate.COMPILES["compile_state"]))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        topt.optimize_thetaB_scalar = real
+    launches = read_counts(counters)
+    trace = mn.mesh._thetaB_scan_trace
+    compiles_end = tstate.COMPILES["compile_state"]
+    thetaB_after = mn.global_params.get("tilt_thetaB_value")
+    if f64 is None:
+        ref_trace, bound = fixture["trace"], F64_RTOL
+        ref_selected = [r["selected_thetaB"] for r in ref_trace]
+        ref_energies = thetaB_energies(ref_trace, fixture["energy"])
+    else:
+        ref_trace = f64["trace"]
+        bound = max(F32_RTOL, 2 * fixture["float32_reference"]["max_rel_dev_vs_float64"])
+        ref_selected = fixture["float32_reference"]["selected_thetaB"]
+        ref_energies = f64["energies"]
+    if len(trace) != len(ref_trace):
+        raise AssertionError(f"{label}: {len(trace)} scans, the reference has {len(ref_trace)}")
+    energies = thetaB_energies(trace, res["energy"])
+    devs = [abs(a - b) / abs(b) for a, b in zip(energies, ref_energies, strict=True)]
+    selected_equal = [r["selected_thetaB"] == w for r, w in zip(trace, ref_selected)]
+    for k, (got, want) in enumerate(zip(trace, ref_trace)):
+        say(label + " scan", iteration=got["iteration"], base=repr(got["base_thetaB"]),
+            selected=repr(got["selected_thetaB"]), reference_selected=repr(ref_selected[k]),
+            thetas=json.dumps([c["thetaB"] for c in got["candidate_energies"]]),
+            energies=json.dumps([c["energy"] for c in got["candidate_energies"]]),
+            reference_energies=json.dumps([c["energy"] for c in want["candidate_energies"]]),
+            host_s=f"{scan_s[k]:.6f}")
+    after_entry = compiles_end - compiles_at[0]
+    out = {"launches": launches, "energies": energies, "trace": [dict(r) for r in trace],
+           "max_rel_dev": max(devs), "mn": mn}
+    out["snap"] = check_repeat(torch, label, mn, lambda: [float(mn.minimize(2)["energy"])])
+    say(label, vertices=len(mn.mesh.vertices), iterations=res["iterations"],
+        energy=repr(res["energy"]), reference_energy=repr(ref_energies[-1]),
+        max_rel_dev=repr(out["max_rel_dev"]), bound=repr(bound),
+        reference="the JAX fixture" if f64 is None else "the float64 phase",
+        selected_equal=json.dumps(selected_equal), thetaB_after=repr(thetaB_after),
+        compiles_in_call=compiles_end - compiles0, compiles_after_entry=after_entry,
+        seconds=f"{seconds:.3f}", scan_host_s=json.dumps([round(x, 6) for x in scan_s]),
+        launches=json.dumps(launches))
+    missing = [k for k in expect if not launches[k] > 0]
+    if missing:
+        raise AssertionError(f"{label}: the path did not launch {missing}: {launches}")
+    if not all(selected_equal):
+        raise AssertionError(f"{label}: selected theta_B differs from the reference: {selected_equal}")
+    if not out["max_rel_dev"] <= bound:
+        raise AssertionError(f"{label}: energies deviate from the reference by {out['max_rel_dev']!r}")
+    if after_entry != 0 or compiles_end - compiles0 > 1:
+        raise AssertionError(f"{label}: {compiles_end - compiles0} compiles in the call, "
+                             f"{after_entry} after the entry enforcement")
     return out
 
 
@@ -1377,6 +1545,8 @@ def main() -> int:
     vesicle = load_fixture(VESICLE_FIXTURE)
     cube_cli = json.loads(CUBE_CLI_FIXTURE.read_text())
     square = json.loads(SQUARE_FIXTURE.read_text())
+    rect = json.loads(RECT_FIXTURE.read_text())
+    thetaB = json.loads(THETAB_FIXTURE.read_text())
     device = phase_device(torch)
     phase_build((ft, tk, vs))
     kern = phase_kernels(torch, (ft, tk, vs),
@@ -1415,6 +1585,23 @@ def main() -> int:
                             square_path, f32=runs["s32"])
     check_area_calls(torch, tk, "12 square_to_circle_L1 area calls", runs["s64"]["mn"].problem(),
                      kern["errs"])
+    rect_path = ("tri_kernels.surface_energy", "tri_kernels.surface_energy_grad",
+                 "tri_kernels.curvature_data", "vertex_sum.vertex_sum")
+    runs["r32"] = phase_cli(torch, counters, "13 rect_tilt_source_L0 f32", rect, torch.float32,
+                            rect_path, split=True)
+    runs["r64"] = phase_cli(torch, counters, "14 rect_tilt_source_L0 f64", rect, torch.float64,
+                            rect_path, f32=runs["r32"], split=True)
+    for key in ("r32", "r64"):
+        if runs[key]["launches"]["tri_kernels.curvature_data_bwd"]:
+            raise AssertionError(f"the rect lane ran the curvature backward: {runs[key]['launches']}")
+    check_tri_sets(torch, tk, "14 rect_tilt_source_L0 tri kernels",
+                   sheet_triangles(runs["r64"]["mn"].problem()), kern["errs"])
+    runs["t64"] = phase_thetaB(torch, counters, "15 kozlov_L3_thetaB f64", thetaB,
+                               runs["k64"]["mn"], runs["k64"]["snap"], kozlov_path)
+    runs["t32"] = phase_thetaB(torch, counters, "15 kozlov_L3_thetaB f32", thetaB,
+                               runs["k32"]["mn"], runs["k32"]["snap"],
+                               kozlov_path + ("frozen_tilt.energy", "frozen_tilt.energy_grad"),
+                               f64=runs["t64"])
     # phases 8-10 have imported the CLI and the command layer by now
     if not {"membrane_solver_tpu_torch.cli", "membrane_solver_tpu_torch.commands"} <= set(sys.modules):
         raise AssertionError("the CLI and the command layer were not imported")

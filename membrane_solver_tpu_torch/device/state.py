@@ -22,6 +22,10 @@ from membrane_solver_tpu_torch.geometry.mesh import Mesh
 # int64 indices: torch's gather/scatter ops index with int64
 INDEX = torch.int64
 
+# compile_state calls in this process: a change of a dynamic-only global
+# parameter (the theta_B scan's) must not add one
+COMPILES = {"compile_state": 0}
+
 
 @dataclasses.dataclass
 class MeshState:
@@ -284,16 +288,16 @@ _STATIC_PARAM_KEYS: Tuple[str, ...] = (
 )
 
 # The values of the static options that the port implements: the kozlov
-# coupled-tilt lane's own, the bending models, plus the defaults that select
-# the same branches.
+# coupled-tilt lane's own, the single-field tilt lane's, the bending models,
+# plus the defaults that select the same branches.
 # Any other value raises NotImplementedError when the problem is compiled.
 _PORTED_STATIC_VALUES: Dict[str, Tuple[str, ...]] = {
     "bending_energy_model": ("helfrich", "willmore"),
     "bending_gradient_mode": ("analytic",),
-    "tilt_solver": ("cg",),
-    "tilt_solve_mode": ("coupled",),
+    "tilt_solver": ("cg", "gd"),
+    "tilt_solve_mode": ("coupled", "nested", "fixed"),
     "tilt_cg_preconditioner": ("jacobi",),
-    "tilt_transport_model": ("ambient_v1",),
+    "tilt_transport_model": ("ambient_v1", "connection_v1"),
     "tilt_thetaB_contact_penalty_mode": ("off",),
     "tilt_thetaB_contact_work_mode": ("scalar",),
     "tilt_cg_rejection_fallback": ("off",),
@@ -314,11 +318,17 @@ _PORTED_STATIC_VALUES: Dict[str, Tuple[str, ...]] = {
     "bending_tilt_base_term_reference_mode": ("current_geometry",),
     "bending_tilt_base_term_reference_mode_in": ("current_geometry",),
     "bending_tilt_base_term_reference_mode_out": ("current_geometry",),
+    # the energy-spike guard of the per-iteration leaflet relax
+    # (tilt_relax_energy_guard_factor > 0)
+    "tilt_guard": ("on",),
 }
 
-# Read by the JAX package only as documentation or by unported modules; the
-# lane's branches do not depend on them.
-_IGNORED_STATIC_KEYS = frozenset({"tilt_kkt_projection_during_relaxation"})
+# Read by the JAX package only as documentation or by unported modules, or
+# run by the port at every value (tilt_coupling reads an unknown mode as
+# off); the lane's branches do not depend on them otherwise.
+_IGNORED_STATIC_KEYS = frozenset(
+    {"tilt_kkt_projection_during_relaxation", "tilt_coupling_mode", "tilt_couping_mode"}
+)
 
 
 def collect_static_options(gp) -> Tuple[Tuple[str, str], ...]:
@@ -437,6 +447,7 @@ def compile_state(
     from membrane_solver_tpu_torch.energy import get_module
     from membrane_solver_tpu_torch.energy import leaflet_presence as _lp
 
+    COMPILES["compile_state"] += 1
     gp = mesh.global_parameters
     static_options = collect_static_options(gp)
     check_ported_options(static_options)

@@ -6,10 +6,11 @@ Counterpart of ``membrane_solver_tpu/energy/__init__.py``.  A module
 function of the same arguments, plus the optional hooks the JAX package
 defines (``make_inloop_energy``, ``make_tilt_frozen``, ``compile_topology``).
 Ported: the modules of the kozlov coupled-tilt lane, of the Helfrich
-vesicle lane (volume, bending, gaussian_curvature) and of the shape family
+vesicle lane (volume, bending, gaussian_curvature), of the shape family
 (line_tension, jordan_area, edge_length_penalty, body_area_penalty,
-expression, and the reference's empty ``dummy_module``); any other name
-raises NotImplementedError.
+expression, and the reference's empty ``dummy_module``) and the
+single-field tilt modules (tilt, tilt_smoothness) with the inter-leaflet
+tilt_coupling; any other name raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -34,6 +35,9 @@ PORTED = (
     "body_area_penalty",
     "expression",
     "dummy_module",
+    "tilt",
+    "tilt_smoothness",
+    "tilt_coupling",
 )
 
 _CACHE: Dict[str, ModuleType] = {}

@@ -7,9 +7,10 @@ eagerly, the loops are Python loops, and each loop decision reads a device
 scalar.  Gradients come from autograd through the energy assembly.
 
 Ported branches: the gradient-descent, conjugate-gradient and BFGS
-steppers, fixed and adaptive step sizes, the plain (unguarded) coupled
-tilt relax, the sequential line search, the volume constraint's
-enforcement and post-step drift check.
+steppers, fixed and adaptive step sizes, the leaflet tilt relax (nested or
+coupled) under its energy-spike guard, the single-field tilt relax, the
+sequential line search, the volume constraint's enforcement and post-step
+drift check.
 """
 
 from __future__ import annotations
@@ -119,6 +120,23 @@ def make_energy_vg(spec: ProblemSpec) -> Callable:
         return E.detach(), g
 
     return vg
+
+
+def make_energy_and_grad(spec: ProblemSpec) -> Callable:
+    """fn(state, topo, params) -> (E, projected shape gradient), as the block assembles them.
+
+    The KKT projection sees the full gradient; fixed rows are zeroed after.
+    """
+    energy_vg = make_energy_vg(spec)
+    gradient_projector = make_gradient_projector(spec)
+
+    def energy_and_grad(state, topo, params):
+        E, g = energy_vg(state.positions, state, topo, params)
+        if gradient_projector is not None:
+            g = gradient_projector(g, state, topo, params)
+        return E, torch.where(topo.fixed_mask[:, None], 0.0, g)
+
+    return energy_and_grad
 
 
 # ----------------------------------------------------------------------
@@ -562,25 +580,50 @@ class MinimizeOptions:
     volume_drift_check: bool = False
 
 
+def scalar_param(params, key, default: float) -> float:
+    """The host value of the 0-dim parameter ``key``, else ``default``."""
+    value = params.get(key)
+    return default if value is None else value.item()
+
+
 def make_guarded_relax(spec: ProblemSpec) -> Callable:
     """The per-iteration leaflet relax: relax(state, topo, params, n_inner) -> state.
 
-    The JAX package wraps it in an energy-spike guard when
-    ``tilt_relax_energy_guard_factor`` > 0; that guard is not ported (its
-    static option raises when the problem is compiled).
+    JAX ``_guarded_relax_body``: with ``tilt_relax_energy_guard_factor`` > 0
+    (the static ``tilt_guard`` option), each attempt relaxes from the
+    entry state and is kept when the total energy after it is at most
+    max(guard_min, |E before| * factor); on a spike the tilt step is halved
+    and the relax retried, ``tilt_relax_energy_guard_retries`` (default 4)
+    times, and when every attempt spikes the entry state is returned.  The
+    minimize block runs it every iteration, and the minimizer before the
+    theta_B scan on the scan's iterations.
     """
     from membrane_solver_tpu_torch.runtime import tilt_relax as _tr
 
     relax_fn = _tr.make_relax_leaflet_tilts(spec)
+    total = make_total_energy(spec)
+    guard_on = spec.option("tilt_guard", "off") == "on"
 
     def run(state, topo, params, n_inner):
-        step = params.get("tilt_step_size")
-        tol = params.get("tilt_tol")
-        new_state, _stats = relax_fn(
-            state, topo, params, n_inner,
-            0.0 if step is None else step.item(), 0.0 if tol is None else tol.item(),
-        )
-        return new_state
+        step = scalar_param(params, "tilt_step_size", 0.0)
+        tol = scalar_param(params, "tilt_tol", 0.0)
+        factor = params.get("tilt_relax_energy_guard_factor")
+        if not (guard_on and factor is not None and factor.item() > 0.0):
+            return relax_fn(state, topo, params, n_inner, step, tol)[0]
+        with torch.no_grad():
+            pre_E = total(state, topo, params)
+        guard_min = params.get("tilt_relax_energy_guard_min", pre_E.new_zeros(()))
+        threshold = torch.maximum(guard_min, torch.abs(pre_E) * factor)
+        attempts = 1 + int(scalar_param(params, "tilt_relax_energy_guard_retries", 4.0))
+        trial_step = _np_dtype(state.positions.dtype)(step)
+        for _attempt in range(attempts):
+            new_state, _stats = relax_fn(state, topo, params, n_inner, trial_step, tol)
+            with torch.no_grad():
+                post_E = total(new_state, topo, params)
+            if bool(post_E <= threshold):
+                return new_state
+            trial_step = trial_step * 0.5
+        return state
 
     return run
 
@@ -588,34 +631,35 @@ def make_guarded_relax(spec: ProblemSpec) -> Callable:
 def minimize_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
     """Return block(state, topo, params, ss, n_steps, ...) -> (state, ss, MinimizeStats).
 
-    Per iteration: coupled leaflet tilt relax, energy and projected shape
-    gradient, the stepper's descent direction from its state ``ss``, Armijo
-    line search with per-trial constraint enforcement, zero-step
-    bookkeeping.  The stepper keeps its history only after an accepted step
+    Per iteration: the guarded leaflet tilt relax or the single-field tilt
+    relax (``tilt_solve_mode`` nested or coupled; none when fixed), energy
+    and projected shape gradient, the stepper's descent direction from its
+    state ``ss``, Armijo line search with per-trial constraint enforcement,
+    zero-step bookkeeping.  The stepper keeps its history only after an accepted step
     that took no drift projection, and starts afresh otherwise.
     """
     from membrane_solver_tpu_torch.runtime import tilt_relax as _tr
 
     total = make_total_energy(spec)
-    energy_vg = make_energy_vg(spec)
-    gradient_projector = make_gradient_projector(spec)
+    energy_and_grad = make_energy_and_grad(spec)
     constraint_enforcer = make_constraint_enforcer(spec)
     enforcer = constraint_enforcer if options.enforce_in_line_search else None
     strong_enforcer = constraint_enforcer if options.volume_drift_check else None
     tilt_enforcer = _tr.make_tilt_enforcer(spec)
-    do_tilt_relax = _tr.spec_uses_leaflet_tilts(spec)
-    relax = make_guarded_relax(spec) if do_tilt_relax else None
+    relaxing = spec.option("tilt_solve_mode", "fixed").lower() in {"nested", "coupled"}
+    leaflets = _tr.spec_uses_leaflet_tilts(spec)
+    relax = make_guarded_relax(spec) if relaxing and leaflets else None
+    vertex_relax = (
+        _tr.make_relax_vertex_tilts(spec)
+        if relaxing and not leaflets and _tr.spec_uses_vertex_tilts(spec) else None
+    )
+    project_tilts_after_step = relax is not None or _tr.spec_uses_vertex_tilts(spec)
     fixed_mode = options.step_size_mode == "fixed"
 
-    def value_and_grad_projected(state, topo, params):
-        E, g = energy_vg(state.positions, state, topo, params)
-        # the KKT projection sees the full gradient; fixed rows are zeroed after
-        if gradient_projector is not None:
-            g = gradient_projector(g, state, topo, params)
-        return E, torch.where(topo.fixed_mask[:, None], 0.0, g)
-
     def block(state, topo, params, ss, n_steps, step_size, fixed_step, tol,
-              step_size_floor, max_zero_steps, zero_step_counter, tilt_inner_iters):
+              step_size_floor, max_zero_steps, zero_step_counter, tilt_inner_iters,
+              skip_first_relax=0):
+        """``skip_first_relax``: the minimizer ran this iteration's relax already (theta_B scan)."""
         np_dtype = _np_dtype(state.positions.dtype)
         movable = ~topo.fixed_mask
         kind = options.stepper
@@ -627,7 +671,7 @@ def minimize_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
             if enforcer is not None:
                 st = enforcer(st, topo, params, context="minimize")
                 st = tilt_enforcer(st, topo, params)
-            if do_tilt_relax:
+            if project_tilts_after_step:
                 st = project_all_tilts(st, topo)
             return st
 
@@ -656,9 +700,15 @@ def minimize_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
         step_success = True
         last_E = last_acc_E = last_gnorm = np_dtype(0.0)
         while i < n_steps:
-            if relax is not None:
+            if relax is not None and not (i == 0 and skip_first_relax):
                 state = relax(state, topo, params, tilt_inner_iters)
-            E_t, grad = value_and_grad_projected(state, topo, params)
+            elif vertex_relax is not None:
+                state, _nacc = vertex_relax(
+                    state, topo, params, tilt_inner_iters,
+                    scalar_param(params, "tilt_step_size", 0.0),
+                    scalar_param(params, "tilt_tol", 0.0),
+                )
+            E_t, grad = energy_and_grad(state, topo, params)
             E, gnorm = (np_dtype(x) for x in
                         torch.stack([E_t, torch.linalg.vector_norm(grad)]).tolist())
             i += 1

@@ -1,13 +1,15 @@
 """Host orchestration of the minimization loop.
 
 Counterpart of ``membrane_solver_tpu/runtime/minimizer.py``: mesh
-compilation, chunk scheduling, constraint enforcement after mesh
-operations, the stepper state across ``minimize`` calls, the mesh-quality
-auto-repair cadence, and result bookkeeping.  The device and dtype are
-explicit constructor arguments.  Not ported: latency-aware placement and
-the AOT cache (JAX-only), the theta_B scalar scan, and host-side
-scalar-parameter hooks; a run that would reach one of them raises
-NotImplementedError.
+compilation with the dynamic-only parameter refresh, chunk scheduling,
+constraint enforcement after mesh operations, the stepper state across
+``minimize`` calls, the theta_B scan (relax -> scan -> step), the
+mesh-quality auto-repair cadence, and result bookkeeping.  The device and
+dtype are explicit constructor arguments.  Not ported: latency-aware
+placement and the AOT cache (JAX-only), the host-side scalar-parameter
+hook of the legacy theta_B contact penalty (its mode raises when the
+problem is compiled), the Gauss-Bonnet monitor and the DEBUG tangency
+check of ``compute_energy_and_gradient``.
 """
 
 from __future__ import annotations
@@ -105,15 +107,31 @@ class Minimizer:
             p.n_vertices, self.stepper.name, dtype=self.dtype, device=self.device
         )
 
+    def reset_soa_caches(self) -> None:  # the reference's name
+        self.invalidate()
+
+    # Global parameters read only as dynamic parameters (build_params), never
+    # by a compile hook or the spec: a change of these refreshes
+    # ``problem.params`` and keeps the compiled problem and the stepper
+    # history.  The theta_B scan writes tilt_thetaB_value every scan.
+    _DYNAMIC_ONLY_GP_KEYS = frozenset({"tilt_thetaB_value"})
+
     def _fingerprint_params(self):
         gp = self.global_params.to_dict()
         return tuple(sorted((k, repr(v)) for k, v in gp.items()))
 
+    def _only_dynamic_keys_changed(self, fp) -> bool:
+        """True when the fingerprints differ in dynamic-only keys alone."""
+        old, new = dict(self._params_fingerprint), dict(fp)
+        changed = {k for k in old.keys() | new.keys() if old.get(k) != new.get(k)}
+        return bool(changed) and changed <= self._DYNAMIC_ONLY_GP_KEYS
+
     def problem(self) -> CompiledProblem:
         """The compiled problem, rebuilt when the mesh or the parameters changed.
 
-        Building the spec raises NotImplementedError for any module, static
-        option or rim-matching flag outside the ported lane.
+        A change of dynamic-only parameters alone refreshes the parameters
+        in place.  Building the spec raises NotImplementedError for any
+        module, static option or rim-matching flag outside the ported lane.
         """
         fp = self._fingerprint_params()
         # a host mesh swapped or mutated in place makes the device state
@@ -123,6 +141,14 @@ class Minimizer:
             self._problem = None
         self._mesh_token = mesh_token
         if self._problem is None or fp != self._params_fingerprint:
+            if (
+                self._problem is not None
+                and self._params_fingerprint is not None
+                and self._only_dynamic_keys_changed(fp)
+            ):
+                self._problem.params = build_params(self.mesh, self.device, self.dtype)
+                self._params_fingerprint = fp
+                return self._problem
             if self._problem is not None:
                 writeback(self._problem, self.mesh)  # keep device-evolved state
             self._problem = compile_state(
@@ -139,7 +165,8 @@ class Minimizer:
             writeback(self._problem, self.mesh)
 
     def _project_tilts_device(self, p: CompiledProblem):
-        if not _tr.spec_uses_leaflet_tilts(p.spec):
+        """Tangent-project every tilt field on the device; the identity without tilt modules."""
+        if not (_tr.spec_uses_leaflet_tilts(p.spec) or _tr.spec_uses_vertex_tilts(p.spec)):
             return p.state
         return jit_core.project_all_tilts(p.state, p.topo)
 
@@ -150,6 +177,19 @@ class Minimizer:
         p = self.problem()
         p.params = build_params(self.mesh, self.device, self.dtype)
         return float(jit_core.make_energy_value(p.spec)(p.state, p.topo, p.params))
+
+    def compute_energy_and_gradient_array(self):
+        """(energy, projected shape gradient (Nv, 3) as numpy), as the block assembles them."""
+        p = self.problem()
+        p.params = build_params(self.mesh, self.device, self.dtype)
+        E, g = jit_core.make_energy_and_grad(p.spec)(p.state, p.topo, p.params)
+        return float(E), g.detach().cpu().numpy()
+
+    def compute_energy_and_gradient(self):
+        """(energy, {vertex id: gradient row})."""
+        E, g = self.compute_energy_and_gradient_array()
+        p = self.problem()
+        return E, {int(vid): g[i] for i, vid in enumerate(p.vertex_ids)}
 
     def compute_energy_breakdown(self) -> Dict[str, float]:
         p = self.problem()
@@ -185,6 +225,35 @@ class Minimizer:
             "tilt_step_size": step,
         }
 
+    def relax_leaflet_tilts(
+        self,
+        max_iters: int | None = None,
+        step_size: float | None = None,
+        tol: float | None = None,
+    ) -> Dict[str, float]:
+        """Run one inner leaflet tilt relaxation and commit the state (positions frozen)."""
+        p = self.problem()
+        p.params = build_params(self.mesh, self.device, self.dtype)
+        if not _tr.spec_uses_leaflet_tilts(p.spec):
+            return {"active": 0.0}
+        gp = self.global_params
+        iters = int(
+            max_iters
+            if max_iters is not None
+            else gp.get("tilt_cg_max_iters", gp.get("tilt_inner_steps", 40)) or 40
+        )
+        step = float(step_size if step_size is not None else gp.get("tilt_step_size", 0.1) or 0.1)
+        tol_v = float(tol if tol is not None else gp.get("tilt_tol", 0.0) or 0.0)
+        p.state, stats = _tr.make_relax_leaflet_tilts(p.spec)(
+            p.state, p.topo, p.params, iters, step, tol_v
+        )
+        return {
+            "active": 1.0,
+            "accepted_steps": float(stats.accepted_steps),
+            "final_energy": stats.final_energy,
+            "final_gradient_norm": stats.final_gradient_norm,
+        }
+
     # ------------------------------------------------------------------
     # constraint enforcement
     # ------------------------------------------------------------------
@@ -216,14 +285,23 @@ class Minimizer:
         p.state = self._project_tilts_device(p)
         self._sync_host()
 
+    def _enforce_constraints(self) -> None:
+        if not self._has_enforceable_constraints():
+            return
+        p = self.problem()
+        enforce = jit_core.make_constraint_enforcer(p.spec)
+        if enforce is not None:
+            p.state = enforce(p.state, p.topo, p.params, context="minimize")
+
     # ------------------------------------------------------------------
     # the outer loop
     # ------------------------------------------------------------------
-    def _check_ported_run(self, n_steps: int) -> None:
+    def _check_ported_run(self) -> None:
         gp = self.global_params
-        for key in ("tilt_thetaB_optimize", "gauss_bonnet_monitor"):
-            if bool(gp.get(key, False)):
-                raise NotImplementedError(f"{key} is not ported to membrane_solver_tpu_torch")
+        if bool(gp.get("gauss_bonnet_monitor", False)):
+            raise NotImplementedError(
+                "gauss_bonnet_monitor is not ported to membrane_solver_tpu_torch"
+            )
         if "gaussian_curvature" in self.energy_module_names:
             for key in ("gaussian_curvature_check_defects", "gaussian_curvature_strict_topology"):
                 if bool(gp.get(key, False)):
@@ -255,14 +333,23 @@ class Minimizer:
     def minimize(
         self, n_steps: int = 1, callback: Optional[Callable[[Mesh, int], None]] = None
     ) -> dict:
-        if n_steps <= 0:
-            raise NotImplementedError(
-                "minimize(n_steps <= 0) is not ported to membrane_solver_tpu_torch"
-            )
-        self._check_ported_run(n_steps)
+        self._check_ported_run()
         self._validate_topology()
         p = self.problem()
         p.params = build_params(self.mesh, self.device, self.dtype)
+        if n_steps <= 0:
+            # evaluate, enforce, return
+            _E, grad = self.compute_energy_and_gradient()
+            self._enforce_constraints()
+            self._sync_host()
+            return {
+                "energy": float(self.compute_energy()),
+                "gradient": grad,
+                "mesh": self.mesh,
+                "step_success": True,
+                "iterations": 0,
+                "terminated_early": True,
+            }
         has_enforceable = self._has_enforceable_constraints()
         if has_enforceable:
             self.enforce_constraints_after_mesh_ops()
@@ -293,14 +380,6 @@ class Minimizer:
         repair_every = int(gp.get("mesh_quality_auto_repair_every", 0) or 0)
         repair_enabled = bool(gp.get("mesh_quality_auto_repair_enabled", False))
         fixed_step = float(gp.get("step_size", self.step_size) or self.step_size)
-        tilt_mode = str(gp.get("tilt_solve_mode", "fixed") or "fixed")
-        inner = int(gp.get("tilt_coupled_steps", gp.get("tilt_inner_steps", 0)) or 0)
-        if str(gp.get("tilt_solver", "cg") or "cg").lower() == "cg":
-            inner = int(gp.get("tilt_cg_max_iters", inner) or inner)
-        if _tr.spec_uses_leaflet_tilts(p.spec) and tilt_mode != "coupled":
-            raise NotImplementedError(
-                f"tilt_solve_mode={tilt_mode!r} is not ported to membrane_solver_tpu_torch"
-            )
 
         zero_step_counter = 0
         iterations_done = 0
@@ -318,11 +397,38 @@ class Minimizer:
             chunk = min(n_steps - iterations_done, until_repair)
             if not self.quiet:
                 chunk = 1  # per-step reporting
+            tilt_mode = str(gp.get("tilt_solve_mode", "fixed") or "fixed")
+            if tilt_mode == "nested":
+                inner = int(gp.get("tilt_inner_steps", 0) or 0)
+            else:
+                inner = int(gp.get("tilt_coupled_steps", gp.get("tilt_inner_steps", 0)) or 0)
+            if str(gp.get("tilt_solver", "cg") or "cg").lower() == "cg":
+                inner = int(gp.get("tilt_cg_max_iters", inner) or inner)
+            # the theta_B scan at its cadence: this iteration's guarded relax
+            # runs here, then the scan probes candidates from the relaxed
+            # tilts, and the block skips its first relax (relax -> scan -> step)
+            skip_first_relax = 0
+            if bool(gp.get("tilt_thetaB_optimize", False)):
+                from membrane_solver_tpu_torch.runtime import tilt_optimization as _topt
+
+                if (
+                    _topt.thetaB_scan_due(self, iterations_done)
+                    and _tr.spec_uses_leaflet_tilts(p.spec)
+                    and tilt_mode in {"nested", "coupled"}
+                ):
+                    p.params = build_params(self.mesh, self.device, self.dtype)
+                    p.state = jit_core.make_guarded_relax(p.spec)(p.state, p.topo, p.params, inner)
+                    skip_first_relax = 1
+                _topt.optimize_thetaB_scalar(self, tilt_mode=tilt_mode, iteration=iterations_done)
+                p = self.problem()
+                p.params = build_params(self.mesh, self.device, self.dtype)
+                every = max(int(gp.get("tilt_thetaB_optimize_every", 10) or 10), 1)
+                chunk = min(chunk, every - (iterations_done % every))
             step_size_used = self.step_size
             p.state, self._stepper_state, stats = block(
                 p.state, p.topo, p.params, self._stepper_state, chunk, self.step_size,
                 fixed_step, self.tol, self.step_size_floor, self.max_zero_steps,
-                zero_step_counter, inner,
+                zero_step_counter, inner, skip_first_relax,
             )
             iterations_done += stats.iterations
             self.step_size = stats.step_size

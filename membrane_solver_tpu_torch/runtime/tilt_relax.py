@@ -1,23 +1,30 @@
-"""Leaflet tilt relaxation (the coupled inner solve), positions frozen.
+"""Tilt relaxation (the inner solves), positions frozen.
 
-Counterpart of ``membrane_solver_tpu/runtime/tilt_relax.py``
-(``make_relax_leaflet_tilts`` with the Jacobi-preconditioned CG):
+Counterpart of ``membrane_solver_tpu/runtime/tilt_relax.py``.
+``make_relax_leaflet_tilts`` relaxes both leaflet fields:
 
 1. enforce the tilt constraints and tangent-project both leaflet fields;
-2. evaluate the frozen tilt energy and its gradient for both leaflets,
-   project the gradient against the compact tilt-constraint rows (KKT,
-   factored once per call), zero the fixed rows;
-3. CG: 12-halving backtracking accept-if-not-worse on tangent-projected
-   trials with fixed-row overrides, a constraint refresh after each
-   accepted step, beta = rz_new / rz_old;
+2. evaluate the tilt energy and its gradient for both leaflets, project
+   the gradient against the compact tilt-constraint rows (KKT, factored
+   once per call), zero the fixed rows;
+3. CG (Jacobi-preconditioned, beta = rz_new / rz_old) or GD, each with
+   12-halving backtracking accept-if-not-worse on tangent-projected trials
+   with fixed-row overrides and a constraint refresh after each accepted
+   step;
 4. stop on zero gradient, tol convergence, rejection or max iters.
 
-The JAX package runs this as ``lax.while_loop``s; here it is a Python loop,
-and each accept/stop decision reads a device scalar (a host sync).  At
-float32 the four triangle energies go through the fused frozen-tilt entry
-point (``kernels/frozen_tilt``) on every device: one call of the CUDA
-kernels for CUDA tensors, which gathers the corners, sums the energy and
-scatters the vertex gradients itself, and its plain twin on the CPU.
+``make_relax_vertex_tilts`` runs the same CG or GD on the single ``tilts``
+field, with no constraint rows and no refresh.
+
+The JAX package runs these as ``lax.while_loop``s; here they are Python
+loops, and each accept/stop decision reads a device scalar (a host sync).
+Its batched line search (a TPU device choice) is not ported: both forms
+take the same decisions, and the port runs the sequential one.  At float32
+the four triangle energies of the leaflet lane go through the fused
+frozen-tilt entry point (``kernels/frozen_tilt``) on every device: one call
+of the CUDA kernels for CUDA tensors, which gathers the corners, sums the
+energy and scatters the vertex gradients itself, and its plain twin on the
+CPU.
 """
 
 from __future__ import annotations
@@ -48,6 +55,10 @@ def spec_uses_leaflet_tilts(spec: ProblemSpec) -> bool:
     )
 
 
+def spec_uses_vertex_tilts(spec: ProblemSpec) -> bool:
+    return any(getattr(get_module(name), "USES_TILT", False) for name in spec.energy_modules)
+
+
 def make_tilt_energy(spec: ProblemSpec) -> Callable:
     """Tilt-dependent total energy with the modules' in-loop objectives.
 
@@ -61,8 +72,8 @@ def make_tilt_energy(spec: ProblemSpec) -> Callable:
         module = get_module(name)
         if not _uses_tilts(module):
             continue
-        maker = getattr(module, "make_inloop_energy", None) or module.make_energy
-        fns.append(maker(spec))
+        maker = getattr(module, "make_inloop_energy", None) or getattr(module, "make_energy", None)
+        fns.append(maker(spec) if maker is not None else module.energy)
 
     def tilt_energy(state: MeshState, topo: Topology, params: Dict):
         geo = dgeo.triangle_geometry(state.positions, topo.tri_rows, topo.tri_valid)
@@ -226,12 +237,14 @@ def jacobi_preconditioner(positions, topo, params):
 
 
 def collect_frozen_tilt_program(spec: ProblemSpec):
-    """Frozen-geometry inner-solve program: (e_pre, e_fns, c_pre, c_fns, e_names).
+    """Frozen-geometry inner-solve program: (e_pre, e_fns, c_pre, c_fns, e_names), or None.
 
     Positions are constant for the whole inner solve, so every
     position-only field is computed once per relax call and each iteration
-    evaluates only the tilt-dependent part.  Every ported tilt module has
-    the frozen hooks.
+    evaluates only the tilt-dependent part.  As in the JAX package, a tilt
+    energy without the ``make_tilt_frozen`` hook (``tilt``,
+    ``tilt_smoothness``, ``tilt_coupling``) makes it None, and the relax
+    evaluates the whole tilt energy per iteration instead.
     """
     from membrane_solver_tpu_torch.constraints import get_constraint
     from membrane_solver_tpu_torch.runtime.jit_core import active_energy_modules
@@ -241,7 +254,10 @@ def collect_frozen_tilt_program(spec: ProblemSpec):
         module = get_module(name)
         if not _uses_tilts(module):
             continue
-        pre, fn = module.make_tilt_frozen(spec)
+        hook = getattr(module, "make_tilt_frozen", None)
+        if hook is None:
+            return None
+        pre, fn = hook(spec)
         e_pre.append(pre)
         e_fns.append(fn)
         e_names.append(name)
@@ -327,6 +343,33 @@ class TiltRelaxStats:
     final_gradient_norm: float
 
 
+def _host(np_dtype, *scalars):
+    """One device-to-host read for several 0-dim tensors."""
+    return [np_dtype(x) for x in torch.stack(scalars).tolist()]
+
+
+def _backtrack(energy_of_trial, step_size, E0, np_dtype):
+    """12-halving backtracking, accept if not worse (sequential form).
+
+    ``energy_of_trial(step) -> (trial, energy tensor)``.  Returns
+    (accepted, trial or None, energy of the accepted trial or E0).
+    """
+    step = np_dtype(step_size)
+    for _bt in range(MAX_BACKTRACKS):
+        trial, E1_t = energy_of_trial(float(step))
+        E1 = float(E1_t)
+        if E1 <= E0:
+            return True, trial, E1
+        step = step * np_dtype(0.5)
+        if step < STEP_FLOOR:
+            break
+    return False, None, E0
+
+
+def _converged(gnorm, tol_h) -> bool:
+    return gnorm == 0.0 or (tol_h > 0.0 and gnorm < tol_h)
+
+
 def make_relax_leaflet_tilts(spec: ProblemSpec) -> Callable:
     """relax(state, topo, params, max_iters, step_size, tol) -> (state, TiltRelaxStats).
 
@@ -335,6 +378,10 @@ def make_relax_leaflet_tilts(spec: ProblemSpec) -> Callable:
     """
     compact_collector = make_compact_tilt_collector(spec)
     frozen_prog = collect_frozen_tilt_program(spec)
+    solver = spec.option("tilt_solver", "cg").lower()
+    if frozen_prog is None:
+        tilt_energy = make_tilt_energy(spec)
+        tilt_enforce = make_tilt_enforcer(spec)
 
     def relax(state: MeshState, topo: Topology, params: Dict, max_iters, step_size, tol):
         dtype = state.positions.dtype
@@ -348,10 +395,12 @@ def make_relax_leaflet_tilts(spec: ProblemSpec) -> Callable:
         def tangent(t):
             return t - torch.sum(t * normals, dim=1, keepdim=True) * normals
 
-        e_pre, e_fns, c_pre, c_fns, e_names = frozen_prog
-        e_frozen = [p(state, topo, params) for p in e_pre]
-        c_frozen = [p(state, topo, params) for p in c_pre]
-        fused = build_fused_tilt_energy(e_names, e_fns, e_frozen, topo, params, dtype)
+        fused = None
+        if frozen_prog is not None:
+            e_pre, e_fns, c_pre, c_fns, e_names = frozen_prog
+            e_frozen = [p(state, topo, params) for p in e_pre]
+            c_frozen = [p(state, topo, params) for p in c_pre]
+            fused = build_fused_tilt_energy(e_names, e_fns, e_frozen, topo, params, dtype)
 
         if fused is not None:
             fused_fn, rest = fused
@@ -362,7 +411,7 @@ def make_relax_leaflet_tilts(spec: ProblemSpec) -> Callable:
                     e = e + fn(t_in, t_out, f, topo, params)
                 return e
 
-        else:
+        elif frozen_prog is not None:
 
             def energy_pair(t_in, t_out):
                 # one shared corner gather per leaflet feeds every module
@@ -372,10 +421,27 @@ def make_relax_leaflet_tilts(spec: ProblemSpec) -> Callable:
                     e = e + fn(t_in, t_out, f, topo, params, ctx)
                 return e
 
-        def enforce_pair(t_in, t_out):
-            for fn, f in zip(c_fns, c_frozen):
-                t_in, t_out = fn(t_in, t_out, f, topo, params)
-            return t_in, t_out
+        else:
+
+            def energy_pair(t_in, t_out):
+                return tilt_energy(
+                    dataclasses.replace(state, tilts_in=t_in, tilts_out=t_out), topo, params
+                )
+
+        if frozen_prog is not None:
+
+            def enforce_pair(t_in, t_out):
+                for fn, f in zip(c_fns, c_frozen):
+                    t_in, t_out = fn(t_in, t_out, f, topo, params)
+                return t_in, t_out
+
+        else:
+
+            def enforce_pair(t_in, t_out):
+                st = tilt_enforce(
+                    dataclasses.replace(state, tilts_in=t_in, tilts_out=t_out), topo, params
+                )
+                return st.tilts_in, st.tilts_out
 
         # 1. enforce tilt constraints + tangent-project
         tin, tout = enforce_pair(state.tilts_in, state.tilts_out)
@@ -402,76 +468,83 @@ def make_relax_leaflet_tilts(spec: ProblemSpec) -> Callable:
             gnorm = torch.sqrt(torch.sum(gin * gin) + torch.sum(gout * gout))
             return E.detach(), gin, gout, gnorm
 
-        m_in, m_out = jacobi_preconditioner(positions, topo, params)
-        m_in, m_out = m_in[:, None], m_out[:, None]
-
-        def build_trial(delta_in, delta_out):
-            trial_in = torch.where(fixed_in, fixed_vals_in, tangent(tin + delta_in))
-            trial_out = torch.where(fixed_out, fixed_vals_out, tangent(tout + delta_out))
-            return trial_in, trial_out
-
         def backtrack(dir_in, dir_out, E0):
-            """12-halving backtracking, accept if not worse (sequential form)."""
-            step = np_dtype(step_size)
-            for bt in range(MAX_BACKTRACKS):
-                s = float(step)
-                trial_in, trial_out = build_trial(s * dir_in, s * dir_out)
-                E1 = float(energy_pair(trial_in, trial_out))
-                if E1 <= E0:
-                    return True, trial_in, trial_out, E1
-                step = step * np_dtype(0.5)
-                if step < STEP_FLOOR:
-                    break
-            return False, tin, tout, E0
+            """The trial from (tin, tout) along the direction, or (tin, tout) on rejection."""
+
+            def trial_at(step):
+                trial_in = torch.where(fixed_in, fixed_vals_in, tangent(tin + step * dir_in))
+                trial_out = torch.where(fixed_out, fixed_vals_out, tangent(tout + step * dir_out))
+                return (trial_in, trial_out), energy_pair(trial_in, trial_out)
+
+            accepted, trial, E1 = _backtrack(trial_at, step_size, E0, np_dtype)
+            return (accepted, *(trial if accepted else (tin, tout)), E1)
+
+        def refresh(new_in, new_out, nacc):
+            """The per-accepted-step constraint refresh + tangent projection, at its interval."""
+            if nacc % proj_interval == 0:
+                new_in, new_out = enforce_pair(new_in, new_out)
+                new_in, new_out = tangent(new_in), tangent(new_out)
+            return new_in, new_out
 
         interval = params.get("tilt_projection_interval")
         proj_interval = max(int(interval.item()) if interval is not None else 1, 1)
         tol_h = np_dtype(tol)
-        monotone = dtype != torch.float64
-
-        def host(*scalars):
-            """One device-to-host read for several 0-dim tensors."""
-            return [np_dtype(x) for x in torch.stack(scalars).tolist()]
-
-        E0_t, gin, gout, gnorm_t = eval_grads(tin, tout)
-        r_in, r_out = -gin, -gout
-        z_in, z_out = r_in * m_in, r_out * m_out
-        d_in, d_out = z_in, z_out
-        rz_old = torch.sum(r_in * z_in) + torch.sum(r_out * z_out)
-        E0, gnorm, rz_old_h = host(E0_t, gnorm_t, rz_old)
-        E_first = E0
-        best_in, best_out, best_E = tin, tout, E0
         nacc = 0
         rejected = False
-        for _i in range(int(max_iters)):
-            if gnorm == 0.0 or (tol_h > 0.0 and gnorm < tol_h):
-                break  # converged
-            accepted, new_in, new_out, _E1 = backtrack(d_in, d_out, E0)
-            if not accepted:
-                rejected = True
-                break
-            nacc += 1
-            # per-accepted-step constraint refresh + tangent projection
-            if nacc % proj_interval == 0:
-                new_in, new_out = enforce_pair(new_in, new_out)
-                new_in, new_out = tangent(new_in), tangent(new_out)
-            E2_t, gin, gout, gnorm2_t = eval_grads(new_in, new_out)
+
+        if solver == "gd":
+            # the JAX package reports no initial energy for GD
+            E_first = E_last = gnorm = np_dtype(0.0)
+            for _i in range(int(max_iters)):
+                E0_t, gin, gout, gnorm_t = eval_grads(tin, tout)
+                E0, gnorm = _host(np_dtype, E0_t, gnorm_t)
+                if _converged(gnorm, tol_h):
+                    E_last = E0
+                    break
+                accepted, new_in, new_out, E_last = backtrack(-gin, -gout, E0)
+                if not accepted:
+                    rejected = True
+                    break
+                nacc += 1
+                tin, tout = refresh(new_in, new_out, nacc)
+        else:
+            m_in, m_out = jacobi_preconditioner(positions, topo, params)
+            m_in, m_out = m_in[:, None], m_out[:, None]
+            monotone = dtype != torch.float64
+            E0_t, gin, gout, gnorm_t = eval_grads(tin, tout)
             r_in, r_out = -gin, -gout
             z_in, z_out = r_in * m_in, r_out * m_out
-            rz_new = torch.sum(r_in * z_in) + torch.sum(r_out * z_out)
-            E2, gnorm2, rz_new_h = host(E2_t, gnorm2_t, rz_new)
-            tin, tout, E0, gnorm = new_in, new_out, E2, gnorm2
-            if E2 < best_E:
-                best_in, best_out, best_E = new_in, new_out, E2
-            if rz_old_h == 0.0:
-                break
-            beta = rz_new / rz_old
-            d_in, d_out = z_in + beta * d_in, z_out + beta * d_out
-            rz_old, rz_old_h = rz_new, rz_new_h
-        E_last = E0
-        if monotone and best_E < E_last:
-            # f32: revert to the best accepted state when the CG walked uphill
-            tin, tout, E_last = best_in, best_out, best_E
+            d_in, d_out = z_in, z_out
+            rz_old = torch.sum(r_in * z_in) + torch.sum(r_out * z_out)
+            E0, gnorm, rz_old_h = _host(np_dtype, E0_t, gnorm_t, rz_old)
+            E_first = E0
+            best_in, best_out, best_E = tin, tout, E0
+            for _i in range(int(max_iters)):
+                if _converged(gnorm, tol_h):
+                    break
+                accepted, new_in, new_out, _E1 = backtrack(d_in, d_out, E0)
+                if not accepted:
+                    rejected = True
+                    break
+                nacc += 1
+                new_in, new_out = refresh(new_in, new_out, nacc)
+                E2_t, gin, gout, gnorm2_t = eval_grads(new_in, new_out)
+                r_in, r_out = -gin, -gout
+                z_in, z_out = r_in * m_in, r_out * m_out
+                rz_new = torch.sum(r_in * z_in) + torch.sum(r_out * z_out)
+                E2, gnorm2, rz_new_h = _host(np_dtype, E2_t, gnorm2_t, rz_new)
+                tin, tout, E0, gnorm = new_in, new_out, E2, gnorm2
+                if E2 < best_E:
+                    best_in, best_out, best_E = new_in, new_out, E2
+                if rz_old_h == 0.0:
+                    break
+                beta = rz_new / rz_old
+                d_in, d_out = z_in + beta * d_in, z_out + beta * d_out
+                rz_old, rz_old_h = rz_new, rz_new_h
+            E_last = E0
+            if monotone and best_E < E_last:
+                # f32: revert to the best accepted state when the CG walked uphill
+                tin, tout, E_last = best_in, best_out, best_E
 
         out_state = dataclasses.replace(state, tilts_in=tin, tilts_out=tout)
         stats = TiltRelaxStats(
@@ -482,5 +555,94 @@ def make_relax_leaflet_tilts(spec: ProblemSpec) -> Callable:
             final_gradient_norm=float(gnorm),
         )
         return out_state, stats
+
+    return relax
+
+
+def make_relax_vertex_tilts(spec: ProblemSpec) -> Callable:
+    """relax(state, topo, params, max_iters, step_size, tol) -> (state, accepted steps).
+
+    The single-field relax (JAX ``make_relax_vertex_tilts``): CG with the
+    Jacobi preconditioner (its inner-leaflet diagonal, as in the JAX
+    package) or GD on ``state.tilts`` with positions frozen: tangent
+    projection per trial, fixed-row clamping, 12-halving
+    accept-if-not-worse backtracking, convergence on the gradient norm.  No
+    single-field constraint module has tilt rows, so no KKT projection and
+    no constraint refresh run here.
+    """
+    tilt_energy = make_tilt_energy(spec)
+    solver = spec.option("tilt_solver", "cg").lower()
+
+    def relax(state: MeshState, topo: Topology, params: Dict, max_iters, step_size, tol):
+        dtype = state.positions.dtype
+        np_dtype = np.float64 if dtype == torch.float64 else np.float32
+        positions = state.positions
+        geo = dgeo.triangle_geometry(positions, topo.tri_rows, topo.tri_valid)
+        normals = dgeo.vertex_normals(geo, topo.tri_valid, topo.corner_csr())
+        fixed = topo.tilt_fixed_mask[:, None]
+
+        def tangent(t):
+            return t - torch.sum(t * normals, dim=1, keepdim=True) * normals
+
+        def energy_of(t):
+            return tilt_energy(dataclasses.replace(state, tilts=t), topo, params)
+
+        t = tangent(state.tilts)
+        fixed_vals = t
+
+        def eval_grads(tilts):
+            a = tilts.detach().requires_grad_(True)
+            with torch.enable_grad():
+                E = energy_of(a)
+                (g,) = torch.autograd.grad(E, (a,))
+            g = torch.where(fixed, 0.0, g)
+            return E.detach(), g, torch.linalg.vector_norm(g)
+
+        def backtrack(direction, E0):
+            def trial_at(step):
+                trial = torch.where(fixed, fixed_vals, tangent(t + step * direction))
+                return trial, energy_of(trial)
+
+            accepted, trial, _E1 = _backtrack(trial_at, step_size, E0, np_dtype)
+            return accepted, trial
+
+        tol_h = np_dtype(tol)
+        nacc = 0
+        if solver == "gd":
+            for _i in range(int(max_iters)):
+                E0_t, g, gnorm_t = eval_grads(t)
+                E0, gnorm = _host(np_dtype, E0_t, gnorm_t)
+                if _converged(gnorm, tol_h):
+                    break
+                accepted, new_t = backtrack(-g, E0)
+                if not accepted:
+                    break
+                t, nacc = new_t, nacc + 1
+        else:
+            m = jacobi_preconditioner(positions, topo, params)[0][:, None]
+            E0_t, g, gnorm_t = eval_grads(t)
+            r = -g
+            z = r * m
+            d = z
+            rz_old = torch.sum(r * z)
+            E0, gnorm, rz_old_h = _host(np_dtype, E0_t, gnorm_t, rz_old)
+            for _i in range(int(max_iters)):
+                if _converged(gnorm, tol_h):
+                    break
+                accepted, new_t = backtrack(d, E0)
+                if not accepted:
+                    break
+                nacc += 1
+                E2_t, g, gnorm2_t = eval_grads(new_t)
+                r = -g
+                z = r * m
+                rz_new = torch.sum(r * z)
+                E2, gnorm2, rz_new_h = _host(np_dtype, E2_t, gnorm2_t, rz_new)
+                t, E0, gnorm = new_t, E2, gnorm2
+                if rz_old_h == 0.0:
+                    break
+                d = z + (rz_new / rz_old) * d
+                rz_old, rz_old_h = rz_new, rz_new_h
+        return dataclasses.replace(state, tilts=t), nacc
 
     return relax

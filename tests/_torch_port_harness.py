@@ -180,3 +180,47 @@ def assert_close(got, want, rel: float, what: str = "", atol_scale=None):
     scale = max(scale, atol_scale or 1e-300)
     err = float(np.max(np.abs(got - want))) if want.size else 0.0
     assert err <= rel * scale, f"{what}: max abs err {err:.3e} > {rel:.1e} * {scale:.3e}"
+
+
+def recipe_context(port: bool, name: str, **build_kw):
+    """(context, execute_command_line, recipe) for the builder ``name`` in one package.
+
+    The command context is the one ``cli.main`` builds (gradient descent,
+    the mesh's step size, tol 1e-6); ``build_kw`` go to the builder.
+    """
+    if port:
+        import membrane_solver_tpu_torch as pkg
+        from membrane_solver_tpu_torch.commands import CommandContext, execute_command_line
+        from membrane_solver_tpu_torch.meshgen import build
+        from membrane_solver_tpu_torch.runtime.steppers import make_stepper
+
+        kw = {"device": "cpu", "dtype": torch.float64}
+    else:
+        import membrane_solver_tpu as pkg
+        from membrane_solver_tpu.commands import CommandContext, execute_command_line
+        from membrane_solver_tpu.meshgen import build
+        from membrane_solver_tpu.runtime.steppers import make_stepper
+
+        kw = {}
+    data = build(name, **build_kw)
+    mesh = pkg.parse_geometry(json.loads(json.dumps(data)))
+    gp = mesh.global_parameters
+    mn = pkg.Minimizer(mesh, stepper=make_stepper("gd"),
+                       step_size=float(gp.get("step_size", 1e-3)), tol=1e-6, quiet=True, **kw)
+    return (CommandContext(mesh=mesh, minimizer=mn, stepper=mn.stepper), execute_command_line,
+            list(data["instructions"]))
+
+
+def recipe_trace(port: bool, name: str, expand: bool = False, **build_kw) -> list:
+    """(command, energy, vertices, facets, step size) after each command of the recipe."""
+    from tools.lane_noise_spread import expanded
+
+    ctx, run, recipe = recipe_context(port, name, **build_kw)
+    rows = []
+    for cmd in expanded(recipe) if expand else recipe:
+        run(ctx, cmd)
+        ctx.sync_mesh()
+        mn = ctx.minimizer
+        rows.append((cmd, float(mn.compute_energy()), len(mn.mesh.vertices), len(mn.mesh.facets),
+                     float(mn.step_size)))
+    return rows

@@ -227,12 +227,11 @@ def test_visualization_commands_raise(line):
         execute_command_line(ctx, line)
 
 
-def test_line_tension_edges_reach_the_unported_module():
+def test_line_tension_flags_run_as_in_jax():
     """``--line-tension`` and ``--line-tension-edges`` run as in the JAX package.
 
-    The name is older than the port of ``line_tension``: the two flags reach
-    the ported module, and the tagged cube runs ``g5; r; g3`` as the JAX
-    package does (rel 1e-10)."""
+    The two flags reach the ported ``line_tension`` module, and the tagged
+    cube runs ``g5; r; g3`` as the JAX package does (rel 1e-10)."""
     from membrane_solver_tpu.commands import execute_command_line as jrun
 
     edges = sorted(port_context().mesh.edges)[:4]

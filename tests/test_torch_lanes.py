@@ -7,9 +7,11 @@ through ``execute_command_line``, as ``tests/test_torch_cli.py`` runs the
 cube's recipe.
 
 - ``dented_cube``, ``sphere``, ``two_disks_sphere``, ``torus``,
-  ``flat_disk``, ``square_sheet`` and ``square_to_circle``: every
-  command's energy within rel 1e-12 of the JAX package's, with equal vertex
-  and facet counts.
+  ``flat_disk``, ``square_sheet``, ``square_to_circle`` and
+  ``rect_tilt_source`` (the single-field tilt lane, nested solve with 60
+  inner CG steps; its float64 run keeps JAX's accept decisions through
+  ``g5``): every command's energy within rel 1e-12 of the JAX package's,
+  with equal vertex and facet counts.
 - ``catenoid`` and ``spherical_cap`` amplify round-off (ROADMAP C3), so
   their recipes run with every ``gN`` expanded into N ``g1`` commands and
   are compared step for step up to their first Armijo flip (the first
@@ -27,52 +29,12 @@ from __future__ import annotations
 import json
 
 import pytest
-import torch
 
 import _torch_port_harness  # noqa: F401  (its torch thread count for the xdist workers)
+from _torch_port_harness import recipe_trace
 
 RTOL = 1e-12
 SPREAD = json.loads((_torch_port_harness.FIXTURE.parent / "lane_noise_spread.json").read_text())
-
-
-def _context(port: bool, name: str):
-    """(context, execute_command_line, recipe) for the builder ``name`` in one package."""
-    if port:
-        import membrane_solver_tpu_torch as pkg
-        from membrane_solver_tpu_torch.commands import CommandContext, execute_command_line
-        from membrane_solver_tpu_torch.meshgen import build
-        from membrane_solver_tpu_torch.runtime.steppers import make_stepper
-
-        kw = {"device": "cpu", "dtype": torch.float64}
-    else:
-        import membrane_solver_tpu as pkg
-        from membrane_solver_tpu.commands import CommandContext, execute_command_line
-        from membrane_solver_tpu.meshgen import build
-        from membrane_solver_tpu.runtime.steppers import make_stepper
-
-        kw = {}
-    data = build(name)
-    mesh = pkg.parse_geometry(json.loads(json.dumps(data)))
-    gp = mesh.global_parameters
-    mn = pkg.Minimizer(mesh, stepper=make_stepper("gd"),
-                       step_size=float(gp.get("step_size", 1e-3)), tol=1e-6, quiet=True, **kw)
-    return (CommandContext(mesh=mesh, minimizer=mn, stepper=mn.stepper), execute_command_line,
-            list(data["instructions"]))
-
-
-def _trace(port: bool, name: str, expand: bool = False) -> list:
-    """(command, energy, vertices, facets, step size) after each command."""
-    from tools.lane_noise_spread import expanded
-
-    ctx, run, recipe = _context(port, name)
-    rows = []
-    for cmd in expanded(recipe) if expand else recipe:
-        run(ctx, cmd)
-        ctx.sync_mesh()
-        mn = ctx.minimizer
-        rows.append((cmd, float(mn.compute_energy()), len(mn.mesh.vertices), len(mn.mesh.facets),
-                     float(mn.step_size)))
-    return rows
 
 
 def _rel(a, b):
@@ -80,9 +42,10 @@ def _rel(a, b):
 
 
 @pytest.mark.parametrize("name", ["dented_cube", "sphere", "two_disks_sphere", "torus",
-                                  "flat_disk", "square_sheet", "square_to_circle"])
+                                  "flat_disk", "square_sheet", "square_to_circle",
+                                  "rect_tilt_source"])
 def test_recipe_matches_jax(name):
-    got, want = _trace(True, name), _trace(False, name)
+    got, want = recipe_trace(True, name), recipe_trace(False, name)
     assert [g[0] for g in got] == [w[0] for w in want] and got
     for g, w in zip(got, want, strict=True):
         assert g[2:4] == w[2:4], g[0]
@@ -91,7 +54,7 @@ def test_recipe_matches_jax(name):
 
 @pytest.mark.parametrize("name", ["catenoid", "spherical_cap"])
 def test_sensitive_recipe_matches_jax_up_to_its_first_flip(name):
-    got, want = _trace(True, name, expand=True), _trace(False, name, expand=True)
+    got, want = recipe_trace(True, name, expand=True), recipe_trace(False, name, expand=True)
     spread = SPREAD[name]
     assert [w[0] for w in want] == spread["commands"]
     flip = next((k for k, (g, w) in enumerate(zip(got, want)) if g[4] != w[4]), len(want))

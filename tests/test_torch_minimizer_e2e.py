@@ -120,12 +120,12 @@ def _small_mesh(**gp):
 @pytest.mark.parametrize(
     "gp,needle",
     [
-        ({"tilt_solver": "gd"}, "tilt_solver"),
+        ({"tilt_cg_rejection_fallback": "gd"}, "tilt_cg_rejection_fallback"),
         ({"tilt_mass_mode_in": "consistent"}, "tilt_mass_mode_in"),
         ({"bending_tilt_in_update_mode": "radial_cross_term_off_v1"},
          "bending_tilt_in_update_mode"),
         ({"rim_slope_match_mode": "ring_average_radial_v1"}, "rim_slope_match_mode"),
-        ({"tilt_relax_energy_guard_factor": 2.0}, "tilt_guard"),
+        ({"tilt_projection_cadence": "per_pass"}, "tilt_projection_cadence"),
         ({"pin_to_plane_mode": "slide"}, "pin_to_plane_mode"),
         ({"bending_tilt_assume_J0_presets": ["disk"]}, "bending_tilt_assume_J0_presets"),
     ],

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Record the JAX package's reference trajectories for the PyTorch port.
 
-Runs four protocols with ``membrane_solver_tpu`` on the CPU in float64 and
+Runs six protocols with ``membrane_solver_tpu`` on the CPU in float64 and
 writes one JSON file each to ``tests/fixtures/torch_port/``:
 
 ``kozlov_L3_f64_jax.json`` (the kozlov coupled-tilt lane):
@@ -60,6 +60,24 @@ command, the vertex and facet counts and the connectivity digest of
 ``chip_smoke.connectivity_digest`` (the facets' signed edge lists and the
 edges' endpoints), so the GPU run can tell whether its float32 mesh
 operations part from the JAX package's own float32 ones.
+
+``rect_tilt_source_L0_f64_jax.json`` (the single-field tilt lane): meshgen
+``rect_tilt_source`` at ``nx`` = 160, ``ny`` = 64 (10,465 vertices, 20,480
+triangles; the builder's length 5, width 2 and square cells), written to a
+JSON file and run through the same command context with the builder's
+recipe ``g5`` (nested tilt solve, 60 inner CG steps) as five ``g1``
+commands, with the same per-command rows and ``float32_reference``.
+
+``kozlov_L3_thetaB_f64_jax.json`` (the theta_B scan): the kozlov protocol
+above (three refinements, five ``minimize(1)``), then the scan parameters
+of ``tests/test_inloop_relax_semantics.py`` (``THETAB_GP``: coupled solve
+with 6 inner steps, a scan every iteration with delta 0.01 and 4 inner
+steps, theta_B from 0.05) and one ``minimize(3)``.  It holds the
+``_thetaB_scan_trace`` records (per scan: the base and selected theta_B,
+each candidate's energy and breakdown) and the final energy; its
+``float32_reference`` holds the same run at float32 (selected theta_B per
+scan, candidate and final energies, their largest relative deviation from
+float64).
 
 ``chip_smoke.py`` holds the port's float64 runs on the GPU against these
 files, so the GPU machine needs no JAX.
@@ -138,7 +156,8 @@ def _trajectory(mn) -> dict:
     }
 
 
-def run_kozlov() -> dict:
+def kozlov_minimizer():
+    """The kozlov protocol up to its first step, in the JAX package."""
     pkg, build, refinement = _jax()
     mesh = pkg.parse_geometry(build("kozlov_1disk"))
     mesh.global_parameters.update(BENCH_GP)
@@ -150,19 +169,74 @@ def run_kozlov() -> dict:
         mn.mesh = m
         mn.invalidate()
         mn.enforce_constraints_after_mesh_ops()
-    rec = {
-        "protocol": {
-            "mesh": "meshgen kozlov_1disk",
-            "global_parameters": BENCH_GP,
-            "step_size": KOZLOV_STEP_SIZE,
-            "refines": KOZLOV_REFINES,
-            "steps": STEPS,
-            "dtype": "float64",
-            "package": "membrane_solver_tpu",
-            "platform": "cpu",
-        },
+    return mn
+
+
+def kozlov_protocol() -> dict:
+    return {
+        "mesh": "meshgen kozlov_1disk",
+        "global_parameters": BENCH_GP,
+        "step_size": KOZLOV_STEP_SIZE,
+        "refines": KOZLOV_REFINES,
+        "steps": STEPS,
+        "dtype": "float64",
+        "package": "membrane_solver_tpu",
+        "platform": "cpu",
     }
-    rec.update(_trajectory(mn))
+
+
+def run_kozlov() -> dict:
+    rec = {"protocol": kozlov_protocol()}
+    rec.update(_trajectory(kozlov_minimizer()))
+    return rec
+
+
+# the theta_B scan's parameters (tests/test_inloop_relax_semantics.py,
+# test_scan_iteration_relaxes_before_scoring) and its minimize call
+THETAB_GP = {
+    "tilt_solve_mode": "coupled",
+    "tilt_step_size": 0.15,
+    "tilt_inner_steps": 6,
+    "tilt_tol": 1e-10,
+    "tilt_thetaB_optimize": True,
+    "tilt_thetaB_optimize_every": 1,
+    "tilt_thetaB_optimize_delta": 0.01,
+    "tilt_thetaB_optimize_inner_steps": 4,
+    "tilt_thetaB_value": 0.05,
+}
+THETAB_STEPS = 3
+
+
+def thetaB_run() -> dict:
+    """The theta_B protocol at the precision this process runs."""
+    mn = kozlov_minimizer()
+    for _ in range(STEPS):
+        mn.minimize(1)
+    mn.global_params.update(THETAB_GP)
+    res = mn.minimize(THETAB_STEPS)
+    return {
+        "n_vertices": len(mn.mesh.vertices),
+        "n_triangles": len(mn.mesh.facets),
+        "trace": mn.mesh._thetaB_scan_trace,
+        "energy": float(res["energy"]),
+        "thetaB_after": float(mn.global_params.get("tilt_thetaB_value")),
+    }
+
+
+def run_kozlov_thetaB() -> dict:
+    protocol = {"kozlov": kozlov_protocol(), "global_parameters": THETAB_GP,
+                "minimize": THETAB_STEPS, "dtype": "float64", "package": "membrane_solver_tpu",
+                "platform": "cpu"}
+    rec = {"protocol": protocol, **thetaB_run()}
+    f32 = float32_child("kozlov_L3_thetaB_f64_jax.json")
+    from chip_smoke import thetaB_energies
+
+    e32, e64 = (thetaB_energies(r["trace"], r["energy"]) for r in (f32, rec))
+    devs = [abs(a - b) / abs(b) for a, b in zip(e32, e64, strict=True)]
+    rec["float32_reference"] = {
+        "package": "membrane_solver_tpu", "platform": "cpu", "dtype": "float32",
+        "selected_thetaB": [r["selected_thetaB"] for r in f32["trace"]],
+        "energies": e32, "max_rel_dev_vs_float64": max(devs)}
     return rec
 
 
@@ -215,6 +289,8 @@ STEPPER_SEGMENT = ["bfgs", "g10", "hessian 2", "cg", "g20", "gd"]
 L5_EXTENSION = ["r", "u", "V2", "g20", "r", "u", "V2", "cg", "g20", "energy stats"]
 # square_to_circle's sheet size: 12,769 vertices after the recipe's ``r``
 SQUARE_N = 56
+# rect_tilt_source's sheet: 161 x 65 = 10,465 vertices, kozlov L3's size
+RECT_NX, RECT_NY = 160, 64
 
 
 def cube_cli_protocol() -> dict:
@@ -242,6 +318,24 @@ def square_to_circle_protocol(n: int = SQUARE_N) -> dict:
         "cli_args": ["-q", "--non-interactive", "-i", "square_to_circle.json"],
         "recipe": list(recipe),
         "commands": list(recipe),
+        "dtype": "float64",
+        "package": "membrane_solver_tpu",
+        "platform": "cpu",
+    }
+
+
+def rect_tilt_source_protocol(nx: int = RECT_NX, ny: int = RECT_NY) -> dict:
+    """The builder's recipe ``g5`` as five ``g1`` commands, so each step's energy is kept."""
+    _pkg, build, _refinement = _jax()
+    from tools.lane_noise_spread import expanded
+
+    recipe = build("rect_tilt_source", nx=nx, ny=ny)["instructions"]
+    return {
+        "mesh": "rect_tilt_source.json",
+        "meshgen": {"name": "rect_tilt_source", "args": {"nx": nx, "ny": ny}},
+        "cli_args": ["-q", "--non-interactive", "-i", "rect_tilt_source.json"],
+        "recipe": list(recipe),
+        "commands": expanded(recipe),
         "dtype": "float64",
         "package": "membrane_solver_tpu",
         "platform": "cpu",
@@ -304,19 +398,32 @@ def cli_trace(protocol: dict, digests: bool = False) -> list:
 CLI_PROTOCOLS = {
     "cube_cli_L5_f64_jax.json": cube_cli_protocol,
     "square_to_circle_L1_f64_jax.json": square_to_circle_protocol,
+    "rect_tilt_source_L0_f64_jax.json": rect_tilt_source_protocol,
 }
+
+# what the float32 child of a fixture runs
+FLOAT32_RUNS = {
+    **{name: (lambda name=name: cli_trace(CLI_PROTOCOLS[name](), digests=True))
+       for name in CLI_PROTOCOLS},
+    "kozlov_L3_thetaB_f64_jax.json": thetaB_run,
+}
+
+
+def float32_child(name: str):
+    """``FLOAT32_RUNS[name]()`` in a child process with x64 off."""
+    child = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--float32", name],
+        env={**os.environ, "MEMBRANE_SOLVER_X64": "0"}, capture_output=True, text=True,
+        check=True,
+    )
+    return json.loads(child.stdout.strip().splitlines()[-1])
 
 
 def run_cli_fixture(name: str) -> dict:
     """The float64 trace in this process, the float32 one in a child with x64 off."""
     protocol = CLI_PROTOCOLS[name]()
     trace = cli_trace(protocol)
-    child = subprocess.run(
-        [sys.executable, str(Path(__file__).resolve()), "--cli-float32", name],
-        env={**os.environ, "MEMBRANE_SOLVER_X64": "0"}, capture_output=True, text=True,
-        check=True,
-    )
-    rows = json.loads(child.stdout.strip().splitlines()[-1])
+    rows = float32_child(name)
     devs = [abs(r["energy"] - t["energy"]) / abs(t["energy"])
             for r, t in zip(rows, trace, strict=True)]
     f32 = {"package": "membrane_solver_tpu", "platform": "cpu", "dtype": "float32",
@@ -330,6 +437,7 @@ FIXTURES = {
     "kozlov_L3_f64_jax.json": run_kozlov,
     "helfrich_cube_L5_f64_jax.json": run_vesicle,
     **{name: (lambda name=name: run_cli_fixture(name)) for name in CLI_PROTOCOLS},
+    "kozlov_L3_thetaB_f64_jax.json": run_kozlov_thetaB,
 }
 
 
@@ -338,12 +446,11 @@ def main() -> None:
     ap.add_argument("--output-dir", type=Path, default=OUT_DIR)
     ap.add_argument("--only", nargs="+", choices=sorted(FIXTURES),
                     help="record these files only (default: all)")
-    ap.add_argument("--cli-float32", choices=sorted(CLI_PROTOCOLS),
-                    help=argparse.SUPPRESS)  # the child of run_cli_fixture
+    ap.add_argument("--float32", choices=sorted(FLOAT32_RUNS),
+                    help=argparse.SUPPRESS)  # the child of float32_child
     args = ap.parse_args()
-    if args.cli_float32:
-        rows = cli_trace(CLI_PROTOCOLS[args.cli_float32](), digests=True)
-        print(json.dumps(rows), flush=True)
+    if args.float32:
+        print(json.dumps(FLOAT32_RUNS[args.float32]()), flush=True)
         return
     args.output_dir.mkdir(parents=True, exist_ok=True)
     for name in args.only or FIXTURES:
