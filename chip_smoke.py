@@ -164,27 +164,42 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
     calls during the call (the minimize-entry enforcement's recompile, as
     in the JAX package, and none after it: a scan's theta_B write
     refreshes the parameters only); the scans' host seconds.
+16. kozlov L3 reduced, float64: the protocol of
+    ``tests/fixtures/torch_port/kozlov_L3_reduced_f64_jax.json`` (the kozlov
+    protocol of phases 4-5 with ``line_search_reduced_energy`` on, its
+    default 10 inner steps per trial, and ``rim_slope_match_mode``
+    ``shared_rim_staggered_v1``; five ``minimize(1)``): every Armijo trial
+    and the baseline re-relax both leaflet tilts before they are scored.
+    Energies within rel 1e-8 of the fixture and the fixture's accept flag
+    at every step; then ``minimize(5)`` timed after two warm-up steps
+    (ms per step, line-search trials per step, accepted steps).
+17. kozlov L3 reduced, float32: the same; energies within rel max(2e-3, 2
+    x the JAX package's own float32 deviation, the fixture's
+    ``float32_reference``) of phase 16's.  The frozen-tilt kernel's
+    launches per ``minimize`` step (both variants) must exceed phase 4's:
+    here it runs inside every trial's relax.  A ``[16-17 ...]`` line gives
+    the two phases' seconds.
 
-Every lane phase (4-9, 11-15) also checks determinism: from the state its
-protocol leaves (phases 4-7: the five steps; phases 8-9 and 11-14: the
-command list; phase 15: its ``minimize(3)``), it saves the state, runs
+Every lane phase (4-9, 11-17) also checks determinism: from the state its
+protocol leaves (phases 4-7 and 16-17: the five steps; phases 8-9 and
+11-14: the command list; phase 15: its ``minimize(3)``), it saves the state, runs
 ``minimize(2)`` (``g2`` through the command layer), takes a sha256 of the
 positions, the tilts and the energies, restores the state and runs again;
 a ``[... determinism]`` line prints both digests, and unequal digests fail
 the run.  The last line before the kernels line gives the whole run's
 seconds.
 
-Phases 4-9 and 11-15 each drive one path with every kernel launch counter
+Phases 4-9 and 11-17 each drive one path with every kernel launch counter
 set to 0 just before and read just after; a kernel of that path that was
 never launched fails the run (the frozen-tilt entry point, both variants,
-lies on the float32 kozlov paths only, phases 4 and 15; the surface energy, both variants,
-and the vertex sum on all eleven; the curvature data forward on phases
-4-9 and 13-15 (on the cube paths through ``energy stats``), its backward on
-phases 4-7 and 15; the divergence forward on the kozlov paths; its tilt
-backward on none, so phase 3 alone launches it).
+lies on the float32 kozlov paths only, phases 4, 15 and 17; the surface
+energy, both variants, and the vertex sum on all thirteen; the curvature
+data forward on phases 4-9 and 13-17 (on the cube paths through ``energy
+stats``), its backward on phases 4-7 and 15-17; the divergence forward on
+the kozlov paths; its tilt backward on none, so phase 3 alone launches it).
 
 The line before the last is a JSON object ``{"kernels": [...]}``: per entry
-point, its launches over phases 4-9 and 11-15, its largest error against its twin,
+point, its launches over phases 4-9 and 11-17, its largest error against its twin,
 and phase 3's device ms per call (``ms``), its twin's (``plain_ms``), the
 bound, and, for the vertex sum, ``index_add_``'s (``library_ms``).  The
 last line is ``{"ok": true, "device": {...}}``.
@@ -220,6 +235,7 @@ CUBE_CLI_FIXTURE = FIXTURES / "cube_cli_L5_f64_jax.json"
 SQUARE_FIXTURE = FIXTURES / "square_to_circle_L1_f64_jax.json"
 RECT_FIXTURE = FIXTURES / "rect_tilt_source_L0_f64_jax.json"
 THETAB_FIXTURE = FIXTURES / "kozlov_L3_thetaB_f64_jax.json"
+REDUCED_FIXTURE = FIXTURES / "kozlov_L3_reduced_f64_jax.json"
 CSRC = "membrane_solver_tpu_torch/csrc/"
 # entry point -> (source, the TPU kernel or JAX function it replaces, the
 # name of its timing rows, its launch counter)
@@ -269,6 +285,7 @@ OWN_KERNELS = ("frozen_tilt_kernel", "vertex_sum_kernel", "curvature_fwd_kernel"
 DEVICE = "cuda"
 WARMUP_STEPS = 2
 TIMED_STEPS = 10
+REDUCED_TIMED_STEPS = 5  # phases 16-17: each step relaxes once per line-search trial
 
 ENERGY_RTOL = 1e-6  # frozen-tilt kernel vs twin energy (f32 reduction order)
 GRAD_RTOL = 5e-6  # frozen-tilt kernel vs twin gradient, relative to max|g|
@@ -1478,6 +1495,71 @@ def phase_thetaB(torch, counters, label: str, fixture: dict, mn, snap: dict, exp
     return out
 
 
+def phase_reduced(torch, counters, label: str, fixture: dict, dtype, expect: tuple,
+                  f64=None) -> dict:
+    """The reduced-energy line search on kozlov L3, counts reset just before and read after.
+
+    The fixture's protocol (five ``minimize(1)``), the determinism check
+    (two ``minimize(2)`` from one saved state), then ``minimize(5)`` timed
+    after two warm-up steps.  At float64 (``f64`` None) the energies and
+    the accept flags are held against the fixture; at float32 the energies
+    against ``f64``, the float64 phase's result, within max(2e-3, 2 x the
+    JAX package's own float32 deviation).  The launches per step divide
+    the counts by every ``minimize`` step the phase ran.
+    """
+    proto = fixture["protocol"]
+    reset_counts(counters)
+    mn, energies, steps, setup_s = run_protocol(torch, dtype, proto)
+    accepted = [ok for ok, _step in steps]
+    snap = check_repeat(torch, label, mn, lambda: [float(mn.minimize(2)["energy"])])
+    mn.minimize(WARMUP_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = mn.minimize(REDUCED_TIMED_STEPS)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / max(int(res["iterations"]), 1)
+    launches = read_counts(counters)
+    n_steps = proto["steps"] + 2 * 2 + WARMUP_STEPS + REDUCED_TIMED_STEPS
+    per_step = {k: n / n_steps for k, n in launches.items()}
+    p = mn.problem()
+    if (p.n_vertices, p.n_tris) != (fixture["n_vertices"], fixture["n_triangles"]):
+        raise AssertionError(f"{label}: mesh size {(p.n_vertices, p.n_tris)} differs from the fixture")
+    out = {"energies": energies, "accepted": accepted, "ms": ms, "launches": launches,
+           "per_step": per_step, "mn": mn, "snap": snap,
+           "trials_per_step": res["line_search_trials"] / max(int(res["iterations"]), 1),
+           "accepted_timed": res["accepted_steps"]}
+    fields = {"vertices": p.n_vertices, "triangles": p.n_tris, "setup_s": f"{setup_s:.3f}",
+              "energies": json.dumps(energies), "accepted": json.dumps(accepted),
+              "ms_per_step": f"{ms:.3f}", "trials_per_step": repr(out["trials_per_step"]),
+              "accepted_steps_timed": f"{res['accepted_steps']}/{res['iterations']}",
+              "steps_counted": n_steps, "launches": json.dumps(launches)}
+    if f64 is None:
+        ref = fixture["energies"]
+        out["dev"] = max(abs(a - b) / abs(b) for a, b in zip(energies, ref, strict=True))
+        bound, reference = F64_RTOL, "the JAX fixture"
+        ref_accepted = fixture["accepted"]
+    else:
+        ref = f64["energies"]
+        out["dev"] = max(abs(a - b) / abs(b) for a, b in zip(energies, ref, strict=True))
+        bound = max(F32_RTOL, 2 * fixture["float32_reference"]["max_rel_dev_vs_float64"])
+        reference, ref_accepted = "the float64 phase", fixture["float32_reference"]["accepted"]
+    fields.update(reference=repr(reference), max_rel_dev=repr(out["dev"]), bound=repr(bound),
+                  reference_accepted=json.dumps(ref_accepted))
+    fields["syncs_per_step"], sites = count_syncs(torch, lambda: mn.minimize(1))
+    say(label, **fields)
+    say(label + " sync sites", sites=json.dumps(sites))
+    if not all(math.isfinite(e) for e in energies):
+        raise AssertionError(f"{label}: non-finite energies: {energies}")
+    missing = [k for k in expect if not launches[k] > 0]
+    if missing:
+        raise AssertionError(f"{label}: the path did not launch {missing}: {launches}")
+    if f64 is None and accepted != ref_accepted:
+        raise AssertionError(f"{label}: accept flags {accepted} differ from the fixture's {ref_accepted}")
+    if not out["dev"] <= bound:
+        raise AssertionError(f"{label}: energies deviate from {reference} by {out['dev']!r}")
+    return out
+
+
 def phase_console(torch, fixture: dict) -> None:
     """``python -m membrane_solver_tpu_torch`` on the card; the saved mesh re-evaluated at float64."""
     import tempfile
@@ -1547,6 +1629,7 @@ def main() -> int:
     square = json.loads(SQUARE_FIXTURE.read_text())
     rect = json.loads(RECT_FIXTURE.read_text())
     thetaB = json.loads(THETAB_FIXTURE.read_text())
+    reduced = load_fixture(REDUCED_FIXTURE)
     device = phase_device(torch)
     phase_build((ft, tk, vs))
     kern = phase_kernels(torch, (ft, tk, vs),
@@ -1602,6 +1685,23 @@ def main() -> int:
                                runs["k32"]["mn"], runs["k32"]["snap"],
                                kozlov_path + ("frozen_tilt.energy", "frozen_tilt.energy_grad"),
                                f64=runs["t64"])
+    # the frozen-tilt kernel inside every line-search trial's relax at float32
+    t_reduced = time.perf_counter()
+    runs["d64"] = phase_reduced(torch, counters, "16 kozlov_L3_reduced f64", reduced,
+                                torch.float64, kozlov_path)
+    runs["d32"] = phase_reduced(torch, counters, "17 kozlov_L3_reduced f32", reduced,
+                                torch.float32,
+                                kozlov_path + ("frozen_tilt.energy", "frozen_tilt.energy_grad"),
+                                f64=runs["d64"])
+    say("16-17 kozlov_L3_reduced", seconds=f"{time.perf_counter() - t_reduced:.3f}")
+    k_steps = kozlov["protocol"]["steps"] + 2 * 2 + WARMUP_STEPS + TIMED_STEPS
+    for key in ("frozen_tilt.energy", "frozen_tilt.energy_grad"):
+        plain, inside = runs["k32"]["launches"][key] / k_steps, runs["d32"]["per_step"][key]
+        say("17 kozlov_L3_reduced f32 frozen tilt", kernel=key, per_step=repr(inside),
+            phase_4_per_step=repr(plain))
+        if not inside > plain:
+            raise AssertionError(f"{key}: {inside} launches per step in the reduced line search, "
+                                 f"not above phase 4's {plain}")
     # phases 8-10 have imported the CLI and the command layer by now
     if not {"membrane_solver_tpu_torch.cli", "membrane_solver_tpu_torch.commands"} <= set(sys.modules):
         raise AssertionError("the CLI and the command layer were not imported")

@@ -4,8 +4,9 @@ Counterpart of ``membrane_solver_tpu/constraints/tilt_thetaB_boundary_in.py``:
 r_dir is the in-plane radial direction about (``tilt_thetaB_center``,
 ``tilt_thetaB_normal`` or the fitted plane normal), tangent-projected
 against the live vertex normals.  One KKT tilt row per free ring vertex on
-the inner-leaflet block; enforcement adds (thetaB - t_in.r_dir) r_dir on
-the free rows.
+the inner-leaflet block (compact, or dense beside a module whose rows have
+no compact form); enforcement adds (thetaB - t_in.r_dir) r_dir on the free
+rows.
 """
 
 from __future__ import annotations
@@ -86,6 +87,24 @@ def _directions(positions, topo):
     ok = good & (nrm > 1e-12)
     r_dir = torch.where(ok[:, None], r_dir / torch.clamp(nrm, min=1e-12)[:, None], 0.0)
     return rows, r_dir, ok & ~topo.tilt_fixed_in_mask[rows]
+
+
+def make_tilt_constraint_rows(spec):
+    """Dense (k, 2, Nv, 3) (in, out) rows: r_dir at each free ring row on the inner block.
+
+    The relax takes these when another module's rows have no compact form.
+    """
+
+    def fn(state, topo, params):
+        positions = state.positions
+        rows, r_dir, ok = _directions(positions, topo)
+        k = rows.shape[0]
+        idx = torch.arange(k, device=rows.device)
+        gin = positions.new_zeros((k, positions.shape[0], 3)).index_put(
+            (idx, rows), torch.where(ok[:, None], r_dir, 0.0), accumulate=True)
+        return torch.stack([gin, torch.zeros_like(gin)], dim=1)
+
+    return fn
 
 
 def make_compact_tilt_rows(spec):

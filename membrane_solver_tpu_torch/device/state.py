@@ -288,28 +288,32 @@ _STATIC_PARAM_KEYS: Tuple[str, ...] = (
 )
 
 # The values of the static options that the port implements: the kozlov
-# coupled-tilt lane's own, the single-field tilt lane's, the bending models,
-# plus the defaults that select the same branches.
-# Any other value raises NotImplementedError when the problem is compiled.
+# coupled-tilt lane's own and its solver options (the reduced-energy line
+# search, the unpreconditioned CG with its GD retry, the per-pass projection
+# cadence, the inner-coupled delta cap, the curved-theta ablation, the
+# reference-exact rim KKT skip, the ring-average and shared-rim staggered
+# rim matching, the axisymmetric tilt projection), the single-field tilt
+# lane's, the bending models, plus the defaults that select the same
+# branches.  Any other value raises NotImplementedError when the problem is
+# compiled; a value the JAX package rejects raises its ValueError instead
+# (``_VALID_STATIC_VALUES``).
 _PORTED_STATIC_VALUES: Dict[str, Tuple[str, ...]] = {
     "bending_energy_model": ("helfrich", "willmore"),
     "bending_gradient_mode": ("analytic",),
     "tilt_solver": ("cg", "gd"),
     "tilt_solve_mode": ("coupled", "nested", "fixed"),
-    "tilt_cg_preconditioner": ("jacobi",),
     "tilt_transport_model": ("ambient_v1", "connection_v1"),
     "tilt_thetaB_contact_penalty_mode": ("off",),
     "tilt_thetaB_contact_work_mode": ("scalar",),
-    "tilt_cg_rejection_fallback": ("off",),
     "shape_scaffold_rejected_step_fallback": ("off",),
-    "rim_slope_match_mode": ("pointwise_radial_v1",),
+    "rim_slope_match_mode": ("pointwise_radial_v1", "ring_average_radial_v1",
+                             "shared_rim_staggered_v1"),
     "tilt_mass_mode": ("lumped",),
     "tilt_mass_mode_in": ("lumped",),
     "tilt_mass_mode_out": ("lumped",),
-    "rim_slope_match_kkt_rows": ("span_reduced",),
-    "tilt_projection_cadence": ("per_step",),
-    "inner_coupled_update_mode": ("off",),
-    "curved_theta_objective_ablation_mode": ("off",),
+    "tilt_projection_cadence": ("per_step", "per_pass"),
+    "inner_coupled_update_mode": ("off", "rim_matched_radial_continuation_v1"),
+    "curved_theta_objective_ablation_mode": ("off", "inner_outer_rescaled"),
     "bending_tilt_in_update_mode": ("off",),
     "bending_tilt_interface_divergence_mode": ("p1_triangle",),
     "bending_tilt_interface_divergence_mode_out": ("p1_triangle",),
@@ -321,14 +325,38 @@ _PORTED_STATIC_VALUES: Dict[str, Tuple[str, ...]] = {
     # the energy-spike guard of the per-iteration leaflet relax
     # (tilt_relax_energy_guard_factor > 0)
     "tilt_guard": ("on",),
+    # tilt_axisymmetric_about_thetaB_center
+    "tilt_axisym": ("on",),
 }
 
-# Read by the JAX package only as documentation or by unported modules, or
-# run by the port at every value (tilt_coupling reads an unknown mode as
-# off); the lane's branches do not depend on them otherwise.
-_IGNORED_STATIC_KEYS = frozenset(
-    {"tilt_kkt_projection_during_relaxation", "tilt_coupling_mode", "tilt_couping_mode"}
-)
+# Values the JAX package accepts but the port does not run yet: a value of
+# these keys outside the ported and the not-yet-ported sets is not a value of
+# the JAX package at all, and raises the ValueError the JAX package raises
+# there (with its text), where the JAX package raises it: the rim mode when
+# the rim module compiles, the cadence when the leaflet relax is built, the
+# ablation when the energy is assembled (``ValueError`` texts in
+# ``_VALUE_ERRORS``).
+_VALID_STATIC_VALUES: Dict[str, Tuple[str, ...]] = {
+    "rim_slope_match_mode": ("physical_edge_staggered_v1",),
+    "tilt_projection_cadence": (),
+    "inner_coupled_update_mode": (),
+    "curved_theta_objective_ablation_mode": (),
+}
+
+# Read by the JAX package only as documentation, by unported modules, or
+# under a rule that gives every value a meaning (a switch that is on for a
+# few words and off otherwise: the reduced line search, the preconditioner,
+# the CG's GD retry, the rim KKT rows; a selector whose unknown values
+# select the default: the ablation's lane gates; tilt_coupling reads an
+# unknown mode as off); the port runs them at every value.  The reduced
+# line search's accept rule raises the JAX package's ValueError when the
+# minimize block is built with the reduced line search on.
+_IGNORED_STATIC_KEYS = frozenset({
+    "tilt_kkt_projection_during_relaxation", "tilt_coupling_mode", "tilt_couping_mode",
+    "line_search_reduced_energy", "line_search_reduced_accept_rule", "tilt_cg_preconditioner",
+    "tilt_cg_rejection_fallback", "rim_slope_match_kkt_rows", "benchmark_geometry_lane",
+    "benchmark_parameterization",
+})
 
 
 def collect_static_options(gp) -> Tuple[Tuple[str, str], ...]:
@@ -346,15 +374,75 @@ def collect_static_options(gp) -> Tuple[Tuple[str, str], ...]:
 
 
 def check_ported_options(static_options) -> None:
-    """Raise NotImplementedError for a static option the port does not run."""
+    """Raise NotImplementedError for a static option the port does not run.
+
+    Values outside the JAX package's own set pass here for the keys of
+    ``_VALID_STATIC_VALUES``: they raise its ValueError later, where it does.
+    """
     for key, val in static_options:
         if key in _IGNORED_STATIC_KEYS:
             continue
         allowed = _PORTED_STATIC_VALUES.get(key)
-        if allowed is None or val.strip().lower() not in allowed:
-            raise NotImplementedError(
-                f"static option {key}={val!r} is not ported to membrane_solver_tpu_torch"
-            )
+        v = val.strip().lower()
+        if allowed is not None and v in allowed:
+            continue
+        if key in _VALID_STATIC_VALUES and v not in _VALID_STATIC_VALUES[key]:
+            continue
+        raise NotImplementedError(
+            f"static option {key}={val!r} is not ported to membrane_solver_tpu_torch"
+        )
+
+
+def compile_core_extras(layout: "CompileLayout", tri_rows_np: np.ndarray) -> Dict[str, np.ndarray]:
+    """The extras the core solver reads (JAX ``compile_state``'s core hooks).
+
+    - ``core:tilt_axisym/{center,axis}``: the axisymmetric tilt projection's
+      center and unit axis (``tilt_thetaB_center``, ``tilt_thetaB_normal``),
+      with ``tilt_axisymmetric_about_thetaB_center`` on;
+    - ``core:inner_coupled/center_xy``: the inner-coupled delta cap's xy
+      center (``assume_J0_center_xy``), with ``inner_coupled_update_mode``
+      other than off (any value but the two the JAX package knows raises
+      its ValueError here);
+    - ``core:curved_disk/transition_mask``: with ``rim_slope_match_mode``
+      ``shared_rim_staggered_v1`` and the three rim groups set, every vertex
+      of a triangle that touches the outer matching ring (the shape
+      gradient's z is zeroed there, its x and y everywhere).
+    """
+    from membrane_solver_tpu_torch.energy.bending_tilt_leaflet import assume_J0_center_xy
+
+    gp = layout.mesh.global_parameters
+    out: Dict[str, np.ndarray] = {}
+    if bool(gp.get("tilt_axisymmetric_about_thetaB_center", False)):
+        out["core:tilt_axisym/center"] = np.asarray(
+            gp.get("tilt_thetaB_center") or [0.0, 0.0, 0.0], dtype=float).reshape(3)
+        axis = np.asarray(gp.get("tilt_thetaB_normal") or [0.0, 0.0, 1.0], dtype=float).reshape(3)
+        n = float(np.linalg.norm(axis))
+        out["core:tilt_axisym/axis"] = axis / n if n > 1e-15 else np.array([0.0, 0.0, 1.0])
+    icm = str(gp.get("inner_coupled_update_mode") or "off").strip().lower()
+    if icm not in {"off", "rim_matched_radial_continuation_v1"}:
+        raise ValueError(
+            "inner_coupled_update_mode must be 'off' or "
+            "'rim_matched_radial_continuation_v1'."
+        )
+    if icm != "off":
+        out["core:inner_coupled/center_xy"] = assume_J0_center_xy(gp)
+    mode = str(gp.get("rim_slope_match_mode") or "").strip().lower()
+    if mode == "shared_rim_staggered_v1" and all(
+        gp.get(k) is not None for k in ("rim_slope_match_group", "rim_slope_match_outer_group",
+                                        "rim_slope_match_disk_group")
+    ):
+        support_group = str(gp.get("rim_slope_match_outer_group") or "").strip()
+        support = np.zeros(layout.n_vertices, dtype=bool)
+        for row, vid in enumerate(layout.vertex_ids):
+            opts = layout.mesh.vertices[int(vid)].options or {}
+            if str(opts.get("rim_slope_match_group") or "") == support_group:
+                support[row] = True
+        transition = np.zeros(layout.n_vertices, dtype=bool)
+        if support.any() and layout.n_tris:
+            tri_arr = np.asarray(tri_rows_np, dtype=int)
+            transition[np.unique(tri_arr[support[tri_arr].any(axis=1)])] = True
+        out["core:curved_disk/transition_mask"] = transition
+    return out
 
 
 # Scalar global parameters forwarded as 0-dim tensors (same keys as JAX).
@@ -558,6 +646,8 @@ def compile_state(
     # core hook: leaflet-absence masks, consulted whenever the gp keys are set
     for key, arr in _lp.compile_topology(layout).items():
         extras[f"energy:leaflet_presence/{key}"] = t(arr)
+    for key, arr in compile_core_extras(layout, tri_rows_np).items():
+        extras[key] = t(arr)
     topo.extras = extras
 
     spec = ProblemSpec(
@@ -655,7 +745,8 @@ def problem_from_numpy(
             arr = arr[: max(int(np.sum(raw_extras[mask_key])), 1)]
         elif name.startswith("tri_present"):
             arr = arr[:nf]
-        elif arr.ndim and (name.startswith(("absent", "row_weights")) or key in vertex_tables):
+        elif arr.ndim and (name.startswith(("absent", "row_weights", "transition_mask"))
+                           or key in vertex_tables):
             arr = arr[:nv]
         extras[key] = t(arr)
     port_state = MeshState(**{k: t(np.asarray(state[k])[:nv]) for k in

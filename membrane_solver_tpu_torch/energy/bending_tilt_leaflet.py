@@ -202,3 +202,21 @@ def make_leaflet_bending_tilt_frozen(
         )
 
     return precompute, energy
+
+
+def assume_J0_center_xy(gp):
+    """xy center for radial clipping: ``tilt_thetaB_center``, else ``pin_to_circle_point``, else 0.
+
+    The JAX package's helper of the same name (its inner-coupled delta cap
+    and assume-J0 radius clip read it); a copy, so the port imports nothing
+    of the JAX package.
+    """
+    import numpy as np
+
+    raw = gp.get("tilt_thetaB_center")
+    if raw is None:
+        raw = gp.get("pin_to_circle_point")
+    if raw is None:
+        return np.zeros(2)
+    arr = np.asarray(raw, dtype=float).reshape(-1)
+    return arr[:2] if arr.size >= 2 else np.zeros(2)

@@ -9,8 +9,11 @@ scalar.  Gradients come from autograd through the energy assembly.
 Ported branches: the gradient-descent, conjugate-gradient and BFGS
 steppers, fixed and adaptive step sizes, the leaflet tilt relax (nested or
 coupled) under its energy-spike guard, the single-field tilt relax, the
-sequential line search, the volume constraint's enforcement and post-step
-drift check.
+sequential line search with its reduced-energy form (every trial, and the
+baseline, re-relax the leaflet tilts; ``armijo`` or ``decrease_only``
+acceptance), the volume constraint's enforcement and post-step drift
+check, the curved-theta ablation's module scales, the reference-exact rim
+KKT skip and the shared-rim lanes' height-only shape descent.
 """
 
 from __future__ import annotations
@@ -22,7 +25,13 @@ import numpy as np
 import torch
 
 from membrane_solver_tpu_torch.device import geo as dgeo
-from membrane_solver_tpu_torch.device.state import MeshState, ProblemSpec, Topology, kept_slot_csr
+from membrane_solver_tpu_torch.device.state import (
+    MeshState,
+    ProblemSpec,
+    Topology,
+    kept_slot_csr,
+    slot_csr,
+)
 from membrane_solver_tpu_torch.energy import get_module
 from membrane_solver_tpu_torch.kernels import vertex_sum
 
@@ -52,12 +61,68 @@ def active_energy_modules(spec: ProblemSpec) -> Tuple[str, ...]:
     )
 
 
+_INNER_SCALED = frozenset({"tilt_in", "bending_tilt_in", "tilt_splay_twist_in", "tilt_smoothness_in"})
+_OUTER_SCALED = frozenset({"tilt_out", "bending_tilt_out", "tilt_smoothness_out",
+                           "tilt_rim_source_out", "tilt_disk_target_out"})
+
+
+def module_scale_fn(spec: ProblemSpec, name: str):
+    """The curved-theta ablation's scale of module ``name``: scale(params, like) -> 0-dim, or None.
+
+    Active only with ``curved_theta_objective_ablation_mode``
+    ``inner_outer_rescaled`` on a ``benchmark_geometry_lane`` ``free_z``
+    lane with ``benchmark_parameterization`` ``kh_physical``: the inner,
+    outer and contact module families scale by the three
+    ``curved_theta_objective_ablation_*_scale`` parameters (default 1).  Any
+    other mode raises the JAX package's ValueError.
+    """
+    mode = spec.option("curved_theta_objective_ablation_mode", "off").lower()
+    if mode == "off":
+        return None
+    if mode != "inner_outer_rescaled":
+        raise ValueError(
+            "curved_theta_objective_ablation_mode must be 'off' or "
+            "'inner_outer_rescaled'."
+        )
+    if spec.option("benchmark_geometry_lane", "flat_pinned").lower() != "free_z":
+        return None
+    if spec.option("benchmark_parameterization", "legacy").lower() != "kh_physical":
+        return None
+    if name in _INNER_SCALED:
+        key = "curved_theta_objective_ablation_inner_scale"
+    elif name in _OUTER_SCALED:
+        key = "curved_theta_objective_ablation_outer_scale"
+    elif name == "tilt_thetaB_contact_in":
+        key = "curved_theta_objective_ablation_contact_scale"
+    else:
+        return None
+
+    def scale(params, like):
+        value = params.get(key)
+        return like.new_ones(()) if value is None else value
+
+    return scale
+
+
+def scaled(fn, sc):
+    """``fn`` with its term multiplied by the ablation scale ``sc`` (``fn`` itself when None)."""
+    if sc is None:
+        return fn
+
+    def term(geo, state, topo, params):
+        e = fn(geo, state, topo, params)
+        return sc(params, e) * e
+
+    return term
+
+
 def _energy_fns(spec: ProblemSpec):
     out = []
     for name in active_energy_modules(spec):
         module = get_module(name)
         maker = getattr(module, "make_energy", None)
-        out.append((name, maker(spec) if maker is not None else module.energy))
+        fn = maker(spec) if maker is not None else module.energy
+        out.append((name, scaled(fn, module_scale_fn(spec, name))))
     return out
 
 
@@ -125,15 +190,25 @@ def make_energy_vg(spec: ProblemSpec) -> Callable:
 def make_energy_and_grad(spec: ProblemSpec) -> Callable:
     """fn(state, topo, params) -> (E, projected shape gradient), as the block assembles them.
 
-    The KKT projection sees the full gradient; fixed rows are zeroed after.
+    The KKT projection sees the full gradient.  With ``rim_slope_match_mode``
+    ``shared_rim_staggered_v1`` (the curved free-disk lanes), the projected
+    gradient then keeps only its heights, and none on the outer ring's
+    transition rows (``core:curved_disk/transition_mask``), so a constraint
+    row with lateral parts cannot bring x/y descent back.  Fixed rows are
+    zeroed last.
     """
     energy_vg = make_energy_vg(spec)
     gradient_projector = make_gradient_projector(spec)
+    curved_disk = spec.option("rim_slope_match_mode", "").lower() == "shared_rim_staggered_v1"
 
     def energy_and_grad(state, topo, params):
         E, g = energy_vg(state.positions, state, topo, params)
         if gradient_projector is not None:
             g = gradient_projector(g, state, topo, params)
+        trans = topo.extras.get("core:curved_disk/transition_mask")
+        if curved_disk and trans is not None:
+            zero = torch.zeros_like(g[:, 0])
+            g = torch.stack([zero, zero, torch.where(trans, 0.0, g[:, 2])], dim=1)
         return E, torch.where(topo.fixed_mask[:, None], 0.0, g)
 
     return energy_and_grad
@@ -213,7 +288,9 @@ def apply_local_projection(vec: torch.Tensor, n_hat: torch.Tensor) -> torch.Tens
 
 
 def make_gradient_projector(spec: ProblemSpec) -> Callable | None:
-    """Three-channel exact KKT projection.
+    """Three-channel exact KKT projection, or None (no rows, or
+    ``rim_slope_match_kkt_rows`` ``reference_exact`` on a rim lane with a
+    disk group: no projection, as in the reference).
 
     1. Local per-vertex rows (pins): analytic projectors, O(Nv).
     2. Compact-support rows (rim matching): normal equations assembled from
@@ -223,11 +300,21 @@ def make_gradient_projector(spec: ProblemSpec) -> Callable | None:
     Channels 2 and 3 are solved jointly after premultiplying every row by
     the local projector.  A vertex may sit in several compact rows, so the
     compact correction is summed over a slot CSR in a fixed order
-    (``vertex_sum.row_sum``), not scattered with atomics.  The compact
+    (``vertex_sum.row_sum``), not scattered with atomics.  Where the compact
     builders' slot rows are fixed per topology (a slot that a state leaves
-    out carries a zero value), so the CSR is built once and kept with it.
+    out carries a zero value), the CSR is built once and kept with it; a
+    builder whose rows follow the positions (``fixed_rows`` False: the rim's
+    interpolated outer ring) has it built per call.
     """
     from membrane_solver_tpu_torch.constraints import get_constraint
+
+    if spec.option("rim_slope_match_kkt_rows", "span_reduced").lower() == "reference_exact":
+        rim_flags = spec.static_of("constraint:rim_slope_match_out", ("inactive",))
+        if rim_flags[0] == "active" and len(rim_flags) > 1 and bool(rim_flags[1]):
+            # the reference stacks the rim's in-rows as exact negations of
+            # its out-rows; its joint KKT matrix is then singular and the
+            # whole projection is skipped every step, which this mode keeps
+            return None
 
     local_builders, compact_builders, dense_builders = [], [], []
     for name in dict.fromkeys(spec.constraint_modules):
@@ -247,6 +334,7 @@ def make_gradient_projector(spec: ProblemSpec) -> Callable | None:
             dense_builders.append(fn)
     if not (local_builders or compact_builders or dense_builders):
         return None
+    rows_fixed = all(getattr(fn, "fixed_rows", True) for fn in compact_builders)
 
     def project(grad, state, topo, params):
         n_hat = None
@@ -284,7 +372,8 @@ def make_gradient_projector(spec: ProblemSpec) -> Callable | None:
             vals = vals - torch.einsum("ksm,ksmc->ksc", coeff, nh)
 
         kc = vals.shape[0]
-        csr = kept_slot_csr(topo, "kkt/compact_rows", rows_c, n_rows)
+        csr = (kept_slot_csr(topo, "kkt/compact_rows", rows_c, n_rows) if rows_fixed
+               else slot_csr(rows_c, n_rows))
         eq = (rows_c[:, None, :, None] == rows_c[None, :, None, :]).to(grad.dtype)
         dots = torch.einsum("iac,jbc->ijab", vals, vals)
         A_cc = torch.sum(dots * eq, dim=(2, 3))
@@ -369,6 +458,7 @@ class LineSearchResult:
     new_step: float  # in the state's dtype
     energy: float  # accepted energy (or energy0 on failure)
     state: MeshState  # accepted state (or the baseline on failure)
+    trials: int = 0  # trial states scored
 
 
 def armijo_line_search(
@@ -381,16 +471,19 @@ def armijo_line_search(
     movable: torch.Tensor,
     topo: Topology,
     state_of_trial: Callable,
+    accept_rule: str = "armijo",
 ) -> LineSearchResult:
     """Armijo backtracking, sequential form.
 
     Steps displacing a vertex by more than 0.3x the minimum edge length
     must not rotate any triangle normal by more than 0.5 rad nor collapse a
     triangle.  ``state_of_trial`` maps trial positions to the full trial
-    state (constraint enforcement, tilt re-enforcement, tangent
-    projection).  The scalar bookkeeping (step sizes, the Armijo threshold)
-    runs on the host in the state's dtype, with the JAX package's operation
-    order.
+    state (constraint enforcement, tilt re-enforcement, the reduced line
+    search's relax, tangent projection).  Under ``accept_rule``
+    ``decrease_only`` (the reduced line search's option) a trial is accepted
+    when its energy is at most ``energy0``: no descent test, no slope term.
+    The scalar bookkeeping (step sizes, the Armijo threshold) runs on the
+    host in the state's dtype, with the JAX package's operation order.
     """
     np_dtype = _np_dtype(state.positions.dtype)
     positions = state.positions
@@ -405,7 +498,10 @@ def armijo_line_search(
     energy0 = np_dtype(energy0)
     alpha0 = np_dtype(step_size)
     alpha_max = LS_ALPHA_MAX_FACTOR * alpha0
-    descent = slope < 0.0
+    if accept_rule == "decrease_only":
+        descent, slope = True, np_dtype(0.0)
+    else:
+        descent = slope < 0.0
 
     def trial_of(alpha):
         return torch.where(movable[:, None], positions + float(alpha) * direction, positions)
@@ -413,6 +509,7 @@ def armijo_line_search(
     alpha = alpha0
     success = False
     acc_E, acc_state = energy0, state
+    trials = 0
     for _k in range(LS_MAX_ITER if descent else 0):
         trial = trial_of(alpha)
         normals_ok = (alpha * max_dir_norm) < safe_limit or bool(
@@ -424,6 +521,7 @@ def armijo_line_search(
         if normals_ok:
             st = state_of_trial(trial)
             E_t = np_dtype(float(energy_of_state(st)))
+            trials += 1
             accept = E_t <= energy0 + LS_C * alpha * slope
         if accept:
             success, acc_E, acc_state = True, E_t, st
@@ -437,7 +535,8 @@ def armijo_line_search(
         new_step = max(alpha * np_dtype(LS_BETA), alpha0 * np_dtype(LS_BETA))
     else:
         new_step = alpha0
-    return LineSearchResult(success=success, new_step=new_step, energy=acc_E, state=acc_state)
+    return LineSearchResult(success=success, new_step=new_step, energy=acc_E, state=acc_state,
+                            trials=trials)
 
 
 # ----------------------------------------------------------------------
@@ -566,6 +665,8 @@ class MinimizeStats:
     converged: bool
     terminated_early: bool  # zero-step exit
     zero_step_counter: int
+    trials: int = 0  # line-search trial states scored
+    accepted_steps: int = 0  # line searches that accepted a step
 
 
 @dataclasses.dataclass(frozen=True)
@@ -655,6 +756,17 @@ def minimize_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
     )
     project_tilts_after_step = relax is not None or _tr.spec_uses_vertex_tilts(spec)
     fixed_mode = options.step_size_mode == "fixed"
+    # the reduced-energy line search: the baseline and every trial re-relax
+    # both leaflet tilts before they are scored (without it, coupled
+    # shape-plus-tilt directions score as energy increases)
+    reduced_ls = relax is not None and spec.option(
+        "line_search_reduced_energy", "").lower() in {"1", "true", "yes", "on"}
+    accept_rule = "armijo"
+    if reduced_ls:
+        accept_rule = spec.option("line_search_reduced_accept_rule", "armijo").lower()
+        if accept_rule not in ("armijo", "decrease_only"):
+            raise ValueError(f"Unknown reduced-energy accept rule: {accept_rule!r}")
+        relax_fn = _tr.make_relax_leaflet_tilts(spec)
 
     def block(state, topo, params, ss, n_steps, step_size, fixed_step, tol,
               step_size_floor, max_zero_steps, zero_step_counter, tilt_inner_iters,
@@ -663,14 +775,25 @@ def minimize_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
         np_dtype = _np_dtype(state.positions.dtype)
         movable = ~topo.fixed_mask
         kind = options.stepper
+        if reduced_ls:
+            # the reduced relax's budget, step and tolerance (one host read
+            # each, per call; the parameters hold for the whole call)
+            reduced_n = int(np.int32(scalar_param(
+                params, "line_search_reduced_tilt_inner_steps", 10.0)))
+            reduced_step = scalar_param(params, "tilt_step_size", 0.1)
+            reduced_tol = scalar_param(params, "tilt_tol", 0.0)
 
         def state_of_trial(p):
-            # geometric enforcement, tilt-constraint re-enforcement, then
-            # tangent re-projection of the tilt fields on the trial surface
-            st = dataclasses.replace(state, positions=p)
+            # geometric enforcement, tilt-constraint re-enforcement, the
+            # reduced line search's bounded relax, then tangent re-projection
+            # of the tilt fields on the trial surface; trials start from
+            # ls_base (the reduced baseline's relaxed tilts, else the state)
+            st = dataclasses.replace(ls_base, positions=p)
             if enforcer is not None:
                 st = enforcer(st, topo, params, context="minimize")
                 st = tilt_enforcer(st, topo, params)
+            if reduced_ls:
+                st, _stats = relax_fn(st, topo, params, reduced_n, reduced_step, reduced_tol)
             if project_tilts_after_step:
                 st = project_all_tilts(st, topo)
             return st
@@ -699,6 +822,7 @@ def minimize_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
         converged = terminated_early = False
         step_success = True
         last_E = last_acc_E = last_gnorm = np_dtype(0.0)
+        trials = accepted = 0
         while i < n_steps:
             if relax is not None and not (i == 0 and skip_first_relax):
                 state = relax(state, topo, params, tilt_inner_iters)
@@ -720,9 +844,19 @@ def minimize_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
             direction, ss_mid = stepper_direction(
                 kind, grad, ss, topo.fixed_mask, state.positions
             )
+            if reduced_ls:
+                # the baseline relaxes first: its tilts set the Armijo
+                # threshold, start every trial and stay on total failure
+                # (the direction is not recomputed on it)
+                ls_base, _stats = relax_fn(state, topo, params, reduced_n, reduced_step,
+                                           reduced_tol)
+                ls_base = project_all_tilts(ls_base, topo)
+                ls_E0 = np_dtype(energy_of_state(ls_base).item())
+            else:
+                ls_base, ls_E0 = state, E
             ls = armijo_line_search(
-                energy_of_state, state, grad, direction, step_in, E, movable, topo,
-                state_of_trial,
+                energy_of_state, ls_base, grad, direction, step_in, ls_E0, movable, topo,
+                state_of_trial, accept_rule,
             )
             base_positions = state.positions
             state = ls.state
@@ -741,6 +875,8 @@ def minimize_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
             zero_steps = 0 if ls.success else (zero_steps + 1 if at_floor else 0)
             terminated_early = (not ls.success) and at_floor and zero_steps >= max_zero_steps
             step_success, last_acc_E = ls.success, ls.energy
+            trials += ls.trials
+            accepted += int(ls.success)
             if terminated_early:
                 break
 
@@ -754,6 +890,8 @@ def minimize_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
             converged=converged,
             terminated_early=terminated_early,
             zero_step_counter=zero_steps,
+            trials=trials,
+            accepted_steps=accepted,
         )
         return state, ss, stats
 

@@ -386,6 +386,7 @@ class Minimizer:
         step_success = True
         last_grad = None
         terminated = False
+        trials = accepted = 0
         while iterations_done < n_steps and not terminated:
             if callback is not None:
                 self._sync_host()
@@ -431,6 +432,8 @@ class Minimizer:
                 zero_step_counter, inner, skip_first_relax,
             )
             iterations_done += stats.iterations
+            trials += stats.trials
+            accepted += stats.accepted_steps
             self.step_size = stats.step_size
             zero_step_counter = stats.zero_step_counter
             step_success = stats.step_success
@@ -481,4 +484,6 @@ class Minimizer:
             "step_success": step_success,
             "iterations": iterations_done,
             "terminated_early": terminated,
+            "line_search_trials": trials,
+            "accepted_steps": accepted,
         }

@@ -5,16 +5,18 @@ Counterpart of ``membrane_solver_tpu/runtime/tilt_relax.py``.
 
 1. enforce the tilt constraints and tangent-project both leaflet fields;
 2. evaluate the tilt energy and its gradient for both leaflets, project
-   the gradient against the compact tilt-constraint rows (KKT, factored
-   once per call), zero the fixed rows;
-3. CG (Jacobi-preconditioned, beta = rz_new / rz_old) or GD, each with
-   12-halving backtracking accept-if-not-worse on tangent-projected trials
-   with fixed-row overrides and a constraint refresh after each accepted
-   step;
+   the gradient against the tilt-constraint rows (KKT, factored once per
+   call; compact slot rows, or every module's dense rows when one has no
+   compact form), zero the fixed rows;
+3. CG (Jacobi-preconditioned by default, beta = rz_new / rz_old) or GD,
+   each with 12-halving backtracking accept-if-not-worse on
+   tangent-projected trials with fixed-row overrides and a constraint
+   refresh after each accepted step (or once after the loop);
 4. stop on zero gradient, tol convergence, rejection or max iters.
 
 ``make_relax_vertex_tilts`` runs the same CG or GD on the single ``tilts``
-field, with no constraint rows and no refresh.
+field, with no constraint rows and no refresh (its CG, too, runs without
+the preconditioner when ``tilt_cg_preconditioner`` is none).
 
 The JAX package runs these as ``lax.while_loop``s; here they are Python
 loops, and each accept/stop decision reads a device scalar (a host sync).
@@ -65,7 +67,11 @@ def make_tilt_energy(spec: ProblemSpec) -> Callable:
     The accept/reject tests of the inner solve involve only tilt-dependent
     modules; tilt_in/tilt_out score with their lumped in-loop form.
     """
-    from membrane_solver_tpu_torch.runtime.jit_core import active_energy_modules
+    from membrane_solver_tpu_torch.runtime.jit_core import (
+        active_energy_modules,
+        module_scale_fn,
+        scaled,
+    )
 
     fns = []
     for name in active_energy_modules(spec):
@@ -73,7 +79,8 @@ def make_tilt_energy(spec: ProblemSpec) -> Callable:
         if not _uses_tilts(module):
             continue
         maker = getattr(module, "make_inloop_energy", None) or getattr(module, "make_energy", None)
-        fns.append(maker(spec) if maker is not None else module.energy)
+        fn = maker(spec) if maker is not None else module.energy
+        fns.append(scaled(fn, module_scale_fn(spec, name)))
 
     def tilt_energy(state: MeshState, topo: Topology, params: Dict):
         geo = dgeo.triangle_geometry(state.positions, topo.tri_rows, topo.tri_valid)
@@ -104,21 +111,70 @@ def make_tilt_enforcer(spec: ProblemSpec) -> Callable:
     return enforce
 
 
+def make_tilt_constraint_rows(spec: ProblemSpec) -> Callable:
+    """rows(state, topo, params) -> stacked dense (k, 2, Nv, 3) (in, out) tilt rows, or None."""
+    from membrane_solver_tpu_torch.constraints import get_constraint
+
+    builders = []
+    for name in dict.fromkeys(spec.constraint_modules):
+        maker = getattr(get_constraint(name), "make_tilt_constraint_rows", None)
+        if maker is not None:
+            builders.append(maker(spec))
+
+    def rows(state, topo, params):
+        blocks = [b for b in (fn(state, topo, params) for fn in builders) if b is not None]
+        return torch.cat(blocks) if blocks else None
+
+    return rows
+
+
+def make_tilt_projector(rows):
+    """KKT projector over the (in, out) tilt DOFs from dense rows (k, 2, Nv, 3), or the identity.
+
+    The normal-equation matrix is LU-factored once per relax call; each
+    application is two matrix-vector products and a triangular solve pair.
+    """
+    if rows is None:
+        return lambda gin, gout: (gin, gout)
+    k = rows.shape[0]
+    G = rows.reshape(k, -1)
+    A = G @ G.T + 1e-18 * torch.eye(k, dtype=G.dtype, device=G.device)
+    lu, piv, _info = torch.linalg.lu_factor_ex(A)
+
+    def project(gin, gout):
+        g = torch.cat([gin.reshape(-1), gout.reshape(-1)])
+        lam = torch.linalg.lu_solve(lu, piv, (G @ g)[:, None])[:, 0]
+        g = g - lam @ G
+        n = gin.numel()
+        return g[:n].reshape(gin.shape), g[n:].reshape(gout.shape)
+
+    return project
+
+
 def make_compact_tilt_collector(spec: ProblemSpec):
     """Collect the modules' compact tilt rows into one slot table.
 
     Returns collect(state, topo, params) -> (values (k, s, 3), rows (k, s),
-    leaflet (k, s), backgrounds) or None when no module has tilt rows; a
-    module block of fewer slots is zero-padded.  Each background is a
-    rank-1 term (coefficients (k,), field (2, Nv, 3)).
+    leaflet (k, s), backgrounds), or None when no module has tilt rows or
+    one module's rows have no compact form (``make_compact_tilt_rows``
+    missing or giving None, as the ring-average rim mode's aggregate rows
+    do): the KKT system must see every row, so the relax then takes every
+    module's dense rows (:func:`make_tilt_projector`).  A module block of
+    fewer slots is zero-padded.  Each background is a rank-1 term
+    (coefficients (k,), field (2, Nv, 3)).
     """
     from membrane_solver_tpu_torch.constraints import get_constraint
 
     builders = []
     for name in dict.fromkeys(spec.constraint_modules):
-        maker = getattr(get_constraint(name), "make_compact_tilt_rows", None)
-        if maker is not None:
-            builders.append(maker(spec))
+        mod = get_constraint(name)
+        if getattr(mod, "make_tilt_constraint_rows", None) is None:
+            continue
+        maker = getattr(mod, "make_compact_tilt_rows", None)
+        fn = maker(spec) if maker is not None else None
+        if fn is None:
+            return None
+        builders.append(fn)
     if not builders:
         return None
 
@@ -247,7 +303,7 @@ def collect_frozen_tilt_program(spec: ProblemSpec):
     evaluates the whole tilt energy per iteration instead.
     """
     from membrane_solver_tpu_torch.constraints import get_constraint
-    from membrane_solver_tpu_torch.runtime.jit_core import active_energy_modules
+    from membrane_solver_tpu_torch.runtime.jit_core import active_energy_modules, module_scale_fn
 
     e_pre, e_fns, e_names = [], [], []
     for name in active_energy_modules(spec):
@@ -258,6 +314,10 @@ def collect_frozen_tilt_program(spec: ProblemSpec):
         if hook is None:
             return None
         pre, fn = hook(spec)
+        sc = module_scale_fn(spec, name)
+        if sc is not None:
+            def fn(tin, tout, fr, topo, params, ctx=None, _fn=fn, _sc=sc):
+                return _sc(params, tin) * _fn(tin, tout, fr, topo, params, ctx)
         e_pre.append(pre)
         e_fns.append(fn)
         e_names.append(name)
@@ -274,11 +334,13 @@ def collect_frozen_tilt_program(spec: ProblemSpec):
 FUSED_NAMES = ("tilt_in", "tilt_out", "bending_tilt_in", "bending_tilt_out")
 
 
-def build_fused_tilt_energy(e_names, e_fns, e_frozen, topo, params, dtype):
+def build_fused_tilt_energy(spec, e_names, e_fns, e_frozen, topo, params, dtype):
     """The fused frozen-tilt energy, or None if ineligible.
 
     Eligible at float32 when all four triangle tilt modules are active (the
-    port runs them with lumped mass and default bending-tilt modes only).
+    port runs them with lumped mass and default bending-tilt modes only) and
+    the curved-theta ablation scales none of them (the kernel's k_vec
+    carries no module scale).
     Returns ``(fused_fn(t_in, t_out) -> scalar, rest)`` on vertex tilts, with
     ``rest`` the remaining (fn, frozen) pairs evaluated per module (none of
     them reads the shared corner gather, which the fused path no longer
@@ -289,8 +351,11 @@ def build_fused_tilt_energy(e_names, e_fns, e_frozen, topo, params, dtype):
     columns of the payload stay zero: those modules are not ported.
     """
     from membrane_solver_tpu_torch.kernels import frozen_tilt as ft
+    from membrane_solver_tpu_torch.runtime.jit_core import module_scale_fn
 
     if dtype != torch.float32 or not set(FUSED_NAMES) <= set(e_names):
+        return None
+    if any(module_scale_fn(spec, name) is not None for name in e_names):
         return None
     fr = dict(zip(e_names, e_frozen))
     bin_fr, bout_fr = fr["bending_tilt_in"], fr["bending_tilt_out"]
@@ -370,15 +435,120 @@ def _converged(gnorm, tol_h) -> bool:
     return gnorm == 0.0 or (tol_h > 0.0 and gnorm < tol_h)
 
 
+def make_inner_coupled_delta_cap(positions, topo, params, fixed_in):
+    """The inner-coupled continuation cap on inner trial deltas: cap(delta_in) -> delta_in.
+
+    ``inner_coupled_update_mode`` ``rim_matched_radial_continuation_v1``: rows
+    in the near band (radius + lam, radius + 4 lam] about the xy center
+    (``core:inner_coupled/center_xy``) clip the radial part of their delta to
+    1.05x the median |radial delta| over the rim band |r - radius| <= lam;
+    inactive when ``benchmark_disk_radius`` or ``benchmark_lambda_value`` is
+    unset, a band is empty or the cap is not positive.  The bands depend on
+    the positions only (frozen for the relax call); whether the cap is
+    active stays on the device, so applying it reads nothing back.
+    """
+    cc = topo.extras["core:inner_coupled/center_xy"].to(positions.dtype)
+    radius_b = param(params, "benchmark_disk_radius", like=positions)
+    lam_b = param(params, "benchmark_lambda_value", like=positions)
+    sx = positions[:, 0] + (-cc[0])
+    sy = positions[:, 1] + (-cc[1])
+    radii = torch.linalg.vector_norm(torch.stack([sx, sy], dim=1), dim=1)
+    rgood = radii > 1e-12
+    safe = torch.clamp(radii, min=1e-12)
+    zero = torch.zeros_like(sx)
+    rh = torch.stack([torch.where(rgood, sx / safe, 0.0), torch.where(rgood, sy / safe, 0.0),
+                      zero], dim=1)
+    free_in = topo.vertex_valid & ~fixed_in
+    rim_m = (torch.abs(radii - radius_b) <= lam_b) & free_in
+    target_m = (radii > radius_b + lam_b) & (radii <= radius_b + 4.0 * lam_b) & free_in
+    active = (radius_b > 0.0) & (lam_b > 0.0) & torch.any(rim_m) & torch.any(target_m)
+    n = torch.sum(rim_m.to(torch.int64))
+    mid = torch.stack([torch.clamp((n - 1) // 2, min=0), torch.clamp(n // 2, min=0)])
+
+    def masked_median_abs(vals):
+        # the median over the rim band: sort with +inf padding, average the
+        # two middle elements of the n live entries
+        v = torch.sort(torch.where(rim_m, torch.abs(vals), torch.inf)).values
+        lo_hi = v[mid]
+        return torch.where(n > 0, 0.5 * (lo_hi[0] + lo_hi[1]), 0.0)
+
+    def apply_delta_cap(delta_in):
+        rad = torch.sum(delta_in * rh, dim=1)
+        cap = 1.05 * masked_median_abs(rad)
+        capped = torch.clamp(rad, -cap, cap)
+        adjust = torch.where(target_m, capped - rad, 0.0)
+        adjust = torch.where(torch.abs(adjust) > 1.0e-14, adjust, 0.0)
+        out = delta_in + adjust[:, None] * rh
+        return torch.where(active & (cap > 0.0), out, delta_in)
+
+    return apply_delta_cap
+
+
+def axisym_tangents(positions, normals, topo, fixed_in, fixed_out):
+    """(tangent_in, tangent_out): the tangent projection, then the axisymmetric radial one.
+
+    ``tilt_axisymmetric_about_thetaB_center``: each row keeps only the
+    part of its tangent tilt along its unit radial direction about the
+    theta_B axis (``core:tilt_axisym/{center,axis}``), tangent-projected;
+    fixed rows keep their tangent tilt, and rows without a radial direction
+    get zero.
+    """
+    dtype = positions.dtype
+    center = topo.extras["core:tilt_axisym/center"].to(dtype)
+    axis = topo.extras["core:tilt_axisym/axis"].to(dtype)
+    r_vec = positions - center
+    r_vec = r_vec - torch.sum(r_vec * axis, dim=1, keepdim=True) * axis
+    r_len = torch.linalg.vector_norm(r_vec, dim=1)
+    good0 = r_len > 1e-12
+    r_hat = torch.where(good0[:, None], r_vec / torch.clamp(r_len, min=1e-12)[:, None], 0.0)
+    r_dir = r_hat - torch.sum(r_hat * normals, dim=1, keepdim=True) * normals
+    r_norm = torch.linalg.vector_norm(r_dir, dim=1)
+    good = (good0 & (r_norm > 1e-12))[:, None]
+    r_unit = torch.where(good, r_dir / torch.clamp(r_norm, min=1e-12)[:, None], 0.0)
+
+    def axisym(t, fixed):
+        t_tan = t - torch.sum(t * normals, dim=1, keepdim=True) * normals
+        amp = torch.sum(t_tan * r_unit, dim=1)
+        proj = torch.where(good, amp[:, None] * r_unit, 0.0)
+        return torch.where(fixed, t_tan, proj)
+
+    return (lambda t: axisym(t, fixed_in)), (lambda t: axisym(t, fixed_out))
+
+
+def _uses_precond(spec: ProblemSpec, solver: str) -> bool:
+    """The Jacobi preconditioner runs for CG unless ``tilt_cg_preconditioner`` is none, off or false."""
+    return solver == "cg" and spec.option("tilt_cg_preconditioner", "jacobi").lower() not in {
+        "none", "off", "false"}
+
+
 def make_relax_leaflet_tilts(spec: ProblemSpec) -> Callable:
     """relax(state, topo, params, max_iters, step_size, tol) -> (state, TiltRelaxStats).
 
     ``max_iters`` is an int; ``step_size`` and ``tol`` are floats, taken in
-    the state's dtype as the JAX package takes its traced scalars.
+    the state's dtype as the JAX package takes its traced scalars.  The
+    options, as in the JAX package: ``tilt_cg_preconditioner`` none (CG
+    without the Jacobi preconditioner), ``tilt_cg_rejection_fallback`` gd
+    (a rejected CG direction is retried along steepest descent from the
+    full step), ``tilt_projection_cadence`` per_pass (one constraint refresh
+    after the loop in place of one after each accepted step; per_step
+    refreshes every ``tilt_projection_interval``-th accepted step),
+    ``tilt_axisym`` (:func:`axisym_tangents`) and ``inner_coupled_update_mode``
+    (:func:`make_inner_coupled_delta_cap` on the inner trial deltas).  Each
+    applies on the frozen program's path, the fused kernel's included, and
+    on the per-iteration one alike.
     """
     compact_collector = make_compact_tilt_collector(spec)
+    dense_rows_fn = make_tilt_constraint_rows(spec) if compact_collector is None else None
     frozen_prog = collect_frozen_tilt_program(spec)
     solver = spec.option("tilt_solver", "cg").lower()
+    use_precond = _uses_precond(spec, solver)
+    cadence = spec.option("tilt_projection_cadence", "per_step").lower()
+    if cadence not in {"per_step", "per_pass"}:
+        raise ValueError("tilt_projection_cadence must be 'per_step' or 'per_pass'.")
+    cg_fallback_gd = spec.option("tilt_cg_rejection_fallback", "off").lower() == "gd"
+    axisym = spec.option("tilt_axisym", "off") == "on"
+    delta_cap = (spec.option("inner_coupled_update_mode", "off").strip().lower()
+                 == "rim_matched_radial_continuation_v1")
     if frozen_prog is None:
         tilt_energy = make_tilt_energy(spec)
         tilt_enforce = make_tilt_enforcer(spec)
@@ -392,15 +562,21 @@ def make_relax_leaflet_tilts(spec: ProblemSpec) -> Callable:
         fixed_in = topo.tilt_fixed_in_mask[:, None]
         fixed_out = topo.tilt_fixed_out_mask[:, None]
 
-        def tangent(t):
-            return t - torch.sum(t * normals, dim=1, keepdim=True) * normals
+        if axisym:
+            tangent_in, tangent_out = axisym_tangents(positions, normals, topo, fixed_in,
+                                                      fixed_out)
+        else:
+            def tangent_in(t):
+                return t - torch.sum(t * normals, dim=1, keepdim=True) * normals
+
+            tangent_out = tangent_in
 
         fused = None
         if frozen_prog is not None:
             e_pre, e_fns, c_pre, c_fns, e_names = frozen_prog
             e_frozen = [p(state, topo, params) for p in e_pre]
             c_frozen = [p(state, topo, params) for p in c_pre]
-            fused = build_fused_tilt_energy(e_names, e_fns, e_frozen, topo, params, dtype)
+            fused = build_fused_tilt_energy(spec, e_names, e_fns, e_frozen, topo, params, dtype)
 
         if fused is not None:
             fused_fn, rest = fused
@@ -443,17 +619,22 @@ def make_relax_leaflet_tilts(spec: ProblemSpec) -> Callable:
                 )
                 return st.tilts_in, st.tilts_out
 
+        def refresh_pair(t_in, t_out):
+            t_in, t_out = enforce_pair(t_in, t_out)
+            return tangent_in(t_in), tangent_out(t_out)
+
         # 1. enforce tilt constraints + tangent-project
-        tin, tout = enforce_pair(state.tilts_in, state.tilts_out)
-        tin = tangent(tin)
-        tout = tangent(tout)
+        tin, tout = refresh_pair(state.tilts_in, state.tilts_out)
         fixed_vals_in, fixed_vals_out = tin, tout
 
         # the constraint rows depend on positions only: factor once
-        projector = make_compact_tilt_projector(
-            compact_collector(state, topo, params) if compact_collector else None,
-            positions.shape[0],
-        )
+        if compact_collector is not None:
+            projector = make_compact_tilt_projector(
+                compact_collector(state, topo, params), positions.shape[0])
+        else:
+            projector = make_tilt_projector(dense_rows_fn(state, topo, params))
+        cap = (make_inner_coupled_delta_cap(positions, topo, params, topo.tilt_fixed_in_mask)
+               if delta_cap and "core:inner_coupled/center_xy" in topo.extras else None)
 
         def eval_grads(t_in, t_out):
             """(E, gin, gout, gnorm) with the projected, fixed-row-zeroed gradients."""
@@ -472,18 +653,21 @@ def make_relax_leaflet_tilts(spec: ProblemSpec) -> Callable:
             """The trial from (tin, tout) along the direction, or (tin, tout) on rejection."""
 
             def trial_at(step):
-                trial_in = torch.where(fixed_in, fixed_vals_in, tangent(tin + step * dir_in))
-                trial_out = torch.where(fixed_out, fixed_vals_out, tangent(tout + step * dir_out))
+                delta_in = step * dir_in
+                if cap is not None:
+                    delta_in = cap(delta_in)
+                trial_in = torch.where(fixed_in, fixed_vals_in, tangent_in(tin + delta_in))
+                trial_out = torch.where(fixed_out, fixed_vals_out,
+                                        tangent_out(tout + step * dir_out))
                 return (trial_in, trial_out), energy_pair(trial_in, trial_out)
 
             accepted, trial, E1 = _backtrack(trial_at, step_size, E0, np_dtype)
             return (accepted, *(trial if accepted else (tin, tout)), E1)
 
         def refresh(new_in, new_out, nacc):
-            """The per-accepted-step constraint refresh + tangent projection, at its interval."""
-            if nacc % proj_interval == 0:
-                new_in, new_out = enforce_pair(new_in, new_out)
-                new_in, new_out = tangent(new_in), tangent(new_out)
+            """The per-step constraint refresh + tangent projection, at its interval."""
+            if cadence == "per_step" and nacc % proj_interval == 0:
+                return refresh_pair(new_in, new_out)
             return new_in, new_out
 
         interval = params.get("tilt_projection_interval")
@@ -508,12 +692,17 @@ def make_relax_leaflet_tilts(spec: ProblemSpec) -> Callable:
                 nacc += 1
                 tin, tout = refresh(new_in, new_out, nacc)
         else:
-            m_in, m_out = jacobi_preconditioner(positions, topo, params)
-            m_in, m_out = m_in[:, None], m_out[:, None]
+            if use_precond:
+                m_in, m_out = jacobi_preconditioner(positions, topo, params)
+                m_in, m_out = m_in[:, None], m_out[:, None]
+
+            def precondition(r_in, r_out):
+                return (r_in * m_in, r_out * m_out) if use_precond else (r_in, r_out)
+
             monotone = dtype != torch.float64
             E0_t, gin, gout, gnorm_t = eval_grads(tin, tout)
             r_in, r_out = -gin, -gout
-            z_in, z_out = r_in * m_in, r_out * m_out
+            z_in, z_out = precondition(r_in, r_out)
             d_in, d_out = z_in, z_out
             rz_old = torch.sum(r_in * z_in) + torch.sum(r_out * z_out)
             E0, gnorm, rz_old_h = _host(np_dtype, E0_t, gnorm_t, rz_old)
@@ -523,6 +712,9 @@ def make_relax_leaflet_tilts(spec: ProblemSpec) -> Callable:
                 if _converged(gnorm, tol_h):
                     break
                 accepted, new_in, new_out, _E1 = backtrack(d_in, d_out, E0)
+                if not accepted and cg_fallback_gd:
+                    # retry the rejected CG direction along steepest descent
+                    accepted, new_in, new_out, _E1 = backtrack(-gin, -gout, E0)
                 if not accepted:
                     rejected = True
                     break
@@ -530,7 +722,7 @@ def make_relax_leaflet_tilts(spec: ProblemSpec) -> Callable:
                 new_in, new_out = refresh(new_in, new_out, nacc)
                 E2_t, gin, gout, gnorm2_t = eval_grads(new_in, new_out)
                 r_in, r_out = -gin, -gout
-                z_in, z_out = r_in * m_in, r_out * m_out
+                z_in, z_out = precondition(r_in, r_out)
                 rz_new = torch.sum(r_in * z_in) + torch.sum(r_out * z_out)
                 E2, gnorm2, rz_new_h = _host(np_dtype, E2_t, gnorm2_t, rz_new)
                 tin, tout, E0, gnorm = new_in, new_out, E2, gnorm2
@@ -545,6 +737,9 @@ def make_relax_leaflet_tilts(spec: ProblemSpec) -> Callable:
             if monotone and best_E < E_last:
                 # f32: revert to the best accepted state when the CG walked uphill
                 tin, tout, E_last = best_in, best_out, best_E
+        if cadence == "per_pass":
+            # one refresh for the whole pass, unconditionally
+            tin, tout = refresh_pair(tin, tout)
 
         out_state = dataclasses.replace(state, tilts_in=tin, tilts_out=tout)
         stats = TiltRelaxStats(
@@ -564,7 +759,8 @@ def make_relax_vertex_tilts(spec: ProblemSpec) -> Callable:
 
     The single-field relax (JAX ``make_relax_vertex_tilts``): CG with the
     Jacobi preconditioner (its inner-leaflet diagonal, as in the JAX
-    package) or GD on ``state.tilts`` with positions frozen: tangent
+    package; none with ``tilt_cg_preconditioner`` none) or GD on
+    ``state.tilts`` with positions frozen: tangent
     projection per trial, fixed-row clamping, 12-halving
     accept-if-not-worse backtracking, convergence on the gradient norm.  No
     single-field constraint module has tilt rows, so no KKT projection and
@@ -572,6 +768,7 @@ def make_relax_vertex_tilts(spec: ProblemSpec) -> Callable:
     """
     tilt_energy = make_tilt_energy(spec)
     solver = spec.option("tilt_solver", "cg").lower()
+    use_precond = _uses_precond(spec, solver)
 
     def relax(state: MeshState, topo: Topology, params: Dict, max_iters, step_size, tol):
         dtype = state.positions.dtype
@@ -619,10 +816,10 @@ def make_relax_vertex_tilts(spec: ProblemSpec) -> Callable:
                     break
                 t, nacc = new_t, nacc + 1
         else:
-            m = jacobi_preconditioner(positions, topo, params)[0][:, None]
+            m = jacobi_preconditioner(positions, topo, params)[0][:, None] if use_precond else None
             E0_t, g, gnorm_t = eval_grads(t)
             r = -g
-            z = r * m
+            z = r if m is None else r * m
             d = z
             rz_old = torch.sum(r * z)
             E0, gnorm, rz_old_h = _host(np_dtype, E0_t, gnorm_t, rz_old)
@@ -635,7 +832,7 @@ def make_relax_vertex_tilts(spec: ProblemSpec) -> Callable:
                 nacc += 1
                 E2_t, g, gnorm2_t = eval_grads(new_t)
                 r = -g
-                z = r * m
+                z = r if m is None else r * m
                 rz_new = torch.sum(r * z)
                 E2, gnorm2, rz_new_h = _host(np_dtype, E2_t, gnorm2_t, rz_new)
                 t, E0, gnorm = new_t, E2, gnorm2

@@ -224,3 +224,83 @@ def recipe_trace(port: bool, name: str, expand: bool = False, **build_kw) -> lis
         rows.append((cmd, float(mn.compute_energy()), len(mn.mesh.vertices), len(mn.mesh.facets),
                      float(mn.step_size)))
     return rows
+
+
+# the kozlov lane's option tests (tests/test_torch_kozlov_*.py): the JAX
+# package's own option-test parameters (tests/test_gp_option_parity.py)
+OPTION_GP = {
+    "tilt_solve_mode": "coupled",
+    "tilt_step_size": 0.15,
+    "tilt_inner_steps": 6,
+    "tilt_tol": 1e-12,
+    "step_size": 0.005,
+    "step_size_mode": "fixed",
+}
+# the inner-coupled cap's bands: rim |r - 1| <= 1, near band (2, 5]
+BANDS = {"benchmark_disk_radius": 1.0, "benchmark_lambda_value": 1.0}
+ABLATION = {
+    "curved_theta_objective_ablation_mode": "inner_outer_rescaled",
+    "benchmark_geometry_lane": "free_z",
+    "benchmark_parameterization": "kh_physical",
+    "curved_theta_objective_ablation_inner_scale": 0.5,
+    "curved_theta_objective_ablation_outer_scale": 2.0,
+    "curved_theta_objective_ablation_contact_scale": 1.5,
+}
+
+
+def option_minimizers(gp: dict, **kw):
+    """(JAX, port float64) minimizers of the kozlov lane with ``OPTION_GP`` and ``gp``."""
+    full = {**OPTION_GP, **gp}
+    return (make_minimizer(False, gp=full, **kw),
+            make_minimizer(True, gp=full, dtype=torch.float64, **kw))
+
+
+def host_state(mn) -> dict:
+    """Positions and leaflet tilts of the minimizer's host mesh, by vertex id."""
+    verts = mn.mesh.vertices
+    return {f: np.array([getattr(verts[v], f) for v in sorted(verts)])
+            for f in ("position", "tilt_in", "tilt_out")}
+
+
+def steps_of(jm, tm, n: int) -> list:
+    """Both minimizers ``n`` times ``minimize(1)``: per step (JAX result, port result)."""
+    return [(jm.minimize(1), tm.minimize(1)) for _ in range(n)]
+
+
+def jax_noise_state(gp: dict, n: int, amp: float = 1e-15, **kw) -> dict:
+    """The JAX package's host state after ``n`` times ``minimize(1)`` from a start with ``amp`` of z noise.
+
+    Beside the clean run, it measures how far the lane itself moves a
+    round-off difference: on these lanes each relax's accept-if-not-worse
+    tests amplify it (ROADMAP C3), so a state comparison is bounded by
+    that spread (as ``tools/lane_noise_spread.py`` bounds catenoid's).
+    """
+    mn = make_minimizer(False, gp=gp, **kw)
+    rng = np.random.default_rng(0)
+    for vid in sorted(mn.mesh.vertices):
+        mn.mesh.vertices[vid].position[2] += amp * rng.standard_normal()
+    mn.invalidate()
+    for _ in range(n):
+        mn.minimize(1)
+    return host_state(mn)
+
+
+def assert_steps(steps, jm, tm, rel: float, noisy=None) -> None:
+    """The same accept flag and energies within ``rel`` at every step; the final states close.
+
+    The final positions and tilts within ``rel`` of their scale, or, given
+    ``noisy`` (:func:`jax_noise_state` of the same lane), within twice the
+    JAX package's own spread under round-off noise, when that is larger.
+    """
+    for k, (jr, tr) in enumerate(steps):
+        assert tr["step_success"] == bool(jr["step_success"]), f"step {k}: accept flag"
+        want = float(jr["energy"])
+        assert abs(tr["energy"] - want) <= rel * abs(want), f"step {k}: {tr['energy']} vs {want}"
+    want, got = host_state(jm), host_state(tm)
+    for f in want:
+        scale = max(float(np.max(np.abs(want[f]))), 1.0)
+        bound = rel * scale
+        if noisy is not None:
+            bound = max(bound, 2.0 * float(np.max(np.abs(noisy[f] - want[f]))))
+        err = float(np.max(np.abs(got[f] - want[f])))
+        assert err <= bound, f"{f}: max abs err {err:.3e} > {bound:.3e}"

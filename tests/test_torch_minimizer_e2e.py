@@ -120,12 +120,13 @@ def _small_mesh(**gp):
 @pytest.mark.parametrize(
     "gp,needle",
     [
-        ({"tilt_cg_rejection_fallback": "gd"}, "tilt_cg_rejection_fallback"),
+        ({"shape_scaffold_rejected_step_fallback": "trace_z"},
+         "shape_scaffold_rejected_step_fallback"),
         ({"tilt_mass_mode_in": "consistent"}, "tilt_mass_mode_in"),
         ({"bending_tilt_in_update_mode": "radial_cross_term_off_v1"},
          "bending_tilt_in_update_mode"),
-        ({"rim_slope_match_mode": "ring_average_radial_v1"}, "rim_slope_match_mode"),
-        ({"tilt_projection_cadence": "per_pass"}, "tilt_projection_cadence"),
+        ({"rim_slope_match_mode": "physical_edge_staggered_v1"}, "rim_slope_match_mode"),
+        ({"tilt_thetaB_contact_penalty_mode": "legacy"}, "tilt_thetaB_contact_penalty_mode"),
         ({"pin_to_plane_mode": "slide"}, "pin_to_plane_mode"),
         ({"bending_tilt_assume_J0_presets": ["disk"]}, "bending_tilt_assume_J0_presets"),
     ],
@@ -147,16 +148,9 @@ def test_unported_module_and_rim_flag_raise():
     with pytest.raises(NotImplementedError, match="tilt_smoothness_in"):
         Minimizer(parse(data), device="cpu", quiet=True).problem()
 
-    # rim and outer rings of unequal size: the interpolated pairing
-    data, parse = _small_mesh()
-    seen = 0
-    for vertex in data["vertices"]:
-        opts = vertex[-1] if isinstance(vertex[-1], dict) else None
-        if opts and opts.get("preset") == "outer":
-            if seen % 2:
-                opts.pop("preset")
-            seen += 1
-    with pytest.raises(NotImplementedError, match="interp_outer"):
+    # the physical-edge rim placement (local interface shells) stays unported
+    data, parse = _small_mesh(rim_slope_match_mode="physical_edge_staggered_v1")
+    with pytest.raises(NotImplementedError, match="physical_edge_staggered_v1"):
         Minimizer(parse(data), device="cpu", quiet=True).problem()
 
 

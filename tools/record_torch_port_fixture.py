@@ -156,11 +156,11 @@ def _trajectory(mn) -> dict:
     }
 
 
-def kozlov_minimizer():
-    """The kozlov protocol up to its first step, in the JAX package."""
+def kozlov_minimizer(gp=None):
+    """The kozlov protocol up to its first step, in the JAX package (``gp``: its global parameters)."""
     pkg, build, refinement = _jax()
     mesh = pkg.parse_geometry(build("kozlov_1disk"))
-    mesh.global_parameters.update(BENCH_GP)
+    mesh.global_parameters.update(BENCH_GP if gp is None else gp)
     mn = pkg.Minimizer(mesh, quiet=True)
     mn.step_size = KOZLOV_STEP_SIZE
     for _ in range(KOZLOV_REFINES):
@@ -237,6 +237,56 @@ def run_kozlov_thetaB() -> dict:
         "package": "membrane_solver_tpu", "platform": "cpu", "dtype": "float32",
         "selected_thetaB": [r["selected_thetaB"] for r in f32["trace"]],
         "energies": e32, "max_rel_dev_vs_float64": max(devs)}
+    return rec
+
+
+# the reduced-energy line search on the kozlov lane: every Armijo trial
+# re-relaxes both leaflet tilts (10 inner steps, the default of
+# line_search_reduced_tilt_inner_steps) before it is scored, with the
+# shared-rim staggered rim matching
+REDUCED_GP = {
+    "line_search_reduced_energy": "on",
+    "rim_slope_match_mode": "shared_rim_staggered_v1",
+}
+
+
+def kozlov_reduced_protocol() -> dict:
+    return {**kozlov_protocol(), "global_parameters": {**BENCH_GP, **REDUCED_GP}}
+
+
+def reduced_run() -> dict:
+    """The reduced-line-search protocol at the precision this process runs."""
+    protocol = kozlov_reduced_protocol()
+    mn = kozlov_minimizer(protocol["global_parameters"])
+    energy0 = float(mn.compute_energy())
+    energies, accepted, step_sizes = [], [], []
+    for _ in range(protocol["steps"]):
+        res = mn.minimize(1)
+        energies.append(float(res["energy"]))
+        accepted.append(bool(res["step_success"]))
+        step_sizes.append(float(mn.step_size))
+    return {
+        "n_vertices": len(mn.mesh.vertices),
+        "n_triangles": len(mn.mesh.facets),
+        "energy_before": energy0,
+        "energies": energies,
+        "accepted": accepted,
+        "step_sizes": step_sizes,
+        "energy_after": float(mn.compute_energy()),
+        "breakdown_after": {k: float(v) for k, v in mn.compute_energy_breakdown().items()},
+    }
+
+
+def run_kozlov_reduced() -> dict:
+    child = start_float32_child("kozlov_L3_reduced_f64_jax.json")  # runs beside float64
+    rec = {"protocol": kozlov_reduced_protocol(), **reduced_run()}
+    f32 = float32_result(child)
+    e32, e64 = (r["energies"] + [r["energy_after"]] for r in (f32, rec))
+    devs = [abs(a - b) / abs(b) for a, b in zip(e32, e64, strict=True)]
+    rec["float32_reference"] = {
+        "package": "membrane_solver_tpu", "platform": "cpu", "dtype": "float32",
+        "energies": f32["energies"], "accepted": f32["accepted"],
+        "energy_after": f32["energy_after"], "max_rel_dev_vs_float64": max(devs)}
     return rec
 
 
@@ -406,17 +456,29 @@ FLOAT32_RUNS = {
     **{name: (lambda name=name: cli_trace(CLI_PROTOCOLS[name](), digests=True))
        for name in CLI_PROTOCOLS},
     "kozlov_L3_thetaB_f64_jax.json": thetaB_run,
+    "kozlov_L3_reduced_f64_jax.json": reduced_run,
 }
+
+
+def start_float32_child(name: str) -> subprocess.Popen:
+    """Start ``FLOAT32_RUNS[name]()`` in a child process with x64 off."""
+    return subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--float32", name],
+        env={**os.environ, "MEMBRANE_SOLVER_X64": "0"}, stdout=subprocess.PIPE, text=True,
+    )
+
+
+def float32_result(child: subprocess.Popen):
+    """The last stdout line of a :func:`start_float32_child` child, as JSON."""
+    out, _ = child.communicate()
+    if child.returncode != 0:
+        raise subprocess.CalledProcessError(child.returncode, child.args)
+    return json.loads(out.strip().splitlines()[-1])
 
 
 def float32_child(name: str):
     """``FLOAT32_RUNS[name]()`` in a child process with x64 off."""
-    child = subprocess.run(
-        [sys.executable, str(Path(__file__).resolve()), "--float32", name],
-        env={**os.environ, "MEMBRANE_SOLVER_X64": "0"}, capture_output=True, text=True,
-        check=True,
-    )
-    return json.loads(child.stdout.strip().splitlines()[-1])
+    return float32_result(start_float32_child(name))
 
 
 def run_cli_fixture(name: str) -> dict:
@@ -438,6 +500,7 @@ FIXTURES = {
     "helfrich_cube_L5_f64_jax.json": run_vesicle,
     **{name: (lambda name=name: run_cli_fixture(name)) for name in CLI_PROTOCOLS},
     "kozlov_L3_thetaB_f64_jax.json": run_kozlov_thetaB,
+    "kozlov_L3_reduced_f64_jax.json": run_kozlov_reduced,
 }
 
 
