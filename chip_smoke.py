@@ -179,27 +179,67 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
     launches per ``minimize`` step (both variants) must exceed phase 4's:
     here it runs inside every trial's relax.  A ``[16-17 ...]`` line gives
     the two phases' seconds.
+18. kozlov L3 smooth, float64: the protocol of
+    ``tests/fixtures/torch_port/kozlov_L3_smooth_f64_jax.json`` (the kozlov
+    protocol of phases 4-5 with ``tilt_smoothness_in`` and
+    ``tilt_smoothness_out`` added to its energy modules, the fixture's
+    ``extra_energy_modules``; five ``minimize(1)``), then the determinism
+    check and ``minimize(10)`` timed after two warm-up steps.  Energies
+    within rel 1e-8 of the fixture with its accept flags; the breakdown's
+    two smoothness terms within rel 1e-8 of the fixture's, floored at 1e-12
+    of the lane's energy (the outer leaflet is undriven here: its tilts and
+    its smoothness stay at round-off, ~2e-30 in the JAX package's own run),
+    and nonzero where the fixture's is above that floor.  Its host syncs
+    per ``minimize(1)`` are printed beside phase 5's.
+19. kozlov L3 smooth, float32: the same; energies within rel max(2e-3, 2
+    x the JAX package's own float32 deviation) of phase 18's, the JAX
+    package's own float32 accept flags.  Then the fold, on the state the
+    run left: the fused frozen-tilt energy the relax builds has both
+    smoothness rigidities (``k_vec[4]``, ``k_vec[5]``) above 0, nonzero
+    ``w_in`` and ``w_out`` payload columns and neither smoothness module
+    in its per-module rest; the frozen-tilt kernel launched on every step
+    (launches per step printed); and the entry point, energy alone and
+    energy with gradients, against its twin on the lane's own g, payload
+    and k_vec with the lane's tilts and with seeded tilts (energy rel
+    1e-6, vertex gradients 5e-6 * max|g|).  The ms per step is printed
+    beside phase 4's.
+20. kozlov L3 drives, float64 then float32: the kozlov L3 mesh after its
+    refinements with ``tests/test_module_gradients_fd.py``'s set-up
+    (``drives_setup``: its global parameters and module list plus
+    ``tilt_smoothness_leaflet``, the rim ring tagged as the disk-target
+    ring, the disk vertices in the disk-contact group, seeded tilts), the
+    protocol of ``tests/fixtures/torch_port/kozlov_L3_drives_f64_jax.json``.
+    For each of the ten leaflet tilt-field energies (the three smoothness
+    modules, splay-twist, the three rim sources, the two disk targets and
+    the disk contact), the energy and its gradients in the positions and
+    both leaflet tilts on the fixture's inputs: float64 within rel 1e-10 of
+    the fixture (gradients 1e-10 * max|g|), float32 against float64 within
+    max(2e-3, 2 x the JAX package's own float32 deviation per module and
+    field).  The divergence kernel and its tilt backward must launch
+    inside ``tilt_splay_twist_in``.  An ``[18-20 ...]`` line gives the three
+    phases' seconds.
 
-Every lane phase (4-9, 11-17) also checks determinism: from the state its
-protocol leaves (phases 4-7 and 16-17: the five steps; phases 8-9 and
+Every lane phase (4-9, 11-19) also checks determinism: from the state its
+protocol leaves (phases 4-7 and 16-19: the five steps; phases 8-9 and
 11-14: the command list; phase 15: its ``minimize(3)``), it saves the state, runs
 ``minimize(2)`` (``g2`` through the command layer), takes a sha256 of the
 positions, the tilts and the energies, restores the state and runs again;
 a ``[... determinism]`` line prints both digests, and unequal digests fail
-the run.  The last line before the kernels line gives the whole run's
-seconds.
+the run.  A ``[phase seconds]`` line gives each phase's seconds, and the
+last line before the kernels line the whole run's.
 
-Phases 4-9 and 11-17 each drive one path with every kernel launch counter
+Phases 4-9 and 11-20 each drive one path with every kernel launch counter
 set to 0 just before and read just after; a kernel of that path that was
 never launched fails the run (the frozen-tilt entry point, both variants,
-lies on the float32 kozlov paths only, phases 4, 15 and 17; the surface
-energy, both variants, and the vertex sum on all thirteen; the curvature
-data forward on phases 4-9 and 13-17 (on the cube paths through ``energy
-stats``), its backward on phases 4-7 and 15-17; the divergence forward on
-the kozlov paths; its tilt backward on none, so phase 3 alone launches it).
+lies on the float32 kozlov paths only, phases 4, 15, 17 and 19; the surface
+energy, both variants, and the vertex sum on phases 4-9 and 11-19; the
+curvature data forward on phases 4-9 and 13-19 (on the cube paths through
+``energy stats``), its backward on phases 4-7 and 15-19; the divergence
+forward on the kozlov paths 4-5 and 15-19, and it and its tilt backward
+inside phase 20's splay-twist, the only path that runs the backward).
 
 The line before the last is a JSON object ``{"kernels": [...]}``: per entry
-point, its launches over phases 4-9 and 11-17, its largest error against its twin,
+point, its launches over phases 4-9 and 11-20, its largest error against its twin,
 and phase 3's device ms per call (``ms``), its twin's (``plain_ms``), the
 bound, and, for the vertex sum, ``index_add_``'s (``library_ms``).  The
 last line is ``{"ok": true, "device": {...}}``.
@@ -211,6 +251,7 @@ Usage (from the repository root, on a machine with a CUDA GPU)::
 
 from __future__ import annotations
 
+import base64
 import collections
 import dataclasses
 import hashlib
@@ -236,6 +277,8 @@ SQUARE_FIXTURE = FIXTURES / "square_to_circle_L1_f64_jax.json"
 RECT_FIXTURE = FIXTURES / "rect_tilt_source_L0_f64_jax.json"
 THETAB_FIXTURE = FIXTURES / "kozlov_L3_thetaB_f64_jax.json"
 REDUCED_FIXTURE = FIXTURES / "kozlov_L3_reduced_f64_jax.json"
+SMOOTH_FIXTURE = FIXTURES / "kozlov_L3_smooth_f64_jax.json"
+DRIVES_FIXTURE = FIXTURES / "kozlov_L3_drives_f64_jax.json"
 CSRC = "membrane_solver_tpu_torch/csrc/"
 # entry point -> (source, the TPU kernel or JAX function it replaces, the
 # name of its timing rows, its launch counter)
@@ -291,6 +334,7 @@ ENERGY_RTOL = 1e-6  # frozen-tilt kernel vs twin energy (f32 reduction order)
 GRAD_RTOL = 5e-6  # frozen-tilt kernel vs twin gradient, relative to max|g|
 F64_RTOL = 1e-8  # f64 trajectory vs the JAX fixture (CUDA scatter order)
 F32_RTOL = 2e-3  # f32 vs f64 trajectory
+DRIVES_F64_RTOL = 1e-10  # phase 20: module values vs the JAX fixture (of |E|, of max|g|)
 CONSOLE_TIMEOUT_S = 300  # phase 10's subprocess
 # per-triangle kernels vs twins: (rtol, atol) elementwise at float32 (the JAX
 # kernel tests' bounds), rtol of max(|want|, 1) at float64
@@ -670,7 +714,11 @@ def check_frozen_tilt(torch, ft, rows, nv: int, seed: int) -> dict:
     from membrane_solver_tpu_torch.device.state import corner_csr
 
     t_in, t_out, g, pay, k = _ft_inputs(torch, rows, nv, seed)
-    csr = corner_csr(rows, nv)
+    return compare_frozen_tilt(torch, ft, rows, corner_csr(rows, nv), t_in, t_out, g, pay, k)
+
+
+def compare_frozen_tilt(torch, ft, rows, csr, t_in, t_out, g, pay, k) -> dict:
+    """One launch of each variant of the entry point vs ``reference_vertex`` on the same inputs."""
     ws = ft.Workspace(rows.shape[0], rows.device)
     want_e, want_in, want_out = ft.reference_vertex(t_in, t_out, rows, csr, g, pay, k, grad=True)
     e_only, _, _ = ft.launch(t_in, t_out, rows, csr, g, pay, k, ws, grad=False)
@@ -1086,6 +1134,8 @@ def build_lane(torch, protocol: dict, dtype):
     if protocol["mesh"] == "meshgen kozlov_1disk":
         mesh = parse_geometry(build("kozlov_1disk"))
         mesh.global_parameters.update(protocol["global_parameters"])
+        extra = protocol.get("extra_energy_modules", ())
+        mesh.energy_modules.extend(m for m in extra if m not in mesh.energy_modules)
         mn = Minimizer(mesh, device=DEVICE, dtype=dtype, quiet=True)
         mn.step_size = protocol["step_size"]
         for _ in range(protocol["refines"]):
@@ -1110,6 +1160,49 @@ def build_lane(torch, protocol: dict, dtype):
         mn.invalidate()
         mn.enforce_constraints_after_mesh_ops()
     return mn
+
+
+def drives_setup(mesh, protocol: dict) -> None:
+    """The leaflet tilt-field drives on a kozlov host mesh (either package's).
+
+    ``tests/test_module_gradients_fd.py``'s kozlov set-up: the protocol's
+    global parameters and energy modules, the rim ring (``rim_slope_match_group``
+    rim) tagged as the disk-target ring of both leaflets, the disk vertices
+    (``tilt_thetaB_group_in`` disk) in the disk-contact group, and seeded
+    tilts (``numpy.random.default_rng(tilt_seed)`` times ``tilt_scale``, in
+    the mesh's vertex order) on every vertex whose tilts are free.
+    """
+    mesh.global_parameters.update(protocol["global_parameters"])
+    mesh.energy_modules.extend(m for m in protocol["energy_modules"]
+                               if m not in mesh.energy_modules)
+    for v in mesh.vertices.values():
+        opts = v.options or {}
+        if opts.get("rim_slope_match_group") == "rim":
+            opts["tilt_disk_target_group_in"] = "dt_ring"
+            opts["tilt_disk_target_group_out"] = "dt_ring"
+        if opts.get("tilt_thetaB_group_in") == "disk":
+            opts["tilt_disk_contact_group"] = "disk"
+    rng = np.random.default_rng(protocol["tilt_seed"])
+    for v in mesh.vertices.values():
+        if not (v.tilt_fixed_in or v.tilt_fixed_out):
+            v.tilt_in = protocol["tilt_scale"] * rng.standard_normal(3)
+            v.tilt_out = protocol["tilt_scale"] * rng.standard_normal(3)
+
+
+def encode_rows(arr) -> dict:
+    """An (n, 3) float64 array as its nonzero rows: base64 int32 row numbers and float64 values."""
+    arr = np.ascontiguousarray(arr, dtype="<f8")
+    rows = np.flatnonzero(np.any(arr != 0.0, axis=1)).astype("<i4")
+    return {"rows": base64.b64encode(rows.tobytes()).decode(),
+            "values": base64.b64encode(arr[rows].tobytes()).decode()}
+
+
+def decode_rows(rec: dict, n: int):
+    """The (n, 3) array of :func:`encode_rows`."""
+    out = np.zeros((n, 3))
+    rows = np.frombuffer(base64.b64decode(rec["rows"]), dtype="<i4")
+    out[rows] = np.frombuffer(base64.b64decode(rec["values"]), dtype="<f8").reshape(-1, 3)
+    return out
 
 
 def run_protocol(torch, dtype, protocol: dict):
@@ -1249,6 +1342,7 @@ def phase_path(torch, counters, label: str, fixture: dict, dtype, expect: tuple,
         fields["rel_dev_f32_vs_f64_per_step"] = json.dumps(devs)
         fields["max_rel_dev_f32_vs_f64"] = repr(out["dev_f32"])
     fields["syncs_per_step"], sites = count_syncs(torch, lambda: mn.minimize(1))
+    out["syncs"] = fields["syncs_per_step"]
     say(label, **fields)
     say(label + " sync sites", sites=json.dumps(sites))
     missing = [k for k in expect if not launches[k] > 0]
@@ -1560,6 +1654,249 @@ def phase_reduced(torch, counters, label: str, fixture: dict, dtype, expect: tup
     return out
 
 
+def fused_tilt_energy_of(torch, mn):
+    """(FusedTiltEnergy or None, problem): what the relax builds on the minimizer's current state."""
+    from membrane_solver_tpu_torch.runtime import tilt_relax
+
+    p = mn.problem()
+    e_pre, e_fns, _c_pre, _c_fns, e_names = tilt_relax.collect_frozen_tilt_program(p.spec)
+    e_frozen = [pre(p.state, p.topo, p.params) for pre in e_pre]
+    fused = tilt_relax.build_fused_tilt_energy(p.spec, e_names, e_fns, e_frozen, p.topo, p.params,
+                                               p.state.positions.dtype)
+    if fused is None:
+        return None, p
+    return fused[0], p
+
+
+def smooth_terms(breakdown: dict, want: dict, energy: float, modules) -> dict:
+    """Per smoothness module: (value, fixture's, deviation, bound).
+
+    The bound is rel 1e-8 of the fixture's value, floored at 1e-12 of the
+    lane's energy: on this lane the outer leaflet is undriven (its tilts
+    stay at round-off, ~1e-30 of energy in the JAX package's own run), so
+    its term carries no digits to hold at its own scale.
+    """
+    out = {}
+    for name in modules:
+        scale = max(abs(want[name]), 1e-12 * abs(energy))
+        out[name] = (breakdown[name], want[name], abs(breakdown[name] - want[name]),
+                     F64_RTOL * scale)
+    return out
+
+
+def phase_smooth(torch, ft, counters, label: str, fixture: dict, dtype, expect: tuple,
+                 f64=None, k32=None) -> dict:
+    """kozlov_L3 with the leaflet smoothness, counts reset just before and read after.
+
+    The fixture's protocol (five ``minimize(1)``), the determinism check,
+    then 2 warm-up and 10 timed steps.  At float64 the energies, accept
+    flags and the breakdown's smoothness terms against the fixture; at
+    float32 the energies against ``f64`` (max(2e-3, 2 x the JAX package's
+    own float32 deviation)), and the fold: the relax's fused energy on the
+    lane's state has both smoothness rigidities in its k_vec and neither
+    module in its per-module rest, the frozen-tilt kernel launched on every
+    step, and one call of each kernel variant on the lane's own g, payload
+    (live w_in and w_out columns) and k_vec against the twin, with the
+    lane's tilts and with seeded tilts of scale 0.1 on every vertex.
+    """
+    proto = fixture["protocol"]
+    reset_counts(counters)
+    mn, energies, steps, setup_s = run_protocol(torch, dtype, proto)
+    accepted = [ok for ok, _step in steps]
+    breakdown = {k: float(v) for k, v in mn.compute_energy_breakdown().items()}
+    snap = check_repeat(torch, label, mn, lambda: [float(mn.minimize(2)["energy"])])
+    ms = timed_steps(torch, mn)
+    launches = read_counts(counters)
+    n_steps = proto["steps"] + 2 * 2 + WARMUP_STEPS + TIMED_STEPS
+    per_step = {k: n / n_steps for k, n in launches.items()}
+    p = mn.problem()
+    if (p.n_vertices, p.n_tris) != (fixture["n_vertices"], fixture["n_triangles"]):
+        raise AssertionError(f"{label}: mesh size {(p.n_vertices, p.n_tris)} differs from the fixture")
+    modules = proto["extra_energy_modules"]
+    out = {"energies": energies, "accepted": accepted, "ms": ms, "launches": launches,
+           "per_step": per_step, "mn": mn, "snap": snap, "breakdown": breakdown}
+    fields = {"vertices": p.n_vertices, "triangles": p.n_tris, "setup_s": f"{setup_s:.3f}",
+              "energies": json.dumps(energies), "accepted": json.dumps(accepted),
+              "ms_per_step": f"{ms:.3f}", "steps_counted": n_steps,
+              "launches": json.dumps(launches),
+              "breakdown": json.dumps({k: breakdown[k] for k in modules})}
+    if f64 is None:
+        out["dev"] = max(abs(a - b) / abs(b) for a, b in zip(energies, fixture["energies"],
+                                                             strict=True))
+        bound, reference, ref_accepted = F64_RTOL, "the JAX fixture", fixture["accepted"]
+        terms = smooth_terms(breakdown, fixture["breakdown_after"], fixture["energy_after"],
+                             modules)
+        fields["smoothness_vs_fixture"] = json.dumps(terms)
+    else:
+        out["dev"] = max(abs(a - b) / abs(b) for a, b in zip(energies, f64["energies"],
+                                                             strict=True))
+        bound = max(F32_RTOL, 2 * fixture["float32_reference"]["max_rel_dev_vs_float64"])
+        reference, ref_accepted = "the float64 phase", fixture["float32_reference"]["accepted"]
+    fields.update(reference=repr(reference), max_rel_dev=repr(out["dev"]), bound=repr(bound),
+                  reference_accepted=json.dumps(ref_accepted))
+    fields["syncs_per_step"], sites = count_syncs(torch, lambda: mn.minimize(1))
+    out["syncs"] = fields["syncs_per_step"]
+    say(label, **fields)
+    say(label + " sync sites", sites=json.dumps(sites))
+    if not all(math.isfinite(e) for e in energies):
+        raise AssertionError(f"{label}: non-finite energies: {energies}")
+    missing = [k for k in expect if not launches[k] > 0]
+    if missing:
+        raise AssertionError(f"{label}: the path did not launch {missing}: {launches}")
+    if accepted != ref_accepted:
+        raise AssertionError(f"{label}: accept flags {accepted} differ from {ref_accepted}")
+    if not out["dev"] <= bound:
+        raise AssertionError(f"{label}: energies deviate from {reference} by {out['dev']!r}")
+    if f64 is None:
+        for name, (got, want, dev, term_bound) in terms.items():
+            floor = 1e-12 * abs(fixture["energy_after"])
+            if not dev <= term_bound or (abs(want) > floor and not got != 0.0):
+                raise AssertionError(f"{label}: {name} {got!r} vs the fixture's {want!r}")
+        return out
+
+    # float32: the fold, on the state the run left
+    fused, p = fused_tilt_energy_of(torch, mn)
+    if fused is None:
+        raise AssertionError(f"{label}: the relax builds no fused frozen-tilt energy")
+    k_vec = [float(x) for x in fused.k_vec]
+    folded = [m for m in modules if m not in fused.rest_names]
+    live_w = [float(torch.max(torch.abs(fused.payload[:, c:c + 3]))) for c in (14, 17)]
+    state = p.state
+    rng = np.random.default_rng(19)
+    seeded = [torch.as_tensor(0.1 * rng.standard_normal((p.n_vertices, 3)), dtype=dtype,
+                              device=DEVICE) for _ in range(2)]
+    errs = {}
+    for what, (t_in, t_out) in (("lane tilts", (state.tilts_in, state.tilts_out)),
+                                ("seeded tilts", seeded)):
+        errs[what] = compare_frozen_tilt(torch, ft, p.topo.tri_rows, p.topo.corner_csr(),
+                                         t_in.contiguous(), t_out.contiguous(), fused.g,
+                                         fused.payload, fused.k_vec)
+    per = {k: per_step[f"frozen_tilt.{k}"] for k in ("energy", "energy_grad")}
+    say(label + " fold", k_vec=json.dumps(k_vec), rest=json.dumps(list(fused.rest_names)),
+        folded=json.dumps(folded), max_abs_w_in=repr(live_w[0]), max_abs_w_out=repr(live_w[1]),
+        frozen_tilt_launches_per_step=json.dumps(per),
+        kernel_vs_twin=json.dumps(errs), ms_per_step=f"{ms:.3f}",
+        phase_4_ms_per_step=f"{k32['ms']:.3f}")
+    out["fold_errs"] = errs
+    if not (k_vec[4] > 0.0 and k_vec[5] > 0.0) or folded != list(modules):
+        raise AssertionError(f"{label}: the smoothness did not fold: k_vec {k_vec}, "
+                             f"rest {fused.rest_names}")
+    if not (live_w[0] > 0.0 and live_w[1] > 0.0):
+        raise AssertionError(f"{label}: the payload's smoothness columns are zero: {live_w}")
+    if not all(n > 0 for n in per.values()):
+        raise AssertionError(f"{label}: the frozen-tilt kernel did not launch every step: {per}")
+    return out
+
+
+def phase_drives(torch, counters, label: str, fixture: dict) -> dict:
+    """The leaflet tilt-field drives on kozlov L3, float64 against the fixture, then float32.
+
+    ``drives_setup`` on the kozlov lane's mesh after its refinements
+    (built at float64); per module, the energy and its gradients in the
+    positions and both leaflet tilts, by autograd on the card, on the
+    fixture's inputs (the lane's own, built on the card, must lie within
+    1e-12 of them), against the JAX package's values (rel 1e-10; gradients
+    1e-10 * max|g|, and exact zeros where the JAX package's gradient is
+    zero).  Then the same host mesh compiled at float32, on the same
+    inputs rounded: each value against the float64 one within
+    max(2e-3, 2 x the JAX package's own float32 deviation, per module and
+    field, the fixture's ``float32_reference``).  The divergence kernel
+    must launch while ``tilt_splay_twist_in`` is evaluated.
+    """
+    from membrane_solver_tpu_torch import Minimizer
+    from membrane_solver_tpu_torch.device import geo as dgeo
+    from membrane_solver_tpu_torch.energy import get_module
+
+    proto = fixture["protocol"]
+    t0 = time.perf_counter()
+    reset_counts(counters)
+    mesh = build_lane(torch, proto["kozlov"], torch.float64).mesh
+    drives_setup(mesh, proto)
+    mn = Minimizer(mesh, device=DEVICE, dtype=torch.float64, quiet=True)  # the full module list
+    setup_s = time.perf_counter() - t0
+    nv = fixture["n_vertices"]
+    fields = ("positions", "tilts_in", "tilts_out")
+
+    def values(p):
+        out, p1 = {}, {}
+        for name in proto["modules"]:
+            module = get_module(name)
+            maker = getattr(module, "make_energy", None)
+            fn = maker(p.spec) if maker is not None else module.energy
+            leaves = [getattr(p.state, f).detach().clone().requires_grad_(True) for f in fields]
+            st = dataclasses.replace(p.state, **dict(zip(fields, leaves)))
+            before = [counters["tri_kernels"][k] for k in ("p1_div", "p1_div_bwd")]
+            geo = dgeo.triangle_geometry(st.positions, p.topo.tri_rows, p.topo.tri_valid)
+            e = fn(geo, st, p.topo, p.params)
+            grads = torch.autograd.grad(e, leaves, allow_unused=True)
+            torch.cuda.synchronize()
+            p1[name] = [counters["tri_kernels"][k] - b
+                        for k, b in zip(("p1_div", "p1_div_bwd"), before)]
+            out[name] = [float(e.detach())] + [
+                np.zeros((nv, 3)) if g is None else g.detach().cpu().double().numpy()
+                for g in grads]
+        return out, p1
+
+    p64 = mn.problem()
+    if (p64.n_vertices, p64.n_tris) != (nv, fixture["n_triangles"]):
+        raise AssertionError(f"{label}: mesh size {(p64.n_vertices, p64.n_tris)} differs")
+    # the lane as the card built it, against the fixture's inputs; the
+    # modules are then held on the fixture's inputs exactly
+    inputs = {f: decode_rows(fixture["inputs"][f], nv) for f in fields}
+    input_dev = {f: float(np.max(np.abs(getattr(p64.state, f).cpu().numpy() - inputs[f])))
+                 for f in fields}
+    if not all(d <= 1e-12 * max(float(np.max(np.abs(inputs[f]))), 1.0)
+               for f, d in input_dev.items()):
+        raise AssertionError(f"{label}: the lane's inputs differ from the fixture's: {input_dev}")
+
+    def on_inputs(p, dtype):
+        p.state = dataclasses.replace(p.state, **{
+            f: torch.as_tensor(inputs[f], dtype=dtype, device=DEVICE) for f in fields})
+        return p
+
+    t1 = time.perf_counter()
+    v64, p1 = values(on_inputs(p64, torch.float64))
+    s64 = time.perf_counter() - t1
+    mn32 = Minimizer(mesh, device=DEVICE, dtype=torch.float32, quiet=True)
+    t1 = time.perf_counter()
+    v32, _p1 = values(on_inputs(mn32.problem(), torch.float32))
+    s32 = time.perf_counter() - t1
+    launches = read_counts(counters)
+    f32_ref = fixture["float32_reference"]["max_rel_dev_vs_float64"]
+    rows, failed = {}, []
+    for name in proto["modules"]:
+        want = fixture["modules"][name]
+        got, got32 = v64[name], v32[name]
+        dev = {"energy": abs(got[0] - want["energy"]) / abs(want["energy"])}
+        dev32 = {"energy": abs(got32[0] - got[0]) / abs(got[0])}
+        bound32 = {k: max(F32_RTOL, 2 * f32_ref[name][k]) for k in ("energy",) + fields}
+        for i, f in enumerate(fields, start=1):
+            w = decode_rows(want[f], nv)
+            scale = float(np.max(np.abs(w)))
+            err = float(np.max(np.abs(got[i] - w)))
+            dev[f] = err / scale if scale > 0 else err
+            scale64 = float(np.max(np.abs(got[i])))
+            err32 = float(np.max(np.abs(got32[i] - got[i])))
+            dev32[f] = err32 / scale64 if scale64 > 0 else err32
+        if not all(d <= DRIVES_F64_RTOL for d in dev.values()):
+            failed.append(f"{name} float64 {dev}")
+        if not all(dev32[k] <= bound32[k] for k in dev32):
+            failed.append(f"{name} float32 {dev32} bound {bound32}")
+        rows[name] = {"energy": got[0], "fixture": want["energy"], "dev_f64": dev,
+                      "energy_f32": got32[0], "dev_f32": dev32, "bound_f32": bound32,
+                      "p1_div_and_bwd_launches": p1[name]}
+        say(label + " module", name=name, **{k: json.dumps(v) for k, v in rows[name].items()})
+    say(label, vertices=nv, triangles=fixture["n_triangles"], setup_s=f"{setup_s:.3f}",
+        input_max_abs_dev=json.dumps(input_dev), f64_s=f"{s64:.3f}", f32_s=f"{s32:.3f}",
+        launches=json.dumps(launches))
+    if failed:
+        raise AssertionError(f"{label}: " + "; ".join(failed))
+    if not min(p1["tilt_splay_twist_in"]) > 0:
+        raise AssertionError(f"{label}: tilt_splay_twist_in did not launch the divergence kernel "
+                             f"and its tilt backward: {p1['tilt_splay_twist_in']}")
+    return {"launches": launches, "rows": rows}
+
+
 def phase_console(torch, fixture: dict) -> None:
     """``python -m membrane_solver_tpu_torch`` on the card; the saved mesh re-evaluated at float64."""
     import tempfile
@@ -1630,11 +1967,21 @@ def main() -> int:
     rect = json.loads(RECT_FIXTURE.read_text())
     thetaB = json.loads(THETAB_FIXTURE.read_text())
     reduced = load_fixture(REDUCED_FIXTURE)
-    device = phase_device(torch)
-    phase_build((ft, tk, vs))
-    kern = phase_kernels(torch, (ft, tk, vs),
-                         build_lane(torch, kozlov["protocol"], torch.float64).problem(),
-                         build_lane(torch, vesicle["protocol"], torch.float64).problem())
+    smooth = load_fixture(SMOOTH_FIXTURE)
+    drives = json.loads(DRIVES_FIXTURE.read_text())
+    seconds = {}
+
+    def timed(phase, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[phase] = round(time.perf_counter() - t0, 3)
+        return out
+
+    device = timed("1", phase_device, torch)
+    timed("2", phase_build, (ft, tk, vs))
+    kern = timed("3", lambda: phase_kernels(
+        torch, (ft, tk, vs), build_lane(torch, kozlov["protocol"], torch.float64).problem(),
+        build_lane(torch, vesicle["protocol"], torch.float64).problem()))
 
     counters = {"frozen_tilt": ft.LAUNCHES, "tri_kernels": tk.LAUNCHES,
                 "vertex_sum": vs.LAUNCHES}
@@ -1642,58 +1989,55 @@ def main() -> int:
               "tri_kernels.curvature_data", "tri_kernels.curvature_data_bwd",
               "vertex_sum.vertex_sum")
     kozlov_path = shared + ("tri_kernels.p1_div",)
+    f32_kozlov_path = kozlov_path + ("frozen_tilt.energy", "frozen_tilt.energy_grad")
     runs = {}
-    runs["k32"] = phase_path(torch, counters, "4 kozlov_L3 f32", kozlov, torch.float32,
-                             kozlov_path + ("frozen_tilt.energy", "frozen_tilt.energy_grad"))
-    runs["k64"] = phase_path(torch, counters, "5 kozlov_L3 f64", kozlov, torch.float64,
-                             kozlov_path, f32_energies=runs["k32"]["energies"])
-    check_tri_sets(torch, tk, "5 kozlov_L3 tri kernels", kozlov_triangles(torch, runs["k64"]["mn"]),
-                   kern["errs"])
-    runs["v32"] = phase_path(torch, counters, "6 helfrich_cube_L5 f32", vesicle, torch.float32,
-                             shared)
-    runs["v64"] = phase_path(torch, counters, "7 helfrich_cube_L5 f64", vesicle, torch.float64,
-                             shared, f32_energies=runs["v32"]["energies"])
+    runs["k32"] = timed("4", phase_path, torch, counters, "4 kozlov_L3 f32", kozlov,
+                        torch.float32, f32_kozlov_path)
+    runs["k64"] = timed("5", phase_path, torch, counters, "5 kozlov_L3 f64", kozlov,
+                        torch.float64, kozlov_path, f32_energies=runs["k32"]["energies"])
+    timed("5 tri kernels", check_tri_sets, torch, tk, "5 kozlov_L3 tri kernels",
+          kozlov_triangles(torch, runs["k64"]["mn"]), kern["errs"])
+    runs["v32"] = timed("6", phase_path, torch, counters, "6 helfrich_cube_L5 f32", vesicle,
+                        torch.float32, shared)
+    runs["v64"] = timed("7", phase_path, torch, counters, "7 helfrich_cube_L5 f64", vesicle,
+                        torch.float64, shared, f32_energies=runs["v32"]["energies"])
     cli_path = ("tri_kernels.surface_energy", "tri_kernels.surface_energy_grad",
                 "tri_kernels.curvature_data", "vertex_sum.vertex_sum")
-    runs["c32"] = phase_cli(torch, counters, "8 cube_cli_L5 f32", cube_cli, torch.float32,
-                            cli_path)
-    runs["c64"] = phase_cli(torch, counters, "9 cube_cli_L5 f64", cube_cli, torch.float64,
-                            cli_path, f32=runs["c32"])
-    phase_console(torch, cube_cli)
+    runs["c32"] = timed("8", phase_cli, torch, counters, "8 cube_cli_L5 f32", cube_cli,
+                        torch.float32, cli_path)
+    runs["c64"] = timed("9", phase_cli, torch, counters, "9 cube_cli_L5 f64", cube_cli,
+                        torch.float64, cli_path, f32=runs["c32"])
+    timed("10", phase_console, torch, cube_cli)
     square_path = ("tri_kernels.surface_energy", "tri_kernels.surface_energy_grad",
                    "vertex_sum.vertex_sum")
-    runs["s32"] = phase_cli(torch, counters, "11 square_to_circle_L1 f32", square, torch.float32,
-                            square_path)
-    runs["s64"] = phase_cli(torch, counters, "12 square_to_circle_L1 f64", square, torch.float64,
-                            square_path, f32=runs["s32"])
-    check_area_calls(torch, tk, "12 square_to_circle_L1 area calls", runs["s64"]["mn"].problem(),
-                     kern["errs"])
+    runs["s32"] = timed("11", phase_cli, torch, counters, "11 square_to_circle_L1 f32", square,
+                        torch.float32, square_path)
+    runs["s64"] = timed("12", phase_cli, torch, counters, "12 square_to_circle_L1 f64", square,
+                        torch.float64, square_path, f32=runs["s32"])
+    timed("12 area calls", check_area_calls, torch, tk, "12 square_to_circle_L1 area calls",
+          runs["s64"]["mn"].problem(), kern["errs"])
     rect_path = ("tri_kernels.surface_energy", "tri_kernels.surface_energy_grad",
                  "tri_kernels.curvature_data", "vertex_sum.vertex_sum")
-    runs["r32"] = phase_cli(torch, counters, "13 rect_tilt_source_L0 f32", rect, torch.float32,
-                            rect_path, split=True)
-    runs["r64"] = phase_cli(torch, counters, "14 rect_tilt_source_L0 f64", rect, torch.float64,
-                            rect_path, f32=runs["r32"], split=True)
+    runs["r32"] = timed("13", phase_cli, torch, counters, "13 rect_tilt_source_L0 f32", rect,
+                        torch.float32, rect_path, split=True)
+    runs["r64"] = timed("14", phase_cli, torch, counters, "14 rect_tilt_source_L0 f64", rect,
+                        torch.float64, rect_path, f32=runs["r32"], split=True)
     for key in ("r32", "r64"):
         if runs[key]["launches"]["tri_kernels.curvature_data_bwd"]:
             raise AssertionError(f"the rect lane ran the curvature backward: {runs[key]['launches']}")
-    check_tri_sets(torch, tk, "14 rect_tilt_source_L0 tri kernels",
-                   sheet_triangles(runs["r64"]["mn"].problem()), kern["errs"])
-    runs["t64"] = phase_thetaB(torch, counters, "15 kozlov_L3_thetaB f64", thetaB,
-                               runs["k64"]["mn"], runs["k64"]["snap"], kozlov_path)
-    runs["t32"] = phase_thetaB(torch, counters, "15 kozlov_L3_thetaB f32", thetaB,
-                               runs["k32"]["mn"], runs["k32"]["snap"],
-                               kozlov_path + ("frozen_tilt.energy", "frozen_tilt.energy_grad"),
-                               f64=runs["t64"])
+    timed("14 tri kernels", check_tri_sets, torch, tk, "14 rect_tilt_source_L0 tri kernels",
+          sheet_triangles(runs["r64"]["mn"].problem()), kern["errs"])
+    runs["t64"] = timed("15 f64", phase_thetaB, torch, counters, "15 kozlov_L3_thetaB f64",
+                        thetaB, runs["k64"]["mn"], runs["k64"]["snap"], kozlov_path)
+    runs["t32"] = timed("15 f32", phase_thetaB, torch, counters, "15 kozlov_L3_thetaB f32",
+                        thetaB, runs["k32"]["mn"], runs["k32"]["snap"], f32_kozlov_path,
+                        f64=runs["t64"])
     # the frozen-tilt kernel inside every line-search trial's relax at float32
-    t_reduced = time.perf_counter()
-    runs["d64"] = phase_reduced(torch, counters, "16 kozlov_L3_reduced f64", reduced,
-                                torch.float64, kozlov_path)
-    runs["d32"] = phase_reduced(torch, counters, "17 kozlov_L3_reduced f32", reduced,
-                                torch.float32,
-                                kozlov_path + ("frozen_tilt.energy", "frozen_tilt.energy_grad"),
-                                f64=runs["d64"])
-    say("16-17 kozlov_L3_reduced", seconds=f"{time.perf_counter() - t_reduced:.3f}")
+    runs["d64"] = timed("16", phase_reduced, torch, counters, "16 kozlov_L3_reduced f64",
+                        reduced, torch.float64, kozlov_path)
+    runs["d32"] = timed("17", phase_reduced, torch, counters, "17 kozlov_L3_reduced f32",
+                        reduced, torch.float32, f32_kozlov_path, f64=runs["d64"])
+    say("16-17 kozlov_L3_reduced", seconds=f"{seconds['16'] + seconds['17']:.3f}")
     k_steps = kozlov["protocol"]["steps"] + 2 * 2 + WARMUP_STEPS + TIMED_STEPS
     for key in ("frozen_tilt.energy", "frozen_tilt.energy_grad"):
         plain, inside = runs["k32"]["launches"][key] / k_steps, runs["d32"]["per_step"][key]
@@ -1702,12 +2046,23 @@ def main() -> int:
         if not inside > plain:
             raise AssertionError(f"{key}: {inside} launches per step in the reduced line search, "
                                  f"not above phase 4's {plain}")
+    # the leaflet smoothness folded into the frozen-tilt kernel, then the drives
+    runs["m64"] = timed("18", phase_smooth, torch, ft, counters, "18 kozlov_L3_smooth f64",
+                        smooth, torch.float64, kozlov_path)
+    runs["m32"] = timed("19", phase_smooth, torch, ft, counters, "19 kozlov_L3_smooth f32",
+                        smooth, torch.float32, f32_kozlov_path, f64=runs["m64"], k32=runs["k32"])
+    say("18 kozlov_L3_smooth f64 host syncs", per_minimize_1=runs["m64"]["syncs"],
+        phase_5_per_minimize_1=runs["k64"]["syncs"])
+    runs["x"] = timed("20", phase_drives, torch, counters, "20 kozlov_L3_drives", drives)
+    say("18-20", seconds=f"{seconds['18'] + seconds['19'] + seconds['20']:.3f}",
+        phases=json.dumps({k: seconds[k] for k in ("18", "19", "20")}))
     # phases 8-10 have imported the CLI and the command layer by now
     if not {"membrane_solver_tpu_torch.cli", "membrane_solver_tpu_torch.commands"} <= set(sys.modules):
         raise AssertionError("the CLI and the command layer were not imported")
     if "jax" in sys.modules or any(m.split(".")[0] == "membrane_solver_tpu" for m in sys.modules):
         raise AssertionError("jax or the JAX package was imported")
 
+    say("phase seconds", seconds=json.dumps(seconds))
     say("total", seconds=f"{time.perf_counter() - t_start:.3f}")
     print(json.dumps({"kernels": kernels_line(kern, runs)}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

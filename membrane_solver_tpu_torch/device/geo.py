@@ -137,6 +137,24 @@ def vertex_normals(geo: TriangleGeometry, tri_valid: torch.Tensor, csr: CornerCS
     )
 
 
+def p1_shape_gradients(geo: TriangleGeometry) -> torch.Tensor:
+    """P1 per-triangle shape gradients, shape (F, 3 corners, 3 xyz).
+
+    g_i = (n x e_i) / |n|^2 with e_i the edge opposite corner i
+    (e_0 = v2 - v1, e_1 = v0 - v2, e_2 = v1 - v0).  The plain form for the
+    connection_v1 transport; the ambient paths take g from
+    ``tri_kernels.p1_triangle_divergence``.
+    """
+    e0 = geo.v2 - geo.v1
+    e1 = geo.v0 - geo.v2
+    e2 = geo.v1 - geo.v0
+    inv_n2 = 1.0 / torch.clamp(geo.double_area**2, min=EPS_AREA**2)
+    g0 = torch.linalg.cross(geo.normal, e0) * inv_n2[:, None]
+    g1 = torch.linalg.cross(geo.normal, e1) * inv_n2[:, None]
+    g2 = torch.linalg.cross(geo.normal, e2) * inv_n2[:, None]
+    return torch.stack([g0, g1, g2], dim=1)
+
+
 def kink_threshold(dtype) -> float:
     """|K|-kink fallback threshold, above the dtype's cancellation noise.
 

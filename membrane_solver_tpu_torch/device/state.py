@@ -285,6 +285,7 @@ _STATIC_PARAM_KEYS: Tuple[str, ...] = (
     "bending_tilt_base_term_reference_mode_in",
     "bending_tilt_base_term_reference_mode_out",
     "theory_parity_lane",
+    "tilt_rim_source_edge_mode",
 )
 
 # The values of the static options that the port implements: the kozlov
@@ -293,10 +294,11 @@ _STATIC_PARAM_KEYS: Tuple[str, ...] = (
 # cadence, the inner-coupled delta cap, the curved-theta ablation, the
 # reference-exact rim KKT skip, the ring-average and shared-rim staggered
 # rim matching, the axisymmetric tilt projection), the single-field tilt
-# lane's, the bending models, plus the defaults that select the same
-# branches.  Any other value raises NotImplementedError when the problem is
-# compiled; a value the JAX package rejects raises its ValueError instead
-# (``_VALID_STATIC_VALUES``).
+# lane's, the bending models, the leaflet tilt-field energies' (the consistent
+# tilt mass, the splay-twist divergence modes, the rim sources' edge
+# selection), plus the defaults that select the same branches.  Any other
+# value raises NotImplementedError when the problem is compiled; a value the
+# JAX package rejects raises its ValueError instead (``_VALID_STATIC_VALUES``).
 _PORTED_STATIC_VALUES: Dict[str, Tuple[str, ...]] = {
     "bending_energy_model": ("helfrich", "willmore"),
     "bending_gradient_mode": ("analytic",),
@@ -308,9 +310,12 @@ _PORTED_STATIC_VALUES: Dict[str, Tuple[str, ...]] = {
     "shape_scaffold_rejected_step_fallback": ("off",),
     "rim_slope_match_mode": ("pointwise_radial_v1", "ring_average_radial_v1",
                              "shared_rim_staggered_v1"),
-    "tilt_mass_mode": ("lumped",),
-    "tilt_mass_mode_in": ("lumped",),
-    "tilt_mass_mode_out": ("lumped",),
+    "tilt_mass_mode": ("lumped", "consistent"),
+    "tilt_mass_mode_in": ("lumped", "consistent"),
+    "tilt_mass_mode_out": ("lumped", "consistent"),
+    "tilt_divergence_mode": ("native", "vertex_recovered"),
+    "tilt_divergence_mode_in": ("native", "vertex_recovered"),
+    "tilt_rim_source_edge_mode": ("boundary", "all"),
     "tilt_projection_cadence": ("per_step", "per_pass"),
     "inner_coupled_update_mode": ("off", "rim_matched_radial_continuation_v1"),
     "curved_theta_objective_ablation_mode": ("off", "inner_outer_rescaled"),
@@ -694,7 +699,7 @@ def _extra_mask_key(name: str, extras: Mapping[str, np.ndarray], prefix: str):
     if name.startswith(("g_", "group_")):
         return None
     for head, mask in (("f_", "f_valid"), ("m_", "m_valid"), ("outer", "outer_valid"),
-                       ("disk", "disk_valid")):
+                       ("disk", "disk_valid"), ("rim_", "rim_valid")):
         if name.startswith(head):
             return f"{prefix}/{mask}"
     if f"{prefix}/valid" in extras:

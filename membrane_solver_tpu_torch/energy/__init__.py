@@ -10,7 +10,9 @@ vesicle lane (volume, bending, gaussian_curvature), of the shape family
 (line_tension, jordan_area, edge_length_penalty, body_area_penalty,
 expression, and the reference's empty ``dummy_module``) and the
 single-field tilt modules (tilt, tilt_smoothness) with the inter-leaflet
-tilt_coupling; any other name raises NotImplementedError.
+tilt_coupling, and the leaflet tilt-field energies (the smoothness of each
+leaflet and of both, splay-twist, the disk targets, the rim sources and the
+disk contact); any other name raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -38,6 +40,16 @@ PORTED = (
     "tilt",
     "tilt_smoothness",
     "tilt_coupling",
+    "tilt_smoothness_leaflet",
+    "tilt_smoothness_in",
+    "tilt_smoothness_out",
+    "tilt_splay_twist_in",
+    "tilt_disk_target_in",
+    "tilt_disk_target_out",
+    "tilt_rim_source_in",
+    "tilt_rim_source_out",
+    "tilt_rim_source_bilayer",
+    "tilt_disk_contact_in",
 )
 
 _CACHE: Dict[str, ModuleType] = {}

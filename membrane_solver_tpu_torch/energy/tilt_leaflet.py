@@ -1,10 +1,15 @@
 """Leaflet tilt magnitude energy core: E = 1/2 k_t sum_v |t_v|^2 A_v.
 
 Counterpart of ``membrane_solver_tpu/energy/tilt_leaflet.py``: per-triangle
-assembly with lumped mass, coeff = 1/2 k (|t0|^2+|t1|^2+|t2|^2)/3, and
-E = sum coeff * A_tri.  The port runs the lumped mass only (the consistent
-mass is another ``tilt_mass_mode``) and no shared-rim or trace-layer row
-weights: a mesh that asks for them raises NotImplementedError.
+assembly E = sum coeff * A_tri with
+
+    lumped (default):  coeff = 1/2 k (|t0|^2+|t1|^2+|t2|^2)/3
+    consistent:        coeff = k/12 (|t0|^2+|t1|^2+|t2|^2 + t0.t1 + t1.t2 + t2.t0)
+
+by ``tilt_mass_mode_<leaflet>`` (falling back to ``tilt_mass_mode``).  The
+relax loop scores the lumped form whatever the mode, as in the JAX package.
+The shared-rim and trace-layer row weights are not ported: a mesh that asks
+for them raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -48,12 +53,21 @@ def check_row_weights(layout, leaflet: str) -> None:
         )
 
 
-def leaflet_energy(geo, tilts, topo, k_tilt, present_tri=None):
+def mass_mode(spec, leaflet: str) -> str:
+    return spec.option(f"tilt_mass_mode_{leaflet}", spec.option("tilt_mass_mode", "lumped"))
+
+
+def leaflet_energy(geo, tilts, topo, k_tilt, present_tri=None, mode: str = "lumped"):
     t0 = tilts[topo.tri_rows[:, 0]]
     t1 = tilts[topo.tri_rows[:, 1]]
     t2 = tilts[topo.tri_rows[:, 2]]
     sq = torch.sum(t0 * t0, dim=1) + torch.sum(t1 * t1, dim=1) + torch.sum(t2 * t2, dim=1)
-    coeff = 0.5 * k_tilt * (sq / 3.0)
+    if mode == "consistent":
+        cross = (torch.sum(t0 * t1, dim=1) + torch.sum(t1 * t2, dim=1)
+                 + torch.sum(t2 * t0, dim=1))
+        coeff = (k_tilt / 12.0) * (sq + cross)
+    else:
+        coeff = 0.5 * k_tilt * (sq / 3.0)
     area = geo.area
     if present_tri is not None:
         area = torch.where(present_tri, area, 0.0)
@@ -61,10 +75,12 @@ def leaflet_energy(geo, tilts, topo, k_tilt, present_tri=None):
 
 
 def make_leaflet_energy(spec, leaflet: str):
+    mode = mass_mode(spec, leaflet)
+
     def fn(geo, state, topo, params):
         tilts = state.tilts_in if leaflet == "in" else state.tilts_out
         k = param(params, f"tilt_modulus_{leaflet}", like=tilts)
-        return leaflet_energy(geo, tilts, topo, k, present_triangles(topo, leaflet))
+        return leaflet_energy(geo, tilts, topo, k, present_triangles(topo, leaflet), mode)
 
     return fn
 

@@ -41,19 +41,11 @@ def _group_rows(layout):
     return rows
 
 
-def compile_topology(layout) -> dict:
-    rows = _group_rows(layout)
-    gp = layout.mesh.global_parameters
-    center = np.asarray(gp.get("tilt_thetaB_center") or [0, 0, 0], dtype=float)
-    raw_n = gp.get("tilt_thetaB_normal")
-    if raw_n is not None:
-        normal = np.asarray(raw_n, dtype=float)
-        nn = np.linalg.norm(normal)
-        normal = normal / nn if nn > 1e-15 else np.array([0.0, 0.0, 1.0])
-        has_normal = True
-    else:
-        normal = np.array([0.0, 0.0, 1.0])
-        has_normal = False
+def ring_tables(layout, rows, center, normal, has_normal: bool) -> dict:
+    """The ring's extras: ``rows`` in angular order about ``center`` and ``normal``.
+
+    Shared with ``tilt_disk_contact_in``, whose ring is ordered the same way.
+    """
     # ring order fixed at compile time (pinned rings keep their angular order)
     if len(rows) >= 2:
         pos = np.array([layout.mesh.vertices[int(layout.vertex_ids[r])].position for r in rows])
@@ -74,12 +66,25 @@ def compile_topology(layout) -> dict:
     }
 
 
-def ring_geometry(positions, topo):
-    """(valid mask, weights, r_hat, r_len, wsum, R_eff) for the theta_B ring."""
-    rows = topo.extras[f"{_PREFIX}/rows"]
-    valid = topo.extras[f"{_PREFIX}/valid"]
-    center = topo.extras[f"{_PREFIX}/center"].to(positions.dtype)
-    normal = topo.extras[f"{_PREFIX}/normal"].to(positions.dtype)
+def compile_topology(layout) -> dict:
+    gp = layout.mesh.global_parameters
+    center = np.asarray(gp.get("tilt_thetaB_center") or [0, 0, 0], dtype=float)
+    raw_n = gp.get("tilt_thetaB_normal")
+    if raw_n is not None:
+        normal = np.asarray(raw_n, dtype=float)
+        nn = np.linalg.norm(normal)
+        normal = normal / nn if nn > 1e-15 else np.array([0.0, 0.0, 1.0])
+    else:
+        normal = np.array([0.0, 0.0, 1.0])
+    return ring_tables(layout, _group_rows(layout), center, normal, raw_n is not None)
+
+
+def ring_geometry(positions, topo, prefix: str = _PREFIX):
+    """(valid mask, weights, r_hat, r_len, wsum, R_eff) for the ring of ``prefix``'s extras."""
+    rows = topo.extras[f"{prefix}/rows"]
+    valid = topo.extras[f"{prefix}/valid"]
+    center = topo.extras[f"{prefix}/center"].to(positions.dtype)
+    normal = topo.extras[f"{prefix}/normal"].to(positions.dtype)
     pts = positions[rows]
     k = rows.shape[0]
     idx = torch.arange(k, device=rows.device)

@@ -338,18 +338,27 @@ def build_fused_tilt_energy(spec, e_names, e_fns, e_frozen, topo, params, dtype)
     """The fused frozen-tilt energy, or None if ineligible.
 
     Eligible at float32 when all four triangle tilt modules are active (the
-    port runs them with lumped mass and default bending-tilt modes only) and
-    the curved-theta ablation scales none of them (the kernel's k_vec
-    carries no module scale).
-    Returns ``(fused_fn(t_in, t_out) -> scalar, rest)`` on vertex tilts, with
+    port runs them with default bending-tilt modes only), both leaflets
+    keep the lumped tilt mass (``tilt_mass_mode`` consistent runs per
+    module, as in the JAX package) and the curved-theta ablation scales
+    none of the modules (the kernel's k_vec carries no module scale).
+    Returns ``(FusedTiltEnergy, rest)``: the energy of vertex tilts, and
     ``rest`` the remaining (fn, frozen) pairs evaluated per module (none of
     them reads the shared corner gather, which the fused path no longer
     makes).  The entry point's scratch is allocated here, once per relax
-    call.  Validity masks are
-    folded into the payload: A and va are zero wherever the per-module path
-    masks the term, and g is zero on invalid triangles.  The tilt-smoothness
-    columns of the payload stay zero: those modules are not ported.
+    call.  Validity masks are folded into the payload: A and va are zero
+    wherever the per-module path masks the term, and g is zero on invalid
+    triangles.  The Dirichlet smoothness of ``tilt_smoothness_{in,out}``
+    folds into the same pass when the module is active and the transport is
+    ambient, as in the JAX package: its cotan weights, zeroed outside the
+    module's ``keep`` mask (valid and leaflet-present triangles), fill the
+    payload's w column of that leaflet, ``bending_modulus_<leaflet>`` its
+    k_vec entry, and the module leaves ``rest``.  Otherwise (connection_v1's
+    rotation, or the module inactive) the columns stay zero and the module,
+    if active, runs per module.
     """
+    from membrane_solver_tpu_torch.energy.tilt_leaflet import mass_mode
+    from membrane_solver_tpu_torch.energy.tilt_smoothness_leaflet import leaflet_rigidity
     from membrane_solver_tpu_torch.kernels import frozen_tilt as ft
     from membrane_solver_tpu_torch.runtime.jit_core import module_scale_fn
 
@@ -357,12 +366,27 @@ def build_fused_tilt_energy(spec, e_names, e_fns, e_frozen, topo, params, dtype)
         return None
     if any(module_scale_fn(spec, name) is not None for name in e_names):
         return None
+    if any(mass_mode(spec, leaflet) != "lumped" for leaflet in ("in", "out")):
+        return None
     fr = dict(zip(e_names, e_frozen))
     bin_fr, bout_fr = fr["bending_tilt_in"], fr["bending_tilt_out"]
     g = torch.where(topo.tri_valid[:, None, None], bin_fr["g"], 0.0).contiguous()
     va_in = torch.where(bin_fr["keep"][:, None], bin_fr["va_eff"], 0.0)
     va_out = torch.where(bout_fr["keep"][:, None], bout_fr["va_eff"], 0.0)
-    zeros3 = torch.zeros_like(va_in)
+    like = va_in
+    ambient = spec.option("tilt_transport_model", "ambient_v1") != "connection_v1"
+    fused_names = set(FUSED_NAMES)
+    w_cols, ks = {}, {}
+    for leaflet in ("in", "out"):
+        name = f"tilt_smoothness_{leaflet}"
+        sfr = fr.get(name)
+        if ambient and sfr is not None:
+            w_cols[leaflet] = torch.where(sfr["keep"][:, None], sfr["weights"], 0.0)
+            ks[leaflet] = leaflet_rigidity(params, leaflet, like)
+            fused_names.add(name)
+        else:
+            w_cols[leaflet] = torch.zeros_like(va_in)
+            ks[leaflet] = like.new_zeros(())
     payload = torch.cat(
         [
             fr["tilt_in"]["area"][:, None],
@@ -371,32 +395,49 @@ def build_fused_tilt_energy(spec, e_names, e_fns, e_frozen, topo, params, dtype)
             va_in,
             bout_fr["base_c"],
             va_out,
-            zeros3,
-            zeros3,
+            w_cols["in"],
+            w_cols["out"],
         ],
         dim=1,
     ).contiguous()
-    like = payload
     kb = param(params, "bending_modulus", like=like)
-    zero = like.new_zeros(())
     k_vec = torch.stack(
         [
             param(params, "tilt_modulus_in", like=like),
             param(params, "tilt_modulus_out", like=like),
             params.get("bending_modulus_in", kb),
             params.get("bending_modulus_out", kb),
-            zero,
-            zero,
+            ks["in"],
+            ks["out"],
         ]
     ).to(dtype)
-    rest = [(fn, f) for name, fn, f in zip(e_names, e_fns, e_frozen) if name not in FUSED_NAMES]
-    csr = topo.corner_csr()
+    rest = [(fn, f) for name, fn, f in zip(e_names, e_fns, e_frozen) if name not in fused_names]
     ws = ft.Workspace(topo.tri_rows.shape[0], payload.device) if payload.is_cuda else None
+    fused = FusedTiltEnergy(topo.tri_rows, topo.corner_csr(), g, payload, k_vec, ws,
+                            tuple(name for name in e_names if name not in fused_names))
+    return fused, rest
 
-    def fused_fn(t_in, t_out):
-        return ft.frozen_tilt_energy(t_in, t_out, topo.tri_rows, csr, g, payload, k_vec, ws)
 
-    return fused_fn, rest
+@dataclasses.dataclass
+class FusedTiltEnergy:
+    """``frozen_tilt_energy`` on one relax call's frozen inputs: fn(t_in, t_out) -> scalar.
+
+    ``rest_names`` are the tilt modules left to the per-module path.
+    """
+
+    tri_rows: torch.Tensor
+    csr: object
+    g: torch.Tensor
+    payload: torch.Tensor
+    k_vec: torch.Tensor
+    ws: object
+    rest_names: tuple
+
+    def __call__(self, t_in, t_out):
+        from membrane_solver_tpu_torch.kernels import frozen_tilt as ft
+
+        return ft.frozen_tilt_energy(t_in, t_out, self.tri_rows, self.csr, self.g,
+                                     self.payload, self.k_vec, self.ws)
 
 
 @dataclasses.dataclass

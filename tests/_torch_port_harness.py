@@ -44,15 +44,17 @@ def _pkg(port: bool):
     return pkg, build, refinement
 
 
-def make_minimizer(port: bool, kw=None, refines: int = 0, gp=None, **port_kw):
+def make_minimizer(port: bool, kw=None, refines: int = 0, gp=None, modules=(), **port_kw):
     """The kozlov lane's protocol up to the first step: build, parse, refine.
 
-    ``kw`` are kozlov_1disk arguments (None: its defaults);
+    ``kw`` are kozlov_1disk arguments (None: its defaults); ``modules`` are
+    energy modules added to the mesh's (a protocol's ``extra_energy_modules``);
     ``port_kw`` go to the port's Minimizer (device, dtype).
     """
     pkg, build, refinement = _pkg(port)
     mesh = pkg.parse_geometry(build("kozlov_1disk", **(kw or {})))
     mesh.global_parameters.update(BENCH_GP if gp is None else gp)
+    mesh.energy_modules.extend(m for m in modules if m not in mesh.energy_modules)
     if port:
         port_kw.setdefault("device", "cpu")
         mn = pkg.Minimizer(mesh, quiet=True, **port_kw)
@@ -274,6 +276,7 @@ def jax_noise_state(gp: dict, n: int, amp: float = 1e-15, **kw) -> dict:
     round-off difference: on these lanes each relax's accept-if-not-worse
     tests amplify it (ROADMAP C3), so a state comparison is bounded by
     that spread (as ``tools/lane_noise_spread.py`` bounds catenoid's).
+    The returned dict also holds the noisy run's energy ``breakdown``.
     """
     mn = make_minimizer(False, gp=gp, **kw)
     rng = np.random.default_rng(0)
@@ -282,7 +285,9 @@ def jax_noise_state(gp: dict, n: int, amp: float = 1e-15, **kw) -> dict:
     mn.invalidate()
     for _ in range(n):
         mn.minimize(1)
-    return host_state(mn)
+    out = host_state(mn)
+    out["breakdown"] = {k: float(v) for k, v in mn.compute_energy_breakdown().items()}
+    return out
 
 
 def assert_steps(steps, jm, tm, rel: float, noisy=None) -> None:
@@ -297,7 +302,7 @@ def assert_steps(steps, jm, tm, rel: float, noisy=None) -> None:
         want = float(jr["energy"])
         assert abs(tr["energy"] - want) <= rel * abs(want), f"step {k}: {tr['energy']} vs {want}"
     want, got = host_state(jm), host_state(tm)
-    for f in want:
+    for f in want:  # the state fields (``noisy`` may hold more)
         scale = max(float(np.max(np.abs(want[f]))), 1.0)
         bound = rel * scale
         if noisy is not None:

@@ -122,7 +122,7 @@ def _small_mesh(**gp):
     [
         ({"shape_scaffold_rejected_step_fallback": "trace_z"},
          "shape_scaffold_rejected_step_fallback"),
-        ({"tilt_mass_mode_in": "consistent"}, "tilt_mass_mode_in"),
+        ({"tilt_mass_mode_in": "diagonal"}, "tilt_mass_mode_in"),
         ({"bending_tilt_in_update_mode": "radial_cross_term_off_v1"},
          "bending_tilt_in_update_mode"),
         ({"rim_slope_match_mode": "physical_edge_staggered_v1"}, "rim_slope_match_mode"),
@@ -144,8 +144,8 @@ def test_unported_module_and_rim_flag_raise():
     from membrane_solver_tpu_torch import Minimizer
 
     data, parse = _small_mesh()
-    data["energy_modules"] = list(data["energy_modules"]) + ["tilt_smoothness_in"]
-    with pytest.raises(NotImplementedError, match="tilt_smoothness_in"):
+    data["energy_modules"] = list(data["energy_modules"]) + ["bending_tilt"]
+    with pytest.raises(NotImplementedError, match="bending_tilt"):
         Minimizer(parse(data), device="cpu", quiet=True).problem()
 
     # the physical-edge rim placement (local interface shells) stays unported

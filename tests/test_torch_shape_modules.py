@@ -337,8 +337,8 @@ def test_placeholders_run_in_a_minimization_as_in_jax():
     assert np.abs(positions[1] - positions[0]).max() <= RTOL
 
 
-@pytest.mark.parametrize("kind,name", [("energy", "tilt_smoothness_in"),
-                                       ("energy", "tilt_splay_twist_in"),
+@pytest.mark.parametrize("kind,name", [("energy", "bending_tilt"),
+                                       ("energy", "mean_curvature_tilt"),
                                        ("constraint", "rigid_disk"),
                                        ("constraint", "local_interface_shells")])
 def test_unported_modules_still_raise(kind, name):

@@ -7,10 +7,13 @@ card at a small size, and prints every warning PyTorch raises for an
 operation without a deterministic CUDA implementation, by the source line
 that issued it.  An empty list means the lanes' CUDA operations add in a
 fixed order.  The lanes: kozlov (meshgen ``kozlov_1disk``, small, one
-refinement), the Helfrich vesicle (meshgen cube, surface + bending, hard
-volume, two refinements), the cube recipe's stepper segment through the
-command layer (``bfgs; g5; cg; g5``) and ``square_to_circle`` at n = 8
-through the command layer, each at float32 and float64.
+refinement), the same with ``tilt_smoothness_{in,out}`` (the smooth lane of
+``chip_smoke.py`` phases 18-19), the leaflet tilt-field drives of phase 20
+(each module's energy and gradients on the small kozlov mesh), the Helfrich
+vesicle (meshgen cube, surface + bending, hard volume, two refinements), the
+cube recipe's stepper segment through the command layer (``bfgs; g5; cg;
+g5``) and ``square_to_circle`` at n = 8 through the command layer, each at
+float32 and float64.
 
 Usage (on a machine with a CUDA GPU)::
 
@@ -79,7 +82,44 @@ def lanes(torch, dtype):
                 ctx.sync_mesh()
         return run
 
-    return [("kozlov", kozlov), ("vesicle", vesicle),
+    def kozlov_smooth():
+        """The kozlov lane with the leaflet smoothness (chip_smoke.py phases 18-19)."""
+        mesh = parse_geometry(build("kozlov_1disk", n_sectors=8, n_outer_rings=4, n_disk_rings=2))
+        mesh.global_parameters.update({"tilt_solve_mode": "coupled", "tilt_step_size": 0.15,
+                                       "tilt_inner_steps": 40, "tilt_tol": 1e-10,
+                                       "step_size": 0.005, "step_size_mode": "fixed"})
+        mesh.energy_modules.extend(["tilt_smoothness_in", "tilt_smoothness_out"])
+        mn = Minimizer(mesh, device="cuda", dtype=dtype, quiet=True)
+        mn.mesh = refine_triangle_mesh(refine_polygonal_facets(mn.mesh))
+        mn.invalidate()
+        mn.enforce_constraints_after_mesh_ops()
+        mn.minimize(3)
+
+    def drives():
+        """Each leaflet tilt-field drive's energy and gradients (chip_smoke.py phase 20)."""
+        import dataclasses
+
+        from chip_smoke import drives_setup
+        from membrane_solver_tpu_torch.device import geo as dgeo
+        from membrane_solver_tpu_torch.energy import get_module
+        from tools.record_torch_port_fixture import kozlov_drives_protocol
+
+        protocol = kozlov_drives_protocol()
+        mesh = parse_geometry(build("kozlov_1disk", n_sectors=8, n_outer_rings=4, n_disk_rings=2))
+        drives_setup(mesh, protocol)
+        p = Minimizer(mesh, device="cuda", dtype=dtype, quiet=True).problem()
+        fields = ("positions", "tilts_in", "tilts_out")
+        for name in protocol["modules"]:
+            module = get_module(name)
+            maker = getattr(module, "make_energy", None)
+            fn = maker(p.spec) if maker is not None else module.energy
+            leaves = [getattr(p.state, f).detach().clone().requires_grad_(True) for f in fields]
+            st = dataclasses.replace(p.state, **dict(zip(fields, leaves)))
+            geo = dgeo.triangle_geometry(st.positions, p.topo.tri_rows, p.topo.tri_valid)
+            torch.autograd.grad(fn(geo, st, p.topo, p.params), leaves, allow_unused=True)
+
+    return [("kozlov", kozlov), ("vesicle", vesicle), ("kozlov smooth", kozlov_smooth),
+            ("drives", drives),
             ("cube steppers", command_lane("cube", ["g5", "r", "bfgs", "g5", "cg", "g5"])),
             ("square_to_circle", command_lane("square_to_circle",
                                               ["g40", "r", "g40", "u", "V4", "g60"], n=8))]

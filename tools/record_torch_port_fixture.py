@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Record the JAX package's reference trajectories for the PyTorch port.
 
-Runs six protocols with ``membrane_solver_tpu`` on the CPU in float64 and
+Runs nine protocols with ``membrane_solver_tpu`` on the CPU in float64 and
 writes one JSON file each to ``tests/fixtures/torch_port/``:
 
 ``kozlov_L3_f64_jax.json`` (the kozlov coupled-tilt lane):
@@ -78,6 +78,23 @@ each candidate's energy and breakdown) and the final energy; its
 ``float32_reference`` holds the same run at float32 (selected theta_B per
 scan, candidate and final energies, their largest relative deviation from
 float64).
+
+``kozlov_L3_reduced_f64_jax.json`` and ``kozlov_L3_smooth_f64_jax.json``
+(``lane_run``): the kozlov protocol with the reduced-energy line search
+and shared-rim staggered rim matching, and with ``tilt_smoothness_in`` and
+``tilt_smoothness_out`` added to the energy modules (the protocol's
+``extra_energy_modules``): per step the energy, the accept flag and the
+step size, the breakdown before and after; their ``float32_reference``
+holds the float32 energies, flags and final breakdown, and the largest
+relative deviation from float64.
+
+``kozlov_L3_drives_f64_jax.json`` (``drives_run``): the kozlov mesh after
+its three refinements with ``tests/test_module_gradients_fd.py``'s set-up
+(``chip_smoke.drives_setup``); the inputs and, per leaflet tilt-field
+energy, its value and its gradients in the positions and both leaflet
+tilts, encoded by ``chip_smoke.encode_rows``; its ``float32_reference``
+holds each module's float32 deviation (energy, and each gradient relative
+to its largest entry).
 
 ``chip_smoke.py`` holds the port's float64 runs on the GPU against these
 files, so the GPU machine needs no JAX.
@@ -156,11 +173,16 @@ def _trajectory(mn) -> dict:
     }
 
 
-def kozlov_minimizer(gp=None):
-    """The kozlov protocol up to its first step, in the JAX package (``gp``: its global parameters)."""
+def kozlov_minimizer(gp=None, extra_modules=()):
+    """The kozlov protocol up to its first step, in the JAX package.
+
+    ``gp``: its global parameters (default the bench's); ``extra_modules``:
+    energy modules added to the mesh's (a protocol's ``extra_energy_modules``).
+    """
     pkg, build, refinement = _jax()
     mesh = pkg.parse_geometry(build("kozlov_1disk"))
     mesh.global_parameters.update(BENCH_GP if gp is None else gp)
+    mesh.energy_modules.extend(m for m in extra_modules if m not in mesh.energy_modules)
     mn = pkg.Minimizer(mesh, quiet=True)
     mn.step_size = KOZLOV_STEP_SIZE
     for _ in range(KOZLOV_REFINES):
@@ -254,11 +276,20 @@ def kozlov_reduced_protocol() -> dict:
     return {**kozlov_protocol(), "global_parameters": {**BENCH_GP, **REDUCED_GP}}
 
 
-def reduced_run() -> dict:
-    """The reduced-line-search protocol at the precision this process runs."""
-    protocol = kozlov_reduced_protocol()
-    mn = kozlov_minimizer(protocol["global_parameters"])
+# the kozlov lane with the Dirichlet tilt smoothness of both leaflets: the
+# frozen-tilt kernel's smoothness columns (w_in, w_out) carry it on the card
+SMOOTH_MODULES = ["tilt_smoothness_in", "tilt_smoothness_out"]
+
+
+def kozlov_smooth_protocol() -> dict:
+    return {**kozlov_protocol(), "extra_energy_modules": SMOOTH_MODULES}
+
+
+def lane_run(protocol: dict) -> dict:
+    """A kozlov protocol's steps at the precision this process runs, with its accept flags."""
+    mn = kozlov_minimizer(protocol["global_parameters"], protocol.get("extra_energy_modules", ()))
     energy0 = float(mn.compute_energy())
+    breakdown0 = {k: float(v) for k, v in mn.compute_energy_breakdown().items()}
     energies, accepted, step_sizes = [], [], []
     for _ in range(protocol["steps"]):
         res = mn.minimize(1)
@@ -269,6 +300,7 @@ def reduced_run() -> dict:
         "n_vertices": len(mn.mesh.vertices),
         "n_triangles": len(mn.mesh.facets),
         "energy_before": energy0,
+        "breakdown_before": breakdown0,
         "energies": energies,
         "accepted": accepted,
         "step_sizes": step_sizes,
@@ -277,16 +309,149 @@ def reduced_run() -> dict:
     }
 
 
-def run_kozlov_reduced() -> dict:
-    child = start_float32_child("kozlov_L3_reduced_f64_jax.json")  # runs beside float64
-    rec = {"protocol": kozlov_reduced_protocol(), **reduced_run()}
+def run_lane_fixture(name: str, protocol: dict) -> dict:
+    """``lane_run`` at float64 here and at float32 in a child beside it (``LANE_PROTOCOLS``)."""
+    child = start_float32_child(name)
+    rec = {"protocol": protocol, **lane_run(protocol)}
     f32 = float32_result(child)
     e32, e64 = (r["energies"] + [r["energy_after"]] for r in (f32, rec))
     devs = [abs(a - b) / abs(b) for a, b in zip(e32, e64, strict=True)]
     rec["float32_reference"] = {
         "package": "membrane_solver_tpu", "platform": "cpu", "dtype": "float32",
         "energies": f32["energies"], "accepted": f32["accepted"],
-        "energy_after": f32["energy_after"], "max_rel_dev_vs_float64": max(devs)}
+        "energy_after": f32["energy_after"], "breakdown_after": f32["breakdown_after"],
+        "max_rel_dev_vs_float64": max(devs)}
+    return rec
+
+
+# the step-by-step kozlov lanes with their accept flags
+LANE_PROTOCOLS = {
+    "kozlov_L3_reduced_f64_jax.json": kozlov_reduced_protocol,
+    "kozlov_L3_smooth_f64_jax.json": kozlov_smooth_protocol,
+}
+
+
+# the leaflet tilt-field drives: tests/test_module_gradients_fd.py's kozlov
+# set-up (its global parameters, module list, ring tags and seeded tilts) on
+# the kozlov lane's mesh after its three refinements
+DRIVES_GP = {
+    "tilt_coupling_modulus": 0.5,
+    "tilt_splay_modulus_in": 0.7,
+    "tilt_rim_source_strength_in": 0.3,
+    "tilt_rim_source_strength_out": 0.3,
+    "tilt_rim_source_strength": 0.25,
+    "tilt_disk_target_strength_in": 0.4,
+    "tilt_disk_target_value_in": 0.2,
+    "tilt_disk_target_strength_out": 0.4,
+    "tilt_disk_target_value_out": 0.15,
+    "tilt_disk_contact_strength_in": 0.3,
+    "tilt_coupling_mode": "difference",
+    "tilt_rim_source_group_in": "rim",
+    "tilt_rim_source_group_out": "rim",
+    "tilt_rim_source_group": "rim",
+    "tilt_rim_source_edge_mode": "all",
+    "tilt_disk_target_group_in": "dt_ring",
+    "tilt_disk_target_group_out": "dt_ring",
+}
+# the ten energy modules held (the unified smoothness module is not in the
+# FD test's list; it is added to the mesh's modules here)
+DRIVES_MODULES = [
+    "tilt_splay_twist_in", "tilt_smoothness_in", "tilt_smoothness_out",
+    "tilt_smoothness_leaflet", "tilt_rim_source_in", "tilt_rim_source_out",
+    "tilt_rim_source_bilayer", "tilt_disk_target_in", "tilt_disk_target_out",
+    "tilt_disk_contact_in",
+]
+FD_MODULES = [
+    "tilt_in", "tilt_out", "tilt_coupling", "tilt_splay_twist_in", "tilt_smoothness_in",
+    "tilt_smoothness_out", "tilt_rim_source_in", "tilt_rim_source_out",
+    "tilt_rim_source_bilayer", "tilt_disk_target_in", "tilt_disk_target_out",
+    "tilt_disk_contact_in", "bending_tilt_in", "bending_tilt_out", "tilt_smoothness_leaflet",
+]
+DRIVES_FIELDS = ("positions", "tilts_in", "tilts_out")
+
+
+def kozlov_drives_protocol() -> dict:
+    return {
+        "kozlov": {**kozlov_protocol(), "steps": 0},
+        "global_parameters": DRIVES_GP,
+        "energy_modules": FD_MODULES,
+        "modules": DRIVES_MODULES,
+        "tilt_seed": 7,
+        "tilt_scale": 0.1,
+        "dtype": "float64",
+        "package": "membrane_solver_tpu",
+        "platform": "cpu",
+    }
+
+
+def drives_run() -> dict:
+    """The drives at the precision this process runs.
+
+    The inputs (positions, tilts_in, tilts_out) and, per module, the energy
+    and its gradients in the same three fields, live rows, encoded with
+    ``chip_smoke.encode_rows``.
+    """
+    import dataclasses
+
+    import jax
+    import numpy as np
+
+    protocol = kozlov_drives_protocol()
+    pkg, _build, _refinement = _jax()
+    from chip_smoke import drives_setup, encode_rows
+    from membrane_solver_tpu.device import geo as dgeo
+    from membrane_solver_tpu.energy import get_module
+
+    mesh = kozlov_minimizer().mesh
+    drives_setup(mesh, protocol)
+    p = pkg.Minimizer(mesh, quiet=True).problem()  # compiles the protocol's module list
+    nv = p.n_vertices
+    modules = {}
+    for name in protocol["modules"]:
+        module = get_module(name)
+        maker = getattr(module, "make_energy", None)
+        fn = maker(p.spec) if maker is not None else module.energy
+
+        def f(*fields, fn=fn):
+            st = dataclasses.replace(p.state, **dict(zip(DRIVES_FIELDS, fields)))
+            geo = dgeo.triangle_geometry(st.positions, p.topo.tri_rows, p.topo.tri_valid)
+            return fn(geo, st, p.topo, p.params)
+
+        energy, grads = jax.value_and_grad(f, argnums=(0, 1, 2))(
+            *(getattr(p.state, k) for k in DRIVES_FIELDS))
+        modules[name] = {"energy": float(energy),
+                         **{k: encode_rows(np.asarray(g, dtype=np.float64)[:nv])
+                            for k, g in zip(DRIVES_FIELDS, grads)}}
+    inputs = {k: np.asarray(getattr(p.state, k), dtype=np.float64)[:nv] for k in DRIVES_FIELDS}
+    return {
+        "n_vertices": nv,
+        "n_triangles": p.n_tris,
+        "inputs": {k: encode_rows(a) for k, a in inputs.items()},
+        "modules": modules,
+    }
+
+
+def run_kozlov_drives() -> dict:
+    import numpy as np
+
+    child = start_float32_child("kozlov_L3_drives_f64_jax.json")  # runs beside float64
+    rec = {"protocol": kozlov_drives_protocol(), **drives_run()}
+    f32 = float32_result(child)
+    from chip_smoke import decode_rows
+
+    devs = {}
+    for name, want in rec["modules"].items():
+        got = f32["modules"][name]
+        d = {"energy": abs(got["energy"] - want["energy"]) / abs(want["energy"])}
+        for f in DRIVES_FIELDS:
+            w, g = (decode_rows(r[f], rec["n_vertices"]) for r in (want, got))
+            scale = float(np.max(np.abs(w)))
+            d[f] = float(np.max(np.abs(g - w))) / scale if scale > 0 else 0.0
+        devs[name] = d
+    rec["float32_reference"] = {
+        "package": "membrane_solver_tpu", "platform": "cpu", "dtype": "float32",
+        "energies": {name: v["energy"] for name, v in f32["modules"].items()},
+        "max_rel_dev_vs_float64": devs}
     return rec
 
 
@@ -456,7 +621,8 @@ FLOAT32_RUNS = {
     **{name: (lambda name=name: cli_trace(CLI_PROTOCOLS[name](), digests=True))
        for name in CLI_PROTOCOLS},
     "kozlov_L3_thetaB_f64_jax.json": thetaB_run,
-    "kozlov_L3_reduced_f64_jax.json": reduced_run,
+    **{name: (lambda name=name: lane_run(LANE_PROTOCOLS[name]())) for name in LANE_PROTOCOLS},
+    "kozlov_L3_drives_f64_jax.json": drives_run,
 }
 
 
@@ -500,7 +666,9 @@ FIXTURES = {
     "helfrich_cube_L5_f64_jax.json": run_vesicle,
     **{name: (lambda name=name: run_cli_fixture(name)) for name in CLI_PROTOCOLS},
     "kozlov_L3_thetaB_f64_jax.json": run_kozlov_thetaB,
-    "kozlov_L3_reduced_f64_jax.json": run_kozlov_reduced,
+    **{name: (lambda name=name: run_lane_fixture(name, LANE_PROTOCOLS[name]()))
+       for name in LANE_PROTOCOLS},
+    "kozlov_L3_drives_f64_jax.json": run_kozlov_drives,
 }
 
 
