@@ -218,9 +218,61 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
     field).  The divergence kernel and its tilt backward must launch
     inside ``tilt_splay_twist_in``.  An ``[18-20 ...]`` line gives the three
     phases' seconds.
+21. kozlov L3 free disk, float64: the protocol of
+    ``tests/fixtures/torch_port/kozlov_L3_free_disk_f64_jax.json`` (the
+    kozlov protocol of phases 4-5 with ``rigid_disk`` appended and no
+    ``rigid_disk_group``: the 1,611 ``preset: disk`` vertices, whose own
+    ``pin_to_plane`` is dropped at L0, ``lane_edits``), five ``minimize(1)``
+    step by step, then the determinism check and 2 warm-up and 10 timed
+    steps.  After every step the disk's anchor-pair distances equal the
+    reference shape's to 1e-9 of the disk radius.  The accept flags and,
+    per step, the multiplier-finite flag of the shape KKT solve (the JAX
+    package's branch: non-finite multipliers skip the projection) equal
+    the fixture's; per step the energy less ``tilt_thetaB_contact_in``
+    within rel 1e-8 of the fixture's, every other term of the breakdown
+    after the step within 1e-8 of the energy, and that work term within
+    rel 1e-2 (it reads the refined disk group as a ring in angular order,
+    and round-off in the rigid fit reorders it).  The line also gives the
+    null-space fallback per step (``jit_core.solve_kkt_with_rescue``), the
+    largest multiplier, ms per step and the seconds of the compact K x K
+    solve (K = 4,827 pairwise rows plus the rim's).
+22. kozlov L3 free disk, float32: the same; anchor pairs to 1e-5, energies
+    within rel max(2e-3, 2 x the JAX package's own float32 deviation) of
+    phase 21's; the flags beside the JAX package's own float32 ones.
+23. kozlov L3 interface, float64: the protocol of
+    ``tests/fixtures/torch_port/kozlov_L3_interface_f64_jax.json`` (the
+    kozlov protocol with ``rim_slope_match_out`` replaced by
+    ``curved_local_interface_hard`` and the ``curved_local_interface_law``
+    energy at strength 0.8), as phase 21 runs it (4 timed steps, not 10:
+    the relax evaluates the whole tilt energy per iteration, 0.5-1.5 s per
+    step): energies within rel 1e-8
+    of the fixture with its accept flags, the breakdown's law term within
+    rel 1e-8, floored at 1e-12 of the energy.  The relax projects every
+    module's dense tilt rows (the hard row has no compact form): the row
+    count is printed, and the compact path fails the phase.
+24. kozlov L3 interface, float32: the same against phase 23 within rel
+    max(2e-3, 2 x the JAX package's own float32 deviation).  The law has no
+    frozen split (nor has the JAX package's), so this relax evaluates the
+    whole tilt energy per iteration and the frozen-tilt kernel does not run.
+25. kozlov L3 match drives, float64 then float32: the kozlov L3 mesh after
+    its refinements with ``match_drives_setup`` (seeded heights and
+    tilts, the rim and outer rings as the leaflet- and vector-match groups,
+    the disk and its boundary ring as the rigid group with radius 1), the
+    protocol of ``tests/fixtures/torch_port/kozlov_L3_match_drives_f64_jax.json``:
+    on the fixture's inputs (``port_match_record``), the energies and
+    gradients of ``curved_local_interface_penalty``, the soft
+    ``rim_slope_match_out``, ``bending_tilt`` and ``mean_curvature_tilt``
+    (exactly 0), the tilt rows and enforcement changes of
+    ``tilt_leaflet_match_rim`` and ``tilt_vector_match_rim`` (three modes
+    each) and ``curved_local_interface_match`` (vector_average,
+    local_mixed_match_v1), and the rigid disk's double fit: float64 within
+    1e-10 of the fixture, float32 within max(2e-3, 2 x the JAX package's own
+    float32 deviation per item).  The curvature-data and divergence kernels
+    and the divergence's tilt backward must launch inside ``bending_tilt``.
+    A ``[21-25 ...]`` line gives the five phases' seconds.
 
-Every lane phase (4-9, 11-19) also checks determinism: from the state its
-protocol leaves (phases 4-7 and 16-19: the five steps; phases 8-9 and
+Every lane phase (4-9, 11-19, 21-24) also checks determinism: from the state its
+protocol leaves (phases 4-7, 16-19 and 21-24: the five steps; phases 8-9 and
 11-14: the command list; phase 15: its ``minimize(3)``), it saves the state, runs
 ``minimize(2)`` (``g2`` through the command layer), takes a sha256 of the
 positions, the tilts and the energies, restores the state and runs again;
@@ -228,18 +280,19 @@ a ``[... determinism]`` line prints both digests, and unequal digests fail
 the run.  A ``[phase seconds]`` line gives each phase's seconds, and the
 last line before the kernels line the whole run's.
 
-Phases 4-9 and 11-20 each drive one path with every kernel launch counter
+Phases 4-9 and 11-25 each drive one path with every kernel launch counter
 set to 0 just before and read just after; a kernel of that path that was
 never launched fails the run (the frozen-tilt entry point, both variants,
-lies on the float32 kozlov paths only, phases 4, 15, 17 and 19; the surface
-energy, both variants, and the vertex sum on phases 4-9 and 11-19; the
-curvature data forward on phases 4-9 and 13-19 (on the cube paths through
-``energy stats``), its backward on phases 4-7 and 15-19; the divergence
-forward on the kozlov paths 4-5 and 15-19, and it and its tilt backward
-inside phase 20's splay-twist, the only path that runs the backward).
+lies on the float32 kozlov paths with a frozen relax, phases 4, 15, 17, 19
+and 22; the surface energy, both variants, and the vertex sum on phases
+4-9, 11-19 and 21-24; the curvature data forward on phases 4-9, 13-19 and
+21-25 (on the cube paths through ``energy stats``), its backward on phases
+4-7, 15-19 and 21-24; the divergence forward on the kozlov paths 4-5, 15-19
+and 21-25, and it and its tilt backward inside phase 20's splay-twist and
+phase 25's ``bending_tilt``).
 
 The line before the last is a JSON object ``{"kernels": [...]}``: per entry
-point, its launches over phases 4-9 and 11-20, its largest error against its twin,
+point, its launches over phases 4-9 and 11-25, its largest error against its twin,
 and phase 3's device ms per call (``ms``), its twin's (``plain_ms``), the
 bound, and, for the vertex sum, ``index_add_``'s (``library_ms``).  The
 last line is ``{"ok": true, "device": {...}}``.
@@ -279,6 +332,9 @@ THETAB_FIXTURE = FIXTURES / "kozlov_L3_thetaB_f64_jax.json"
 REDUCED_FIXTURE = FIXTURES / "kozlov_L3_reduced_f64_jax.json"
 SMOOTH_FIXTURE = FIXTURES / "kozlov_L3_smooth_f64_jax.json"
 DRIVES_FIXTURE = FIXTURES / "kozlov_L3_drives_f64_jax.json"
+FREE_DISK_FIXTURE = FIXTURES / "kozlov_L3_free_disk_f64_jax.json"
+INTERFACE_FIXTURE = FIXTURES / "kozlov_L3_interface_f64_jax.json"
+MATCH_FIXTURE = FIXTURES / "kozlov_L3_match_drives_f64_jax.json"
 CSRC = "membrane_solver_tpu_torch/csrc/"
 # entry point -> (source, the TPU kernel or JAX function it replaces, the
 # name of its timing rows, its launch counter)
@@ -329,12 +385,22 @@ DEVICE = "cuda"
 WARMUP_STEPS = 2
 TIMED_STEPS = 10
 REDUCED_TIMED_STEPS = 5  # phases 16-17: each step relaxes once per line-search trial
+# phases 23-24: each relax iteration evaluates the whole tilt energy (the
+# law has no frozen split), 0.5-1.5 s per step
+INTERFACE_TIMED_STEPS = 4
 
 ENERGY_RTOL = 1e-6  # frozen-tilt kernel vs twin energy (f32 reduction order)
 GRAD_RTOL = 5e-6  # frozen-tilt kernel vs twin gradient, relative to max|g|
 F64_RTOL = 1e-8  # f64 trajectory vs the JAX fixture (CUDA scatter order)
 F32_RTOL = 2e-3  # f32 vs f64 trajectory
-DRIVES_F64_RTOL = 1e-10  # phase 20: module values vs the JAX fixture (of |E|, of max|g|)
+DRIVES_F64_RTOL = 1e-10  # phases 20, 25: module values vs the JAX fixture (of |E|, of max|g|)
+# phases 21-22: the rigid disk's anchor-pair distances vs the reference shape's,
+# as a share of the disk radius (1)
+PAIR_TOL = {"float64": 1e-9, "float32": 1e-5}
+# phase 21: the scalar work term that reads the refined disk group as a ring
+# in angular order; it carries no gradient, and round-off in the rigid fit
+# reorders the patch (five orderings on this lane span 3e-3 of the term)
+ORDER_TERM, ORDER_RTOL = "tilt_thetaB_contact_in", 1e-2
 CONSOLE_TIMEOUT_S = 300  # phase 10's subprocess
 # per-triangle kernels vs twins: (rtol, atol) elementwise at float32 (the JAX
 # kernel tests' bounds), rtol of max(|want|, 1) at float64
@@ -1134,8 +1200,7 @@ def build_lane(torch, protocol: dict, dtype):
     if protocol["mesh"] == "meshgen kozlov_1disk":
         mesh = parse_geometry(build("kozlov_1disk"))
         mesh.global_parameters.update(protocol["global_parameters"])
-        extra = protocol.get("extra_energy_modules", ())
-        mesh.energy_modules.extend(m for m in extra if m not in mesh.energy_modules)
+        lane_edits(mesh, protocol)
         mn = Minimizer(mesh, device=DEVICE, dtype=dtype, quiet=True)
         mn.step_size = protocol["step_size"]
         for _ in range(protocol["refines"]):
@@ -1160,6 +1225,38 @@ def build_lane(torch, protocol: dict, dtype):
         mn.invalidate()
         mn.enforce_constraints_after_mesh_ops()
     return mn
+
+
+def lane_edits(mesh, protocol: dict) -> None:
+    """A kozlov protocol's changes to the parsed L0 mesh (either package's), before the refinements.
+
+    ``extra_energy_modules`` and ``extra_constraint_modules`` are appended
+    to the mesh's lists, ``drop_constraint_modules`` taken out of them;
+    ``free_disk_preset`` names a preset whose vertices lose their own
+    ``pin_to_plane`` (from the vertices' constraint lists and from the
+    preset's definition, so the refinements' new vertices do not take it
+    back): the free-disk lane's disk then moves as one rigid body under
+    ``rigid_disk``.
+    """
+    for key, modules in (("extra_energy_modules", mesh.energy_modules),
+                         ("extra_constraint_modules", mesh.constraint_modules)):
+        modules.extend(m for m in protocol.get(key, ()) if m not in modules)
+    drop = set(protocol.get("drop_constraint_modules", ()))
+    mesh.constraint_modules[:] = [m for m in mesh.constraint_modules if m not in drop]
+    preset = protocol.get("free_disk_preset")
+    if preset is None:
+        return
+
+    def unpinned(options: dict) -> None:
+        if "constraints" in options:
+            options["constraints"] = [c for c in options["constraints"] if c != "pin_to_plane"]
+
+    definition = dict(mesh.definitions[preset])
+    unpinned(definition)
+    mesh.definitions[preset] = definition
+    for v in mesh.vertices.values():
+        if (v.options or {}).get("preset") == preset:
+            unpinned(v.options)
 
 
 def drives_setup(mesh, protocol: dict) -> None:
@@ -1187,6 +1284,194 @@ def drives_setup(mesh, protocol: dict) -> None:
         if not (v.tilt_fixed_in or v.tilt_fixed_out):
             v.tilt_in = protocol["tilt_scale"] * rng.standard_normal(3)
             v.tilt_out = protocol["tilt_scale"] * rng.standard_normal(3)
+
+
+def match_drives_setup(mesh, protocol: dict) -> None:
+    """The local-interface and rim-matching drives on a kozlov host mesh (either package's).
+
+    The protocol's global parameters, energy and constraint modules; the
+    ``rim_slope_match_group`` rim ring (radius 1) tagged as the
+    ``tilt_leaflet_match_group`` ring and, as role disk, with the outer ring
+    (role rim, radius 1.36; both 32 vertices at L3) as one
+    ``tilt_vector_match_group``; the ``rigid_disk_group`` made of the
+    ``preset: disk`` vertices and the rim-preset ring at radius 1 (the
+    disk boundary, which the double fit re-pins); then, in the mesh's
+    vertex order (``numpy.random.default_rng(seed)``), an offset of
+    ``xy_scale`` in x and y and ``z_scale`` in z on every free vertex and
+    seeded leaflet and single-field tilts of ``tilt_scale`` where they are
+    free.  The in-plane offsets part the rigid group's two in-plane second
+    moments, which the disk's 16-fold symmetry makes equal: the closed-form
+    Kabsch fit loses digits at a repeated singular value.
+    """
+    groups = protocol["groups"]
+    mesh.global_parameters.update(protocol["global_parameters"])
+    mesh.energy_modules.extend(m for m in protocol["energy_modules"]
+                               if m not in mesh.energy_modules)
+    mesh.constraint_modules.extend(m for m in protocol["constraint_modules"]
+                                   if m not in mesh.constraint_modules)
+    for v in mesh.vertices.values():
+        opts = v.options
+        ring = opts.get("rim_slope_match_group")
+        if ring == "rim":
+            opts["tilt_leaflet_match_group"] = groups["leaflet_match"]
+            opts["tilt_vector_match_group"] = groups["vector_match"]
+            opts["tilt_vector_match_role"] = "disk"
+        elif ring == "outer":
+            opts["tilt_vector_match_group"] = groups["vector_match"]
+            opts["tilt_vector_match_role"] = "rim"
+        radius = float(np.hypot(v.position[0], v.position[1]))
+        if opts.get("preset") == "disk" or (opts.get("preset") == "rim"
+                                            and abs(radius - 1.0) <= 1e-9):
+            opts["rigid_disk_group"] = groups["rigid_disk"]
+    rng = np.random.default_rng(protocol["seed"])
+    for v in mesh.vertices.values():
+        offset = rng.standard_normal(3) * np.array(
+            [protocol["xy_scale"], protocol["xy_scale"], protocol["z_scale"]])
+        if not v.fixed:
+            v.position[:] = v.position + offset
+        tilts = protocol["tilt_scale"] * rng.standard_normal((3, 3))
+        if not (v.tilt_fixed_in or v.tilt_fixed_out):
+            v.tilt_in, v.tilt_out = tilts[0], tilts[1]
+        if not v.tilt_fixed:
+            v.tilt = tilts[2]
+
+
+def match_problems(minimizer, mesh, protocol: dict, **kw) -> dict:
+    """Per ``curved_local_interface_match`` mode, the problem compiled with it.
+
+    ``minimizer`` is either package's Minimizer class (``kw`` its keywords),
+    ``mesh`` the host mesh after :func:`match_drives_setup`; the first
+    mode's problem holds every other module's evaluation.
+    """
+    key, modes = protocol["modes"]["curved_local_interface_match"]
+    out = {}
+    for mode in modes:
+        mesh.global_parameters.update({key: mode})
+        out[mode] = minimizer(mesh, quiet=True, **kw).problem()
+    return out
+
+
+def port_match_record(torch, mesh, protocol: dict, dtype, device, inputs=None,
+                      counters=None) -> dict:
+    """The match drives by the port, in the format of the recorder's ``match_drives_run``.
+
+    ``mesh`` is the kozlov host mesh after :func:`match_drives_setup`;
+    ``inputs`` (field -> (n, 3) float64 array) replaces the compiled state
+    (the fixture's inputs), else the port's own is used.  With
+    ``counters``, the record's ``launches`` holds, per energy module, the
+    curvature-data and divergence launches (forward, backward) its
+    evaluation made.
+    """
+    from membrane_solver_tpu_torch import Minimizer
+    from membrane_solver_tpu_torch.constraints import get_constraint
+    from membrane_solver_tpu_torch.device import geo as dgeo
+    from membrane_solver_tpu_torch.energy import get_module
+
+    fields = ("positions", "tilts", "tilts_in", "tilts_out")
+    problems = match_problems(Minimizer, mesh, protocol, device=device, dtype=dtype)
+    nv = next(iter(problems.values())).n_vertices
+    for q in problems.values():
+        if inputs is not None:
+            q.state = dataclasses.replace(q.state, **{
+                f: torch.as_tensor(inputs[f], dtype=dtype, device=device) for f in fields})
+    p = next(iter(problems.values()))
+    as_np = lambda t: t.detach().cpu().double().numpy()  # noqa: E731
+    kernel_keys = ("curvature_data", "curvature_data_bwd", "p1_div", "p1_div_bwd")
+    energies, launches = {}, {}
+    for name in protocol["energy_modules"]:
+        module = get_module(name)
+        maker = getattr(module, "make_energy", None)
+        fn = maker(p.spec) if maker is not None else module.energy
+        leaves = [getattr(p.state, f).detach().clone().requires_grad_(True) for f in fields]
+        st = dataclasses.replace(p.state, **dict(zip(fields, leaves)))
+        before = [counters["tri_kernels"][k] for k in kernel_keys] if counters else None
+        geo = dgeo.triangle_geometry(st.positions, p.topo.tri_rows, p.topo.tri_valid)
+        e = fn(geo, st, p.topo, p.params)
+        grads = (torch.autograd.grad(e, leaves, allow_unused=True) if e.requires_grad
+                 else [None] * len(leaves))
+        if counters:
+            if e.is_cuda:
+                torch.cuda.synchronize()
+            launches[name] = [counters["tri_kernels"][k] - b for k, b in zip(kernel_keys, before)]
+        energies[name] = {"energy": float(e.detach()), **{
+            f: encode_rows(np.zeros((nv, 3)) if g is None else as_np(g))
+            for f, g in zip(fields, grads)}}
+    constraints = {}
+    for name, (_key, modes) in protocol["modes"].items():
+        mod = get_constraint(name)
+        for mode in modes:
+            if name == "curved_local_interface_match":
+                q = problems[mode]
+                spec = q.spec
+            else:
+                q, spec = p, static_variant(p.spec, f"constraint:{name}", mode)
+            rows = as_np(mod.make_tilt_constraint_rows(spec)(q.state, q.topo, q.params))
+            out = mod.make_enforce_tilts(spec)(q.state, q.topo, q.params)
+            constraints[f"{name}/{mode}"] = {
+                "rows": [[encode_rows(rows[k, leaf]) for leaf in range(2)]
+                         for k in range(rows.shape[0])],
+                **{f: encode_rows(as_np(getattr(out, f)) - as_np(getattr(q.state, f)))
+                   for f in ("tilts_in", "tilts_out")}}
+    rng = np.random.default_rng(protocol["rigid_seed"])
+    moved = as_np(p.state.positions) + protocol["rigid_scale"] * rng.standard_normal((nv, 3))
+    st = dataclasses.replace(p.state, positions=torch.as_tensor(moved, dtype=dtype, device=device))
+    out = get_constraint("rigid_disk").make_enforce(p.spec)(st, p.topo, p.params)
+    return {
+        "n_vertices": nv,
+        "n_triangles": p.n_tris,
+        "inputs": {f: encode_rows(as_np(getattr(p.state, f))) for f in fields},
+        "energies": energies,
+        "constraints": constraints,
+        "rigid_disk": encode_rows(as_np(out.positions) - moved),
+        "launches": launches,
+    }
+
+
+def static_variant(spec, key: str, value: str):
+    """``spec`` with the first entry of ``key``'s compile-time static tuple set to ``value``.
+
+    The mode of ``tilt_leaflet_match_rim`` and ``tilt_vector_match_rim``, which
+    no compiled table depends on; either package's spec.
+    """
+    extra = tuple((k, (value,) + tuple(v[1:]) if k == key else v) for k, v in spec.extra_static)
+    return dataclasses.replace(spec, extra_static=extra)
+
+
+def match_deviations(want: dict, got: dict, np) -> dict:
+    """Largest deviations of a match-drives record ``got`` from ``want`` (both as recorded).
+
+    Per energy module: the energy's relative deviation and, per field, the
+    gradient's largest error over its largest entry; per constraint and
+    mode, the same for its tilt rows (all blocks) and for each leaflet's
+    enforcement change; and for the rigid disk's position change.  An array
+    that is zero in ``want`` gives its largest absolute entry in ``got``.
+    """
+    n = want["n_vertices"]
+
+    def dev(w_rec, g_rec):
+        w, g = decode_rows(w_rec, n), decode_rows(g_rec, n)
+        scale = float(np.max(np.abs(w)))
+        err = float(np.max(np.abs(g - w)))
+        return err / scale if scale > 0 else err
+
+    out = {"energies": {}, "constraints": {}}
+    for name, w in want["energies"].items():
+        g = got["energies"][name]
+        e = abs(g["energy"] - w["energy"])
+        row = {"energy": e / abs(w["energy"]) if w["energy"] != 0.0 else e}
+        row.update({f: dev(w[f], g[f]) for f in w if f != "energy"})
+        out["energies"][name] = row
+    for key, w in want["constraints"].items():
+        g = got["constraints"][key]
+        blocks = [(wb, gb) for wk, gk in zip(w["rows"], g["rows"], strict=True)
+                  for wb, gb in zip(wk, gk, strict=True)]
+        scale = max(float(np.max(np.abs(decode_rows(wb, n)))) for wb, _gb in blocks)
+        err = max(float(np.max(np.abs(decode_rows(gb, n) - decode_rows(wb, n))))
+                  for wb, gb in blocks)
+        out["constraints"][key] = {"rows": err / scale if scale > 0 else err,
+                                   **{f: dev(w[f], g[f]) for f in ("tilts_in", "tilts_out")}}
+    out["rigid_disk"] = dev(want["rigid_disk"], got["rigid_disk"])
+    return out
 
 
 def encode_rows(arr) -> dict:
@@ -1222,11 +1507,11 @@ def run_protocol(torch, dtype, protocol: dict):
     return mn, energies, steps, setup_s
 
 
-def timed_steps(torch, mn) -> float:
+def timed_steps(torch, mn, steps: int = TIMED_STEPS) -> float:
     mn.minimize(WARMUP_STEPS)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = mn.minimize(TIMED_STEPS)
+    res = mn.minimize(steps)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / max(int(res["iterations"]), 1)
 
@@ -1897,6 +2182,283 @@ def phase_drives(torch, counters, label: str, fixture: dict) -> dict:
     return {"launches": launches, "rows": rows}
 
 
+def pair_distance_error(torch, mn) -> float:
+    """Largest |d_ij - d_ij(reference)| over the rigid disk's anchor pairs, on the device state."""
+    p = mn.problem()
+    x = lambda k: p.topo.extras[f"constraint:rigid_disk/{k}"]  # noqa: E731
+    pairs = x("pairs")
+    pos = p.state.positions[x("rows")]
+    ref = x("ref")
+    d = torch.linalg.vector_norm(pos[pairs[:, 0]] - pos[pairs[:, 1]], dim=1)
+    d_ref = torch.linalg.vector_norm(ref[pairs[:, 0]] - ref[pairs[:, 1]], dim=1)
+    return float(torch.max(torch.abs(d - d_ref)))
+
+
+def lane_steps(torch, protocol: dict, dtype, per_step=None):
+    """A fixture's lane on the card, step by step: (minimizer, energies, accepted, per-step rows, setup s).
+
+    Per step: the shape KKT solves' flags (``jit_core.KKT_RECORD``: the LU's
+    multipliers finite, the null-space fallback taken, max|lam|) and the
+    breakdown after the step, plus ``per_step(mn)`` when given.
+    """
+    from membrane_solver_tpu_torch.runtime import jit_core
+
+    t0 = time.perf_counter()
+    mn = build_lane(torch, protocol, dtype)
+    setup_s = time.perf_counter() - t0
+    energies, accepted, rows = [], [], []
+    try:
+        for _ in range(protocol["steps"]):
+            jit_core.KKT_RECORD = []
+            res = mn.minimize(1)
+            solves = [(bool(f), bool(r), float(m)) for f, r, m in jit_core.KKT_RECORD]
+            energies.append(float(res["energy"]))
+            accepted.append(bool(res["step_success"]))
+            row = {"finite": all(f for f, _r, _m in solves),
+                   "fallback": any(r for _f, r, _m in solves),
+                   "lam_max": max((m for _f, _r, m in solves), default=0.0),
+                   "breakdown": {k: float(v) for k, v in mn.compute_energy_breakdown().items()}}
+            if per_step is not None:
+                row.update(per_step(mn))
+            rows.append(row)
+    finally:
+        jit_core.KKT_RECORD = None
+    return mn, energies, accepted, rows, setup_s
+
+
+def kkt_solve_seconds(torch, mn) -> tuple[float, int]:
+    """(seconds, K) of the largest shape KKT solve of one more ``minimize(1)``, synced around it."""
+    from membrane_solver_tpu_torch.runtime import jit_core
+
+    solve = jit_core.solve_kkt_with_rescue
+    timed = []
+
+    def wrapped(A, b):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lam = solve(A, b)
+        torch.cuda.synchronize()
+        timed.append((time.perf_counter() - t0, A.shape[0]))
+        return lam
+
+    jit_core.solve_kkt_with_rescue = wrapped
+    try:
+        mn.minimize(1)
+    finally:
+        jit_core.solve_kkt_with_rescue = solve
+    return max(timed, key=lambda t: t[1]) if timed else (0.0, 0)
+
+
+def lane_phase(torch, counters, label: str, fixture: dict, dtype, expect: tuple, f64=None,
+               per_step=None, timed=TIMED_STEPS) -> tuple[dict, dict]:
+    """The common part of phases 21-24, counts reset just before and read after.
+
+    The fixture's protocol step by step (:func:`lane_steps`), the determinism
+    check (two ``minimize(2)`` from one saved state), 2 warm-up and ``timed``
+    timed steps; at float32 the energies against ``f64`` (the float64 phase's
+    result) within max(2e-3, 2 x the JAX package's own float32 deviation).
+    Returns (result, the fields of its line).
+    """
+    proto = fixture["protocol"]
+    reset_counts(counters)
+    mn, energies, accepted, rows, setup_s = lane_steps(torch, proto, dtype, per_step)
+    snap = check_repeat(torch, label, mn, lambda: [float(mn.minimize(2)["energy"])])
+    ms = timed_steps(torch, mn, timed)
+    launches = read_counts(counters)
+    p = mn.problem()
+    if (p.n_vertices, p.n_tris) != (fixture["n_vertices"], fixture["n_triangles"]):
+        raise AssertionError(f"{label}: mesh size {(p.n_vertices, p.n_tris)} differs from the fixture")
+    if not all(math.isfinite(e) for e in energies):
+        raise AssertionError(f"{label}: non-finite energies: {energies}")
+    missing = [k for k in expect if not launches[k] > 0]
+    if missing:
+        raise AssertionError(f"{label}: the path did not launch {missing}: {launches}")
+    out = {"energies": energies, "accepted": accepted, "rows": rows, "ms": ms,
+           "launches": launches, "mn": mn, "snap": snap}
+    fields = {"vertices": p.n_vertices, "triangles": p.n_tris, "setup_s": f"{setup_s:.3f}",
+              "energies": json.dumps(energies), "accepted": json.dumps(accepted),
+              "multipliers_finite": json.dumps([r["finite"] for r in rows]),
+              "null_space_fallback": json.dumps([r["fallback"] for r in rows]),
+              "lam_max": json.dumps([r["lam_max"] for r in rows]),
+              "ms_per_step": f"{ms:.3f}", "launches": json.dumps(launches)}
+    if f64 is not None:
+        out["dev"] = max(abs(a - b) / abs(b) for a, b in zip(energies, f64["energies"],
+                                                             strict=True))
+        bound = max(F32_RTOL, 2 * fixture["float32_reference"]["max_rel_dev_vs_float64"])
+        fields.update(reference="'the float64 phase'", max_rel_dev=repr(out["dev"]),
+                      bound=repr(bound),
+                      jax_float32_accepted=json.dumps(fixture["float32_reference"]["accepted"]),
+                      jax_float32_multipliers_finite=json.dumps(
+                          fixture["float32_reference"]["multipliers_finite"]))
+        if not out["dev"] <= bound:
+            raise AssertionError(f"{label}: energies deviate from the float64 phase by {out['dev']!r}")
+    return out, fields
+
+
+def phase_free_disk(torch, counters, label: str, fixture: dict, dtype, expect: tuple,
+                    f64=None) -> dict:
+    """The free-disk lane on kozlov L3 (``lane_phase``), then its own checks.
+
+    After every step the rigid disk's anchor-pair distances equal the
+    reference shape's (``PAIR_TOL``).  At float64: the accept flags and the
+    multiplier-finite flags (the JAX package's branch) equal the fixture's;
+    per step the energy less ``ORDER_TERM`` (the breakdown's, after the
+    step) within rel 1e-8 of the fixture's, and every other breakdown term
+    within 1e-8 of the lane's energy; ``ORDER_TERM`` within ``ORDER_RTOL``.
+    Then the seconds of the compact K x K solve of one more step.
+    """
+    tol = PAIR_TOL[str(dtype).split(".")[-1]]
+    out, fields = lane_phase(torch, counters, label, fixture, dtype, expect, f64,
+                             per_step=lambda mn: {"pair_err": pair_distance_error(torch, mn)})
+    pair_err = max(r["pair_err"] for r in out["rows"])
+    solve_s, k = kkt_solve_seconds(torch, out["mn"])
+    fields.update(pair_distance_max_err=repr(pair_err), pair_bound=repr(tol),
+                  kkt_K=k, kkt_solve_s=f"{solve_s:.4f}")
+    failed = []
+    if not pair_err <= tol:
+        failed.append(f"anchor-pair distances off by {pair_err!r}")
+    if f64 is None:
+        want_e, rows = fixture["energies"], out["rows"]
+        reduced_dev, term_dev, order_dev = [], [], []
+        for e, w, r, wb in zip(out["energies"], want_e, rows, fixture["breakdowns"], strict=True):
+            bd = r["breakdown"]
+            reduced_dev.append(abs((e - bd[ORDER_TERM]) - (w - wb[ORDER_TERM]))
+                               / abs(w - wb[ORDER_TERM]))
+            term_dev.append(max(abs(bd[k] - wb[k]) for k in wb if k != ORDER_TERM) / abs(w))
+            order_dev.append(abs(bd[ORDER_TERM] - wb[ORDER_TERM]) / abs(wb[ORDER_TERM]))
+        out["dev"] = max(reduced_dev)
+        fields.update(jax_accepted=json.dumps(fixture["accepted"]),
+                      jax_multipliers_finite=json.dumps(fixture["multipliers_finite"]),
+                      jax_lam_max=json.dumps(fixture["multipliers_max_abs"]),
+                      max_rel_dev_less_order_term=repr(out["dev"]),
+                      max_term_dev=repr(max(term_dev)), order_term_rel_dev=json.dumps(order_dev),
+                      total_rel_dev=json.dumps([abs(a - b) / abs(b) for a, b in
+                                                zip(out["energies"], want_e, strict=True)]))
+        if out["accepted"] != fixture["accepted"]:
+            failed.append(f"accept flags {out['accepted']} vs {fixture['accepted']}")
+        if [r["finite"] for r in rows] != fixture["multipliers_finite"]:
+            failed.append("multiplier-finite flags differ from the fixture's")
+        if not (out["dev"] <= F64_RTOL and max(term_dev) <= F64_RTOL
+                and max(order_dev) <= ORDER_RTOL):
+            failed.append(f"energies: {reduced_dev} {term_dev} {order_dev}")
+    say(label, **fields)
+    if failed:
+        raise AssertionError(f"{label}: " + "; ".join(failed))
+    out["kkt_solve_s"], out["kkt_K"] = solve_s, k
+    return out
+
+
+def phase_interface(torch, counters, label: str, fixture: dict, dtype, expect: tuple,
+                    f64=None) -> dict:
+    """The local-interface lane on kozlov L3 (``lane_phase``), then its own checks.
+
+    The relax must take every module's dense tilt rows (the hard interface
+    row has no compact form): their count is printed.  At float64 the
+    energies within rel 1e-8 of the fixture with its accept flags, and the
+    breakdown's ``curved_local_interface_law`` term within rel 1e-8 of the
+    fixture's, floored at 1e-12 of the lane's energy (it starts at 0).
+    """
+    from membrane_solver_tpu_torch.runtime import tilt_relax
+
+    out, fields = lane_phase(torch, counters, label, fixture, dtype, expect, f64,
+                             timed=INTERFACE_TIMED_STEPS)
+    p = out["mn"].problem()
+    compact = tilt_relax.make_compact_tilt_collector(p.spec)
+    rows = tilt_relax.make_tilt_constraint_rows(p.spec)(p.state, p.topo, p.params)
+    fields.update(dense_tilt_rows=int(rows.shape[0]), compact_tilt_path=compact is not None)
+    out["dense_rows"] = int(rows.shape[0])
+    failed = [] if compact is None else ["the relax took compact tilt rows"]
+    if f64 is None:
+        out["dev"] = max(abs(a - b) / abs(b) for a, b in zip(out["energies"], fixture["energies"],
+                                                             strict=True))
+        law = "curved_local_interface_law"
+        got, want = out["rows"][-1]["breakdown"][law], fixture["breakdown_after"][law]
+        floor = 1e-12 * abs(fixture["energy_after"])
+        fields.update(jax_accepted=json.dumps(fixture["accepted"]), max_rel_dev=repr(out["dev"]),
+                      law_term=repr(got), law_term_fixture=repr(want))
+        if out["accepted"] != fixture["accepted"]:
+            failed.append(f"accept flags {out['accepted']} vs {fixture['accepted']}")
+        if not out["dev"] <= F64_RTOL:
+            failed.append(f"energies deviate from the JAX fixture by {out['dev']!r}")
+        if not abs(got - want) <= F64_RTOL * max(abs(want), floor):
+            failed.append(f"{law} {got!r} vs {want!r}")
+    say(label, **fields)
+    if failed:
+        raise AssertionError(f"{label}: " + "; ".join(failed))
+    return out
+
+
+def phase_match_drives(torch, counters, label: str, fixture: dict) -> dict:
+    """The local-interface family's drives on kozlov L3, float64 against the fixture, then float32.
+
+    ``match_drives_setup`` on the kozlov lane's mesh after its refinements
+    (built at float64; the lane's own inputs within 1e-12 of the
+    fixture's), then ``port_match_record`` on the fixture's inputs: the
+    energies and gradients, the constraints' tilt rows and enforcement
+    changes in every mode, the rigid disk's double fit, within 1e-10 of the
+    fixture (of |E|, of each array's largest entry); then the same at
+    float32 against the float64 record within max(2e-3, 2 x the JAX
+    package's own float32 deviation per item).  The curvature-data kernel,
+    the divergence kernel and its tilt backward must launch inside
+    ``bending_tilt``.
+    """
+    proto = fixture["protocol"]
+    t0 = time.perf_counter()
+    reset_counts(counters)
+    mesh = build_lane(torch, proto["kozlov"], torch.float64).mesh
+    match_drives_setup(mesh, proto)
+    setup_s = time.perf_counter() - t0
+    nv = fixture["n_vertices"]
+    fields = ("positions", "tilts", "tilts_in", "tilts_out")
+    inputs = {f: decode_rows(fixture["inputs"][f], nv) for f in fields}
+    t1 = time.perf_counter()
+    own = port_match_record(torch, mesh, proto, torch.float64, DEVICE)
+    input_dev = {f: float(np.max(np.abs(decode_rows(own["inputs"][f], nv) - inputs[f])))
+                 for f in fields}
+    rec64 = port_match_record(torch, mesh, proto, torch.float64, DEVICE, inputs, counters)
+    s64 = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    rec32 = port_match_record(torch, mesh, proto, torch.float32, DEVICE, inputs)
+    s32 = time.perf_counter() - t1
+    launches = read_counts(counters)
+    dev64 = match_deviations(fixture, rec64, np)
+    dev32 = match_deviations(rec64, rec32, np)
+    ref32 = fixture["float32_reference"]["max_rel_dev_vs_float64"]
+    failed = []
+    if not all(d <= 1e-12 * max(float(np.max(np.abs(inputs[f]))), 1.0)
+               for f, d in input_dev.items()):
+        failed.append(f"the lane's inputs differ from the fixture's: {input_dev}")
+    for group in ("energies", "constraints"):
+        for name, row in dev64[group].items():
+            bound32 = {k: max(F32_RTOL, 2 * ref32[group][name][k]) for k in row}
+            say(label + " item", item=name, dev_f64=json.dumps(row),
+                dev_f32=json.dumps(dev32[group][name]), bound_f32=json.dumps(bound32))
+            if not all(d <= DRIVES_F64_RTOL for d in row.values()):
+                failed.append(f"{name} float64 {row}")
+            if not all(dev32[group][name][k] <= bound32[k] for k in row):
+                failed.append(f"{name} float32 {dev32[group][name]} bound {bound32}")
+    bound_rigid = max(F32_RTOL, 2 * ref32["rigid_disk"])
+    say(label + " item", item="rigid_disk", dev_f64=repr(dev64["rigid_disk"]),
+        dev_f32=repr(dev32["rigid_disk"]), bound_f32=repr(bound_rigid))
+    if not dev64["rigid_disk"] <= DRIVES_F64_RTOL:
+        failed.append(f"rigid_disk float64 {dev64['rigid_disk']!r}")
+    if not dev32["rigid_disk"] <= bound_rigid:
+        failed.append(f"rigid_disk float32 {dev32['rigid_disk']!r}")
+    stub = (rec64["energies"]["mean_curvature_tilt"]["energy"],
+            rec32["energies"]["mean_curvature_tilt"]["energy"])
+    if stub != (0.0, 0.0):
+        failed.append(f"mean_curvature_tilt is not 0: {stub}")
+    bt = rec64["launches"]["bending_tilt"]  # curvature fwd, bwd, divergence fwd, tilt bwd
+    say(label, vertices=nv, triangles=fixture["n_triangles"], setup_s=f"{setup_s:.3f}",
+        input_max_abs_dev=json.dumps(input_dev), f64_s=f"{s64:.3f}", f32_s=f"{s32:.3f}",
+        bending_tilt_launches=json.dumps(bt), launches=json.dumps(launches))
+    if not (bt[0] > 0 and bt[2] > 0 and bt[3] > 0):
+        failed.append(f"bending_tilt did not launch kernels 3, 4 and the tilt backward: {bt}")
+    if failed:
+        raise AssertionError(f"{label}: " + "; ".join(failed))
+    return {"launches": launches, "dev64": dev64, "dev32": dev32}
+
+
 def phase_console(torch, fixture: dict) -> None:
     """``python -m membrane_solver_tpu_torch`` on the card; the saved mesh re-evaluated at float64."""
     import tempfile
@@ -1969,6 +2531,9 @@ def main() -> int:
     reduced = load_fixture(REDUCED_FIXTURE)
     smooth = load_fixture(SMOOTH_FIXTURE)
     drives = json.loads(DRIVES_FIXTURE.read_text())
+    free_disk = load_fixture(FREE_DISK_FIXTURE)
+    interface = load_fixture(INTERFACE_FIXTURE)
+    match = json.loads(MATCH_FIXTURE.read_text())
     seconds = {}
 
     def timed(phase, fn, *args, **kw):
@@ -2056,6 +2621,21 @@ def main() -> int:
     runs["x"] = timed("20", phase_drives, torch, counters, "20 kozlov_L3_drives", drives)
     say("18-20", seconds=f"{seconds['18'] + seconds['19'] + seconds['20']:.3f}",
         phases=json.dumps({k: seconds[k] for k in ("18", "19", "20")}))
+    # the rigid free disk, the local-interface lane (dense tilt rows), the
+    # family's drives
+    runs["f64"] = timed("21", phase_free_disk, torch, counters, "21 kozlov_L3_free_disk f64",
+                        free_disk, torch.float64, kozlov_path)
+    runs["f32"] = timed("22", phase_free_disk, torch, counters, "22 kozlov_L3_free_disk f32",
+                        free_disk, torch.float32, f32_kozlov_path, f64=runs["f64"])
+    runs["i64"] = timed("23", phase_interface, torch, counters, "23 kozlov_L3_interface f64",
+                        interface, torch.float64, kozlov_path)
+    runs["i32"] = timed("24", phase_interface, torch, counters, "24 kozlov_L3_interface f32",
+                        interface, torch.float32, kozlov_path, f64=runs["i64"])
+    runs["md"] = timed("25", phase_match_drives, torch, counters, "25 kozlov_L3_match_drives",
+                       match)
+    new = ("21", "22", "23", "24", "25")
+    say("21-25", seconds=f"{sum(seconds[k] for k in new):.3f}",
+        phases=json.dumps({k: seconds[k] for k in new}))
     # phases 8-10 have imported the CLI and the command layer by now
     if not {"membrane_solver_tpu_torch.cli", "membrane_solver_tpu_torch.commands"} <= set(sys.modules):
         raise AssertionError("the CLI and the command layer were not imported")

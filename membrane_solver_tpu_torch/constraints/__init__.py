@@ -5,12 +5,11 @@ module may define (all optional): ``enforce`` / ``make_enforce`` (geometric
 projection), ``constraint_gradient_rows``, ``local_constraint_normals``,
 ``make_compact_constraint_rows`` (shape KKT rows), ``make_enforce_tilts``,
 ``make_frozen_enforce_tilts``, ``make_tilt_constraint_rows`` and
-``make_compact_tilt_rows`` (leaflet-tilt constraints).  Ported: the
-modules of the kozlov coupled-tilt lane, the hard volume constraint, the
-shape family (global_area, body_area, perimeter, fix_facet_area,
-fixed_plane, expression) and the reference's empty placeholders (edge,
-fix_facet_angle, fix_vertex_position, dummy_module), which load as no-ops;
-any other name raises NotImplementedError.
+``make_compact_tilt_rows`` (leaflet-tilt constraints).  Every constraint
+module of the JAX package has its counterpart here (``PORTED`` lists them;
+``local_interface_shells`` is the shell helper of the curved
+local-interface family and has no hooks); a name with no module raises the
+JAX package's ``ModuleNotFoundError`` (from ``importlib``).
 """
 
 from __future__ import annotations
@@ -35,16 +34,18 @@ PORTED = (
     "fix_facet_angle",
     "fix_vertex_position",
     "dummy_module",
+    "curved_local_interface_hard",
+    "curved_local_interface_match",
+    "local_interface_shells",
+    "rigid_disk",
+    "tilt_leaflet_match_rim",
+    "tilt_vector_match_rim",
 )
 
 _CACHE: Dict[str, ModuleType] = {}
 
 
 def get_constraint(name: str) -> ModuleType:
-    if name not in PORTED:
-        raise NotImplementedError(
-            f"constraint module {name!r} is not ported to membrane_solver_tpu_torch"
-        )
     if name not in _CACHE:
         _CACHE[name] = importlib.import_module(f"membrane_solver_tpu_torch.constraints.{name}")
     return _CACHE[name]

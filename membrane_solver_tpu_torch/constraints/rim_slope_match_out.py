@@ -183,8 +183,8 @@ def compile_topology(layout) -> dict:
     }
 
 
-def _x(topo, key):
-    return topo.extras[f"{_KEY}/{key}"]
+def _x(topo, key, prefix=_KEY):
+    return topo.extras[f"{prefix}/{key}"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,9 +203,9 @@ class Flags:
         return self.theta_is_param or not self.has_disk
 
 
-def _spec_flags(spec):
-    """The :class:`Flags` of an active lane, else None."""
-    f = spec.static_of(_KEY, ("inactive",))
+def _spec_flags(spec, key=_KEY):
+    """The :class:`Flags` of an active lane, else None (``key``: the extras prefix)."""
+    f = spec.static_of(key, ("inactive",))
     if f[0] != "active":
         return None
     return Flags(bool(f[1]), bool(f[2]), bool(f[3]), bool(f[4]), bool(f[5]), bool(f[7]))
@@ -256,19 +256,20 @@ def _interp_ring(outer_pos, outer_valid, s_targets):
     return idx0, idx1, 1.0 - t, t
 
 
-def matching_data(positions, topo, interp_outer: bool):
+def matching_data(positions, topo, interp_outer: bool, prefix=_KEY):
     """Live matching payload (valid, phi, inv_dr, r_hat, weights, normal, outer map).
 
     Recomputed from the current positions at every evaluation.  The outer
     map (idx0, idx1, w0, w1) pairs each rim vertex with the outer ring: 1:1
-    on equal rings, by normalized arc length otherwise.
+    on equal rings, by normalized arc length otherwise.  ``prefix`` names
+    the extras (the soft energy's own, ``energy:rim_slope_match_out``).
     """
     dtype = positions.dtype
-    rim = _x(topo, "rim")
-    outer = _x(topo, "outer")
-    ring_valid = _x(topo, "valid")
-    center = _x(topo, "center").to(dtype)
-    normal = _x(topo, "normal").to(dtype)
+    rim = _x(topo, "rim", prefix)
+    outer = _x(topo, "outer", prefix)
+    ring_valid = _x(topo, "valid", prefix)
+    center = _x(topo, "center", prefix).to(dtype)
+    normal = _x(topo, "normal", prefix).to(dtype)
 
     rim_pos = positions[rim]
     rel = rim_pos - center
@@ -280,7 +281,7 @@ def matching_data(positions, topo, interp_outer: bool):
     k = rim.shape[0]
     if interp_outer:
         s_rim, _ = _ring_arc_params(rim_pos, ring_valid)
-        idx0, idx1, w0, w1 = _interp_ring(positions[outer], _x(topo, "outer_valid"), s_rim)
+        idx0, idx1, w0, w1 = _interp_ring(positions[outer], _x(topo, "outer_valid", prefix), s_rim)
         outer_pos = w0[:, None] * positions[outer[idx0]] + w1[:, None] * positions[outer[idx1]]
     else:
         idx0 = idx1 = torch.arange(k, device=rim.device)
@@ -361,13 +362,13 @@ def _staggered_enforce_field(tilts, fr, ok, target, sequential: bool):
     return tilts
 
 
-def _disk_geometry(positions, topo):
+def _disk_geometry(positions, topo, prefix=_KEY):
     """(disk rows, valid, r_hat, arc-length weights) for the disk ring."""
     dtype = positions.dtype
-    disk = _x(topo, "disk")
-    disk_valid = _x(topo, "disk_valid")
-    center = _x(topo, "center").to(dtype)
-    normal = _x(topo, "normal").to(dtype)
+    disk = _x(topo, "disk", prefix)
+    disk_valid = _x(topo, "disk_valid", prefix)
+    center = _x(topo, "center", prefix).to(dtype)
+    normal = _x(topo, "normal", prefix).to(dtype)
     disk_pos = positions[disk]
     rel = disk_pos - center
     rel_p = rel - torch.sum(rel * normal, dim=1, keepdim=True) * normal

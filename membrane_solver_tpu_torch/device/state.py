@@ -137,6 +137,36 @@ def check_unique_rows(rows, what: str) -> None:
         raise ValueError(f"{what}: a vertex row repeats; its sums need a fixed order")
 
 
+def ordered_index_add(topo: "Topology", key: str, target: torch.Tensor, rows: torch.Tensor,
+                      values: torch.Tensor) -> torch.Tensor:
+    """``target`` with ``values`` added into ``rows``, a repeated row's values one after the other.
+
+    The JAX package's ``.at[rows].add`` on the CPU adds a row's values in
+    list order onto the target; here the list is split once per topology
+    (one host read of ``rows``, kept for ``key``) into levels of distinct
+    rows, the k-th occurrence of every row in level k, and each level is
+    one ``index_add`` of at most one value per row: the same bits in the
+    same order, on any device.  ``rows`` must be fixed per topology.
+    """
+
+    def make():
+        flat = rows.detach().reshape(-1).cpu().numpy()
+        rank = np.zeros(flat.size, dtype=np.int64)
+        seen: Dict[int, int] = {}
+        for i, r in enumerate(flat.tolist()):
+            rank[i] = seen.get(r, 0)
+            seen[r] = rank[i] + 1
+        return [torch.as_tensor(np.flatnonzero(rank == k), device=rows.device)
+                for k in range(int(rank.max()) + 1 if rank.size else 0)]
+
+    levels = topo.kept(("ordered_index_add", key), make)
+    if len(levels) == 1:
+        return target.index_add(0, rows, values)
+    for idx in levels:
+        target = target.index_add(0, rows[idx], values[idx])
+    return target
+
+
 @dataclasses.dataclass
 class Topology:
     """Connectivity and per-entity parameters."""

@@ -5,14 +5,9 @@ Counterpart of ``membrane_solver_tpu/energy/__init__.py``.  A module
 ``energy(geo, state, topo, params)`` or ``make_energy(spec)`` returning a
 function of the same arguments, plus the optional hooks the JAX package
 defines (``make_inloop_energy``, ``make_tilt_frozen``, ``compile_topology``).
-Ported: the modules of the kozlov coupled-tilt lane, of the Helfrich
-vesicle lane (volume, bending, gaussian_curvature), of the shape family
-(line_tension, jordan_area, edge_length_penalty, body_area_penalty,
-expression, and the reference's empty ``dummy_module``) and the
-single-field tilt modules (tilt, tilt_smoothness) with the inter-leaflet
-tilt_coupling, and the leaflet tilt-field energies (the smoothness of each
-leaflet and of both, splay-twist, the disk targets, the rim sources and the
-disk contact); any other name raises NotImplementedError.
+Every energy module of the JAX package has its counterpart here
+(``PORTED`` lists them); a name with no module raises the JAX package's
+``ModuleNotFoundError`` (from ``importlib``).
 """
 
 from __future__ import annotations
@@ -50,16 +45,17 @@ PORTED = (
     "tilt_rim_source_out",
     "tilt_rim_source_bilayer",
     "tilt_disk_contact_in",
+    "bending_tilt",
+    "curved_local_interface_law",
+    "curved_local_interface_penalty",
+    "mean_curvature_tilt",
+    "rim_slope_match_out",
 )
 
 _CACHE: Dict[str, ModuleType] = {}
 
 
 def get_module(name: str) -> ModuleType:
-    if name not in PORTED:
-        raise NotImplementedError(
-            f"energy module {name!r} is not ported to membrane_solver_tpu_torch"
-        )
     if name not in _CACHE:
         _CACHE[name] = importlib.import_module(f"membrane_solver_tpu_torch.energy.{name}")
     return _CACHE[name]

@@ -1,0 +1,23 @@
+"""Curved local-interface penalty (tilt gradients only).
+
+Counterpart of ``membrane_solver_tpu/energy/curved_local_interface_penalty.py``
+(see ``_local_interface.py``): strength
+``curved_local_interface_penalty_strength``; the positions are detached.
+"""
+
+from __future__ import annotations
+
+from membrane_solver_tpu_torch.energy import _local_interface
+
+USES_TILT_LEAFLETS = True
+
+compile_topology = _local_interface.compile_topology_pairs
+
+
+def energy(geo, state, topo, params):
+    return _local_interface.interface_energy(
+        state, topo, params,
+        prefix="curved_local_interface_penalty",
+        strength_key="curved_local_interface_penalty_strength",
+        live_z=False,
+    )

@@ -236,6 +236,22 @@ def make_constraint_gradients(spec: ProblemSpec) -> Callable:
     return all_gradients
 
 
+# A multiplier vector from the LU solve whose residual exceeds this share of
+# max|b| (at least 1e4 machine epsilons) is taken for round-off in a null
+# space (see solve_kkt_with_rescue).
+KKT_RESIDUAL_RTOL = 1e-8
+# the shift, as a share of max|diag(A)| (at least 100 machine epsilons), of
+# the fallback's factorization, and its refinement passes toward the
+# 1e-18-regularized system
+KKT_SHIFT = 1e-10
+KKT_REFINE_PASSES = 3
+# When a list, each shape KKT solve appends (finite, refined, max|lam|) as
+# device tensors: whether the LU multipliers were finite (the JAX package's
+# branch), whether the fallback replaced them, and their size.  None (the
+# default) records nothing.
+KKT_RECORD = None
+
+
 def solve_kkt_with_rescue(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve the (already 1e-18-regularized) KKT normal equations.
 
@@ -244,10 +260,41 @@ def solve_kkt_with_rescue(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     non-finite multipliers, and the projection is skipped for that step by
     zeroing them (no exception: the ``_ex`` factorization reports instead
     of raising).
+
+    Rows that are dependent by construction (the rigid disk's pairwise
+    distances on a planar disk span 2n - 3 of their 3n - 6 directions) leave
+    A with a null space that the 1e-18 ridge does not lift above round-off.
+    An LU pivot there can come out far below the round-off of b, and the
+    multipliers then carry a huge null-space part (|lam| ~ 1e16) whose
+    rounding in ``lam @ G`` is an O(1) error in the projection, in one LU
+    and not in another on the same system.  Such a solution leaves a
+    residual |A lam - b| far above round-off; where it exceeds
+    ``KKT_RESIDUAL_RTOL`` max|b| the multipliers are recomputed from the
+    factorization of A shifted by ``KKT_SHIFT`` max|diag A| and refined
+    toward the regularized system (``KKT_REFINE_PASSES``): the range part
+    converges to the same solution, the null part stays of the size of b,
+    and the projection is the one a clean LU gives.  Both are computed on
+    every call and one is selected on the device (no host sync); a solve
+    with a small residual keeps the LU's multipliers bit for bit.
     """
     lu, piv, _info = torch.linalg.lu_factor_ex(A)
     lam = torch.linalg.lu_solve(lu, piv, b[:, None])[:, 0]
-    return torch.where(torch.all(torch.isfinite(lam)), lam, torch.zeros_like(lam))
+    finite = torch.all(torch.isfinite(lam))
+    lam = torch.where(finite, lam, torch.zeros_like(lam))
+    eps = torch.finfo(A.dtype).eps
+    b_max = torch.max(torch.abs(b))
+    residual = torch.max(torch.abs(A @ lam - b))
+    refined = finite & (residual > max(KKT_RESIDUAL_RTOL, 1e4 * eps) * b_max)
+    shift = max(KKT_SHIFT, 100 * eps) * torch.max(torch.abs(torch.diagonal(A)))
+    eye = torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
+    lu_s, piv_s, _info_s = torch.linalg.lu_factor_ex(A + shift * eye)
+    robust = torch.zeros_like(lam)
+    for _ in range(KKT_REFINE_PASSES):
+        robust = robust + torch.linalg.lu_solve(lu_s, piv_s, (b - A @ robust)[:, None])[:, 0]
+    lam = torch.where(refined, robust, lam)
+    if KKT_RECORD is not None:
+        KKT_RECORD.append((finite, refined, torch.max(torch.abs(lam))))
+    return lam
 
 
 def project_gradient_kkt(grad: torch.Tensor, constraint_grads) -> torch.Tensor:

@@ -44,17 +44,23 @@ def _pkg(port: bool):
     return pkg, build, refinement
 
 
-def make_minimizer(port: bool, kw=None, refines: int = 0, gp=None, modules=(), **port_kw):
+def make_minimizer(port: bool, kw=None, refines: int = 0, gp=None, modules=(), edits=None,
+                   **port_kw):
     """The kozlov lane's protocol up to the first step: build, parse, refine.
 
     ``kw`` are kozlov_1disk arguments (None: its defaults); ``modules`` are
     energy modules added to the mesh's (a protocol's ``extra_energy_modules``);
-    ``port_kw`` go to the port's Minimizer (device, dtype).
+    ``edits`` a protocol whose module and free-disk changes
+    ``chip_smoke.lane_edits`` makes; ``port_kw`` go to the port's Minimizer
+    (device, dtype).
     """
+    from chip_smoke import lane_edits
+
     pkg, build, refinement = _pkg(port)
     mesh = pkg.parse_geometry(build("kozlov_1disk", **(kw or {})))
     mesh.global_parameters.update(BENCH_GP if gp is None else gp)
     mesh.energy_modules.extend(m for m in modules if m not in mesh.energy_modules)
+    lane_edits(mesh, edits or {})
     if port:
         port_kw.setdefault("device", "cpu")
         mn = pkg.Minimizer(mesh, quiet=True, **port_kw)
@@ -309,3 +315,62 @@ def assert_steps(steps, jm, tm, rel: float, noisy=None) -> None:
             bound = max(bound, 2.0 * float(np.max(np.abs(noisy[f] - want[f]))))
         err = float(np.max(np.abs(got[f] - want[f])))
         assert err <= bound, f"{f}: max abs err {err:.3e} > {bound:.3e}"
+
+
+def module_fn(problem, kind: str, name: str, port: bool):
+    """Either package's energy function (``kind`` energy) or constraint module of ``problem``'s spec."""
+    if port:
+        from membrane_solver_tpu_torch.constraints import get_constraint
+        from membrane_solver_tpu_torch.energy import get_module
+    else:
+        from membrane_solver_tpu.constraints import get_constraint
+        from membrane_solver_tpu.energy import get_module
+    if kind != "energy":
+        return get_constraint(name)
+    module = get_module(name)
+    maker = getattr(module, "make_energy", None)
+    return maker(problem.spec) if maker is not None else module.energy
+
+
+ENERGY_FIELDS = ("positions", "tilts", "tilts_in", "tilts_out")
+
+
+def energy_and_grads(problem, name: str, state, port: bool):
+    """(energy, [gradient in each of ``ENERGY_FIELDS``]) of one energy module, as numpy."""
+    fn = module_fn(problem, "energy", name, port)
+    topo, params = problem.topo, problem.params
+    if port:
+        from membrane_solver_tpu_torch.device import geo as tgeo
+
+        leaves = [getattr(state, f).detach().clone().requires_grad_(True) for f in ENERGY_FIELDS]
+        st = dataclasses.replace(state, **dict(zip(ENERGY_FIELDS, leaves)))
+        e = fn(tgeo.triangle_geometry(st.positions, topo.tri_rows, topo.tri_valid), st, topo,
+               params)
+        grads = (torch.autograd.grad(e, leaves, allow_unused=True) if e.requires_grad
+                 else [None] * len(leaves))
+        return float(e.detach()), [np.zeros(tuple(x.shape)) if g is None else to_np(g)
+                          for g, x in zip(grads, leaves)]
+    import jax
+
+    from membrane_solver_tpu.device import geo as jgeo
+
+    nv = problem.n_vertices
+
+    def f(*fields):
+        st = dataclasses.replace(state, **dict(zip(ENERGY_FIELDS, fields)))
+        return fn(jgeo.triangle_geometry(st.positions, topo.tri_rows, topo.tri_valid), st, topo,
+                  params)
+
+    e, grads = jax.value_and_grad(f, argnums=(0, 1, 2, 3))(
+        *(getattr(state, k) for k in ENERGY_FIELDS))
+    return float(e), [to_np(g)[:nv] for g in grads]
+
+
+def seeded_pair(problem, seed: int, amp: float = 0.05, dtype=torch.float64):
+    """(JAX state, port state): :func:`perturbed_pair` plus seeded single-field tilts."""
+    jst, tst = perturbed_pair(problem, seed, dtype=dtype)
+    nv = problem.n_vertices
+    tilts = np.array(jst.tilts)
+    tilts[:nv] += amp * np.random.default_rng(seed + 1).standard_normal((nv, 3))
+    return (dataclasses.replace(jst, tilts=jnp.asarray(tilts)),
+            dataclasses.replace(tst, tilts=torch.as_tensor(tilts[:nv], dtype=dtype)))

@@ -143,10 +143,21 @@ def test_unported_options_raise_when_the_problem_is_built(gp, needle):
 def test_unported_module_and_rim_flag_raise():
     from membrane_solver_tpu_torch import Minimizer
 
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import membrane_solver_tpu as jpkg
+    from membrane_solver_tpu.meshgen import build
+
+    # a module name with no module: the JAX package's error type (importlib's)
     data, parse = _small_mesh()
-    data["energy_modules"] = list(data["energy_modules"]) + ["bending_tilt"]
-    with pytest.raises(NotImplementedError, match="bending_tilt"):
+    data["energy_modules"] = list(data["energy_modules"]) + ["no_such_module"]
+    with pytest.raises(ModuleNotFoundError, match="no_such_module"):
         Minimizer(parse(data), device="cpu", quiet=True).problem()
+    jdata = build("kozlov_1disk", **SMALL)
+    jdata["energy_modules"] = list(jdata["energy_modules"]) + ["no_such_module"]
+    with pytest.raises(ModuleNotFoundError, match="no_such_module"):
+        jpkg.Minimizer(jpkg.parse_geometry(jdata), quiet=True).problem()
 
     # the physical-edge rim placement (local interface shells) stays unported
     data, parse = _small_mesh(rim_slope_match_mode="physical_edge_staggered_v1")

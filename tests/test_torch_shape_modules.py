@@ -21,8 +21,10 @@ On the CPU at float64:
   the port takes from the surface whole call
   (``kernels/tri_kernels.surface_energy_and_gradient``), against the JAX
   modules' own functions on a perturbed cube, to 1e-12;
-- the registries: the reference's empty placeholders load as no-ops, and a
-  module not yet ported still raises NotImplementedError.
+- the registries: the reference's empty placeholders load as no-ops; the
+  last twelve modules to be ported load and expose the hooks their JAX
+  modules have; every file of the JAX package's ``energy`` and
+  ``constraints`` packages has a counterpart that loads.
 """
 
 from __future__ import annotations
@@ -337,13 +339,56 @@ def test_placeholders_run_in_a_minimization_as_in_jax():
     assert np.abs(positions[1] - positions[0]).max() <= RTOL
 
 
+# the hooks (and flags) the runtime reads from an energy or constraint module
+HOOKS = ("energy", "make_energy", "make_inloop_energy", "make_tilt_frozen", "compile_topology",
+         "compile_static", "enforce", "make_enforce", "make_enforce_tilts",
+         "make_frozen_enforce_tilts", "make_tilt_constraint_rows", "make_compact_tilt_rows",
+         "constraint_gradient_rows", "make_constraint_gradient_rows",
+         "make_compact_constraint_rows", "local_constraint_normals",
+         "make_local_constraint_normals", "build_shell_rows", "pack_pairs",
+         "compile_topology_pairs", "interface_energy", "USES_TILT", "USES_TILT_LEAFLETS")
+
+
 @pytest.mark.parametrize("kind,name", [("energy", "bending_tilt"),
                                        ("energy", "mean_curvature_tilt"),
                                        ("constraint", "rigid_disk"),
-                                       ("constraint", "local_interface_shells")])
-def test_unported_modules_still_raise(kind, name):
+                                       ("constraint", "local_interface_shells"),
+                                       ("energy", "_local_interface"),
+                                       ("energy", "curved_local_interface_law"),
+                                       ("energy", "curved_local_interface_penalty"),
+                                       ("energy", "rim_slope_match_out"),
+                                       ("constraint", "curved_local_interface_hard"),
+                                       ("constraint", "curved_local_interface_match"),
+                                       ("constraint", "tilt_leaflet_match_rim"),
+                                       ("constraint", "tilt_vector_match_rim")])
+def test_module_loads_as_in_jax(kind, name):
+    import importlib
+
     from membrane_solver_tpu_torch.constraints import get_constraint
     from membrane_solver_tpu_torch.energy import get_module
 
-    with pytest.raises(NotImplementedError, match=name):
-        (get_module if kind == "energy" else get_constraint)(name)
+    sub = "energy" if kind == "energy" else "constraints"
+    want = importlib.import_module(f"membrane_solver_tpu.{sub}.{name}")
+    got = importlib.import_module(f"membrane_solver_tpu_torch.{sub}.{name}")
+    assert [h for h in HOOKS if hasattr(want, h)] == [h for h in HOOKS if hasattr(got, h)]
+    for flag in ("USES_TILT", "USES_TILT_LEAFLETS"):
+        assert getattr(got, flag, False) == getattr(want, flag, False), flag
+    if not name.startswith("_"):
+        assert (get_module if kind == "energy" else get_constraint)(name) is got
+
+
+def test_every_jax_module_file_has_a_loadable_counterpart():
+    import importlib
+    from pathlib import Path
+
+    import membrane_solver_tpu
+
+    root = Path(membrane_solver_tpu.__file__).parent
+    names = []
+    for sub in ("energy", "constraints"):
+        for path in sorted((root / sub).glob("*.py")):
+            if path.stem == "__init__":
+                continue
+            importlib.import_module(f"membrane_solver_tpu_torch.{sub}.{path.stem}")
+            names.append(f"{sub}.{path.stem}")
+    assert len(names) == 61, names

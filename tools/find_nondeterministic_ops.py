@@ -9,7 +9,9 @@ that issued it.  An empty list means the lanes' CUDA operations add in a
 fixed order.  The lanes: kozlov (meshgen ``kozlov_1disk``, small, one
 refinement), the same with ``tilt_smoothness_{in,out}`` (the smooth lane of
 ``chip_smoke.py`` phases 18-19), the leaflet tilt-field drives of phase 20
-(each module's energy and gradients on the small kozlov mesh), the Helfrich
+(each module's energy and gradients on the small kozlov mesh), the free-disk
+and local-interface lanes of phases 21-24 and the match drives of phase 25
+(on the small kozlov mesh, their fixtures' protocols), the Helfrich
 vesicle (meshgen cube, surface + bending, hard volume, two refinements), the
 cube recipe's stepper segment through the command layer (``bfgs; g5; cg;
 g5``) and ``square_to_circle`` at n = 8 through the command layer, each at
@@ -118,8 +120,44 @@ def lanes(torch, dtype):
             geo = dgeo.triangle_geometry(st.positions, p.topo.tri_rows, p.topo.tri_valid)
             torch.autograd.grad(fn(geo, st, p.topo, p.params), leaves, allow_unused=True)
 
+    def protocol_lane(protocol):
+        """A kozlov fixture protocol's edits (``chip_smoke.lane_edits``) on the small mesh."""
+
+        def run():
+            from chip_smoke import lane_edits
+
+            mesh = parse_geometry(build("kozlov_1disk", n_sectors=8, n_outer_rings=4,
+                                        n_disk_rings=2))
+            mesh.global_parameters.update(protocol["global_parameters"])
+            lane_edits(mesh, protocol)
+            mn = Minimizer(mesh, device="cuda", dtype=dtype, quiet=True)
+            mn.mesh = refine_triangle_mesh(refine_polygonal_facets(mn.mesh))
+            mn.invalidate()
+            mn.enforce_constraints_after_mesh_ops()
+            mn.minimize(3)
+
+        return run
+
+    def match_drives():
+        """The local-interface family's drives (chip_smoke.py phase 25)."""
+        from chip_smoke import match_drives_setup, port_match_record
+        from tools.record_torch_port_fixture import kozlov_match_drives_protocol
+
+        protocol = kozlov_match_drives_protocol()
+        mesh = parse_geometry(build("kozlov_1disk", n_sectors=8, n_outer_rings=4, n_disk_rings=2))
+        mesh.global_parameters.update(protocol["kozlov"]["global_parameters"])
+        match_drives_setup(mesh, protocol)
+        port_match_record(torch, mesh, protocol, dtype, "cuda")
+
+    from tools.record_torch_port_fixture import (
+        kozlov_free_disk_protocol,
+        kozlov_interface_protocol,
+    )
+
     return [("kozlov", kozlov), ("vesicle", vesicle), ("kozlov smooth", kozlov_smooth),
-            ("drives", drives),
+            ("drives", drives), ("free disk", protocol_lane(kozlov_free_disk_protocol())),
+            ("interface", protocol_lane(kozlov_interface_protocol())),
+            ("match drives", match_drives),
             ("cube steppers", command_lane("cube", ["g5", "r", "bfgs", "g5", "cg", "g5"])),
             ("square_to_circle", command_lane("square_to_circle",
                                               ["g40", "r", "g40", "u", "V4", "g60"], n=8))]

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Record the JAX package's reference trajectories for the PyTorch port.
 
-Runs nine protocols with ``membrane_solver_tpu`` on the CPU in float64 and
+Runs twelve protocols with ``membrane_solver_tpu`` on the CPU in float64 and
 writes one JSON file each to ``tests/fixtures/torch_port/``:
 
 ``kozlov_L3_f64_jax.json`` (the kozlov coupled-tilt lane):
@@ -96,6 +96,23 @@ tilts, encoded by ``chip_smoke.encode_rows``; its ``float32_reference``
 holds each module's float32 deviation (energy, and each gradient relative
 to its largest entry).
 
+``kozlov_L3_free_disk_f64_jax.json`` and ``kozlov_L3_interface_f64_jax.json``
+(``lane_run``, with ``chip_smoke.lane_edits``): the kozlov protocol with
+``rigid_disk`` appended and the disk's own ``pin_to_plane`` dropped at L0
+(the disk a rigid body about its fixed center vertex), and with
+``rim_slope_match_out`` replaced by ``curved_local_interface_hard`` plus the
+``curved_local_interface_law`` energy.  Per step also the multiplier-finite
+flag of the shape KKT solves (``kkt_recorder``), their largest multiplier
+and the breakdown after the step.
+
+``kozlov_L3_match_drives_f64_jax.json`` (``match_drives_run``): the kozlov
+mesh after its refinements with ``chip_smoke.match_drives_setup``; the
+inputs and, per energy of the local-interface family, its value and its
+gradients in the positions and all three tilt fields; per constraint and
+mode, its dense tilt rows and the change its tilt enforcement makes; the
+rigid disk's double fit; its ``float32_reference`` holds the float32
+deviations per item (``chip_smoke.match_deviations``).
+
 ``chip_smoke.py`` holds the port's float64 runs on the GPU against these
 files, so the GPU machine needs no JAX.
 
@@ -173,19 +190,23 @@ def _trajectory(mn) -> dict:
     }
 
 
-def kozlov_minimizer(gp=None, extra_modules=()):
+def kozlov_minimizer(gp=None, edits=None, refines=KOZLOV_REFINES):
     """The kozlov protocol up to its first step, in the JAX package.
 
-    ``gp``: its global parameters (default the bench's); ``extra_modules``:
-    energy modules added to the mesh's (a protocol's ``extra_energy_modules``).
+    ``gp``: its global parameters (default the bench's); ``edits``: a
+    protocol whose module and free-disk changes ``chip_smoke.lane_edits``
+    makes to the L0 mesh (its ``extra_energy_modules`` among them);
+    ``refines``: the refinement rounds.
     """
     pkg, build, refinement = _jax()
+    from chip_smoke import lane_edits
+
     mesh = pkg.parse_geometry(build("kozlov_1disk"))
     mesh.global_parameters.update(BENCH_GP if gp is None else gp)
-    mesh.energy_modules.extend(m for m in extra_modules if m not in mesh.energy_modules)
+    lane_edits(mesh, edits or {})
     mn = pkg.Minimizer(mesh, quiet=True)
     mn.step_size = KOZLOV_STEP_SIZE
-    for _ in range(KOZLOV_REFINES):
+    for _ in range(refines):
         m = refinement.refine_polygonal_facets(mn.mesh)
         m = refinement.refine_triangle_mesh(m)
         mn.mesh = m
@@ -285,17 +306,58 @@ def kozlov_smooth_protocol() -> dict:
     return {**kozlov_protocol(), "extra_energy_modules": SMOOTH_MODULES}
 
 
+def kkt_recorder() -> list:
+    """Record each shape KKT solve of the JAX package from here on: (multipliers finite, max|lam|).
+
+    Wraps ``jit_core._solve_kkt_with_rescue`` (the same arithmetic, plus a
+    host callback) before the minimize block is traced; the caches that
+    would skip the tracing are off in this process (``_jax``).
+    """
+    import jax
+    import jax.numpy as jnp
+
+    _jax()
+    from membrane_solver_tpu.runtime import jit_core
+
+    solves = []
+
+    def record(finite, lam_max):
+        solves.append((bool(finite), float(lam_max)))
+
+    def solve(A, b, k):
+        lam = jit_core.dlinalg.solve_spd(A, b)
+        finite = jnp.all(jnp.isfinite(lam))
+        jax.debug.callback(record, finite, jnp.max(jnp.abs(lam)))
+        return jnp.where(finite, lam, jnp.zeros_like(lam))
+
+    jit_core._solve_kkt_with_rescue = solve
+    return solves
+
+
 def lane_run(protocol: dict) -> dict:
-    """A kozlov protocol's steps at the precision this process runs, with its accept flags."""
-    mn = kozlov_minimizer(protocol["global_parameters"], protocol.get("extra_energy_modules", ()))
+    """A kozlov protocol's steps at the precision this process runs, with its accept flags.
+
+    Per step also whether every shape KKT solve gave finite multipliers
+    (``multipliers_finite``), their largest size, and the energy breakdown
+    after the step.
+    """
+    import jax
+
+    solves = kkt_recorder()
+    mn = kozlov_minimizer(protocol["global_parameters"], edits=protocol)
     energy0 = float(mn.compute_energy())
     breakdown0 = {k: float(v) for k, v in mn.compute_energy_breakdown().items()}
-    energies, accepted, step_sizes = [], [], []
+    energies, accepted, step_sizes, finite, lam_max, breakdowns = [], [], [], [], [], []
     for _ in range(protocol["steps"]):
+        first = len(solves)
         res = mn.minimize(1)
+        jax.effects_barrier()
         energies.append(float(res["energy"]))
         accepted.append(bool(res["step_success"]))
         step_sizes.append(float(mn.step_size))
+        finite.append(all(f for f, _m in solves[first:]))
+        lam_max.append(max((m for _f, m in solves[first:]), default=0.0))
+        breakdowns.append({k: float(v) for k, v in mn.compute_energy_breakdown().items()})
     return {
         "n_vertices": len(mn.mesh.vertices),
         "n_triangles": len(mn.mesh.facets),
@@ -304,6 +366,9 @@ def lane_run(protocol: dict) -> dict:
         "energies": energies,
         "accepted": accepted,
         "step_sizes": step_sizes,
+        "multipliers_finite": finite,
+        "multipliers_max_abs": lam_max,
+        "breakdowns": breakdowns,
         "energy_after": float(mn.compute_energy()),
         "breakdown_after": {k: float(v) for k, v in mn.compute_energy_breakdown().items()},
     }
@@ -319,15 +384,44 @@ def run_lane_fixture(name: str, protocol: dict) -> dict:
     rec["float32_reference"] = {
         "package": "membrane_solver_tpu", "platform": "cpu", "dtype": "float32",
         "energies": f32["energies"], "accepted": f32["accepted"],
+        "multipliers_finite": f32["multipliers_finite"],
         "energy_after": f32["energy_after"], "breakdown_after": f32["breakdown_after"],
         "max_rel_dev_vs_float64": max(devs)}
     return rec
+
+
+# the free-disk lane: rigid_disk appended with no rigid_disk_group (the
+# preset-disk fallback, 1,611 vertices at L3) and the disk's own pin_to_plane
+# dropped at L0, so the disk moves as one rigid body about its fixed center
+# vertex.  Its pairwise KKT rows are rank-deficient by construction (a planar
+# disk).  The fixture keeps the breakdown after each step: the refined disk
+# group that tilt_thetaB_contact_in's work term reads as a ring is a patch of
+# the disk ordered by angle, the rigid fit moves it by round-off at every
+# enforcement, and that term (bookkeeping, no gradient) follows the order.
+def kozlov_free_disk_protocol() -> dict:
+    return {**kozlov_protocol(), "extra_constraint_modules": ["rigid_disk"],
+            "free_disk_preset": "disk"}
+
+
+# the local-interface lane: rim_slope_match_out's hard rim matching replaced by
+# the ring-averaged curved_local_interface_hard and the shape-aware law at
+# tests/test_module_parity_extended.py's strength
+INTERFACE_GP = {"curved_local_interface_law_strength": 0.8}
+
+
+def kozlov_interface_protocol() -> dict:
+    return {**kozlov_protocol(), "global_parameters": {**BENCH_GP, **INTERFACE_GP},
+            "extra_energy_modules": ["curved_local_interface_law"],
+            "extra_constraint_modules": ["curved_local_interface_hard"],
+            "drop_constraint_modules": ["rim_slope_match_out"]}
 
 
 # the step-by-step kozlov lanes with their accept flags
 LANE_PROTOCOLS = {
     "kozlov_L3_reduced_f64_jax.json": kozlov_reduced_protocol,
     "kozlov_L3_smooth_f64_jax.json": kozlov_smooth_protocol,
+    "kozlov_L3_free_disk_f64_jax.json": kozlov_free_disk_protocol,
+    "kozlov_L3_interface_f64_jax.json": kozlov_interface_protocol,
 }
 
 
@@ -452,6 +546,146 @@ def run_kozlov_drives() -> dict:
         "package": "membrane_solver_tpu", "platform": "cpu", "dtype": "float32",
         "energies": {name: v["energy"] for name, v in f32["modules"].items()},
         "max_rel_dev_vs_float64": devs}
+    return rec
+
+
+# the local-interface family's drives on the kozlov L3 mesh: the four
+# energies (the penalty, the soft rim matching with the disk group, the
+# single-field bending-tilt, the inert legacy stub) and the constraints' tilt
+# rows and enforcements, each mode, and the rigid disk's double fit
+MATCH_GP = {
+    "curved_local_interface_penalty_strength": 0.7,
+    "rim_slope_match_strength": 0.6,
+    "bending_modulus": 1.0,
+    "spontaneous_curvature": 0.15,
+    "tilt_leaflet_match_group": "rim",
+    "rigid_disk_group": "rigid",
+    "rigid_disk_radius": 1.0,
+}
+MATCH_ENERGIES = ["curved_local_interface_penalty", "rim_slope_match_out", "bending_tilt",
+                  "mean_curvature_tilt"]
+MATCH_CONSTRAINTS = ["tilt_leaflet_match_rim", "tilt_vector_match_rim",
+                     "curved_local_interface_match", "rigid_disk"]
+# per constraint: the global parameter of its mode and the modes held; the
+# curved_local_interface_match modes compile anew (the mixed mode pairs other
+# rows), the others switch the compiled static (``chip_smoke.static_variant``)
+MATCH_MODES = {
+    "tilt_leaflet_match_rim": ["tilt_leaflet_match_mode", ["average", "in_to_out", "out_to_in"]],
+    "tilt_vector_match_rim": ["tilt_vector_match_mode", ["average", "rim_to_disk", "disk_to_rim"]],
+    "curved_local_interface_match": ["curved_local_interface_match_mode",
+                                     ["vector_average", "local_mixed_match_v1"]],
+}
+MATCH_FIELDS = ("positions", "tilts", "tilts_in", "tilts_out")
+
+
+def kozlov_match_drives_protocol() -> dict:
+    return {
+        "kozlov": {**kozlov_protocol(), "steps": 0},
+        "global_parameters": MATCH_GP,
+        "energy_modules": MATCH_ENERGIES,
+        "constraint_modules": MATCH_CONSTRAINTS,
+        "modes": MATCH_MODES,
+        "groups": {"leaflet_match": "rim", "vector_match": "ring", "rigid_disk": "rigid"},
+        "seed": 11,
+        "z_scale": 0.02,
+        "xy_scale": 0.005,
+        "tilt_scale": 0.1,
+        "rigid_seed": 13,
+        "rigid_scale": 0.01,
+        "dtype": "float64",
+        "package": "membrane_solver_tpu",
+        "platform": "cpu",
+    }
+
+
+def match_drives_run(refines: int = KOZLOV_REFINES) -> dict:
+    """The match drives at the precision this process runs.
+
+    The inputs (positions, tilts, tilts_in, tilts_out) and, per energy
+    module, its value and gradients in the four fields; per constraint and
+    mode, its dense tilt rows (one encoded (leaflet, row) block each) and the
+    change its ``enforce_tilts`` makes to both leaflet fields; the rigid
+    disk's enforcement, on the inputs offset by ``rigid_scale`` noise, as the
+    change of the positions.  Arrays are live rows, ``chip_smoke.encode_rows``.
+    """
+    import dataclasses
+
+    import jax
+    import numpy as np
+
+    protocol = kozlov_match_drives_protocol()
+    pkg, _build, _refinement = _jax()
+    from chip_smoke import encode_rows, match_drives_setup, match_problems, static_variant
+    from membrane_solver_tpu.constraints import get_constraint
+    from membrane_solver_tpu.device import geo as dgeo
+    from membrane_solver_tpu.energy import get_module
+
+    mesh = kozlov_minimizer(refines=refines).mesh
+    match_drives_setup(mesh, protocol)
+    problems = match_problems(pkg.Minimizer, mesh, protocol)
+    p = next(iter(problems.values()))
+    nv = p.n_vertices
+    live = lambda a: np.asarray(a, dtype=np.float64)[:nv]  # noqa: E731
+    energies = {}
+    for name in protocol["energy_modules"]:
+        module = get_module(name)
+        maker = getattr(module, "make_energy", None)
+        fn = maker(p.spec) if maker is not None else module.energy
+
+        def f(*fields, fn=fn):
+            st = dataclasses.replace(p.state, **dict(zip(MATCH_FIELDS, fields)))
+            geo = dgeo.triangle_geometry(st.positions, p.topo.tri_rows, p.topo.tri_valid)
+            return fn(geo, st, p.topo, p.params)
+
+        energy, grads = jax.value_and_grad(f, argnums=(0, 1, 2, 3))(
+            *(getattr(p.state, k) for k in MATCH_FIELDS))
+        energies[name] = {"energy": float(energy),
+                          **{k: encode_rows(live(g)) for k, g in zip(MATCH_FIELDS, grads)}}
+    constraints = {}
+    for name, (_key, modes) in protocol["modes"].items():
+        mod = get_constraint(name)
+        for mode in modes:
+            if name == "curved_local_interface_match":
+                q = problems[mode]
+                spec = q.spec
+            else:
+                q = p
+                spec = static_variant(p.spec, f"constraint:{name}", mode)
+            rows = np.asarray(mod.make_tilt_constraint_rows(spec)(q.state, q.topo, q.params))
+            out = mod.make_enforce_tilts(spec)(q.state, q.topo, q.params)
+            constraints[f"{name}/{mode}"] = {
+                "rows": [[encode_rows(live(rows[k, leaf])) for leaf in range(2)]
+                         for k in range(rows.shape[0])],
+                **{f: encode_rows(live(getattr(out, f)) - live(getattr(q.state, f)))
+                   for f in ("tilts_in", "tilts_out")}}
+    rng = np.random.default_rng(protocol["rigid_seed"])
+    moved = np.asarray(p.state.positions).copy()
+    moved[:nv] += protocol["rigid_scale"] * rng.standard_normal((nv, 3))
+    st = dataclasses.replace(p.state, positions=jax.numpy.asarray(moved))
+    out = get_constraint("rigid_disk").make_enforce(p.spec)(st, p.topo, p.params)
+    rigid = encode_rows(live(out.positions) - live(moved))
+    return {
+        "n_vertices": nv,
+        "n_triangles": p.n_tris,
+        "inputs": {k: encode_rows(live(getattr(p.state, k))) for k in MATCH_FIELDS},
+        "energies": energies,
+        "constraints": constraints,
+        "rigid_disk": rigid,
+    }
+
+
+def run_kozlov_match_drives() -> dict:
+    import numpy as np
+
+    child = start_float32_child("kozlov_L3_match_drives_f64_jax.json")  # runs beside float64
+    rec = {"protocol": kozlov_match_drives_protocol(), **match_drives_run()}
+    f32 = float32_result(child)
+    from chip_smoke import match_deviations
+
+    rec["float32_reference"] = {
+        "package": "membrane_solver_tpu", "platform": "cpu", "dtype": "float32",
+        "energies": {name: v["energy"] for name, v in f32["energies"].items()},
+        "max_rel_dev_vs_float64": match_deviations(rec, f32, np)}
     return rec
 
 
@@ -623,6 +857,7 @@ FLOAT32_RUNS = {
     "kozlov_L3_thetaB_f64_jax.json": thetaB_run,
     **{name: (lambda name=name: lane_run(LANE_PROTOCOLS[name]())) for name in LANE_PROTOCOLS},
     "kozlov_L3_drives_f64_jax.json": drives_run,
+    "kozlov_L3_match_drives_f64_jax.json": match_drives_run,
 }
 
 
@@ -669,6 +904,7 @@ FIXTURES = {
     **{name: (lambda name=name: run_lane_fixture(name, LANE_PROTOCOLS[name]()))
        for name in LANE_PROTOCOLS},
     "kozlov_L3_drives_f64_jax.json": run_kozlov_drives,
+    "kozlov_L3_match_drives_f64_jax.json": run_kozlov_match_drives,
 }
 
 
