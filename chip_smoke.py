@@ -270,9 +270,34 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
     float32 deviation per item).  The curvature-data and divergence kernels
     and the divergence's tilt backward must launch inside ``bending_tilt``.
     A ``[21-25 ...]`` line gives the five phases' seconds.
+26. kozlov L3 physical edge, float64: the protocol of
+    ``tests/fixtures/torch_port/kozlov_L3_physical_edge_f64_jax.json`` (the
+    kozlov protocol with ``rim_slope_match_mode`` ``physical_edge_staggered_v1``,
+    the disk-targeted flavour: the 1,601 disk rows matched to a 16-row
+    shell, up to 101 conditions per shell row, enforced in levels) as
+    phase 23 runs it (2 timed steps): energies within rel 1e-8 of the
+    fixture with its accept flags, its ``trace_z`` decisions and each
+    relax's accepted CG steps; the compiled shells (radii, conditions, shell
+    rows, shared targets) equal to the fixture's, printed with the number of
+    levels the shared rows run in; the host syncs of one ``minimize(1)``.
+27. kozlov L3 physical edge, float32: the same against phase 26 within rel
+    max(2e-3, 2 x the JAX package's own float32 deviation); the relax's
+    accepted CG steps beside the JAX package's own float32 ones.  The
+    frozen-tilt kernel runs in the relax.
+28. kozlov L3 scaffold trace, float64: the protocol of
+    ``tests/fixtures/torch_port/kozlov_L3_scaffold_f64_jax.json`` (the trace
+    shell at ``parity_trace_layer_radius`` 1.364262, three scaffold shells,
+    ``theory_parity_lane``, the trace-reconstructed outer divergence, the
+    ``trace_boundary_v1`` stencil and the ``trace_z`` fallback; the shells
+    tagged after the refinements, ``lane_tags``), as phase 26.  The
+    frozen-tilt kernel must not launch: it steps aside for the recovered and
+    reconstructed divergence, as the JAX package's does.
+29. kozlov L3 scaffold trace, float32: as phase 27, without the frozen-tilt
+    kernel.  A ``[26-29 ...]`` line gives the four phases' seconds and the
+    host syncs per ``minimize(1)`` of phases 5, 26 and 28.
 
-Every lane phase (4-9, 11-19, 21-24) also checks determinism: from the state its
-protocol leaves (phases 4-7, 16-19 and 21-24: the five steps; phases 8-9 and
+Every lane phase (4-9, 11-19, 21-24, 26-29) also checks determinism: from the state its
+protocol leaves (phases 4-7, 16-19, 21-24 and 26-29: the five steps; phases 8-9 and
 11-14: the command list; phase 15: its ``minimize(3)``), it saves the state, runs
 ``minimize(2)`` (``g2`` through the command layer), takes a sha256 of the
 positions, the tilts and the energies, restores the state and runs again;
@@ -280,19 +305,19 @@ a ``[... determinism]`` line prints both digests, and unequal digests fail
 the run.  A ``[phase seconds]`` line gives each phase's seconds, and the
 last line before the kernels line the whole run's.
 
-Phases 4-9 and 11-25 each drive one path with every kernel launch counter
+Phases 4-9 and 11-29 each drive one path with every kernel launch counter
 set to 0 just before and read just after; a kernel of that path that was
 never launched fails the run (the frozen-tilt entry point, both variants,
-lies on the float32 kozlov paths with a frozen relax, phases 4, 15, 17, 19
-and 22; the surface energy, both variants, and the vertex sum on phases
-4-9, 11-19 and 21-24; the curvature data forward on phases 4-9, 13-19 and
-21-25 (on the cube paths through ``energy stats``), its backward on phases
-4-7, 15-19 and 21-24; the divergence forward on the kozlov paths 4-5, 15-19
-and 21-25, and it and its tilt backward inside phase 20's splay-twist and
-phase 25's ``bending_tilt``).
+lies on the float32 kozlov paths with a frozen relax, phases 4, 15, 17, 19,
+22 and 27; the surface energy, both variants, and the vertex sum on phases
+4-9, 11-19, 21-24 and 26-29; the curvature data forward on phases 4-9,
+13-19 and 21-29 (on the cube paths through ``energy stats``), its backward
+on phases 4-7, 15-19, 21-24 and 26-29; the divergence forward on the kozlov
+paths 4-5, 15-19 and 21-29, and it and its tilt backward inside phase 20's
+splay-twist and phase 25's ``bending_tilt``).
 
 The line before the last is a JSON object ``{"kernels": [...]}``: per entry
-point, its launches over phases 4-9 and 11-25, its largest error against its twin,
+point, its launches over phases 4-9 and 11-29, its largest error against its twin,
 and phase 3's device ms per call (``ms``), its twin's (``plain_ms``), the
 bound, and, for the vertex sum, ``index_add_``'s (``library_ms``).  The
 last line is ``{"ok": true, "device": {...}}``.
@@ -335,6 +360,8 @@ DRIVES_FIXTURE = FIXTURES / "kozlov_L3_drives_f64_jax.json"
 FREE_DISK_FIXTURE = FIXTURES / "kozlov_L3_free_disk_f64_jax.json"
 INTERFACE_FIXTURE = FIXTURES / "kozlov_L3_interface_f64_jax.json"
 MATCH_FIXTURE = FIXTURES / "kozlov_L3_match_drives_f64_jax.json"
+PHYSICAL_EDGE_FIXTURE = FIXTURES / "kozlov_L3_physical_edge_f64_jax.json"
+SCAFFOLD_FIXTURE = FIXTURES / "kozlov_L3_scaffold_f64_jax.json"
 CSRC = "membrane_solver_tpu_torch/csrc/"
 # entry point -> (source, the TPU kernel or JAX function it replaces, the
 # name of its timing rows, its launch counter)
@@ -388,6 +415,7 @@ REDUCED_TIMED_STEPS = 5  # phases 16-17: each step relaxes once per line-search 
 # phases 23-24: each relax iteration evaluates the whole tilt energy (the
 # law has no frozen split), 0.5-1.5 s per step
 INTERFACE_TIMED_STEPS = 4
+PHYSICAL_TIMED_STEPS = 2  # phases 26-29: the shared shell rows' levels in every enforcement
 
 ENERGY_RTOL = 1e-6  # frozen-tilt kernel vs twin energy (f32 reduction order)
 GRAD_RTOL = 5e-6  # frozen-tilt kernel vs twin gradient, relative to max|g|
@@ -1209,6 +1237,7 @@ def build_lane(torch, protocol: dict, dtype):
             mn.mesh = m
             mn.invalidate()
             mn.enforce_constraints_after_mesh_ops()
+        lane_tags(mn, protocol)
         return mn
     data = build("cube")
     if protocol["drop_instructions"]:
@@ -1257,6 +1286,40 @@ def lane_edits(mesh, protocol: dict) -> None:
     for v in mesh.vertices.values():
         if (v.options or {}).get("preset") == preset:
             unpinned(v.options)
+
+
+def lane_tags(mn, protocol: dict) -> None:
+    """A kozlov protocol's vertex tags after the refinements (either package's minimizer).
+
+    ``scaffold_tags`` {``trace_radius``, ``support_shells``}: the rows within
+    1e-5 (relative) of the cylindrical radius nearest ``trace_radius`` (the
+    trace shell that ``parity_trace_layer_radius`` selects) get
+    ``pin_to_circle_group`` ``trace_layer``, and the rows of the next
+    ``support_shells`` distinct radii outside it (rounded to 1e-9)
+    ``outer_shell_scaffold_index`` 1, 2, ...: the scaffold-trace lane's trace
+    shell and its scaffold-support shells.  The minimizer then recompiles.
+    """
+    tags = protocol.get("scaffold_tags")
+    if not tags:
+        return
+    import numpy as np
+
+    verts = mn.mesh.vertices
+    vids = sorted(verts)
+    radii = np.array([float(np.linalg.norm(np.asarray(verts[v].position)[:2])) for v in vids])
+    r_trace = float(radii[np.argmin(np.abs(radii - float(tags["trace_radius"])))])
+    tol = max(1e-9, 1e-5 * max(1.0, abs(r_trace)))
+    shells = np.unique(np.round(radii[radii > r_trace + tol], 9))[: int(tags["support_shells"])]
+    for v, r in zip(vids, radii):
+        hit = np.flatnonzero(shells == round(r, 9))
+        if abs(r - r_trace) <= tol or hit.size:
+            if verts[v].options is None:
+                verts[v].options = {}
+            if abs(r - r_trace) <= tol:
+                verts[v].options["pin_to_circle_group"] = "trace_layer"
+            else:
+                verts[v].options["outer_shell_scaffold_index"] = int(hit[0]) + 1
+    mn.invalidate()
 
 
 def drives_setup(mesh, protocol: dict) -> None:
@@ -2201,7 +2264,7 @@ def lane_steps(torch, protocol: dict, dtype, per_step=None):
     multipliers finite, the null-space fallback taken, max|lam|) and the
     breakdown after the step, plus ``per_step(mn)`` when given.
     """
-    from membrane_solver_tpu_torch.runtime import jit_core
+    from membrane_solver_tpu_torch.runtime import jit_core, tilt_relax
 
     t0 = time.perf_counter()
     mn = build_lane(torch, protocol, dtype)
@@ -2210,6 +2273,7 @@ def lane_steps(torch, protocol: dict, dtype, per_step=None):
     try:
         for _ in range(protocol["steps"]):
             jit_core.KKT_RECORD = []
+            tilt_relax.RELAX_RECORD = []
             res = mn.minimize(1)
             solves = [(bool(f), bool(r), float(m)) for f, r, m in jit_core.KKT_RECORD]
             energies.append(float(res["energy"]))
@@ -2217,12 +2281,15 @@ def lane_steps(torch, protocol: dict, dtype, per_step=None):
             row = {"finite": all(f for f, _r, _m in solves),
                    "fallback": any(r for _f, r, _m in solves),
                    "lam_max": max((m for _f, _r, m in solves), default=0.0),
+                   "relax": list(tilt_relax.RELAX_RECORD),
+                   "trace_z": bool(res["trace_z_fallbacks"]),
                    "breakdown": {k: float(v) for k, v in mn.compute_energy_breakdown().items()}}
             if per_step is not None:
                 row.update(per_step(mn))
             rows.append(row)
     finally:
         jit_core.KKT_RECORD = None
+        tilt_relax.RELAX_RECORD = None
     return mn, energies, accepted, rows, setup_s
 
 
@@ -2365,7 +2432,13 @@ def phase_interface(torch, counters, label: str, fixture: dict, dtype, expect: t
     p = out["mn"].problem()
     compact = tilt_relax.make_compact_tilt_collector(p.spec)
     rows = tilt_relax.make_tilt_constraint_rows(p.spec)(p.state, p.topo, p.params)
-    fields.update(dense_tilt_rows=int(rows.shape[0]), compact_tilt_path=compact is not None)
+    fields.update(dense_tilt_rows=int(rows.shape[0]), compact_tilt_path=compact is not None,
+                  relax_accepted_steps=json.dumps([r["relax"] for r in out["rows"]]))
+    if f64 is not None:
+        fields["jax_float32_relax_accepted_steps"] = json.dumps(
+            fixture["float32_reference"].get("relax_accepted_steps"))
+    else:
+        fields["jax_relax_accepted_steps"] = json.dumps(fixture.get("relax_accepted_steps"))
     out["dense_rows"] = int(rows.shape[0])
     failed = [] if compact is None else ["the relax took compact tilt rows"]
     if f64 is None:
@@ -2385,6 +2458,82 @@ def phase_interface(torch, counters, label: str, fixture: dict, dtype, expect: t
     say(label, **fields)
     if failed:
         raise AssertionError(f"{label}: " + "; ".join(failed))
+    return out
+
+
+def shell_line(mn) -> dict:
+    """The physical-edge rim placement's compiled shells on the lane, and its sequential levels."""
+    from membrane_solver_tpu_torch.constraints import rim_slope_match_out as rim
+
+    p = mn.problem()
+    flags = rim._spec_flags(p.spec)
+    outer = p.topo.extras[f"{rim._KEY}/outer"]
+    disk_r, rim_r, outer_r = p.topo.extras[f"{rim._KEY}/shell_radii"].tolist()
+    counts = np.bincount(outer.detach().cpu().numpy())
+    return {"disk_radius": disk_r, "rim_radius": rim_r, "outer_radius": outer_r,
+            "conditions": int(outer.shape[0]), "shell_rows": int((counts > 0).sum()),
+            "most_conditions_per_row": int(counts.max()),
+            "shared_targets": flags.shared_targets,
+            "levels": len(rim._condition_levels(p.topo, outer)),
+            "disk_targeting": flags.disk_targeting, "scaffold": flags.scaffold}
+
+
+def phase_physical_edge(torch, counters, label: str, fixture: dict, dtype, expect: tuple,
+                        f64=None, forbid: tuple = ()) -> dict:
+    """A physical-edge lane on kozlov L3 (``lane_phase``), then its own checks.
+
+    The compiled shells (trace radius, conditions, shell rows, shared
+    targets) are printed, and at float64 equal the fixture's (at float32 the
+    positions the shells are chosen from are rounded, and the azimuth
+    pairing may move); the kernels in ``forbid`` (the frozen-tilt
+    entry point on the scaffold lane, where the recovered and reconstructed
+    divergence mix triangles) launch no time.  Per step the ``trace_z``
+    fallback's decision and each leaflet relax's accepted CG steps are
+    printed beside the JAX package's (float64: the fixture's; float32: its
+    ``float32_reference``).  At float64: the energies within rel 1e-8 of the
+    fixture, its accept flags, its ``trace_z`` decisions and relax counts,
+    and the host syncs of one more ``minimize(1)``.
+    """
+    out, fields = lane_phase(torch, counters, label, fixture, dtype, expect, f64,
+                             timed=PHYSICAL_TIMED_STEPS)
+    mn = out["mn"]
+    shells = shell_line(mn)
+    ran = [k for k in forbid if out["launches"][k]]
+    trace_z = [r["trace_z"] for r in out["rows"]]
+    relax = [r["relax"] for r in out["rows"]]
+    ref = fixture if f64 is None else fixture["float32_reference"]
+    fields.update(shells=json.dumps(shells), trace_z=json.dumps(trace_z),
+                  jax_trace_z=json.dumps(ref["trace_z"]), relax_accepted_steps=json.dumps(relax),
+                  jax_relax_accepted_steps=json.dumps(ref["relax_accepted_steps"]),
+                  frozen_tilt_launches=json.dumps(
+                      {k: out["launches"][f"frozen_tilt.{k}"] for k in ("energy", "energy_grad")}))
+    failed = [f"launched {ran}"] if ran else []
+    if f64 is None:
+        want = fixture["shells"]
+        for key in ("conditions", "shell_rows", "most_conditions_per_row", "shared_targets"):
+            if shells[key] != want[key]:
+                failed.append(f"shells {key} {shells[key]} vs {want[key]}")
+        for key in ("disk_radius", "rim_radius", "outer_radius"):
+            if not abs(shells[key] - want[key]) <= 1e-12 * abs(want[key]):
+                failed.append(f"shells {key} {shells[key]!r} vs {want[key]!r}")
+        out["dev"] = max(abs(a - b) / abs(b) for a, b in zip(out["energies"], fixture["energies"],
+                                                             strict=True))
+        fields["syncs_per_step"], sites = count_syncs(torch, lambda: mn.minimize(1))
+        fields.update(jax_accepted=json.dumps(fixture["accepted"]), max_rel_dev=repr(out["dev"]),
+                      sync_sites=json.dumps(sites[:6]))
+        out["syncs"] = fields["syncs_per_step"]
+        if out["accepted"] != fixture["accepted"]:
+            failed.append(f"accept flags {out['accepted']} vs {fixture['accepted']}")
+        if trace_z != fixture["trace_z"]:
+            failed.append(f"trace_z decisions {trace_z} vs {fixture['trace_z']}")
+        if relax != fixture["relax_accepted_steps"]:
+            failed.append(f"relax accepted steps {relax} vs {fixture['relax_accepted_steps']}")
+        if not out["dev"] <= F64_RTOL:
+            failed.append(f"energies deviate from the JAX fixture by {out['dev']!r}")
+    say(label, **fields)
+    if failed:
+        raise AssertionError(f"{label}: " + "; ".join(failed))
+    out["shells"] = shells
     return out
 
 
@@ -2534,6 +2683,8 @@ def main() -> int:
     free_disk = load_fixture(FREE_DISK_FIXTURE)
     interface = load_fixture(INTERFACE_FIXTURE)
     match = json.loads(MATCH_FIXTURE.read_text())
+    physical_edge = load_fixture(PHYSICAL_EDGE_FIXTURE)
+    scaffold = load_fixture(SCAFFOLD_FIXTURE)
     seconds = {}
 
     def timed(phase, fn, *args, **kw):
@@ -2636,6 +2787,24 @@ def main() -> int:
     new = ("21", "22", "23", "24", "25")
     say("21-25", seconds=f"{sum(seconds[k] for k in new):.3f}",
         phases=json.dumps({k: seconds[k] for k in new}))
+    # the physical-edge rim placement and its scaffold-trace lane: the
+    # frozen-tilt kernel on the first at float32, on neither at the scaffold
+    frozen = ("frozen_tilt.energy", "frozen_tilt.energy_grad")
+    runs["p64"] = timed("26", phase_physical_edge, torch, counters,
+                        "26 kozlov_L3_physical_edge f64", physical_edge, torch.float64,
+                        kozlov_path)
+    runs["p32"] = timed("27", phase_physical_edge, torch, counters,
+                        "27 kozlov_L3_physical_edge f32", physical_edge, torch.float32,
+                        f32_kozlov_path, f64=runs["p64"])
+    runs["q64"] = timed("28", phase_physical_edge, torch, counters, "28 kozlov_L3_scaffold f64",
+                        scaffold, torch.float64, kozlov_path, forbid=frozen)
+    runs["q32"] = timed("29", phase_physical_edge, torch, counters, "29 kozlov_L3_scaffold f32",
+                        scaffold, torch.float32, kozlov_path, f64=runs["q64"], forbid=frozen)
+    new = ("26", "27", "28", "29")
+    say("26-29", seconds=f"{sum(seconds[k] for k in new):.3f}",
+        phases=json.dumps({k: seconds[k] for k in new}),
+        host_syncs_per_minimize_1=json.dumps({"5": runs["k64"]["syncs"], "26": runs["p64"]["syncs"],
+                                              "28": runs["q64"]["syncs"]}))
     # phases 8-10 have imported the CLI and the command layer by now
     if not {"membrane_solver_tpu_torch.cli", "membrane_solver_tpu_torch.commands"} <= set(sys.modules):
         raise AssertionError("the CLI and the command layer were not imported")

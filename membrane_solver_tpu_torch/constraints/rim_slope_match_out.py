@@ -19,25 +19,50 @@ heights and radii about (center, normal).  The ``rim_slope_match_mode``s:
   with the weight-blended normal of those rows (and the minimize block
   restricts shape descent to heights, ``runtime/jit_core``).
 
+- ``physical_edge_staggered_v1``: the local-shell placement
+  (``local_interface_shells.build_shell_rows`` about the disk group): the
+  "rim" of the matching is the disk group, each row paired with the
+  nearest-azimuth row of the first free shell (or, with
+  ``parity_trace_layer_radius``, of the shell nearest that radius: the
+  trace shell), staggered.  Without ``parity_outer_shells`` it is the
+  disk-targeted flavour: the inner condition acts on the disk row itself
+  along the planar radial with the scalar theta_B target.  With
+  ``parity_trace_layer_radius`` and ``parity_outer_shells`` > 0 (the
+  scaffold-trace lane) theta comes from the disk rows' tilts and the inner
+  condition is staggered as the outer one.  With a trace radius the
+  geometric enforcement (:func:`make_enforce`) also projects the trace
+  shell's heights and outer radial tilts (a joint proximal solve, or
+  ``rim_slope_match_scaffold_projector_mode`` ``continuity_v2``), skipped
+  in mesh-operation and finalize contexts under
+  ``rim_slope_match_scaffold_mesh_operation_mode`` ``preserve_trace_v1``.
+
 When the rim and outer rings differ in size, the outer ring is sampled at
 each rim vertex's normalized arc length (rows idx0, idx1 with weights
-w0, w1), and the staggered enforcement runs the conditions one after the
-other (adjacent conditions share a target row).  theta_i is the scalar
+w0, w1).  The staggered enforcement runs the conditions one after the
+other, as the reference's loop does: one at a time on the interpolated
+pairing (adjacent conditions share a target row), and in levels on the
+others, whose rows are fixed per topology: a condition's level is the
+number of earlier conditions on its row, and the conditions of one level,
+on distinct rows, update at once, which gives the loop's sums in its order.
+The 1:1 pairings run in one level; the physical-edge pairing maps several
+disk rows onto one shell row once the disk is refined (``shared_targets``;
+up to 108 levels on the kozlov L3 mesh).  theta_i is the scalar
 ``tilt_thetaB_value`` with ``rim_slope_match_thetaB_param`` set or without
 a disk group, else the disk ring's radial tilt: paired 1:1 when the disk
 and rim rings have equal counts (``local_disk``), else their arc-length
 mean.  The in-rows of the tilt KKT projection subtract the disk-side term
 in the same way: the paired disk row's direction, or a rank-1 background
-(the arc-length-mean disk field) shared by every in-row.  A lane without a
-disk group has out-conditions only.  ``physical_edge_staggered_v1`` (the
-local-shell placement) raises NotImplementedError when the problem is
-compiled; an unknown mode raises the JAX package's ValueError.
+(the arc-length-mean disk field) shared by every in-row; the disk-targeted
+in-rows touch the disk row alone.  A lane without a disk group has
+out-conditions only.  An unknown mode raises the JAX package's ValueError.
 
 Sums over vertex rows: every scatter here writes rows that are distinct
 within one call (the rim, outer and disk rings are disjoint groups, the
-sequential enforcement writes one row per update), so an ``index_add``
-adds at most one value into a row; the KKT projector sums the slot rows
-in a fixed order (``vertex_sum.row_sum``).
+staggered enforcement writes distinct rows per update, the trace-shell
+projection adds a shared row's values in the JAX package's order through
+``state.ordered_index_add``), so an ``index_add`` adds at most one value
+into a row; the KKT projector sums the slot rows in a fixed order
+(``vertex_sum.row_sum``).
 """
 
 from __future__ import annotations
@@ -48,11 +73,16 @@ import numpy as np
 import torch
 
 from membrane_solver_tpu_torch.device import geo as dgeo
-from membrane_solver_tpu_torch.device.state import check_unique_rows
+from membrane_solver_tpu_torch.device.state import (
+    check_unique_rows,
+    occurrence_levels,
+    ordered_index_add,
+)
 from membrane_solver_tpu_torch.energy import param
 
 _KEY = "constraint:rim_slope_match_out"
-_MODES = ("pointwise_radial_v1", "ring_average_radial_v1", "shared_rim_staggered_v1")
+_PHYSICAL = "physical_edge_staggered_v1"
+_MODES = ("pointwise_radial_v1", "ring_average_radial_v1", "shared_rim_staggered_v1", _PHYSICAL)
 
 
 def _tiny(dtype) -> float:
@@ -90,17 +120,38 @@ def _mode(gp) -> str:
 
 
 def _check_mode(mode: str) -> None:
-    if mode == "physical_edge_staggered_v1":
-        raise NotImplementedError(
-            "rim_slope_match_mode='physical_edge_staggered_v1' is not ported to "
-            "membrane_solver_tpu_torch"
-        )
     if mode not in _MODES:
         raise ValueError(
             "rim_slope_match_mode must be 'pointwise_radial_v1' or "
             "'ring_average_radial_v1' or 'shared_rim_staggered_v1' or "
             "'physical_edge_staggered_v1'."
         )
+
+
+def _scaffold_mesh_op_mode(gp) -> str:
+    """The scaffold lane's projection in mesh-operation and finalize contexts."""
+    mode = str(gp.get("rim_slope_match_scaffold_mesh_operation_mode") or "project")
+    mode = mode.strip().lower()
+    if mode not in {"project", "preserve_trace_v1"}:
+        raise ValueError(
+            "rim_slope_match_scaffold_mesh_operation_mode must be "
+            "'project' or 'preserve_trace_v1'."
+        )
+    return mode
+
+
+def _shells(layout):
+    """The physical-edge local shells about the disk group (else the rim group), or None."""
+    from membrane_solver_tpu_torch.constraints.local_interface_shells import build_shell_rows
+
+    gp = layout.mesh.global_parameters
+    group = gp.get("rim_slope_match_disk_group") or gp.get("rim_slope_match_group")
+    if group is None:
+        return None
+    shells = build_shell_rows(layout, group=str(group))
+    if shells is None or shells.disk_rows.size == 0:
+        return None
+    return shells
 
 
 def _rings(layout):
@@ -123,13 +174,38 @@ def _rings(layout):
 
 def compile_static(layout):
     """Flags (active, has_disk, interp_outer, local_disk, theta_is_param, staggered,
-    disk_targeting, ring_average, scaffold, mesh_op_mode, projector_mode, has_trace).
+    disk_targeting, ring_average, scaffold, mesh_op_mode, projector_mode, has_trace[,
+    shared_targets]).
 
-    The JAX module's tuple; the last six belong to the physical-edge modes
-    and keep their off values here.
+    The JAX module's tuple.  In the physical-edge mode ``scaffold`` is
+    ``parity_trace_layer_radius`` set with ``parity_outer_shells`` > 0 (theta
+    from the disk rows, no disk targeting), ``has_trace`` the radius alone,
+    and ``shared_targets`` says that several conditions share a shell row.
     """
     gp = layout.mesh.global_parameters
     mode = _mode(gp)  # checked by compile_topology, the hook that runs first
+    if mode == _PHYSICAL:
+        shells = _shells(layout)
+        if shells is None:
+            return ("inactive",)
+        has_trace = gp.get("parity_trace_layer_radius") is not None
+        scaffold = has_trace and int(gp.get("parity_outer_shells") or 0) > 0
+        matched = np.asarray(shells.rim_rows_for_disk)
+        return (
+            "active",
+            True,   # has_disk: the disk group is the matching's rim
+            False,  # the shells pair by azimuth, no interpolation
+            True,   # local_disk
+            (gp.get("rim_slope_match_thetaB_param") is not None) and not scaffold,
+            True,   # staggered
+            not scaffold,  # disk_targeting
+            False,  # ring_average
+            scaffold,
+            _scaffold_mesh_op_mode(gp),
+            str(gp.get("rim_slope_match_scaffold_projector_mode") or "").strip().lower(),
+            has_trace,
+            bool(len(np.unique(matched)) != len(matched)),
+        )
     rings = _rings(layout)
     if rings is None:
         return ("inactive",)
@@ -150,6 +226,11 @@ def compile_static(layout):
     )
 
 
+def _ring(rows):
+    return (np.asarray(rows or [0], dtype=np.int64),
+            np.ones(len(rows), dtype=bool) if rows else np.zeros(1, dtype=bool))
+
+
 def compile_topology(layout) -> dict:
     gp = layout.mesh.global_parameters
     _check_mode(_mode(gp))
@@ -157,12 +238,26 @@ def compile_topology(layout) -> dict:
     normal = np.asarray(gp.get("rim_slope_match_normal") or [0, 0, 1], dtype=float)
     normal /= max(np.linalg.norm(normal), 1e-15)
 
+    if _mode(gp) == _PHYSICAL:
+        # the disk group (in azimuth order) is the matching's rim and its own
+        # disk ring; each row's outer row is the shell row nearest in azimuth
+        # (shared by several disk rows once the disk is refined)
+        shells = _shells(layout)
+        rim = [] if shells is None else [int(r) for r in shells.disk_rows]
+        outer = [] if shells is None else [int(r) for r in shells.rim_rows_for_disk]
+        check_unique_rows(rim, "rim_slope_match_out disk rows")
+        rim_arr, rim_valid = _ring(rim)
+        outer_arr, outer_valid = _ring(outer)
+        out = {"rim": rim_arr, "outer": outer_arr, "disk": rim_arr, "valid": rim_valid,
+               "outer_valid": outer_valid, "disk_valid": rim_valid, "center": center,
+               "normal": normal}
+        if shells is not None:
+            out["shell_radii"] = np.asarray(
+                [shells.disk_radius, shells.rim_radius, shells.outer_radius])
+        return out
+
     def ring(rows):
-        rows = _order_ring(layout, rows, center, normal) if rows else []
-        return (
-            np.asarray(rows or [0], dtype=np.int64),
-            np.ones(len(rows), dtype=bool) if rows else np.zeros(1, dtype=bool),
-        )
+        return _ring(_order_ring(layout, rows, center, normal) if rows else [])
 
     rim, outer, disk = _rings(layout) or ([], [], [])
     # the rim, outer and disk rows are distinct, so each index_add below adds
@@ -197,6 +292,12 @@ class Flags:
     theta_is_param: bool
     staggered: bool
     ring_average: bool
+    disk_targeting: bool = False
+    scaffold: bool = False
+    mesh_op_mode: str = "project"
+    projector_mode: str = ""
+    has_trace: bool = False
+    shared_targets: bool = False
 
     @property
     def theta_scalar(self) -> bool:
@@ -208,7 +309,9 @@ def _spec_flags(spec, key=_KEY):
     f = spec.static_of(key, ("inactive",))
     if f[0] != "active":
         return None
-    return Flags(bool(f[1]), bool(f[2]), bool(f[3]), bool(f[4]), bool(f[5]), bool(f[7]))
+    return Flags(bool(f[1]), bool(f[2]), bool(f[3]), bool(f[4]), bool(f[5]), bool(f[7]),
+                 bool(f[6]), bool(f[8]), str(f[9]), str(f[10]), bool(f[11]),
+                 len(f) > 12 and bool(f[12]))
 
 
 def _ring_neighbors(k, live, device):
@@ -332,34 +435,50 @@ def _staggered_targets(topo, r_hat, vnormals, omap):
     return row0, row1, w0, w1, r_dir, ok, w0 * w0 + w1 * w1
 
 
-def _staggered_enforce_field(tilts, fr, ok, target, sequential: bool):
-    """Enforce sum_k w_k (t[row_k] . r_dir) = target per condition.
+def _condition_levels(topo, rows):
+    """The conditions in levels of distinct target rows, as index tensors (kept per topology).
 
-    The distinct-row (1:1) form updates every condition at once; the
-    ``sequential`` form (interpolated pairing, whose adjacent conditions
-    share a row) updates one condition after the other, each seeing the
-    earlier updates, as the reference's loop does.
+    A condition's level is the number of earlier conditions on its row, so
+    a row's conditions run in their order, one level after the other.
+    """
+
+    return topo.kept(("rim_slope_match_out", "levels"), lambda: occurrence_levels(rows))
+
+
+def _staggered_enforce_fields(fields, fr, oks, targets, flags: Flags, topo):
+    """Enforce sum_k w_k (t[row_k] . r_dir) = target per condition on each tilt field.
+
+    One condition after the other, each seeing the earlier updates, as the
+    reference's loop does.  The pairing without interpolation (one row per
+    condition, weight 1, the rows fixed per topology) runs in levels of
+    distinct rows (:func:`_condition_levels`), all fields together: one
+    level when no row is shared.  The interpolated pairing, whose rows
+    follow the positions, runs the conditions one at a time.
     """
     row0, row1, w0, w1, r_dir, denom = (fr[k] for k in ("row0", "row1", "w0", "w1", "r_dir",
                                                          "denom"))
-    if not sequential:
-        t_rad = w0 * torch.sum(tilts[row0] * r_dir, dim=1) + w1 * torch.sum(
-            tilts[row1] * r_dir, dim=1)
-        delta = torch.where(ok, target - t_rad, 0.0)
-        safe = torch.clamp(denom, min=1e-12)
-        upd0 = (delta * w0 / safe)[:, None] * r_dir
-        upd1 = (delta * w1 / safe)[:, None] * r_dir
-        tilts = tilts.index_add(0, row0, upd0)
-        return tilts.index_add(0, row1, torch.where((w1 != 0.0)[:, None], upd1, 0.0))
-    for i in range(row0.shape[0]):
-        r0, r1 = row0[i:i + 1], row1[i:i + 1]
-        a0, a1, rd, den = w0[i], w1[i], r_dir[i:i + 1], denom[i]
-        t_rad = a0 * torch.sum(tilts[r0] * rd) + a1 * torch.sum(tilts[r1] * rd)
-        delta = torch.where(ok[i], target[i] - t_rad, 0.0)
-        safe = torch.clamp(den, min=1e-12)
-        tilts = tilts.index_add(0, r0, (delta * a0 / safe) * rd)
-        tilts = tilts.index_add(0, r1, torch.where(a1 != 0.0, delta * a1 / safe, 0.0) * rd)
-    return tilts
+    safe = torch.clamp(denom, min=1e-12)
+    if not flags.interp_outer:
+        # row1 is row0 with weight 0 here: its term and its update are zero
+        t = torch.stack(fields)
+        ok, target = torch.stack(oks), torch.stack(targets)
+        for idx in _condition_levels(topo, row0):
+            rows, rd = row0[idx], r_dir[idx]
+            t_rad = w0[idx] * torch.sum(t[:, rows] * rd, dim=2)
+            delta = torch.where(ok[:, idx], target[:, idx] - t_rad, 0.0)
+            t = t.index_add(1, rows, (delta * w0[idx] / safe[idx])[:, :, None] * rd)
+        return list(t.unbind(0))
+    out = []
+    for tilts, ok, target in zip(fields, oks, targets):
+        for i in range(row0.shape[0]):
+            r0, r1 = row0[i:i + 1], row1[i:i + 1]
+            a0, a1, rd, sf = w0[i], w1[i], r_dir[i:i + 1], safe[i]
+            t_rad = a0 * torch.sum(tilts[r0] * rd) + a1 * torch.sum(tilts[r1] * rd)
+            delta = torch.where(ok[i], target[i] - t_rad, 0.0)
+            tilts = tilts.index_add(0, r0, (delta * a0 / sf) * rd)
+            tilts = tilts.index_add(0, r1, torch.where(a1 != 0.0, delta * a1 / sf, 0.0) * rd)
+        out.append(tilts)
+    return out
 
 
 def _disk_geometry(positions, topo, prefix=_KEY):
@@ -406,6 +525,9 @@ def _payload(flags: Flags, positions, topo):
         fr = {"phi": phi, "row0": row0, "row1": row1, "w0": w0, "w1": w1, "denom": denom,
               "r_dir": r_dir, "ok_out": use & ~(fo[row0] | (fo[row1] & second)),
               "ok_in": use & ~(fi[row0] | (fi[row1] & second))}
+        if flags.disk_targeting:
+            # the inner condition on the disk row itself, along the planar radial
+            fr.update(rim=rim, r_hat=r_hat, ok_in=use & ~fi[rim])
     else:
         r_dir, dir_ok = _tangent_radial(r_hat, vnormals, rim)
         use = valid & dir_ok
@@ -430,14 +552,20 @@ def _theta(flags: Flags, tin, fr, params, phi):
     return mean.expand_as(phi)
 
 
-def _apply(flags: Flags, tin, tout, fr, params):
+def _apply(flags: Flags, tin, tout, fr, params, topo):
     """Project the outer, then the inner matching condition: (tin, tout)."""
     phi, r_dir = fr["phi"], fr["r_dir"]
     if flags.staggered:
-        # interpolated targets are shared by adjacent conditions: sequential
-        tout = _staggered_enforce_field(tout, fr, fr["ok_out"], phi, flags.interp_outer)
+        # theta reads the disk rows, which no staggered condition writes
         theta = _theta(flags, tin, fr, params, phi)
-        tin = _staggered_enforce_field(tin, fr, fr["ok_in"], theta - phi, flags.interp_outer)
+        if flags.disk_targeting:
+            (tout,) = _staggered_enforce_fields([tout], fr, [fr["ok_out"]], [phi], flags, topo)
+            rim, r_hat = fr["rim"], fr["r_hat"]
+            t_in_rad = torch.sum(tin[rim] * r_hat, dim=1)
+            delta_in = torch.where(fr["ok_in"], (theta - phi) - t_in_rad, 0.0)
+            return tin.index_add(0, rim, delta_in[:, None] * r_hat), tout
+        tout, tin = _staggered_enforce_fields(
+            [tout, tin], fr, [fr["ok_out"], fr["ok_in"]], [phi, theta - phi], flags, topo)
         return tin, tout
     rim = fr["rim"]
     ok_out, ok_in = fr["ok_out"], fr["ok_in"]
@@ -465,7 +593,7 @@ def make_enforce_tilts(spec):
 
     def enforce(state, topo, params):
         fr = _payload(flags, state.positions, topo)
-        tin, tout = _apply(flags, state.tilts_in, state.tilts_out, fr, params)
+        tin, tout = _apply(flags, state.tilts_in, state.tilts_out, fr, params, topo)
         return dataclasses.replace(state, tilts_in=tin, tilts_out=tout)
 
     return enforce
@@ -481,15 +609,101 @@ def make_frozen_enforce_tilts(spec):
         return _payload(flags, state.positions, topo)
 
     def enforce(tin, tout, fr, topo, params):
-        return _apply(flags, tin, tout, fr, params)
+        return _apply(flags, tin, tout, fr, params, topo)
 
     return precompute, enforce
 
 
 def make_enforce(spec):
-    """Geometric enforcement: the JAX module projects heights only on the
-    physical-edge trace lanes (not ported); the other modes have none."""
-    return None
+    """Trace-shell height and outer tilt projection of the physical-edge trace lanes, or None.
+
+    With ``parity_trace_layer_radius`` set: each condition's target slope
+    phi* and outer radial tilt t* come from a joint local proximal solve
+    (equal weights on staying near the current slope and outer tilt and on
+    t_out = phi, t_in = theta - phi), or under the ``continuity_v2``
+    projector mode phi* = t* = theta / 2.  Each shell row moves along the
+    lane normal to the mean of its conditions' target heights h_rim + phi*
+    dr, and its outer tilt's planar-radial part (tangent-projected with the
+    vertex normals before the move) becomes the mean t*.  A shell row's
+    conditions add in the JAX package's order (``state.ordered_index_add``).
+    Skipped in mesh-operation and finalize contexts on the scaffold lane
+    under ``preserve_trace_v1``.  None in the other modes, which have no
+    geometric enforcement.
+    """
+    flags = _spec_flags(spec)
+    if flags is None or not (flags.staggered and flags.has_trace):
+        return None
+
+    def enforce(state, topo, params, context="minimize"):
+        if (context in {"mesh_operation", "finalize"} and flags.scaffold
+                and flags.mesh_op_mode == "preserve_trace_v1"):
+            return state
+        positions = state.positions
+        valid, phi, inv_dr, r_hat, _w, normal, omap = matching_data(
+            positions, topo, flags.interp_outer)
+        rim, outer = _x(topo, "rim"), _x(topo, "outer")
+        n_rows = positions.shape[0]
+        vnormals = _vertex_normals(positions, topo)
+        row0, row1, sw0, sw1, r_dir, dir_ok, _denom = _staggered_targets(topo, r_hat, vnormals,
+                                                                        omap)
+        tin, tout = state.tilts_in, state.tilts_out
+        t_out_rad = sw0 * torch.sum(tout[row0] * r_dir, dim=1) + sw1 * torch.sum(
+            tout[row1] * r_dir, dim=1)
+        t_in_rad = sw0 * torch.sum(tin[row0] * r_dir, dim=1) + sw1 * torch.sum(
+            tin[row1] * r_dir, dim=1)
+        fr = {}
+        if not flags.theta_scalar:
+            disk, dgood, disk_r_hat, dw = _disk_geometry(positions, topo)
+            fr.update(disk=disk, dgood=dgood, disk_r_hat=disk_r_hat, dw=dw)
+        theta = _theta(flags, tin, fr, params, phi)
+        continuity = theta - t_in_rad
+
+        ok = valid & dir_ok & (torch.abs(inv_dr) > 1e-12)
+        dr = torch.where(ok, 1.0 / torch.where(ok, inv_dr, 1.0), 0.0)
+        if flags.projector_mode == "continuity_v2":
+            phi_target = 0.5 * theta
+            t_out_target = phi_target
+        else:
+            phi_target = (2.0 * phi + t_out_rad + 2.0 * continuity) / 5.0
+            t_out_target = 0.5 * (phi_target + t_out_rad)
+        target_h = positions[rim] @ normal + phi_target * dr
+
+        # the pairing is azimuthal (no interpolation): each condition has
+        # the one shell row outer[i] with weight 1
+        zeros = positions.new_zeros((n_rows,))
+
+        def shell_sum(values):
+            return ordered_index_add(topo, _KEY + "/outer", zeros, outer,
+                                     torch.where(ok, values, 0.0))
+
+        h_num = shell_sum(target_h)
+        h_den = shell_sum(torch.ones_like(target_h))
+        t_num = shell_sum(t_out_target)
+        move = (h_den > 1e-12) & ~topo.fixed_mask
+        cur_h = positions @ normal
+        target_mean = h_num / _fmax_tiny(h_den)
+        new_positions = torch.where(
+            move[:, None], positions + (target_mean - cur_h)[:, None] * normal[None, :], positions)
+
+        # the outer radial tilt on the moved positions, with the normals of
+        # the positions before the move
+        xy = new_positions[:, :2]
+        radius = torch.linalg.vector_norm(xy, dim=1)
+        r_ok = radius > 1e-12
+        r_hat_row = torch.where(
+            r_ok[:, None], torch.cat([xy / _fmax_tiny(radius)[:, None], zeros[:, None]], dim=1),
+            0.0)
+        rd = r_hat_row - torch.sum(r_hat_row * vnormals, dim=1)[:, None] * vnormals
+        rd_n = torch.linalg.vector_norm(rd, dim=1)
+        rd_ok = rd_n > 1e-12
+        rd = torch.where(rd_ok[:, None], rd / _fmax_tiny(rd_n)[:, None], 0.0)
+        upd = (h_den > 1e-12) & ~topo.tilt_fixed_out_mask & r_ok & rd_ok
+        radial = torch.sum(tout * rd, dim=1)
+        new_tout = torch.where(
+            upd[:, None], tout + (t_num / _fmax_tiny(h_den) - radial)[:, None] * rd, tout)
+        return dataclasses.replace(state, positions=new_positions, tilts_out=new_tout)
+
+    return enforce
 
 
 def _mean_disk_field(disk, dgood, disk_r_hat, dw, n_rows):
@@ -502,10 +716,11 @@ def _mean_disk_field(disk, dgood, disk_r_hat, dw, n_rows):
 
 
 def _tilt_row_data(flags: Flags, positions, topo):
-    """(coeff, r_dir, targets, use): the tilt rows' values and slots per condition.
+    """(coeff, r_dir, targets, use, r_hat): the tilt rows' values and slots per condition.
 
     ``targets`` lists (rows, weight) pairs: [(row0, w0), (row1, w1)]
-    (staggered) or [(rim, None)].
+    (staggered) or [(rim, None)]; ``r_hat`` is the planar radial of the
+    disk-targeted in-rows.
     """
     valid, _phi, _inv_dr, r_hat, weights, _normal, omap = matching_data(
         positions, topo, flags.interp_outer)
@@ -520,7 +735,7 @@ def _tilt_row_data(flags: Flags, positions, topo):
         targets = [(rim, None)]
     use = valid & dir_ok
     coeff = torch.where(use, torch.sqrt(torch.clamp(weights, min=0.0)), 0.0)
-    return coeff, r_dir, targets, use
+    return coeff, r_dir, targets, use, r_hat
 
 
 def make_tilt_constraint_rows(spec):
@@ -536,7 +751,7 @@ def make_tilt_constraint_rows(spec):
 
     def fn(state, topo, params):
         positions = state.positions
-        coeff, r_dir, targets, _use = _tilt_row_data(flags, positions, topo)
+        coeff, r_dir, targets, _use, r_hat = _tilt_row_data(flags, positions, topo)
         k = coeff.shape[0]
         n_rows = positions.shape[0]
         idx = torch.arange(k, device=positions.device)
@@ -555,6 +770,11 @@ def make_tilt_constraint_rows(spec):
         out_pairs = agg(torch.stack([zeros, base_row()], dim=1))
         if not flags.has_disk:
             return out_pairs
+        if flags.disk_targeting:
+            # the physical-edge in-rows: coeff * planar r_hat at the disk row only
+            gin = zeros.index_put((idx, _x(topo, "rim")), coeff[:, None] * r_hat,
+                                  accumulate=True)
+            return torch.cat([out_pairs, agg(torch.stack([gin, zeros], dim=1))])
         disk, dgood, disk_r_hat, dw = _disk_geometry(positions, topo)
         gin = base_row()
         if flags.local_disk:
@@ -573,7 +793,8 @@ def make_compact_tilt_rows(spec):
     Out rows touch the condition's target slots on the out leaflet; in rows
     the same slots on the in leaflet plus the paired (disk, in) slot (local
     disk), or a rank-1 background, the arc-length-mean disk field shared by
-    every in row.  Without a disk group, out rows only.  None in the
+    every in row; disk-targeted in rows the disk row alone.  Without a disk
+    group, out rows only.  None in the
     ring-average mode, whose aggregate rows touch the whole ring.
     """
     flags = _spec_flags(spec)
@@ -584,7 +805,7 @@ def make_compact_tilt_rows(spec):
 
     def fn(state, topo, params):
         positions = state.positions
-        coeff, r_dir, targets, use = _tilt_row_data(flags, positions, topo)
+        coeff, r_dir, targets, use, r_hat = _tilt_row_data(flags, positions, topo)
         k = coeff.shape[0]
         base_vals = [(coeff if w is None else coeff * w)[:, None] * r_dir for _r, w in targets]
         base_rows = [torch.where(use, rows, 0) for rows, _w in targets]
@@ -596,6 +817,13 @@ def make_compact_tilt_rows(spec):
         out_leaf = torch.ones_like(out_rows)
         if not flags.has_disk:
             return out_vals[:, :n_base], out_rows[:, :n_base], out_leaf[:, :n_base]
+        if flags.disk_targeting:
+            # one slot: coeff * planar r_hat at the disk row, inner leaflet
+            in_vals = torch.stack([coeff[:, None] * r_hat] + [zero_val] * n_base, dim=1)
+            in_rows = torch.stack([torch.where(use, _x(topo, "rim"), 0)] + [zero_row] * n_base,
+                                  dim=1)
+            return (torch.cat([out_vals, in_vals]), torch.cat([out_rows, in_rows]),
+                    torch.cat([out_leaf, torch.zeros_like(in_rows)]))
         disk, dgood, disk_r_hat, dw = _disk_geometry(positions, topo)
         if flags.local_disk:
             in_vals = torch.stack(

@@ -137,6 +137,24 @@ def check_unique_rows(rows, what: str) -> None:
         raise ValueError(f"{what}: a vertex row repeats; its sums need a fixed order")
 
 
+def occurrence_levels(rows: torch.Tensor) -> list:
+    """The positions of ``rows`` (flattened) in levels: level k holds every row's k-th occurrence.
+
+    Each level's positions ascend and its rows are distinct.  One host read
+    of ``rows`` and one copy back: the levels are slices of one index
+    tensor on ``rows``' device.
+    """
+    flat = rows.detach().reshape(-1).cpu().numpy()
+    rank = np.zeros(flat.size, dtype=np.int64)
+    seen: Dict[int, int] = {}
+    for i, r in enumerate(flat.tolist()):
+        rank[i] = seen.get(r, 0)
+        seen[r] = rank[i] + 1
+    order = torch.as_tensor(np.argsort(rank, kind="stable"), device=rows.device)
+    ends = np.cumsum(np.bincount(rank)) if rank.size else np.zeros(0, dtype=np.int64)
+    return [order[a:b] for a, b in zip(np.concatenate([[0], ends[:-1]]).tolist(), ends.tolist())]
+
+
 def ordered_index_add(topo: "Topology", key: str, target: torch.Tensor, rows: torch.Tensor,
                       values: torch.Tensor) -> torch.Tensor:
     """``target`` with ``values`` added into ``rows``, a repeated row's values one after the other.
@@ -149,17 +167,7 @@ def ordered_index_add(topo: "Topology", key: str, target: torch.Tensor, rows: to
     same order, on any device.  ``rows`` must be fixed per topology.
     """
 
-    def make():
-        flat = rows.detach().reshape(-1).cpu().numpy()
-        rank = np.zeros(flat.size, dtype=np.int64)
-        seen: Dict[int, int] = {}
-        for i, r in enumerate(flat.tolist()):
-            rank[i] = seen.get(r, 0)
-            seen[r] = rank[i] + 1
-        return [torch.as_tensor(np.flatnonzero(rank == k), device=rows.device)
-                for k in range(int(rank.max()) + 1 if rank.size else 0)]
-
-    levels = topo.kept(("ordered_index_add", key), make)
+    levels = topo.kept(("ordered_index_add", key), lambda: occurrence_levels(rows))
     if len(levels) == 1:
         return target.index_add(0, rows, values)
     for idx in levels:
@@ -322,8 +330,10 @@ _STATIC_PARAM_KEYS: Tuple[str, ...] = (
 # coupled-tilt lane's own and its solver options (the reduced-energy line
 # search, the unpreconditioned CG with its GD retry, the per-pass projection
 # cadence, the inner-coupled delta cap, the curved-theta ablation, the
-# reference-exact rim KKT skip, the ring-average and shared-rim staggered
-# rim matching, the axisymmetric tilt projection), the single-field tilt
+# reference-exact rim KKT skip, the ring-average, shared-rim staggered and
+# physical-edge rim matching, the axisymmetric tilt projection, the
+# scaffold-trace lane's rejected-step ``trace_z`` fallback, trace-boundary
+# stencil and trace-reconstructed divergence), the single-field tilt
 # lane's, the bending models, the leaflet tilt-field energies' (the consistent
 # tilt mass, the splay-twist divergence modes, the rim sources' edge
 # selection), plus the defaults that select the same branches.  Any other
@@ -337,9 +347,9 @@ _PORTED_STATIC_VALUES: Dict[str, Tuple[str, ...]] = {
     "tilt_transport_model": ("ambient_v1", "connection_v1"),
     "tilt_thetaB_contact_penalty_mode": ("off",),
     "tilt_thetaB_contact_work_mode": ("scalar",),
-    "shape_scaffold_rejected_step_fallback": ("off",),
+    "shape_scaffold_rejected_step_fallback": ("off", "trace_z"),
     "rim_slope_match_mode": ("pointwise_radial_v1", "ring_average_radial_v1",
-                             "shared_rim_staggered_v1"),
+                             "shared_rim_staggered_v1", "physical_edge_staggered_v1"),
     "tilt_mass_mode": ("lumped", "consistent"),
     "tilt_mass_mode_in": ("lumped", "consistent"),
     "tilt_mass_mode_out": ("lumped", "consistent"),
@@ -350,10 +360,10 @@ _PORTED_STATIC_VALUES: Dict[str, Tuple[str, ...]] = {
     "inner_coupled_update_mode": ("off", "rim_matched_radial_continuation_v1"),
     "curved_theta_objective_ablation_mode": ("off", "inner_outer_rescaled"),
     "bending_tilt_in_update_mode": ("off",),
-    "bending_tilt_interface_divergence_mode": ("p1_triangle",),
-    "bending_tilt_interface_divergence_mode_out": ("p1_triangle",),
-    "bending_tilt_out_interface_divergence_mode": ("p1_triangle",),
-    "bending_tilt_in_scaffold_shape_stencil_mode": ("off",),
+    "bending_tilt_interface_divergence_mode": ("p1_triangle", "trace_reconstructed_v1"),
+    "bending_tilt_interface_divergence_mode_out": ("p1_triangle", "trace_reconstructed_v1"),
+    "bending_tilt_out_interface_divergence_mode": ("p1_triangle", "trace_reconstructed_v1"),
+    "bending_tilt_in_scaffold_shape_stencil_mode": ("off", "trace_boundary_v1"),
     "bending_tilt_base_term_reference_mode": ("current_geometry",),
     "bending_tilt_base_term_reference_mode_in": ("current_geometry",),
     "bending_tilt_base_term_reference_mode_out": ("current_geometry",),
@@ -369,28 +379,36 @@ _PORTED_STATIC_VALUES: Dict[str, Tuple[str, ...]] = {
 # the JAX package at all, and raises the ValueError the JAX package raises
 # there (with its text), where the JAX package raises it: the rim mode when
 # the rim module compiles, the cadence when the leaflet relax is built, the
-# ablation when the energy is assembled (``ValueError`` texts in
-# ``_VALUE_ERRORS``).
+# ablation when the energy is assembled, the bending-tilt interface
+# divergence and scaffold stencil modes when the bending-tilt energies are
+# made.
 _VALID_STATIC_VALUES: Dict[str, Tuple[str, ...]] = {
-    "rim_slope_match_mode": ("physical_edge_staggered_v1",),
+    "rim_slope_match_mode": (),
     "tilt_projection_cadence": (),
     "inner_coupled_update_mode": (),
     "curved_theta_objective_ablation_mode": (),
+    "bending_tilt_interface_divergence_mode": (),
+    "bending_tilt_interface_divergence_mode_out": (),
+    "bending_tilt_out_interface_divergence_mode": (),
+    "bending_tilt_in_scaffold_shape_stencil_mode": (),
 }
 
 # Read by the JAX package only as documentation, by unported modules, or
 # under a rule that gives every value a meaning (a switch that is on for a
 # few words and off otherwise: the reduced line search, the preconditioner,
-# the CG's GD retry, the rim KKT rows; a selector whose unknown values
-# select the default: the ablation's lane gates; tilt_coupling reads an
-# unknown mode as off); the port runs them at every value.  The reduced
+# the CG's GD retry, the rim KKT rows; ``theory_parity_lane``, on for any
+# non-empty value: the recovered inner divergence of ``bending_tilt_in``
+# and, on the physical-edge trace lanes, the trace-layer row weights of
+# ``tilt_in``/``tilt_out``; a selector whose unknown values select the
+# default: the ablation's lane gates; tilt_coupling reads an unknown mode as
+# off); the port runs them at every value.  The reduced
 # line search's accept rule raises the JAX package's ValueError when the
 # minimize block is built with the reduced line search on.
 _IGNORED_STATIC_KEYS = frozenset({
     "tilt_kkt_projection_during_relaxation", "tilt_coupling_mode", "tilt_couping_mode",
     "line_search_reduced_energy", "line_search_reduced_accept_rule", "tilt_cg_preconditioner",
     "tilt_cg_rejection_fallback", "rim_slope_match_kkt_rows", "benchmark_geometry_lane",
-    "benchmark_parameterization",
+    "benchmark_parameterization", "theory_parity_lane",
 })
 
 
@@ -441,7 +459,10 @@ def compile_core_extras(layout: "CompileLayout", tri_rows_np: np.ndarray) -> Dic
     - ``core:curved_disk/transition_mask``: with ``rim_slope_match_mode``
       ``shared_rim_staggered_v1`` and the three rim groups set, every vertex
       of a triangle that touches the outer matching ring (the shape
-      gradient's z is zeroed there, its x and y everywhere).
+      gradient's z is zeroed there, its x and y everywhere);
+    - ``core:scaffold_trace/mask``: with ``shape_scaffold_rejected_step_fallback``
+      ``trace_z``, the rows whose ``pin_to_circle_group`` is ``trace_layer``
+      (the fallback's line search moves their heights only).
     """
     from membrane_solver_tpu_torch.energy.bending_tilt_leaflet import assume_J0_center_xy
 
@@ -477,6 +498,10 @@ def compile_core_extras(layout: "CompileLayout", tri_rows_np: np.ndarray) -> Dic
             tri_arr = np.asarray(tri_rows_np, dtype=int)
             transition[np.unique(tri_arr[support[tri_arr].any(axis=1)])] = True
         out["core:curved_disk/transition_mask"] = transition
+    if str(gp.get("shape_scaffold_rejected_step_fallback", "") or "").lower() == "trace_z":
+        out["core:scaffold_trace/mask"] = np.array(
+            [str((layout.mesh.vertices[int(v)].options or {}).get("pin_to_circle_group") or "")
+             == "trace_layer" for v in layout.vertex_ids], dtype=bool)
     return out
 
 
@@ -780,8 +805,9 @@ def problem_from_numpy(
             arr = arr[: max(int(np.sum(raw_extras[mask_key])), 1)]
         elif name.startswith("tri_present"):
             arr = arr[:nf]
-        elif arr.ndim and (name.startswith(("absent", "row_weights", "transition_mask"))
-                           or key in vertex_tables):
+        elif arr.ndim and (name.startswith(("absent", "row_weights", "transition_mask",
+                                            "scaffold_", "stencil_"))
+                           or key == "core:scaffold_trace/mask" or key in vertex_tables):
             arr = arr[:nv]
         extras[key] = t(arr)
     port_state = MeshState(**{k: t(np.asarray(state[k])[:nv]) for k in

@@ -1,6 +1,11 @@
 """Outer-leaflet bending-tilt coupling (kappa_key=bending_modulus_out, div_sign=1.0).
 
-Counterpart of ``membrane_solver_tpu/energy/bending_tilt_out.py``.
+Counterpart of ``membrane_solver_tpu/energy/bending_tilt_out.py``: under
+``bending_tilt_interface_divergence_mode`` (``_out``, or
+``bending_tilt_out_interface_divergence_mode``) ``trace_reconstructed_v1``
+the trace-touching triangles take the reconstructed divergence
+(``bending_tilt_leaflet._reconstruct_trace_divergence``) on the compiled
+scaffold masks.
 """
 
 from __future__ import annotations
@@ -14,10 +19,15 @@ _KW = dict(kappa_key="bending_modulus_out", div_sign=1.0, c0_key="spontaneous_cu
 
 
 def make_energy(spec):
+    recovered = _bt.recovered_mode(spec, "out")
+    idiv_on = _bt.interface_divergence_mode_static(spec, "out") == "trace_reconstructed_v1"
+
     def fn(geo, state, topo, params):
         return _bt.leaflet_bending_tilt_energy(
             state, topo, params, tilts=state.tilts_out,
-            tri_present=present_triangles(topo, "out"), **_KW,
+            tri_present=present_triangles(topo, "out"), recovered_div=recovered,
+            idiv_masks=_bt.scaffold_masks(topo, "out") if idiv_on else None,
+            **_KW,
         )
 
     return fn
@@ -30,4 +40,11 @@ def make_tilt_frozen(spec):
 
 def compile_topology(layout) -> dict:
     _bt.check_default_modes(layout, "out")
-    return {}
+    gp = layout.mesh.global_parameters
+    raw = (gp.get("bending_tilt_interface_divergence_mode_out")
+           or gp.get("bending_tilt_out_interface_divergence_mode")
+           or gp.get("bending_tilt_interface_divergence_mode"))
+    if str(raw or "p1_triangle").strip().lower() != "trace_reconstructed_v1":
+        return {}
+    tr, su, rl = _bt.compile_scaffold_row_masks(layout)
+    return {"scaffold_trace": tr, "scaffold_support": su, "scaffold_release": rl}

@@ -25,5 +25,5 @@ def make_tilt_frozen(spec):
 
 
 def compile_topology(layout) -> dict:
-    _tl.check_row_weights(layout, "in")
-    return {}
+    w = _tl.compile_active_row_weights(layout, "in")
+    return {} if w is None else {"row_weights": w}

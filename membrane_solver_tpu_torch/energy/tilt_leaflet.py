@@ -8,12 +8,21 @@ assembly E = sum coeff * A_tri with
 
 by ``tilt_mass_mode_<leaflet>`` (falling back to ``tilt_mass_mode``).  The
 relax loop scores the lumped form whatever the mode, as in the JAX package.
-The shared-rim and trace-layer row weights are not ported: a mesh that asks
-for them raises NotImplementedError.
+
+Row weights w_v (``energy:tilt_<leaflet>/row_weights``) scale the tilts,
+t_v -> w_v t_v, in the module energy only: the shared-rim weights (rows of
+the ``rim`` group dropped from the inner leaflet, the outer shell's rows
+dropped or scaled by sqrt(``tilt_in_shared_rim_outer_row_energy_weight``))
+times the trace-layer weights of the physical-edge trace lanes (the trace
+shell's rows at sqrt((r_trace - r_disk) / (r_outer - r_disk)), both
+leaflets).  The relax loop's frozen and per-iteration energies stay
+unweighted, as in the JAX package, whose relax descends a slightly
+different objective from the score there.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from membrane_solver_tpu_torch.energy import param
@@ -32,8 +41,46 @@ def _flag(gp, *keys) -> bool:
     return False
 
 
-def check_row_weights(layout, leaflet: str) -> None:
-    """Raise when the mesh asks for shared-rim active-row weights."""
+def compile_trace_layer_row_weights(layout):
+    """The trace-layer row weights, or None.
+
+    On the physical-edge trace lanes (``rim_slope_match_mode``
+    ``physical_edge_staggered_v1``, ``parity_trace_layer_radius`` set and a
+    non-empty ``theory_parity_lane``) the trace shell's rows carry
+    sqrt((rim_r - disk_r) / (outer_r - disk_r)), clipped to [0, 1], and every
+    other row 1.
+    """
+    gp = layout.mesh.global_parameters
+    mode = str(gp.get("rim_slope_match_mode") or "").strip().lower()
+    lane = str(gp.get("theory_parity_lane") or "").strip()
+    if (mode != "physical_edge_staggered_v1" or gp.get("parity_trace_layer_radius") is None
+            or not lane):
+        return None
+    from membrane_solver_tpu_torch.constraints.local_interface_shells import build_shell_rows
+
+    shells = build_shell_rows(layout, group="disk")
+    if shells is None:
+        return None
+    denom = float(shells.outer_radius) - float(shells.disk_radius)
+    numer = float(shells.rim_radius) - float(shells.disk_radius)
+    if denom <= 1e-12:
+        return None
+    frac = min(1.0, max(0.0, numer / denom))
+    w = np.ones(len(layout.vertex_ids), dtype=float)
+    w[np.asarray(shells.rim_rows, dtype=int)] = float(np.sqrt(frac))
+    return w
+
+
+def compile_shared_rim_row_weights(layout, leaflet: str):
+    """The shared-rim row weights, or None.
+
+    Rows of ``rim_slope_match_group`` ``rim`` weigh 0 under
+    ``tilt_in_exclude_shared_rim_rows`` (inner leaflet); the outer shell's
+    rows (tagged ``rim_slope_match_group`` ``outer``, else the first
+    local-interface outer shell) weigh 0 under
+    ``tilt_<leaflet>_exclude_shared_rim_outer_rows`` (or its aliases), else
+    sqrt(``tilt_in_shared_rim_outer_row_energy_weight``) (inner leaflet).
+    """
     gp = layout.mesh.global_parameters
     keys = [
         f"tilt_{leaflet}_exclude_shared_rim_outer_rows",
@@ -41,23 +88,75 @@ def check_row_weights(layout, leaflet: str) -> None:
     ]
     if leaflet == "out":
         keys += ["tilt_out_exclude_shared_rim_rows", "tilt_exclude_shared_rim_rows_out"]
-    wanted = _flag(gp, *keys)
+    exclude_outer = _flag(gp, *keys)
+    exclude_rim = False
+    outer_row_energy_weight = None
     if leaflet == "in":
-        wanted = wanted or _flag(
-            gp, "tilt_in_exclude_shared_rim_rows", "tilt_exclude_shared_rim_rows_in"
+        exclude_rim = _flag(gp, "tilt_in_exclude_shared_rim_rows",
+                            "tilt_exclude_shared_rim_rows_in")
+        raw = gp.get("tilt_in_shared_rim_outer_row_energy_weight")
+        if raw is not None:
+            w = float(raw)
+            if not np.isfinite(w) or w < 0.0:
+                raise ValueError(
+                    "tilt_in_shared_rim_outer_row_energy_weight must be a "
+                    "finite non-negative number"
+                )
+            outer_row_energy_weight = w
+    if not (exclude_rim or exclude_outer or outer_row_energy_weight is not None):
+        return None
+
+    mesh = layout.mesh
+    n = len(layout.vertex_ids)
+    groups = [str((mesh.vertices[int(vid)].options or {}).get("rim_slope_match_group") or "")
+              for vid in layout.vertex_ids]
+    outer_mask = np.array([g == "outer" for g in groups], dtype=bool)
+    if not outer_mask.any():
+        from membrane_solver_tpu_torch.constraints.local_interface_shells import (
+            build_shell_rows,
         )
-        wanted = wanted or gp.get("tilt_in_shared_rim_outer_row_energy_weight") is not None
-    if wanted:
-        raise NotImplementedError(
-            f"shared-rim row weights of tilt_{leaflet} are not ported to membrane_solver_tpu_torch"
-        )
+
+        shells = build_shell_rows(layout, group="disk")
+        if shells is not None:
+            outer_mask[np.asarray(shells.outer_rows, dtype=int)] = True
+    outer_scale = (
+        None if outer_row_energy_weight is None else float(np.sqrt(outer_row_energy_weight))
+    )
+    weights = np.ones(n, dtype=float)
+    for row in range(n):
+        if exclude_rim and groups[row] == "rim":
+            weights[row] = 0.0
+        elif outer_mask[row]:
+            if exclude_outer:
+                weights[row] = 0.0
+            elif outer_scale is not None:
+                weights[row] = outer_scale
+    return weights
+
+
+def compile_active_row_weights(layout, leaflet: str):
+    """The shared-rim times the trace-layer row weights, or None when neither applies."""
+    shared = compile_shared_rim_row_weights(layout, leaflet)
+    trace = compile_trace_layer_row_weights(layout)
+    if shared is None:
+        return trace
+    if trace is None:
+        return shared
+    return shared * trace
+
+
+def row_weights(topo, leaflet: str):
+    return topo.extras.get(f"energy:tilt_{leaflet}/row_weights")
 
 
 def mass_mode(spec, leaflet: str) -> str:
     return spec.option(f"tilt_mass_mode_{leaflet}", spec.option("tilt_mass_mode", "lumped"))
 
 
-def leaflet_energy(geo, tilts, topo, k_tilt, present_tri=None, mode: str = "lumped"):
+def leaflet_energy(geo, tilts, topo, k_tilt, present_tri=None, mode: str = "lumped",
+                   weights=None):
+    if weights is not None:
+        tilts = tilts * weights[:, None]
     t0 = tilts[topo.tri_rows[:, 0]]
     t1 = tilts[topo.tri_rows[:, 1]]
     t2 = tilts[topo.tri_rows[:, 2]]
@@ -80,7 +179,8 @@ def make_leaflet_energy(spec, leaflet: str):
     def fn(geo, state, topo, params):
         tilts = state.tilts_in if leaflet == "in" else state.tilts_out
         k = param(params, f"tilt_modulus_{leaflet}", like=tilts)
-        return leaflet_energy(geo, tilts, topo, k, present_triangles(topo, leaflet), mode)
+        return leaflet_energy(geo, tilts, topo, k, present_triangles(topo, leaflet), mode,
+                              row_weights(topo, leaflet))
 
     return fn
 

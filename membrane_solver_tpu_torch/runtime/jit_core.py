@@ -506,6 +506,7 @@ class LineSearchResult:
     energy: float  # accepted energy (or energy0 on failure)
     state: MeshState  # accepted state (or the baseline on failure)
     trials: int = 0  # trial states scored
+    extra: float | None = None  # the caller's ``extra`` scalar, read with the slope
 
 
 def armijo_line_search(
@@ -519,6 +520,7 @@ def armijo_line_search(
     topo: Topology,
     state_of_trial: Callable,
     accept_rule: str = "armijo",
+    extra: torch.Tensor | None = None,
 ) -> LineSearchResult:
     """Armijo backtracking, sequential form.
 
@@ -530,7 +532,9 @@ def armijo_line_search(
     ``decrease_only`` (the reduced line search's option) a trial is accepted
     when its energy is at most ``energy0``: no descent test, no slope term.
     The scalar bookkeeping (step sizes, the Armijo threshold) runs on the
-    host in the state's dtype, with the JAX package's operation order.
+    host in the state's dtype, with the JAX package's operation order.  A
+    0-dim ``extra`` tensor of the caller's comes back in the result, read
+    in the one host read of the slope.
     """
     np_dtype = _np_dtype(state.positions.dtype)
     positions = state.positions
@@ -538,9 +542,9 @@ def armijo_line_search(
     dir_norms = torch.linalg.vector_norm(direction, dim=1)
     max_dir_norm_t = torch.max(torch.where(movable, dir_norms, 0.0))
     g_dot_d_t = torch.sum(grad * direction)
-    min_edge, max_dir_norm, slope = (
-        np_dtype(x) for x in torch.stack([min_edge, max_dir_norm_t, g_dot_d_t]).tolist()
-    )
+    read = torch.stack([min_edge, max_dir_norm_t, g_dot_d_t]
+                       + ([] if extra is None else [extra.to(g_dot_d_t.dtype)])).tolist()
+    min_edge, max_dir_norm, slope = (np_dtype(x) for x in read[:3])
     safe_limit = SAFE_STEP_FRACTION * min_edge if min_edge > 0 else np_dtype(np.inf)
     energy0 = np_dtype(energy0)
     alpha0 = np_dtype(step_size)
@@ -583,7 +587,7 @@ def armijo_line_search(
     else:
         new_step = alpha0
     return LineSearchResult(success=success, new_step=new_step, energy=acc_E, state=acc_state,
-                            trials=trials)
+                            trials=trials, extra=None if extra is None else read[3])
 
 
 # ----------------------------------------------------------------------
@@ -714,6 +718,7 @@ class MinimizeStats:
     zero_step_counter: int
     trials: int = 0  # line-search trial states scored
     accepted_steps: int = 0  # line searches that accepted a step
+    trace_z_fallbacks: int = 0  # rejected steps retried along the trace rows' -dE/dz
 
 
 @dataclasses.dataclass(frozen=True)
@@ -785,6 +790,13 @@ def minimize_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
     state ``ss``, Armijo line search with per-trial constraint enforcement,
     zero-step bookkeeping.  The stepper keeps its history only after an accepted step
     that took no drift projection, and starts afresh otherwise.
+
+    ``shape_scaffold_rejected_step_fallback`` ``trace_z`` (with the compiled
+    ``core:scaffold_trace/mask``): when the line search rejects, it is run
+    again from the same baseline along -dE/dz on the trace rows only
+    (Armijo rule), if the mean of that direction's z over the trace rows is
+    finite and positive; its result replaces the first one.  The mean is
+    read in the first line search's one host read.
     """
     from membrane_solver_tpu_torch.runtime import tilt_relax as _tr
 
@@ -814,6 +826,7 @@ def minimize_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
         if accept_rule not in ("armijo", "decrease_only"):
             raise ValueError(f"Unknown reduced-energy accept rule: {accept_rule!r}")
         relax_fn = _tr.make_relax_leaflet_tilts(spec)
+    trace_z = spec.option("shape_scaffold_rejected_step_fallback", "off").lower() == "trace_z"
 
     def block(state, topo, params, ss, n_steps, step_size, fixed_step, tol,
               step_size_floor, max_zero_steps, zero_step_counter, tilt_inner_iters,
@@ -869,7 +882,8 @@ def minimize_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
         converged = terminated_early = False
         step_success = True
         last_E = last_acc_E = last_gnorm = np_dtype(0.0)
-        trials = accepted = 0
+        trials = accepted = fallbacks = 0
+        trace_mask = topo.extras.get("core:scaffold_trace/mask") if trace_z else None
         while i < n_steps:
             if relax is not None and not (i == 0 and skip_first_relax):
                 state = relax(state, topo, params, tilt_inner_iters)
@@ -901,10 +915,24 @@ def minimize_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
                 ls_E0 = np_dtype(energy_of_state(ls_base).item())
             else:
                 ls_base, ls_E0 = state, E
+            fb_dir = dz_mean = None
+            if trace_mask is not None:
+                zero = torch.zeros_like(grad[:, 0])
+                fb_dir = torch.stack([zero, zero, torch.where(trace_mask, -grad[:, 2], 0.0)],
+                                     dim=1)
+                n_trace = torch.clamp(torch.sum(trace_mask.to(grad.dtype)), min=1.0)
+                dz_mean = torch.sum(fb_dir[:, 2]) / n_trace
             ls = armijo_line_search(
                 energy_of_state, ls_base, grad, direction, step_in, ls_E0, movable, topo,
-                state_of_trial, accept_rule,
+                state_of_trial, accept_rule, extra=dz_mean,
             )
+            if fb_dir is not None and not ls.success and np.isfinite(ls.extra) and ls.extra > 0:
+                fallbacks += 1
+                trials += ls.trials
+                ls = armijo_line_search(
+                    energy_of_state, ls_base, grad, fb_dir, step_in, ls_E0, movable, topo,
+                    state_of_trial,
+                )
             base_positions = state.positions
             state = ls.state
             drifted = strong_enforcer is not None and ls.success and volume_drifted(state)
@@ -939,6 +967,7 @@ def minimize_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
             zero_step_counter=zero_steps,
             trials=trials,
             accepted_steps=accepted,
+            trace_z_fallbacks=fallbacks,
         )
         return state, ss, stats
 

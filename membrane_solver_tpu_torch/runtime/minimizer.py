@@ -386,7 +386,7 @@ class Minimizer:
         step_success = True
         last_grad = None
         terminated = False
-        trials = accepted = 0
+        trials = accepted = fallbacks = 0
         while iterations_done < n_steps and not terminated:
             if callback is not None:
                 self._sync_host()
@@ -434,6 +434,7 @@ class Minimizer:
             iterations_done += stats.iterations
             trials += stats.trials
             accepted += stats.accepted_steps
+            fallbacks += stats.trace_z_fallbacks
             self.step_size = stats.step_size
             zero_step_counter = stats.zero_step_counter
             step_success = stats.step_success
@@ -486,4 +487,5 @@ class Minimizer:
             "terminated_early": terminated,
             "line_search_trials": trials,
             "accepted_steps": accepted,
+            "trace_z_fallbacks": fallbacks,
         }

@@ -45,6 +45,8 @@ from membrane_solver_tpu_torch.kernels import vertex_sum
 
 MAX_BACKTRACKS = 12
 STEP_FLOOR = 1e-16
+# when a list: each leaflet relax appends its accepted CG steps (a host int)
+RELAX_RECORD = None
 
 
 def _uses_tilts(module) -> bool:
@@ -337,11 +339,16 @@ FUSED_NAMES = ("tilt_in", "tilt_out", "bending_tilt_in", "bending_tilt_out")
 def build_fused_tilt_energy(spec, e_names, e_fns, e_frozen, topo, params, dtype):
     """The fused frozen-tilt energy, or None if ineligible.
 
-    Eligible at float32 when all four triangle tilt modules are active (the
-    port runs them with default bending-tilt modes only), both leaflets
-    keep the lumped tilt mass (``tilt_mass_mode`` consistent runs per
-    module, as in the JAX package) and the curved-theta ablation scales
-    none of the modules (the kernel's k_vec carries no module scale).
+    Eligible at float32 when all four triangle tilt modules are active, both
+    leaflets keep the lumped tilt mass (``tilt_mass_mode`` consistent runs
+    per module, as in the JAX package), the curved-theta ablation scales
+    none of the modules (the kernel's k_vec carries no module scale) and the
+    divergence is the per-triangle one: the kernel steps aside, as the JAX
+    package's does, under the outer leaflet's ``trace_reconstructed_v1``
+    interface divergence and under the recovered inner divergence (a
+    non-empty ``theory_parity_lane``: ``smooth_w`` in the frozen fields),
+    both of which mix triangles, and the relax runs the plain frozen
+    program.
     Returns ``(FusedTiltEnergy, rest)``: the energy of vertex tilts, and
     ``rest`` the remaining (fn, frozen) pairs evaluated per module (none of
     them reads the shared corner gather, which the fused path no longer
@@ -357,6 +364,9 @@ def build_fused_tilt_energy(spec, e_names, e_fns, e_frozen, topo, params, dtype)
     rotation, or the module inactive) the columns stay zero and the module,
     if active, runs per module.
     """
+    from membrane_solver_tpu_torch.energy.bending_tilt_leaflet import (
+        interface_divergence_mode_static,
+    )
     from membrane_solver_tpu_torch.energy.tilt_leaflet import mass_mode
     from membrane_solver_tpu_torch.energy.tilt_smoothness_leaflet import leaflet_rigidity
     from membrane_solver_tpu_torch.kernels import frozen_tilt as ft
@@ -366,10 +376,14 @@ def build_fused_tilt_energy(spec, e_names, e_fns, e_frozen, topo, params, dtype)
         return None
     if any(module_scale_fn(spec, name) is not None for name in e_names):
         return None
+    if interface_divergence_mode_static(spec, "out") != "p1_triangle":
+        return None
     if any(mass_mode(spec, leaflet) != "lumped" for leaflet in ("in", "out")):
         return None
     fr = dict(zip(e_names, e_frozen))
     bin_fr, bout_fr = fr["bending_tilt_in"], fr["bending_tilt_out"]
+    if "smooth_w" in bin_fr or "smooth_w" in bout_fr:
+        return None
     g = torch.where(topo.tri_valid[:, None, None], bin_fr["g"], 0.0).contiguous()
     va_in = torch.where(bin_fr["keep"][:, None], bin_fr["va_eff"], 0.0)
     va_out = torch.where(bout_fr["keep"][:, None], bout_fr["va_eff"], 0.0)
@@ -790,6 +804,8 @@ def make_relax_leaflet_tilts(spec: ProblemSpec) -> Callable:
             final_energy=float(E_last),
             final_gradient_norm=float(gnorm),
         )
+        if RELAX_RECORD is not None:
+            RELAX_RECORD.append(nacc)
         return out_state, stats
 
     return relax

@@ -51,10 +51,11 @@ def make_minimizer(port: bool, kw=None, refines: int = 0, gp=None, modules=(), e
     ``kw`` are kozlov_1disk arguments (None: its defaults); ``modules`` are
     energy modules added to the mesh's (a protocol's ``extra_energy_modules``);
     ``edits`` a protocol whose module and free-disk changes
-    ``chip_smoke.lane_edits`` makes; ``port_kw`` go to the port's Minimizer
+    ``chip_smoke.lane_edits`` makes, and whose vertex tags ``chip_smoke.lane_tags``
+    sets after the refinements; ``port_kw`` go to the port's Minimizer
     (device, dtype).
     """
-    from chip_smoke import lane_edits
+    from chip_smoke import lane_edits, lane_tags
 
     pkg, build, refinement = _pkg(port)
     mesh = pkg.parse_geometry(build("kozlov_1disk", **(kw or {})))
@@ -73,6 +74,7 @@ def make_minimizer(port: bool, kw=None, refines: int = 0, gp=None, modules=(), e
         mn.mesh = m
         mn.invalidate()
         mn.enforce_constraints_after_mesh_ops()
+    lane_tags(mn, edits or {})
     return mn
 
 

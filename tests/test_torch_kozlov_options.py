@@ -131,11 +131,11 @@ def test_bad_values_raise_the_jax_value_error(key, value, where, match):
 
 # values the JAX package runs and the port does not yet
 NOT_PORTED = [
-    {"rim_slope_match_mode": "physical_edge_staggered_v1"},
+    {"tilt_thetaB_contact_penalty_mode": "legacy"},
     {"tilt_mass_mode": "diagonal"},  # the JAX package runs it as lumped
-    {"shape_scaffold_rejected_step_fallback": "trace_z"},
+    {"pin_to_plane_mode": "fit"},
     {"bending_tilt_in_update_mode": "outer_near_divergence_cap_v1"},
-    {"theory_parity_lane": "kozlov"},
+    {"bending_tilt_base_term_region_mode": "physical_disk_split_v1"},
 ]
 
 

@@ -120,12 +120,12 @@ def _small_mesh(**gp):
 @pytest.mark.parametrize(
     "gp,needle",
     [
-        ({"shape_scaffold_rejected_step_fallback": "trace_z"},
-         "shape_scaffold_rejected_step_fallback"),
+        ({"tilt_thetaB_contact_work_mode": "field_linear"}, "tilt_thetaB_contact_work_mode"),
         ({"tilt_mass_mode_in": "diagonal"}, "tilt_mass_mode_in"),
         ({"bending_tilt_in_update_mode": "radial_cross_term_off_v1"},
          "bending_tilt_in_update_mode"),
-        ({"rim_slope_match_mode": "physical_edge_staggered_v1"}, "rim_slope_match_mode"),
+        ({"bending_tilt_base_term_reference_mode": "flat_reference_zero_J0"},
+         "bending_tilt_base_term_reference_mode"),
         ({"tilt_thetaB_contact_penalty_mode": "legacy"}, "tilt_thetaB_contact_penalty_mode"),
         ({"pin_to_plane_mode": "slide"}, "pin_to_plane_mode"),
         ({"bending_tilt_assume_J0_presets": ["disk"]}, "bending_tilt_assume_J0_presets"),
@@ -159,9 +159,14 @@ def test_unported_module_and_rim_flag_raise():
     with pytest.raises(ModuleNotFoundError, match="no_such_module"):
         jpkg.Minimizer(jpkg.parse_geometry(jdata), quiet=True).problem()
 
-    # the physical-edge rim placement (local interface shells) stays unported
+    # the physical-edge rim placement (local interface shells) compiles; an
+    # unknown rim mode raises the JAX package's ValueError
     data, parse = _small_mesh(rim_slope_match_mode="physical_edge_staggered_v1")
-    with pytest.raises(NotImplementedError, match="physical_edge_staggered_v1"):
+    flags = Minimizer(parse(data), device="cpu", quiet=True).problem().spec.static_of(
+        "constraint:rim_slope_match_out")
+    assert flags[0] == "active" and flags[6] is True
+    data, parse = _small_mesh(rim_slope_match_mode="bogus")
+    with pytest.raises(ValueError, match="physical_edge_staggered_v1"):
         Minimizer(parse(data), device="cpu", quiet=True).problem()
 
 

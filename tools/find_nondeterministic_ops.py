@@ -10,8 +10,9 @@ fixed order.  The lanes: kozlov (meshgen ``kozlov_1disk``, small, one
 refinement), the same with ``tilt_smoothness_{in,out}`` (the smooth lane of
 ``chip_smoke.py`` phases 18-19), the leaflet tilt-field drives of phase 20
 (each module's energy and gradients on the small kozlov mesh), the free-disk
-and local-interface lanes of phases 21-24 and the match drives of phase 25
-(on the small kozlov mesh, their fixtures' protocols), the Helfrich
+and local-interface lanes of phases 21-24, the match drives of phase 25 and
+the physical-edge and scaffold-trace lanes of phases 26-29 (on the small
+kozlov mesh, their fixtures' protocols), the Helfrich
 vesicle (meshgen cube, surface + bending, hard volume, two refinements), the
 cube recipe's stepper segment through the command layer (``bfgs; g5; cg;
 g5``) and ``square_to_circle`` at n = 8 through the command layer, each at
@@ -124,7 +125,7 @@ def lanes(torch, dtype):
         """A kozlov fixture protocol's edits (``chip_smoke.lane_edits``) on the small mesh."""
 
         def run():
-            from chip_smoke import lane_edits
+            from chip_smoke import lane_edits, lane_tags
 
             mesh = parse_geometry(build("kozlov_1disk", n_sectors=8, n_outer_rings=4,
                                         n_disk_rings=2))
@@ -134,6 +135,7 @@ def lanes(torch, dtype):
             mn.mesh = refine_triangle_mesh(refine_polygonal_facets(mn.mesh))
             mn.invalidate()
             mn.enforce_constraints_after_mesh_ops()
+            lane_tags(mn, protocol)
             mn.minimize(3)
 
         return run
@@ -152,12 +154,16 @@ def lanes(torch, dtype):
     from tools.record_torch_port_fixture import (
         kozlov_free_disk_protocol,
         kozlov_interface_protocol,
+        kozlov_physical_edge_protocol,
+        kozlov_scaffold_protocol,
     )
 
     return [("kozlov", kozlov), ("vesicle", vesicle), ("kozlov smooth", kozlov_smooth),
             ("drives", drives), ("free disk", protocol_lane(kozlov_free_disk_protocol())),
             ("interface", protocol_lane(kozlov_interface_protocol())),
             ("match drives", match_drives),
+            ("physical edge", protocol_lane(kozlov_physical_edge_protocol())),
+            ("scaffold", protocol_lane(kozlov_scaffold_protocol())),
             ("cube steppers", command_lane("cube", ["g5", "r", "bfgs", "g5", "cg", "g5"])),
             ("square_to_circle", command_lane("square_to_circle",
                                               ["g40", "r", "g40", "u", "V4", "g60"], n=8))]

@@ -103,7 +103,20 @@ to its largest entry).
 ``rim_slope_match_out`` replaced by ``curved_local_interface_hard`` plus the
 ``curved_local_interface_law`` energy.  Per step also the multiplier-finite
 flag of the shape KKT solves (``kkt_recorder``), their largest multiplier
-and the breakdown after the step.
+and the breakdown after the step; and (``step_recorder``) the accepted CG
+steps of each leaflet relax and whether the step took the rejected-step
+``trace_z`` fallback, both also in ``float32_reference``.
+
+``physical_edge_L0_noise.json`` (``physical_edge_L0_noise``): the two
+protocols below at L0, two steps, clean and under 1e-15 of z noise.
+
+``kozlov_L3_physical_edge_f64_jax.json`` and ``kozlov_L3_scaffold_f64_jax.json``
+(``lane_run``): the kozlov protocol with ``rim_slope_match_mode``
+``physical_edge_staggered_v1`` (the disk-targeted flavour), and the same with
+the scaffold-trace switches (``SCAFFOLD_GP``) and, after the refinements,
+the trace shell and three scaffold shells tagged (``chip_smoke.lane_tags``,
+the protocol's ``scaffold_tags``); each also holds the compiled shells
+(``shells``: radii, conditions, shell rows, shared targets).
 
 ``kozlov_L3_match_drives_f64_jax.json`` (``match_drives_run``): the kozlov
 mesh after its refinements with ``chip_smoke.match_drives_setup``; the
@@ -195,11 +208,12 @@ def kozlov_minimizer(gp=None, edits=None, refines=KOZLOV_REFINES):
 
     ``gp``: its global parameters (default the bench's); ``edits``: a
     protocol whose module and free-disk changes ``chip_smoke.lane_edits``
-    makes to the L0 mesh (its ``extra_energy_modules`` among them);
+    makes to the L0 mesh (its ``extra_energy_modules`` among them) and whose
+    vertex tags ``chip_smoke.lane_tags`` sets after the refinements;
     ``refines``: the refinement rounds.
     """
     pkg, build, refinement = _jax()
-    from chip_smoke import lane_edits
+    from chip_smoke import lane_edits, lane_tags
 
     mesh = pkg.parse_geometry(build("kozlov_1disk"))
     mesh.global_parameters.update(BENCH_GP if gp is None else gp)
@@ -212,6 +226,7 @@ def kozlov_minimizer(gp=None, edits=None, refines=KOZLOV_REFINES):
         mn.mesh = m
         mn.invalidate()
         mn.enforce_constraints_after_mesh_ops()
+    lane_tags(mn, edits or {})
     return mn
 
 
@@ -334,22 +349,83 @@ def kkt_recorder() -> list:
     return solves
 
 
+def step_recorder() -> dict:
+    """Record, from here on, each leaflet relax's accepted CG steps and each Armijo line search.
+
+    Wraps ``tilt_relax.make_relax_leaflet_tilts`` and
+    ``jit_core.armijo_line_search`` (the same arithmetic, plus a host
+    callback) before the minimize block is traced (caches off, ``_jax``).
+    A step whose block ran two line searches took the rejected-step
+    ``trace_z`` fallback: the second runs only under that branch.
+    """
+    import jax
+
+    _jax()
+    from membrane_solver_tpu.runtime import jit_core
+    from membrane_solver_tpu.runtime import tilt_relax
+
+    rec = {"relax": [], "line_searches": []}
+    make_relax, armijo = tilt_relax.make_relax_leaflet_tilts, jit_core.armijo_line_search
+
+    def relax_maker(spec):
+        fn = make_relax(spec)
+
+        def relax(*args, **kw):
+            state, stats = fn(*args, **kw)
+            jax.debug.callback(lambda n: rec["relax"].append(int(n)), stats.accepted_steps)
+            return state, stats
+
+        return relax
+
+    def line_search(*args, **kw):
+        ls = armijo(*args, **kw)
+        jax.debug.callback(lambda ok: rec["line_searches"].append(bool(ok)), ls.success)
+        return ls
+
+    tilt_relax.make_relax_leaflet_tilts = relax_maker
+    jit_core.armijo_line_search = line_search
+    return rec
+
+
+def shell_record(mn) -> dict | None:
+    """The physical-edge rim placement's compiled shells: radii, row counts, shared targets."""
+    import numpy as np
+
+    p = mn.problem()
+    key = "constraint:rim_slope_match_out"
+    if f"{key}/shell_radii" not in p.topo.extras:
+        return None
+    ex = {k: np.asarray(v) for k, v in p.topo.extras.items() if k.startswith(key)}
+    n = int(ex[f"{key}/valid"].sum())
+    outer = ex[f"{key}/outer"][:n]
+    disk_r, rim_r, outer_r = (float(x) for x in ex[f"{key}/shell_radii"])
+    return {"disk_radius": disk_r, "rim_radius": rim_r, "outer_radius": outer_r,
+            "conditions": n, "shell_rows": int(np.unique(outer).size),
+            "most_conditions_per_row": int(np.bincount(outer).max()),
+            "shared_targets": bool(p.spec.static_of(key)[12])}
+
+
 def lane_run(protocol: dict) -> dict:
     """A kozlov protocol's steps at the precision this process runs, with its accept flags.
 
     Per step also whether every shape KKT solve gave finite multipliers
-    (``multipliers_finite``), their largest size, and the energy breakdown
-    after the step.
+    (``multipliers_finite``), their largest size, the energy breakdown after
+    the step, the accepted CG steps of each leaflet relax the step ran
+    (``relax_accepted_steps``) and whether it took the ``trace_z`` fallback
+    (``trace_z``); on the physical-edge lanes the compiled shells.
     """
     import jax
 
     solves = kkt_recorder()
+    steps = step_recorder()
     mn = kozlov_minimizer(protocol["global_parameters"], edits=protocol)
     energy0 = float(mn.compute_energy())
     breakdown0 = {k: float(v) for k, v in mn.compute_energy_breakdown().items()}
     energies, accepted, step_sizes, finite, lam_max, breakdowns = [], [], [], [], [], []
+    relax_counts, trace_z = [], []
     for _ in range(protocol["steps"]):
         first = len(solves)
+        n_relax, n_ls = len(steps["relax"]), len(steps["line_searches"])
         res = mn.minimize(1)
         jax.effects_barrier()
         energies.append(float(res["energy"]))
@@ -358,7 +434,9 @@ def lane_run(protocol: dict) -> dict:
         finite.append(all(f for f, _m in solves[first:]))
         lam_max.append(max((m for _f, m in solves[first:]), default=0.0))
         breakdowns.append({k: float(v) for k, v in mn.compute_energy_breakdown().items()})
-    return {
+        relax_counts.append(steps["relax"][n_relax:])
+        trace_z.append(len(steps["line_searches"]) - n_ls > 1)
+    out = {
         "n_vertices": len(mn.mesh.vertices),
         "n_triangles": len(mn.mesh.facets),
         "energy_before": energy0,
@@ -369,9 +447,15 @@ def lane_run(protocol: dict) -> dict:
         "multipliers_finite": finite,
         "multipliers_max_abs": lam_max,
         "breakdowns": breakdowns,
+        "relax_accepted_steps": relax_counts,
+        "trace_z": trace_z,
         "energy_after": float(mn.compute_energy()),
         "breakdown_after": {k: float(v) for k, v in mn.compute_energy_breakdown().items()},
     }
+    shells = shell_record(mn)
+    if shells is not None:
+        out["shells"] = shells
+    return out
 
 
 def run_lane_fixture(name: str, protocol: dict) -> dict:
@@ -385,6 +469,7 @@ def run_lane_fixture(name: str, protocol: dict) -> dict:
         "package": "membrane_solver_tpu", "platform": "cpu", "dtype": "float32",
         "energies": f32["energies"], "accepted": f32["accepted"],
         "multipliers_finite": f32["multipliers_finite"],
+        "relax_accepted_steps": f32["relax_accepted_steps"], "trace_z": f32["trace_z"],
         "energy_after": f32["energy_after"], "breakdown_after": f32["breakdown_after"],
         "max_rel_dev_vs_float64": max(devs)}
     return rec
@@ -416,12 +501,44 @@ def kozlov_interface_protocol() -> dict:
             "drop_constraint_modules": ["rim_slope_match_out"]}
 
 
+# the physical-edge rim placement (local shells about the disk group) in its
+# disk-targeted flavour, and its scaffold-trace lane: the trace shell at the
+# radius of the first free ring outside the rim ring (the same 16-row shell
+# at L0 and at L3), three scaffold shells, the theory-parity recovered inner
+# divergence, the trace-reconstructed outer divergence, the trace-boundary
+# inner stencil and the rejected-step trace_z fallback; the set-up tags the
+# trace shell (pin_to_circle_group trace_layer) and the next three shells
+# (outer_shell_scaffold_index) after the refinements (chip_smoke.lane_tags)
+PHYSICAL_EDGE_GP = {"rim_slope_match_mode": "physical_edge_staggered_v1"}
+TRACE_RADIUS = 1.364262
+SCAFFOLD_GP = {
+    **PHYSICAL_EDGE_GP,
+    "parity_trace_layer_radius": TRACE_RADIUS,
+    "parity_outer_shells": 3,
+    "theory_parity_lane": "kozlov",
+    "bending_tilt_interface_divergence_mode": "trace_reconstructed_v1",
+    "bending_tilt_in_scaffold_shape_stencil_mode": "trace_boundary_v1",
+    "shape_scaffold_rejected_step_fallback": "trace_z",
+}
+
+
+def kozlov_physical_edge_protocol() -> dict:
+    return {**kozlov_protocol(), "global_parameters": {**BENCH_GP, **PHYSICAL_EDGE_GP}}
+
+
+def kozlov_scaffold_protocol() -> dict:
+    return {**kozlov_protocol(), "global_parameters": {**BENCH_GP, **SCAFFOLD_GP},
+            "scaffold_tags": {"trace_radius": TRACE_RADIUS, "support_shells": 3}}
+
+
 # the step-by-step kozlov lanes with their accept flags
 LANE_PROTOCOLS = {
     "kozlov_L3_reduced_f64_jax.json": kozlov_reduced_protocol,
     "kozlov_L3_smooth_f64_jax.json": kozlov_smooth_protocol,
     "kozlov_L3_free_disk_f64_jax.json": kozlov_free_disk_protocol,
     "kozlov_L3_interface_f64_jax.json": kozlov_interface_protocol,
+    "kozlov_L3_physical_edge_f64_jax.json": kozlov_physical_edge_protocol,
+    "kozlov_L3_scaffold_f64_jax.json": kozlov_scaffold_protocol,
 }
 
 
@@ -896,8 +1013,42 @@ def run_cli_fixture(name: str) -> dict:
     return {"protocol": protocol, "trace": trace, "float32_reference": f32}
 
 
+# the two physical-edge lanes at L0 (two steps): JAX's own spread under 1e-15
+# of z noise (ROADMAP C3), which bounds tests/test_torch_scaffold_trace.py
+PHYSICAL_EDGE_L0_STEPS = 2
+
+
+def physical_edge_L0_noise() -> dict:
+    """Per L0 lane the clean and the noisy run's energies and accept flags, two steps each.
+
+    The noise: ``numpy.random.default_rng(0)`` normals times 1e-15 on every
+    vertex's z, in vertex-id order (``_torch_port_harness.jax_noise_state``'s).
+    """
+    import numpy as np
+
+    out = {"steps": PHYSICAL_EDGE_L0_STEPS, "amplitude": 1e-15, "lanes": {}}
+    for name, make in (("physical_edge", kozlov_physical_edge_protocol),
+                       ("scaffold", kozlov_scaffold_protocol)):
+        protocol = make()
+        runs = {}
+        for label, amp in (("clean", 0.0), ("noisy", 1e-15)):
+            mn = kozlov_minimizer(protocol["global_parameters"], edits=protocol, refines=0)
+            rng = np.random.default_rng(0)
+            for vid in sorted(mn.mesh.vertices):
+                mn.mesh.vertices[vid].position[2] += amp * rng.standard_normal()
+            mn.invalidate()
+            steps = [mn.minimize(1) for _ in range(PHYSICAL_EDGE_L0_STEPS)]
+            runs[label] = {"energies": [float(r["energy"]) for r in steps],
+                           "accepted": [bool(r["step_success"]) for r in steps]}
+        runs["rel_spread"] = [abs(a - b) / abs(a) for a, b in
+                              zip(runs["clean"]["energies"], runs["noisy"]["energies"])]
+        out["lanes"][name] = runs
+    return out
+
+
 FIXTURES = {
     "kozlov_L3_f64_jax.json": run_kozlov,
+    "physical_edge_L0_noise.json": physical_edge_L0_noise,
     "helfrich_cube_L5_f64_jax.json": run_vesicle,
     **{name: (lambda name=name: run_cli_fixture(name)) for name in CLI_PROTOCOLS},
     "kozlov_L3_thetaB_f64_jax.json": run_kozlov_thetaB,
