@@ -105,7 +105,14 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    this phase's.
     Phase 8 also holds its connectivity after each ``u`` against the JAX
     package's own float32 run (the fixture's ``float32_reference``
-    digests) and prints whether they are equal.
+    digests) and prints whether they are equal.  Before phase 9 (ROADMAP
+    C4, a ``[9 cube_cli_L5 C4]`` line): the port's float32 ``u`` from the
+    JAX package's own float32 state before the last ``u``
+    (``tests/fixtures/torch_port/cube_cli_f32_pre_u_jax.json.gz``) must give
+    the JAX package's connectivity; printed with the state's smallest
+    first-pass Delaunay margin against float32 round-off and, between
+    phase 8's own state there and the JAX package's, the lowest edge id
+    whose first-pass flip verdict differs and its margin in both.
 10. the console entry: ``python -m membrane_solver_tpu_torch
     --non-interactive -q -i meshes/cube.json -o <tmp>`` in a subprocess, on
     the card (no ``--cpu``); it must exit 0, and the saved mesh, reloaded
@@ -295,9 +302,37 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 29. kozlov L3 scaffold trace, float32: as phase 27, without the frozen-tilt
     kernel.  A ``[26-29 ...]`` line gives the four phases' seconds and the
     host syncs per ``minimize(1)`` of phases 5, 26 and 28.
+30. kozlov L3 J0 fit, float64: the protocol of
+    ``tests/fixtures/torch_port/kozlov_L3_J0_fit_f64_jax.json`` (the inner
+    leaflet's assume-J0 disk rows and the outer leaflet's physical-disk
+    base-term region take a zero base term, the legacy theta_B contact
+    penalty with its closed-form theta_B per iteration, the rim ring's
+    ``pin_to_circle`` fit and the disk's ``pin_to_plane`` slide, set on the
+    presets' definitions by ``lane_edits``), step by step: energies within
+    rel 1e-8 of the fixture, its accept flags and relax counts, theta_B, the
+    fitted rim circle and the slide plane offset per step within
+    ``J0_FIT_ATOL``, no compile inside ``minimize``, the host syncs of one
+    ``minimize(1)``.
+31. kozlov L3 J0 fit, float32: the same against phase 30 within rel
+    max(2e-3, 2 x the JAX package's own float32 deviation); the frozen-tilt
+    kernel runs in the relax, and on the lane's payload, whose base columns
+    are 0 on the zeroed rows, it holds against its twin.
+32. kozlov L3 mode drives (``tests/fixtures/torch_port/kozlov_L3_mode_drives_f64_jax.json``):
+    four problems on the L3 mesh with seeded heights and tilts, covering
+    the bending-tilt in-update modes (the divergence cap binding on the
+    seeded tilts), the flat-reference base term per leaflet, the
+    assume-J0 presets with their radius clip, both base-term regions, the
+    contact term's ``field_linear`` work and legacy penalty, the diagonal
+    tilt mass and both pin constraints in their slide and fit modes:
+    energies and gradients (sampled rows and norms), the frozen splits, the
+    pin enforcements and normals, the closed-form theta_B and the
+    Gauss-Bonnet invariant at float64 within 1e-10 of the fixture, float32
+    against float64; a float32 relax makes no frozen-tilt launch under
+    ``diagonal`` and the in-update modes; one ``check_gauss_bonnet`` call
+    timed.  A ``[30-32 ...]`` line gives the three phases' seconds.
 
-Every lane phase (4-9, 11-19, 21-24, 26-29) also checks determinism: from the state its
-protocol leaves (phases 4-7, 16-19, 21-24 and 26-29: the five steps; phases 8-9 and
+Every lane phase (4-9, 11-19, 21-24, 26-31) also checks determinism: from the state its
+protocol leaves (phases 4-7, 16-19, 21-24 and 26-31: the five steps; phases 8-9 and
 11-14: the command list; phase 15: its ``minimize(3)``), it saves the state, runs
 ``minimize(2)`` (``g2`` through the command layer), takes a sha256 of the
 positions, the tilts and the energies, restores the state and runs again;
@@ -305,21 +340,22 @@ a ``[... determinism]`` line prints both digests, and unequal digests fail
 the run.  A ``[phase seconds]`` line gives each phase's seconds, and the
 last line before the kernels line the whole run's.
 
-Phases 4-9 and 11-29 each drive one path with every kernel launch counter
+Phases 4-9 and 11-32 each drive one path with every kernel launch counter
 set to 0 just before and read just after; a kernel of that path that was
 never launched fails the run (the frozen-tilt entry point, both variants,
 lies on the float32 kozlov paths with a frozen relax, phases 4, 15, 17, 19,
-22 and 27; the surface energy, both variants, and the vertex sum on phases
-4-9, 11-19, 21-24 and 26-29; the curvature data forward on phases 4-9,
-13-19 and 21-29 (on the cube paths through ``energy stats``), its backward
-on phases 4-7, 15-19, 21-24 and 26-29; the divergence forward on the kozlov
-paths 4-5, 15-19 and 21-29, and it and its tilt backward inside phase 20's
-splay-twist and phase 25's ``bending_tilt``).
+22, 27 and 31; the surface energy, both variants, and the vertex sum on phases
+4-9, 11-19, 21-24 and 26-31; the curvature data forward on phases 4-9,
+13-19 and 21-32 (on the cube paths through ``energy stats``), its backward
+on phases 4-7, 15-19, 21-24 and 26-32; the divergence forward on the kozlov
+paths 4-5, 15-19 and 21-32, and it and its tilt backward inside phase 20's
+splay-twist, phase 25's ``bending_tilt`` and phase 32's bending-tilt modes).
 
 The line before the last is a JSON object ``{"kernels": [...]}``: per entry
-point, its launches over phases 4-9 and 11-29, its largest error against its twin,
+point, its launches over phases 4-9 and 11-32, its largest error against its twin,
 and phase 3's device ms per call (``ms``), its twin's (``plain_ms``), the
 bound, and, for the vertex sum, ``index_add_``'s (``library_ms``).  The
+card's name and power limit follow it again (``nvidia-smi``), and the
 last line is ``{"ok": true, "device": {...}}``.
 
 Usage (from the repository root, on a machine with a CUDA GPU)::
@@ -332,6 +368,7 @@ from __future__ import annotations
 import base64
 import collections
 import dataclasses
+import gzip
 import hashlib
 import json
 import math
@@ -362,6 +399,9 @@ INTERFACE_FIXTURE = FIXTURES / "kozlov_L3_interface_f64_jax.json"
 MATCH_FIXTURE = FIXTURES / "kozlov_L3_match_drives_f64_jax.json"
 PHYSICAL_EDGE_FIXTURE = FIXTURES / "kozlov_L3_physical_edge_f64_jax.json"
 SCAFFOLD_FIXTURE = FIXTURES / "kozlov_L3_scaffold_f64_jax.json"
+J0_FIT_FIXTURE = FIXTURES / "kozlov_L3_J0_fit_f64_jax.json"
+MODE_DRIVES_FIXTURE = FIXTURES / "kozlov_L3_mode_drives_f64_jax.json"
+C4_FIXTURE = FIXTURES / "cube_cli_f32_pre_u_jax.json.gz"
 CSRC = "membrane_solver_tpu_torch/csrc/"
 # entry point -> (source, the TPU kernel or JAX function it replaces, the
 # name of its timing rows, its launch counter)
@@ -416,6 +456,9 @@ REDUCED_TIMED_STEPS = 5  # phases 16-17: each step relaxes once per line-search 
 # law has no frozen split), 0.5-1.5 s per step
 INTERFACE_TIMED_STEPS = 4
 PHYSICAL_TIMED_STEPS = 2  # phases 26-29: the shared shell rows' levels in every enforcement
+J0_TIMED_STEPS = 2  # phases 30-31: one host sync and theta_B update per iteration
+# phase 30: theta_B, the fitted rim circle and the slide plane per step vs the fixture
+J0_FIT_ATOL = 1e-9
 
 ENERGY_RTOL = 1e-6  # frozen-tilt kernel vs twin energy (f32 reduction order)
 GRAD_RTOL = 5e-6  # frozen-tilt kernel vs twin gradient, relative to max|g|
@@ -1265,8 +1308,16 @@ def lane_edits(mesh, protocol: dict) -> None:
     ``pin_to_plane`` (from the vertices' constraint lists and from the
     preset's definition, so the refinements' new vertices do not take it
     back): the free-disk lane's disk then moves as one rigid body under
-    ``rigid_disk``.
+    ``rigid_disk``.  ``definition_options`` {preset: {key: value}} sets
+    options on a preset's definition and on its vertices (the J0-fit
+    lane's ``pin_to_circle_mode`` fit on the rim and ``pin_to_plane_mode``
+    slide on the disk).
     """
+    for preset, options in protocol.get("definition_options", {}).items():
+        mesh.definitions[preset] = {**mesh.definitions[preset], **options}
+        for v in mesh.vertices.values():
+            if (v.options or {}).get("preset") == preset:
+                v.options.update(options)
     for key, modules in (("extra_energy_modules", mesh.energy_modules),
                          ("extra_constraint_modules", mesh.constraint_modules)):
         modules.extend(m for m in protocol.get(key, ()) if m not in modules)
@@ -1712,6 +1763,105 @@ def connectivity_digest(mesh) -> str:
     return hashlib.sha256(text.encode()).hexdigest()[:16]
 
 
+def flip_margins(mesh) -> dict:
+    """First-pass Delaunay margins of a triangulated mesh (either package's): edge id -> margin.
+
+    For every interior edge of two triangles that is not fixed, the sum of
+    the two opposite angles in the quadrilateral's tangent plane less
+    (pi + 1e-3), with the arithmetic of the equiangulation's first pass
+    (``runtime/equiangulation._bulk_flip_verdicts``): a positive margin
+    flips the edge.  Degenerate quadrilaterals are left out.
+    """
+    mesh.build_connectivity_maps()
+    ids, quads = [], []
+    for eid, edge in mesh.edges.items():
+        adjacent = mesh.facets_of_edge(eid)
+        if edge.fixed or len(adjacent) != 2:
+            continue
+        offs = []
+        for facet in adjacent:
+            loop = mesh.facet_vertex_loop(facet)
+            rest = [v for v in loop if v not in (edge.tail_index, edge.head_index)]
+            offs.append(rest[0] if len(loop) == 3 and len(rest) == 1 else None)
+        if None in offs:
+            continue
+        ids.append(eid)
+        quads.append((edge.tail_index, edge.head_index, offs[0], offs[1]))
+    P = np.array([[mesh.vertices[v].position for v in q] for q in quads], dtype=float)
+    p1, p2, q1, q2 = P[:, 0], P[:, 1], P[:, 2], P[:, 3]
+    n1 = np.cross(p2 - p1, q1 - p1)
+    n2 = np.cross(q2 - p1, p2 - p1)
+    n = n1 + n2
+    nn = np.linalg.norm(n, axis=1)
+    n = np.where((nn < 1e-12)[:, None], np.where(
+        (np.linalg.norm(n1, axis=1) >= 1e-12)[:, None], n1, n2), n)
+    nn = np.linalg.norm(n, axis=1)
+    n = n / np.maximum(nn, 1e-300)[:, None]
+    u = (p2 - p1) / np.maximum(np.linalg.norm(p2 - p1, axis=1), 1e-300)[:, None]
+    v = np.cross(n, u)
+    v = v / np.maximum(np.linalg.norm(v, axis=1), 1e-300)[:, None]
+
+    def proj(p):
+        rel = p - p1
+        return np.stack([np.einsum("ij,ij->i", rel, u), np.einsum("ij,ij->i", rel, v)], axis=1)
+
+    a1, a2, b1, b2 = np.zeros((len(ids), 2)), proj(p2), proj(q1), proj(q2)
+
+    def angle_at(p, x, y):
+        vx, vy = x - p, y - p
+        den = np.maximum(np.linalg.norm(vx, axis=1) * np.linalg.norm(vy, axis=1), 1e-300)
+        return np.arccos(np.clip(np.einsum("ij,ij->i", vx, vy) / den, -1.0, 1.0))
+
+    margin = angle_at(b1, a1, a2) + angle_at(b2, a1, a2) - (np.pi + 1e-3)
+    ok = (nn >= 1e-12) & np.isfinite(margin)
+    return {int(e): float(m) for e, m, k in zip(ids, margin, ok) if k}
+
+
+def first_verdict_difference(mine: dict, theirs: dict) -> dict:
+    """The lowest edge id whose first-pass flip verdict differs between two margin maps."""
+    common = sorted(set(mine) & set(theirs))
+    out = {"common_edges": len(common), "differing_verdicts": 0, "first_edge": None}
+    for eid in common:
+        if (mine[eid] > 0.0) != (theirs[eid] > 0.0):
+            out["differing_verdicts"] += 1
+            if out["first_edge"] is None:
+                out.update(first_edge=eid, margin_port=mine[eid], margin_jax=theirs[eid])
+    return out
+
+
+def c4_u_from_jax_state(torch, fixture: dict, dtype, cpu: bool = False) -> dict:
+    """ROADMAP C4: the port's ``u`` from the JAX package's float32 state before the last ``u``.
+
+    The state (``tests/fixtures/torch_port/cube_cli_f32_pre_u_jax.json.gz``)
+    parsed by the port into the command context ``cli.make_context`` builds
+    at ``dtype`` (on the CPU with ``cpu``), the ``u`` command, and its
+    connectivity digest against the JAX package's after the same ``u``
+    from the same reloaded state.  Also the state's first-pass margins
+    (``flip_margins``): their smallest size against float32's unit
+    round-off (2^-23 of the angle sum, about 3.7e-7).
+    """
+    from membrane_solver_tpu_torch import cli, parse_geometry
+    from membrane_solver_tpu_torch.commands import execute_command_line
+
+    proto = fixture["protocol"]
+    extra = (["--f32"] if dtype == torch.float32 else []) + (["--cpu"] if cpu else [])
+    argv = [a if a != proto["mesh"] else str(REPO / proto["mesh"]) for a in proto["cli_args"]]
+    args = cli.build_parser().parse_args(argv + extra)
+    mesh = parse_geometry(json.loads(json.dumps(fixture["mesh"])))
+    margins = flip_margins(mesh)
+    ctx = cli.make_context(args, mesh)
+    execute_command_line(ctx, proto["commands"][proto["stop_before"]])
+    ctx.sync_mesh()
+    digest = connectivity_digest(ctx.mesh)
+    smallest = min(abs(m) for m in margins.values())
+    return {"digest": digest, "jax_digest": fixture["digest_after_u_reloaded"],
+            "equal": digest == fixture["digest_after_u_reloaded"],
+            "n_vertices": len(ctx.mesh.vertices), "n_facets": len(ctx.mesh.facets),
+            "smallest_abs_margin": smallest,
+            "smallest_margin_over_f32_roundoff": smallest / (np.pi * 2.0**-23),
+            "margins": margins}
+
+
 def cli_context(torch, protocol: dict, dtype):
     """The command context ``cli.main`` builds for the protocol's command line, on the card.
 
@@ -1753,10 +1903,12 @@ def g1_split(torch, ctx) -> dict:
 
 
 def phase_cli(torch, counters, label: str, fixture: dict, dtype, expect: tuple, f32=None,
-              split: bool = False) -> dict:
+              split: bool = False, margins_before: int | None = None) -> dict:
     """The fixture's command list through the command layer, counts reset just before and read after.
 
-    With ``split``, a ``g1`` split (:func:`g1_split`) follows the counted run.
+    With ``split``, a ``g1`` split (:func:`g1_split`) follows the counted run;
+    with ``margins_before``, the first-pass Delaunay margins of the host
+    mesh just before that command are kept (``pre_u_margins``, ROADMAP C4).
     """
     from membrane_solver_tpu_torch.commands import execute_command_line
 
@@ -1764,8 +1916,10 @@ def phase_cli(torch, counters, label: str, fixture: dict, dtype, expect: tuple, 
     jax_f32 = fixture["float32_reference"]
     reset_counts(counters)
     ctx = cli_context(torch, proto, dtype)
-    rows, digests = [], []
+    rows, digests, pre_u = [], [], None
     for cmd in proto["commands"]:
+        if len(rows) == margins_before:
+            pre_u = flip_margins(ctx.mesh)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         execute_command_line(ctx, cmd)
@@ -1802,7 +1956,7 @@ def phase_cli(torch, counters, label: str, fixture: dict, dtype, expect: tuple, 
     launches = read_counts(counters)
     energies = [r["energy"] for r in rows]
     out = {"energies": energies, "rows": rows, "digests": digests, "launches": launches,
-           "mn": ctx.minimizer}
+           "mn": ctx.minimizer, "pre_u_margins": pre_u}
     fields = {"vertices": rows[-1]["n_vertices"], "facets": rows[-1]["n_facets"],
               "launches": json.dumps(launches), "g1_host_syncs": syncs}
     if dtype == torch.float32:
@@ -1842,6 +1996,28 @@ def phase_cli(torch, counters, label: str, fixture: dict, dtype, expect: tuple, 
     if "dev_f32" in out and not out["dev_f32"] <= f32_bound:
         raise AssertionError(f"{label}: f32 energies deviate from f64 by {out['dev_f32']!r}")
     return out
+
+
+def phase_c4(torch, label: str, fixture: dict, port_margins: dict) -> dict:
+    """ROADMAP C4 on the card: the port's float32 ``u`` from the JAX package's float32 state.
+
+    :func:`c4_u_from_jax_state` at float32: its connectivity must equal the
+    JAX package's after the same ``u``.  Then the port's own float32 state
+    before its last ``u`` (phase 8's ``pre_u_margins``) against the JAX
+    package's: the lowest edge id whose first-pass verdict differs, with its
+    margin in both states, and the count of differing verdicts.
+    """
+    got = c4_u_from_jax_state(torch, fixture, torch.float32)
+    diff = first_verdict_difference(port_margins, got["margins"])
+    say(label, digest=got["digest"], jax_digest=got["jax_digest"], equal=got["equal"],
+        vertices=got["n_vertices"], facets=got["n_facets"],
+        smallest_abs_margin=repr(got["smallest_abs_margin"]),
+        smallest_margin_over_f32_roundoff=repr(got["smallest_margin_over_f32_roundoff"]),
+        port_state_vs_jax_state=json.dumps(diff))
+    if not got["equal"]:
+        raise AssertionError(f"{label}: the port's u from the JAX state gives another "
+                             f"connectivity: {got['digest']} vs {got['jax_digest']}")
+    return {**{k: v for k, v in got.items() if k != "margins"}, "verdicts": diff}
 
 
 def thetaB_energies(trace: list, final: float) -> list:
@@ -2608,6 +2784,418 @@ def phase_match_drives(torch, counters, label: str, fixture: dict) -> dict:
     return {"launches": launches, "dev64": dev64, "dev32": dev32}
 
 
+# --- phases 30-32: the last per-module modes ----------------------------------
+
+
+def pin_fit_record(mn) -> dict:
+    """The port's fitted rim circle (center, radius) and slide plane offsets on the device state."""
+    from membrane_solver_tpu_torch.constraints import pin_to_circle, pin_to_plane
+
+    p = mn.problem()
+    out = {}
+    if pin_to_circle._has_groups(p.topo):
+        _n, center, radius, _c = pin_to_circle._group_circles(p.state.positions, p.topo)
+        out["circle_center"] = center.detach().cpu().double().numpy().tolist()
+        out["circle_radius"] = radius.detach().cpu().double().numpy().tolist()
+    if pin_to_plane._has_groups(p.topo):
+        normals, points = pin_to_plane._group_planes(p.state.positions, p.topo)
+        out["plane_offset"] = (normals * points).sum(dim=1).detach().cpu().double().numpy().tolist()
+    return out
+
+
+def fit_deviation(got: dict, want: dict) -> float:
+    """Largest absolute difference of the per-step theta_B, circle and plane records."""
+    dev = 0.0
+    for g, w in zip(got, want, strict=True):
+        for key in ("thetaB", "circle_center", "circle_radius", "plane_offset"):
+            a, b = np.asarray(g[key], dtype=float), np.asarray(w[key], dtype=float)
+            dev = max(dev, float(np.max(np.abs(a - b))))
+    return dev
+
+
+def j0_payload_check(torch, ft, mn) -> dict:
+    """The fused frozen-tilt energy on the lane's state: zeroed base rows and kernel vs twin.
+
+    The payload's inner base columns are 0 on every corner of an assume-J0
+    row and the outer ones on every corner of a region row (the largest
+    base value elsewhere is printed: on this lane's flat start it is the
+    round-off of a flat mesh's curvature); one call of each kernel variant
+    on the lane's payload and tilts, and on seeded tilts, against the twin.
+    """
+    fused, p = fused_tilt_energy_of(torch, mn)
+    if fused is None:
+        raise AssertionError("the relax builds no fused frozen-tilt energy on the J0-fit lane")
+    rows = p.topo.tri_rows
+    out = {}
+    for side, key, cols in (("in", "energy:bending_tilt_in/assume_J0", slice(2, 5)),
+                            ("out", "energy:bending_tilt_out/region_zero", slice(8, 11))):
+        masked = p.topo.extras[key][rows]
+        base = fused.payload[:, cols]
+        out[f"zeroed_corners_{side}"] = int(masked.sum())
+        out[f"max_abs_base_on_zeroed_{side}"] = float(torch.max(torch.abs(base[masked])))
+        out[f"max_abs_base_elsewhere_{side}"] = float(torch.max(torch.abs(base[~masked])))
+    rng = np.random.default_rng(23)
+    seeded = [torch.as_tensor(0.1 * rng.standard_normal((p.n_vertices, 3)), dtype=torch.float32,
+                              device=DEVICE) for _ in range(2)]
+    for what, (t_in, t_out) in (("lane tilts", (p.state.tilts_in, p.state.tilts_out)),
+                                ("seeded tilts", seeded)):
+        out[what] = compare_frozen_tilt(torch, ft, rows, p.topo.corner_csr(), t_in.contiguous(),
+                                        t_out.contiguous(), fused.g, fused.payload, fused.k_vec)
+    return out
+
+
+def phase_j0_fit(torch, ft, counters, label: str, fixture: dict, dtype, expect: tuple,
+                 f64=None) -> dict:
+    """The J0-fit lane on kozlov L3 (``lane_phase``), then its own checks.
+
+    Per step theta_B after the closed-form update (the legacy contact
+    penalty), the fitted rim circle and the disk's slide plane offset, and
+    each leaflet relax's accepted CG steps, beside the JAX package's.  At
+    float64: the energies within rel 1e-8 of the fixture, its accept flags
+    and relax counts, theta_B, the circle and the plane within
+    ``J0_FIT_ATOL``, no compile after the minimize entry, and the host
+    syncs of one more ``minimize(1)``.  At float32 (``f64``): the energies
+    within max(2e-3, 2 x the JAX package's own float32 deviation) of the
+    float64 phase, and on the lane's payload (its zeroed base rows) the
+    frozen-tilt kernel against its twin.
+    """
+    from membrane_solver_tpu_torch.device import state as dstate
+
+    def per_step(mn):
+        return {"thetaB": float(mn.global_params.get("tilt_thetaB_value")), **pin_fit_record(mn)}
+
+    out, fields = lane_phase(torch, counters, label, fixture, dtype, expect, f64,
+                             per_step=per_step, timed=J0_TIMED_STEPS)
+    mn = out["mn"]
+    # compiles after the minimize entry (which recompiles after its
+    # constraint enforcement): the per-iteration theta_B writes refresh the
+    # parameters only
+    compiles = []
+    mn.minimize(2, callback=lambda _mesh, _i: compiles.append(dstate.COMPILES["compile_state"]))
+    compiles.append(dstate.COMPILES["compile_state"])
+    fits = [{k: r[k] for k in ("thetaB", "circle_center", "circle_radius", "plane_offset")}
+            for r in out["rows"]]
+    relax = [r["relax"] for r in out["rows"]]
+    ref = fixture if f64 is None else fixture["float32_reference"]
+    fields.update(thetaB=json.dumps([f["thetaB"] for f in fits]),
+                  jax_thetaB=json.dumps([f["thetaB"] for f in ref["fits"]]),
+                  circle_radius=json.dumps([f["circle_radius"] for f in fits]),
+                  plane_offset=json.dumps([f["plane_offset"] for f in fits]),
+                  relax_accepted_steps=json.dumps(relax),
+                  jax_relax_accepted_steps=json.dumps(ref["relax_accepted_steps"]),
+                  compiles_after_entry=compiles[-1] - compiles[0],
+                  frozen_tilt_launches=json.dumps(
+                      {k: out["launches"][f"frozen_tilt.{k}"] for k in ("energy", "energy_grad")}))
+    failed = []
+    if compiles[-1] != compiles[0]:
+        failed.append(f"compile_state ran inside minimize: {compiles}")
+    out["fit_dev"] = fit_deviation(fits, ref["fits"])
+    fields["fit_max_abs_dev"] = repr(out["fit_dev"])
+    if f64 is None:
+        out["dev"] = max(abs(a - b) / abs(b) for a, b in zip(out["energies"], fixture["energies"],
+                                                             strict=True))
+        fields["syncs_per_step"], sites = count_syncs(torch, lambda: mn.minimize(1))
+        fields.update(jax_accepted=json.dumps(fixture["accepted"]), max_rel_dev=repr(out["dev"]),
+                      fit_bound=repr(J0_FIT_ATOL), sync_sites=json.dumps(sites[:6]))
+        out["syncs"] = fields["syncs_per_step"]
+        if out["accepted"] != fixture["accepted"]:
+            failed.append(f"accept flags {out['accepted']} vs {fixture['accepted']}")
+        if relax != fixture["relax_accepted_steps"]:
+            failed.append(f"relax accepted steps {relax} vs {fixture['relax_accepted_steps']}")
+        if not out["dev"] <= F64_RTOL:
+            failed.append(f"energies deviate from the JAX fixture by {out['dev']!r}")
+        if not out["fit_dev"] <= J0_FIT_ATOL:
+            failed.append(f"theta_B / circle / plane deviate by {out['fit_dev']!r}")
+    else:
+        payload = j0_payload_check(torch, ft, mn)
+        fields["payload"] = json.dumps(payload)
+        out["payload"] = payload
+        for side in ("in", "out"):
+            if not (payload[f"zeroed_corners_{side}"] > 0
+                    and payload[f"max_abs_base_on_zeroed_{side}"] == 0.0):
+                failed.append(f"the payload's {side} base rows are not zeroed: {payload}")
+    say(label, **fields)
+    if failed:
+        raise AssertionError(f"{label}: " + "; ".join(failed))
+    return out
+
+
+def mode_drives_setup(mesh, protocol: dict) -> dict:
+    """Seeded heights and leaflet tilts on a kozlov host mesh (either package's).
+
+    The protocol's global parameters; then, in vertex-id order
+    (``numpy.random.default_rng(seed)``), ``z_scale`` of height on every
+    free vertex and leaflet tilts of ``tilt_scale`` where they are free.
+    Returns the vertices' options, which :func:`mode_problem_setup` restores.
+    """
+    mesh.global_parameters.update(protocol["global_parameters"])
+    rng = np.random.default_rng(protocol["seed"])
+    for vid in sorted(mesh.vertices):
+        v = mesh.vertices[vid]
+        dz = protocol["z_scale"] * rng.standard_normal()
+        tilts = protocol["tilt_scale"] * rng.standard_normal((2, 3))
+        if not v.fixed:
+            v.position[2] += dz
+        if not (v.tilt_fixed_in or v.tilt_fixed_out):
+            v.tilt_in, v.tilt_out = tilts[0], tilts[1]
+    return {vid: dict(v.options or {}) for vid, v in mesh.vertices.items()}
+
+
+def mode_problem_setup(mesh, protocol: dict, snapshot: dict, name: str) -> None:
+    """The host mesh as the protocol's problem ``name`` compiles it (either package's).
+
+    Every global parameter any problem sets is unset, then the problem's
+    own set; every vertex's options are restored from ``snapshot``, then
+    the problem's ``definition_options`` {preset: {key: value}} set on its
+    presets' vertices (a value of None removes a given normal or radius).
+    """
+    gp = mesh.global_parameters
+    for other in protocol["problems"].values():
+        for key in other["global_parameters"]:
+            gp.unset(key)
+    gp.update(protocol["problems"][name]["global_parameters"])
+    opts = protocol["problems"][name].get("definition_options", {})
+    for vid, v in mesh.vertices.items():
+        v.options = dict(snapshot[vid])
+        v.options.update(opts.get(v.options.get("preset"), {}))
+
+
+def sample_rows(protocol: dict, n: int):
+    """The fixed row sample of the mode drives' dense arrays (``sample_seed``)."""
+    rng = np.random.default_rng(protocol["sample_seed"])
+    return np.sort(rng.choice(n, size=min(protocol["sample_rows"], n), replace=False))
+
+
+def sketch(arr, rows) -> dict:
+    """A dense (n, 3) array as its sampled rows (base64 float64), its L2 norm and its max |entry|."""
+    arr = np.ascontiguousarray(arr, dtype="<f8")
+    return {"sample": base64.b64encode(arr[rows].tobytes()).decode(),
+            "norm": float(np.linalg.norm(arr)), "max": float(np.max(np.abs(arr)))}
+
+
+def sketch_deviation(want: dict, got: dict) -> float:
+    """Largest sampled-row error and L2-norm error of ``got``, over ``want``'s max |entry|."""
+    w = np.frombuffer(base64.b64decode(want["sample"]), dtype="<f8")
+    g = np.frombuffer(base64.b64decode(got["sample"]), dtype="<f8")
+    err = max(float(np.max(np.abs(g - w))) if w.size else 0.0, abs(got["norm"] - want["norm"]))
+    return err / want["max"] if want["max"] > 0 else err
+
+
+MODE_FIELDS = ("positions", "tilts_in", "tilts_out")
+
+
+def port_mode_record(torch, mesh, protocol: dict, snapshot: dict, dtype, device,
+                     counters=None) -> dict:
+    """The mode drives by the port, in the format of the recorder's ``mode_drives_run``.
+
+    Per problem of the protocol: each listed energy module's value and
+    gradients in the positions and both leaflet tilts (sketched), its
+    frozen split against them (``frozen``: the largest deviation of the
+    split's value and tilt gradients, held here and not recorded by the
+    JAX package), the divergence cap's capped triangles, and each pin
+    constraint's enforcement (the position change) and local normals; with
+    ``counters``, the frozen-tilt launches of a short float32 relax of the
+    problem (``relax_launches``).  Then the closed-form theta_B of the
+    legacy penalty on the seeded host state and its Gauss-Bonnet
+    invariant.
+    """
+    from membrane_solver_tpu_torch import Minimizer
+    from membrane_solver_tpu_torch.constraints import get_constraint
+    from membrane_solver_tpu_torch.device import geo as dgeo
+    from membrane_solver_tpu_torch.energy import bending_tilt_leaflet as bt
+    from membrane_solver_tpu_torch.energy import get_module, tilt_thetaB_contact_in
+    from membrane_solver_tpu_torch.kernels import tri_kernels
+    from membrane_solver_tpu_torch.runtime.diagnostics.gauss_bonnet import gauss_bonnet_invariant
+
+    as_np = lambda t: t.detach().cpu().double().numpy()  # noqa: E731
+    rec = {"problems": {}}
+    for name, prob in protocol["problems"].items():
+        mode_problem_setup(mesh, protocol, snapshot, name)
+        mn = Minimizer(mesh, device=device, dtype=dtype, quiet=True)
+        p = mn.problem()
+        rows = sample_rows(protocol, p.n_vertices)
+        if "inputs" not in rec:
+            rec.update(n_vertices=p.n_vertices, n_triangles=p.n_tris,
+                       inputs={f: sketch(as_np(getattr(p.state, f)), rows) for f in MODE_FIELDS})
+        out = {"energies": {}, "frozen": {}, "enforce": {}, "normals": {}}
+        for mod_name in prob["energies"]:
+            module = get_module(mod_name)
+            leaves = [getattr(p.state, f).detach().clone().requires_grad_(True)
+                      for f in MODE_FIELDS]
+            st = dataclasses.replace(p.state, **dict(zip(MODE_FIELDS, leaves)))
+            geo = dgeo.triangle_geometry(st.positions, p.topo.tri_rows, p.topo.tri_valid)
+            maker = getattr(module, "make_energy", None)
+            fn = maker(p.spec) if maker is not None else module.energy
+            e = fn(geo, st, p.topo, p.params)
+            grads = torch.autograd.grad(e, leaves, allow_unused=True)
+            grads = [np.zeros((p.n_vertices, 3)) if g is None else as_np(g) for g in grads]
+            out["energies"][mod_name] = {"energy": float(e.detach()), **{
+                f: sketch(g, rows) for f, g in zip(MODE_FIELDS, grads)}}
+            pre, fn = module.make_tilt_frozen(p.spec)
+            tin, tout = (getattr(p.state, f).detach().clone().requires_grad_(True)
+                         for f in ("tilts_in", "tilts_out"))
+            ef = fn(tin, tout, pre(p.state, p.topo, p.params), p.topo, p.params)
+            fg = [np.zeros((p.n_vertices, 3)) if g is None else as_np(g)
+                  for g in torch.autograd.grad(ef, (tin, tout), allow_unused=True)]
+            dev = abs(float(ef.detach()) - float(e.detach())) / max(abs(float(e.detach())), 1e-300)
+            for g_f, g in zip(fg, grads[1:]):
+                scale = float(np.max(np.abs(g)))
+                err = float(np.max(np.abs(g_f - g)))
+                dev = max(dev, err / scale if scale > 0 else err)
+            out["frozen"][mod_name] = dev
+        if prob["global_parameters"].get("bending_tilt_in_update_mode") == (
+                "outer_near_divergence_cap_v1"):
+            with torch.no_grad():
+                pos = p.state.positions
+                div, _a, _g = tri_kernels.p1_triangle_divergence(
+                    pos, p.state.tilts_in, p.topo.tri_rows, p.topo.tri_valid,
+                    p.topo.corner_csr())
+                capped = bt._apply_divergence_cap(-div, *bt.cap_masks(pos, p.topo, p.params))
+                out["capped"] = int(torch.sum(capped != -div))
+        for con in ("pin_to_plane", "pin_to_circle"):
+            mod = get_constraint(con)
+            moved = mod.enforce(p.state, p.topo, p.params, context="minimize")
+            out["enforce"][con] = encode_rows(as_np(moved.positions) - as_np(p.state.positions))
+            normals = as_np(mod.local_constraint_normals(p.state, p.topo, p.params))
+            out["normals"][con] = [encode_rows(normals[:, k]) for k in range(normals.shape[1])]
+        if counters is not None:
+            mn32 = Minimizer(mesh, device=device, dtype=torch.float32, quiet=True)
+            before = sum(counters["frozen_tilt"].values())
+            mn32.relax_leaflet_tilts(max_iters=protocol["relax_iters"])
+            torch.cuda.synchronize()
+            out["relax_launches"] = sum(counters["frozen_tilt"].values()) - before
+        rec["problems"][name] = out
+    gp = mesh.global_parameters
+    mode_problem_setup(mesh, protocol, snapshot, protocol["thetaB_problem"])
+    before = gp.get("tilt_thetaB_value")
+    tilt_thetaB_contact_in.update_scalar_params(mesh, gp)
+    rec["thetaB_update"] = float(gp.get("tilt_thetaB_value"))
+    gp.set("tilt_thetaB_value", before)
+    g, k_int, b_total, _per_loop = gauss_bonnet_invariant(mesh)
+    rec["gauss_bonnet"] = {"G": g, "K_int": k_int, "B": b_total}
+    return rec
+
+
+def mode_deviations(want: dict, got: dict) -> dict:
+    """Per problem and item, the largest deviation of ``got`` from ``want`` (both as recorded).
+
+    Energies: the value's relative deviation and each gradient sketch's
+    (:func:`sketch_deviation`); constraints: the enforcement change's and
+    each normal block's largest error over the largest entry; the capped
+    triangle count's difference; theta_B's and the invariant's relative
+    deviations.
+    """
+    n = want["n_vertices"]
+
+    def dense(w_rec, g_rec):
+        w, g = decode_rows(w_rec, n), decode_rows(g_rec, n)
+        scale = float(np.max(np.abs(w)))
+        err = float(np.max(np.abs(g - w)))
+        return err / scale if scale > 0 else err
+
+    out = {"inputs": max(sketch_deviation(want["inputs"][f], got["inputs"][f])
+                         for f in MODE_FIELDS)}
+    for name, w in want["problems"].items():
+        g = got["problems"][name]
+        for mod_name, wm in w["energies"].items():
+            gm = g["energies"][mod_name]
+            e = abs(gm["energy"] - wm["energy"])
+            row = {"energy": e / abs(wm["energy"]) if wm["energy"] != 0.0 else e}
+            row.update({f: sketch_deviation(wm[f], gm[f]) for f in MODE_FIELDS})
+            out[f"{name}/{mod_name}"] = row
+        for con, wc in w["enforce"].items():
+            out[f"{name}/{con}"] = {
+                "enforce": dense(wc, g["enforce"][con]),
+                "normals": max(dense(a, b) for a, b in zip(w["normals"][con],
+                                                           g["normals"][con], strict=True))}
+        if "capped" in w:
+            out[f"{name}/capped"] = {"count": abs(g["capped"] - w["capped"])}
+    out["thetaB_update"] = {"value": abs(got["thetaB_update"] - want["thetaB_update"])
+                            / abs(want["thetaB_update"])}
+    out["gauss_bonnet"] = {k: abs(got["gauss_bonnet"][k] - v) / max(abs(v), 1.0)
+                           for k, v in want["gauss_bonnet"].items()}
+    return out
+
+
+def phase_mode_drives(torch, counters, label: str, fixture: dict) -> dict:
+    """The per-module modes on kozlov L3, float64 against the fixture, then float32.
+
+    ``mode_drives_setup`` on the kozlov lane's mesh after its refinements,
+    then per problem of the protocol (``port_mode_record``): float64 within
+    ``DRIVES_F64_RTOL`` of the fixture (the sampled and summed gradients,
+    the pin enforcements and normals, the capped triangle count equal), the
+    frozen splits within 1e-12 of the full energies; float32 against the
+    float64 record within max(2e-3, 2 x the JAX package's own float32
+    deviation per item).  A short float32 relax of each problem: no
+    frozen-tilt launch under ``diagonal`` and the in-update modes (the JAX
+    package's gate), some on the problem with neither.  Then one
+    ``check_gauss_bonnet`` call on the L3 host mesh, timed.
+    """
+    from membrane_solver_tpu_torch import Minimizer
+    from membrane_solver_tpu_torch.runtime.diagnostics.audit import check_gauss_bonnet
+
+    proto = fixture["protocol"]
+    t0 = time.perf_counter()
+    reset_counts(counters)
+    mesh = build_lane(torch, proto["kozlov"], torch.float64).mesh
+    snapshot = mode_drives_setup(mesh, proto)
+    setup_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    rec64 = port_mode_record(torch, mesh, proto, snapshot, torch.float64, DEVICE, counters)
+    s64 = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    rec32 = port_mode_record(torch, mesh, proto, snapshot, torch.float32, DEVICE)
+    s32 = time.perf_counter() - t1
+    dev64 = mode_deviations(fixture, rec64)
+    dev32 = mode_deviations(rec64, rec32)
+    ref32 = fixture["float32_reference"]["max_rel_dev_vs_float64"]
+    failed = []
+    if not dev64["inputs"] <= 1e-12:
+        failed.append(f"the lane's inputs differ from the fixture's: {dev64['inputs']!r}")
+    for item, row in dev64.items():
+        if item == "inputs":
+            continue
+        bound32 = {k: max(F32_RTOL, 2 * ref32[item][k]) for k in row}
+        say(label + " item", item=item, dev_f64=json.dumps(row), dev_f32=json.dumps(dev32[item]),
+            bound_f32=json.dumps(bound32))
+        bound64 = 0 if item.endswith("/capped") else DRIVES_F64_RTOL
+        if not all(d <= bound64 for d in row.values()):
+            failed.append(f"{item} float64 {row}")
+        if not item.endswith("/capped") and not all(dev32[item][k] <= bound32[k] for k in row):
+            failed.append(f"{item} float32 {dev32[item]} bound {bound32}")
+    frozen = {f"{name}/{m}": d for name, q in rec64["problems"].items()
+              for m, d in q["frozen"].items()}
+    launches = {name: q["relax_launches"] for name, q in rec64["problems"].items()}
+    capped = {name: q["capped"] for name, q in rec64["problems"].items() if "capped" in q}
+    if not all(d <= 1e-12 for d in frozen.values()):
+        failed.append(f"frozen splits off their full energies: {frozen}")
+    want_none = [name for name, q in proto["problems"].items() if not q["kernel_in_relax"]]
+    if any(launches[name] for name in want_none) or not all(
+            launches[name] > 0 for name in proto["problems"] if name not in want_none):
+        failed.append(f"frozen-tilt launches per problem's float32 relax: {launches}")
+    if not all(c > 0 for c in capped.values()):
+        failed.append(f"the divergence cap binds nowhere: {capped}")
+    mesh.global_parameters.set("gauss_bonnet_monitor", True)
+    mn = Minimizer(mesh, device=DEVICE, dtype=torch.float64, quiet=True)
+    t1 = time.perf_counter()
+    check_gauss_bonnet(mn)
+    gb_s = time.perf_counter() - t1
+    mesh.global_parameters.unset("gauss_bonnet_monitor")
+    all_launches = read_counts(counters)
+    say(label, vertices=rec64["n_vertices"], triangles=rec64["n_triangles"],
+        setup_s=f"{setup_s:.3f}", f64_s=f"{s64:.3f}", f32_s=f"{s32:.3f}",
+        input_dev=repr(dev64["inputs"]), frozen_split_dev=json.dumps(frozen),
+        capped_triangles=json.dumps(capped), jax_capped=json.dumps(
+            {name: q["capped"] for name, q in fixture["problems"].items() if "capped" in q}),
+        f32_relax_frozen_tilt_launches=json.dumps(launches),
+        thetaB_update=repr(rec64["thetaB_update"]), gauss_bonnet=json.dumps(rec64["gauss_bonnet"]),
+        check_gauss_bonnet_s=f"{gb_s:.4f}", launches=json.dumps(all_launches))
+    if failed:
+        raise AssertionError(f"{label}: " + "; ".join(failed))
+    return {"dev64": dev64, "dev32": dev32, "relax_launches": launches, "launches": all_launches,
+            "gauss_bonnet_s": gb_s}
+
+
 def phase_console(torch, fixture: dict) -> None:
     """``python -m membrane_solver_tpu_torch`` on the card; the saved mesh re-evaluated at float64."""
     import tempfile
@@ -2685,6 +3273,9 @@ def main() -> int:
     match = json.loads(MATCH_FIXTURE.read_text())
     physical_edge = load_fixture(PHYSICAL_EDGE_FIXTURE)
     scaffold = load_fixture(SCAFFOLD_FIXTURE)
+    j0_fit = load_fixture(J0_FIT_FIXTURE)
+    c4 = json.loads(gzip.decompress(C4_FIXTURE.read_bytes()))
+    mode_drives = json.loads(MODE_DRIVES_FIXTURE.read_text())
     seconds = {}
 
     def timed(phase, fn, *args, **kw):
@@ -2720,7 +3311,8 @@ def main() -> int:
     cli_path = ("tri_kernels.surface_energy", "tri_kernels.surface_energy_grad",
                 "tri_kernels.curvature_data", "vertex_sum.vertex_sum")
     runs["c32"] = timed("8", phase_cli, torch, counters, "8 cube_cli_L5 f32", cube_cli,
-                        torch.float32, cli_path)
+                        torch.float32, cli_path, margins_before=c4["protocol"]["stop_before"])
+    timed("9 C4", phase_c4, torch, "9 cube_cli_L5 C4", c4, runs["c32"]["pre_u_margins"])
     runs["c64"] = timed("9", phase_cli, torch, counters, "9 cube_cli_L5 f64", cube_cli,
                         torch.float64, cli_path, f32=runs["c32"])
     timed("10", phase_console, torch, cube_cli)
@@ -2805,6 +3397,19 @@ def main() -> int:
         phases=json.dumps({k: seconds[k] for k in new}),
         host_syncs_per_minimize_1=json.dumps({"5": runs["k64"]["syncs"], "26": runs["p64"]["syncs"],
                                               "28": runs["q64"]["syncs"]}))
+    # the last per-module modes: the J0-fit lane (the frozen-tilt kernel on
+    # its zeroed base rows at float32) and the mode drives
+    runs["j64"] = timed("30", phase_j0_fit, torch, ft, counters, "30 kozlov_L3_J0_fit f64",
+                        j0_fit, torch.float64, kozlov_path)
+    runs["j32"] = timed("31", phase_j0_fit, torch, ft, counters, "31 kozlov_L3_J0_fit f32",
+                        j0_fit, torch.float32, f32_kozlov_path, f64=runs["j64"])
+    runs["o"] = timed("32", phase_mode_drives, torch, counters, "32 kozlov_L3_mode_drives",
+                      mode_drives)
+    new = ("30", "31", "32")
+    say("30-32", seconds=f"{sum(seconds[k] for k in new):.3f}",
+        phases=json.dumps({k: seconds[k] for k in new}),
+        host_syncs_per_minimize_1=json.dumps({"5": runs["k64"]["syncs"],
+                                              "30": runs["j64"]["syncs"]}))
     # phases 8-10 have imported the CLI and the command layer by now
     if not {"membrane_solver_tpu_torch.cli", "membrane_solver_tpu_torch.commands"} <= set(sys.modules):
         raise AssertionError("the CLI and the command layer were not imported")
@@ -2814,6 +3419,7 @@ def main() -> int:
     say("phase seconds", seconds=json.dumps(seconds))
     say("total", seconds=f"{time.perf_counter() - t_start:.3f}")
     print(json.dumps({"kernels": kernels_line(kern, runs)}), flush=True)
+    print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 

@@ -28,6 +28,15 @@ def _degen(dtype) -> float:
     return 1e-280 if dtype == torch.float64 else 1e-26
 
 
+def _axis(k: int, like):
+    """The unit vector along axis ``k`` in ``like``'s dtype and device, made on the device.
+
+    A comparison of a device range, not a host tensor or an indexed write:
+    either would copy from the host and synchronize.
+    """
+    return (torch.arange(3, device=like.device) == k).to(like.dtype)
+
+
 def _eigvals_sym3(A):
     """Eigenvalues of a symmetric 3x3, ascending."""
     q = torch.trace(A) / 3.0
@@ -71,7 +80,7 @@ def _eigvec_for(A, lam, fallback):
 def smallest_eigvec_3x3(A, fallback=None):
     """Unit eigenvector of the smallest eigenvalue of a symmetric 3x3."""
     if fallback is None:
-        fallback = torch.tensor([0.0, 0.0, 1.0], dtype=A.dtype, device=A.device)
+        fallback = _axis(2, A)
     lam_min, _, _ = _eigvals_sym3(A)
     return _eigvec_for(A, lam_min, fallback)
 
@@ -84,9 +93,9 @@ def eigh_3x3(A):
     from its own eigenvalue where that product vanishes.
     """
     l0, l1, l2 = _eigvals_sym3(A)
-    f0 = torch.tensor([0.0, 0.0, 1.0], dtype=A.dtype, device=A.device)
+    f0 = _axis(2, A)
     v0 = _eigvec_for(A, l0, f0)
-    v2 = _eigvec_for(A, l2, torch.tensor([1.0, 0.0, 0.0], dtype=A.dtype, device=A.device))
+    v2 = _eigvec_for(A, l2, _axis(0, A))
     v1 = torch.linalg.cross(v2, v0)
     n1 = torch.linalg.vector_norm(v1)
     v1 = torch.where(n1 > _degen(A.dtype), v1 / torch.clamp(n1, min=_tiny(A.dtype)),

@@ -335,38 +335,37 @@ _STATIC_PARAM_KEYS: Tuple[str, ...] = (
 # scaffold-trace lane's rejected-step ``trace_z`` fallback, trace-boundary
 # stencil and trace-reconstructed divergence), the single-field tilt
 # lane's, the bending models, the leaflet tilt-field energies' (the consistent
-# tilt mass, the splay-twist divergence modes, the rim sources' edge
-# selection), plus the defaults that select the same branches.  Any other
-# value raises NotImplementedError when the problem is compiled; a value the
-# JAX package rejects raises its ValueError instead (``_VALID_STATIC_VALUES``).
+# and diagonal tilt mass, the splay-twist divergence modes, the rim sources'
+# edge selection), the bending-tilt inner update modes, plus the defaults
+# that select the same branches.  Any other value raises NotImplementedError
+# when the problem is compiled; a value the JAX package rejects raises its
+# ValueError instead (``_VALID_STATIC_VALUES``).
 _PORTED_STATIC_VALUES: Dict[str, Tuple[str, ...]] = {
     "bending_energy_model": ("helfrich", "willmore"),
     "bending_gradient_mode": ("analytic",),
     "tilt_solver": ("cg", "gd"),
     "tilt_solve_mode": ("coupled", "nested", "fixed"),
     "tilt_transport_model": ("ambient_v1", "connection_v1"),
-    "tilt_thetaB_contact_penalty_mode": ("off",),
-    "tilt_thetaB_contact_work_mode": ("scalar",),
     "shape_scaffold_rejected_step_fallback": ("off", "trace_z"),
     "rim_slope_match_mode": ("pointwise_radial_v1", "ring_average_radial_v1",
                              "shared_rim_staggered_v1", "physical_edge_staggered_v1"),
-    "tilt_mass_mode": ("lumped", "consistent"),
-    "tilt_mass_mode_in": ("lumped", "consistent"),
-    "tilt_mass_mode_out": ("lumped", "consistent"),
+    # diagonal: the lumped energy, and the frozen-tilt kernel steps aside (the
+    # JAX package's gate reads any value but lumped so)
+    "tilt_mass_mode": ("lumped", "consistent", "diagonal"),
+    "tilt_mass_mode_in": ("lumped", "consistent", "diagonal"),
+    "tilt_mass_mode_out": ("lumped", "consistent", "diagonal"),
     "tilt_divergence_mode": ("native", "vertex_recovered"),
     "tilt_divergence_mode_in": ("native", "vertex_recovered"),
     "tilt_rim_source_edge_mode": ("boundary", "all"),
     "tilt_projection_cadence": ("per_step", "per_pass"),
     "inner_coupled_update_mode": ("off", "rim_matched_radial_continuation_v1"),
     "curved_theta_objective_ablation_mode": ("off", "inner_outer_rescaled"),
-    "bending_tilt_in_update_mode": ("off",),
+    "bending_tilt_in_update_mode": ("off", "outer_near_divergence_cap_v1",
+                                    "radial_cross_term_off_v1"),
     "bending_tilt_interface_divergence_mode": ("p1_triangle", "trace_reconstructed_v1"),
     "bending_tilt_interface_divergence_mode_out": ("p1_triangle", "trace_reconstructed_v1"),
     "bending_tilt_out_interface_divergence_mode": ("p1_triangle", "trace_reconstructed_v1"),
     "bending_tilt_in_scaffold_shape_stencil_mode": ("off", "trace_boundary_v1"),
-    "bending_tilt_base_term_reference_mode": ("current_geometry",),
-    "bending_tilt_base_term_reference_mode_in": ("current_geometry",),
-    "bending_tilt_base_term_reference_mode_out": ("current_geometry",),
     # the energy-spike guard of the per-iteration leaflet relax
     # (tilt_relax_energy_guard_factor > 0)
     "tilt_guard": ("on",),
@@ -380,8 +379,8 @@ _PORTED_STATIC_VALUES: Dict[str, Tuple[str, ...]] = {
 # there (with its text), where the JAX package raises it: the rim mode when
 # the rim module compiles, the cadence when the leaflet relax is built, the
 # ablation when the energy is assembled, the bending-tilt interface
-# divergence and scaffold stencil modes when the bending-tilt energies are
-# made.
+# divergence, scaffold stencil and inner update modes when the bending-tilt
+# energies are made.
 _VALID_STATIC_VALUES: Dict[str, Tuple[str, ...]] = {
     "rim_slope_match_mode": (),
     "tilt_projection_cadence": (),
@@ -391,6 +390,7 @@ _VALID_STATIC_VALUES: Dict[str, Tuple[str, ...]] = {
     "bending_tilt_interface_divergence_mode_out": (),
     "bending_tilt_out_interface_divergence_mode": (),
     "bending_tilt_in_scaffold_shape_stencil_mode": (),
+    "bending_tilt_in_update_mode": (),
 }
 
 # Read by the JAX package only as documentation, by unported modules, or
@@ -400,15 +400,20 @@ _VALID_STATIC_VALUES: Dict[str, Tuple[str, ...]] = {
 # non-empty value: the recovered inner divergence of ``bending_tilt_in``
 # and, on the physical-edge trace lanes, the trace-layer row weights of
 # ``tilt_in``/``tilt_out``; a selector whose unknown values select the
-# default: the ablation's lane gates; tilt_coupling reads an unknown mode as
-# off); the port runs them at every value.  The reduced
+# default: the ablation's lane gates, the theta_B contact term's legacy
+# penalty (on for legacy, on, true, 1) and field-linear work mode, the
+# bending-tilt flat reference base term (on for flat_reference_zero_J0);
+# tilt_coupling reads an unknown mode as off); the port runs them at every
+# value.  The reduced
 # line search's accept rule raises the JAX package's ValueError when the
 # minimize block is built with the reduced line search on.
 _IGNORED_STATIC_KEYS = frozenset({
     "tilt_kkt_projection_during_relaxation", "tilt_coupling_mode", "tilt_couping_mode",
     "line_search_reduced_energy", "line_search_reduced_accept_rule", "tilt_cg_preconditioner",
     "tilt_cg_rejection_fallback", "rim_slope_match_kkt_rows", "benchmark_geometry_lane",
-    "benchmark_parameterization", "theory_parity_lane",
+    "benchmark_parameterization", "theory_parity_lane", "tilt_thetaB_contact_penalty_mode",
+    "tilt_thetaB_contact_work_mode", "bending_tilt_base_term_reference_mode",
+    "bending_tilt_base_term_reference_mode_in", "bending_tilt_base_term_reference_mode_out",
 })
 
 
@@ -806,7 +811,8 @@ def problem_from_numpy(
         elif name.startswith("tri_present"):
             arr = arr[:nf]
         elif arr.ndim and (name.startswith(("absent", "row_weights", "transition_mask",
-                                            "scaffold_", "stencil_"))
+                                            "scaffold_", "stencil_", "assume_J0",
+                                            "region_zero"))
                            or key == "core:scaffold_trace/mask" or key in vertex_tables):
             arr = arr[:nv]
         extras[key] = t(arr)

@@ -1,8 +1,7 @@
 """Leaflet bending-tilt coupling core: E = 1/2 sum kappa (2H - c0 + s*div t)^2 dA.
 
-Counterpart of ``membrane_solver_tpu/energy/bending_tilt_leaflet.py`` with
-update mode ``off`` and the current-geometry base term.  The energy value
-and tilt gradient use the per-corner form
+Counterpart of ``membrane_solver_tpu/energy/bending_tilt_leaflet.py``.  The
+energy value and tilt gradient use the per-corner form
 
     base_term_v = 2 H_v - c0_v           (zeroed on boundary rows)
     div_tri     = div_sign * P1 divergence of the leaflet tilt field
@@ -30,6 +29,24 @@ The theory-parity and scaffold-trace modes, as in the JAX package:
 The reconstruction and the stencil act only where the mesh has trace rows
 and scaffold-support (``outer_shell_scaffold_index``) or release
 (``outer_shell_release_ring``) rows.
+
+The base-term overrides and the inner update modes:
+
+- ``bending_tilt_base_term_reference_mode`` (``_in``/``_out``)
+  ``flat_reference_zero_J0`` zeroes the Helfrich base term everywhere; the
+  rows of ``bending_tilt_assume_J0_presets`` (``_in``/``_out``) vertices,
+  clipped to ``..._radius_max`` about :func:`assume_J0_center_xy`, and the
+  rows of ``bending_tilt_base_term_region_mode`` (``physical_disk_split_v1``:
+  the outer leaflet inside the region radius; ``disk_only_base_term_v1``:
+  the inner leaflet outside it) take a zero base term.  The row masks come
+  from the host positions when the problem is compiled;
+- ``bending_tilt_in_update_mode`` ``outer_near_divergence_cap_v1`` clips the
+  inner divergence of the triangles in the band (R + lambda, R + 4 lambda]
+  about the J0 center to 1.05 times the median |div| of the rim band
+  |r - R| <= lambda (``benchmark_disk_radius``, ``benchmark_lambda_value``;
+  inert unless both are positive), straight through;
+  ``radial_cross_term_off_v1`` keeps the value and drops the base cross
+  term from the tilt gradient.
 """
 
 from __future__ import annotations
@@ -126,9 +143,64 @@ def _reconstruct_trace_divergence(div_term, topo, tr, su, rl):
     return div_term + (rec - div_term).detach()
 
 
+def _apply_base_overrides(base_term, zero_base: bool, j0_mask):
+    """The flat-reference base term (zero everywhere), else zero on the ``j0_mask`` rows."""
+    if zero_base:
+        return torch.zeros_like(base_term)
+    if j0_mask is not None:
+        return torch.where(j0_mask, 0.0, base_term)
+    return base_term
+
+
+def _tri_cap_masks(positions, topo, params, center):
+    """(rim band, outer-near band) triangle masks about the J0 center; empty unless R, lambda > 0."""
+    radius = param(params, "benchmark_disk_radius", like=positions)
+    lam = param(params, "benchmark_lambda_value", like=positions)
+    tri_xy = torch.mean(positions[topo.tri_rows][:, :, :2], dim=1) - center[None, :]
+    tri_r = torch.linalg.vector_norm(tri_xy, dim=1)
+    rim_m = (torch.abs(tri_r - radius) <= lam) & topo.tri_valid
+    near_m = (tri_r > radius + lam) & (tri_r <= radius + 4.0 * lam) & topo.tri_valid
+    active = (radius > 0.0) & (lam > 0.0)
+    return rim_m & active, near_m & active
+
+
+def _apply_divergence_cap(div_term, rim_m, near_m):
+    """outer_near_divergence_cap_v1: outer-near |div| clipped to 1.05 x the rim band's median.
+
+    Straight through: the value is the capped one, the gradient that of
+    ``div_term``.  The median of the rim band's |div| is read from a sort
+    with the other triangles at +inf (no host read).
+    """
+    v = torch.sort(torch.where(rim_m, torch.abs(div_term), torch.inf)).values
+    n = torch.sum(rim_m.to(torch.int64))
+    lo = torch.clamp(torch.div(n - 1, 2, rounding_mode="floor"), min=0)
+    hi = torch.clamp(torch.div(n, 2, rounding_mode="floor"), min=0)
+    pair = v[torch.stack([lo, hi])]
+    med = torch.where(n > 0, 0.5 * (pair[0] + pair[1]), 0.0)
+    cap = (1.05 * med).detach()
+    hit = near_m & (torch.abs(div_term) > cap)
+    capped = torch.where(hit, torch.sign(div_term) * cap, div_term)
+    out = div_term + (capped - div_term).detach()
+    return torch.where((cap > 0.0) & torch.any(near_m) & (n > 0), out, div_term)
+
+
+def cap_masks(positions, topo, params):
+    """The cap's triangle bands about the compiled ``update_center``."""
+    center = topo.extras["energy:bending_tilt_in/update_center"].to(positions.dtype)
+    return _tri_cap_masks(positions, topo, params, center)
+
+
+def _squares(base_c, div, update_mode: str):
+    """(base + div)^2 per corner; under radial_cross_term_off_v1 its cross term takes no tilt gradient."""
+    if update_mode == "radial_cross_term_off_v1":
+        return base_c**2 + (div**2)[:, None] + 2.0 * base_c * div.detach()[:, None]
+    return (base_c + div[:, None]) ** 2
+
+
 def leaflet_bending_tilt_energy(
     state, topo, params, *, tilts, kappa_key: str, div_sign: float, c0_key: str,
-    tri_present=None, recovered_div=False, idiv_masks=None, stencil_trace=None,
+    tri_present=None, zero_base=False, j0_mask=None, recovered_div=False,
+    update_mode="off", idiv_masks=None, stencil_trace=None,
 ):
     positions = state.positions
     if stencil_trace is not None:
@@ -143,6 +215,7 @@ def leaflet_bending_tilt_energy(
         base, va_eff, a_eff, kappa, interior, xf = _fields(
             positions, topo, params, kappa_key, c0_key, tri_present
         )
+        base = _apply_base_overrides(base, zero_base, j0_mask)
 
     # --- corner form at frozen positions: value + exact tilt gradient -----
     div_tri, _, _ = tri_kernels.p1_triangle_divergence(
@@ -151,12 +224,13 @@ def leaflet_bending_tilt_energy(
     div_term = div_sign * div_tri
     if idiv_masks is not None:
         div_term = _reconstruct_trace_divergence(div_term, topo, *idiv_masks)
+    if update_mode == "outer_near_divergence_cap_v1":
+        div_term = _apply_divergence_cap(div_term, *cap_masks(positions.detach(), topo, params))
     if recovered_div:
         div_term = recovered_divergence(div_term, positions.detach(), topo)
     base_c = base[topo.tri_rows]
     keep = xf["keep"]
-    term_c = base_c + div_term[:, None]
-    sqs = term_c**2
+    sqs = _squares(base_c, div_term, update_mode)
     corner = 0.5 * torch.sum(torch.where(keep, kappa * torch.sum(sqs * va_eff, dim=1), 0.0))
 
     # --- vertex-form surrogate: shape gradient with frozen divergence ------
@@ -194,21 +268,113 @@ def leaflet_bending_tilt_energy(
     return corner + surrogate - surrogate.detach()
 
 
-def check_default_modes(layout, leaflet: str) -> None:
-    """Raise when the mesh selects a bending-tilt mode the port does not run."""
-    gp = layout.mesh.global_parameters
-    for key in (
-        f"bending_tilt_assume_J0_presets_{leaflet}",
-        "bending_tilt_assume_J0_presets",
-    ):
-        if gp.get(key) is not None:
-            raise NotImplementedError(f"{key} is not ported to membrane_solver_tpu_torch")
-    mode = str(gp.get("bending_tilt_base_term_region_mode") or "off").strip().lower()
-    if mode != "off":
-        raise NotImplementedError(
-            f"bending_tilt_base_term_region_mode={mode!r} is not ported to "
-            "membrane_solver_tpu_torch"
+def zero_base_mode(spec, leaflet: str) -> bool:
+    """``bending_tilt_base_term_reference_mode`` (``_<leaflet>`` first) is ``flat_reference_zero_J0``."""
+    mode = spec.option(
+        f"bending_tilt_base_term_reference_mode_{leaflet}",
+        spec.option("bending_tilt_base_term_reference_mode", "current_geometry"),
+    )
+    return str(mode).strip().lower() == "flat_reference_zero_j0"
+
+
+def update_mode_static(spec, leaflet: str) -> str:
+    """``bending_tilt_in_update_mode`` of the inner leaflet; ``off`` for the outer one."""
+    if leaflet != "in":
+        return "off"
+    mode = spec.option("bending_tilt_in_update_mode", "off").strip().lower()
+    if mode not in {"off", "outer_near_divergence_cap_v1", "radial_cross_term_off_v1"}:
+        raise ValueError(
+            "bending_tilt_in_update_mode must be 'off' or "
+            "'outer_near_divergence_cap_v1' or 'radial_cross_term_off_v1'."
         )
+    return mode
+
+
+def _row_positions(layout):
+    mesh = layout.mesh
+    return np.array([mesh.vertices[int(v)].position for v in layout.vertex_ids],
+                    dtype=float).reshape(-1, 3)
+
+
+def compile_assume_J0(layout, leaflet: str) -> dict:
+    """``{"assume_J0": row mask}`` of the leaflet's assume-J0 preset vertices, or {}.
+
+    The vertices whose ``preset`` is in ``bending_tilt_assume_J0_presets_<leaflet>``
+    (else ``bending_tilt_assume_J0_presets``), within
+    ``bending_tilt_assume_J0_presets_radius_max`` (``_<leaflet>`` first) of
+    the J0 center in xy when it is set; host positions at compile time.
+    """
+    gp = layout.mesh.global_parameters
+    raw = gp.get(f"bending_tilt_assume_J0_presets_{leaflet}")
+    if raw is None:
+        raw = gp.get("bending_tilt_assume_J0_presets")
+    if raw is None:
+        return {}
+    presets = {str(x).strip() for x in ([raw] if isinstance(raw, str) else raw)}
+    presets.discard("")
+    radius_raw = gp.get(f"bending_tilt_assume_J0_presets_radius_max_{leaflet}")
+    if radius_raw is None:
+        radius_raw = gp.get("bending_tilt_assume_J0_presets_radius_max")
+    mesh = layout.mesh
+    mask = np.array([str((mesh.vertices[int(v)].options or {}).get("preset") or "") in presets
+                     for v in layout.vertex_ids], dtype=bool)
+    if radius_raw is not None and mask.any():
+        r = np.linalg.norm(_row_positions(layout)[:, :2] - assume_J0_center_xy(gp), axis=1)
+        mask &= r <= float(radius_raw) + 1e-12
+    return {"assume_J0": mask}
+
+
+def compile_base_term_region_zero(layout, leaflet: str):
+    """The base-term region's zero row mask of the leaflet, or None.
+
+    ``physical_disk_split_v1`` zeroes the outer leaflet's base term within
+    ``bending_tilt_base_term_region_radius`` (xy, about the J0 center),
+    ``disk_only_base_term_v1`` the inner leaflet's outside it; host
+    positions at compile time.  Other values and a missing radius raise the
+    JAX package's ValueError.
+    """
+    gp = layout.mesh.global_parameters
+    mode = str(gp.get("bending_tilt_base_term_region_mode") or "off").strip().lower()
+    if mode == "off":
+        return None
+    if mode not in {"physical_disk_split_v1", "disk_only_base_term_v1"}:
+        raise ValueError(
+            "bending_tilt_base_term_region_mode must be 'off' or "
+            "'physical_disk_split_v1' or 'disk_only_base_term_v1'."
+        )
+    if mode == "physical_disk_split_v1" and leaflet != "out":
+        return None
+    if mode == "disk_only_base_term_v1" and leaflet != "in":
+        return None
+    radius_raw = gp.get("bending_tilt_base_term_region_radius")
+    if radius_raw is None:
+        raise ValueError(
+            "bending_tilt_base_term_region_radius is required when "
+            "bending_tilt_base_term_region_mode is enabled."
+        )
+    r = np.linalg.norm(_row_positions(layout)[:, :2] - assume_J0_center_xy(gp), axis=1)
+    inside = r <= float(radius_raw) + 1.0e-12
+    return inside if mode == "physical_disk_split_v1" else ~inside
+
+
+def compile_base_masks(layout, leaflet: str) -> dict:
+    """The leaflet's compiled base-term rows: ``assume_J0`` and ``region_zero`` where set."""
+    out = compile_assume_J0(layout, leaflet)
+    region = compile_base_term_region_zero(layout, leaflet)
+    if region is not None:
+        out["region_zero"] = region
+    return out
+
+
+def combined_zero_mask(topo, leaflet: str):
+    """The assume-J0 preset rows or the base-term region rows, or None."""
+    j0 = topo.extras.get(f"energy:bending_tilt_{leaflet}/assume_J0")
+    region = topo.extras.get(f"energy:bending_tilt_{leaflet}/region_zero")
+    if region is None:
+        return j0
+    if j0 is None:
+        return region
+    return j0 | region
 
 
 def recovered_mode(spec, leaflet: str) -> bool:
@@ -283,6 +449,8 @@ def make_leaflet_bending_tilt_frozen(
     reconstruction reads the compiled masks per iteration.
     """
     recovered = recovered_mode(spec, leaflet)
+    zero_base = zero_base_mode(spec, leaflet)
+    upd_mode = update_mode_static(spec, leaflet)
     idiv_on = (leaflet == "out"
                and interface_divergence_mode_static(spec, "out") == "trace_reconstructed_v1")
 
@@ -298,12 +466,15 @@ def make_leaflet_bending_tilt_frozen(
         _div, _area, g = tri_kernels.p1_triangle_divergence(
             positions.detach(), tilts.detach(), topo.tri_rows, topo.tri_valid, topo.corner_csr()
         )
+        base_f = _apply_base_overrides(base_f, zero_base, combined_zero_mask(topo, leaflet))
         out = {
             "base_c": base_f[topo.tri_rows],
             "va_eff": va_eff_f,
             "g": g,
             "keep": xf["keep"],
         }
+        if upd_mode == "outer_near_divergence_cap_v1":
+            out["cap_rim"], out["cap_near"] = cap_masks(positions.detach(), topo, params)
         if recovered:
             area = dgeo.triangle_geometry(positions.detach(), topo.tri_rows, topo.tri_valid).area
             w = torch.where(topo.tri_valid, area / 3.0, 0.0)
@@ -333,12 +504,13 @@ def make_leaflet_bending_tilt_frozen(
         div = div_sign * div
         if idiv_on:
             div = _reconstruct_trace_divergence(div, topo, *scaffold_masks(topo, "out"))
+        if upd_mode == "outer_near_divergence_cap_v1":
+            div = _apply_divergence_cap(div, fr["cap_rim"], fr["cap_near"])
         if recovered:
             wd = fr["smooth_w"] * div
             v_div = dgeo.scatter_add_rows(wd, wd, wd, topo.corner_csr()) * fr["smooth_inv_varea"]
             div = torch.mean(v_div[topo.tri_rows], dim=1)
-        term_c = fr["base_c"] + div[:, None]
-        sqs = term_c**2
+        sqs = _squares(fr["base_c"], div, upd_mode)
         return 0.5 * torch.sum(
             torch.where(fr["keep"], kappa * torch.sum(sqs * fr["va_eff"], dim=1), 0.0)
         )
@@ -349,9 +521,8 @@ def make_leaflet_bending_tilt_frozen(
 def assume_J0_center_xy(gp):
     """xy center for radial clipping: ``tilt_thetaB_center``, else ``pin_to_circle_point``, else 0.
 
-    The JAX package's helper of the same name (its inner-coupled delta cap
-    and assume-J0 radius clip read it); a copy, so the port imports nothing
-    of the JAX package.
+    The inner-coupled delta cap, the assume-J0 radius clip, the base-term
+    region and the divergence cap's bands are centered here.
     """
     raw = gp.get("tilt_thetaB_center")
     if raw is None:

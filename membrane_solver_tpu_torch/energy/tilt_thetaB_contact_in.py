@@ -1,14 +1,22 @@
 """Inner-leaflet theta_B contact work term (Kozlov scalar boundary mode).
 
-Counterpart of ``membrane_solver_tpu/energy/tilt_thetaB_contact_in.py`` in
-its default scalar work mode:
+Counterpart of ``membrane_solver_tpu/energy/tilt_thetaB_contact_in.py``.  In
+the default scalar work mode
 
     E = -2 pi R_eff gamma theta_B
 
 with R_eff the arc-length-weighted effective radius of the theta_B group
-ring.  The term carries no gradient (positions and theta_B are detached).
-The legacy penalty and field-linear work modes are not ported; their static
-options raise NotImplementedError when the problem is compiled.
+ring; the term carries no gradient (positions and theta_B are detached).
+``tilt_thetaB_contact_work_mode`` ``field_linear`` puts the ring's
+arc-length-weighted mean radial tilt in place of theta_B, which makes the
+term linear in the inner tilts.  ``tilt_thetaB_contact_penalty_mode``
+``legacy`` (or on, true, 1) adds the quadratic penalty
+
+    0.5 k sum_i w_i (t_in,i . r_hat_i - theta_B)^2
+
+with its exact tilt gradient, and :func:`update_scalar_params` moves
+theta_B to the penalty's closed-form optimum on the host, once per
+iteration of ``Minimizer.minimize``.
 """
 
 from __future__ import annotations
@@ -105,18 +113,46 @@ def ring_geometry(positions, topo, prefix: str = _PREFIX):
     return good, weights, r_hat, r_len, wsum, r_eff
 
 
-def _work(r_eff, params, like):
-    gamma = param(params, "tilt_thetaB_contact_strength_in", like=like)
-    theta_B = param(params, "tilt_thetaB_value", like=like).detach()
-    return like.new_zeros(()) - 2.0 * math.pi * r_eff * gamma * theta_B
+_PENALTY_ON = frozenset({"legacy", "on", "true", "1"})
+
+
+def _modes(spec):
+    """(legacy penalty on, field-linear work) of the spec's static options."""
+    penalty = spec.option("tilt_thetaB_contact_penalty_mode", "off").lower() in _PENALTY_ON
+    return penalty, spec.option("tilt_thetaB_contact_work_mode", "scalar").lower() == "field_linear"
+
+
+def _term(tin, ring, topo, params, penalty: bool, field_linear: bool):
+    """The work term (and the penalty) of the inner tilts on the ring's frozen geometry."""
+    good, weights, r_hat, wsum, r_eff = ring
+    gamma = param(params, "tilt_thetaB_contact_strength_in", like=tin)
+    theta_B = param(params, "tilt_thetaB_value", like=tin)
+    theta_vals = torch.sum(tin[topo.extras[f"{_PREFIX}/rows"]] * r_hat, dim=1)
+    if field_linear:
+        theta_contact = torch.sum(weights * theta_vals) / torch.clamp(wsum, min=1e-12)
+    else:
+        theta_contact = theta_B.detach()
+    E = tin.new_zeros(()) - 2.0 * math.pi * r_eff * gamma * theta_contact
+    if penalty:
+        k = param(params, "tilt_thetaB_strength_in", like=tin)
+        diff = theta_vals - theta_B
+        E = E + 0.5 * k * torch.sum(torch.where(good, weights * diff * diff, 0.0))
+    return E
+
+
+def _frozen_ring(positions, topo):
+    good, weights, r_hat, _r_len, wsum, r_eff = ring_geometry(positions.detach(), topo)
+    return good, weights, r_hat, wsum, r_eff
 
 
 def make_energy(spec):
+    penalty, field_linear = _modes(spec)
+
     def fn(geo, state, topo, params):
         if f"{_PREFIX}/rows" not in topo.extras:
             return state.positions.new_zeros(())
-        _g, _w, _r, _l, _s, r_eff = ring_geometry(state.positions.detach(), topo)
-        return _work(r_eff, params, state.positions)
+        return _term(state.tilts_in, _frozen_ring(state.positions, topo), topo, params,
+                     penalty, field_linear)
 
     return fn
 
@@ -124,18 +160,98 @@ def make_energy(spec):
 def make_tilt_frozen(spec):
     """Frozen-geometry split for the inner tilt solve (positions constant).
 
-    In the scalar work mode the whole term is constant in the tilts.
+    The ring geometry is baked once per relax call; only the tilts' radial
+    projections change per iteration (in the scalar work mode without the
+    penalty the term is constant in the tilts).
     """
+    penalty, field_linear = _modes(spec)
 
     def precompute(state, topo, params):
         if f"{_PREFIX}/rows" not in topo.extras:
             return {}
-        _g, _w, _r, _l, _s, r_eff = ring_geometry(state.positions.detach(), topo)
-        return {"r_eff": r_eff}
+        return {"ring": _frozen_ring(state.positions, topo)}
 
     def energy_fn(tin, tout, fr, topo, params, ctx=None):
         if not fr:
             return tin.new_zeros(())
-        return _work(fr["r_eff"], params, tin)
+        return _term(tin, fr["ring"], topo, params, penalty, field_linear)
 
     return precompute, energy_fn
+
+
+def _group_of(global_params):
+    mode = str(global_params.get("tilt_thetaB_contact_penalty_mode") or "off").lower()
+    if mode not in _PENALTY_ON:
+        return None
+    return global_params.get("tilt_thetaB_group_in") or global_params.get(
+        "rim_slope_match_disk_group")
+
+
+def scalar_update_live(mesh, global_params) -> bool:
+    """True when :func:`update_scalar_params` moves theta_B: the legacy penalty, a group, k > 0."""
+    if _group_of(global_params) is None:
+        return False
+    return float(global_params.get("tilt_thetaB_strength_in") or 0.0) > 0.0
+
+
+def update_scalar_params(mesh, global_params) -> None:
+    """The legacy penalty's closed-form theta_B, from the host mesh (host side, float64).
+
+    The group's vertices (by id) in angular order about ``tilt_thetaB_center``
+    and ``tilt_thetaB_normal`` (else the group's least-squares plane normal),
+    arc-length weights from that order, and
+
+        theta_B = mean_w(t_in . r_hat) + 2 pi R_eff gamma / (k sum w)
+
+    written to ``tilt_thetaB_value``; k and gamma are the global parameters.
+    """
+    group = _group_of(global_params)
+    if group is None:
+        return
+    group = str(group).strip()
+    center = np.asarray(global_params.get("tilt_thetaB_center") or [0, 0, 0], dtype=float)
+    raw_n = global_params.get("tilt_thetaB_normal")
+    vids = [vid for vid in sorted(mesh.vertices)
+            if (mesh.vertices[vid].options or {}).get("rim_slope_match_group") == group
+            or (mesh.vertices[vid].options or {}).get("tilt_thetaB_group") == group]
+    if not vids:
+        return
+    pos = np.array([mesh.vertices[v].position for v in vids], dtype=float)
+    if raw_n is not None:
+        normal = np.asarray(raw_n, dtype=float)
+        normal = normal / max(np.linalg.norm(normal), 1e-15)
+    else:
+        _u, _s, vh = np.linalg.svd(pos - pos.mean(axis=0), full_matrices=False)
+        normal = vh[-1]
+    rel = pos - center
+    rel -= np.outer(rel @ normal, normal)
+    trial = np.array([1.0, 0, 0]) if abs(normal[0]) <= 0.9 else np.array([0, 1.0, 0])
+    u = trial - (trial @ normal) * normal
+    u /= max(np.linalg.norm(u), 1e-15)
+    order = np.argsort(np.arctan2(rel @ np.cross(normal, u), rel @ u))
+    vids = [vids[i] for i in order]
+    pos = pos[order]
+    n = len(vids)
+    l_next = np.linalg.norm(pos[(np.arange(n) + 1) % n] - pos, axis=1)
+    l_prev = np.linalg.norm(pos - pos[(np.arange(n) - 1) % n], axis=1)
+    weights = 0.5 * (l_next + l_prev)
+    rel = pos - center
+    rel -= np.outer(rel @ normal, normal)
+    r_len = np.linalg.norm(rel, axis=1)
+    good = r_len > 1e-12
+    if not np.any(good):
+        return
+    weights = weights[good]
+    r_hat = rel[good] / r_len[good][:, None]
+    wsum = float(np.sum(weights))
+    if wsum <= 1e-12:
+        return
+    tilts = np.array([mesh.vertices[v].tilt_in for v in np.asarray(vids)[good]], dtype=float)
+    theta_mean = float(np.sum(weights * np.einsum("ij,ij->i", tilts, r_hat)) / wsum)
+    r_eff = float(np.sum(weights * r_len[good]) / wsum)
+    k = float(global_params.get("tilt_thetaB_strength_in") or 0.0)
+    gamma = float(global_params.get("tilt_thetaB_contact_strength_in") or 0.0)
+    if k <= 0.0:
+        return
+    global_params.set("tilt_thetaB_value", float(theta_mean + (2.0 * np.pi * r_eff * gamma)
+                                                 / (k * wsum)))

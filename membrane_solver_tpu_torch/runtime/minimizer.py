@@ -4,12 +4,13 @@ Counterpart of ``membrane_solver_tpu/runtime/minimizer.py``: mesh
 compilation with the dynamic-only parameter refresh, chunk scheduling,
 constraint enforcement after mesh operations, the stepper state across
 ``minimize`` calls, the theta_B scan (relax -> scan -> step), the
-mesh-quality auto-repair cadence, and result bookkeeping.  The device and
+mesh-quality auto-repair cadence, the energy modules' host-side scalar
+updates (the legacy theta_B contact penalty's closed-form theta_B, once per
+iteration), the topology validators with the Gauss-Bonnet checks of
+``gaussian_curvature``, the Gauss-Bonnet monitor, the DEBUG tangency check
+of ``compute_energy_and_gradient``, and result bookkeeping.  The device and
 dtype are explicit constructor arguments.  Not ported: latency-aware
-placement and the AOT cache (JAX-only), the host-side scalar-parameter
-hook of the legacy theta_B contact penalty (its mode raises when the
-problem is compiled), the Gauss-Bonnet monitor and the DEBUG tangency
-check of ``compute_energy_and_gradient``.
+placement and the AOT cache (JAX-only).
 """
 
 from __future__ import annotations
@@ -186,10 +187,16 @@ class Minimizer:
         return float(E), g.detach().cpu().numpy()
 
     def compute_energy_and_gradient(self):
-        """(energy, {vertex id: gradient row})."""
+        """(energy, {vertex id: gradient row}), with the DEBUG tangency check of fixed volumes."""
+        from membrane_solver_tpu_torch.runtime.diagnostics.audit import (
+            log_lagrange_tangency_check,
+        )
+
         E, g = self.compute_energy_and_gradient_array()
         p = self.problem()
-        return E, {int(vid): g[i] for i, vid in enumerate(p.vertex_ids)}
+        grad = {int(vid): g[i] for i, vid in enumerate(p.vertex_ids)}
+        log_lagrange_tangency_check(self, grad)
+        return E, grad
 
     def compute_energy_breakdown(self) -> Dict[str, float]:
         p = self.problem()
@@ -296,45 +303,62 @@ class Minimizer:
     # ------------------------------------------------------------------
     # the outer loop
     # ------------------------------------------------------------------
-    def _check_ported_run(self) -> None:
-        gp = self.global_params
-        if bool(gp.get("gauss_bonnet_monitor", False)):
-            raise NotImplementedError(
-                "gauss_bonnet_monitor is not ported to membrane_solver_tpu_torch"
-            )
-        if "gaussian_curvature" in self.energy_module_names:
-            for key in ("gaussian_curvature_check_defects", "gaussian_curvature_strict_topology"):
-                if bool(gp.get(key, False)):
-                    raise NotImplementedError(
-                        f"{key} (the Gauss-Bonnet topology validation) is not ported to "
-                        "membrane_solver_tpu_torch"
-                    )
-        raw_interval = gp.get("tilt_projection_interval")
-        if raw_interval is not None and int(raw_interval) < 1:
-            raise ValueError("tilt_projection_interval must be >= 1.")
-
     def _validate_topology(self) -> None:
+        """The host topology validators, once per topology and validation parameters."""
         from membrane_solver_tpu_torch.runtime.validation import (
             validate_disk_interface_topology,
+            validate_gaussian_curvature_topology,
             validate_leaflet_absence_topology,
         )
 
         gp_tok = tuple(
             (k, repr(self.global_params.get(k)))
             for k in sorted(self.global_params.to_dict())
-            if "leaflet" in k or "disk" in k or "interface" in k
+            if "leaflet" in k or "disk" in k or "interface" in k or "gaussian" in k
         )
         tok = (self.mesh, getattr(self.mesh, "_topology_version", 0), gp_tok)
         if self._validated_topology_token != tok:
             validate_leaflet_absence_topology(self.mesh, self.global_params)
             validate_disk_interface_topology(self.mesh, self.global_params)
+            if "gaussian_curvature" in self.energy_module_names:
+                validate_gaussian_curvature_topology(self.mesh, self.global_params)
             self._validated_topology_token = tok
+
+    def _scalar_hooks(self) -> list:
+        """(name, module) of the energy modules with a host-side ``update_scalar_params``."""
+        from membrane_solver_tpu_torch.energy import get_module
+
+        return [(name, m) for name, m in
+                ((n, get_module(n)) for n in dict.fromkeys(self.energy_module_names))
+                if hasattr(m, "update_scalar_params")]
+
+    def _update_scalar_params(self, hooks: list) -> CompiledProblem:
+        """Each hook's host update from the synced host mesh; the problem, its parameters refreshed.
+
+        Under ``tilt_thetaB_optimize`` the scan owns theta_B, and the contact
+        module's update is skipped.  A theta_B write is a dynamic-only key:
+        ``problem()`` refreshes the parameters and keeps the compiled problem.
+        """
+        self._sync_host()
+        skip = bool(self.global_params.get("tilt_thetaB_optimize", False))
+        for name, m in hooks:
+            if skip and name == "tilt_thetaB_contact_in":
+                continue
+            m.update_scalar_params(self.mesh, self.global_params)
+        return self.problem()
 
     def minimize(
         self, n_steps: int = 1, callback: Optional[Callable[[Mesh, int], None]] = None
     ) -> dict:
-        self._check_ported_run()
+        from membrane_solver_tpu_torch.runtime.diagnostics.audit import check_gauss_bonnet
+
+        raw_interval = self.global_params.get("tilt_projection_interval")
+        if raw_interval is not None and int(raw_interval) < 1:
+            raise ValueError("tilt_projection_interval must be >= 1.")
         self._validate_topology()
+        if bool(self.global_params.get("gauss_bonnet_monitor", False)):
+            self._sync_host()  # the monitor walks the host mesh
+            check_gauss_bonnet(self)
         p = self.problem()
         p.params = build_params(self.mesh, self.device, self.dtype)
         if n_steps <= 0:
@@ -380,6 +404,16 @@ class Minimizer:
         repair_every = int(gp.get("mesh_quality_auto_repair_every", 0) or 0)
         repair_enabled = bool(gp.get("mesh_quality_auto_repair_enabled", False))
         fixed_step = float(gp.get("step_size", self.step_size) or self.step_size)
+        # the legacy contact penalty's closed-form theta_B reads the host
+        # tilts at the start of every iteration (update -> relax -> scan ->
+        # step), so it makes the loop step one iteration at a time
+        scalar_hooks = self._scalar_hooks()
+        thetaB_opt = bool(gp.get("tilt_thetaB_optimize", False))
+        scalar_hooks_live = any(
+            not (thetaB_opt and name == "tilt_thetaB_contact_in")
+            and getattr(m, "scalar_update_live", lambda *_a: True)(self.mesh, gp)
+            for name, m in scalar_hooks
+        )
 
         zero_step_counter = 0
         iterations_done = 0
@@ -398,6 +432,9 @@ class Minimizer:
             chunk = min(n_steps - iterations_done, until_repair)
             if not self.quiet:
                 chunk = 1  # per-step reporting
+            if scalar_hooks_live:
+                chunk = 1
+                p = self._update_scalar_params(scalar_hooks)
             tilt_mode = str(gp.get("tilt_solve_mode", "fixed") or "fixed")
             if tilt_mode == "nested":
                 inner = int(gp.get("tilt_inner_steps", 0) or 0)

@@ -344,7 +344,9 @@ def build_fused_tilt_energy(spec, e_names, e_fns, e_frozen, topo, params, dtype)
     per module, as in the JAX package), the curved-theta ablation scales
     none of the modules (the kernel's k_vec carries no module scale) and the
     divergence is the per-triangle one: the kernel steps aside, as the JAX
-    package's does, under the outer leaflet's ``trace_reconstructed_v1``
+    package's does, under a ``bending_tilt_in_update_mode`` other than off,
+    under a tilt mass other than lumped (``diagonal`` too, though its energy
+    is the lumped one), under the outer leaflet's ``trace_reconstructed_v1``
     interface divergence and under the recovered inner divergence (a
     non-empty ``theory_parity_lane``: ``smooth_w`` in the frozen fields),
     both of which mix triangles, and the relax runs the plain frozen
@@ -366,6 +368,7 @@ def build_fused_tilt_energy(spec, e_names, e_fns, e_frozen, topo, params, dtype)
     """
     from membrane_solver_tpu_torch.energy.bending_tilt_leaflet import (
         interface_divergence_mode_static,
+        update_mode_static,
     )
     from membrane_solver_tpu_torch.energy.tilt_leaflet import mass_mode
     from membrane_solver_tpu_torch.energy.tilt_smoothness_leaflet import leaflet_rigidity
@@ -375,6 +378,8 @@ def build_fused_tilt_energy(spec, e_names, e_fns, e_frozen, topo, params, dtype)
     if dtype != torch.float32 or not set(FUSED_NAMES) <= set(e_names):
         return None
     if any(module_scale_fn(spec, name) is not None for name in e_names):
+        return None
+    if update_mode_static(spec, "in") != "off":
         return None
     if interface_divergence_mode_static(spec, "out") != "p1_triangle":
         return None

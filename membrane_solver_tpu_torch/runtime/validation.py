@@ -1,8 +1,7 @@
 """Topology validators run at minimize() start.
 
 Copy of ``membrane_solver_tpu/runtime/validation.py`` (only the import
-paths differ), without ``validate_gaussian_curvature_topology``, which
-belongs to the ``gaussian_curvature`` module the port does not run.
+paths and the logger's name differ).
 
 Parity: reference ``runtime/interface_validation.py`` (disk-boundary rings
 must straddle disk<->membrane triangles — opt-in via
@@ -152,3 +151,101 @@ def validate_leaflet_absence_topology(mesh, global_params) -> None:
         "presets but mesh contains triangles that straddle absent/present "
         f"vertices. bad_triangles={int(bad.sum())} examples={examples}"
     )
+
+
+def validate_gaussian_curvature_topology(mesh, global_params) -> None:
+    """Gauss-Bonnet topology validation for the gaussian_curvature module.
+
+    ``gaussian_curvature_check_defects`` warns when the closed-surface
+    angle-defect sum drifts from 2*pi*chi beyond 1e-6;
+    ``gaussian_curvature_strict_topology`` raises on non-manifold edges,
+    boundary vertices of degree != 2, short/missing boundary loops, or
+    (closed surfaces) defect mismatch beyond
+    ``gaussian_curvature_defect_tol``.
+    """
+    check = bool(global_params.get("gaussian_curvature_check_defects", False))
+    strict = bool(global_params.get("gaussian_curvature_strict_topology", False))
+    if not (check or strict):
+        return
+    import logging
+    import math
+
+    from membrane_solver_tpu_torch.runtime.diagnostics.gauss_bonnet import (
+        extract_boundary_loops,
+        find_boundary_edges,
+    )
+
+    mesh.build_connectivity_maps()
+    boundary_edges = find_boundary_edges(mesh)
+    chi = len(mesh.vertices) - len(mesh.edges) + len(mesh.facets)
+
+    def defect_err() -> tuple:
+        positions = mesh.positions_array()
+        row_of = {vid: i for i, vid in enumerate(sorted(mesh.vertices))}
+        angle_sum = np.zeros(len(row_of))
+        for facet in mesh.facets.values():
+            loop = mesh.facet_vertex_loop(facet)
+            pts = np.array([mesh.vertices[v].position for v in loop])
+            for c in range(3):
+                a = pts[(c + 1) % 3] - pts[c]
+                b = pts[(c + 2) % 3] - pts[c]
+                den = max(np.linalg.norm(a) * np.linalg.norm(b), 1e-300)
+                cosang = np.clip(np.dot(a, b) / den, -1.0, 1.0)
+                angle_sum[row_of[loop[c]]] += math.acos(cosang)
+        defect_sum = float(np.sum(2.0 * np.pi - angle_sum))
+        target = float(2.0 * np.pi * chi)
+        return defect_sum, target, abs(defect_sum - target)
+
+    if check and not boundary_edges:
+        defect_sum, target, err = defect_err()
+        if err > 1e-6:
+            logging.getLogger("membrane_solver_tpu_torch").warning(
+                "Gaussian curvature defect sum mismatch: sum(defect)=%.6e, "
+                "2pi*chi=%.6e (|delta|=%.3e). Check for non-manifold topology.",
+                defect_sum,
+                target,
+                err,
+            )
+
+    if not strict:
+        return
+    non_manifold = [
+        eid for eid, facets in mesh.edge_to_facets.items() if len(facets) > 2
+    ]
+    if non_manifold:
+        raise ValueError(
+            "gaussian_curvature strict check: non-manifold edges detected "
+            f"(count={len(non_manifold)})."
+        )
+    if boundary_edges:
+        deg: dict = {}
+        for eid in boundary_edges:
+            e = mesh.edges[eid]
+            deg[e.tail_index] = deg.get(e.tail_index, 0) + 1
+            deg[e.head_index] = deg.get(e.head_index, 0) + 1
+        bad = {vid: cnt for vid, cnt in deg.items() if cnt != 2}
+        if bad:
+            raise ValueError(
+                "gaussian_curvature strict check: boundary vertex degree != 2 "
+                f"(count={len(bad)})."
+            )
+        loops = extract_boundary_loops(mesh, boundary_edges)
+        if not loops:
+            raise ValueError(
+                "gaussian_curvature strict check: boundary edges present "
+                "but no loops found."
+            )
+        short = [loop for loop in loops if len(loop) < 3]
+        if short:
+            raise ValueError(
+                "gaussian_curvature strict check: boundary loop too short "
+                f"(count={len(short)})."
+            )
+        return
+    tol = float(global_params.get("gaussian_curvature_defect_tol", 1e-6))
+    defect_sum, target, err = defect_err()
+    if err > tol:
+        raise ValueError(
+            "gaussian_curvature strict check: defect sum mismatch "
+            f"(sum(defect)={defect_sum:.6e}, 2pi*chi={target:.6e}, |delta|={err:.3e})."
+        )

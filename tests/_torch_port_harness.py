@@ -376,3 +376,29 @@ def seeded_pair(problem, seed: int, amp: float = 0.05, dtype=torch.float64):
     tilts[:nv] += amp * np.random.default_rng(seed + 1).standard_normal((nv, 3))
     return (dataclasses.replace(jst, tilts=jnp.asarray(tilts)),
             dataclasses.replace(tst, tilts=torch.as_tensor(tilts[:nv], dtype=dtype)))
+
+
+def seed_host(mn, seed: int, z: float = 0.03, tilt: float = 0.1) -> None:
+    """Seeded heights on the free vertices and leaflet tilts where free, on either minimizer's host mesh.
+
+    In vertex-id order (``numpy.random.default_rng(seed)``); the minimizer
+    then compiles the problem anew from the host mesh.
+    """
+    rng = np.random.default_rng(seed)
+    for vid in sorted(mn.mesh.vertices):
+        v = mn.mesh.vertices[vid]
+        dz, tilts = z * rng.standard_normal(), tilt * rng.standard_normal((2, 3))
+        if not v.fixed:
+            v.position[2] += dz
+        if not (v.tilt_fixed_in or v.tilt_fixed_out):
+            v.tilt_in, v.tilt_out = tilts[0], tilts[1]
+    mn.invalidate()
+
+
+def assert_energy_and_gradient_match(jm, tm, rel: float, what: str = "") -> None:
+    """Both minimizers' energy and projected shape gradient (``compute_energy_and_gradient_array``)."""
+    e_j, g_j = jm.compute_energy_and_gradient_array()
+    e_t, g_t = tm.compute_energy_and_gradient_array()
+    assert abs(e_t - e_j) <= rel * abs(e_j), f"{what}: energy {e_t!r} vs {e_j!r}"
+    assert float(np.max(np.abs(g_j))) > 0.0, what
+    assert_close(g_t, g_j, rel, f"{what}: projected gradient")

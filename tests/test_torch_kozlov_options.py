@@ -15,8 +15,9 @@ option of the port's static-option set on the same inputs:
 - the card lane's protocol (``kozlov_L3_reduced``) at L0, in
   ``tests/test_torch_kozlov_reduced_lane.py``.
 
-Also: the JAX package's ValueError texts for bad values and
-NotImplementedError for the values the port does not run yet.
+Also: the JAX package's ValueError texts for bad values, and the energy and
+projected gradient of the per-module modes that raised until they were
+ported.
 ``decrease_only`` against ``armijo`` and the CG's GD retry are in
 ``tests/test_torch_kozlov_reduced.py``.
 """
@@ -32,10 +33,12 @@ from _torch_port_harness import (
     BANDS,
     OPTION_GP,
     assert_close,
+    assert_energy_and_gradient_match,
     make_minimizer,
     option_minimizers,
     perturbed_pair,
     port_from_jax,
+    seed_host,
 )
 
 from membrane_solver_tpu.device.state import build_params as jbuild_params
@@ -129,18 +132,22 @@ def test_bad_values_raise_the_jax_value_error(key, value, where, match):
             _raise_at(mn, where, port)
 
 
-# values the JAX package runs and the port does not yet
+# values that raised NotImplementedError until they were ported (the first
+# key names the case)
 NOT_PORTED = [
     {"tilt_thetaB_contact_penalty_mode": "legacy"},
     {"tilt_mass_mode": "diagonal"},  # the JAX package runs it as lumped
     {"pin_to_plane_mode": "fit"},
-    {"bending_tilt_in_update_mode": "outer_near_divergence_cap_v1"},
-    {"bending_tilt_base_term_region_mode": "physical_disk_split_v1"},
+    {"bending_tilt_in_update_mode": "outer_near_divergence_cap_v1", **BANDS},
+    {"bending_tilt_base_term_region_mode": "physical_disk_split_v1",
+     "bending_tilt_base_term_region_radius": 1.0},
 ]
 
 
 @pytest.mark.parametrize("gp", NOT_PORTED, ids=[next(iter(g)) for g in NOT_PORTED])
 def test_unported_values_raise_not_implemented(gp):
-    mn = make_minimizer(True, gp={**OPTION_GP, **gp}, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        mn.problem()
+    """The value now runs: energy and projected gradient on a seeded state as the JAX package's."""
+    jm, tm = option_minimizers(gp)
+    for mn in (jm, tm):
+        seed_host(mn, 8)
+    assert_energy_and_gradient_match(jm, tm, 1e-12, next(iter(gp)))

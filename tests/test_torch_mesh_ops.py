@@ -156,3 +156,29 @@ def test_triangle_aspect_percentile_matches(pair, percentile):
         tpkg.Minimizer(tm, quiet=True, device="cpu", dtype=torch.float64), percentile)
     assert np.isfinite(want) and want > 1.0
     assert got == pytest.approx(want, rel=1e-15)
+
+
+def test_u_from_the_jax_float32_state_makes_its_connectivity():
+    """ROADMAP C4: the port's float32 ``u`` from the JAX package's float32 state before the
+    cube recipe's last ``u`` (12,290 vertices) makes the JAX package's connectivity.
+
+    The state is the JAX package's own float32 run's
+    (``tests/fixtures/torch_port/cube_cli_f32_pre_u_jax.json.gz``); its first-pass
+    Delaunay margins are no near-tie: the smallest is 1.5e-2 rad, about 4e4 times
+    float32's unit round-off of the angle sum.
+    """
+    import gzip
+    import json
+    from pathlib import Path
+
+    import torch
+
+    from chip_smoke import c4_u_from_jax_state
+
+    path = Path(__file__).parent / "fixtures" / "torch_port" / "cube_cli_f32_pre_u_jax.json.gz"
+    fixture = json.loads(gzip.decompress(path.read_bytes()))
+    got = c4_u_from_jax_state(torch, fixture, torch.float32, cpu=True)
+    assert (got["n_vertices"], got["n_facets"]) == (12290, 24576)
+    assert got["digest"] == fixture["digest_after_u"] == fixture["digest_after_u_reloaded"]
+    assert got["smallest_abs_margin"] == pytest.approx(fixture["smallest_abs_margin"], rel=1e-12)
+    assert got["smallest_margin_over_f32_roundoff"] > 1e4

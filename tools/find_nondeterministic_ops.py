@@ -10,9 +10,10 @@ fixed order.  The lanes: kozlov (meshgen ``kozlov_1disk``, small, one
 refinement), the same with ``tilt_smoothness_{in,out}`` (the smooth lane of
 ``chip_smoke.py`` phases 18-19), the leaflet tilt-field drives of phase 20
 (each module's energy and gradients on the small kozlov mesh), the free-disk
-and local-interface lanes of phases 21-24, the match drives of phase 25 and
-the physical-edge and scaffold-trace lanes of phases 26-29 (on the small
-kozlov mesh, their fixtures' protocols), the Helfrich
+and local-interface lanes of phases 21-24, the match drives of phase 25,
+the physical-edge and scaffold-trace lanes of phases 26-29 and the J0-fit
+lane of phases 30-31 (on the small kozlov mesh, their fixtures'
+protocols), the mode drives of phase 32, the Helfrich
 vesicle (meshgen cube, surface + bending, hard volume, two refinements), the
 cube recipe's stepper segment through the command layer (``bfgs; g5; cg;
 g5``) and ``square_to_circle`` at n = 8 through the command layer, each at
@@ -151,9 +152,21 @@ def lanes(torch, dtype):
         match_drives_setup(mesh, protocol)
         port_match_record(torch, mesh, protocol, dtype, "cuda")
 
+    def mode_drives():
+        """The per-module modes (chip_smoke.py phase 32)."""
+        from chip_smoke import mode_drives_setup, port_mode_record
+        from tools.record_torch_port_fixture import kozlov_mode_drives_protocol
+
+        protocol = kozlov_mode_drives_protocol()
+        mesh = parse_geometry(build("kozlov_1disk", n_sectors=8, n_outer_rings=4, n_disk_rings=2))
+        mesh.global_parameters.update(protocol["kozlov"]["global_parameters"])
+        snapshot = mode_drives_setup(mesh, protocol)
+        port_mode_record(torch, mesh, protocol, snapshot, dtype, "cuda")
+
     from tools.record_torch_port_fixture import (
         kozlov_free_disk_protocol,
         kozlov_interface_protocol,
+        kozlov_J0_fit_protocol,
         kozlov_physical_edge_protocol,
         kozlov_scaffold_protocol,
     )
@@ -164,6 +177,8 @@ def lanes(torch, dtype):
             ("match drives", match_drives),
             ("physical edge", protocol_lane(kozlov_physical_edge_protocol())),
             ("scaffold", protocol_lane(kozlov_scaffold_protocol())),
+            ("J0 fit", protocol_lane(kozlov_J0_fit_protocol())),
+            ("mode drives", mode_drives),
             ("cube steppers", command_lane("cube", ["g5", "r", "bfgs", "g5", "cg", "g5"])),
             ("square_to_circle", command_lane("square_to_circle",
                                               ["g40", "r", "g40", "u", "V4", "g60"], n=8))]

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Record the JAX package's reference trajectories for the PyTorch port.
 
-Runs twelve protocols with ``membrane_solver_tpu`` on the CPU in float64 and
-writes one JSON file each to ``tests/fixtures/torch_port/``:
+Runs the protocols below with ``membrane_solver_tpu`` on the CPU in float64
+and writes one JSON file each to ``tests/fixtures/torch_port/``:
 
 ``kozlov_L3_f64_jax.json`` (the kozlov coupled-tilt lane):
 
@@ -125,6 +125,31 @@ gradients in the positions and all three tilt fields; per constraint and
 mode, its dense tilt rows and the change its tilt enforcement makes; the
 rigid disk's double fit; its ``float32_reference`` holds the float32
 deviations per item (``chip_smoke.match_deviations``).
+
+``kozlov_L3_J0_fit_f64_jax.json`` (``lane_run``): the kozlov protocol with
+the last per-module modes (``J0_FIT_GP``: the inner assume-J0 disk rows,
+the outer physical-disk base-term region, the legacy theta_B contact
+penalty; ``J0_FIT_DEFINITIONS``: the rim ring's ``pin_to_circle`` fit and
+the disk's ``pin_to_plane`` slide, set on the presets' definitions by
+``chip_smoke.lane_edits``); per step also theta_B after the closed-form
+update, the fitted rim circle and the slide plane offset (``fits``), in
+``float32_reference`` too.  ``J0_fit_noise.json`` (``j0_fit_noise``): that
+lane, and the same with a spontaneous curvature of 1, at L0 and L3, two
+steps, clean and under 1e-15 of z noise.
+
+``kozlov_L3_mode_drives_f64_jax.json`` (``mode_drives_run``): four problems
+(``MODE_PROBLEMS``) compiled from the kozlov L3 mesh with seeded heights and
+tilts (``chip_smoke.mode_drives_setup``): per problem the listed energies'
+values and gradients (sampled rows and norms, ``chip_smoke.sketch``), the
+divergence cap's capped triangles, the pin constraints' enforcement and
+local normals; the closed-form theta_B and the Gauss-Bonnet invariant of
+the seeded state; its ``float32_reference`` holds the float32 deviations
+per item (``chip_smoke.mode_deviations``).
+
+``cube_cli_f32_pre_u_jax.json.gz`` (``c4_pre_u_state``, gzipped): the JAX
+package's float32 host mesh just before the cube recipe's last ``u``
+(command index 24, 12,290 vertices), with the connectivity digests after
+that ``u`` and the state's smallest first-pass Delaunay margin (ROADMAP C4).
 
 ``chip_smoke.py`` holds the port's float64 runs on the GPU against these
 files, so the GPU machine needs no JAX.
@@ -412,7 +437,9 @@ def lane_run(protocol: dict) -> dict:
     (``multipliers_finite``), their largest size, the energy breakdown after
     the step, the accepted CG steps of each leaflet relax the step ran
     (``relax_accepted_steps``) and whether it took the ``trace_z`` fallback
-    (``trace_z``); on the physical-edge lanes the compiled shells.
+    (``trace_z``); on the physical-edge lanes the compiled shells; with
+    ``record_fits``, per step theta_B, the fitted rim circle and the slide
+    plane offsets (``fits``, :func:`jax_fit_record`).
     """
     import jax
 
@@ -422,7 +449,7 @@ def lane_run(protocol: dict) -> dict:
     energy0 = float(mn.compute_energy())
     breakdown0 = {k: float(v) for k, v in mn.compute_energy_breakdown().items()}
     energies, accepted, step_sizes, finite, lam_max, breakdowns = [], [], [], [], [], []
-    relax_counts, trace_z = [], []
+    relax_counts, trace_z, fits = [], [], []
     for _ in range(protocol["steps"]):
         first = len(solves)
         n_relax, n_ls = len(steps["relax"]), len(steps["line_searches"])
@@ -436,6 +463,8 @@ def lane_run(protocol: dict) -> dict:
         breakdowns.append({k: float(v) for k, v in mn.compute_energy_breakdown().items()})
         relax_counts.append(steps["relax"][n_relax:])
         trace_z.append(len(steps["line_searches"]) - n_ls > 1)
+        if protocol.get("record_fits"):
+            fits.append(jax_fit_record(mn))
     out = {
         "n_vertices": len(mn.mesh.vertices),
         "n_triangles": len(mn.mesh.facets),
@@ -455,6 +484,8 @@ def lane_run(protocol: dict) -> dict:
     shells = shell_record(mn)
     if shells is not None:
         out["shells"] = shells
+    if fits:
+        out["fits"] = fits
     return out
 
 
@@ -472,6 +503,8 @@ def run_lane_fixture(name: str, protocol: dict) -> dict:
         "relax_accepted_steps": f32["relax_accepted_steps"], "trace_z": f32["trace_z"],
         "energy_after": f32["energy_after"], "breakdown_after": f32["breakdown_after"],
         "max_rel_dev_vs_float64": max(devs)}
+    if "fits" in f32:
+        rec["float32_reference"]["fits"] = f32["fits"]
     return rec
 
 
@@ -531,6 +564,51 @@ def kozlov_scaffold_protocol() -> dict:
             "scaffold_tags": {"trace_radius": TRACE_RADIUS, "support_shells": 3}}
 
 
+# the kozlov lane with the last per-module modes: the inner leaflet's
+# assume-J0 preset rows (the disk) and the outer leaflet's physical-disk
+# base-term region (r <= the builder's disk radius) take a zero Helfrich
+# base term, the legacy theta_B contact penalty moves theta_B to its closed
+# form at the start of every iteration, the rim ring's pin_to_circle fits
+# its circle's center (its normal and radius given) and the disk's
+# pin_to_plane slides along its normal through the disk's centroid
+J0_FIT_GP = {
+    "bending_tilt_assume_J0_presets_in": ["disk"],
+    "bending_tilt_base_term_region_mode": "physical_disk_split_v1",
+    "bending_tilt_base_term_region_radius": 1.0,  # kozlov_1disk's disk_radius
+    "tilt_thetaB_contact_penalty_mode": "legacy",
+}
+J0_FIT_DEFINITIONS = {"rim": {"pin_to_circle_mode": "fit"}, "disk": {"pin_to_plane_mode": "slide"}}
+# a spontaneous curvature of 1 in both leaflets (tests/test_gp_option_parity.py's,
+# which makes the kept base term order one) is not in the lane: from the flat
+# start the JAX package's own energies then move by 5-14% under 1e-15 of
+# height noise (j0_fit_noise), against 1e-4 without it
+J0_FIT_C0 = {"spontaneous_curvature_in": 1.0, "spontaneous_curvature_out": 1.0}
+
+
+def kozlov_J0_fit_protocol() -> dict:
+    return {**kozlov_protocol(), "global_parameters": {**BENCH_GP, **J0_FIT_GP},
+            "definition_options": J0_FIT_DEFINITIONS, "record_fits": True}
+
+
+def jax_fit_record(mn) -> dict:
+    """theta_B, the fitted rim circle (center, radius) and the slide plane offsets, JAX package."""
+    import numpy as np
+
+    from membrane_solver_tpu.constraints import pin_to_circle, pin_to_plane
+
+    p = mn.problem()
+    ex = p.topo.extras
+    out = {"thetaB": float(mn.global_params.get("tilt_thetaB_value"))}
+    if np.any(np.asarray(ex["constraint:pin_to_circle/m_valid"])):
+        _n, center, radius = pin_to_circle._group_circles(p.state.positions, p.topo)
+        out["circle_center"] = np.asarray(center, dtype=float).tolist()
+        out["circle_radius"] = np.asarray(radius, dtype=float).tolist()
+    if np.any(np.asarray(ex["constraint:pin_to_plane/mode"]) != pin_to_plane.MODE_FIXED):
+        normals, points = pin_to_plane._group_planes(p.state.positions, p.topo)
+        out["plane_offset"] = np.sum(np.asarray(normals * points, dtype=float), axis=1).tolist()
+    return out
+
+
 # the step-by-step kozlov lanes with their accept flags
 LANE_PROTOCOLS = {
     "kozlov_L3_reduced_f64_jax.json": kozlov_reduced_protocol,
@@ -539,6 +617,7 @@ LANE_PROTOCOLS = {
     "kozlov_L3_interface_f64_jax.json": kozlov_interface_protocol,
     "kozlov_L3_physical_edge_f64_jax.json": kozlov_physical_edge_protocol,
     "kozlov_L3_scaffold_f64_jax.json": kozlov_scaffold_protocol,
+    "kozlov_L3_J0_fit_f64_jax.json": kozlov_J0_fit_protocol,
 }
 
 
@@ -806,6 +885,183 @@ def run_kozlov_match_drives() -> dict:
     return rec
 
 
+# the per-module modes on the kozlov L3 mesh, one evaluation each, on seeded
+# heights and leaflet tilts: four problems compiled from one host mesh, each
+# with a set of modes that act on different modules.  The divergence cap's
+# bands (rim |r - 1| <= 0.25, near band (1.25, 2]) bind on the seeded tilts.
+# Per problem the listed energies, the pin constraints' enforcement and
+# normals; the float32 relax of each problem runs the frozen-tilt kernel only
+# where ``kernel_in_relax`` (JAX's gate); then the legacy penalty's
+# closed-form theta_B and the Gauss-Bonnet invariant of the seeded state
+MODE_GP = {"benchmark_disk_radius": 1.0, "benchmark_lambda_value": 0.25}
+_FREE_CIRCLE = {"pin_to_circle_radius": None}
+MODE_PROBLEMS = {
+    "cap": {
+        "global_parameters": {
+            "bending_tilt_in_update_mode": "outer_near_divergence_cap_v1",
+            "bending_tilt_base_term_reference_mode_out": "flat_reference_zero_J0",
+            "tilt_thetaB_contact_work_mode": "field_linear",
+            "pin_to_plane_mode": "slide",
+        },
+        "definition_options": {
+            "rim": {"pin_to_circle_mode": "slide", **_FREE_CIRCLE},
+            "outer_rim": {"pin_to_circle_mode": "slide", **_FREE_CIRCLE},
+        },
+        "energies": ["bending_tilt_in", "bending_tilt_out", "tilt_thetaB_contact_in"],
+        "kernel_in_relax": False,
+    },
+    "radial": {
+        "global_parameters": {
+            "bending_tilt_in_update_mode": "radial_cross_term_off_v1",
+            "bending_tilt_base_term_region_mode": "physical_disk_split_v1",
+            "bending_tilt_base_term_region_radius": 1.0,
+            "tilt_thetaB_contact_penalty_mode": "legacy",
+            "pin_to_plane_mode": "fit",
+        },
+        "definition_options": {
+            "rim": {"pin_to_circle_mode": "fit", "pin_to_circle_normal": None, **_FREE_CIRCLE},
+            "outer_rim": {"pin_to_circle_mode": "fit", **_FREE_CIRCLE},
+        },
+        "energies": ["bending_tilt_in", "bending_tilt_out", "tilt_thetaB_contact_in"],
+        "kernel_in_relax": False,
+    },
+    "diagonal": {
+        "global_parameters": {
+            "bending_tilt_base_term_reference_mode_in": "flat_reference_zero_J0",
+            "bending_tilt_assume_J0_presets_out": ["disk", "rim"],
+            "bending_tilt_assume_J0_presets_radius_max_out": 0.75,
+            "tilt_mass_mode": "diagonal",
+        },
+        "energies": ["bending_tilt_in", "bending_tilt_out", "tilt_in", "tilt_out"],
+        "kernel_in_relax": False,
+    },
+    "disk_only": {
+        "global_parameters": {
+            "bending_tilt_base_term_region_mode": "disk_only_base_term_v1",
+            "bending_tilt_base_term_region_radius": 1.0,
+        },
+        "energies": ["bending_tilt_in", "bending_tilt_out"],
+        "kernel_in_relax": True,
+    },
+}
+
+
+def kozlov_mode_drives_protocol(refines: int = KOZLOV_REFINES) -> dict:
+    return {
+        "kozlov": {**kozlov_protocol(), "steps": 0, "refines": refines},
+        "global_parameters": MODE_GP,
+        "problems": MODE_PROBLEMS,
+        "thetaB_problem": "radial",
+        "seed": 17,
+        "z_scale": 0.02,
+        "tilt_scale": 0.1,
+        "sample_seed": 3,
+        "sample_rows": 512,
+        "relax_iters": 3,
+        "dtype": "float64",
+        "package": "membrane_solver_tpu",
+        "platform": "cpu",
+    }
+
+
+def mode_drives_run(refines: int = KOZLOV_REFINES) -> dict:
+    """The mode drives at the precision this process runs (``chip_smoke.port_mode_record``'s format).
+
+    Per problem: each listed energy module's value and its gradients in the
+    positions and both leaflet tilts (sketched: sampled rows, L2 norm, max
+    |entry|), the divergence cap's capped triangles, the pin constraints'
+    position changes under ``enforce`` and their local normals; then the
+    closed-form theta_B and the Gauss-Bonnet invariant of the seeded host
+    state.
+    """
+    import dataclasses
+
+    import jax
+    import numpy as np
+
+    protocol = kozlov_mode_drives_protocol(refines)
+    pkg, _build, _refinement = _jax()
+    from chip_smoke import (
+        MODE_FIELDS,
+        encode_rows,
+        mode_drives_setup,
+        mode_problem_setup,
+        sample_rows,
+        sketch,
+    )
+    from membrane_solver_tpu.constraints import get_constraint
+    from membrane_solver_tpu.core.parameters import ParameterResolver
+    from membrane_solver_tpu.device import geo as dgeo
+    from membrane_solver_tpu.device.tilt_ops import p1_triangle_divergence
+    from membrane_solver_tpu.energy import bending_tilt_leaflet as bt
+    from membrane_solver_tpu.energy import get_module, tilt_thetaB_contact_in
+    from membrane_solver_tpu.runtime.diagnostics.gauss_bonnet import gauss_bonnet_invariant
+
+    mesh = kozlov_minimizer(refines=refines).mesh
+    snapshot = mode_drives_setup(mesh, protocol)
+    rec = {"problems": {}}
+    for name, prob in protocol["problems"].items():
+        mode_problem_setup(mesh, protocol, snapshot, name)
+        p = pkg.Minimizer(mesh, quiet=True).problem()
+        nv = p.n_vertices
+        rows = sample_rows(protocol, nv)
+        live = lambda a: np.asarray(a, dtype=np.float64)[:nv]  # noqa: E731
+        if "inputs" not in rec:
+            rec.update(n_vertices=nv, n_triangles=p.n_tris,
+                       inputs={f: sketch(live(getattr(p.state, f)), rows) for f in MODE_FIELDS})
+        out = {"energies": {}, "enforce": {}, "normals": {}}
+        for mod_name in prob["energies"]:
+            module = get_module(mod_name)
+            maker = getattr(module, "make_energy", None)
+            fn = maker(p.spec) if maker is not None else module.energy
+
+            def f(*fields, fn=fn):
+                st = dataclasses.replace(p.state, **dict(zip(MODE_FIELDS, fields)))
+                geo = dgeo.triangle_geometry(st.positions, p.topo.tri_rows, p.topo.tri_valid)
+                return fn(geo, st, p.topo, p.params)
+
+            e, grads = jax.value_and_grad(f, argnums=(0, 1, 2))(
+                *(getattr(p.state, k) for k in MODE_FIELDS))
+            out["energies"][mod_name] = {"energy": float(e), **{
+                k: sketch(live(g), rows) for k, g in zip(MODE_FIELDS, grads)}}
+        if prob["global_parameters"].get("bending_tilt_in_update_mode") == (
+                "outer_near_divergence_cap_v1"):
+            pos = p.state.positions
+            div, _a, _g = p1_triangle_divergence(pos, p.state.tilts_in, p.topo.tri_rows,
+                                                 p.topo.tri_valid)
+            center = p.topo.extras["energy:bending_tilt_in/update_center"].astype(pos.dtype)
+            capped = bt._apply_divergence_cap(-div, *bt._tri_cap_masks(pos, p.topo, p.params,
+                                                                       center))
+            out["capped"] = int(np.sum(np.asarray(capped != -div) & np.asarray(p.topo.tri_valid)))
+        for con in ("pin_to_plane", "pin_to_circle"):
+            mod = get_constraint(con)
+            moved = mod.enforce(p.state, p.topo, p.params, context="minimize")
+            out["enforce"][con] = encode_rows(live(moved.positions) - live(p.state.positions))
+            normals = live(mod.local_constraint_normals(p.state, p.topo, p.params))
+            out["normals"][con] = [encode_rows(normals[:, k]) for k in range(normals.shape[1])]
+        rec["problems"][name] = out
+    gp = mesh.global_parameters
+    mode_problem_setup(mesh, protocol, snapshot, protocol["thetaB_problem"])
+    tilt_thetaB_contact_in.update_scalar_params(mesh, gp, ParameterResolver(gp))
+    rec["thetaB_update"] = float(gp.get("tilt_thetaB_value"))
+    g, k_int, b_total, _per_loop = gauss_bonnet_invariant(mesh)
+    rec["gauss_bonnet"] = {"G": g, "K_int": k_int, "B": b_total}
+    return rec
+
+
+def run_kozlov_mode_drives() -> dict:
+    child = start_float32_child("kozlov_L3_mode_drives_f64_jax.json")  # runs beside float64
+    rec = {"protocol": kozlov_mode_drives_protocol(), **mode_drives_run()}
+    f32 = float32_result(child)
+    from chip_smoke import mode_deviations
+
+    devs = mode_deviations(rec, f32)
+    devs.pop("inputs")
+    rec["float32_reference"] = {"package": "membrane_solver_tpu", "platform": "cpu",
+                                "dtype": "float32", "max_rel_dev_vs_float64": devs}
+    return rec
+
+
 def vesicle_protocol(refines: int = VESICLE_REFINES) -> dict:
     return {
         "mesh": "meshgen cube",
@@ -961,6 +1217,68 @@ def cli_trace(protocol: dict, digests: bool = False) -> list:
     return trace
 
 
+# ROADMAP C4: the cube recipe's float32 state just before its last ``u``
+# (command index 24, 12,290 vertices), as the JAX package's float32 run
+# leaves it; written gzipped (``C4_FIXTURE``)
+C4_COMMAND = 24
+C4_FIXTURE = "cube_cli_f32_pre_u_jax.json.gz"
+
+
+def c4_pre_u_state() -> dict:
+    """The JAX package's cube recipe, at the precision this process runs, up to the last ``u``.
+
+    Returns the host mesh before that ``u`` (``mesh``, the JAX package's
+    ``mesh_to_dict``), the connectivity digest after the ``u`` in the run
+    itself and after a ``u`` from the mesh reloaded from that dict (the
+    state the port starts from), the first-pass Delaunay margins' smallest
+    size (``chip_smoke.flip_margins``) and the command context's arguments.
+    """
+    import tempfile
+
+    import numpy as np
+
+    pkg, _build, _refinement = _jax()
+    from chip_smoke import connectivity_digest, flip_margins
+    from membrane_solver_tpu.commands import CommandContext, execute_command_line
+    from membrane_solver_tpu.geometry.io_writers import mesh_to_dict
+    from membrane_solver_tpu.runtime.steppers import make_stepper
+
+    protocol = cube_cli_protocol()
+
+    def context(mesh):
+        gp = mesh.global_parameters
+        mn = pkg.Minimizer(mesh, stepper=make_stepper("gd"),
+                           step_size=float(gp.get("step_size", 1e-3)), tol=1e-6, quiet=True)
+        return CommandContext(mesh=mesh, minimizer=mn, stepper=mn.stepper)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = pkg.parse_geometry(pkg.load_data(mesh_path(protocol, Path(tmp))))
+    ctx = context(mesh)
+    for cmd in protocol["commands"][:C4_COMMAND]:
+        execute_command_line(ctx, cmd)
+        ctx.sync_mesh()
+    data = json.loads(json.dumps(mesh_to_dict(ctx.mesh)))
+    margins = np.array(list(flip_margins(ctx.mesh).values()))
+    execute_command_line(ctx, protocol["commands"][C4_COMMAND])
+    ctx.sync_mesh()
+    reloaded = context(pkg.parse_geometry(json.loads(json.dumps(data))))
+    execute_command_line(reloaded, protocol["commands"][C4_COMMAND])
+    reloaded.sync_mesh()
+    return {"command": C4_COMMAND, "mesh": data,
+            "n_vertices": len(ctx.mesh.vertices), "n_facets": len(ctx.mesh.facets),
+            "digest_after_u": connectivity_digest(ctx.mesh),
+            "digest_after_u_reloaded": connectivity_digest(reloaded.mesh),
+            "candidate_edges": int(margins.size),
+            "smallest_abs_margin": float(np.min(np.abs(margins))),
+            "flips_in_first_pass": int(np.sum(margins > 0.0))}
+
+
+def run_c4_pre_u() -> dict:
+    rec = float32_child(C4_FIXTURE)
+    rec["protocol"] = {**cube_cli_protocol(), "dtype": "float32", "stop_before": C4_COMMAND}
+    return rec
+
+
 CLI_PROTOCOLS = {
     "cube_cli_L5_f64_jax.json": cube_cli_protocol,
     "square_to_circle_L1_f64_jax.json": square_to_circle_protocol,
@@ -975,6 +1293,8 @@ FLOAT32_RUNS = {
     **{name: (lambda name=name: lane_run(LANE_PROTOCOLS[name]())) for name in LANE_PROTOCOLS},
     "kozlov_L3_drives_f64_jax.json": drives_run,
     "kozlov_L3_match_drives_f64_jax.json": match_drives_run,
+    "kozlov_L3_mode_drives_f64_jax.json": mode_drives_run,
+    C4_FIXTURE: c4_pre_u_state,
 }
 
 
@@ -1046,8 +1366,56 @@ def physical_edge_L0_noise() -> dict:
     return out
 
 
+J0_FIT_NOISE_STEPS = 2
+
+
+def j0_fit_noise() -> dict:
+    """The J0-fit lane's own spread in the JAX package: clean and noisy runs at L0 and at L3.
+
+    Per variant (the lane, and the lane with ``J0_FIT_C0``) and refinement
+    level, two ``minimize(1)`` from the clean start and from one with 1e-15
+    of z noise (``_torch_port_harness.jax_noise_state``'s): the energies,
+    accept flags and theta_B of each, and per step the energies' and
+    theta_B's relative spread.  The clean runs also hold, per step, the
+    fitted rim circle and slide plane (``fits``, :func:`jax_fit_record`):
+    the L0 lane's is the JAX run ``tests/test_torch_thetaB_legacy.py``
+    holds the port's against.
+    """
+    import numpy as np
+
+    protocol = kozlov_J0_fit_protocol()
+    out = {"steps": J0_FIT_NOISE_STEPS, "amplitude": 1e-15, "levels": {}}
+    for variant, gp in (("lane", protocol["global_parameters"]),
+                        ("spontaneous_curvature_1", {**protocol["global_parameters"],
+                                                     **J0_FIT_C0})):
+        for refines in (0, KOZLOV_REFINES):
+            runs = {}
+            for label, amp in (("clean", 0.0), ("noisy", 1e-15)):
+                mn = kozlov_minimizer(gp, edits=protocol, refines=refines)
+                rng = np.random.default_rng(0)
+                for vid in sorted(mn.mesh.vertices):
+                    mn.mesh.vertices[vid].position[2] += amp * rng.standard_normal()
+                mn.invalidate()
+                steps, thetas, fits = [], [], []
+                for _ in range(J0_FIT_NOISE_STEPS):
+                    steps.append(mn.minimize(1))
+                    thetas.append(float(mn.global_params.get("tilt_thetaB_value")))
+                    fits.append(jax_fit_record(mn))
+                runs[label] = {"energies": [float(r["energy"]) for r in steps],
+                               "accepted": [bool(r["step_success"]) for r in steps],
+                               "thetaB": thetas}
+                if amp == 0.0:
+                    runs[label]["fits"] = fits
+            for key in ("energies", "thetaB"):
+                runs[f"rel_spread_{key}"] = [abs(a - b) / abs(a) for a, b in
+                                             zip(runs["clean"][key], runs["noisy"][key])]
+            out["levels"][f"{variant} L{refines}"] = runs
+    return out
+
+
 FIXTURES = {
     "kozlov_L3_f64_jax.json": run_kozlov,
+    "J0_fit_noise.json": j0_fit_noise,
     "physical_edge_L0_noise.json": physical_edge_L0_noise,
     "helfrich_cube_L5_f64_jax.json": run_vesicle,
     **{name: (lambda name=name: run_cli_fixture(name)) for name in CLI_PROTOCOLS},
@@ -1056,6 +1424,8 @@ FIXTURES = {
        for name in LANE_PROTOCOLS},
     "kozlov_L3_drives_f64_jax.json": run_kozlov_drives,
     "kozlov_L3_match_drives_f64_jax.json": run_kozlov_match_drives,
+    "kozlov_L3_mode_drives_f64_jax.json": run_kozlov_mode_drives,
+    C4_FIXTURE: run_c4_pre_u,
 }
 
 
@@ -1073,7 +1443,14 @@ def main() -> None:
     args.output_dir.mkdir(parents=True, exist_ok=True)
     for name in args.only or FIXTURES:
         rec = FIXTURES[name]()
-        (args.output_dir / name).write_text(json.dumps(rec, indent=1) + "\n")
+        text = json.dumps(rec, indent=1) + "\n"
+        if name.endswith(".gz"):
+            import gzip
+
+            (args.output_dir / name).write_bytes(gzip.compress(text.encode(), mtime=0))
+            print(name, json.dumps({k: v for k, v in rec.items() if k != "mesh"}), flush=True)
+            continue
+        (args.output_dir / name).write_text(text)
         print(name, json.dumps(rec), flush=True)
 
 
