@@ -62,7 +62,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ``protocol`` block records (meshgen ``kozlov_1disk`` with the bench
    global parameters -> three refinement rounds -> 10,817 vertices, 21,504
    triangles -> five ``minimize(1)`` calls), then ``minimize(2)`` as warm-up
-   and ``minimize(10)`` timed.  Every energy must be finite and the last
+   and ``minimize(5)`` timed.  Every energy must be finite and the last
    below the first.  Host syncs of one step are counted with
    ``torch.cuda.set_sync_debug_mode`` and listed by the source line that
    issued them.
@@ -80,7 +80,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ``helfrich_cube_L5_f64_jax.json`` (meshgen cube, surface + Helfrich
    bending, hard volume constraint -> polygonal refine and five triangle
    refines -> 12,290 vertices, 24,576 triangles -> five ``minimize(1)``
-   calls at the adaptive step), then 2 warm-up and 10 timed steps.
+   calls at the adaptive step), then 2 warm-up and 5 timed steps.
 7. helfrich_cube L5, float64: the same; rel 1e-8 against the JAX fixture,
    and phase 6's energies within rel 2e-3 of these.
 8. cube_cli L5, float32: the command list of
@@ -178,7 +178,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
     ``shared_rim_staggered_v1``; five ``minimize(1)``): every Armijo trial
     and the baseline re-relax both leaflet tilts before they are scored.
     Energies within rel 1e-8 of the fixture and the fixture's accept flag
-    at every step; then ``minimize(5)`` timed after two warm-up steps
+    at every step; then ``minimize(3)`` timed after two warm-up steps
     (ms per step, line-search trials per step, accepted steps).
 17. kozlov L3 reduced, float32: the same; energies within rel max(2e-3, 2
     x the JAX package's own float32 deviation, the fixture's
@@ -191,7 +191,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
     protocol of phases 4-5 with ``tilt_smoothness_in`` and
     ``tilt_smoothness_out`` added to its energy modules, the fixture's
     ``extra_energy_modules``; five ``minimize(1)``), then the determinism
-    check and ``minimize(10)`` timed after two warm-up steps.  Energies
+    check and ``minimize(5)`` timed after two warm-up steps.  Energies
     within rel 1e-8 of the fixture with its accept flags; the breakdown's
     two smoothness terms within rel 1e-8 of the fixture's, floored at 1e-12
     of the lane's energy (the outer leaflet is undriven here: its tilts and
@@ -230,7 +230,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
     kozlov protocol of phases 4-5 with ``rigid_disk`` appended and no
     ``rigid_disk_group``: the 1,611 ``preset: disk`` vertices, whose own
     ``pin_to_plane`` is dropped at L0, ``lane_edits``), five ``minimize(1)``
-    step by step, then the determinism check and 2 warm-up and 10 timed
+    step by step, then the determinism check and 2 warm-up and 5 timed
     steps.  After every step the disk's anchor-pair distances equal the
     reference shape's to 1e-9 of the disk radius.  The accept flags and,
     per step, the multiplier-finite flag of the shape KKT solve (the JAX
@@ -250,7 +250,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
     ``tests/fixtures/torch_port/kozlov_L3_interface_f64_jax.json`` (the
     kozlov protocol with ``rim_slope_match_out`` replaced by
     ``curved_local_interface_hard`` and the ``curved_local_interface_law``
-    energy at strength 0.8), as phase 21 runs it (4 timed steps, not 10:
+    energy at strength 0.8), as phase 21 runs it (2 timed steps, not 5:
     the relax evaluates the whole tilt energy per iteration, 0.5-1.5 s per
     step): energies within rel 1e-8
     of the fixture with its accept flags, the breakdown's law term within
@@ -330,6 +330,36 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
     against float64; a float32 relax makes no frozen-tilt launch under
     ``diagonal`` and the in-update modes; one ``check_gauss_bonnet`` call
     timed.  A ``[30-32 ...]`` line gives the three phases' seconds.
+33. kozlov L3 parameter sweep, float64: the protocol of
+    ``tests/fixtures/torch_port/kozlov_L3_sweep_f64_jax.json`` on the state
+    phase 5 left after its five protocol steps (restored into a fresh L3
+    minimizer): ``parallel.sweep.run_sweep`` with eight members
+    (``sweep_members``: positions times 1 + 0.001 m, ``tilt_modulus_in``
+    times 1 + 0.1 m, ``tilt_thetaB_value`` plus 0.01 m), five steps at
+    1e-3, no tilt relax, as the JAX sweep.  Per member the energies, the
+    gradient norm and the step size within rel 1e-8 of the fixture, its
+    accept flags and iterations, the final positions' sketch (512 sampled
+    rows and the norm) within 1e-8; each member within rel 1e-12 of a
+    one-member sweep of that member, with its flags; every kernel counter
+    of the sweep equal to that of the one-member sweep whose line searches
+    scored the most trial states (the launches do not grow with B); two
+    sweeps from one state give equal sha256 digests; no ``compile_state``
+    call inside the sweep.  The member-axis kernels on the members' final
+    states (per-member seeded tilts): each against its member twin with
+    phase 3's bounds, and member by member equal in bits to the
+    single-member kernel.  Then ms per sweep step and member-steps per
+    second at B = 1, 2, 4 and 8 (three steps each after a warm-up step) and
+    the profiler's busy share of a three-step sweep at B = 8, each with the
+    card's name and power limit.
+34. kozlov L3 parameter sweep, float32: the same on phase 4's state; the
+    members within rel max(2e-3, 2 x the JAX package's own float32
+    deviation) of phase 33, the JAX package's own float32 flags; and the
+    member-axis kernels timed at B = 8 (``[34 ... kernel timing]``).
+35. the multi-disk sweep analysis on the card
+    (``analysis.multidisk_sweep.run_sweep``, ``plot=False``): three meshgen
+    cube meshes in a temporary directory; every key of every row within
+    rel 1e-10 of the same analysis on the CPU at float64.  A ``[33-35
+    ...]`` line gives the three phases' seconds and busy shares.
 
 Every lane phase (4-9, 11-19, 21-24, 26-31) also checks determinism: from the state its
 protocol leaves (phases 4-7, 16-19, 21-24 and 26-31: the five steps; phases 8-9 and
@@ -340,9 +370,11 @@ a ``[... determinism]`` line prints both digests, and unequal digests fail
 the run.  A ``[phase seconds]`` line gives each phase's seconds, and the
 last line before the kernels line the whole run's.
 
-Phases 4-9 and 11-32 each drive one path with every kernel launch counter
+Phases 4-9 and 11-35 each drive one path with every kernel launch counter
 set to 0 just before and read just after; a kernel of that path that was
-never launched fails the run (the frozen-tilt entry point, both variants,
+never launched fails the run (phases 33-34: the member-axis surface
+energy, both variants, curvature data and its backward, divergence and
+vertex sum) (the frozen-tilt entry point, both variants,
 lies on the float32 kozlov paths with a frozen relax, phases 4, 15, 17, 19,
 22, 27 and 31; the surface energy, both variants, and the vertex sum on phases
 4-9, 11-19, 21-24 and 26-31; the curvature data forward on phases 4-9,
@@ -352,9 +384,11 @@ paths 4-5, 15-19 and 21-32, and it and its tilt backward inside phase 20's
 splay-twist, phase 25's ``bending_tilt`` and phase 32's bending-tilt modes).
 
 The line before the last is a JSON object ``{"kernels": [...]}``: per entry
-point, its launches over phases 4-9 and 11-32, its largest error against its twin,
+point, its launches over phases 4-9 and 11-35, its largest error against its twin,
 and phase 3's device ms per call (``ms``), its twin's (``plain_ms``), the
-bound, and, for the vertex sum, ``index_add_``'s (``library_ms``).  The
+bound, and, for the vertex sum, ``index_add_``'s (``library_ms``); the
+member-axis entries' times are phase 34's at B = 8, float32, beside their
+single-member entry's (``single_ms``).  The
 card's name and power limit follow it again (``nvidia-smi``), and the
 last line is ``{"ok": true, "device": {...}}``.
 
@@ -434,7 +468,31 @@ KERNELS = {
     # lane path differentiates the tilts, so phase 3 alone launches it
     "tri_p1_div_bwd": ("tri_kernels.cu", "pallas_kernels/tri_kernels.py:262", "p1_div_bwd",
                        "tri_kernels.p1_div_bwd"),
+    # the member axis of the parameter sweep (phases 33-34): the same kernels
+    # over B stacked members, one launch, the members on the grid's y axis
+    "tri_surface_energy_members": ("tri_kernels.cu", "pallas_kernels/tri_kernels.py:80",
+                                   "surface_energy_members",
+                                   "tri_kernels.surface_energy_members"),
+    "tri_surface_energy_grad_members": ("tri_kernels.cu", "pallas_kernels/tri_kernels.py:80",
+                                        "surface_energy_grad_members",
+                                        "tri_kernels.surface_energy_grad_members"),
+    "tri_curvature_data_members": ("tri_kernels.cu", "pallas_kernels/tri_kernels.py:143",
+                                   "curvature_data_members",
+                                   "tri_kernels.curvature_data_members"),
+    "tri_curvature_data_bwd_members": ("tri_kernels.cu", "pallas_kernels/tri_kernels.py:193",
+                                       "curvature_data_bwd_members",
+                                       "tri_kernels.curvature_data_bwd_members"),
+    "tri_p1_div_members": ("tri_kernels.cu", "pallas_kernels/tri_kernels.py:228",
+                           "p1_div_members", "tri_kernels.p1_div_members"),
+    "vertex_sum_members": ("vertex_sum.cuh", "device/geo.py:95", "vertex_sum_members",
+                           "vertex_sum.vertex_sum_members"),
 }
+# each member-axis entry's single-member entry (its B = 1 time sits beside it)
+SINGLE_OF = {"tri_surface_energy_members": "surface_energy",
+             "tri_surface_energy_grad_members": "surface_energy_grad",
+             "tri_curvature_data_members": "curvature_data",
+             "tri_curvature_data_bwd_members": "curvature_data_bwd",
+             "tri_p1_div_members": "p1_div", "vertex_sum_members": "vertex_sum"}
 # the per-entry-point error keys of phases 3 and 5
 ERRORS = {"frozen_tilt_energy": ("ft_energy",), "frozen_tilt_energy_grad": ("ft_energy", "ft_grad"),
           "vertex_sum": ("vertex_sum",),
@@ -442,7 +500,12 @@ ERRORS = {"frozen_tilt_energy": ("ft_energy",), "frozen_tilt_energy_grad": ("ft_
           "tri_surface_energy_grad": ("surface_energy", "surface_grad", "surface_fwd"),
           "tri_curvature_data": ("curvature_data", "curvature_fwd"),
           "tri_curvature_data_bwd": ("curvature_data_bwd", "curvature_bwd"),
-          "tri_p1_div": ("p1_div",), "tri_p1_div_bwd": ("p1_div_bwd",)}
+          "tri_p1_div": ("p1_div",), "tri_p1_div_bwd": ("p1_div_bwd",),
+          "tri_surface_energy_members": ("surface_energy_members",),
+          "tri_surface_energy_grad_members": ("surface_energy_members", "surface_grad_members"),
+          "tri_curvature_data_members": ("curvature_data_members",),
+          "tri_curvature_data_bwd_members": ("curvature_data_bwd_members",),
+          "tri_p1_div_members": ("p1_div_members",), "vertex_sum_members": ("vertex_sum_members",)}
 # PyTorch's own kernels that the redesigned entry points must not issue
 LIBRARY_KERNEL = re.compile(r"index|scatter|gather|sort|reduce", re.IGNORECASE)
 OWN_KERNELS = ("frozen_tilt_kernel", "vertex_sum_kernel", "curvature_fwd_kernel",
@@ -450,11 +513,11 @@ OWN_KERNELS = ("frozen_tilt_kernel", "vertex_sum_kernel", "curvature_fwd_kernel"
 
 DEVICE = "cuda"
 WARMUP_STEPS = 2
-TIMED_STEPS = 10
-REDUCED_TIMED_STEPS = 5  # phases 16-17: each step relaxes once per line-search trial
+TIMED_STEPS = 5
+REDUCED_TIMED_STEPS = 3  # phases 16-17: each step relaxes once per line-search trial
 # phases 23-24: each relax iteration evaluates the whole tilt energy (the
 # law has no frozen split), 0.5-1.5 s per step
-INTERFACE_TIMED_STEPS = 4
+INTERFACE_TIMED_STEPS = 2
 PHYSICAL_TIMED_STEPS = 2  # phases 26-29: the shared shell rows' levels in every enforcement
 J0_TIMED_STEPS = 2  # phases 30-31: one host sync and theta_B update per iteration
 # phase 30: theta_B, the fitted rim circle and the slide plane per step vs the fixture
@@ -557,9 +620,13 @@ def phase_build(mods) -> None:
 
 
 LOOP = 200  # back-to-back calls per timing
+# profiled calls of a twin or a caller (hundreds of operations a call: the
+# profiler's own cost grows with the operations it records); a hand
+# kernel's row keeps LOOP (at 50 the profiler once saw no device operation)
+PROFILED_PLAIN_CALLS = 20
 
 
-def time_call(torch, fn, calls: int = LOOP, warmup: int = 5) -> dict:
+def time_call(torch, fn, calls: int = LOOP, warmup: int = 5, profiled: int | None = None) -> dict:
     """Device and host time per call of ``fn`` over ``calls`` back-to-back calls.
 
     Inputs are prepared by the caller, outside the window.  Returns
@@ -568,9 +635,11 @@ def time_call(torch, fn, calls: int = LOOP, warmup: int = 5) -> dict:
       device this is the host's pace);
     - ``host_us``: ``time.perf_counter`` around the same loop, no sync;
     - ``device_ms``: the device time of the operations one call issues,
-      summed from ``torch.profiler`` over a second loop (no host gaps);
+      summed from ``torch.profiler`` over a second loop of ``profiled``
+      calls (``calls`` when None; no host gaps);
     - ``ops_per_call`` and ``ops``: those operations, by name.
     """
+    profiled = calls if profiled is None else profiled
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -587,7 +656,7 @@ def time_call(torch, fn, calls: int = LOOP, warmup: int = 5) -> dict:
     end.record()
     end.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
+        for _ in range(profiled):
             fn()
         torch.cuda.synchronize()
     rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -596,9 +665,9 @@ def time_call(torch, fn, calls: int = LOOP, warmup: int = 5) -> dict:
     return {
         "event_ms": start.elapsed_time(end) / calls,
         "host_us": host_s * 1e6 / calls,
-        "device_ms": sum(e.self_device_time_total for e in rows) / 1e3 / calls,
-        "ops_per_call": sum(e.count for e in rows) / calls,
-        "ops": {e.key: e.count / calls for e in rows},
+        "device_ms": sum(e.self_device_time_total for e in rows) / 1e3 / profiled,
+        "ops_per_call": sum(e.count for e in rows) / profiled,
+        "ops": {e.key: e.count / profiled for e in rows},
     }
 
 
@@ -815,7 +884,9 @@ def measure(torch, rows: list, lane: str, dtype_name: str) -> list:
         outputs = _flat(fn())
         torch.cuda.synchronize()
         calls = CALLER_CALLS if kind == "caller" else LOOP
-        timing = time_call(torch, fn, calls=calls)
+        timing = time_call(torch, fn, calls=calls,
+                           profiled=calls if kind in ("kernel", "library")
+                           else PROFILED_PLAIN_CALLS)
         moved = _nbytes(inputs) + _nbytes(outputs)
         bound, bound_by = bound_ms(moved, flops, dtype_name)
         rec = {"name": name, "kind": kind, "lane": lane, "dtype": dtype_name, "calls": calls,
@@ -2118,7 +2189,7 @@ def phase_reduced(torch, counters, label: str, fixture: dict, dtype, expect: tup
     """The reduced-energy line search on kozlov L3, counts reset just before and read after.
 
     The fixture's protocol (five ``minimize(1)``), the determinism check
-    (two ``minimize(2)`` from one saved state), then ``minimize(5)`` timed
+    (two ``minimize(2)`` from one saved state), then ``minimize(3)`` timed
     after two warm-up steps.  At float64 (``f64`` None) the energies and
     the accept flags are held against the fixture; at float32 the energies
     against ``f64``, the float64 phase's result, within max(2e-3, 2 x the
@@ -2213,7 +2284,7 @@ def phase_smooth(torch, ft, counters, label: str, fixture: dict, dtype, expect: 
     """kozlov_L3 with the leaflet smoothness, counts reset just before and read after.
 
     The fixture's protocol (five ``minimize(1)``), the determinism check,
-    then 2 warm-up and 10 timed steps.  At float64 the energies, accept
+    then 2 warm-up and 5 timed steps.  At float64 the energies, accept
     flags and the breakdown's smoothness terms against the fixture; at
     float32 the energies against ``f64`` (max(2e-3, 2 x the JAX package's
     own float32 deviation)), and the fold: the relax's fused energy on the
@@ -3196,6 +3267,463 @@ def phase_mode_drives(torch, counters, label: str, fixture: dict) -> dict:
             "gauss_bonnet_s": gb_s}
 
 
+# ----------------------------------------------------------------------
+# phases 33-35: the parameter sweep and the multi-disk sweep analysis
+# ----------------------------------------------------------------------
+SWEEP_FIXTURE = FIXTURES / "kozlov_L3_sweep_f64_jax.json"
+SWEEP_STATS = ("energy", "accepted_energy", "grad_norm", "step_size", "step_success",
+               "iterations")
+
+
+def sweep_members(protocol: dict, positions, params) -> tuple[list, list]:
+    """(member_params, member_positions) of the sweep protocol, from either package's problem.
+
+    Member m: positions times 1 + ``dilation`` m, ``tilt_modulus_in`` times
+    1 + ``modulus_step`` m, ``tilt_thetaB_value`` plus ``thetaB_step`` m.
+    ``positions`` is a numpy array in the problem's dtype.
+    """
+    k_in, theta = float(params["tilt_modulus_in"]), float(params["tilt_thetaB_value"])
+    members = range(protocol["members"])
+    return ([{"tilt_modulus_in": k_in * (1.0 + protocol["modulus_step"] * m),
+              "tilt_thetaB_value": theta + protocol["thetaB_step"] * m} for m in members],
+            [positions * (1.0 + protocol["dilation"] * m) for m in members])
+
+
+def sweep_record(protocol: dict, stats: dict, positions) -> dict:
+    """Per-member stats lists and a sketch of each member's final (n, 3) positions."""
+    rows = sample_rows(protocol, positions.shape[1])
+    out = {k: np.asarray(stats[k]).tolist() for k in SWEEP_STATS}
+    out["positions"] = [sketch(p, rows) for p in positions]
+    return out
+
+
+SWEEP_EXPECT = ("tri_kernels.surface_energy_members", "tri_kernels.surface_energy_grad_members",
+                "tri_kernels.curvature_data_members", "tri_kernels.curvature_data_bwd_members",
+                "tri_kernels.p1_div_members", "vertex_sum.vertex_sum_members")
+SWEEP_SIZES = (1, 2, 4, 8)  # members per timed sweep
+SWEEP_TIMED_STEPS = 3
+# member m of the B-member sweep vs a one-member sweep of member m: PyTorch's
+# reductions over a (B, ...) batch add in another order than over one member
+# (float32: 1.8e-7 on an H100, about 1.5 ulp)
+MEMBER_RTOL = {"float64": 1e-12, "float32": 2e-6}
+# the member twins loop over the members (thousands of operations a call):
+# fewer timed calls keep the profiler's trace small
+MEMBER_PLAIN_CALLS = 3
+MULTIDISK_RTOL = 1e-10  # phase 35: the card's rows vs the CPU's, float64
+
+
+def _stats_of(stats) -> dict:
+    return {k: np.asarray(getattr(stats, k)) for k in SWEEP_STATS}
+
+
+def _stat_devs(got: dict, want: dict) -> list:
+    """Per member, the largest relative deviation of the float stats."""
+    out = []
+    for m in range(len(got["energy"])):
+        out.append(max(abs(float(got[k][m]) - float(want[k][m])) / abs(float(want[k][m]))
+                       for k in ("energy", "accepted_energy", "grad_norm", "step_size")))
+    return out
+
+
+def _flags_equal(got: dict, want: dict) -> bool:
+    return all(np.array_equal(np.asarray(got[k], dtype=np.int64), np.asarray(want[k], dtype=np.int64))
+               for k in ("step_success", "iterations"))
+
+
+def sweep_digest(states, stats: dict) -> str:
+    """sha256 of the members' positions and tilts and of their stats, as bytes."""
+    h = hashlib.sha256()
+    for f in STATE_FIELDS:
+        h.update(getattr(states, f).detach().cpu().numpy().tobytes())
+    for k in SWEEP_STATS:
+        h.update(np.ascontiguousarray(stats[k]).tobytes())
+    return h.hexdigest()
+
+
+def member_kernel_inputs(torch, states, seed: int):
+    """(positions, tilts) (B, N, 3) on the card: the members' own, tilts with seeded per-member offsets."""
+    pos = states.positions.detach().contiguous()
+    rng = np.random.default_rng(seed)
+    noise = torch.as_tensor(1e-2 * rng.standard_normal(tuple(pos.shape)), dtype=pos.dtype,
+                            device=pos.device)
+    return pos, (states.tilts_in.detach() + noise).contiguous()
+
+
+def check_member_kernels(torch, tk, vs, topo, pos, tilts, seed: int) -> dict:
+    """Each member-axis entry against its member twin (phase 3's bounds) and, member by
+    member, against the single-member kernel (equal bits).  Returns the max abs errors.
+    """
+    dtype = pos.dtype
+    name = str(dtype).removeprefix("torch.")
+    B, n = pos.shape[0], pos.shape[1]
+    rows, v, csr = topo.tri_rows, topo.tri_valid, topo.corner_csr()
+    T = rows.shape[0]
+    tension = topo.tri_surface_tension.to(dtype)
+    rng = np.random.default_rng(seed)
+
+    def seeded(shape):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=DEVICE)
+
+    def same_bits(what, got, want):
+        if not torch.equal(got, want):
+            raise AssertionError(f"member-axis {what} ({name}) differs from the single-member "
+                                 f"kernel: max abs diff {float(torch.max(torch.abs(got - want)))!r}")
+
+    errs = {}
+    ws = tk.MemberWorkspace(B, T, dtype, DEVICE)
+    e_only, _ = tk.launch_surface_energy_members(pos, rows, v, tension, csr, ws, grad=False)
+    e, dpos = tk.launch_surface_energy_members(pos, rows, v, tension, csr, ws, grad=True)
+    want_e, want_g = tk.surface_energy_members_reference(pos, rows, v, tension, csr, True)
+    errs["surface_energy_members"] = max(
+        _sum_check(torch, f"member surface energy {m} ({name})", x[m], want_e[m], WC_ENERGY[name])
+        for x in (e_only, e) for m in range(B))
+    errs["surface_grad_members"] = max(
+        _sum_check(torch, f"member surface gradient {m} ({name})", dpos[m], want_g[m],
+                   WC_SURFACE_GRAD[name]) for m in range(B))
+
+    cd = tk.launch_curvature_data_members(pos, rows, v, csr)
+    want_cd = tk.curvature_data_members_reference(pos, rows, v, csr)
+    ups = (seeded((B, n, 3)), seeded((B, n)), seeded((B, T, 3)), seeded((B, T, 3)))
+    bwd = tk.launch_curvature_data_bwd_members(pos, rows, v, csr, *ups)
+    want_bwd = tk.curvature_data_vjp_members_reference(pos, rows, v, csr, *ups)
+    div = tk.launch_p1_divergence_members(pos, tilts, rows, v)
+    want_div = tk.p1_divergence_members_reference(pos, tilts, rows, v)
+    ct = seeded((B, T))
+    dtl = tk.launch_p1_div_bwd_members(want_div[2].contiguous(), v, ct, csr)
+    want_dtl = tk.p1_div_vjp_members_reference(want_div[2], v, ct, csr)
+    corners = pos[:, rows].contiguous()
+    vsum = vs.launch_members(corners, csr)
+    vsum1 = vs.launch_members(want_cd[1].contiguous(), csr)
+    for key in ("curvature_data_members", "curvature_data_bwd_members", "p1_div_members",
+                "p1_div_bwd_members", "vertex_sum_members"):
+        errs[key] = 0.0
+    for m in range(B):
+        clear = ~(v & torch.any(torch.abs(want_cd[0][m]) < TIE, dim=1))
+        vclear = torch.ones(n, dtype=torch.bool, device=DEVICE)
+        vclear[rows[~clear].reshape(-1)] = False
+        errs["curvature_data_members"] = max(errs["curvature_data_members"], *(
+            _tk_check(torch, f"member curvature data {what} {m}", a[m], b[m], dtype, "curv", ok)
+            for a, b, what, ok in zip(cd, want_cd, ("cot", "va", "k_vecs", "vertex_areas"),
+                                      (clear, clear, vclear, vclear))))
+        errs["curvature_data_bwd_members"] = max(errs["curvature_data_bwd_members"], _bwd_check(
+            torch, f"member curvature data bwd {m}", bwd[m], want_bwd[m], dtype, vclear))
+        errs["p1_div_members"] = max(errs["p1_div_members"], *(
+            _tk_check(torch, f"member p1 {what} {m}", a[m], b[m], dtype, "curv")
+            for a, b, what in zip(div, want_div, ("div", "area", "g"))))
+        errs["p1_div_bwd_members"] = max(errs["p1_div_bwd_members"], _sum_check(
+            torch, f"member p1 div tilt backward {m} ({name})", dtl[m], want_dtl[m],
+            WC_DIV_BWD[name]))
+        for got, want in ((vsum, vs.members_reference(corners, csr)),
+                          (vsum1, vs.members_reference(want_cd[1], csr))):
+            if not torch.equal(got[m], want[m]):
+                raise AssertionError(f"member vertex sum {m} ({name}) differs from its twin")
+        # member m of each launch: the bits of the single-member kernel on member m
+        p_m, t_m = pos[m].contiguous(), tilts[m].contiguous()
+        e1, g1 = tk.launch_surface_energy(p_m, rows, v, tension, csr,
+                                          tk.Workspace(T, dtype, DEVICE), grad=True)
+        same_bits("surface energy", e[m], e1[0])
+        same_bits("surface gradient", dpos[m], g1)
+        for a, b in zip(cd, tk.launch_curvature_data(p_m, rows, v, csr)):
+            same_bits("curvature data", a[m], b)
+        same_bits("curvature data backward", bwd[m], tk.launch_curvature_data_bwd(
+            p_m, rows, v, csr, *(u[m].contiguous() for u in ups)))
+        for a, b in zip(div, tk.launch_p1_divergence(p_m, t_m, rows, v)):
+            same_bits("p1 divergence", a[m], b)
+        same_bits("p1 divergence tilt backward", dtl[m], tk.launch_p1_div_bwd(
+            want_div[2][m].contiguous(), v, ct[m].contiguous(), csr))
+        same_bits("vertex sum", vsum[m], vs.launch(corners[m].contiguous(), csr))
+    torch.cuda.synchronize()
+    return errs
+
+
+def member_rows(torch, tk, vs, topo, pos, tilts) -> list:
+    """(name, kind, fn, inputs, flops) of the member-axis kernels, their twins and a library call."""
+    dtype = pos.dtype
+    B, n = pos.shape[0], pos.shape[1]
+    rows, v, csr = topo.tri_rows, topo.tri_valid, topo.corner_csr()
+    T = rows.shape[0]
+    tension = topo.tri_surface_tension.to(dtype)
+    rng = np.random.default_rng(23)
+    g_kvecs = torch.as_tensor(rng.standard_normal((B, n, 3)), dtype=dtype, device=DEVICE)
+    g_varea = torch.as_tensor(rng.standard_normal((B, n)), dtype=dtype, device=DEVICE)
+    ws = tk.MemberWorkspace(B, T, dtype, DEVICE)
+    corners = pos[:, rows].contiguous()
+    # index_add_ of the same sums: every member's corner rows into its own vertex rows
+    flat_rows = (csr.rows.reshape(1, -1) + n * torch.arange(B, device=DEVICE)[:, None]).reshape(-1)
+    flat_corners = corners.reshape(-1, 3)
+
+    def library_sum():
+        return torch.zeros((B * n, 3), dtype=dtype, device=DEVICE).index_add_(0, flat_rows,
+                                                                              flat_corners)
+
+    F = FLOPS_PER_TRI
+    s_in, d_in, b_in = (pos, rows, v, tension), (pos, rows, v), (pos, rows, v, g_kvecs, g_varea)
+    div_in = (pos, tilts, rows, v)
+    e_flops, g_flops = F["surface_energy"] * T * B, (F["surface_energy"] + F["surface_grad"]) * T * B
+    return [
+        ("surface_energy_members", "kernel", lambda: tk.launch_surface_energy_members(
+            pos, rows, v, tension, csr, ws, grad=False), s_in, e_flops),
+        ("surface_energy_members", "twin", lambda: tk.surface_energy_members_reference(
+            pos, rows, v, tension, csr, False), s_in, e_flops),
+        ("surface_energy_grad_members", "kernel", lambda: tk.launch_surface_energy_members(
+            pos, rows, v, tension, csr, ws, grad=True), s_in, g_flops),
+        ("surface_energy_grad_members", "twin", lambda: tk.surface_energy_members_reference(
+            pos, rows, v, tension, csr, True), s_in, g_flops),
+        ("curvature_data_members", "kernel",
+         lambda: tk.launch_curvature_data_members(pos, rows, v, csr), d_in,
+         F["curvature_fwd"] * T * B),
+        ("curvature_data_members", "twin",
+         lambda: tk.curvature_data_members_reference(pos, rows, v, csr), d_in,
+         F["curvature_fwd"] * T * B),
+        ("curvature_data_bwd_members", "kernel", lambda: tk.launch_curvature_data_bwd_members(
+            pos, rows, v, csr, g_kvecs, g_varea, None, None), b_in, F["curvature_bwd"] * T * B),
+        ("curvature_data_bwd_members", "twin", lambda: tk.curvature_data_vjp_members_reference(
+            pos, rows, v, csr, g_kvecs, g_varea, None, None), b_in, F["curvature_bwd"] * T * B),
+        ("p1_div_members", "kernel", lambda: tk.launch_p1_divergence_members(pos, tilts, rows, v),
+         div_in, F["p1_div"] * T * B),
+        ("p1_div_members", "twin", lambda: tk.p1_divergence_members_reference(pos, tilts, rows, v),
+         div_in, F["p1_div"] * T * B),
+        ("vertex_sum_members", "kernel", lambda: vs.launch_members(corners, csr),
+         (corners, csr.offsets, csr.slots), 3 * 3 * T * B),
+        ("vertex_sum_members", "twin", lambda: vs.members_reference(corners, csr),
+         (corners, csr.offsets, csr.slots), 3 * 3 * T * B),
+        ("vertex_sum_members", "library", library_sum, (corners, flat_rows), 3 * 3 * T * B),
+    ]
+
+
+def measure_members(torch, rows: list, dtype_name: str) -> dict:
+    """``measure`` for the member rows (the twins, a loop over the members, with fewer calls)."""
+    recs = {}
+    for name, kind, fn, inputs, flops in rows:
+        outputs = _flat(fn())
+        torch.cuda.synchronize()
+        timing = time_call(torch, fn,
+                           calls=LOOP if kind in ("kernel", "library") else MEMBER_PLAIN_CALLS)
+        moved = _nbytes(inputs) + _nbytes(outputs)
+        bound, bound_by = bound_ms(moved, flops, dtype_name)
+        recs[(name, kind)] = {"name": name, "kind": kind, "dtype": dtype_name,
+                              **{k: v for k, v in timing.items() if k != "ops"},
+                              "bytes": moved, "bound_ms": bound, "bound_by": bound_by}
+    return recs
+
+
+def sweep_busy(torch, run) -> tuple[float, float]:
+    """(unprofiled ms per step, profiler busy ms per step) of ``run()``, a SWEEP_TIMED_STEPS sweep."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / SWEEP_TIMED_STEPS
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if not rows:
+        raise RuntimeError("the profiler recorded no device-side operation")
+    return wall_ms, sum(e.self_device_time_total for e in rows) / 1e3 / SWEEP_TIMED_STEPS
+
+
+def phase_sweep(torch, tk, vs, counters, label: str, fixture: dict, dtype, snap: dict,
+                f64=None) -> dict:
+    """The parameter sweep on kozlov L3: B = 8 members of phase 5's (4's) state, one card.
+
+    ``snap``: the state phase 5 (phase 4 at float32) left after the
+    protocol's five steps, restored into a fresh L3 minimizer.  The main run
+    with the counts reset just before and read just after, then the checks
+    of the module docstring's phases 33-34 and the timing lines.
+    """
+    from membrane_solver_tpu_torch.device import state as tstate
+    from membrane_solver_tpu_torch.parallel.sweep import run_sweep
+
+    proto = fixture["protocol"]
+    B = proto["members"]
+    name = str(dtype).removeprefix("torch.")
+    t0 = time.perf_counter()
+    mn = build_lane(torch, proto["kozlov"], dtype)
+    restore(mn, snap)
+    problem = mn.problem()
+    setup_s = time.perf_counter() - t0
+    params, positions = sweep_members(proto, problem.state.positions.detach().cpu().numpy(),
+                                      problem.params)
+
+    def run(members=range(B), steps=proto["steps"]):
+        sel = list(members)
+        out = run_sweep(problem, [params[m] for m in sel], steps, step_size=proto["step_size"],
+                        member_positions=[positions[m] for m in sel])
+        torch.cuda.synchronize()
+        return out
+
+    parts = {"setup": setup_s}
+    reset_counts(counters)
+    compiles0 = tstate.COMPILES["compile_state"]
+    t0 = time.perf_counter()
+    states, _ss, stats = run()
+    seconds = time.perf_counter() - t0
+    parts["sweep"] = seconds
+    launches = read_counts(counters)
+    compiles = tstate.COMPILES["compile_state"] - compiles0
+    got = _stats_of(stats)
+    n = problem.n_vertices
+    rows = sample_rows(proto, n)
+    sketches = [sketch(p, rows) for p in states.positions.detach().cpu().double().numpy()]
+    if f64 is None:
+        want, want_sketches, bound = fixture, fixture["positions"], F64_RTOL
+        want_flags = {k: fixture[k] for k in ("step_success", "iterations")}
+    else:
+        want, want_sketches = f64["stats"], f64["sketches"]
+        bound = max(F32_RTOL, 2 * fixture["float32_reference"]["max_rel_dev_vs_float64"])
+        want_flags = {k: fixture["float32_reference"][k] for k in ("step_success", "iterations")}
+    devs = _stat_devs(got, want)
+    pos_devs = [sketch_deviation(w, g) for w, g in zip(want_sketches, sketches)]
+    flags_equal = _flags_equal(got, want_flags)
+
+    # member m against a one-member sweep of member m; the launches of the
+    # one-member sweep whose line searches scored the most trial states
+    single_devs, single_flags, single_launches = [], [], []
+    for m in range(B):
+        reset_counts(counters)
+        s_states, _s, s_stats = run([m])
+        single_launches.append(read_counts(counters))
+        s_got = _stats_of(s_stats)
+        one = {k: got[k][m:m + 1] for k in SWEEP_STATS}
+        dev = max(_stat_devs(s_got, one))
+        scale = max(float(torch.max(torch.abs(states.positions[m]))), 1.0)
+        dev = max(dev, float(torch.max(torch.abs(s_states.positions[0] - states.positions[m])))
+                  / scale)
+        single_devs.append(dev)
+        single_flags.append(_flags_equal(s_got, one))
+    reset_counts(counters)
+    parts["one_member_sweeps"] = time.perf_counter() - t0 - seconds
+    t1 = time.perf_counter()
+    trials = np.asarray(stats.trials)
+    widest = int(np.argmax(trials))
+    launches_equal = launches == single_launches[widest]
+
+    digests = [sweep_digest(states, got)]
+    r_states, _r, r_stats = run()
+    digests.append(sweep_digest(r_states, _stats_of(r_stats)))
+    parts["repeat"] = time.perf_counter() - t1
+
+    t1 = time.perf_counter()
+    pos, tilts = member_kernel_inputs(torch, states, seed=29)
+    errs = check_member_kernels(torch, tk, vs, problem.topo, pos, tilts, seed=31)
+    parts["kernel_checks"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    timing = measure_members(torch, member_rows(torch, tk, vs, problem.topo, pos, tilts), name) \
+        if dtype == torch.float32 else {}
+    parts["kernel_timing"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+
+    per_size = {}
+    for b in SWEEP_SIZES:
+        run(range(b), steps=1)  # warm-up at this member count
+        t0 = time.perf_counter()
+        run(range(b), steps=SWEEP_TIMED_STEPS)
+        wall = time.perf_counter() - t0
+        per_size[b] = {"ms_per_step": wall * 1e3 / SWEEP_TIMED_STEPS,
+                       "member_steps_per_s": b * SWEEP_TIMED_STEPS / wall}
+    parts["per_size_timing"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    if dtype == torch.float32:
+        wall_ms, busy_ms = sweep_busy(torch, lambda: run(range(B), steps=SWEEP_TIMED_STEPS))
+    parts["busy"] = time.perf_counter() - t1
+    card = smi_line()
+    say(label, members=B, vertices=n, steps=proto["steps"], setup_s=f"{setup_s:.3f}",
+        seconds=f"{seconds:.3f}", energy=json.dumps(got["energy"].tolist()),
+        reference_energy=json.dumps(list(want["energy"])),
+        step_success=json.dumps(got["step_success"].tolist()),
+        reference_step_success=json.dumps(list(want_flags["step_success"])),
+        iterations=json.dumps(got["iterations"].tolist()),
+        trials=json.dumps(trials.tolist()), max_rel_dev=repr(max(devs)),
+        max_position_dev=repr(max(pos_devs)), bound=repr(bound),
+        reference="the JAX fixture" if f64 is None else "the float64 phase",
+        compiles_after_entry=compiles, launches=json.dumps(launches),
+        parts_s=json.dumps({k: round(v, 3) for k, v in parts.items()}))
+    say(label + " members", max_rel_dev_vs_single=repr(max(single_devs)),
+        bound=MEMBER_RTOL[name],
+        flags_equal=json.dumps(single_flags), widest_member=widest,
+        launches_equal_to_one_member=launches_equal,
+        one_member_launches=json.dumps(single_launches[widest]))
+    say(label + " determinism", first=digests[0], second=digests[1],
+        equal=digests[0] == digests[1])
+    say(label + " kernels", **{k: repr(v) for k, v in errs.items()})
+    for b, rec in per_size.items():
+        say(label + " timing", members=b, ms_per_step=f"{rec['ms_per_step']:.3f}",
+            member_steps_per_s=f"{rec['member_steps_per_s']:.3f}", card=repr(card))
+    if dtype == torch.float32:
+        say(label + " busy", members=B, steps=SWEEP_TIMED_STEPS, ms_per_step=f"{wall_ms:.3f}",
+            busy_ms_per_step=f"{busy_ms:.3f}", busy_share=f"{busy_ms / wall_ms:.4f}",
+            card=repr(card))
+    for rec in timing.values():
+        say(label + " kernel timing", **{k: (f"{v:.6f}" if isinstance(v, float) else v)
+                                         for k, v in rec.items()})
+    missing = [k for k in SWEEP_EXPECT if not launches[k] > 0]
+    if missing:
+        raise AssertionError(f"{label}: the path did not launch {missing}: {launches}")
+    if not flags_equal:
+        raise AssertionError(f"{label}: accept flags or iterations differ from the reference")
+    if not (max(devs) <= bound and max(pos_devs) <= bound):
+        raise AssertionError(f"{label}: members deviate from the reference by {max(devs)!r} "
+                             f"(positions {max(pos_devs)!r}), bound {bound!r}")
+    if not (all(single_flags) and max(single_devs) <= MEMBER_RTOL[name]):
+        raise AssertionError(f"{label}: members differ from their one-member sweeps: "
+                             f"{single_devs} {single_flags}")
+    if not launches_equal:
+        raise AssertionError(f"{label}: the {B}-member sweep launched {launches}, the one-member "
+                             f"sweep of member {widest} {single_launches[widest]}")
+    if digests[0] != digests[1]:
+        raise AssertionError(f"{label}: two sweeps from one state differ: {digests}")
+    if compiles != 0:
+        raise AssertionError(f"{label}: {compiles} compile_state calls inside the sweep")
+    return {"launches": launches, "stats": got, "sketches": sketches, "errs": errs,
+            "timing": timing, "per_size": per_size,
+            "busy_share": busy_ms / wall_ms if dtype == torch.float32 else None}
+
+
+def phase_multidisk(torch, counters, label: str) -> dict:
+    """The multi-disk sweep analysis on the card: three cube meshes, rows vs the CPU's."""
+    import tempfile
+
+    from membrane_solver_tpu_torch.analysis import multidisk_sweep as md
+    from membrane_solver_tpu_torch.meshgen import build
+
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = Path(tmp) / "runs"
+        runs.mkdir()
+        for L in (2.0, 3.0, 4.5):
+            (runs / f"run_L{L}.json").write_text(json.dumps(build("cube", size=1.0 + 0.1 * L)))
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        rows = md.run_sweep(runs, Path(tmp) / "card", plot=False)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts(counters)
+        want = md.run_sweep(runs, Path(tmp) / "cpu", plot=False, device="cpu")
+        written = json.loads((Path(tmp) / "card" / "results.json").read_text())
+    devs = {}
+    for got_row, want_row in zip(rows, want, strict=True):
+        if set(got_row) != set(want_row):
+            raise AssertionError(f"{label}: keys differ: {sorted(set(got_row) ^ set(want_row))}")
+        for key, w in want_row.items():
+            if isinstance(w, float):
+                devs[key] = max(devs.get(key, 0.0), abs(got_row[key] - w) / max(abs(w), 1e-300))
+            elif got_row[key] != w:
+                raise AssertionError(f"{label}: {key} {got_row[key]!r} vs {w!r}")
+    worst = max(devs.values())
+    say(label, files=json.dumps([r["file"] for r in rows]),
+        separations=json.dumps([r["separation"] for r in rows]),
+        energies=json.dumps([r["energy"] for r in rows]), max_rel_dev_vs_cpu=repr(worst),
+        bound=MULTIDISK_RTOL, seconds=f"{seconds:.3f}", launches=json.dumps(launches))
+    if written != rows:
+        raise AssertionError(f"{label}: results.json differs from the returned rows")
+    if not worst <= MULTIDISK_RTOL:
+        raise AssertionError(f"{label}: the card's rows deviate from the CPU's by {worst!r}")
+    if not launches["tri_kernels.surface_energy"] > 0:
+        raise AssertionError(f"{label}: the analysis did not launch the surface energy kernel")
+    return {"launches": launches}
+
+
 def phase_console(torch, fixture: dict) -> None:
     """``python -m membrane_solver_tpu_torch`` on the card; the saved mesh re-evaluated at float64."""
     import tempfile
@@ -3244,6 +3772,8 @@ def kernels_line(kern: dict, runs: dict) -> list:
             "library_ms": None if library is None else library["device_ms"],
             "event_ms": k_row["event_ms"], "host_us": k_row["host_us"],
         })
+        if name in SINGLE_OF:
+            out[-1]["single_ms"] = timing[(SINGLE_OF[name], "kernel")]["device_ms"]
     return out
 
 
@@ -3276,6 +3806,7 @@ def main() -> int:
     j0_fit = load_fixture(J0_FIT_FIXTURE)
     c4 = json.loads(gzip.decompress(C4_FIXTURE.read_bytes()))
     mode_drives = json.loads(MODE_DRIVES_FIXTURE.read_text())
+    sweep = json.loads(SWEEP_FIXTURE.read_text())
     seconds = {}
 
     def timed(phase, fn, *args, **kw):
@@ -3410,6 +3941,20 @@ def main() -> int:
         phases=json.dumps({k: seconds[k] for k in new}),
         host_syncs_per_minimize_1=json.dumps({"5": runs["k64"]["syncs"],
                                               "30": runs["j64"]["syncs"]}))
+    # the parameter sweep (member-axis kernels) and the multi-disk analysis
+    runs["w64"] = timed("33", phase_sweep, torch, tk, vs, counters, "33 kozlov_L3_sweep f64",
+                        sweep, torch.float64, runs["k64"]["snap"])
+    runs["w32"] = timed("34", phase_sweep, torch, tk, vs, counters, "34 kozlov_L3_sweep f32",
+                        sweep, torch.float32, runs["k32"]["snap"], f64=runs["w64"])
+    runs["a"] = timed("35", phase_multidisk, torch, counters, "35 multidisk_sweep")
+    for key in ("w64", "w32"):
+        for k, v in runs[key]["errs"].items():
+            kern["errs"][k] = max(kern["errs"].get(k, 0.0), v)
+    kern["timing"].update(runs["w32"]["timing"])
+    new = ("33", "34", "35")
+    say("33-35", seconds=f"{sum(seconds[k] for k in new):.3f}",
+        phases=json.dumps({k: seconds[k] for k in new}),
+        busy_share_34=runs["w32"]["busy_share"])
     # phases 8-10 have imported the CLI and the command layer by now
     if not {"membrane_solver_tpu_torch.cli", "membrane_solver_tpu_torch.commands"} <= set(sys.modules):
         raise AssertionError("the CLI and the command layer were not imported")

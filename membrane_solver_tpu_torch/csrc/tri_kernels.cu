@@ -71,6 +71,15 @@
 // curvature kernels keep one thread per triangle in 256-thread blocks; the
 // backward recomputes the forward in registers rather than reading saved
 // intermediates, which trades ~100 flops for ~200 bytes per triangle.
+//
+// The member axis (the parameter sweep, parallel/sweep.py): the *_members
+// entries run the same kernels over B stacked members, one block row per
+// member on the grid's y axis (gridDim.y = B); each kernel offsets its
+// per-member pointers by blockIdx.y, and tri_rows, the masks and the CSR
+// are shared.  A member's arithmetic and reduction order are those of a
+// call on that member alone (gridDim.y = 1, every offset zero), so member m
+// of a B-member call is the single call's bits.  The bytes are B times the
+// per-member ones, less B - 1 reads of the shared rows (which stay in L2).
 
 #include <cuda_runtime.h>
 
@@ -229,9 +238,22 @@ __global__ void __launch_bounds__(kTile)
     surface_kernel(const T* __restrict__ pos, const int64_t* __restrict__ rows,
                    const bool* __restrict__ valid, const T* __restrict__ gamma,
                    T* __restrict__ e_tri, T* __restrict__ dc, double* __restrict__ partials,
-                   unsigned int* __restrict__ counter, T* __restrict__ energy, int n, int64_t nv) {
+                   unsigned int* __restrict__ counter, T* __restrict__ energy, int n, int64_t nv,
+                   int64_t gamma_stride) {
   __shared__ alignas(16) int64_t s_rows[3 * kTile];
   __shared__ alignas(16) T s_dc[kGrad ? 9 * kTile : 4];
+  // member blockIdx.y: its positions, tension (gamma_stride 0: shared),
+  // outputs and partials; the rows and the mask are shared
+  const int64_t member = blockIdx.y;
+  pos += member * nv * 3;
+  gamma += member * gamma_stride;
+  if (e_tri != nullptr) e_tri += member * n;
+  if constexpr (kGrad) dc += member * 9 * (int64_t)n;
+  if (partials != nullptr) {
+    partials += member * gridDim.x;
+    counter += member;
+    energy += member;
+  }
   const int tid = threadIdx.x;
   const int first = blockIdx.x * kTile;
   const int here = min(kTile, n - first);
@@ -310,6 +332,12 @@ __global__ void curvature_fwd_kernel(const T* __restrict__ pos, const int64_t* _
                                      T* __restrict__ tri_area, int n, int64_t nv) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n) return;
+  const int64_t member = blockIdx.y;  // member: its positions and outputs
+  pos += member * nv * 3;
+  cot += member * 3 * (int64_t)n;
+  kv += member * 9 * (int64_t)n;
+  va += member * 3 * (int64_t)n;
+  if (tri_area) tri_area += member * n;
   V3<T> v[3];
   if (!load_corners(pos, rows, t, nv, v)) {
     const T q = nan_of<T>();
@@ -387,6 +415,15 @@ __global__ void curvature_bwd_kernel(const T* __restrict__ pos, const int64_t* _
                                      int64_t nv) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n) return;
+  const int64_t member = blockIdx.y;  // member: its positions, upstreams and output
+  pos += member * nv * 3;
+  if (g_cot) g_cot += member * 3 * (int64_t)n;
+  if (g_kv) g_kv += member * 9 * (int64_t)n;
+  if (g_va) g_va += member * 3 * (int64_t)n;
+  if (g_area) g_area += member * n;
+  if (g_kvecs) g_kvecs += member * nv * 3;
+  if (g_varea) g_varea += member * nv;
+  dp += member * 9 * (int64_t)n;
   V3<T> v[3];
   if (!load_corners(pos, rows, t, nv, v)) {
     const T q = nan_of<T>();
@@ -500,6 +537,12 @@ __global__ void __launch_bounds__(kTile)
                   int64_t nv) {
   __shared__ alignas(16) int64_t s_rows[3 * kTile];
   __shared__ alignas(16) T s_g[9 * kTile];
+  const int64_t member = blockIdx.y;  // member: its positions, tilts and outputs
+  pos += member * nv * 3;
+  tilts += member * nv * 3;
+  div += member * n;
+  area += member * n;
+  grads += member * 9 * (int64_t)n;
   const int tid = threadIdx.x;
   const int first = blockIdx.x * kTile;
   const int here = min(kTile, n - first);
@@ -529,20 +572,37 @@ __global__ void __launch_bounds__(kTile)
   store_slab(grads + 9 * (int64_t)first, s_g, 9 * here);
 }
 
-inline unsigned int blocks_for(int n) { return (unsigned int)((n + kThreads - 1) / kThreads); }
-inline unsigned int tiles_for(int n) { return (unsigned int)((n + kTile - 1) / kTile); }
+// Grids over n triangles, with ``members`` stacked members on the y axis.
+inline dim3 blocks_for(int n, int members = 1) {
+  return dim3((unsigned int)((n + kThreads - 1) / kThreads), (unsigned int)members);
+}
+inline dim3 tiles_for(int n, int members = 1) {
+  return dim3((unsigned int)((n + kTile - 1) / kTile), (unsigned int)members);
+}
 
 template <typename T>
 void surface(const T* pos, const int64_t* rows, const bool* valid, const T* gamma, T* e_tri,
              T* dc, double* partials, unsigned int* counter, T* energy, int n, int64_t nv,
-             bool grad, cudaStream_t st) {
+             bool grad, cudaStream_t st, int members = 1, int64_t gamma_stride = 0) {
   if (grad) {
-    surface_kernel<T, true><<<tiles_for(n), kTile, 0, st>>>(pos, rows, valid, gamma, e_tri, dc,
-                                                           partials, counter, energy, n, nv);
+    surface_kernel<T, true><<<tiles_for(n, members), kTile, 0, st>>>(
+        pos, rows, valid, gamma, e_tri, dc, partials, counter, energy, n, nv, gamma_stride);
   } else {
-    surface_kernel<T, false><<<tiles_for(n), kTile, 0, st>>>(pos, rows, valid, gamma, e_tri,
-                                                            nullptr, partials, counter, energy,
-                                                            n, nv);
+    surface_kernel<T, false><<<tiles_for(n, members), kTile, 0, st>>>(
+        pos, rows, valid, gamma, e_tri, nullptr, partials, counter, energy, n, nv, gamma_stride);
+  }
+}
+
+template <typename T>
+void surface_energy(const T* pos, const int64_t* rows, const bool* valid, const T* tension,
+                    int64_t tension_stride, const int32_t* offsets, const int32_t* slots,
+                    T* dc_scratch, double* partials, unsigned int* counter, T* energy, T* dpos,
+                    int n, int64_t nv, bool grad, int members, cudaStream_t st) {
+  surface<T>(pos, rows, valid, tension, nullptr, dc_scratch, partials, counter, energy, n, nv,
+             grad, st, members, tension_stride);
+  if (grad) {
+    vertex_sum::launch<T, 3>(offsets, slots, dc_scratch, dpos, nullptr, nullptr, (int)nv, st,
+                             members, 3 * (int64_t)n);
   }
 }
 
@@ -586,19 +646,40 @@ extern "C" int tri_surface_energy(int f64, const void* pos, const int64_t* rows,
   if (n < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (f64) {
-    surface<double>((const double*)pos, rows, valid, (const double*)tension, nullptr,
-                    (double*)dc_scratch, partials, counter, (double*)energy, n, nv, grad, st);
-    if (grad) {
-      vertex_sum::launch<double, 3>(offsets, slots, (const double*)dc_scratch, (double*)dpos,
-                                    nullptr, nullptr, (int)nv, st);
-    }
+    surface_energy<double>((const double*)pos, rows, valid, (const double*)tension, 0, offsets,
+                           slots, (double*)dc_scratch, partials, counter, (double*)energy,
+                           (double*)dpos, n, nv, grad, 1, st);
   } else {
-    surface<float>((const float*)pos, rows, valid, (const float*)tension, nullptr,
-                   (float*)dc_scratch, partials, counter, (float*)energy, n, nv, grad, st);
-    if (grad) {
-      vertex_sum::launch<float, 3>(offsets, slots, (const float*)dc_scratch, (float*)dpos,
-                                   nullptr, nullptr, (int)nv, st);
-    }
+    surface_energy<float>((const float*)pos, rows, valid, (const float*)tension, 0, offsets,
+                          slots, (float*)dc_scratch, partials, counter, (float*)energy,
+                          (float*)dpos, n, nv, grad, 1, st);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The member axis of the parameter sweep: ``members`` stacked members in one
+// call, pos (members, nv, 3), tension (members, n) with tension_stride n or
+// one shared (n,) with tension_stride 0, dc_scratch (members, n, 3, 3),
+// partials (members, tri_tile_size() blocks), counter (members,) zeroed,
+// energy (members,), dpos (members, nv, 3); rows, valid and the CSR shared.
+// Member m's outputs are the bits of tri_surface_energy on member m alone.
+extern "C" int tri_surface_energy_members(int f64, const void* pos, const int64_t* rows,
+                                          const bool* valid, const void* tension,
+                                          int64_t tension_stride, const int32_t* offsets,
+                                          const int32_t* slots, void* dc_scratch,
+                                          double* partials, unsigned int* counter, void* energy,
+                                          void* dpos, int n, int64_t nv, int grad, int members,
+                                          void* stream) {
+  if (n < 1 || members < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (f64) {
+    surface_energy<double>((const double*)pos, rows, valid, (const double*)tension,
+                           tension_stride, offsets, slots, (double*)dc_scratch, partials,
+                           counter, (double*)energy, (double*)dpos, n, nv, grad, members, st);
+  } else {
+    surface_energy<float>((const float*)pos, rows, valid, (const float*)tension, tension_stride,
+                          offsets, slots, (float*)dc_scratch, partials, counter, (float*)energy,
+                          (float*)dpos, n, nv, grad, members, st);
   }
   return (int)cudaGetLastError();
 }
@@ -644,20 +725,22 @@ namespace {
 template <typename T>
 void curvature_data(const T* pos, const int64_t* rows, const bool* valid, const int32_t* offsets,
                     const int32_t* slots, T* cot, T* va, T* k_scratch, T* k_vecs, T* vertex_areas,
-                    int n, int64_t nv, cudaStream_t st) {
-  curvature_fwd_kernel<T><<<blocks_for(n), kThreads, 0, st>>>(pos, rows, valid, cot, k_scratch,
-                                                               va, nullptr, n, nv);
-  vertex_sum::launch<T, 3, 1>(offsets, slots, k_scratch, k_vecs, va, vertex_areas, (int)nv, st);
+                    int n, int64_t nv, cudaStream_t st, int members = 1) {
+  curvature_fwd_kernel<T><<<blocks_for(n, members), kThreads, 0, st>>>(
+      pos, rows, valid, cot, k_scratch, va, nullptr, n, nv);
+  vertex_sum::launch<T, 3, 1>(offsets, slots, k_scratch, k_vecs, va, vertex_areas, (int)nv, st,
+                              members, 3 * (int64_t)n);
 }
 
 template <typename T>
 void curvature_data_bwd(const T* pos, const int64_t* rows, const bool* valid,
                         const int32_t* offsets, const int32_t* slots, const T* g_kvecs,
                         const T* g_varea, const T* g_cot, const T* g_va, T* dc_scratch, T* dpos,
-                        int n, int64_t nv, cudaStream_t st) {
-  curvature_bwd_kernel<T><<<blocks_for(n), kThreads, 0, st>>>(
+                        int n, int64_t nv, cudaStream_t st, int members = 1) {
+  curvature_bwd_kernel<T><<<blocks_for(n, members), kThreads, 0, st>>>(
       pos, rows, valid, g_cot, nullptr, g_va, nullptr, g_kvecs, g_varea, dc_scratch, n, nv);
-  vertex_sum::launch<T, 3>(offsets, slots, dc_scratch, dpos, nullptr, nullptr, (int)nv, st);
+  vertex_sum::launch<T, 3>(offsets, slots, dc_scratch, dpos, nullptr, nullptr, (int)nv, st,
+                           members, 3 * (int64_t)n);
 }
 
 }  // namespace
@@ -745,6 +828,97 @@ extern "C" int tri_p1_div_bwd(int f64, const int32_t* offsets, const int32_t* sl
     vertex_sum::launch_weighted<float, 3>(offsets, slots, (const float*)grads,
                                           (const float*)g_div, valid, (float*)dtilts, (int)nv,
                                           st);
+  }
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------
+// the member axis (the parameter sweep): ``members`` stacked members in
+// one call, the members on the grids' y axis; per member the positions
+// (and tilts) (members, nv, 3), every upstream and output with a leading
+// member axis, the scratch too; tri_rows, the masks and the CSR shared.
+// Member m's outputs are the bits of the call above on member m alone.
+// ---------------------------------------------------------------------
+
+extern "C" int tri_curvature_data_members(int f64, const void* pos, const int64_t* rows,
+                                          const bool* valid, const int32_t* offsets,
+                                          const int32_t* slots, void* cot, void* va,
+                                          void* k_scratch, void* k_vecs, void* vertex_areas,
+                                          int n, int64_t nv, int members, void* stream) {
+  if (members < 1) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    cudaStream_t st = (cudaStream_t)stream;
+    if (f64) {
+      curvature_data<double>((const double*)pos, rows, valid, offsets, slots, (double*)cot,
+                             (double*)va, (double*)k_scratch, (double*)k_vecs,
+                             (double*)vertex_areas, n, nv, st, members);
+    } else {
+      curvature_data<float>((const float*)pos, rows, valid, offsets, slots, (float*)cot,
+                            (float*)va, (float*)k_scratch, (float*)k_vecs, (float*)vertex_areas,
+                            n, nv, st, members);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tri_curvature_data_bwd_members(int f64, const void* pos, const int64_t* rows,
+                                              const bool* valid, const int32_t* offsets,
+                                              const int32_t* slots, const void* g_kvecs,
+                                              const void* g_varea, const void* g_cot,
+                                              const void* g_va, void* dc_scratch, void* dpos,
+                                              int n, int64_t nv, int members, void* stream) {
+  if (members < 1) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    cudaStream_t st = (cudaStream_t)stream;
+    if (f64) {
+      curvature_data_bwd<double>((const double*)pos, rows, valid, offsets, slots,
+                                 (const double*)g_kvecs, (const double*)g_varea,
+                                 (const double*)g_cot, (const double*)g_va, (double*)dc_scratch,
+                                 (double*)dpos, n, nv, st, members);
+    } else {
+      curvature_data_bwd<float>((const float*)pos, rows, valid, offsets, slots,
+                                (const float*)g_kvecs, (const float*)g_varea,
+                                (const float*)g_cot, (const float*)g_va, (float*)dc_scratch,
+                                (float*)dpos, n, nv, st, members);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tri_p1_div_members(int f64, const void* pos, const void* tilts,
+                                  const int64_t* rows, const bool* valid, void* div, void* area,
+                                  void* grads, int n, int64_t nv, int members, void* stream) {
+  if (members < 1) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    cudaStream_t st = (cudaStream_t)stream;
+    if (f64) {
+      p1_div_kernel<double><<<tiles_for(n, members), kTile, 0, st>>>(
+          (const double*)pos, (const double*)tilts, rows, valid, (double*)div, (double*)area,
+          (double*)grads, n, nv);
+    } else {
+      p1_div_kernel<float><<<tiles_for(n, members), kTile, 0, st>>>(
+          (const float*)pos, (const float*)tilts, rows, valid, (float*)div, (float*)area,
+          (float*)grads, n, nv);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+// grads (members, n, 3, 3), g_div (members, n), dtilts (members, nv, 3).
+extern "C" int tri_p1_div_bwd_members(int f64, const int32_t* offsets, const int32_t* slots,
+                                      const void* grads, const bool* valid, const void* g_div,
+                                      void* dtilts, int64_t nv, int n, int members,
+                                      void* stream) {
+  if (members < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (f64) {
+    vertex_sum::launch_weighted<double, 3>(offsets, slots, (const double*)grads,
+                                           (const double*)g_div, valid, (double*)dtilts, (int)nv,
+                                           st, members, 3 * (int64_t)n);
+  } else {
+    vertex_sum::launch_weighted<float, 3>(offsets, slots, (const float*)grads,
+                                          (const float*)g_div, valid, (float*)dtilts, (int)nv,
+                                          st, members, 3 * (int64_t)n);
   }
   return (int)cudaGetLastError();
 }

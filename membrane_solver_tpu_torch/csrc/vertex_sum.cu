@@ -32,3 +32,32 @@ extern "C" int vertex_sum_rows(int f64, int width, const int32_t* offsets, const
   }
   return (int)cudaGetLastError();
 }
+
+// The same sum over ``members`` stacked members (the parameter sweep's member
+// axis): src (members, src_rows, width), out (members, n, width), one launch
+// with the members on the grid's y axis, the CSR shared.  Member m's rows are
+// the bits of vertex_sum_rows on member m alone.
+extern "C" int vertex_sum_rows_members(int f64, int width, const int32_t* offsets,
+                                       const int32_t* slots, const void* src, void* out, int n,
+                                       int64_t src_rows, int members, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (width != 1 && width != 3) return (int)cudaErrorInvalidValue;
+  if (f64) {
+    if (width == 3) {
+      vertex_sum::launch<double, 3>(offsets, slots, (const double*)src, (double*)out, nullptr,
+                                    nullptr, n, st, members, src_rows);
+    } else {
+      vertex_sum::launch<double, 1>(offsets, slots, (const double*)src, (double*)out, nullptr,
+                                    nullptr, n, st, members, src_rows);
+    }
+  } else {
+    if (width == 3) {
+      vertex_sum::launch<float, 3>(offsets, slots, (const float*)src, (float*)out, nullptr,
+                                   nullptr, n, st, members, src_rows);
+    } else {
+      vertex_sum::launch<float, 1>(offsets, slots, (const float*)src, (float*)out, nullptr,
+                                   nullptr, n, st, members, src_rows);
+    }
+  }
+  return (int)cudaGetLastError();
+}

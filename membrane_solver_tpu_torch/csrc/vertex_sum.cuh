@@ -37,14 +37,27 @@ constexpr int kThreads = 256;
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 
+// Member m = blockIdx.y reads its sources at m * src_rows rows (src_rows =
+// 3T corner rows per member; the weight at m * src_rows / 3) and writes its
+// output at m * n rows; the CSR and the mask are shared.  With one member
+// (gridDim.y = 1) every offset is zero.
 template <typename T, int Wa, int Wb, bool kWeighted>
 __global__ void __launch_bounds__(kThreads)
     vertex_sum_kernel(const int32_t* __restrict__ offsets, const int32_t* __restrict__ slots,
                       const T* __restrict__ src_a, T* __restrict__ out_a,
                       const T* __restrict__ src_b, T* __restrict__ out_b,
-                      const T* __restrict__ weight, const bool* __restrict__ mask, int n) {
+                      const T* __restrict__ weight, const bool* __restrict__ mask, int n,
+                      int64_t src_rows) {
   const int v = blockIdx.x * blockDim.x + threadIdx.x;
   if (v >= n) return;
+  const int64_t member = blockIdx.y;
+  src_a += member * src_rows * Wa;
+  out_a += member * n * Wa;
+  if constexpr (Wb > 0) {
+    src_b += member * src_rows * Wb;
+    out_b += member * n * Wb;
+  }
+  if constexpr (kWeighted) weight += member * (src_rows / 3);
   const int lo = offsets[v];
   const int hi = offsets[v + 1];
   T a[Wa];
@@ -77,16 +90,21 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-inline unsigned int vertex_blocks(int n) { return (unsigned int)((n + kThreads - 1) / kThreads); }
+inline dim3 vertex_grid(int n, int members) {
+  return dim3((unsigned int)((n + kThreads - 1) / kThreads), (unsigned int)members);
+}
 
-// Launches on ``stream``; n vertices.  Returns nothing: the caller checks
-// cudaGetLastError() once for its whole launch sequence.
+// Launches on ``stream``; n vertices, ``members`` stacked members of
+// ``src_rows`` corner rows each (src_rows is read only with members > 1).
+// Returns nothing: the caller checks cudaGetLastError() once for its whole
+// launch sequence.
 template <typename T, int Wa, int Wb = 0>
 inline void launch(const int32_t* offsets, const int32_t* slots, const T* src_a, T* out_a,
-                   const T* src_b, T* out_b, int n, cudaStream_t stream) {
-  if (n > 0) {
-    vertex_sum_kernel<T, Wa, Wb, false><<<vertex_blocks(n), kThreads, 0, stream>>>(
-        offsets, slots, src_a, out_a, src_b, out_b, nullptr, nullptr, n);
+                   const T* src_b, T* out_b, int n, cudaStream_t stream, int members = 1,
+                   int64_t src_rows = 0) {
+  if (n > 0 && members > 0) {
+    vertex_sum_kernel<T, Wa, Wb, false><<<vertex_grid(n, members), kThreads, 0, stream>>>(
+        offsets, slots, src_a, out_a, src_b, out_b, nullptr, nullptr, n, src_rows);
   }
 }
 
@@ -95,10 +113,10 @@ inline void launch(const int32_t* offsets, const int32_t* slots, const T* src_a,
 template <typename T, int W>
 inline void launch_weighted(const int32_t* offsets, const int32_t* slots, const T* src,
                             const T* weight, const bool* mask, T* out, int n,
-                            cudaStream_t stream) {
-  if (n > 0) {
-    vertex_sum_kernel<T, W, 0, true><<<vertex_blocks(n), kThreads, 0, stream>>>(
-        offsets, slots, src, out, nullptr, nullptr, weight, mask, n);
+                            cudaStream_t stream, int members = 1, int64_t src_rows = 0) {
+  if (n > 0 && members > 0) {
+    vertex_sum_kernel<T, W, 0, true><<<vertex_grid(n, members), kThreads, 0, stream>>>(
+        offsets, slots, src, out, nullptr, nullptr, weight, mask, n, src_rows);
   }
 }
 

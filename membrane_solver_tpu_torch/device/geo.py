@@ -172,10 +172,15 @@ class _DirectionalNorm(torch.autograd.Function):
     fallback's tangent, so the fallback receives no gradient here either.
     """
 
+    generate_vmap_rule = True  # plain operations: the sweep maps it over its members
+
     @staticmethod
-    def forward(ctx, vecs, fallback):
-        ctx.save_for_backward(vecs, fallback)
+    def forward(vecs, fallback):
         return torch.linalg.vector_norm(vecs, dim=-1)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
 
     @staticmethod
     def backward(ctx, grad_out):

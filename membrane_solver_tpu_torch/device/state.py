@@ -16,6 +16,7 @@ from typing import Any, Collection, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+from torch.utils import _pytree
 
 from membrane_solver_tpu_torch.geometry.mesh import Mesh
 
@@ -35,6 +36,17 @@ class MeshState:
     tilts: torch.Tensor
     tilts_in: torch.Tensor
     tilts_out: torch.Tensor
+
+
+# a pytree, so ``torch.func.vmap`` maps a state with a leading member axis
+# (the parameter sweep, ``parallel/sweep``)
+_STATE_FIELDS = tuple(f.name for f in dataclasses.fields(MeshState))
+_pytree.register_pytree_node(
+    MeshState,
+    lambda st: ([getattr(st, f) for f in _STATE_FIELDS], None),
+    lambda leaves, _ctx: MeshState(*leaves),
+    serialized_type_name="membrane_solver_tpu_torch.device.state.MeshState",
+)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -47,6 +47,17 @@ launches the kernels, after device, dtype, shape, contiguity and alignment
 checks that raise on anything else; a CPU tensor runs the twins.
 ``LAUNCHES`` counts calls of each entry point; the vertex-sum launches they
 make count in ``vertex_sum.LAUNCHES``.
+
+The member axis (the parameter sweep, ``parallel/sweep``): under
+``torch.func.vmap`` the Functions' ``vmap`` rules call the ``*_members``
+launches (``launch_surface_energy_members``, ``launch_curvature_data_members``
+and its backward, ``launch_p1_divergence_members`` and its tilt backward):
+one call for B members stacked on a leading axis, the members on the
+grid's y axis, ``tri_rows``, the masks and the CSR shared, member m's
+outputs the bits of the single call on member m.  Their twins
+(``*_members_reference``) run the single twins per member, on the CPU.
+The rules raise when a shared input (``tri_rows``, ``tri_valid``) varies
+over the members.
 """
 
 from __future__ import annotations
@@ -63,7 +74,11 @@ from membrane_solver_tpu_torch.kernels import vertex_sum as vs
 
 LAUNCHES = {"surface_energy": 0, "surface_energy_grad": 0, "curvature_data": 0,
             "curvature_data_bwd": 0, "p1_div": 0, "p1_div_bwd": 0,
-            "surface_fwd": 0, "curvature_fwd": 0, "curvature_bwd": 0}
+            "surface_fwd": 0, "curvature_fwd": 0, "curvature_bwd": 0,
+            # the member axis (the parameter sweep): one launch for all members
+            "surface_energy_members": 0, "surface_energy_grad_members": 0,
+            "curvature_data_members": 0, "curvature_data_bwd_members": 0,
+            "p1_div_members": 0, "p1_div_bwd_members": 0}
 
 # -fmad=false: no contracted multiply-adds, so the obtuse-branch tests see
 # the twin's rounding (see the note in the source)
@@ -90,6 +105,12 @@ def build() -> ctypes.CDLL:
         "tri_curvature_data_bwd": [i32] + [ptr] * 11 + [i32, i64, ptr],
         "tri_p1_div": [i32] + [ptr] * 7 + [i32, i64, ptr],
         "tri_p1_div_bwd": [i32] + [ptr] * 6 + [i64, ptr],
+        "tri_surface_energy_members": [i32, ptr, ptr, ptr, ptr, i64] + [ptr] * 7
+                                      + [i32, i64, i32, i32, ptr],
+        "tri_curvature_data_members": [i32] + [ptr] * 10 + [i32, i64, i32, ptr],
+        "tri_curvature_data_bwd_members": [i32] + [ptr] * 11 + [i32, i64, i32, ptr],
+        "tri_p1_div_members": [i32] + [ptr] * 7 + [i32, i64, i32, ptr],
+        "tri_p1_div_bwd_members": [i32] + [ptr] * 6 + [i64, i32, i32, ptr],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -175,8 +196,9 @@ class Workspace:
     share one must run in order on one stream.
     """
 
-    def __init__(self, n_triangles: int, dtype, device):
+    def __init__(self, n_triangles: int, dtype, device, topo=None):
         self.n_triangles = n_triangles
+        self.topo = topo  # the topology that keeps it (its member workspaces too)
         self.corners = torch.empty((n_triangles, 3, 3), dtype=dtype, device=device)
         self.partials = torch.empty(-(-n_triangles // TILE), dtype=torch.float64, device=device)
         self.counter = torch.zeros(1, dtype=torch.int32, device=device)
@@ -191,7 +213,8 @@ def workspace(topo, positions) -> Workspace | None:
     if not positions.is_cuda:
         return None
     return topo.kept(("tri_kernels.workspace", positions.dtype, positions.device),
-                     lambda: Workspace(topo.tri_rows.shape[0], positions.dtype, positions.device))
+                     lambda: Workspace(topo.tri_rows.shape[0], positions.dtype, positions.device,
+                                       topo))
 
 
 def launch_surface_energy(positions, tri_rows, tri_valid, tension, csr: CornerCSR, ws: Workspace,
@@ -359,6 +382,175 @@ def launch_p1_div_bwd(g, tri_valid, g_div, csr: CornerCSR):
 
 
 # ----------------------------------------------------------------------
+# member-axis launches (the parameter sweep; CUDA tensors only)
+# ----------------------------------------------------------------------
+def _check_members(positions, tri_rows) -> tuple:
+    """(B, T) of (B, Nv, 3) member positions and the shared (T, 3) rows."""
+    if positions.dim() != 3 or positions.shape[2] != 3:
+        raise ValueError(f"member positions must be (B, Nv, 3), got {tuple(positions.shape)}")
+    members = positions.shape[0]
+    if not 1 <= members <= vs.MAX_MEMBERS:
+        raise ValueError(f"{members} members; the launches take 1 to {vs.MAX_MEMBERS}")
+    T = _check_rows(positions[0], tri_rows)
+    if not positions.is_contiguous():
+        raise ValueError("member positions must be contiguous")
+    return members, T
+
+
+class MemberWorkspace:
+    """Scratch of ``tri_surface_energy_members`` for B members of T triangles.
+
+    :class:`Workspace` with a leading member axis: (B, T, 3, 3) corner
+    gradients, (B, blocks) double partials and B last-block counters.  Kept
+    per topology and member count by :func:`member_workspace`.
+    """
+
+    def __init__(self, members: int, n_triangles: int, dtype, device):
+        self.members = members
+        self.n_triangles = n_triangles
+        self.corners = torch.empty((members, n_triangles, 3, 3), dtype=dtype, device=device)
+        self.partials = torch.empty((members, -(-n_triangles // TILE)), dtype=torch.float64,
+                                    device=device)
+        self.counter = torch.zeros(members, dtype=torch.int32, device=device)
+
+
+def member_workspace(topo, positions) -> MemberWorkspace | None:
+    """The topology's :class:`MemberWorkspace` for (B, Nv, 3) ``positions``; None on the CPU."""
+    if not positions.is_cuda:
+        return None
+    members = positions.shape[0]
+    return topo.kept(("tri_kernels.member_workspace", positions.dtype, positions.device, members),
+                     lambda: MemberWorkspace(members, topo.tri_rows.shape[0], positions.dtype,
+                                             positions.device))
+
+
+def launch_surface_energy_members(positions, tri_rows, tri_valid, tension, csr: CornerCSR,
+                                  ws: MemberWorkspace, grad: bool):
+    """(energy (B,), dE/dpositions (B, Nv, 3) or None) of B members in one call.
+
+    ``tension`` is (T,), shared, or (B, T); member m's outputs are the bits
+    of :func:`launch_surface_energy` on member m.
+    """
+    members, T = _check_members(positions, tri_rows)
+    if T < 1:
+        raise ValueError("the surface energy kernel needs at least one triangle")
+    shared = tension.dim() == 1
+    _check(positions, positions.dtype, tri_valid=(tri_valid, (T,), torch.bool),
+           tension=(tension, (T,) if shared else (members, T), None))
+    if (ws.members != members or ws.n_triangles != T or ws.corners.device != positions.device
+            or ws.corners.dtype != positions.dtype):
+        raise ValueError(f"the workspace holds {ws.members} x {ws.n_triangles} "
+                         f"{ws.corners.dtype} triangles on {ws.corners.device}")
+    if grad:
+        _check_csr(positions[0], tri_rows, csr)
+    lib = build()
+    nv = positions.shape[1]
+    energy = torch.empty(members, dtype=positions.dtype, device=positions.device)
+    dpos = torch.empty_like(positions) if grad else None
+    code = lib.tri_surface_energy_members(
+        _f64(positions), positions.data_ptr(), tri_rows.data_ptr(), tri_valid.data_ptr(),
+        tension.data_ptr(), 0 if shared else T, csr.offsets.data_ptr() if grad else None,
+        csr.slots.data_ptr() if grad else None, ws.corners.data_ptr(), ws.partials.data_ptr(),
+        ws.counter.data_ptr(), energy.data_ptr(), _ptr(dpos), T, nv, int(grad), members,
+        _stream(positions),
+    )
+    _raise_on(code, "tri_surface_energy_members")
+    if grad:
+        LAUNCHES["surface_energy_grad_members"] += 1
+        vs.LAUNCHES["vertex_sum_members"] += 1
+    else:
+        LAUNCHES["surface_energy_members"] += 1
+    return energy, dpos
+
+
+def launch_curvature_data_members(positions, tri_rows, tri_valid, csr: CornerCSR):
+    """(cot (B, T, 3), va (B, T, 3), k_vecs (B, Nv, 3), vertex_areas (B, Nv)) in one call."""
+    members, T = _check_members(positions, tri_rows)
+    _check(positions, positions.dtype, tri_valid=(tri_valid, (T,), torch.bool))
+    _check_csr(positions[0], tri_rows, csr)
+    lib = build()
+    nv = positions.shape[1]
+    kw = {"dtype": positions.dtype, "device": positions.device}
+    cot, va, k_scratch, k_vecs, vertex_areas = (
+        torch.empty((members,) + s, **kw) for s in ((T, 3), (T, 3), (T, 3, 3), (nv, 3), (nv,)))
+    code = lib.tri_curvature_data_members(
+        _f64(positions), positions.data_ptr(), tri_rows.data_ptr(), tri_valid.data_ptr(),
+        csr.offsets.data_ptr(), csr.slots.data_ptr(), cot.data_ptr(), va.data_ptr(),
+        k_scratch.data_ptr(), k_vecs.data_ptr(), vertex_areas.data_ptr(), T, nv, members,
+        _stream(positions),
+    )
+    _raise_on(code, "tri_curvature_data_members")
+    LAUNCHES["curvature_data_members"] += 1
+    vs.LAUNCHES["vertex_sum_members"] += 1
+    return cot, va, k_vecs, vertex_areas
+
+
+def launch_curvature_data_bwd_members(positions, tri_rows, tri_valid, csr: CornerCSR, g_kvecs,
+                                      g_varea, g_cot, g_va):
+    """dE/dpositions (B, Nv, 3) of B members in one call; any upstream may be None (zero)."""
+    members, T = _check_members(positions, tri_rows)
+    nv = positions.shape[1]
+    upstream = {"g_kvecs": (g_kvecs, (members, nv, 3), None),
+                "g_varea": (g_varea, (members, nv), None),
+                "g_cot": (g_cot, (members, T, 3), None), "g_va": (g_va, (members, T, 3), None)}
+    _check(positions, positions.dtype, tri_valid=(tri_valid, (T,), torch.bool),
+           **{k: v for k, v in upstream.items() if v[0] is not None})
+    _check_csr(positions[0], tri_rows, csr)
+    lib = build()
+    dc_scratch = torch.empty((members, T, 3, 3), dtype=positions.dtype, device=positions.device)
+    dpos = torch.empty_like(positions)
+    code = lib.tri_curvature_data_bwd_members(
+        _f64(positions), positions.data_ptr(), tri_rows.data_ptr(), tri_valid.data_ptr(),
+        csr.offsets.data_ptr(), csr.slots.data_ptr(), _ptr(g_kvecs), _ptr(g_varea), _ptr(g_cot),
+        _ptr(g_va), dc_scratch.data_ptr(), dpos.data_ptr(), T, nv, members, _stream(positions),
+    )
+    _raise_on(code, "tri_curvature_data_bwd_members")
+    LAUNCHES["curvature_data_bwd_members"] += 1
+    vs.LAUNCHES["vertex_sum_members"] += 1
+    return dpos
+
+
+def launch_p1_divergence_members(positions, tilts, tri_rows, tri_valid):
+    """(div (B, T), area (B, T), g (B, T, 3, 3)) of B members in one call."""
+    members, T = _check_members(positions, tri_rows)
+    _check(positions, positions.dtype, tilts=(tilts, positions.shape, None),
+           tri_valid=(tri_valid, (T,), torch.bool))
+    lib = build()
+    kw = {"dtype": positions.dtype, "device": positions.device}
+    div, area, g = (torch.empty((members,) + s, **kw) for s in ((T,), (T,), (T, 3, 3)))
+    code = lib.tri_p1_div_members(
+        _f64(positions), positions.data_ptr(), tilts.data_ptr(), tri_rows.data_ptr(),
+        tri_valid.data_ptr(), div.data_ptr(), area.data_ptr(), g.data_ptr(), T,
+        positions.shape[1], members, _stream(positions),
+    )
+    _raise_on(code, "tri_p1_div_members")
+    LAUNCHES["p1_div_members"] += 1
+    return div, area, g
+
+
+def launch_p1_div_bwd_members(g, tri_valid, g_div, csr: CornerCSR):
+    """dE/dtilts (B, Nv, 3) of B members' (B, T, 3, 3) shape gradients in one call."""
+    if g.dim() != 4:
+        raise ValueError(f"member shape gradients must be (B, T, 3, 3), got {tuple(g.shape)}")
+    members, T = g.shape[0], g.shape[1]
+    if not 1 <= members <= vs.MAX_MEMBERS:
+        raise ValueError(f"{members} members; the launches take 1 to {vs.MAX_MEMBERS}")
+    _check(g, g.dtype, g=(g, (members, T, 3, 3), None), tri_valid=(tri_valid, (T,), torch.bool),
+           g_div=(g_div, (members, T), None))
+    vs.check_csr(csr, g, T)
+    lib = build()
+    dtilts = torch.empty((members, csr.n_rows, 3), dtype=g.dtype, device=g.device)
+    code = lib.tri_p1_div_bwd_members(
+        _f64(g), csr.offsets.data_ptr(), csr.slots.data_ptr(), g.data_ptr(), tri_valid.data_ptr(),
+        g_div.data_ptr(), dtilts.data_ptr(), csr.n_rows, T, members, _stream(g),
+    )
+    _raise_on(code, "tri_p1_div_bwd_members")
+    LAUNCHES["p1_div_bwd_members"] += 1
+    vs.LAUNCHES["vertex_sum_members"] += 1
+    return dtilts
+
+
+# ----------------------------------------------------------------------
 # plain twins and autograd Functions (kernels on the card, twins on the CPU)
 # ----------------------------------------------------------------------
 def _corners(x, tri_rows):
@@ -421,17 +613,120 @@ def _surface(positions, tri_rows, tri_valid, tension, csr, ws, grad):
     return surface_energy_reference(positions, tri_rows, tri_valid, tension, csr, grad)
 
 
-class _SurfaceEnergy(torch.autograd.Function):
+# --- the member axis: twins (each member's twin, the CPU path and the
+# oracle), Functions over a leading member axis, and the vmap rules that
+# reach them ------------------------------------------------------------
+def surface_energy_members_reference(positions, tri_rows, tri_valid, tension, csr: CornerCSR,
+                                     grad: bool):
+    """Plain twin of ``tri_surface_energy_members``: :func:`surface_energy_reference` per member."""
+    tensions = tension if tension.dim() == 2 else [tension] * positions.shape[0]
+    out = [surface_energy_reference(x, tri_rows, tri_valid, t, csr, grad)
+           for x, t in zip(positions, tensions)]
+    e = torch.stack([o[0] for o in out])
+    return e, torch.stack([o[1] for o in out]) if grad else None
+
+
+def curvature_data_members_reference(positions, tri_rows, tri_valid, csr: CornerCSR):
+    """Plain twin of ``tri_curvature_data_members``: :func:`curvature_data_reference` per member."""
+    out = [curvature_data_reference(x, tri_rows, tri_valid, csr) for x in positions]
+    return tuple(torch.stack(parts) for parts in zip(*out))
+
+
+def curvature_data_vjp_members_reference(positions, tri_rows, tri_valid, csr: CornerCSR, g_kvecs,
+                                         g_varea, g_cot, g_va):
+    """Plain twin of ``tri_curvature_data_bwd_members``, per member."""
+    def part(g, m):
+        return None if g is None else g[m]
+
+    return torch.stack([
+        curvature_data_vjp_reference(x, tri_rows, tri_valid, csr, part(g_kvecs, m),
+                                     part(g_varea, m), part(g_cot, m), part(g_va, m))
+        for m, x in enumerate(positions)])
+
+
+def p1_divergence_members_reference(positions, tilts, tri_rows, tri_valid):
+    """Plain twin of ``tri_p1_div_members``: ``tilt_ops.p1_triangle_divergence`` per member."""
+    out = [tilt_ops.p1_triangle_divergence(x, t, tri_rows, tri_valid)
+           for x, t in zip(positions, tilts)]
+    return tuple(torch.stack(parts) for parts in zip(*out))
+
+
+def p1_div_vjp_members_reference(g, tri_valid, g_div, csr: CornerCSR):
+    """Plain twin of ``tri_p1_div_bwd_members``: :func:`p1_div_vjp_reference` per member."""
+    return torch.stack([p1_div_vjp_reference(gm, tri_valid, dm, csr)
+                        for gm, dm in zip(g, g_div)])
+
+
+def _surface_members(positions, tri_rows, tri_valid, tension, csr, ws, grad):
+    if positions.is_cuda:
+        if ws is None:
+            ws = MemberWorkspace(positions.shape[0], tri_rows.shape[0], positions.dtype,
+                                 positions.device)
+        return launch_surface_energy_members(positions.contiguous(), tri_rows, tri_valid,
+                                             tension.contiguous(), csr, ws, grad)
+    return surface_energy_members_reference(positions, tri_rows, tri_valid, tension, csr, grad)
+
+
+def _member_dim(in_dims, batch_size, x, index: int):
+    """``x`` with its member axis first: moved there, or (shared input) expanded to it."""
+    if in_dims[index] is None:
+        return x.expand((batch_size,) + tuple(x.shape))
+    return x.movedim(in_dims[index], 0)
+
+
+def _shared(in_dims, **indices) -> None:
+    """Raise when an input the member-axis launches share carries the member axis."""
+    for name, index in indices.items():
+        if in_dims[index] is not None:
+            raise NotImplementedError(
+                f"the member-axis tri kernels share {name} across members; it varies here")
+
+
+class _MemberSurfaceEnergy(torch.autograd.Function):
+    """:class:`_SurfaceEnergy` over a leading member axis (its ``vmap`` rule's launch)."""
+
     @staticmethod
     def forward(ctx, positions, tri_rows, tri_valid, tension, csr, ws):
-        e, dpos = _surface(positions.detach(), tri_rows, tri_valid, tension, csr, ws, True)
+        e, dpos = _surface_members(positions.detach(), tri_rows, tri_valid, tension, csr, ws,
+                                   True)
         ctx.save_for_backward(dpos)
         return e
 
     @staticmethod
     def backward(ctx, ct):
         (dpos,) = ctx.saved_tensors
+        return ct[:, None, None] * dpos, None, None, None, None, None
+
+
+class _SurfaceEnergy(torch.autograd.Function):
+    @staticmethod
+    def forward(positions, tri_rows, tri_valid, tension, csr, ws):
+        return _surface(positions.detach(), tri_rows, tri_valid, tension, csr, ws, True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _e, dpos = output
+        ctx.mark_non_differentiable(dpos)
+        ctx.save_for_backward(dpos)
+
+    @staticmethod
+    def backward(ctx, ct, _ct_dpos):
+        (dpos,) = ctx.saved_tensors
         return ct * dpos, None, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, positions, tri_rows, tri_valid, tension, csr, ws):
+        """All members in one launch; the gradient only where autograd follows the positions."""
+        _shared(in_dims, tri_rows=1, tri_valid=2)
+        x = _member_dim(in_dims, info.batch_size, positions, 0)
+        if in_dims[3] is not None:
+            tension = tension.movedim(in_dims[3], 0)
+        ws = None if ws is None or ws.topo is None else member_workspace(ws.topo, x)
+        if torch.is_grad_enabled() and x.requires_grad:
+            return (_MemberSurfaceEnergy.apply(x, tri_rows, tri_valid, tension, csr, ws),
+                    None), (0, None)
+        e, _dpos = _surface_members(x, tri_rows, tri_valid, tension, csr, ws, False)
+        return (e, None), (0, None)
 
 
 class _Curvature(torch.autograd.Function):
@@ -459,19 +754,56 @@ class _Curvature(torch.autograd.Function):
         return vs.reference(dc, ctx.csr), None, None, None
 
 
-class _CurvatureData(torch.autograd.Function):
+def _curvature_data_members(positions, tri_rows, tri_valid, csr):
+    if positions.is_cuda:
+        return launch_curvature_data_members(positions.contiguous(), tri_rows, tri_valid, csr)
+    return curvature_data_members_reference(positions, tri_rows, tri_valid, csr)
+
+
+class _MemberCurvatureData(torch.autograd.Function):
+    """:class:`_CurvatureData` over a leading member axis (its ``vmap`` rule's launches)."""
+
     @staticmethod
     def forward(ctx, positions, tri_rows, tri_valid, csr):
-        ctx.set_materialize_grads(False)  # an unused output passes None: no zeros are made
+        ctx.set_materialize_grads(False)
+        cot, va, k_vecs, vertex_areas = _curvature_data_members(positions, tri_rows, tri_valid,
+                                                                csr)
+        ctx.save_for_backward(positions, tri_rows, tri_valid)
+        ctx.csr = csr
+        return k_vecs, vertex_areas, cot, va
+
+    @staticmethod
+    def backward(ctx, g_kvecs, g_varea, g_cot, g_va):
+        upstream = [None if g is None else g.contiguous() for g in (g_kvecs, g_varea, g_cot, g_va)]
+        if all(g is None for g in upstream):
+            return None, None, None, None
+        positions, tri_rows, tri_valid = ctx.saved_tensors
+        if positions.is_cuda:
+            dpos = launch_curvature_data_bwd_members(positions.contiguous(), tri_rows, tri_valid,
+                                                     ctx.csr, *upstream)
+        else:
+            dpos = curvature_data_vjp_members_reference(positions, tri_rows, tri_valid, ctx.csr,
+                                                        *upstream)
+        return dpos, None, None, None
+
+
+class _CurvatureData(torch.autograd.Function):
+    @staticmethod
+    def forward(positions, tri_rows, tri_valid, csr):
         if positions.is_cuda:
             cot, va, k_vecs, vertex_areas = launch_curvature_data(
                 positions.contiguous(), tri_rows, tri_valid, csr)
         else:
             cot, va, k_vecs, vertex_areas = curvature_data_reference(
                 positions, tri_rows, tri_valid, csr)
+        return k_vecs, vertex_areas, cot, va
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        positions, tri_rows, tri_valid, csr = inputs
+        ctx.set_materialize_grads(False)  # an unused output passes None: no zeros are made
         ctx.save_for_backward(positions, tri_rows, tri_valid)
         ctx.csr = csr
-        return k_vecs, vertex_areas, cot, va
 
     @staticmethod
     def backward(ctx, g_kvecs, g_varea, g_cot, g_va):
@@ -486,16 +818,28 @@ class _CurvatureData(torch.autograd.Function):
             dpos = curvature_data_vjp_reference(positions, tri_rows, tri_valid, ctx.csr, *upstream)
         return dpos, None, None, None
 
+    @staticmethod
+    def vmap(info, in_dims, positions, tri_rows, tri_valid, csr):
+        """All members in one launch each way."""
+        _shared(in_dims, tri_rows=1, tri_valid=2)
+        x = _member_dim(in_dims, info.batch_size, positions, 0)
+        return _MemberCurvatureData.apply(x, tri_rows, tri_valid, csr), (0, 0, 0, 0)
 
-class _P1Divergence(torch.autograd.Function):
+
+def _p1_divergence_members(positions, tilts, tri_rows, tri_valid):
+    if positions.is_cuda:
+        return launch_p1_divergence_members(positions.contiguous(), tilts.contiguous(), tri_rows,
+                                            tri_valid)
+    return p1_divergence_members_reference(positions, tilts, tri_rows, tri_valid)
+
+
+class _MemberP1Divergence(torch.autograd.Function):
+    """:class:`_P1Divergence` over a leading member axis (its ``vmap`` rule's launches)."""
+
     @staticmethod
     def forward(ctx, positions, tilts, tri_rows, tri_valid, csr):
-        ctx.set_materialize_grads(False)  # no upstream of div: no launch
-        if positions.is_cuda:
-            div, area, g = launch_p1_divergence(positions.contiguous(), tilts.contiguous(),
-                                                tri_rows, tri_valid)
-        else:
-            div, area, g = tilt_ops.p1_triangle_divergence(positions, tilts, tri_rows, tri_valid)
+        ctx.set_materialize_grads(False)
+        div, area, g = _p1_divergence_members(positions, tilts, tri_rows, tri_valid)
         ctx.save_for_backward(g, tri_valid)
         ctx.csr = csr
         ctx.mark_non_differentiable(area, g)
@@ -507,10 +851,49 @@ class _P1Divergence(torch.autograd.Function):
             return None, None, None, None, None
         g, tri_valid = ctx.saved_tensors
         if g.is_cuda:
+            dtilts = launch_p1_div_bwd_members(g, tri_valid, grad_div.contiguous(), ctx.csr)
+        else:
+            dtilts = p1_div_vjp_members_reference(g, tri_valid, grad_div, ctx.csr)
+        return None, dtilts, None, None, None
+
+
+class _P1Divergence(torch.autograd.Function):
+    @staticmethod
+    def forward(positions, tilts, tri_rows, tri_valid, csr):
+        if positions.is_cuda:
+            return launch_p1_divergence(positions.contiguous(), tilts.contiguous(), tri_rows,
+                                        tri_valid)
+        return tilt_ops.p1_triangle_divergence(positions, tilts, tri_rows, tri_valid)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _positions, _tilts, _tri_rows, tri_valid, csr = inputs
+        _div, area, g = output
+        ctx.set_materialize_grads(False)  # no upstream of div: no launch
+        ctx.save_for_backward(g, tri_valid)
+        ctx.csr = csr
+        ctx.mark_non_differentiable(area, g)
+
+    @staticmethod
+    def backward(ctx, grad_div, _grad_area, _grad_g):
+        if grad_div is None:
+            return None, None, None, None, None
+        g, tri_valid = ctx.saved_tensors
+        if g.is_cuda:
             dtilts = launch_p1_div_bwd(g, tri_valid, grad_div.contiguous(), ctx.csr)
         else:
             dtilts = p1_div_vjp_reference(g, tri_valid, grad_div, ctx.csr)
         return None, dtilts, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, positions, tilts, tri_rows, tri_valid, csr):
+        """All members in one launch each way (the positions or the tilts may be shared)."""
+        _shared(in_dims, tri_rows=2, tri_valid=3)
+        x = _member_dim(in_dims, info.batch_size, positions, 0)
+        if x.requires_grad and torch.is_grad_enabled():
+            raise ValueError("p1_triangle_divergence takes frozen positions; detach them first")
+        t = _member_dim(in_dims, info.batch_size, tilts, 1)
+        return _MemberP1Divergence.apply(x, t, tri_rows, tri_valid, csr), (0, 0, 0)
 
 
 # ----------------------------------------------------------------------
@@ -525,8 +908,10 @@ def surface_energy(positions, tri_rows, tri_valid, tension, csr: CornerCSR, ws=N
     energy alone.  ``ws`` is the topology's :class:`Workspace` for the CUDA
     path (:func:`workspace`; made per call when None).
     """
+    if vs.batched(positions):
+        return _SurfaceEnergy.apply(positions, tri_rows, tri_valid, tension, csr, ws)[0]
     if torch.is_grad_enabled() and positions.requires_grad:
-        return _SurfaceEnergy.apply(positions, tri_rows, tri_valid, tension, csr, ws)
+        return _SurfaceEnergy.apply(positions, tri_rows, tri_valid, tension, csr, ws)[0]
     e, _dpos = _surface(positions, tri_rows, tri_valid, tension, csr, ws, False)
     return e
 
@@ -571,4 +956,5 @@ def p1_triangle_divergence(positions, tilts, tri_rows, tri_valid, csr: CornerCSR
     """
     if positions.requires_grad and torch.is_grad_enabled():
         raise ValueError("p1_triangle_divergence takes frozen positions; detach them first")
+
     return _P1Divergence.apply(positions, tilts, tri_rows, tri_valid, csr)

@@ -198,20 +198,34 @@ def make_energy_and_grad(spec: ProblemSpec) -> Callable:
     zeroed last.
     """
     energy_vg = make_energy_vg(spec)
-    gradient_projector = make_gradient_projector(spec)
-    curved_disk = spec.option("rim_slope_match_mode", "").lower() == "shared_rim_staggered_v1"
+    finish = make_gradient_finisher(spec)
 
     def energy_and_grad(state, topo, params):
         E, g = energy_vg(state.positions, state, topo, params)
+        return E, finish(g, state, topo, params)
+
+    return energy_and_grad
+
+
+def make_gradient_finisher(spec: ProblemSpec) -> Callable:
+    """finish(g, state, topo, params) -> the block's shape gradient from the energy's gradient.
+
+    The KKT projection, then the curved free-disk lanes' height-only
+    restriction, then the fixed rows zeroed (:func:`make_energy_and_grad`).
+    """
+    gradient_projector = make_gradient_projector(spec)
+    curved_disk = spec.option("rim_slope_match_mode", "").lower() == "shared_rim_staggered_v1"
+
+    def finish(g, state, topo, params):
         if gradient_projector is not None:
             g = gradient_projector(g, state, topo, params)
         trans = topo.extras.get("core:curved_disk/transition_mask")
         if curved_disk and trans is not None:
             zero = torch.zeros_like(g[:, 0])
             g = torch.stack([zero, zero, torch.where(trans, 0.0, g[:, 2])], dim=1)
-        return E, torch.where(topo.fixed_mask[:, None], 0.0, g)
+        return torch.where(topo.fixed_mask[:, None], 0.0, g)
 
-    return energy_and_grad
+    return finish
 
 
 # ----------------------------------------------------------------------
@@ -733,6 +747,15 @@ class MinimizeOptions:
     volume_drift_check: bool = False
 
 
+def volume_drift(positions, topo) -> torch.Tensor:
+    """The largest relative volume error of the bodies with a target volume (0-dim)."""
+    vols = dgeo.body_volumes(positions, topo.tri_rows, topo.tri_valid, topo.tri_body,
+                             topo.body_valid.shape[0])
+    target = topo.body_target_volume
+    rel = torch.abs(vols - target) / torch.clamp(torch.abs(target), min=1.0)
+    return torch.max(torch.where(topo.body_valid & topo.body_has_target, rel, 0.0))
+
+
 def scalar_param(params, key, default: float) -> float:
     """The host value of the 0-dim parameter ``key``, else ``default``."""
     value = params.get(key)
@@ -864,14 +887,7 @@ def minimize_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
 
         def volume_drifted(st) -> bool:
             """Some constrained body's relative volume error exceeds volume_tolerance."""
-            vols = dgeo.body_volumes(
-                st.positions, topo.tri_rows, topo.tri_valid, topo.tri_body,
-                topo.body_valid.shape[0],
-            )
-            target = topo.body_target_volume
-            rel = torch.abs(vols - target) / torch.clamp(torch.abs(target), min=1.0)
-            active = topo.body_valid & topo.body_has_target
-            max_rel = torch.max(torch.where(active, rel, 0.0))
+            max_rel = volume_drift(st.positions, topo)
             tol = params.get("volume_tolerance")
             tol = np_dtype(1e-3) if tol is None else np_dtype(tol.item())
             return bool(np_dtype(max_rel.item()) > tol)

@@ -151,6 +151,18 @@ package's float32 host mesh just before the cube recipe's last ``u``
 (command index 24, 12,290 vertices), with the connectivity digests after
 that ``u`` and the state's smallest first-pass Delaunay margin (ROADMAP C4).
 
+``kozlov_L3_sweep_f64_jax.json`` (``sweep_run``): the kozlov protocol
+(three refinements, five ``minimize(1)``), then ``parallel.sweep.run_sweep``
+on the problem it leaves with eight members (``chip_smoke.sweep_members``:
+member m's positions times 1 + 0.001 m, ``tilt_modulus_in`` times 1 + 0.1 m,
+``tilt_thetaB_value`` plus 0.01 m), five steps at step size 1e-3, default
+options (no tilt relax: the JAX sweep passes no ``tilt_inner_iters``).
+Per member the final and accepted energies, the gradient norm, the step
+size, the accept flag, the iterations and a sketch of the final positions
+(512 sampled rows and the norm, ``chip_smoke.sweep_record``); its
+``float32_reference`` holds the float32 run's energies, flags and
+iterations and their largest relative deviation from float64.
+
 ``chip_smoke.py`` holds the port's float64 runs on the GPU against these
 files, so the GPU machine needs no JAX.
 
@@ -607,6 +619,67 @@ def jax_fit_record(mn) -> dict:
         normals, points = pin_to_plane._group_planes(p.state.positions, p.topo)
         out["plane_offset"] = np.sum(np.asarray(normals * points, dtype=float), axis=1).tolist()
     return out
+
+
+# the parameter sweep on the kozlov lane after its protocol's five steps:
+# eight members (chip_smoke.sweep_members), five steps of the sweep's block
+SWEEP_MEMBERS = 8
+SWEEP_STEPS = 5
+SWEEP_STEP_SIZE = 1e-3
+
+
+def kozlov_sweep_protocol() -> dict:
+    return {
+        "kozlov": kozlov_protocol(),
+        "members": SWEEP_MEMBERS,
+        "dilation": 1e-3,  # member m: positions x (1 + dilation m)
+        "modulus_step": 0.1,  # tilt_modulus_in x (1 + modulus_step m)
+        "thetaB_step": 0.01,  # tilt_thetaB_value + thetaB_step m
+        "steps": SWEEP_STEPS,
+        "step_size": SWEEP_STEP_SIZE,
+        "options": "default MinimizeOptions (gradient descent, adaptive step)",
+        "sample_rows": 512,
+        "sample_seed": 0,
+        "dtype": "float64",
+        "package": "membrane_solver_tpu",
+        "platform": "cpu",
+    }
+
+
+def sweep_run() -> dict:
+    """The sweep protocol at the precision this process runs (``chip_smoke.sweep_record``)."""
+    import numpy as np
+
+    from chip_smoke import sweep_members, sweep_record
+    from membrane_solver_tpu.parallel.sweep import run_sweep
+
+    protocol = kozlov_sweep_protocol()
+    mn = kozlov_minimizer()
+    for _ in range(STEPS):
+        mn.minimize(1)
+    problem = mn.problem()
+    n = len(mn.mesh.vertices)
+    params, positions = sweep_members(protocol, np.asarray(problem.state.positions),
+                                      problem.params)
+    states, _ss, stats = run_sweep(problem, params, protocol["steps"],
+                                   step_size=protocol["step_size"], member_positions=positions)
+    return sweep_record(protocol, {k: np.asarray(getattr(stats, k)) for k in
+                                   ("energy", "accepted_energy", "grad_norm", "step_size",
+                                    "step_success", "iterations")},
+                        np.asarray(states.positions)[:, :n])
+
+
+def run_kozlov_sweep() -> dict:
+    """The float64 sweep here, the float32 one in a child beside it."""
+    child = start_float32_child("kozlov_L3_sweep_f64_jax.json")
+    rec = {"protocol": kozlov_sweep_protocol(), **sweep_run()}
+    f32 = float32_result(child)
+    devs = [abs(a - b) / abs(b) for a, b in zip(f32["energy"], rec["energy"], strict=True)]
+    rec["float32_reference"] = {
+        "package": "membrane_solver_tpu", "platform": "cpu", "dtype": "float32",
+        **{k: f32[k] for k in ("energy", "accepted_energy", "step_success", "iterations")},
+        "max_rel_dev_vs_float64": max(devs)}
+    return rec
 
 
 # the step-by-step kozlov lanes with their accept flags
@@ -1295,6 +1368,7 @@ FLOAT32_RUNS = {
     "kozlov_L3_match_drives_f64_jax.json": match_drives_run,
     "kozlov_L3_mode_drives_f64_jax.json": mode_drives_run,
     C4_FIXTURE: c4_pre_u_state,
+    "kozlov_L3_sweep_f64_jax.json": sweep_run,
 }
 
 
@@ -1426,6 +1500,7 @@ FIXTURES = {
     "kozlov_L3_match_drives_f64_jax.json": run_kozlov_match_drives,
     "kozlov_L3_mode_drives_f64_jax.json": run_kozlov_mode_drives,
     C4_FIXTURE: run_c4_pre_u,
+    "kozlov_L3_sweep_f64_jax.json": run_kozlov_sweep,
 }
 
 
