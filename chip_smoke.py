@@ -341,8 +341,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
     accept flags and iterations, the final positions' sketch (512 sampled
     rows and the norm) within 1e-8; each member within rel 1e-12 of a
     one-member sweep of that member, with its flags; every kernel counter
-    of the sweep equal to that of the one-member sweep whose line searches
-    scored the most trial states (the launches do not grow with B); two
+    of the sweep, and of a sweep of B copies of it, equal to that of the
+    one-member sweep whose line searches scored the most trial states (the
+    launches do not grow with B); two
     sweeps from one state give equal sha256 digests; no ``compile_state``
     call inside the sweep.  The member-axis kernels on the members' final
     states (per-member seeded tilts): each against its member twin with
@@ -360,6 +361,47 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
     cube meshes in a temporary directory; every key of every row within
     rel 1e-10 of the same analysis on the CPU at float64.  A ``[33-35
     ...]`` line gives the three phases' seconds and busy shares.
+36. Helfrich vesicle L5 parameter sweep, float64: the protocol of
+    ``tests/fixtures/torch_port/helfrich_cube_L5_sweep_f64_jax.json`` on
+    the state phase 7 left after its five protocol steps, restored into a
+    fresh vesicle minimizer whose global parameters also hold
+    ``spontaneous_curvature`` 0.0: eight members (positions times 1 +
+    0.001 m, ``bending_modulus`` times 1 + 0.1 m, ``spontaneous_curvature``
+    0.1 m), five steps at 1e-3 with ``enforce_in_line_search`` (the lane's
+    Minimizer's options).  Phase 33's checks (``drive_sweep``), the launch
+    check on B copies of the member with the most trial states; at least
+    one accepted member-step, in the fixture and on the card; no
+    single-member launch; the final volume of every member that accepted a
+    step within the lane's ``volume_tolerance`` of its target, and every
+    member that accepted none on its start positions bit for bit (the
+    dilated starts are 0.1-2.1% off the target, and only an accepted,
+    enforced trial moves a member).  Then ms per sweep step and
+    member-steps per second at B = 1, 8 and 32 and the busy share at B = 8.
+    Before the timing, the volume drift check's projection: the members on
+    the lane's own state with ``volume_tolerance`` 1e-9, three steps at the
+    lane's own step size without per-trial enforcement, with and without
+    ``volume_drift_check``: without it a stepped member's volume ends off
+    by more than 1e-9, with it within 1e-9 (``[36 ... drift]``).
+37. the same at float32 on phase 6's state, less the drift run, against
+    phase 36 within rel max(2e-3, 2 x the JAX package's own float32
+    deviation), with the JAX package's own float32 flags; each member
+    against its one-member sweep
+    within max(2e-6, 2 x the JAX package's own float32 deviation of its
+    vmapped gradient from the single one, the fixture's
+    ``vmapped_vs_single_grad``): accepted steps carry the batched
+    reductions' other order into the states.
+38. square_to_circle L1 parameter sweep, float64: the protocol of
+    ``square_to_circle_L1_sweep_f64_jax.json`` on the state at the end of
+    phase 12's command list (12,769 vertices): four members (positions
+    times 1 + 0.001 m, ``target_surface_area`` times 1 + 0.01 m), three
+    steps with ``enforce_in_line_search``.  Phase 36's checks, the area of
+    each member that accepted a step within 1e-10 of its target; the hard
+    area's energy-and-gradient call under ``vmap`` launches
+    ``tri_surface_energy_members`` (``surface_area_grad_members`` > 0) and
+    its member twin is never called inside the sweep; on the members' final
+    states that call against its member twin (phase 3's bounds) and, member
+    by member, equal in bits to the single call; the launch and its twin
+    timed.  A ``[36-38 ...]`` line gives the three phases' seconds.
 
 Every lane phase (4-9, 11-19, 21-24, 26-31) also checks determinism: from the state its
 protocol leaves (phases 4-7, 16-19, 21-24 and 26-31: the five steps; phases 8-9 and
@@ -370,11 +412,13 @@ a ``[... determinism]`` line prints both digests, and unequal digests fail
 the run.  A ``[phase seconds]`` line gives each phase's seconds, and the
 last line before the kernels line the whole run's.
 
-Phases 4-9 and 11-35 each drive one path with every kernel launch counter
+Phases 4-9 and 11-38 each drive one path with every kernel launch counter
 set to 0 just before and read just after; a kernel of that path that was
 never launched fails the run (phases 33-34: the member-axis surface
 energy, both variants, curvature data and its backward, divergence and
-vertex sum) (the frozen-tilt entry point, both variants,
+vertex sum; 36-37: the same less the divergence; 38: the member-axis
+surface energy, both variants, its area route and the vertex sum) (the
+frozen-tilt entry point, both variants,
 lies on the float32 kozlov paths with a frozen relax, phases 4, 15, 17, 19,
 22, 27 and 31; the surface energy, both variants, and the vertex sum on phases
 4-9, 11-19, 21-24 and 26-31; the curvature data forward on phases 4-9,
@@ -384,11 +428,12 @@ paths 4-5, 15-19 and 21-32, and it and its tilt backward inside phase 20's
 splay-twist, phase 25's ``bending_tilt`` and phase 32's bending-tilt modes).
 
 The line before the last is a JSON object ``{"kernels": [...]}``: per entry
-point, its launches over phases 4-9 and 11-35, its largest error against its twin,
+point, its launches over phases 4-9 and 11-38, its largest error against its twin,
 and phase 3's device ms per call (``ms``), its twin's (``plain_ms``), the
 bound, and, for the vertex sum, ``index_add_``'s (``library_ms``); the
 member-axis entries' times are phase 34's at B = 8, float32, beside their
-single-member entry's (``single_ms``).  The
+single-member entry's (``single_ms``); the area route's are phase 38's at
+B = 4, float64.  The
 card's name and power limit follow it again (``nvidia-smi``), and the
 last line is ``{"ok": true, "device": {...}}``.
 
@@ -486,6 +531,11 @@ KERNELS = {
                            "p1_div_members", "tri_kernels.p1_div_members"),
     "vertex_sum_members": ("vertex_sum.cuh", "device/geo.py:95", "vertex_sum_members",
                            "vertex_sum.vertex_sum_members"),
+    # the area constraints' energy-and-gradient call over the members (phase
+    # 38): the surface kernel's member launch at unit tension
+    "tri_surface_area_grad_members": ("tri_kernels.cu", "pallas_kernels/tri_kernels.py:80",
+                                      "surface_area_grad_members",
+                                      "tri_kernels.surface_area_grad_members"),
 }
 # each member-axis entry's single-member entry (its B = 1 time sits beside it)
 SINGLE_OF = {"tri_surface_energy_members": "surface_energy",
@@ -505,7 +555,8 @@ ERRORS = {"frozen_tilt_energy": ("ft_energy",), "frozen_tilt_energy_grad": ("ft_
           "tri_surface_energy_grad_members": ("surface_energy_members", "surface_grad_members"),
           "tri_curvature_data_members": ("curvature_data_members",),
           "tri_curvature_data_bwd_members": ("curvature_data_bwd_members",),
-          "tri_p1_div_members": ("p1_div_members",), "vertex_sum_members": ("vertex_sum_members",)}
+          "tri_p1_div_members": ("p1_div_members",), "vertex_sum_members": ("vertex_sum_members",),
+          "tri_surface_area_grad_members": ("surface_area_members", "surface_area_grad_members")}
 # PyTorch's own kernels that the redesigned entry points must not issue
 LIBRARY_KERNEL = re.compile(r"index|scatter|gather|sort|reduce", re.IGNORECASE)
 OWN_KERNELS = ("frozen_tilt_kernel", "vertex_sum_kernel", "curvature_fwd_kernel",
@@ -2022,12 +2073,12 @@ def phase_cli(torch, counters, label: str, fixture: dict, dtype, expect: tuple, 
         ctx.sync_mesh()
         return [float(ctx.minimizer.compute_energy())]
 
-    check_repeat(torch, label, ctx.minimizer, g2)
+    snap = check_repeat(torch, label, ctx.minimizer, g2)
     syncs, sites = count_syncs(torch, lambda: execute_command_line(ctx, "g1"))
     launches = read_counts(counters)
     energies = [r["energy"] for r in rows]
     out = {"energies": energies, "rows": rows, "digests": digests, "launches": launches,
-           "mn": ctx.minimizer, "pre_u_margins": pre_u}
+           "mn": ctx.minimizer, "snap": snap, "pre_u_margins": pre_u}
     fields = {"vertices": rows[-1]["n_vertices"], "facets": rows[-1]["n_facets"],
               "launches": json.dumps(launches), "g1_host_syncs": syncs}
     if dtype == torch.float32:
@@ -3275,18 +3326,37 @@ SWEEP_STATS = ("energy", "accepted_energy", "grad_norm", "step_size", "step_succ
                "iterations")
 
 
+def member_scan(protocol: dict) -> dict:
+    """The protocol's parameter scan: {key: {"scale": s} or {"shift": s}}.
+
+    The kozlov sweep's protocol names its two steps (``modulus_step``,
+    ``thetaB_step``); the later ones give a ``scan`` block.
+    """
+    if "scan" in protocol:
+        return protocol["scan"]
+    return {"tilt_modulus_in": {"scale": protocol["modulus_step"]},
+            "tilt_thetaB_value": {"shift": protocol["thetaB_step"]}}
+
+
 def sweep_members(protocol: dict, positions, params) -> tuple[list, list]:
     """(member_params, member_positions) of the sweep protocol, from either package's problem.
 
-    Member m: positions times 1 + ``dilation`` m, ``tilt_modulus_in`` times
-    1 + ``modulus_step`` m, ``tilt_thetaB_value`` plus ``thetaB_step`` m.
+    Member m: positions times 1 + ``dilation`` m; each scanned parameter
+    times 1 + ``scale`` m or plus ``shift`` m (:func:`member_scan`).
     ``positions`` is a numpy array in the problem's dtype.
     """
-    k_in, theta = float(params["tilt_modulus_in"]), float(params["tilt_thetaB_value"])
+    scan = member_scan(protocol)
+    base = {key: float(params[key]) for key in scan}
     members = range(protocol["members"])
-    return ([{"tilt_modulus_in": k_in * (1.0 + protocol["modulus_step"] * m),
-              "tilt_thetaB_value": theta + protocol["thetaB_step"] * m} for m in members],
+    return ([{key: base[key] * (1.0 + rule["scale"] * m) if "scale" in rule
+              else base[key] + rule["shift"] * m for key, rule in scan.items()} for m in members],
             [positions * (1.0 + protocol["dilation"] * m) for m in members])
+
+
+def sweep_options(protocol: dict) -> dict:
+    """The protocol's ``MinimizeOptions`` arguments (the kozlov sweep's: the defaults)."""
+    options = protocol.get("options")
+    return dict(options) if isinstance(options, dict) else {}
 
 
 def sweep_record(protocol: dict, stats: dict, positions) -> dict:
@@ -3524,37 +3594,46 @@ def sweep_busy(torch, run) -> tuple[float, float]:
     return wall_ms, sum(e.self_device_time_total for e in rows) / 1e3 / SWEEP_TIMED_STEPS
 
 
-def phase_sweep(torch, tk, vs, counters, label: str, fixture: dict, dtype, snap: dict,
-                f64=None) -> dict:
-    """The parameter sweep on kozlov L3: B = 8 members of phase 5's (4's) state, one card.
+def drive_sweep(torch, counters, label: str, fixture: dict, dtype, problem, f64=None,
+                widest_launches: bool = False, member_rtol: float | None = None) -> dict:
+    """The sweep protocol on ``problem``: the main run with the counts reset just before and
+    read just after, then the checks every sweep phase shares.
 
-    ``snap``: the state phase 5 (phase 4 at float32) left after the
-    protocol's five steps, restored into a fresh L3 minimizer.  The main run
-    with the counts reset just before and read just after, then the checks
-    of the module docstring's phases 33-34 and the timing lines.
+    Against the reference (the JAX fixture at float64; at float32 the float64
+    phase, with the fixture's ``float32_reference`` flags): per member the
+    stats, the flags and a positions sketch.  Member m against a one-member
+    sweep of member m; B copies of the member whose line searches scored the
+    most trial states against its one-member sweep, launch for launch (the
+    launches do not grow with B); two sweeps' digests; no ``compile_state``
+    inside the sweep.  The B distinct members' launches equal that one-member
+    sweep's where one member takes the most line-search rounds at every
+    iteration (printed; with ``widest_launches`` a check, as on the kozlov
+    lane, where every member rejects every step).  ``member_rtol`` replaces
+    ``MEMBER_RTOL`` for the member-vs-one-member check.  Prints the phase's
+    lines and returns what the caller checks and prints beside them; the
+    returned ``check`` raises on a failed check.
     """
     from membrane_solver_tpu_torch.device import state as tstate
     from membrane_solver_tpu_torch.parallel.sweep import run_sweep
+    from membrane_solver_tpu_torch.runtime.jit_core import MinimizeOptions
 
     proto = fixture["protocol"]
     B = proto["members"]
     name = str(dtype).removeprefix("torch.")
-    t0 = time.perf_counter()
-    mn = build_lane(torch, proto["kozlov"], dtype)
-    restore(mn, snap)
-    problem = mn.problem()
-    setup_s = time.perf_counter() - t0
+    member_rtol = MEMBER_RTOL[name] if member_rtol is None else member_rtol
+    options = MinimizeOptions(**sweep_options(proto))
     params, positions = sweep_members(proto, problem.state.positions.detach().cpu().numpy(),
                                       problem.params)
 
     def run(members=range(B), steps=proto["steps"]):
         sel = list(members)
-        out = run_sweep(problem, [params[m] for m in sel], steps, step_size=proto["step_size"],
-                        member_positions=[positions[m] for m in sel])
+        out = run_sweep(problem, [params[m % B] for m in sel], steps,
+                        step_size=proto["step_size"], options=options,
+                        member_positions=[positions[m % B] for m in sel])
         torch.cuda.synchronize()
         return out
 
-    parts = {"setup": setup_s}
+    parts = {}
     reset_counts(counters)
     compiles0 = tstate.COMPILES["compile_state"]
     t0 = time.perf_counter()
@@ -3580,6 +3659,7 @@ def phase_sweep(torch, tk, vs, counters, label: str, fixture: dict, dtype, snap:
 
     # member m against a one-member sweep of member m; the launches of the
     # one-member sweep whose line searches scored the most trial states
+    t1 = time.perf_counter()
     single_devs, single_flags, single_launches = [], [], []
     for m in range(B):
         reset_counts(counters)
@@ -3594,19 +3674,120 @@ def phase_sweep(torch, tk, vs, counters, label: str, fixture: dict, dtype, snap:
         single_devs.append(dev)
         single_flags.append(_flags_equal(s_got, one))
     reset_counts(counters)
-    parts["one_member_sweeps"] = time.perf_counter() - t0 - seconds
+    parts["one_member_sweeps"] = time.perf_counter() - t1
     t1 = time.perf_counter()
     trials = np.asarray(stats.trials)
     widest = int(np.argmax(trials))
     launches_equal = launches == single_launches[widest]
+    reset_counts(counters)
+    run([widest] * B)
+    copies_equal = read_counts(counters) == single_launches[widest]
+    reset_counts(counters)
 
     digests = [sweep_digest(states, got)]
     r_states, _r, r_stats = run()
     digests.append(sweep_digest(r_states, _stats_of(r_stats)))
     parts["repeat"] = time.perf_counter() - t1
+    accepted = int(np.sum(np.asarray(stats.accepted_steps)))
+    say(label, members=B, vertices=n, steps=proto["steps"], seconds=f"{seconds:.3f}",
+        energy=json.dumps(got["energy"].tolist()),
+        reference_energy=json.dumps(list(want["energy"])),
+        step_success=json.dumps(got["step_success"].tolist()),
+        reference_step_success=json.dumps(list(want_flags["step_success"])),
+        iterations=json.dumps(got["iterations"].tolist()),
+        trials=json.dumps(trials.tolist()), accepted_member_steps=accepted,
+        max_rel_dev=repr(max(devs)), max_position_dev=repr(max(pos_devs)), bound=repr(bound),
+        reference="the JAX fixture" if f64 is None else "the float64 phase",
+        compiles_after_entry=compiles, launches=json.dumps(launches))
+    say(label + " members", max_rel_dev_vs_single=repr(max(single_devs)),
+        bound=repr(member_rtol),
+        flags_equal=json.dumps(single_flags), widest_member=widest,
+        copies_launch_as_one_member=copies_equal,
+        launches_equal_to_one_member=launches_equal,
+        one_member_launches=json.dumps(single_launches[widest]))
+    say(label + " determinism", first=digests[0], second=digests[1],
+        equal=digests[0] == digests[1])
+
+    def check():
+        if not flags_equal:
+            raise AssertionError(f"{label}: accept flags or iterations differ from the reference")
+        if not (max(devs) <= bound and max(pos_devs) <= bound):
+            raise AssertionError(f"{label}: members deviate from the reference by {max(devs)!r} "
+                                 f"(positions {max(pos_devs)!r}), bound {bound!r}")
+        if not (all(single_flags) and max(single_devs) <= member_rtol):
+            raise AssertionError(f"{label}: members differ from their one-member sweeps: "
+                                 f"{single_devs} {single_flags}")
+        if not copies_equal or (widest_launches and not launches_equal):
+            raise AssertionError(f"{label}: the {B}-member sweep launched {launches} (copies of "
+                                 f"member {widest} equal: {copies_equal}), the one-member sweep "
+                                 f"of member {widest} {single_launches[widest]}")
+        if digests[0] != digests[1]:
+            raise AssertionError(f"{label}: two sweeps from one state differ: {digests}")
+        if compiles != 0:
+            raise AssertionError(f"{label}: {compiles} compile_state calls inside the sweep")
+
+    return {"launches": launches, "stats": got, "sketches": sketches, "states": states,
+            "accepted": accepted, "member_accepted": np.asarray(stats.accepted_steps),
+            "start": positions, "parts": parts, "run": run, "check": check}
+
+
+def unmoved_members(torch, out: dict) -> list:
+    """The members that accepted no step: each must end on its start positions, bit for bit."""
+    idle = [m for m, a in enumerate(out["member_accepted"]) if a == 0]
+    for m in idle:
+        start = torch.as_tensor(out["start"][m], device=DEVICE)
+        if not torch.equal(out["states"].positions[m].detach(), start):
+            raise AssertionError(f"member {m} accepted no step but moved")
+    return idle
+
+
+def sweep_timing(torch, label: str, run, sizes, busy_members=None) -> tuple[dict, float | None]:
+    """ms per sweep step and member-steps per second at each member count (a warm-up step,
+    then SWEEP_TIMED_STEPS timed), and with ``busy_members`` the profiler's busy share there."""
+    per_size = {}
+    for b in sizes:
+        run(range(b), steps=1)  # warm-up at this member count
+        t0 = time.perf_counter()
+        run(range(b), steps=SWEEP_TIMED_STEPS)
+        wall = time.perf_counter() - t0
+        per_size[b] = {"ms_per_step": wall * 1e3 / SWEEP_TIMED_STEPS,
+                       "member_steps_per_s": b * SWEEP_TIMED_STEPS / wall}
+    card = smi_line()
+    for b, rec in per_size.items():
+        say(label + " timing", members=b, ms_per_step=f"{rec['ms_per_step']:.3f}",
+            member_steps_per_s=f"{rec['member_steps_per_s']:.3f}", card=repr(card))
+    if busy_members is None:
+        return per_size, None
+    wall_ms, busy_ms = sweep_busy(torch, lambda: run(range(busy_members),
+                                                     steps=SWEEP_TIMED_STEPS))
+    say(label + " busy", members=busy_members, steps=SWEEP_TIMED_STEPS,
+        ms_per_step=f"{wall_ms:.3f}", busy_ms_per_step=f"{busy_ms:.3f}",
+        busy_share=f"{busy_ms / wall_ms:.4f}", card=repr(card))
+    return per_size, busy_ms / wall_ms
+
+
+def phase_sweep(torch, tk, vs, counters, label: str, fixture: dict, dtype, snap: dict,
+                f64=None) -> dict:
+    """The parameter sweep on kozlov L3: B = 8 members of phase 5's (4's) state, one card.
+
+    ``snap``: the state phase 5 (phase 4 at float32) left after the
+    protocol's five steps, restored into a fresh L3 minimizer.  The main run
+    with the counts reset just before and read just after, then the checks
+    of the module docstring's phases 33-34 and the timing lines.
+    """
+    proto = fixture["protocol"]
+    name = str(dtype).removeprefix("torch.")
+    t0 = time.perf_counter()
+    mn = build_lane(torch, proto["kozlov"], dtype)
+    restore(mn, snap)
+    problem = mn.problem()
+    setup_s = time.perf_counter() - t0
+    out = drive_sweep(torch, counters, label, fixture, dtype, problem, f64, widest_launches=True)
+    parts = {"setup": setup_s, **out["parts"]}
+    launches = out["launches"]
 
     t1 = time.perf_counter()
-    pos, tilts = member_kernel_inputs(torch, states, seed=29)
+    pos, tilts = member_kernel_inputs(torch, out["states"], seed=29)
     errs = check_member_kernels(torch, tk, vs, problem.topo, pos, tilts, seed=31)
     parts["kernel_checks"] = time.perf_counter() - t1
     t1 = time.perf_counter()
@@ -3614,71 +3795,281 @@ def phase_sweep(torch, tk, vs, counters, label: str, fixture: dict, dtype, snap:
         if dtype == torch.float32 else {}
     parts["kernel_timing"] = time.perf_counter() - t1
     t1 = time.perf_counter()
-
-    per_size = {}
-    for b in SWEEP_SIZES:
-        run(range(b), steps=1)  # warm-up at this member count
-        t0 = time.perf_counter()
-        run(range(b), steps=SWEEP_TIMED_STEPS)
-        wall = time.perf_counter() - t0
-        per_size[b] = {"ms_per_step": wall * 1e3 / SWEEP_TIMED_STEPS,
-                       "member_steps_per_s": b * SWEEP_TIMED_STEPS / wall}
-    parts["per_size_timing"] = time.perf_counter() - t1
-    t1 = time.perf_counter()
-    if dtype == torch.float32:
-        wall_ms, busy_ms = sweep_busy(torch, lambda: run(range(B), steps=SWEEP_TIMED_STEPS))
-    parts["busy"] = time.perf_counter() - t1
-    card = smi_line()
-    say(label, members=B, vertices=n, steps=proto["steps"], setup_s=f"{setup_s:.3f}",
-        seconds=f"{seconds:.3f}", energy=json.dumps(got["energy"].tolist()),
-        reference_energy=json.dumps(list(want["energy"])),
-        step_success=json.dumps(got["step_success"].tolist()),
-        reference_step_success=json.dumps(list(want_flags["step_success"])),
-        iterations=json.dumps(got["iterations"].tolist()),
-        trials=json.dumps(trials.tolist()), max_rel_dev=repr(max(devs)),
-        max_position_dev=repr(max(pos_devs)), bound=repr(bound),
-        reference="the JAX fixture" if f64 is None else "the float64 phase",
-        compiles_after_entry=compiles, launches=json.dumps(launches),
+    per_size, busy = sweep_timing(torch, label, out["run"], SWEEP_SIZES,
+                                  proto["members"] if dtype == torch.float32 else None)
+    parts["timing"] = time.perf_counter() - t1
+    say(label + " parts", setup_s=f"{setup_s:.3f}",
         parts_s=json.dumps({k: round(v, 3) for k, v in parts.items()}))
-    say(label + " members", max_rel_dev_vs_single=repr(max(single_devs)),
-        bound=MEMBER_RTOL[name],
-        flags_equal=json.dumps(single_flags), widest_member=widest,
-        launches_equal_to_one_member=launches_equal,
-        one_member_launches=json.dumps(single_launches[widest]))
-    say(label + " determinism", first=digests[0], second=digests[1],
-        equal=digests[0] == digests[1])
     say(label + " kernels", **{k: repr(v) for k, v in errs.items()})
-    for b, rec in per_size.items():
-        say(label + " timing", members=b, ms_per_step=f"{rec['ms_per_step']:.3f}",
-            member_steps_per_s=f"{rec['member_steps_per_s']:.3f}", card=repr(card))
-    if dtype == torch.float32:
-        say(label + " busy", members=B, steps=SWEEP_TIMED_STEPS, ms_per_step=f"{wall_ms:.3f}",
-            busy_ms_per_step=f"{busy_ms:.3f}", busy_share=f"{busy_ms / wall_ms:.4f}",
-            card=repr(card))
     for rec in timing.values():
         say(label + " kernel timing", **{k: (f"{v:.6f}" if isinstance(v, float) else v)
                                          for k, v in rec.items()})
     missing = [k for k in SWEEP_EXPECT if not launches[k] > 0]
     if missing:
         raise AssertionError(f"{label}: the path did not launch {missing}: {launches}")
-    if not flags_equal:
-        raise AssertionError(f"{label}: accept flags or iterations differ from the reference")
-    if not (max(devs) <= bound and max(pos_devs) <= bound):
-        raise AssertionError(f"{label}: members deviate from the reference by {max(devs)!r} "
-                             f"(positions {max(pos_devs)!r}), bound {bound!r}")
-    if not (all(single_flags) and max(single_devs) <= MEMBER_RTOL[name]):
-        raise AssertionError(f"{label}: members differ from their one-member sweeps: "
-                             f"{single_devs} {single_flags}")
-    if not launches_equal:
-        raise AssertionError(f"{label}: the {B}-member sweep launched {launches}, the one-member "
-                             f"sweep of member {widest} {single_launches[widest]}")
-    if digests[0] != digests[1]:
-        raise AssertionError(f"{label}: two sweeps from one state differ: {digests}")
-    if compiles != 0:
-        raise AssertionError(f"{label}: {compiles} compile_state calls inside the sweep")
-    return {"launches": launches, "stats": got, "sketches": sketches, "errs": errs,
-            "timing": timing, "per_size": per_size,
-            "busy_share": busy_ms / wall_ms if dtype == torch.float32 else None}
+    out["check"]()
+    return {"launches": launches, "stats": out["stats"], "sketches": out["sketches"],
+            "errs": errs, "timing": timing, "per_size": per_size, "busy_share": busy}
+
+
+# ----------------------------------------------------------------------
+# phases 36-38: the sweep over the shape family
+# ----------------------------------------------------------------------
+VESICLE_SWEEP_FIXTURE = FIXTURES / "helfrich_cube_L5_sweep_f64_jax.json"
+SQUARE_SWEEP_FIXTURE = FIXTURES / "square_to_circle_L1_sweep_f64_jax.json"
+# the vesicle's member-axis kernels: the surface energy with its gradient
+# and alone (the line search's trials), the curvature data both ways, the
+# vertex sums (the volume rows and enforcement, the effective areas)
+VESICLE_SWEEP_EXPECT = ("tri_kernels.surface_energy_members",
+                        "tri_kernels.surface_energy_grad_members",
+                        "tri_kernels.curvature_data_members",
+                        "tri_kernels.curvature_data_bwd_members", "vertex_sum.vertex_sum_members")
+# square_to_circle's: the surface energy both ways, the hard area's
+# energy-and-gradient route (every enforcement pass), its vertex sums
+SQUARE_SWEEP_EXPECT = ("tri_kernels.surface_energy_members",
+                       "tri_kernels.surface_energy_grad_members",
+                       "tri_kernels.surface_area_grad_members", "vertex_sum.vertex_sum_members")
+SHAPE_SWEEP_SIZES = (1, 8, 32)  # phases 36-37
+# phase 36's drift run: the members' volume tolerance, and its steps
+DRIFT_TOL = 1e-9
+DRIFT_STEPS = 3
+AREA_TOL = 1e-10  # phase 38: each member's area vs its target, relative (the projection's 1e-12)
+
+
+def vesicle_sweep_problem(torch, fixture: dict, dtype, snap: dict):
+    """Phase 7's (6's) state after its five steps, in a fresh vesicle minimizer whose global
+    parameters also hold the protocol's ``global_parameters``."""
+    proto = fixture["protocol"]
+    lane = dict(proto["vesicle"])
+    lane["global_parameters"] = {**lane["global_parameters"], **proto["global_parameters"]}
+    mn = build_lane(torch, lane, dtype)
+    restore(mn, snap)
+    return mn.problem()
+
+
+def member_volumes(torch, states, topo):
+    """(B, bodies) volumes of the members' positions."""
+    from torch.func import vmap
+
+    from membrane_solver_tpu_torch.device import geo as dgeo
+
+    return vmap(lambda x: dgeo.body_volumes(x, topo.tri_rows, topo.tri_valid, topo.tri_body,
+                                            topo.body_valid.shape[0]))(states.positions)
+
+
+def phase_vesicle_sweep(torch, counters, label: str, fixture: dict, dtype, snap: dict,
+                        f64=None) -> dict:
+    """The parameter sweep on the Helfrich vesicle at L5 (phases 36-37).
+
+    ``drive_sweep``'s checks, at least one accepted member-step (the
+    fixture's too), no single-member launch, the final volume of every
+    member that accepted a step within the lane's ``volume_tolerance`` of
+    its target (:func:`unmoved_members` holds the others on their starts),
+    at float64 :func:`check_drift`, then the timing lines at 1, 8 and 32
+    members and the busy share at 8.
+    """
+    t0 = time.perf_counter()
+    problem = vesicle_sweep_problem(torch, fixture, dtype, snap)
+    setup_s = time.perf_counter() - t0
+    f32_ref = fixture["float32_reference"]
+    member_rtol = None if f64 is None else max(MEMBER_RTOL["float32"],
+                                               2 * f32_ref["vmapped_vs_single_grad"])
+    out = drive_sweep(torch, counters, label, fixture, dtype, problem, f64,
+                      member_rtol=member_rtol)
+    launches = out["launches"]
+    topo = problem.topo
+    idle = unmoved_members(torch, out)
+    stepped = torch.as_tensor([m not in idle for m in range(len(out["member_accepted"]))],
+                              device=DEVICE)
+    vols = member_volumes(torch, out["states"], topo)
+    active = (topo.body_valid & topo.body_has_target)
+    target = topo.body_target_volume
+    rel = torch.where(active, torch.abs(vols - target) / torch.clamp(torch.abs(target), min=1.0),
+                      0.0)
+    vol_dev = float(torch.max(torch.where(stepped[:, None], rel, 0.0)))
+    vol_tol = float(problem.params["volume_tolerance"])
+    want_accepted = (fixture if f64 is None else f32_ref)["accepted_last_step"]
+    t1 = time.perf_counter()
+    if f64 is None:
+        check_drift(torch, label, fixture, problem, float(snap["step_size"]))
+    t2 = time.perf_counter()
+    per_size, busy = sweep_timing(torch, label, out["run"], SHAPE_SWEEP_SIZES,
+                                  fixture["protocol"]["members"])
+    parts = {"setup": setup_s, **out["parts"], "drift": t2 - t1,
+             "timing": time.perf_counter() - t2}
+    say(label + " volumes", max_rel_volume_dev=repr(vol_dev), volume_tolerance=repr(vol_tol),
+        accepted_per_member=json.dumps(out["member_accepted"].tolist()),
+        unmoved_members=json.dumps(idle),
+        accepted_member_steps=out["accepted"], reference_accepted_last_steps=want_accepted,
+        parts_s=json.dumps({k: round(v, 3) for k, v in parts.items()}))
+    missing = [k for k in VESICLE_SWEEP_EXPECT if not launches[k] > 0]
+    if missing:
+        raise AssertionError(f"{label}: the path did not launch {missing}: {launches}")
+    single = {k: n for k, n in launches.items() if not k.endswith("_members") and n}
+    if single:
+        raise AssertionError(f"{label}: the sweep launched single-member kernels: {single}")
+    out["check"]()
+    if not (out["accepted"] > 0 and want_accepted > 0):
+        raise AssertionError(f"{label}: no accepted member-step ({out['accepted']}, the "
+                             f"reference {want_accepted})")
+    if not vol_dev <= vol_tol:
+        raise AssertionError(f"{label}: a member's volume is {vol_dev!r} off its target")
+    return {"launches": launches, "stats": out["stats"], "sketches": out["sketches"],
+            "per_size": per_size, "busy_share": busy}
+
+
+def check_drift(torch, label: str, fixture: dict, problem, step_size: float) -> dict:
+    """The volume drift check's projection on the card (phase 36).
+
+    The protocol's members on the lane's own state (no dilation), their
+    ``volume_tolerance`` at ``DRIFT_TOL``, ``DRIFT_STEPS`` steps at the
+    lane's own step size after its five steps (``step_size``) without the
+    per-trial enforcement, once with ``volume_drift_check`` and once
+    without: without it an accepted step leaves the volume off by more than
+    the tolerance, with it every member that stepped ends within it.
+    """
+    from membrane_solver_tpu_torch.parallel.sweep import run_sweep
+    from membrane_solver_tpu_torch.runtime.jit_core import MinimizeOptions
+
+    proto = fixture["protocol"]
+    x = problem.state.positions.detach().cpu().numpy()
+    params = [{**p, "volume_tolerance": DRIFT_TOL}
+              for p in sweep_members(proto, x, problem.params)[0]]
+    topo = problem.topo
+    active = topo.body_valid & topo.body_has_target
+    target = topo.body_target_volume
+    out = {}
+    for on in (False, True):
+        states, _ss, stats = run_sweep(problem, params, DRIFT_STEPS, step_size=step_size,
+                                       options=MinimizeOptions(volume_drift_check=on),
+                                       member_positions=[x] * len(params))
+        stepped = torch.as_tensor(np.asarray(stats.accepted_steps) > 0, device=DEVICE)
+        rel = torch.abs(member_volumes(torch, states, topo) - target) / torch.clamp(
+            torch.abs(target), min=1.0)
+        rel = torch.where(stepped[:, None] & active, rel, 0.0)
+        out["on" if on else "off"] = (float(torch.max(rel)), int(stepped.sum()))
+    say(label + " drift", tolerance=DRIFT_TOL, steps=DRIFT_STEPS, step_size=repr(step_size),
+        max_rel_volume_dev_without=repr(out["off"][0]), stepped_without=out["off"][1],
+        max_rel_volume_dev_with=repr(out["on"][0]), stepped_with=out["on"][1])
+    if not (out["off"][1] > 0 and out["on"][1] > 0 and out["off"][0] > DRIFT_TOL
+            and out["on"][0] <= DRIFT_TOL):
+        raise AssertionError(f"{label}: the drift check did not project as it should: {out}")
+    return out
+
+
+def check_area_route(torch, tk, label: str, states, topo) -> dict:
+    """The area constraints' energy-and-gradient call under ``vmap`` on the members' states:
+    against its member twin (phase 3's bounds) and, member by member, the single call's bits."""
+    from torch.func import vmap
+
+    pos = states.positions.detach().contiguous()
+    dtype = pos.dtype
+    name = str(dtype).removeprefix("torch.")
+    csr = topo.corner_csr()
+    unit = torch.ones_like(topo.tri_surface_tension).to(dtype)
+    ws = tk.workspace(topo, pos[0])
+    before = tk.LAUNCHES["surface_area_grad_members"]
+    area, grad = vmap(lambda x: tk.surface_energy_and_gradient(
+        x, topo.tri_rows, topo.tri_valid, unit, csr, ws))(pos)
+    launched = tk.LAUNCHES["surface_area_grad_members"] - before
+    want_a, want_g = tk.surface_energy_members_reference(pos, topo.tri_rows, topo.tri_valid, unit,
+                                                         csr, True)
+    errs = {"surface_area_members": 0.0, "surface_area_grad_members": 0.0}
+    for m in range(pos.shape[0]):
+        errs["surface_area_members"] = max(errs["surface_area_members"], _sum_check(
+            torch, f"{label} area {m} ({name})", area[m], want_a[m], WC_ENERGY[name]))
+        errs["surface_area_grad_members"] = max(errs["surface_area_grad_members"], _sum_check(
+            torch, f"{label} area gradient {m} ({name})", grad[m], want_g[m],
+            WC_SURFACE_GRAD[name]))
+        a1, g1 = tk.surface_energy_and_gradient(pos[m], topo.tri_rows, topo.tri_valid, unit, csr,
+                                                ws)
+        if not (torch.equal(area[m], a1.reshape(())) and torch.equal(grad[m], g1)):
+            raise AssertionError(f"{label}: the area route's member {m} differs from the single "
+                                 "call")
+    if launched != 1:
+        raise AssertionError(f"{label}: the area route took {launched} member launches, not 1")
+    say(label + " area route", launches=launched, **{k: repr(v) for k, v in errs.items()})
+    return errs
+
+
+def area_rows(torch, tk, topo, pos) -> list:
+    """(name, kind, fn, inputs, flops) of the area route's member launch (unit tension) and its twin."""
+    B, T = pos.shape[0], topo.tri_rows.shape[0]
+    rows, v, csr = topo.tri_rows, topo.tri_valid, topo.corner_csr()
+    unit = torch.ones(T, dtype=pos.dtype, device=DEVICE)
+    ws = tk.MemberWorkspace(B, T, pos.dtype, DEVICE)
+    flops = (FLOPS_PER_TRI["surface_energy"] + FLOPS_PER_TRI["surface_grad"]) * T * B
+    inputs = (pos, rows, v, unit)
+    return [
+        ("surface_area_grad_members", "kernel", lambda: tk.launch_surface_energy_members(
+            pos, rows, v, unit, csr, ws, True, "surface_area_grad_members"), inputs, flops),
+        ("surface_area_grad_members", "twin", lambda: tk.surface_energy_members_reference(
+            pos, rows, v, unit, csr, True), inputs, flops),
+    ]
+
+
+def phase_square_sweep(torch, tk, counters, label: str, fixture: dict, mn, snap: dict) -> dict:
+    """The parameter sweep on square_to_circle L1 from phase 12's post-recipe state (phase 38).
+
+    ``drive_sweep``'s checks; the hard area's member route launched and its
+    member twin never called; the area of every member that accepted a step
+    at its target; then the
+    route against its twin and the single call on the members' final states.
+    """
+    t0 = time.perf_counter()
+    restore(mn, snap)
+    problem = mn.problem()
+    setup_s = time.perf_counter() - t0
+    twin_calls = {"n": 0}
+    twin = tk.surface_energy_members_reference
+
+    def counted_twin(*args, **kw):
+        twin_calls["n"] += 1
+        return twin(*args, **kw)
+
+    tk.surface_energy_members_reference = counted_twin
+    try:
+        out = drive_sweep(torch, counters, label, fixture, torch.float64, problem)
+    finally:
+        tk.surface_energy_members_reference = twin
+    launches = out["launches"]
+    topo = problem.topo
+    targets = torch.as_tensor([p["target_surface_area"] for p in sweep_members(
+        fixture["protocol"], problem.state.positions.cpu().numpy(), problem.params)[0]],
+        dtype=torch.float64, device=DEVICE)
+    from torch.func import vmap
+
+    from membrane_solver_tpu_torch.device import geo as dgeo
+
+    areas = vmap(lambda x: torch.sum(dgeo.triangle_geometry(x, topo.tri_rows,
+                                                            topo.tri_valid).area))(
+        out["states"].positions)
+    idle = unmoved_members(torch, out)
+    area_dev = max((float(torch.abs(areas[m] - targets[m]) / targets[m])
+                    for m in range(len(targets)) if m not in idle), default=0.0)
+    errs = check_area_route(torch, tk, label, out["states"], topo)
+    timing = measure_members(torch, area_rows(torch, tk, topo,
+                                              out["states"].positions.detach().contiguous()),
+                             "float64")
+    say(label + " areas", max_rel_area_dev=repr(area_dev), bound=AREA_TOL,
+        accepted_per_member=json.dumps(out["member_accepted"].tolist()),
+        unmoved_members=json.dumps(idle),
+        twin_calls_in_sweep=twin_calls["n"], setup_s=f"{setup_s:.3f}",
+        parts_s=json.dumps({k: round(v, 3) for k, v in out["parts"].items()}))
+    for rec in timing.values():
+        say(label + " kernel timing", **{k: (f"{v:.6f}" if isinstance(v, float) else v)
+                                         for k, v in rec.items()})
+    missing = [k for k in SQUARE_SWEEP_EXPECT if not launches[k] > 0]
+    if missing:
+        raise AssertionError(f"{label}: the path did not launch {missing}: {launches}")
+    single = {k: n for k, n in launches.items() if not k.endswith("_members") and n}
+    if single or twin_calls["n"]:
+        raise AssertionError(f"{label}: single-member launches {single}, twin calls "
+                             f"{twin_calls['n']}")
+    out["check"]()
+    if not area_dev <= AREA_TOL:
+        raise AssertionError(f"{label}: a member's area is {area_dev!r} off its target")
+    return {"launches": launches, "stats": out["stats"], "errs": errs, "timing": timing}
 
 
 def phase_multidisk(torch, counters, label: str) -> dict:
@@ -3807,6 +4198,8 @@ def main() -> int:
     c4 = json.loads(gzip.decompress(C4_FIXTURE.read_bytes()))
     mode_drives = json.loads(MODE_DRIVES_FIXTURE.read_text())
     sweep = json.loads(SWEEP_FIXTURE.read_text())
+    vesicle_sweep = json.loads(VESICLE_SWEEP_FIXTURE.read_text())
+    square_sweep = json.loads(SQUARE_SWEEP_FIXTURE.read_text())
     seconds = {}
 
     def timed(phase, fn, *args, **kw):
@@ -3955,6 +4348,24 @@ def main() -> int:
     say("33-35", seconds=f"{sum(seconds[k] for k in new):.3f}",
         phases=json.dumps({k: seconds[k] for k in new}),
         busy_share_34=runs["w32"]["busy_share"])
+    # the sweep over the shape family: the Helfrich vesicle (accepted steps,
+    # curvature data both ways, the volume rows and enforcement) and
+    # square_to_circle (the hard area's member route)
+    runs["h64"] = timed("36", phase_vesicle_sweep, torch, counters,
+                        "36 helfrich_cube_L5_sweep f64", vesicle_sweep, torch.float64,
+                        runs["v64"]["snap"])
+    runs["h32"] = timed("37", phase_vesicle_sweep, torch, counters,
+                        "37 helfrich_cube_L5_sweep f32", vesicle_sweep, torch.float32,
+                        runs["v32"]["snap"], f64=runs["h64"])
+    runs["g64"] = timed("38", phase_square_sweep, torch, tk, counters,
+                        "38 square_to_circle_L1_sweep f64", square_sweep, runs["s64"]["mn"],
+                        runs["s64"]["snap"])
+    kern["errs"].update(runs["g64"]["errs"])
+    kern["timing"].update(runs["g64"]["timing"])
+    new = ("36", "37", "38")
+    say("36-38", seconds=f"{sum(seconds[k] for k in new):.3f}",
+        phases=json.dumps({k: seconds[k] for k in new}),
+        busy_share=json.dumps({"36": runs["h64"]["busy_share"], "37": runs["h32"]["busy_share"]}))
     # phases 8-10 have imported the CLI and the command layer by now
     if not {"membrane_solver_tpu_torch.cli", "membrane_solver_tpu_torch.commands"} <= set(sys.modules):
         raise AssertionError("the CLI and the command layer were not imported")

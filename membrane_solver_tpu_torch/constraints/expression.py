@@ -6,7 +6,7 @@ KKT row (the expression's gradient over the entity's vertices) and are
 projected by Newton steps ``x -= (g(x) - target) * grad g / |grad g|^2``
 (5 iterations, tol 1e-12).  Each distinct expression compiles once
 (``core/expr.compile_expr``); the value is taken at the vertex, the edge
-midpoint or the facet centroid, and the gradient is autograd's.
+midpoint or the facet centroid, and the gradient is ``torch.func.grad``'s.
 """
 
 from __future__ import annotations
@@ -83,14 +83,16 @@ def _entity_value_fn(expr: str, kind: int, topo, params):
 
 
 def _value_and_grad(value, positions, slot):
-    """The value and its dense gradient (zero where the expression ignores the positions)."""
-    x = positions.detach().requires_grad_(True)
-    with torch.enable_grad():
+    """The value and its dense gradient (zero where the expression ignores the positions).
+
+    ``torch.func.grad``, so the parameter sweep can map it over its members.
+    """
+    def fn(x):
         val = torch.as_tensor(value(x, slot), dtype=positions.dtype, device=positions.device)
-        if not val.requires_grad:
-            return val.detach(), torch.zeros_like(positions)
-        (g,) = torch.autograd.grad(val, (x,))
-    return val.detach(), g
+        return val, val
+
+    g, val = torch.func.grad(fn, has_aux=True)(positions.detach())
+    return val, g
 
 
 def make_constraint_gradient_rows(spec):

@@ -29,7 +29,8 @@ the solver's path, each one ctypes call:
   (twin: :func:`p1_div_vjp_reference`).
 
 ``surface_energy_and_gradient`` is the same call without autograd, for the
-area constraints (``global_area``, ``body_area``).
+area constraints (``global_area``, ``body_area``); under ``torch.func.vmap``
+it too takes one member-axis launch (``LAUNCHES["surface_area_grad_members"]``).
 
 Off the solver's path, kept for the tests and the card checks:
 ``surface_fwd`` and ``curvature_fwd`` / ``curvature_bwd``, the same
@@ -77,6 +78,8 @@ LAUNCHES = {"surface_energy": 0, "surface_energy_grad": 0, "curvature_data": 0,
             "surface_fwd": 0, "curvature_fwd": 0, "curvature_bwd": 0,
             # the member axis (the parameter sweep): one launch for all members
             "surface_energy_members": 0, "surface_energy_grad_members": 0,
+            # the area constraints' energy-and-gradient call over the members
+            "surface_area_grad_members": 0,
             "curvature_data_members": 0, "curvature_data_bwd_members": 0,
             "p1_div_members": 0, "p1_div_bwd_members": 0}
 
@@ -425,11 +428,12 @@ def member_workspace(topo, positions) -> MemberWorkspace | None:
 
 
 def launch_surface_energy_members(positions, tri_rows, tri_valid, tension, csr: CornerCSR,
-                                  ws: MemberWorkspace, grad: bool):
+                                  ws: MemberWorkspace, grad: bool, counter: str | None = None):
     """(energy (B,), dE/dpositions (B, Nv, 3) or None) of B members in one call.
 
     ``tension`` is (T,), shared, or (B, T); member m's outputs are the bits
-    of :func:`launch_surface_energy` on member m.
+    of :func:`launch_surface_energy` on member m.  ``counter`` names the
+    ``LAUNCHES`` key the launch adds to (default: by ``grad``).
     """
     members, T = _check_members(positions, tri_rows)
     if T < 1:
@@ -455,11 +459,9 @@ def launch_surface_energy_members(positions, tri_rows, tri_valid, tension, csr: 
         _stream(positions),
     )
     _raise_on(code, "tri_surface_energy_members")
+    LAUNCHES[counter or ("surface_energy_grad_members" if grad else "surface_energy_members")] += 1
     if grad:
-        LAUNCHES["surface_energy_grad_members"] += 1
         vs.LAUNCHES["vertex_sum_members"] += 1
-    else:
-        LAUNCHES["surface_energy_members"] += 1
     return energy, dpos
 
 
@@ -657,13 +659,13 @@ def p1_div_vjp_members_reference(g, tri_valid, g_div, csr: CornerCSR):
                         for gm, dm in zip(g, g_div)])
 
 
-def _surface_members(positions, tri_rows, tri_valid, tension, csr, ws, grad):
+def _surface_members(positions, tri_rows, tri_valid, tension, csr, ws, grad, counter=None):
     if positions.is_cuda:
         if ws is None:
             ws = MemberWorkspace(positions.shape[0], tri_rows.shape[0], positions.dtype,
                                  positions.device)
         return launch_surface_energy_members(positions.contiguous(), tri_rows, tri_valid,
-                                             tension.contiguous(), csr, ws, grad)
+                                             tension.contiguous(), csr, ws, grad, counter)
     return surface_energy_members_reference(positions, tri_rows, tri_valid, tension, csr, grad)
 
 
@@ -727,6 +729,32 @@ class _SurfaceEnergy(torch.autograd.Function):
                     None), (0, None)
         e, _dpos = _surface_members(x, tri_rows, tri_valid, tension, csr, ws, False)
         return (e, None), (0, None)
+
+
+class _SurfaceEnergyAndGradient(torch.autograd.Function):
+    """:func:`surface_energy_and_gradient` under ``torch.func.vmap``: its rule's one launch.
+
+    No graph: the area constraints take the gradient as a value.
+    """
+
+    @staticmethod
+    def forward(positions, tri_rows, tri_valid, tension, csr, ws):
+        return _surface(positions, tri_rows, tri_valid, tension, csr, ws, True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(*output)
+
+    @staticmethod
+    def vmap(info, in_dims, positions, tri_rows, tri_valid, tension, csr, ws):
+        """All members' areas and gradients in one launch (the tension may vary per member)."""
+        _shared(in_dims, tri_rows=1, tri_valid=2)
+        x = _member_dim(in_dims, info.batch_size, positions, 0)
+        if in_dims[3] is not None:
+            tension = tension.movedim(in_dims[3], 0)
+        ws = None if ws is None or ws.topo is None else member_workspace(ws.topo, x)
+        return _surface_members(x, tri_rows, tri_valid, tension, csr, ws, True,
+                                "surface_area_grad_members"), (0, 0)
 
 
 class _Curvature(torch.autograd.Function):
@@ -921,7 +949,13 @@ def surface_energy_and_gradient(positions, tri_rows, tri_valid, tension, csr: Co
 
     For the area constraints, which take the total area and its gradient
     (unit tension on the triangles they hold) at every projection step.
+    Under ``torch.func.vmap`` (the parameter sweep) all members take one
+    ``tri_surface_energy_members`` launch (``LAUNCHES["surface_area_grad_members"]``),
+    each member's outputs the bits of its own call.
     """
+    if vs.batched(positions):
+        return _SurfaceEnergyAndGradient.apply(positions.detach(), tri_rows, tri_valid, tension,
+                                               csr, ws)
     return _surface(positions.detach(), tri_rows, tri_valid, tension, csr, ws, True)
 
 

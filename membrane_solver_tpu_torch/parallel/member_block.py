@@ -59,34 +59,67 @@ from membrane_solver_tpu_torch.runtime.jit_core import (
     StepperState,
 )
 
-# the modules whose per-member code runs under ``vmap``: the kozlov lane's
-ENERGY_MODULES = frozenset({"surface", "tilt_in", "tilt_out", "bending_tilt_in",
-                            "bending_tilt_out", "tilt_thetaB_contact_in"})
-CONSTRAINT_MODULES = frozenset({"pin_to_plane", "pin_to_circle", "rim_slope_match_out",
-                                "tilt_thetaB_boundary_in"})
-WIDEN_ITEM = "ROADMAP A6: widen the sweep's batched module set"
+# the modules whose per-member code runs under ``vmap``: the kozlov lane's,
+# then the shape family (with the reference's placeholders and the
+# fixed-row mask, which change nothing)
+ENERGY_MODULES = frozenset({
+    "surface", "tilt_in", "tilt_out", "bending_tilt_in", "bending_tilt_out",
+    "tilt_thetaB_contact_in",
+    "bending", "volume", "gaussian_curvature", "line_tension", "body_area_penalty",
+    "edge_length_penalty", "jordan_area", "expression", "dummy_module"})
+CONSTRAINT_MODULES = frozenset({
+    "pin_to_plane", "pin_to_circle", "rim_slope_match_out", "tilt_thetaB_boundary_in",
+    "volume", "global_area", "body_area", "perimeter", "fixed_plane", "fix_facet_area",
+    "expression", "edge", "fix_facet_angle", "fix_vertex_position", "dummy_module"})
+TILT_FIELD_ITEM = "ROADMAP A6: the leaflet tilt-field family in the sweep"
+INTERFACE_ITEM = "ROADMAP A6: the local-interface family in the sweep"
+RIGID_DISK_ITEM = "ROADMAP A6: rigid_disk in the sweep"
+PHYSICAL_EDGE_ITEM = "ROADMAP A6: the physical-edge shells in the sweep"
+TRACE_Z_ITEM = "ROADMAP A6: the trace_z fallback in the sweep"
+# the ROADMAP item that holds each module outside the batched set
+PENDING_ENERGY = {
+    **dict.fromkeys((
+        "tilt", "tilt_smoothness", "tilt_coupling", "tilt_smoothness_leaflet",
+        "tilt_smoothness_in", "tilt_smoothness_out", "tilt_splay_twist_in",
+        "tilt_disk_target_in", "tilt_disk_target_out", "tilt_rim_source_in",
+        "tilt_rim_source_out", "tilt_rim_source_bilayer", "tilt_disk_contact_in",
+        "bending_tilt", "mean_curvature_tilt", "rim_slope_match_out"), TILT_FIELD_ITEM),
+    **dict.fromkeys(("curved_local_interface_law", "curved_local_interface_penalty"),
+                    INTERFACE_ITEM),
+}
+PENDING_CONSTRAINT = {
+    **dict.fromkeys(("tilt_leaflet_match_rim", "tilt_vector_match_rim"), TILT_FIELD_ITEM),
+    **dict.fromkeys(("curved_local_interface_hard", "curved_local_interface_match"),
+                    INTERFACE_ITEM),
+    "rigid_disk": RIGID_DISK_ITEM,
+    "local_interface_shells": PHYSICAL_EDGE_ITEM,
+}
 
 
 def check_batched_modules(spec: ProblemSpec) -> None:
-    """Raise NotImplementedError naming the first module outside the batched set.
+    """Raise NotImplementedError naming the first module outside the batched set
+    and the ROADMAP item that holds it.
 
-    The scaffold lanes' ``trace_z`` rejected-step fallback (a second line
-    search per member) is not batched either.
+    The physical-edge rim placement (its shells, matched in levels of
+    distinct rows) and the scaffold lanes' ``trace_z`` rejected-step
+    fallback (a second line search per member) are not batched either.
     """
+    if spec.option("rim_slope_match_mode", "").lower() == "physical_edge_staggered_v1":
+        raise NotImplementedError(
+            "the parameter sweep does not batch rim_slope_match_mode "
+            f"'physical_edge_staggered_v1' yet ({PHYSICAL_EDGE_ITEM})")
     if spec.option("shape_scaffold_rejected_step_fallback", "off").lower() == "trace_z":
         raise NotImplementedError(
             "the parameter sweep does not batch shape_scaffold_rejected_step_fallback "
-            f"'trace_z' yet ({WIDEN_ITEM})")
-    for name in jit_core.active_energy_modules(spec):
-        if name not in ENERGY_MODULES:
-            raise NotImplementedError(
-                f"the parameter sweep does not batch the energy module {name!r} yet "
-                f"({WIDEN_ITEM})")
-    for name in spec.constraint_modules:
-        if name not in CONSTRAINT_MODULES:
-            raise NotImplementedError(
-                f"the parameter sweep does not batch the constraint module {name!r} yet "
-                f"({WIDEN_ITEM})")
+            f"'trace_z' yet ({TRACE_Z_ITEM})")
+    for kind, names, batched, pending in (
+            ("energy", jit_core.active_energy_modules(spec), ENERGY_MODULES, PENDING_ENERGY),
+            ("constraint", spec.constraint_modules, CONSTRAINT_MODULES, PENDING_CONSTRAINT)):
+        for name in names:
+            if name not in batched:
+                item = pending.get(name, "ROADMAP A6")
+                raise NotImplementedError(
+                    f"the parameter sweep does not batch the {kind} module {name!r} yet ({item})")
 
 
 def _select(mask: torch.Tensor, new: MeshState, old: MeshState) -> MeshState:

@@ -78,7 +78,8 @@ def make_sweep_minimize(spec, options: jit_core.MinimizeOptions, device_mesh=Non
     fixed_step, tol, floor, max_zero, zero_counters)``, the JAX sweep's
     arguments; every result carries a leading member axis (the stats as
     numpy arrays).  A spec with a module outside the batched set raises
-    NotImplementedError naming it; so does a ``device_mesh``.
+    NotImplementedError naming it and the ROADMAP item that holds it; so
+    does a ``device_mesh``.
     """
     if device_mesh is not None:
         raise NotImplementedError(

@@ -318,16 +318,18 @@ def project_gradient_kkt(grad: torch.Tensor, constraint_grads) -> torch.Tensor:
     k = constraint_grads.shape[0]
     flatg = grad.reshape(-1)
     G = constraint_grads.reshape(k, -1)
+    # the dot products as sums of products: under ``torch.func.vmap`` (the
+    # parameter sweep) each member's sum adds in the order of its own call
     if k == 1:
         gC = G[0]
-        norm_sq = torch.dot(gC, gC)
+        norm_sq = torch.sum(gC * gC)
         lam = torch.where(
-            norm_sq > 1e-18, torch.dot(flatg, gC) / torch.clamp(norm_sq, min=1e-18), 0.0
+            norm_sq > 1e-18, torch.sum(flatg * gC) / torch.clamp(norm_sq, min=1e-18), 0.0
         )
         return (flatg - lam * gC).reshape(grad.shape)
     A = G @ G.T + 1e-18 * torch.eye(k, dtype=grad.dtype, device=grad.device)
-    lam = solve_kkt_with_rescue(A, G @ flatg)
-    return (flatg - lam @ G).reshape(grad.shape)
+    lam = solve_kkt_with_rescue(A, torch.sum(G * flatg, dim=1))
+    return (flatg - torch.sum(lam[:, None] * G, dim=0)).reshape(grad.shape)
 
 
 def orthonormalize_local_normals(normals: torch.Tensor) -> torch.Tensor:

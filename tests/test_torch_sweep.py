@@ -16,7 +16,8 @@ flags and iteration counts (no Armijo decision flips here; ROADMAP C3).
 
 Not against JAX: member m of the three against a one-member run of member
 m at rel 1e-13, distinct parameters give distinct energies, the dropped
-override changes no bit, the module set and ``device_mesh`` raise, and
+override changes no bit, a module outside the batched set (naming the
+ROADMAP item that holds it) and ``device_mesh`` raise, and
 the member-axis entry points under ``torch.func.vmap`` (the CPU twins of
 the member-axis kernels) equal the per-member calls bit for bit.  The
 member-axis CUDA kernels against the single-member kernels run on the
@@ -198,15 +199,19 @@ def test_trace_z_fallback_raises(problems):
         make_sweep_minimize(trace_z, MinimizeOptions())
 
 
-@pytest.mark.parametrize("kind,name", [("constraint", "rigid_disk"), ("energy", "bending")])
-def test_module_outside_the_batched_set_raises(problems, kind, name):
+@pytest.mark.parametrize("kind,name,item", [
+    ("constraint", "rigid_disk", "rigid_disk in the sweep"),
+    ("energy", "tilt_smoothness_in", "the leaflet tilt-field family in the sweep"),
+    ("constraint", "curved_local_interface_hard", "the local-interface family in the sweep"),
+])
+def test_module_outside_the_batched_set_raises(problems, kind, name, item):
     from membrane_solver_tpu_torch.parallel.sweep import make_sweep_minimize
     from membrane_solver_tpu_torch.runtime.jit_core import MinimizeOptions
 
     spec = problems[1].spec
     field = "constraint_modules" if kind == "constraint" else "energy_modules"
     wider = dataclasses.replace(spec, **{field: getattr(spec, field) + (name,)})
-    with pytest.raises(NotImplementedError, match=f"{kind} module '{name}'"):
+    with pytest.raises(NotImplementedError, match=f"{kind} module '{name}'.*ROADMAP A6: {item}"):
         make_sweep_minimize(wider, MinimizeOptions())
 
 

@@ -163,6 +163,24 @@ size, the accept flag, the iterations and a sketch of the final positions
 ``float32_reference`` holds the float32 run's energies, flags and
 iterations and their largest relative deviation from float64.
 
+``helfrich_cube_L5_sweep_f64_jax.json`` (``vesicle_sweep_run``): the
+vesicle protocol (five refines, five ``minimize(1)``), then
+``spontaneous_curvature`` 0.0 added to its global parameters (both
+packages drop a member override whose key the problem lacks) and
+``run_sweep`` with eight members: positions times 1 + 0.001 m,
+``bending_modulus`` times 1 + 0.1 m, ``spontaneous_curvature`` 0.1 m; five
+steps at 1e-3 with ``enforce_in_line_search`` (the lane's Minimizer's
+options, ``volume`` being enforceable).  Per member what the kozlov sweep
+file holds; the number of members whose last step was accepted, and
+``vmapped_vs_single_grad`` (the
+vmapped projected gradient at the start against each member's own, over
+max |g|); its ``float32_reference`` holds the float32 run's.
+``square_to_circle_L1_sweep_f64_jax.json`` (``run_square_sweep``): the
+square_to_circle command list of its CLI file, then ``run_sweep`` on the
+context's problem with four members: positions times 1 + 0.001 m,
+``target_surface_area`` times 1 + 0.01 m; three steps at 1e-3 with
+``enforce_in_line_search``.
+
 ``chip_smoke.py`` holds the port's float64 runs on the GPU against these
 files, so the GPU machine needs no JAX.
 
@@ -680,6 +698,133 @@ def run_kozlov_sweep() -> dict:
         **{k: f32[k] for k in ("energy", "accepted_energy", "step_success", "iterations")},
         "max_rel_dev_vs_float64": max(devs)}
     return rec
+
+
+def sweep_fixture_run(protocol: dict, problem, n: int) -> dict:
+    """``parallel.sweep.run_sweep`` of the protocol's members on a JAX problem (``sweep_record``).
+
+    Also ``vmapped_vs_single_grad``: at the start, the largest deviation of
+    the vmapped projected gradient of the B members from each member's own
+    evaluation, over that member's max |g| (XLA:CPU's batched arithmetic
+    may take the other side of a Meyer branch tie, where the gradient jumps).
+    """
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from chip_smoke import sweep_members, sweep_options, sweep_record
+    from membrane_solver_tpu.parallel.sweep import batch_problem, run_sweep
+    from membrane_solver_tpu.runtime import jit_core
+    from membrane_solver_tpu.runtime.jit_core import MinimizeOptions
+
+    params, positions = sweep_members(protocol, np.asarray(problem.state.positions),
+                                      problem.params)
+    batch = batch_problem(problem, params, member_positions=positions)
+    eg = jit_core.make_energy_and_grad(problem.spec)
+    _E, g = jax.vmap(eg, in_axes=(0, None, 0))(batch.states, problem.topo, batch.params)
+    devs = []
+    for m in range(batch.n_members):
+        st = jax.tree_util.tree_map(lambda a, m=m: a[m], batch.states)
+        _e1, g1 = eg(st, problem.topo, {k: v[m] for k, v in batch.params.items()})
+        devs.append(float(jnp.max(jnp.abs(g[m] - g1)) / jnp.max(jnp.abs(g1))))
+    states, _ss, stats = run_sweep(problem, params, protocol["steps"],
+                                   step_size=protocol["step_size"],
+                                   options=MinimizeOptions(**sweep_options(protocol)),
+                                   member_positions=positions)
+    rec = sweep_record(protocol, {k: np.asarray(getattr(stats, k)) for k in
+                                  ("energy", "accepted_energy", "grad_norm", "step_size",
+                                   "step_success", "iterations")},
+                       np.asarray(states.positions)[:, :n])
+    # members whose last step was an accepted line search (the JAX stats
+    # keep the last step's flag only)
+    rec["accepted_last_step"] = int(np.sum(np.asarray(stats.step_success)
+                                           & ~np.asarray(stats.converged)))
+    rec["vmapped_vs_single_grad"] = max(devs)
+    return rec
+
+
+# the parameter sweep on the Helfrich vesicle after its protocol's five
+# steps: eight members scanning the bending modulus and the spontaneous
+# curvature (which the lane's global parameters must hold, at 0.0, for an
+# override to be kept), five steps with the per-trial volume enforcement the
+# lane's Minimizer switches on
+VESICLE_SWEEP_GP = {"spontaneous_curvature": 0.0}
+
+
+def vesicle_sweep_protocol() -> dict:
+    return {
+        "vesicle": vesicle_protocol(),
+        "global_parameters": VESICLE_SWEEP_GP,
+        "members": SWEEP_MEMBERS,
+        "dilation": 1e-3,
+        "scan": {"bending_modulus": {"scale": 0.1}, "spontaneous_curvature": {"shift": 0.1}},
+        "steps": SWEEP_STEPS,
+        "step_size": SWEEP_STEP_SIZE,
+        "options": {"enforce_in_line_search": True},
+        "sample_rows": 512,
+        "sample_seed": 0,
+        "dtype": "float64",
+        "package": "membrane_solver_tpu",
+        "platform": "cpu",
+    }
+
+
+def vesicle_sweep_run() -> dict:
+    """The vesicle sweep protocol at the precision this process runs."""
+    pkg, build, refinement = _jax()
+    protocol = vesicle_sweep_protocol()
+    mn = build_vesicle(pkg, build, refinement, protocol["vesicle"])
+    for _ in range(protocol["vesicle"]["steps"]):
+        mn.minimize(1)
+    for key, value in protocol["global_parameters"].items():
+        mn.global_params.set(key, value)
+    return sweep_fixture_run(protocol, mn.problem(), len(mn.mesh.vertices))
+
+
+def run_vesicle_sweep() -> dict:
+    """The float64 sweep here, the float32 one in a child beside it."""
+    child = start_float32_child("helfrich_cube_L5_sweep_f64_jax.json")
+    rec = {"protocol": vesicle_sweep_protocol(), **vesicle_sweep_run()}
+    f32 = float32_result(child)
+    devs = [abs(a - b) / abs(b) for a, b in zip(f32["energy"], rec["energy"], strict=True)]
+    rec["float32_reference"] = {
+        "package": "membrane_solver_tpu", "platform": "cpu", "dtype": "float32",
+        **{k: f32[k] for k in ("energy", "accepted_energy", "step_success", "iterations",
+                               "accepted_last_step", "vmapped_vs_single_grad")},
+        "max_rel_dev_vs_float64": max(devs)}
+    return rec
+
+
+# the sweep on square_to_circle after its recipe (12,769 vertices): four
+# members scanning the hard area target (the lane's line tension is set per
+# edge, so a global override would be dropped), three steps
+SQUARE_SWEEP_MEMBERS = 4
+SQUARE_SWEEP_STEPS = 3
+
+
+def square_sweep_protocol() -> dict:
+    return {
+        "square_to_circle": square_to_circle_protocol(),
+        "members": SQUARE_SWEEP_MEMBERS,
+        "dilation": 1e-3,
+        "scan": {"target_surface_area": {"scale": 0.01}},
+        "steps": SQUARE_SWEEP_STEPS,
+        "step_size": SWEEP_STEP_SIZE,
+        "options": {"enforce_in_line_search": True},
+        "sample_rows": 512,
+        "sample_seed": 0,
+        "dtype": "float64",
+        "package": "membrane_solver_tpu",
+        "platform": "cpu",
+    }
+
+
+def run_square_sweep() -> dict:
+    protocol = square_sweep_protocol()
+    ctx, _trace = cli_run(protocol["square_to_circle"])
+    mn = ctx.minimizer
+    return {"protocol": protocol, **sweep_fixture_run(protocol, mn.problem(),
+                                                      len(mn.mesh.vertices))}
 
 
 # the step-by-step kozlov lanes with their accept flags
@@ -1266,6 +1411,11 @@ def cli_trace(protocol: dict, digests: bool = False) -> list:
 
     With ``digests``, each row also holds the connectivity digest after it.
     """
+    return cli_run(protocol, digests)[1]
+
+
+def cli_run(protocol: dict, digests: bool = False) -> tuple:
+    """(command context, :func:`cli_trace`'s rows): the context the commands leave."""
     import tempfile
 
     pkg, _build, _refinement = _jax()
@@ -1287,7 +1437,7 @@ def cli_trace(protocol: dict, digests: bool = False) -> list:
         trace.append(command_record(ctx, cmd))
         if digests:
             trace[-1]["connectivity"] = connectivity_digest(ctx.mesh)
-    return trace
+    return ctx, trace
 
 
 # ROADMAP C4: the cube recipe's float32 state just before its last ``u``
@@ -1369,6 +1519,7 @@ FLOAT32_RUNS = {
     "kozlov_L3_mode_drives_f64_jax.json": mode_drives_run,
     C4_FIXTURE: c4_pre_u_state,
     "kozlov_L3_sweep_f64_jax.json": sweep_run,
+    "helfrich_cube_L5_sweep_f64_jax.json": vesicle_sweep_run,
 }
 
 
@@ -1501,6 +1652,8 @@ FIXTURES = {
     "kozlov_L3_mode_drives_f64_jax.json": run_kozlov_mode_drives,
     C4_FIXTURE: run_c4_pre_u,
     "kozlov_L3_sweep_f64_jax.json": run_kozlov_sweep,
+    "helfrich_cube_L5_sweep_f64_jax.json": run_vesicle_sweep,
+    "square_to_circle_L1_sweep_f64_jax.json": run_square_sweep,
 }
 
 
