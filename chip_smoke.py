@@ -398,10 +398,47 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
     each member that accepted a step within 1e-10 of its target; the hard
     area's energy-and-gradient call under ``vmap`` launches
     ``tri_surface_energy_members`` (``surface_area_grad_members`` > 0) and
-    its member twin is never called inside the sweep; on the members' final
+    no plain twin of the kernels is called inside the sweep
+    (``counted_twins``); on the members' final
     states that call against its member twin (phase 3's bounds) and, member
     by member, equal in bits to the single call; the launch and its twin
     timed.  A ``[36-38 ...]`` line gives the three phases' seconds.
+39. rect_tilt_source L0 tilt-decay sweep, float64: the protocol of
+    ``tests/fixtures/torch_port/rect_tilt_source_L0_sweep_f64_jax.json``:
+    the lane's command list (phase 14's, 160 x 64, 10,465 vertices) with
+    ``tilt_smoothness_rigidity`` 1.0 set before it (the lane's kappa; the
+    smoothness module reads 0 without it, and from the state the recipe
+    leaves without it no member-step is ever accepted: the smoothness term
+    has no shape gradient), each command's energy within rel 1e-8 of the
+    fixture's; then eight members (positions times 1 + 0.001 m,
+    ``tilt_modulus`` and the rigidity times 1 + 0.1 m), five steps at 1e-3
+    under the default options.  Phase 33's checks (``drive_sweep``), at
+    least one accepted member-step (in the fixture and on the card), no
+    single-member launch and no plain twin called (``counted_twins``),
+    every member's tilts after the sweep equal to the start's bit for bit;
+    ms per sweep step at B = 1 and 8 and the busy share at 8.
+40. the same at float32, against phase 39 within rel max(2e-3, 2 x the
+    JAX package's own float32 deviation), with the JAX package's own
+    float32 flags.
+41. the leaflet tilt-field family over a member axis on kozlov L3, float64
+    with float32 items: phase 20's set-up and phase 21's (with ``tilt`` and
+    ``tilt_smoothness`` added, ``sweep_tilt_setup``) on their fixtures'
+    inputs, four members with seeded offsets (``tilt_member_inputs``); each
+    of the sixteen energy modules alone under ``torch.func.vmap`` (its
+    energy and its gradients in the four fields, autograd through the map,
+    as the sweep takes them) and each mode of the two tilt-match
+    constraints (tilt rows, tilt enforcement) against the JAX package's
+    ``jax.vmap`` in ``kozlov_L3_sweep_tilt_drives_f64_jax.json`` (rel
+    1e-10, gradients of max|g|); member m of the map against member m's
+    single call, equal bits or within 1e-12 of max|g| where a batched
+    reduction adds in another order (printed); float32 against float64
+    within max(2e-3, 2 x the JAX package's own float32 deviation per
+    item); the member divergence kernel launched under
+    ``tilt_splay_twist_in`` and ``bending_tilt``, the member curvature data
+    under the smoothness modules and ``bending_tilt`` (``mean_curvature_tilt``
+    is the reference's inert stub), no single-entry launch inside a map and
+    no plain twin called.  A ``[39-41 ...]`` line gives the three phases'
+    seconds and busy shares.
 
 Every lane phase (4-9, 11-19, 21-24, 26-31) also checks determinism: from the state its
 protocol leaves (phases 4-7, 16-19, 21-24 and 26-31: the five steps; phases 8-9 and
@@ -412,12 +449,14 @@ a ``[... determinism]`` line prints both digests, and unequal digests fail
 the run.  A ``[phase seconds]`` line gives each phase's seconds, and the
 last line before the kernels line the whole run's.
 
-Phases 4-9 and 11-38 each drive one path with every kernel launch counter
+Phases 4-9 and 11-41 each drive one path with every kernel launch counter
 set to 0 just before and read just after; a kernel of that path that was
 never launched fails the run (phases 33-34: the member-axis surface
 energy, both variants, curvature data and its backward, divergence and
 vertex sum; 36-37: the same less the divergence; 38: the member-axis
-surface energy, both variants, its area route and the vertex sum) (the
+surface energy, both variants, its area route and the vertex sum; 39-40:
+the member-axis surface energy, both variants, curvature data and vertex
+sum; 41: per module, as above) (the
 frozen-tilt entry point, both variants,
 lies on the float32 kozlov paths with a frozen relax, phases 4, 15, 17, 19,
 22, 27 and 31; the surface energy, both variants, and the vertex sum on phases
@@ -428,7 +467,7 @@ paths 4-5, 15-19 and 21-32, and it and its tilt backward inside phase 20's
 splay-twist, phase 25's ``bending_tilt`` and phase 32's bending-tilt modes).
 
 The line before the last is a JSON object ``{"kernels": [...]}``: per entry
-point, its launches over phases 4-9 and 11-38, its largest error against its twin,
+point, its launches over phases 4-9 and 11-41, its largest error against its twin,
 and phase 3's device ms per call (``ms``), its twin's (``plain_ms``), the
 bound, and, for the vertex sum, ``index_add_``'s (``library_ms``); the
 member-axis entries' times are phase 34's at B = 8, float32, beside their
@@ -446,6 +485,7 @@ from __future__ import annotations
 
 import base64
 import collections
+import contextlib
 import dataclasses
 import gzip
 import hashlib
@@ -1989,7 +2029,8 @@ def cli_context(torch, protocol: dict, dtype):
 
     A meshgen protocol's lane is first written to a JSON file, as
     ``python -m membrane_solver_tpu_torch.meshgen NAME --set k=v -o FILE``
-    writes it, and the CLI loads that file.
+    writes it, and the CLI loads that file; the protocol's
+    ``global_parameters``, where it has them, update the loaded mesh's.
     """
     import tempfile
 
@@ -2004,7 +2045,9 @@ def cli_context(torch, protocol: dict, dtype):
             mesh_path.write_text(json.dumps(build(spec["name"], **spec["args"])))
         argv = [str(mesh_path) if a == protocol["mesh"] else a for a in protocol["cli_args"]]
         args = cli.build_parser().parse_args(argv + (["--f32"] if dtype == torch.float32 else []))
-        return cli.make_context(args, cli.load_mesh_interactive(args.input, interactive=False))
+        mesh = cli.load_mesh_interactive(args.input, interactive=False)
+        mesh.global_parameters.update(protocol.get("global_parameters", {}))
+        return cli.make_context(args, mesh)
 
 
 def g1_split(torch, ctx) -> dict:
@@ -4011,8 +4054,8 @@ def area_rows(torch, tk, topo, pos) -> list:
 def phase_square_sweep(torch, tk, counters, label: str, fixture: dict, mn, snap: dict) -> dict:
     """The parameter sweep on square_to_circle L1 from phase 12's post-recipe state (phase 38).
 
-    ``drive_sweep``'s checks; the hard area's member route launched and its
-    member twin never called; the area of every member that accepted a step
+    ``drive_sweep``'s checks; the hard area's member route launched and no
+    plain twin called (:func:`counted_twins`); the area of every member that accepted a step
     at its target; then the
     route against its twin and the single call on the members' final states.
     """
@@ -4020,18 +4063,11 @@ def phase_square_sweep(torch, tk, counters, label: str, fixture: dict, mn, snap:
     restore(mn, snap)
     problem = mn.problem()
     setup_s = time.perf_counter() - t0
-    twin_calls = {"n": 0}
-    twin = tk.surface_energy_members_reference
+    from membrane_solver_tpu_torch.kernels import vertex_sum as vs
 
-    def counted_twin(*args, **kw):
-        twin_calls["n"] += 1
-        return twin(*args, **kw)
-
-    tk.surface_energy_members_reference = counted_twin
-    try:
+    with counted_twins({"tri_kernels": tk, "vertex_sum": vs}) as twins:
         out = drive_sweep(torch, counters, label, fixture, torch.float64, problem)
-    finally:
-        tk.surface_energy_members_reference = twin
+    twin_calls = {k: n for k, n in twins.items() if n}
     launches = out["launches"]
     topo = problem.topo
     targets = torch.as_tensor([p["target_surface_area"] for p in sweep_members(
@@ -4054,7 +4090,7 @@ def phase_square_sweep(torch, tk, counters, label: str, fixture: dict, mn, snap:
     say(label + " areas", max_rel_area_dev=repr(area_dev), bound=AREA_TOL,
         accepted_per_member=json.dumps(out["member_accepted"].tolist()),
         unmoved_members=json.dumps(idle),
-        twin_calls_in_sweep=twin_calls["n"], setup_s=f"{setup_s:.3f}",
+        twin_calls_in_sweep=json.dumps(twin_calls), setup_s=f"{setup_s:.3f}",
         parts_s=json.dumps({k: round(v, 3) for k, v in out["parts"].items()}))
     for rec in timing.values():
         say(label + " kernel timing", **{k: (f"{v:.6f}" if isinstance(v, float) else v)
@@ -4063,13 +4099,430 @@ def phase_square_sweep(torch, tk, counters, label: str, fixture: dict, mn, snap:
     if missing:
         raise AssertionError(f"{label}: the path did not launch {missing}: {launches}")
     single = {k: n for k, n in launches.items() if not k.endswith("_members") and n}
-    if single or twin_calls["n"]:
+    if single or twin_calls:
         raise AssertionError(f"{label}: single-member launches {single}, twin calls "
-                             f"{twin_calls['n']}")
+                             f"{twin_calls}")
     out["check"]()
     if not area_dev <= AREA_TOL:
         raise AssertionError(f"{label}: a member's area is {area_dev!r} off its target")
     return {"launches": launches, "stats": out["stats"], "errs": errs, "timing": timing}
+
+
+# ----------------------------------------------------------------------
+# phases 39-41: the sweep over the leaflet tilt-field family
+# ----------------------------------------------------------------------
+RECT_SWEEP_FIXTURE = FIXTURES / "rect_tilt_source_L0_sweep_f64_jax.json"
+TILT_SWEEP_FIXTURE = FIXTURES / "kozlov_L3_sweep_tilt_drives_f64_jax.json"
+TILT_FIELDS = ("positions", "tilts", "tilts_in", "tilts_out")
+
+
+def sweep_tilt_setup(mesh, protocol: dict, setup: str) -> None:
+    """Phase 41's host mesh (either package's): phase 20's drives or phase 21's match drives.
+
+    ``setup`` "drives": :func:`drives_setup` with ``protocol["drives"]``;
+    "match": :func:`match_drives_setup` with ``protocol["match"]``, then the
+    ``single_field_parameters`` and the single-field modules (``tilt``,
+    ``tilt_smoothness``) added, so that they compile on the same mesh.
+    """
+    if setup == "drives":
+        drives_setup(mesh, protocol["drives"])
+        return
+    match_drives_setup(mesh, protocol["match"])
+    mesh.global_parameters.update(protocol["single_field_parameters"])
+    mesh.energy_modules.extend(m for m in protocol["energies"]["match"]
+                               if m not in mesh.energy_modules)
+
+
+def tilt_base_inputs(protocol: dict, setup: str, n: int) -> dict:
+    """The set-up's inputs: the fields its fixture (phase 20's or 25's) recorded; tilts 0 else."""
+    rec = json.loads((FIXTURES / protocol["inputs"][setup]).read_text())
+    return {f: decode_rows(rec["inputs"][f], n) if f in rec["inputs"] else np.zeros((n, 3))
+            for f in TILT_FIELDS}
+
+
+def tilt_member_inputs(protocol: dict, base: dict) -> list:
+    """Per member m, ``base`` (field -> (n, 3) float64) plus seeded offsets.
+
+    ``numpy.random.default_rng(member_seed + m)``, in ``TILT_FIELDS`` order:
+    ``z_scale`` normals on the positions' z, ``tilt_scale`` normals on every
+    tilt field, on every row.
+    """
+    out = []
+    for m in range(protocol["members"]):
+        rng = np.random.default_rng(protocol["member_seed"] + m)
+        rec = {}
+        for f in TILT_FIELDS:
+            a = np.array(base[f], dtype=np.float64)
+            if f == "positions":
+                a[:, 2] += protocol["z_scale"] * rng.standard_normal(a.shape[0])
+            else:
+                a += protocol["tilt_scale"] * rng.standard_normal(a.shape)
+            rec[f] = a
+        out.append(rec)
+    return out
+
+
+def pack_rows(arr, rows) -> dict:
+    """An (n, 3) array for a fixture: its nonzero rows (:func:`encode_rows`) where they are
+    no more than the sample's, else its :func:`sketch`."""
+    arr = np.asarray(arr, dtype=np.float64)
+    if int(np.count_nonzero(np.any(arr != 0.0, axis=1))) <= len(rows):
+        return encode_rows(arr)
+    return sketch(arr, rows)
+
+
+def packed_deviation(want: dict, arr, rows) -> float:
+    """Largest error of the dense (n, 3) ``arr`` against a :func:`pack_rows` record, over the
+    record's largest entry (absolute where that is 0)."""
+    arr = np.asarray(arr, dtype=np.float64)
+    if "rows" in want:
+        w = decode_rows(want, arr.shape[0])
+        scale = float(np.max(np.abs(w)))
+        err = float(np.max(np.abs(arr - w)))
+        return err / scale if scale > 0 else err
+    return sketch_deviation(want, sketch(arr, rows))
+
+
+def relative_error(got, want) -> float:
+    """max |got - want| over max |want| (absolute where ``want`` is 0); scalars or arrays."""
+    got, want = np.asarray(got, dtype=np.float64), np.asarray(want, dtype=np.float64)
+    scale = float(np.max(np.abs(want)))
+    err = float(np.max(np.abs(got - want)))
+    return err / scale if scale > 0 else err
+
+
+# the member twins of the kernels on phases 39-41's paths, and the single
+# entries' twins: on the card none may be called (no fallback hides a launch)
+TWINS = {"tri_kernels": ("surface_energy_reference", "curvature_data_reference",
+                         "curvature_data_vjp_reference", "p1_div_vjp_reference",
+                         "surface_energy_members_reference", "curvature_data_members_reference",
+                         "curvature_data_vjp_members_reference",
+                         "p1_divergence_members_reference", "p1_div_vjp_members_reference"),
+         "vertex_sum": ("reference", "members_reference")}
+# the rect sweep's member-axis kernels: the surface energy with its gradient
+# and alone, the smoothness cotangents (curvature data, frozen positions:
+# no backward), the vertex sums (the tilt energy's areas, the normals of the
+# single-field tangent re-projection)
+RECT_SWEEP_EXPECT = ("tri_kernels.surface_energy_members",
+                     "tri_kernels.surface_energy_grad_members",
+                     "tri_kernels.curvature_data_members", "vertex_sum.vertex_sum_members")
+RECT_SWEEP_SIZES = (1, 8)  # phases 39-40
+# phase 41: the member-axis kernel each module must launch under vmap
+# (``mean_curvature_tilt`` is the reference's inert stub: no kernel)
+TILT_DRIVES_EXPECT = {
+    "tilt_splay_twist_in": ("p1_div_members",),
+    "tilt_smoothness_in": ("curvature_data_members",),
+    "tilt_smoothness_out": ("curvature_data_members",),
+    "tilt_smoothness_leaflet": ("curvature_data_members",),
+    "tilt_smoothness": ("curvature_data_members",),
+    "bending_tilt": ("curvature_data_members", "p1_div_members"),
+}
+TILT_MEMBER_KEYS = ("curvature_data_members", "curvature_data_bwd_members", "p1_div_members",
+                    "p1_div_bwd_members")
+# phase 41, member m of the vmapped evaluation against member m's single
+# call: equal bits, or (where a batched reduction adds in another order) this
+# share of the largest entry
+TILT_MEMBER_TOL = 1e-12
+
+
+@contextlib.contextmanager
+def counted_twins(modules: dict):
+    """Count the calls of every plain twin in ``TWINS`` while the block runs: {name: calls}."""
+    counts, saved = {}, []
+    for mod_name, names in TWINS.items():
+        mod = modules[mod_name]
+        for name in names:
+            fn = getattr(mod, name)
+            key = f"{mod_name}.{name}"
+            counts[key] = 0
+
+            def wrapped(*args, _fn=fn, _key=key, **kw):
+                counts[_key] += 1
+                return _fn(*args, **kw)
+
+            setattr(mod, name, wrapped)
+            saved.append((mod, name, fn))
+    try:
+        yield counts
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def phase_rect_sweep(torch, tk, vs, counters, label: str, fixture: dict, dtype,
+                     f64=None) -> dict:
+    """The tilt-decay sweep on rect_tilt_source L0 (phases 39-40).
+
+    The lane's command list with ``tilt_smoothness_rigidity`` 1.0 set
+    before it (the fixture's ``rect_tilt_source`` protocol): per command the
+    energy against the fixture's ``lane_energies`` (float64) or the float64
+    phase's (float32).  Then ``drive_sweep``'s checks on the state it
+    leaves; at least one accepted member-step (the fixture's too); no
+    single-member launch and no twin call inside the sweep; every member's
+    tilts after the sweep equal to the start's bit for bit (no relax, no
+    per-trial enforcement, and the flat sheet's tangent re-projection
+    changes no bit); then ms per sweep step at B = 1 and 8 and the busy
+    share at 8.
+    """
+    from membrane_solver_tpu_torch.commands import execute_command_line
+
+    proto = fixture["protocol"]
+    f32_ref = fixture["float32_reference"]
+    t0 = time.perf_counter()
+    ctx = cli_context(torch, proto["rect_tilt_source"], dtype)
+    lane = []
+    for cmd in proto["rect_tilt_source"]["commands"]:
+        execute_command_line(ctx, cmd)
+        ctx.sync_mesh()
+        lane.append(float(ctx.minimizer.compute_energy()))
+    setup_s = time.perf_counter() - t0
+    if f64 is None:
+        lane_want, lane_bound = fixture["lane_energies"], F64_RTOL
+    else:
+        lane_want = f64["lane"]
+        lane_bound = max(F32_RTOL, 2 * f32_ref["max_rel_dev_vs_float64"])
+    lane_dev = max(abs(a - b) / abs(b) for a, b in zip(lane, lane_want, strict=True))
+    problem = ctx.minimizer.problem()
+    member_rtol = None if f64 is None else max(MEMBER_RTOL["float32"],
+                                               2 * f32_ref["vmapped_vs_single_grad"])
+    with counted_twins({"tri_kernels": tk, "vertex_sum": vs}) as twins:
+        out = drive_sweep(torch, counters, label, fixture, dtype, problem, f64,
+                          member_rtol=member_rtol)
+    launches = out["launches"]
+    states = out["states"]
+    tilts_equal = all(torch.equal(getattr(states, f),
+                                  getattr(problem.state, f).expand_as(getattr(states, f)))
+                      for f in ("tilts", "tilts_in", "tilts_out"))
+    want_accepted = (fixture if f64 is None else f32_ref)["accepted_last_step"]
+    t1 = time.perf_counter()
+    per_size, busy = sweep_timing(torch, label, out["run"], RECT_SWEEP_SIZES,
+                                  proto["members"])
+    parts = {"setup": setup_s, **out["parts"], "timing": time.perf_counter() - t1}
+    say(label + " lane", energies=json.dumps(lane), reference=json.dumps(lane_want),
+        max_rel_dev=repr(lane_dev), bound=repr(lane_bound),
+        tilts_equal_to_start=tilts_equal,
+        accepted_per_member=json.dumps(out["member_accepted"].tolist()),
+        accepted_member_steps=out["accepted"], reference_accepted_last_steps=want_accepted,
+        twin_calls=json.dumps({k: v for k, v in twins.items() if v}),
+        parts_s=json.dumps({k: round(v, 3) for k, v in parts.items()}))
+    if not lane_dev <= lane_bound:
+        raise AssertionError(f"{label}: the lane's energies deviate by {lane_dev!r}")
+    missing = [k for k in RECT_SWEEP_EXPECT if not launches[k] > 0]
+    if missing:
+        raise AssertionError(f"{label}: the path did not launch {missing}: {launches}")
+    single = {k: n for k, n in launches.items() if not k.endswith("_members") and n}
+    if single or any(twins.values()):
+        raise AssertionError(f"{label}: single-member launches {single}, twin calls "
+                             f"{ {k: v for k, v in twins.items() if v} }")
+    out["check"]()
+    if not (out["accepted"] > 0 and want_accepted > 0):
+        raise AssertionError(f"{label}: no accepted member-step ({out['accepted']}, the "
+                             f"reference {want_accepted})")
+    if not tilts_equal:
+        raise AssertionError(f"{label}: the sweep changed the members' tilts")
+    return {"launches": launches, "stats": out["stats"], "sketches": out["sketches"],
+            "lane": lane, "per_size": per_size, "busy_share": busy}
+
+
+def tilt_problems(torch, protocol: dict, setup: str):
+    """Phase 41's problems of one set-up on the card, float64 and float32 from one host mesh,
+    on its fixture's inputs: (p64, p32, base inputs, the lane's own inputs' largest
+    deviation from them)."""
+    from membrane_solver_tpu_torch import Minimizer
+
+    mesh = build_lane(torch, protocol[setup]["kozlov"], torch.float64).mesh
+    sweep_tilt_setup(mesh, protocol, setup)
+    p64, p32 = (Minimizer(mesh, device=DEVICE, dtype=dtype, quiet=True).problem()
+                for dtype in (torch.float64, torch.float32))
+    base = tilt_base_inputs(protocol, setup, p64.n_vertices)
+    dev = max(float(np.max(np.abs(getattr(p64.state, f).detach().cpu().numpy() - base[f])))
+              for f in TILT_FIELDS if f != "tilts")
+    return p64, p32, base, dev
+
+
+def tilt_items(torch, p, protocol: dict, setup: str, members: list, counters=None) -> dict:
+    """Every item of phase 41 on ``p``: under ``vmap`` over the members (``members[m]``: field
+    -> (n, 3) float64) and member by member.
+
+    Per energy module (``energy/NAME``): (B,) energies and per field (B, n, 3)
+    gradients, as ``make_member_energy_and_grad`` takes them (autograd
+    through the map); per constraint and mode the tilt rows and the
+    enforcement's tilt changes.  Returns ``{"vmapped": {item: array},
+    "single": {item: [array per member]}, "launches": {module: counts}}``,
+    arrays on the host in float64; with ``counters``, each module's
+    member-axis launches in its vmapped evaluation (and its single-entry
+    launches there, ``single_in_map``).
+    """
+    from torch.func import vmap
+
+    from membrane_solver_tpu_torch.constraints import get_constraint
+    from membrane_solver_tpu_torch.device import geo as dgeo
+    from membrane_solver_tpu_torch.device.state import MeshState
+    from membrane_solver_tpu_torch.energy import get_module
+
+    dtype, topo, params = p.state.positions.dtype, p.topo, p.params
+    host = lambda t: t.detach().cpu().double().numpy()  # noqa: E731
+    stacked = {f: torch.as_tensor(np.stack([m[f] for m in members]), dtype=dtype, device=DEVICE)
+               for f in TILT_FIELDS}
+    B = len(members)
+    out = {"vmapped": {}, "single": {}, "launches": {}}
+    for name in protocol["energies"][setup]:
+        module = get_module(name)
+        maker = getattr(module, "make_energy", None)
+        fn = maker(p.spec) if maker is not None else module.energy
+
+        def energy(*fields, fn=fn):
+            st = MeshState(*fields)
+            return fn(dgeo.triangle_geometry(st.positions, topo.tri_rows, topo.tri_valid), st,
+                      topo, params)
+
+        def value_and_grads(leaves, e):
+            grads = (torch.autograd.grad(e.sum(), leaves, allow_unused=True) if e.requires_grad
+                     else [None] * len(leaves))
+            return [host(e)] + [np.zeros(tuple(x.shape)) if g is None else host(g)
+                                for g, x in zip(grads, leaves)]
+
+        before = read_counts(counters) if counters else None
+        leaves = [stacked[f].clone().requires_grad_(True) for f in TILT_FIELDS]
+        got = value_and_grads(leaves, vmap(energy)(*leaves))
+        if counters:
+            torch.cuda.synchronize()
+            after = read_counts(counters)
+            diff = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+            out["launches"][name] = {
+                **{k: diff.get(f"tri_kernels.{k}", 0) for k in TILT_MEMBER_KEYS},
+                "single_in_map": {k: v for k, v in diff.items() if not k.endswith("_members")}}
+        singles = []
+        for m in range(B):
+            one = [stacked[f][m].clone().requires_grad_(True) for f in TILT_FIELDS]
+            singles.append(value_and_grads(one, energy(*one)))
+        out["vmapped"][f"energy/{name}"] = got[0]
+        out["single"][f"energy/{name}"] = [s[0] for s in singles]
+        for i, f in enumerate(TILT_FIELDS, start=1):
+            out["vmapped"][f"energy/{name}/{f}"] = got[i]
+            out["single"][f"energy/{name}/{f}"] = [s[i] for s in singles]
+    if setup != "match":
+        return out
+    states = MeshState(*(stacked[f] for f in TILT_FIELDS))
+    with torch.no_grad():
+        for name, (_key, modes) in protocol["constraints"].items():
+            mod = get_constraint(name)
+            for mode in modes:
+                spec = static_variant(p.spec, f"constraint:{name}", mode)
+                rows_fn, enforce = mod.make_tilt_constraint_rows(spec), mod.make_enforce_tilts(spec)
+                key = f"constraint/{name}/{mode}"
+                rows = vmap(lambda st: rows_fn(st, topo, params))(states)
+                moved = vmap(lambda st: enforce(st, topo, params))(states)
+                out["vmapped"][key + "/rows"] = host(rows)
+                for f in ("tilts_in", "tilts_out"):
+                    out["vmapped"][f"{key}/{f}"] = host(getattr(moved, f) - getattr(states, f))
+                one_rows, one_moved = [], {"tilts_in": [], "tilts_out": []}
+                for m in range(B):
+                    st = MeshState(*(stacked[f][m] for f in TILT_FIELDS))
+                    one_rows.append(host(rows_fn(st, topo, params)))
+                    o1 = enforce(st, topo, params)
+                    for f in one_moved:
+                        one_moved[f].append(host(getattr(o1, f) - getattr(st, f)))
+                out["single"][key + "/rows"] = one_rows
+                for f in one_moved:
+                    out["single"][f"{key}/{f}"] = one_moved[f]
+    return out
+
+
+def tilt_item_deviation(want, got, rows) -> float:
+    """Largest deviation of a (B, ...) item from its fixture record (``pack_rows`` per member)."""
+    got = np.asarray(got)
+    if got.ndim == 1:
+        return max(relative_error(g, w) for g, w in zip(got, want, strict=True))
+    if got.ndim == 3:
+        return max(packed_deviation(w, g, rows) for g, w in zip(got, want, strict=True))
+    return max(packed_deviation(w[k][leaf], g[k, leaf], rows)
+               for g, w in zip(got, want, strict=True)
+               for k in range(g.shape[0]) for leaf in range(2))
+
+
+def phase_tilt_drives(torch, tk, vs, counters, label: str, fixture: dict) -> dict:
+    """The leaflet tilt-field family over a member axis on kozlov L3 (phase 41).
+
+    Phase 20's and phase 21's set-ups (:func:`sweep_tilt_setup`) on their
+    fixtures' inputs (the lane's own, built on the card, within 1e-12 of
+    them), B members with seeded offsets (:func:`tilt_member_inputs`); every
+    item of :func:`tilt_items` at float64 against the JAX package's
+    ``jax.vmap`` (rel 1e-10; gradients of max|g|); member m of the map
+    against member m's single call: equal bits, or within
+    ``TILT_MEMBER_TOL`` of the largest entry where a batched reduction adds
+    in another order (counted and printed); the same items at float32
+    against float64 within max(2e-3, 2 x the JAX package's own float32
+    deviation per item).  The member-axis kernels of ``TILT_DRIVES_EXPECT``
+    launch inside each module's map, no single-entry launch and no twin
+    call there.
+    """
+    proto = fixture["protocol"]
+    f32_ref = fixture["float32_reference"]["max_rel_dev_vs_float64"]
+    rows = None
+    failed, rec_launches, per_item = [], {}, {}
+    seconds = {}
+    reset_counts(counters)
+    with counted_twins({"tri_kernels": tk, "vertex_sum": vs}) as twins:
+        for setup in ("drives", "match"):
+            t0 = time.perf_counter()
+            p64, p32, base, input_dev = tilt_problems(torch, proto, setup)
+            seconds[f"{setup}_setup"] = time.perf_counter() - t0
+            if not input_dev <= 1e-12 * max(float(np.max(np.abs(base["positions"]))), 1.0):
+                failed.append(f"{setup}: the lane's inputs lie {input_dev!r} off the fixture's")
+            rows = sample_rows(proto, p64.n_vertices)
+            members = tilt_member_inputs(proto, base)
+            t0 = time.perf_counter()
+            v64 = tilt_items(torch, p64, proto, setup, members, counters)
+            seconds[f"{setup}_f64"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            v32 = tilt_items(torch, p32, proto, setup, members)
+            seconds[f"{setup}_f32"] = time.perf_counter() - t0
+            rec_launches.update(v64["launches"])
+            for item, got in v64["vmapped"].items():
+                dev = tilt_item_deviation(fixture["items"][item], got, rows)
+                exact, off = 0, 0.0
+                for m, one in enumerate(v64["single"][item]):
+                    if np.array_equal(got[m], one):
+                        exact += 1
+                    else:
+                        off = max(off, relative_error(got[m], one))
+                dev32 = relative_error(v32["vmapped"][item], got)
+                bound32 = max(F32_RTOL, 2 * f32_ref[item])
+                per_item[item] = {"dev_f64": dev, "members_equal_bits": exact,
+                                  "member_dev": off, "dev_f32": dev32, "bound_f32": bound32}
+                say(label + " item", item=item, dev_f64=repr(dev),
+                    members_equal_bits=f"{exact}/{len(members)}", member_dev=repr(off),
+                    reason=("" if exact == len(members) else
+                            "a batched reduction adds in another order than the single call"),
+                    dev_f32=repr(dev32), bound_f32=repr(bound32))
+                if not dev <= DRIVES_F64_RTOL:
+                    failed.append(f"{item} float64 {dev!r}")
+                if not off <= TILT_MEMBER_TOL:
+                    failed.append(f"{item} member vs its single call {off!r}")
+                if not dev32 <= bound32:
+                    failed.append(f"{item} float32 {dev32!r} bound {bound32!r}")
+    launches = read_counts(counters)
+    for name, rec in rec_launches.items():
+        say(label + " launches", module=name, **{k: json.dumps(v) for k, v in rec.items()})
+        want = TILT_DRIVES_EXPECT.get(name, ())
+        if not all(rec[k] > 0 for k in want):
+            failed.append(f"{name} did not launch {want}: {rec}")
+        if rec["single_in_map"]:
+            failed.append(f"{name} launched single entries inside the map: "
+                          f"{rec['single_in_map']}")
+    calls = {k: v for k, v in twins.items() if v}
+    if calls:
+        failed.append(f"twin calls {calls}")
+    say(label, members=proto["members"], vertices=fixture["n_vertices"],
+        triangles=fixture["n_triangles"], items=len(per_item),
+        items_all_bits_equal=sum(1 for r in per_item.values()
+                                 if r["members_equal_bits"] == proto["members"]),
+        seconds_s=json.dumps({k: round(v, 3) for k, v in seconds.items()}),
+        launches=json.dumps(launches))
+    if failed:
+        raise AssertionError(f"{label}: " + "; ".join(failed))
+    return {"launches": launches, "items": per_item}
 
 
 def phase_multidisk(torch, counters, label: str) -> dict:
@@ -4200,6 +4653,8 @@ def main() -> int:
     sweep = json.loads(SWEEP_FIXTURE.read_text())
     vesicle_sweep = json.loads(VESICLE_SWEEP_FIXTURE.read_text())
     square_sweep = json.loads(SQUARE_SWEEP_FIXTURE.read_text())
+    rect_sweep = json.loads(RECT_SWEEP_FIXTURE.read_text())
+    tilt_sweep = json.loads(TILT_SWEEP_FIXTURE.read_text())
     seconds = {}
 
     def timed(phase, fn, *args, **kw):
@@ -4366,6 +4821,20 @@ def main() -> int:
     say("36-38", seconds=f"{sum(seconds[k] for k in new):.3f}",
         phases=json.dumps({k: seconds[k] for k in new}),
         busy_share=json.dumps({"36": runs["h64"]["busy_share"], "37": runs["h32"]["busy_share"]}))
+    # the sweep over the leaflet tilt-field family: the tilt-decay scan on
+    # rect_tilt_source (accepted steps, the smoothness cotangents on the
+    # member axis) and every module of the family mapped over members
+    runs["e64"] = timed("39", phase_rect_sweep, torch, tk, vs, counters,
+                        "39 rect_tilt_source_L0_sweep f64", rect_sweep, torch.float64)
+    runs["e32"] = timed("40", phase_rect_sweep, torch, tk, vs, counters,
+                        "40 rect_tilt_source_L0_sweep f32", rect_sweep, torch.float32,
+                        f64=runs["e64"])
+    runs["u"] = timed("41", phase_tilt_drives, torch, tk, vs, counters,
+                      "41 kozlov_L3_sweep_tilt_drives", tilt_sweep)
+    new = ("39", "40", "41")
+    say("39-41", seconds=f"{sum(seconds[k] for k in new):.3f}",
+        phases=json.dumps({k: seconds[k] for k in new}),
+        busy_share=json.dumps({"39": runs["e64"]["busy_share"], "40": runs["e32"]["busy_share"]}))
     # phases 8-10 have imported the CLI and the command layer by now
     if not {"membrane_solver_tpu_torch.cli", "membrane_solver_tpu_torch.commands"} <= set(sys.modules):
         raise AssertionError("the CLI and the command layer were not imported")

@@ -61,13 +61,25 @@ def _eigvals_sym3(A):
     )
 
 
+def _sq3(v):
+    """|v|^2 of a 3-vector, added term by term (a ``torch.dot`` takes BLAS for one call and
+    another route under ``torch.func.vmap``, so a member's bits would not be its own call's)."""
+    return v[0] * v[0] + v[1] * v[1] + v[2] * v[2]
+
+
+def gram_3x3(rel):
+    """``rel.T @ rel`` of (K, 3) rows as a sum of products over the rows (not a BLAS product,
+    whose batched form under ``torch.func.vmap`` adds in another order)."""
+    return torch.sum(rel[:, :, None] * rel[:, None, :], dim=0)
+
+
 def _eigvec_for(A, lam, fallback):
     """Unit eigenvector of a symmetric 3x3 for eigenvalue ``lam`` (row cross products)."""
     M = A - lam * torch.eye(3, dtype=A.dtype, device=A.device)
     c0 = torch.linalg.cross(M[0], M[1])
     c1 = torch.linalg.cross(M[0], M[2])
     c2 = torch.linalg.cross(M[1], M[2])
-    n0, n1, n2 = torch.dot(c0, c0), torch.dot(c1, c1), torch.dot(c2, c2)
+    n0, n1, n2 = _sq3(c0), _sq3(c1), _sq3(c2)
     best = torch.where((n0 >= n1) & (n0 >= n2), c0, torch.where(n1 >= n2, c1, c2))
     nbest = torch.maximum(n0, torch.maximum(n1, n2))
     return torch.where(

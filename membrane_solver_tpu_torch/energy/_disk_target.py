@@ -147,7 +147,7 @@ def disk_target_energy(state, topo, params, *, prefix: str, sfx: str, field: str
         w = valid.to(dtype)[:, None]
         centroid = torch.sum(pts * w, dim=0) / torch.clamp(torch.sum(w), min=1.0)
         rel = (pts - centroid) * w
-        normal = dlinalg.smallest_eigvec_3x3(rel.T @ rel)
+        normal = dlinalg.smallest_eigvec_3x3(dlinalg.gram_3x3(rel))
 
     r_vec = pts - center
     r_vec = r_vec - torch.sum(r_vec * normal, dim=1, keepdim=True) * normal

@@ -130,7 +130,7 @@ def rim_source_energy(state, topo, params, *, prefix: str, strength_key: str, fi
     w = rim_valid.to(dtype)[:, None]
     centroid = torch.sum(pts * w, dim=0) / torch.clamp(torch.sum(w), min=1.0)
     rel = (pts - centroid) * w
-    fit_normal = dlinalg.smallest_eigvec_3x3(rel.T @ rel)
+    fit_normal = dlinalg.smallest_eigvec_3x3(dlinalg.gram_3x3(rel))
     follow = x("follow")
     center = torch.where(follow, centroid, x("center").to(dtype))
     normal = torch.where(follow & ~x("has_normal"), fit_normal, x("normal").to(dtype))

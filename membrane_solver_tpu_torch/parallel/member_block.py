@@ -4,11 +4,14 @@ Counterpart of ``jax.vmap(jit_core._minimize_block_impl)`` as the JAX
 package's ``parallel/sweep.py`` builds it: B members that share one
 ``Topology`` and one ``ProblemSpec`` and differ in their positions, tilts,
 scalar parameters and step sizes run one block together.  As in the JAX
-sweep, the block gets no ``tilt_inner_iters``: no tilt relax, no reduced
-line search, no tilt projection after a step.  Per iteration: energy and
-projected shape gradient, the stepper's direction, the Armijo line search
-(with its per-trial enforcement under ``enforce_in_line_search``), the
-volume drift check and the zero-step bookkeeping.
+sweep, the block gets no ``tilt_inner_iters``: no tilt relax and no reduced
+line search.  The tilts change only in the line search's trials: by the
+tilt-constraint enforcement under ``enforce_in_line_search``, and, where an
+energy module uses the single tilt field, by the tangent re-projection of
+every tilt field on the trial surface.  Per iteration: energy and projected
+shape gradient, the stepper's direction, the Armijo line search (with its
+per-trial enforcement), the volume drift check and the zero-step
+bookkeeping.
 
 The device work runs once for all members.  The energy and its gradient
 are ``torch.func.vmap`` of the per-member energy (``in_dims`` 0 for the
@@ -60,35 +63,31 @@ from membrane_solver_tpu_torch.runtime.jit_core import (
 )
 
 # the modules whose per-member code runs under ``vmap``: the kozlov lane's,
-# then the shape family (with the reference's placeholders and the
-# fixed-row mask, which change nothing)
+# the shape family (with the reference's placeholders and the fixed-row
+# mask, which change nothing), then the leaflet tilt-field family
 ENERGY_MODULES = frozenset({
     "surface", "tilt_in", "tilt_out", "bending_tilt_in", "bending_tilt_out",
     "tilt_thetaB_contact_in",
     "bending", "volume", "gaussian_curvature", "line_tension", "body_area_penalty",
-    "edge_length_penalty", "jordan_area", "expression", "dummy_module"})
+    "edge_length_penalty", "jordan_area", "expression", "dummy_module",
+    "tilt", "tilt_smoothness", "tilt_coupling", "tilt_smoothness_leaflet",
+    "tilt_smoothness_in", "tilt_smoothness_out", "tilt_splay_twist_in",
+    "tilt_disk_target_in", "tilt_disk_target_out", "tilt_rim_source_in",
+    "tilt_rim_source_out", "tilt_rim_source_bilayer", "tilt_disk_contact_in",
+    "bending_tilt", "mean_curvature_tilt", "rim_slope_match_out"})
 CONSTRAINT_MODULES = frozenset({
     "pin_to_plane", "pin_to_circle", "rim_slope_match_out", "tilt_thetaB_boundary_in",
     "volume", "global_area", "body_area", "perimeter", "fixed_plane", "fix_facet_area",
-    "expression", "edge", "fix_facet_angle", "fix_vertex_position", "dummy_module"})
-TILT_FIELD_ITEM = "ROADMAP A6: the leaflet tilt-field family in the sweep"
+    "expression", "edge", "fix_facet_angle", "fix_vertex_position", "dummy_module",
+    "tilt_leaflet_match_rim", "tilt_vector_match_rim"})
 INTERFACE_ITEM = "ROADMAP A6: the local-interface family in the sweep"
 RIGID_DISK_ITEM = "ROADMAP A6: rigid_disk in the sweep"
 PHYSICAL_EDGE_ITEM = "ROADMAP A6: the physical-edge shells in the sweep"
 TRACE_Z_ITEM = "ROADMAP A6: the trace_z fallback in the sweep"
 # the ROADMAP item that holds each module outside the batched set
-PENDING_ENERGY = {
-    **dict.fromkeys((
-        "tilt", "tilt_smoothness", "tilt_coupling", "tilt_smoothness_leaflet",
-        "tilt_smoothness_in", "tilt_smoothness_out", "tilt_splay_twist_in",
-        "tilt_disk_target_in", "tilt_disk_target_out", "tilt_rim_source_in",
-        "tilt_rim_source_out", "tilt_rim_source_bilayer", "tilt_disk_contact_in",
-        "bending_tilt", "mean_curvature_tilt", "rim_slope_match_out"), TILT_FIELD_ITEM),
-    **dict.fromkeys(("curved_local_interface_law", "curved_local_interface_penalty"),
-                    INTERFACE_ITEM),
-}
+PENDING_ENERGY = dict.fromkeys(("curved_local_interface_law", "curved_local_interface_penalty"),
+                               INTERFACE_ITEM)
 PENDING_CONSTRAINT = {
-    **dict.fromkeys(("tilt_leaflet_match_rim", "tilt_vector_match_rim"), TILT_FIELD_ITEM),
     **dict.fromkeys(("curved_local_interface_hard", "curved_local_interface_match"),
                     INTERFACE_ITEM),
     "rigid_disk": RIGID_DISK_ITEM,
@@ -328,6 +327,8 @@ def member_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
     enforcer = constraint_enforcer if options.enforce_in_line_search else None
     strong_enforcer = constraint_enforcer if options.volume_drift_check else None
     tilt_enforcer = _tr.make_tilt_enforcer(spec)
+    # the single block's ``project_tilts_after_step``, which holds without a relax
+    project_tilts = _tr.spec_uses_vertex_tilts(spec)
     fixed_mode = options.step_size_mode == "fixed"
     kind = options.stepper
 
@@ -345,17 +346,20 @@ def member_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
             with torch.no_grad():
                 return vmap(lambda s, p: total(s, topo, p))(st, params)
 
-        def enforced_member(s, p):
-            s = enforcer(s, topo, p, context="minimize")
-            return tilt_enforcer(s, topo, p)
+        def trial_member(s, p):
+            if enforcer is not None:
+                s = enforcer(s, topo, p, context="minimize")
+                s = tilt_enforcer(s, topo, p)
+            return jit_core.project_all_tilts(s, topo) if project_tilts else s
 
         def state_of_trial(p):
-            """The trial states of trial positions (B, N, 3): enforced, when the options say so."""
+            """The trial states of trial positions (B, N, 3): enforced when the options say so,
+            the tilts re-projected when a module uses the single field."""
             st = dataclasses.replace(states, positions=p)
-            if enforcer is None:
+            if enforcer is None and not project_tilts:
                 return st
             with torch.no_grad():
-                return vmap(enforced_member)(st, params)
+                return vmap(trial_member)(st, params)
 
         step_size = np.asarray(torch.as_tensor(step_sizes).cpu(), dtype=np_dtype).reshape(B)
         zero_steps = np.asarray(torch.as_tensor(zero_counters).cpu(), dtype=np.int64).reshape(B)

@@ -192,11 +192,12 @@ def assert_close(got, want, rel: float, what: str = "", atol_scale=None):
     assert err <= rel * scale, f"{what}: max abs err {err:.3e} > {rel:.1e} * {scale:.3e}"
 
 
-def recipe_context(port: bool, name: str, **build_kw):
+def recipe_context(port: bool, name: str, gp=None, **build_kw):
     """(context, execute_command_line, recipe) for the builder ``name`` in one package.
 
     The command context is the one ``cli.main`` builds (gradient descent,
-    the mesh's step size, tol 1e-6); ``build_kw`` go to the builder.
+    the mesh's step size, tol 1e-6); ``gp`` updates the built mesh's global
+    parameters; ``build_kw`` go to ``meshgen.build``.
     """
     if port:
         import membrane_solver_tpu_torch as pkg
@@ -214,6 +215,7 @@ def recipe_context(port: bool, name: str, **build_kw):
         kw = {}
     data = build(name, **build_kw)
     mesh = pkg.parse_geometry(json.loads(json.dumps(data)))
+    mesh.global_parameters.update(gp or {})
     gp = mesh.global_parameters
     mn = pkg.Minimizer(mesh, stepper=make_stepper("gd"),
                        step_size=float(gp.get("step_size", 1e-3)), tol=1e-6, quiet=True, **kw)

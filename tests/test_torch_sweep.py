@@ -201,7 +201,7 @@ def test_trace_z_fallback_raises(problems):
 
 @pytest.mark.parametrize("kind,name,item", [
     ("constraint", "rigid_disk", "rigid_disk in the sweep"),
-    ("energy", "tilt_smoothness_in", "the leaflet tilt-field family in the sweep"),
+    ("energy", "curved_local_interface_law", "the local-interface family in the sweep"),
     ("constraint", "curved_local_interface_hard", "the local-interface family in the sweep"),
 ])
 def test_module_outside_the_batched_set_raises(problems, kind, name, item):

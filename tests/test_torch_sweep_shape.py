@@ -424,6 +424,46 @@ def test_the_batched_set_holds_the_shape_family(port_problems):
         member_block.check_batched_modules(physical)
 
 
+TILT_FIELD_FAMILY = {
+    "energy": ("tilt", "tilt_smoothness", "tilt_coupling", "tilt_smoothness_leaflet",
+               "tilt_smoothness_in", "tilt_smoothness_out", "tilt_splay_twist_in",
+               "tilt_disk_target_in", "tilt_disk_target_out", "tilt_rim_source_in",
+               "tilt_rim_source_out", "tilt_rim_source_bilayer", "tilt_disk_contact_in",
+               "bending_tilt", "mean_curvature_tilt", "rim_slope_match_out"),
+    "constraint": ("tilt_leaflet_match_rim", "tilt_vector_match_rim"),
+}
+# the modules still outside the batched set, each with its ROADMAP A6 item
+STILL_PENDING = [
+    ("energy", "curved_local_interface_law", "the local-interface family in the sweep"),
+    ("energy", "curved_local_interface_penalty", "the local-interface family in the sweep"),
+    ("constraint", "curved_local_interface_hard", "the local-interface family in the sweep"),
+    ("constraint", "curved_local_interface_match", "the local-interface family in the sweep"),
+    ("constraint", "rigid_disk", "rigid_disk in the sweep"),
+    ("constraint", "local_interface_shells", "the physical-edge shells in the sweep"),
+]
+
+
+def test_the_batched_set_holds_the_tilt_field_family(port_problems):
+    """The family's sixteen energies and two constraints are admitted; the local-interface
+    family, rigid_disk, the physical-edge shells and trace_z still raise with their items."""
+    from membrane_solver_tpu_torch.parallel import member_block
+
+    assert not hasattr(member_block, "TILT_FIELD_ITEM")
+    spec = port_problems("flat").spec
+    member_block.check_batched_modules(dataclasses.replace(
+        spec, energy_modules=spec.energy_modules + TILT_FIELD_FAMILY["energy"],
+        constraint_modules=spec.constraint_modules + TILT_FIELD_FAMILY["constraint"]))
+    for kind, name, item in STILL_PENDING:
+        field = "energy_modules" if kind == "energy" else "constraint_modules"
+        wider = dataclasses.replace(spec, **{field: getattr(spec, field) + (name,)})
+        with pytest.raises(NotImplementedError, match=f"{kind} module '{name}'.*ROADMAP A6: {item}"):
+            member_block.check_batched_modules(wider)
+    trace_z = dataclasses.replace(spec, static_options=spec.static_options + (
+        ("shape_scaffold_rejected_step_fallback", "trace_z"),))
+    with pytest.raises(NotImplementedError, match="ROADMAP A6: the trace_z fallback"):
+        member_block.check_batched_modules(trace_z)
+
+
 # ----------------------------------------------------------------------
 # the area constraints' energy-and-gradient call over the members
 # ----------------------------------------------------------------------

@@ -181,6 +181,36 @@ context's problem with four members: positions times 1 + 0.001 m,
 ``target_surface_area`` times 1 + 0.01 m; three steps at 1e-3 with
 ``enforce_in_line_search``.
 
+``rect_tilt_source_L0_sweep_f64_jax.json`` (``rect_sweep_run``): the
+rect_tilt_source command list above with ``tilt_smoothness_rigidity`` 1.0
+(the lane's kappa; the module reads 0 without it) set before it, then
+``run_sweep`` on the context's problem with eight members: positions times
+1 + 0.001 m, ``tilt_modulus`` and the rigidity times 1 + 0.1 m (the
+tilt-decay scan), five steps at 1e-3 under the default options.  Per member
+what the vesicle sweep file holds, and the lane's energy after each command
+(``lane_energies``); its ``float32_reference`` holds the float32 run's.
+From the state the recipe leaves without the rigidity no member-step is
+accepted at any step size: the smoothness term has no shape gradient (the
+reference's design), and along the sweep's direction it rises faster than
+the rest of the energy falls.
+
+``kozlov_L3_sweep_tilt_drives_f64_jax.json`` (``run_kozlov_sweep_tilt``):
+the leaflet tilt-field family over a member axis on the kozlov L3 mesh.
+Phase 20's set-up (``chip_smoke.drives_setup``) and phase 21's
+(``chip_smoke.match_drives_setup``, with ``tilt``, ``tilt_smoothness`` and
+their parameters added: ``chip_smoke.sweep_tilt_setup``), each on the
+inputs its own fixture holds; four members with seeded offsets
+(``chip_smoke.tilt_member_inputs``).  Per energy module of the family,
+evaluated alone under ``jax.vmap`` of its value and gradient: the members'
+energies and their gradients in the four fields; per tilt-match constraint
+and mode, the members' tilt rows and the change their tilt enforcement
+makes.  Arrays are packed per member (``chip_smoke.pack_rows``: the live
+rows where they are few, else 128 sampled rows, the norm and the largest
+entry).  ``vmapped_vs_single`` holds each item's largest deviation of the
+vmapped result from the per-member calls, and ``float32_reference`` each
+item's float32 deviation from float64 (the float32 child's arrays pass
+through an ``.npz`` file).
+
 ``chip_smoke.py`` holds the port's float64 runs on the GPU against these
 files, so the GPU machine needs no JAX.
 
@@ -827,6 +857,246 @@ def run_square_sweep() -> dict:
                                                       len(mn.mesh.vertices))}
 
 
+# the tilt-decay scan on rect_tilt_source (10,465 vertices): the lane's
+# recipe with the smoothness rigidity (the lane's kappa) set before it, then
+# eight members scanning the tilt modulus and the rigidity, so the decay
+# length sqrt(kappa / k_t) stays and the energy scale moves.  From the state
+# the recipe leaves without the rigidity no step is ever accepted: the
+# smoothness term has no shape gradient (the reference's design), and along
+# the sweep's direction its energy rises faster than the rest falls
+RECT_SWEEP_GP = {"tilt_smoothness_rigidity": 1.0}
+
+
+def rect_sweep_protocol() -> dict:
+    return {
+        "rect_tilt_source": {**rect_tilt_source_protocol(), "global_parameters": RECT_SWEEP_GP},
+        "members": SWEEP_MEMBERS,
+        "dilation": 1e-3,
+        "scan": {"tilt_modulus": {"scale": 0.1}, "tilt_smoothness_rigidity": {"scale": 0.1}},
+        "steps": SWEEP_STEPS,
+        "step_size": SWEEP_STEP_SIZE,
+        "options": {},
+        "sample_rows": 512,
+        "sample_seed": 0,
+        "dtype": "float64",
+        "package": "membrane_solver_tpu",
+        "platform": "cpu",
+    }
+
+
+def rect_sweep_run() -> dict:
+    """The rect sweep protocol at the precision this process runs; also the lane's energy after
+    each command of its recipe (``lane_energies``)."""
+    protocol = rect_sweep_protocol()
+    ctx, trace = cli_run(protocol["rect_tilt_source"])
+    mn = ctx.minimizer
+    rec = sweep_fixture_run(protocol, mn.problem(), len(mn.mesh.vertices))
+    rec["lane_energies"] = [row["energy"] for row in trace]
+    return rec
+
+
+def run_rect_sweep() -> dict:
+    """The float64 sweep here, the float32 one in a child beside it."""
+    child = start_float32_child("rect_tilt_source_L0_sweep_f64_jax.json")
+    rec = {"protocol": rect_sweep_protocol(), **rect_sweep_run()}
+    f32 = float32_result(child)
+    devs = [abs(a - b) / abs(b) for a, b in zip(f32["energy"], rec["energy"], strict=True)]
+    rec["float32_reference"] = {
+        "package": "membrane_solver_tpu", "platform": "cpu", "dtype": "float32",
+        **{k: f32[k] for k in ("energy", "accepted_energy", "step_success", "iterations",
+                               "accepted_last_step", "vmapped_vs_single_grad",
+                               "lane_energies")},
+        "max_rel_dev_vs_float64": max(devs)}
+    return rec
+
+
+# the leaflet tilt-field family over a member axis on the kozlov L3 mesh:
+# phase 20's and phase 21's set-ups on their fixtures' inputs, four members
+# each with its own seeded offsets, every family module evaluated alone
+# under jax.vmap (the energy and its gradient in the four fields), the two
+# tilt-match constraints' rows and enforcement in each mode
+SWEEP_TILT_MEMBERS = 4
+SINGLE_FIELD_GP = {"tilt_modulus": 4.0, "tilt_smoothness_rigidity": 1.0}
+
+
+def kozlov_sweep_tilt_protocol() -> dict:
+    return {
+        "drives": kozlov_drives_protocol(),
+        "match": kozlov_match_drives_protocol(),
+        "inputs": {"drives": "kozlov_L3_drives_f64_jax.json",
+                   "match": "kozlov_L3_match_drives_f64_jax.json"},
+        "single_field_parameters": SINGLE_FIELD_GP,
+        "energies": {"drives": DRIVES_MODULES + ["tilt_coupling"],
+                     "match": ["rim_slope_match_out", "bending_tilt", "mean_curvature_tilt",
+                               "tilt", "tilt_smoothness"]},
+        "constraints": {k: MATCH_MODES[k] for k in ("tilt_leaflet_match_rim",
+                                                    "tilt_vector_match_rim")},
+        "members": SWEEP_TILT_MEMBERS,
+        "member_seed": 41,
+        "z_scale": 0.02,
+        "tilt_scale": 0.1,
+        "sample_rows": 128,
+        "sample_seed": 0,
+        "dtype": "float64",
+        "package": "membrane_solver_tpu",
+        "platform": "cpu",
+    }
+
+
+def sweep_tilt_arrays() -> dict:
+    """Every item of the tilt-sweep protocol at the precision this process runs, as dense
+    float64 arrays: ``item -> (B, ...)`` for the vmapped evaluation, plus, for each item, the
+    largest deviation of the vmapped result from the per-member calls (``single``).
+
+    Energy items ``energy/NAME``: (B,) energies and ``energy/NAME/FIELD`` (B, n, 3)
+    gradients; constraint items ``constraint/NAME/MODE/rows`` (B, k, 2, n, 3) and
+    ``.../tilts_in``, ``.../tilts_out`` (B, n, 3) enforcement changes.
+    """
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    protocol = kozlov_sweep_tilt_protocol()
+    pkg, _build, _refinement = _jax()
+    from chip_smoke import (TILT_FIELDS, relative_error, static_variant, sweep_tilt_setup,
+                            tilt_base_inputs, tilt_member_inputs)
+    from membrane_solver_tpu.constraints import get_constraint
+    from membrane_solver_tpu.device import geo as dgeo
+    from membrane_solver_tpu.energy import get_module
+
+    arrays, single = {}, {}
+    for setup in ("drives", "match"):
+        mesh = kozlov_minimizer().mesh
+        sweep_tilt_setup(mesh, protocol, setup)
+        p = pkg.Minimizer(mesh, quiet=True).problem()
+        nv = p.n_vertices
+        dtype = p.state.positions.dtype
+        members = tilt_member_inputs(protocol, tilt_base_inputs(protocol, setup, nv))
+
+        def padded(f, m, nv=nv, p=p, dtype=dtype, members=members):
+            full = np.array(getattr(p.state, f), dtype=np.float64)
+            full[:nv] = members[m][f]
+            return full.astype(dtype)
+
+        B = protocol["members"]
+        stacked = {f: jnp.asarray(np.stack([padded(f, m) for m in range(B)]))
+                   for f in TILT_FIELDS}
+        live = lambda a: np.asarray(a, dtype=np.float64)[..., :nv, :]  # noqa: E731
+        for name in protocol["energies"][setup]:
+            module = get_module(name)
+            maker = getattr(module, "make_energy", None)
+            fn = maker(p.spec) if maker is not None else module.energy
+
+            def f(*fields, fn=fn, p=p):
+                st = dataclasses.replace(p.state, **dict(zip(TILT_FIELDS, fields)))
+                geo = dgeo.triangle_geometry(st.positions, p.topo.tri_rows, p.topo.tri_valid)
+                return fn(geo, st, p.topo, p.params)
+
+            vg = jax.value_and_grad(f, argnums=(0, 1, 2, 3))
+            energy, grads = jax.vmap(vg)(*(stacked[k] for k in TILT_FIELDS))
+            arrays[f"energy/{name}"] = np.asarray(energy, dtype=np.float64)
+            for k, g in zip(TILT_FIELDS, grads):
+                arrays[f"energy/{name}/{k}"] = live(g)
+            devs = {}
+            for m in range(B):
+                e1, g1 = vg(*(stacked[k][m] for k in TILT_FIELDS))
+                devs.setdefault("", []).append(relative_error(float(energy[m]), float(e1)))
+                for k, g_b, g_1 in zip(TILT_FIELDS, grads, g1):
+                    devs.setdefault("/" + k, []).append(relative_error(live(g_b[m]), live(g_1)))
+            for k, v in devs.items():
+                single[f"energy/{name}{k}"] = max(v)
+        if setup != "match":
+            continue
+        states = dataclasses.replace(p.state, **stacked)
+        for name, (_key, modes) in protocol["constraints"].items():
+            mod = get_constraint(name)
+            for mode in modes:
+                spec = static_variant(p.spec, f"constraint:{name}", mode)
+                rows_fn = mod.make_tilt_constraint_rows(spec)
+                enforce = mod.make_enforce_tilts(spec)
+                rows = jax.vmap(lambda st, rows_fn=rows_fn, p=p: rows_fn(st, p.topo, p.params))(
+                    states)
+                out = jax.vmap(lambda st, enforce=enforce, p=p: enforce(st, p.topo, p.params))(
+                    states)
+                key = f"constraint/{name}/{mode}"
+                arrays[key + "/rows"] = live(rows)
+                for k in ("tilts_in", "tilts_out"):
+                    arrays[f"{key}/{k}"] = live(getattr(out, k)) - live(getattr(states, k))
+                devs = {"rows": [], "tilts_in": [], "tilts_out": []}
+                for m in range(B):
+                    st = dataclasses.replace(p.state, **{k: stacked[k][m] for k in TILT_FIELDS})
+                    one = live(rows_fn(st, p.topo, p.params))
+                    devs["rows"].append(relative_error(arrays[key + "/rows"][m], one))
+                    o1 = enforce(st, p.topo, p.params)
+                    for k in ("tilts_in", "tilts_out"):
+                        one = live(getattr(o1, k)) - live(getattr(st, k))
+                        devs[k].append(relative_error(arrays[f"{key}/{k}"][m], one))
+                for k, v in devs.items():
+                    single[f"{key}/{k}"] = max(v)
+        arrays["n_vertices"] = np.asarray(nv)
+        arrays["n_triangles"] = np.asarray(p.n_tris)
+    return {"arrays": arrays, "single": single}
+
+
+def sweep_tilt_float32() -> dict:
+    """The float32 child's run: its arrays to the ``.npz`` named by ``SWEEP_TILT_ARRAYS``."""
+    import numpy as np
+
+    out = sweep_tilt_arrays()
+    np.savez(os.environ["SWEEP_TILT_ARRAYS"], **out["arrays"])
+    return {"single": out["single"]}
+
+
+def run_kozlov_sweep_tilt() -> dict:
+    """The float64 record here (each array packed by ``chip_smoke.pack_rows``), the float32 one
+    in a child beside it; ``float32_reference`` holds each item's float32 deviation."""
+    import tempfile
+
+    import numpy as np
+
+    _jax()
+    from chip_smoke import pack_rows, relative_error, sample_rows
+
+    protocol = kozlov_sweep_tilt_protocol()
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = Path(tmp) / "float32.npz"
+        child = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--float32",
+             "kozlov_L3_sweep_tilt_drives_f64_jax.json"],
+            env={**os.environ, "MEMBRANE_SOLVER_X64": "0", "SWEEP_TILT_ARRAYS": str(npz)},
+            stdout=subprocess.PIPE, text=True)
+        rec64 = sweep_tilt_arrays()
+        f32_single = float32_result(child)["single"]
+        with np.load(npz) as data:
+            a32 = {k: data[k] for k in data.files}
+    a64 = rec64["arrays"]
+    nv = int(a64.pop("n_vertices"))
+    n_tris = int(a64.pop("n_triangles"))
+    rows = sample_rows(protocol, nv)
+    items = {}
+    for key, arr in a64.items():
+        if arr.ndim == 1:
+            items[key] = arr.tolist()
+        elif arr.ndim == 3:
+            items[key] = [pack_rows(a, rows) for a in arr]
+        else:  # constraint rows (B, k, 2, n, 3)
+            items[key] = [[[pack_rows(a[k, leaf], rows) for leaf in range(2)]
+                           for k in range(a.shape[0])] for a in arr]
+    return {
+        "protocol": protocol,
+        "n_vertices": nv,
+        "n_triangles": n_tris,
+        "items": items,
+        "vmapped_vs_single": rec64["single"],
+        "float32_reference": {
+            "package": "membrane_solver_tpu", "platform": "cpu", "dtype": "float32",
+            "max_rel_dev_vs_float64": {k: relative_error(a32[k], a) for k, a in a64.items()},
+            "vmapped_vs_single": f32_single},
+    }
+
+
 # the step-by-step kozlov lanes with their accept flags
 LANE_PROTOCOLS = {
     "kozlov_L3_reduced_f64_jax.json": kozlov_reduced_protocol,
@@ -1426,6 +1696,7 @@ def cli_run(protocol: dict, digests: bool = False) -> tuple:
     with tempfile.TemporaryDirectory() as tmp:
         mesh = pkg.parse_geometry(pkg.load_data(mesh_path(protocol, Path(tmp))))
     gp = mesh.global_parameters
+    gp.update(protocol.get("global_parameters", {}))
     # as cli.main builds it, less the capacity plan (see the docstring)
     mn = pkg.Minimizer(mesh, stepper=make_stepper("gd"),
                        step_size=float(gp.get("step_size", 1e-3)), tol=1e-6, quiet=True)
@@ -1520,6 +1791,8 @@ FLOAT32_RUNS = {
     C4_FIXTURE: c4_pre_u_state,
     "kozlov_L3_sweep_f64_jax.json": sweep_run,
     "helfrich_cube_L5_sweep_f64_jax.json": vesicle_sweep_run,
+    "rect_tilt_source_L0_sweep_f64_jax.json": rect_sweep_run,
+    "kozlov_L3_sweep_tilt_drives_f64_jax.json": sweep_tilt_float32,
 }
 
 
@@ -1654,6 +1927,8 @@ FIXTURES = {
     "kozlov_L3_sweep_f64_jax.json": run_kozlov_sweep,
     "helfrich_cube_L5_sweep_f64_jax.json": run_vesicle_sweep,
     "square_to_circle_L1_sweep_f64_jax.json": run_square_sweep,
+    "rect_tilt_source_L0_sweep_f64_jax.json": run_rect_sweep,
+    "kozlov_L3_sweep_tilt_drives_f64_jax.json": run_kozlov_sweep_tilt,
 }
 
 
