@@ -9,9 +9,9 @@ The device and dtype are flags: the card by default (``device="cuda"``,
 which raises without one: there is no fallback), ``--cpu`` for the CPU,
 ``--f32`` for float32 (float64 otherwise).  Not ported: the JAX package's
 backend probe (its purpose is a CPU fallback), the capacity plan (the port
-compiles at exact sizes, with no padding) and its x64 environment switch;
-``--viz``, ``--viz-save`` and the ``s`` command raise NotImplementedError,
-as visualization is not ported.
+compiles at exact sizes, with no padding) and its x64 environment switch.
+``--viz``, ``--viz-save`` and the ``s`` command render with matplotlib
+(``visualization/``), their face values on the context's device.
 """
 
 from __future__ import annotations
@@ -59,8 +59,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--properties", action="store_true", help="print area/volume/Rg and exit")
     p.add_argument("--radius-of-gyration", action="store_true")
-    p.add_argument("--viz", action="store_true", help="show the final mesh (not ported)")
-    p.add_argument("--viz-save", help="save a rendering to this path (not ported)")
+    p.add_argument("--viz", action="store_true", help="show the final mesh")
+    p.add_argument("--viz-save", help="save a rendering to this path")
     p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the GPU")
     p.add_argument("--f32", action="store_true", help="float32 compute (float64 otherwise)")
     p.add_argument("instructions", nargs="*", help="commands to run before the file's own")
@@ -187,11 +187,6 @@ def repl(ctx: CommandContext) -> None:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.viz or args.viz_save:
-        raise NotImplementedError(
-            "visualization (--viz, --viz-save) is not ported to membrane_solver_tpu_torch"
-        )
-
     _configure_logging(args)
     mesh = load_mesh_interactive(args.input, interactive=not args.non_interactive)
     ctx = make_context(args, mesh)
@@ -218,6 +213,12 @@ def main(argv=None) -> int:
             pdb.post_mortem()
             return 1
         raise
+
+    if args.viz or args.viz_save:
+        from membrane_solver_tpu_torch.visualization.plot_core import plot_geometry
+
+        plot_geometry(ctx.mesh, show=args.viz, save_path=args.viz_save,
+                      device=ctx.minimizer.device, dtype=ctx.minimizer.dtype)
 
     if not args.non_interactive:
         repl(ctx)

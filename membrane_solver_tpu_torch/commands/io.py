@@ -1,8 +1,8 @@
 """I/O commands: save, one-shot visualize, properties.
 
-Counterpart of ``membrane_solver_tpu/commands/io.py``: the same host code,
-except that the one-shot view (``s``/``visualize``) is not ported and raises
-NotImplementedError.
+Counterpart of ``membrane_solver_tpu/commands/io.py``: the same host code;
+the one-shot view (``s``/``visualize``) computes its face values on the
+context's device.
 
 Parity: reference ``commands/io.py``.
 """
@@ -27,11 +27,18 @@ class SaveCommand(Command):
 
 
 class VisualizeCommand(Command):
-    help_text = "s [tilt] [arrows] — one-shot matplotlib view (not ported)"
+    help_text = "s [tilt] [arrows] — one-shot matplotlib view"
 
     def execute(self, context, args):
-        raise NotImplementedError(
-            "visualization (s/visualize) is not ported to membrane_solver_tpu_torch"
+        from membrane_solver_tpu_torch.visualization.plot_core import plot_geometry
+
+        plot_geometry(
+            context.mesh,
+            color_by="tilt" if "tilt" in args else None,
+            show_tilt_arrows="arrows" in args,
+            show=True,
+            device=context.minimizer.device,
+            dtype=context.minimizer.dtype,
         )
 
 

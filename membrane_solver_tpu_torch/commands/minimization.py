@@ -1,8 +1,7 @@
 """Minimization commands: g/gN, stepper switches, hessian, live vis toggles.
 
 Counterpart of ``membrane_solver_tpu/commands/minimization.py``: the same
-host code, except that live visualization is not ported (``g`` with it on
-raises NotImplementedError).
+host code; live visualization redraws on the minimizer's device.
 
 Parity: reference ``commands/minimization.py``.
 """
@@ -24,12 +23,20 @@ class GoCommand(Command):
         n_steps = 1
         if args and args[0].isdigit():
             n_steps = int(args[0])
+        callback = None
         if getattr(context.minimizer, "live_vis", False):
-            raise NotImplementedError(
-                "live visualization (lv) is not ported to membrane_solver_tpu_torch; "
-                "turn it off with 'lv off'"
-            )
-        result = context.minimizer.minimize(n_steps=n_steps)
+            from membrane_solver_tpu_torch.visualization.plot_live import update_live_vis
+
+            state = getattr(context.minimizer, "live_vis_state", None)
+
+            def callback(mesh, i):
+                nonlocal state
+                state = update_live_vis(mesh, state=state, title=f"Step {i}",
+                                        device=context.minimizer.device,
+                                        dtype=context.minimizer.dtype)
+                context.minimizer.live_vis_state = state
+
+        result = context.minimizer.minimize(n_steps=n_steps, callback=callback)
         context.mesh = result["mesh"]
         logger.info("Minimization complete. Final energy: %s", result["energy"])
         # post-run topology hazard scan (reference commands/minimization.py:54-58)

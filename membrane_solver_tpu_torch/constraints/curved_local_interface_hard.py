@@ -28,6 +28,7 @@ from membrane_solver_tpu_torch.constraints.local_interface_shells import (
     pack_pairs,
 )
 from membrane_solver_tpu_torch.device import geo as dgeo
+from membrane_solver_tpu_torch.device.reduce import tree_sum
 from membrane_solver_tpu_torch.device.state import ordered_index_add
 from membrane_solver_tpu_torch.energy._local_interface import radial_hat
 
@@ -66,13 +67,21 @@ def _matching(positions, topo):
     return rim_rows, r_dir, phi, ok
 
 
+def ordered_rows(topo) -> dict:
+    """{key: rows} of this module's ``ordered_index_add`` calls (the parameter sweep builds
+    their levels before it maps the members)."""
+    if f"{_PREFIX}/rows_a" not in topo.extras:
+        return {}
+    return {_PREFIX + "/rows_a": topo.extras[f"{_PREFIX}/rows_a"]}
+
+
 def make_tilt_constraint_rows(spec):
     def fn(state, topo, params):
         if f"{_PREFIX}/rows_a" not in topo.extras:
             return None
         positions = state.positions
         rim_rows, r_dir, _phi, ok = _matching(positions, topo)
-        n_valid = torch.clamp(torch.sum(ok.to(positions.dtype)), min=1.0)
+        n_valid = torch.clamp(tree_sum(ok.to(positions.dtype)), min=1.0)
         zeros = positions.new_zeros((positions.shape[0], 3))
         gout = ordered_index_add(topo, _PREFIX + "/rows_a", zeros, rim_rows,
                                  torch.where(ok[:, None], r_dir / n_valid, 0.0))
@@ -90,8 +99,8 @@ def make_enforce_tilts(spec):
         ok = ok & ~topo.tilt_fixed_out_mask[rim_rows]
         t_out = state.tilts_out
         residual = torch.where(ok, torch.sum(t_out[rim_rows] * r_dir, dim=1) - phi, 0.0)
-        n_valid = torch.clamp(torch.sum(ok.to(positions.dtype)), min=1.0)
-        mean_res = torch.sum(residual) / n_valid
+        n_valid = torch.clamp(tree_sum(ok.to(positions.dtype)), min=1.0)
+        mean_res = tree_sum(residual) / n_valid
         delta = torch.where(ok[:, None], -mean_res * r_dir, 0.0)
         return dataclasses.replace(
             state, tilts_out=ordered_index_add(topo, _PREFIX + "/rows_a", t_out, rim_rows, delta))

@@ -131,6 +131,16 @@ def _bases(positions, topo):
     return rim, disk, valid, u, v, phi
 
 
+def ordered_rows(topo) -> dict:
+    """{key: rows} of this module's ``ordered_index_add`` calls (the parameter sweep builds
+    their levels before it maps the members)."""
+    if f"{_PREFIX}/pair_rows_a" not in topo.extras:
+        return {}
+    rim, disk = topo.extras[f"{_PREFIX}/pair_rows_a"], topo.extras[f"{_PREFIX}/pair_rows_b"]
+    return {_PREFIX + "/rim_disk": torch.cat([rim, disk]),
+            _PREFIX + "/disk_rim": torch.cat([disk, rim])}
+
+
 def make_tilt_constraint_rows(spec):
     mode = spec.static_of(_PREFIX, ("vector_average",))[0]
 

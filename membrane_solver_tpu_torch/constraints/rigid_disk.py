@@ -21,7 +21,10 @@ Counterpart of ``membrane_solver_tpu/constraints/rigid_disk.py``:
   fit is made a second time.  That branch is a static flag.
 
 The disk rows, its rim rows and each pair's two rows are distinct, so the
-writes are ``index_put`` of one value per row.
+writes are ``index_put`` of one value per row.  The fit's weighted means
+and products add in ``device/reduce.tree_sum``'s order and term by term
+(``device/linalg``), so under ``torch.func.vmap`` (the parameter sweep) a
+member's fit is the bits of its own call's.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import numpy as np
 import torch
 
 from membrane_solver_tpu_torch.device import linalg as dlinalg
+from membrane_solver_tpu_torch.device.reduce import tree_sum
 
 _PREFIX = "constraint:rigid_disk"
 
@@ -219,29 +223,30 @@ def make_enforce(spec):
         tiny = dlinalg._tiny(dtype)
         ref = x("ref").to(dtype)
         w = valid.to(dtype)[:, None]
-        n_live = torch.clamp(torch.sum(w), min=1.0)
+        n_live = torch.clamp(tree_sum(w), min=1.0)
 
         def wmean(a):
-            return torch.sum(a * w, dim=0) / n_live
+            return tree_sum(a * w, dim=0) / n_live
 
         def fit(target):
             """(R, t) of the masked Kabsch fit of the reference onto ``target``."""
             Qc = wmean(target)
-            R = dlinalg.rotation_from_cross_covariance(P0.T @ ((target - Qc) * w), tiny)
-            return R, Qc - R @ Pc
+            R = dlinalg.rotation_from_cross_covariance(
+                dlinalg.cross_gram_3x3(P0, (target - Qc) * w), tiny)
+            return R, Qc - dlinalg.mv3(R, Pc)
 
         Pc = wmean(ref)
         P0 = (ref - Pc) * w
         R, t = fit(state.positions[rows])
-        corrected = ref @ R.T + t
+        corrected = dlinalg.mm3(ref, R.T) + t
 
         if has_radius:
             rim_local = x("rim_local")
             target_r = x("target_radius").to(dtype)
             rel = (ref - Pc) * w
-            normal_ref = dlinalg.smallest_eigvec_3x3(rel.T @ rel)
-            center = R @ Pc + t
-            normal = R @ normal_ref
+            normal_ref = dlinalg.smallest_eigvec_3x3(dlinalg.gram_3x3(rel))
+            center = dlinalg.mv3(R, Pc) + t
+            normal = dlinalg.mv3(R, normal_ref)
             normal = normal / torch.clamp(torch.linalg.vector_norm(normal), min=1e-12)
             p = corrected[rim_local]
             v = p - center
@@ -252,7 +257,7 @@ def make_enforce(spec):
             corrected = corrected.index_put((rim_local,), torch.where(ok[:, None], pinned, p))
             # the second fit, onto the rim-pinned targets
             R, t = fit(corrected)
-            corrected = ref @ R.T + t
+            corrected = dlinalg.mm3(ref, R.T) + t
 
         return dataclasses.replace(state, positions=state.positions.index_put((rows,), corrected))
 

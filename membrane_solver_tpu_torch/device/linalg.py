@@ -8,7 +8,10 @@ ring-plane fits of the rim-source and disk-target energies and the rigid
 disk's Kabsch fit use them.  It is kept in the JAX package's closed form rather than
 ``torch.linalg.eigh`` so that the fitted normal, and any gradient taken
 through it, is the JAX package's, also at the degenerate pair a flat ring
-gives (an iterative eigen-solver picks another vector there).
+gives (an iterative eigen-solver picks another vector there).  Every sum
+and product here adds term by term or in ``device/reduce.tree_sum``'s
+fixed order, never through BLAS, so that under ``torch.func.vmap`` (the
+parameter sweep) a member's fit is the bits of its own call's.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from membrane_solver_tpu_torch.device.reduce import tree_sum
 
 
 def _tiny(dtype) -> float:
@@ -39,9 +44,9 @@ def _axis(k: int, like):
 
 def _eigvals_sym3(A):
     """Eigenvalues of a symmetric 3x3, ascending."""
-    q = torch.trace(A) / 3.0
+    q = (A[0, 0] + A[1, 1] + A[2, 2]) / 3.0
     B = A - q * torch.eye(3, dtype=A.dtype, device=A.device)
-    p2 = torch.sum(B * B) / 6.0
+    p2 = tree_sum(B * B) / 6.0
     p = torch.sqrt(torch.clamp(p2, min=_tiny(A.dtype)))
     detB = (
         B[0, 0] * (B[1, 1] * B[2, 2] - B[1, 2] * B[2, 1])
@@ -61,16 +66,38 @@ def _eigvals_sym3(A):
     )
 
 
-def _sq3(v):
-    """|v|^2 of a 3-vector, added term by term (a ``torch.dot`` takes BLAS for one call and
+def _dot3(a, b):
+    """a . b of two 3-vectors, added term by term (a ``torch.dot`` takes BLAS for one call and
     another route under ``torch.func.vmap``, so a member's bits would not be its own call's)."""
-    return v[0] * v[0] + v[1] * v[1] + v[2] * v[2]
+    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+
+def _sq3(v):
+    """|v|^2 of a 3-vector (:func:`_dot3`)."""
+    return _dot3(v, v)
+
+
+def mm3(A, B):
+    """``A @ B`` of (K, 3) rows and a 3x3 as sums of products, term by term: under
+    ``torch.func.vmap`` a BLAS product takes its batched form, which adds in another order."""
+    return A[:, 0:1] * B[0:1, :] + A[:, 1:2] * B[1:2, :] + A[:, 2:3] * B[2:3, :]
+
+
+def mv3(A, x):
+    """``A @ x`` of a 3x3 and a 3-vector, term by term (see :func:`mm3`)."""
+    return A[:, 0] * x[0] + A[:, 1] * x[1] + A[:, 2] * x[2]
+
+
+def cross_gram_3x3(a, b):
+    """``a.T @ b`` of two (K, 3) row sets as a sum of products over the rows, added in
+    ``device/reduce.tree_sum``'s fixed order (not a BLAS product, whose batched form under
+    ``torch.func.vmap`` adds in another order)."""
+    return tree_sum(a[:, :, None] * b[:, None, :], dim=0)
 
 
 def gram_3x3(rel):
-    """``rel.T @ rel`` of (K, 3) rows as a sum of products over the rows (not a BLAS product,
-    whose batched form under ``torch.func.vmap`` adds in another order)."""
-    return torch.sum(rel[:, :, None] * rel[:, None, :], dim=0)
+    """``rel.T @ rel`` of (K, 3) rows (:func:`cross_gram_3x3`)."""
+    return cross_gram_3x3(rel, rel)
 
 
 def _eigvec_for(A, lam, fallback):
@@ -125,28 +152,28 @@ def rotation_from_cross_covariance(H, eps: float):
     result flips V's smallest-singular-value column.  ``eps`` floors the
     singular values and the norms.
     """
-    evals, V = eigh_3x3(H.T @ H)  # ascending
+    evals, V = eigh_3x3(mm3(H.T, H))  # ascending
     sig = torch.sqrt(torch.clamp(evals, min=eps))
-    U = (H @ V) / sig[None, :]
+    U = mm3(H, V) / sig[None, :]
     u2 = U[:, 2] / torch.clamp(torch.linalg.vector_norm(U[:, 2]), min=eps)
-    u1 = U[:, 1] - torch.dot(U[:, 1], u2) * u2
+    u1 = U[:, 1] - _dot3(U[:, 1], u2) * u2
     u1 = u1 / torch.clamp(torch.linalg.vector_norm(u1), min=eps)
     u0 = torch.linalg.cross(u1, u2)
     Um = torch.stack([u0, u1, u2], dim=1)
     v2 = V[:, 2]
-    v1 = V[:, 1] - torch.dot(V[:, 1], v2) * v2
+    v1 = V[:, 1] - _dot3(V[:, 1], v2) * v2
     v1 = v1 / torch.clamp(torch.linalg.vector_norm(v1), min=eps)
     v0 = torch.linalg.cross(v1, v2)
     Vm = torch.stack([v0, v1, v2], dim=1)
-    R = Vm @ Um.T
+    R = mm3(Vm, Um.T)
     Vf = torch.stack([-v0, v1, v2], dim=1)
-    det = torch.dot(R[0], torch.linalg.cross(R[1], R[2]))  # +-1 up to round-off
-    return torch.where(det < 0.0, Vf @ Um.T, R)
+    det = _dot3(R[0], torch.linalg.cross(R[1], R[2]))  # +-1 up to round-off
+    return torch.where(det < 0.0, mm3(Vf, Um.T), R)
 
 
 def kabsch(P, Q):
     """Least-squares rigid transform (R, t) mapping the points P (n, 3) onto Q (n, 3)."""
-    Pc = torch.mean(P, dim=0)
-    Qc = torch.mean(Q, dim=0)
-    R = rotation_from_cross_covariance((P - Pc).T @ (Q - Qc), _tiny(P.dtype))
-    return R, Qc - R @ Pc
+    Pc = tree_sum(P, dim=0) / P.shape[0]
+    Qc = tree_sum(Q, dim=0) / Q.shape[0]
+    R = rotation_from_cross_covariance(cross_gram_3x3(P - Pc, Q - Qc), _tiny(P.dtype))
+    return R, Qc - mv3(R, Pc)

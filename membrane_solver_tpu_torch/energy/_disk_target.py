@@ -25,6 +25,7 @@ import torch
 
 from membrane_solver_tpu_torch.device import geo as dgeo
 from membrane_solver_tpu_torch.device import linalg as dlinalg
+from membrane_solver_tpu_torch.device.reduce import tree_sum
 
 
 def _bessel_i1_series(x, n_terms: int = 30):
@@ -145,7 +146,7 @@ def disk_target_energy(state, topo, params, *, prefix: str, sfx: str, field: str
         normal = x("normal").to(dtype)
     else:
         w = valid.to(dtype)[:, None]
-        centroid = torch.sum(pts * w, dim=0) / torch.clamp(torch.sum(w), min=1.0)
+        centroid = tree_sum(pts * w, dim=0) / torch.clamp(tree_sum(w), min=1.0)
         rel = (pts - centroid) * w
         normal = dlinalg.smallest_eigvec_3x3(dlinalg.gram_3x3(rel))
 
@@ -179,4 +180,4 @@ def disk_target_energy(state, topo, params, *, prefix: str, sfx: str, field: str
     geo = dgeo.triangle_geometry(positions, topo.tri_rows, topo.tri_valid)
     tri_sum = sum(diff_sq[r] for r in topo.tri_rows.unbind(1))
     coeff = 0.5 * k_target * tri_sum / 3.0
-    return torch.sum(torch.where(topo.tri_valid, coeff * geo.area, 0.0))
+    return tree_sum(torch.where(topo.tri_valid, coeff * geo.area, 0.0))

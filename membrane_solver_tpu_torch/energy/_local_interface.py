@@ -21,6 +21,7 @@ from membrane_solver_tpu_torch.constraints.local_interface_shells import (
     build_shell_rows,
     pack_pairs,
 )
+from membrane_solver_tpu_torch.device.reduce import tree_sum
 from membrane_solver_tpu_torch.energy import param
 
 
@@ -62,4 +63,4 @@ def interface_energy(state, topo, params, *, prefix: str, strength_key: str, liv
     s = param(params, strength_key, like=state.positions)
     rim_rows, r_hat, phi, ok = interface_mismatch(state.positions, topo, prefix, live_z=live_z)
     diff = torch.where(ok, torch.sum(state.tilts_out[rim_rows] * r_hat, dim=1) - phi, 0.0)
-    return 0.5 * s * torch.sum(diff * diff)
+    return 0.5 * s * tree_sum(diff * diff)

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from membrane_solver_tpu_torch.device import linalg as dlinalg
+from membrane_solver_tpu_torch.device.reduce import tree_sum
 from membrane_solver_tpu_torch.energy.contact_mapping import resolve_contact_line_strength
 
 
@@ -128,7 +129,7 @@ def rim_source_energy(state, topo, params, *, prefix: str, strength_key: str, fi
     rim_valid = x("rim_valid")
     pts = positions[x("rim_rows")]
     w = rim_valid.to(dtype)[:, None]
-    centroid = torch.sum(pts * w, dim=0) / torch.clamp(torch.sum(w), min=1.0)
+    centroid = tree_sum(pts * w, dim=0) / torch.clamp(tree_sum(w), min=1.0)
     rel = (pts - centroid) * w
     fit_normal = dlinalg.smallest_eigvec_3x3(dlinalg.gram_3x3(rel))
     follow = x("follow")
@@ -146,4 +147,4 @@ def rim_source_energy(state, topo, params, *, prefix: str, strength_key: str, fi
         arr = getattr(state, field)
         t_avg = t_avg + 0.5 * (arr[tails] + arr[heads])
     dots = torch.sum(t_avg * r_hat, dim=1)
-    return -torch.sum(torch.where(good, gamma_e * lengths * dots, 0.0))
+    return -tree_sum(torch.where(good, gamma_e * lengths * dots, 0.0))

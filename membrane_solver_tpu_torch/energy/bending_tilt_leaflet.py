@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from membrane_solver_tpu_torch.device import geo as dgeo
+from membrane_solver_tpu_torch.device.reduce import tree_sum
 from membrane_solver_tpu_torch.energy import param
 from membrane_solver_tpu_torch.kernels import tri_kernels
 
@@ -231,7 +232,7 @@ def leaflet_bending_tilt_energy(
     base_c = base[topo.tri_rows]
     keep = xf["keep"]
     sqs = _squares(base_c, div_term, update_mode)
-    corner = 0.5 * torch.sum(torch.where(keep, kappa * torch.sum(sqs * va_eff, dim=1), 0.0))
+    corner = 0.5 * tree_sum(torch.where(keep, kappa * torch.sum(sqs * va_eff, dim=1), 0.0))
 
     # --- vertex-form surrogate: shape gradient with frozen divergence ------
     with torch.no_grad():
@@ -261,9 +262,9 @@ def leaflet_bending_tilt_energy(
     va_k = _redistributed_va(curv_k.corner_areas, topo, keep)
     a_eff_k = dgeo.scatter_add_rows(va_k[:, 0], va_k[:, 1], va_k[:, 2], topo.corner_csr())
     surrogate = (
-        torch.sum(coef_K * curv_k.k_vecs)
-        + torch.sum(coef_a_eff * a_eff_k)
-        + torch.sum(coef_a_vor * curv_k.vertex_areas)
+        tree_sum(coef_K * curv_k.k_vecs)
+        + tree_sum(coef_a_eff * a_eff_k)
+        + tree_sum(coef_a_vor * curv_k.vertex_areas)
     )
     return corner + surrogate - surrogate.detach()
 

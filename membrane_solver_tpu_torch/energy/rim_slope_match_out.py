@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from membrane_solver_tpu_torch.constraints import rim_slope_match_out as rim
+from membrane_solver_tpu_torch.device.reduce import tree_sum
 from membrane_solver_tpu_torch.energy import param
 
 USES_TILT_LEAFLETS = True
@@ -56,18 +57,18 @@ def make_energy(spec):
         phi = torch.where(valid, (h_out - h_rim) * inv_dr, 0.0)
 
         diff_out = torch.sum(state.tilts_out[rim_rows] * r_hat, dim=1) - phi
-        E = 0.5 * k_match * torch.sum(torch.where(valid, weights * diff_out**2, 0.0))
+        E = 0.5 * k_match * tree_sum(torch.where(valid, weights * diff_out**2, 0.0))
         if flags.has_disk:
             disk, dgood, disk_r_hat, dw = rim._disk_geometry(frozen, topo, prefix=_PREFIX)
             theta_vals = torch.sum(state.tilts_in[disk] * disk_r_hat, dim=1)
             if flags.local_disk:
                 theta_i = theta_vals
             else:
-                wsum = torch.sum(torch.where(dgood, dw, 0.0))
-                theta_i = (torch.sum(torch.where(dgood, dw * theta_vals, 0.0))
+                wsum = tree_sum(torch.where(dgood, dw, 0.0))
+                theta_i = (tree_sum(torch.where(dgood, dw * theta_vals, 0.0))
                            / rim._fmax_tiny(wsum)).expand_as(phi)
             diff_in = torch.sum(state.tilts_in[rim_rows] * r_hat, dim=1) - (theta_i - phi)
-            E = E + 0.5 * k_match * torch.sum(torch.where(valid, weights * diff_in**2, 0.0))
+            E = E + 0.5 * k_match * tree_sum(torch.where(valid, weights * diff_in**2, 0.0))
         return E
 
     return fn

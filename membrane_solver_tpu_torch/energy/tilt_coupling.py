@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from membrane_solver_tpu_torch.device import geo as dgeo
+from membrane_solver_tpu_torch.device.reduce import tree_sum
 from membrane_solver_tpu_torch.energy import param
 
 USES_TILT_LEAFLETS = True
@@ -46,8 +47,8 @@ def make_energy(spec):
         live_geo = dgeo.triangle_geometry(x, topo.tri_rows, topo.tri_valid)
         d = state.tilts_out[topo.tri_rows] + sign * state.tilts_in[topo.tri_rows]
         sq = torch.sum(d * d, dim=(1, 2)) / 3.0
-        area_term = torch.sum(torch.where(topo.tri_valid, sq.detach() * live_geo.area, 0.0))
-        tilt_term = torch.sum(torch.where(topo.tri_valid, sq * live_geo.area.detach(), 0.0))
+        area_term = tree_sum(torch.where(topo.tri_valid, sq.detach() * live_geo.area, 0.0))
+        tilt_term = tree_sum(torch.where(topo.tri_valid, sq * live_geo.area.detach(), 0.0))
         return 0.5 * k_c * (area_term + tilt_term - tilt_term.detach())
 
     return fn

@@ -24,6 +24,7 @@ import math
 import numpy as np
 import torch
 
+from membrane_solver_tpu_torch.device.reduce import tree_sum
 from membrane_solver_tpu_torch.energy import tilt_thetaB_contact_in as _contact
 
 USES_TILT_LEAFLETS = True
@@ -106,7 +107,7 @@ def energy(geo, state, topo, params):
     gamma = params.get("tilt_disk_contact_strength_in",
                        topo.extras[f"{_PREFIX}/gamma"].to(tilts.dtype))
     _good, weights, r_hat, _r_len, wsum, r_eff = _contact.ring_geometry(
-        state.positions.detach(), topo, _PREFIX)
+        state.positions.detach(), topo, _PREFIX, total=tree_sum)
     theta_vals = torch.sum(tilts[rows] * r_hat, dim=1)
-    theta_B = torch.sum(weights * theta_vals) / torch.clamp(wsum, min=1e-12)
+    theta_B = tree_sum(weights * theta_vals) / torch.clamp(wsum, min=1e-12)
     return -2.0 * math.pi * r_eff * gamma * theta_B

@@ -25,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from membrane_solver_tpu_torch.device.reduce import tree_sum
 from membrane_solver_tpu_torch.energy import param
 from membrane_solver_tpu_torch.energy.leaflet_presence import present_triangles
 
@@ -154,7 +155,10 @@ def mass_mode(spec, leaflet: str) -> str:
 
 
 def leaflet_energy(geo, tilts, topo, k_tilt, present_tri=None, mode: str = "lumped",
-                   weights=None):
+                   weights=None, total=tree_sum):
+    """The energy's per-triangle terms summed by ``total``: ``device/reduce.tree_sum``, whose
+    order a sweep member keeps under ``torch.func.vmap``, except in the relax loop, which
+    never runs in a sweep and keeps ``torch.sum``."""
     if weights is not None:
         tilts = tilts * weights[:, None]
     t0 = tilts[topo.tri_rows[:, 0]]
@@ -170,7 +174,7 @@ def leaflet_energy(geo, tilts, topo, k_tilt, present_tri=None, mode: str = "lump
     area = geo.area
     if present_tri is not None:
         area = torch.where(present_tri, area, 0.0)
-    return torch.sum(coeff * area)
+    return total(coeff * area)
 
 
 def make_leaflet_energy(spec, leaflet: str):
@@ -192,7 +196,7 @@ def make_leaflet_inloop_energy(spec, leaflet: str):
         tilts = state.tilts_in if leaflet == "in" else state.tilts_out
         k = param(params, f"tilt_modulus_{leaflet}", like=tilts)
         present = present_triangles(topo, "out") if leaflet == "out" else None
-        return leaflet_energy(geo, tilts, topo, k, present)
+        return leaflet_energy(geo, tilts, topo, k, present, total=torch.sum)
 
     return fn
 

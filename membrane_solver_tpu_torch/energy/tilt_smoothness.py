@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from membrane_solver_tpu_torch.device import geo as dgeo
+from membrane_solver_tpu_torch.device.reduce import tree_sum
 from membrane_solver_tpu_torch.energy import param
 from membrane_solver_tpu_torch.kernels import tri_kernels
 
@@ -60,7 +61,7 @@ def smoothness_energy(positions, tilts, topo, k_smooth, transport: str, tri_pres
         + c2 * torch.sum(d01 * d01, dim=1)
     )
     keep = topo.tri_valid if tri_present is None else (topo.tri_valid & tri_present)
-    return (k_smooth / 4.0) * torch.sum(torch.where(keep, per_tri, 0.0))
+    return (k_smooth / 4.0) * tree_sum(torch.where(keep, per_tri, 0.0))
 
 
 def make_energy(spec):

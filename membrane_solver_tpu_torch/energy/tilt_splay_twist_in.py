@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from membrane_solver_tpu_torch.device import geo as dgeo
+from membrane_solver_tpu_torch.device.reduce import tree_sum
 from membrane_solver_tpu_torch.energy import param
 from membrane_solver_tpu_torch.energy.tilt_smoothness import minimal_rotation
 from membrane_solver_tpu_torch.kernels import tri_kernels
@@ -78,6 +79,6 @@ def make_energy(spec):
                     + torch.linalg.cross(g[:, 2], t2))
         curl_n = torch.where(valid, torch.sum(curl_vec * fgeo.unit_normal, dim=1), 0.0)
         density = k_splay * div_eval * div_eval + k_twist * curl_n * curl_n
-        return 0.5 * torch.sum(torch.where(valid, area * density, 0.0))
+        return 0.5 * tree_sum(torch.where(valid, area * density, 0.0))
 
     return fn

@@ -26,6 +26,7 @@ import math
 import numpy as np
 import torch
 
+from membrane_solver_tpu_torch.device.reduce import tree_sum
 from membrane_solver_tpu_torch.energy import param
 
 USES_TILT_LEAFLETS = True
@@ -87,8 +88,16 @@ def compile_topology(layout) -> dict:
     return ring_tables(layout, _group_rows(layout), center, normal, raw_n is not None)
 
 
-def ring_geometry(positions, topo, prefix: str = _PREFIX):
-    """(valid mask, weights, r_hat, r_len, wsum, R_eff) for the ring of ``prefix``'s extras."""
+def ring_geometry(positions, topo, prefix: str = _PREFIX, total=torch.sum):
+    """(valid mask, weights, r_hat, r_len, wsum, R_eff) for the ring of ``prefix``'s extras.
+
+    ``total`` sums the ring's weights: ``tilt_disk_contact_in`` passes
+    ``device/reduce.tree_sum``, whose order a sweep member keeps under
+    ``torch.func.vmap``.  This module's own ring keeps ``torch.sum``: its
+    frozen geometry feeds every iteration of the kozlov lane's leaflet relax,
+    whose float64 floor decides near-ties (ROADMAP C3), and its sweep members
+    are held to 1e-12 of their one-member runs, not to bits.
+    """
     rows = topo.extras[f"{prefix}/rows"]
     valid = topo.extras[f"{prefix}/valid"]
     center = topo.extras[f"{prefix}/center"].to(positions.dtype)
@@ -108,8 +117,8 @@ def ring_geometry(positions, topo, prefix: str = _PREFIX):
     good = valid & (r_len > 1e-12)
     r_hat = torch.where(good[:, None], rel_p / torch.clamp(r_len, min=1e-12)[:, None], 0.0)
     weights = torch.where(good, weights, 0.0)
-    wsum = torch.sum(weights)
-    r_eff = torch.sum(weights * r_len) / torch.clamp(wsum, min=1e-12)
+    wsum = total(weights)
+    r_eff = total(weights * r_len) / torch.clamp(wsum, min=1e-12)
     return good, weights, r_hat, r_len, wsum, r_eff
 
 
@@ -129,14 +138,14 @@ def _term(tin, ring, topo, params, penalty: bool, field_linear: bool):
     theta_B = param(params, "tilt_thetaB_value", like=tin)
     theta_vals = torch.sum(tin[topo.extras[f"{_PREFIX}/rows"]] * r_hat, dim=1)
     if field_linear:
-        theta_contact = torch.sum(weights * theta_vals) / torch.clamp(wsum, min=1e-12)
+        theta_contact = tree_sum(weights * theta_vals) / torch.clamp(wsum, min=1e-12)
     else:
         theta_contact = theta_B.detach()
     E = tin.new_zeros(()) - 2.0 * math.pi * r_eff * gamma * theta_contact
     if penalty:
         k = param(params, "tilt_thetaB_strength_in", like=tin)
         diff = theta_vals - theta_B
-        E = E + 0.5 * k * torch.sum(torch.where(good, weights * diff * diff, 0.0))
+        E = E + 0.5 * k * tree_sum(torch.where(good, weights * diff * diff, 0.0))
     return E
 
 

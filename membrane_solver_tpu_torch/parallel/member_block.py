@@ -23,7 +23,16 @@ Functions, whose ``vmap`` rules launch the member-axis kernels
 (``kernels/tri_kernels``, ``kernels/vertex_sum``): one launch for all B
 members, each member's result the bits of its own launch.  The projection,
 the enforcement and the line search's geometry checks are mapped the same
-way.  No Python loop over members touches the device.
+way.  No Python loop over members touches the device, but for the dense
+shape KKT solve: one LU per member (``jit_core._KKTSolve``), as PyTorch
+factors a batch in another order than one matrix.  A member's sums add in
+an order that does not depend on B: per-vertex sums through the
+member-axis vertex-sum kernel, whole-array sums through
+``device/reduce.tree_sum``, 3x3 products and the KKT assembly term by
+term (``device/linalg``, ``jit_core``), so each module mapped over the
+members gives its single calls' bits (the theta_B contact ring and the
+pins' projection keep orders of their own, within round-off of a
+one-member run).
 
 The decisions follow the JAX package's ``vmap`` of its ``while_loop``s: the
 loop runs while any member is active, and a member that has converged,
@@ -45,7 +54,7 @@ import torch
 from torch.func import vmap
 
 from membrane_solver_tpu_torch.device import geo as dgeo
-from membrane_solver_tpu_torch.device.state import MeshState, ProblemSpec
+from membrane_solver_tpu_torch.device.state import MeshState, ProblemSpec, occurrence_levels
 from membrane_solver_tpu_torch.runtime import jit_core
 from membrane_solver_tpu_torch.runtime import tilt_relax as _tr
 from membrane_solver_tpu_torch.runtime.jit_core import (
@@ -64,7 +73,8 @@ from membrane_solver_tpu_torch.runtime.jit_core import (
 
 # the modules whose per-member code runs under ``vmap``: the kozlov lane's,
 # the shape family (with the reference's placeholders and the fixed-row
-# mask, which change nothing), then the leaflet tilt-field family
+# mask, which change nothing), the leaflet tilt-field family, then the
+# local-interface family and the rigid disk
 ENERGY_MODULES = frozenset({
     "surface", "tilt_in", "tilt_out", "bending_tilt_in", "bending_tilt_out",
     "tilt_thetaB_contact_in",
@@ -74,25 +84,18 @@ ENERGY_MODULES = frozenset({
     "tilt_smoothness_in", "tilt_smoothness_out", "tilt_splay_twist_in",
     "tilt_disk_target_in", "tilt_disk_target_out", "tilt_rim_source_in",
     "tilt_rim_source_out", "tilt_rim_source_bilayer", "tilt_disk_contact_in",
-    "bending_tilt", "mean_curvature_tilt", "rim_slope_match_out"})
+    "bending_tilt", "mean_curvature_tilt", "rim_slope_match_out",
+    "curved_local_interface_law", "curved_local_interface_penalty"})
 CONSTRAINT_MODULES = frozenset({
     "pin_to_plane", "pin_to_circle", "rim_slope_match_out", "tilt_thetaB_boundary_in",
     "volume", "global_area", "body_area", "perimeter", "fixed_plane", "fix_facet_area",
     "expression", "edge", "fix_facet_angle", "fix_vertex_position", "dummy_module",
-    "tilt_leaflet_match_rim", "tilt_vector_match_rim"})
-INTERFACE_ITEM = "ROADMAP A6: the local-interface family in the sweep"
-RIGID_DISK_ITEM = "ROADMAP A6: rigid_disk in the sweep"
+    "tilt_leaflet_match_rim", "tilt_vector_match_rim",
+    "curved_local_interface_hard", "curved_local_interface_match", "rigid_disk"})
 PHYSICAL_EDGE_ITEM = "ROADMAP A6: the physical-edge shells in the sweep"
 TRACE_Z_ITEM = "ROADMAP A6: the trace_z fallback in the sweep"
 # the ROADMAP item that holds each module outside the batched set
-PENDING_ENERGY = dict.fromkeys(("curved_local_interface_law", "curved_local_interface_penalty"),
-                               INTERFACE_ITEM)
-PENDING_CONSTRAINT = {
-    **dict.fromkeys(("curved_local_interface_hard", "curved_local_interface_match"),
-                    INTERFACE_ITEM),
-    "rigid_disk": RIGID_DISK_ITEM,
-    "local_interface_shells": PHYSICAL_EDGE_ITEM,
-}
+PENDING_CONSTRAINT = {"local_interface_shells": PHYSICAL_EDGE_ITEM}
 
 
 def check_batched_modules(spec: ProblemSpec) -> None:
@@ -112,13 +115,27 @@ def check_batched_modules(spec: ProblemSpec) -> None:
             "the parameter sweep does not batch shape_scaffold_rejected_step_fallback "
             f"'trace_z' yet ({TRACE_Z_ITEM})")
     for kind, names, batched, pending in (
-            ("energy", jit_core.active_energy_modules(spec), ENERGY_MODULES, PENDING_ENERGY),
+            ("energy", jit_core.active_energy_modules(spec), ENERGY_MODULES, {}),
             ("constraint", spec.constraint_modules, CONSTRAINT_MODULES, PENDING_CONSTRAINT)):
         for name in names:
             if name not in batched:
                 item = pending.get(name, "ROADMAP A6")
                 raise NotImplementedError(
                     f"the parameter sweep does not batch the {kind} module {name!r} yet ({item})")
+
+
+def prime_ordered_levels(spec: ProblemSpec, topo) -> None:
+    """Build the occurrence levels of every constraint that adds repeated rows in order
+    (``state.ordered_index_add``; its module's ``ordered_rows``) before any map: one host read
+    of the rows each, kept with the topology, so no host read happens inside a map.  The
+    members share the topology, so they share the levels; each level's ``index_add`` adds at
+    most one value per (member, row)."""
+    from membrane_solver_tpu_torch.constraints import get_constraint
+
+    for name in dict.fromkeys(spec.constraint_modules):
+        rows_of = getattr(get_constraint(name), "ordered_rows", None)
+        for key, rows in ({} if rows_of is None else rows_of(topo)).items():
+            topo.kept(("ordered_index_add", key), lambda rows=rows: occurrence_levels(rows))
 
 
 def _select(mask: torch.Tensor, new: MeshState, old: MeshState) -> MeshState:
@@ -295,10 +312,24 @@ def make_member_energy_and_grad(spec: ProblemSpec) -> Callable:
 
     ``jit_core.make_energy_and_grad`` per member: the energy's vertex
     gradient, the KKT projection, the curved free-disk restriction, fixed
-    rows zeroed.
+    rows zeroed.  The KKT solve picks the LU's or the shifted, refined
+    multipliers per member on the device (``jit_core.solve_kkt_with_rescue``);
+    while ``jit_core.KKT_RECORD`` is a list, each solve appends its flags and
+    multiplier sizes as (B,) tensors.
     """
     energy_of_positions = jit_core.make_energy_of_positions(spec)
     finish = jit_core.make_gradient_finisher(spec)
+
+    def finish_recorded(h, st, p, topo):
+        """``finish`` and, per shape KKT solve it made, its (finite, refined, max|lam|) stacked:
+        a tensor made inside the map leaves it only as an output."""
+        saved, jit_core.KKT_RECORD = jit_core.KKT_RECORD, []
+        try:
+            g = finish(h, st, topo, p)
+            return g, [torch.stack([f.to(g.dtype), r.to(g.dtype), m])
+                       for f, r, m in jit_core.KKT_RECORD]
+        finally:
+            jit_core.KKT_RECORD = saved
 
     def energy_and_grad(states: MeshState, topo, params):
         x = states.positions.detach().requires_grad_(True)
@@ -306,7 +337,12 @@ def make_member_energy_and_grad(spec: ProblemSpec) -> Callable:
             E = vmap(lambda y, st, p: energy_of_positions(y, st, topo, p))(x, states, params)
             (g,) = torch.autograd.grad(E.sum(), (x,))
         with torch.no_grad():
-            return E.detach(), vmap(lambda h, st, p: finish(h, st, topo, p))(g, states, params)
+            if jit_core.KKT_RECORD is None:
+                return E.detach(), vmap(lambda h, st, p: finish(h, st, topo, p))(g, states, params)
+            g, solves = vmap(lambda h, st, p: finish_recorded(h, st, p, topo))(g, states, params)
+            # per solve, (B,) flags and sizes: member m's are its own solve's
+            jit_core.KKT_RECORD.extend((s[:, 0] != 0, s[:, 1] != 0, s[:, 2]) for s in solves)
+            return E.detach(), g
 
     return energy_and_grad
 
@@ -338,6 +374,7 @@ def member_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
         B = states.positions.shape[0]
         dev = states.positions.device
         movable = ~topo.fixed_mask
+        prime_ordered_levels(spec, topo)
         n_steps, max_zero_steps = int(n_steps), int(max_zero_steps)
         fixed_step, tol = np_dtype(float(fixed_step)), float(tol)
         step_size_floor = float(step_size_floor)

@@ -266,6 +266,54 @@ KKT_REFINE_PASSES = 3
 KKT_RECORD = None
 
 
+def _solve_with_rescue(A: torch.Tensor, b: torch.Tensor):
+    """(multipliers, LU finite, fallback taken) of one system: :func:`solve_kkt_with_rescue`."""
+    lu, piv, _info = torch.linalg.lu_factor_ex(A)
+    lam = torch.linalg.lu_solve(lu, piv, b[:, None])[:, 0]
+    finite = torch.all(torch.isfinite(lam))
+    lam = torch.where(finite, lam, torch.zeros_like(lam))
+    eps = torch.finfo(A.dtype).eps
+    b_max = torch.max(torch.abs(b))
+    residual = torch.max(torch.abs(A @ lam - b))
+    refined = finite & (residual > max(KKT_RESIDUAL_RTOL, 1e4 * eps) * b_max)
+    shift = max(KKT_SHIFT, 100 * eps) * torch.max(torch.abs(torch.diagonal(A)))
+    eye = torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
+    lu_s, piv_s, _info_s = torch.linalg.lu_factor_ex(A + shift * eye)
+    robust = torch.zeros_like(lam)
+    for _ in range(KKT_REFINE_PASSES):
+        robust = robust + torch.linalg.lu_solve(lu_s, piv_s, (b - A @ robust)[:, None])[:, 0]
+    return torch.where(refined, robust, lam), finite, refined
+
+
+class _KKTSolve(torch.autograd.Function):
+    """:func:`_solve_with_rescue`, one system per member under ``torch.func.vmap``.
+
+    PyTorch factors a batch of matrices with other LU routines than one
+    matrix, and so would a batched product; the KKT systems are
+    ill-conditioned (C5), which turns an ulp there into 1e-10 of the
+    projection.  The ``vmap`` rule solves each member's system as the
+    single call does, so member m's multipliers are the bits of its own
+    call's.
+    """
+
+    @staticmethod
+    def forward(A, b):
+        return _solve_with_rescue(A, b)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(*output)
+
+    @staticmethod
+    def vmap(info, in_dims, A, b):
+        A = A.movedim(in_dims[0], 0) if in_dims[0] is not None else A.expand(
+            info.batch_size, *A.shape)
+        b = b.movedim(in_dims[1], 0) if in_dims[1] is not None else b.expand(
+            info.batch_size, *b.shape)
+        outs = [_solve_with_rescue(A[m], b[m]) for m in range(info.batch_size)]
+        return tuple(torch.stack(x) for x in zip(*outs)), (0, 0, 0)
+
+
 def solve_kkt_with_rescue(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve the (already 1e-18-regularized) KKT normal equations.
 
@@ -289,23 +337,11 @@ def solve_kkt_with_rescue(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     converges to the same solution, the null part stays of the size of b,
     and the projection is the one a clean LU gives.  Both are computed on
     every call and one is selected on the device (no host sync); a solve
-    with a small residual keeps the LU's multipliers bit for bit.
+    with a small residual keeps the LU's multipliers bit for bit.  Under
+    ``torch.func.vmap`` (the parameter sweep) each member's system is
+    solved on its own (:class:`_KKTSolve`), the selection made per member.
     """
-    lu, piv, _info = torch.linalg.lu_factor_ex(A)
-    lam = torch.linalg.lu_solve(lu, piv, b[:, None])[:, 0]
-    finite = torch.all(torch.isfinite(lam))
-    lam = torch.where(finite, lam, torch.zeros_like(lam))
-    eps = torch.finfo(A.dtype).eps
-    b_max = torch.max(torch.abs(b))
-    residual = torch.max(torch.abs(A @ lam - b))
-    refined = finite & (residual > max(KKT_RESIDUAL_RTOL, 1e4 * eps) * b_max)
-    shift = max(KKT_SHIFT, 100 * eps) * torch.max(torch.abs(torch.diagonal(A)))
-    eye = torch.eye(A.shape[0], dtype=A.dtype, device=A.device)
-    lu_s, piv_s, _info_s = torch.linalg.lu_factor_ex(A + shift * eye)
-    robust = torch.zeros_like(lam)
-    for _ in range(KKT_REFINE_PASSES):
-        robust = robust + torch.linalg.lu_solve(lu_s, piv_s, (b - A @ robust)[:, None])[:, 0]
-    lam = torch.where(refined, robust, lam)
+    lam, finite, refined = _KKTSolve.apply(A, b)
     if KKT_RECORD is not None:
         KKT_RECORD.append((finite, refined, torch.max(torch.abs(lam))))
     return lam
@@ -344,10 +380,20 @@ def orthonormalize_local_normals(normals: torch.Tensor) -> torch.Tensor:
     return torch.stack(outs, dim=1)
 
 
+def _dot_last(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis (3 components) of ``a * b``, term by term: a contraction that
+    a BLAS product would add in another order under ``torch.func.vmap``."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
 def apply_local_projection(vec: torch.Tensor, n_hat: torch.Tensor) -> torch.Tensor:
-    """Project (Nv, 3) rows onto the complement of each vertex's normals (Nv, m, 3)."""
-    coeff = torch.einsum("vc,vmc->vm", vec, n_hat)
-    return vec - torch.einsum("vm,vmc->vc", coeff, n_hat)
+    """Project (..., 3) rows onto the complement of their orthonormal normals (..., m, 3),
+    one normal after the other, as sums of products."""
+    coeff = _dot_last(vec[..., None, :], n_hat)
+    out = vec
+    for j in range(n_hat.shape[-2]):
+        out = out - coeff[..., j, None] * n_hat[..., j, :]
+    return out
 
 
 def make_gradient_projector(spec: ProblemSpec) -> Callable | None:
@@ -430,17 +476,24 @@ def make_gradient_projector(spec: ProblemSpec) -> Callable | None:
         vals = torch.cat(vs)  # (kc, s, 3)
         rows_c = torch.clamp(torch.cat(rs), 0, n_rows - 1)
         if n_hat is not None:
-            nh = n_hat[rows_c]  # (kc, s, m, 3)
-            coeff = torch.einsum("ksc,ksmc->ksm", vals, nh)
-            vals = vals - torch.einsum("ksm,ksmc->ksc", coeff, nh)
+            vals = apply_local_projection(vals, n_hat[rows_c])  # n_hat[rows_c]: (kc, s, m, 3)
 
         kc = vals.shape[0]
         csr = (kept_slot_csr(topo, "kkt/compact_rows", rows_c, n_rows) if rows_fixed
                else slot_csr(rows_c, n_rows))
+        # A_cc[i, j] = sum over slots (a, b) sharing a row of vals[i, a] . vals[j, b], and
+        # b_c[i] = sum over slots of vals[i, a] . grad[row], as sums of products: the
+        # ill-conditioned solve (C5) would turn another order under vmap into 1e-10
         eq = (rows_c[:, None, :, None] == rows_c[None, :, None, :]).to(grad.dtype)
-        dots = torch.einsum("iac,jbc->ijab", vals, vals)
-        A_cc = torch.sum(dots * eq, dim=(2, 3))
-        b_c = torch.einsum("iac,iac->i", vals, grad[rows_c])
+        dots = _dot_last(vals[:, None, :, None, :], vals[None, :, None, :, :]) * eq
+        slots = [(sa, sb) for sa in range(dots.shape[2]) for sb in range(dots.shape[3])]
+        A_cc = dots[:, :, 0, 0]
+        for sa, sb in slots[1:]:
+            A_cc = A_cc + dots[:, :, sa, sb]
+        slot_dots = _dot_last(vals, grad[rows_c])
+        b_c = slot_dots[:, 0]
+        for sa in range(1, slot_dots.shape[1]):
+            b_c = b_c + slot_dots[:, sa]
 
         if dense_rows is None:
             A = A_cc + 1e-18 * torch.eye(kc, dtype=grad.dtype, device=grad.device)

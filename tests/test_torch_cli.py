@@ -214,17 +214,51 @@ def test_properties_flag_through_the_console_entry():
     assert "Total surface area:" in proc.stdout and "Radius of gyration:" in proc.stdout
 
 
+def _agg():
+    """matplotlib on its headless backend (the tests skip without it)."""
+    matplotlib = pytest.importorskip("matplotlib")
+    matplotlib.use("Agg", force=True)
+    import matplotlib.pyplot as plt
+
+    return plt
+
+
 @pytest.mark.parametrize("flags", [["--viz"], ["--viz-save", "x.png"]])
-def test_visualization_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match="visualization"):
-        cli.main(["--cpu", "--non-interactive", "-q", "-i", str(CUBE), *flags])
+def test_visualization_flags_raise(flags, tmp_path, monkeypatch):
+    """``--viz`` and ``--viz-save`` render the final mesh (they raised before visualization was
+    ported): the drawing runs, and ``--viz-save`` writes a PNG."""
+    plt = _agg()
+    monkeypatch.chdir(tmp_path)
+    shown = []
+    monkeypatch.setattr(plt, "show", lambda *a, **k: shown.append(True))
+    try:
+        assert cli.main(["--cpu", "--non-interactive", "-q", "-i", str(CUBE), *flags]) == 0
+    finally:
+        plt.close("all")
+    if "--viz-save" in flags:
+        assert (tmp_path / "x.png").read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+    else:
+        assert shown == [True]
 
 
 @pytest.mark.parametrize("line", ["s", "visualize tilt", "lv; g1"])
-def test_visualization_commands_raise(line):
+def test_visualization_commands_raise(line, monkeypatch):
+    """``s``, ``visualize tilt`` and ``g`` with live visualization on draw through the
+    command layer on the context's device (they raised before visualization was ported)."""
+    plt = _agg()
+    shown = []
+    monkeypatch.setattr(plt, "show", lambda *a, **k: shown.append(True))
     ctx = port_context()
-    with pytest.raises(NotImplementedError, match="not ported"):
+    try:
         execute_command_line(ctx, line)
+        figures = [plt.figure(n) for n in plt.get_fignums()]
+    finally:
+        plt.close("all")
+    assert figures and figures[-1].axes[0].collections
+    if line.startswith("lv"):
+        assert ctx.minimizer.live_vis_state["ax"].get_title() == "Step 0"
+    else:
+        assert shown == [True]
 
 
 def test_line_tension_flags_run_as_in_jax():

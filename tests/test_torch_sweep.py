@@ -16,8 +16,10 @@ flags and iteration counts (no Armijo decision flips here; ROADMAP C3).
 
 Not against JAX: member m of the three against a one-member run of member
 m at rel 1e-13, distinct parameters give distinct energies, the dropped
-override changes no bit, a module outside the batched set (naming the
-ROADMAP item that holds it) and ``device_mesh`` raise, and
+override changes no bit, the local-interface modules and the rigid disk
+join the batched set (against JAX's ``jax.vmap``, as
+``tests/test_torch_sweep_interface.py`` holds them), ``device_mesh``
+raises, and
 the member-axis entry points under ``torch.func.vmap`` (the CPU twins of
 the member-axis kernels) equal the per-member calls bit for bit.  The
 member-axis CUDA kernels against the single-member kernels run on the
@@ -199,20 +201,23 @@ def test_trace_z_fallback_raises(problems):
         make_sweep_minimize(trace_z, MinimizeOptions())
 
 
-@pytest.mark.parametrize("kind,name,item", [
-    ("constraint", "rigid_disk", "rigid_disk in the sweep"),
-    ("energy", "curved_local_interface_law", "the local-interface family in the sweep"),
-    ("constraint", "curved_local_interface_hard", "the local-interface family in the sweep"),
+@pytest.mark.parametrize("kind,name", [
+    ("constraint", "rigid_disk"),
+    ("energy", "curved_local_interface_law"),
+    ("constraint", "curved_local_interface_hard"),
 ])
-def test_module_outside_the_batched_set_raises(problems, kind, name, item):
+def test_module_joins_the_batched_set(problems, kind, name):
+    """The module builds a sweep, and mapped over members it matches the JAX package's
+    ``jax.vmap`` and its own single calls (``tests/test_torch_sweep_interface.py``)."""
     from membrane_solver_tpu_torch.parallel.sweep import make_sweep_minimize
     from membrane_solver_tpu_torch.runtime.jit_core import MinimizeOptions
+    from tests.test_torch_sweep_interface import MODULE_ITEMS, assert_module_items
 
     spec = problems[1].spec
     field = "constraint_modules" if kind == "constraint" else "energy_modules"
-    wider = dataclasses.replace(spec, **{field: getattr(spec, field) + (name,)})
-    with pytest.raises(NotImplementedError, match=f"{kind} module '{name}'.*ROADMAP A6: {item}"):
-        make_sweep_minimize(wider, MinimizeOptions())
+    make_sweep_minimize(dataclasses.replace(spec, **{field: getattr(spec, field) + (name,)}),
+                        MinimizeOptions())
+    assert_module_items(MODULE_ITEMS[name])
 
 
 def test_device_mesh_raises(problems):

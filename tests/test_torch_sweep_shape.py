@@ -434,25 +434,28 @@ TILT_FIELD_FAMILY = {
 }
 # the modules still outside the batched set, each with its ROADMAP A6 item
 STILL_PENDING = [
-    ("energy", "curved_local_interface_law", "the local-interface family in the sweep"),
-    ("energy", "curved_local_interface_penalty", "the local-interface family in the sweep"),
-    ("constraint", "curved_local_interface_hard", "the local-interface family in the sweep"),
-    ("constraint", "curved_local_interface_match", "the local-interface family in the sweep"),
-    ("constraint", "rigid_disk", "rigid_disk in the sweep"),
     ("constraint", "local_interface_shells", "the physical-edge shells in the sweep"),
 ]
+# the modules that left the pending set (tests/test_torch_sweep_interface.py
+# and tests/test_torch_sweep_rigid_disk.py hold them against JAX's sweep)
+JOINED = {"energy": ("curved_local_interface_law", "curved_local_interface_penalty"),
+          "constraint": ("curved_local_interface_hard", "curved_local_interface_match",
+                         "rigid_disk")}
 
 
 def test_the_batched_set_holds_the_tilt_field_family(port_problems):
-    """The family's sixteen energies and two constraints are admitted; the local-interface
-    family, rigid_disk, the physical-edge shells and trace_z still raise with their items."""
+    """The family's sixteen energies and two constraints are admitted, and so are the
+    local-interface family and rigid_disk; the physical-edge shells and trace_z still raise
+    with their items."""
     from membrane_solver_tpu_torch.parallel import member_block
 
-    assert not hasattr(member_block, "TILT_FIELD_ITEM")
+    for gone in ("TILT_FIELD_ITEM", "INTERFACE_ITEM", "RIGID_DISK_ITEM"):
+        assert not hasattr(member_block, gone)
     spec = port_problems("flat").spec
     member_block.check_batched_modules(dataclasses.replace(
-        spec, energy_modules=spec.energy_modules + TILT_FIELD_FAMILY["energy"],
-        constraint_modules=spec.constraint_modules + TILT_FIELD_FAMILY["constraint"]))
+        spec, energy_modules=spec.energy_modules + TILT_FIELD_FAMILY["energy"] + JOINED["energy"],
+        constraint_modules=spec.constraint_modules + TILT_FIELD_FAMILY["constraint"]
+        + JOINED["constraint"]))
     for kind, name, item in STILL_PENDING:
         field = "energy_modules" if kind == "energy" else "constraint_modules"
         wider = dataclasses.replace(spec, **{field: getattr(spec, field) + (name,)})

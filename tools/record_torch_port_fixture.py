@@ -730,13 +730,14 @@ def run_kozlov_sweep() -> dict:
     return rec
 
 
-def sweep_fixture_run(protocol: dict, problem, n: int) -> dict:
+def sweep_fixture_run(protocol: dict, problem, n: int, keep: dict | None = None) -> dict:
     """``parallel.sweep.run_sweep`` of the protocol's members on a JAX problem (``sweep_record``).
 
     Also ``vmapped_vs_single_grad``: at the start, the largest deviation of
     the vmapped projected gradient of the B members from each member's own
     evaluation, over that member's max |g| (XLA:CPU's batched arithmetic
     may take the other side of a Meyer branch tie, where the gradient jumps).
+    ``keep`` (a dict) receives the batch and the final states.
     """
     import jax
     import jax.numpy as jnp
@@ -770,6 +771,8 @@ def sweep_fixture_run(protocol: dict, problem, n: int) -> dict:
     rec["accepted_last_step"] = int(np.sum(np.asarray(stats.step_success)
                                            & ~np.asarray(stats.converged)))
     rec["vmapped_vs_single_grad"] = max(devs)
+    if keep is not None:
+        keep.update(batch=batch, states=states)
     return rec
 
 
@@ -1050,8 +1053,15 @@ def sweep_tilt_float32() -> dict:
 
 
 def run_kozlov_sweep_tilt() -> dict:
-    """The float64 record here (each array packed by ``chip_smoke.pack_rows``), the float32 one
-    in a child beside it; ``float32_reference`` holds each item's float32 deviation."""
+    """The float64 record here, the float32 one in a child beside it (``packed_arrays``)."""
+    return packed_arrays("kozlov_L3_sweep_tilt_drives_f64_jax.json",
+                         kozlov_sweep_tilt_protocol(), sweep_tilt_arrays)
+
+
+def packed_arrays(name: str, protocol: dict, arrays_run) -> dict:
+    """``arrays_run()`` at float64 here (each array packed by ``chip_smoke.pack_rows``), and at
+    float32 in a child beside it (``FLOAT32_RUNS[name]``, its arrays through an ``.npz``);
+    ``float32_reference`` holds each item's float32 deviation."""
     import tempfile
 
     import numpy as np
@@ -1059,15 +1069,13 @@ def run_kozlov_sweep_tilt() -> dict:
     _jax()
     from chip_smoke import pack_rows, relative_error, sample_rows
 
-    protocol = kozlov_sweep_tilt_protocol()
     with tempfile.TemporaryDirectory() as tmp:
         npz = Path(tmp) / "float32.npz"
         child = subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), "--float32",
-             "kozlov_L3_sweep_tilt_drives_f64_jax.json"],
+            [sys.executable, str(Path(__file__).resolve()), "--float32", name],
             env={**os.environ, "MEMBRANE_SOLVER_X64": "0", "SWEEP_TILT_ARRAYS": str(npz)},
             stdout=subprocess.PIPE, text=True)
-        rec64 = sweep_tilt_arrays()
+        rec64 = arrays_run()
         f32_single = float32_result(child)["single"]
         with np.load(npz) as data:
             a32 = {k: data[k] for k in data.files}
@@ -1095,6 +1103,252 @@ def run_kozlov_sweep_tilt() -> dict:
             "max_rel_dev_vs_float64": {k: relative_error(a32[k], a) for k, a in a64.items()},
             "vmapped_vs_single": f32_single},
     }
+
+
+# the parameter sweep on the local-interface and free-disk lanes, from the
+# state each lane's protocol leaves (chip_smoke phases 23 and 21): four
+# members (chip_smoke.sweep_members) scanning tilt_modulus_in, theta_B and,
+# on the interface lane, the law's strength, three steps of the sweep's
+# block at 1e-3 under the default options
+LANE_SWEEP_MEMBERS = 4
+LANE_SWEEP_STEPS = 3
+LANE_SWEEP_SCAN = {"tilt_modulus_in": {"scale": 0.1}, "tilt_thetaB_value": {"shift": 0.01}}
+
+
+def lane_sweep_protocol(lane: dict, scan: dict) -> dict:
+    return {
+        "kozlov": lane,
+        "members": LANE_SWEEP_MEMBERS,
+        "dilation": 1e-3,
+        "scan": scan,
+        "steps": LANE_SWEEP_STEPS,
+        "step_size": SWEEP_STEP_SIZE,
+        "options": "default MinimizeOptions (gradient descent, adaptive step)",
+        "sample_rows": 512,
+        "sample_seed": 0,
+        "dtype": "float64",
+        "package": "membrane_solver_tpu",
+        "platform": "cpu",
+    }
+
+
+def kozlov_interface_sweep_protocol() -> dict:
+    return lane_sweep_protocol(kozlov_interface_protocol(), {
+        **LANE_SWEEP_SCAN, "curved_local_interface_law_strength": {"scale": 0.1}})
+
+
+def kozlov_free_disk_sweep_protocol() -> dict:
+    # the disk made uneven first (chip_smoke.uneven_disk): its pairwise KKT
+    # rows are then independent, and the JAX package's solve is not round-off
+    return {**lane_sweep_protocol(kozlov_free_disk_protocol(), LANE_SWEEP_SCAN),
+            "uneven_disk": {"preset": "disk", "seed": 17, "xy_scale": 0.005, "z_scale": 0.01}}
+
+
+def lane_sweep_run(protocol: dict) -> dict:
+    """A lane's protocol steps, then the sweep protocol on the state they leave, at the
+    precision this process runs (``sweep_fixture_run``).
+
+    Also per member: each shape KKT solve's multiplier-finite flag and
+    max|lam| over the sweep's iterations (JAX's vmapped block calls the
+    recorder once per member and solve), and the breakdown of the member's
+    final state (``final_breakdowns``).
+    """
+    import jax
+    import numpy as np
+
+    solves = kkt_recorder()
+    from membrane_solver_tpu.runtime import jit_core
+
+    lane = protocol["kozlov"]
+    mn = kozlov_minimizer(lane["global_parameters"], edits=lane)
+    for _ in range(lane["steps"]):
+        mn.minimize(1)
+    jax.effects_barrier()
+    from chip_smoke import uneven_disk
+
+    uneven_disk(mn, protocol)
+    problem = mn.problem()
+    B = protocol["members"]
+    first = len(solves)
+    keep = {}
+    rec = sweep_fixture_run(protocol, problem, len(mn.mesh.vertices), keep)
+    jax.effects_barrier()
+    # the vmapped and the per-member evaluations of vmapped_vs_single_grad come first
+    calls = solves[first + 2 * B:] if len(solves) > first else []
+    rec["multipliers_finite"] = np.array([f for f, _m in calls], dtype=bool).reshape(
+        -1, B).T.tolist()
+    rec["multipliers_max_abs"] = np.array([m for _f, m in calls]).reshape(-1, B).T.tolist()
+    breakdown = jit_core.make_energy_breakdown(problem.spec)
+    batch, states = keep["batch"], keep["states"]
+    rec["final_breakdowns"] = []
+    for m in range(B):
+        st = jax.tree_util.tree_map(lambda a, m=m: a[m], states)
+        vals = breakdown(st, problem.topo, {k: v[m] for k, v in batch.params.items()})
+        rec["final_breakdowns"].append({k: float(v) for k, v in vals.items()})
+    return rec
+
+
+def run_lane_sweep(name: str) -> dict:
+    """The float64 lane sweep here, the float32 one in a child beside it."""
+    child = start_float32_child(name)
+    protocol = LANE_SWEEP_PROTOCOLS[name]()
+    rec = {"protocol": protocol, **lane_sweep_run(protocol)}
+    f32 = float32_result(child)
+    devs = [abs(a - b) / abs(b) for a, b in zip(f32["energy"], rec["energy"], strict=True)]
+    rec["float32_reference"] = {
+        "package": "membrane_solver_tpu", "platform": "cpu", "dtype": "float32",
+        **{k: f32[k] for k in ("energy", "accepted_energy", "step_success", "iterations",
+                               "multipliers_finite", "vmapped_vs_single_grad")},
+        "max_rel_dev_vs_float64": max(devs)}
+    return rec
+
+
+LANE_SWEEP_PROTOCOLS = {
+    "kozlov_L3_interface_sweep_f64_jax.json": kozlov_interface_sweep_protocol,
+    "kozlov_L3_free_disk_sweep_f64_jax.json": kozlov_free_disk_sweep_protocol,
+}
+
+
+# the local-interface family and the rigid disk over a member axis on phase
+# 25's set-up and inputs (chip_smoke.interface_drives_setup: the law's
+# strength, the law and the hard interface constraint added): four members
+# with seeded offsets (chip_smoke.tilt_member_inputs); each energy's value and
+# gradients, each constraint's tilt rows and enforcement per mode, the rigid
+# disk's compact rows and its enforcement, under jax.vmap and per member
+def kozlov_sweep_interface_drives_protocol() -> dict:
+    return {
+        "match": kozlov_match_drives_protocol(),
+        "inputs": {"match": "kozlov_L3_match_drives_f64_jax.json"},
+        "global_parameters": INTERFACE_GP,
+        "extra_energy_modules": ["curved_local_interface_law"],
+        "extra_constraint_modules": ["curved_local_interface_hard"],
+        "energies": ["curved_local_interface_law", "curved_local_interface_penalty"],
+        "constraints": ["curved_local_interface_hard", "curved_local_interface_match"],
+        "members": SWEEP_TILT_MEMBERS,
+        "member_seed": 43,
+        "z_scale": 0.02,
+        "tilt_scale": 0.1,
+        "sample_rows": 128,
+        "sample_seed": 0,
+        "dtype": "float64",
+        "package": "membrane_solver_tpu",
+        "platform": "cpu",
+    }
+
+
+def sweep_interface_arrays(refines: int = KOZLOV_REFINES) -> dict:
+    """Every item of the interface-drives protocol at the precision this process runs, as
+    dense float64 arrays (``chip_smoke.interface_item_names``), with each item's largest
+    deviation of the vmapped result from the per-member calls (``single``)."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    protocol = kozlov_sweep_interface_drives_protocol()
+    pkg, _build, _refinement = _jax()
+    from chip_smoke import (TILT_FIELDS, interface_drives_setup, interface_problems,
+                            pad_compact, relative_error, tilt_base_inputs, tilt_member_inputs)
+    from membrane_solver_tpu.constraints import get_constraint
+    from membrane_solver_tpu.device import geo as dgeo
+    from membrane_solver_tpu.energy import get_module
+
+    mesh = kozlov_minimizer(refines=refines).mesh
+    interface_drives_setup(mesh, protocol)
+    problems = interface_problems(pkg.Minimizer, mesh, protocol)
+    p = problems[None]
+    nv = p.n_vertices
+    dtype = p.state.positions.dtype
+    B = protocol["members"]
+    # the fixture's inputs at L3, the problem's own state on a smaller mesh (the CPU tests)
+    base = (tilt_base_inputs(protocol, "match", nv) if refines == KOZLOV_REFINES else
+            {f: np.asarray(getattr(p.state, f), dtype=np.float64)[:nv] for f in TILT_FIELDS})
+    members = tilt_member_inputs(protocol, base)
+
+    def padded(f, m):
+        full = np.array(getattr(p.state, f), dtype=np.float64)
+        full[:nv] = members[m][f]
+        return full.astype(dtype)
+
+    stacked = {f: jnp.asarray(np.stack([padded(f, m) for m in range(B)])) for f in TILT_FIELDS}
+    live = lambda a: np.asarray(a, dtype=np.float64)[..., :nv, :]  # noqa: E731
+    arrays, single = {}, {}
+    for name in protocol["energies"]:
+        module = get_module(name)
+        maker = getattr(module, "make_energy", None)
+        fn = maker(p.spec) if maker is not None else module.energy
+
+        def f(*fields, fn=fn):
+            st = dataclasses.replace(p.state, **dict(zip(TILT_FIELDS, fields)))
+            geo = dgeo.triangle_geometry(st.positions, p.topo.tri_rows, p.topo.tri_valid)
+            return fn(geo, st, p.topo, p.params)
+
+        vg = jax.value_and_grad(f, argnums=(0, 1, 2, 3))
+        energy, grads = jax.vmap(vg)(*(stacked[k] for k in TILT_FIELDS))
+        arrays[f"energy/{name}"] = np.asarray(energy, dtype=np.float64)
+        for k, g in zip(TILT_FIELDS, grads):
+            arrays[f"energy/{name}/{k}"] = live(g)
+        devs = {}
+        for m in range(B):
+            e1, g1 = vg(*(stacked[k][m] for k in TILT_FIELDS))
+            devs.setdefault("", []).append(relative_error(float(energy[m]), float(e1)))
+            for k, g_b, g_1 in zip(TILT_FIELDS, grads, g1):
+                devs.setdefault("/" + k, []).append(relative_error(live(g_b[m]), live(g_1)))
+        for k, v in devs.items():
+            single[f"energy/{name}{k}"] = max(v)
+
+    def mapped(key, fn, q, post):
+        """``fn`` under jax.vmap over the members and per member on ``q``: arrays and devs."""
+        states = dataclasses.replace(q.state, **stacked)
+        got = post(jax.vmap(lambda st: fn(st, q.topo, q.params))(states), states)
+        for item, arr in got.items():
+            arrays[f"{key}/{item}"] = arr
+        devs = {item: [] for item in got}
+        for m in range(B):
+            st = dataclasses.replace(q.state, **{k: stacked[k][m] for k in TILT_FIELDS})
+            one = post(jax.tree_util.tree_map(lambda a: a[None], fn(st, q.topo, q.params)),
+                       jax.tree_util.tree_map(lambda a: a[None], st))
+            for item, arr in one.items():
+                devs[item].append(relative_error(got[item][m], arr[0]))
+        for item, v in devs.items():
+            single[f"{key}/{item}"] = max(v)
+
+    for name in protocol["constraints"]:
+        mod = get_constraint(name)
+        for mode, q in problems.items():
+            if (mode is None) == (name == "curved_local_interface_match"):
+                continue
+            key = f"constraint/{name}/{mode or '-'}"
+            mapped(key, mod.make_tilt_constraint_rows(q.spec), q,
+                   lambda rows, _st: {"rows": live(rows)})
+            mapped(key, mod.make_enforce_tilts(q.spec), q,
+                   lambda out, st: {k: live(getattr(out, k)) - live(getattr(st, k))
+                                    for k in ("tilts_in", "tilts_out")})
+    rigid = get_constraint("rigid_disk")
+    k_live = int(np.sum(np.asarray(p.topo.extras["constraint:rigid_disk/pairs_valid"])))
+    mapped("constraint/rigid_disk/-", rigid.make_compact_constraint_rows(p.spec), p,
+           lambda out, _st: {"rows": pad_compact(np.asarray(out[0])[:, :k_live], nv)})
+    mapped("constraint/rigid_disk/-", rigid.make_enforce(p.spec), p,
+           lambda out, st: {"positions": live(out.positions) - live(st.positions)})
+    arrays["n_vertices"] = np.asarray(nv)
+    arrays["n_triangles"] = np.asarray(p.n_tris)
+    return {"arrays": arrays, "single": single}
+
+
+def sweep_interface_float32() -> dict:
+    """The float32 child's run: its arrays to the ``.npz`` named by ``SWEEP_TILT_ARRAYS``."""
+    import numpy as np
+
+    out = sweep_interface_arrays()
+    np.savez(os.environ["SWEEP_TILT_ARRAYS"], **out["arrays"])
+    return {"single": out["single"]}
+
+
+def run_kozlov_sweep_interface() -> dict:
+    """The float64 record here, the float32 one in a child beside it (``packed_arrays``)."""
+    return packed_arrays("kozlov_L3_sweep_interface_drives_f64_jax.json",
+                         kozlov_sweep_interface_drives_protocol(), sweep_interface_arrays)
 
 
 # the step-by-step kozlov lanes with their accept flags
@@ -1793,6 +2047,9 @@ FLOAT32_RUNS = {
     "helfrich_cube_L5_sweep_f64_jax.json": vesicle_sweep_run,
     "rect_tilt_source_L0_sweep_f64_jax.json": rect_sweep_run,
     "kozlov_L3_sweep_tilt_drives_f64_jax.json": sweep_tilt_float32,
+    **{name: (lambda name=name: lane_sweep_run(LANE_SWEEP_PROTOCOLS[name]()))
+       for name in LANE_SWEEP_PROTOCOLS},
+    "kozlov_L3_sweep_interface_drives_f64_jax.json": sweep_interface_float32,
 }
 
 
@@ -1929,6 +2186,8 @@ FIXTURES = {
     "square_to_circle_L1_sweep_f64_jax.json": run_square_sweep,
     "rect_tilt_source_L0_sweep_f64_jax.json": run_rect_sweep,
     "kozlov_L3_sweep_tilt_drives_f64_jax.json": run_kozlov_sweep_tilt,
+    **{name: (lambda name=name: run_lane_sweep(name)) for name in LANE_SWEEP_PROTOCOLS},
+    "kozlov_L3_sweep_interface_drives_f64_jax.json": run_kozlov_sweep_interface,
 }
 
 
