@@ -350,7 +350,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
     phase 3's bounds, and member by member equal in bits to the
     single-member kernel.  Then ms per sweep step and member-steps per
     second at B = 1, 2, 4 and 8 (three steps each after a warm-up step) and
-    the profiler's busy share of a three-step sweep at B = 8, each with the
+    the profiler's busy share of a one-step sweep at B = 8, each with the
     card's name and power limit.
 34. kozlov L3 parameter sweep, float32: the same on phase 4's state; the
     members within rel max(2e-3, 2 x the JAX package's own float32
@@ -455,6 +455,21 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
     visualization's face values on phase 23's state, card vs CPU, kernel 4
     vs its twin; matplotlib is never imported (checked again at the end).
     A ``[42-47 ...]`` line gives the six phases' seconds.
+48-49. ``kozlov_L3_physical_edge_sweep`` f64/f32 and 50-51.
+    ``kozlov_L3_scaffold_sweep`` f64/f32 (``phase_lane_sweep``): four
+    members from the state phases 26-27 and 28-29 saved, three steps with
+    the enforcement in every line-search trial (the lanes' own minimize
+    enforces there), against
+    ``kozlov_L3_{physical_edge,scaffold}_sweep_f64_jax.json`` with
+    ``drive_sweep``'s checks; the ordered rows' levels and their builds
+    (once per topology, before any map, ``counted_level_builds``); per
+    member the ``trace_z`` fallbacks, and at 50-51 each member-step's
+    fallback viability and accepted search beside JAX's (float64: equal).
+52. ``kozlov_L3_sweep_physical_edge_drives`` (``phase_physical_edge_drives``):
+    the scaffold lane's four tilt energies and, on both lanes, the rim
+    placement's compact rows and enforcement over four members under
+    ``vmap``, against JAX's ``jax.vmap``, every member equal in bits to its
+    single call.  A ``[48-52 ...]`` line gives the five phases' seconds.
 
 Every lane phase (4-9, 11-19, 21-24, 26-31) also checks determinism: from the state its
 protocol leaves (phases 4-7, 16-19, 21-24 and 26-31: the five steps; phases 8-9 and
@@ -465,14 +480,14 @@ a ``[... determinism]`` line prints both digests, and unequal digests fail
 the run.  A ``[phase seconds]`` line gives each phase's seconds, and the
 last line before the kernels line the whole run's.
 
-Phases 4-9 and 11-47 each drive one path with every kernel launch counter
+Phases 4-9 and 11-52 each drive one path with every kernel launch counter
 set to 0 just before and read just after; a kernel of that path that was
 never launched fails the run (phases 33-34: the member-axis surface
 energy, both variants, curvature data and its backward, divergence and
 vertex sum; 36-37: the same less the divergence; 38: the member-axis
 surface energy, both variants, its area route and the vertex sum; 39-40:
 the member-axis surface energy, both variants, curvature data and vertex
-sum; 41: per module, as above; 42-45: as 33-34, the trial energy only
+sum; 41: per module, as above; 42-45 and 48-51: as 33-34, the trial energy only
 where a member scored a trial; 47: the divergence) (the
 frozen-tilt entry point, both variants,
 lies on the float32 kozlov paths with a frozen relax, phases 4, 15, 17, 19,
@@ -484,7 +499,7 @@ paths 4-5, 15-19 and 21-32, and it and its tilt backward inside phase 20's
 splay-twist, phase 25's ``bending_tilt`` and phase 32's bending-tilt modes).
 
 The line before the last is a JSON object ``{"kernels": [...]}``: per entry
-point, its launches over phases 4-9 and 11-47, its largest error against its twin,
+point, its launches over phases 4-9 and 11-52, its largest error against its twin,
 and phase 3's device ms per call (``ms``), its twin's (``plain_ms``), the
 bound, and, for the vertex sum, ``index_add_``'s (``library_ms``); the
 member-axis entries' times are phase 34's at B = 8, float32, beside their
@@ -731,7 +746,7 @@ LOOP = 200  # back-to-back calls per timing
 # profiled calls of a twin or a caller (hundreds of operations a call: the
 # profiler's own cost grows with the operations it records); a hand
 # kernel's row keeps LOOP (at 50 the profiler once saw no device operation)
-PROFILED_PLAIN_CALLS = 20
+PROFILED_PLAIN_CALLS = 10
 
 
 def time_call(torch, fn, calls: int = LOOP, warmup: int = 5, profiled: int | None = None) -> dict:
@@ -3432,6 +3447,10 @@ SWEEP_EXPECT = ("tri_kernels.surface_energy_members", "tri_kernels.surface_energ
                 "tri_kernels.p1_div_members", "vertex_sum.vertex_sum_members")
 SWEEP_SIZES = (1, 2, 4, 8)  # members per timed sweep
 SWEEP_TIMED_STEPS = 3
+# the sweep steps the busy share is read over: the profiler's own cost grows
+# with the operations it records (seconds per kozlov step at B = 8), and one
+# step keeps the script inside its time limit
+BUSY_STEPS = 1
 # member m of the B-member sweep vs a one-member sweep of member m: PyTorch's
 # reductions over a (B, ...) batch add in another order than over one member
 # (float32: 1.8e-7 on an H100, about 1.5 ulp)
@@ -3641,26 +3660,26 @@ def measure_members(torch, rows: list, dtype_name: str) -> dict:
 
 
 def sweep_busy(torch, run) -> tuple[float, float]:
-    """(unprofiled ms per step, profiler busy ms per step) of ``run()``, a SWEEP_TIMED_STEPS sweep."""
+    """(unprofiled ms per step, profiler busy ms per step) of ``run()``, a BUSY_STEPS sweep."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / SWEEP_TIMED_STEPS
+    wall_ms = (time.perf_counter() - t0) * 1e3 / BUSY_STEPS
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
     rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     if not rows:
         raise RuntimeError("the profiler recorded no device-side operation")
-    return wall_ms, sum(e.self_device_time_total for e in rows) / 1e3 / SWEEP_TIMED_STEPS
+    return wall_ms, sum(e.self_device_time_total for e in rows) / 1e3 / BUSY_STEPS
 
 
 def drive_sweep(torch, counters, label: str, fixture: dict, dtype, problem, f64=None,
                 widest_launches: bool = False, member_rtol: float | None = None,
                 stat_bound: float | None = None, kkt: bool = False,
-                f32_stats=FLOAT_STATS) -> dict:
+                f32_stats=FLOAT_STATS, trace_z: bool = False) -> dict:
     """The sweep protocol on ``problem``: the main run with the counts reset just before and
     read just after, then the checks every sweep phase shares.
 
@@ -3678,11 +3697,16 @@ def drive_sweep(torch, counters, label: str, fixture: dict, dtype, problem, f64=
     float64 bound of the stats against the fixture, ``f32_stats`` the stats
     held against the float64 phase at float32; with ``kkt`` the main
     run's shape KKT solves are returned (``kkt``: per solve, (B,) finite
-    and fallback flags and max|lam| on the host).  Prints the phase's lines
+    and fallback flags and max|lam| on the host); with ``trace_z`` the main
+    run's ``trace_z`` fallback per member and iteration (``trace_z``:
+    per member, the fallback's viability and whether its search accepted,
+    ``member_block.TRACE_Z_RECORD``).  Each member's fallback count equals
+    its one-member sweep's.  Prints the phase's lines
     and returns what the caller checks and prints beside them; the returned
     ``check`` raises on a failed check.
     """
     from membrane_solver_tpu_torch.device import state as tstate
+    from membrane_solver_tpu_torch.parallel import member_block
     from membrane_solver_tpu_torch.parallel.sweep import run_sweep
     from membrane_solver_tpu_torch.runtime import jit_core
     from membrane_solver_tpu_torch.runtime.jit_core import MinimizeOptions
@@ -3708,10 +3732,12 @@ def drive_sweep(torch, counters, label: str, fixture: dict, dtype, problem, f64=
     compiles0 = tstate.COMPILES["compile_state"]
     t0 = time.perf_counter()
     jit_core.KKT_RECORD = [] if kkt else None
+    member_block.TRACE_Z_RECORD = [] if trace_z else None
     try:
         states, _ss, stats = run()
     finally:
         solves, jit_core.KKT_RECORD = jit_core.KKT_RECORD, None
+        fallback_rec, member_block.TRACE_Z_RECORD = member_block.TRACE_Z_RECORD, None
     seconds = time.perf_counter() - t0
     parts["sweep"] = seconds
     launches = read_counts(counters)
@@ -3748,7 +3774,8 @@ def drive_sweep(torch, counters, label: str, fixture: dict, dtype, problem, f64=
         dev = max(dev, float(torch.max(torch.abs(s_states.positions[0] - states.positions[m])))
                   / scale)
         single_devs.append(dev)
-        single_flags.append(_flags_equal(s_got, one))
+        single_flags.append(_flags_equal(s_got, one) and int(s_stats.trace_z_fallbacks[0])
+                            == int(stats.trace_z_fallbacks[m]))
     reset_counts(counters)
     parts["one_member_sweeps"] = time.perf_counter() - t1
     t1 = time.perf_counter()
@@ -3806,7 +3833,11 @@ def drive_sweep(torch, counters, label: str, fixture: dict, dtype, problem, f64=
     return {"launches": launches, "stats": got, "sketches": sketches, "states": states,
             "accepted": accepted, "member_accepted": np.asarray(stats.accepted_steps),
             "start": positions, "parts": parts, "run": run, "check": check,
-            "kkt": [tuple(t.cpu() for t in s) for s in solves or ()], "trials": trials}
+            "kkt": [tuple(t.cpu() for t in s) for s in solves or ()], "trials": trials,
+            "fallbacks": np.asarray(stats.trace_z_fallbacks),
+            "trace_z": [{"viable": [bool(v[m]) for live, v, _a in fallback_rec or () if live[m]],
+                         "accepted": [bool(a[m]) for live, _v, a in fallback_rec or () if live[m]]}
+                        for m in range(B)]}
 
 
 def unmoved_members(torch, out: dict) -> list:
@@ -3821,7 +3852,8 @@ def unmoved_members(torch, out: dict) -> list:
 
 def sweep_timing(torch, label: str, run, sizes, busy_members=None) -> tuple[dict, float | None]:
     """ms per sweep step and member-steps per second at each member count (a warm-up step,
-    then SWEEP_TIMED_STEPS timed), and with ``busy_members`` the profiler's busy share there."""
+    then SWEEP_TIMED_STEPS timed), and with ``busy_members`` the profiler's busy share there
+    (over BUSY_STEPS steps)."""
     per_size = {}
     for b in sizes:
         run(range(b), steps=1)  # warm-up at this member count
@@ -3836,9 +3868,8 @@ def sweep_timing(torch, label: str, run, sizes, busy_members=None) -> tuple[dict
             member_steps_per_s=f"{rec['member_steps_per_s']:.3f}", card=repr(card))
     if busy_members is None:
         return per_size, None
-    wall_ms, busy_ms = sweep_busy(torch, lambda: run(range(busy_members),
-                                                     steps=SWEEP_TIMED_STEPS))
-    say(label + " busy", members=busy_members, steps=SWEEP_TIMED_STEPS,
+    wall_ms, busy_ms = sweep_busy(torch, lambda: run(range(busy_members), steps=BUSY_STEPS))
+    say(label + " busy", members=busy_members, steps=BUSY_STEPS,
         ms_per_step=f"{wall_ms:.3f}", busy_ms_per_step=f"{busy_ms:.3f}",
         busy_share=f"{busy_ms / wall_ms:.4f}", card=repr(card))
     return per_size, busy_ms / wall_ms
@@ -4595,6 +4626,32 @@ def pad_compact(vals, n: int):
                           axis=1)
 
 
+def mapped_items(torch, out: dict, key: str, fn, q, states, singles: list, post,
+                 counters=None) -> None:
+    """``fn(state, topo, params)`` on problem ``q``, under ``vmap`` over ``states`` and on each
+    state of ``singles``: the arrays of ``post(result, state, single=...)`` into ``out``
+    (:func:`tilt_items`' form) under ``key``; with ``counters``, the single-entry launches
+    inside the map.  The ordered rows' levels are built first
+    (``member_block.prime_ordered_levels``), as the sweep builds them."""
+    from torch.func import vmap
+
+    from membrane_solver_tpu_torch.parallel.member_block import prime_ordered_levels
+
+    prime_ordered_levels(q.spec, q.topo)
+    before = read_counts(counters) if counters else None
+    got = post(vmap(lambda st: fn(st, q.topo, q.params))(states), states)
+    if counters:
+        torch.cuda.synchronize()
+        after = read_counts(counters)
+        out["launches"].setdefault(key, {"single_in_map": {}})["single_in_map"].update(
+            {k: after[k] - before[k] for k in after
+             if after[k] != before[k] and not k.endswith("_members")})
+    one = [post(fn(st, q.topo, q.params), st, single=True) for st in singles]
+    for item in got:
+        out["vmapped"][f"{key}/{item}"] = got[item]
+        out["single"][f"{key}/{item}"] = [o[item] for o in one]
+
+
 def interface_items(torch, problems: dict, protocol: dict, members: list, counters=None) -> dict:
     """Every item of phase 46 on ``problems`` (:func:`interface_problems`): under ``vmap`` over
     the members and member by member, as :func:`tilt_items` takes them.
@@ -4605,11 +4662,8 @@ def interface_items(torch, problems: dict, protocol: dict, members: list, counte
     Before the maps, the ordered rows' levels are built
     (``member_block.prime_ordered_levels``), as the sweep builds them.
     """
-    from torch.func import vmap
-
     from membrane_solver_tpu_torch.constraints import get_constraint
     from membrane_solver_tpu_torch.device.state import MeshState
-    from membrane_solver_tpu_torch.parallel.member_block import prime_ordered_levels
 
     p = problems[None]
     dtype, n = p.state.positions.dtype, p.n_vertices
@@ -4623,19 +4677,7 @@ def interface_items(torch, problems: dict, protocol: dict, members: list, counte
     singles = [MeshState(*(stacked[f][m] for f in TILT_FIELDS)) for m in range(B)]
 
     def mapped(key, fn, q, post):
-        prime_ordered_levels(q.spec, q.topo)
-        before = read_counts(counters) if counters else None
-        got = post(vmap(lambda st: fn(st, q.topo, q.params))(states), states)
-        if counters:
-            torch.cuda.synchronize()
-            after = read_counts(counters)
-            out["launches"][key] = {"single_in_map": {k: after[k] - before[k] for k in after
-                                                      if after[k] != before[k]
-                                                      and not k.endswith("_members")}}
-        one = [post(fn(st, q.topo, q.params), st, single=True) for st in singles]
-        for item in got:
-            out["vmapped"][f"{key}/{item}"] = got[item]
-            out["single"][f"{key}/{item}"] = [o[item] for o in one]
+        mapped_items(torch, out, key, fn, q, states, singles, post, counters)
 
     def tilt_changes(moved, st, single=False):
         return {f: host(getattr(moved, f) - getattr(st, f)) for f in ("tilts_in", "tilts_out")}
@@ -4668,6 +4710,35 @@ def ordered_levels(topo) -> dict:
         return {}
     return {k[1]: len(v) for k, v in store[1].items()
             if isinstance(k, tuple) and k[0] == "ordered_index_add"}
+
+
+@contextlib.contextmanager
+def counted_level_builds():
+    """Count the occurrence levels built while the block runs: {"primed": builds of
+    ``member_block.prime_ordered_levels``, before any map; "inside": any other build (in
+    ``state.ordered_index_add`` or ``rim_slope_match_out``'s condition levels)}."""
+    from membrane_solver_tpu_torch.constraints import rim_slope_match_out as rim
+    from membrane_solver_tpu_torch.device import state as tstate
+    from membrane_solver_tpu_torch.parallel import member_block
+
+    counts = {"primed": 0, "inside": 0}
+    build = tstate.occurrence_levels
+
+    def counted(kind):
+        def levels(rows):
+            counts[kind] += 1
+            return build(rows)
+
+        return levels
+
+    saved = [(mod, mod.occurrence_levels) for mod in (member_block, tstate, rim)]
+    member_block.occurrence_levels = counted("primed")
+    tstate.occurrence_levels = rim.occurrence_levels = counted("inside")
+    try:
+        yield counts
+    finally:
+        for mod, fn in saved:
+            mod.occurrence_levels = fn
 
 
 def phase_interface_drives(torch, tk, vs, counters, label: str, fixture: dict) -> dict:
@@ -4802,15 +4873,24 @@ def member_breakdowns(torch, problem, states, params) -> list:
 
 
 def phase_lane_sweep(torch, tk, vs, counters, label: str, fixture: dict, dtype, snap: dict,
-                     f64=None) -> dict:
-    """The sweep on the interface or the free-disk lane's state (phases 42-43, 44-45).
+                     f64=None, mn=None) -> dict:
+    """The sweep on a lane's state (phases 42-43 interface, 44-45 free disk, 48-49 physical
+    edge, 50-51 scaffold).
 
-    ``snap``: the state phase 23 (24) or 21 (22) left after its protocol's
-    steps, restored into a fresh L3 minimizer (on the free-disk lane with
-    the protocol's :func:`uneven_disk` offsets).  ``drive_sweep``'s checks,
+    ``snap``: the state phase 23 (24), 21 (22), 26 (27) or 28 (29) left
+    after its protocol's steps, restored into ``mn`` (that phase's
+    minimizer; default a fresh L3 minimizer of the lane), on the free-disk
+    lane with the protocol's :func:`uneven_disk` offsets.  ``drive_sweep``'s checks,
     no twin call inside the sweep (its single launches printed), then the
-    lane's own: on the interface lane the ordered rows' levels per
-    enforcement; on the free-disk lane, per member, the shape KKT solves'
+    lane's own: on every lane the occurrence levels built in the sweep
+    (:func:`counted_level_builds`: each kept key once, before any map,
+    none inside it); on the interface and physical-edge lanes the ordered
+    rows' levels per enforcement; on the physical-edge lanes each member's
+    ``trace_z`` fallbacks, and on the scaffold lane per member and
+    iteration the fallback's viability and accepted search against JAX's
+    (fixture at float64, printed beside its float32 run's at float32), at
+    float64 at least one member-step taking it where JAX's does; on the
+    free-disk lane, per member, the shape KKT solves'
     multiplier-finite flags against JAX's (fixture, or its float32 run) and
     the null-space fallback beside them; the rigid fit mapped over the final
     states (the default options enforce nothing in the line search, and
@@ -4829,22 +4909,33 @@ def phase_lane_sweep(torch, tk, vs, counters, label: str, fixture: dict, dtype, 
     proto = fixture["protocol"]
     name = str(dtype).removeprefix("torch.")
     free_disk = "rigid_disk" in proto["kozlov"].get("extra_constraint_modules", ())
+    gp = proto["kozlov"]["global_parameters"]
+    physical = gp.get("rim_slope_match_mode") == "physical_edge_staggered_v1"
+    trace_z = gp.get("shape_scaffold_rejected_step_fallback") == "trace_z"
     t0 = time.perf_counter()
-    mn = build_lane(torch, proto["kozlov"], dtype)
+    if mn is None:
+        mn = build_lane(torch, proto["kozlov"], dtype)
     restore(mn, snap)
     uneven_disk(mn, proto)
     problem = mn.problem()
     setup_s = time.perf_counter() - t0
+    built_before = len(ordered_levels(problem.topo))
     stat_bound = None
     if free_disk and f64 is None:
         share = max(abs(b[ORDER_TERM]) / abs(e) for b, e in
                     zip(fixture["final_breakdowns"], fixture["energy"], strict=True))
         stat_bound = F64_RTOL + ORDER_RTOL * share
-    with counted_twins({"tri_kernels": tk, "vertex_sum": vs}) as twins:
+    with counted_twins({"tri_kernels": tk, "vertex_sum": vs}) as twins, \
+            counted_level_builds() as builds:
         out = drive_sweep(torch, counters, label, fixture, dtype, problem, f64,
-                          stat_bound=stat_bound, kkt=free_disk, f32_stats=("energy",))
+                          stat_bound=stat_bound, kkt=free_disk or physical,
+                          f32_stats=("energy",), trace_z=trace_z)
     launches, states = out["launches"], out["states"]
     failed = []
+    levels = ordered_levels(problem.topo)
+    if builds["inside"] or builds["primed"] != len(levels) - built_before:
+        failed.append(f"occurrence levels built {builds} times for {len(levels)} kept keys "
+                      f"({built_before} before the sweep)")
     # the trial energies launch only where a member scores a trial: on the free-disk lane at
     # float32 no projected gradient is a descent direction (JAX's float32 run rejects too)
     expect = [k for k in SWEEP_EXPECT if int(np.sum(out["trials"])) > 0
@@ -4857,8 +4948,30 @@ def phase_lane_sweep(torch, tk, vs, counters, label: str, fixture: dict, dtype, 
     # the pins' normals of the shared reference shape take single vertex sums (phases 33-34 too)
     fields = {"single_launches": json.dumps({k: v for k, v in launches.items()
                                              if not k.endswith("_members") and v})}
+    fields["level_builds"] = json.dumps(builds)
+    if physical:
+        # the shells' singular rim systems: a zero pivot skips the projection, as in JAX
+        ref = fixture if f64 is None else fixture["float32_reference"]
+        fields.update(trace_z_fallbacks=json.dumps(out["fallbacks"].tolist()),
+                      multipliers_finite=json.dumps([[bool(s[0][m]) for s in out["kkt"]]
+                                                     for m in range(proto["members"])]),
+                      jax_multipliers_finite=json.dumps(ref["multipliers_finite"]))
+    if trace_z:
+        ref = fixture if f64 is None else fixture["float32_reference"]
+        viable = [t["viable"] for t in out["trace_z"]]
+        taken = [t["accepted"] for t in out["trace_z"]]
+        fields.update(trace_z_viable=json.dumps(viable), trace_z_accepted=json.dumps(taken),
+                      jax_trace_z_viable=json.dumps(ref["trace_z_viable"]),
+                      jax_trace_z_accepted=json.dumps(ref["trace_z_accepted"]))
+        if [sum(v) for v in viable] != out["fallbacks"].tolist():
+            failed.append(f"fallback counts {out['fallbacks'].tolist()} vs viable steps {viable}")
+        if f64 is None and (viable, taken) != (ref["trace_z_viable"], ref["trace_z_accepted"]):
+            failed.append(f"trace_z fallback flags {viable} {taken} vs JAX's "
+                          f"{ref['trace_z_viable']} {ref['trace_z_accepted']}")
+        if f64 is None and any(map(any, ref["trace_z_viable"])) and not out["fallbacks"].sum():
+            failed.append("no member-step took the trace_z fallback")
     if not free_disk:
-        fields["ordered_levels_per_enforcement"] = json.dumps(ordered_levels(problem.topo))
+        fields["ordered_levels_per_enforcement"] = json.dumps(levels)
     else:
         solves = out["kkt"]
         finite = [[bool(s[0][m]) for s in solves] for m in range(proto["members"])]
@@ -4904,7 +5017,8 @@ def phase_lane_sweep(torch, tk, vs, counters, label: str, fixture: dict, dtype, 
     out["check"]()
     if failed:
         raise AssertionError(f"{label}: " + "; ".join(failed))
-    return {"launches": launches, "stats": out["stats"], "sketches": out["sketches"]}
+    return {"launches": launches, "stats": out["stats"], "sketches": out["sketches"],
+            "fallbacks": out["fallbacks"].tolist(), "sweep_s": out["parts"]["sweep"]}
 
 
 def phase_viz_face_values(torch, tk, counters, label: str, mn) -> dict:
@@ -4968,6 +5082,186 @@ def phase_viz_face_values(torch, tk, counters, label: str, mn) -> dict:
     if failed:
         raise AssertionError(f"{label}: " + "; ".join(failed))
     return {"launches": launches, "errs": errs}
+
+
+# ----------------------------------------------------------------------
+# phases 48-52: the physical-edge rim placement and the trace_z fallback in the sweep
+# ----------------------------------------------------------------------
+PHYSICAL_EDGE_SWEEP_FIXTURE = FIXTURES / "kozlov_L3_physical_edge_sweep_f64_jax.json"
+SCAFFOLD_SWEEP_FIXTURE = FIXTURES / "kozlov_L3_scaffold_sweep_f64_jax.json"
+PHYSICAL_EDGE_DRIVES_FIXTURE = FIXTURES / "kozlov_L3_sweep_physical_edge_drives_f64_jax.json"
+RIM = "rim_slope_match_out"
+
+
+def physical_edge_problems(torch, protocol: dict) -> dict:
+    """Phase 52's problems, {dtype: {lane: problem}}: each lane of ``protocol["lanes"]`` built
+    once on the host up to its first step and compiled at float64 and float32."""
+    from membrane_solver_tpu_torch import Minimizer
+
+    out = {torch.float64: {}, torch.float32: {}}
+    for lane, lane_protocol in protocol["lanes"].items():
+        mesh = build_lane(torch, lane_protocol, torch.float64).mesh
+        for dtype, problems in out.items():
+            problems[lane] = Minimizer(mesh, device=DEVICE, dtype=dtype, quiet=True).problem()
+    return out
+
+
+def physical_edge_inputs(protocol: dict, problems: dict) -> dict:
+    """Per lane the members' inputs (:func:`tilt_member_inputs`) about the lane's compiled start."""
+    return {lane: tilt_member_inputs(protocol, {
+        f: getattr(p.state, f).detach().cpu().double().numpy() for f in TILT_FIELDS})
+        for lane, p in problems.items()}
+
+
+def physical_edge_items(torch, problems: dict, protocol: dict, inputs: dict,
+                        counters=None) -> dict:
+    """Every item of phase 52 on ``problems`` ({lane: problem}) with ``inputs`` ({lane: the
+    members' inputs}): under ``vmap`` over the members and member by member, as
+    :func:`tilt_items` takes them.
+
+    The scaffold lane's four tilt energies with their gradients; per lane
+    ``rim_slope_match_out``'s compact tilt rows and the two slots of its
+    compact shape rows (their values, :func:`pad_compact`), its tilt
+    enforcement's changes and, on the trace lane, its shape enforcement's
+    (the trace-shell projection) changes of the positions and outer tilts.
+    """
+    from membrane_solver_tpu_torch.constraints import get_constraint
+    from membrane_solver_tpu_torch.device.state import MeshState
+
+    rim = get_constraint(RIM)
+    host = lambda t: t.detach().cpu().double().numpy()  # noqa: E731
+    out = {"vmapped": {}, "single": {}, "launches": {}}
+    for lane, p in problems.items():
+        members = inputs[lane]
+        if lane in protocol["energies"]:
+            sub = {"energies": {"drives": protocol["energies"][lane]}}
+            got = tilt_items(torch, p, sub, "drives", members, counters)
+            for k in out:
+                out[k].update(got[k])
+        stacked = {f: torch.as_tensor(np.stack([m[f] for m in members]),
+                                      dtype=p.state.positions.dtype, device=DEVICE)
+                   for f in TILT_FIELDS}
+        states = MeshState(*(stacked[f] for f in TILT_FIELDS))
+        singles = [MeshState(*(stacked[f][m] for f in TILT_FIELDS)) for m in range(len(members))]
+
+        def compact(name, vals, single, n=p.n_vertices):
+            vals = host(vals)
+            return {name: pad_compact(vals[None], n)[0] if single else pad_compact(vals, n)}
+
+        def changes(*fields):
+            return lambda moved, st, single=False: {
+                f: host(getattr(moved, f) - getattr(st, f)) for f in fields}
+
+        key = f"constraint/{RIM}/{lane}"
+        with torch.no_grad():
+            for fn, post in (
+                    (rim.make_compact_tilt_rows(p.spec),
+                     lambda rows, _st, single=False: compact("tilt_rows", rows[0], single)),
+                    (rim.make_compact_constraint_rows(p.spec),
+                     lambda rows, _st, single=False: compact("shape_rows", rows[0][..., :2, :],
+                                                             single)),
+                    (rim.make_enforce_tilts(p.spec), changes("tilts_in", "tilts_out"))):
+                mapped_items(torch, out, key, fn, p, states, singles, post, counters)
+            enforce = rim.make_enforce(p.spec)
+            if enforce is not None:
+                mapped_items(torch, out, key + "/enforce", enforce, p, states, singles,
+                             changes("positions", "tilts_out"), counters)
+    return out
+
+
+def phase_physical_edge_drives(torch, tk, vs, counters, label: str, fixture: dict) -> dict:
+    """The physical-edge rim placement over a member axis on kozlov L3 (phase 52).
+
+    Both lanes (plain and scaffold-trace) from their compiled starts, four
+    members with seeded offsets (:func:`physical_edge_inputs`, held against
+    the fixture's inputs at 1e-12); every item of :func:`physical_edge_items`
+    at float64 against the JAX package's ``jax.vmap`` (rel 1e-10; arrays of
+    their largest entry), member m of the map equal in bits to member m's
+    single call, the same items at float32 against float64 within max(2e-3,
+    2 x the JAX package's own float32 deviation per item); no single-entry
+    launch and no twin call inside a map, no ``compile_state`` call, and the
+    ordered rows' levels built before the maps alone.
+    """
+    from membrane_solver_tpu_torch.device.state import COMPILES
+
+    proto = fixture["protocol"]
+    f32_ref = fixture["float32_reference"]["max_rel_dev_vs_float64"]
+    failed, per_item, seconds = [], {}, {}
+    t0 = time.perf_counter()
+    by_dtype = physical_edge_problems(torch, proto)
+    p64 = by_dtype[torch.float64]
+    n = p64["scaffold"].n_vertices
+    rows = sample_rows(proto, n)
+    inputs = physical_edge_inputs(proto, p64)
+    input_dev = max(tilt_item_deviation(fixture["items"][f"input/{lane}/{f}"],
+                                        np.stack([m[f] for m in members]), rows)
+                    for lane, members in inputs.items() for f in TILT_FIELDS)
+    if not input_dev <= 1e-12:
+        failed.append(f"the lanes' inputs lie {input_dev!r} off the fixture's")
+    seconds["setup"] = time.perf_counter() - t0
+
+    def kept_keys():
+        return sum(len(ordered_levels(q.topo)) for problems in by_dtype.values()
+                   for q in problems.values())
+
+    built_before = kept_keys()
+    reset_counts(counters)
+    compiles0 = COMPILES["compile_state"]
+    with counted_twins({"tri_kernels": tk, "vertex_sum": vs}) as twins, \
+            counted_level_builds() as builds:
+        t0 = time.perf_counter()
+        v64 = physical_edge_items(torch, p64, proto, inputs, counters)
+        seconds["f64"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        v32 = physical_edge_items(torch, by_dtype[torch.float32], proto, inputs)
+        seconds["f32"] = time.perf_counter() - t0
+    launches = read_counts(counters)
+    compiles = COMPILES["compile_state"] - compiles0
+    for item, got in v64["vmapped"].items():
+        dev = tilt_item_deviation(fixture["items"][item], got, rows)
+        exact = sum(1 for m, one in enumerate(v64["single"][item]) if np.array_equal(got[m], one))
+        dev32 = relative_error(v32["vmapped"][item], got)
+        bound32 = max(F32_RTOL, 2 * f32_ref[item])
+        per_item[item] = {"dev_f64": dev, "members_equal_bits": exact, "dev_f32": dev32,
+                          "bound_f32": bound32}
+        say(label + " item", item=item, dev_f64=repr(dev),
+            members_equal_bits=f"{exact}/{proto['members']}", dev_f32=repr(dev32),
+            bound_f32=repr(bound32))
+        if not dev <= DRIVES_F64_RTOL:
+            failed.append(f"{item} float64 {dev!r}")
+        if exact != proto["members"]:
+            failed.append(f"{item}: {proto['members'] - exact} members differ from their single "
+                          "calls")
+        if not dev32 <= bound32:
+            failed.append(f"{item} float32 {dev32!r} bound {bound32!r}")
+    missing = sorted(set(fixture["items"]) - set(v64["vmapped"]) - {
+        k for k in fixture["items"] if k.startswith("input/")})
+    if missing:
+        failed.append(f"items not evaluated: {missing}")
+    for key, rec in v64["launches"].items():
+        say(label + " launches", item=key, **{k: json.dumps(v) for k, v in rec.items()})
+        if rec["single_in_map"]:
+            failed.append(f"{key} launched single entries inside the map: {rec['single_in_map']}")
+    calls = {k: v for k, v in twins.items() if v}
+    if calls:
+        failed.append(f"twin calls {calls}")
+    if compiles:
+        failed.append(f"{compiles} compile_state calls inside the maps")
+    if builds["inside"] or builds["primed"] != kept_keys() - built_before:
+        failed.append(f"occurrence levels built {builds} for {kept_keys()} kept keys "
+                      f"({built_before} before the maps)")
+    say(label, members=proto["members"], vertices=fixture["n_vertices"],
+        triangles=fixture["n_triangles"], items=len(per_item),
+        items_all_bits_equal=sum(1 for r in per_item.values()
+                                 if r["members_equal_bits"] == proto["members"]),
+        input_dev=repr(input_dev),
+        ordered_levels=json.dumps({lane: ordered_levels(q.topo) for lane, q in p64.items()}),
+        level_builds=json.dumps(builds),
+        seconds_s=json.dumps({k: round(v, 3) for k, v in seconds.items()}),
+        launches=json.dumps(launches))
+    if failed:
+        raise AssertionError(f"{label}: " + "; ".join(failed))
+    return {"launches": launches, "items": per_item}
 
 
 def phase_multidisk(torch, counters, label: str) -> dict:
@@ -5103,6 +5397,9 @@ def main() -> int:
     interface_sweep = json.loads(INTERFACE_SWEEP_FIXTURE.read_text())
     free_disk_sweep = json.loads(FREE_DISK_SWEEP_FIXTURE.read_text())
     interface_drives = json.loads(INTERFACE_DRIVES_FIXTURE.read_text())
+    physical_edge_sweep = json.loads(PHYSICAL_EDGE_SWEEP_FIXTURE.read_text())
+    scaffold_sweep = json.loads(SCAFFOLD_SWEEP_FIXTURE.read_text())
+    physical_edge_drives = json.loads(PHYSICAL_EDGE_DRIVES_FIXTURE.read_text())
     seconds = {}
 
     def timed(phase, fn, *args, **kw):
@@ -5304,6 +5601,26 @@ def main() -> int:
                        "47 kozlov_L3_viz_face_values", runs["i64"]["mn"])
     new = ("42", "43", "44", "45", "46", "47")
     say("42-47", seconds=f"{sum(seconds[k] for k in new):.3f}",
+        phases=json.dumps({k: seconds[k] for k in new}))
+    # the physical-edge shells and the trace_z fallback in the sweep, from the
+    # states phases 26-29 left; the rim placement's items mapped over members
+    runs["pe64"] = timed("48", phase_lane_sweep, torch, tk, vs, counters,
+                         "48 kozlov_L3_physical_edge_sweep f64", physical_edge_sweep,
+                         torch.float64, runs["p64"]["snap"], mn=runs["p64"]["mn"])
+    runs["pe32"] = timed("49", phase_lane_sweep, torch, tk, vs, counters,
+                         "49 kozlov_L3_physical_edge_sweep f32", physical_edge_sweep,
+                         torch.float32, runs["p32"]["snap"], f64=runs["pe64"],
+                         mn=runs["p32"]["mn"])
+    runs["sc64"] = timed("50", phase_lane_sweep, torch, tk, vs, counters,
+                         "50 kozlov_L3_scaffold_sweep f64", scaffold_sweep, torch.float64,
+                         runs["q64"]["snap"], mn=runs["q64"]["mn"])
+    runs["sc32"] = timed("51", phase_lane_sweep, torch, tk, vs, counters,
+                         "51 kozlov_L3_scaffold_sweep f32", scaffold_sweep, torch.float32,
+                         runs["q32"]["snap"], f64=runs["sc64"], mn=runs["q32"]["mn"])
+    runs["pd"] = timed("52", phase_physical_edge_drives, torch, tk, vs, counters,
+                       "52 kozlov_L3_sweep_physical_edge_drives", physical_edge_drives)
+    new = ("48", "49", "50", "51", "52")
+    say("48-52", seconds=f"{sum(seconds[k] for k in new):.3f}",
         phases=json.dumps({k: seconds[k] for k in new}))
     # phases 8-10 have imported the CLI and the command layer by now
     if not {"membrane_solver_tpu_torch.cli", "membrane_solver_tpu_torch.commands"} <= set(sys.modules):

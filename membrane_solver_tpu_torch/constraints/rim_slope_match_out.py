@@ -62,7 +62,9 @@ staggered enforcement writes distinct rows per update, the trace-shell
 projection adds a shared row's values in the JAX package's order through
 ``state.ordered_index_add``), so an ``index_add`` adds at most one value
 into a row; the KKT projector sums the slot rows in a fixed order
-(``vertex_sum.row_sum``).
+(``vertex_sum.row_sum``).  The whole-array float sums (arc lengths, ring
+averages, the disk ring's mean) add through ``device/reduce.tree_sum``, so
+a parameter-sweep member gets its single call's bits.
 """
 
 from __future__ import annotations
@@ -73,6 +75,7 @@ import numpy as np
 import torch
 
 from membrane_solver_tpu_torch.device import geo as dgeo
+from membrane_solver_tpu_torch.device.reduce import tree_sum
 from membrane_solver_tpu_torch.device.state import (
     check_unique_rows,
     occurrence_levels,
@@ -334,7 +337,7 @@ def _ring_arc_params(pos, valid):
     """(normalized arc-length parameter per ring vertex, ring length)."""
     idx, n_live, nxt, _prv = _ring_neighbors(pos.shape[0], valid, pos.device)
     seg = torch.where(idx < n_live, torch.linalg.vector_norm(pos[nxt] - pos, dim=1), 0.0)
-    total = torch.sum(seg)
+    total = tree_sum(seg)
     s = torch.cat([seg.new_zeros((1,)), torch.cumsum(seg, dim=0)[:-1]])
     return s / _fmax_tiny(total), total
 
@@ -435,14 +438,25 @@ def _staggered_targets(topo, r_hat, vnormals, omap):
     return row0, row1, w0, w1, r_dir, ok, w0 * w0 + w1 * w1
 
 
+def ordered_rows(topo) -> dict:
+    """{key: rows} of this module's ``ordered_index_add`` calls and condition levels (the
+    parameter sweep builds their levels before it maps the members)."""
+    if f"{_KEY}/outer" not in topo.extras:
+        return {}
+    return {_KEY + "/outer": topo.extras[f"{_KEY}/outer"]}
+
+
 def _condition_levels(topo, rows):
     """The conditions in levels of distinct target rows, as index tensors (kept per topology).
 
     A condition's level is the number of earlier conditions on its row, so
     a row's conditions run in their order, one level after the other.
+    ``rows`` are the outer rows in condition order (the pairing without
+    interpolation), so the levels are those of ``state.ordered_index_add``'s
+    key for the outer rows, kept once for both (:func:`ordered_rows`).
     """
 
-    return topo.kept(("rim_slope_match_out", "levels"), lambda: occurrence_levels(rows))
+    return topo.kept(("ordered_index_add", _KEY + "/outer"), lambda: occurrence_levels(rows))
 
 
 def _staggered_enforce_fields(fields, fr, oks, targets, flags: Flags, topo):
@@ -453,7 +467,10 @@ def _staggered_enforce_fields(fields, fr, oks, targets, flags: Flags, topo):
     condition, weight 1, the rows fixed per topology) runs in levels of
     distinct rows (:func:`_condition_levels`), all fields together: one
     level when no row is shared.  The interpolated pairing, whose rows
-    follow the positions, runs the conditions one at a time.
+    follow the positions, runs the conditions one at a time.  No
+    physical-edge lane reaches that loop (its shells pair by azimuth,
+    ``interp_outer`` is False), so the parameter sweep's physical-edge and
+    scaffold lanes run the levels alone.
     """
     row0, row1, w0, w1, r_dir, denom = (fr[k] for k in ("row0", "row1", "w0", "w1", "r_dir",
                                                          "denom"))
@@ -501,8 +518,8 @@ def _disk_geometry(positions, topo, prefix=_KEY):
 def _ring_average_delta(ok, coeff, target, t_rad):
     """The scalar averaged residual sum coeff (target - t_rad) / sum coeff."""
     c = torch.where(ok, coeff, 0.0)
-    den = torch.sum(c)
-    num = torch.sum(c * (target - t_rad))
+    den = tree_sum(c)
+    num = tree_sum(c * (target - t_rad))
     return torch.where(den > 0.0, num / _fmax_tiny(den), 0.0)
 
 
@@ -547,8 +564,8 @@ def _theta(flags: Flags, tin, fr, params, phi):
     theta_vals = torch.sum(tin[fr["disk"]] * fr["disk_r_hat"], dim=1)
     if flags.local_disk:
         return theta_vals
-    wsum = torch.sum(torch.where(fr["dgood"], fr["dw"], 0.0))
-    mean = torch.sum(torch.where(fr["dgood"], fr["dw"] * theta_vals, 0.0)) / _fmax_tiny(wsum)
+    wsum = tree_sum(torch.where(fr["dgood"], fr["dw"], 0.0))
+    mean = tree_sum(torch.where(fr["dgood"], fr["dw"] * theta_vals, 0.0)) / _fmax_tiny(wsum)
     return mean.expand_as(phi)
 
 
@@ -708,7 +725,7 @@ def make_enforce(spec):
 
 def _mean_disk_field(disk, dgood, disk_r_hat, dw, n_rows):
     """(Nv, 3) arc-length-mean disk direction field shared by every in-row."""
-    wsum = torch.sum(torch.where(dgood, dw, 0.0))
+    wsum = tree_sum(torch.where(dgood, dw, 0.0))
     mean_dirs = (dw / _fmax_tiny(wsum))[:, None] * disk_r_hat
     return disk_r_hat.new_zeros((n_rows, 3)).index_add(
         0, disk, torch.where(dgood[:, None], mean_dirs, 0.0)

@@ -57,7 +57,7 @@ import torch
 from membrane_solver_tpu_torch.device import geo as dgeo
 from membrane_solver_tpu_torch.device.reduce import tree_sum
 from membrane_solver_tpu_torch.energy import param
-from membrane_solver_tpu_torch.kernels import tri_kernels
+from membrane_solver_tpu_torch.kernels import tri_kernels, vertex_sum
 
 USES_TILT_LEAFLETS = True
 
@@ -108,25 +108,33 @@ def _fields(positions, topo, params, kappa_key, c0_key, tri_present=None):
 def recovered_divergence(div_term, positions, topo):
     """The barycentric recovery of a triangle divergence: A/3-weighted vertex means, averaged back.
 
-    Linear in ``div_term``; its vertex sums go through ``geo.scatter_add_rows``.
+    Linear in ``div_term``; its vertex sums go through the vertex-sum kernel,
+    and the gather back to the corners sums its backward the same way
+    (``vertex_sum.corner_gather``).  The three corners of ``w div`` are one
+    row expanded, whose backward adds them in one reduction: autograd would
+    add three separate uses in another order under ``torch.func.vmap`` than
+    in a single call.
     """
     geo = dgeo.triangle_geometry(positions, topo.tri_rows, topo.tri_valid)
     w = torch.where(topo.tri_valid, geo.area / 3.0, 0.0)
     csr = topo.corner_csr()
     v_area = dgeo.scatter_add_rows(w, w, w, csr)
     wd = w * div_term
-    v_num = dgeo.scatter_add_rows(wd, wd, wd, csr)
+    v_num = vertex_sum.vertex_sum(wd[:, None].expand(-1, 3), csr)
     v_div = torch.where(v_area > 1e-20, v_num / torch.clamp(v_area, min=1e-20), 0.0)
-    return torch.mean(v_div[topo.tri_rows], dim=1)
+    corners = vertex_sum.corner_gather(v_div, csr)
+    return (corners[:, 0] + corners[:, 1] + corners[:, 2]) / 3.0
 
 
-def _reconstruct_trace_divergence(div_term, topo, tr, su, rl):
+def _reconstruct_trace_divergence(div_term, topo, tr, su, rl, total=tree_sum):
     """trace_reconstructed_v1: trace-touching triangles take the mean divergence of the source ones.
 
     The sources are the valid triangles that touch no scaffold row (trace,
     support or release), else the support-touching ones off the trace.
     Straight through: the value is the reconstructed one, the gradient that
-    of ``div_term``.
+    of ``div_term``.  The mean's sums add by ``total``: ``device/reduce.tree_sum``,
+    whose order a sweep member keeps under ``torch.func.vmap``, except in the
+    relax loop's frozen energy, which never runs in a sweep and keeps ``torch.sum``.
     """
     rows = topo.tri_rows
     valid = topo.tri_valid
@@ -136,8 +144,8 @@ def _reconstruct_trace_divergence(div_term, topo, tr, su, rl):
     src1 = ~(trace_touch | support_touch | release_touch) & valid
     src2 = support_touch & ~trace_touch
     source = torch.where(torch.any(src1), src1, src2)
-    n_src = torch.sum(source.to(div_term.dtype))
-    mean = torch.sum(torch.where(source, div_term, 0.0)) / torch.clamp(n_src, min=1.0)
+    n_src = total(source.to(div_term.dtype))
+    mean = total(torch.where(source, div_term, 0.0)) / torch.clamp(n_src, min=1.0)
     enabled = (torch.any(tr) & (torch.any(su) | torch.any(rl)) & torch.any(trace_touch)
                & (n_src > 0))
     rec = torch.where(enabled & trace_touch, mean, div_term)
@@ -504,7 +512,8 @@ def make_leaflet_bending_tilt_frozen(
         div = torch.where(topo.tri_valid, div, 0.0)
         div = div_sign * div
         if idiv_on:
-            div = _reconstruct_trace_divergence(div, topo, *scaffold_masks(topo, "out"))
+            div = _reconstruct_trace_divergence(div, topo, *scaffold_masks(topo, "out"),
+                                                total=torch.sum)
         if upd_mode == "outer_near_divergence_cap_v1":
             div = _apply_divergence_cap(div, fr["cap_rim"], fr["cap_near"])
         if recovered:

@@ -233,6 +233,50 @@ def vertex_sum(corner_values: torch.Tensor, csr: CornerCSR) -> torch.Tensor:
     return reference(corner_values, csr)
 
 
+class _MemberCornerGather(torch.autograd.Function):
+    """:class:`_CornerGather` over a leading member axis (its ``vmap`` rule)."""
+
+    @staticmethod
+    def forward(ctx, vertex_values, csr):
+        ctx.csr = csr
+        return vertex_values[:, csr.rows]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _MemberVertexSum.apply(grad, ctx.csr), None
+
+
+class _CornerGather(torch.autograd.Function):
+    @staticmethod
+    def forward(vertex_values, csr):
+        return vertex_values[csr.rows]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.csr = inputs[1]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return vertex_sum(grad, ctx.csr), None
+
+    @staticmethod
+    def vmap(info, in_dims, vertex_values, csr):
+        return _MemberCornerGather.apply(vertex_values.movedim(in_dims[0], 0), csr), 0
+
+
+def corner_gather(vertex_values: torch.Tensor, csr: CornerCSR) -> torch.Tensor:
+    """(N, *w) vertex rows gathered to the (T, 3, *w) triangle corners, differentiable.
+
+    The backward sums the corner upstream into the vertices through
+    :func:`vertex_sum` (an indexing backward would add a vertex's repeated
+    corners with atomics on the card, and in another order under
+    ``torch.func.vmap`` than in a single call).
+    """
+    if batched(vertex_values) or (torch.is_grad_enabled() and vertex_values.requires_grad):
+        return _CornerGather.apply(vertex_values, csr)
+    return vertex_values[csr.rows]
+
+
 def row_sum(values: torch.Tensor, csr: CornerCSR) -> torch.Tensor:
     """(K, *w) slot values summed into ``csr.n_rows - 1`` rows in a fixed order.
 

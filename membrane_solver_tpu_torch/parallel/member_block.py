@@ -10,8 +10,11 @@ tilt-constraint enforcement under ``enforce_in_line_search``, and, where an
 energy module uses the single tilt field, by the tangent re-projection of
 every tilt field on the trial surface.  Per iteration: energy and projected
 shape gradient, the stepper's direction, the Armijo line search (with its
-per-trial enforcement), the volume drift check and the zero-step
-bookkeeping.
+per-trial enforcement), on a ``trace_z`` lane the rejected-step fallback
+(a second search along -dE/dz of the trace rows, for the members whose
+first search failed and whose mean trace-z descent is finite and positive,
+as JAX's ``lax.cond`` under ``vmap`` selects it per member), the volume
+drift check and the zero-step bookkeeping.
 
 The device work runs once for all members.  The energy and its gradient
 are ``torch.func.vmap`` of the per-member energy (``in_dims`` 0 for the
@@ -54,6 +57,7 @@ import torch
 from torch.func import vmap
 
 from membrane_solver_tpu_torch.device import geo as dgeo
+from membrane_solver_tpu_torch.device.reduce import tree_sum
 from membrane_solver_tpu_torch.device.state import MeshState, ProblemSpec, occurrence_levels
 from membrane_solver_tpu_torch.runtime import jit_core
 from membrane_solver_tpu_torch.runtime import tilt_relax as _tr
@@ -74,7 +78,7 @@ from membrane_solver_tpu_torch.runtime.jit_core import (
 # the modules whose per-member code runs under ``vmap``: the kozlov lane's,
 # the shape family (with the reference's placeholders and the fixed-row
 # mask, which change nothing), the leaflet tilt-field family, then the
-# local-interface family and the rigid disk
+# local-interface family, the rigid disk and the physical-edge shells
 ENERGY_MODULES = frozenset({
     "surface", "tilt_in", "tilt_out", "bending_tilt_in", "bending_tilt_out",
     "tilt_thetaB_contact_in",
@@ -91,29 +95,18 @@ CONSTRAINT_MODULES = frozenset({
     "volume", "global_area", "body_area", "perimeter", "fixed_plane", "fix_facet_area",
     "expression", "edge", "fix_facet_angle", "fix_vertex_position", "dummy_module",
     "tilt_leaflet_match_rim", "tilt_vector_match_rim",
-    "curved_local_interface_hard", "curved_local_interface_match", "rigid_disk"})
-PHYSICAL_EDGE_ITEM = "ROADMAP A6: the physical-edge shells in the sweep"
-TRACE_Z_ITEM = "ROADMAP A6: the trace_z fallback in the sweep"
+    "curved_local_interface_hard", "curved_local_interface_match", "rigid_disk",
+    "local_interface_shells"})
 # the ROADMAP item that holds each module outside the batched set
-PENDING_CONSTRAINT = {"local_interface_shells": PHYSICAL_EDGE_ITEM}
+PENDING_CONSTRAINT: dict = {}
+# while a list: per block iteration of a ``trace_z`` lane, the (B,) host masks (live, fallback
+# viable, fallback search accepted)
+TRACE_Z_RECORD = None
 
 
 def check_batched_modules(spec: ProblemSpec) -> None:
     """Raise NotImplementedError naming the first module outside the batched set
-    and the ROADMAP item that holds it.
-
-    The physical-edge rim placement (its shells, matched in levels of
-    distinct rows) and the scaffold lanes' ``trace_z`` rejected-step
-    fallback (a second line search per member) are not batched either.
-    """
-    if spec.option("rim_slope_match_mode", "").lower() == "physical_edge_staggered_v1":
-        raise NotImplementedError(
-            "the parameter sweep does not batch rim_slope_match_mode "
-            f"'physical_edge_staggered_v1' yet ({PHYSICAL_EDGE_ITEM})")
-    if spec.option("shape_scaffold_rejected_step_fallback", "off").lower() == "trace_z":
-        raise NotImplementedError(
-            "the parameter sweep does not batch shape_scaffold_rejected_step_fallback "
-            f"'trace_z' yet ({TRACE_Z_ITEM})")
+    and the ROADMAP item that holds it."""
     for kind, names, batched, pending in (
             ("energy", jit_core.active_energy_modules(spec), ENERGY_MODULES, {}),
             ("constraint", spec.constraint_modules, CONSTRAINT_MODULES, PENDING_CONSTRAINT)):
@@ -244,15 +237,17 @@ class MemberLineSearch:
     energy: np.ndarray  # accepted energy (energy0 where it failed)
     state: MeshState  # accepted states (the baseline where it failed)
     trials: np.ndarray  # (B,) trial states scored per member
+    extra: np.ndarray | None = None  # the (B,) ``extra`` vector, read with the first host read
 
 
 def member_line_search(energies, state_of_trial, states: MeshState, grad, direction, step_size,
-                       energy0, movable, topo, live) -> MemberLineSearch:
+                       energy0, movable, topo, live, extra=None) -> MemberLineSearch:
     """``jit_core.armijo_line_search`` for the members in ``live`` (B,), the others untouched.
 
-    One host read of (min edge, max |d|, g.d) for all members, one per
-    scoring round of the trial energies, and one of the normal-rotation
-    checks in a round where some member steps beyond its safe limit.
+    One host read of (min edge, max |d|, g.d) for all members (and of the
+    (B,) tensor ``extra``, returned in the result), one per scoring round
+    of the trial energies, and one of the normal-rotation checks in a round
+    where some member steps beyond its safe limit.
     """
     np_dtype = jit_core._np_dtype(states.positions.dtype)
     positions = states.positions
@@ -261,8 +256,8 @@ def member_line_search(energies, state_of_trial, states: MeshState, grad, direct
     dir_norms = torch.linalg.vector_norm(direction, dim=2)
     max_dir = torch.max(torch.where(movable[None, :], dir_norms, 0.0), dim=1).values
     slope_t = torch.sum(grad * direction, dim=(1, 2))
-    min_edge, max_dir_norm, slope = (a.astype(np_dtype) for a in
-                                     _host(min_edge, max_dir, slope_t))
+    read = _host(min_edge, max_dir, slope_t, *(() if extra is None else (extra,)))
+    min_edge, max_dir_norm, slope = (a.astype(np_dtype) for a in read[:3])
     safe_limit = np.where(min_edge > 0, np_dtype(SAFE_STEP_FRACTION) * min_edge,
                           np_dtype(np.inf)).astype(np_dtype)
     energy0 = np.asarray(energy0, dtype=np_dtype)
@@ -304,7 +299,31 @@ def member_line_search(energies, state_of_trial, states: MeshState, grad, direct
         np.where(descent, np.maximum(alpha * np_dtype(LS_BETA), alpha0 * np_dtype(LS_BETA)),
                  alpha0)).astype(np_dtype)
     return MemberLineSearch(success=success, new_step=new_step, energy=acc_E, state=acc_state,
-                            trials=trials)
+                            trials=trials, extra=read[3] if extra is not None else None)
+
+
+def trace_z_direction(grad, trace_mask):
+    """(fallback direction (B, N, 3), mean trace-z component (B,)): the ``trace_z`` fallback's.
+
+    The direction moves only the trace rows, along -dE/dz; the mean sums
+    through ``tree_sum``, so a member's value does not depend on B.
+    """
+    zero = torch.zeros_like(grad[..., 0])
+    fb_z = torch.where(trace_mask[None, :], -grad[..., 2], 0.0)
+    n_trace = torch.clamp(tree_sum(trace_mask.to(grad.dtype)), min=1.0)
+    return torch.stack([zero, zero, fb_z], dim=2), tree_sum(fb_z, dim=1) / n_trace
+
+
+def take_fallback(first: MemberLineSearch, fb: MemberLineSearch, viable) -> MemberLineSearch:
+    """Per member: the fallback search's result where ``viable`` (B,), else the first's; the
+    trials of both searches added."""
+    pick = lambda a, b: np.where(viable, b, a)  # noqa: E731
+    return MemberLineSearch(
+        success=pick(first.success, fb.success), new_step=pick(first.new_step, fb.new_step),
+        energy=pick(first.energy, fb.energy),
+        state=_select(torch.as_tensor(viable, device=fb.state.positions.device), fb.state,
+                      first.state),
+        trials=first.trials + np.where(viable, fb.trials, 0))
 
 
 def make_member_energy_and_grad(spec: ProblemSpec) -> Callable:
@@ -365,6 +384,7 @@ def member_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
     tilt_enforcer = _tr.make_tilt_enforcer(spec)
     # the single block's ``project_tilts_after_step``, which holds without a relax
     project_tilts = _tr.spec_uses_vertex_tilts(spec)
+    trace_z = spec.option("shape_scaffold_rejected_step_fallback", "off").lower() == "trace_z"
     fixed_mode = options.step_size_mode == "fixed"
     kind = options.stepper
 
@@ -409,6 +429,8 @@ def member_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
         last_gnorm = np.zeros(B, dtype=np_dtype)
         trials = np.zeros(B, dtype=np.int64)
         accepted = np.zeros(B, dtype=np.int64)
+        fallbacks = np.zeros(B, dtype=np.int64)
+        trace_mask = topo.extras.get("core:scaffold_trace/mask") if trace_z else None
         vol_tol = params.get("volume_tolerance")
         active = iterations < n_steps
         while active.any():
@@ -427,8 +449,23 @@ def member_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
                 step_in = np.full(B, fixed_step, dtype=np_dtype) if fixed_mode else step_size
                 direction, ss_mid = member_direction(kind, grad, ss, topo.fixed_mask,
                                                      states.positions, live)
+                fb_dir = dz_mean = None
+                if trace_mask is not None:
+                    fb_dir, dz_mean = trace_z_direction(grad, trace_mask)
                 ls = member_line_search(energies, state_of_trial, states, grad, direction,
-                                        step_in, E, movable, topo, live)
+                                        step_in, E, movable, topo, live, extra=dz_mean)
+                if fb_dir is not None:
+                    # the rejected-step fallback where the mean trace-z descent is positive
+                    viable = live & ~ls.success & np.isfinite(ls.extra) & (ls.extra > 0)
+                    taken = np.zeros(B, dtype=bool)
+                    if viable.any():
+                        fallbacks += viable
+                        fb = member_line_search(energies, state_of_trial, states, grad, fb_dir,
+                                                step_in, E, movable, topo, viable)
+                        taken = viable & fb.success
+                        ls = take_fallback(ls, fb, viable)
+                    if TRACE_Z_RECORD is not None:
+                        TRACE_Z_RECORD.append((live.copy(), viable, taken))
                 new_states = _select(torch.as_tensor(live, device=dev), ls.state, states)
                 drifted = np.zeros(B, dtype=bool)
                 if strong_enforcer is not None:
@@ -465,7 +502,7 @@ def member_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
             grad_norm=last_gnorm, step_size=step_size, step_success=step_success,
             converged=converged, terminated_early=terminated, zero_step_counter=zero_steps,
             trials=trials, accepted_steps=accepted,
-            trace_z_fallbacks=np.zeros(B, dtype=np.int64),
+            trace_z_fallbacks=fallbacks,
         )
         return states, ss, stats
 

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from membrane_solver_tpu_torch.device import geo as dgeo
+from membrane_solver_tpu_torch.device.reduce import tree_sum
 from membrane_solver_tpu_torch.device.state import (
     MeshState,
     ProblemSpec,
@@ -991,8 +992,8 @@ def minimize_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
                 zero = torch.zeros_like(grad[:, 0])
                 fb_dir = torch.stack([zero, zero, torch.where(trace_mask, -grad[:, 2], 0.0)],
                                      dim=1)
-                n_trace = torch.clamp(torch.sum(trace_mask.to(grad.dtype)), min=1.0)
-                dz_mean = torch.sum(fb_dir[:, 2]) / n_trace
+                n_trace = torch.clamp(tree_sum(trace_mask.to(grad.dtype)), min=1.0)
+                dz_mean = tree_sum(fb_dir[:, 2]) / n_trace
             ls = armijo_line_search(
                 energy_of_state, ls_base, grad, direction, step_in, ls_E0, movable, topo,
                 state_of_trial, accept_rule, extra=dz_mean,

@@ -18,8 +18,8 @@ Not against JAX: member m of the three against a one-member run of member
 m at rel 1e-13, distinct parameters give distinct energies, the dropped
 override changes no bit, the local-interface modules and the rigid disk
 join the batched set (against JAX's ``jax.vmap``, as
-``tests/test_torch_sweep_interface.py`` holds them), ``device_mesh``
-raises, and
+``tests/test_torch_sweep_interface.py`` holds them), the ``trace_z``
+fallback builds a sweep, ``device_mesh`` raises, and
 the member-axis entry points under ``torch.func.vmap`` (the CPU twins of
 the member-axis kernels) equal the per-member calls bit for bit.  The
 member-axis CUDA kernels against the single-member kernels run on the
@@ -191,14 +191,18 @@ def test_two_runs_give_the_same_bits(problems):
 
 
 def test_trace_z_fallback_raises(problems):
+    """The ``trace_z`` fallback no longer raises: its spec builds a sweep (its members' second
+    line search, ``tests/test_torch_sweep_scaffold.py``); placing that sweep on several cards
+    still raises, naming ROADMAP A6's multi-card item."""
     from membrane_solver_tpu_torch.parallel.sweep import make_sweep_minimize
     from membrane_solver_tpu_torch.runtime.jit_core import MinimizeOptions
 
     spec = problems[1].spec
     trace_z = dataclasses.replace(spec, static_options=spec.static_options + (
         ("shape_scaffold_rejected_step_fallback", "trace_z"),))
-    with pytest.raises(NotImplementedError, match="trace_z"):
-        make_sweep_minimize(trace_z, MinimizeOptions())
+    assert callable(make_sweep_minimize(trace_z, MinimizeOptions()))
+    with pytest.raises(NotImplementedError, match="ROADMAP A6: multi-card sweep placement"):
+        make_sweep_minimize(trace_z, MinimizeOptions(), device_mesh=object())
 
 
 @pytest.mark.parametrize("kind,name", [

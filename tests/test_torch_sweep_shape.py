@@ -409,7 +409,9 @@ def test_module_maps_over_members_bit_for_bit(port_problems, kind, name):
 
 
 def test_the_batched_set_holds_the_shape_family(port_problems):
-    """Every listed module is admitted; the physical-edge placement still raises."""
+    """Every listed module is admitted, and so is the physical-edge placement (its sweep:
+    ``tests/test_torch_sweep_physical_edge.py``); a module outside the batched set still
+    raises, naming ROADMAP A6."""
     from membrane_solver_tpu_torch.parallel import member_block
 
     spec = port_problems("flat").spec
@@ -420,8 +422,12 @@ def test_the_batched_set_holds_the_shape_family(port_problems):
         constraint_modules=spec.constraint_modules + constraints))
     physical = dataclasses.replace(spec, static_options=spec.static_options + (
         ("rim_slope_match_mode", "physical_edge_staggered_v1"),))
-    with pytest.raises(NotImplementedError, match="ROADMAP A6: the physical-edge shells"):
-        member_block.check_batched_modules(physical)
+    member_block.check_batched_modules(physical)
+    outside = dataclasses.replace(spec, constraint_modules=spec.constraint_modules
+                                  + ("no_such_constraint",))
+    with pytest.raises(NotImplementedError,
+                       match="constraint module 'no_such_constraint'.*ROADMAP A6"):
+        member_block.check_batched_modules(outside)
 
 
 TILT_FIELD_FAMILY = {
@@ -432,10 +438,6 @@ TILT_FIELD_FAMILY = {
                "bending_tilt", "mean_curvature_tilt", "rim_slope_match_out"),
     "constraint": ("tilt_leaflet_match_rim", "tilt_vector_match_rim"),
 }
-# the modules still outside the batched set, each with its ROADMAP A6 item
-STILL_PENDING = [
-    ("constraint", "local_interface_shells", "the physical-edge shells in the sweep"),
-]
 # the modules that left the pending set (tests/test_torch_sweep_interface.py
 # and tests/test_torch_sweep_rigid_disk.py hold them against JAX's sweep)
 JOINED = {"energy": ("curved_local_interface_law", "curved_local_interface_penalty"),
@@ -445,26 +447,25 @@ JOINED = {"energy": ("curved_local_interface_law", "curved_local_interface_penal
 
 def test_the_batched_set_holds_the_tilt_field_family(port_problems):
     """The family's sixteen energies and two constraints are admitted, and so are the
-    local-interface family and rigid_disk; the physical-edge shells and trace_z still raise
-    with their items."""
+    local-interface family, rigid_disk, the physical-edge shells
+    (``local_interface_shells`` and ``rim_slope_match_mode`` ``physical_edge_staggered_v1``)
+    and the ``trace_z`` fallback; no module is pending."""
     from membrane_solver_tpu_torch.parallel import member_block
 
-    for gone in ("TILT_FIELD_ITEM", "INTERFACE_ITEM", "RIGID_DISK_ITEM"):
+    for gone in ("TILT_FIELD_ITEM", "INTERFACE_ITEM", "RIGID_DISK_ITEM", "PHYSICAL_EDGE_ITEM",
+                 "TRACE_Z_ITEM"):
         assert not hasattr(member_block, gone)
+    assert not member_block.PENDING_CONSTRAINT
     spec = port_problems("flat").spec
     member_block.check_batched_modules(dataclasses.replace(
         spec, energy_modules=spec.energy_modules + TILT_FIELD_FAMILY["energy"] + JOINED["energy"],
         constraint_modules=spec.constraint_modules + TILT_FIELD_FAMILY["constraint"]
         + JOINED["constraint"]))
-    for kind, name, item in STILL_PENDING:
-        field = "energy_modules" if kind == "energy" else "constraint_modules"
-        wider = dataclasses.replace(spec, **{field: getattr(spec, field) + (name,)})
-        with pytest.raises(NotImplementedError, match=f"{kind} module '{name}'.*ROADMAP A6: {item}"):
-            member_block.check_batched_modules(wider)
-    trace_z = dataclasses.replace(spec, static_options=spec.static_options + (
-        ("shape_scaffold_rejected_step_fallback", "trace_z"),))
-    with pytest.raises(NotImplementedError, match="ROADMAP A6: the trace_z fallback"):
-        member_block.check_batched_modules(trace_z)
+    shells = dataclasses.replace(spec, constraint_modules=spec.constraint_modules
+                                 + ("local_interface_shells",), static_options=spec.static_options
+                                 + (("rim_slope_match_mode", "physical_edge_staggered_v1"),
+                                    ("shape_scaffold_rejected_step_fallback", "trace_z")))
+    member_block.check_batched_modules(shells)
 
 
 # ----------------------------------------------------------------------

@@ -1058,10 +1058,12 @@ def run_kozlov_sweep_tilt() -> dict:
                          kozlov_sweep_tilt_protocol(), sweep_tilt_arrays)
 
 
-def packed_arrays(name: str, protocol: dict, arrays_run) -> dict:
+def packed_arrays(name: str, protocol: dict, arrays_run, shared_inputs: bool = False) -> dict:
     """``arrays_run()`` at float64 here (each array packed by ``chip_smoke.pack_rows``), and at
     float32 in a child beside it (``FLOAT32_RUNS[name]``, its arrays through an ``.npz``);
-    ``float32_reference`` holds each item's float32 deviation."""
+    ``float32_reference`` holds each item's float32 deviation.  With ``shared_inputs`` the
+    child starts after the float64 run and takes its ``input/...`` arrays (through the
+    ``.npz`` named by ``SWEEP_INPUTS``), so both evaluate the same members."""
     import tempfile
 
     import numpy as np
@@ -1071,11 +1073,20 @@ def packed_arrays(name: str, protocol: dict, arrays_run) -> dict:
 
     with tempfile.TemporaryDirectory() as tmp:
         npz = Path(tmp) / "float32.npz"
-        child = subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), "--float32", name],
-            env={**os.environ, "MEMBRANE_SOLVER_X64": "0", "SWEEP_TILT_ARRAYS": str(npz)},
-            stdout=subprocess.PIPE, text=True)
+        env = {**os.environ, "MEMBRANE_SOLVER_X64": "0", "SWEEP_TILT_ARRAYS": str(npz)}
+
+        def start():
+            return subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--float32", name],
+                env=env, stdout=subprocess.PIPE, text=True)
+
+        child = None if shared_inputs else start()
         rec64 = arrays_run()
+        if shared_inputs:
+            env["SWEEP_INPUTS"] = str(Path(tmp) / "inputs.npz")
+            np.savez(env["SWEEP_INPUTS"], **{k: v for k, v in rec64["arrays"].items()
+                                             if k.startswith("input/")})
+            child = start()
         f32_single = float32_result(child)["single"]
         with np.load(npz) as data:
             a32 = {k: data[k] for k in data.files}
@@ -1144,6 +1155,82 @@ def kozlov_free_disk_sweep_protocol() -> dict:
             "uneven_disk": {"preset": "disk", "seed": 17, "xy_scale": 0.005, "z_scale": 0.01}}
 
 
+def kozlov_physical_edge_sweep_protocol() -> dict:
+    # the lane's own minimize enforces in every line-search trial (its
+    # constraints are enforceable): so does its sweep, whose trials then run
+    # the physical-edge enforcement
+    return {**lane_sweep_protocol(kozlov_physical_edge_protocol(), LANE_SWEEP_SCAN),
+            "options": {"enforce_in_line_search": True}}
+
+
+def kozlov_scaffold_sweep_protocol() -> dict:
+    # at the lane's own step size: at the sweep's 1e-3 every member's first
+    # line search accepts at L3 and the trace_z fallback never runs (in the
+    # JAX package's sweep too); at 0.005 most member-steps reject first
+    return {**lane_sweep_protocol(kozlov_scaffold_protocol(), LANE_SWEEP_SCAN),
+            "options": {"enforce_in_line_search": True}, "step_size": KOZLOV_STEP_SIZE}
+
+
+def fallback_recorder() -> dict:
+    """Record, from here on, both line searches of each iteration of a vmapped sweep, per member.
+
+    Wraps ``jit_core.armijo_line_search`` (the same arithmetic, plus a host
+    callback) before the sweep's block is traced.  Under ``vmap`` the
+    ``lax.cond`` that guards the ``trace_z`` fallback becomes a select, so
+    every iteration runs both searches, in trace order: the first along the
+    stepper's direction, the second along ``fb_dir``.  The callback runs
+    once per member, in an order of XLA's choosing.  ``first`` gets each
+    first search's success, ``fallback`` each second search's success and
+    the sum of its direction's z components (the sign of JAX's ``dz_mean``,
+    whose ``n_trace`` is positive); both also get the member's key, the sum
+    of |positions| over the fixed rows, which the sweep's dilation scales by
+    1 + dilation m and no step moves (:func:`fallback_flags` orders by it).
+    """
+    import jax
+    import jax.numpy as jnp
+
+    _jax()
+    from membrane_solver_tpu.runtime import jit_core
+
+    rec = {"first": [], "fallback": []}
+    armijo = jit_core.armijo_line_search
+    sites = []
+
+    def line_search(*args, **kw):
+        ls = armijo(*args, **kw)
+        which = ("first", "fallback")[len(sites) % 2]
+        sites.append(which)
+        key = jnp.sum(jnp.where(args[6][:, None], 0.0, jnp.abs(args[1].positions)))
+        jax.debug.callback(
+            lambda ok, dz, key, which=which: rec[which].append((bool(ok), float(dz), float(key))),
+            ls.success, jnp.sum(args[3][:, 2]), key)
+        return ls
+
+    jit_core.armijo_line_search = line_search
+    return rec
+
+
+def fallback_flags(rec: dict, members: int, iterations) -> tuple[list, list]:
+    """Per member and iteration, from a :func:`fallback_recorder`: (JAX's fallback viable: the
+    first search failed and the mean trace-z descent is finite and positive, the fallback's
+    search accepted where viable); iterations past a member's own count left out."""
+    import numpy as np
+
+    def per_member(calls):
+        """(members, iterations, (ok, dz, key)): each iteration's calls ordered by the member key."""
+        groups = np.array(calls).reshape(-1, members, 3)
+        order = np.argsort(groups[:, :, 2], axis=1, kind="stable")
+        return np.take_along_axis(groups, order[:, :, None], axis=1).transpose(1, 0, 2)
+
+    first = per_member(rec["first"])[:, :, 0] != 0.0
+    fallback = per_member(rec["fallback"])
+    fb, dz = fallback[:, :, 0] != 0.0, fallback[:, :, 1]
+    viable = ~first & np.isfinite(dz) & (dz > 0.0)
+    accepted = viable & fb
+    return ([v[:n].tolist() for v, n in zip(viable, iterations)],
+            [a[:n].tolist() for a, n in zip(accepted, iterations)])
+
+
 def lane_sweep_run(protocol: dict) -> dict:
     """A lane's protocol steps, then the sweep protocol on the state they leave, at the
     precision this process runs (``sweep_fixture_run``).
@@ -1151,7 +1238,10 @@ def lane_sweep_run(protocol: dict) -> dict:
     Also per member: each shape KKT solve's multiplier-finite flag and
     max|lam| over the sweep's iterations (JAX's vmapped block calls the
     recorder once per member and solve), and the breakdown of the member's
-    final state (``final_breakdowns``).
+    final state (``final_breakdowns``).  On a lane with the ``trace_z``
+    fallback, per member and iteration whether JAX's fallback was viable and
+    whether its search accepted (``trace_z_viable``, ``trace_z_accepted``,
+    :func:`fallback_flags`).
     """
     import jax
     import numpy as np
@@ -1160,7 +1250,7 @@ def lane_sweep_run(protocol: dict) -> dict:
     from membrane_solver_tpu.runtime import jit_core
 
     lane = protocol["kozlov"]
-    mn = kozlov_minimizer(lane["global_parameters"], edits=lane)
+    mn = kozlov_minimizer(lane["global_parameters"], edits=lane, refines=lane["refines"])
     for _ in range(lane["steps"]):
         mn.minimize(1)
     jax.effects_barrier()
@@ -1171,8 +1261,14 @@ def lane_sweep_run(protocol: dict) -> dict:
     B = protocol["members"]
     first = len(solves)
     keep = {}
+    trace_z = (lane["global_parameters"].get("shape_scaffold_rejected_step_fallback")
+               == "trace_z")
+    searches = fallback_recorder() if trace_z else None
     rec = sweep_fixture_run(protocol, problem, len(mn.mesh.vertices), keep)
     jax.effects_barrier()
+    if searches is not None:
+        rec["trace_z_viable"], rec["trace_z_accepted"] = fallback_flags(
+            searches, B, rec["iterations"])
     # the vmapped and the per-member evaluations of vmapped_vs_single_grad come first
     calls = solves[first + 2 * B:] if len(solves) > first else []
     rec["multipliers_finite"] = np.array([f for f, _m in calls], dtype=bool).reshape(
@@ -1198,7 +1294,8 @@ def run_lane_sweep(name: str) -> dict:
     rec["float32_reference"] = {
         "package": "membrane_solver_tpu", "platform": "cpu", "dtype": "float32",
         **{k: f32[k] for k in ("energy", "accepted_energy", "step_success", "iterations",
-                               "multipliers_finite", "vmapped_vs_single_grad")},
+                               "multipliers_finite", "vmapped_vs_single_grad",
+                               "trace_z_viable", "trace_z_accepted") if k in f32},
         "max_rel_dev_vs_float64": max(devs)}
     return rec
 
@@ -1206,6 +1303,8 @@ def run_lane_sweep(name: str) -> dict:
 LANE_SWEEP_PROTOCOLS = {
     "kozlov_L3_interface_sweep_f64_jax.json": kozlov_interface_sweep_protocol,
     "kozlov_L3_free_disk_sweep_f64_jax.json": kozlov_free_disk_sweep_protocol,
+    "kozlov_L3_physical_edge_sweep_f64_jax.json": kozlov_physical_edge_sweep_protocol,
+    "kozlov_L3_scaffold_sweep_f64_jax.json": kozlov_scaffold_sweep_protocol,
 }
 
 
@@ -1349,6 +1448,165 @@ def run_kozlov_sweep_interface() -> dict:
     """The float64 record here, the float32 one in a child beside it (``packed_arrays``)."""
     return packed_arrays("kozlov_L3_sweep_interface_drives_f64_jax.json",
                          kozlov_sweep_interface_drives_protocol(), sweep_interface_arrays)
+
+
+# the physical-edge rim placement over a member axis on its two lanes (the
+# plain, disk-targeted one and the scaffold-trace one), each from its own
+# compiled start, four members with seeded offsets
+# (chip_smoke.tilt_member_inputs): the scaffold lane's four tilt energies with
+# their gradients, and per lane rim_slope_match_out's compact tilt and shape
+# rows, its tilt enforcement and, on the trace lane, its shape enforcement
+# (the trace-shell projection), under jax.vmap and per member
+def kozlov_sweep_physical_edge_drives_protocol() -> dict:
+    return {
+        "lanes": {"physical_edge": kozlov_physical_edge_protocol(),
+                  "scaffold": kozlov_scaffold_protocol()},
+        "energies": {"scaffold": ["tilt_in", "tilt_out", "bending_tilt_in", "bending_tilt_out"]},
+        "members": SWEEP_TILT_MEMBERS,
+        "member_seed": 47,
+        "z_scale": 0.02,
+        "tilt_scale": 0.1,
+        "sample_rows": 128,
+        "sample_seed": 0,
+        "dtype": "float64",
+        "package": "membrane_solver_tpu",
+        "platform": "cpu",
+    }
+
+
+def sweep_physical_edge_arrays(refines: int = KOZLOV_REFINES, lanes=None,
+                               inputs: dict | None = None) -> dict:
+    """Every item of the physical-edge drives protocol at the precision this process runs, as
+    dense float64 arrays (``chip_smoke.physical_edge_items``' names), with each item's largest
+    deviation of the vmapped result from the per-member calls (``single``).  The members'
+    inputs are items too (``input/LANE/FIELD``): each lane's compiled start plus the seeded
+    offsets, or the given ``inputs`` (those arrays, from the float64 run).  ``lanes``: the
+    lanes to record (default all)."""
+    import dataclasses
+
+    import jax
+    import numpy as np
+
+    protocol = kozlov_sweep_physical_edge_drives_protocol()
+    _jax()
+    from chip_smoke import TILT_FIELDS, pad_compact, relative_error, tilt_member_inputs
+    from membrane_solver_tpu.constraints import get_constraint
+    from membrane_solver_tpu.device import geo as dgeo
+    from membrane_solver_tpu.energy import get_module
+
+    rim = get_constraint("rim_slope_match_out")
+    B = protocol["members"]
+    arrays, single = {}, {}
+    for lane, lane_protocol in protocol["lanes"].items():
+        if lanes is not None and lane not in lanes:
+            continue
+        mn = kozlov_minimizer(lane_protocol["global_parameters"], edits=lane_protocol,
+                              refines=refines)
+        p = mn.problem()
+        nv = p.n_vertices
+        dtype = p.state.positions.dtype
+        base = {f: np.asarray(getattr(p.state, f), dtype=np.float64)[:nv] for f in TILT_FIELDS}
+        members = tilt_member_inputs(protocol, base)
+        if inputs is not None:
+            members = [{f: inputs[f"input/{lane}/{f}"][m] for f in TILT_FIELDS}
+                       for m in range(B)]
+
+        def padded(f, m, p=p, members=members):
+            full = np.array(getattr(p.state, f), dtype=np.float64)
+            full[:nv] = members[m][f]
+            return full.astype(dtype)
+
+        stacked = {f: jax.numpy.asarray(np.stack([padded(f, m) for m in range(B)]))
+                   for f in TILT_FIELDS}
+        live = lambda a, nv=nv: np.asarray(a, dtype=np.float64)[..., :nv, :]  # noqa: E731
+        for f in TILT_FIELDS:
+            arrays[f"input/{lane}/{f}"] = np.stack([members[m][f] for m in range(B)])
+        for name in protocol["energies"].get(lane, ()):
+            module = get_module(name)
+            maker = getattr(module, "make_energy", None)
+            fn = maker(p.spec) if maker is not None else module.energy
+
+            def f(*fields, fn=fn, p=p):
+                st = dataclasses.replace(p.state, **dict(zip(TILT_FIELDS, fields)))
+                geo = dgeo.triangle_geometry(st.positions, p.topo.tri_rows, p.topo.tri_valid)
+                return fn(geo, st, p.topo, p.params)
+
+            vg = jax.value_and_grad(f, argnums=(0, 1, 2, 3))
+            energy, grads = jax.vmap(vg)(*(stacked[k] for k in TILT_FIELDS))
+            arrays[f"energy/{name}"] = np.asarray(energy, dtype=np.float64)
+            for k, g in zip(TILT_FIELDS, grads):
+                arrays[f"energy/{name}/{k}"] = live(g)
+            devs = {}
+            for m in range(B):
+                e1, g1 = vg(*(stacked[k][m] for k in TILT_FIELDS))
+                devs.setdefault("", []).append(relative_error(float(energy[m]), float(e1)))
+                for k, g_b, g_1 in zip(TILT_FIELDS, grads, g1):
+                    devs.setdefault("/" + k, []).append(relative_error(live(g_b[m]), live(g_1)))
+            for k, v in devs.items():
+                single[f"energy/{name}{k}"] = max(v)
+
+        def mapped(key, fn, post, p=p, stacked=stacked):
+            """``fn`` under jax.vmap over the members and per member: arrays and devs."""
+            states = dataclasses.replace(p.state, **stacked)
+            got = post(jax.vmap(lambda st: fn(st, p.topo, p.params))(states), states)
+            for item, arr in got.items():
+                arrays[f"{key}/{item}"] = arr
+            devs = {item: [] for item in got}
+            for m in range(B):
+                st = dataclasses.replace(p.state, **{k: stacked[k][m] for k in TILT_FIELDS})
+                one = post(jax.tree_util.tree_map(lambda a: a[None], fn(st, p.topo, p.params)),
+                           jax.tree_util.tree_map(lambda a: a[None], st))
+                for item, arr in one.items():
+                    devs[item].append(relative_error(got[item][m], arr[0]))
+            for item, v in devs.items():
+                single[f"{key}/{item}"] = max(v)
+
+        def changes(*fields, live=live):
+            return lambda out, st: {k: live(getattr(out, k)) - live(getattr(st, k))
+                                    for k in fields}
+
+        # the compact rows of the live conditions (the JAX package pads the rings): the out
+        # rows, then the in rows; the shape rows' two slots (the 1:1 pairing's third carries
+        # zero, and the port leaves it out)
+        k = int(np.sum(np.asarray(p.topo.extras["constraint:rim_slope_match_out/valid"])))
+
+        def tilt_rows(out, _st, nv=nv, k=k):
+            vals = np.asarray(out[0])
+            vals = vals.reshape(vals.shape[0], 2, -1, *vals.shape[2:])[:, :, :k]
+            return {"tilt_rows": pad_compact(vals, nv)}
+
+        key = f"constraint/rim_slope_match_out/{lane}"
+        mapped(key, rim.make_compact_tilt_rows(p.spec), tilt_rows)
+        mapped(key, rim.make_compact_constraint_rows(p.spec),
+               lambda out, _st, nv=nv, k=k: {
+                   "shape_rows": pad_compact(np.asarray(out[0])[:, :k, :2], nv)})
+        mapped(key, rim.make_enforce_tilts(p.spec), changes("tilts_in", "tilts_out"))
+        enforce = rim.make_enforce(p.spec)
+        if enforce is not None:
+            mapped(key + "/enforce", enforce, changes("positions", "tilts_out"))
+        arrays["n_vertices"] = np.asarray(nv)
+        arrays["n_triangles"] = np.asarray(p.n_tris)
+    return {"arrays": arrays, "single": single}
+
+
+def sweep_physical_edge_float32() -> dict:
+    """The float32 child's run: its arrays to the ``.npz`` named by ``SWEEP_TILT_ARRAYS``."""
+    import numpy as np
+
+    with np.load(os.environ["SWEEP_INPUTS"]) as data:
+        inputs = {k: data[k] for k in data.files}
+    out = sweep_physical_edge_arrays(inputs=inputs)
+    np.savez(os.environ["SWEEP_TILT_ARRAYS"], **out["arrays"])
+    return {"single": out["single"]}
+
+
+def run_kozlov_sweep_physical_edge() -> dict:
+    """The float64 record here, then the float32 one in a child on the same members' inputs
+    (``packed_arrays``: the float32 child's own compiled start differs, its mesh enforced at
+    float32 after each refinement)."""
+    return packed_arrays("kozlov_L3_sweep_physical_edge_drives_f64_jax.json",
+                         kozlov_sweep_physical_edge_drives_protocol(), sweep_physical_edge_arrays,
+                         shared_inputs=True)
 
 
 # the step-by-step kozlov lanes with their accept flags
@@ -2050,6 +2308,7 @@ FLOAT32_RUNS = {
     **{name: (lambda name=name: lane_sweep_run(LANE_SWEEP_PROTOCOLS[name]()))
        for name in LANE_SWEEP_PROTOCOLS},
     "kozlov_L3_sweep_interface_drives_f64_jax.json": sweep_interface_float32,
+    "kozlov_L3_sweep_physical_edge_drives_f64_jax.json": sweep_physical_edge_float32,
 }
 
 
@@ -2188,6 +2447,7 @@ FIXTURES = {
     "kozlov_L3_sweep_tilt_drives_f64_jax.json": run_kozlov_sweep_tilt,
     **{name: (lambda name=name: run_lane_sweep(name)) for name in LANE_SWEEP_PROTOCOLS},
     "kozlov_L3_sweep_interface_drives_f64_jax.json": run_kozlov_sweep_interface,
+    "kozlov_L3_sweep_physical_edge_drives_f64_jax.json": run_kozlov_sweep_physical_edge,
 }
 
 
