@@ -1,11 +1,11 @@
-// Deterministic sum of per-corner rows into per-vertex rows, one thread per vertex.
+// Deterministic sum of per-corner rows into per-vertex rows: a thread per row, a chunk's loads in flight.
 //
 // Shared by frozen_tilt.cu, tri_kernels.cu and vertex_sum.cu.  It takes the
 // place of the index_add scatter that followed each per-triangle kernel (the
 // JAX package's segment sums in device/geo.py, scatter_add_rows): where
 // index_add adds with float atomics in an order that changes from run to
-// run, each thread here walks its vertex's corner slots in a fixed order, so
-// the sums are the same bits on every run.
+// run, each vertex row here is ((0 + c_0) + c_1) + ... over its corner slots
+// in a fixed order, so the sums are the same bits on every run.
 //
 // The vertex-to-corner map is a CSR built once per topology
 // (device/state.corner_csr): slots[offsets[v] .. offsets[v+1]) hold
@@ -17,10 +17,36 @@
 // row by a per-triangle weight, zero where a per-triangle mask is false, as
 // it adds it: one launch where a scale pass and a sum would take two.
 //
-// What bounds it on an H100: bytes.  A thread reads its slot list (4 B per
-// corner) and W values per corner from rows that lie all over the source, so
-// the reads are gathers; at the main path's sizes the whole source (at most
-// a few MB) sits in the 50 MB L2 after the per-triangle pass that wrote it.
+// Layout: one thread per vertex row, kRowsPerBlock rows per block; the row's
+// corners go in chunks of kChunk.  A chunk's loads are issued before any is
+// used: the row's offsets pair, then every slot of the chunk (contiguous),
+// then every corner's Wa (+ Wb) values and, weighted, its triangle's weight
+// and mask (mul_rn(w, x) formed as the load lands).  So a chunk costs three
+// dependent round trips (offsets, slots, values) where walking the slots one
+// by one cost two per corner.  The adds then take the chunk's corners in
+// slot order into a running sum that starts at +0 and goes on over the
+// row's chunks: the same chain of adds on the same values as walking the
+// slots, never a tree, so the bits are those of the twin
+// (kernels/vertex_sum.reference).
+//
+// The sizes, kChunk = 8 and kRowsPerBlock = 32, were the fastest at kozlov
+// L3 on an H100 80GB HBM3 at 700 W, against 4 and 16 corners per chunk and
+// 64- and 128-row blocks, and within 3% of the fastest over 8 members
+// (64-row blocks); this layout beat groups of 4, 8, 16 and 32 lanes per
+// row at both (one corner per lane, the sum passed by warp shuffles: their
+// shuffles cost instructions per row that a launch of many rows, the
+// member axis, pays for; PERF.md §6).  A kozlov row has 3-6 corners (16
+// at one vertex), so one chunk
+// covers it, and 32-row blocks put 339 blocks on the 132 SMs at L3 (one
+// thread per row in 256-thread blocks gave 43).  A long row of a skewed
+// slot CSR (state.slot_csr: a group sum, the spare row) goes in chunks of 8.
+//
+// What bounds it on an H100: bytes, then latency.  At the kozlov L3 lane
+// (N = 10,817, T = 21,504, width 3, float32) the function moves 1.21 MB
+// (corner rows, the CSR, vertex rows), 0.36 us at 3.35 TB/s; the corner
+// rows are gathers from a source (at most a few MB) that sits in the 50 MB
+// L2 after the per-triangle pass that wrote it, so the time is the chain
+// of round trips and the blocks in flight.
 
 #pragma once
 
@@ -30,7 +56,9 @@
 
 namespace vertex_sum {
 
-constexpr int kThreads = 256;
+// Corners per chunk (kernels/vertex_sum.CHUNK) and rows per block (above).
+constexpr int kChunk = 8;
+constexpr int kRowsPerBlock = 32;
 
 // A product that is never contracted into a multiply-add with the sum after
 // it, whatever -fmad says, so the weighted sum rounds as its twin does.
@@ -42,13 +70,14 @@ __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(
 // output at m * n rows; the CSR and the mask are shared.  With one member
 // (gridDim.y = 1) every offset is zero.
 template <typename T, int Wa, int Wb, bool kWeighted>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kRowsPerBlock)
     vertex_sum_kernel(const int32_t* __restrict__ offsets, const int32_t* __restrict__ slots,
                       const T* __restrict__ src_a, T* __restrict__ out_a,
                       const T* __restrict__ src_b, T* __restrict__ out_b,
                       const T* __restrict__ weight, const bool* __restrict__ mask, int n,
                       int64_t src_rows) {
-  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  constexpr int kB = Wb > 0 ? Wb : 1;
+  const int v = blockIdx.x * kRowsPerBlock + threadIdx.x;
   if (v >= n) return;
   const int64_t member = blockIdx.y;
   src_a += member * src_rows * Wa;
@@ -61,25 +90,49 @@ __global__ void __launch_bounds__(kThreads)
   const int lo = offsets[v];
   const int hi = offsets[v + 1];
   T a[Wa];
-  T b[Wb > 0 ? Wb : 1];
+  T b[kB];
 #pragma unroll
   for (int c = 0; c < Wa; ++c) a[c] = T(0);
 #pragma unroll
-  for (int c = 0; c < (Wb > 0 ? Wb : 1); ++c) b[c] = T(0);
-  for (int s = lo; s < hi; ++s) {
-    const int64_t slot = slots[s];
-    if constexpr (kWeighted) {
-      const int64_t tri = slot / 3;
-      const T w = mask[tri] ? weight[tri] : T(0);
+  for (int c = 0; c < kB; ++c) b[c] = T(0);
+  for (int first = lo; first < hi; first += kChunk) {
+    int64_t slot[kChunk];
 #pragma unroll
-      for (int c = 0; c < Wa; ++c) a[c] += mul_rn(w, src_a[slot * Wa + c]);
-    } else {
-#pragma unroll
-      for (int c = 0; c < Wa; ++c) a[c] += src_a[slot * Wa + c];
+    for (int p = 0; p < kChunk; ++p) {
+      slot[p] = first + p < hi ? (int64_t)slots[first + p] : int64_t(-1);
     }
-    if constexpr (Wb > 0) {
+    T xa[kChunk][Wa];
+    T xb[kChunk][kB];
 #pragma unroll
-      for (int c = 0; c < Wb; ++c) b[c] += src_b[slot * Wb + c];
+    for (int p = 0; p < kChunk; ++p) {
+      if (slot[p] < 0) continue;
+      const int64_t at = slot[p];
+      if constexpr (kWeighted) {
+        const int64_t tri = at / 3;
+        const bool keep = mask[tri];
+        const T wt = weight[tri];
+        const T w = keep ? wt : T(0);
+#pragma unroll
+        for (int c = 0; c < Wa; ++c) xa[p][c] = mul_rn(w, src_a[at * Wa + c]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < Wa; ++c) xa[p][c] = src_a[at * Wa + c];
+      }
+      if constexpr (Wb > 0) {
+#pragma unroll
+        for (int c = 0; c < Wb; ++c) xb[p][c] = src_b[at * Wb + c];
+      }
+    }
+    // the adds, in slot order
+#pragma unroll
+    for (int p = 0; p < kChunk; ++p) {
+      if (slot[p] < 0) continue;
+#pragma unroll
+      for (int c = 0; c < Wa; ++c) a[c] += xa[p][c];
+      if constexpr (Wb > 0) {
+#pragma unroll
+        for (int c = 0; c < Wb; ++c) b[c] += xb[p][c];
+      }
     }
   }
 #pragma unroll
@@ -91,7 +144,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 inline dim3 vertex_grid(int n, int members) {
-  return dim3((unsigned int)((n + kThreads - 1) / kThreads), (unsigned int)members);
+  return dim3((unsigned int)((n + kRowsPerBlock - 1) / kRowsPerBlock), (unsigned int)members);
 }
 
 // Launches on ``stream``; n vertices, ``members`` stacked members of
@@ -103,7 +156,7 @@ inline void launch(const int32_t* offsets, const int32_t* slots, const T* src_a,
                    const T* src_b, T* out_b, int n, cudaStream_t stream, int members = 1,
                    int64_t src_rows = 0) {
   if (n > 0 && members > 0) {
-    vertex_sum_kernel<T, Wa, Wb, false><<<vertex_grid(n, members), kThreads, 0, stream>>>(
+    vertex_sum_kernel<T, Wa, Wb, false><<<vertex_grid(n, members), kRowsPerBlock, 0, stream>>>(
         offsets, slots, src_a, out_a, src_b, out_b, nullptr, nullptr, n, src_rows);
   }
 }
@@ -115,7 +168,7 @@ inline void launch_weighted(const int32_t* offsets, const int32_t* slots, const 
                             const T* weight, const bool* mask, T* out, int n,
                             cudaStream_t stream, int members = 1, int64_t src_rows = 0) {
   if (n > 0 && members > 0) {
-    vertex_sum_kernel<T, W, 0, true><<<vertex_grid(n, members), kThreads, 0, stream>>>(
+    vertex_sum_kernel<T, W, 0, true><<<vertex_grid(n, members), kRowsPerBlock, 0, stream>>>(
         offsets, slots, src, out, nullptr, nullptr, weight, mask, n, src_rows);
   }
 }

@@ -1,8 +1,9 @@
 """Deterministic corner-to-vertex sums: CUDA kernel wrapper and its plain twin.
 
 Per-triangle kernels produce one row per triangle corner; the energy needs
-them per vertex.  The vertex-sum kernel (``csrc/vertex_sum.cuh``, one
-thread per vertex) adds each vertex's corner rows in the order of the
+them per vertex.  The vertex-sum kernel (``csrc/vertex_sum.cuh``: one
+thread per vertex row with the loads of a chunk of :data:`CHUNK` corners in
+flight at once) adds each vertex's corner rows in the order of the
 topology's :class:`~membrane_solver_tpu_torch.device.state.CornerCSR`, so
 the sums are the same bits on every run, where ``index_add`` on the card
 adds with float atomics in a changing order.  The frozen-tilt, surface,
@@ -10,7 +11,8 @@ curvature and divergence entry points launch it inside their own calls
 (the divergence's tilt backward in its weighted form), and their CPU
 paths take :func:`reference`, which adds in the same order; :func:`launch` runs it
 alone (``csrc/vertex_sum.cu``) on CUDA tensors, after device, dtype, shape
-and contiguity checks that raise on anything else.
+and contiguity checks that raise on anything else (the CSR's once per CSR
+and device, :func:`check_csr`).
 
 The plain modules sum through it too: :func:`vertex_sum` is the
 differentiable entry (the kernel for a CUDA tensor, the twin for a CPU one;
@@ -40,12 +42,16 @@ from membrane_solver_tpu_torch.kernels import _build
 LAUNCHES = {"vertex_sum": 0, "vertex_sum_members": 0}
 # the most members one launch takes (the grid's y extent)
 MAX_MEMBERS = 65535
+# corners per chunk: the kernel's kChunk (csrc/vertex_sum.cuh)
+CHUNK = 8
 
 KERNEL = _build.Source("vertex_sum")
 SOURCE = KERNEL.path
 HEADER = SOURCE.with_suffix(".cuh")
 
 _lib = None
+# the key of a CSR's passed launch check, kept on the CSR (check_csr)
+_CHECKED = "_vertex_sum_checked"
 
 
 def reference(corner_values: torch.Tensor, csr: CornerCSR, weight=None) -> torch.Tensor:
@@ -91,7 +97,15 @@ def build() -> ctypes.CDLL:
 
 
 def check_csr(csr: CornerCSR, like: torch.Tensor, n_triangles: int) -> None:
-    """The CSR on ``like``'s device, int32, contiguous, with 3 * ``n_triangles`` slots."""
+    """The CSR on ``like``'s device, int32, contiguous, with 3 * ``n_triangles`` slots.
+
+    A CSR is frozen and built once per topology, so a passed check is kept
+    on it, keyed by the device and the slot count: later launches on the
+    same device and triangle count compare those two alone.
+    """
+    key = (like.device, 3 * n_triangles)
+    if csr.__dict__.get(_CHECKED) == key:
+        return
     for name, x, shape in (("offsets", csr.offsets, (csr.n_rows + 1,)),
                            ("slots", csr.slots, (3 * n_triangles,))):
         if x.device != like.device:
@@ -99,6 +113,12 @@ def check_csr(csr: CornerCSR, like: torch.Tensor, n_triangles: int) -> None:
         if x.dtype != torch.int32 or not x.is_contiguous() or tuple(x.shape) != shape:
             raise ValueError(f"csr.{name} must be contiguous int32 of shape {shape}, "
                              f"got {x.dtype} {tuple(x.shape)}")
+    csr.__dict__[_CHECKED] = key
+
+
+def _stream(x: torch.Tensor) -> int:
+    """The raw handle of the current stream on ``x``'s card (no Stream object built)."""
+    return torch._C._cuda_getCurrentRawStream(x.get_device())
 
 
 def launch(corner_values: torch.Tensor, csr: CornerCSR) -> torch.Tensor:
@@ -120,7 +140,7 @@ def launch(corner_values: torch.Tensor, csr: CornerCSR) -> torch.Tensor:
     code = lib.vertex_sum_rows(
         int(corner_values.dtype == torch.float64), width, csr.offsets.data_ptr(),
         csr.slots.data_ptr(), corner_values.data_ptr(), out.data_ptr(), csr.n_rows,
-        torch.cuda.current_stream(corner_values.device).cuda_stream,
+        _stream(corner_values),
     )
     if code != 0:
         raise RuntimeError(f"vertex_sum_rows launch failed: cudaError {code}")
@@ -168,8 +188,7 @@ def launch_members(corner_values: torch.Tensor, csr: CornerCSR) -> torch.Tensor:
     code = lib.vertex_sum_rows_members(
         int(corner_values.dtype == torch.float64), width, csr.offsets.data_ptr(),
         csr.slots.data_ptr(), corner_values.data_ptr(), out.data_ptr(), csr.n_rows,
-        3 * corner_values.shape[1], members,
-        torch.cuda.current_stream(corner_values.device).cuda_stream,
+        3 * corner_values.shape[1], members, _stream(corner_values),
     )
     if code != 0:
         raise RuntimeError(f"vertex_sum_rows_members launch failed: cudaError {code}")

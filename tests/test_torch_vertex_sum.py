@@ -11,9 +11,17 @@ bit; ``geo.scatter_add_rows`` is the twin, and its backward the gather;
 ``row_sum`` over a ``slot_csr`` sums repeated slot rows and drops the
 spare row; ``geo.body_sums`` equals the segment sum, and the card's masked
 reduction does within round-off; the topology keeps its corner CSR and
-each ``kept_slot_csr``; the launcher refuses CPU tensors.  On a card only, the kernel
-against the twin, bit for bit, and two calls of ``scatter_add_rows`` (value
-and gradient) and of ``body_sums`` give the same bits.
+each ``kept_slot_csr``; the launcher refuses CPU tensors; a CSR's launch
+check is kept on it per device and slot count.  On a skewed slot CSR whose
+rows straddle the kernel's chunks (``chip_smoke.skewed_slot_case``, chunks
+of 4, 8, 16 and 32 corners), the twin, plain and weighted, equals a plain
+loop that
+adds each row's slots left to right from +0.0, in value and sign bits (a
+row whose one value is -0.0 sums to +0.0): the order contract the kernel
+meets.  On a card only, the kernel against the twin, bit for bit (the
+skewed CSR too, weighted and over members), and two calls of
+``scatter_add_rows`` (value and gradient) and of ``body_sums`` give the
+same bits.
 """
 
 from __future__ import annotations
@@ -268,3 +276,92 @@ def test_cuda_scatter_and_body_sums_repeat_bit_for_bit(dtype):
 
     first, second = once(), once()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def _left_to_right(case, dtype, weighted: bool):
+    """Each target row's slot values added in list order from +0.0, one numpy add at a time."""
+    values = case["values"].astype(dtype)
+    flat = values.reshape(values.shape[0] * 3, -1)
+    n_slots = flat.shape[0]
+    rows = np.concatenate([case["rows"], np.full(n_slots - case["rows"].size, case["n_rows"])])
+    weight = np.where(case["mask"], case["weight"].astype(dtype), dtype(0))
+    out = np.zeros((case["n_rows"] + 1, flat.shape[1]), dtype=dtype)
+    for j in range(n_slots):
+        x = weight[j // 3] * flat[j] if weighted else flat[j]
+        out[rows[j]] = out[rows[j]] + x
+    return torch.as_tensor(out.reshape((case["n_rows"] + 1,) + values.shape[2:]))
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("width", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("chunk", [4, 8, 16, 32])
+def test_reference_on_a_skewed_slot_csr_adds_left_to_right_from_plus_zero(chunk, dtype, width,
+                                                                         weighted):
+    """Rows of degree 0, 1, C - 1, C, C + 1, 2C + 1 and 131: the twin is the plain ordered loop."""
+    from chip_smoke import skewed_slot_case
+
+    case = skewed_slot_case(chunk, width)
+    csr = slot_csr(torch.as_tensor(case["rows"]), case["n_rows"])
+    vals = torch.as_tensor(case["values"], dtype=dtype)
+    weight = None
+    if weighted:
+        weight = torch.where(torch.as_tensor(case["mask"]),
+                             torch.as_tensor(case["weight"], dtype=dtype), 0.0)
+    got = vs.reference(vals, csr, weight=weight)
+    want = _left_to_right(case, {torch.float32: np.float32, torch.float64: np.float64}[dtype],
+                          weighted)
+    assert csr.max_degree == 131
+    assert torch.equal(got, want)
+    assert torch.equal(torch.signbit(got), torch.signbit(want))
+    # row 1 holds one -0.0: the sum from +0.0 is +0.0
+    assert not bool(torch.any(torch.signbit(got[1]))) and not bool(torch.any(got[1]))
+
+
+def test_chunk_is_the_kernel_headers():
+    """``CHUNK``, which the chunk-edge cases are built for, is the header's ``kChunk``."""
+    assert f"constexpr int kChunk = {vs.CHUNK};" in vs.HEADER.read_text()
+
+
+def test_check_csr_is_kept_per_csr_device_and_slot_count():
+    rows, nv = _rows(T=10, nv=12)
+    csr = corner_csr(rows, nv)
+    like = torch.zeros(1)
+    vs.check_csr(csr, like, 10)
+    vs.check_csr(csr, like, 10)  # kept: no second check
+    with pytest.raises(ValueError, match="shape"):
+        vs.check_csr(csr, like, 11)
+    vs.check_csr(csr, like, 10)
+    bad = dataclasses.replace(csr, slots=csr.slots.long())
+    with pytest.raises(ValueError, match="int32"):
+        vs.check_csr(bad, like, 10)
+    strided = dataclasses.replace(csr, offsets=torch.stack([csr.offsets] * 2, dim=1)[:, 0])
+    with pytest.raises(ValueError, match="contiguous"):
+        vs.check_csr(strided, like, 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_skewed_slot_csr_weighted_and_members_bit_for_bit(dtype):
+    """Card only: the skewed slot CSR at the kernel's chunk, plain, weighted, members."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from chip_smoke import same_bits, skewed_slot_case
+
+    from membrane_solver_tpu_torch.kernels import tri_kernels as tk
+
+    for width in (1, 3):
+        case = skewed_slot_case(vs.CHUNK, width)
+        csr = slot_csr(torch.as_tensor(case["rows"], device="cuda"), case["n_rows"])
+        vals = torch.as_tensor(case["values"], dtype=dtype, device="cuda")
+        assert same_bits(torch, vs.launch(vals, csr), vs.reference(vals, csr))
+        stack = torch.stack([vals, -vals, 2 * vals]).contiguous()
+        got = vs.launch_members(stack, csr)
+        for m in range(3):
+            assert same_bits(torch, got[m], vs.launch(stack[m].contiguous(), csr))
+            assert same_bits(torch, got[m], vs.reference(stack[m], csr))
+        if width == 3:
+            w = torch.as_tensor(case["weight"], dtype=dtype, device="cuda")
+            mask = torch.as_tensor(case["mask"], device="cuda")
+            assert same_bits(torch, tk.launch_p1_div_bwd(vals, mask, w, csr),
+                             tk.p1_div_vjp_reference(vals, mask, w, csr))

@@ -35,7 +35,9 @@ number; ``-o FILE`` also writes the full report (top operations) there.
 
 Usage (from the repository root, on a machine with a CUDA GPU)::
 
-    python3 tools/profile_torch_port.py [-o FILE]
+    python3 tools/profile_torch_port.py [-o FILE] [--lane LANE ...] [--dtype DTYPE ...]
+
+(``--lane`` and ``--dtype`` keep only those lanes and dtypes; default all.)
 
 The tool reads only the ``chip_smoke.py`` and the package beside it, so a
 copy of it in an unpacked older tree times that tree.
@@ -184,6 +186,10 @@ def profile_dtype(torch, chip_smoke, counters, fixture, dtype, lane) -> tuple[di
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("-o", "--output", type=Path, help="also write the full report here")
+    ap.add_argument("--lane", action="append", choices=("kozlov_L3", "helfrich_cube_L5"),
+                    help="profile only this lane (repeatable; default: both)")
+    ap.add_argument("--dtype", action="append", choices=("float32", "float64"),
+                    help="profile only this dtype (repeatable; default: both)")
     args = ap.parse_args()
 
     import torch
@@ -204,9 +210,11 @@ def main() -> int:
     device = chip_smoke.phase_device(torch)
     result, report = {"device": device}, []
     for lane, path in lanes.items():
+        if args.lane and lane not in args.lane:
+            continue
         fixture = chip_smoke.load_fixture(path)
         result[lane] = {}
-        for name in ("float32", "float64"):
+        for name in args.dtype or ("float32", "float64"):
             rec, lines = profile_dtype(torch, chip_smoke, counters, fixture,
                                        getattr(torch, name), lane)
             result[lane][name] = rec

@@ -20,12 +20,25 @@ and float64, the frozen-tilt rows at kozlov L3 float32.  Per row
   energy and vertex gradient, ``curvature_data`` forward, forward plus
   backward) also the median µs of one call followed by a device sync.
 
+At kozlov L3 float32 it also times ``vertex_sum.row_sum``'s launch over
+each slot CSR a kozlov step keeps (``state.kept_slot_csr``: the pins'
+shared normals, the KKT rows; skewed, up to 18 slots in a row), seeded
+values, beside ``index_add_`` of the same values.  With ``--members B`` it
+also times the member-axis rows of phase 34 (``chip_smoke.member_rows``:
+every member entry, its twin, and ``index_add_`` over the members' rows)
+at kozlov L3 float32, B members of the lane's positions scaled by
+1 + 0.001 m and seeded tilts.
+
 Prints one JSON line per lane and dtype and, last, one JSON object with
 every row; ``-o FILE`` also writes that object there.
 
 Usage (from the repository root, on a machine with a CUDA GPU)::
 
     python3 tools/time_torch_kernels.py [-o FILE] [--lane LANE ...] [--dtype DTYPE ...]
+        [--members B]
+
+The tool reads only the ``chip_smoke.py`` and the package beside it, so a
+copy of it in an unpacked older tree times that tree.
 """
 
 from __future__ import annotations
@@ -36,7 +49,37 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
+# the slot CSRs a kozlov step keeps (state.kept_slot_csr keys)
+SLOT_CSRS = ("constraint:pin_to_circle/normals", "constraint:pin_to_plane/normals",
+             "kkt/compact_rows")
 LANES = ("kozlov_L3", "helfrich_cube_L5")
+
+
+def slot_csr_rows(torch, cs, vs, topo) -> list:
+    """(name, kind, fn, inputs, flops): ``row_sum``'s launch over each slot CSR ``topo`` keeps.
+
+    Float32 seeded values, (K / 3, 3, 3) for the K padded slots, and
+    ``index_add_`` of the same values into the CSR's rows.
+    """
+    gen = torch.Generator(device=cs.DEVICE).manual_seed(23)
+    rows = []
+    for key in SLOT_CSRS:
+        def absent(key=key):
+            raise KeyError(f"the kozlov step kept no slot CSR {key!r}")
+
+        csr = topo.kept(("slot_csr", key), absent)
+        vals = torch.randn((csr.slots.shape[0] // 3, 3, 3), dtype=torch.float32,
+                           device=cs.DEVICE, generator=gen)
+        target = csr.rows.reshape(-1).long()
+        out = torch.zeros((csr.n_rows, 3), dtype=torch.float32, device=cs.DEVICE)
+        rows += [
+            (f"row_sum {key}", "kernel", lambda v=vals, c=csr: vs.launch(v, c),
+             (vals, csr.offsets, csr.slots), vals.numel()),
+            (f"row_sum {key}", "library",
+             lambda v=vals, t=target, o=out: o.index_add_(0, t, v.reshape(-1, 3)),
+             (vals, target), vals.numel()),
+        ]
+    return rows
 
 
 def main() -> int:
@@ -46,6 +89,8 @@ def main() -> int:
                     help="time only this lane (repeatable; default: both)")
     ap.add_argument("--dtype", action="append", choices=("float32", "float64"),
                     help="time only this dtype (repeatable; default: both)")
+    ap.add_argument("--members", type=int, default=0,
+                    help="also time the member-axis rows at kozlov L3 float32 with B members")
     args = ap.parse_args()
     lanes = args.lane or list(LANES)
     dtypes = args.dtype or ["float32", "float64"]
@@ -68,8 +113,8 @@ def main() -> int:
 
     fixtures = {"kozlov_L3": cs.KOZLOV_FIXTURE, "helfrich_cube_L5": cs.VESICLE_FIXTURE}
     for lane in lanes:
-        prob = cs.build_lane(torch, cs.load_fixture(fixtures[lane])["protocol"],
-                             torch.float64).problem()
+        mn = cs.build_lane(torch, cs.load_fixture(fixtures[lane])["protocol"], torch.float64)
+        prob = mn.problem()
         batches = []
         if lane == "kozlov_L3" and "float32" in dtypes:
             batches.append(("float32", cs.frozen_tilt_rows(torch, ft, prob.topo, prob.n_vertices)))
@@ -81,6 +126,26 @@ def main() -> int:
             recs = cs.measure(torch, rows, lane, name)
             result["rows"] += recs
             print(json.dumps({"lane": lane, "dtype": name, "rows": recs}), flush=True)
+        if lane == "kozlov_L3" and args.members:
+            B = args.members
+            pos = prob.state.positions.detach().to(torch.float32)
+            pos = torch.stack([pos * (1 + 0.001 * m) for m in range(B)]).contiguous()
+            gen = torch.Generator(device=cs.DEVICE).manual_seed(29)
+            tilts = 0.3 * torch.randn(tuple(pos.shape), dtype=torch.float32, device=cs.DEVICE,
+                                      generator=gen)
+            rows = cs.member_rows(torch, tk, vs, prob.topo, pos, tilts)
+            recs = list(cs.measure_members(torch, rows, "float32").values())
+            for r in recs:
+                r.update(lane=lane, members=B)
+            result["rows"] += recs
+            print(json.dumps({"lane": lane, "dtype": "float32", "members": B, "rows": recs}),
+                  flush=True)
+        if lane == "kozlov_L3" and "float32" in dtypes:
+            mn.minimize(1)  # builds the step's slot CSRs
+            recs = cs.measure(torch, slot_csr_rows(torch, cs, vs, mn.problem().topo), lane,
+                              "float32")
+            result["rows"] += recs
+            print(json.dumps({"lane": lane, "dtype": "float32", "rows": recs}), flush=True)
     if args.output is not None:
         args.output.parent.mkdir(parents=True, exist_ok=True)
         args.output.write_text(json.dumps(result, indent=1) + "\n")
