@@ -484,6 +484,21 @@ a ``[... determinism]`` line prints both digests, and unequal digests fail
 the run.  A ``[phase seconds]`` line gives each phase's seconds, and the
 last line before the kernels line the whole run's.
 
+Phases 4-52 run in seven worker processes side by side (``GROUPS``, each
+``python3 chip_smoke.py --worker <i>``; a group holds every phase whose state
+a later phase of it reads), started once phase 3 has ended: the host drives
+every lane and leaves the card idle most of a step.  Each worker hands the
+allocator's unused cache back to the card after every phase (the
+``[phase peak memory]`` line gives each phase's peak), and its lines are
+printed whole, group by group, once all have ended; the lines that read
+phases of several groups (the ``[16-17 ...]`` to ``[48-52 ...]`` lines, phase
+17's launch check) follow them.  The member rows' timing behind the kernels
+line (phases 34 and 38) and the sweeps' timing and busy-share lines (phases
+33-34, 36-37 and 39-40) wait for a quiet stage (:func:`quiet`): once every
+worker has finished its lanes, each one times in turn while the others wait.
+Every other time that phases 4-52 print (ms per step, host seconds, a phase's
+seconds) is taken with the other workers running.
+
 Phases 4-9 and 11-52 each drive one path with every kernel launch counter
 set to 0 just before and read just after; a kernel of that path that was
 never launched fails the run (phases 33-34: the member-axis surface
@@ -527,10 +542,14 @@ import gzip
 import hashlib
 import json
 import math
+import os
+import pickle
 import re
+import signal
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import types
 import warnings
@@ -636,7 +655,8 @@ ERRORS = {"frozen_tilt_energy": ("ft_energy",), "frozen_tilt_energy_grad": ("ft_
 # PyTorch's own kernels that the redesigned entry points must not issue
 LIBRARY_KERNEL = re.compile(r"index|scatter|gather|sort|reduce", re.IGNORECASE)
 OWN_KERNELS = ("frozen_tilt_kernel", "vertex_sum_kernel", "curvature_fwd_kernel",
-               "curvature_bwd_kernel", "surface_kernel", "p1_div_kernel")
+               "curvature_bwd_kernel", "curvature_data_kernel", "surface_kernel",
+               "p1_div_kernel")
 
 DEVICE = "cuda"
 WARMUP_STEPS = 2
@@ -704,6 +724,24 @@ def bound_ms(moved_bytes: int, flops: float, dtype_name: str) -> tuple[float, st
 
 def say(phase: str, **fields) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
+
+
+# timing work held back to the quiet stage, in the order it was registered
+QUIET: list = []
+
+
+def quiet(fn) -> None:
+    """Hold ``fn`` (timing rows and lines) back to the quiet stage: every worker has
+    finished its lanes, and the workers time one after another (:func:`main`)."""
+    QUIET.append(fn)
+
+
+def run_quiet() -> float:
+    """Runs the held-back timing work; returns its seconds."""
+    t0 = time.perf_counter()
+    while QUIET:
+        QUIET.pop(0)()
+    return time.perf_counter() - t0
 
 
 def smi_line() -> str:
@@ -1124,14 +1162,15 @@ def check_vertex_sum(torch, mods, kozlov) -> dict:
 
     On the kozlov L3 corner CSR: float32 and float64, widths 1 and 3, and
     the weighted form with a mask (``tri_p1_div_bwd``); the dual-source
-    forms inside the whole calls, whose vertex rows must be the twin's sum
-    of the corner rows the call summed (``frozen_tilt_energy_grad``'s two
-    scratch slabs, ``tri_curvature_data``'s corner curvature vectors and
-    areas); the member entry at B = 1, 3 and 8, member m the bits of a
-    single launch on member m.  On a skewed slot CSR (``skewed_slot_case``:
-    degrees at the kernel's chunk edges, a row of 131 slots, a -0.0 row):
-    widths 1 and 3, both dtypes, weighted, and three members.  Returns the
-    kernel's chunk (``vertex_sum.CHUNK``) and the cases' names (all equal).
+    form inside ``frozen_tilt_energy_grad``, whose vertex rows must be the
+    twin's sum of its two scratch slabs; the member entry at B = 1, 3 and
+    8, member m the bits of a single launch on member m.  On a skewed slot
+    CSR (``skewed_slot_case``: degrees at the kernel's chunk edges, a row
+    of 131 slots, a -0.0 row): widths 1 and 3, both dtypes, weighted, three
+    members, and the spare-row form ``row_sum`` launches on
+    (``vertex_sum.summed_rows``: the spare row zero, the others the same
+    bits).  Returns the kernel's chunk (``vertex_sum.CHUNK``) and the
+    cases' names (all equal).
     """
     from membrane_solver_tpu_torch.device.state import slot_csr
 
@@ -1168,14 +1207,6 @@ def check_vertex_sum(torch, mods, kozlov) -> dict:
         mask = valid & (torch.rand(T, device=DEVICE, generator=gen) < 0.8)
         expect(f"L3 {d} weighted", tk.launch_p1_div_bwd(g, mask, w, csr),
                tk.p1_div_vjp_reference(g, mask, w, csr))
-        # the dual-source form inside the curvature data: k_vecs <- the corner
-        # vectors, vertex_areas <- the corner areas, in one launch
-        p = kozlov.state.positions.detach().to(dtype).contiguous()
-        _cot, va, k_vecs, areas = tk.launch_curvature_data(p, rows, valid, csr)
-        _cot1, k_c, va_c, _area = tk.launch_curvature(p, rows, valid)
-        expect(f"L3 {d} curvature corner areas", va_c, va)
-        expect(f"L3 {d} curvature_data k_vecs", k_vecs, vs.reference(k_c, csr))
-        expect(f"L3 {d} curvature_data vertex_areas", areas, vs.reference(va, csr))
     # the dual-source form inside the frozen-tilt gradient: both leaflets' rows
     t_in, t_out, g, pay, k = _ft_inputs(torch, rows, nv, 37)
     ws = ft.Workspace(T, DEVICE)
@@ -1193,6 +1224,14 @@ def check_vertex_sum(torch, mods, kozlov) -> dict:
             d = str(dtype).removeprefix("torch.")
             vals = torch.as_tensor(case["values"], dtype=dtype, device=DEVICE)
             expect(f"skewed {d} width {width}", vs.launch(vals, skew), vs.reference(vals, skew))
+            kept = vs.summed_rows(skew)
+            got = vs.launch(vals, kept)
+            expect(f"skewed {d} width {width} without the spare row", got,
+                   vs.reference(vals, kept))
+            expect(f"skewed {d} width {width} kept rows as with the spare row", got[:-1],
+                   vs.launch(vals, skew)[:-1])
+            if bool(torch.any(got[-1] != 0)):
+                raise AssertionError("vertex_sum: the emptied spare row is not zero")
             stack = torch.stack([vals, -vals, 2 * vals]).contiguous()
             members(f"skewed {d} width {width}", stack, skew)
             if width == 3:
@@ -1208,6 +1247,137 @@ def check_vertex_sum(torch, mods, kozlov) -> dict:
                                                 ws3[m].contiguous(), skew))
     torch.cuda.synchronize()
     return {"chunk": vs.CHUNK, "cases": sorted(cases)}
+
+
+def check_curvature_data(torch, tk, vs, kozlov) -> list:
+    """The curvature whole calls in bits, on kozlov L3.
+
+    The forward is one launch of a lane group per corner-CSR row, the
+    backward the tiled kernel reading the vertex upstreams itself, then the
+    vertex sum.  Each output equals the per-triangle entry points
+    (``launch_curvature`` / ``launch_curvature_bwd``, the backward's vertex
+    upstreams gathered under ``tri_rows`` beforehand) followed by the vertex
+    sum over the corner CSR, as a launch and as its twin.  Float32 and float64;
+    the lane's mask and every triangle invalid (m = 0); the backward with
+    the path's upstreams (``k_vecs``, ``vertex_areas``) and with all four;
+    a row longer than the vertex sum's chunk (the lane's degree-16 vertex);
+    the member entries at B = 1, 3 and 8, member m the bits of a single
+    call on member m.  Returns the cases' names (all equal).
+    """
+    topo, nv = kozlov.topo, kozlov.n_vertices
+    rows, csr = topo.tri_rows, topo.corner_csr()
+    T = rows.shape[0]
+    if not csr.max_degree > vs.CHUNK:
+        raise AssertionError(f"kozlov L3's busiest row has {csr.max_degree} corners, not more "
+                             f"than the chunk {vs.CHUNK}")
+    rng = np.random.default_rng(41)
+    cases = []
+
+    def expect(name, got, want):
+        if not same_bits(torch, got, want):
+            err = float(torch.max(torch.abs(got.double() - want.double())))
+            raise AssertionError(f"curvature data {name}: differs (max abs {err!r})")
+        cases.append(name)
+
+    def seeded(shape, dtype):
+        return torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=DEVICE)
+
+    def two_launch_bwd(p, valid, ups):
+        g_kvecs, g_varea, g_cot, g_va = ups
+        zeros = p.new_zeros((T, 3))
+        g_k = (zeros[:, :, None].expand(T, 3, 3) if g_kvecs is None else g_kvecs[rows])
+        g_va_c = zeros if g_va is None else g_va
+        if g_varea is not None:
+            g_va_c = g_va_c + g_varea[rows]
+        g_cot = zeros if g_cot is None else g_cot
+        return tk.launch_curvature_bwd(p, rows, valid, g_cot.contiguous(), g_k.contiguous(),
+                                       g_va_c.contiguous(), zeros[:, 0].contiguous())
+
+    for dtype in (torch.float32, torch.float64):
+        d = str(dtype).removeprefix("torch.")
+        p = kozlov.state.positions.detach().to(dtype).contiguous()
+        for label, valid in (("lane mask", topo.tri_valid),
+                             ("all invalid", torch.zeros_like(topo.tri_valid))):
+            cot, va, k_vecs, areas = tk.launch_curvature_data(p, rows, valid, csr)
+            cot1, k1, va1, _area = tk.launch_curvature(p, rows, valid)
+            expect(f"{d} {label} cot", cot, cot1)
+            expect(f"{d} {label} va", va, va1)
+            for what, got, corner in (("k_vecs", k_vecs, k1), ("vertex_areas", areas, va1)):
+                expect(f"{d} {label} {what} vs the vertex sum", got, vs.launch(corner, csr))
+                expect(f"{d} {label} {what} vs its twin", got, vs.reference(corner, csr))
+            full = [seeded(s, dtype) for s in ((nv, 3), (nv,), (T, 3), (T, 3))]
+            for ups_label, ups in (("path upstreams", full[:2] + [None, None]),
+                                   ("all upstreams", full)):
+                dpos = tk.launch_curvature_data_bwd(p, rows, valid, csr, *ups)
+                dc = two_launch_bwd(p, valid, ups)
+                expect(f"{d} {label} backward {ups_label} vs the vertex sum", dpos,
+                       vs.launch(dc, csr))
+                expect(f"{d} {label} backward {ups_label} vs its twin", dpos,
+                       vs.reference(dc, csr))
+        for B in (1, 3, 8):
+            ps = torch.stack([p * (1 + 0.001 * m) for m in range(B)]).contiguous()
+            ups = [seeded((B,) + s, dtype) for s in ((nv, 3), (nv,), (T, 3), (T, 3))]
+            got = tk.launch_curvature_data_members(ps, rows, topo.tri_valid, csr)
+            dpos = tk.launch_curvature_data_bwd_members(ps, rows, topo.tri_valid, csr, *ups)
+            for m in range(B):
+                single = tk.launch_curvature_data(ps[m].contiguous(), rows, topo.tri_valid, csr)
+                for what, a, b in zip(("cot", "va", "k_vecs", "vertex_areas"), got, single):
+                    expect(f"{d} members B={B} member {m} {what} vs single", a[m], b)
+                expect(f"{d} members B={B} member {m} backward vs single", dpos[m],
+                       tk.launch_curvature_data_bwd(ps[m].contiguous(), rows, topo.tri_valid, csr,
+                                                    *(u[m].contiguous() for u in ups)))
+    torch.cuda.synchronize()
+    return sorted(cases)
+
+
+def check_unaligned_members(torch, tk) -> list:
+    """The tiled member kernels where a member's (T, 3, 3) slab is not 16-byte aligned.
+
+    At T = 301 a member's 9T values start off a 16-byte boundary (float32
+    and float64), so the staged stores of the surface gradient, the P1
+    shape gradients and the curvature backward's corner gradients go
+    plainly there: three members, each the bits of a single call on its own.
+    Returns the cases' names.
+    """
+    from membrane_solver_tpu_torch.device.state import corner_csr
+
+    pos, rows_np, valid_np, tilts = _seeded_triangles(301, 43)
+    rows = torch.as_tensor(rows_np, device=DEVICE)
+    v = torch.as_tensor(valid_np, device=DEVICE)
+    T, nv = rows.shape[0], pos.shape[0]
+    csr = corner_csr(rows, nv)
+    rng = np.random.default_rng(43)
+    cases = []
+    for dtype in (torch.float32, torch.float64):
+        d = str(dtype).removeprefix("torch.")
+        ps = torch.as_tensor(np.stack([pos * (1 + 0.01 * m) for m in range(3)]), dtype=dtype,
+                             device=DEVICE)
+        ts = torch.as_tensor(np.stack([tilts * (1 - 0.01 * m) for m in range(3)]), dtype=dtype,
+                             device=DEVICE)
+        tension = torch.as_tensor(rng.uniform(0.5, 2.0, T), dtype=dtype, device=DEVICE)
+        ups = [torch.as_tensor(rng.standard_normal(s), dtype=dtype, device=DEVICE)
+               for s in ((3, nv, 3), (3, nv), (3, T, 3), (3, T, 3))]
+        _e, g = tk.launch_surface_energy_members(ps, rows, v, tension, csr,
+                                                 tk.MemberWorkspace(3, T, dtype, DEVICE), grad=True)
+        div = tk.launch_p1_divergence_members(ps, ts, rows, v)
+        dpos = tk.launch_curvature_data_bwd_members(ps, rows, v, csr, *ups)
+        for m in range(3):
+            p_m = ps[m].contiguous()
+            single = {
+                "surface gradient": (g[m], tk.launch_surface_energy(
+                    p_m, rows, v, tension, csr, tk.Workspace(T, dtype, DEVICE), grad=True)[1]),
+                "p1 shape gradients": (div[2][m], tk.launch_p1_divergence(
+                    p_m, ts[m].contiguous(), rows, v)[2]),
+                "curvature backward": (dpos[m], tk.launch_curvature_data_bwd(
+                    p_m, rows, v, csr, *(u[m].contiguous() for u in ups))),
+            }
+            for what, (got, want) in single.items():
+                if not same_bits(torch, got, want):
+                    raise AssertionError(f"T=301 member {m} {what} ({d}) differs from its "
+                                         "single call")
+                cases.append(f"T=301 {d} member {m} {what}")
+    torch.cuda.synchronize()
+    return cases
 
 
 def _seeded_triangles(T: int, seed: int):
@@ -1546,6 +1716,11 @@ def phase_kernels(torch, mods, kozlov, vesicle) -> dict:
     errs["vertex_sum"] = 0.0
     say("3 vertex sum", T=kozlov.n_tris, chunk=checked["chunk"], equal_to_twin=True,
         cases=len(checked["cases"]), names=json.dumps(checked["cases"]))
+    curv_cases = check_curvature_data(torch, tk, vs, kozlov)
+    say("3 curvature data", T=kozlov.n_tris, max_degree=kozlov.topo.corner_csr().max_degree,
+        chunk=vs.CHUNK, equal=True, cases=len(curv_cases), names=json.dumps(curv_cases))
+    odd = check_unaligned_members(torch, tk)
+    say("3 unaligned members", T=301, members=3, equal=True, cases=len(odd))
     check_tri_sets(torch, tk, "3 tri kernels", (
         ("T=301", _seeded_triangles(301, 7), 7, False),
         (f"vesicle T={vesicle.n_tris}", _lane_triangles(vesicle, 17), 17, True),
@@ -3706,6 +3881,17 @@ def check_member_kernels(torch, tk, vs, topo, pos, tilts, seed: int) -> dict:
             same_bits("curvature data", a[m], b)
         same_bits("curvature data backward", bwd[m], tk.launch_curvature_data_bwd(
             p_m, rows, v, csr, *(u[m].contiguous() for u in ups)))
+        # and the two-launch form the whole calls replace: the per-triangle
+        # kernel, then the vertex sum
+        cot1, k1, va1, _area = tk.launch_curvature(p_m, rows, v)
+        for what, got, want in (("cot", cd[0][m], cot1), ("va", cd[1][m], va1),
+                                ("k_vecs", cd[2][m], vs.launch(k1, csr)),
+                                ("vertex_areas", cd[3][m], vs.launch(va1, csr))):
+            same_bits(f"curvature data {what} vs the two-launch form", got, want)
+        g_kvecs, g_varea, g_cot, g_va = (u[m] for u in ups)
+        dc = tk.launch_curvature_bwd(p_m, rows, v, g_cot.contiguous(), g_kvecs[rows].contiguous(),
+                                     (g_va + g_varea[rows]).contiguous(), p_m.new_zeros(T))
+        same_bits("curvature data backward vs the two-launch form", bwd[m], vs.launch(dc, csr))
         for a, b in zip(div, tk.launch_p1_divergence(p_m, t_m, rows, v)):
             same_bits("p1 divergence", a[m], b)
         same_bits("p1 divergence tilt backward", dtl[m], tk.launch_p1_div_bwd(
@@ -4002,6 +4188,21 @@ def sweep_timing(torch, label: str, run, sizes, busy_members=None) -> tuple[dict
     return per_size, busy_ms / wall_ms
 
 
+def sweep_result(torch, label: str, out: dict, sizes, busy_members, res: dict) -> dict:
+    """``res`` with ``per_size`` and ``busy_share``, which ``sweep_timing`` fills at the quiet
+    stage (:func:`quiet`)."""
+    res.update(per_size=None, busy_share=None)
+
+    def timing_lines():
+        t0 = time.perf_counter()
+        res["per_size"], res["busy_share"] = sweep_timing(torch, label, out["run"], sizes,
+                                                          busy_members)
+        say(label + " timing parts", timing_s=f"{time.perf_counter() - t0:.3f}")
+
+    quiet(timing_lines)
+    return res
+
+
 def phase_sweep(torch, tk, vs, counters, label: str, fixture: dict, dtype, snap: dict,
                 f64=None) -> dict:
     """The parameter sweep on kozlov L3: B = 8 members of phase 5's (4's) state, one card.
@@ -4026,26 +4227,33 @@ def phase_sweep(torch, tk, vs, counters, label: str, fixture: dict, dtype, snap:
     pos, tilts = member_kernel_inputs(torch, out["states"], seed=29)
     errs = check_member_kernels(torch, tk, vs, problem.topo, pos, tilts, seed=31)
     parts["kernel_checks"] = time.perf_counter() - t1
-    t1 = time.perf_counter()
-    timing = measure_members(torch, member_rows(torch, tk, vs, problem.topo, pos, tilts), name) \
-        if dtype == torch.float32 else {}
-    parts["kernel_timing"] = time.perf_counter() - t1
-    t1 = time.perf_counter()
-    per_size, busy = sweep_timing(torch, label, out["run"], SWEEP_SIZES,
-                                  proto["members"] if dtype == torch.float32 else None)
-    parts["timing"] = time.perf_counter() - t1
     say(label + " parts", setup_s=f"{setup_s:.3f}",
         parts_s=json.dumps({k: round(v, 3) for k, v in parts.items()}))
     say(label + " kernels", **{k: repr(v) for k, v in errs.items()})
-    for rec in timing.values():
-        say(label + " kernel timing", **{k: (f"{v:.6f}" if isinstance(v, float) else v)
-                                         for k, v in rec.items()})
     missing = [k for k in SWEEP_EXPECT if not launches[k] > 0]
     if missing:
         raise AssertionError(f"{label}: the path did not launch {missing}: {launches}")
     out["check"]()
-    return {"launches": launches, "stats": out["stats"], "sketches": out["sketches"],
-            "errs": errs, "timing": timing, "per_size": per_size, "busy_share": busy}
+    res = {"launches": launches, "stats": out["stats"], "sketches": out["sketches"],
+           "errs": errs, "timing": {}, "per_size": None, "busy_share": None}
+
+    def timing_lines():
+        t1 = time.perf_counter()
+        if dtype == torch.float32:
+            res["timing"] = measure_members(
+                torch, member_rows(torch, tk, vs, problem.topo, pos, tilts), name)
+        t2 = time.perf_counter()
+        res["per_size"], res["busy_share"] = sweep_timing(
+            torch, label, out["run"], SWEEP_SIZES,
+            proto["members"] if dtype == torch.float32 else None)
+        say(label + " timing parts", kernel_timing_s=f"{t2 - t1:.3f}",
+            timing_s=f"{time.perf_counter() - t2:.3f}")
+        for rec in res["timing"].values():
+            say(label + " kernel timing", **{k: (f"{v:.6f}" if isinstance(v, float) else v)
+                                             for k, v in rec.items()})
+
+    quiet(timing_lines)
+    return res
 
 
 # ----------------------------------------------------------------------
@@ -4128,11 +4336,7 @@ def phase_vesicle_sweep(torch, counters, label: str, fixture: dict, dtype, snap:
     t1 = time.perf_counter()
     if f64 is None:
         check_drift(torch, label, fixture, problem, float(snap["step_size"]))
-    t2 = time.perf_counter()
-    per_size, busy = sweep_timing(torch, label, out["run"], SHAPE_SWEEP_SIZES,
-                                  fixture["protocol"]["members"])
-    parts = {"setup": setup_s, **out["parts"], "drift": t2 - t1,
-             "timing": time.perf_counter() - t2}
+    parts = {"setup": setup_s, **out["parts"], "drift": time.perf_counter() - t1}
     say(label + " volumes", max_rel_volume_dev=repr(vol_dev), volume_tolerance=repr(vol_tol),
         accepted_per_member=json.dumps(out["member_accepted"].tolist()),
         unmoved_members=json.dumps(idle),
@@ -4150,8 +4354,9 @@ def phase_vesicle_sweep(torch, counters, label: str, fixture: dict, dtype, snap:
                              f"reference {want_accepted})")
     if not vol_dev <= vol_tol:
         raise AssertionError(f"{label}: a member's volume is {vol_dev!r} off its target")
-    return {"launches": launches, "stats": out["stats"], "sketches": out["sketches"],
-            "per_size": per_size, "busy_share": busy}
+    return sweep_result(torch, label, out, SHAPE_SWEEP_SIZES, fixture["protocol"]["members"],
+                        {"launches": launches, "stats": out["stats"],
+                         "sketches": out["sketches"]})
 
 
 def check_drift(torch, label: str, fixture: dict, problem, step_size: float) -> dict:
@@ -4277,17 +4482,11 @@ def phase_square_sweep(torch, tk, counters, label: str, fixture: dict, mn, snap:
     area_dev = max((float(torch.abs(areas[m] - targets[m]) / targets[m])
                     for m in range(len(targets)) if m not in idle), default=0.0)
     errs = check_area_route(torch, tk, label, out["states"], topo)
-    timing = measure_members(torch, area_rows(torch, tk, topo,
-                                              out["states"].positions.detach().contiguous()),
-                             "float64")
     say(label + " areas", max_rel_area_dev=repr(area_dev), bound=AREA_TOL,
         accepted_per_member=json.dumps(out["member_accepted"].tolist()),
         unmoved_members=json.dumps(idle),
         twin_calls_in_sweep=json.dumps(twin_calls), setup_s=f"{setup_s:.3f}",
         parts_s=json.dumps({k: round(v, 3) for k, v in out["parts"].items()}))
-    for rec in timing.values():
-        say(label + " kernel timing", **{k: (f"{v:.6f}" if isinstance(v, float) else v)
-                                         for k, v in rec.items()})
     missing = [k for k in SQUARE_SWEEP_EXPECT if not launches[k] > 0]
     if missing:
         raise AssertionError(f"{label}: the path did not launch {missing}: {launches}")
@@ -4298,7 +4497,17 @@ def phase_square_sweep(torch, tk, counters, label: str, fixture: dict, mn, snap:
     out["check"]()
     if not area_dev <= AREA_TOL:
         raise AssertionError(f"{label}: a member's area is {area_dev!r} off its target")
-    return {"launches": launches, "stats": out["stats"], "errs": errs, "timing": timing}
+    res = {"launches": launches, "stats": out["stats"], "errs": errs, "timing": {}}
+    pos = out["states"].positions.detach().contiguous()
+
+    def timing_lines():
+        res["timing"] = measure_members(torch, area_rows(torch, tk, topo, pos), "float64")
+        for rec in res["timing"].values():
+            say(label + " kernel timing", **{k: (f"{v:.6f}" if isinstance(v, float) else v)
+                                             for k, v in rec.items()})
+
+    quiet(timing_lines)
+    return res
 
 
 # ----------------------------------------------------------------------
@@ -4483,10 +4692,7 @@ def phase_rect_sweep(torch, tk, vs, counters, label: str, fixture: dict, dtype,
                                   getattr(problem.state, f).expand_as(getattr(states, f)))
                       for f in ("tilts", "tilts_in", "tilts_out"))
     want_accepted = (fixture if f64 is None else f32_ref)["accepted_last_step"]
-    t1 = time.perf_counter()
-    per_size, busy = sweep_timing(torch, label, out["run"], RECT_SWEEP_SIZES,
-                                  proto["members"])
-    parts = {"setup": setup_s, **out["parts"], "timing": time.perf_counter() - t1}
+    parts = {"setup": setup_s, **out["parts"]}
     say(label + " lane", energies=json.dumps(lane), reference=json.dumps(lane_want),
         max_rel_dev=repr(lane_dev), bound=repr(lane_bound),
         tilts_equal_to_start=tilts_equal,
@@ -4509,8 +4715,9 @@ def phase_rect_sweep(torch, tk, vs, counters, label: str, fixture: dict, dtype,
                              f"reference {want_accepted})")
     if not tilts_equal:
         raise AssertionError(f"{label}: the sweep changed the members' tilts")
-    return {"launches": launches, "stats": out["stats"], "sketches": out["sketches"],
-            "lane": lane, "per_size": per_size, "busy_share": busy}
+    return sweep_result(torch, label, out, RECT_SWEEP_SIZES, proto["members"],
+                        {"launches": launches, "stats": out["stats"],
+                         "sketches": out["sketches"], "lane": lane})
 
 
 def tilt_problems(torch, protocol: dict, setup: str):
@@ -5487,117 +5694,421 @@ def kernels_line(kern: dict, runs: dict) -> list:
     return out
 
 
-def main() -> int:
-    t_start = time.perf_counter()
-    import torch
+# Phases 4-52 run in these groups, one worker process each, side by side: the
+# host drives every lane and leaves the card idle most of a step.  A group
+# holds every phase whose state a later phase of it reads; within a group the
+# phases run in the order of their numbers.
+GROUPS = (
+    ("4", "5", "15", "18", "19", "33", "34", "35"),
+    ("6", "7", "8", "9", "10", "20", "36", "37"),
+    ("11", "12", "13", "14", "38", "39", "40", "41"),
+    ("16", "17", "21", "22", "44", "45"),
+    ("23", "24", "25", "42", "43", "47"),
+    ("26", "27", "28", "29", "48", "49", "50", "51"),
+    ("30", "31", "32", "46", "52"),
+)
+# what a worker sends back of each phase's result
+SUMMARY_KEYS = ("launches", "syncs", "per_step", "errs", "timing", "busy_share")
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
-        return 2
+
+def kernel_modules() -> tuple:
+    """The port's three kernel modules (frozen_tilt, tri_kernels, vertex_sum)."""
     sys.path.insert(0, str(REPO))
     from membrane_solver_tpu_torch.kernels import frozen_tilt as ft
     from membrane_solver_tpu_torch.kernels import tri_kernels as tk
     from membrane_solver_tpu_torch.kernels import vertex_sum as vs
 
-    kozlov = load_fixture(KOZLOV_FIXTURE)
-    vesicle = load_fixture(VESICLE_FIXTURE)
-    cube_cli = json.loads(CUBE_CLI_FIXTURE.read_text())
-    square = json.loads(SQUARE_FIXTURE.read_text())
-    rect = json.loads(RECT_FIXTURE.read_text())
-    thetaB = json.loads(THETAB_FIXTURE.read_text())
-    reduced = load_fixture(REDUCED_FIXTURE)
-    smooth = load_fixture(SMOOTH_FIXTURE)
-    drives = json.loads(DRIVES_FIXTURE.read_text())
-    free_disk = load_fixture(FREE_DISK_FIXTURE)
-    interface = load_fixture(INTERFACE_FIXTURE)
-    match = json.loads(MATCH_FIXTURE.read_text())
-    physical_edge = load_fixture(PHYSICAL_EDGE_FIXTURE)
-    scaffold = load_fixture(SCAFFOLD_FIXTURE)
-    j0_fit = load_fixture(J0_FIT_FIXTURE)
-    c4 = json.loads(gzip.decompress(C4_FIXTURE.read_bytes()))
-    mode_drives = json.loads(MODE_DRIVES_FIXTURE.read_text())
-    sweep = json.loads(SWEEP_FIXTURE.read_text())
-    vesicle_sweep = json.loads(VESICLE_SWEEP_FIXTURE.read_text())
-    square_sweep = json.loads(SQUARE_SWEEP_FIXTURE.read_text())
-    rect_sweep = json.loads(RECT_SWEEP_FIXTURE.read_text())
-    tilt_sweep = json.loads(TILT_SWEEP_FIXTURE.read_text())
-    interface_sweep = json.loads(INTERFACE_SWEEP_FIXTURE.read_text())
-    free_disk_sweep = json.loads(FREE_DISK_SWEEP_FIXTURE.read_text())
-    interface_drives = json.loads(INTERFACE_DRIVES_FIXTURE.read_text())
-    physical_edge_sweep = json.loads(PHYSICAL_EDGE_SWEEP_FIXTURE.read_text())
-    scaffold_sweep = json.loads(SCAFFOLD_SWEEP_FIXTURE.read_text())
-    physical_edge_drives = json.loads(PHYSICAL_EDGE_DRIVES_FIXTURE.read_text())
-    seconds = {}
+    return ft, tk, vs
+
+
+def load_fixtures() -> types.SimpleNamespace:
+    return types.SimpleNamespace(
+        kozlov=load_fixture(KOZLOV_FIXTURE), vesicle=load_fixture(VESICLE_FIXTURE),
+        cube_cli=json.loads(CUBE_CLI_FIXTURE.read_text()),
+        square=json.loads(SQUARE_FIXTURE.read_text()),
+        rect=json.loads(RECT_FIXTURE.read_text()),
+        thetaB=json.loads(THETAB_FIXTURE.read_text()),
+        reduced=load_fixture(REDUCED_FIXTURE), smooth=load_fixture(SMOOTH_FIXTURE),
+        drives=json.loads(DRIVES_FIXTURE.read_text()),
+        free_disk=load_fixture(FREE_DISK_FIXTURE), interface=load_fixture(INTERFACE_FIXTURE),
+        match=json.loads(MATCH_FIXTURE.read_text()),
+        physical_edge=load_fixture(PHYSICAL_EDGE_FIXTURE),
+        scaffold=load_fixture(SCAFFOLD_FIXTURE), j0_fit=load_fixture(J0_FIT_FIXTURE),
+        c4=json.loads(gzip.decompress(C4_FIXTURE.read_bytes())),
+        mode_drives=json.loads(MODE_DRIVES_FIXTURE.read_text()),
+        sweep=json.loads(SWEEP_FIXTURE.read_text()),
+        vesicle_sweep=json.loads(VESICLE_SWEEP_FIXTURE.read_text()),
+        square_sweep=json.loads(SQUARE_SWEEP_FIXTURE.read_text()),
+        rect_sweep=json.loads(RECT_SWEEP_FIXTURE.read_text()),
+        tilt_sweep=json.loads(TILT_SWEEP_FIXTURE.read_text()),
+        interface_sweep=json.loads(INTERFACE_SWEEP_FIXTURE.read_text()),
+        free_disk_sweep=json.loads(FREE_DISK_SWEEP_FIXTURE.read_text()),
+        interface_drives=json.loads(INTERFACE_DRIVES_FIXTURE.read_text()),
+        physical_edge_sweep=json.loads(PHYSICAL_EDGE_SWEEP_FIXTURE.read_text()),
+        scaffold_sweep=json.loads(SCAFFOLD_SWEEP_FIXTURE.read_text()),
+        physical_edge_drives=json.loads(PHYSICAL_EDGE_DRIVES_FIXTURE.read_text()))
+
+
+def phase_timer(torch, seconds: dict, peaks: dict):
+    """``timed(phase, fn, *args, **kw)``: runs ``fn``, keeps its seconds and the GiB the
+    card's allocator reserved at its peak, then hands the allocator's unused cache back to
+    the card (the workers share it)."""
 
     def timed(phase, fn, *args, **kw):
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out = fn(*args, **kw)
         seconds[phase] = round(time.perf_counter() - t0, 3)
+        peaks[phase] = round(torch.cuda.max_memory_reserved() / 2**30, 3)
+        torch.cuda.empty_cache()
         return out
 
-    device = timed("1", phase_device, torch)
-    timed("2", phase_build, (ft, tk, vs))
-    kern = timed("3", lambda: phase_kernels(
-        torch, (ft, tk, vs), build_lane(torch, kozlov["protocol"], torch.float64).problem(),
-        build_lane(torch, vesicle["protocol"], torch.float64).problem()))
+    return timed
 
+
+def drive_phases(torch, mods, fx, todo) -> tuple[dict, dict, dict, dict]:
+    """The phases of 4-52 named in ``todo``, in order, in this process: (runs, errs, seconds,
+    peak GiB).
+
+    ``errs`` holds the largest errors of the tri-kernel checks on the lanes'
+    own triangles (phases 5, 12 and 14), by key.
+    """
+    ft, tk, vs = mods
     counters = {"frozen_tilt": ft.LAUNCHES, "tri_kernels": tk.LAUNCHES,
                 "vertex_sum": vs.LAUNCHES}
+    runs, errs, seconds, peaks = {}, {}, {}, {}
+    timed = phase_timer(torch, seconds, peaks)
+
     shared = ("tri_kernels.surface_energy", "tri_kernels.surface_energy_grad",
               "tri_kernels.curvature_data", "tri_kernels.curvature_data_bwd",
               "vertex_sum.vertex_sum")
     kozlov_path = shared + ("tri_kernels.p1_div",)
-    f32_kozlov_path = kozlov_path + ("frozen_tilt.energy", "frozen_tilt.energy_grad")
-    runs = {}
-    runs["k32"] = timed("4", phase_path, torch, counters, "4 kozlov_L3 f32", kozlov,
-                        torch.float32, f32_kozlov_path)
-    runs["k64"] = timed("5", phase_path, torch, counters, "5 kozlov_L3 f64", kozlov,
-                        torch.float64, kozlov_path, f32_energies=runs["k32"]["energies"])
-    timed("5 tri kernels", check_tri_sets, torch, tk, "5 kozlov_L3 tri kernels",
-          kozlov_triangles(torch, runs["k64"]["mn"]), kern["errs"])
-    runs["v32"] = timed("6", phase_path, torch, counters, "6 helfrich_cube_L5 f32", vesicle,
-                        torch.float32, shared)
-    runs["v64"] = timed("7", phase_path, torch, counters, "7 helfrich_cube_L5 f64", vesicle,
-                        torch.float64, shared, f32_energies=runs["v32"]["energies"])
+    frozen = ("frozen_tilt.energy", "frozen_tilt.energy_grad")
+    f32_kozlov_path = kozlov_path + frozen
+    if "4" in todo:
+        runs["k32"] = timed("4", phase_path, torch, counters, "4 kozlov_L3 f32", fx.kozlov,
+                            torch.float32, f32_kozlov_path)
+    if "5" in todo:
+        runs["k64"] = timed("5", phase_path, torch, counters, "5 kozlov_L3 f64", fx.kozlov,
+                            torch.float64, kozlov_path, f32_energies=runs["k32"]["energies"])
+        timed("5 tri kernels", check_tri_sets, torch, tk, "5 kozlov_L3 tri kernels",
+              kozlov_triangles(torch, runs["k64"]["mn"]), errs)
+    if "6" in todo:
+        runs["v32"] = timed("6", phase_path, torch, counters, "6 helfrich_cube_L5 f32",
+                            fx.vesicle, torch.float32, shared)
+    if "7" in todo:
+        runs["v64"] = timed("7", phase_path, torch, counters, "7 helfrich_cube_L5 f64",
+                            fx.vesicle, torch.float64, shared,
+                            f32_energies=runs["v32"]["energies"])
     cli_path = ("tri_kernels.surface_energy", "tri_kernels.surface_energy_grad",
                 "tri_kernels.curvature_data", "vertex_sum.vertex_sum")
-    runs["c32"] = timed("8", phase_cli, torch, counters, "8 cube_cli_L5 f32", cube_cli,
-                        torch.float32, cli_path, margins_before=c4["protocol"]["stop_before"])
-    timed("9 C4", phase_c4, torch, "9 cube_cli_L5 C4", c4, runs["c32"]["pre_u_margins"])
-    runs["c64"] = timed("9", phase_cli, torch, counters, "9 cube_cli_L5 f64", cube_cli,
-                        torch.float64, cli_path, f32=runs["c32"])
-    timed("10", phase_console, torch, cube_cli)
+    if "8" in todo:
+        runs["c32"] = timed("8", phase_cli, torch, counters, "8 cube_cli_L5 f32", fx.cube_cli,
+                            torch.float32, cli_path,
+                            margins_before=fx.c4["protocol"]["stop_before"])
+    if "9" in todo:
+        timed("9 C4", phase_c4, torch, "9 cube_cli_L5 C4", fx.c4, runs["c32"]["pre_u_margins"])
+        runs["c64"] = timed("9", phase_cli, torch, counters, "9 cube_cli_L5 f64", fx.cube_cli,
+                            torch.float64, cli_path, f32=runs["c32"])
+    if "10" in todo:
+        timed("10", phase_console, torch, fx.cube_cli)
     square_path = ("tri_kernels.surface_energy", "tri_kernels.surface_energy_grad",
                    "vertex_sum.vertex_sum")
-    runs["s32"] = timed("11", phase_cli, torch, counters, "11 square_to_circle_L1 f32", square,
-                        torch.float32, square_path)
-    runs["s64"] = timed("12", phase_cli, torch, counters, "12 square_to_circle_L1 f64", square,
-                        torch.float64, square_path, f32=runs["s32"])
-    timed("12 area calls", check_area_calls, torch, tk, "12 square_to_circle_L1 area calls",
-          runs["s64"]["mn"].problem(), kern["errs"])
+    if "11" in todo:
+        runs["s32"] = timed("11", phase_cli, torch, counters, "11 square_to_circle_L1 f32",
+                            fx.square, torch.float32, square_path)
+    if "12" in todo:
+        runs["s64"] = timed("12", phase_cli, torch, counters, "12 square_to_circle_L1 f64",
+                            fx.square, torch.float64, square_path, f32=runs["s32"])
+        timed("12 area calls", check_area_calls, torch, tk, "12 square_to_circle_L1 area calls",
+              runs["s64"]["mn"].problem(), errs)
     rect_path = ("tri_kernels.surface_energy", "tri_kernels.surface_energy_grad",
                  "tri_kernels.curvature_data", "vertex_sum.vertex_sum")
-    runs["r32"] = timed("13", phase_cli, torch, counters, "13 rect_tilt_source_L0 f32", rect,
-                        torch.float32, rect_path, split=True)
-    runs["r64"] = timed("14", phase_cli, torch, counters, "14 rect_tilt_source_L0 f64", rect,
-                        torch.float64, rect_path, f32=runs["r32"], split=True)
-    for key in ("r32", "r64"):
-        if runs[key]["launches"]["tri_kernels.curvature_data_bwd"]:
-            raise AssertionError(f"the rect lane ran the curvature backward: {runs[key]['launches']}")
-    timed("14 tri kernels", check_tri_sets, torch, tk, "14 rect_tilt_source_L0 tri kernels",
-          sheet_triangles(runs["r64"]["mn"].problem()), kern["errs"])
-    runs["t64"] = timed("15 f64", phase_thetaB, torch, counters, "15 kozlov_L3_thetaB f64",
-                        thetaB, runs["k64"]["mn"], runs["k64"]["snap"], kozlov_path)
-    runs["t32"] = timed("15 f32", phase_thetaB, torch, counters, "15 kozlov_L3_thetaB f32",
-                        thetaB, runs["k32"]["mn"], runs["k32"]["snap"], f32_kozlov_path,
-                        f64=runs["t64"])
+    if "13" in todo:
+        runs["r32"] = timed("13", phase_cli, torch, counters, "13 rect_tilt_source_L0 f32",
+                            fx.rect, torch.float32, rect_path, split=True)
+    if "14" in todo:
+        runs["r64"] = timed("14", phase_cli, torch, counters, "14 rect_tilt_source_L0 f64",
+                            fx.rect, torch.float64, rect_path, f32=runs["r32"], split=True)
+        for key in ("r32", "r64"):
+            if runs[key]["launches"]["tri_kernels.curvature_data_bwd"]:
+                raise AssertionError(f"the rect lane ran the curvature backward: "
+                                     f"{runs[key]['launches']}")
+        timed("14 tri kernels", check_tri_sets, torch, tk, "14 rect_tilt_source_L0 tri kernels",
+              sheet_triangles(runs["r64"]["mn"].problem()), errs)
+    if "15" in todo:
+        runs["t64"] = timed("15 f64", phase_thetaB, torch, counters, "15 kozlov_L3_thetaB f64",
+                            fx.thetaB, runs["k64"]["mn"], runs["k64"]["snap"], kozlov_path)
+        runs["t32"] = timed("15 f32", phase_thetaB, torch, counters, "15 kozlov_L3_thetaB f32",
+                            fx.thetaB, runs["k32"]["mn"], runs["k32"]["snap"], f32_kozlov_path,
+                            f64=runs["t64"])
     # the frozen-tilt kernel inside every line-search trial's relax at float32
-    runs["d64"] = timed("16", phase_reduced, torch, counters, "16 kozlov_L3_reduced f64",
-                        reduced, torch.float64, kozlov_path)
-    runs["d32"] = timed("17", phase_reduced, torch, counters, "17 kozlov_L3_reduced f32",
-                        reduced, torch.float32, f32_kozlov_path, f64=runs["d64"])
+    if "16" in todo:
+        runs["d64"] = timed("16", phase_reduced, torch, counters, "16 kozlov_L3_reduced f64",
+                            fx.reduced, torch.float64, kozlov_path)
+    if "17" in todo:
+        runs["d32"] = timed("17", phase_reduced, torch, counters, "17 kozlov_L3_reduced f32",
+                            fx.reduced, torch.float32, f32_kozlov_path, f64=runs["d64"])
+    # the leaflet smoothness folded into the frozen-tilt kernel, then the drives
+    if "18" in todo:
+        runs["m64"] = timed("18", phase_smooth, torch, ft, counters, "18 kozlov_L3_smooth f64",
+                            fx.smooth, torch.float64, kozlov_path)
+    if "19" in todo:
+        runs["m32"] = timed("19", phase_smooth, torch, ft, counters, "19 kozlov_L3_smooth f32",
+                            fx.smooth, torch.float32, f32_kozlov_path, f64=runs["m64"],
+                            k32=runs["k32"])
+    if "20" in todo:
+        runs["x"] = timed("20", phase_drives, torch, counters, "20 kozlov_L3_drives", fx.drives)
+    # the rigid free disk, the local-interface lane (dense tilt rows), the
+    # family's drives
+    if "21" in todo:
+        runs["f64"] = timed("21", phase_free_disk, torch, counters, "21 kozlov_L3_free_disk f64",
+                            fx.free_disk, torch.float64, kozlov_path)
+    if "22" in todo:
+        runs["f32"] = timed("22", phase_free_disk, torch, counters, "22 kozlov_L3_free_disk f32",
+                            fx.free_disk, torch.float32, f32_kozlov_path, f64=runs["f64"])
+    if "23" in todo:
+        runs["i64"] = timed("23", phase_interface, torch, counters, "23 kozlov_L3_interface f64",
+                            fx.interface, torch.float64, kozlov_path)
+    if "24" in todo:
+        runs["i32"] = timed("24", phase_interface, torch, counters, "24 kozlov_L3_interface f32",
+                            fx.interface, torch.float32, kozlov_path, f64=runs["i64"])
+    if "25" in todo:
+        runs["md"] = timed("25", phase_match_drives, torch, counters,
+                           "25 kozlov_L3_match_drives", fx.match)
+    # the physical-edge rim placement and its scaffold-trace lane: the
+    # frozen-tilt kernel on the first at float32, on neither at the scaffold
+    if "26" in todo:
+        runs["p64"] = timed("26", phase_physical_edge, torch, counters,
+                            "26 kozlov_L3_physical_edge f64", fx.physical_edge, torch.float64,
+                            kozlov_path)
+    if "27" in todo:
+        runs["p32"] = timed("27", phase_physical_edge, torch, counters,
+                            "27 kozlov_L3_physical_edge f32", fx.physical_edge, torch.float32,
+                            f32_kozlov_path, f64=runs["p64"])
+    if "28" in todo:
+        runs["q64"] = timed("28", phase_physical_edge, torch, counters,
+                            "28 kozlov_L3_scaffold f64", fx.scaffold, torch.float64, kozlov_path,
+                            forbid=frozen)
+    if "29" in todo:
+        runs["q32"] = timed("29", phase_physical_edge, torch, counters,
+                            "29 kozlov_L3_scaffold f32", fx.scaffold, torch.float32, kozlov_path,
+                            f64=runs["q64"], forbid=frozen)
+    # the last per-module modes: the J0-fit lane (the frozen-tilt kernel on
+    # its zeroed base rows at float32) and the mode drives
+    if "30" in todo:
+        runs["j64"] = timed("30", phase_j0_fit, torch, ft, counters, "30 kozlov_L3_J0_fit f64",
+                            fx.j0_fit, torch.float64, kozlov_path)
+    if "31" in todo:
+        runs["j32"] = timed("31", phase_j0_fit, torch, ft, counters, "31 kozlov_L3_J0_fit f32",
+                            fx.j0_fit, torch.float32, f32_kozlov_path, f64=runs["j64"])
+    if "32" in todo:
+        runs["o"] = timed("32", phase_mode_drives, torch, counters, "32 kozlov_L3_mode_drives",
+                          fx.mode_drives)
+    # the parameter sweep (member-axis kernels) and the multi-disk analysis
+    if "33" in todo:
+        runs["w64"] = timed("33", phase_sweep, torch, tk, vs, counters,
+                            "33 kozlov_L3_sweep f64", fx.sweep, torch.float64,
+                            runs["k64"]["snap"])
+    if "34" in todo:
+        runs["w32"] = timed("34", phase_sweep, torch, tk, vs, counters,
+                            "34 kozlov_L3_sweep f32", fx.sweep, torch.float32,
+                            runs["k32"]["snap"], f64=runs["w64"])
+    if "35" in todo:
+        runs["a"] = timed("35", phase_multidisk, torch, counters, "35 multidisk_sweep")
+    # the sweep over the shape family: the Helfrich vesicle (accepted steps,
+    # curvature data both ways, the volume rows and enforcement) and
+    # square_to_circle (the hard area's member route)
+    if "36" in todo:
+        runs["h64"] = timed("36", phase_vesicle_sweep, torch, counters,
+                            "36 helfrich_cube_L5_sweep f64", fx.vesicle_sweep, torch.float64,
+                            runs["v64"]["snap"])
+    if "37" in todo:
+        runs["h32"] = timed("37", phase_vesicle_sweep, torch, counters,
+                            "37 helfrich_cube_L5_sweep f32", fx.vesicle_sweep, torch.float32,
+                            runs["v32"]["snap"], f64=runs["h64"])
+    if "38" in todo:
+        runs["g64"] = timed("38", phase_square_sweep, torch, tk, counters,
+                            "38 square_to_circle_L1_sweep f64", fx.square_sweep,
+                            runs["s64"]["mn"], runs["s64"]["snap"])
+    # the sweep over the leaflet tilt-field family: the tilt-decay scan on
+    # rect_tilt_source (accepted steps, the smoothness cotangents on the
+    # member axis) and every module of the family mapped over members
+    if "39" in todo:
+        runs["e64"] = timed("39", phase_rect_sweep, torch, tk, vs, counters,
+                            "39 rect_tilt_source_L0_sweep f64", fx.rect_sweep, torch.float64)
+    if "40" in todo:
+        runs["e32"] = timed("40", phase_rect_sweep, torch, tk, vs, counters,
+                            "40 rect_tilt_source_L0_sweep f32", fx.rect_sweep, torch.float32,
+                            f64=runs["e64"])
+    if "41" in todo:
+        runs["u"] = timed("41", phase_tilt_drives, torch, tk, vs, counters,
+                          "41 kozlov_L3_sweep_tilt_drives", fx.tilt_sweep)
+    # the local-interface family and the rigid disk in the sweep, from the
+    # states phases 23-24 and 21-22 left; the family and the rigid disk
+    # mapped over members; the visualization's face values (kernel 4)
+    if "42" in todo:
+        runs["n64"] = timed("42", phase_lane_sweep, torch, tk, vs, counters,
+                            "42 kozlov_L3_interface_sweep f64", fx.interface_sweep,
+                            torch.float64, runs["i64"]["snap"])
+    if "43" in todo:
+        runs["n32"] = timed("43", phase_lane_sweep, torch, tk, vs, counters,
+                            "43 kozlov_L3_interface_sweep f32", fx.interface_sweep,
+                            torch.float32, runs["i32"]["snap"], f64=runs["n64"])
+    if "44" in todo:
+        runs["y64"] = timed("44", phase_lane_sweep, torch, tk, vs, counters,
+                            "44 kozlov_L3_free_disk_sweep f64", fx.free_disk_sweep,
+                            torch.float64, runs["f64"]["snap"])
+    if "45" in todo:
+        runs["y32"] = timed("45", phase_lane_sweep, torch, tk, vs, counters,
+                            "45 kozlov_L3_free_disk_sweep f32", fx.free_disk_sweep,
+                            torch.float32, runs["f32"]["snap"], f64=runs["y64"])
+    if "46" in todo:
+        runs["z"] = timed("46", phase_interface_drives, torch, tk, vs, counters,
+                          "46 kozlov_L3_sweep_interface_drives", fx.interface_drives)
+    if "47" in todo:
+        runs["vz"] = timed("47", phase_viz_face_values, torch, tk, counters,
+                           "47 kozlov_L3_viz_face_values", runs["i64"]["mn"])
+    # the physical-edge shells and the trace_z fallback in the sweep, from the
+    # states phases 26-29 left; the rim placement's items mapped over members
+    if "48" in todo:
+        runs["pe64"] = timed("48", phase_lane_sweep, torch, tk, vs, counters,
+                             "48 kozlov_L3_physical_edge_sweep f64", fx.physical_edge_sweep,
+                             torch.float64, runs["p64"]["snap"], mn=runs["p64"]["mn"])
+    if "49" in todo:
+        runs["pe32"] = timed("49", phase_lane_sweep, torch, tk, vs, counters,
+                             "49 kozlov_L3_physical_edge_sweep f32", fx.physical_edge_sweep,
+                             torch.float32, runs["p32"]["snap"], f64=runs["pe64"],
+                             mn=runs["p32"]["mn"])
+    if "50" in todo:
+        runs["sc64"] = timed("50", phase_lane_sweep, torch, tk, vs, counters,
+                             "50 kozlov_L3_scaffold_sweep f64", fx.scaffold_sweep,
+                             torch.float64, runs["q64"]["snap"], mn=runs["q64"]["mn"])
+    if "51" in todo:
+        runs["sc32"] = timed("51", phase_lane_sweep, torch, tk, vs, counters,
+                             "51 kozlov_L3_scaffold_sweep f32", fx.scaffold_sweep,
+                             torch.float32, runs["q32"]["snap"], f64=runs["sc64"],
+                             mn=runs["q32"]["mn"])
+    if "52" in todo:
+        runs["pd"] = timed("52", phase_physical_edge_drives, torch, tk, vs, counters,
+                           "52 kozlov_L3_sweep_physical_edge_drives", fx.physical_edge_drives)
+    return runs, errs, seconds, peaks
+
+
+def check_imports(cli: bool) -> None:
+    """No JAX, no JAX package and no matplotlib in this process; with ``cli`` the CLI and
+    the command layer imported (phases 8-10 import them)."""
+    if cli and not ({"membrane_solver_tpu_torch.cli", "membrane_solver_tpu_torch.commands"}
+                    <= set(sys.modules)):
+        raise AssertionError("the CLI and the command layer were not imported")
+    if "jax" in sys.modules or any(m.split(".")[0] == "membrane_solver_tpu" for m in sys.modules):
+        raise AssertionError("jax or the JAX package was imported")
+    if "matplotlib" in sys.modules:
+        raise AssertionError("matplotlib was imported (the card's host has none)")
+
+
+def worker(index: int) -> int:
+    """One group of ``GROUPS``: its phases, a ``@@ready`` line, then, at ``go`` on stdin, its
+    held-back timing; last a ``@@result`` line (the phases' summaries, the errors, the
+    seconds; pickled, base64)."""
+    import torch
+
+    mods = kernel_modules()
+    for m in mods:
+        m.build()  # the libraries phase 2 built
+    group = GROUPS[index]
+    runs, errs, seconds, peaks = drive_phases(torch, mods, load_fixtures(), set(group))
+    check_imports(cli="8" in group)
+    print("@@ready", flush=True)
+    if sys.stdin.readline().strip() != "go":
+        return 1
+    seconds[f"quiet {index + 1}"] = round(run_quiet(), 3)
+    result = {"runs": {k: {f: r[f] for f in SUMMARY_KEYS if f in r} for k, r in runs.items()},
+              "errs": errs, "seconds": seconds, "peaks": peaks}
+    print("@@result " + base64.b64encode(pickle.dumps(result)).decode(), flush=True)
+    return 0
+
+
+class Workers:
+    """The worker processes of ``GROUPS``, all started at once.  Each one's output lines are
+    kept apart and printed whole; every process still running is ended on the way out."""
+
+    def __init__(self):
+        # the allocator maps and unmaps its segments page by page, so the cache each
+        # worker hands back between phases is not held by a few live blocks
+        env = {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True", **os.environ}
+        self.procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--worker", str(i)],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True, bufsize=1, env=env)
+            for i in range(len(GROUPS))]
+        self.lines = [[] for _ in self.procs]
+        self.ready = [False] * len(self.procs)
+        self.results = [None] * len(self.procs)
+        self.events = [threading.Event() for _ in self.procs]
+        self.threads = [threading.Thread(target=self._read, args=(i,), daemon=True)
+                        for i in range(len(self.procs))]
+        for t in self.threads:
+            t.start()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        return False
+
+    def _read(self, i: int) -> None:
+        for line in self.procs[i].stdout:
+            if line.startswith("@@ready"):
+                self.ready[i] = True
+                self.events[i].set()
+            elif line.startswith("@@result "):
+                self.results[i] = pickle.loads(base64.b64decode(line[len("@@result "):]))
+            else:
+                self.lines[i].append(line)
+        self.events[i].set()
+
+    def fail(self, i: int) -> None:
+        self.print_lines()
+        raise RuntimeError(f"worker {i + 1} (phases {', '.join(GROUPS[i])}) exited "
+                           f"{self.procs[i].wait()}")
+
+    def print_lines(self) -> None:
+        for lines in self.lines:
+            sys.stdout.write("".join(lines))
+        sys.stdout.flush()
+
+    def wait_ready(self) -> None:
+        """Until every worker has finished its lanes; a worker that ended before fails."""
+        while not all(self.ready):
+            for i, event in enumerate(self.events):
+                if event.is_set() and not self.ready[i]:
+                    self.fail(i)
+            time.sleep(0.2)
+
+    def quiet_stage(self) -> list:
+        """Each worker's held-back timing, one after another; returns their results."""
+        for i, p in enumerate(self.procs):
+            p.stdin.write("go\n")
+            p.stdin.flush()
+            self.threads[i].join()
+            if p.wait() != 0 or self.results[i] is None:
+                self.fail(i)
+        return self.results
+
+
+def phase_key(phase: str) -> tuple:
+    head, _, rest = phase.partition(" ")
+    return (int(head) if head.isdigit() else 99, rest)
+
+
+def summary_lines(fx, runs: dict, seconds: dict) -> None:
+    """The lines and the check that read the results of phases in different workers."""
     say("16-17 kozlov_L3_reduced", seconds=f"{seconds['16'] + seconds['17']:.3f}")
-    k_steps = kozlov["protocol"]["steps"] + 2 * 2 + WARMUP_STEPS + TIMED_STEPS
+    k_steps = fx.kozlov["protocol"]["steps"] + 2 * 2 + WARMUP_STEPS + TIMED_STEPS
     for key in ("frozen_tilt.energy", "frozen_tilt.energy_grad"):
         plain, inside = runs["k32"]["launches"][key] / k_steps, runs["d32"]["per_step"][key]
         say("17 kozlov_L3_reduced f32 frozen tilt", kernel=key, per_step=repr(inside),
@@ -5605,159 +6116,80 @@ def main() -> int:
         if not inside > plain:
             raise AssertionError(f"{key}: {inside} launches per step in the reduced line search, "
                                  f"not above phase 4's {plain}")
-    # the leaflet smoothness folded into the frozen-tilt kernel, then the drives
-    runs["m64"] = timed("18", phase_smooth, torch, ft, counters, "18 kozlov_L3_smooth f64",
-                        smooth, torch.float64, kozlov_path)
-    runs["m32"] = timed("19", phase_smooth, torch, ft, counters, "19 kozlov_L3_smooth f32",
-                        smooth, torch.float32, f32_kozlov_path, f64=runs["m64"], k32=runs["k32"])
     say("18 kozlov_L3_smooth f64 host syncs", per_minimize_1=runs["m64"]["syncs"],
         phase_5_per_minimize_1=runs["k64"]["syncs"])
-    runs["x"] = timed("20", phase_drives, torch, counters, "20 kozlov_L3_drives", drives)
-    say("18-20", seconds=f"{seconds['18'] + seconds['19'] + seconds['20']:.3f}",
-        phases=json.dumps({k: seconds[k] for k in ("18", "19", "20")}))
-    # the rigid free disk, the local-interface lane (dense tilt rows), the
-    # family's drives
-    runs["f64"] = timed("21", phase_free_disk, torch, counters, "21 kozlov_L3_free_disk f64",
-                        free_disk, torch.float64, kozlov_path)
-    runs["f32"] = timed("22", phase_free_disk, torch, counters, "22 kozlov_L3_free_disk f32",
-                        free_disk, torch.float32, f32_kozlov_path, f64=runs["f64"])
-    runs["i64"] = timed("23", phase_interface, torch, counters, "23 kozlov_L3_interface f64",
-                        interface, torch.float64, kozlov_path)
-    runs["i32"] = timed("24", phase_interface, torch, counters, "24 kozlov_L3_interface f32",
-                        interface, torch.float32, kozlov_path, f64=runs["i64"])
-    runs["md"] = timed("25", phase_match_drives, torch, counters, "25 kozlov_L3_match_drives",
-                       match)
-    new = ("21", "22", "23", "24", "25")
-    say("21-25", seconds=f"{sum(seconds[k] for k in new):.3f}",
-        phases=json.dumps({k: seconds[k] for k in new}))
-    # the physical-edge rim placement and its scaffold-trace lane: the
-    # frozen-tilt kernel on the first at float32, on neither at the scaffold
-    frozen = ("frozen_tilt.energy", "frozen_tilt.energy_grad")
-    runs["p64"] = timed("26", phase_physical_edge, torch, counters,
-                        "26 kozlov_L3_physical_edge f64", physical_edge, torch.float64,
-                        kozlov_path)
-    runs["p32"] = timed("27", phase_physical_edge, torch, counters,
-                        "27 kozlov_L3_physical_edge f32", physical_edge, torch.float32,
-                        f32_kozlov_path, f64=runs["p64"])
-    runs["q64"] = timed("28", phase_physical_edge, torch, counters, "28 kozlov_L3_scaffold f64",
-                        scaffold, torch.float64, kozlov_path, forbid=frozen)
-    runs["q32"] = timed("29", phase_physical_edge, torch, counters, "29 kozlov_L3_scaffold f32",
-                        scaffold, torch.float32, kozlov_path, f64=runs["q64"], forbid=frozen)
-    new = ("26", "27", "28", "29")
-    say("26-29", seconds=f"{sum(seconds[k] for k in new):.3f}",
-        phases=json.dumps({k: seconds[k] for k in new}),
-        host_syncs_per_minimize_1=json.dumps({"5": runs["k64"]["syncs"], "26": runs["p64"]["syncs"],
-                                              "28": runs["q64"]["syncs"]}))
-    # the last per-module modes: the J0-fit lane (the frozen-tilt kernel on
-    # its zeroed base rows at float32) and the mode drives
-    runs["j64"] = timed("30", phase_j0_fit, torch, ft, counters, "30 kozlov_L3_J0_fit f64",
-                        j0_fit, torch.float64, kozlov_path)
-    runs["j32"] = timed("31", phase_j0_fit, torch, ft, counters, "31 kozlov_L3_J0_fit f32",
-                        j0_fit, torch.float32, f32_kozlov_path, f64=runs["j64"])
-    runs["o"] = timed("32", phase_mode_drives, torch, counters, "32 kozlov_L3_mode_drives",
-                      mode_drives)
-    new = ("30", "31", "32")
-    say("30-32", seconds=f"{sum(seconds[k] for k in new):.3f}",
-        phases=json.dumps({k: seconds[k] for k in new}),
-        host_syncs_per_minimize_1=json.dumps({"5": runs["k64"]["syncs"],
-                                              "30": runs["j64"]["syncs"]}))
-    # the parameter sweep (member-axis kernels) and the multi-disk analysis
-    runs["w64"] = timed("33", phase_sweep, torch, tk, vs, counters, "33 kozlov_L3_sweep f64",
-                        sweep, torch.float64, runs["k64"]["snap"])
-    runs["w32"] = timed("34", phase_sweep, torch, tk, vs, counters, "34 kozlov_L3_sweep f32",
-                        sweep, torch.float32, runs["k32"]["snap"], f64=runs["w64"])
-    runs["a"] = timed("35", phase_multidisk, torch, counters, "35 multidisk_sweep")
-    for key in ("w64", "w32"):
+
+    def span(name, keys, **more):
+        say(name, seconds=f"{sum(seconds[k] for k in keys):.3f}",
+            phases=json.dumps({k: seconds[k] for k in keys}), **more)
+
+    span("18-20", ("18", "19", "20"))
+    span("21-25", ("21", "22", "23", "24", "25"))
+    span("26-29", ("26", "27", "28", "29"),
+         host_syncs_per_minimize_1=json.dumps({"5": runs["k64"]["syncs"],
+                                               "26": runs["p64"]["syncs"],
+                                               "28": runs["q64"]["syncs"]}))
+    span("30-32", ("30", "31", "32"),
+         host_syncs_per_minimize_1=json.dumps({"5": runs["k64"]["syncs"],
+                                               "30": runs["j64"]["syncs"]}))
+    span("33-35", ("33", "34", "35"), busy_share_34=runs["w32"]["busy_share"])
+    span("36-38", ("36", "37", "38"),
+         busy_share=json.dumps({"36": runs["h64"]["busy_share"],
+                                "37": runs["h32"]["busy_share"]}))
+    span("39-41", ("39", "40", "41"),
+         busy_share=json.dumps({"39": runs["e64"]["busy_share"],
+                                "40": runs["e32"]["busy_share"]}))
+    span("42-47", ("42", "43", "44", "45", "46", "47"))
+    span("48-52", ("48", "49", "50", "51", "52"))
+
+
+def main() -> int:
+    if sys.argv[1:2] == ["--worker"]:
+        return worker(int(sys.argv[2]))
+    t_start = time.perf_counter()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 2
+    mods = kernel_modules()
+    fx = load_fixtures()
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))  # the workers end with this process
+    seconds, peaks = {}, {}
+    timed = phase_timer(torch, seconds, peaks)
+
+    device = timed("1", phase_device, torch)
+    timed("2", phase_build, mods)
+    kern = timed("3", lambda: phase_kernels(
+        torch, mods, build_lane(torch, fx.kozlov["protocol"], torch.float64).problem(),
+        build_lane(torch, fx.vesicle["protocol"], torch.float64).problem()))
+    # phases 4-52 in the workers, then the quiet stage: each worker's timing in turn
+    with Workers() as pool:
+        t0 = time.perf_counter()
+        pool.wait_ready()
+        seconds["workers' lanes"] = round(time.perf_counter() - t0, 3)
+        results = pool.quiet_stage()
+        seconds["quiet stage"] = round(time.perf_counter() - t0 - seconds["workers' lanes"], 3)
+        pool.print_lines()
+    runs = {}
+    for res in results:
+        runs.update(res["runs"])
+        seconds.update(res["seconds"])
+        peaks.update(res["peaks"])
+        for k, v in res["errs"].items():
+            kern["errs"][k] = max(kern["errs"].get(k, 0.0), v)
+    for key in ("w64", "w32", "g64"):
         for k, v in runs[key]["errs"].items():
             kern["errs"][k] = max(kern["errs"].get(k, 0.0), v)
-    kern["timing"].update(runs["w32"]["timing"])
-    new = ("33", "34", "35")
-    say("33-35", seconds=f"{sum(seconds[k] for k in new):.3f}",
-        phases=json.dumps({k: seconds[k] for k in new}),
-        busy_share_34=runs["w32"]["busy_share"])
-    # the sweep over the shape family: the Helfrich vesicle (accepted steps,
-    # curvature data both ways, the volume rows and enforcement) and
-    # square_to_circle (the hard area's member route)
-    runs["h64"] = timed("36", phase_vesicle_sweep, torch, counters,
-                        "36 helfrich_cube_L5_sweep f64", vesicle_sweep, torch.float64,
-                        runs["v64"]["snap"])
-    runs["h32"] = timed("37", phase_vesicle_sweep, torch, counters,
-                        "37 helfrich_cube_L5_sweep f32", vesicle_sweep, torch.float32,
-                        runs["v32"]["snap"], f64=runs["h64"])
-    runs["g64"] = timed("38", phase_square_sweep, torch, tk, counters,
-                        "38 square_to_circle_L1_sweep f64", square_sweep, runs["s64"]["mn"],
-                        runs["s64"]["snap"])
-    kern["errs"].update(runs["g64"]["errs"])
-    kern["timing"].update(runs["g64"]["timing"])
-    new = ("36", "37", "38")
-    say("36-38", seconds=f"{sum(seconds[k] for k in new):.3f}",
-        phases=json.dumps({k: seconds[k] for k in new}),
-        busy_share=json.dumps({"36": runs["h64"]["busy_share"], "37": runs["h32"]["busy_share"]}))
-    # the sweep over the leaflet tilt-field family: the tilt-decay scan on
-    # rect_tilt_source (accepted steps, the smoothness cotangents on the
-    # member axis) and every module of the family mapped over members
-    runs["e64"] = timed("39", phase_rect_sweep, torch, tk, vs, counters,
-                        "39 rect_tilt_source_L0_sweep f64", rect_sweep, torch.float64)
-    runs["e32"] = timed("40", phase_rect_sweep, torch, tk, vs, counters,
-                        "40 rect_tilt_source_L0_sweep f32", rect_sweep, torch.float32,
-                        f64=runs["e64"])
-    runs["u"] = timed("41", phase_tilt_drives, torch, tk, vs, counters,
-                      "41 kozlov_L3_sweep_tilt_drives", tilt_sweep)
-    new = ("39", "40", "41")
-    say("39-41", seconds=f"{sum(seconds[k] for k in new):.3f}",
-        phases=json.dumps({k: seconds[k] for k in new}),
-        busy_share=json.dumps({"39": runs["e64"]["busy_share"], "40": runs["e32"]["busy_share"]}))
-    # the local-interface family and the rigid disk in the sweep, from the
-    # states phases 23-24 and 21-22 left; the family and the rigid disk
-    # mapped over members; the visualization's face values (kernel 4)
-    runs["n64"] = timed("42", phase_lane_sweep, torch, tk, vs, counters,
-                        "42 kozlov_L3_interface_sweep f64", interface_sweep, torch.float64,
-                        runs["i64"]["snap"])
-    runs["n32"] = timed("43", phase_lane_sweep, torch, tk, vs, counters,
-                        "43 kozlov_L3_interface_sweep f32", interface_sweep, torch.float32,
-                        runs["i32"]["snap"], f64=runs["n64"])
-    runs["y64"] = timed("44", phase_lane_sweep, torch, tk, vs, counters,
-                        "44 kozlov_L3_free_disk_sweep f64", free_disk_sweep, torch.float64,
-                        runs["f64"]["snap"])
-    runs["y32"] = timed("45", phase_lane_sweep, torch, tk, vs, counters,
-                        "45 kozlov_L3_free_disk_sweep f32", free_disk_sweep, torch.float32,
-                        runs["f32"]["snap"], f64=runs["y64"])
-    runs["z"] = timed("46", phase_interface_drives, torch, tk, vs, counters,
-                      "46 kozlov_L3_sweep_interface_drives", interface_drives)
-    runs["vz"] = timed("47", phase_viz_face_values, torch, tk, counters,
-                       "47 kozlov_L3_viz_face_values", runs["i64"]["mn"])
-    new = ("42", "43", "44", "45", "46", "47")
-    say("42-47", seconds=f"{sum(seconds[k] for k in new):.3f}",
-        phases=json.dumps({k: seconds[k] for k in new}))
-    # the physical-edge shells and the trace_z fallback in the sweep, from the
-    # states phases 26-29 left; the rim placement's items mapped over members
-    runs["pe64"] = timed("48", phase_lane_sweep, torch, tk, vs, counters,
-                         "48 kozlov_L3_physical_edge_sweep f64", physical_edge_sweep,
-                         torch.float64, runs["p64"]["snap"], mn=runs["p64"]["mn"])
-    runs["pe32"] = timed("49", phase_lane_sweep, torch, tk, vs, counters,
-                         "49 kozlov_L3_physical_edge_sweep f32", physical_edge_sweep,
-                         torch.float32, runs["p32"]["snap"], f64=runs["pe64"],
-                         mn=runs["p32"]["mn"])
-    runs["sc64"] = timed("50", phase_lane_sweep, torch, tk, vs, counters,
-                         "50 kozlov_L3_scaffold_sweep f64", scaffold_sweep, torch.float64,
-                         runs["q64"]["snap"], mn=runs["q64"]["mn"])
-    runs["sc32"] = timed("51", phase_lane_sweep, torch, tk, vs, counters,
-                         "51 kozlov_L3_scaffold_sweep f32", scaffold_sweep, torch.float32,
-                         runs["q32"]["snap"], f64=runs["sc64"], mn=runs["q32"]["mn"])
-    runs["pd"] = timed("52", phase_physical_edge_drives, torch, tk, vs, counters,
-                       "52 kozlov_L3_sweep_physical_edge_drives", physical_edge_drives)
-    new = ("48", "49", "50", "51", "52")
-    say("48-52", seconds=f"{sum(seconds[k] for k in new):.3f}",
-        phases=json.dumps({k: seconds[k] for k in new}))
-    # phases 8-10 have imported the CLI and the command layer by now
-    if not {"membrane_solver_tpu_torch.cli", "membrane_solver_tpu_torch.commands"} <= set(sys.modules):
-        raise AssertionError("the CLI and the command layer were not imported")
-    if "jax" in sys.modules or any(m.split(".")[0] == "membrane_solver_tpu" for m in sys.modules):
-        raise AssertionError("jax or the JAX package was imported")
-    if "matplotlib" in sys.modules:
-        raise AssertionError("matplotlib was imported (the card's host has none)")
+    for key in ("w32", "g64"):
+        kern["timing"].update(runs[key]["timing"])
+    summary_lines(fx, runs, seconds)
+    check_imports(cli=False)
 
-    say("phase seconds", seconds=json.dumps(seconds))
+    say("phase seconds", seconds=json.dumps(dict(sorted(seconds.items(),
+                                                        key=lambda kv: phase_key(kv[0])))))
+    say("phase peak memory", gib=json.dumps(dict(sorted(peaks.items(),
+                                                        key=lambda kv: phase_key(kv[0])))))
     say("total", seconds=f"{time.perf_counter() - t_start:.3f}")
     print(json.dumps({"kernels": kernels_line(kern, runs)}), flush=True)
     print(smi_line(), flush=True)

@@ -16,28 +16,32 @@
 //   tri_p1_div_bwd           (its backward in the tilts: JAX differentiates
 //                            the stock function)
 //
-// tri_surface_fwd and tri_curvature_fwd / tri_curvature_bwd run the same
-// kernels with per-triangle outputs and no sums (the tests and the card
-// checks).  Every kernel gathers its corners from the (Nv, 3)
-// positions (and tilts) through the (T, 3) int64 tri_rows itself and writes
-// per-triangle rows in the layout of the JAX functions (corner vectors as
-// (T, 3, 3), index corner * 3 + xyz).  A row index outside [0, Nv) makes that
-// triangle's outputs NaN instead of reading out of bounds.
+// tri_surface_fwd and tri_curvature_fwd / tri_curvature_bwd give the
+// per-triangle outputs with no sums (the tests and the card checks): the
+// surface and curvature backward kernels of the whole calls, and a thread
+// per triangle for the curvature forward.  Every kernel gathers its corners
+// from the (Nv, 3) positions (and tilts) through the (T, 3) int64 tri_rows
+// itself and writes per-triangle rows in the layout of the JAX functions
+// (corner vectors as (T, 3, 3), index corner * 3 + xyz).  A row index
+// outside [0, Nv) makes that triangle's outputs NaN instead of reading out
+// of bounds.
 //
-// The whole calls, with no atomics on a float: the vertex sums go through the
-// vertex-sum kernel (vertex_sum.cuh) in the order of the topology's corner
-// CSR, and the surface energy through a last-block sum of double partials
-// (block_sum.cuh), so every call gives the same bits on every run.
+// The whole calls, with no atomics on a float: every vertex sum adds in the
+// order of the topology's corner CSR, and the surface energy goes through a
+// last-block sum of double partials (block_sum.cuh), so every call gives the
+// same bits on every run.
 // - tri_surface_energy: the surface kernel reads tri_valid and the tension
 //   itself, sums the energy into one scalar and, with the gradient, writes
 //   the corner gradients +dE/dv to a (T, 3, 3) scratch that stays in L2; the
-//   vertex-sum kernel adds them into (Nv, 3).
-// - tri_curvature_data: the curvature kernel writes the cotangents and Meyer
-//   corner areas (outputs) and the corner mean-curvature vectors (scratch);
-//   the vertex-sum kernel adds the vectors and areas into k_vecs (Nv, 3) and
-//   vertex_areas (Nv,).  Its backward kernel reads the vertex upstream
-//   through tri_rows itself and writes corner gradients to a scratch that
-//   the vertex-sum kernel adds into (Nv, 3).  Any upstream may be null.
+//   vertex-sum kernel (vertex_sum.cuh) adds them into (Nv, 3).
+// - tri_curvature_data: one launch, a lane group per vertex row of the
+//   corner CSR (below): each lane recomputes one slot's triangle and writes
+//   that corner's cotangent and Meyer area (outputs); the group adds the
+//   corner mean-curvature vectors and areas into k_vecs (Nv, 3) and
+//   vertex_areas (Nv,) in slot order.  No scratch.  Its backward: the tiled
+//   backward kernel reads the vertex upstreams through tri_rows itself and
+//   writes corner gradients to a (T, 3, 3) scratch that the vertex-sum
+//   kernel adds into (Nv, 3).  Any upstream may be null.
 // - tri_p1_div: div zeroed on invalid triangles, the area zeroed where the
 //   triangle is invalid or below the area floor, and the P1 shape gradients
 //   g (T, 3, 3).  tri_p1_div_bwd: dE/dt_v = sum over the CSR slots (t, c) of
@@ -47,7 +51,10 @@
 // device/tilt_ops.py operation by operation; the file is built with
 // -fmad=false so that no multiply-add is contracted, which keeps the Meyer
 // obtuse-branch tests (c < 0) on the same side as the twin's where the
-// cotangent sits at a tie (the right triangles of a refined cube).
+// cotangent sits at a tie (the right triangles of a refined cube).  Every
+// curvature value comes from one expression tree (curv_of, curv_corner,
+// curv_adjoint) whichever kernel computes it, so the whole calls give the
+// bits of the per-triangle kernels summed by the vertex sum.
 //
 // What bounds them on an H100: bytes, then latency.  Counted at the kozlov
 // L3 lane (Nv = 10,817, T = 21,504, float32), each call's own inputs read
@@ -61,16 +68,31 @@
 //   upstream in, (Nv, 3) out), 0.302 us;
 // - curvature data 1.36 MB, 0.405 us; its backward 0.97 MB, 0.290 us.
 // Some 60-140 flops per triangle (320 in the curvature backward), far below
-// either peak.  So the surface and divergence kernels are laid out for the
-// memory system: 128 triangles per block (168 blocks at L3, work on every
-// one of the 132 SMs); the block's 3,072-byte tri_rows slab is loaded into
-// shared memory as 16-byte vectors, then the corners are gathered through
-// L2 with __ldg (positions and tilts are 0.13 MB each); the (T, 3, 3)
-// outputs are staged in shared memory and written as contiguous 16-byte
-// stores instead of nine 36-byte-strided scalar stores per thread.  The
-// curvature kernels keep one thread per triangle in 256-thread blocks; the
-// backward recomputes the forward in registers rather than reading saved
+// either peak.  So the surface, divergence and curvature-backward kernels
+// are laid out for the memory system: 128 triangles per block (168 blocks
+// at L3, work on every one of the 132 SMs); the block's 3,072-byte
+// tri_rows slab is loaded into shared memory as 16-byte vectors, then the
+// corners are gathered through L2 with __ldg (positions and tilts are 0.13
+// MB each); the (T, 3, 3) outputs are staged in shared memory and written
+// as contiguous 16-byte stores instead of nine 36-byte-strided scalar
+// stores per thread.  The curvature backward
+// recomputes the forward in registers rather than reading saved
 // intermediates, which trades ~100 flops for ~200 bytes per triangle.
+//
+// The curvature forward's whole call makes one launch and keeps no
+// (T, 3, 3) scratch: a lane group of kRowLanes = 8 lanes per corner-CSR
+// row (a kozlov row has 3-6 slots, 16 at one vertex) takes one slot per
+// lane, so each triangle is recomputed at its three corners (~3x the flops,
+// still far below the peak) and every lane's loads (the slot, the triangle's
+// rows and mask, its nine position values) are in flight together; the
+// ordered sum goes through shared memory, lane i < 4 of the group adding
+// value i of each slot.  On an H100 this beat one thread per row with a
+// chunk's loads in flight (its serial recompute needs ~200 registers),
+// groups of 4 lanes, a shuffle-ordered sum, and the tiled two-launch form
+// (by a quarter at one member; within a few per cent of it at eight,
+// PERF.md §6).  The backward's recompute is ~3x heavier, so that layout
+// lost there over the member axis and the backward keeps the tiled
+// two-launch form.
 //
 // The member axis (the parameter sweep, parallel/sweep.py): the *_members
 // entries run the same kernels over B stacked members, one block row per
@@ -90,8 +112,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // curvature kernels: threads (triangles) per block
-constexpr int kTile = 128;     // surface and divergence kernels: triangles per block
+constexpr int kThreads = 256;  // the per-triangle curvature forward: threads per block
+constexpr int kTile = 128;     // the tiled kernels: triangles per block
 constexpr double kEpsArea = 1e-12;  // geo.EPS_AREA
 
 template <typename T>
@@ -155,6 +177,12 @@ __device__ __forceinline__ T nan_of() {
   return T(__longlong_as_double(0x7ff8000000000000LL));
 }
 
+// Value c (0, 1 or 2) of three, by selects (no indexed local array).
+template <typename T>
+__device__ __forceinline__ T pick(int c, T a, T b, T d) {
+  return c == 0 ? a : (c == 1 ? b : d);
+}
+
 // ---------------------------------------------------------------------
 // tiles of kTile triangles: tri_rows in, (T, 3, 3) rows out
 // ---------------------------------------------------------------------
@@ -198,13 +226,14 @@ __device__ __forceinline__ void put_corners(T* s_tile, int tid, const V3<T>* d) 
   for (int k = 0; k < 3; ++k) store(s_tile, 3 * tid + k, d[k]);
 }
 
-// ``n`` values from shared ``src`` to global ``dst`` (both 16-byte aligned)
-// by the whole block as coalesced 16-byte stores; the last values past a
-// 16-byte multiple plainly.
+// ``n`` values from shared ``src`` (16-byte aligned) to global ``dst`` by
+// the whole block as coalesced 16-byte stores, the last values past a
+// 16-byte multiple plainly; all plainly where ``dst`` is not 16-byte
+// aligned (a member's slab when T * 9 values are not a 16-byte multiple).
 template <typename T>
 __device__ __forceinline__ void store_slab(T* __restrict__ dst, const T* src, int n) {
   constexpr int kVec = 16 / sizeof(T);
-  const int n16 = n / kVec;
+  const int n16 = reinterpret_cast<uintptr_t>(dst) % 16 ? 0 : n / kVec;
   for (int i = threadIdx.x; i < n16; i += kTile) {
     reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(src)[i];
   }
@@ -325,6 +354,31 @@ __device__ __forceinline__ Curv<T> curv_of(const V3<T>* v) {
   return s;
 }
 
+// Corner c's masked outputs, m = [valid]: the corner mean-curvature vector
+// kc = m/2 (c_j (-e_j) + c_k e_k), the Meyer corner area ac (the obtuse
+// branches) and the cotangent wc, with corner c's two others j = c + 1 and
+// k = c + 2 (mod 3) picked by selects.  The per-triangle forward and the
+// whole call's lanes both take every corner value from here.
+template <typename T>
+__device__ __forceinline__ void curv_corner(const V3<T>* v, bool live, int c, V3<T>* kc, T* ac,
+                                            T* wc) {
+  const Curv<T> s = curv_of(v);
+  const T m = live ? T(1) : T(0);
+  const T half = T(0.5);
+  const T cj = pick(c, s.c1, s.c2, s.c0), ck = pick(c, s.c2, s.c0, s.c1);
+  const V3<T> ej = pick(c, s.e1, s.e2, s.e0), ek = pick(c, s.e2, s.e0, s.e1);
+  *kc = scale(m, scale(half, add(scale(cj, neg(ej)), scale(ck, ek))));
+
+  const T area = half * s.dbl;
+  const bool any_obt = s.obt0 || s.obt1 || s.obt2;
+  const T lj = pick(c, s.l1, s.l2, s.l0), lk = pick(c, s.l2, s.l0, s.l1);
+  T a = !any_obt ? (lj * cj + lk * ck) / T(8) : T(0);
+  if (pick(c, s.obt0, s.obt1, s.obt2)) a = area / T(2);
+  if (pick(c, s.obt1 || s.obt2, s.obt0 || s.obt2, s.obt0 || s.obt1)) a = area / T(4);
+  *ac = a * m;
+  *wc = pick(c, s.c0, s.c1, s.c2) * m;
+}
+
 template <typename T>
 __global__ void curvature_fwd_kernel(const T* __restrict__ pos, const int64_t* __restrict__ rows,
                                      const bool* __restrict__ valid, T* __restrict__ cot,
@@ -332,45 +386,21 @@ __global__ void curvature_fwd_kernel(const T* __restrict__ pos, const int64_t* _
                                      T* __restrict__ tri_area, int n, int64_t nv) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n) return;
-  const int64_t member = blockIdx.y;  // member: its positions and outputs
-  pos += member * nv * 3;
-  cot += member * 3 * (int64_t)n;
-  kv += member * 9 * (int64_t)n;
-  va += member * 3 * (int64_t)n;
-  if (tri_area) tri_area += member * n;
   V3<T> v[3];
   if (!load_corners(pos, rows, t, nv, v)) {
     const T q = nan_of<T>();
     for (int i = 0; i < 3; ++i) cot[3 * t + i] = va[3 * t + i] = q;
     for (int i = 0; i < 9; ++i) kv[9 * t + i] = q;
-    if (tri_area) tri_area[t] = q;
+    tri_area[t] = q;
     return;
   }
-  const Curv<T> s = curv_of(v);
-  const T m = valid[t] ? T(1) : T(0);
-  const T half = T(0.5);
-  store(kv, 3 * t + 0, scale(m, scale(half, add(scale(s.c1, neg(s.e1)), scale(s.c2, s.e2)))));
-  store(kv, 3 * t + 1, scale(m, scale(half, add(scale(s.c2, neg(s.e2)), scale(s.c0, s.e0)))));
-  store(kv, 3 * t + 2, scale(m, scale(half, add(scale(s.c0, neg(s.e0)), scale(s.c1, s.e1)))));
-
-  const T area = half * s.dbl;
-  const bool any_obt = s.obt0 || s.obt1 || s.obt2;
-  T a0 = !any_obt ? (s.l1 * s.c1 + s.l2 * s.c2) / T(8) : T(0);
-  T a1 = !any_obt ? (s.l2 * s.c2 + s.l0 * s.c0) / T(8) : T(0);
-  T a2 = !any_obt ? (s.l0 * s.c0 + s.l1 * s.c1) / T(8) : T(0);
-  if (s.obt0) a0 = area / T(2);
-  if (s.obt1 || s.obt2) a0 = area / T(4);
-  if (s.obt1) a1 = area / T(2);
-  if (s.obt0 || s.obt2) a1 = area / T(4);
-  if (s.obt2) a2 = area / T(2);
-  if (s.obt0 || s.obt1) a2 = area / T(4);
-  va[3 * t + 0] = a0 * m;
-  va[3 * t + 1] = a1 * m;
-  va[3 * t + 2] = a2 * m;
-  cot[3 * t + 0] = s.c0 * m;
-  cot[3 * t + 1] = s.c1 * m;
-  cot[3 * t + 2] = s.c2 * m;
-  if (tri_area) tri_area[t] = area;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    V3<T> k;
+    curv_corner(v, valid[t], c, &k, va + 3 * t + c, cot + 3 * t + c);
+    store(kv, 3 * t + c, k);
+  }
+  tri_area[t] = T(0.5) * curv_of(v).dbl;
 }
 
 // Adjoint of the Meyer corner area of corner i, whose two "other" corners
@@ -403,51 +433,16 @@ __device__ __forceinline__ T upstream(const T* __restrict__ per_tri, int64_t i,
   return g;
 }
 
-// g_cot, g_kv (T, 3, 3), g_va, g_area: per-triangle upstreams; g_kvecs
-// (Nv, 3) and g_varea (Nv,): upstreams of the vertex sums of the corner
-// vectors and corner areas.  Each may be null.
+// The corner gradients dp (3 corners) of one triangle from its upstreams:
+// gk_i of corner vector i, gc_i of cotangent i and gva_i of corner area i
+// (these two already times m = [valid]), gA of the triangle area.
 template <typename T>
-__global__ void curvature_bwd_kernel(const T* __restrict__ pos, const int64_t* __restrict__ rows,
-                                     const bool* __restrict__ valid, const T* __restrict__ g_cot,
-                                     const T* __restrict__ g_kv, const T* __restrict__ g_va,
-                                     const T* __restrict__ g_area, const T* __restrict__ g_kvecs,
-                                     const T* __restrict__ g_varea, T* __restrict__ dp, int n,
-                                     int64_t nv) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n) return;
-  const int64_t member = blockIdx.y;  // member: its positions, upstreams and output
-  pos += member * nv * 3;
-  if (g_cot) g_cot += member * 3 * (int64_t)n;
-  if (g_kv) g_kv += member * 9 * (int64_t)n;
-  if (g_va) g_va += member * 3 * (int64_t)n;
-  if (g_area) g_area += member * n;
-  if (g_kvecs) g_kvecs += member * nv * 3;
-  if (g_varea) g_varea += member * nv;
-  dp += member * 9 * (int64_t)n;
-  V3<T> v[3];
-  if (!load_corners(pos, rows, t, nv, v)) {
-    const T q = nan_of<T>();
-    for (int i = 0; i < 9; ++i) dp[9 * t + i] = q;
-    return;
-  }
+__device__ __forceinline__ void curv_adjoint(const V3<T>* v, T m, V3<T> gk0, V3<T> gk1,
+                                             V3<T> gk2, T gc0, T gc1, T gc2, T gA, T gva0,
+                                             T gva1, T gva2, V3<T>* dp) {
   const Curv<T> s = curv_of(v);
-  const T m = valid[t] ? T(1) : T(0);
   const T half = T(0.5);
-  const int64_t r0 = rows[3 * t], r1 = rows[3 * t + 1], r2 = rows[3 * t + 2];
-  const int64_t k0 = 9 * (int64_t)t;
-  const V3<T> gk0 = {upstream(g_kv, k0 + 0, g_kvecs, 3 * r0), upstream(g_kv, k0 + 1, g_kvecs, 3 * r0 + 1),
-                     upstream(g_kv, k0 + 2, g_kvecs, 3 * r0 + 2)};
-  const V3<T> gk1 = {upstream(g_kv, k0 + 3, g_kvecs, 3 * r1), upstream(g_kv, k0 + 4, g_kvecs, 3 * r1 + 1),
-                     upstream(g_kv, k0 + 5, g_kvecs, 3 * r1 + 2)};
-  const V3<T> gk2 = {upstream(g_kv, k0 + 6, g_kvecs, 3 * r2), upstream(g_kv, k0 + 7, g_kvecs, 3 * r2 + 1),
-                     upstream(g_kv, k0 + 8, g_kvecs, 3 * r2 + 2)};
-
-  // adjoints of the cotangents, the squared lengths, the area and the edges
-  T gc0 = (g_cot ? g_cot[3 * t + 0] : T(0)) * m;
-  T gc1 = (g_cot ? g_cot[3 * t + 1] : T(0)) * m;
-  T gc2 = (g_cot ? g_cot[3 * t + 2] : T(0)) * m;
   T gl0 = T(0), gl1 = T(0), gl2 = T(0);
-  T gA = g_area ? g_area[t] : T(0);
   V3<T> ge0 = {T(0), T(0), T(0)}, ge1 = ge0, ge2 = ge0;
 
   // k0 = m/2 (c1 (-e1) + c2 e2), k1 = m/2 (c2 (-e2) + c0 e0), k2 = m/2 (c0 (-e0) + c1 e1)
@@ -467,9 +462,6 @@ __global__ void curvature_bwd_kernel(const T* __restrict__ pos, const int64_t* _
 
   // Meyer corner areas (masked)
   const bool any_obt = s.obt0 || s.obt1 || s.obt2;
-  const T gva0 = upstream(g_va, 3 * (int64_t)t + 0, g_varea, r0) * m;
-  const T gva1 = upstream(g_va, 3 * (int64_t)t + 1, g_varea, r1) * m;
-  const T gva2 = upstream(g_va, 3 * (int64_t)t + 2, g_varea, r2) * m;
   va_adjoint(gva0, s.obt0, s.obt1 || s.obt2, any_obt, s.l1, s.c1, s.l2, s.c2, gA, gl1, gc1, gl2,
              gc2);
   va_adjoint(gva1, s.obt1, s.obt0 || s.obt2, any_obt, s.l2, s.c2, s.l0, s.c0, gA, gl2, gc2, gl0,
@@ -501,9 +493,155 @@ __global__ void curvature_bwd_kernel(const T* __restrict__ pos, const int64_t* _
   }
 
   // e0 = v2 - v1, e1 = v0 - v2, e2 = v1 - v0
-  store(dp, 3 * t + 0, sub(ge1, ge2));
-  store(dp, 3 * t + 1, sub(ge2, ge0));
-  store(dp, 3 * t + 2, sub(ge0, ge1));
+  dp[0] = sub(ge1, ge2);
+  dp[1] = sub(ge2, ge0);
+  dp[2] = sub(ge0, ge1);
+}
+
+// The corner gradients dc (T, 3, 3) from the per-triangle upstreams g_cot,
+// g_kv (T, 3, 3), g_va and g_area and the vertex upstreams g_kvecs (Nv, 3)
+// and g_varea (Nv,) of the whole call's sums, read under the triangle's
+// rows; each may be null.  Tiles of kTile triangles: the rows slab in
+// shared memory, the corners gathered through L2, dc staged and stored as
+// 16-byte vectors.  Member blockIdx.y offsets its positions, upstreams and
+// dc; rows and valid are shared.
+template <typename T>
+__global__ void __launch_bounds__(kTile)
+    curvature_bwd_kernel(const T* __restrict__ pos, const int64_t* __restrict__ rows,
+                         const bool* __restrict__ valid, const T* __restrict__ g_cot,
+                         const T* __restrict__ g_kv, const T* __restrict__ g_va,
+                         const T* __restrict__ g_area, const T* __restrict__ g_kvecs,
+                         const T* __restrict__ g_varea, T* __restrict__ dc, int n, int64_t nv) {
+  __shared__ alignas(16) int64_t s_rows[3 * kTile];
+  __shared__ alignas(16) T s_dc[9 * kTile];
+  const int64_t member = blockIdx.y;
+  pos += member * nv * 3;
+  if (g_cot) g_cot += member * 3 * (int64_t)n;
+  if (g_kv) g_kv += member * 9 * (int64_t)n;
+  if (g_va) g_va += member * 3 * (int64_t)n;
+  if (g_area) g_area += member * n;
+  if (g_kvecs) g_kvecs += member * nv * 3;
+  if (g_varea) g_varea += member * nv;
+  dc += member * 9 * (int64_t)n;
+  const int tid = threadIdx.x;
+  const int first = blockIdx.x * kTile;
+  const int here = min(kTile, n - first);
+  load_rows(rows, first, here, s_rows);
+
+  if (tid < here) {
+    const int t = first + tid;
+    const int64_t* r = s_rows + 3 * tid;
+    V3<T> v[3], d[3];
+    const bool ok = gather(pos, r, nv, v);
+    const T m = valid[t] ? T(1) : T(0);
+    const int64_t k0 = 9 * (int64_t)t;
+    V3<T> gk[3];
+    T gc[3], gva[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      gk[i] = {upstream(g_kv, k0 + 3 * i, g_kvecs, 3 * r[i]),
+               upstream(g_kv, k0 + 3 * i + 1, g_kvecs, 3 * r[i] + 1),
+               upstream(g_kv, k0 + 3 * i + 2, g_kvecs, 3 * r[i] + 2)};
+      gc[i] = (g_cot ? g_cot[3 * t + i] : T(0)) * m;
+      gva[i] = upstream(g_va, 3 * (int64_t)t + i, g_varea, r[i]) * m;
+    }
+    curv_adjoint(v, m, gk[0], gk[1], gk[2], gc[0], gc[1], gc[2], g_area ? g_area[t] : T(0),
+                 gva[0], gva[1], gva[2], d);
+    if (!ok) {
+      const T q = nan_of<T>();
+      d[0] = d[1] = d[2] = V3<T>{q, q, q};
+    }
+    put_corners(s_dc, tid, d);
+  }
+  __syncthreads();
+  store_slab(dc + 9 * (int64_t)first, s_dc, 9 * here);
+}
+
+// ---------------------------------------------------------------------
+// the curvature whole call: a lane group per vertex row of the corner CSR
+// ---------------------------------------------------------------------
+// Row v's slots (t, c) go one per lane, kRowLanes at a time: each lane
+// recomputes its triangle t and takes corner c (curv_corner).  The lanes
+// put their four values (k_c and va_c) in shared memory, and lane i < 4 of
+// the group adds value i of the chunk's slots in slot order, going on over
+// the row's chunks: ((0 + s_0) + s_1) + ..., the chain the vertex sum makes
+// over the per-triangle kernel's outputs.
+constexpr int kRowLanes = 8;      // lanes per vertex row
+constexpr int kRowThreads = 128;  // threads per block: 16 rows
+constexpr int kSumStride = 5;     // shared values per lane, 4 padded (no bank conflicts)
+
+// Row v: cot[t, c] and va[t, c] for each of its slots (t, c), k_vecs[v] and
+// vertex_areas[v] the sums of corner c's vector and area over the slots.
+// Member blockIdx.y offsets its positions and outputs; rows, valid and the
+// CSR are shared.
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+    curvature_data_kernel(const T* __restrict__ pos, const int64_t* __restrict__ rows,
+                          const bool* __restrict__ valid, const int32_t* __restrict__ offsets,
+                          const int32_t* __restrict__ slots, T* __restrict__ cot,
+                          T* __restrict__ va, T* __restrict__ k_vecs,
+                          T* __restrict__ vertex_areas, int n, int64_t nv) {
+  __shared__ T s_val[kRowThreads * kSumStride];
+  const int64_t member = blockIdx.y;
+  pos += member * nv * 3;
+  cot += member * 3 * (int64_t)n;
+  va += member * 3 * (int64_t)n;
+  k_vecs += member * nv * 3;
+  vertex_areas += member * nv;
+  const int64_t row = ((int64_t)blockIdx.x * kRowThreads + threadIdx.x) / kRowLanes;
+  const int lane = threadIdx.x % kRowLanes;
+  const int base = threadIdx.x - lane;  // the group's first lane in the block
+  const unsigned mask = ((1u << kRowLanes) - 1) << (base % 32);
+  int lo = 0, hi = 0;  // no slots past the last row: every lane of a group loops alike
+  if (row < nv) {
+    lo = offsets[row];
+    hi = offsets[row + 1];
+  }
+  T sum = T(0);  // lane i < 4: k.x, k.y, k.z, area
+  for (int first = lo; first < hi; first += kRowLanes) {
+    V3<T> kc = {T(0), T(0), T(0)};
+    T ac = T(0);
+    if (first + lane < hi) {
+      const int slot = slots[first + lane];
+      const int t = slot / 3;
+      int64_t r[3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) r[i] = __ldg(rows + 3 * (int64_t)t + i);
+      const bool live = valid[t];
+      V3<T> x[3];
+      const bool ok = gather(pos, r, nv, x);
+      T wc;
+      curv_corner(x, live, slot % 3, &kc, &ac, &wc);
+      if (!ok) {
+        const T q = nan_of<T>();
+        kc = {q, q, q};
+        ac = wc = q;
+      }
+      cot[slot] = wc;
+      va[slot] = ac;
+    }
+    T* mine = s_val + threadIdx.x * kSumStride;
+    mine[0] = kc.x;
+    mine[1] = kc.y;
+    mine[2] = kc.z;
+    mine[3] = ac;
+    __syncwarp(mask);
+    if (lane < 4) {
+      const int here = hi - first;
+#pragma unroll
+      for (int i = 0; i < kRowLanes; ++i) {
+        if (i < here) sum += s_val[(base + i) * kSumStride + lane];
+      }
+    }
+    __syncwarp(mask);
+  }
+  if (row < nv && lane < 4) {
+    if (lane < 3) {
+      k_vecs[3 * row + lane] = sum;
+    } else {
+      vertex_areas[row] = sum;
+    }
+  }
 }
 
 // ---------------------------------------------------------------------
@@ -572,9 +710,13 @@ __global__ void __launch_bounds__(kTile)
   store_slab(grads + 9 * (int64_t)first, s_g, 9 * here);
 }
 
-// Grids over n triangles, with ``members`` stacked members on the y axis.
-inline dim3 blocks_for(int n, int members = 1) {
-  return dim3((unsigned int)((n + kThreads - 1) / kThreads), (unsigned int)members);
+// Grids over n triangles: the per-triangle curvature kernels' (one member),
+// the tiles' with ``members`` stacked members on the y axis.
+inline dim3 blocks_for(int n) { return dim3((unsigned int)((n + kThreads - 1) / kThreads)); }
+// Grids over nv vertex rows of kRowLanes lanes each, members on the y axis.
+inline dim3 row_groups_for(int64_t nv, int members) {
+  constexpr int64_t kRows = kRowThreads / kRowLanes;
+  return dim3((unsigned int)((nv + kRows - 1) / kRows), (unsigned int)members);
 }
 inline dim3 tiles_for(int n, int members = 1) {
   return dim3((unsigned int)((n + kTile - 1) / kTile), (unsigned int)members);
@@ -708,11 +850,11 @@ extern "C" int tri_curvature_bwd(int f64, const void* pos, const int64_t* rows, 
   if (n > 0) {
     cudaStream_t st = (cudaStream_t)stream;
     if (f64) {
-      curvature_bwd_kernel<double><<<blocks_for(n), kThreads, 0, st>>>(
+      curvature_bwd_kernel<double><<<tiles_for(n), kTile, 0, st>>>(
           (const double*)pos, rows, valid, (const double*)g_cot, (const double*)g_kv,
           (const double*)g_va, (const double*)g_area, nullptr, nullptr, (double*)dp, n, nv);
     } else {
-      curvature_bwd_kernel<float><<<blocks_for(n), kThreads, 0, st>>>(
+      curvature_bwd_kernel<float><<<tiles_for(n), kTile, 0, st>>>(
           (const float*)pos, rows, valid, (const float*)g_cot, (const float*)g_kv,
           (const float*)g_va, (const float*)g_area, nullptr, nullptr, (float*)dp, n, nv);
     }
@@ -722,54 +864,55 @@ extern "C" int tri_curvature_bwd(int f64, const void* pos, const int64_t* rows, 
 
 namespace {
 
+// One launch: a lane group per vertex row, ``members`` stacked members on
+// the grid's y axis.  Nothing for nv = 0.
 template <typename T>
 void curvature_data(const T* pos, const int64_t* rows, const bool* valid, const int32_t* offsets,
-                    const int32_t* slots, T* cot, T* va, T* k_scratch, T* k_vecs, T* vertex_areas,
-                    int n, int64_t nv, cudaStream_t st, int members = 1) {
-  curvature_fwd_kernel<T><<<blocks_for(n, members), kThreads, 0, st>>>(
-      pos, rows, valid, cot, k_scratch, va, nullptr, n, nv);
-  vertex_sum::launch<T, 3, 1>(offsets, slots, k_scratch, k_vecs, va, vertex_areas, (int)nv, st,
-                              members, 3 * (int64_t)n);
+                    const int32_t* slots, T* cot, T* va, T* k_vecs, T* vertex_areas, int n,
+                    int64_t nv, cudaStream_t st, int members = 1) {
+  if (nv < 1) return;
+  curvature_data_kernel<T><<<row_groups_for(nv, members), kRowThreads, 0, st>>>(
+      pos, rows, valid, offsets, slots, cot, va, k_vecs, vertex_areas, n, nv);
 }
 
+// Two launches: the corner gradients into dc_scratch (T, 3, 3) per member,
+// then the vertex sum.
 template <typename T>
 void curvature_data_bwd(const T* pos, const int64_t* rows, const bool* valid,
                         const int32_t* offsets, const int32_t* slots, const T* g_kvecs,
                         const T* g_varea, const T* g_cot, const T* g_va, T* dc_scratch, T* dpos,
                         int n, int64_t nv, cudaStream_t st, int members = 1) {
-  curvature_bwd_kernel<T><<<blocks_for(n, members), kThreads, 0, st>>>(
-      pos, rows, valid, g_cot, nullptr, g_va, nullptr, g_kvecs, g_varea, dc_scratch, n, nv);
+  if (n > 0) {
+    curvature_bwd_kernel<T><<<tiles_for(n, members), kTile, 0, st>>>(
+        pos, rows, valid, g_cot, nullptr, g_va, nullptr, g_kvecs, g_varea, dc_scratch, n, nv);
+  }
   vertex_sum::launch<T, 3>(offsets, slots, dc_scratch, dpos, nullptr, nullptr, (int)nv, st,
                            members, 3 * (int64_t)n);
 }
 
 }  // namespace
 
-// Cotan curvature data in one call: cot (T, 3) and va (T, 3) per corner,
+// Cotan curvature data in one launch: cot (T, 3) and va (T, 3) per corner,
 // k_vecs (Nv, 3) and vertex_areas (Nv,) summed over the corner CSR
-// (offsets (Nv + 1,), slots (3T,)); k_scratch is (T, 3, 3).
+// (offsets (Nv + 1,), slots (3T,): every slot listed once, so each cot and
+// va entry has one writer).
 extern "C" int tri_curvature_data(int f64, const void* pos, const int64_t* rows,
                                   const bool* valid, const int32_t* offsets,
-                                  const int32_t* slots, void* cot, void* va, void* k_scratch,
-                                  void* k_vecs, void* vertex_areas, int n, int64_t nv,
-                                  void* stream) {
-  if (n > 0) {
-    cudaStream_t st = (cudaStream_t)stream;
-    if (f64) {
-      curvature_data<double>((const double*)pos, rows, valid, offsets, slots, (double*)cot,
-                             (double*)va, (double*)k_scratch, (double*)k_vecs,
-                             (double*)vertex_areas, n, nv, st);
-    } else {
-      curvature_data<float>((const float*)pos, rows, valid, offsets, slots, (float*)cot,
-                            (float*)va, (float*)k_scratch, (float*)k_vecs, (float*)vertex_areas,
-                            n, nv, st);
-    }
+                                  const int32_t* slots, void* cot, void* va, void* k_vecs,
+                                  void* vertex_areas, int n, int64_t nv, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (f64) {
+    curvature_data<double>((const double*)pos, rows, valid, offsets, slots, (double*)cot,
+                           (double*)va, (double*)k_vecs, (double*)vertex_areas, n, nv, st);
+  } else {
+    curvature_data<float>((const float*)pos, rows, valid, offsets, slots, (float*)cot,
+                          (float*)va, (float*)k_vecs, (float*)vertex_areas, n, nv, st);
   }
   return (int)cudaGetLastError();
 }
 
-// Its backward in one call: dpos (Nv, 3) from the upstream of k_vecs
-// (Nv, 3), vertex_areas (Nv,), cot (T, 3) and va (T, 3), any of them null;
+// Its backward: dpos (Nv, 3) from the upstream of k_vecs (Nv, 3),
+// vertex_areas (Nv,), cot (T, 3) and va (T, 3), any of them null;
 // dc_scratch is (T, 3, 3).
 extern "C" int tri_curvature_data_bwd(int f64, const void* pos, const int64_t* rows,
                                       const bool* valid, const int32_t* offsets,
@@ -777,19 +920,16 @@ extern "C" int tri_curvature_data_bwd(int f64, const void* pos, const int64_t* r
                                       const void* g_varea, const void* g_cot, const void* g_va,
                                       void* dc_scratch, void* dpos, int n, int64_t nv,
                                       void* stream) {
-  if (n > 0) {
-    cudaStream_t st = (cudaStream_t)stream;
-    if (f64) {
-      curvature_data_bwd<double>((const double*)pos, rows, valid, offsets, slots,
-                                 (const double*)g_kvecs, (const double*)g_varea,
-                                 (const double*)g_cot, (const double*)g_va, (double*)dc_scratch,
-                                 (double*)dpos, n, nv, st);
-    } else {
-      curvature_data_bwd<float>((const float*)pos, rows, valid, offsets, slots,
-                                (const float*)g_kvecs, (const float*)g_varea,
-                                (const float*)g_cot, (const float*)g_va, (float*)dc_scratch,
-                                (float*)dpos, n, nv, st);
-    }
+  cudaStream_t st = (cudaStream_t)stream;
+  if (f64) {
+    curvature_data_bwd<double>((const double*)pos, rows, valid, offsets, slots,
+                               (const double*)g_kvecs, (const double*)g_varea,
+                               (const double*)g_cot, (const double*)g_va, (double*)dc_scratch,
+                               (double*)dpos, n, nv, st);
+  } else {
+    curvature_data_bwd<float>((const float*)pos, rows, valid, offsets, slots,
+                              (const float*)g_kvecs, (const float*)g_varea, (const float*)g_cot,
+                              (const float*)g_va, (float*)dc_scratch, (float*)dpos, n, nv, st);
   }
   return (int)cudaGetLastError();
 }
@@ -843,20 +983,17 @@ extern "C" int tri_p1_div_bwd(int f64, const int32_t* offsets, const int32_t* sl
 extern "C" int tri_curvature_data_members(int f64, const void* pos, const int64_t* rows,
                                           const bool* valid, const int32_t* offsets,
                                           const int32_t* slots, void* cot, void* va,
-                                          void* k_scratch, void* k_vecs, void* vertex_areas,
-                                          int n, int64_t nv, int members, void* stream) {
+                                          void* k_vecs, void* vertex_areas, int n, int64_t nv,
+                                          int members, void* stream) {
   if (members < 1) return (int)cudaErrorInvalidValue;
-  if (n > 0) {
-    cudaStream_t st = (cudaStream_t)stream;
-    if (f64) {
-      curvature_data<double>((const double*)pos, rows, valid, offsets, slots, (double*)cot,
-                             (double*)va, (double*)k_scratch, (double*)k_vecs,
-                             (double*)vertex_areas, n, nv, st, members);
-    } else {
-      curvature_data<float>((const float*)pos, rows, valid, offsets, slots, (float*)cot,
-                            (float*)va, (float*)k_scratch, (float*)k_vecs, (float*)vertex_areas,
-                            n, nv, st, members);
-    }
+  cudaStream_t st = (cudaStream_t)stream;
+  if (f64) {
+    curvature_data<double>((const double*)pos, rows, valid, offsets, slots, (double*)cot,
+                           (double*)va, (double*)k_vecs, (double*)vertex_areas, n, nv, st,
+                           members);
+  } else {
+    curvature_data<float>((const float*)pos, rows, valid, offsets, slots, (float*)cot,
+                          (float*)va, (float*)k_vecs, (float*)vertex_areas, n, nv, st, members);
   }
   return (int)cudaGetLastError();
 }
@@ -868,19 +1005,17 @@ extern "C" int tri_curvature_data_bwd_members(int f64, const void* pos, const in
                                               const void* g_va, void* dc_scratch, void* dpos,
                                               int n, int64_t nv, int members, void* stream) {
   if (members < 1) return (int)cudaErrorInvalidValue;
-  if (n > 0) {
-    cudaStream_t st = (cudaStream_t)stream;
-    if (f64) {
-      curvature_data_bwd<double>((const double*)pos, rows, valid, offsets, slots,
-                                 (const double*)g_kvecs, (const double*)g_varea,
-                                 (const double*)g_cot, (const double*)g_va, (double*)dc_scratch,
-                                 (double*)dpos, n, nv, st, members);
-    } else {
-      curvature_data_bwd<float>((const float*)pos, rows, valid, offsets, slots,
-                                (const float*)g_kvecs, (const float*)g_varea,
-                                (const float*)g_cot, (const float*)g_va, (float*)dc_scratch,
-                                (float*)dpos, n, nv, st, members);
-    }
+  cudaStream_t st = (cudaStream_t)stream;
+  if (f64) {
+    curvature_data_bwd<double>((const double*)pos, rows, valid, offsets, slots,
+                               (const double*)g_kvecs, (const double*)g_varea,
+                               (const double*)g_cot, (const double*)g_va, (double*)dc_scratch,
+                               (double*)dpos, n, nv, st, members);
+  } else {
+    curvature_data_bwd<float>((const float*)pos, rows, valid, offsets, slots,
+                              (const float*)g_kvecs, (const float*)g_varea, (const float*)g_cot,
+                              (const float*)g_va, (float*)dc_scratch, (float*)dpos, n, nv, st,
+                              members);
   }
   return (int)cudaGetLastError();
 }

@@ -14,14 +14,16 @@ the solver's path, each one ctypes call:
   ``vertex_sum.reference``); its backward scales the saved gradient;
 - ``curvature_data``: the cotan curvature data of ``geo.curvature_data``:
   cotangent weights and Meyer corner areas per corner, and the corner
-  mean-curvature vectors and corner areas summed into vertex rows by the
-  vertex-sum kernel in corner-CSR order (twin: ``geo.curvature_corners``
-  and ``vertex_sum.reference``);
+  mean-curvature vectors and corner areas summed into vertex rows in
+  corner-CSR order, in one launch of a lane group per CSR row, each lane
+  recomputing one corner's triangle (twin: ``geo.curvature_corners`` and
+  ``vertex_sum.reference``);
 - ``curvature_data_bwd``: its vector-Jacobian product with respect to the
   positions, from the vertex upstream of ``k_vecs`` and ``vertex_areas``
   (read through ``tri_rows`` in the kernel) and the per-corner upstream of
-  the weights and corner areas, summed into vertex rows (twin: autograd of
-  ``geo.curvature_corners``, then ``vertex_sum.reference``);
+  the weights and corner areas, summed into vertex rows by the vertex-sum
+  kernel (twin: autograd of ``geo.curvature_corners``, then
+  ``vertex_sum.reference``);
 - ``p1_div``: the masked P1 divergence, the masked area and the P1 shape
   gradients of ``tilt_ops.p1_triangle_divergence`` (its twin);
 - ``p1_div_bwd``: its backward in the tilts, ``[valid_t] dE/ddiv_t g[t, c]``
@@ -33,9 +35,11 @@ area constraints (``global_area``, ``body_area``); under ``torch.func.vmap``
 it too takes one member-axis launch (``LAUNCHES["surface_area_grad_members"]``).
 
 Off the solver's path, kept for the tests and the card checks:
-``surface_fwd`` and ``curvature_fwd`` / ``curvature_bwd``, the same
-kernels with per-triangle outputs and no sums (:func:`curvature_corners`
-is the autograd-aware form of the curvature pair).
+``surface_fwd`` and ``curvature_fwd`` / ``curvature_bwd``, per-triangle
+outputs and no sums (the surface and curvature-backward kernels of the
+whole calls; the curvature forward a thread per triangle on the whole
+call's corner expressions; :func:`curvature_corners` is the
+autograd-aware form of the curvature pair).
 
 Each kernel gathers its corners through ``tri_rows`` itself, and every sum
 runs in a fixed order (no atomic scatter): two calls give the same bits.
@@ -47,7 +51,8 @@ them in place of the plain ``geo`` / ``tilt_ops`` functions.  A CUDA tensor
 launches the kernels, after device, dtype, shape, contiguity and alignment
 checks that raise on anything else; a CPU tensor runs the twins.
 ``LAUNCHES`` counts calls of each entry point; the vertex-sum launches they
-make count in ``vertex_sum.LAUNCHES``.
+make (the surface gradient, the curvature backward, the divergence's tilt
+backward) count in ``vertex_sum.LAUNCHES``.
 
 The member axis (the parameter sweep, ``parallel/sweep``): under
 ``torch.func.vmap`` the Functions' ``vmap`` rules call the ``*_members``
@@ -104,13 +109,13 @@ def build() -> ctypes.CDLL:
         "tri_surface_energy": [i32] + [ptr] * 11 + [i32, i64, i32, ptr],
         "tri_curvature_fwd": [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i64, ptr],
         "tri_curvature_bwd": [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i64, ptr],
-        "tri_curvature_data": [i32] + [ptr] * 10 + [i32, i64, ptr],
+        "tri_curvature_data": [i32] + [ptr] * 9 + [i32, i64, ptr],
         "tri_curvature_data_bwd": [i32] + [ptr] * 11 + [i32, i64, ptr],
         "tri_p1_div": [i32] + [ptr] * 7 + [i32, i64, ptr],
         "tri_p1_div_bwd": [i32] + [ptr] * 6 + [i64, ptr],
         "tri_surface_energy_members": [i32, ptr, ptr, ptr, ptr, i64] + [ptr] * 7
                                       + [i32, i64, i32, i32, ptr],
-        "tri_curvature_data_members": [i32] + [ptr] * 10 + [i32, i64, i32, ptr],
+        "tri_curvature_data_members": [i32] + [ptr] * 9 + [i32, i64, i32, ptr],
         "tri_curvature_data_bwd_members": [i32] + [ptr] * 11 + [i32, i64, i32, ptr],
         "tri_p1_div_members": [i32] + [ptr] * 7 + [i32, i64, i32, ptr],
         "tri_p1_div_bwd_members": [i32] + [ptr] * 6 + [i64, i32, i32, ptr],
@@ -301,24 +306,24 @@ def _ptr(x):
 
 
 def launch_curvature_data(positions, tri_rows, tri_valid, csr: CornerCSR):
-    """(cot (T, 3), va (T, 3), k_vecs (Nv, 3), vertex_areas (Nv,)) from ``tri_curvature_data``."""
+    """(cot (T, 3), va (T, 3), k_vecs (Nv, 3), vertex_areas (Nv,)) from ``tri_curvature_data``.
+
+    One launch, a lane group per row of ``csr`` (no vertex-sum launch).
+    """
     T = _check_rows(positions, tri_rows)
     _check(positions, positions.dtype, tri_valid=(tri_valid, (T,), torch.bool))
     _check_csr(positions, tri_rows, csr)
     lib = build()
     nv = positions.shape[0]
     kw = {"dtype": positions.dtype, "device": positions.device}
-    cot, va, k_scratch, k_vecs, vertex_areas = (
-        torch.empty(s, **kw) for s in ((T, 3), (T, 3), (T, 3, 3), (nv, 3), (nv,)))
+    cot, va, k_vecs, vertex_areas = (torch.empty(s, **kw) for s in ((T, 3), (T, 3), (nv, 3), (nv,)))
     code = lib.tri_curvature_data(
         int(positions.dtype == torch.float64), positions.data_ptr(), tri_rows.data_ptr(),
         tri_valid.data_ptr(), csr.offsets.data_ptr(), csr.slots.data_ptr(), cot.data_ptr(),
-        va.data_ptr(), k_scratch.data_ptr(), k_vecs.data_ptr(), vertex_areas.data_ptr(),
-        T, nv, _stream(positions),
+        va.data_ptr(), k_vecs.data_ptr(), vertex_areas.data_ptr(), T, nv, _stream(positions),
     )
     _raise_on(code, "tri_curvature_data")
     LAUNCHES["curvature_data"] += 1
-    vs.LAUNCHES["vertex_sum"] += 1
     return cot, va, k_vecs, vertex_areas
 
 
@@ -473,17 +478,15 @@ def launch_curvature_data_members(positions, tri_rows, tri_valid, csr: CornerCSR
     lib = build()
     nv = positions.shape[1]
     kw = {"dtype": positions.dtype, "device": positions.device}
-    cot, va, k_scratch, k_vecs, vertex_areas = (
-        torch.empty((members,) + s, **kw) for s in ((T, 3), (T, 3), (T, 3, 3), (nv, 3), (nv,)))
+    cot, va, k_vecs, vertex_areas = (
+        torch.empty((members,) + s, **kw) for s in ((T, 3), (T, 3), (nv, 3), (nv,)))
     code = lib.tri_curvature_data_members(
         _f64(positions), positions.data_ptr(), tri_rows.data_ptr(), tri_valid.data_ptr(),
         csr.offsets.data_ptr(), csr.slots.data_ptr(), cot.data_ptr(), va.data_ptr(),
-        k_scratch.data_ptr(), k_vecs.data_ptr(), vertex_areas.data_ptr(), T, nv, members,
-        _stream(positions),
+        k_vecs.data_ptr(), vertex_areas.data_ptr(), T, nv, members, _stream(positions),
     )
     _raise_on(code, "tri_curvature_data_members")
     LAUNCHES["curvature_data_members"] += 1
-    vs.LAUNCHES["vertex_sum_members"] += 1
     return cot, va, k_vecs, vertex_areas
 
 

@@ -7,8 +7,9 @@ flight at once) adds each vertex's corner rows in the order of the
 topology's :class:`~membrane_solver_tpu_torch.device.state.CornerCSR`, so
 the sums are the same bits on every run, where ``index_add`` on the card
 adds with float atomics in a changing order.  The frozen-tilt, surface,
-curvature and divergence entry points launch it inside their own calls
-(the divergence's tilt backward in its weighted form), and their CPU
+curvature-backward and divergence entry points launch it inside their own
+calls (the divergence's tilt backward in its weighted form; the curvature
+forward adds in the same order inside its own kernel), and their CPU
 paths take :func:`reference`, which adds in the same order; :func:`launch` runs it
 alone (``csrc/vertex_sum.cu``) on CUDA tensors, after device, dtype, shape
 and contiguity checks that raise on anything else (the CSR's once per CSR
@@ -33,6 +34,7 @@ member's rows the bits of a launch of its own
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -52,6 +54,8 @@ HEADER = SOURCE.with_suffix(".cuh")
 _lib = None
 # the key of a CSR's passed launch check, kept on the CSR (check_csr)
 _CHECKED = "_vertex_sum_checked"
+# the key of a slot CSR's form without its spare row (summed_rows)
+_SUMMED = "_vertex_sum_summed_rows"
 
 
 def reference(corner_values: torch.Tensor, csr: CornerCSR, weight=None) -> torch.Tensor:
@@ -296,13 +300,30 @@ def corner_gather(vertex_values: torch.Tensor, csr: CornerCSR) -> torch.Tensor:
     return vertex_values[csr.rows]
 
 
+def summed_rows(csr: CornerCSR) -> CornerCSR:
+    """``csr`` with its spare last row emptied, built at first use and kept on ``csr``.
+
+    :func:`row_sum` drops that row, which holds every padding slot and every
+    slot aimed at it (a kept CSR's dropped entries): its launch writes the
+    row as zero after one read of its offsets instead of summing them.  The
+    slots and ``rows`` stay, so the backward still gathers every slot.
+    """
+    kept = csr.__dict__.get(_SUMMED)
+    if kept is None:
+        offsets = torch.cat([csr.offsets[:-1], csr.offsets[-2:-1]])
+        kept = dataclasses.replace(csr, offsets=offsets)
+        csr.__dict__[_SUMMED] = kept
+    return kept
+
+
 def row_sum(values: torch.Tensor, csr: CornerCSR) -> torch.Tensor:
     """(K, *w) slot values summed into ``csr.n_rows - 1`` rows in a fixed order.
 
     ``csr`` is the ``state.slot_csr`` of the K target rows; the slots it pads
-    and any slot aimed at the spare last row are dropped with that row.
+    and any slot aimed at the spare last row are dropped with that row,
+    which is not summed (:func:`summed_rows`).
     """
     n_slots = csr.slots.shape[0]
     pad = values.new_zeros((n_slots - values.shape[0],) + tuple(values.shape[1:]))
     corner = torch.cat([values, pad]).reshape((n_slots // 3, 3) + tuple(values.shape[1:]))
-    return vertex_sum(corner, csr)[:-1]
+    return vertex_sum(corner, summed_rows(csr))[:-1]

@@ -22,12 +22,14 @@ and float64, the frozen-tilt rows at kozlov L3 float32.  Per row
 
 At kozlov L3 float32 it also times ``vertex_sum.row_sum``'s launch over
 each slot CSR a kozlov step keeps (``state.kept_slot_csr``: the pins'
-shared normals, the KKT rows; skewed, up to 18 slots in a row), seeded
-values, beside ``index_add_`` of the same values.  With ``--members B`` it
-also times the member-axis rows of phase 34 (``chip_smoke.member_rows``:
-every member entry, its twin, and ``index_add_`` over the members' rows)
-at kozlov L3 float32, B members of the lane's positions scaled by
-1 + 0.001 m and seeded tilts.
+shared normals, the KKT rows; skewed, up to 18 slots in a row, most of
+them in the spare row that ``row_sum`` drops and, through
+``vertex_sum.summed_rows``, does not sum; a tree without it sums that row
+too), seeded values, beside ``index_add_`` of the same values.  With
+``--members B`` (repeatable) it also times the member-axis rows of phase
+34 (``chip_smoke.member_rows``: every member entry, its twin, and
+``index_add_`` over the members' rows) at kozlov L3 at each dtype, B
+members of the lane's positions scaled by 1 + 0.001 m and seeded tilts.
 
 Prints one JSON line per lane and dtype and, last, one JSON object with
 every row; ``-o FILE`` also writes that object there.
@@ -35,7 +37,7 @@ every row; ``-o FILE`` also writes that object there.
 Usage (from the repository root, on a machine with a CUDA GPU)::
 
     python3 tools/time_torch_kernels.py [-o FILE] [--lane LANE ...] [--dtype DTYPE ...]
-        [--members B]
+        [--members B ...]
 
 The tool reads only the ``chip_smoke.py`` and the package beside it, so a
 copy of it in an unpacked older tree times that tree.
@@ -62,6 +64,7 @@ def slot_csr_rows(torch, cs, vs, topo) -> list:
     ``index_add_`` of the same values into the CSR's rows.
     """
     gen = torch.Generator(device=cs.DEVICE).manual_seed(23)
+    summed = getattr(vs, "summed_rows", lambda c: c)  # the CSR row_sum launches over
     rows = []
     for key in SLOT_CSRS:
         def absent(key=key):
@@ -73,7 +76,7 @@ def slot_csr_rows(torch, cs, vs, topo) -> list:
         target = csr.rows.reshape(-1).long()
         out = torch.zeros((csr.n_rows, 3), dtype=torch.float32, device=cs.DEVICE)
         rows += [
-            (f"row_sum {key}", "kernel", lambda v=vals, c=csr: vs.launch(v, c),
+            (f"row_sum {key}", "kernel", lambda v=vals, c=summed(csr): vs.launch(v, c),
              (vals, csr.offsets, csr.slots), vals.numel()),
             (f"row_sum {key}", "library",
              lambda v=vals, t=target, o=out: o.index_add_(0, t, v.reshape(-1, 3)),
@@ -89,8 +92,9 @@ def main() -> int:
                     help="time only this lane (repeatable; default: both)")
     ap.add_argument("--dtype", action="append", choices=("float32", "float64"),
                     help="time only this dtype (repeatable; default: both)")
-    ap.add_argument("--members", type=int, default=0,
-                    help="also time the member-axis rows at kozlov L3 float32 with B members")
+    ap.add_argument("--members", type=int, action="append", default=[],
+                    help="also time the member-axis rows at kozlov L3 with B members "
+                         "(repeatable)")
     args = ap.parse_args()
     lanes = args.lane or list(LANES)
     dtypes = args.dtype or ["float32", "float64"]
@@ -126,20 +130,21 @@ def main() -> int:
             recs = cs.measure(torch, rows, lane, name)
             result["rows"] += recs
             print(json.dumps({"lane": lane, "dtype": name, "rows": recs}), flush=True)
-        if lane == "kozlov_L3" and args.members:
-            B = args.members
-            pos = prob.state.positions.detach().to(torch.float32)
-            pos = torch.stack([pos * (1 + 0.001 * m) for m in range(B)]).contiguous()
-            gen = torch.Generator(device=cs.DEVICE).manual_seed(29)
-            tilts = 0.3 * torch.randn(tuple(pos.shape), dtype=torch.float32, device=cs.DEVICE,
-                                      generator=gen)
-            rows = cs.member_rows(torch, tk, vs, prob.topo, pos, tilts)
-            recs = list(cs.measure_members(torch, rows, "float32").values())
-            for r in recs:
-                r.update(lane=lane, members=B)
-            result["rows"] += recs
-            print(json.dumps({"lane": lane, "dtype": "float32", "members": B, "rows": recs}),
-                  flush=True)
+        for B in args.members if lane == "kozlov_L3" else ():
+            for name in dtypes:
+                dtype = getattr(torch, name)
+                pos = prob.state.positions.detach().to(dtype)
+                pos = torch.stack([pos * (1 + 0.001 * m) for m in range(B)]).contiguous()
+                gen = torch.Generator(device=cs.DEVICE).manual_seed(29)
+                tilts = 0.3 * torch.randn(tuple(pos.shape), dtype=dtype, device=cs.DEVICE,
+                                          generator=gen)
+                rows = cs.member_rows(torch, tk, vs, prob.topo, pos, tilts)
+                recs = list(cs.measure_members(torch, rows, name).values())
+                for r in recs:
+                    r.update(lane=lane, members=B)
+                result["rows"] += recs
+                print(json.dumps({"lane": lane, "dtype": name, "members": B, "rows": recs}),
+                      flush=True)
         if lane == "kozlov_L3" and "float32" in dtypes:
             mn.minimize(1)  # builds the step's slot CSRs
             recs = cs.measure(torch, slot_csr_rows(torch, cs, vs, mn.problem().topo), lane,
