@@ -213,7 +213,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
     energy with gradients, against its twin on the lane's own g, payload
     and k_vec with the lane's tilts and with seeded tilts (energy rel
     1e-6, vertex gradients 5e-6 * max|g|).  The ms per step is printed
-    beside phase 4's.
+    beside phase 4's after the workers (phases 18-19 run in another group
+    than phase 4).
 20. kozlov L3 drives, float64 then float32: the kozlov L3 mesh after its
     refinements with ``tests/test_module_gradients_fd.py``'s set-up
     (``drives_setup``: its global parameters and module list plus
@@ -474,6 +475,28 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
     placement's compact rows and enforcement over four members under
     ``vmap``, against JAX's ``jax.vmap``, every member equal in bits to its
     single call.  A ``[48-52 ...]`` line gives the five phases' seconds.
+53. ``kozlov_L3_sweep_placed`` (``phase_sweep_placed``), float64 and
+    float32: phase 33's (34's) sweep, eight members for five steps, placed
+    with ``device_mesh`` on ``[cuda:0] * 2`` and ``[cuda:0] * 4`` (member
+    groups in turn on one card): each member against phase 33's (34's) own,
+    its bits where phase 33's member had its one-member sweep's bits, else
+    within ``MEMBER_RTOL``; each group's launches equal to a B/k-member
+    sweep's (``sweep.GROUP_RECORD``); two placed runs' digests equal.  Then
+    two members for two steps on ``[cuda:0, cpu]`` (two host threads): the
+    CPU member within ``MEMBER_RTOL`` of the card's unplaced sweep, the card
+    member as above, launches in the card group only, the states back on
+    the card.  With more than one card, the sweep on distinct cards, with
+    ms per sweep step beside the card's name and power limit.
+54. ``kozlov_L3_tensor_parallel`` (``phase_tensor_parallel``), float64 and
+    float32, from phase 5's (4's) state: ``tp_energy_and_grad`` on
+    ``[cuda:0] * 4`` against the one-card ``jit_core.make_energy_vg``
+    (``TP_BARS``: energy rel 1e-12 and gradient 1e-11 * max|g| at float64,
+    2e-6 and 2e-5 at float32), two calls in bits, every shard's own launch
+    tally holding every kernel of the path; the same call on
+    ``[cuda:0, cpu]`` (the CPU shard launching nothing); one
+    ``tp_minimize_block`` step against the one-card block (energy to
+    ``TP_BLOCK_RTOL``, the same accept flag, finite positions).  A
+    ``[53-54 ...]`` line gives their seconds.
 
 Every lane phase (4-9, 11-19, 21-24, 26-31) also checks determinism: from the state its
 protocol leaves (phases 4-7, 16-19, 21-24 and 26-31: the five steps; phases 8-9 and
@@ -484,7 +507,7 @@ a ``[... determinism]`` line prints both digests, and unequal digests fail
 the run.  A ``[phase seconds]`` line gives each phase's seconds, and the
 last line before the kernels line the whole run's.
 
-Phases 4-52 run in seven worker processes side by side (``GROUPS``, each
+Phases 4-54 run in seven worker processes side by side (``GROUPS``, each
 ``python3 chip_smoke.py --worker <i>``; a group holds every phase whose state
 a later phase of it reads), started once phase 3 has ended: the host drives
 every lane and leaves the card idle most of a step.  Each worker hands the
@@ -496,10 +519,10 @@ phases of several groups (the ``[16-17 ...]`` to ``[48-52 ...]`` lines, phase
 line (phases 34 and 38) and the sweeps' timing and busy-share lines (phases
 33-34, 36-37 and 39-40) wait for a quiet stage (:func:`quiet`): once every
 worker has finished its lanes, each one times in turn while the others wait.
-Every other time that phases 4-52 print (ms per step, host seconds, a phase's
+Every other time that phases 4-54 print (ms per step, host seconds, a phase's
 seconds) is taken with the other workers running.
 
-Phases 4-9 and 11-52 each drive one path with every kernel launch counter
+Phases 4-9 and 11-54 each drive one path with every kernel launch counter
 set to 0 just before and read just after; a kernel of that path that was
 never launched fails the run (phases 33-34: the member-axis surface
 energy, both variants, curvature data and its backward, divergence and
@@ -507,7 +530,9 @@ vertex sum; 36-37: the same less the divergence; 38: the member-axis
 surface energy, both variants, its area route and the vertex sum; 39-40:
 the member-axis surface energy, both variants, curvature data and vertex
 sum; 41: per module, as above; 42-45 and 48-51: as 33-34, the trial energy only
-where a member scored a trial; 47: the divergence) (the
+where a member scored a trial; 47: the divergence; 53: as 33-34, per placed run; 54: the
+surface energy's gradient variant, curvature data and its backward, divergence and vertex
+sum, on every shard) (the
 frozen-tilt entry point, both variants,
 lies on the float32 kozlov paths with a frozen relax, phases 4, 15, 17, 19,
 22, 27 and 31; the surface energy, both variants, and the vertex sum on phases
@@ -518,7 +543,7 @@ paths 4-5, 15-19 and 21-32, and it and its tilt backward inside phase 20's
 splay-twist, phase 25's ``bending_tilt`` and phase 32's bending-tilt modes).
 
 The line before the last is a JSON object ``{"kernels": [...]}``: per entry
-point, its launches over phases 4-9 and 11-52, its largest error against its twin,
+point, its launches over phases 4-9 and 11-54, its largest error against its twin,
 and phase 3's device ms per call (``ms``), its twin's (``plain_ms``), the
 bound, and, for the vertex sum, ``index_add_``'s (``library_ms``); the
 member-axis entries' times are phase 34's at B = 8, float32, beside their
@@ -2708,7 +2733,7 @@ def smooth_terms(breakdown: dict, want: dict, energy: float, modules) -> dict:
 
 
 def phase_smooth(torch, ft, counters, label: str, fixture: dict, dtype, expect: tuple,
-                 f64=None, k32=None) -> dict:
+                 f64=None) -> dict:
     """kozlov_L3 with the leaflet smoothness, counts reset just before and read after.
 
     The fixture's protocol (five ``minimize(1)``), the determinism check,
@@ -2798,8 +2823,7 @@ def phase_smooth(torch, ft, counters, label: str, fixture: dict, dtype, expect: 
     say(label + " fold", k_vec=json.dumps(k_vec), rest=json.dumps(list(fused.rest_names)),
         folded=json.dumps(folded), max_abs_w_in=repr(live_w[0]), max_abs_w_out=repr(live_w[1]),
         frozen_tilt_launches_per_step=json.dumps(per),
-        kernel_vs_twin=json.dumps(errs), ms_per_step=f"{ms:.3f}",
-        phase_4_ms_per_step=f"{k32['ms']:.3f}")
+        kernel_vs_twin=json.dumps(errs), ms_per_step=f"{ms:.3f}")
     out["fold_errs"] = errs
     if not (k_vec[4] > 0.0 and k_vec[5] > 0.0) or folded != list(modules):
         raise AssertionError(f"{label}: the smoothness did not fold: k_vec {k_vec}, "
@@ -4145,7 +4169,8 @@ def drive_sweep(torch, counters, label: str, fixture: dict, dtype, problem, f64=
 
     return {"launches": launches, "stats": got, "sketches": sketches, "states": states,
             "accepted": accepted, "member_accepted": np.asarray(stats.accepted_steps),
-            "start": positions, "parts": parts, "run": run, "check": check,
+            "start": positions, "params": params, "single_devs": single_devs,
+            "parts": parts, "run": run, "check": check,
             "kkt": [tuple(t.cpu() for t in s) for s in solves or ()], "trials": trials,
             "fallbacks": np.asarray(stats.trace_z_fallbacks),
             "trace_z": [{"viable": [bool(v[m]) for live, v, _a in fallback_rec or () if live[m]],
@@ -4235,7 +4260,10 @@ def phase_sweep(torch, tk, vs, counters, label: str, fixture: dict, dtype, snap:
         raise AssertionError(f"{label}: the path did not launch {missing}: {launches}")
     out["check"]()
     res = {"launches": launches, "stats": out["stats"], "sketches": out["sketches"],
-           "errs": errs, "timing": {}, "per_size": None, "busy_share": None}
+           "errs": errs, "timing": {}, "per_size": None, "busy_share": None,
+           # what phase 53 places on a device list and holds against
+           "problem": problem, "states": out["states"], "single_devs": out["single_devs"],
+           "members": (out["params"], out["start"])}
 
     def timing_lines():
         t1 = time.perf_counter()
@@ -5641,6 +5669,299 @@ def phase_multidisk(torch, counters, label: str) -> dict:
     return {"launches": launches}
 
 
+# ----------------------------------------------------------------------
+# phases 53-54: placement on a list of devices (the sweep's device_mesh, the
+# vertex-sharded evaluation)
+# ----------------------------------------------------------------------
+PLACED_SIZES = (2, 4)  # phase 53: the main sweep on [cuda:0] * k
+MIXED_MEMBERS = 2  # phase 53: the sweep on [cuda:0, cpu]
+MIXED_STEPS = 2
+TP_SHARDS = 4  # phase 54: [cuda:0] * TP_SHARDS
+# phase 54: the sharded energy and gradient against the one-card call: the
+# per-triangle kernel bars (energy relative, gradient of max|g|)
+TP_BARS = {"float64": (1e-12, 1e-11), "float32": (2e-6, 2e-5)}
+TP_BLOCK_RTOL = {"float64": 1e-12, "float32": 2e-6}  # the block step's energy
+TP_EXPECT = ("tri_kernels.surface_energy_grad", "tri_kernels.curvature_data",
+             "tri_kernels.curvature_data_bwd", "tri_kernels.p1_div", "vertex_sum.vertex_sum")
+
+
+def nonzero(launches: dict) -> dict:
+    return {k: n for k, n in launches.items() if n}
+
+
+def member_match(torch, states, stats: dict, w_states, w_stats: dict, m: int, wm: int) -> tuple:
+    """(the fields not equal in bits, largest relative deviation) of member ``m`` against member
+    ``wm`` of the reference: its positions, tilts and stats."""
+    unequal = [f for f in STATE_FIELDS if not torch.equal(
+        getattr(states, f)[m].cpu(), getattr(w_states, f)[wm].cpu())]
+    unequal += [k for k in SWEEP_STATS if not np.array_equal(np.asarray(stats[k])[m],
+                                                             np.asarray(w_stats[k])[wm])]
+    dev = max(abs(float(stats[k][m]) - float(w_stats[k][wm])) / abs(float(w_stats[k][wm]))
+              for k in FLOAT_STATS)
+    for f in STATE_FIELDS:
+        want = getattr(w_states, f)[wm].detach().cpu().double()
+        got = getattr(states, f)[m].detach().cpu().double()
+        dev = max(dev, float(torch.max(torch.abs(got - want))) / max(float(torch.max(
+            torch.abs(want))), 1.0))
+    return unequal, dev
+
+
+def phase_sweep_placed(torch, counters, label: str, fixture: dict, dtype, w: dict) -> dict:
+    """Phase 33's sweep (34's at float32) placed on ``[cuda:0] * k`` and ``[cuda:0, cpu]``.
+
+    ``w``: phase 33's (34's) result, its problem, members and final states.
+    Each group against an unplaced sweep of its own members on the card: in
+    bits, launch for launch (the placement adds nothing to a group's
+    computation).  Each placed member against phase 33's member: within
+    ``MEMBER_RTOL``, with the fields that are not its bits printed (the
+    block's batched norms and slopes add in an order PyTorch picks by the
+    member count).  Two placed runs' digests.  Then two members for
+    ``MIXED_STEPS`` steps on ``[cuda:0, cpu]``: the card member in bits
+    against its one-member sweep on the card, the CPU member within
+    ``MEMBER_RTOL`` of the card's unplaced sweep of the two, launches on the
+    card group only.  With more than one card, the sweep on distinct cards
+    too, with ms per sweep step.
+    """
+    from membrane_solver_tpu_torch.parallel import sweep as psweep
+    from membrane_solver_tpu_torch.runtime.jit_core import MinimizeOptions
+
+    proto = fixture["protocol"]
+    B, steps = proto["members"], proto["steps"]
+    name = str(dtype).removeprefix("torch.")
+    problem, (params, positions) = w["problem"], w["members"]
+    options = MinimizeOptions(**sweep_options(proto))
+    card = smi_line()
+
+    def sweep(mesh=None, members=range(B), n_steps=steps):
+        sel = list(members)
+        out = psweep.run_sweep(problem, [params[m] for m in sel], n_steps,
+                               step_size=proto["step_size"], options=options,
+                               member_positions=[positions[m] for m in sel], device_mesh=mesh)
+        torch.cuda.synchronize()
+        return out
+
+    def placed(mesh, members=range(B), n_steps=steps):
+        """The placed sweep with the counts reset just before and read just after."""
+        reset_counts(counters)
+        psweep.GROUP_RECORD = []
+        t0 = time.perf_counter()
+        try:
+            states, _ss, stats = sweep(mesh, members, n_steps)
+            groups = psweep.GROUP_RECORD
+        finally:
+            psweep.GROUP_RECORD = None
+        seconds = time.perf_counter() - t0
+        return states, _stats_of(stats), groups, read_counts(counters), seconds
+
+    def groups_against_unplaced(states, got, groups, first, n_steps):
+        """Per group: (its members' unequal fields against an unplaced sweep of those members,
+        its launches equal to that sweep's)."""
+        out = []
+        for _d, (lo, hi), g in groups:
+            reset_counts(counters)
+            u_states, _u, u_stats = sweep(None, range(first + lo, first + hi), n_steps)
+            want = nonzero(read_counts(counters))
+            u = _stats_of(u_stats)
+            unequal = sorted({f for m in range(lo, hi)
+                              for f in member_match(torch, states, got, u_states, u, m, m - lo)[0]})
+            out.append((unequal, nonzero(g) == want))
+        return out
+
+    failures, out = [], {}
+    cuda0 = torch.device("cuda", 0)
+    for k in PLACED_SIZES:
+        states, got, groups, launches, seconds = placed([cuda0] * k)
+        matches = [member_match(torch, states, got, w["states"], w["stats"], m, m)
+                   for m in range(B)]
+        per_group = groups_against_unplaced(states, got, groups, 0, steps)
+        missing = [key for key in SWEEP_EXPECT if not launches[key] > 0]
+        say(label + " placed", mesh=f"cuda:0x{k}", members=B, steps=steps,
+            seconds=f"{seconds:.3f}", ms_per_step=f"{seconds * 1e3 / steps:.3f}",
+            groups=json.dumps([[str(d), list(span)] for d, span, _g in groups]),
+            groups_bits_equal_to_unplaced=json.dumps([not u for u, _e in per_group]),
+            groups_launch_as_unplaced=json.dumps([e for _u, e in per_group]),
+            max_rel_dev_vs_phase_33=repr(max(d for _u, d in matches)),
+            bound=repr(MEMBER_RTOL[name]),
+            fields_not_bits_of_phase_33=json.dumps([u for u, _d in matches]),
+            group_launches=json.dumps(nonzero(groups[0][2])), card=repr(card))
+        if len(groups) != k or not all(not u and e for u, e in per_group):
+            failures.append(f"[cuda:0]*{k}: groups against their unplaced sweeps {per_group}")
+        if not max(d for _u, d in matches) <= MEMBER_RTOL[name]:
+            failures.append(f"[cuda:0]*{k}: members deviate from phase 33's: {matches}")
+        if missing:
+            failures.append(f"[cuda:0]*{k}: the path did not launch {missing}: {launches}")
+        out[k] = {"states": states, "stats": got, "launches": launches}
+    digests = [sweep_digest(out[PLACED_SIZES[0]]["states"], out[PLACED_SIZES[0]]["stats"])]
+    r_states, _r, r_stats = sweep([cuda0] * PLACED_SIZES[0])
+    digests.append(sweep_digest(r_states, _stats_of(r_stats)))
+    say(label + " placed determinism", mesh=f"cuda:0x{PLACED_SIZES[0]}", first=digests[0],
+        second=digests[1], equal=digests[0] == digests[1])
+    if digests[0] != digests[1]:
+        failures.append(f"two placed sweeps differ: {digests}")
+
+    # a card group and a CPU group side by side, two host threads
+    ref_states, _rs, ref_stats = sweep(None, range(MIXED_MEMBERS), MIXED_STEPS)
+    ref = _stats_of(ref_stats)
+    states, got, groups, launches, seconds = placed([cuda0, torch.device("cpu")],
+                                                    range(MIXED_MEMBERS), MIXED_STEPS)
+    card_unequal, _e = groups_against_unplaced(states, got, groups[:1], 0, MIXED_STEPS)[0]
+    _u, card_dev = member_match(torch, states, got, ref_states, ref, 0, 0)
+    _u, cpu_dev = member_match(torch, states, got, ref_states, ref, 1, 1)
+    by_device = {str(d): nonzero(g) for d, _span, g in groups}
+    say(label + " mixed", mesh="cuda:0,cpu", members=MIXED_MEMBERS, steps=MIXED_STEPS,
+        seconds=f"{seconds:.3f}", card_member_bits_of_its_unplaced_sweep=not card_unequal,
+        card_member_dev=repr(card_dev), cpu_member_dev=repr(cpu_dev),
+        bound=repr(MEMBER_RTOL[name]), positions_device=str(states.positions.device),
+        group_launches=json.dumps(by_device))
+    if card_unequal or not (card_dev <= MEMBER_RTOL[name] and cpu_dev <= MEMBER_RTOL[name]):
+        failures.append(f"[cuda:0, cpu]: card member {card_unequal} {card_dev!r}, CPU member "
+                        f"{cpu_dev!r}")
+    if not (sum(by_device.get("cuda:0", {}).values()) > 0 and not by_device.get("cpu")
+            and states.positions.device == cuda0):
+        failures.append(f"[cuda:0, cpu]: launches by group {by_device}, states on "
+                        f"{states.positions.device}")
+
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        n = max(k for k in (2, 4, 8) if k <= n_cards and B % k == 0)
+        mesh = [torch.device("cuda", i) for i in range(n)]
+        sweep(mesh, range(B), 1)  # warm-up: every card's context and library
+        states, got, groups, launches, seconds = placed(mesh)
+        matches = [member_match(torch, states, got, w["states"], w["stats"], m, m)
+                   for m in range(B)]
+        t0 = time.perf_counter()
+        sweep(None)
+        single_s = time.perf_counter() - t0
+        say(label + " distinct cards", cards=n, seconds=f"{seconds:.3f}",
+            ms_per_step=f"{seconds * 1e3 / steps:.3f}",
+            one_card_ms_per_step=f"{single_s * 1e3 / steps:.3f}",
+            max_rel_dev_vs_phase_33=repr(max(d for _u, d in matches)),
+            group_launches=json.dumps([[str(d), sum(g.values())] for d, _s, g in groups]),
+            card=repr(card))
+        if not max(d for _u, d in matches) <= MEMBER_RTOL[name] or not all(
+                sum(g.values()) > 0 for _d, _s, g in groups):
+            failures.append(f"distinct cards: {matches} {groups}")
+    else:
+        say(label + " distinct cards", cards=n_cards, measured=False)
+    if failures:
+        raise AssertionError(f"{label}: " + "; ".join(failures))
+    return {"launches": out[PLACED_SIZES[0]]["launches"]}
+
+
+def tp_block_inner(gp) -> int:
+    """The tilt relax's iterations per block call, as the minimizer reads them."""
+    tilt_mode = str(gp.get("tilt_solve_mode", "fixed") or "fixed")
+    if tilt_mode == "nested":
+        inner = int(gp.get("tilt_inner_steps", 0) or 0)
+    else:
+        inner = int(gp.get("tilt_coupled_steps", gp.get("tilt_inner_steps", 0)) or 0)
+    if str(gp.get("tilt_solver", "cg") or "cg").lower() == "cg":
+        inner = int(gp.get("tilt_cg_max_iters", inner) or inner)
+    return inner
+
+
+def phase_tensor_parallel(torch, counters, label: str, fixture: dict, dtype, snap: dict) -> dict:
+    """The vertex-sharded energy, gradient and block step on kozlov L3 from phase 5's (4's) state.
+
+    ``tp_energy_and_grad`` on ``[cuda:0] * TP_SHARDS`` (the counts reset
+    just before and read just after) against the one-card
+    ``jit_core.make_energy_vg``, to ``TP_BARS``; every shard's own launches
+    (its CSR's tally); two calls in bits; the same call on
+    ``[cuda:0, cpu]``; one ``tp_minimize_block`` step against the one-card
+    block (energy to ``TP_BLOCK_RTOL``, the same accept flag, finite
+    positions).
+    """
+    from membrane_solver_tpu_torch.parallel import tensor as tp
+    from membrane_solver_tpu_torch.runtime import jit_core
+
+    name = str(dtype).removeprefix("torch.")
+    e_bar, g_bar = TP_BARS[name]
+    mn = build_lane(torch, fixture["protocol"], dtype)
+    restore(mn, snap)
+    p = mn.problem()
+    E0, g0 = jit_core.make_energy_vg(p.spec)(p.state.positions, p.state, p.topo, p.params)
+    g_scale = float(torch.max(torch.abs(g0)))
+    failures = []
+
+    def evaluate(mesh, tag):
+        state, topo = tp.shard_problem(p, mesh)
+        run = tp.tp_energy_and_grad(p.spec, mesh)
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        E, g = run(state, topo, p.params)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts(counters)
+        shards = tp.shard_launches(topo)
+        e_dev = abs(float(E) - float(E0)) / abs(float(E0))
+        g_dev = float(torch.max(torch.abs(g.full() - g0))) / g_scale
+        E2, g2 = run(state, topo, p.params)
+        same = bool(torch.equal(E, E2) and torch.equal(g.full(), g2.full()))
+        say(label + " " + tag, shards=len(mesh), vertices=p.n_vertices, triangles=p.n_tris,
+            seconds=f"{seconds:.3f}", energy=repr(float(E)), one_card_energy=repr(float(E0)),
+            energy_rel_dev=repr(e_dev), grad_dev_of_max=repr(g_dev),
+            bounds=json.dumps([e_bar, g_bar]), two_calls_equal=same,
+            ranges=json.dumps([[s.lo, s.hi] for s in topo.plan.shards]),
+            owners=json.dumps([[str(d), a, b] for d, a, b in topo.plan.owners]),
+            grad_blocks=json.dumps([str(d) for d in g.devices]),
+            shard_launches=json.dumps([[str(d), nonzero(t)] for d, t in shards]))
+        if not (e_dev <= e_bar and g_dev <= g_bar and same):
+            failures.append(f"{tag}: energy {e_dev!r}, gradient {g_dev!r}, repeat equal {same}")
+        return state, topo, launches, shards
+
+    state, topo, launches, shards = evaluate([torch.device("cuda", 0)] * TP_SHARDS,
+                                             f"cuda:0x{TP_SHARDS}")
+    missing = [k for k in TP_EXPECT if not launches[k] > 0]
+    if missing:
+        failures.append(f"the sharded path did not launch {missing}: {launches}")
+    idle = [i for i, (_d, t) in enumerate(shards) if not all(t.get(k, 0) > 0 for k in TP_EXPECT)]
+    if idle:
+        failures.append(f"shards {idle} launched not every kernel: {shards}")
+    _s, _t, _l, mixed = evaluate([torch.device("cuda", 0), torch.device("cpu")], "cuda:0,cpu")
+    if not (all(mixed[0][1].get(k, 0) > 0 for k in TP_EXPECT) and not mixed[1][1]):
+        failures.append(f"[cuda:0, cpu]: shard launches {mixed}")
+
+    # one block step, sharded and on one card, from phase 5's (4's) state
+    options = jit_core.MinimizeOptions(enforce_in_line_search=True)
+    inner = tp_block_inner(mn.mesh.global_parameters)
+
+    def step(block, st, tp_):
+        ss = jit_core.fresh_stepper_state(p.n_vertices, "gradient_descent", dtype=dtype,
+                                          device=DEVICE)
+        out = block(st, tp_, p.params, ss, 1, mn.step_size, mn.step_size, mn.tol,
+                    mn.step_size_floor, mn.max_zero_steps, 0, inner)
+        torch.cuda.synchronize()
+        return out
+
+    t0 = time.perf_counter()
+    want_state, _ss, want = step(jit_core.minimize_block(p.spec, options), p.state, p.topo)
+    t1 = time.perf_counter()
+    shards_before = tp.shard_launches(topo)
+    reset_counts(counters)
+    got_state, _ss, got = step(tp.tp_minimize_block(p.spec, options, topo.plan.devices),
+                               state, topo)
+    t2 = time.perf_counter()
+    block_launches = read_counts(counters)
+    b_dev = abs(got.energy - want.energy) / abs(want.energy)
+    finite = bool(torch.isfinite(got_state.positions).all())
+    say(label + " block", shards=TP_SHARDS, inner=inner, energy=repr(got.energy),
+        one_card_energy=repr(want.energy), energy_rel_dev=repr(b_dev),
+        bound=repr(TP_BLOCK_RTOL[name]), step_success=got.step_success,
+        one_card_step_success=want.step_success, finite=finite,
+        seconds=f"{t2 - t1:.3f}", one_card_seconds=f"{t1 - t0:.3f}",
+        launches=json.dumps(nonzero(block_launches)),
+        shard_launches=json.dumps([[str(d), nonzero({k: n - b.get(k, 0) for k, n in t.items()})]
+                                   for (d, t), (_d, b) in zip(tp.shard_launches(topo),
+                                                              shards_before)]))
+    if not (b_dev <= TP_BLOCK_RTOL[name] and got.step_success == want.step_success and finite
+            and got.iterations == want.iterations):
+        failures.append(f"block step: energy {b_dev!r}, flags {got.step_success} vs "
+                        f"{want.step_success}, finite {finite}")
+    if failures:
+        raise AssertionError(f"{label}: " + "; ".join(failures))
+    return {"launches": launches}
+
+
 def phase_console(torch, fixture: dict) -> None:
     """``python -m membrane_solver_tpu_torch`` on the card; the saved mesh re-evaluated at float64."""
     import tempfile
@@ -5694,21 +6015,21 @@ def kernels_line(kern: dict, runs: dict) -> list:
     return out
 
 
-# Phases 4-52 run in these groups, one worker process each, side by side: the
+# Phases 4-54 run in these groups, one worker process each, side by side: the
 # host drives every lane and leaves the card idle most of a step.  A group
 # holds every phase whose state a later phase of it reads; within a group the
 # phases run in the order of their numbers.
 GROUPS = (
-    ("4", "5", "15", "18", "19", "33", "34", "35"),
+    ("4", "5", "15", "33", "34", "35", "53", "54"),
     ("6", "7", "8", "9", "10", "20", "36", "37"),
     ("11", "12", "13", "14", "38", "39", "40", "41"),
     ("16", "17", "21", "22", "44", "45"),
     ("23", "24", "25", "42", "43", "47"),
     ("26", "27", "28", "29", "48", "49", "50", "51"),
-    ("30", "31", "32", "46", "52"),
+    ("18", "19", "30", "31", "32", "46", "52"),
 )
 # what a worker sends back of each phase's result
-SUMMARY_KEYS = ("launches", "syncs", "per_step", "errs", "timing", "busy_share")
+SUMMARY_KEYS = ("launches", "syncs", "per_step", "errs", "timing", "busy_share", "ms")
 
 
 def kernel_modules() -> tuple:
@@ -5751,15 +6072,19 @@ def load_fixtures() -> types.SimpleNamespace:
 
 def phase_timer(torch, seconds: dict, peaks: dict):
     """``timed(phase, fn, *args, **kw)``: runs ``fn``, keeps its seconds and the GiB the
-    card's allocator reserved at its peak, then hands the allocator's unused cache back to
-    the card (the workers share it)."""
+    allocator reserved at its peak on the busiest card, then hands the allocator's unused
+    cache back to the cards (the workers share them).  Only the calling thread writes the
+    two dicts; a phase's own host threads (phase 53's groups) end inside ``fn``."""
 
     def timed(phase, fn, *args, **kw):
-        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.init()  # the allocator's per-card stats need CUDA initialized
+        cards = range(torch.cuda.device_count())
+        for i in cards:
+            torch.cuda.reset_peak_memory_stats(i)
         t0 = time.perf_counter()
         out = fn(*args, **kw)
         seconds[phase] = round(time.perf_counter() - t0, 3)
-        peaks[phase] = round(torch.cuda.max_memory_reserved() / 2**30, 3)
+        peaks[phase] = round(max(torch.cuda.max_memory_reserved(i) for i in cards) / 2**30, 3)
         torch.cuda.empty_cache()
         return out
 
@@ -5767,7 +6092,7 @@ def phase_timer(torch, seconds: dict, peaks: dict):
 
 
 def drive_phases(torch, mods, fx, todo) -> tuple[dict, dict, dict, dict]:
-    """The phases of 4-52 named in ``todo``, in order, in this process: (runs, errs, seconds,
+    """The phases of 4-54 named in ``todo``, in order, in this process: (runs, errs, seconds,
     peak GiB).
 
     ``errs`` holds the largest errors of the tri-kernel checks on the lanes'
@@ -5855,8 +6180,7 @@ def drive_phases(torch, mods, fx, todo) -> tuple[dict, dict, dict, dict]:
                             fx.smooth, torch.float64, kozlov_path)
     if "19" in todo:
         runs["m32"] = timed("19", phase_smooth, torch, ft, counters, "19 kozlov_L3_smooth f32",
-                            fx.smooth, torch.float32, f32_kozlov_path, f64=runs["m64"],
-                            k32=runs["k32"])
+                            fx.smooth, torch.float32, f32_kozlov_path, f64=runs["m64"])
     if "20" in todo:
         runs["x"] = timed("20", phase_drives, torch, counters, "20 kozlov_L3_drives", fx.drives)
     # the rigid free disk, the local-interface lane (dense tilt rows), the
@@ -5992,6 +6316,22 @@ def drive_phases(torch, mods, fx, todo) -> tuple[dict, dict, dict, dict]:
     if "52" in todo:
         runs["pd"] = timed("52", phase_physical_edge_drives, torch, tk, vs, counters,
                            "52 kozlov_L3_sweep_physical_edge_drives", fx.physical_edge_drives)
+    # placement on a list of devices: phase 33's (34's) sweep in member groups, and the
+    # vertex-sharded evaluation from phase 5's (4's) state
+    if "53" in todo:
+        runs["pl64"] = timed("53 f64", phase_sweep_placed, torch, counters,
+                             "53 kozlov_L3_sweep_placed f64", fx.sweep, torch.float64,
+                             runs["w64"])
+        runs["pl32"] = timed("53 f32", phase_sweep_placed, torch, counters,
+                             "53 kozlov_L3_sweep_placed f32", fx.sweep, torch.float32,
+                             runs["w32"])
+    if "54" in todo:
+        runs["tp64"] = timed("54 f64", phase_tensor_parallel, torch, counters,
+                             "54 kozlov_L3_tensor_parallel f64", fx.kozlov, torch.float64,
+                             runs["k64"]["snap"])
+        runs["tp32"] = timed("54 f32", phase_tensor_parallel, torch, counters,
+                             "54 kozlov_L3_tensor_parallel f32", fx.kozlov, torch.float32,
+                             runs["k32"]["snap"])
     return runs, errs, seconds, peaks
 
 
@@ -6116,6 +6456,8 @@ def summary_lines(fx, runs: dict, seconds: dict) -> None:
         if not inside > plain:
             raise AssertionError(f"{key}: {inside} launches per step in the reduced line search, "
                                  f"not above phase 4's {plain}")
+    say("19 kozlov_L3_smooth f32 fold ms", ms_per_step=f"{runs['m32']['ms']:.3f}",
+        phase_4_ms_per_step=f"{runs['k32']['ms']:.3f}")
     say("18 kozlov_L3_smooth f64 host syncs", per_minimize_1=runs["m64"]["syncs"],
         phase_5_per_minimize_1=runs["k64"]["syncs"])
 
@@ -6141,6 +6483,7 @@ def summary_lines(fx, runs: dict, seconds: dict) -> None:
                                 "40": runs["e32"]["busy_share"]}))
     span("42-47", ("42", "43", "44", "45", "46", "47"))
     span("48-52", ("48", "49", "50", "51", "52"))
+    span("53-54", ("53 f64", "53 f32", "54 f64", "54 f32"))
 
 
 def main() -> int:
@@ -6163,7 +6506,7 @@ def main() -> int:
     kern = timed("3", lambda: phase_kernels(
         torch, mods, build_lane(torch, fx.kozlov["protocol"], torch.float64).problem(),
         build_lane(torch, fx.vesicle["protocol"], torch.float64).problem()))
-    # phases 4-52 in the workers, then the quiet stage: each worker's timing in turn
+    # phases 4-54 in the workers, then the quiet stage: each worker's timing in turn
     with Workers() as pool:
         t0 = time.perf_counter()
         pool.wait_ready()

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import threading
 from typing import Any, Collection, Dict, Mapping, Tuple
 
 import numpy as np
@@ -187,6 +188,10 @@ def ordered_index_add(topo: "Topology", key: str, target: torch.Tensor, rows: to
     return target
 
 
+# builds of ``Topology.kept`` items (re-entrant: a build may keep another item)
+_KEPT_LOCK = threading.RLock()
+
+
 @dataclasses.dataclass
 class Topology:
     """Connectivity and per-entity parameters."""
@@ -215,14 +220,18 @@ class Topology:
 
         Kept beside the ``tri_rows`` tensor it was built for, so a topology
         whose ``tri_rows`` is replaced builds anew.  Holds the corner CSR and
-        the kernels' scratch (``kernels/tri_kernels.workspace``).
+        the kernels' scratch (``kernels/tri_kernels.workspace``).  Host
+        threads may share a topology: each item is built once, under a lock.
         """
         store = self.__dict__.get("_kept")
-        if store is None or store[0] is not self.tri_rows:
-            store = (self.tri_rows, {})
-            self.__dict__["_kept"] = store
-        if key not in store[1]:
-            store[1][key] = make()
+        if store is None or store[0] is not self.tri_rows or key not in store[1]:
+            with _KEPT_LOCK:
+                store = self.__dict__.get("_kept")
+                if store is None or store[0] is not self.tri_rows:
+                    store = (self.tri_rows, {})
+                    self.__dict__["_kept"] = store
+                if key not in store[1]:
+                    store[1][key] = make()
         return store[1][key]
 
     def corner_csr(self) -> CornerCSR:

@@ -5,7 +5,8 @@ library with a plain C interface (no PyTorch headers, so a build takes
 seconds), at first use, into the ignored ``_build/`` directory, keyed by a
 hash of the source, the shared ``csrc/*.cuh`` headers and the flags.  :func:`build` starts every missing
 compile at once and waits for all of them, so several sources build in
-parallel.
+parallel.  One library serves every card: a launch makes its tensor's card current
+(``kernels/_launch``).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List
@@ -29,6 +31,8 @@ NVCC_FLAGS = (
 NVCC_TIMEOUT_S = 600
 
 _LOADED: Dict[Path, ctypes.CDLL] = {}
+# one build at a time: host threads that launch at once (the placed sweep) compile once
+_LOCK = threading.Lock()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +85,11 @@ def _compile(src: Source) -> None:
 
 def build(*sources: Source) -> List[ctypes.CDLL]:
     """Compile the sources whose library is missing, all at once, and load them."""
+    with _LOCK:
+        return _build_locked(sources)
+
+
+def _build_locked(sources) -> List[ctypes.CDLL]:
     missing = [s for s in sources if not (s.library_path() in _LOADED or s.library_path().exists())]
     if missing:
         with ThreadPoolExecutor(max_workers=len(missing)) as pool:

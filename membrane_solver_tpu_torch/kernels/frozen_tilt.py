@@ -36,8 +36,9 @@ import ctypes
 
 import torch
 
+from membrane_solver_tpu_torch.device import shard as _shard
 from membrane_solver_tpu_torch.device.state import CornerCSR
-from membrane_solver_tpu_torch.kernels import _build
+from membrane_solver_tpu_torch.kernels import _build, _launch
 from membrane_solver_tpu_torch.kernels import vertex_sum as vs
 
 LAUNCHES = {"energy": 0, "energy_grad": 0}
@@ -212,22 +213,27 @@ def launch(t_in, t_out, tri_rows, csr: CornerCSR, g, payload, k_vec, ws: Workspa
     energy = torch.empty(1, dtype=torch.float32, device=t_in.device)
     gin = torch.empty_like(t_in) if grad else None
     gout = torch.empty_like(t_out) if grad else None
-    code = lib.frozen_tilt_vertex(
+    code = _launch.call(
+        t_in, lib.frozen_tilt_vertex,
         t_in.data_ptr(), t_out.data_ptr(), tri_rows.data_ptr(),
         csr.offsets.data_ptr() if grad else None, csr.slots.data_ptr() if grad else None,
         g.data_ptr(), payload.data_ptr(), k_vec.data_ptr(), ws.din_c.data_ptr(),
         ws.dout_c.data_ptr(), ws.partials.data_ptr(), ws.counter.data_ptr(), energy.data_ptr(),
         gin.data_ptr() if grad else None, gout.data_ptr() if grad else None,
-        T, N, int(grad), torch.cuda.current_stream(t_in.device).cuda_stream,
+        T, N, int(grad),
     )
     if code != 0:
         raise RuntimeError(f"frozen_tilt_vertex launch failed: cudaError {code}")
     if grad:
-        LAUNCHES["energy_grad"] += 1
-        vs.LAUNCHES["vertex_sum"] += 1
+        _count("energy_grad", t_in, csr)
+        vs.count("vertex_sum", t_in, csr)
     else:
-        LAUNCHES["energy"] += 1
+        _count("energy", t_in, csr)
     return energy, gin, gout
+
+
+def _count(key: str, like: torch.Tensor, csr: CornerCSR) -> None:
+    _launch.count(LAUNCHES, "frozen_tilt", key, like, csr)
 
 
 def _evaluate(t_in, t_out, tri_rows, csr, g, payload, k_vec, ws, grad):
@@ -253,14 +259,29 @@ class _FrozenTiltEnergy(torch.autograd.Function):
         return ct * gin, ct * gout, None, None, None, None, None, None
 
 
+def _shard_workspace(topo, t_in) -> Workspace | None:
+    """A shard topology's :class:`Workspace` on ``t_in``'s card, kept with it; None on the CPU."""
+    if not t_in.is_cuda:
+        return None
+    return topo.kept(("frozen_tilt.workspace", t_in.device),
+                     lambda: Workspace(topo.tri_rows.shape[0], t_in.device))
+
+
 def frozen_tilt_energy(t_in, t_out, tri_rows, csr, g, payload, k_vec, ws=None):
     """Scalar frozen-tilt energy of vertex tilts, differentiable in ``t_in`` and ``t_out``.
 
     When autograd needs a tilt gradient, one call computes the energy and
     both vertex gradients and the backward scales them; otherwise the call
     computes the energy alone.  ``ws`` is a :class:`Workspace` for the CUDA
-    path (made per call when None).
+    path (made per call when None).  A ``csr`` that carries a shard plan (``device/shard``)
+    runs each shard's triangles on its device, each with a workspace kept on its topology.
     """
+    plan = _shard.plan_of(csr, t_in, tri_rows)
+    if plan is not None:
+        return plan.add(plan.map(
+            lambda s, ti, to, gs, ps, k: frozen_tilt_energy(
+                ti, to, s.topo.tri_rows, s.csr, gs, ps, k, _shard_workspace(s.topo, ti)),
+            vertex=(t_in, t_out), tri=(g, payload), shared=(k_vec,)))
     if torch.is_grad_enabled() and (t_in.requires_grad or t_out.requires_grad):
         return _FrozenTiltEnergy.apply(t_in, t_out, tri_rows, csr, g, payload, k_vec, ws)
     e, _gin, _gout = _evaluate(t_in, t_out, tri_rows, csr, g, payload, k_vec, ws, False)

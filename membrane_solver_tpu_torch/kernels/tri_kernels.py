@@ -52,7 +52,11 @@ launches the kernels, after device, dtype, shape, contiguity and alignment
 checks that raise on anything else; a CPU tensor runs the twins.
 ``LAUNCHES`` counts calls of each entry point; the vertex-sum launches they
 make (the surface gradient, the curvature backward, the divergence's tilt
-backward) count in ``vertex_sum.LAUNCHES``.
+backward) count in ``vertex_sum.LAUNCHES``.  Every launch makes its
+tensor's card current and counts through ``kernels/_launch``.  A corner
+CSR that carries a shard plan (``device/shard``, the vertex-sharded
+evaluation of ``parallel/tensor``) makes the public entry points run each
+shard's triangles on its device.
 
 The member axis (the parameter sweep, ``parallel/sweep``): under
 ``torch.func.vmap`` the Functions' ``vmap`` rules call the ``*_members``
@@ -73,9 +77,10 @@ import ctypes
 import torch
 
 from membrane_solver_tpu_torch.device import geo as dgeo
+from membrane_solver_tpu_torch.device import shard as _shard
 from membrane_solver_tpu_torch.device import tilt_ops
 from membrane_solver_tpu_torch.device.state import CornerCSR
-from membrane_solver_tpu_torch.kernels import _build
+from membrane_solver_tpu_torch.kernels import _build, _launch
 from membrane_solver_tpu_torch.kernels import vertex_sum as vs
 
 LAUNCHES = {"surface_energy": 0, "surface_energy_grad": 0, "curvature_data": 0,
@@ -171,8 +176,8 @@ def _raise_on(code: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: cudaError {code}")
 
 
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
+def _count(key: str, like: torch.Tensor, csr: CornerCSR | None = None) -> None:
+    _launch.count(LAUNCHES, "tri_kernels", key, like, csr)
 
 
 def _f64(x: torch.Tensor) -> int:
@@ -186,12 +191,13 @@ def launch_surface(positions, tri_rows, gamma):
     lib = build()
     e = torch.empty(T, dtype=positions.dtype, device=positions.device)
     g = torch.empty((T, 3, 3), dtype=positions.dtype, device=positions.device)
-    code = lib.tri_surface_fwd(
+    code = _launch.call(
+        positions, lib.tri_surface_fwd,
         _f64(positions), positions.data_ptr(), tri_rows.data_ptr(), gamma.data_ptr(),
-        e.data_ptr(), g.data_ptr(), T, positions.shape[0], _stream(positions),
+        e.data_ptr(), g.data_ptr(), T, positions.shape[0],
     )
     _raise_on(code, "tri_surface_fwd")
-    LAUNCHES["surface_fwd"] += 1
+    _count("surface_fwd", positions)
     return e, g
 
 
@@ -243,19 +249,19 @@ def launch_surface_energy(positions, tri_rows, tri_valid, tension, csr: CornerCS
     nv = positions.shape[0]
     energy = torch.empty(1, dtype=positions.dtype, device=positions.device)
     dpos = torch.empty((nv, 3), dtype=positions.dtype, device=positions.device) if grad else None
-    code = lib.tri_surface_energy(
+    code = _launch.call(
+        positions, lib.tri_surface_energy,
         _f64(positions), positions.data_ptr(), tri_rows.data_ptr(), tri_valid.data_ptr(),
         tension.data_ptr(), csr.offsets.data_ptr() if grad else None,
         csr.slots.data_ptr() if grad else None, ws.corners.data_ptr(), ws.partials.data_ptr(),
         ws.counter.data_ptr(), energy.data_ptr(), _ptr(dpos), T, nv, int(grad),
-        _stream(positions),
     )
     _raise_on(code, "tri_surface_energy")
     if grad:
-        LAUNCHES["surface_energy_grad"] += 1
-        vs.LAUNCHES["vertex_sum"] += 1
+        _count("surface_energy_grad", positions, csr)
+        vs.count("vertex_sum", positions, csr)
     else:
-        LAUNCHES["surface_energy"] += 1
+        _count("surface_energy", positions, csr)
     return energy, dpos
 
 
@@ -266,13 +272,14 @@ def launch_curvature(positions, tri_rows, tri_valid):
     lib = build()
     kw = {"dtype": positions.dtype, "device": positions.device}
     cot, k, va, area = (torch.empty(s, **kw) for s in ((T, 3), (T, 3, 3), (T, 3), (T,)))
-    code = lib.tri_curvature_fwd(
+    code = _launch.call(
+        positions, lib.tri_curvature_fwd,
         int(positions.dtype == torch.float64), positions.data_ptr(), tri_rows.data_ptr(),
         tri_valid.data_ptr(), cot.data_ptr(), k.data_ptr(), va.data_ptr(), area.data_ptr(),
-        T, positions.shape[0], _stream(positions),
+        T, positions.shape[0],
     )
     _raise_on(code, "tri_curvature_fwd")
-    LAUNCHES["curvature_fwd"] += 1
+    _count("curvature_fwd", positions)
     return cot, k, va, area
 
 
@@ -284,13 +291,14 @@ def launch_curvature_bwd(positions, tri_rows, tri_valid, g_cot, g_k, g_va, g_are
            g_va=(g_va, (T, 3), None), g_area=(g_area, (T,), None))
     lib = build()
     dp = torch.empty((T, 3, 3), dtype=positions.dtype, device=positions.device)
-    code = lib.tri_curvature_bwd(
+    code = _launch.call(
+        positions, lib.tri_curvature_bwd,
         int(positions.dtype == torch.float64), positions.data_ptr(), tri_rows.data_ptr(),
         tri_valid.data_ptr(), g_cot.data_ptr(), g_k.data_ptr(), g_va.data_ptr(),
-        g_area.data_ptr(), dp.data_ptr(), T, positions.shape[0], _stream(positions),
+        g_area.data_ptr(), dp.data_ptr(), T, positions.shape[0],
     )
     _raise_on(code, "tri_curvature_bwd")
-    LAUNCHES["curvature_bwd"] += 1
+    _count("curvature_bwd", positions)
     return dp
 
 
@@ -317,13 +325,14 @@ def launch_curvature_data(positions, tri_rows, tri_valid, csr: CornerCSR):
     nv = positions.shape[0]
     kw = {"dtype": positions.dtype, "device": positions.device}
     cot, va, k_vecs, vertex_areas = (torch.empty(s, **kw) for s in ((T, 3), (T, 3), (nv, 3), (nv,)))
-    code = lib.tri_curvature_data(
+    code = _launch.call(
+        positions, lib.tri_curvature_data,
         int(positions.dtype == torch.float64), positions.data_ptr(), tri_rows.data_ptr(),
         tri_valid.data_ptr(), csr.offsets.data_ptr(), csr.slots.data_ptr(), cot.data_ptr(),
-        va.data_ptr(), k_vecs.data_ptr(), vertex_areas.data_ptr(), T, nv, _stream(positions),
+        va.data_ptr(), k_vecs.data_ptr(), vertex_areas.data_ptr(), T, nv,
     )
     _raise_on(code, "tri_curvature_data")
-    LAUNCHES["curvature_data"] += 1
+    _count("curvature_data", positions, csr)
     return cot, va, k_vecs, vertex_areas
 
 
@@ -340,34 +349,37 @@ def launch_curvature_data_bwd(positions, tri_rows, tri_valid, csr: CornerCSR, g_
     lib = build()
     dc_scratch = torch.empty((T, 3, 3), dtype=positions.dtype, device=positions.device)
     dpos = torch.empty((nv, 3), dtype=positions.dtype, device=positions.device)
-    code = lib.tri_curvature_data_bwd(
+    code = _launch.call(
+        positions, lib.tri_curvature_data_bwd,
         int(positions.dtype == torch.float64), positions.data_ptr(), tri_rows.data_ptr(),
         tri_valid.data_ptr(), csr.offsets.data_ptr(), csr.slots.data_ptr(), _ptr(g_kvecs),
         _ptr(g_varea), _ptr(g_cot), _ptr(g_va), dc_scratch.data_ptr(), dpos.data_ptr(),
-        T, nv, _stream(positions),
+        T, nv,
     )
     _raise_on(code, "tri_curvature_data_bwd")
-    LAUNCHES["curvature_data_bwd"] += 1
-    vs.LAUNCHES["vertex_sum"] += 1
+    _count("curvature_data_bwd", positions, csr)
+    vs.count("vertex_sum", positions, csr)
     return dpos
 
 
-def launch_p1_divergence(positions, tilts, tri_rows, tri_valid):
+def launch_p1_divergence(positions, tilts, tri_rows, tri_valid, csr: CornerCSR | None = None):
     """(div (T,), area (T,), g (T, 3, 3)) from ``tri_p1_div``, masked as
-    ``tilt_ops.p1_triangle_divergence`` masks them."""
+    ``tilt_ops.p1_triangle_divergence`` masks them; ``csr``, the corner CSR of ``tri_rows``
+    where the caller has it, names the call's launch count (``kernels/_launch.count``)."""
     T = _check_rows(positions, tri_rows)
     _check(positions, positions.dtype, tilts=(tilts, positions.shape, None),
            tri_valid=(tri_valid, (T,), torch.bool))
     lib = build()
     kw = {"dtype": positions.dtype, "device": positions.device}
     div, area, g = (torch.empty(s, **kw) for s in ((T,), (T,), (T, 3, 3)))
-    code = lib.tri_p1_div(
+    code = _launch.call(
+        positions, lib.tri_p1_div,
         _f64(positions), positions.data_ptr(), tilts.data_ptr(), tri_rows.data_ptr(),
         tri_valid.data_ptr(), div.data_ptr(), area.data_ptr(), g.data_ptr(), T,
-        positions.shape[0], _stream(positions),
+        positions.shape[0],
     )
     _raise_on(code, "tri_p1_div")
-    LAUNCHES["p1_div"] += 1
+    _count("p1_div", positions, csr)
     return div, area, g
 
 
@@ -379,13 +391,14 @@ def launch_p1_div_bwd(g, tri_valid, g_div, csr: CornerCSR):
     vs.check_csr(csr, g, T)
     lib = build()
     dtilts = torch.empty((csr.n_rows, 3), dtype=g.dtype, device=g.device)
-    code = lib.tri_p1_div_bwd(
+    code = _launch.call(
+        g, lib.tri_p1_div_bwd,
         _f64(g), csr.offsets.data_ptr(), csr.slots.data_ptr(), g.data_ptr(), tri_valid.data_ptr(),
-        g_div.data_ptr(), dtilts.data_ptr(), csr.n_rows, _stream(g),
+        g_div.data_ptr(), dtilts.data_ptr(), csr.n_rows,
     )
     _raise_on(code, "tri_p1_div_bwd")
-    LAUNCHES["p1_div_bwd"] += 1
-    vs.LAUNCHES["vertex_sum"] += 1
+    _count("p1_div_bwd", g, csr)
+    vs.count("vertex_sum", g, csr)
     return dtilts
 
 
@@ -456,17 +469,18 @@ def launch_surface_energy_members(positions, tri_rows, tri_valid, tension, csr: 
     nv = positions.shape[1]
     energy = torch.empty(members, dtype=positions.dtype, device=positions.device)
     dpos = torch.empty_like(positions) if grad else None
-    code = lib.tri_surface_energy_members(
+    code = _launch.call(
+        positions, lib.tri_surface_energy_members,
         _f64(positions), positions.data_ptr(), tri_rows.data_ptr(), tri_valid.data_ptr(),
         tension.data_ptr(), 0 if shared else T, csr.offsets.data_ptr() if grad else None,
         csr.slots.data_ptr() if grad else None, ws.corners.data_ptr(), ws.partials.data_ptr(),
         ws.counter.data_ptr(), energy.data_ptr(), _ptr(dpos), T, nv, int(grad), members,
-        _stream(positions),
     )
     _raise_on(code, "tri_surface_energy_members")
-    LAUNCHES[counter or ("surface_energy_grad_members" if grad else "surface_energy_members")] += 1
+    _count(counter or ("surface_energy_grad_members" if grad else "surface_energy_members"),
+           positions, csr)
     if grad:
-        vs.LAUNCHES["vertex_sum_members"] += 1
+        vs.count("vertex_sum_members", positions, csr)
     return energy, dpos
 
 
@@ -480,13 +494,14 @@ def launch_curvature_data_members(positions, tri_rows, tri_valid, csr: CornerCSR
     kw = {"dtype": positions.dtype, "device": positions.device}
     cot, va, k_vecs, vertex_areas = (
         torch.empty((members,) + s, **kw) for s in ((T, 3), (T, 3), (nv, 3), (nv,)))
-    code = lib.tri_curvature_data_members(
+    code = _launch.call(
+        positions, lib.tri_curvature_data_members,
         _f64(positions), positions.data_ptr(), tri_rows.data_ptr(), tri_valid.data_ptr(),
         csr.offsets.data_ptr(), csr.slots.data_ptr(), cot.data_ptr(), va.data_ptr(),
-        k_vecs.data_ptr(), vertex_areas.data_ptr(), T, nv, members, _stream(positions),
+        k_vecs.data_ptr(), vertex_areas.data_ptr(), T, nv, members,
     )
     _raise_on(code, "tri_curvature_data_members")
-    LAUNCHES["curvature_data_members"] += 1
+    _count("curvature_data_members", positions, csr)
     return cot, va, k_vecs, vertex_areas
 
 
@@ -504,14 +519,15 @@ def launch_curvature_data_bwd_members(positions, tri_rows, tri_valid, csr: Corne
     lib = build()
     dc_scratch = torch.empty((members, T, 3, 3), dtype=positions.dtype, device=positions.device)
     dpos = torch.empty_like(positions)
-    code = lib.tri_curvature_data_bwd_members(
+    code = _launch.call(
+        positions, lib.tri_curvature_data_bwd_members,
         _f64(positions), positions.data_ptr(), tri_rows.data_ptr(), tri_valid.data_ptr(),
         csr.offsets.data_ptr(), csr.slots.data_ptr(), _ptr(g_kvecs), _ptr(g_varea), _ptr(g_cot),
-        _ptr(g_va), dc_scratch.data_ptr(), dpos.data_ptr(), T, nv, members, _stream(positions),
+        _ptr(g_va), dc_scratch.data_ptr(), dpos.data_ptr(), T, nv, members,
     )
     _raise_on(code, "tri_curvature_data_bwd_members")
-    LAUNCHES["curvature_data_bwd_members"] += 1
-    vs.LAUNCHES["vertex_sum_members"] += 1
+    _count("curvature_data_bwd_members", positions, csr)
+    vs.count("vertex_sum_members", positions, csr)
     return dpos
 
 
@@ -523,13 +539,14 @@ def launch_p1_divergence_members(positions, tilts, tri_rows, tri_valid):
     lib = build()
     kw = {"dtype": positions.dtype, "device": positions.device}
     div, area, g = (torch.empty((members,) + s, **kw) for s in ((T,), (T,), (T, 3, 3)))
-    code = lib.tri_p1_div_members(
+    code = _launch.call(
+        positions, lib.tri_p1_div_members,
         _f64(positions), positions.data_ptr(), tilts.data_ptr(), tri_rows.data_ptr(),
         tri_valid.data_ptr(), div.data_ptr(), area.data_ptr(), g.data_ptr(), T,
-        positions.shape[1], members, _stream(positions),
+        positions.shape[1], members,
     )
     _raise_on(code, "tri_p1_div_members")
-    LAUNCHES["p1_div_members"] += 1
+    _count("p1_div_members", positions)
     return div, area, g
 
 
@@ -545,13 +562,14 @@ def launch_p1_div_bwd_members(g, tri_valid, g_div, csr: CornerCSR):
     vs.check_csr(csr, g, T)
     lib = build()
     dtilts = torch.empty((members, csr.n_rows, 3), dtype=g.dtype, device=g.device)
-    code = lib.tri_p1_div_bwd_members(
+    code = _launch.call(
+        g, lib.tri_p1_div_bwd_members,
         _f64(g), csr.offsets.data_ptr(), csr.slots.data_ptr(), g.data_ptr(), tri_valid.data_ptr(),
-        g_div.data_ptr(), dtilts.data_ptr(), csr.n_rows, T, members, _stream(g),
+        g_div.data_ptr(), dtilts.data_ptr(), csr.n_rows, T, members,
     )
     _raise_on(code, "tri_p1_div_bwd_members")
-    LAUNCHES["p1_div_bwd_members"] += 1
-    vs.LAUNCHES["vertex_sum_members"] += 1
+    _count("p1_div_bwd_members", g, csr)
+    vs.count("vertex_sum_members", g, csr)
     return dtilts
 
 
@@ -893,7 +911,7 @@ class _P1Divergence(torch.autograd.Function):
     def forward(positions, tilts, tri_rows, tri_valid, csr):
         if positions.is_cuda:
             return launch_p1_divergence(positions.contiguous(), tilts.contiguous(), tri_rows,
-                                        tri_valid)
+                                        tri_valid, csr)
         return tilt_ops.p1_triangle_divergence(positions, tilts, tri_rows, tri_valid)
 
     @staticmethod
@@ -937,8 +955,14 @@ def surface_energy(positions, tri_rows, tri_valid, tension, csr: CornerCSR, ws=N
     and the vertex gradient (summed in the order of ``csr``, the topology's
     corner CSR) and the backward scales it; otherwise the call computes the
     energy alone.  ``ws`` is the topology's :class:`Workspace` for the CUDA
-    path (:func:`workspace`; made per call when None).
+    path (:func:`workspace`; made per call when None).  A ``csr`` that carries a shard plan
+    (``device/shard``) runs each shard's triangles on its device.
     """
+    plan = _shard.plan_of(csr, positions, tri_rows)
+    if plan is not None:
+        return plan.add(plan.map(lambda s, x, valid, t: surface_energy(
+            x, s.topo.tri_rows, valid, t, s.csr, workspace(s.topo, x)),
+            vertex=(positions,), tri=(tri_valid, tension)))
     if vs.batched(positions):
         return _SurfaceEnergy.apply(positions, tri_rows, tri_valid, tension, csr, ws)[0]
     if torch.is_grad_enabled() and positions.requires_grad:
@@ -954,8 +978,15 @@ def surface_energy_and_gradient(positions, tri_rows, tri_valid, tension, csr: Co
     (unit tension on the triangles they hold) at every projection step.
     Under ``torch.func.vmap`` (the parameter sweep) all members take one
     ``tri_surface_energy_members`` launch (``LAUNCHES["surface_area_grad_members"]``),
-    each member's outputs the bits of its own call.
+    each member's outputs the bits of its own call.  A ``csr`` that carries a shard plan runs
+    each shard's triangles on its device.
     """
+    plan = _shard.plan_of(csr, positions, tri_rows)
+    if plan is not None:
+        parts = plan.map(lambda s, x, valid, t: surface_energy_and_gradient(
+            x, s.topo.tri_rows, valid, t, s.csr, workspace(s.topo, x)),
+            vertex=(positions.detach(),), tri=(tri_valid, tension))
+        return plan.add([e for e, _g in parts]), plan.reduce_rows([g for _e, g in parts])
     if vs.batched(positions):
         return _SurfaceEnergyAndGradient.apply(positions.detach(), tri_rows, tri_valid, tension,
                                                csr, ws)
@@ -976,8 +1007,18 @@ def curvature_data(positions, tri_rows, tri_valid, csr: CornerCSR) -> dgeo.Curva
     """``geo.curvature_data``, differentiable in ``positions``, one kernel call each way.
 
     ``csr`` is the corner CSR of ``tri_rows`` (``Topology.corner_csr()``);
-    the vertex sums follow its order, so repeated calls give the same bits.
+    the vertex sums follow its order, so repeated calls give the same bits.  A ``csr`` that
+    carries a shard plan runs each shard's triangles on its device.
     """
+    plan = _shard.plan_of(csr, positions, tri_rows)
+    if plan is not None:
+        parts = plan.map(lambda s, x, valid: curvature_data(x, s.topo.tri_rows, valid, s.csr),
+                         vertex=(positions,), tri=(tri_valid,))
+        return dgeo.CurvatureData(
+            k_vecs=plan.reduce_rows([p.k_vecs for p in parts]),
+            vertex_areas=plan.reduce_rows([p.vertex_areas for p in parts]),
+            weights=plan.join([p.weights for p in parts]),
+            corner_areas=plan.join([p.corner_areas for p in parts]))
     k_vecs, vertex_areas, cot, va = _CurvatureData.apply(positions, tri_rows, tri_valid, csr)
     return dgeo.CurvatureData(k_vecs=k_vecs, vertex_areas=vertex_areas, weights=cot,
                               corner_areas=va)
@@ -989,9 +1030,15 @@ def p1_triangle_divergence(positions, tilts, tri_rows, tri_valid, csr: CornerCSR
     One kernel call forward (masks included), one backward in the tilts
     (the weighted vertex sum over ``csr``, the corner CSR of ``tri_rows``).
     Differentiable in ``tilts`` only: a call whose positions require grad
-    raises instead of dropping their gradient.
+    raises instead of dropping their gradient.  A ``csr`` that carries a shard plan runs
+    each shard's triangles on its device.
     """
     if positions.requires_grad and torch.is_grad_enabled():
         raise ValueError("p1_triangle_divergence takes frozen positions; detach them first")
+    plan = _shard.plan_of(csr, positions, tri_rows)
+    if plan is not None:
+        parts = plan.map(lambda s, x, t, valid: p1_triangle_divergence(
+            x, t, s.topo.tri_rows, valid, s.csr), vertex=(positions, tilts), tri=(tri_valid,))
+        return tuple(plan.join(list(out)) for out in zip(*parts))
 
     return _P1Divergence.apply(positions, tilts, tri_rows, tri_valid, csr)

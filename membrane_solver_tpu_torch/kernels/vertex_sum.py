@@ -38,8 +38,9 @@ import dataclasses
 
 import torch
 
+from membrane_solver_tpu_torch.device import shard as _shard
 from membrane_solver_tpu_torch.device.state import CornerCSR
-from membrane_solver_tpu_torch.kernels import _build
+from membrane_solver_tpu_torch.kernels import _build, _launch
 
 LAUNCHES = {"vertex_sum": 0, "vertex_sum_members": 0}
 # the most members one launch takes (the grid's y extent)
@@ -120,9 +121,10 @@ def check_csr(csr: CornerCSR, like: torch.Tensor, n_triangles: int) -> None:
     csr.__dict__[_CHECKED] = key
 
 
-def _stream(x: torch.Tensor) -> int:
-    """The raw handle of the current stream on ``x``'s card (no Stream object built)."""
-    return torch._C._cuda_getCurrentRawStream(x.get_device())
+def count(key: str, like: torch.Tensor, csr: CornerCSR) -> None:
+    """One launch of the kernel as ``key`` over ``csr`` on ``like``'s card, from this module or
+    from an entry point that launches it inside its own call (``kernels/_launch.count``)."""
+    _launch.count(LAUNCHES, "vertex_sum", key, like, csr)
 
 
 def launch(corner_values: torch.Tensor, csr: CornerCSR) -> torch.Tensor:
@@ -141,14 +143,14 @@ def launch(corner_values: torch.Tensor, csr: CornerCSR) -> torch.Tensor:
     width = 3 if corner_values.dim() == 3 else 1
     lib = build()
     out = corner_values.new_empty((csr.n_rows,) + tuple(corner_values.shape[2:]))
-    code = lib.vertex_sum_rows(
+    code = _launch.call(
+        corner_values, lib.vertex_sum_rows,
         int(corner_values.dtype == torch.float64), width, csr.offsets.data_ptr(),
         csr.slots.data_ptr(), corner_values.data_ptr(), out.data_ptr(), csr.n_rows,
-        _stream(corner_values),
     )
     if code != 0:
         raise RuntimeError(f"vertex_sum_rows launch failed: cudaError {code}")
-    LAUNCHES["vertex_sum"] += 1
+    count("vertex_sum", corner_values, csr)
     return out
 
 
@@ -189,14 +191,15 @@ def launch_members(corner_values: torch.Tensor, csr: CornerCSR) -> torch.Tensor:
     width = 3 if corner_values.dim() == 4 else 1
     lib = build()
     out = corner_values.new_empty((members, csr.n_rows) + tuple(corner_values.shape[3:]))
-    code = lib.vertex_sum_rows_members(
+    code = _launch.call(
+        corner_values, lib.vertex_sum_rows_members,
         int(corner_values.dtype == torch.float64), width, csr.offsets.data_ptr(),
         csr.slots.data_ptr(), corner_values.data_ptr(), out.data_ptr(), csr.n_rows,
-        3 * corner_values.shape[1], members, _stream(corner_values),
+        3 * corner_values.shape[1], members,
     )
     if code != 0:
         raise RuntimeError(f"vertex_sum_rows_members launch failed: cudaError {code}")
-    LAUNCHES["vertex_sum_members"] += 1
+    count("vertex_sum_members", corner_values, csr)
     return out
 
 
@@ -247,8 +250,14 @@ def vertex_sum(corner_values: torch.Tensor, csr: CornerCSR) -> torch.Tensor:
     A call that autograd does not follow (the projections, the line search's
     energy-only trials) skips the Function and its host cost.  Under
     ``torch.func.vmap`` (:func:`batched`) every call takes the Function,
-    whose ``vmap`` rule sums all members in one :func:`launch_members`.
+    whose ``vmap`` rule sums all members in one :func:`launch_members`.  A ``csr`` that
+    carries a shard plan (``device/shard``) sums each shard's corner rows on its device and
+    reduces the shards' rows in shard order.
     """
+    plan = _shard.plan_of(csr, corner_values, corner_values)
+    if plan is not None:
+        return plan.reduce_rows(plan.map(lambda s, c: vertex_sum(c, s.csr),
+                                         tri=(corner_values,)))
     if batched(corner_values) or (torch.is_grad_enabled() and corner_values.requires_grad):
         return _VertexSum.apply(corner_values, csr)
     if corner_values.is_cuda:

@@ -19,7 +19,8 @@ m at rel 1e-13, distinct parameters give distinct energies, the dropped
 override changes no bit, the local-interface modules and the rigid disk
 join the batched set (against JAX's ``jax.vmap``, as
 ``tests/test_torch_sweep_interface.py`` holds them), the ``trace_z``
-fallback builds a sweep, ``device_mesh`` raises, and
+fallback builds and runs a placed sweep, a one-device ``device_mesh``
+gives the unplaced sweep's bits, and
 the member-axis entry points under ``torch.func.vmap`` (the CPU twins of
 the member-axis kernels) equal the per-member calls bit for bit.  The
 member-axis CUDA kernels against the single-member kernels run on the
@@ -78,7 +79,7 @@ def problems():
     return jp, tp
 
 
-def port_run(tp, options: dict, missing=True, pick=None):
+def port_run(tp, options: dict, missing=True, pick=None, mesh=None):
     from membrane_solver_tpu_torch.parallel.sweep import run_sweep
     from membrane_solver_tpu_torch.runtime.jit_core import MinimizeOptions
 
@@ -86,7 +87,8 @@ def port_run(tp, options: dict, missing=True, pick=None):
     if pick is not None:
         params, positions = params[pick:pick + 1], positions[pick:pick + 1]
     return run_sweep(tp, params, STEPS, step_size=STEP_SIZE,
-                     options=MinimizeOptions(**options), member_positions=positions)
+                     options=MinimizeOptions(**options), member_positions=positions,
+                     device_mesh=mesh)
 
 
 @pytest.fixture(scope="module")
@@ -192,17 +194,24 @@ def test_two_runs_give_the_same_bits(problems):
 
 def test_trace_z_fallback_raises(problems):
     """The ``trace_z`` fallback no longer raises: its spec builds a sweep (its members' second
-    line search, ``tests/test_torch_sweep_scaffold.py``); placing that sweep on several cards
-    still raises, naming ROADMAP A6's multi-card item."""
+    line search, ``tests/test_torch_sweep_scaffold.py``) and runs it placed on a device list,
+    each member its unplaced run's bits; only a mesh that does not divide the members raises."""
     from membrane_solver_tpu_torch.parallel.sweep import make_sweep_minimize
     from membrane_solver_tpu_torch.runtime.jit_core import MinimizeOptions
 
-    spec = problems[1].spec
+    tp = problems[1]
+    spec = tp.spec
     trace_z = dataclasses.replace(spec, static_options=spec.static_options + (
         ("shape_scaffold_rejected_step_fallback", "trace_z"),))
-    assert callable(make_sweep_minimize(trace_z, MinimizeOptions()))
-    with pytest.raises(NotImplementedError, match="ROADMAP A6: multi-card sweep placement"):
-        make_sweep_minimize(trace_z, MinimizeOptions(), device_mesh=object())
+    tz = dataclasses.replace(tp, spec=trace_z)
+    placed, unplaced = (port_run(tz, OPTIONS["default"], mesh=mesh) for mesh in (["cpu"] * 3,
+                                                                                  None))
+    for f in FIELDS:
+        assert torch.equal(getattr(placed[0], f), getattr(unplaced[0], f)), f
+    assert np.asarray(placed[2].trace_z_fallbacks).tolist() == [0, 0, 0]  # no trace rows here
+    with pytest.raises(ValueError, match="do not split over 2 devices"):
+        port_run(tz, OPTIONS["default"], mesh=["cpu"] * 2)
+    assert callable(make_sweep_minimize(trace_z, MinimizeOptions(), device_mesh=["cpu"] * 2))
 
 
 @pytest.mark.parametrize("kind,name", [
@@ -225,11 +234,19 @@ def test_module_joins_the_batched_set(problems, kind, name):
 
 
 def test_device_mesh_raises(problems):
-    from membrane_solver_tpu_torch.parallel.sweep import run_sweep
-
+    """A one-device ``device_mesh`` gives the unplaced sweep's bits; a mesh that does not
+    divide the members raises ValueError (``tests/test_torch_sweep_placement.py`` places
+    members on several devices)."""
     tp = problems[1]
-    with pytest.raises(NotImplementedError, match="multi-card"):
-        run_sweep(tp, [{}], 1, device_mesh=object())
+    placed, unplaced = port_run(tp, OPTIONS["bfgs"], mesh=["cpu"]), port_run(tp, OPTIONS["bfgs"])
+    for f in FIELDS:
+        assert torch.equal(getattr(placed[0], f), getattr(unplaced[0], f)), f
+    for key in STATS + FLAGS:
+        assert np.array_equal(np.asarray(getattr(placed[2], key)),
+                              np.asarray(getattr(unplaced[2], key))), key
+    assert torch.equal(placed[1].H, unplaced[1].H)
+    with pytest.raises(ValueError, match="3 sweep members do not split over 2 devices"):
+        port_run(tp, OPTIONS["default"], mesh=["cpu"] * 2)
 
 
 # ----------------------------------------------------------------------
