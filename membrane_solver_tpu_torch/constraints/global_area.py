@@ -16,6 +16,7 @@ import dataclasses
 
 import torch
 
+from membrane_solver_tpu_torch.device.reduce import member_sum
 from membrane_solver_tpu_torch.kernels import tri_kernels
 
 TOL = 1e-12
@@ -37,7 +38,7 @@ def enforce(state, topo, params, context: str = "minimize"):
     for _ in range(MAX_ITER):
         area, grad = _total_area_and_gradient(pos, topo)
         delta = area - target
-        norm_sq = torch.sum(grad * grad)
+        norm_sq = member_sum(grad * grad)
         lam = delta / (norm_sq + 1e-18)
         needs = (torch.abs(delta) >= TOL) & (norm_sq >= 1e-18)
         pos = torch.where(needs, pos - lam * grad * movable, pos)

@@ -32,6 +32,7 @@ import torch
 
 from membrane_solver_tpu_torch.constraints._pin_groups import group_sums
 from membrane_solver_tpu_torch.device import linalg as dlinalg
+from membrane_solver_tpu_torch.device.reduce import per_member
 from membrane_solver_tpu_torch.device.state import kept_slot_csr
 from membrane_solver_tpu_torch.kernels import vertex_sum
 
@@ -247,8 +248,10 @@ def _group_circles(positions, topo):
                      torch.stack([Sx, Sy, counts], dim=1)], dim=1)
     A = A + 1e-18 * torch.eye(3, dtype=dtype, device=A.device)[None]
     # solve_ex: a singular system gives non-finite values, as the JAX
-    # package's solve does, without a host read of the LU's status
-    sol = torch.linalg.solve_ex(A, torch.stack([Bx, By, B1], dim=1)[:, :, None]).result
+    # package's solve does, without a host read of the LU's status; under
+    # ``torch.func.vmap`` each member's batch of groups is its own call (a
+    # batched LU picks its routine by the batch count)
+    sol = per_member(_solve_groups, A, torch.stack([Bx, By, B1], dim=1)[:, :, None])
     a_c, b_c, d_c = sol[:, :, 0].unbind(1)
     r_fit = torch.sqrt(torch.clamp(d_c + a_c**2 + b_c**2, min=1e-18))
     fit_center = centroid + a_c[:, None] * u + b_c[:, None] * v
@@ -263,6 +266,10 @@ def _group_circles(positions, topo):
     radius = torch.where(is_slide, slide_r, r_fit)
     radius = torch.where(_x(topo, "g_has_radius"), _x(topo, "g_radius").to(dtype), radius)
     return normal, center, radius, counts
+
+
+def _solve_groups(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.solve_ex(A, b).result
 
 
 def _project_rows(positions, rows, valid, normal, center, radius, preserve):

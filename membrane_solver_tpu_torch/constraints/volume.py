@@ -23,6 +23,7 @@ import dataclasses
 import torch
 
 from membrane_solver_tpu_torch.device import geo as dgeo
+from membrane_solver_tpu_torch.device.reduce import member_sum
 
 TOL = 1e-12
 MAX_ITER_MINIMIZE = 3
@@ -41,7 +42,7 @@ def _volume_and_gradient(positions, topo, body_slot: int):
     v2 = positions[topo.tri_rows[:, 2]]
     m = in_body.to(positions.dtype)[:, None]
     c12 = torch.linalg.cross(v1, v2)
-    vol = torch.sum(torch.where(in_body, torch.sum(c12 * v0, dim=1), 0.0)) / 6.0
+    vol = member_sum(torch.where(in_body, torch.sum(c12 * v0, dim=1), 0.0)) / 6.0
     g0 = c12 * (m / 6.0)
     g1 = torch.linalg.cross(v2, v0) * (m / 6.0)
     g2 = torch.linalg.cross(v0, v1) * (m / 6.0)
@@ -70,7 +71,7 @@ def enforce(state, topo, params, context: str = "minimize"):
         for _ in range(max_iter):
             vol, grad = _volume_and_gradient(positions, topo, slot)
             delta = vol - target
-            lam = delta / (torch.sum(grad * grad) + 1e-12)
+            lam = delta / (member_sum(grad * grad) + 1e-12)
             needs = active[slot] & (torch.abs(delta) >= TOL)
             positions = torch.where(needs, positions - lam * grad * movable, positions)
     return dataclasses.replace(state, positions=positions)

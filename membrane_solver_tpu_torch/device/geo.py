@@ -28,6 +28,7 @@ import dataclasses
 
 import torch
 
+from membrane_solver_tpu_torch.device.reduce import member_sum
 from membrane_solver_tpu_torch.device.state import CornerCSR
 from membrane_solver_tpu_torch.kernels import vertex_sum as vs
 
@@ -116,10 +117,12 @@ def masked_body_sums(values: torch.Tensor, tri_body: torch.Tensor, n_bodies: int
     """:func:`body_sums` as a masked (n_bodies, T) reduction, on any device.
 
     A PyTorch reduction adds in a fixed order for a fixed shape, so two
-    calls give the same bits; ``n_bodies`` is small and static.
+    calls give the same bits; ``n_bodies`` is small and static.  Under
+    ``torch.func.vmap`` each member's reduction is its own call's
+    (``device/reduce.member_sum``).
     """
     slots = torch.arange(n_bodies, device=tri_body.device)[:, None]
-    return torch.sum(torch.where(tri_body[None, :] == slots, values[None, :], 0.0), dim=1)
+    return member_sum(torch.where(tri_body[None, :] == slots, values[None, :], 0.0), dim=1)
 
 
 def barycentric_vertex_areas(geo: TriangleGeometry, csr: CornerCSR):

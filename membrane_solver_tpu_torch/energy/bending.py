@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from membrane_solver_tpu_torch.device import geo as dgeo
+from membrane_solver_tpu_torch.device.reduce import member_sum
 from membrane_solver_tpu_torch.energy import param
 from membrane_solver_tpu_torch.kernels import tri_kernels
 
@@ -114,4 +115,4 @@ def energy(geo, state, topo, params, model: str = "helfrich"):
     else:
         H_eff = torch.where(interior, H, 0.0)
         density = kappa * H_eff**2
-    return torch.sum(torch.where(topo.vertex_valid, density * a_eff, 0.0))
+    return member_sum(torch.where(topo.vertex_valid, density * a_eff, 0.0))

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from membrane_solver_tpu_torch.device import geo as dgeo
+from membrane_solver_tpu_torch.device.reduce import member_sum
 from membrane_solver_tpu_torch.energy import param
 
 USES_TILT = False
@@ -48,4 +49,4 @@ def energy(geo, state, topo, params):
     gamma = torch.where(x("has_gamma"), x("gamma"), param(params, "line_tension", like=positions))
     vecs = positions[topo.edge_rows[:, 1]] - positions[topo.edge_rows[:, 0]]
     lengths = dgeo.safe_norm(vecs, eps=1e-15)
-    return torch.sum(torch.where(active, gamma * lengths, 0.0))
+    return member_sum(torch.where(active, gamma * lengths, 0.0))

@@ -26,7 +26,7 @@ import math
 import numpy as np
 import torch
 
-from membrane_solver_tpu_torch.device.reduce import tree_sum
+from membrane_solver_tpu_torch.device.reduce import member_sum, tree_sum
 from membrane_solver_tpu_torch.energy import param
 
 USES_TILT_LEAFLETS = True
@@ -88,15 +88,16 @@ def compile_topology(layout) -> dict:
     return ring_tables(layout, _group_rows(layout), center, normal, raw_n is not None)
 
 
-def ring_geometry(positions, topo, prefix: str = _PREFIX, total=torch.sum):
+def ring_geometry(positions, topo, prefix: str = _PREFIX, total=member_sum):
     """(valid mask, weights, r_hat, r_len, wsum, R_eff) for the ring of ``prefix``'s extras.
 
     ``total`` sums the ring's weights: ``tilt_disk_contact_in`` passes
-    ``device/reduce.tree_sum``, whose order a sweep member keeps under
-    ``torch.func.vmap``.  This module's own ring keeps ``torch.sum``: its
-    frozen geometry feeds every iteration of the kozlov lane's leaflet relax,
-    whose float64 floor decides near-ties (ROADMAP C3), and its sweep members
-    are held to 1e-12 of their one-member runs, not to bits.
+    ``device/reduce.tree_sum``.  This module's own ring keeps the order of
+    ``torch.sum``: its frozen geometry feeds every iteration of the kozlov
+    lane's leaflet relax, whose float64 floor decides near-ties (ROADMAP C3),
+    and a halving tree flips one of them.  ``device/reduce.member_sum`` is
+    that single call, and under ``torch.func.vmap`` that call once per sweep
+    member, so a member's ring is its single call's bits at any member count.
     """
     rows = topo.extras[f"{prefix}/rows"]
     valid = topo.extras[f"{prefix}/valid"]

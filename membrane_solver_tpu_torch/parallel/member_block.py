@@ -26,16 +26,20 @@ Functions, whose ``vmap`` rules launch the member-axis kernels
 (``kernels/tri_kernels``, ``kernels/vertex_sum``): one launch for all B
 members, each member's result the bits of its own launch.  The projection,
 the enforcement and the line search's geometry checks are mapped the same
-way.  No Python loop over members touches the device, but for the dense
-shape KKT solve: one LU per member (``jit_core._KKTSolve``), as PyTorch
-factors a batch in another order than one matrix.  A member's sums add in
-an order that does not depend on B: per-vertex sums through the
-member-axis vertex-sum kernel, whole-array sums through
-``device/reduce.tree_sum``, 3x3 products and the KKT assembly term by
-term (``device/linalg``, ``jit_core``), so each module mapped over the
-members gives its single calls' bits (the theta_B contact ring and the
-pins' projection keep orders of their own, within round-off of a
-one-member run).
+way.  Member m of a B-member block gives the bits of a one-member block
+of member m, at any B: every sum and product on a member's path adds in
+an order that does not depend on B.  Per-vertex sums go through the
+member-axis vertex-sum kernel; whole-array sums through
+``device/reduce.tree_sum``, or, where a module keeps its single call's
+order, through ``device/reduce.member_sum`` (that call once per member);
+3x3 products and the KKT assembly are written term by term
+(``device/linalg``, ``jit_core``); dense solves and products run one call
+per member (``jit_core._KKTSolve``, ``device/reduce.per_member``), as
+PyTorch factors or multiplies a batch in another order than one matrix.
+The block's own reductions over a member's row (the gradient norm, the
+Armijo slope, BFGS's products) are :func:`member_dot` and
+``device/reduce.each_member``.  So each module mapped over the members gives its
+single calls' bits, and a member never feels the others.
 
 The decisions follow the JAX package's ``vmap`` of its ``while_loop``s: the
 loop runs while any member is active, and a member that has converged,
@@ -57,7 +61,7 @@ import torch
 from torch.func import vmap
 
 from membrane_solver_tpu_torch.device import geo as dgeo
-from membrane_solver_tpu_torch.device.reduce import tree_sum
+from membrane_solver_tpu_torch.device.reduce import each_member, tree_sum
 from membrane_solver_tpu_torch.device.state import MeshState, ProblemSpec, occurrence_levels
 from membrane_solver_tpu_torch.runtime import jit_core
 from membrane_solver_tpu_torch.runtime import tilt_relax as _tr
@@ -156,6 +160,22 @@ def fresh_member_stepper(members: int, n_vertices: int, kind: str, *, dtype,
     )
 
 
+def member_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(B,) dot products of each member's row of ``a`` and ``b`` (B, ...), in a fixed halving
+    tree along the row (``device/reduce.tree_sum``): a batched reduction over the members'
+    rows adds in an order PyTorch picks by the member count."""
+    return tree_sum((a * b).reshape(a.shape[0], -1), dim=1)
+
+
+def member_norm(a: torch.Tensor) -> torch.Tensor:
+    """(B,) 2-norms of each member's row of ``a``: :func:`member_dot` of it with itself."""
+    return torch.sqrt(member_dot(a, a))
+
+
+def _congruence(V: torch.Tensor, H: torch.Tensor) -> torch.Tensor:
+    return V @ H @ V.T
+
+
 def member_direction(kind: str, grad, ss: StepperState, fixed_mask, positions, live):
     """``jit_core.stepper_direction`` per member: (direction (B, N, 3), mid-state).
 
@@ -167,8 +187,8 @@ def member_direction(kind: str, grad, ss: StepperState, fixed_mask, positions, l
         return -grad, ss
     if kind == "conjugate_gradient":
         restart = ~ss.have_prev | (ss.iter_count % jit_core.CG_RESTART_INTERVAL == 0)
-        numer = torch.sum(grad * (grad - ss.prev_grad), dim=2)
-        denom = torch.sum(ss.prev_grad * ss.prev_grad, dim=2) + 1e-20
+        numer = jit_core._dot_last(grad, grad - ss.prev_grad)
+        denom = jit_core._dot_last(ss.prev_grad, ss.prev_grad) + 1e-20
         beta_pr = numer / denom
         cg_dir = -grad + beta_pr[:, :, None] * ss.prev_dir
         cg_dir = torch.where((beta_pr < 0)[:, :, None], -grad, cg_dir)
@@ -182,15 +202,15 @@ def member_direction(kind: str, grad, ss: StepperState, fixed_mask, positions, l
         x = (positions * movable).reshape(B, -1)
         s = x - (ss.prev_x * movable).reshape(B, -1)
         y = g - (ss.prev_grad * movable).reshape(B, -1)
-        ys = torch.einsum("bi,bi->b", y, s)
+        ys = member_dot(y, s)
         eye = torch.eye(3 * n, dtype=grad.dtype, device=grad.device)
         rho = (1.0 / ys)[:, None, None]
         V = eye - rho * (s[:, :, None] * y[:, None, :])
-        updated = V @ ss.H @ V.transpose(1, 2) + rho * (s[:, :, None] * s[:, None, :])
+        updated = each_member(_congruence, V, ss.H) + rho * (s[:, :, None] * s[:, None, :])
         H_new = torch.where((ys > 1e-12)[:, None, None], updated, eye)
         take = torch.as_tensor(ss.have_prev & live, device=grad.device)
         H_after = torch.where(take[:, None, None], H_new, ss.H)
-        direction = -torch.einsum("bij,bj->bi", H_after, g).reshape(B, n, 3)
+        direction = -each_member(torch.mv, H_after, g).reshape(B, n, 3)
         direction = torch.where(fixed_mask[None, :, None], 0.0, direction)
         return direction, dataclasses.replace(ss, H=H_after)
     raise ValueError(f"unknown stepper kind {kind!r}")
@@ -253,9 +273,9 @@ def member_line_search(energies, state_of_trial, states: MeshState, grad, direct
     positions = states.positions
     min_edge = vmap(dgeo.min_edge_length, in_dims=(0, None, None))(
         positions, topo.edge_rows, topo.edge_valid)
-    dir_norms = torch.linalg.vector_norm(direction, dim=2)
+    dir_norms = torch.sqrt(jit_core._dot_last(direction, direction))
     max_dir = torch.max(torch.where(movable[None, :], dir_norms, 0.0), dim=1).values
-    slope_t = torch.sum(grad * direction, dim=(1, 2))
+    slope_t = member_dot(grad, direction)
     read = _host(min_edge, max_dir, slope_t, *(() if extra is None else (extra,)))
     min_edge, max_dir_norm, slope = (a.astype(np_dtype) for a in read[:3])
     safe_limit = np.where(min_edge > 0, np_dtype(SAFE_STEP_FRACTION) * min_edge,
@@ -435,7 +455,7 @@ def member_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
         active = iterations < n_steps
         while active.any():
             E_t, grad = energy_and_grad(states, topo, params)
-            gnorm_t = torch.linalg.vector_norm(grad.reshape(B, -1), dim=1)
+            gnorm_t = member_norm(grad)
             E, gnorm = (a.astype(np_dtype) for a in _host(E_t, gnorm_t))
             iterations += active
             last_E = np.where(active, E, last_E)

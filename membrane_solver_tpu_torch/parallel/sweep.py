@@ -31,11 +31,11 @@ waits, not their host work; a process per device would overlap that too,
 but would have to ship the topology, the states and the launch counts
 between processes.  While ``jit_core.KKT_RECORD`` or
 ``member_block.TRACE_Z_RECORD`` is a list, every group runs in turn in the
-calling thread, so the records keep their order.  A group computes what an
-unplaced sweep of its own members computes, in bits; against a sweep of
-all B members a member can differ in its last bits, where a batched
-reduction (the gradient norm over the members) adds in an order PyTorch
-picks by the member count.
+calling thread, so the records keep their order.  Every member of a group
+gets the bits of a one-member sweep of that member, as in an unplaced
+sweep of any member count (``parallel/member_block``), so placing the
+members on a device list changes no bit of them on one kind of device;
+a group on the CPU runs the kernels' plain twins, another arithmetic.
 """
 
 from __future__ import annotations

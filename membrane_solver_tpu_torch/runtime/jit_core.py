@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from membrane_solver_tpu_torch.device import geo as dgeo
-from membrane_solver_tpu_torch.device.reduce import tree_sum
+from membrane_solver_tpu_torch.device.reduce import member_sum, per_member, tree_sum
 from membrane_solver_tpu_torch.device.state import (
     MeshState,
     ProblemSpec,
@@ -355,18 +355,23 @@ def project_gradient_kkt(grad: torch.Tensor, constraint_grads) -> torch.Tensor:
     k = constraint_grads.shape[0]
     flatg = grad.reshape(-1)
     G = constraint_grads.reshape(k, -1)
-    # the dot products as sums of products: under ``torch.func.vmap`` (the
-    # parameter sweep) each member's sum adds in the order of its own call
+    # the dot products as sums of products, and the Gram matrix, each member's own call under
+    # ``torch.func.vmap`` (the parameter sweep): a batched reduction or product adds in an
+    # order PyTorch picks by the member count
     if k == 1:
         gC = G[0]
-        norm_sq = torch.sum(gC * gC)
+        norm_sq = member_sum(gC * gC)
         lam = torch.where(
-            norm_sq > 1e-18, torch.sum(flatg * gC) / torch.clamp(norm_sq, min=1e-18), 0.0
+            norm_sq > 1e-18, member_sum(flatg * gC) / torch.clamp(norm_sq, min=1e-18), 0.0
         )
         return (flatg - lam * gC).reshape(grad.shape)
-    A = G @ G.T + 1e-18 * torch.eye(k, dtype=grad.dtype, device=grad.device)
-    lam = solve_kkt_with_rescue(A, torch.sum(G * flatg, dim=1))
-    return (flatg - torch.sum(lam[:, None] * G, dim=0)).reshape(grad.shape)
+    A = per_member(_gram, G) + 1e-18 * torch.eye(k, dtype=grad.dtype, device=grad.device)
+    lam = solve_kkt_with_rescue(A, member_sum(G * flatg, 1))
+    return (flatg - member_sum(lam[:, None] * G, 0)).reshape(grad.shape)
+
+
+def _gram(G: torch.Tensor) -> torch.Tensor:
+    return G @ G.T
 
 
 def orthonormalize_local_normals(normals: torch.Tensor) -> torch.Tensor:
@@ -395,6 +400,10 @@ def apply_local_projection(vec: torch.Tensor, n_hat: torch.Tensor) -> torch.Tens
     for j in range(n_hat.shape[-2]):
         out = out - coeff[..., j, None] * n_hat[..., j, :]
     return out
+
+
+def _compact_dense(vals: torch.Tensor, dense_at_slots: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("iac,jiac->ij", vals, dense_at_slots)
 
 
 def make_gradient_projector(spec: ProblemSpec) -> Callable | None:
@@ -503,15 +512,16 @@ def make_gradient_projector(spec: ProblemSpec) -> Callable | None:
 
         kd = dense_rows.shape[0]
         Gd = dense_rows.reshape(kd, -1)
-        A_dd = Gd @ Gd.T
-        A_cd = torch.einsum("iac,jiac->ij", vals, dense_rows[:, rows_c])
+        # the dense products, each member's own call under ``torch.func.vmap``
+        A_dd = per_member(_gram, Gd)
+        A_cd = per_member(_compact_dense, vals, dense_rows[:, rows_c])
         A = torch.cat(
             [torch.cat([A_cc, A_cd], dim=1), torch.cat([A_cd.T, A_dd], dim=1)]
         ) + 1e-18 * torch.eye(kc + kd, dtype=grad.dtype, device=grad.device)
-        b = torch.cat([b_c, Gd @ grad.reshape(-1)])
+        b = torch.cat([b_c, per_member(torch.matmul, Gd, grad.reshape(-1))])
         lam = solve_kkt_with_rescue(A, b)
         corr = vertex_sum.row_sum((lam[:kc, None, None] * vals).reshape(-1, 3), csr)
-        corr = corr + (lam[kc:] @ Gd).reshape(grad.shape)
+        corr = corr + per_member(torch.matmul, lam[kc:], Gd).reshape(grad.shape)
         return grad - corr
 
     return project
