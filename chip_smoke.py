@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (membrane_solver_tpu_torch) on one NVIDIA GPU.
 
-Phases, each printing its own lines; any failure raises and exits non-zero:
+Phases, each printing its own lines; any failure raises and exits non-zero.
+Every phase runs the card's default line-search form, the batched one
+(``membrane_solver_tpu_torch/utils/tuning.py``), except where phases 55-56
+set ``MEMBRANE_SOLVER_BATCHED_LS`` to compare the two.
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions.  No CUDA device -> exit 2 before anything else.
@@ -495,6 +498,24 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
     ``tp_minimize_block`` step against the one-card block (energy to
     ``TP_BLOCK_RTOL``, the same accept flag, finite positions).  A
     ``[53-54 ...]`` line gives their seconds.
+55. ``kozlov_L3_batched_ls`` (``phase_batched_ls``), float64, and
+56. the same at float32: the batched line search (``utils/tuning``, the
+    card's default, which every other phase runs) against the sequential
+    one.  The kozlov L3 lane as phases 4-5 build it, then the bench
+    protocol (2 warm-up and 3 timed ``minimize(1)`` steps) under each form
+    from one saved state: equal accept flags, energies equal in bits and
+    one sha256 of positions, tilts and energies; per step and form the ms,
+    the line-search trials, the host syncs (a second run, whose digest must
+    be the first's) and the member launches, which the batched form must
+    make (the Armijo tail's trial energies; at float32 also
+    ``frozen_tilt_members`` in the relax's tail) and the sequential form
+    must not.  The line also prints the reduced-energy search's form
+    (``jit_core.REDUCED_LS_FORM``: sequential).  At float32 then
+    ``frozen_tilt_members`` on the relax's own fused inputs at this state
+    and seeded tilts, at B = 1, 3 and 11: each member the bits of a single
+    launch and of the entry point under ``torch.func.vmap``, and within rel
+    1e-6 of its twin; its timing row at B = 11 waits for the quiet stage.
+    A ``[55-56 ...]`` line gives their seconds.
 
 Every lane phase (4-9, 11-19, 21-24, 26-31) also checks determinism: from the state its
 protocol leaves (phases 4-7, 16-19, 21-24 and 26-31: the five steps; phases 8-9 and
@@ -505,7 +526,7 @@ a ``[... determinism]`` line prints both digests, and unequal digests fail
 the run.  A ``[phase seconds]`` line gives each phase's seconds, and the
 last line before the kernels line the whole run's.
 
-Phases 4-54 run in seven worker processes side by side (``GROUPS``, each
+Phases 4-56 run in seven worker processes side by side (``GROUPS``, each
 ``python3 chip_smoke.py --worker <i>``; a group holds every phase whose state
 a later phase of it reads), started once phase 3 has ended: the host drives
 every lane and leaves the card idle most of a step.  Each worker hands the
@@ -514,13 +535,13 @@ allocator's unused cache back to the card after every phase (the
 printed whole, group by group, once all have ended; the lines that read
 phases of several groups (the ``[16-17 ...]`` to ``[48-52 ...]`` lines, phase
 17's launch check) follow them.  The member rows' timing behind the kernels
-line (phases 34 and 38) and the sweeps' timing and busy-share lines (phases
+line (phases 34, 38 and 56) and the sweeps' timing and busy-share lines (phases
 33-34, 36-37 and 39-40) wait for a quiet stage (:func:`quiet`): once every
 worker has finished its lanes, each one times in turn while the others wait.
-Every other time that phases 4-54 print (ms per step, host seconds, a phase's
+Every other time that phases 4-56 print (ms per step, host seconds, a phase's
 seconds) is taken with the other workers running.
 
-Phases 4-9 and 11-54 each drive one path with every kernel launch counter
+Phases 4-9 and 11-56 each drive one path with every kernel launch counter
 set to 0 just before and read just after; a kernel of that path that was
 never launched fails the run (phases 33-34: the member-axis surface
 energy, both variants, curvature data and its backward, divergence and
@@ -530,7 +551,7 @@ the member-axis surface energy, both variants, curvature data and vertex
 sum; 41: per module, as above; 42-45 and 48-51: as 33-34, the trial energy only
 where a member scored a trial; 47: the divergence; 53: as 33-34, per placed run; 54: the
 surface energy's gradient variant, curvature data and its backward, divergence and vertex
-sum, on every shard) (the
+sum, on every shard; 55-56: per step, and the member launches of the batched form) (the
 frozen-tilt entry point, both variants,
 lies on the float32 kozlov paths with a frozen relax, phases 4, 15, 17, 19,
 22, 27 and 31; the surface energy, both variants, and the vertex sum on phases
@@ -541,12 +562,12 @@ paths 4-5, 15-19 and 21-32, and it and its tilt backward inside phase 20's
 splay-twist, phase 25's ``bending_tilt`` and phase 32's bending-tilt modes).
 
 The line before the last is a JSON object ``{"kernels": [...]}``: per entry
-point, its launches over phases 4-9 and 11-54, its largest error against its twin,
+point, its launches over phases 4-9 and 11-56, its largest error against its twin,
 and phase 3's device ms per call (``ms``), its twin's (``plain_ms``), the
 bound, and, for the vertex sum, ``index_add_``'s (``library_ms``); the
 member-axis entries' times are phase 34's at B = 8, float32, beside their
 single-member entry's (``single_ms``); the area route's are phase 38's at
-B = 4, float64.  The
+B = 4, float64; ``frozen_tilt_members``'s phase 56's at B = 11, float32.  The
 card's name and power limit follow it again (``nvidia-smi``), and the
 last line is ``{"ok": true, "device": {...}}``.
 
@@ -654,13 +675,18 @@ KERNELS = {
     "tri_surface_area_grad_members": ("tri_kernels.cu", "pallas_kernels/tri_kernels.py:80",
                                       "surface_area_grad_members",
                                       "tri_kernels.surface_area_grad_members"),
+    # the frozen-tilt energy over B stacked tilt pairs (the batched line search's relax
+    # candidates, phases 55-56): the energy kernel with the members on the grid's y axis
+    "frozen_tilt_members": ("frozen_tilt.cu", "pallas_kernels/frozen_tilt.py:83",
+                            "frozen_tilt_members", "frozen_tilt.energy_members"),
 }
 # each member-axis entry's single-member entry (its B = 1 time sits beside it)
 SINGLE_OF = {"tri_surface_energy_members": "surface_energy",
              "tri_surface_energy_grad_members": "surface_energy_grad",
              "tri_curvature_data_members": "curvature_data",
              "tri_curvature_data_bwd_members": "curvature_data_bwd",
-             "tri_p1_div_members": "p1_div", "vertex_sum_members": "vertex_sum"}
+             "tri_p1_div_members": "p1_div", "vertex_sum_members": "vertex_sum",
+             "frozen_tilt_members": "frozen_tilt_energy"}
 # the per-entry-point error keys of phases 3 and 5
 ERRORS = {"frozen_tilt_energy": ("ft_energy",), "frozen_tilt_energy_grad": ("ft_energy", "ft_grad"),
           "vertex_sum": ("vertex_sum",),
@@ -674,7 +700,8 @@ ERRORS = {"frozen_tilt_energy": ("ft_energy",), "frozen_tilt_energy_grad": ("ft_
           "tri_curvature_data_members": ("curvature_data_members",),
           "tri_curvature_data_bwd_members": ("curvature_data_bwd_members",),
           "tri_p1_div_members": ("p1_div_members",), "vertex_sum_members": ("vertex_sum_members",),
-          "tri_surface_area_grad_members": ("surface_area_members", "surface_area_grad_members")}
+          "tri_surface_area_grad_members": ("surface_area_members", "surface_area_grad_members"),
+          "frozen_tilt_members": ("ft_members",)}
 # PyTorch's own kernels that the redesigned entry points must not issue
 LIBRARY_KERNEL = re.compile(r"index|scatter|gather|sort|reduce", re.IGNORECASE)
 OWN_KERNELS = ("frozen_tilt_kernel", "vertex_sum_kernel", "curvature_fwd_kernel",
@@ -5961,6 +5988,194 @@ def phase_tensor_parallel(torch, counters, label: str, fixture: dict, dtype, sna
     return {"launches": launches}
 
 
+# ----------------------------------------------------------------------
+# phases 55-56: the batched line search against the sequential one
+# ----------------------------------------------------------------------
+BATCHED_ENV = "MEMBRANE_SOLVER_BATCHED_LS"
+BATCHED_STEPS = 3  # phases 55-56: timed steps per form, after WARMUP_STEPS warm-up steps
+FT_MEMBERS = (1, 3, 11)  # phase 56: frozen_tilt_members against single launches and its twin
+FT_MEMBER_TIMED = 11  # phase 56's timing row: the relax's eleven tail candidates
+# member launches the batched form must make on the lane (the Armijo tail's trial energies;
+# at float32 also the relax's tail candidates through kernel 1)
+BATCHED_EXPECT = {"float64": ("tri_kernels.surface_energy_members",
+                              "tri_kernels.curvature_data_members",
+                              "vertex_sum.vertex_sum_members"),
+                  "float32": ("tri_kernels.surface_energy_members",
+                              "tri_kernels.curvature_data_members",
+                              "vertex_sum.vertex_sum_members", "frozen_tilt.energy_members")}
+
+
+@contextlib.contextmanager
+def line_search_form(batched: bool):
+    """The line searches and relax backtracks in the batched (or sequential) form while inside."""
+    saved = os.environ.get(BATCHED_ENV)
+    os.environ[BATCHED_ENV] = "1" if batched else "0"
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(BATCHED_ENV, None)
+        else:
+            os.environ[BATCHED_ENV] = saved
+
+
+def bench_form_steps(torch, counters, mn, snap: dict, batched: bool) -> dict:
+    """The bench protocol's steps from ``snap`` under one form.
+
+    First run: per step the accept flag, the energy, ms (a device sync on
+    both sides), the line-search trials and the member launches (the counts
+    set to 0 just before each step and read just after), then a digest of the
+    state and the energies.  Second run from ``snap``: the host syncs of each
+    step; its digest must be the first run's.
+    """
+    steps = WARMUP_STEPS + BATCHED_STEPS
+    with line_search_form(batched):
+        restore(mn, snap)
+        rows, launches = [], collections.Counter()
+        for _ in range(steps):
+            reset_counts(counters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = mn.minimize(1)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = read_counts(counters)
+            launches.update(counts)
+            rows.append({"accepted": bool(res["step_success"]), "energy": float(res["energy"]),
+                         "ms": ms, "trials": int(res["line_search_trials"]),
+                         "member_launches": {k: n for k, n in counts.items()
+                                             if k.endswith("_members") and n}})
+        energies = [r["energy"] for r in rows]
+        digest = state_digest(torch, mn, energies)
+        restore(mn, snap)
+        again = []
+        for row in rows:
+            box = {}
+            row["syncs"], _sites = count_syncs(torch, lambda: box.update(res=mn.minimize(1)))
+            again.append(float(box["res"]["energy"]))
+        if state_digest(torch, mn, again) != digest:
+            raise AssertionError(f"two runs of the {'batched' if batched else 'sequential'} "
+                                 "form from one state differ")
+    return {"rows": rows, "digest": digest, "energies": energies,
+            "flags": [r["accepted"] for r in rows], "launches": dict(launches)}
+
+
+def check_ft_members(torch, ft, mn) -> tuple[dict, list]:
+    """``frozen_tilt_members`` on the lane's own fused inputs (the relax's at this state) and
+    seeded tilts: each member in bits of a single launch, the entry point's ``vmap`` the same
+    bits, and within the frozen-tilt bounds of the twin, at B = 1, 3 and 11.  Returns the
+    errors and phase 56's timing rows at B = 11."""
+    fused, p = fused_tilt_energy_of(torch, mn)
+    if fused is None:
+        raise AssertionError("the float32 kozlov lane built no fused frozen-tilt energy")
+    rows, csr, g, pay, k, ws = fused.tri_rows, fused.csr, fused.g, fused.payload, fused.k_vec, \
+        fused.ws
+    gen = torch.Generator(device=DEVICE).manual_seed(37)
+    base_in, base_out = p.state.tilts_in.contiguous(), p.state.tilts_out.contiguous()
+
+    def member_tilts(B):
+        noise = torch.randn((2, B) + tuple(base_in.shape), dtype=torch.float32, device=DEVICE,
+                            generator=gen)
+        return (base_in + 0.01 * noise[0]).contiguous(), (base_out + 0.01 * noise[1]).contiguous()
+
+    err, cases = 0.0, []
+    for B in FT_MEMBERS:
+        t_in, t_out = member_tilts(B)
+        got = ft.launch_members(t_in, t_out, rows, g, pay, k, ws)
+        singles = torch.stack([ft.launch(t_in[m].clone(), t_out[m].clone(), rows, csr, g, pay,
+                                         k, ws, grad=False)[0].reshape(()) for m in range(B)])
+        mapped = torch.func.vmap(fused)(t_in, t_out)
+        twin = ft.reference_members(t_in, t_out, rows, csr, g, pay, k)
+        e = float(torch.max(torch.abs(got.double() - twin.double())))
+        scale = float(torch.max(torch.abs(twin.double())))
+        if not same_bits(torch, got, singles) or not same_bits(torch, mapped, got):
+            raise AssertionError(f"frozen_tilt_members at B={B}: not the bits of single launches")
+        if not (math.isfinite(e) and e <= ENERGY_RTOL * scale):
+            raise AssertionError(f"frozen_tilt_members at B={B}: {e!r} from its twin "
+                                 f"(bound {ENERGY_RTOL} x {scale!r})")
+        err = max(err, e)
+        cases.append({"B": B, "max_abs_err": e, "equal_to_single_launches": True})
+    t_in, t_out = member_tilts(FT_MEMBER_TIMED)
+    B, T = FT_MEMBER_TIMED, rows.shape[0]
+    inputs, flops = (t_in, t_out, rows, g, pay, k), FLOPS_PER_TRI["frozen_tilt_energy"] * T * B
+    timing_rows = [
+        ("frozen_tilt_members", "kernel",
+         lambda: ft.launch_members(t_in, t_out, rows, g, pay, k, ws), inputs, flops),
+        ("frozen_tilt_members", "twin",
+         lambda: ft.reference_members(t_in, t_out, rows, csr, g, pay, k), inputs, flops),
+    ]
+    return {"ft_members": err, "cases": cases}, timing_rows
+
+
+def phase_batched_ls(torch, ft, counters, label: str, fixture: dict, dtype) -> dict:
+    """The kozlov L3 bench protocol under the sequential and the batched line search from one
+    state: equal accept flags, energies in bits and one digest; per step and form the ms, the
+    line-search trials, the host syncs and the member launches.  At float32 also
+    ``frozen_tilt_members`` against single launches and its twin (``check_ft_members``)."""
+    from membrane_solver_tpu_torch.runtime import jit_core
+
+    name = str(dtype).removeprefix("torch.")
+    t0 = time.perf_counter()
+    mn = build_lane(torch, fixture["protocol"], dtype)
+    snap = snapshot(mn)
+    setup_s = time.perf_counter() - t0
+    forms = {"sequential": bench_form_steps(torch, counters, mn, snap, False),
+             "batched": bench_form_steps(torch, counters, mn, snap, True)}
+    for form, out in forms.items():
+        for i, row in enumerate(out["rows"]):
+            say(f"{label} {form} step", step=i + 1, accepted=row["accepted"],
+                energy=repr(row["energy"]), ms=f"{row['ms']:.3f}", trials=row["trials"],
+                syncs=row["syncs"], member_launches=json.dumps(row["member_launches"]))
+    seq, bat = forms["sequential"], forms["batched"]
+    timed = slice(WARMUP_STEPS, None)
+
+    def per_step(out, key):
+        return statistics.median(r[key] for r in out["rows"][timed])
+
+    p = mn.problem()
+    steps = WARMUP_STEPS + BATCHED_STEPS
+    say(label, vertices=p.n_vertices, triangles=p.n_tris, setup_s=f"{setup_s:.3f}", steps=steps,
+        flags=json.dumps(bat["flags"]), flags_equal=seq["flags"] == bat["flags"],
+        energies=json.dumps(bat["energies"]), energies_equal=seq["energies"] == bat["energies"],
+        digest_sequential=seq["digest"], digest_batched=bat["digest"],
+        equal=seq["digest"] == bat["digest"],
+        ms_per_step=json.dumps({f: per_step(o, "ms") for f, o in forms.items()}),
+        trials_per_step=json.dumps({f: per_step(o, "trials") for f, o in forms.items()}),
+        syncs_per_step=json.dumps({f: per_step(o, "syncs") for f, o in forms.items()}),
+        launches=json.dumps(bat["launches"]),
+        reduced_line_search=repr(jit_core.REDUCED_LS_FORM))
+    if seq["flags"] != bat["flags"] or seq["energies"] != bat["energies"]:
+        raise AssertionError(f"{label}: the forms' flags or energies differ: {seq['flags']} "
+                             f"{seq['energies']} vs {bat['flags']} {bat['energies']}")
+    if seq["digest"] != bat["digest"]:
+        raise AssertionError(f"{label}: the forms' states differ: {seq['digest']} vs "
+                             f"{bat['digest']}")
+    missing = [k for k in BATCHED_EXPECT[name] if not bat["launches"].get(k, 0) > 0]
+    if missing:
+        raise AssertionError(f"{label}: the batched form did not launch {missing}: "
+                             f"{bat['launches']}")
+    if any(k.endswith("_members") and n for k, n in seq["launches"].items()):
+        raise AssertionError(f"{label}: the sequential form made member launches: "
+                             f"{seq['launches']}")
+    res = {"launches": bat["launches"], "errs": {}, "timing": {},
+           "per_step": {k: n / steps for k, n in bat["launches"].items()},
+           "ms": per_step(bat, "ms")}
+    if dtype == torch.float32:
+        errs, timing_rows = check_ft_members(torch, ft, mn)
+        res["errs"] = {"ft_members": errs["ft_members"]}
+        say(label + " frozen_tilt_members", cases=json.dumps(errs["cases"]),
+            launches_per_step=repr(res["per_step"]["frozen_tilt.energy_members"]))
+
+        def timing_lines():
+            res["timing"] = measure_members(torch, timing_rows, name)
+            for rec in res["timing"].values():
+                say(label + " kernel timing", **{k: (f"{v:.6f}" if isinstance(v, float) else v)
+                                                 for k, v in rec.items()})
+
+        quiet(timing_lines)
+    return res
+
+
 def phase_console(torch, fixture: dict) -> None:
     """``python -m membrane_solver_tpu_torch`` on the card; the saved mesh re-evaluated at float64."""
     import tempfile
@@ -6014,7 +6229,7 @@ def kernels_line(kern: dict, runs: dict) -> list:
     return out
 
 
-# Phases 4-54 run in these groups, one worker process each, side by side: the
+# Phases 4-56 run in these groups, one worker process each, side by side: the
 # host drives every lane and leaves the card idle most of a step.  A group
 # holds every phase whose state a later phase of it reads; within a group the
 # phases run in the order of their numbers.
@@ -6023,7 +6238,7 @@ GROUPS = (
     ("6", "7", "8", "9", "10", "20", "36", "37"),
     ("11", "12", "13", "14", "38", "39", "40", "41"),
     ("16", "17", "21", "22", "44", "45"),
-    ("23", "24", "25", "42", "43", "47"),
+    ("23", "24", "25", "42", "43", "47", "55", "56"),
     ("26", "27", "28", "29", "48", "49", "50", "51"),
     ("18", "19", "30", "31", "32", "46", "52"),
 )
@@ -6091,7 +6306,7 @@ def phase_timer(torch, seconds: dict, peaks: dict):
 
 
 def drive_phases(torch, mods, fx, todo) -> tuple[dict, dict, dict, dict]:
-    """The phases of 4-54 named in ``todo``, in order, in this process: (runs, errs, seconds,
+    """The phases of 4-56 named in ``todo``, in order, in this process: (runs, errs, seconds,
     peak GiB).
 
     ``errs`` holds the largest errors of the tri-kernel checks on the lanes'
@@ -6331,6 +6546,15 @@ def drive_phases(torch, mods, fx, todo) -> tuple[dict, dict, dict, dict]:
         runs["tp32"] = timed("54 f32", phase_tensor_parallel, torch, counters,
                              "54 kozlov_L3_tensor_parallel f32", fx.kozlov, torch.float32,
                              runs["k32"]["snap"])
+    # the batched line search against the sequential one on the bench protocol, and the
+    # frozen-tilt kernel's member axis
+    if "55" in todo:
+        runs["bl64"] = timed("55", phase_batched_ls, torch, ft, counters,
+                             "55 kozlov_L3_batched_ls f64", fx.kozlov, torch.float64)
+    if "56" in todo:
+        runs["bl32"] = timed("56", phase_batched_ls, torch, ft, counters,
+                             "56 kozlov_L3_batched_ls f32", fx.kozlov, torch.float32)
+        errs["ft_members"] = runs["bl32"]["errs"]["ft_members"]
     return runs, errs, seconds, peaks
 
 
@@ -6483,6 +6707,8 @@ def summary_lines(fx, runs: dict, seconds: dict) -> None:
     span("42-47", ("42", "43", "44", "45", "46", "47"))
     span("48-52", ("48", "49", "50", "51", "52"))
     span("53-54", ("53 f64", "53 f32", "54 f64", "54 f32"))
+    span("55-56", ("55", "56"),
+         ms_per_step=json.dumps({"55": runs["bl64"]["ms"], "56": runs["bl32"]["ms"]}))
 
 
 def main() -> int:
@@ -6505,7 +6731,7 @@ def main() -> int:
     kern = timed("3", lambda: phase_kernels(
         torch, mods, build_lane(torch, fx.kozlov["protocol"], torch.float64).problem(),
         build_lane(torch, fx.vesicle["protocol"], torch.float64).problem()))
-    # phases 4-54 in the workers, then the quiet stage: each worker's timing in turn
+    # phases 4-56 in the workers, then the quiet stage: each worker's timing in turn
     with Workers() as pool:
         t0 = time.perf_counter()
         pool.wait_ready()
@@ -6523,7 +6749,7 @@ def main() -> int:
     for key in ("w64", "w32", "g64"):
         for k, v in runs[key]["errs"].items():
             kern["errs"][k] = max(kern["errs"].get(k, 0.0), v)
-    for key in ("w32", "g64"):
+    for key in ("w32", "g64", "bl32"):
         kern["timing"].update(runs[key]["timing"])
     summary_lines(fx, runs, seconds)
     check_imports(cli=False)

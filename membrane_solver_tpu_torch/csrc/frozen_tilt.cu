@@ -43,6 +43,16 @@
 // The caller owns the scratch, partials and counter (allocated once per
 // relax; the counter zeroed once) and the outputs.
 //
+// The member axis (the batched line search's candidates, runtime/
+// tilt_relax.py): frozen_tilt_members runs the energy kernel over B stacked
+// tilt pairs, one block row per member on the grid's y axis (gridDim.y = B).
+// The kernel offsets its per-member pointers (tilts, partials, counter,
+// energy) by blockIdx.y; tri_rows, g, the payload and k are shared.  A
+// member's arithmetic and its energy reduction run in the order of a call on
+// that member alone (gridDim.y = 1, every offset zero), so member m of a
+// B-member call is the single call's bits.  It reads B times the vertex
+// tilts; the shared slabs are read once from HBM and then from L2.
+//
 // What bounds it on an H100: bytes, then latency.  At the kozlov L3 lane
 // (N = 10,817, T = 21,504) the energy reads 3.27 MB (vertex tilts, int64
 // tri_rows, g, payload), about 1 us at 3.35 TB/s, and the gradient adds
@@ -165,6 +175,19 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ alignas(128) float s_pay[kThreads * kPay];
   __shared__ alignas(128) float s_g[kThreads * 9];
   __shared__ alignas(8) uint64_t s_bar;
+
+  // member blockIdx.y: its tilts, corner scratch, partials, counter and
+  // energy; the rows, g, the payload and k are shared
+  const int64_t member = blockIdx.y;
+  tin += member * nv * 3;
+  tout += member * nv * 3;
+  if constexpr (kGrad) {
+    din_c += member * 9 * (int64_t)n;
+    dout_c += member * 9 * (int64_t)n;
+  }
+  partials += member * gridDim.x;
+  counter += member;
+  energy += member;
 
   const int tid = threadIdx.x;
   const int first = blockIdx.x * kThreads;
@@ -318,6 +341,24 @@ extern "C" int frozen_tilt_vertex(const float* tin, const float* tout, const int
                                                            nullptr, nullptr, partials, counter,
                                                            energy, n, nv);
   }
+  return (int)cudaGetLastError();
+}
+
+// The energy of ``members`` stacked tilt pairs in one launch: tin and tout
+// (members, nv, 3), partials (members, blocks of 128 triangles), counter
+// (members,) zeroed (left at zero), energy (members,); rows, grad_p1, pay and
+// kv shared.  Member m's energy is the bits of frozen_tilt_vertex's energy
+// on member m alone.  cudaErrorInvalidValue for n < 1 or members < 1.
+extern "C" int frozen_tilt_members(const float* tin, const float* tout, const int64_t* rows,
+                                   const float* grad_p1, const float* pay, const float* kv,
+                                   double* partials, unsigned int* counter, float* energy, int n,
+                                   int nv, int members, void* stream) {
+  if (n < 1 || members < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid((unsigned int)((n + kThreads - 1) / kThreads), (unsigned int)members);
+  frozen_tilt_kernel<false><<<grid, kThreads, 0, st>>>(tin, tout, rows, grad_p1, pay, kv,
+                                                       nullptr, nullptr, partials, counter,
+                                                       energy, n, nv);
   return (int)cudaGetLastError();
 }
 

@@ -55,7 +55,7 @@ import numpy as np
 import torch
 
 from membrane_solver_tpu_torch.device import geo as dgeo
-from membrane_solver_tpu_torch.device.reduce import tree_sum
+from membrane_solver_tpu_torch.device.reduce import member_sum, tree_sum
 from membrane_solver_tpu_torch.energy import param
 from membrane_solver_tpu_torch.kernels import tri_kernels, vertex_sum
 
@@ -134,7 +134,8 @@ def _reconstruct_trace_divergence(div_term, topo, tr, su, rl, total=tree_sum):
     Straight through: the value is the reconstructed one, the gradient that
     of ``div_term``.  The mean's sums add by ``total``: ``device/reduce.tree_sum``,
     whose order a sweep member keeps under ``torch.func.vmap``, except in the
-    relax loop's frozen energy, which never runs in a sweep and keeps ``torch.sum``.
+    relax loop's frozen energy, which keeps the order of ``torch.sum`` through
+    ``device/reduce.member_sum`` (once per candidate of the batched line search).
     """
     rows = topo.tri_rows
     valid = topo.tri_valid
@@ -513,7 +514,7 @@ def make_leaflet_bending_tilt_frozen(
         div = div_sign * div
         if idiv_on:
             div = _reconstruct_trace_divergence(div, topo, *scaffold_masks(topo, "out"),
-                                                total=torch.sum)
+                                                total=member_sum)
         if upd_mode == "outer_near_divergence_cap_v1":
             div = _apply_divergence_cap(div, fr["cap_rim"], fr["cap_near"])
         if recovered:
@@ -521,7 +522,7 @@ def make_leaflet_bending_tilt_frozen(
             v_div = dgeo.scatter_add_rows(wd, wd, wd, topo.corner_csr()) * fr["smooth_inv_varea"]
             div = torch.mean(v_div[topo.tri_rows], dim=1)
         sqs = _squares(fr["base_c"], div, upd_mode)
-        return 0.5 * torch.sum(
+        return 0.5 * member_sum(
             torch.where(fr["keep"], kappa * torch.sum(sqs * fr["va_eff"], dim=1), 0.0)
         )
 

@@ -25,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from membrane_solver_tpu_torch.device.reduce import tree_sum
+from membrane_solver_tpu_torch.device.reduce import member_sum, tree_sum
 from membrane_solver_tpu_torch.energy import param
 from membrane_solver_tpu_torch.energy.leaflet_presence import present_triangles
 
@@ -157,8 +157,9 @@ def mass_mode(spec, leaflet: str) -> str:
 def leaflet_energy(geo, tilts, topo, k_tilt, present_tri=None, mode: str = "lumped",
                    weights=None, total=tree_sum):
     """The energy's per-triangle terms summed by ``total``: ``device/reduce.tree_sum``, whose
-    order a sweep member keeps under ``torch.func.vmap``, except in the relax loop, which
-    never runs in a sweep and keeps ``torch.sum``."""
+    order a sweep member keeps under ``torch.func.vmap``, except in the relax loop, which keeps
+    the order of ``torch.sum`` through ``device/reduce.member_sum`` (that sum itself, and
+    under the batched line search's map that sum once per candidate)."""
     if weights is not None:
         tilts = tilts * weights[:, None]
     t0 = tilts[topo.tri_rows[:, 0]]
@@ -196,7 +197,7 @@ def make_leaflet_inloop_energy(spec, leaflet: str):
         tilts = state.tilts_in if leaflet == "in" else state.tilts_out
         k = param(params, f"tilt_modulus_{leaflet}", like=tilts)
         present = present_triangles(topo, "out") if leaflet == "out" else None
-        return leaflet_energy(geo, tilts, topo, k, present, total=torch.sum)
+        return leaflet_energy(geo, tilts, topo, k, present, total=member_sum)
 
     return fn
 
@@ -233,6 +234,6 @@ def make_leaflet_tilt_frozen(spec, leaflet: str):
             t2 = tilts[topo.tri_rows[:, 2]]
         sq = torch.sum(t0 * t0, dim=1) + torch.sum(t1 * t1, dim=1) + torch.sum(t2 * t2, dim=1)
         coeff = 0.5 * k_tilt * (sq / 3.0)
-        return torch.sum(coeff * fr["area"])
+        return member_sum(coeff * fr["area"])
 
     return precompute, energy

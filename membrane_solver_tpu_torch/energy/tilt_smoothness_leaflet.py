@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from membrane_solver_tpu_torch.device import geo as dgeo
+from membrane_solver_tpu_torch.device.reduce import member_sum
 from membrane_solver_tpu_torch.energy import param
 from membrane_solver_tpu_torch.energy.leaflet_presence import present_triangles
 from membrane_solver_tpu_torch.energy.tilt_smoothness import minimal_rotation, smoothness_energy
@@ -97,7 +98,7 @@ def make_leaflet_smoothness_frozen(spec, leaflet: str):
             + w[:, 2] * torch.sum(d01 * d01, dim=1)
         )
         k = leaflet_rigidity(params, leaflet, tin)
-        return (k / 4.0) * torch.sum(torch.where(fr["keep"], per_tri, 0.0))
+        return (k / 4.0) * member_sum(torch.where(fr["keep"], per_tri, 0.0))
 
     return precompute, energy
 

@@ -21,7 +21,17 @@ Dispatch: CUDA float32 tensors launch the kernels (after shape, contiguity,
 alignment and dtype checks); any other CUDA tensor raises.  CPU tensors run
 the twins: :func:`reference_energy` and :func:`reference_grads` on gathered
 corners, and the vertex-sum twin, in :func:`reference_vertex`.
-``LAUNCHES`` counts the energy-only and energy-plus-gradient calls.
+``LAUNCHES`` counts the energy-only and energy-plus-gradient calls, and the
+member-axis energy launches.
+
+The member axis: under ``torch.func.vmap`` over the tilts (the batched line
+search's candidates in the leaflet relax, ``runtime/tilt_relax``) the
+entry point's ``vmap`` rule evaluates every member's energy in one
+``frozen_tilt_members`` launch (the members on the grid's y axis; the rows,
+g, the payload and k_vec shared), member m the bits of the single call on
+member m; on the CPU its twin, :func:`reference_members`, runs the single
+twin once per member.  The rule computes the energy alone: no caller maps a
+tilt gradient.
 
 Inputs: t_in, t_out (N, 3) vertex tilts; tri_rows (T, 3) int64; the
 topology's :class:`~membrane_solver_tpu_torch.device.state.CornerCSR`; g
@@ -37,11 +47,13 @@ import ctypes
 import torch
 
 from membrane_solver_tpu_torch.device import shard as _shard
+from membrane_solver_tpu_torch.device.reduce import each_member
 from membrane_solver_tpu_torch.device.state import CornerCSR
 from membrane_solver_tpu_torch.kernels import _build, _launch
 from membrane_solver_tpu_torch.kernels import vertex_sum as vs
+from membrane_solver_tpu_torch.kernels.tri_kernels import _member_dim
 
-LAUNCHES = {"energy": 0, "energy_grad": 0}
+LAUNCHES = {"energy": 0, "energy_grad": 0, "energy_members": 0}
 
 KERNEL = _build.Source("frozen_tilt")
 SOURCE = KERNEL.path
@@ -133,6 +145,14 @@ def reference_vertex(t_in, t_out, tri_rows, csr, g, payload, k_vec, grad: bool):
     return e, vs.reference(din_c, csr), vs.reference(dout_c, csr)
 
 
+def reference_members(t_in, t_out, tri_rows, csr, g, payload, k_vec):
+    """Plain twin of ``frozen_tilt_members``: the (B,) energies of (B, N, 3) tilt pairs, the
+    single twin once per member on its own contiguous copies (the single call's bits)."""
+    return each_member(
+        lambda a, b: reference_vertex(a, b, tri_rows, csr, g, payload, k_vec, False)[0],
+        t_in, t_out)
+
+
 # ----------------------------------------------------------------------
 # build and launch
 # ----------------------------------------------------------------------
@@ -145,6 +165,8 @@ def build() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.frozen_tilt_vertex.argtypes = [ptr] * 15 + [i32, i32, i32, ptr]
     lib.frozen_tilt_vertex.restype = i32
+    lib.frozen_tilt_members.argtypes = [ptr] * 9 + [i32, i32, i32, ptr]
+    lib.frozen_tilt_members.restype = i32
     lib.frozen_tilt_block_size.restype = i32
     if lib.frozen_tilt_block_size() != BLOCK:
         raise RuntimeError(f"frozen_tilt.cu uses {lib.frozen_tilt_block_size()}-triangle blocks, "
@@ -169,6 +191,19 @@ class Workspace:
         self.dout_c = torch.empty((n_triangles, 3, 3), **f32)
         self.partials = torch.empty(-(-n_triangles // BLOCK), dtype=torch.float64, device=device)
         self.counter = torch.zeros(1, dtype=torch.int32, device=device)
+        self._members = {}
+
+    def member_scratch(self, members: int) -> tuple:
+        """(partials (B, blocks), counters (B,)) of a ``frozen_tilt_members`` launch of B
+        members, made at the first such launch and kept (each launch leaves the counters at
+        zero)."""
+        if members not in self._members:
+            device = self.partials.device
+            self._members[members] = (
+                torch.empty((members, self.partials.shape[0]), dtype=torch.float64,
+                            device=device),
+                torch.zeros(members, dtype=torch.int32, device=device))
+        return self._members[members]
 
 
 def _check_inputs(t_in, t_out, tri_rows, g, payload, k_vec) -> tuple[int, int]:
@@ -232,6 +267,37 @@ def launch(t_in, t_out, tri_rows, csr: CornerCSR, g, payload, k_vec, ws: Workspa
     return energy, gin, gout
 
 
+def launch_members(t_in, t_out, tri_rows, g, payload, k_vec, ws: Workspace):
+    """(B,) energies of B stacked tilt pairs (B, N, 3) in one ``frozen_tilt_members`` launch.
+
+    Member m's energy is the bits of :func:`launch`'s energy on member m.
+    """
+    if t_in.dim() != 3 or t_out.shape != t_in.shape:
+        raise ValueError(f"member tilts must be two (B, N, 3) tensors, got "
+                         f"{tuple(t_in.shape)} and {tuple(t_out.shape)}")
+    members = t_in.shape[0]
+    if not 1 <= members <= vs.MAX_MEMBERS:
+        raise ValueError(f"{members} members; the launch takes 1 to {vs.MAX_MEMBERS}")
+    N, T = _check_inputs(t_in[0], t_out[0], tri_rows, g, payload, k_vec)
+    if not (t_in.is_contiguous() and t_out.is_contiguous()):
+        raise ValueError("member tilts must be contiguous")
+    if ws.n_triangles != T or ws.din_c.device != t_in.device:
+        raise ValueError(f"the workspace holds {ws.n_triangles} triangles on {ws.din_c.device}")
+    lib = build()
+    partials, counter = ws.member_scratch(members)
+    energy = torch.empty(members, dtype=torch.float32, device=t_in.device)
+    code = _launch.call(
+        t_in, lib.frozen_tilt_members,
+        t_in.data_ptr(), t_out.data_ptr(), tri_rows.data_ptr(), g.data_ptr(),
+        payload.data_ptr(), k_vec.data_ptr(), partials.data_ptr(), counter.data_ptr(),
+        energy.data_ptr(), T, N, members,
+    )
+    if code != 0:
+        raise RuntimeError(f"frozen_tilt_members launch failed: cudaError {code}")
+    _launch.count(LAUNCHES, "frozen_tilt", "energy_members", t_in)
+    return energy
+
+
 def _count(key: str, like: torch.Tensor, csr: CornerCSR) -> None:
     _launch.count(LAUNCHES, "frozen_tilt", key, like, csr)
 
@@ -245,18 +311,52 @@ def _evaluate(t_in, t_out, tri_rows, csr, g, payload, k_vec, ws, grad):
     return reference_vertex(t_in, t_out, tri_rows, csr, g, payload, k_vec, grad)
 
 
+def _evaluate_members(t_in, t_out, tri_rows, csr, g, payload, k_vec, ws):
+    """(B,) energies of (B, N, 3) tilt pairs: one member launch on the card, the twin on the
+    CPU."""
+    if t_in.is_cuda:
+        if ws is None:
+            ws = Workspace(tri_rows.shape[0], t_in.device)
+        return launch_members(t_in.contiguous(), t_out.contiguous(), tri_rows, g, payload,
+                              k_vec, ws)
+    return reference_members(t_in, t_out, tri_rows, csr, g, payload, k_vec)
+
+
 class _FrozenTiltEnergy(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, t_in, t_out, tri_rows, csr, g, payload, k_vec, ws):
-        e, gin, gout = _evaluate(t_in.detach(), t_out.detach(), tri_rows, csr, g, payload, k_vec,
-                                 ws, True)
-        ctx.save_for_backward(gin, gout)
-        return e
+    """The energy and both vertex gradients from one call; the backward scales them."""
 
     @staticmethod
-    def backward(ctx, ct):
+    def forward(t_in, t_out, tri_rows, csr, g, payload, k_vec, ws):
+        return _evaluate(t_in.detach(), t_out.detach(), tri_rows, csr, g, payload, k_vec, ws,
+                         True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _e, gin, gout = output
+        ctx.mark_non_differentiable(gin, gout)
+        ctx.save_for_backward(gin, gout)
+
+    @staticmethod
+    def backward(ctx, ct, _ct_gin, _ct_gout):
         gin, gout = ctx.saved_tensors
         return ct * gin, ct * gout, None, None, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, t_in, t_out, tri_rows, csr, g, payload, k_vec, ws):
+        """Every member's energy in one member launch (the tilts mapped, the rest shared)."""
+        for name, index in (("tri_rows", 2), ("g", 4), ("payload", 5), ("k_vec", 6)):
+            if in_dims[index] is not None:
+                raise NotImplementedError(
+                    f"the member-axis frozen-tilt launch shares {name} across members; "
+                    "it varies here")
+        if torch.is_grad_enabled() and (t_in.requires_grad or t_out.requires_grad):
+            raise NotImplementedError(
+                "the frozen-tilt tilt gradient has no member-axis launch; a mapped relax "
+                "(the reduced line search's batched form) brings it (ROADMAP A8)")
+        a = _member_dim(in_dims, info.batch_size, t_in, 0)
+        b = _member_dim(in_dims, info.batch_size, t_out, 1)
+        e = _evaluate_members(a, b, tri_rows, csr, g, payload, k_vec, ws)
+        return (e, None, None), (0, None, None)
 
 
 def _shard_workspace(topo, t_in) -> Workspace | None:
@@ -275,7 +375,11 @@ def frozen_tilt_energy(t_in, t_out, tri_rows, csr, g, payload, k_vec, ws=None):
     computes the energy alone.  ``ws`` is a :class:`Workspace` for the CUDA
     path (made per call when None).  A ``csr`` that carries a shard plan (``device/shard``)
     runs each shard's triangles on its device, each with a workspace kept on its topology.
+    Under ``torch.func.vmap`` over the tilts, every member's energy comes from one member
+    launch (the module docstring's member axis).
     """
+    if vs.batched(t_in) or vs.batched(t_out):
+        return _FrozenTiltEnergy.apply(t_in, t_out, tri_rows, csr, g, payload, k_vec, ws)[0]
     plan = _shard.plan_of(csr, t_in, tri_rows)
     if plan is not None:
         return plan.add(plan.map(
@@ -283,6 +387,6 @@ def frozen_tilt_energy(t_in, t_out, tri_rows, csr, g, payload, k_vec, ws=None):
                 ti, to, s.topo.tri_rows, s.csr, gs, ps, k, _shard_workspace(s.topo, ti)),
             vertex=(t_in, t_out), tri=(g, payload), shared=(k_vec,)))
     if torch.is_grad_enabled() and (t_in.requires_grad or t_out.requires_grad):
-        return _FrozenTiltEnergy.apply(t_in, t_out, tri_rows, csr, g, payload, k_vec, ws)
+        return _FrozenTiltEnergy.apply(t_in, t_out, tri_rows, csr, g, payload, k_vec, ws)[0]
     e, _gin, _gout = _evaluate(t_in, t_out, tri_rows, csr, g, payload, k_vec, ws, False)
     return e

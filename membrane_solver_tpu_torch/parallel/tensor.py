@@ -124,7 +124,13 @@ def tp_energy_and_grad(spec, mesh: Sequence) -> Callable:
 
 def tp_minimize_block(spec, options, mesh: Sequence) -> Callable:
     """``jit_core.minimize_block`` on a state and topology from :func:`shard_problem`: its
-    energy, gradient, relax and line-search evaluations go through the shards."""
+    energy, gradient, relax and line-search evaluations go through the shards.
+
+    The line search takes the form the first device's ``utils/tuning`` switch gives, as the
+    one-device block does: in the batched form candidate 0 and the accepted trial go through
+    the shards, and the other candidates' mapped evaluation runs unsharded on the first device
+    (``device/shard``: no plan inside ``torch.func.vmap``), which the shards' bits equal.
+    """
     mesh = tp_mesh(devices=mesh)
     block = jit_core.minimize_block(spec, options)
 

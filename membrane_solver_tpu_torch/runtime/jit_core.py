@@ -9,11 +9,13 @@ scalar.  Gradients come from autograd through the energy assembly.
 Ported branches: the gradient-descent, conjugate-gradient and BFGS
 steppers, fixed and adaptive step sizes, the leaflet tilt relax (nested or
 coupled) under its energy-spike guard, the single-field tilt relax, the
-sequential line search with its reduced-energy form (every trial, and the
-baseline, re-relax the leaflet tilts; ``armijo`` or ``decrease_only``
-acceptance), the volume constraint's enforcement and post-step drift
-check, the curved-theta ablation's module scales, the reference-exact rim
-KKT skip and the shared-rim lanes' height-only shape descent.
+line search in its sequential and its batched form
+(``utils/tuning.batched_line_search``) with its reduced-energy form (every
+trial, and the baseline, re-relax the leaflet tilts; ``armijo`` or
+``decrease_only`` acceptance; sequential only, :data:`REDUCED_LS_FORM`),
+the volume constraint's enforcement and post-step drift check, the
+curved-theta ablation's module scales, the reference-exact rim KKT skip and
+the shared-rim lanes' height-only shape descent.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from membrane_solver_tpu_torch.device.state import (
 )
 from membrane_solver_tpu_torch.energy import get_module
 from membrane_solver_tpu_torch.kernels import vertex_sum
+from membrane_solver_tpu_torch.utils.tuning import batched_line_search
 
 # Armijo line-search constants (as in the JAX package)
 LS_MAX_ITER = 10
@@ -45,6 +48,9 @@ LS_ALPHA_MAX_FACTOR = 10.0
 LS_ALPHA_FLOOR = 1e-8
 SAFE_STEP_FRACTION = 0.3
 NORMAL_LIMIT_RADIANS = 0.5
+# the form the reduced-energy line search takes on every device
+REDUCED_LS_FORM = ("sequential: each trial relaxes the leaflet tilts, and a batched form needs "
+                   "a member-batched relax (ROADMAP A8)")
 
 
 def _np_dtype(dtype):
@@ -601,8 +607,9 @@ def armijo_line_search(
     state_of_trial: Callable,
     accept_rule: str = "armijo",
     extra: torch.Tensor | None = None,
+    batched: bool = False,
 ) -> LineSearchResult:
-    """Armijo backtracking, sequential form.
+    """Armijo backtracking over the chain alpha0, alpha0 * 0.7, ... (10 candidates).
 
     Steps displacing a vertex by more than 0.3x the minimum edge length
     must not rotate any triangle normal by more than 0.5 rad nor collapse a
@@ -615,6 +622,19 @@ def armijo_line_search(
     host in the state's dtype, with the JAX package's operation order.  A
     0-dim ``extra`` tensor of the caller's comes back in the result, read
     in the one host read of the slope.
+
+    Two forms take the same decisions and return the same bits.  The
+    sequential form (``batched`` False: the CPU's, as in the JAX package)
+    scores one candidate after another, each ending in a host read, and
+    stops at the first accepted one.  The batched form (the JAX package's
+    on an accelerator, and the port's on the card,
+    ``utils/tuning.batched_line_search``) scores candidate 0 alone and, when
+    it is rejected, every other candidate in one ``torch.func.vmap`` of
+    trial positions -> normal-rotation check -> ``state_of_trial`` ->
+    ``energy_of_state``, read in one host read; the first accepted one wins
+    and its state is built again outside the map.  ``state_of_trial`` and
+    ``energy_of_state`` must then run under the map (no host read), with
+    every sum a candidate's single-call bits, as the sweep's member path does.
     """
     np_dtype = _np_dtype(state.positions.dtype)
     positions = state.positions
@@ -637,29 +657,34 @@ def armijo_line_search(
     def trial_of(alpha):
         return torch.where(movable[:, None], positions + float(alpha) * direction, positions)
 
-    alpha = alpha0
-    success = False
-    acc_E, acc_state = energy0, state
-    trials = 0
-    for _k in range(LS_MAX_ITER if descent else 0):
-        trial = trial_of(alpha)
-        normals_ok = (alpha * max_dir_norm) < safe_limit or bool(
-            dgeo.check_normal_rotation(
-                positions, trial, topo.tri_rows, topo.tri_valid, NORMAL_LIMIT_RADIANS
+    if batched:
+        success, alpha, acc_E, acc_state, trials = _batched_search(
+            energy_of_state, state, direction, movable, topo, state_of_trial, trial_of,
+            np_dtype, alpha0, energy0, slope, max_dir_norm, safe_limit, descent)
+    else:
+        alpha = alpha0
+        success = False
+        acc_E, acc_state = energy0, state
+        trials = 0
+        for _k in range(LS_MAX_ITER if descent else 0):
+            trial = trial_of(alpha)
+            normals_ok = (alpha * max_dir_norm) < safe_limit or bool(
+                dgeo.check_normal_rotation(
+                    positions, trial, topo.tri_rows, topo.tri_valid, NORMAL_LIMIT_RADIANS
+                )
             )
-        )
-        accept = False
-        if normals_ok:
-            st = state_of_trial(trial)
-            E_t = np_dtype(float(energy_of_state(st)))
-            trials += 1
-            accept = E_t <= energy0 + LS_C * alpha * slope
-        if accept:
-            success, acc_E, acc_state = True, E_t, st
-            break
-        alpha = alpha * np_dtype(LS_BETA)
-        if alpha < LS_ALPHA_FLOOR:
-            break
+            accept = False
+            if normals_ok:
+                st = state_of_trial(trial)
+                E_t = np_dtype(float(energy_of_state(st)))
+                trials += 1
+                accept = E_t <= energy0 + LS_C * alpha * slope
+            if accept:
+                success, acc_E, acc_state = True, E_t, st
+                break
+            alpha = alpha * np_dtype(LS_BETA)
+            if alpha < LS_ALPHA_FLOOR:
+                break
     if success:
         new_step = min(alpha * np_dtype(LS_GAMMA), alpha_max)
     elif descent:
@@ -668,6 +693,65 @@ def armijo_line_search(
         new_step = alpha0
     return LineSearchResult(success=success, new_step=new_step, energy=acc_E, state=acc_state,
                             trials=trials, extra=None if extra is None else read[3])
+
+
+def _batched_search(energy_of_state, state, direction, movable, topo, state_of_trial,
+                    trial_of, np_dtype, alpha0, energy0, slope, max_dir_norm, safe_limit,
+                    descent):
+    """(success, final carried alpha, energy, state, trials scored) of the sequential loop,
+    from candidate 0 alone and, on its rejection, the other candidates in one map (JAX
+    ``jit_core.armijo_line_search``'s batched branch).
+
+    The chain is the sequential multiply in the state's dtype; candidate k > 0
+    counts only where the sequential loop reaches it (alpha_k >= the floor).
+    A candidate within its safe limit skips the normal-rotation check, as in
+    the sequential loop; the map computes the check only when some candidate
+    needs it.  On failure the carried alpha is the last reached candidate's
+    times beta (JAX's ``k_last``), as the sequential loop leaves it.
+    """
+    if not descent:
+        return False, alpha0, energy0, state, 0
+    alphas = [alpha0]
+    for _ in range(LS_MAX_ITER - 1):
+        alphas.append(alphas[-1] * np_dtype(LS_BETA))
+    reached = [True] + [a >= LS_ALPHA_FLOOR for a in alphas[1:]]
+    safe = [(a * max_dir_norm) < safe_limit for a in alphas]
+
+    trial = trial_of(alpha0)
+    st = state_of_trial(trial)
+    E_t = energy_of_state(st)
+    if safe[0]:
+        E0_t, ok0 = np_dtype(E_t.item()), True
+    else:
+        ok_t = dgeo.check_normal_rotation(state.positions, trial, topo.tri_rows, topo.tri_valid,
+                                          NORMAL_LIMIT_RADIANS)
+        e, ok = torch.stack([E_t, ok_t.to(E_t.dtype)]).tolist()
+        E0_t, ok0 = np_dtype(e), bool(ok)
+    if ok0 and E0_t <= energy0 + LS_C * alpha0 * slope:
+        return True, alpha0, E0_t, st, 1
+
+    positions = state.positions
+    check = not all(safe[1:])
+
+    def score(alpha):
+        trial = torch.where(movable[:, None], positions + alpha * direction, positions)
+        E = energy_of_state(state_of_trial(trial))
+        if not check:
+            return E
+        ok = dgeo.check_normal_rotation(positions, trial, topo.tri_rows, topo.tri_valid,
+                                        NORMAL_LIMIT_RADIANS)
+        return torch.stack([E, ok.to(E.dtype)])
+
+    tail = torch.tensor(alphas[1:], dtype=positions.dtype, device=positions.device)
+    out = torch.func.vmap(score)(tail).tolist()
+    trials = LS_MAX_ITER
+    for k, row in enumerate(out, start=1):
+        E_k, ok_k = (row, 1.0) if not check else row
+        ok_k = safe[k] or ok_k != 0.0
+        if reached[k] and ok_k and np_dtype(E_k) <= energy0 + LS_C * alphas[k] * slope:
+            return True, alphas[k], np_dtype(E_k), state_of_trial(trial_of(alphas[k])), trials
+    k_last = sum(reached) - 1
+    return False, alphas[k_last] * np_dtype(LS_BETA), energy0, state, trials
 
 
 # ----------------------------------------------------------------------
@@ -878,7 +962,9 @@ def minimize_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
     and projected shape gradient, the stepper's descent direction from its
     state ``ss``, Armijo line search with per-trial constraint enforcement,
     zero-step bookkeeping.  The stepper keeps its history only after an accepted step
-    that took no drift projection, and starts afresh otherwise.
+    that took no drift projection, and starts afresh otherwise.  The line search
+    takes its batched form where ``utils/tuning.batched_line_search`` says so for the
+    state's device (the card), except the reduced-energy search (:data:`REDUCED_LS_FORM`).
 
     ``shape_scaffold_rejected_step_fallback`` ``trace_z`` (with the compiled
     ``core:scaffold_trace/mask``): when the line search rejects, it is run
@@ -924,6 +1010,14 @@ def minimize_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
         np_dtype = _np_dtype(state.positions.dtype)
         movable = ~topo.fixed_mask
         kind = options.stepper
+        # the line search's form on this device; the reduced search stays sequential
+        # (REDUCED_LS_FORM), as its trials relax the tilts
+        batched = batched_line_search(state.positions.device) and not reduced_ls
+        if batched:
+            from membrane_solver_tpu_torch.parallel.member_block import prime_ordered_levels
+
+            # the ordered rows' levels, read from the host once, before any map
+            prime_ordered_levels(spec, topo)
         if reduced_ls:
             # the reduced relax's budget, step and tolerance (one host read
             # each, per call; the parameters hold for the whole call)
@@ -1006,14 +1100,14 @@ def minimize_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
                 dz_mean = tree_sum(fb_dir[:, 2]) / n_trace
             ls = armijo_line_search(
                 energy_of_state, ls_base, grad, direction, step_in, ls_E0, movable, topo,
-                state_of_trial, accept_rule, extra=dz_mean,
+                state_of_trial, accept_rule, extra=dz_mean, batched=batched,
             )
             if fb_dir is not None and not ls.success and np.isfinite(ls.extra) and ls.extra > 0:
                 fallbacks += 1
                 trials += ls.trials
                 ls = armijo_line_search(
                     energy_of_state, ls_base, grad, fb_dir, step_in, ls_E0, movable, topo,
-                    state_of_trial,
+                    state_of_trial, batched=batched,
                 )
             base_positions = state.positions
             state = ls.state

@@ -20,8 +20,12 @@ the preconditioner when ``tilt_cg_preconditioner`` is none).
 
 The JAX package runs these as ``lax.while_loop``s; here they are Python
 loops, and each accept/stop decision reads a device scalar (a host sync).
-Its batched line search (a TPU device choice) is not ported: both forms
-take the same decisions, and the port runs the sequential one.  At float32
+The backtracking takes one of two forms with the same decisions and bits,
+as in the JAX package (``utils/tuning.batched_line_search``): on the CPU
+the sequential one (one candidate step after another, a host read each);
+on the card the batched one (candidate 0 alone and, when it is rejected,
+the other eleven in one ``torch.func.vmap``, one host read), which turns a
+rejected trial's chain of host reads into two.  At float32
 the four triangle energies of the leaflet lane go through the fused
 frozen-tilt entry point (``kernels/frozen_tilt``) on every device: one call
 of the CUDA kernels for CUDA tensors, which gathers the corners, sums the
@@ -42,6 +46,7 @@ from membrane_solver_tpu_torch.device.state import MeshState, ProblemSpec, Topol
 from membrane_solver_tpu_torch.energy import get_module, param
 from membrane_solver_tpu_torch.kernels import tri_kernels
 from membrane_solver_tpu_torch.kernels import vertex_sum
+from membrane_solver_tpu_torch.utils.tuning import batched_line_search
 
 MAX_BACKTRACKS = 12
 STEP_FLOOR = 1e-16
@@ -473,21 +478,44 @@ def _host(np_dtype, *scalars):
     return [np_dtype(x) for x in torch.stack(scalars).tolist()]
 
 
-def _backtrack(energy_of_trial, step_size, E0, np_dtype):
-    """12-halving backtracking, accept if not worse (sequential form).
+def _backtrack(trial_of, energy_of, step_size, E0, np_dtype, tails: dict | None, like):
+    """12-halving backtracking, accept if not worse: (accepted, trial or None, its energy or E0).
 
-    ``energy_of_trial(step) -> (trial, energy tensor)``.  Returns
-    (accepted, trial or None, energy of the accepted trial or E0).
+    ``trial_of(step)`` builds the trial (a float step, or a 0-dim tensor step inside the map)
+    and ``energy_of(trial)`` scores it.  The steps are ``step_size * 0.5**k``, exact in
+    binary; candidate k > 0 counts where the sequential loop reaches it (step >= the floor).
+    Sequential form (``tails`` None): one candidate at a time.  Batched form (JAX
+    ``tilt_relax``'s ``batched_line_search`` branch): candidate 0 alone and, on its
+    rejection, the other candidates' energies in one ``torch.func.vmap`` and one host read;
+    the first accepted candidate is built again outside the map.  The other candidates'
+    steps go to ``like``'s device once per step size and stay in ``tails`` (a copy to the
+    card is a host sync), which the caller keeps for one relax call.
     """
     step = np_dtype(step_size)
-    for _bt in range(MAX_BACKTRACKS):
-        trial, E1_t = energy_of_trial(float(step))
-        E1 = float(E1_t)
-        if E1 <= E0:
-            return True, trial, E1
-        step = step * np_dtype(0.5)
-        if step < STEP_FLOOR:
-            break
+    if tails is None:
+        for _bt in range(MAX_BACKTRACKS):
+            trial = trial_of(float(step))
+            E1 = float(energy_of(trial))
+            if E1 <= E0:
+                return True, trial, E1
+            step = step * np_dtype(0.5)
+            if step < STEP_FLOOR:
+                break
+        return False, None, E0
+    steps = [step]
+    for _ in range(MAX_BACKTRACKS - 1):
+        steps.append(steps[-1] * np_dtype(0.5))
+    trial = trial_of(float(steps[0]))
+    E1 = float(energy_of(trial))
+    if E1 <= E0:
+        return True, trial, E1
+    tail = tails.get(float(step))
+    if tail is None:
+        tail = tails[float(step)] = torch.tensor(steps[1:], dtype=like.dtype, device=like.device)
+    energies = torch.func.vmap(lambda s: energy_of(trial_of(s)))(tail).tolist()
+    for k, E1 in enumerate(energies, start=1):
+        if steps[k] >= STEP_FLOOR and E1 <= E0:
+            return True, trial_of(float(steps[k])), E1
     return False, None, E0
 
 
@@ -617,6 +645,9 @@ def make_relax_leaflet_tilts(spec: ProblemSpec) -> Callable:
         dtype = state.positions.dtype
         np_dtype = np.float64 if dtype == torch.float64 else np.float32
         positions = state.positions
+        # the batched backtracks' candidate steps on the device, by step size (None: the
+        # sequential form)
+        tails = {} if batched_line_search(positions.device) else None
         geo = dgeo.triangle_geometry(positions, topo.tri_rows, topo.tri_valid)
         normals = dgeo.vertex_normals(geo, topo.tri_valid, topo.corner_csr())
         fixed_in = topo.tilt_fixed_in_mask[:, None]
@@ -712,16 +743,17 @@ def make_relax_leaflet_tilts(spec: ProblemSpec) -> Callable:
         def backtrack(dir_in, dir_out, E0):
             """The trial from (tin, tout) along the direction, or (tin, tout) on rejection."""
 
-            def trial_at(step):
+            def trial_of(step):
                 delta_in = step * dir_in
                 if cap is not None:
                     delta_in = cap(delta_in)
                 trial_in = torch.where(fixed_in, fixed_vals_in, tangent_in(tin + delta_in))
                 trial_out = torch.where(fixed_out, fixed_vals_out,
                                         tangent_out(tout + step * dir_out))
-                return (trial_in, trial_out), energy_pair(trial_in, trial_out)
+                return trial_in, trial_out
 
-            accepted, trial, E1 = _backtrack(trial_at, step_size, E0, np_dtype)
+            accepted, trial, E1 = _backtrack(trial_of, lambda tr: energy_pair(*tr), step_size,
+                                             E0, np_dtype, tails, tin)
             return (accepted, *(trial if accepted else (tin, tout)), E1)
 
         def refresh(new_in, new_out, nacc):
@@ -836,6 +868,7 @@ def make_relax_vertex_tilts(spec: ProblemSpec) -> Callable:
         dtype = state.positions.dtype
         np_dtype = np.float64 if dtype == torch.float64 else np.float32
         positions = state.positions
+        tails = {} if batched_line_search(positions.device) else None
         geo = dgeo.triangle_geometry(positions, topo.tri_rows, topo.tri_valid)
         normals = dgeo.vertex_normals(geo, topo.tri_valid, topo.corner_csr())
         fixed = topo.tilt_fixed_mask[:, None]
@@ -858,11 +891,11 @@ def make_relax_vertex_tilts(spec: ProblemSpec) -> Callable:
             return E.detach(), g, torch.linalg.vector_norm(g)
 
         def backtrack(direction, E0):
-            def trial_at(step):
-                trial = torch.where(fixed, fixed_vals, tangent(t + step * direction))
-                return trial, energy_of(trial)
+            def trial_of(step):
+                return torch.where(fixed, fixed_vals, tangent(t + step * direction))
 
-            accepted, trial, _E1 = _backtrack(trial_at, step_size, E0, np_dtype)
+            accepted, trial, _E1 = _backtrack(trial_of, energy_of, step_size, E0, np_dtype,
+                                              tails, t)
             return accepted, trial
 
         tol_h = np_dtype(tol)

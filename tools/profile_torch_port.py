@@ -33,9 +33,16 @@ on one card:
 Prints one summary line per dtype and, last, one JSON object with every
 number; ``-o FILE`` also writes the full report (top operations) there.
 
+``--form`` runs each lane and dtype under the named line-search forms in
+turn (``sequential``, ``batched``; ``utils/tuning.batched_line_search``,
+set through ``MEMBRANE_SOLVER_BATCHED_LS``), each from a lane built anew,
+and keys the records ``"<dtype> <form>"``; without it the card's default
+form runs (the batched one) and the records are keyed by dtype.
+
 Usage (from the repository root, on a machine with a CUDA GPU)::
 
     python3 tools/profile_torch_port.py [-o FILE] [--lane LANE ...] [--dtype DTYPE ...]
+        [--form FORM ...]
 
 (``--lane`` and ``--dtype`` keep only those lanes and dtypes; default all.)
 
@@ -190,6 +197,8 @@ def main() -> int:
                     help="profile only this lane (repeatable; default: both)")
     ap.add_argument("--dtype", action="append", choices=("float32", "float64"),
                     help="profile only this dtype (repeatable; default: both)")
+    ap.add_argument("--form", action="append", choices=("sequential", "batched"),
+                    help="run under this line-search form (repeatable; default: the card's)")
     args = ap.parse_args()
 
     import torch
@@ -215,11 +224,19 @@ def main() -> int:
         fixture = chip_smoke.load_fixture(path)
         result[lane] = {}
         for name in args.dtype or ("float32", "float64"):
-            rec, lines = profile_dtype(torch, chip_smoke, counters, fixture,
-                                       getattr(torch, name), lane)
-            result[lane][name] = rec
-            report += lines
-            print(lines[0], flush=True)
+            for form in args.form or (None,):
+                if form is None:
+                    rec, lines = profile_dtype(torch, chip_smoke, counters, fixture,
+                                               getattr(torch, name), lane)
+                    key = name
+                else:
+                    with chip_smoke.line_search_form(form == "batched"):
+                        rec, lines = profile_dtype(torch, chip_smoke, counters, fixture,
+                                                   getattr(torch, name), f"{lane} {form}")
+                    key = f"{name} {form}"
+                result[lane][key] = rec
+                report += lines
+                print(lines[0], flush=True)
     if args.output is not None:
         args.output.parent.mkdir(parents=True, exist_ok=True)
         args.output.write_text("\n".join(report) + "\n")
