@@ -3,7 +3,7 @@
 
 Phases, each printing its own lines; any failure raises and exits non-zero.
 Every phase runs the card's default line-search form, the batched one
-(``membrane_solver_tpu_torch/utils/tuning.py``), except where phases 55-56
+(``membrane_solver_tpu_torch/utils/tuning.py``), except where phases 55-57
 set ``MEMBRANE_SOLVER_BATCHED_LS`` to compare the two.
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -510,12 +510,27 @@ set ``MEMBRANE_SOLVER_BATCHED_LS`` to compare the two.
     make (the Armijo tail's trial energies; at float32 also
     ``frozen_tilt_members`` in the relax's tail) and the sequential form
     must not.  The line also prints the reduced-energy search's form
-    (``jit_core.REDUCED_LS_FORM``: sequential).  At float32 then
+    (``jit_core.REDUCED_LS_FORM``: batched on the card).  At float32 then
     ``frozen_tilt_members`` on the relax's own fused inputs at this state
     and seeded tilts, at B = 1, 3 and 11: each member the bits of a single
     launch and of the entry point under ``torch.func.vmap``, and within rel
     1e-6 of its twin; its timing row at B = 11 waits for the quiet stage.
     A ``[55-56 ...]`` line gives their seconds.
+57. ``kozlov_L3_reduced_batched_ls`` (``phase_reduced_batched_ls``, group 4),
+    float64 then float32: the reduced-energy line search's batched form
+    (candidates 1-9 relaxed together by the member-batched leaflet relax,
+    ``tilt_relax.make_relax_leaflet_tilts_members``) against its sequential
+    form, on phase 16's (17's) minimizer from the state its determinism check
+    saved: three ``minimize(1)`` under each form, equal accept flags,
+    energies equal in bits and one sha256; per step and form the ms, the
+    trials, the host syncs and the member launches, which the batched form
+    must make (at float32 kernel 1's member launches, energy and gradient)
+    and the sequential form must not.  At float32 then ``frozen_tilt_members``
+    with the gradient on the member relax's own per-member g and payload
+    (taken from one batched step) and seeded tilts, at B = 1, 3 and 9: each
+    member's energy and vertex gradients the bits of a single launch, within
+    rel 1e-6 (energy) and 5e-6 of max|g| (gradients) of its twin; its
+    timing row at B = 9 waits for the quiet stage.
 
 Every lane phase (4-9, 11-19, 21-24, 26-31) also checks determinism: from the state its
 protocol leaves (phases 4-7, 16-19, 21-24 and 26-31: the five steps; phases 8-9 and
@@ -526,7 +541,7 @@ a ``[... determinism]`` line prints both digests, and unequal digests fail
 the run.  A ``[phase seconds]`` line gives each phase's seconds, and the
 last line before the kernels line the whole run's.
 
-Phases 4-56 run in seven worker processes side by side (``GROUPS``, each
+Phases 4-57 run in seven worker processes side by side (``GROUPS``, each
 ``python3 chip_smoke.py --worker <i>``; a group holds every phase whose state
 a later phase of it reads), started once phase 3 has ended: the host drives
 every lane and leaves the card idle most of a step.  Each worker hands the
@@ -535,13 +550,13 @@ allocator's unused cache back to the card after every phase (the
 printed whole, group by group, once all have ended; the lines that read
 phases of several groups (the ``[16-17 ...]`` to ``[48-52 ...]`` lines, phase
 17's launch check) follow them.  The member rows' timing behind the kernels
-line (phases 34, 38 and 56) and the sweeps' timing and busy-share lines (phases
+line (phases 34, 38, 56 and 57) and the sweeps' timing and busy-share lines (phases
 33-34, 36-37 and 39-40) wait for a quiet stage (:func:`quiet`): once every
 worker has finished its lanes, each one times in turn while the others wait.
-Every other time that phases 4-56 print (ms per step, host seconds, a phase's
+Every other time that phases 4-57 print (ms per step, host seconds, a phase's
 seconds) is taken with the other workers running.
 
-Phases 4-9 and 11-56 each drive one path with every kernel launch counter
+Phases 4-9 and 11-57 each drive one path with every kernel launch counter
 set to 0 just before and read just after; a kernel of that path that was
 never launched fails the run (phases 33-34: the member-axis surface
 energy, both variants, curvature data and its backward, divergence and
@@ -551,7 +566,7 @@ the member-axis surface energy, both variants, curvature data and vertex
 sum; 41: per module, as above; 42-45 and 48-51: as 33-34, the trial energy only
 where a member scored a trial; 47: the divergence; 53: as 33-34, per placed run; 54: the
 surface energy's gradient variant, curvature data and its backward, divergence and vertex
-sum, on every shard; 55-56: per step, and the member launches of the batched form) (the
+sum, on every shard; 55-57: per step, and the member launches of the batched form) (the
 frozen-tilt entry point, both variants,
 lies on the float32 kozlov paths with a frozen relax, phases 4, 15, 17, 19,
 22, 27 and 31; the surface energy, both variants, and the vertex sum on phases
@@ -562,12 +577,13 @@ paths 4-5, 15-19 and 21-32, and it and its tilt backward inside phase 20's
 splay-twist, phase 25's ``bending_tilt`` and phase 32's bending-tilt modes).
 
 The line before the last is a JSON object ``{"kernels": [...]}``: per entry
-point, its launches over phases 4-9 and 11-56, its largest error against its twin,
+point, its launches over phases 4-9 and 11-57, its largest error against its twin,
 and phase 3's device ms per call (``ms``), its twin's (``plain_ms``), the
 bound, and, for the vertex sum, ``index_add_``'s (``library_ms``); the
 member-axis entries' times are phase 34's at B = 8, float32, beside their
 single-member entry's (``single_ms``); the area route's are phase 38's at
-B = 4, float64; ``frozen_tilt_members``'s phase 56's at B = 11, float32.  The
+B = 4, float64; ``frozen_tilt_members``'s phase 56's at B = 11, float32, and
+``frozen_tilt_members_grad``'s phase 57's at B = 9, float32.  The
 card's name and power limit follow it again (``nvidia-smi``), and the
 last line is ``{"ok": true, "device": {...}}``.
 
@@ -679,6 +695,10 @@ KERNELS = {
     # candidates, phases 55-56): the energy kernel with the members on the grid's y axis
     "frozen_tilt_members": ("frozen_tilt.cu", "pallas_kernels/frozen_tilt.py:83",
                             "frozen_tilt_members", "frozen_tilt.energy_members"),
+    # the same with the vertex gradients, each member on its own g and payload (the member
+    # relax of the batched reduced search, phase 57)
+    "frozen_tilt_members_grad": ("frozen_tilt.cu", "pallas_kernels/frozen_tilt.py:111",
+                                 "frozen_tilt_members_grad", "frozen_tilt.energy_grad_members"),
 }
 # each member-axis entry's single-member entry (its B = 1 time sits beside it)
 SINGLE_OF = {"tri_surface_energy_members": "surface_energy",
@@ -686,7 +706,8 @@ SINGLE_OF = {"tri_surface_energy_members": "surface_energy",
              "tri_curvature_data_members": "curvature_data",
              "tri_curvature_data_bwd_members": "curvature_data_bwd",
              "tri_p1_div_members": "p1_div", "vertex_sum_members": "vertex_sum",
-             "frozen_tilt_members": "frozen_tilt_energy"}
+             "frozen_tilt_members": "frozen_tilt_energy",
+             "frozen_tilt_members_grad": "frozen_tilt_energy_grad"}
 # the per-entry-point error keys of phases 3 and 5
 ERRORS = {"frozen_tilt_energy": ("ft_energy",), "frozen_tilt_energy_grad": ("ft_energy", "ft_grad"),
           "vertex_sum": ("vertex_sum",),
@@ -701,7 +722,8 @@ ERRORS = {"frozen_tilt_energy": ("ft_energy",), "frozen_tilt_energy_grad": ("ft_
           "tri_curvature_data_bwd_members": ("curvature_data_bwd_members",),
           "tri_p1_div_members": ("p1_div_members",), "vertex_sum_members": ("vertex_sum_members",),
           "tri_surface_area_grad_members": ("surface_area_members", "surface_area_grad_members"),
-          "frozen_tilt_members": ("ft_members",)}
+          "frozen_tilt_members": ("ft_members",),
+          "frozen_tilt_members_grad": ("ft_members_grad",)}
 # PyTorch's own kernels that the redesigned entry points must not issue
 LIBRARY_KERNEL = re.compile(r"index|scatter|gather|sort|reduce", re.IGNORECASE)
 OWN_KERNELS = ("frozen_tilt_kernel", "vertex_sum_kernel", "curvature_fwd_kernel",
@@ -6019,8 +6041,9 @@ def line_search_form(batched: bool):
             os.environ[BATCHED_ENV] = saved
 
 
-def bench_form_steps(torch, counters, mn, snap: dict, batched: bool) -> dict:
-    """The bench protocol's steps from ``snap`` under one form.
+def bench_form_steps(torch, counters, mn, snap: dict, batched: bool,
+                     steps: int = WARMUP_STEPS + BATCHED_STEPS) -> dict:
+    """The bench protocol's ``steps`` from ``snap`` under one form.
 
     First run: per step the accept flag, the energy, ms (a device sync on
     both sides), the line-search trials and the member launches (the counts
@@ -6028,7 +6051,6 @@ def bench_form_steps(torch, counters, mn, snap: dict, batched: bool) -> dict:
     state and the energies.  Second run from ``snap``: the host syncs of each
     step; its digest must be the first run's.
     """
-    steps = WARMUP_STEPS + BATCHED_STEPS
     with line_search_form(batched):
         restore(mn, snap)
         rows, launches = [], collections.Counter()
@@ -6081,11 +6103,11 @@ def check_ft_members(torch, ft, mn) -> tuple[dict, list]:
     err, cases = 0.0, []
     for B in FT_MEMBERS:
         t_in, t_out = member_tilts(B)
-        got = ft.launch_members(t_in, t_out, rows, g, pay, k, ws)
+        got = ft.launch_members(t_in, t_out, rows, csr, g, pay, k, ws)[0]
         singles = torch.stack([ft.launch(t_in[m].clone(), t_out[m].clone(), rows, csr, g, pay,
                                          k, ws, grad=False)[0].reshape(()) for m in range(B)])
         mapped = torch.func.vmap(fused)(t_in, t_out)
-        twin = ft.reference_members(t_in, t_out, rows, csr, g, pay, k)
+        twin = ft.reference_members(t_in, t_out, rows, csr, g, pay, k)[0]
         e = float(torch.max(torch.abs(got.double() - twin.double())))
         scale = float(torch.max(torch.abs(twin.double())))
         if not same_bits(torch, got, singles) or not same_bits(torch, mapped, got):
@@ -6100,41 +6122,37 @@ def check_ft_members(torch, ft, mn) -> tuple[dict, list]:
     inputs, flops = (t_in, t_out, rows, g, pay, k), FLOPS_PER_TRI["frozen_tilt_energy"] * T * B
     timing_rows = [
         ("frozen_tilt_members", "kernel",
-         lambda: ft.launch_members(t_in, t_out, rows, g, pay, k, ws), inputs, flops),
+         lambda: ft.launch_members(t_in, t_out, rows, csr, g, pay, k, ws), inputs, flops),
         ("frozen_tilt_members", "twin",
          lambda: ft.reference_members(t_in, t_out, rows, csr, g, pay, k), inputs, flops),
     ]
     return {"ft_members": err, "cases": cases}, timing_rows
 
 
-def phase_batched_ls(torch, ft, counters, label: str, fixture: dict, dtype) -> dict:
-    """The kozlov L3 bench protocol under the sequential and the batched line search from one
-    state: equal accept flags, energies in bits and one digest; per step and form the ms, the
-    line-search trials, the host syncs and the member launches.  At float32 also
-    ``frozen_tilt_members`` against single launches and its twin (``check_ft_members``)."""
+def compare_forms(torch, counters, label: str, mn, snap: dict, steps: int, warmup: int,
+                  expect: tuple, **fields) -> tuple:
+    """``steps`` ``minimize(1)`` from ``snap`` under the sequential and then the batched
+    line-search form (``bench_form_steps``): a line per step and form, a summary line (with
+    ``fields``), and the checks: equal accept flags, energies in bits and one digest, every
+    member launch of ``expect`` made by the batched form, none by the sequential one.
+    Returns (sequential, batched, per_step): ``per_step(out, key)`` is the median of ``key``
+    over the steps after the first ``warmup``."""
     from membrane_solver_tpu_torch.runtime import jit_core
 
-    name = str(dtype).removeprefix("torch.")
-    t0 = time.perf_counter()
-    mn = build_lane(torch, fixture["protocol"], dtype)
-    snap = snapshot(mn)
-    setup_s = time.perf_counter() - t0
-    forms = {"sequential": bench_form_steps(torch, counters, mn, snap, False),
-             "batched": bench_form_steps(torch, counters, mn, snap, True)}
+    forms = {"sequential": bench_form_steps(torch, counters, mn, snap, False, steps),
+             "batched": bench_form_steps(torch, counters, mn, snap, True, steps)}
     for form, out in forms.items():
         for i, row in enumerate(out["rows"]):
             say(f"{label} {form} step", step=i + 1, accepted=row["accepted"],
                 energy=repr(row["energy"]), ms=f"{row['ms']:.3f}", trials=row["trials"],
                 syncs=row["syncs"], member_launches=json.dumps(row["member_launches"]))
     seq, bat = forms["sequential"], forms["batched"]
-    timed = slice(WARMUP_STEPS, None)
 
     def per_step(out, key):
-        return statistics.median(r[key] for r in out["rows"][timed])
+        return statistics.median(r[key] for r in out["rows"][warmup:])
 
     p = mn.problem()
-    steps = WARMUP_STEPS + BATCHED_STEPS
-    say(label, vertices=p.n_vertices, triangles=p.n_tris, setup_s=f"{setup_s:.3f}", steps=steps,
+    say(label, vertices=p.n_vertices, triangles=p.n_tris, **fields, steps=steps,
         flags=json.dumps(bat["flags"]), flags_equal=seq["flags"] == bat["flags"],
         energies=json.dumps(bat["energies"]), energies_equal=seq["energies"] == bat["energies"],
         digest_sequential=seq["digest"], digest_batched=bat["digest"],
@@ -6142,7 +6160,7 @@ def phase_batched_ls(torch, ft, counters, label: str, fixture: dict, dtype) -> d
         ms_per_step=json.dumps({f: per_step(o, "ms") for f, o in forms.items()}),
         trials_per_step=json.dumps({f: per_step(o, "trials") for f, o in forms.items()}),
         syncs_per_step=json.dumps({f: per_step(o, "syncs") for f, o in forms.items()}),
-        launches=json.dumps(bat["launches"]),
+        launches_sequential=json.dumps(seq["launches"]), launches=json.dumps(bat["launches"]),
         reduced_line_search=repr(jit_core.REDUCED_LS_FORM))
     if seq["flags"] != bat["flags"] or seq["energies"] != bat["energies"]:
         raise AssertionError(f"{label}: the forms' flags or energies differ: {seq['flags']} "
@@ -6150,13 +6168,30 @@ def phase_batched_ls(torch, ft, counters, label: str, fixture: dict, dtype) -> d
     if seq["digest"] != bat["digest"]:
         raise AssertionError(f"{label}: the forms' states differ: {seq['digest']} vs "
                              f"{bat['digest']}")
-    missing = [k for k in BATCHED_EXPECT[name] if not bat["launches"].get(k, 0) > 0]
+    missing = [k for k in expect if not bat["launches"].get(k, 0) > 0]
     if missing:
         raise AssertionError(f"{label}: the batched form did not launch {missing}: "
                              f"{bat['launches']}")
     if any(k.endswith("_members") and n for k, n in seq["launches"].items()):
         raise AssertionError(f"{label}: the sequential form made member launches: "
                              f"{seq['launches']}")
+    return seq, bat, per_step
+
+
+def phase_batched_ls(torch, ft, counters, label: str, fixture: dict, dtype) -> dict:
+    """The kozlov L3 bench protocol under the sequential and the batched line search from one
+    state (``compare_forms``): equal accept flags, energies in bits and one digest; per step
+    and form the ms, the line-search trials, the host syncs and the member launches.  At
+    float32 also ``frozen_tilt_members`` against single launches and its twin
+    (``check_ft_members``)."""
+    name = str(dtype).removeprefix("torch.")
+    t0 = time.perf_counter()
+    mn = build_lane(torch, fixture["protocol"], dtype)
+    snap = snapshot(mn)
+    setup_s = time.perf_counter() - t0
+    steps = WARMUP_STEPS + BATCHED_STEPS
+    _seq, bat, per_step = compare_forms(torch, counters, label, mn, snap, steps, WARMUP_STEPS,
+                                        BATCHED_EXPECT[name], setup_s=f"{setup_s:.3f}")
     res = {"launches": bat["launches"], "errs": {}, "timing": {},
            "per_step": {k: n / steps for k, n in bat["launches"].items()},
            "ms": per_step(bat, "ms")}
@@ -6165,6 +6200,138 @@ def phase_batched_ls(torch, ft, counters, label: str, fixture: dict, dtype) -> d
         res["errs"] = {"ft_members": errs["ft_members"]}
         say(label + " frozen_tilt_members", cases=json.dumps(errs["cases"]),
             launches_per_step=repr(res["per_step"]["frozen_tilt.energy_members"]))
+
+        def timing_lines():
+            res["timing"] = measure_members(torch, timing_rows, name)
+            for rec in res["timing"].values():
+                say(label + " kernel timing", **{k: (f"{v:.6f}" if isinstance(v, float) else v)
+                                                 for k, v in rec.items()})
+
+        quiet(timing_lines)
+    return res
+
+
+# ----------------------------------------------------------------------
+# phase 57: the reduced-energy line search's batched form against its sequential one
+# ----------------------------------------------------------------------
+REDUCED_BATCHED_STEPS = 3  # phase 57: minimize(1) steps per form, the first a warm-up
+FT_GRAD_MEMBERS = (1, 3, 9)  # phase 57: frozen_tilt_members with the gradient vs single launches
+FT_GRAD_MEMBER_TIMED = 9  # phase 57's timing row: the reduced search's nine tail candidates
+# member launches the batched reduced form must make (the tail's trial energies; at float32
+# also kernel 1's member launches in the member relax, energy and gradient)
+REDUCED_BATCHED_EXPECT = {
+    "float64": ("tri_kernels.surface_energy_members", "tri_kernels.curvature_data_members",
+                "vertex_sum.vertex_sum_members"),
+    "float32": ("tri_kernels.surface_energy_members", "tri_kernels.curvature_data_members",
+                "vertex_sum.vertex_sum_members", "frozen_tilt.energy_members",
+                "frozen_tilt.energy_grad_members")}
+
+
+def member_relax_inputs(torch, ft, mn, snap: dict) -> tuple:
+    """(g (B, T, 3, 3), payload (B, T, 20), the fused energy of member 0): the frozen inputs
+    the batched reduced search's member relax builds for its candidates, taken from one
+    ``minimize(1)`` from ``snap`` (its first member call of kernel 1 with the gradient)."""
+    seen = []
+    real = ft.frozen_tilt_energy_members
+
+    def spy(t_in, t_out, tri_rows, csr, g, payload, k_vec, ws=None):
+        if not seen and t_in.requires_grad:
+            seen.append((g.clone(), payload.clone(), (tri_rows, csr, k_vec, ws)))
+        return real(t_in, t_out, tri_rows, csr, g, payload, k_vec, ws)
+
+    ft.frozen_tilt_energy_members = spy
+    try:
+        with line_search_form(True):
+            restore(mn, snap)
+            mn.minimize(1)
+    finally:
+        ft.frozen_tilt_energy_members = real
+    if not seen:
+        raise AssertionError("the batched reduced search made no member call of kernel 1 with "
+                             "the gradient")
+    return seen[0]
+
+
+def check_ft_members_grad(torch, ft, mn, snap: dict) -> tuple[dict, list]:
+    """``frozen_tilt_members`` with the gradient on the member relax's own per-member g and
+    payload (``member_relax_inputs``) and seeded tilts, at B = 1, 3 and 9: each member's energy
+    and both vertex gradients the bits of a single ``frozen_tilt_vertex`` launch on it, within
+    rel ``ENERGY_RTOL`` (the energy) and ``GRAD_RTOL`` of max|g| (the gradients) of the twin.
+    Returns the errors and the timing rows at B = 9."""
+    g_all, pay_all, (rows, csr, k, ws) = member_relax_inputs(torch, ft, mn, snap)
+    p = mn.problem()
+    gen = torch.Generator(device=DEVICE).manual_seed(57)
+    base_in, base_out = p.state.tilts_in.contiguous(), p.state.tilts_out.contiguous()
+    if g_all.shape[0] < max(FT_GRAD_MEMBERS):
+        raise AssertionError(f"the member relax ran {g_all.shape[0]} members")
+
+    def member_inputs(B):
+        noise = torch.randn((2, B) + tuple(base_in.shape), dtype=torch.float32, device=DEVICE,
+                            generator=gen)
+        return ((base_in + 0.01 * noise[0]).contiguous(), (base_out + 0.01 * noise[1]).contiguous(),
+                g_all[:B].contiguous(), pay_all[:B].contiguous())
+
+    err, cases = 0.0, []
+    for B in FT_GRAD_MEMBERS:
+        t_in, t_out, g, pay = member_inputs(B)
+        e, gin, gout = ft.launch_members(t_in, t_out, rows, csr, g, pay, k, ws, grad=True)
+        singles = [ft.launch(t_in[m].clone(), t_out[m].clone(), rows, csr, g[m].clone(),
+                             pay[m].clone(), k, ws, grad=True) for m in range(B)]
+        for m, (e1, h_in, h_out) in enumerate(singles):
+            if not (same_bits(torch, e[m:m + 1], e1) and same_bits(torch, gin[m], h_in)
+                    and same_bits(torch, gout[m], h_out)):
+                raise AssertionError(f"frozen_tilt_members with the gradient at B={B}: member "
+                                     f"{m} is not the bits of its single launch")
+        te, t_gin, t_gout = ft.reference_members(t_in, t_out, rows, csr, g, pay, k, grad=True)
+        e_err = float(torch.max(torch.abs(e.double() - te.double())))
+        e_scale = float(torch.max(torch.abs(te.double())))
+        g_err = max(float(torch.max(torch.abs(a.double() - b.double())))
+                    for a, b in ((gin, t_gin), (gout, t_gout)))
+        g_scale = max(float(torch.max(torch.abs(b.double()))) for b in (t_gin, t_gout))
+        if not (math.isfinite(e_err) and e_err <= ENERGY_RTOL * e_scale):
+            raise AssertionError(f"frozen_tilt_members at B={B}: energy {e_err!r} from its twin "
+                                 f"(bound {ENERGY_RTOL} x {e_scale!r})")
+        if not (math.isfinite(g_err) and g_err <= GRAD_RTOL * g_scale):
+            raise AssertionError(f"frozen_tilt_members at B={B}: gradient {g_err!r} from its "
+                                 f"twin (bound {GRAD_RTOL} x {g_scale!r})")
+        err = max(err, e_err, g_err)
+        cases.append({"B": B, "energy_max_abs_err": e_err, "grad_max_abs_err": g_err,
+                      "grad_scale": g_scale, "equal_to_single_launches": True})
+    t_in, t_out, g, pay = member_inputs(FT_GRAD_MEMBER_TIMED)
+    B, T = FT_GRAD_MEMBER_TIMED, rows.shape[0]
+    inputs = (t_in, t_out, rows, csr.offsets, csr.slots, g, pay, k)
+    flops = (FLOPS_PER_TRI["frozen_tilt_energy"] + FLOPS_PER_TRI["frozen_tilt_grad"]) * T * B
+    timing_rows = [
+        ("frozen_tilt_members_grad", "kernel",
+         lambda: ft.launch_members(t_in, t_out, rows, csr, g, pay, k, ws, grad=True), inputs,
+         flops),
+        ("frozen_tilt_members_grad", "twin",
+         lambda: ft.reference_members(t_in, t_out, rows, csr, g, pay, k, grad=True), inputs,
+         flops),
+    ]
+    return {"ft_members_grad": err, "cases": cases}, timing_rows
+
+
+def phase_reduced_batched_ls(torch, ft, counters, label: str, dtype, base: dict) -> dict:
+    """The reduced-energy line search on kozlov L3 (phase 16's or 17's minimizer, from the
+    state its determinism check saved) under the sequential and the batched form
+    (``compare_forms``): equal accept flags, energies in bits and one digest; per step and form
+    the ms, the trials, the host syncs and the member launches, which the batched form must
+    make (at float32 kernel 1's member launches with the gradient) and the sequential form must
+    not.  At float32 also ``frozen_tilt_members`` with the gradient on the member relax's own
+    inputs (``check_ft_members_grad``)."""
+    name = str(dtype).removeprefix("torch.")
+    mn, snap = base["mn"], base["snap"]
+    seq, bat, per_step = compare_forms(torch, counters, label, mn, snap, REDUCED_BATCHED_STEPS,
+                                       1, REDUCED_BATCHED_EXPECT[name])
+    res = {"launches": bat["launches"], "errs": {}, "timing": {},
+           "per_step": {k: n / REDUCED_BATCHED_STEPS for k, n in bat["launches"].items()},
+           "ms": {"sequential": per_step(seq, "ms"), "batched": per_step(bat, "ms")}}
+    if dtype == torch.float32:
+        errs, timing_rows = check_ft_members_grad(torch, ft, mn, snap)
+        res["errs"] = {"ft_members_grad": errs["ft_members_grad"]}
+        say(label + " frozen_tilt_members grad", cases=json.dumps(errs["cases"]),
+            launches_per_step=repr(res["per_step"]["frozen_tilt.energy_grad_members"]))
 
         def timing_lines():
             res["timing"] = measure_members(torch, timing_rows, name)
@@ -6229,7 +6396,7 @@ def kernels_line(kern: dict, runs: dict) -> list:
     return out
 
 
-# Phases 4-56 run in these groups, one worker process each, side by side: the
+# Phases 4-57 run in these groups, one worker process each, side by side: the
 # host drives every lane and leaves the card idle most of a step.  A group
 # holds every phase whose state a later phase of it reads; within a group the
 # phases run in the order of their numbers.
@@ -6237,7 +6404,7 @@ GROUPS = (
     ("4", "5", "15", "33", "34", "35", "53", "54"),
     ("6", "7", "8", "9", "10", "20", "36", "37"),
     ("11", "12", "13", "14", "38", "39", "40", "41"),
-    ("16", "17", "21", "22", "44", "45"),
+    ("16", "17", "21", "22", "44", "45", "57"),
     ("23", "24", "25", "42", "43", "47", "55", "56"),
     ("26", "27", "28", "29", "48", "49", "50", "51"),
     ("18", "19", "30", "31", "32", "46", "52"),
@@ -6306,7 +6473,7 @@ def phase_timer(torch, seconds: dict, peaks: dict):
 
 
 def drive_phases(torch, mods, fx, todo) -> tuple[dict, dict, dict, dict]:
-    """The phases of 4-56 named in ``todo``, in order, in this process: (runs, errs, seconds,
+    """The phases of 4-57 named in ``todo``, in order, in this process: (runs, errs, seconds,
     peak GiB).
 
     ``errs`` holds the largest errors of the tri-kernel checks on the lanes'
@@ -6555,6 +6722,14 @@ def drive_phases(torch, mods, fx, todo) -> tuple[dict, dict, dict, dict]:
         runs["bl32"] = timed("56", phase_batched_ls, torch, ft, counters,
                              "56 kozlov_L3_batched_ls f32", fx.kozlov, torch.float32)
         errs["ft_members"] = runs["bl32"]["errs"]["ft_members"]
+    # the reduced-energy line search's batched form against its sequential one, from phases
+    # 16-17's states, and kernel 1's member launch with the gradient
+    if "57" in todo:
+        runs["rb64"] = timed("57 f64", phase_reduced_batched_ls, torch, ft, counters,
+                             "57 kozlov_L3_reduced_batched_ls f64", torch.float64, runs["d64"])
+        runs["rb32"] = timed("57 f32", phase_reduced_batched_ls, torch, ft, counters,
+                             "57 kozlov_L3_reduced_batched_ls f32", torch.float32, runs["d32"])
+        errs["ft_members_grad"] = runs["rb32"]["errs"]["ft_members_grad"]
     return runs, errs, seconds, peaks
 
 
@@ -6709,6 +6884,8 @@ def summary_lines(fx, runs: dict, seconds: dict) -> None:
     span("53-54", ("53 f64", "53 f32", "54 f64", "54 f32"))
     span("55-56", ("55", "56"),
          ms_per_step=json.dumps({"55": runs["bl64"]["ms"], "56": runs["bl32"]["ms"]}))
+    span("57", ("57 f64", "57 f32"),
+         ms_per_step=json.dumps({"f64": runs["rb64"]["ms"], "f32": runs["rb32"]["ms"]}))
 
 
 def main() -> int:
@@ -6731,7 +6908,7 @@ def main() -> int:
     kern = timed("3", lambda: phase_kernels(
         torch, mods, build_lane(torch, fx.kozlov["protocol"], torch.float64).problem(),
         build_lane(torch, fx.vesicle["protocol"], torch.float64).problem()))
-    # phases 4-56 in the workers, then the quiet stage: each worker's timing in turn
+    # phases 4-57 in the workers, then the quiet stage: each worker's timing in turn
     with Workers() as pool:
         t0 = time.perf_counter()
         pool.wait_ready()
@@ -6749,7 +6926,7 @@ def main() -> int:
     for key in ("w64", "w32", "g64"):
         for k, v in runs[key]["errs"].items():
             kern["errs"][k] = max(kern["errs"].get(k, 0.0), v)
-    for key in ("w32", "g64", "bl32"):
+    for key in ("w32", "g64", "bl32", "rb32"):
         kern["timing"].update(runs[key]["timing"])
     summary_lines(fx, runs, seconds)
     check_imports(cli=False)

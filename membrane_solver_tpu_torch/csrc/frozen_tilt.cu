@@ -43,16 +43,23 @@
 // The caller owns the scratch, partials and counter (allocated once per
 // relax; the counter zeroed once) and the outputs.
 //
-// The member axis (the batched line search's candidates, runtime/
-// tilt_relax.py): frozen_tilt_members runs the energy kernel over B stacked
-// tilt pairs, one block row per member on the grid's y axis (gridDim.y = B).
-// The kernel offsets its per-member pointers (tilts, partials, counter,
-// energy) by blockIdx.y; tri_rows, g, the payload and k are shared.  A
-// member's arithmetic and its energy reduction run in the order of a call on
-// that member alone (gridDim.y = 1, every offset zero), so member m of a
-// B-member call is the single call's bits.  It reads B times the vertex
-// tilts; the shared slabs are read once from HBM and then from L2.
-//
+// The member axis (the batched line search's candidates and the member-
+// batched leaflet relax, runtime/tilt_relax.py): frozen_tilt_members runs
+// the kernel over B stacked tilt pairs, one block row per member on the
+// grid's y axis (gridDim.y = B).  The kernel offsets its per-member pointers
+// (tilts, corner scratch, partials, counter, energy) by blockIdx.y, and g
+// and the payload by blockIdx.y times their member strides: a stride of 0
+// shares them (the candidates of one relax), a stride of one member's slab
+// gives each member its own frozen inputs (the relaxes of several trial
+// surfaces).  tri_rows, the corner CSR and k are shared.  With the
+// gradient, the member vertex sum adds each member's scratch in the CSR's
+// order.  A member's arithmetic and its energy and vertex reductions run in
+// the order of a call on that member alone (gridDim.y = 1, every offset
+// zero), so member m of a B-member call is the single call's bits.  A
+// member's g slab or corner scratch that does not start on a 16-byte
+// boundary (a member stride of 9T floats with T not a multiple of 4) is read
+// with plain loads in place of the bulk copy, and written with 4-byte
+// stores: the same values, another path.
 // What bounds it on an H100: bytes, then latency.  At the kozlov L3 lane
 // (N = 10,817, T = 21,504) the energy reads 3.27 MB (vertex tilts, int64
 // tri_rows, g, payload), about 1 us at 3.35 TB/s, and the gradient adds
@@ -154,10 +161,12 @@ __device__ __forceinline__ void dirichlet_grad(const float* t, float w0, float w
   }
 }
 
-// ``n`` floats from shared ``src`` to global ``dst``, both 16-byte aligned,
-// by the whole block as coalesced 16-byte stores.
+// ``n`` floats from shared ``src`` (16-byte aligned) to global ``dst`` by the
+// whole block: coalesced 16-byte stores where ``dst`` is 16-byte aligned
+// (always for a single call), else 4-byte stores (a member's slab of a
+// member stride of 9T floats with T not a multiple of 4).
 __device__ __forceinline__ void store_slab(float* __restrict__ dst, const float* src, int n) {
-  const int n4 = n >> 2;
+  const int n4 = (reinterpret_cast<uintptr_t>(dst) & 15u) == 0 ? n >> 2 : 0;
   for (int i = threadIdx.x; i < n4; i += kThreads) {
     reinterpret_cast<float4*>(dst)[i] = reinterpret_cast<const float4*>(src)[i];
   }
@@ -171,16 +180,20 @@ __global__ void __launch_bounds__(kThreads)
                        const float* __restrict__ pay, const float* __restrict__ kv,
                        float* __restrict__ din_c, float* __restrict__ dout_c,
                        double* __restrict__ partials, unsigned int* __restrict__ counter,
-                       float* __restrict__ energy, int n, int64_t nv) {
+                       float* __restrict__ energy, int n, int64_t nv, int64_t g_stride,
+                       int64_t pay_stride) {
   __shared__ alignas(128) float s_pay[kThreads * kPay];
   __shared__ alignas(128) float s_g[kThreads * 9];
   __shared__ alignas(8) uint64_t s_bar;
 
   // member blockIdx.y: its tilts, corner scratch, partials, counter and
-  // energy; the rows, g, the payload and k are shared
+  // energy, and g and the payload at their member strides (0: shared); the
+  // rows and k are shared
   const int64_t member = blockIdx.y;
   tin += member * nv * 3;
   tout += member * nv * 3;
+  grad_p1 += member * g_stride;
+  pay += member * pay_stride;
   if constexpr (kGrad) {
     din_c += member * 9 * (int64_t)n;
     dout_c += member * 9 * (int64_t)n;
@@ -193,11 +206,13 @@ __global__ void __launch_bounds__(kThreads)
   const int first = blockIdx.x * kThreads;
   const int here = min(kThreads, n - first);
   const float* pay_slab = pay + (int64_t)first * kPay;  // 80-byte rows: 16-byte aligned
-  const float* g_slab = grad_p1 + (int64_t)first * 9;   // 128 * 36 bytes per block: aligned
+  const float* g_slab = grad_p1 + (int64_t)first * 9;   // 128 * 36 bytes per block
+  // aligned when the member's g is (always for a single call)
+  const bool g_aligned = (reinterpret_cast<uintptr_t>(g_slab) & 15u) == 0;
 
   // 1. thread 0 starts the block's slab copies
   const uint32_t pay_bytes = (uint32_t)here * (kPay * 4u);
-  const uint32_t g_bulk = ((uint32_t)here * 36u) & ~15u;
+  const uint32_t g_bulk = g_aligned ? ((uint32_t)here * 36u) & ~15u : 0u;
   if (tid == 0) mbar_init(&s_bar, 1);
   __syncthreads();
   if (tid == 0) {
@@ -205,7 +220,8 @@ __global__ void __launch_bounds__(kThreads)
     bulk_copy_g2s(s_pay, pay_slab, pay_bytes, &s_bar);
     if (g_bulk > 0) bulk_copy_g2s(s_g, g_slab, g_bulk, &s_bar);
   }
-  // the g slab's last floats past a 16-byte multiple (fewer than 4)
+  // the g slab's last floats past a 16-byte multiple (fewer than 4), or the
+  // whole slab when it is not aligned
   for (int i = (int)(g_bulk >> 2) + tid; i < here * 9; i += kThreads) s_g[i] = g_slab[i];
 
   // 2. meanwhile each thread gathers its corners (a bad row gives NaN)
@@ -334,31 +350,45 @@ extern "C" int frozen_tilt_vertex(const float* tin, const float* tout, const int
   if (grad) {
     frozen_tilt_kernel<true><<<blocks, kThreads, 0, st>>>(tin, tout, rows, grad_p1, pay, kv,
                                                           din_c, dout_c, partials, counter,
-                                                          energy, n, nv);
+                                                          energy, n, nv, 0, 0);
     vertex_sum::launch<float, 3, 3>(offsets, slots, din_c, gin, dout_c, gout, nv, st);
   } else {
     frozen_tilt_kernel<false><<<blocks, kThreads, 0, st>>>(tin, tout, rows, grad_p1, pay, kv,
                                                            nullptr, nullptr, partials, counter,
-                                                           energy, n, nv);
+                                                           energy, n, nv, 0, 0);
   }
   return (int)cudaGetLastError();
 }
 
-// The energy of ``members`` stacked tilt pairs in one launch: tin and tout
-// (members, nv, 3), partials (members, blocks of 128 triangles), counter
-// (members,) zeroed (left at zero), energy (members,); rows, grad_p1, pay and
-// kv shared.  Member m's energy is the bits of frozen_tilt_vertex's energy
-// on member m alone.  cudaErrorInvalidValue for n < 1 or members < 1.
+// frozen_tilt_vertex over ``members`` stacked tilt pairs in one launch (two
+// with the gradient): tin and tout (members, nv, 3); g and the payload at
+// ``g_stride`` and ``pay_stride`` floats per member (0: shared); partials
+// (members, blocks of 128 triangles), counter (members,) zeroed (left at
+// zero), energy (members,); with ``grad``, din_c / dout_c (members, T, 3, 3)
+// scratch and gin / gout (members, nv, 3).  rows, the CSR and kv are shared.
+// Member m is the bits of frozen_tilt_vertex on member m alone.
+// cudaErrorInvalidValue for n < 1 or members < 1.
 extern "C" int frozen_tilt_members(const float* tin, const float* tout, const int64_t* rows,
+                                   const int32_t* offsets, const int32_t* slots,
                                    const float* grad_p1, const float* pay, const float* kv,
-                                   double* partials, unsigned int* counter, float* energy, int n,
-                                   int nv, int members, void* stream) {
+                                   float* din_c, float* dout_c, double* partials,
+                                   unsigned int* counter, float* energy, float* gin, float* gout,
+                                   int n, int nv, int members, int64_t g_stride,
+                                   int64_t pay_stride, int grad, void* stream) {
   if (n < 1 || members < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const dim3 grid((unsigned int)((n + kThreads - 1) / kThreads), (unsigned int)members);
-  frozen_tilt_kernel<false><<<grid, kThreads, 0, st>>>(tin, tout, rows, grad_p1, pay, kv,
-                                                       nullptr, nullptr, partials, counter,
-                                                       energy, n, nv);
+  if (grad) {
+    frozen_tilt_kernel<true><<<grid, kThreads, 0, st>>>(tin, tout, rows, grad_p1, pay, kv, din_c,
+                                                        dout_c, partials, counter, energy, n, nv,
+                                                        g_stride, pay_stride);
+    vertex_sum::launch<float, 3, 3>(offsets, slots, din_c, gin, dout_c, gout, nv, st, members,
+                                    3 * (int64_t)n);
+  } else {
+    frozen_tilt_kernel<false><<<grid, kThreads, 0, st>>>(tin, tout, rows, grad_p1, pay, kv,
+                                                         nullptr, nullptr, partials, counter,
+                                                         energy, n, nv, g_stride, pay_stride);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -51,7 +51,7 @@ def _batched(x) -> bool:
     return isinstance(x, torch.Tensor) and torch._C._functorch.is_batchedtensor(x)
 
 
-def _own(x: torch.Tensor) -> torch.Tensor:
+def own(x: torch.Tensor) -> torch.Tensor:
     """A member's operand as a single call's: a fresh contiguous buffer."""
     return x.clone(memory_format=torch.contiguous_format)
 
@@ -61,7 +61,7 @@ def each_member(fn, *args: torch.Tensor) -> torch.Tensor:
     its own contiguous copies, as a one-member batch makes it (a batched product picks its
     algorithm by the member count, and a member's slice of the batch its alignment by its
     index)."""
-    return torch.stack([fn(*(_own(a[m]) for a in args)) for m in range(args[0].shape[0])])
+    return torch.stack([fn(*(own(a[m]) for a in args)) for m in range(args[0].shape[0])])
 
 
 def _sum(x: torch.Tensor, dim):
@@ -83,7 +83,7 @@ class _MembersSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim):
         ctx.shape, ctx.dim = x.shape, dim
-        return torch.stack([_sum(_own(x[m]), dim) for m in range(x.shape[0])])
+        return torch.stack([_sum(own(x[m]), dim) for m in range(x.shape[0])])
 
     @staticmethod
     def backward(ctx, grad):

@@ -24,14 +24,18 @@ corners, and the vertex-sum twin, in :func:`reference_vertex`.
 ``LAUNCHES`` counts the energy-only and energy-plus-gradient calls, and the
 member-axis energy launches.
 
-The member axis: under ``torch.func.vmap`` over the tilts (the batched line
-search's candidates in the leaflet relax, ``runtime/tilt_relax``) the
-entry point's ``vmap`` rule evaluates every member's energy in one
-``frozen_tilt_members`` launch (the members on the grid's y axis; the rows,
-g, the payload and k_vec shared), member m the bits of the single call on
-member m; on the CPU its twin, :func:`reference_members`, runs the single
-twin once per member.  The rule computes the energy alone: no caller maps a
-tilt gradient.
+The member axis: :func:`frozen_tilt_energy_members` takes B stacked tilt
+pairs (B, N, 3) with g and the payload shared ((T, 3, 3), (T, 20)) or one
+per member ((B, T, 3, 3), (B, T, 20)), and evaluates every member's energy,
+and with a tilt that requires grad both vertex gradients, in one
+``frozen_tilt_members`` call (the members on the grid's y axis); member m
+is the bits of the single call on member m.  Its backward scales each
+member's gradients.  The member-batched leaflet relax
+(``runtime/tilt_relax``) calls it directly; under ``torch.func.vmap`` over
+the tilts (the batched line search's candidates) the single entry point's
+``vmap`` rule routes to it, g and the payload mapped or shared, the rows
+and k_vec shared.  On the CPU its twin, :func:`reference_members`, runs
+the single twin once per member on its own contiguous copies.
 
 Inputs: t_in, t_out (N, 3) vertex tilts; tri_rows (T, 3) int64; the
 topology's :class:`~membrane_solver_tpu_torch.device.state.CornerCSR`; g
@@ -47,13 +51,13 @@ import ctypes
 import torch
 
 from membrane_solver_tpu_torch.device import shard as _shard
-from membrane_solver_tpu_torch.device.reduce import each_member
+from membrane_solver_tpu_torch.device.reduce import own
 from membrane_solver_tpu_torch.device.state import CornerCSR
 from membrane_solver_tpu_torch.kernels import _build, _launch
 from membrane_solver_tpu_torch.kernels import vertex_sum as vs
 from membrane_solver_tpu_torch.kernels.tri_kernels import _member_dim
 
-LAUNCHES = {"energy": 0, "energy_grad": 0, "energy_members": 0}
+LAUNCHES = {"energy": 0, "energy_grad": 0, "energy_members": 0, "energy_grad_members": 0}
 
 KERNEL = _build.Source("frozen_tilt")
 SOURCE = KERNEL.path
@@ -145,12 +149,23 @@ def reference_vertex(t_in, t_out, tri_rows, csr, g, payload, k_vec, grad: bool):
     return e, vs.reference(din_c, csr), vs.reference(dout_c, csr)
 
 
-def reference_members(t_in, t_out, tri_rows, csr, g, payload, k_vec):
-    """Plain twin of ``frozen_tilt_members``: the (B,) energies of (B, N, 3) tilt pairs, the
-    single twin once per member on its own contiguous copies (the single call's bits)."""
-    return each_member(
-        lambda a, b: reference_vertex(a, b, tri_rows, csr, g, payload, k_vec, False)[0],
-        t_in, t_out)
+def _member_of(x, m: int, single_dims: int):
+    """Member m's operand: ``x`` itself when shared (``single_dims`` axes), else its own copy."""
+    return x if x.dim() == single_dims else own(x[m])
+
+
+def reference_members(t_in, t_out, tri_rows, csr, g, payload, k_vec, grad: bool = False):
+    """Plain twin of ``frozen_tilt_members``: ((B,) energies, (B, N, 3) dE/dt_in, dE/dt_out) of
+    (B, N, 3) tilt pairs, the gradients None without ``grad``.  g and the payload are shared
+    ((T, 3, 3), (T, 20)) or per member ((B, T, 3, 3), (B, T, 20)).  The single twin runs once per
+    member on its own contiguous copies (the single call's bits)."""
+    outs = [reference_vertex(own(t_in[m]), own(t_out[m]), tri_rows, csr, _member_of(g, m, 3),
+                             _member_of(payload, m, 2), k_vec, grad)
+            for m in range(t_in.shape[0])]
+    e = torch.stack([o[0] for o in outs])
+    if not grad:
+        return e, None, None
+    return e, torch.stack([o[1] for o in outs]), torch.stack([o[2] for o in outs])
 
 
 # ----------------------------------------------------------------------
@@ -165,7 +180,8 @@ def build() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.frozen_tilt_vertex.argtypes = [ptr] * 15 + [i32, i32, i32, ptr]
     lib.frozen_tilt_vertex.restype = i32
-    lib.frozen_tilt_members.argtypes = [ptr] * 9 + [i32, i32, i32, ptr]
+    lib.frozen_tilt_members.argtypes = [ptr] * 15 + [i32, i32, i32, ctypes.c_int64,
+                                                      ctypes.c_int64, i32, ptr]
     lib.frozen_tilt_members.restype = i32
     lib.frozen_tilt_block_size.restype = i32
     if lib.frozen_tilt_block_size() != BLOCK:
@@ -193,16 +209,21 @@ class Workspace:
         self.counter = torch.zeros(1, dtype=torch.int32, device=device)
         self._members = {}
 
-    def member_scratch(self, members: int) -> tuple:
-        """(partials (B, blocks), counters (B,)) of a ``frozen_tilt_members`` launch of B
-        members, made at the first such launch and kept (each launch leaves the counters at
-        zero)."""
-        if members not in self._members:
-            device = self.partials.device
-            self._members[members] = (
-                torch.empty((members, self.partials.shape[0]), dtype=torch.float64,
-                            device=device),
-                torch.zeros(members, dtype=torch.int32, device=device))
+    def member_scratch(self, members: int, grad: bool = False) -> tuple:
+        """(partials (B, blocks), counters (B,), din_c, dout_c) of a ``frozen_tilt_members``
+        launch of B members, made at the first such launch and kept (each launch leaves the
+        counters at zero); the (B, T, 3, 3) corner slabs are None until a gradient launch."""
+        device = self.partials.device
+        partials, counters, din_c, dout_c = self._members.get(members, (None,) * 4)
+        if partials is None:
+            partials = torch.empty((members, self.partials.shape[0]), dtype=torch.float64,
+                                   device=device)
+            counters = torch.zeros(members, dtype=torch.int32, device=device)
+        if grad and din_c is None:
+            din_c = torch.empty((members,) + tuple(self.din_c.shape), dtype=torch.float32,
+                                device=device)
+            dout_c = torch.empty_like(din_c)
+        self._members[members] = (partials, counters, din_c, dout_c)
         return self._members[members]
 
 
@@ -267,10 +288,23 @@ def launch(t_in, t_out, tri_rows, csr: CornerCSR, g, payload, k_vec, ws: Workspa
     return energy, gin, gout
 
 
-def launch_members(t_in, t_out, tri_rows, g, payload, k_vec, ws: Workspace):
-    """(B,) energies of B stacked tilt pairs (B, N, 3) in one ``frozen_tilt_members`` launch.
+def _member_stride(x, members: int, single: tuple, name: str) -> int:
+    """The member stride (in floats) of a shared (``single`` shape) or per-member input."""
+    if tuple(x.shape) == single:
+        return 0
+    if tuple(x.shape) != (members,) + single or not x.is_contiguous():
+        raise ValueError(f"{name} must be {single} (shared) or a contiguous "
+                         f"{(members,) + single} (per member), got {tuple(x.shape)}")
+    return x.stride(0)
 
-    Member m's energy is the bits of :func:`launch`'s energy on member m.
+
+def launch_members(t_in, t_out, tri_rows, csr: CornerCSR, g, payload, k_vec, ws: Workspace,
+                   grad: bool = False):
+    """((B,) energies, (B, N, 3) dE/dt_in, dE/dt_out) of B stacked tilt pairs (B, N, 3) in one
+    ``frozen_tilt_members`` call; the gradients None without ``grad``.
+
+    g and the payload are shared ((T, 3, 3), (T, 20)) or one per member ((B, T, 3, 3),
+    (B, T, 20), contiguous).  Member m is the bits of :func:`launch` on member m.
     """
     if t_in.dim() != 3 or t_out.shape != t_in.shape:
         raise ValueError(f"member tilts must be two (B, N, 3) tensors, got "
@@ -278,24 +312,42 @@ def launch_members(t_in, t_out, tri_rows, g, payload, k_vec, ws: Workspace):
     members = t_in.shape[0]
     if not 1 <= members <= vs.MAX_MEMBERS:
         raise ValueError(f"{members} members; the launch takes 1 to {vs.MAX_MEMBERS}")
-    N, T = _check_inputs(t_in[0], t_out[0], tri_rows, g, payload, k_vec)
+    T = tri_rows.shape[0]
+    g_stride = _member_stride(g, members, (T, 3, 3), "g")
+    pay_stride = _member_stride(payload, members, (T, 20), "payload")
+    N, T = _check_inputs(t_in[0], t_out[0], tri_rows, g[0] if g_stride else g,
+                         payload[0] if pay_stride else payload, k_vec)
     if not (t_in.is_contiguous() and t_out.is_contiguous()):
         raise ValueError("member tilts must be contiguous")
     if ws.n_triangles != T or ws.din_c.device != t_in.device:
         raise ValueError(f"the workspace holds {ws.n_triangles} triangles on {ws.din_c.device}")
+    if grad:
+        vs.check_csr(csr, t_in, T)
+        if csr.n_rows != N:
+            raise ValueError(f"the CSR covers {csr.n_rows} vertex rows, the tilts {N}")
     lib = build()
-    partials, counter = ws.member_scratch(members)
+    partials, counter, din_c, dout_c = ws.member_scratch(members, grad)
     energy = torch.empty(members, dtype=torch.float32, device=t_in.device)
+    gin = torch.empty_like(t_in) if grad else None
+    gout = torch.empty_like(t_out) if grad else None
     code = _launch.call(
         t_in, lib.frozen_tilt_members,
-        t_in.data_ptr(), t_out.data_ptr(), tri_rows.data_ptr(), g.data_ptr(),
-        payload.data_ptr(), k_vec.data_ptr(), partials.data_ptr(), counter.data_ptr(),
-        energy.data_ptr(), T, N, members,
+        t_in.data_ptr(), t_out.data_ptr(), tri_rows.data_ptr(),
+        csr.offsets.data_ptr() if grad else None, csr.slots.data_ptr() if grad else None,
+        g.data_ptr(), payload.data_ptr(), k_vec.data_ptr(),
+        din_c.data_ptr() if grad else None, dout_c.data_ptr() if grad else None,
+        partials.data_ptr(), counter.data_ptr(), energy.data_ptr(),
+        gin.data_ptr() if grad else None, gout.data_ptr() if grad else None,
+        T, N, members, g_stride, pay_stride, int(grad),
     )
     if code != 0:
         raise RuntimeError(f"frozen_tilt_members launch failed: cudaError {code}")
-    _launch.count(LAUNCHES, "frozen_tilt", "energy_members", t_in)
-    return energy
+    if grad:
+        _count("energy_grad_members", t_in, csr)
+        vs.count("vertex_sum_members", t_in, csr)
+    else:
+        _launch.count(LAUNCHES, "frozen_tilt", "energy_members", t_in)
+    return energy, gin, gout
 
 
 def _count(key: str, like: torch.Tensor, csr: CornerCSR) -> None:
@@ -311,15 +363,15 @@ def _evaluate(t_in, t_out, tri_rows, csr, g, payload, k_vec, ws, grad):
     return reference_vertex(t_in, t_out, tri_rows, csr, g, payload, k_vec, grad)
 
 
-def _evaluate_members(t_in, t_out, tri_rows, csr, g, payload, k_vec, ws):
-    """(B,) energies of (B, N, 3) tilt pairs: one member launch on the card, the twin on the
-    CPU."""
+def _evaluate_members(t_in, t_out, tri_rows, csr, g, payload, k_vec, ws, grad):
+    """((B,) energies, gradients or None) of (B, N, 3) tilt pairs: one member call on the card,
+    the twin on the CPU."""
     if t_in.is_cuda:
         if ws is None:
             ws = Workspace(tri_rows.shape[0], t_in.device)
-        return launch_members(t_in.contiguous(), t_out.contiguous(), tri_rows, g, payload,
-                              k_vec, ws)
-    return reference_members(t_in, t_out, tri_rows, csr, g, payload, k_vec)
+        return launch_members(t_in.contiguous(), t_out.contiguous(), tri_rows, csr,
+                              g.contiguous(), payload.contiguous(), k_vec, ws, grad)
+    return reference_members(t_in, t_out, tri_rows, csr, g, payload, k_vec, grad)
 
 
 class _FrozenTiltEnergy(torch.autograd.Function):
@@ -343,20 +395,60 @@ class _FrozenTiltEnergy(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, t_in, t_out, tri_rows, csr, g, payload, k_vec, ws):
-        """Every member's energy in one member launch (the tilts mapped, the rest shared)."""
-        for name, index in (("tri_rows", 2), ("g", 4), ("payload", 5), ("k_vec", 6)):
+        """Every member in one member call: the tilts, g and the payload mapped or shared, the
+        rows and k_vec shared; the gradient when a tilt requires it (each member's gradient its
+        own single call's, scaled by its own cotangent)."""
+        for name, index in (("tri_rows", 2), ("k_vec", 6)):
             if in_dims[index] is not None:
                 raise NotImplementedError(
                     f"the member-axis frozen-tilt launch shares {name} across members; "
                     "it varies here")
-        if torch.is_grad_enabled() and (t_in.requires_grad or t_out.requires_grad):
-            raise NotImplementedError(
-                "the frozen-tilt tilt gradient has no member-axis launch; a mapped relax "
-                "(the reduced line search's batched form) brings it (ROADMAP A8)")
         a = _member_dim(in_dims, info.batch_size, t_in, 0)
         b = _member_dim(in_dims, info.batch_size, t_out, 1)
-        e = _evaluate_members(a, b, tri_rows, csr, g, payload, k_vec, ws)
+        gm = g if in_dims[4] is None else g.movedim(in_dims[4], 0)
+        pm = payload if in_dims[5] is None else payload.movedim(in_dims[5], 0)
+        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+            e, gin, gout = _FrozenTiltEnergyMembers.apply(a, b, tri_rows, csr, gm, pm, k_vec, ws)
+            return (e, gin, gout), (0, 0, 0)
+        e, _gin, _gout = _evaluate_members(a, b, tri_rows, csr, gm, pm, k_vec, ws, False)
         return (e, None, None), (0, None, None)
+
+
+class _FrozenTiltEnergyMembers(torch.autograd.Function):
+    """(B,) energies and both (B, N, 3) vertex gradients from one member call; the backward
+    scales each member's gradients by its own cotangent."""
+
+    @staticmethod
+    def forward(t_in, t_out, tri_rows, csr, g, payload, k_vec, ws):
+        return _evaluate_members(t_in.detach(), t_out.detach(), tri_rows, csr, g, payload, k_vec,
+                                 ws, True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _e, gin, gout = output
+        ctx.mark_non_differentiable(gin, gout)
+        ctx.save_for_backward(gin, gout)
+
+    @staticmethod
+    def backward(ctx, ct, _ct_gin, _ct_gout):
+        gin, gout = ctx.saved_tensors
+        ct = ct[:, None, None]
+        return ct * gin, ct * gout, None, None, None, None, None, None
+
+
+def frozen_tilt_energy_members(t_in, t_out, tri_rows, csr, g, payload, k_vec, ws=None):
+    """(B,) frozen-tilt energies of (B, N, 3) tilt pairs, differentiable in ``t_in`` and ``t_out``.
+
+    g and the payload are shared ((T, 3, 3), (T, 20)) or one per member ((B, T, 3, 3),
+    (B, T, 20)).  When autograd needs a tilt gradient, one member call computes every member's
+    energy and both vertex gradients, and the backward scales each member's; otherwise the call
+    computes the energies alone.  Member m is the bits of :func:`frozen_tilt_energy` on member
+    m's tilts, g and payload.
+    """
+    if torch.is_grad_enabled() and (t_in.requires_grad or t_out.requires_grad):
+        return _FrozenTiltEnergyMembers.apply(t_in, t_out, tri_rows, csr, g, payload, k_vec,
+                                              ws)[0]
+    return _evaluate_members(t_in, t_out, tri_rows, csr, g, payload, k_vec, ws, False)[0]
 
 
 def _shard_workspace(topo, t_in) -> Workspace | None:

@@ -129,7 +129,10 @@ def tp_minimize_block(spec, options, mesh: Sequence) -> Callable:
     The line search takes the form the first device's ``utils/tuning`` switch gives, as the
     one-device block does: in the batched form candidate 0 and the accepted trial go through
     the shards, and the other candidates' mapped evaluation runs unsharded on the first device
-    (``device/shard``: no plan inside ``torch.func.vmap``), which the shards' bits equal.
+    (``device/shard``: no plan inside ``torch.func.vmap``), which the shards' bits equal.  The
+    reduced-energy search's member pass relaxes its candidates together
+    (``tilt_relax.make_relax_leaflet_tilts_members``), each member's energy, enforcement and
+    projection through its own sharded single calls.
     """
     mesh = tp_mesh(devices=mesh)
     block = jit_core.minimize_block(spec, options)

@@ -12,7 +12,8 @@ coupled) under its energy-spike guard, the single-field tilt relax, the
 line search in its sequential and its batched form
 (``utils/tuning.batched_line_search``) with its reduced-energy form (every
 trial, and the baseline, re-relax the leaflet tilts; ``armijo`` or
-``decrease_only`` acceptance; sequential only, :data:`REDUCED_LS_FORM`),
+``decrease_only`` acceptance; batched through the member-batched relax,
+:data:`REDUCED_LS_FORM`),
 the volume constraint's enforcement and post-step drift check, the
 curved-theta ablation's module scales, the reference-exact rim KKT skip and
 the shared-rim lanes' height-only shape descent.
@@ -48,9 +49,10 @@ LS_ALPHA_MAX_FACTOR = 10.0
 LS_ALPHA_FLOOR = 1e-8
 SAFE_STEP_FRACTION = 0.3
 NORMAL_LIMIT_RADIANS = 0.5
-# the form the reduced-energy line search takes on every device
-REDUCED_LS_FORM = ("sequential: each trial relaxes the leaflet tilts, and a batched form needs "
-                   "a member-batched relax (ROADMAP A8)")
+# the form the reduced-energy line search takes on each device
+REDUCED_LS_FORM = ("batched on the card, sequential on the CPU (utils/tuning): candidate 0 alone, "
+                   "then candidates 1-9 in one member pass whose trials relax the leaflet tilts "
+                   "together (tilt_relax.make_relax_leaflet_tilts_members)")
 
 
 def _np_dtype(dtype):
@@ -608,6 +610,7 @@ def armijo_line_search(
     accept_rule: str = "armijo",
     extra: torch.Tensor | None = None,
     batched: bool = False,
+    states_of_trials: Callable | None = None,
 ) -> LineSearchResult:
     """Armijo backtracking over the chain alpha0, alpha0 * 0.7, ... (10 candidates).
 
@@ -635,6 +638,11 @@ def armijo_line_search(
     and its state is built again outside the map.  ``state_of_trial`` and
     ``energy_of_state`` must then run under the map (no host read), with
     every sum a candidate's single-call bits, as the sweep's member path does.
+    A ``states_of_trials`` (trial positions (B, N, 3) -> the B trial states,
+    each the bits of ``state_of_trial`` on its member) takes the map's place
+    for the trial states: the reduced-energy search's, whose trials relax the
+    tilts in one member-batched relax (a relax reads the host, which no map
+    can); the normal-rotation check and ``energy_of_state`` stay mapped.
     """
     np_dtype = _np_dtype(state.positions.dtype)
     positions = state.positions
@@ -660,7 +668,8 @@ def armijo_line_search(
     if batched:
         success, alpha, acc_E, acc_state, trials = _batched_search(
             energy_of_state, state, direction, movable, topo, state_of_trial, trial_of,
-            np_dtype, alpha0, energy0, slope, max_dir_norm, safe_limit, descent)
+            np_dtype, alpha0, energy0, slope, max_dir_norm, safe_limit, descent,
+            states_of_trials)
     else:
         alpha = alpha0
         success = False
@@ -697,7 +706,7 @@ def armijo_line_search(
 
 def _batched_search(energy_of_state, state, direction, movable, topo, state_of_trial,
                     trial_of, np_dtype, alpha0, energy0, slope, max_dir_norm, safe_limit,
-                    descent):
+                    descent, states_of_trials=None):
     """(success, final carried alpha, energy, state, trials scored) of the sequential loop,
     from candidate 0 alone and, on its rejection, the other candidates in one map (JAX
     ``jit_core.armijo_line_search``'s batched branch).
@@ -743,7 +752,17 @@ def _batched_search(energy_of_state, state, direction, movable, topo, state_of_t
         return torch.stack([E, ok.to(E.dtype)])
 
     tail = torch.tensor(alphas[1:], dtype=positions.dtype, device=positions.device)
-    out = torch.func.vmap(score)(tail).tolist()
+    if states_of_trials is None:
+        out = torch.func.vmap(score)(tail).tolist()
+    else:
+        trials_p = torch.where(movable[:, None], positions + tail[:, None, None] * direction,
+                               positions)
+        E = torch.func.vmap(energy_of_state)(states_of_trials(trials_p))
+        if check:
+            ok = torch.func.vmap(dgeo.check_normal_rotation, in_dims=(None, 0, None, None, None))(
+                positions, trials_p, topo.tri_rows, topo.tri_valid, NORMAL_LIMIT_RADIANS)
+            E = torch.stack([E, ok.to(E.dtype)], dim=1)
+        out = E.tolist()
     trials = LS_MAX_ITER
     for k, row in enumerate(out, start=1):
         E_k, ok_k = (row, 1.0) if not check else row
@@ -964,7 +983,9 @@ def minimize_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
     zero-step bookkeeping.  The stepper keeps its history only after an accepted step
     that took no drift projection, and starts afresh otherwise.  The line search
     takes its batched form where ``utils/tuning.batched_line_search`` says so for the
-    state's device (the card), except the reduced-energy search (:data:`REDUCED_LS_FORM`).
+    state's device (the card), the reduced-energy search's included: its candidates 1-9
+    relax their tilts in one member-batched relax (:data:`REDUCED_LS_FORM`); the
+    baseline's relax stays single.
 
     ``shape_scaffold_rejected_step_fallback`` ``trace_z`` (with the compiled
     ``core:scaffold_trace/mask``): when the line search rejects, it is run
@@ -1001,6 +1022,7 @@ def minimize_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
         if accept_rule not in ("armijo", "decrease_only"):
             raise ValueError(f"Unknown reduced-energy accept rule: {accept_rule!r}")
         relax_fn = _tr.make_relax_leaflet_tilts(spec)
+        relax_members = _tr.make_relax_leaflet_tilts_members(spec)
     trace_z = spec.option("shape_scaffold_rejected_step_fallback", "off").lower() == "trace_z"
 
     def block(state, topo, params, ss, n_steps, step_size, fixed_step, tol,
@@ -1010,9 +1032,8 @@ def minimize_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
         np_dtype = _np_dtype(state.positions.dtype)
         movable = ~topo.fixed_mask
         kind = options.stepper
-        # the line search's form on this device; the reduced search stays sequential
-        # (REDUCED_LS_FORM), as its trials relax the tilts
-        batched = batched_line_search(state.positions.device) and not reduced_ls
+        # the line search's form on this device
+        batched = batched_line_search(state.positions.device)
         if batched:
             from membrane_solver_tpu_torch.parallel.member_block import prime_ordered_levels
 
@@ -1039,6 +1060,30 @@ def minimize_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
                 st, _stats = relax_fn(st, topo, params, reduced_n, reduced_step, reduced_tol)
             if project_tilts_after_step:
                 st = project_all_tilts(st, topo)
+            return st
+
+        def each_state(fn, st):
+            """``fn`` on every member of a member-axis state: mapped, or on a sharded topology
+            (``parallel/tensor``) one member after another through its sharded single calls."""
+            if not _tr.sharded(topo):
+                return torch.func.vmap(fn)(st)
+            outs = [fn(_tr.member_state(st, m)) for m in range(st.positions.shape[0])]
+            return MeshState(*(torch.stack([getattr(o, f.name) for o in outs])
+                               for f in dataclasses.fields(MeshState)))
+
+        def states_of_trials(p):
+            """``state_of_trial`` on each of B trial positions (B, N, 3), the reduced relax
+            member-batched: the batched reduced search's member pass."""
+            base = [getattr(ls_base, f) for f in ("tilts", "tilts_in", "tilts_out")]
+            st = MeshState(p, *(t.expand((p.shape[0],) + tuple(t.shape)) for t in base))
+            with torch.no_grad():
+                if enforcer is not None:
+                    st = each_state(lambda s: tilt_enforcer(
+                        enforcer(s, topo, params, context="minimize"), topo, params), st)
+                st, _stats = relax_members(st, topo, params, reduced_n, reduced_step,
+                                           reduced_tol)
+                if project_tilts_after_step:
+                    st = each_state(lambda s: project_all_tilts(s, topo), st)
             return st
 
         def energy_of_state(st):
@@ -1098,16 +1143,18 @@ def minimize_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
                                      dim=1)
                 n_trace = torch.clamp(tree_sum(trace_mask.to(grad.dtype)), min=1.0)
                 dz_mean = tree_sum(fb_dir[:, 2]) / n_trace
+            member_pass = states_of_trials if reduced_ls else None
             ls = armijo_line_search(
                 energy_of_state, ls_base, grad, direction, step_in, ls_E0, movable, topo,
                 state_of_trial, accept_rule, extra=dz_mean, batched=batched,
+                states_of_trials=member_pass,
             )
             if fb_dir is not None and not ls.success and np.isfinite(ls.extra) and ls.extra > 0:
                 fallbacks += 1
                 trials += ls.trials
                 ls = armijo_line_search(
                     energy_of_state, ls_base, grad, fb_dir, step_in, ls_E0, movable, topo,
-                    state_of_trial, batched=batched,
+                    state_of_trial, batched=batched, states_of_trials=member_pass,
                 )
             base_positions = state.positions
             state = ls.state

@@ -17,6 +17,9 @@ Counterpart of ``membrane_solver_tpu/runtime/tilt_relax.py``.
 ``make_relax_vertex_tilts`` runs the same CG or GD on the single ``tilts``
 field, with no constraint rows and no refresh (its CG, too, runs without
 the preconditioner when ``tilt_cg_preconditioner`` is none).
+``make_relax_leaflet_tilts_members`` runs the leaflet relax on B states at
+once (the batched reduced-energy line search's candidates), each member
+the bits of its single relax.
 
 The JAX package runs these as ``lax.while_loop``s; here they are Python
 loops, and each accept/stop decision reads a device scalar (a host sync).
@@ -40,8 +43,10 @@ from typing import Callable, Dict
 
 import numpy as np
 import torch
+from torch.utils import _pytree
 
 from membrane_solver_tpu_torch.device import geo as dgeo
+from membrane_solver_tpu_torch.device.reduce import own
 from membrane_solver_tpu_torch.device.state import MeshState, ProblemSpec, Topology, slot_csr
 from membrane_solver_tpu_torch.energy import get_module, param
 from membrane_solver_tpu_torch.kernels import tri_kernels
@@ -478,7 +483,14 @@ def _host(np_dtype, *scalars):
     return [np_dtype(x) for x in torch.stack(scalars).tolist()]
 
 
-def _backtrack(trial_of, energy_of, step_size, E0, np_dtype, tails: dict | None, like):
+def sharded(topo) -> bool:
+    """The topology carries a triangle-shard plan (``parallel/tensor``): its single calls run
+    per shard, and a ``torch.func.vmap`` over them would run unsharded, in other bits."""
+    return getattr(topo.corner_csr(), "plan", None) is not None
+
+
+def _backtrack(trial_of, energy_of, step_size, E0, np_dtype, tails: dict | None, like,
+               looped: bool = False):
     """12-halving backtracking, accept if not worse: (accepted, trial or None, its energy or E0).
 
     ``trial_of(step)`` builds the trial (a float step, or a 0-dim tensor step inside the map)
@@ -489,7 +501,9 @@ def _backtrack(trial_of, energy_of, step_size, E0, np_dtype, tails: dict | None,
     rejection, the other candidates' energies in one ``torch.func.vmap`` and one host read;
     the first accepted candidate is built again outside the map.  The other candidates'
     steps go to ``like``'s device once per step size and stay in ``tails`` (a copy to the
-    card is a host sync), which the caller keeps for one relax call.
+    card is a host sync), which the caller keeps for one relax call.  ``looped`` (a sharded
+    topology, :func:`sharded`) scores the other candidates one after another, each through
+    its single calls, still in one host read.
     """
     step = np_dtype(step_size)
     if tails is None:
@@ -509,10 +523,14 @@ def _backtrack(trial_of, energy_of, step_size, E0, np_dtype, tails: dict | None,
     E1 = float(energy_of(trial))
     if E1 <= E0:
         return True, trial, E1
-    tail = tails.get(float(step))
-    if tail is None:
-        tail = tails[float(step)] = torch.tensor(steps[1:], dtype=like.dtype, device=like.device)
-    energies = torch.func.vmap(lambda s: energy_of(trial_of(s)))(tail).tolist()
+    if looped:
+        energies = torch.stack([energy_of(trial_of(float(s))) for s in steps[1:]]).tolist()
+    else:
+        tail = tails.get(float(step))
+        if tail is None:
+            tail = tails[float(step)] = torch.tensor(steps[1:], dtype=like.dtype,
+                                                     device=like.device)
+        energies = torch.func.vmap(lambda s: energy_of(trial_of(s)))(tail).tolist()
     for k, E1 in enumerate(energies, start=1):
         if steps[k] >= STEP_FLOOR and E1 <= E0:
             return True, trial_of(float(steps[k])), E1
@@ -523,8 +541,9 @@ def _converged(gnorm, tol_h) -> bool:
     return gnorm == 0.0 or (tol_h > 0.0 and gnorm < tol_h)
 
 
-def make_inner_coupled_delta_cap(positions, topo, params, fixed_in):
-    """The inner-coupled continuation cap on inner trial deltas: cap(delta_in) -> delta_in.
+def delta_cap_data(positions, topo, params, fixed_in) -> tuple:
+    """The inner-coupled continuation cap's position-only tensors: (rh, rim_m, target_m,
+    active, n, mid), the arguments of :func:`apply_delta_cap` after the delta.
 
     ``inner_coupled_update_mode`` ``rim_matched_radial_continuation_v1``: rows
     in the near band (radius + lam, radius + 4 lam] about the xy center
@@ -552,28 +571,27 @@ def make_inner_coupled_delta_cap(positions, topo, params, fixed_in):
     active = (radius_b > 0.0) & (lam_b > 0.0) & torch.any(rim_m) & torch.any(target_m)
     n = torch.sum(rim_m.to(torch.int64))
     mid = torch.stack([torch.clamp((n - 1) // 2, min=0), torch.clamp(n // 2, min=0)])
-
-    def masked_median_abs(vals):
-        # the median over the rim band: sort with +inf padding, average the
-        # two middle elements of the n live entries
-        v = torch.sort(torch.where(rim_m, torch.abs(vals), torch.inf)).values
-        lo_hi = v[mid]
-        return torch.where(n > 0, 0.5 * (lo_hi[0] + lo_hi[1]), 0.0)
-
-    def apply_delta_cap(delta_in):
-        rad = torch.sum(delta_in * rh, dim=1)
-        cap = 1.05 * masked_median_abs(rad)
-        capped = torch.clamp(rad, -cap, cap)
-        adjust = torch.where(target_m, capped - rad, 0.0)
-        adjust = torch.where(torch.abs(adjust) > 1.0e-14, adjust, 0.0)
-        out = delta_in + adjust[:, None] * rh
-        return torch.where(active & (cap > 0.0), out, delta_in)
-
-    return apply_delta_cap
+    return rh, rim_m, target_m, active, n, mid
 
 
-def axisym_tangents(positions, normals, topo, fixed_in, fixed_out):
-    """(tangent_in, tangent_out): the tangent projection, then the axisymmetric radial one.
+def apply_delta_cap(delta_in, rh, rim_m, target_m, active, n, mid):
+    """The capped inner trial delta of one state (:func:`delta_cap_data`); under
+    ``torch.func.vmap`` each member's with its own position data."""
+    # the median over the rim band: sort with +inf padding, average the two
+    # middle elements of the n live entries
+    rad = torch.sum(delta_in * rh, dim=-1)
+    v = torch.sort(torch.where(rim_m, torch.abs(rad), torch.inf)).values
+    lo_hi = v[mid]
+    cap = 1.05 * torch.where(n > 0, 0.5 * (lo_hi[0] + lo_hi[1]), 0.0)
+    capped = torch.clamp(rad, -cap, cap)
+    adjust = torch.where(target_m, capped - rad, 0.0)
+    adjust = torch.where(torch.abs(adjust) > 1.0e-14, adjust, 0.0)
+    out = delta_in + adjust[:, None] * rh
+    return torch.where(active & (cap > 0.0), out, delta_in)
+
+
+def axisym_radial(positions, normals, topo):
+    """(r_unit, good): the unit radial directions and their mask of :func:`axisym_tangent`.
 
     ``tilt_axisymmetric_about_thetaB_center``: each row keeps only the
     part of its tangent tilt along its unit radial direction about the
@@ -594,13 +612,33 @@ def axisym_tangents(positions, normals, topo, fixed_in, fixed_out):
     good = (good0 & (r_norm > 1e-12))[:, None]
     r_unit = torch.where(good, r_dir / torch.clamp(r_norm, min=1e-12)[:, None], 0.0)
 
-    def axisym(t, fixed):
-        t_tan = t - torch.sum(t * normals, dim=1, keepdim=True) * normals
-        amp = torch.sum(t_tan * r_unit, dim=1)
-        proj = torch.where(good, amp[:, None] * r_unit, 0.0)
-        return torch.where(fixed, t_tan, proj)
+    return r_unit, good
 
-    return (lambda t: axisym(t, fixed_in)), (lambda t: axisym(t, fixed_out))
+
+def tangent(t, normals):
+    """``t`` less its part along the unit ``normals``, row by row ((..., N, 3) each)."""
+    return t - torch.sum(t * normals, dim=-1, keepdim=True) * normals
+
+
+def axisym_tangent(t, normals, r_unit, good, fixed):
+    """The tangent projection, then the axisymmetric radial one (:func:`axisym_radial`;
+    (..., N, 3) rows)."""
+    t_tan = tangent(t, normals)
+    amp = torch.sum(t_tan * r_unit, dim=-1)
+    proj = torch.where(good, amp[..., None] * r_unit, 0.0)
+    return torch.where(fixed, t_tan, proj)
+
+
+def _tangents(tan_data: tuple, fixed_in, fixed_out) -> tuple:
+    """(tangent_in, tangent_out) of one state's ``tan_data`` ((normals,), or (normals, r_unit,
+    good) under ``tilt_axisym``), or of their member stacks."""
+    if len(tan_data) == 1:
+        def tangent_in(t):
+            return tangent(t, tan_data[0])
+
+        return tangent_in, tangent_in
+    return ((lambda t: axisym_tangent(t, *tan_data, fixed_in)),
+            (lambda t: axisym_tangent(t, *tan_data, fixed_out)))
 
 
 def _uses_precond(spec: ProblemSpec, solver: str) -> bool:
@@ -609,60 +647,67 @@ def _uses_precond(spec: ProblemSpec, solver: str) -> bool:
         "none", "off", "false"}
 
 
-def make_relax_leaflet_tilts(spec: ProblemSpec) -> Callable:
-    """relax(state, topo, params, max_iters, step_size, tol) -> (state, TiltRelaxStats).
+@dataclasses.dataclass
+class _LeafletSetup:
+    """One leaflet relax call's set-up on one state: what stays fixed for the whole call.
 
-    ``max_iters`` is an int; ``step_size`` and ``tol`` are floats, taken in
-    the state's dtype as the JAX package takes its traced scalars.  The
-    options, as in the JAX package: ``tilt_cg_preconditioner`` none (CG
-    without the Jacobi preconditioner), ``tilt_cg_rejection_fallback`` gd
-    (a rejected CG direction is retried along steepest descent from the
-    full step), ``tilt_projection_cadence`` per_pass (one constraint refresh
-    after the loop in place of one after each accepted step; per_step
-    refreshes every ``tilt_projection_interval``-th accepted step),
-    ``tilt_axisym`` (:func:`axisym_tangents`) and ``inner_coupled_update_mode``
-    (:func:`make_inner_coupled_delta_cap` on the inner trial deltas).  Each
-    applies on the frozen program's path, the fused kernel's included, and
-    on the per-iteration one alike.
+    The closures are the single relax's; ``tan_data`` (normals, or normals,
+    radial units and masks under ``tilt_axisym``: :func:`_tangents`),
+    ``cap_data`` (:func:`delta_cap_data`), ``m_in`` / ``m_out`` and the
+    energy's frozen inputs (``fused``, ``e_frozen``) are the tensors the member
+    relax stacks over its members.
     """
+
+    tan_data: tuple
+    energy_pair: Callable
+    refresh_pair: Callable
+    projector: Callable
+    cap_data: tuple | None
+    m_in: torch.Tensor | None
+    m_out: torch.Tensor | None
+    fused: tuple | None
+    e_frozen: list | None
+    tin: torch.Tensor  # the constraint-enforced, tangent-projected start
+    tout: torch.Tensor
+
+
+def _leaflet_program(spec: ProblemSpec):
+    """The spec-level part of the leaflet relax: (options, setup(state, topo, params))."""
     compact_collector = make_compact_tilt_collector(spec)
     dense_rows_fn = make_tilt_constraint_rows(spec) if compact_collector is None else None
     frozen_prog = collect_frozen_tilt_program(spec)
     solver = spec.option("tilt_solver", "cg").lower()
-    use_precond = _uses_precond(spec, solver)
     cadence = spec.option("tilt_projection_cadence", "per_step").lower()
     if cadence not in {"per_step", "per_pass"}:
         raise ValueError("tilt_projection_cadence must be 'per_step' or 'per_pass'.")
-    cg_fallback_gd = spec.option("tilt_cg_rejection_fallback", "off").lower() == "gd"
+    opts = dict(
+        solver=solver,
+        use_precond=_uses_precond(spec, solver),
+        cadence=cadence,
+        cg_fallback_gd=spec.option("tilt_cg_rejection_fallback", "off").lower() == "gd",
+        frozen=frozen_prog is not None,
+        e_fns=None if frozen_prog is None else frozen_prog[1],
+    )
     axisym = spec.option("tilt_axisym", "off") == "on"
     delta_cap = (spec.option("inner_coupled_update_mode", "off").strip().lower()
                  == "rim_matched_radial_continuation_v1")
     if frozen_prog is None:
         tilt_energy = make_tilt_energy(spec)
         tilt_enforce = make_tilt_enforcer(spec)
+        opts["tilt_energy"] = tilt_energy
 
-    def relax(state: MeshState, topo: Topology, params: Dict, max_iters, step_size, tol):
+    def setup(state: MeshState, topo: Topology, params: Dict) -> _LeafletSetup:
         dtype = state.positions.dtype
-        np_dtype = np.float64 if dtype == torch.float64 else np.float32
         positions = state.positions
-        # the batched backtracks' candidate steps on the device, by step size (None: the
-        # sequential form)
-        tails = {} if batched_line_search(positions.device) else None
         geo = dgeo.triangle_geometry(positions, topo.tri_rows, topo.tri_valid)
         normals = dgeo.vertex_normals(geo, topo.tri_valid, topo.corner_csr())
         fixed_in = topo.tilt_fixed_in_mask[:, None]
         fixed_out = topo.tilt_fixed_out_mask[:, None]
 
-        if axisym:
-            tangent_in, tangent_out = axisym_tangents(positions, normals, topo, fixed_in,
-                                                      fixed_out)
-        else:
-            def tangent_in(t):
-                return t - torch.sum(t * normals, dim=1, keepdim=True) * normals
+        tan_data = (normals, *axisym_radial(positions, normals, topo)) if axisym else (normals,)
+        tangent_in, tangent_out = _tangents(tan_data, fixed_in, fixed_out)
 
-            tangent_out = tangent_in
-
-        fused = None
+        fused = e_frozen = None
         if frozen_prog is not None:
             e_pre, e_fns, c_pre, c_fns, e_names = frozen_prog
             e_frozen = [p(state, topo, params) for p in e_pre]
@@ -681,12 +726,7 @@ def make_relax_leaflet_tilts(spec: ProblemSpec) -> Callable:
         elif frozen_prog is not None:
 
             def energy_pair(t_in, t_out):
-                # one shared corner gather per leaflet feeds every module
-                ctx = {"tin_c": t_in[topo.tri_rows], "tout_c": t_out[topo.tri_rows]}
-                e = t_in.new_zeros(())
-                for fn, f in zip(e_fns, e_frozen):
-                    e = e + fn(t_in, t_out, f, topo, params, ctx)
-                return e
+                return frozen_energy(t_in, t_out, e_frozen, e_fns, topo, params)
 
         else:
 
@@ -716,7 +756,6 @@ def make_relax_leaflet_tilts(spec: ProblemSpec) -> Callable:
 
         # 1. enforce tilt constraints + tangent-project
         tin, tout = refresh_pair(state.tilts_in, state.tilts_out)
-        fixed_vals_in, fixed_vals_out = tin, tout
 
         # the constraint rows depend on positions only: factor once
         if compact_collector is not None:
@@ -724,8 +763,63 @@ def make_relax_leaflet_tilts(spec: ProblemSpec) -> Callable:
                 compact_collector(state, topo, params), positions.shape[0])
         else:
             projector = make_tilt_projector(dense_rows_fn(state, topo, params))
-        cap = (make_inner_coupled_delta_cap(positions, topo, params, topo.tilt_fixed_in_mask)
-               if delta_cap and "core:inner_coupled/center_xy" in topo.extras else None)
+        cap_data = None
+        if delta_cap and "core:inner_coupled/center_xy" in topo.extras:
+            cap_data = delta_cap_data(positions, topo, params, topo.tilt_fixed_in_mask)
+        m_in = m_out = None
+        if solver != "gd" and opts["use_precond"]:
+            m_in, m_out = jacobi_preconditioner(positions, topo, params)
+            m_in, m_out = m_in[:, None], m_out[:, None]
+        return _LeafletSetup(tan_data, energy_pair, refresh_pair, projector, cap_data, m_in, m_out,
+                             fused, e_frozen, tin, tout)
+
+    return opts, setup
+
+
+def frozen_energy(t_in, t_out, e_frozen, e_fns, topo, params):
+    """The frozen program's tilt energy, module by module (no fused kernel)."""
+    # one shared corner gather per leaflet feeds every module
+    ctx = {"tin_c": t_in[topo.tri_rows], "tout_c": t_out[topo.tri_rows]}
+    e = t_in.new_zeros(())
+    for fn, f in zip(e_fns, e_frozen):
+        e = e + fn(t_in, t_out, f, topo, params, ctx)
+    return e
+
+
+def make_relax_leaflet_tilts(spec: ProblemSpec) -> Callable:
+    """relax(state, topo, params, max_iters, step_size, tol) -> (state, TiltRelaxStats).
+
+    ``max_iters`` is an int; ``step_size`` and ``tol`` are floats, taken in
+    the state's dtype as the JAX package takes its traced scalars.  The
+    options, as in the JAX package: ``tilt_cg_preconditioner`` none (CG
+    without the Jacobi preconditioner), ``tilt_cg_rejection_fallback`` gd
+    (a rejected CG direction is retried along steepest descent from the
+    full step), ``tilt_projection_cadence`` per_pass (one constraint refresh
+    after the loop in place of one after each accepted step; per_step
+    refreshes every ``tilt_projection_interval``-th accepted step),
+    ``tilt_axisym`` (:func:`axisym_tangent`) and ``inner_coupled_update_mode``
+    (:func:`delta_cap_data` on the inner trial deltas).  Each
+    applies on the frozen program's path, the fused kernel's included, and
+    on the per-iteration one alike.
+    """
+    opts, setup = _leaflet_program(spec)
+    solver, cadence = opts["solver"], opts["cadence"]
+    use_precond, cg_fallback_gd = opts["use_precond"], opts["cg_fallback_gd"]
+
+    def relax(state: MeshState, topo: Topology, params: Dict, max_iters, step_size, tol):
+        dtype = state.positions.dtype
+        np_dtype = np.float64 if dtype == torch.float64 else np.float32
+        # the batched backtracks' candidate steps on the device, by step size (None: the
+        # sequential form)
+        tails = {} if batched_line_search(state.positions.device) else None
+        looped = sharded(topo)
+        fixed_in = topo.tilt_fixed_in_mask[:, None]
+        fixed_out = topo.tilt_fixed_out_mask[:, None]
+        s = setup(state, topo, params)
+        tangent_in, tangent_out = _tangents(s.tan_data, fixed_in, fixed_out)
+        energy_pair, projector, cap_data = s.energy_pair, s.projector, s.cap_data
+        tin, tout = s.tin, s.tout
+        fixed_vals_in, fixed_vals_out = tin, tout
 
         def eval_grads(t_in, t_out):
             """(E, gin, gout, gnorm) with the projected, fixed-row-zeroed gradients."""
@@ -734,10 +828,7 @@ def make_relax_leaflet_tilts(spec: ProblemSpec) -> Callable:
             with torch.enable_grad():
                 E = energy_pair(a, b)
                 gin, gout = torch.autograd.grad(E, (a, b))
-            gin, gout = projector(gin, gout)
-            gin = torch.where(fixed_in, 0.0, gin)
-            gout = torch.where(fixed_out, 0.0, gout)
-            gnorm = torch.sqrt(torch.sum(gin * gin) + torch.sum(gout * gout))
+            gin, gout, gnorm = _finish_grads(projector, gin, gout, fixed_in, fixed_out)
             return E.detach(), gin, gout, gnorm
 
         def backtrack(dir_in, dir_out, E0):
@@ -745,25 +836,24 @@ def make_relax_leaflet_tilts(spec: ProblemSpec) -> Callable:
 
             def trial_of(step):
                 delta_in = step * dir_in
-                if cap is not None:
-                    delta_in = cap(delta_in)
+                if cap_data is not None:
+                    delta_in = apply_delta_cap(delta_in, *cap_data)
                 trial_in = torch.where(fixed_in, fixed_vals_in, tangent_in(tin + delta_in))
                 trial_out = torch.where(fixed_out, fixed_vals_out,
                                         tangent_out(tout + step * dir_out))
                 return trial_in, trial_out
 
             accepted, trial, E1 = _backtrack(trial_of, lambda tr: energy_pair(*tr), step_size,
-                                             E0, np_dtype, tails, tin)
+                                             E0, np_dtype, tails, tin, looped)
             return (accepted, *(trial if accepted else (tin, tout)), E1)
 
         def refresh(new_in, new_out, nacc):
             """The per-step constraint refresh + tangent projection, at its interval."""
             if cadence == "per_step" and nacc % proj_interval == 0:
-                return refresh_pair(new_in, new_out)
+                return s.refresh_pair(new_in, new_out)
             return new_in, new_out
 
-        interval = params.get("tilt_projection_interval")
-        proj_interval = max(int(interval.item()) if interval is not None else 1, 1)
+        proj_interval = _projection_interval(params)
         tol_h = np_dtype(tol)
         nacc = 0
         rejected = False
@@ -784,9 +874,7 @@ def make_relax_leaflet_tilts(spec: ProblemSpec) -> Callable:
                 nacc += 1
                 tin, tout = refresh(new_in, new_out, nacc)
         else:
-            if use_precond:
-                m_in, m_out = jacobi_preconditioner(positions, topo, params)
-                m_in, m_out = m_in[:, None], m_out[:, None]
+            m_in, m_out = s.m_in, s.m_out
 
             def precondition(r_in, r_out):
                 return (r_in * m_in, r_out * m_out) if use_precond else (r_in, r_out)
@@ -796,7 +884,7 @@ def make_relax_leaflet_tilts(spec: ProblemSpec) -> Callable:
             r_in, r_out = -gin, -gout
             z_in, z_out = precondition(r_in, r_out)
             d_in, d_out = z_in, z_out
-            rz_old = torch.sum(r_in * z_in) + torch.sum(r_out * z_out)
+            rz_old = _rz(r_in, z_in, r_out, z_out)
             E0, gnorm, rz_old_h = _host(np_dtype, E0_t, gnorm_t, rz_old)
             E_first = E0
             best_in, best_out, best_E = tin, tout, E0
@@ -815,7 +903,7 @@ def make_relax_leaflet_tilts(spec: ProblemSpec) -> Callable:
                 E2_t, gin, gout, gnorm2_t = eval_grads(new_in, new_out)
                 r_in, r_out = -gin, -gout
                 z_in, z_out = precondition(r_in, r_out)
-                rz_new = torch.sum(r_in * z_in) + torch.sum(r_out * z_out)
+                rz_new = _rz(r_in, z_in, r_out, z_out)
                 E2, gnorm2, rz_new_h = _host(np_dtype, E2_t, gnorm2_t, rz_new)
                 tin, tout, E0, gnorm = new_in, new_out, E2, gnorm2
                 if E2 < best_E:
@@ -831,7 +919,7 @@ def make_relax_leaflet_tilts(spec: ProblemSpec) -> Callable:
                 tin, tout, E_last = best_in, best_out, best_E
         if cadence == "per_pass":
             # one refresh for the whole pass, unconditionally
-            tin, tout = refresh_pair(tin, tout)
+            tin, tout = s.refresh_pair(tin, tout)
 
         out_state = dataclasses.replace(state, tilts_in=tin, tilts_out=tout)
         stats = TiltRelaxStats(
@@ -846,6 +934,335 @@ def make_relax_leaflet_tilts(spec: ProblemSpec) -> Callable:
         return out_state, stats
 
     return relax
+
+
+def _projection_interval(params) -> int:
+    interval = params.get("tilt_projection_interval")
+    return max(int(interval.item()) if interval is not None else 1, 1)
+
+
+def _finish_grads(projector, gin, gout, fixed_in, fixed_out):
+    """(gin, gout, gnorm): the KKT projection, the fixed rows zeroed, the norm of both."""
+    gin, gout = projector(gin, gout)
+    gin = torch.where(fixed_in, 0.0, gin)
+    gout = torch.where(fixed_out, 0.0, gout)
+    gnorm = torch.sqrt(torch.sum(gin * gin) + torch.sum(gout * gout))
+    return gin, gout, gnorm
+
+
+def _rz(r_in, z_in, r_out, z_out):
+    return torch.sum(r_in * z_in) + torch.sum(r_out * z_out)
+
+
+def _stack_tree(trees: list) -> tuple:
+    """(stacked, in_dims) of per-member pytrees of one structure: each tensor leaf stacked on a
+    leading member axis (in_dim 0); any other leaf, equal across members, kept (in_dim None)."""
+    flat = [_pytree.tree_flatten(t) for t in trees]
+    spec = flat[0][1]
+    leaves, dims = [], []
+    for i, leaf in enumerate(flat[0][0]):
+        if isinstance(leaf, torch.Tensor):
+            leaves.append(torch.stack([f[0][i] for f in flat]))
+            dims.append(0)
+        else:
+            leaves.append(leaf)
+            dims.append(None)
+    return _pytree.tree_unflatten(leaves, spec), _pytree.tree_unflatten(dims, spec)
+
+
+def member_state(states: MeshState, m: int) -> MeshState:
+    """Member m of a member-axis state, each field its own contiguous copy (a single call's)."""
+    return MeshState(*(own(getattr(states, f.name)[m]) for f in dataclasses.fields(MeshState)))
+
+
+def make_relax_leaflet_tilts_members(spec: ProblemSpec) -> Callable:
+    """relax(states, topo, params, max_iters, step_size, tol) -> (states, [TiltRelaxStats] * B).
+
+    :func:`make_relax_leaflet_tilts` over B states on a leading member axis
+    ((B, N, 3) fields; the topology, the parameters and the scalars shared):
+    the JAX package's ``vmap`` of its relax, as its batched reduced-energy
+    line search runs it.  Member m gives the bits and the stats of the
+    single relax on member m, whatever each member's iteration count and
+    exit: each member keeps its own live, converged, rejected and
+    ``rz_old == 0`` decisions, as host masks.
+
+    The set-up is the single relax's, once per member (a Python loop:
+    frozen inputs, normals, tangent maps, the KKT tilt projector, the
+    Jacobi preconditioner, the delta cap), stacked where the iterations
+    batch them.  Each CG (or GD) iteration then evaluates every member's
+    energy and tilt gradient at once: at float32 on the fused path one
+    ``frozen_tilt_energy_members`` call (kernel 1's member launch, each
+    member its own g and payload) plus the per-module rest under
+    ``torch.func.vmap``; otherwise the frozen program, or the whole tilt
+    energy, under ``vmap`` (the member launches of the kernels it reaches).
+    The gradients come from autograd on the sum of the (B,) energies, so a
+    member's is its own backward times an exact 1.0.  The KKT projection,
+    the fixed rows, the gradient norm, the preconditioned residual and the
+    constraint refresh run per member on its own contiguous copies, in its
+    single call's order.  One host read per iteration takes the (B,)
+    energies, gradient norms and ``rz``.  The backtrack runs in rounds:
+    round k scores the k-th halving for every member in one evaluation and
+    one host read, and a member stops at its first accepted round, as its
+    sequential backtrack does.
+    """
+    opts, setup = _leaflet_program(spec)
+    solver, cadence = opts["solver"], opts["cadence"]
+    use_precond, cg_fallback_gd = opts["use_precond"], opts["cg_fallback_gd"]
+
+    def relax(states: MeshState, topo: Topology, params: Dict, max_iters, step_size, tol):
+        dtype = states.positions.dtype
+        np_dtype = np.float64 if dtype == torch.float64 else np.float32
+        dev = states.positions.device
+        B = states.positions.shape[0]
+        fixed_in = topo.tilt_fixed_in_mask[:, None]
+        fixed_out = topo.tilt_fixed_out_mask[:, None]
+        members = [member_state(states, m) for m in range(B)]
+        sets = [setup(st, topo, params) for st in members]
+        tin = torch.stack([s.tin for s in sets])
+        tout = torch.stack([s.tout for s in sets])
+        fixed_vals_in, fixed_vals_out = tin, tout
+        tangent_in, tangent_out = _tangents(
+            tuple(torch.stack(x) for x in zip(*(s.tan_data for s in sets))), fixed_in, fixed_out)
+
+        cap_data = None if sets[0].cap_data is None else _stack_tree(
+            [list(s.cap_data) for s in sets])[0]
+        energies = _member_energies(opts, sets, members, states, topo, params)
+
+        def on_device(mask):
+            return torch.as_tensor(mask, device=dev)
+
+        def eval_grads(t_in, t_out, live):
+            """((B,) E, gin, gout, (B,) gnorm): every member's energy and gradient at once,
+            projected per member where ``live``."""
+            a = t_in.detach().requires_grad_(True)
+            b = t_out.detach().requires_grad_(True)
+            with torch.enable_grad():
+                E = energies(a, b)
+                gin, gout = torch.autograd.grad(E.sum(), (a, b))
+            outs = [_finish_grads(sets[m].projector, own(gin[m]), own(gout[m]), fixed_in,
+                                  fixed_out) if live[m] else (gin[m], gout[m], gin.new_zeros(()))
+                    for m in range(B)]
+            gin, gout, gnorm = (torch.stack(x) for x in zip(*outs))
+            return E.detach(), gin, gout, gnorm
+
+        def host(*vectors):
+            """One host read of several (B,) device vectors, in the state's dtype."""
+            return [np.asarray(row, dtype=np_dtype) for row in torch.stack(vectors).tolist()]
+
+        def trial_of(step, dir_in, dir_out):
+            delta_in = step * dir_in
+            if cap_data is not None:
+                delta_in = torch.func.vmap(apply_delta_cap)(delta_in, *cap_data)
+            trial_in = torch.where(fixed_in, fixed_vals_in, tangent_in(tin + delta_in))
+            trial_out = torch.where(fixed_out, fixed_vals_out, tangent_out(tout + step * dir_out))
+            return trial_in, trial_out
+
+        def backtrack(search, dir_in, dir_out, E0):
+            """Per member in ``search``: (accepted, trial or (tin, tout), its energy or E0)."""
+            step = np_dtype(step_size)
+            accepted = np.zeros(B, dtype=bool)
+            E1 = E0.copy()
+            new_in, new_out = tin, tout
+            searching = search.copy()
+            for _bt in range(MAX_BACKTRACKS):
+                trial_in, trial_out = trial_of(float(step), dir_in, dir_out)
+                with torch.no_grad():
+                    (E_t,) = host(energies(trial_in, trial_out))
+                ok = searching & (E_t <= E0)
+                if ok.any():
+                    ok_t = on_device(ok)[:, None, None]
+                    new_in = torch.where(ok_t, trial_in, new_in)
+                    new_out = torch.where(ok_t, trial_out, new_out)
+                    E1 = np.where(ok, E_t, E1)
+                accepted |= ok
+                searching &= ~ok
+                step = step * np_dtype(0.5)
+                if step < STEP_FLOOR or not searching.any():
+                    break
+            return accepted, new_in, new_out, E1
+
+        def refresh_members(new_in, new_out, which):
+            """The constraint refresh + tangent projection of the members in ``which``."""
+            if not which.any():
+                return new_in, new_out
+            pairs = [sets[m].refresh_pair(own(new_in[m]), own(new_out[m])) if which[m]
+                     else (new_in[m], new_out[m]) for m in range(B)]
+            return torch.stack([p[0] for p in pairs]), torch.stack([p[1] for p in pairs])
+
+        proj_interval = _projection_interval(params)
+        tol_h = np_dtype(tol)
+
+        def converged(gnorm):
+            return (gnorm == 0.0) | ((tol_h > 0.0) & (gnorm < tol_h))
+
+        nacc = np.zeros(B, dtype=np.int64)
+        rejected = np.zeros(B, dtype=bool)
+        live = np.ones(B, dtype=bool)
+
+        def refresh(new_in, new_out, stepped):
+            if cadence != "per_step":
+                return new_in, new_out
+            return refresh_members(new_in, new_out, stepped & (nacc % proj_interval == 0))
+
+        if solver == "gd":
+            E_first = np.zeros(B, dtype=np_dtype)
+            E_last, gnorm = E_first.copy(), E_first.copy()
+            for _i in range(int(max_iters)):
+                if not live.any():
+                    break
+                E0_t, gin, gout, gnorm_t = eval_grads(tin, tout, live)
+                E0, gnorm_now = host(E0_t, gnorm_t)
+                gnorm = np.where(live, gnorm_now, gnorm)
+                done = live & converged(gnorm)
+                E_last = np.where(done, E0, E_last)
+                live &= ~done
+                if not live.any():
+                    break
+                accepted, new_in, new_out, E1 = backtrack(live, -gin, -gout, E0)
+                E_last = np.where(live, E1, E_last)
+                rejected |= live & ~accepted
+                live &= accepted
+                nacc += live
+                new_in, new_out = refresh(new_in, new_out, live)
+                live_t = on_device(live)[:, None, None]
+                tin = torch.where(live_t, new_in, tin)
+                tout = torch.where(live_t, new_out, tout)
+        else:
+            if use_precond:
+                m_in = torch.stack([s.m_in for s in sets])
+                m_out = torch.stack([s.m_out for s in sets])
+
+            def precondition(r_in, r_out):
+                return (r_in * m_in, r_out * m_out) if use_precond else (r_in, r_out)
+
+            def rz_of(r_in, z_in, r_out, z_out, which):
+                return torch.stack([_rz(own(r_in[m]), own(z_in[m]), own(r_out[m]),
+                                        own(z_out[m])) if which[m] else r_in.new_zeros(())
+                                    for m in range(B)])
+
+            monotone = dtype != torch.float64
+            E0_t, gin, gout, gnorm_t = eval_grads(tin, tout, live)
+            r_in, r_out = -gin, -gout
+            z_in, z_out = precondition(r_in, r_out)
+            d_in, d_out = z_in, z_out
+            rz_old = rz_of(r_in, z_in, r_out, z_out, live)
+            E0, gnorm, rz_old_h = host(E0_t, gnorm_t, rz_old)
+            E_first = E0.copy()
+            best_in, best_out, best_E = tin, tout, E0.copy()
+            for _i in range(int(max_iters)):
+                live &= ~converged(gnorm)
+                if not live.any():
+                    break
+                accepted, new_in, new_out, _E1 = backtrack(live, d_in, d_out, E0)
+                retry = live & ~accepted
+                if cg_fallback_gd and retry.any():
+                    # retry the rejected CG directions along steepest descent
+                    acc2, in2, out2, _E2 = backtrack(retry, -gin, -gout, E0)
+                    acc2_t = on_device(acc2)[:, None, None]
+                    new_in = torch.where(acc2_t, in2, new_in)
+                    new_out = torch.where(acc2_t, out2, new_out)
+                    accepted |= acc2
+                rejected |= live & ~accepted
+                live &= accepted
+                if not live.any():
+                    break
+                nacc += live
+                new_in, new_out = refresh(new_in, new_out, live)
+                E2_t, g2_in, g2_out, gnorm2_t = eval_grads(new_in, new_out, live)
+                r_in, r_out = -g2_in, -g2_out
+                z2_in, z2_out = precondition(r_in, r_out)
+                rz_new = rz_of(r_in, z2_in, r_out, z2_out, live)
+                E2, gnorm2, rz_new_h = host(E2_t, gnorm2_t, rz_new)
+                live_t = on_device(live)[:, None, None]
+                tin = torch.where(live_t, new_in, tin)
+                tout = torch.where(live_t, new_out, tout)
+                gin = torch.where(live_t, g2_in, gin)
+                gout = torch.where(live_t, g2_out, gout)
+                E0 = np.where(live, E2, E0)
+                gnorm = np.where(live, gnorm2, gnorm)
+                better = live & (E2 < best_E)
+                if better.any():
+                    better_t = on_device(better)[:, None, None]
+                    best_in = torch.where(better_t, new_in, best_in)
+                    best_out = torch.where(better_t, new_out, best_out)
+                    best_E = np.where(better, E2, best_E)
+                live &= ~(rz_old_h == 0.0)
+                if not live.any():
+                    break
+                beta = (rz_new / rz_old)[:, None, None]
+                go_t = on_device(live)[:, None, None]
+                d_in = torch.where(go_t, z2_in + beta * d_in, d_in)
+                d_out = torch.where(go_t, z2_out + beta * d_out, d_out)
+                rz_old = torch.where(go_t[:, 0, 0], rz_new, rz_old)
+                rz_old_h = np.where(live, rz_new_h, rz_old_h)
+            E_last = E0
+            if monotone:
+                # f32: revert to the best accepted state where the CG walked uphill
+                revert = best_E < E_last
+                if revert.any():
+                    revert_t = on_device(revert)[:, None, None]
+                    tin = torch.where(revert_t, best_in, tin)
+                    tout = torch.where(revert_t, best_out, tout)
+                    E_last = np.where(revert, best_E, E_last)
+        if cadence == "per_pass":
+            # one refresh for the whole pass, unconditionally
+            tin, tout = refresh_members(tin, tout, np.ones(B, dtype=bool))
+
+        out_states = dataclasses.replace(states, tilts_in=tin, tilts_out=tout)
+        stats = [TiltRelaxStats(accepted_steps=int(nacc[m]), rejected=bool(rejected[m]),
+                                initial_energy=float(E_first[m]), final_energy=float(E_last[m]),
+                                final_gradient_norm=float(gnorm[m])) for m in range(B)]
+        if RELAX_RECORD is not None:
+            RELAX_RECORD.extend(int(n) for n in nacc)
+        return out_states, stats
+
+    return relax
+
+
+def _member_energies(opts, sets, members, states, topo, params) -> Callable:
+    """energies(t_in, t_out) -> (B,): every member's tilt energy of (B, N, 3) tilt pairs on its
+    own frozen inputs, each member the bits of its single relax's ``energy_pair``.  On a
+    sharded topology (``parallel/tensor``: the corner CSR carries a shard plan) each member's
+    energy is its single relax's sharded call, one member after another."""
+    vmap = torch.func.vmap
+    if sharded(topo):
+        def energies(t_in, t_out):
+            return torch.stack([s.energy_pair(own(t_in[m]), own(t_out[m]))
+                                for m, s in enumerate(sets)])
+
+        return energies
+    if sets[0].fused is not None:
+        from membrane_solver_tpu_torch.kernels import frozen_tilt as ft
+
+        f0 = sets[0].fused[0]
+        g = torch.stack([s.fused[0].g for s in sets])
+        payload = torch.stack([s.fused[0].payload for s in sets])
+        rest = []
+        for j, (fn, _f) in enumerate(sets[0].fused[1]):
+            frozen, dims = _stack_tree([s.fused[1][j][1] for s in sets])
+            rest.append((vmap(lambda x, y, f, _fn=fn: _fn(x, y, f, topo, params),
+                              in_dims=(0, 0, dims)), frozen))
+
+        def energies(t_in, t_out):
+            e = ft.frozen_tilt_energy_members(t_in, t_out, f0.tri_rows, f0.csr, g, payload,
+                                              f0.k_vec, f0.ws)
+            for fn, frozen in rest:
+                e = e + fn(t_in, t_out, frozen)
+            return e
+
+        return energies
+    if opts["frozen"]:
+        e_fns = opts["e_fns"]
+        frozen, dims = _stack_tree([s.e_frozen for s in sets])
+        mapped = vmap(lambda x, y, f: frozen_energy(x, y, f, e_fns, topo, params),
+                      in_dims=(0, 0, dims))
+        return lambda t_in, t_out: mapped(t_in, t_out, frozen)
+    tilt_energy = opts["tilt_energy"]
+    mapped = vmap(lambda x, y, st: tilt_energy(
+        dataclasses.replace(st, tilts_in=x, tilts_out=y), topo, params))
+    stacked = MeshState(*(torch.stack([getattr(st, f.name) for st in members])
+                          for f in dataclasses.fields(MeshState)))
+    return lambda t_in, t_out: mapped(t_in, t_out, stacked)
 
 
 def make_relax_vertex_tilts(spec: ProblemSpec) -> Callable:
@@ -895,7 +1312,7 @@ def make_relax_vertex_tilts(spec: ProblemSpec) -> Callable:
                 return torch.where(fixed, fixed_vals, tangent(t + step * direction))
 
             accepted, trial, _E1 = _backtrack(trial_of, energy_of, step_size, E0, np_dtype,
-                                              tails, t)
+                                              tails, t, sharded(topo))
             return accepted, trial
 
         tol_h = np_dtype(tol)

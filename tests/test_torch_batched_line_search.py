@@ -17,7 +17,8 @@ through ``MEMBRANE_SOLVER_BATCHED_LS``:
 - both relaxes (kozlov L1 leaflet at float64 and float32, ``rect_tilt_source``
   single field), batched against sequential in bits;
 - the frozen-tilt entry point under ``torch.func.vmap`` over 1, 3 and 11
-  members against its single calls, in bits;
+  members against its single calls, in bits, and with a mapped tilt
+  gradient (mapped g and payload) against single calls;
 - kozlov L1 ``minimize(3)``, the vesicle at L2 through ``g3`` and the
   vertex-sharded block on two CPU shards under both forms: equal accept
   flags and one sha256 of positions, tilts and energies.
@@ -338,6 +339,9 @@ def test_frozen_tilt_vmap_equals_single_calls(members):
 
 
 def test_frozen_tilt_vmap_refuses_a_mapped_gradient():
+    """The member-axis launch refuses a mapped ``tri_rows`` (the rows are shared), and takes a
+    mapped tilt gradient with mapped g and payload: each member's energy and gradients the bits
+    of its single call."""
     from membrane_solver_tpu_torch.device.state import corner_csr
     from membrane_solver_tpu_torch.kernels import frozen_tilt as ft
 
@@ -345,8 +349,22 @@ def test_frozen_tilt_vmap_refuses_a_mapped_gradient():
     csr = corner_csr(rows, 4)
     t = torch.ones((2, 4, 3), requires_grad=True)
     with pytest.raises(NotImplementedError, match="member-axis"):
-        torch.func.vmap(lambda a: ft.frozen_tilt_energy(
-            a, a, rows, csr, torch.ones((2, 3, 3)), torch.ones((2, 20)), torch.ones(6)))(t)
+        torch.func.vmap(lambda a, r: ft.frozen_tilt_energy(
+            a, a, r, csr, torch.ones((2, 3, 3)), torch.ones((2, 20)), torch.ones(6)))(
+                t, torch.stack([rows, rows]))
+    rng = np.random.default_rng(5)
+    g, payload, k_vec, t_in, t_out = (
+        torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32)
+        for shape in ((2, 2, 3, 3), (2, 2, 20), (6,), (2, 4, 3), (2, 4, 3)))
+    a, b = t_in.clone().requires_grad_(True), t_out.clone().requires_grad_(True)
+    E = torch.func.vmap(lambda x, y, gg, pp: ft.frozen_tilt_energy(x, y, rows, csr, gg, pp,
+                                                                   k_vec))(a, b, g, payload)
+    gin, gout = torch.autograd.grad(E.sum(), (a, b))
+    for m in range(2):
+        x, y = t_in[m].clone().requires_grad_(True), t_out[m].clone().requires_grad_(True)
+        e = ft.frozen_tilt_energy(x, y, rows, csr, g[m].clone(), payload[m].clone(), k_vec)
+        hin, hout = torch.autograd.grad(e, (x, y))
+        assert torch.equal(E[m], e) and torch.equal(gin[m], hin) and torch.equal(gout[m], hout)
 
 
 @pytest.mark.cuda
