@@ -344,7 +344,9 @@ set ``MEMBRANE_SOLVER_BATCHED_LS`` to compare the two.
     minimizer): ``parallel.sweep.run_sweep`` with eight members
     (``sweep_members``: positions times 1 + 0.001 m, ``tilt_modulus_in``
     times 1 + 0.1 m, ``tilt_thetaB_value`` plus 0.01 m), five steps at
-    1e-3, no tilt relax, as the JAX sweep.  Per member the energies, the
+    1e-3, no tilt relax, as the JAX sweep; the member line search in the
+    card's batched form (phase 58 holds it to the sequential one), as in
+    every sweep phase.  Per member the energies, the
     gradient norm and the step size within rel 1e-8 of the fixture, its
     accept flags and iterations, the final positions' sketch (512 sampled
     rows and the norm) within 1e-8; each member equal in bits to a
@@ -531,6 +533,22 @@ set ``MEMBRANE_SOLVER_BATCHED_LS`` to compare the two.
     member's energy and vertex gradients the bits of a single launch, within
     rel 1e-6 (energy) and 5e-6 of max|g| (gradients) of its twin; its
     timing row at B = 9 waits for the quiet stage.
+58. the sweeps' member line search under both forms
+    (``phase_sweep_forms``), float64 then float32, from the problems of
+    phases 33-34 (``58 kozlov``, group 1: every member rejects every step,
+    so every batched search scores a tail of 9 rows a member), 36-37
+    (``58 vesicle``, group 2: members accept tail candidates) and 50-51
+    (``58 scaffold``, group 6: the ``trace_z`` fallback's second search):
+    the lane's sweep protocol under the sequential and then the batched
+    form (``sweep_form_run``, the counts set to 0 just before each and read
+    just after): every member's positions, tilts and stats but ``trials``
+    equal in bits, one sha256, that of the sweep phase's own main run; per
+    form the member surface-energy launches equal to the trial-energy maps
+    (``member_block.SEARCH_RECORD``); at most three host reads a batched
+    search; per form ms a step, host reads a block call, tail rows and
+    chunks, member launches and peak GiB allocated.  The forms' timing
+    (three steps each) waits for the quiet stage.  A ``[58 ...]`` line gives
+    their seconds.
 
 Every lane phase (4-9, 11-19, 21-24, 26-31) also checks determinism: from the state its
 protocol leaves (phases 4-7, 16-19, 21-24 and 26-31: the five steps; phases 8-9 and
@@ -541,7 +559,7 @@ a ``[... determinism]`` line prints both digests, and unequal digests fail
 the run.  A ``[phase seconds]`` line gives each phase's seconds, and the
 last line before the kernels line the whole run's.
 
-Phases 4-57 run in seven worker processes side by side (``GROUPS``, each
+Phases 4-58 run in seven worker processes side by side (``GROUPS``, each
 ``python3 chip_smoke.py --worker <i>``; a group holds every phase whose state
 a later phase of it reads), started once phase 3 has ended: the host drives
 every lane and leaves the card idle most of a step.  Each worker hands the
@@ -551,12 +569,12 @@ printed whole, group by group, once all have ended; the lines that read
 phases of several groups (the ``[16-17 ...]`` to ``[48-52 ...]`` lines, phase
 17's launch check) follow them.  The member rows' timing behind the kernels
 line (phases 34, 38, 56 and 57) and the sweeps' timing and busy-share lines (phases
-33-34, 36-37 and 39-40) wait for a quiet stage (:func:`quiet`): once every
+33-34, 36-37, 39-40 and 58) wait for a quiet stage (:func:`quiet`): once every
 worker has finished its lanes, each one times in turn while the others wait.
-Every other time that phases 4-57 print (ms per step, host seconds, a phase's
+Every other time that phases 4-58 print (ms per step, host seconds, a phase's
 seconds) is taken with the other workers running.
 
-Phases 4-9 and 11-57 each drive one path with every kernel launch counter
+Phases 4-9 and 11-58 each drive one path with every kernel launch counter
 set to 0 just before and read just after; a kernel of that path that was
 never launched fails the run (phases 33-34: the member-axis surface
 energy, both variants, curvature data and its backward, divergence and
@@ -566,7 +584,8 @@ the member-axis surface energy, both variants, curvature data and vertex
 sum; 41: per module, as above; 42-45 and 48-51: as 33-34, the trial energy only
 where a member scored a trial; 47: the divergence; 53: as 33-34, per placed run; 54: the
 surface energy's gradient variant, curvature data and its backward, divergence and vertex
-sum, on every shard; 55-57: per step, and the member launches of the batched form) (the
+sum, on every shard; 55-57: per step, and the member launches of the batched form; 58: per
+form, the member surface energy once per trial-energy map) (the
 frozen-tilt entry point, both variants,
 lies on the float32 kozlov paths with a frozen relax, phases 4, 15, 17, 19,
 22, 27 and 31; the surface energy, both variants, and the vertex sum on phases
@@ -577,7 +596,7 @@ paths 4-5, 15-19 and 21-32, and it and its tilt backward inside phase 20's
 splay-twist, phase 25's ``bending_tilt`` and phase 32's bending-tilt modes).
 
 The line before the last is a JSON object ``{"kernels": [...]}``: per entry
-point, its launches over phases 4-9 and 11-57, its largest error against its twin,
+point, its launches over phases 4-9 and 11-58, its largest error against its twin,
 and phase 3's device ms per call (``ms``), its twin's (``plain_ms``), the
 bound, and, for the vertex sum, ``index_add_``'s (``library_ms``); the
 member-axis entries' times are phase 34's at B = 8, float32, beside their
@@ -4223,6 +4242,7 @@ def drive_sweep(torch, counters, label: str, fixture: dict, dtype, problem, f64=
             raise AssertionError(f"{label}: {compiles} compile_state calls inside the sweep")
 
     return {"launches": launches, "stats": got, "sketches": sketches, "states": states,
+            "digest": digests[0],
             "accepted": accepted, "member_accepted": np.asarray(stats.accepted_steps),
             "start": positions, "params": params,
             "parts": parts, "run": run, "check": check,
@@ -4316,8 +4336,8 @@ def phase_sweep(torch, tk, vs, counters, label: str, fixture: dict, dtype, snap:
     out["check"]()
     res = {"launches": launches, "stats": out["stats"], "sketches": out["sketches"],
            "errs": errs, "timing": {}, "per_size": None, "busy_share": None,
-           # what phase 53 places on a device list and holds against
-           "problem": problem, "states": out["states"],
+           # what phases 53 and 58 place on a device list or rerun and hold against
+           "problem": problem, "states": out["states"], "digest": out["digest"],
            "members": (out["params"], out["start"])}
 
     def timing_lines():
@@ -4436,7 +4456,8 @@ def phase_vesicle_sweep(torch, counters, label: str, fixture: dict, dtype, snap:
         raise AssertionError(f"{label}: a member's volume is {vol_dev!r} off its target")
     return sweep_result(torch, label, out, SHAPE_SWEEP_SIZES, fixture["protocol"]["members"],
                         {"launches": launches, "stats": out["stats"],
-                         "sketches": out["sketches"]})
+                         "sketches": out["sketches"], "problem": problem,
+                         "digest": out["digest"]})
 
 
 def check_drift(torch, label: str, fixture: dict, problem, step_size: float) -> dict:
@@ -5429,7 +5450,8 @@ def phase_lane_sweep(torch, tk, vs, counters, label: str, fixture: dict, dtype, 
     if failed:
         raise AssertionError(f"{label}: " + "; ".join(failed))
     return {"launches": launches, "stats": out["stats"], "sketches": out["sketches"],
-            "fallbacks": out["fallbacks"].tolist(), "sweep_s": out["parts"]["sweep"]}
+            "fallbacks": out["fallbacks"].tolist(), "sweep_s": out["parts"]["sweep"],
+            "problem": problem, "digest": out["digest"]}
 
 
 def phase_viz_face_values(torch, tk, counters, label: str, mn) -> dict:
@@ -6343,6 +6365,131 @@ def phase_reduced_batched_ls(torch, ft, counters, label: str, dtype, base: dict)
     return res
 
 
+# ----------------------------------------------------------------------
+# phase 58: the sweeps' member line search under both forms
+# ----------------------------------------------------------------------
+# the stats the forms must give in bits (``trials`` counts as each single-problem form counts)
+FORM_STATS = ("energy", "accepted_energy", "grad_norm", "step_size", "step_success", "converged",
+              "terminated_early", "zero_step_counter", "iterations", "accepted_steps",
+              "trace_z_fallbacks")
+
+
+def sweep_form_run(torch, counters, problem, proto: dict, batched: bool, steps: int) -> dict:
+    """The lane's sweep protocol (its members, options and step size) for ``steps`` steps under
+    one member line-search form: states, stats, digest, seconds, launches (the counts set to 0
+    just before and read just after), the searches' record (``member_block.SEARCH_RECORD``)
+    and the run's peak GiB allocated."""
+    from membrane_solver_tpu_torch.parallel import member_block
+    from membrane_solver_tpu_torch.parallel.sweep import run_sweep
+    from membrane_solver_tpu_torch.runtime.jit_core import MinimizeOptions
+
+    params, positions = sweep_members(proto, problem.state.positions.detach().cpu().numpy(),
+                                      problem.params)
+    with line_search_form(batched):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(counters)
+        member_block.SEARCH_RECORD = []
+        t0 = time.perf_counter()
+        try:
+            states, _ss, stats = run_sweep(problem, params, steps, step_size=proto["step_size"],
+                                           options=MinimizeOptions(**sweep_options(proto)),
+                                           member_positions=positions)
+            torch.cuda.synchronize()
+        finally:
+            record, member_block.SEARCH_RECORD = member_block.SEARCH_RECORD, None
+        seconds = time.perf_counter() - t0
+    stats = {k: np.asarray(getattr(stats, k)) for k in FORM_STATS + ("trials",)}
+    return {"states": states, "stats": stats, "digest": sweep_digest(states, stats),
+            "seconds": seconds, "launches": read_counts(counters), "record": record,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def phase_sweep_forms(torch, counters, label: str, fixture: dict, dtype, base: dict) -> dict:
+    """The lane's sweep from the state its sweep phase ran (``base``: that phase's problem and
+    main-run digest, taken under the card's default, the batched form) under the sequential
+    and then the batched member line search (``sweep_form_run``).
+
+    Checks: every member's state fields and every stat but ``trials`` equal in
+    bits under both forms, one digest, that of the sweep phase's main run;
+    under each form the member surface-energy launches equal the trial-energy
+    maps its searches made; the batched form makes at most three host reads a
+    search; on the kozlov lane
+    (every member rejects every step) every batched search scores the tail, 9
+    rows a member.  Prints per form the ms a step, the host reads per block
+    call, the tail's rows and chunks, the maps, the launches and the peak GiB;
+    the forms' timing (``SWEEP_TIMED_STEPS`` steps each, one after the other)
+    waits for the quiet stage."""
+    proto = fixture["protocol"]
+    problem = base["problem"]
+    steps = proto["steps"]
+    B = proto["members"]
+    forms = {"sequential": sweep_form_run(torch, counters, problem, proto, False, steps),
+             "batched": sweep_form_run(torch, counters, problem, proto, True, steps)}
+    seq, bat = forms["sequential"], forms["batched"]
+
+    def raw(x):
+        return x.detach().cpu().numpy().tobytes() if hasattr(x, "detach") else x.tobytes()
+
+    unequal = [f for f in STATE_FIELDS
+               if raw(getattr(seq["states"], f)) != raw(getattr(bat["states"], f))]
+    unequal += [k for k in FORM_STATS if raw(seq["stats"][k]) != raw(bat["stats"][k])]
+    failed = []
+    for form, out in forms.items():
+        rec = out["record"]
+        maps = sum(r["maps"] for r in rec)
+        member_launches = {k: n for k, n in out["launches"].items()
+                           if k.endswith("_members") and n}
+        say(f"{label} {form}", members=B, steps=steps,
+            ms_per_step=f"{out['seconds'] * 1e3 / steps:.3f}",
+            searches=len(rec), host_reads_per_block_call=sum(r["reads"] for r in rec),
+            host_reads_per_search=json.dumps(sorted({r["reads"] for r in rec})),
+            tail_rows=sum(r["rows"] for r in rec),
+            tail_rows_per_search=json.dumps([r["rows"] for r in rec]),
+            tail_chunks=sum(r["chunks"] for r in rec), energy_maps=maps,
+            trials=json.dumps(out["stats"]["trials"].tolist()),
+            step_success=json.dumps(out["stats"]["step_success"].tolist()),
+            digest=out["digest"], peak_gib=f"{out['peak_gib']:.3f}",
+            member_launches=json.dumps(member_launches))
+        if out["launches"]["tri_kernels.surface_energy_members"] != maps:
+            failed.append(f"{form}: {out['launches']['tri_kernels.surface_energy_members']} "
+                          f"member surface-energy launches for {maps} trial-energy maps")
+        if {r["form"] for r in rec} != {form}:
+            failed.append(f"{form}: the searches took the forms {sorted({r['form'] for r in rec})}")
+    if any(r["reads"] > 3 for r in bat["record"]):
+        failed.append(f"batched searches with more than three host reads: {bat['record']}")
+    if base.get("tail_every_step") and not all(r["rows"] == 9 * B for r in bat["record"]):
+        failed.append(f"a batched search did not score every member's tail: {bat['record']}")
+    say(label, members=B, vertices=problem.n_vertices, steps=steps, equal=not unequal,
+        unequal=json.dumps(unequal), digest=bat["digest"], sweep_phase_digest=base["digest"],
+        equal_to_sweep_phase=bat["digest"] == base["digest"] == seq["digest"],
+        host_reads_per_block_call=json.dumps({f: sum(r["reads"] for r in o["record"])
+                                              for f, o in forms.items()}),
+        ms_per_step=json.dumps({f: o["seconds"] * 1e3 / steps for f, o in forms.items()}),
+        peak_gib=json.dumps({f: round(o["peak_gib"], 3) for f, o in forms.items()}),
+        card=repr(smi_line()))
+    if unequal:
+        failed.append(f"the forms differ in {unequal}")
+    if not bat["digest"] == base["digest"] == seq["digest"]:
+        failed.append(f"digests: sequential {seq['digest']}, batched {bat['digest']}, the sweep "
+                      f"phase's {base['digest']}")
+    if failed:
+        raise AssertionError(f"{label}: " + "; ".join(failed))
+    res = {"launches": bat["launches"], "ms": None}
+
+    def timing_lines():
+        ms = {}
+        for form, batched in (("sequential", False), ("batched", True)):
+            out = sweep_form_run(torch, counters, problem, proto, batched, SWEEP_TIMED_STEPS)
+            ms[form] = out["seconds"] * 1e3 / SWEEP_TIMED_STEPS
+        res["ms"] = ms
+        say(label + " timing", members=B, steps=SWEEP_TIMED_STEPS,
+            ms_per_step=json.dumps(ms), card=repr(smi_line()))
+
+    quiet(timing_lines)
+    return res
+
+
 def phase_console(torch, fixture: dict) -> None:
     """``python -m membrane_solver_tpu_torch`` on the card; the saved mesh re-evaluated at float64."""
     import tempfile
@@ -6396,17 +6543,17 @@ def kernels_line(kern: dict, runs: dict) -> list:
     return out
 
 
-# Phases 4-57 run in these groups, one worker process each, side by side: the
+# Phases 4-58 run in these groups, one worker process each, side by side: the
 # host drives every lane and leaves the card idle most of a step.  A group
 # holds every phase whose state a later phase of it reads; within a group the
 # phases run in the order of their numbers.
 GROUPS = (
-    ("4", "5", "15", "33", "34", "35", "53", "54"),
-    ("6", "7", "8", "9", "10", "20", "36", "37"),
+    ("4", "5", "15", "33", "34", "35", "53", "54", "58 kozlov"),
+    ("6", "7", "8", "9", "10", "20", "36", "37", "58 vesicle"),
     ("11", "12", "13", "14", "38", "39", "40", "41"),
     ("16", "17", "21", "22", "44", "45", "57"),
     ("23", "24", "25", "42", "43", "47", "55", "56"),
-    ("26", "27", "28", "29", "48", "49", "50", "51"),
+    ("26", "27", "28", "29", "48", "49", "50", "51", "58 scaffold"),
     ("18", "19", "30", "31", "32", "46", "52"),
 )
 # what a worker sends back of each phase's result
@@ -6473,7 +6620,7 @@ def phase_timer(torch, seconds: dict, peaks: dict):
 
 
 def drive_phases(torch, mods, fx, todo) -> tuple[dict, dict, dict, dict]:
-    """The phases of 4-57 named in ``todo``, in order, in this process: (runs, errs, seconds,
+    """The phases of 4-58 named in ``todo``, in order, in this process: (runs, errs, seconds,
     peak GiB).
 
     ``errs`` holds the largest errors of the tri-kernel checks on the lanes'
@@ -6730,6 +6877,19 @@ def drive_phases(torch, mods, fx, todo) -> tuple[dict, dict, dict, dict]:
         runs["rb32"] = timed("57 f32", phase_reduced_batched_ls, torch, ft, counters,
                              "57 kozlov_L3_reduced_batched_ls f32", torch.float32, runs["d32"])
         errs["ft_members_grad"] = runs["rb32"]["errs"]["ft_members_grad"]
+    # the sweeps' member line search under both forms, from the states phases 33-34, 36-37
+    # and 50-51 ran
+    for key, lane, name, fixture, sources in (
+            ("sf", "kozlov", "kozlov_L3_sweep", fx.sweep, ("w64", "w32")),
+            ("sv", "vesicle", "helfrich_cube_L5_sweep", fx.vesicle_sweep, ("h64", "h32")),
+            ("ss", "scaffold", "kozlov_L3_scaffold_sweep", fx.scaffold_sweep, ("sc64", "sc32"))):
+        if f"58 {lane}" not in todo:
+            continue
+        for dtype, src in zip((torch.float64, torch.float32), sources):
+            bits = str(dtype).removeprefix("torch.float")
+            base = dict(runs[src], tail_every_step=lane == "kozlov")
+            runs[key + bits] = timed(f"58 {lane} f{bits}", phase_sweep_forms, torch, counters,
+                                     f"58 {name}_forms f{bits}", fixture, dtype, base)
     return runs, errs, seconds, peaks
 
 
@@ -6886,6 +7046,10 @@ def summary_lines(fx, runs: dict, seconds: dict) -> None:
          ms_per_step=json.dumps({"55": runs["bl64"]["ms"], "56": runs["bl32"]["ms"]}))
     span("57", ("57 f64", "57 f32"),
          ms_per_step=json.dumps({"f64": runs["rb64"]["ms"], "f32": runs["rb32"]["ms"]}))
+    span("58", tuple(f"58 {lane} {d}" for lane in ("kozlov", "vesicle", "scaffold")
+                     for d in ("f64", "f32")),
+         ms_per_step=json.dumps({f"{key}{d}": runs[f"{key}{d}"]["ms"]
+                                 for key in ("sf", "sv", "ss") for d in ("64", "32")}))
 
 
 def main() -> int:
@@ -6908,7 +7072,7 @@ def main() -> int:
     kern = timed("3", lambda: phase_kernels(
         torch, mods, build_lane(torch, fx.kozlov["protocol"], torch.float64).problem(),
         build_lane(torch, fx.vesicle["protocol"], torch.float64).problem()))
-    # phases 4-57 in the workers, then the quiet stage: each worker's timing in turn
+    # phases 4-58 in the workers, then the quiet stage: each worker's timing in turn
     with Workers() as pool:
         t0 = time.perf_counter()
         pool.wait_ready()

@@ -46,9 +46,20 @@ loop runs while any member is active, and a member that has converged,
 terminated early or run its ``n_steps`` keeps its carry.  Each host
 decision the single-member block takes on a scalar reads a (B,) vector
 instead, once; the Armijo threshold arithmetic runs on the host in the
-state's dtype with the JAX package's operation order, per member.  Every
-line-search round scores all B members (one launch each) and keeps the
-results of those still searching.
+state's dtype with the JAX package's operation order, per member.
+
+The line search takes one of two forms, with the same bits, chosen per
+block call by ``utils/tuning.batched_line_search`` for the state's device.
+Sequential (the CPU's): each round scores one candidate of all B members
+(one launch each) and keeps the results of those still searching, one
+host read a round.  Batched (the card's; JAX's sweep on an accelerator,
+whose outer ``vmap`` puts the batched search's candidates inside the
+members): candidate 0 of all B members in one map, then candidates 1-9
+of the members that rejected candidate 0 as one flattened axis of
+9 x R rows, each row a (member, candidate) with its member's state and
+parameters: three host reads a search.  A row's bits are those of its
+member at that step size in the sequential round, since no member's
+arithmetic depends on the member count or its place on the axis.
 """
 
 from __future__ import annotations
@@ -78,6 +89,7 @@ from membrane_solver_tpu_torch.runtime.jit_core import (
     MinimizeStats,
     StepperState,
 )
+from membrane_solver_tpu_torch.utils.tuning import batched_line_search
 
 # the modules whose per-member code runs under ``vmap``: the kozlov lane's,
 # the shape family (with the reference's placeholders and the fixed-row
@@ -106,6 +118,15 @@ PENDING_CONSTRAINT: dict = {}
 # while a list: per block iteration of a ``trace_z`` lane, the (B,) host masks (live, fallback
 # viable, fallback search accepted)
 TRACE_Z_RECORD = None
+# while a list: per member line search, its form and what it did: host reads, trial-energy maps
+# ("maps"), the batched tail's rows and chunks
+SEARCH_RECORD = None
+# the batched search's tail: the bytes one chunk of rows may hold on the card (a sweep's
+# gradient already holds ~1 GiB a kozlov L3 member), and one row's peak while its energy is
+# scored, in words of the state's dtype per vertex and per triangle (30-51 measured on kozlov L3
+# and the vesicle L5 at float64)
+TAIL_CHUNK_BYTES = 6 * 2**30
+TAIL_ROW_WORDS = 64
 
 
 def check_batched_modules(spec: ProblemSpec) -> None:
@@ -260,14 +281,42 @@ class MemberLineSearch:
     extra: np.ndarray | None = None  # the (B,) ``extra`` vector, read with the first host read
 
 
-def member_line_search(energies, state_of_trial, states: MeshState, grad, direction, step_size,
-                       energy0, movable, topo, live, extra=None) -> MemberLineSearch:
+def trial_positions(positions, direction, movable, alpha: np.ndarray) -> torch.Tensor:
+    """Each row's trial positions at its step ``alpha`` (rows,), in the state's dtype."""
+    alpha_t = torch.as_tensor(alpha, device=positions.device)[:, None, None]
+    return torch.where(movable[None, :, None], positions + alpha_t * direction, positions)
+
+
+def _rotation_ok(positions, trial, topo) -> torch.Tensor:
+    """(rows,) True where no triangle normal of the row rotates past the limit
+    (``dgeo.check_normal_rotation``)."""
+    return vmap(dgeo.check_normal_rotation, in_dims=(0, 0, None, None, None))(
+        positions, trial, topo.tri_rows, topo.tri_valid, NORMAL_LIMIT_RADIANS)
+
+
+def tail_chunk_rows(topo, dtype) -> int:
+    """The rows the batched search's tail scores in one map: ``TAIL_CHUNK_BYTES`` over one row's
+    peak, ``TAIL_ROW_WORDS`` words of the state's dtype per vertex and per triangle."""
+    n = topo.fixed_mask.shape[0] + topo.tri_rows.shape[0]
+    row = TAIL_ROW_WORDS * n * torch.empty((), dtype=dtype).element_size()
+    return max(1, TAIL_CHUNK_BYTES // row)
+
+
+def member_line_search(energies, state_of_trial, states: MeshState, params: dict, grad,
+                       direction, step_size, energy0, movable, topo, live, extra=None,
+                       batched: bool = False) -> MemberLineSearch:
     """``jit_core.armijo_line_search`` for the members in ``live`` (B,), the others untouched.
 
-    One host read of (min edge, max |d|, g.d) for all members (and of the
-    (B,) tensor ``extra``, returned in the result), one per scoring round
-    of the trial energies, and one of the normal-rotation checks in a round
-    where some member steps beyond its safe limit.
+    ``state_of_trial(positions, states, params)`` maps the rows' trial
+    positions to their trial states and ``energies(states, params)`` scores
+    them, each mapped over the rows' leading axis.  One host read of (min
+    edge, max |d|, g.d) for all members (and of the (B,) tensor ``extra``,
+    returned in the result).  Sequential form: then one host read per
+    scoring round of the trial energies, and one of the normal-rotation
+    checks in a round where some member steps beyond its safe limit.
+    Batched form (``batched``): two more reads (:func:`_batched_search`).
+    Both forms give every member the same accept flag, step, energy and
+    state in bits; ``trials`` counts as the single-problem forms count.
     """
     np_dtype = jit_core._np_dtype(states.positions.dtype)
     positions = states.positions
@@ -284,42 +333,150 @@ def member_line_search(energies, state_of_trial, states: MeshState, grad, direct
     alpha0 = np.asarray(step_size, dtype=np_dtype)
     alpha_max = np_dtype(LS_ALPHA_MAX_FACTOR) * alpha0
     descent = slope < 0.0
-    alpha = alpha0.copy()
-    success = np.zeros_like(live)
-    acc_E = energy0.copy()
-    acc_state = states
-    trials = np.zeros(live.shape[0], dtype=np.int64)
     searching = live & descent
-    dev = positions.device
-    for _k in range(LS_MAX_ITER):
-        if not searching.any():
-            break
-        alpha_t = torch.as_tensor(alpha, device=dev)[:, None, None]
-        trial = torch.where(movable[None, :, None], positions + alpha_t * direction, positions)
-        normals_ok = (alpha * max_dir_norm) < safe_limit
-        if (searching & ~normals_ok).any():
-            rotation_ok = vmap(dgeo.check_normal_rotation, in_dims=(0, 0, None, None, None))(
-                positions, trial, topo.tri_rows, topo.tri_valid, NORMAL_LIMIT_RADIANS)
-            normals_ok = normals_ok | rotation_ok.cpu().numpy()
-        scored = searching & normals_ok
-        accept = np.zeros_like(live)
-        if scored.any():
-            trial_states = state_of_trial(trial)
-            E_t = energies(trial_states).cpu().numpy().astype(np_dtype)
-            trials += scored
-            accept = scored & (E_t <= energy0 + LS_C * alpha * slope)
-            acc_E = np.where(accept, E_t, acc_E)
-            acc_state = _select(torch.as_tensor(accept, device=dev), trial_states, acc_state)
-        success |= accept
-        rejected = searching & ~accept
-        alpha = np.where(rejected, alpha * np_dtype(LS_BETA), alpha).astype(np_dtype)
-        searching = rejected & ~(alpha < LS_ALPHA_FLOOR)
+    record = {"form": "batched" if batched else "sequential", "reads": 1, "maps": 0,
+              "rows": 0, "chunks": 0}
+    if batched:
+        success, alpha, acc_E, acc_state, trials = _batched_search(
+            energies, state_of_trial, states, params, direction, movable, topo, np_dtype,
+            alpha0, energy0, slope, max_dir_norm, safe_limit, searching, record)
+    else:
+        alpha = alpha0.copy()
+        success = np.zeros_like(live)
+        acc_E = energy0.copy()
+        acc_state = states
+        trials = np.zeros(live.shape[0], dtype=np.int64)
+        dev = positions.device
+        for _k in range(LS_MAX_ITER):
+            if not searching.any():
+                break
+            trial = trial_positions(positions, direction, movable, alpha)
+            normals_ok = (alpha * max_dir_norm) < safe_limit
+            if (searching & ~normals_ok).any():
+                normals_ok = normals_ok | _host(_rotation_ok(positions, trial, topo))[0]
+                record["reads"] += 1
+            scored = searching & normals_ok
+            accept = np.zeros_like(live)
+            if scored.any():
+                trial_states = state_of_trial(trial, states, params)
+                E_t = _host(energies(trial_states, params))[0].astype(np_dtype)
+                record["reads"] += 1
+                record["maps"] += 1
+                trials += scored
+                accept = scored & (E_t <= energy0 + LS_C * alpha * slope)
+                acc_E = np.where(accept, E_t, acc_E)
+                acc_state = _select(torch.as_tensor(accept, device=dev), trial_states, acc_state)
+            success |= accept
+            rejected = searching & ~accept
+            alpha = np.where(rejected, alpha * np_dtype(LS_BETA), alpha).astype(np_dtype)
+            searching = rejected & ~(alpha < LS_ALPHA_FLOOR)
+    if SEARCH_RECORD is not None:
+        SEARCH_RECORD.append(record)
     new_step = np.where(
         success, np.minimum(alpha * np_dtype(LS_GAMMA), alpha_max),
         np.where(descent, np.maximum(alpha * np_dtype(LS_BETA), alpha0 * np_dtype(LS_BETA)),
                  alpha0)).astype(np_dtype)
     return MemberLineSearch(success=success, new_step=new_step, energy=acc_E, state=acc_state,
                             trials=trials, extra=read[3] if extra is not None else None)
+
+
+def _members(states: MeshState, params: dict, rows: torch.Tensor) -> tuple:
+    """The states and parameters of the members ``rows`` (a device index vector), one row each."""
+    return (MeshState(*(getattr(states, f.name).index_select(0, rows)
+                        for f in dataclasses.fields(MeshState))),
+            {k: v.index_select(0, rows) for k, v in params.items()})
+
+
+def _batched_search(energies, state_of_trial, states, params, direction, movable, topo,
+                    np_dtype, alpha0, energy0, slope, max_dir_norm, safe_limit, searching,
+                    record) -> tuple:
+    """(success, carried alpha, energy, state, trials) of each member's sequential search, from
+    candidate 0 of all members and then candidates 1-9 of those that rejected it: JAX
+    ``jit_core.armijo_line_search``'s batched branch under the sweep's ``vmap``.
+
+    Per member the chain, ``reached`` and ``safe`` of ``jit_core._batched_search``.
+    Round 0 scores candidate 0 of all B members in the map the sequential
+    form uses, one host read of the energies and, where some searching
+    member steps beyond its safe limit, of the rotation checks.  The tail
+    scores the R members that rejected it on one axis of R x 9 rows (member
+    r's candidates 1-9 at rows 9r to 9r + 8, its state and parameters
+    gathered to each), in chunks of :func:`tail_chunk_rows` rows whose
+    energies (and rotation checks, where some row needs one) are joined on
+    the device: one host read.  Each member's first reached candidate that
+    is safe or keeps its normals, and passes the Armijo test, wins; the
+    winners' states are built again at their steps through the B-member
+    map.  A member that fails carries its last reached candidate's step
+    times beta.  ``trials``: 1 where candidate 0 wins, ``LS_MAX_ITER`` once
+    the tail is scored, 0 without descent, as the single batched search
+    counts.
+    """
+    positions = states.positions
+    dev = positions.device
+    B = positions.shape[0]
+    alphas, reached = jit_core.candidate_chain(alpha0, np_dtype)
+    safe = (alphas * max_dir_norm[:, None]) < safe_limit[:, None]
+    threshold = energy0[:, None] + LS_C * alphas * slope[:, None]
+    alpha = alpha0.copy()
+    acc_E = energy0.copy()
+    if not searching.any():
+        return np.zeros(B, dtype=bool), alpha, acc_E, states, np.zeros(B, dtype=np.int64)
+
+    trial = trial_positions(positions, direction, movable, alpha0)
+    trial_states = state_of_trial(trial, states, params)
+    E_t = energies(trial_states, params)
+    check = bool((searching & ~safe[:, 0]).any())
+    read = _host(E_t, *((_rotation_ok(positions, trial, topo),) if check else ()))
+    record["reads"] += 1
+    record["maps"] += 1
+    E0 = read[0].astype(np_dtype)
+    ok0 = safe[:, 0] | (read[1] != 0 if check else False)
+    success = searching & ok0 & (E0 <= threshold[:, 0])
+    acc_E = np.where(success, E0, acc_E)
+    acc_state = _select(torch.as_tensor(success, device=dev), trial_states, states)
+    trials = np.where(searching, 1, 0).astype(np.int64)
+    del trial, trial_states, E_t
+
+    tail = np.flatnonzero(searching & ~success)
+    if tail.size == 0:
+        return success, alpha, acc_E, acc_state, trials
+    K = LS_MAX_ITER - 1
+    rows = np.repeat(tail, K)
+    row_alpha = alphas[tail, 1:].reshape(-1)
+    check = bool((~safe[tail, 1:]).any())
+    chunk = tail_chunk_rows(topo, positions.dtype)
+    parts = []
+    for lo in range(0, rows.size, chunk):
+        idx = torch.as_tensor(rows[lo:lo + chunk], device=dev)
+        st, p = _members(states, params, idx)
+        d = direction.index_select(0, idx)
+        trial = trial_positions(st.positions, d, movable, row_alpha[lo:lo + chunk])
+        E = energies(state_of_trial(trial, st, p), p)
+        parts.append(torch.stack([E, _rotation_ok(st.positions, trial, topo).to(E.dtype)])
+                     if check else E[None])
+        record["maps"] += 1
+        record["chunks"] += 1
+    record["rows"] += int(rows.size)
+    out = torch.cat(parts, dim=1)
+    read = _host(*out.unbind(0))
+    record["reads"] += 1
+    E_tail = read[0].astype(np_dtype).reshape(tail.size, K)
+    ok = safe[tail, 1:] | (read[1].reshape(tail.size, K) != 0 if check else False)
+    passes = reached[tail, 1:] & ok & (E_tail <= threshold[tail, 1:])
+    won = passes.any(axis=1)
+    k_win = np.argmax(passes, axis=1)
+    trials[tail] = LS_MAX_ITER
+    winners, lost = tail[won], tail[~won]
+    success[winners] = True
+    alpha[winners] = alphas[winners, 1 + k_win[won]]
+    acc_E[winners] = E_tail[won, k_win[won]]
+    alpha[lost] = jit_core.failed_alpha(alphas[lost], reached[lost])
+    if winners.size:
+        rebuilt = state_of_trial(trial_positions(positions, direction, movable, alpha), states,
+                                 params)
+        tail_won = np.zeros(B, dtype=bool)
+        tail_won[winners] = True
+        acc_state = _select(torch.as_tensor(tail_won, device=dev), rebuilt, acc_state)
+    return success, alpha, acc_E, acc_state, trials
 
 
 def trace_z_direction(grad, trace_mask):
@@ -413,15 +570,17 @@ def member_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
         np_dtype = jit_core._np_dtype(states.positions.dtype)
         B = states.positions.shape[0]
         dev = states.positions.device
+        # the line search's form on this device (a placed group's own)
+        batched = batched_line_search(dev)
         movable = ~topo.fixed_mask
         prime_ordered_levels(spec, topo)
         n_steps, max_zero_steps = int(n_steps), int(max_zero_steps)
         fixed_step, tol = np_dtype(float(fixed_step)), float(tol)
         step_size_floor = float(step_size_floor)
 
-        def energies(st):
+        def energies(st, p):
             with torch.no_grad():
-                return vmap(lambda s, p: total(s, topo, p))(st, params)
+                return vmap(lambda s, q: total(s, topo, q))(st, p)
 
         def trial_member(s, p):
             if enforcer is not None:
@@ -429,14 +588,15 @@ def member_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
                 s = tilt_enforcer(s, topo, p)
             return jit_core.project_all_tilts(s, topo) if project_tilts else s
 
-        def state_of_trial(p):
-            """The trial states of trial positions (B, N, 3): enforced when the options say so,
-            the tilts re-projected when a module uses the single field."""
-            st = dataclasses.replace(states, positions=p)
+        def state_of_trial(x, st, p):
+            """The trial states of trial positions ``x`` (rows, N, 3) from the rows' states
+            ``st`` and parameters ``p``: enforced when the options say so, the tilts
+            re-projected when a module uses the single field."""
+            st = dataclasses.replace(st, positions=x)
             if enforcer is None and not project_tilts:
                 return st
             with torch.no_grad():
-                return vmap(trial_member)(st, params)
+                return vmap(trial_member)(st, p)
 
         step_size = np.asarray(torch.as_tensor(step_sizes).cpu(), dtype=np_dtype).reshape(B)
         zero_steps = np.asarray(torch.as_tensor(zero_counters).cpu(), dtype=np.int64).reshape(B)
@@ -472,16 +632,18 @@ def member_block(spec: ProblemSpec, options: MinimizeOptions) -> Callable:
                 fb_dir = dz_mean = None
                 if trace_mask is not None:
                     fb_dir, dz_mean = trace_z_direction(grad, trace_mask)
-                ls = member_line_search(energies, state_of_trial, states, grad, direction,
-                                        step_in, E, movable, topo, live, extra=dz_mean)
+                ls = member_line_search(energies, state_of_trial, states, params, grad,
+                                        direction, step_in, E, movable, topo, live,
+                                        extra=dz_mean, batched=batched)
                 if fb_dir is not None:
                     # the rejected-step fallback where the mean trace-z descent is positive
                     viable = live & ~ls.success & np.isfinite(ls.extra) & (ls.extra > 0)
                     taken = np.zeros(B, dtype=bool)
                     if viable.any():
                         fallbacks += viable
-                        fb = member_line_search(energies, state_of_trial, states, grad, fb_dir,
-                                                step_in, E, movable, topo, viable)
+                        fb = member_line_search(energies, state_of_trial, states, params,
+                                                grad, fb_dir, step_in, E, movable, topo, viable,
+                                                batched=batched)
                         taken = viable & fb.success
                         ls = take_fallback(ls, fb, viable)
                     if TRACE_Z_RECORD is not None:

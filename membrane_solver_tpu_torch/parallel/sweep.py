@@ -36,6 +36,9 @@ gets the bits of a one-member sweep of that member, as in an unplaced
 sweep of any member count (``parallel/member_block``), so placing the
 members on a device list changes no bit of them on one kind of device;
 a group on the CPU runs the kernels' plain twins, another arithmetic.
+Each group's block takes the line-search form of its own device
+(``utils/tuning.batched_line_search``): batched on a card, sequential on
+the CPU, with the same bits.
 """
 
 from __future__ import annotations

@@ -720,11 +720,8 @@ def _batched_search(energy_of_state, state, direction, movable, topo, state_of_t
     """
     if not descent:
         return False, alpha0, energy0, state, 0
-    alphas = [alpha0]
-    for _ in range(LS_MAX_ITER - 1):
-        alphas.append(alphas[-1] * np_dtype(LS_BETA))
-    reached = [True] + [a >= LS_ALPHA_FLOOR for a in alphas[1:]]
-    safe = [(a * max_dir_norm) < safe_limit for a in alphas]
+    alphas, reached = candidate_chain(alpha0, np_dtype)
+    safe = (alphas * max_dir_norm) < safe_limit
 
     trial = trial_of(alpha0)
     st = state_of_trial(trial)
@@ -769,8 +766,34 @@ def _batched_search(energy_of_state, state, direction, movable, topo, state_of_t
         ok_k = safe[k] or ok_k != 0.0
         if reached[k] and ok_k and np_dtype(E_k) <= energy0 + LS_C * alphas[k] * slope:
             return True, alphas[k], np_dtype(E_k), state_of_trial(trial_of(alphas[k])), trials
-    k_last = sum(reached) - 1
-    return False, alphas[k_last] * np_dtype(LS_BETA), energy0, state, trials
+    return False, failed_alpha(alphas, reached), energy0, state, trials
+
+
+def candidate_chain(alpha0, np_dtype) -> tuple[np.ndarray, np.ndarray]:
+    """(alphas, reached) of the backtracking chain from ``alpha0`` (a scalar or an array).
+
+    ``alphas[..., k]`` is candidate k's step, the sequential loop's multiply
+    by ``LS_BETA`` in the state's dtype (numpy's vector multiply gives the
+    scalar chain's bits); ``reached[..., k]`` says whether the sequential
+    loop reaches candidate k (candidate 0 always; candidate k > 0 where its
+    step is at least ``LS_ALPHA_FLOOR``).
+    """
+    a0 = np.asarray(alpha0, dtype=np_dtype)
+    alphas = np.empty(a0.shape + (LS_MAX_ITER,), dtype=np_dtype)
+    alphas[..., 0] = a0
+    for k in range(1, LS_MAX_ITER):
+        alphas[..., k] = alphas[..., k - 1] * np_dtype(LS_BETA)
+    reached = alphas >= LS_ALPHA_FLOOR
+    reached[..., 0] = True
+    return alphas, reached
+
+
+def failed_alpha(alphas: np.ndarray, reached: np.ndarray):
+    """The step a failed search carries: the last reached candidate's times ``LS_BETA`` (JAX's
+    ``k_last``), as the sequential loop leaves it."""
+    k_last = np.sum(reached, axis=-1, keepdims=True) - 1
+    last = np.take_along_axis(alphas, k_last, axis=-1)[..., 0]
+    return last * alphas.dtype.type(LS_BETA)
 
 
 # ----------------------------------------------------------------------
@@ -890,6 +913,12 @@ def stepper_update_on_success(
 # ----------------------------------------------------------------------
 @dataclasses.dataclass
 class MinimizeStats:
+    """What a minimize block did.  ``trials`` counts the trial states a line search scored as
+    its form scores them: the sequential form counts each candidate it scores, the batched
+    form 1 where candidate 0 wins, ``LS_MAX_ITER`` once its tail is scored and 0 without a
+    descent direction (the member block counts the same per member).  Every other field is
+    the same in both forms."""
+
     iterations: int
     energy: float  # last assembled energy (pre-step of the final iteration)
     accepted_energy: float

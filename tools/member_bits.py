@@ -15,11 +15,15 @@ inputs and outputs (an exact integer sum of their bits), keyed by the
 call's frames inside the package and its occurrence.  A call whose
 inputs are member m's bits in both runs and whose output is not is a
 source: it adds in an order that depends on the member count.  Each
-source is printed once, with its frames.
+source is printed once, with its frames.  It holds each call's member rows
+against the one-member run's: the batched line search's tail rows are
+(member, candidate) pairs, so its calls take no part under that form.
 
 ``--audit`` lists, by call site, the reductions, products and solves the
 member path calls on member-batched operands (inside ``torch.func.vmap``,
-or the block's own (B, ...) arrays), with the extent each one reduces.
+or the block's own (B, ...) arrays), with the extent each one reduces and
+the widths of the member axes it saw (B; under the batched line search
+also the tail's 9 x R rows, ``MEMBRANE_SOLVER_BATCHED_LS=1`` on the CPU).
 
 Usage::
 
@@ -152,6 +156,7 @@ class Recorder:
         self.keys, self.parts, self.fps = [], [], []
         self.occurrence = collections.Counter()
         self.ordered = collections.Counter()
+        self.widths = collections.defaultdict(set)
 
         class Mode(TorchFunctionMode):
             def __torch_function__(self, func, types, args=(), kwargs=None):
@@ -188,7 +193,10 @@ class Recorder:
                 "accumulate", len(args) > 3 and bool(args[3])):
             name += "(overwrite)"
         if self.audit and name in ORDERED:
-            self.ordered[(site[0], name, _extent(name, args, kwargs))] += 1
+            key = (site[0], name, _extent(name, args, kwargs))
+            self.ordered[key] += 1
+            rows = (_member_rows(t, self.B, top) for t in batched)
+            self.widths[key].update(int(r.shape[0]) for r in rows if not isinstance(r, str))
         if self.trace:
             key = (site, name)
             self.occurrence[key] += 1
@@ -372,6 +380,7 @@ def main() -> int:
         _build.build(*(m.KERNEL for m in cs.kernel_modules()))  # one nvcc per source
     failed = False
     audit = collections.Counter()
+    widths = collections.defaultdict(set)
     for lane in args.lane:
         for name in args.dtype:
             dtype = getattr(torch, name)
@@ -386,6 +395,8 @@ def main() -> int:
             got = run(cs, torch, problem, proto, range(B), rec)
             if rec is not None:
                 audit.update(rec.ordered)
+                for key, seen in rec.widths.items():
+                    widths[key] |= seen
             diffs = {}
             for m in range(B):
                 one = run(cs, torch, problem, proto, [m])
@@ -413,7 +424,8 @@ def main() -> int:
                                       "frames": list(site[:6])}), flush=True)
     if args.audit:
         for (site, fname, extent), n in sorted(audit.items()):
-            print(json.dumps({"audit": site, "call": fname, "extent": extent, "calls": n}))
+            print(json.dumps({"audit": site, "call": fname, "extent": extent, "calls": n,
+                              "widths": sorted(widths[(site, fname, extent)])}))
     return 1 if failed else 0
 
 
