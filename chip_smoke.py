@@ -23,10 +23,12 @@ set ``MEMBRANE_SOLVER_BATCHED_LS`` to compare the two.
    - the vertex-sum kernel against its twin, equal bits (the same
      additions in the same order; ``check_vertex_sum``): float32 and
      float64, widths 1 and 3 and the weighted form on the kozlov L3 corner
-     CSR, the dual-source forms inside the frozen-tilt gradient and the
-     curvature data, the member entry at B = 1, 3 and 8 (member m the bits
-     of a single launch), and a skewed slot CSR with rows at the kernel's
-     chunk edges, one of 131 slots and one of a single -0.0;
+     CSR, the paired form inside the frozen-tilt gradient (and a member
+     call's in-tile sums equal to it), the
+     dual-source form inside the curvature data, the member entry at B =
+     1, 3 and 8 (member m the bits of a single launch), and a skewed slot
+     CSR with rows at the kernel's chunk edges, one of 131 slots and one
+     of a single -0.0;
    - the per-triangle kernels (surface, curvature forward and backward with
      per-triangle outputs), float32 and float64, on seeded
      triangles (T = 301) and on the vesicle lane's own triangles (its start
@@ -514,9 +516,14 @@ set ``MEMBRANE_SOLVER_BATCHED_LS`` to compare the two.
     must not.  The line also prints the reduced-energy search's form
     (``jit_core.REDUCED_LS_FORM``: batched on the card).  At float32 then
     ``frozen_tilt_members`` on the relax's own fused inputs at this state
-    and seeded tilts, at B = 1, 3 and 11: each member the bits of a single
-    launch and of the entry point under ``torch.func.vmap``, and within rel
-    1e-6 of its twin; its timing row at B = 11 waits for the quiet stage.
+    and seeded tilts, at B = 1, 2, 3, 4, 5, 9, 11 and 17 (``ft_member_counts``:
+    the block's group M = 4 less one, M and M + 1, a partial last group
+    included): the shared energy launch the bits of the entry point under
+    ``torch.func.vmap``; then g and the payload shared and per member, the
+    energy alone and with the gradient, on the lane's inputs and at
+    T = 301 (``check_member_launch``): each member the bits of a single
+    launch, within rel 1e-6 (energy) and 5e-6 of max|g| (gradients) of its
+    twin; its timing row at B = 11 waits for the quiet stage.
     A ``[55-56 ...]`` line gives their seconds.
 57. ``kozlov_L3_reduced_batched_ls`` (``phase_reduced_batched_ls``, group 4),
     float64 then float32: the reduced-energy line search's batched form
@@ -528,11 +535,14 @@ set ``MEMBRANE_SOLVER_BATCHED_LS`` to compare the two.
     trials, the host syncs and the member launches, which the batched form
     must make (at float32 kernel 1's member launches, energy and gradient)
     and the sequential form must not.  At float32 then ``frozen_tilt_members``
-    with the gradient on the member relax's own per-member g and payload
-    (taken from one batched step) and seeded tilts, at B = 1, 3 and 9: each
+    on the member relax's own per-member g and payload (taken from one
+    batched step, member m taking relax member m mod 9) and seeded tilts,
+    with ``check_member_launch`` at phase 56's member counts, shared and per
+    member, energy and gradient, on these inputs and at T = 301: each
     member's energy and vertex gradients the bits of a single launch, within
     rel 1e-6 (energy) and 5e-6 of max|g| (gradients) of its twin; its
-    timing row at B = 9 waits for the quiet stage.
+    timing rows at B = 9 (the gradient and the per-member energy launch)
+    wait for the quiet stage.
 58. the sweeps' member line search under both forms
     (``phase_sweep_forms``), float64 then float32, from the problems of
     phases 33-34 (``58 kozlov``, group 1: every member rejects every step,
@@ -1252,9 +1262,11 @@ def check_vertex_sum(torch, mods, kozlov) -> dict:
     """The vertex-sum kernel against its twin, equal bits in every launch form.
 
     On the kozlov L3 corner CSR: float32 and float64, widths 1 and 3, and
-    the weighted form with a mask (``tri_p1_div_bwd``); the dual-source
-    form inside ``frozen_tilt_energy_grad``, whose vertex rows must be the
-    twin's sum of its two scratch slabs; the member entry at B = 1, 3 and
+    the weighted form with a mask (``tri_p1_div_bwd``); the paired form
+    inside ``frozen_tilt_energy_grad``, whose vertex rows must be the twin's
+    sum of the scratch's two halves, and a one-member call's rows (each
+    tile's interior vertices summed in the triangle pass) those bits; the
+    member entry at B = 1, 3 and
     8, member m the bits of a single launch on member m.  On a skewed slot
     CSR (``skewed_slot_case``: degrees at the kernel's chunk edges, a row
     of 131 slots, a -0.0 row): widths 1 and 3, both dtypes, weighted, three
@@ -1298,12 +1310,17 @@ def check_vertex_sum(torch, mods, kozlov) -> dict:
         mask = valid & (torch.rand(T, device=DEVICE, generator=gen) < 0.8)
         expect(f"L3 {d} weighted", tk.launch_p1_div_bwd(g, mask, w, csr),
                tk.p1_div_vjp_reference(g, mask, w, csr))
-    # the dual-source form inside the frozen-tilt gradient: both leaflets' rows
+    # the paired form inside the frozen-tilt gradient: both leaflets' rows; a member call's
+    # tiles sum their interior vertices in the triangle pass, to the same bits
     t_in, t_out, g, pay, k = _ft_inputs(torch, rows, nv, 37)
     ws = ft.Workspace(T, DEVICE)
     _e, gin, gout = ft.launch(t_in, t_out, rows, csr, g, pay, k, ws, grad=True)
-    expect("L3 frozen_tilt_energy_grad t_in", gin, vs.reference(ws.din_c, csr))
-    expect("L3 frozen_tilt_energy_grad t_out", gout, vs.reference(ws.dout_c, csr))
+    expect("L3 frozen_tilt_energy_grad t_in", gin, vs.reference(ws.corners[..., 0:3], csr))
+    expect("L3 frozen_tilt_energy_grad t_out", gout, vs.reference(ws.corners[..., 3:6], csr))
+    _e, tile_in, tile_out = ft.launch_members(t_in[None], t_out[None], rows, csr, g, pay, k, ws,
+                                              grad=True)
+    expect("L3 frozen_tilt_energy_grad t_in tile sums", tile_in[0], gin)
+    expect("L3 frozen_tilt_energy_grad t_out tile sums", tile_out[0], gout)
     for B in (1, 3, 8):
         members("L3 float32 width 3", seeded((B, T, 3, 3), torch.float32), csr)
     members("L3 float64 width 1", seeded((3, T, 3), torch.float64), csr)
@@ -4003,8 +4020,44 @@ def check_member_kernels(torch, tk, vs, topo, pos, tilts, seed: int) -> dict:
     return errs
 
 
-def member_rows(torch, tk, vs, topo, pos, tilts) -> list:
-    """(name, kind, fn, inputs, flops) of the member-axis kernels, their twins and a library call."""
+def scaled_members(torch, x, B: int):
+    """(B,) + x.shape: member m is ``x`` scaled by 1 + 0.01 m (per-member frozen inputs)."""
+    return torch.stack([x * (1 + 0.01 * m) for m in range(B)]).contiguous()
+
+
+def ft_member_rows(torch, ft, topo, n_vertices: int) -> list:
+    """(name, kind, fn, inputs, flops) of kernel 1's member launch and its twin, float32, on
+    ``topo``'s triangles with seeded inputs (``_ft_inputs``; member m's tilts plus 0.01 m, its
+    g and payload scaled by 1 + 0.01 m): g and the payload shared at B = 11 (the relax's
+    backtrack candidates), one per member at B = 9 (the member relax), the energy alone and
+    with both vertex gradients (whose bytes count the corner CSR, the vertex sum's input)."""
+    rows, csr = topo.tri_rows, topo.corner_csr()
+    T = rows.shape[0]
+    t_in, t_out, g, pay, k = _ft_inputs(torch, rows, n_vertices, 13)
+    ws = ft.Workspace(T, rows.device)
+    F = FLOPS_PER_TRI
+    out = []
+    for name, B, shared, grad in (("frozen_tilt_members", FT_MEMBER_TIMED, True, False),
+                                  ("frozen_tilt_members_per_member", FT_GRAD_MEMBER_TIMED,
+                                   False, False),
+                                  ("frozen_tilt_members_grad", FT_GRAD_MEMBER_TIMED, False, True)):
+        a, b = (torch.stack([x + 0.01 * m for m in range(B)]).contiguous() for x in (t_in, t_out))
+        gm = g if shared else scaled_members(torch, g, B)
+        pm = pay if shared else scaled_members(torch, pay, B)
+        inputs = (a, b, rows, gm, pm, k) + ((csr.offsets, csr.slots) if grad else ())
+        flops = (F["frozen_tilt_energy"] + (F["frozen_tilt_grad"] if grad else 0)) * T * B
+        out += [
+            (name, "kernel", lambda a=a, b=b, gm=gm, pm=pm, grad=grad: ft.launch_members(
+                a, b, rows, csr, gm, pm, k, ws, grad=grad), inputs, flops),
+            (name, "twin", lambda a=a, b=b, gm=gm, pm=pm, grad=grad: ft.reference_members(
+                a, b, rows, csr, gm, pm, k, grad=grad), inputs, flops),
+        ]
+    return out
+
+
+def member_rows(torch, tk, vs, topo, pos, tilts, ft=None) -> list:
+    """(name, kind, fn, inputs, flops) of the member-axis kernels, their twins and a library call;
+    with ``ft`` also kernel 1's member rows (``ft_member_rows``)."""
     dtype = pos.dtype
     B, n = pos.shape[0], pos.shape[1]
     rows, v, csr = topo.tri_rows, topo.tri_valid, topo.corner_csr()
@@ -4055,7 +4108,7 @@ def member_rows(torch, tk, vs, topo, pos, tilts) -> list:
         ("vertex_sum_members", "twin", lambda: vs.members_reference(corners, csr),
          (corners, csr.offsets, csr.slots), 3 * 3 * T * B),
         ("vertex_sum_members", "library", library_sum, (corners, flat_rows), 3 * 3 * T * B),
-    ]
+    ] + ([] if ft is None else ft_member_rows(torch, ft, topo, n))
 
 
 def measure_members(torch, rows: list, dtype_name: str) -> dict:
@@ -6037,8 +6090,8 @@ def phase_tensor_parallel(torch, counters, label: str, fixture: dict, dtype, sna
 # ----------------------------------------------------------------------
 BATCHED_ENV = "MEMBRANE_SOLVER_BATCHED_LS"
 BATCHED_STEPS = 3  # phases 55-56: timed steps per form, after WARMUP_STEPS warm-up steps
-FT_MEMBERS = (1, 3, 11)  # phase 56: frozen_tilt_members against single launches and its twin
 FT_MEMBER_TIMED = 11  # phase 56's timing row: the relax's eleven tail candidates
+FT_ODD_T = 301  # phases 56-57: a member's (T, 3, 3) slab off a 16-byte boundary
 # member launches the batched form must make on the lane (the Armijo tail's trial energies;
 # at float32 also the relax's tail candidates through kernel 1)
 BATCHED_EXPECT = {"float64": ("tri_kernels.surface_energy_members",
@@ -6104,11 +6157,85 @@ def bench_form_steps(torch, counters, mn, snap: dict, batched: bool,
             "flags": [r["accepted"] for r in rows], "launches": dict(launches)}
 
 
+def ft_member_counts(ft) -> tuple:
+    """Phases 56-57's member counts: 1, 2, 3, the block's group M (``MAX_GROUP``) less one, M and
+    M + 1 (a partial last group), the relaxes' 9 and 11, and 17."""
+    M = ft.MAX_GROUP
+    return tuple(sorted({1, 2, 3, M - 1, M, M + 1, 9, 11, 17} - {0}))
+
+
+def check_member_launch(torch, ft, rows, csr, ws, k, tilts_of, g_of, pay_of) -> tuple[list, dict]:
+    """``frozen_tilt_members`` at each of ``ft_member_counts``, with g and the payload shared
+    (member 0's) and one per member, the energy alone and with both vertex gradients: each
+    member the bits of a single ``frozen_tilt_vertex`` launch on it, and within the frozen-tilt
+    bounds of the twin (energy rel ``ENERGY_RTOL``, gradients ``GRAD_RTOL`` of max|g|).
+    ``tilts_of(B)``, ``g_of(B)`` and ``pay_of(B)`` give the (B, N, 3) tilt pairs and the (B, T,
+    3, 3) and (B, T, 20) per-member g and payload.  Returns the cases and the largest errors
+    (``ft_members``: energy launches; ``ft_members_grad``: gradient launches)."""
+    T = rows.shape[0]
+    cases, errs = [], {"ft_members": 0.0, "ft_members_grad": 0.0}
+    for B in ft_member_counts(ft):
+        t_in, t_out = tilts_of(B)
+        g_all, pay_all = g_of(B), pay_of(B)
+        for shared in (True, False):
+            g = g_all[0].contiguous() if shared else g_all
+            pay = pay_all[0].contiguous() if shared else pay_all
+            for grad in (False, True):
+                what = (f"frozen_tilt_members T={T} B={B} {'shared' if shared else 'per-member'} "
+                        f"{'gradient' if grad else 'energy'}")
+                e, gin, gout = ft.launch_members(t_in, t_out, rows, csr, g, pay, k, ws, grad=grad)
+                for m in range(B):
+                    one = ft.launch(t_in[m].clone(), t_out[m].clone(), rows, csr,
+                                    g if shared else g[m].clone(),
+                                    pay if shared else pay[m].clone(), k, ws, grad=grad)
+                    if not (same_bits(torch, e[m:m + 1], one[0]) and (not grad or (
+                            same_bits(torch, gin[m], one[1])
+                            and same_bits(torch, gout[m], one[2])))):
+                        raise AssertionError(f"{what}: member {m} is not the bits of its single "
+                                             "launch")
+                te, t_gin, t_gout = ft.reference_members(t_in, t_out, rows, csr, g, pay, k,
+                                                         grad=grad)
+                e_err = float(torch.max(torch.abs(e.double() - te.double())))
+                e_scale = float(torch.max(torch.abs(te.double())))
+                if not (math.isfinite(e_err) and e_err <= ENERGY_RTOL * e_scale):
+                    raise AssertionError(f"{what}: energy {e_err!r} from its twin (bound "
+                                         f"{ENERGY_RTOL} x {e_scale!r})")
+                g_err = g_scale = 0.0
+                if grad:
+                    g_err = max(float(torch.max(torch.abs(a.double() - b.double())))
+                                for a, b in ((gin, t_gin), (gout, t_gout)))
+                    g_scale = max(float(torch.max(torch.abs(b.double()))) for b in (t_gin, t_gout))
+                    if not (math.isfinite(g_err) and g_err <= GRAD_RTOL * g_scale):
+                        raise AssertionError(f"{what}: gradient {g_err!r} from its twin (bound "
+                                             f"{GRAD_RTOL} x {g_scale!r})")
+                key = "ft_members_grad" if grad else "ft_members"
+                errs[key] = max(errs[key], e_err, g_err)
+                cases.append({"T": T, "B": B, "group": ft.group_size(B, shared),
+                              "shared": shared, "grad": grad, "energy_max_abs_err": e_err,
+                              "grad_max_abs_err": g_err, "grad_scale": g_scale,
+                              "equal_to_single_launches": True})
+    return cases, errs
+
+
+def check_odd_member_launch(torch, ft, seed: int) -> tuple[list, dict]:
+    """``check_member_launch`` on ``FT_ODD_T`` seeded triangles: a member's g slab and corner
+    scratch start off a 16-byte boundary, so they go by plain loads and 4-byte stores."""
+    from membrane_solver_tpu_torch.device.state import corner_csr
+
+    rows, nv = _seeded_ft_rows(torch, FT_ODD_T, seed)
+    t_in, t_out, g, pay, k = _ft_inputs(torch, rows, nv, seed)
+    return check_member_launch(
+        torch, ft, rows, corner_csr(rows, nv), ft.Workspace(FT_ODD_T, rows.device), k,
+        lambda B: (scaled_members(torch, t_in, B), scaled_members(torch, t_out, B)),
+        lambda B: scaled_members(torch, g, B), lambda B: scaled_members(torch, pay, B))
+
+
 def check_ft_members(torch, ft, mn) -> tuple[dict, list]:
     """``frozen_tilt_members`` on the lane's own fused inputs (the relax's at this state) and
-    seeded tilts: each member in bits of a single launch, the entry point's ``vmap`` the same
-    bits, and within the frozen-tilt bounds of the twin, at B = 1, 3 and 11.  Returns the
-    errors and phase 56's timing rows at B = 11."""
+    seeded tilts, at each of ``ft_member_counts``: the shared energy launch (the relax's
+    candidates) the bits of the entry point's ``vmap``; then ``check_member_launch`` on the
+    lane's inputs (per-member g and payload: the lane's scaled by 1 + 0.01 m) and at
+    ``FT_ODD_T``.  Returns the errors and cases, and phase 56's timing rows at B = 11."""
     fused, p = fused_tilt_energy_of(torch, mn)
     if fused is None:
         raise AssertionError("the float32 kozlov lane built no fused frozen-tilt energy")
@@ -6122,23 +6249,17 @@ def check_ft_members(torch, ft, mn) -> tuple[dict, list]:
                             generator=gen)
         return (base_in + 0.01 * noise[0]).contiguous(), (base_out + 0.01 * noise[1]).contiguous()
 
-    err, cases = 0.0, []
-    for B in FT_MEMBERS:
+    for B in ft_member_counts(ft):
         t_in, t_out = member_tilts(B)
         got = ft.launch_members(t_in, t_out, rows, csr, g, pay, k, ws)[0]
-        singles = torch.stack([ft.launch(t_in[m].clone(), t_out[m].clone(), rows, csr, g, pay,
-                                         k, ws, grad=False)[0].reshape(()) for m in range(B)])
-        mapped = torch.func.vmap(fused)(t_in, t_out)
-        twin = ft.reference_members(t_in, t_out, rows, csr, g, pay, k)[0]
-        e = float(torch.max(torch.abs(got.double() - twin.double())))
-        scale = float(torch.max(torch.abs(twin.double())))
-        if not same_bits(torch, got, singles) or not same_bits(torch, mapped, got):
-            raise AssertionError(f"frozen_tilt_members at B={B}: not the bits of single launches")
-        if not (math.isfinite(e) and e <= ENERGY_RTOL * scale):
-            raise AssertionError(f"frozen_tilt_members at B={B}: {e!r} from its twin "
-                                 f"(bound {ENERGY_RTOL} x {scale!r})")
-        err = max(err, e)
-        cases.append({"B": B, "max_abs_err": e, "equal_to_single_launches": True})
+        if not same_bits(torch, torch.func.vmap(fused)(t_in, t_out), got):
+            raise AssertionError(f"frozen_tilt_members at B={B}: not the bits of the entry "
+                                 "point's vmap")
+    cases, errs = check_member_launch(torch, ft, rows, csr, ws, k, member_tilts,
+                                      lambda B: scaled_members(torch, g, B),
+                                      lambda B: scaled_members(torch, pay, B))
+    odd_cases, odd_errs = check_odd_member_launch(torch, ft, 41)
+    errs = {key: max(errs[key], odd_errs[key]) for key in errs}
     t_in, t_out = member_tilts(FT_MEMBER_TIMED)
     B, T = FT_MEMBER_TIMED, rows.shape[0]
     inputs, flops = (t_in, t_out, rows, g, pay, k), FLOPS_PER_TRI["frozen_tilt_energy"] * T * B
@@ -6148,7 +6269,7 @@ def check_ft_members(torch, ft, mn) -> tuple[dict, list]:
         ("frozen_tilt_members", "twin",
          lambda: ft.reference_members(t_in, t_out, rows, csr, g, pay, k), inputs, flops),
     ]
-    return {"ft_members": err, "cases": cases}, timing_rows
+    return {**errs, "cases": cases + odd_cases}, timing_rows
 
 
 def compare_forms(torch, counters, label: str, mn, snap: dict, steps: int, warmup: int,
@@ -6219,7 +6340,7 @@ def phase_batched_ls(torch, ft, counters, label: str, fixture: dict, dtype) -> d
            "ms": per_step(bat, "ms")}
     if dtype == torch.float32:
         errs, timing_rows = check_ft_members(torch, ft, mn)
-        res["errs"] = {"ft_members": errs["ft_members"]}
+        res["errs"] = {key: errs[key] for key in ("ft_members", "ft_members_grad")}
         say(label + " frozen_tilt_members", cases=json.dumps(errs["cases"]),
             launches_per_step=repr(res["per_step"]["frozen_tilt.energy_members"]))
 
@@ -6237,8 +6358,7 @@ def phase_batched_ls(torch, ft, counters, label: str, fixture: dict, dtype) -> d
 # phase 57: the reduced-energy line search's batched form against its sequential one
 # ----------------------------------------------------------------------
 REDUCED_BATCHED_STEPS = 3  # phase 57: minimize(1) steps per form, the first a warm-up
-FT_GRAD_MEMBERS = (1, 3, 9)  # phase 57: frozen_tilt_members with the gradient vs single launches
-FT_GRAD_MEMBER_TIMED = 9  # phase 57's timing row: the reduced search's nine tail candidates
+FT_GRAD_MEMBER_TIMED = 9  # phase 57's timing rows: the reduced search's nine tail candidates
 # member launches the batched reduced form must make (the tail's trial energies; at float32
 # also kernel 1's member launches in the member relax, energy and gradient)
 REDUCED_BATCHED_EXPECT = {
@@ -6275,54 +6395,37 @@ def member_relax_inputs(torch, ft, mn, snap: dict) -> tuple:
 
 
 def check_ft_members_grad(torch, ft, mn, snap: dict) -> tuple[dict, list]:
-    """``frozen_tilt_members`` with the gradient on the member relax's own per-member g and
-    payload (``member_relax_inputs``) and seeded tilts, at B = 1, 3 and 9: each member's energy
-    and both vertex gradients the bits of a single ``frozen_tilt_vertex`` launch on it, within
-    rel ``ENERGY_RTOL`` (the energy) and ``GRAD_RTOL`` of max|g| (the gradients) of the twin.
-    Returns the errors and the timing rows at B = 9."""
+    """``check_member_launch`` on the member relax's own per-member g and payload
+    (``member_relax_inputs``, member m taking relax member m mod its count; shared: member
+    0's) and seeded tilts, and at ``FT_ODD_T``.  Returns the errors and cases, and the timing
+    rows at B = 9: the gradient launch and the energy launch on per-member inputs."""
     g_all, pay_all, (rows, csr, k, ws) = member_relax_inputs(torch, ft, mn, snap)
     p = mn.problem()
     gen = torch.Generator(device=DEVICE).manual_seed(57)
     base_in, base_out = p.state.tilts_in.contiguous(), p.state.tilts_out.contiguous()
-    if g_all.shape[0] < max(FT_GRAD_MEMBERS):
+    if g_all.shape[0] < FT_GRAD_MEMBER_TIMED:
         raise AssertionError(f"the member relax ran {g_all.shape[0]} members")
 
-    def member_inputs(B):
+    def member_tilts(B):
         noise = torch.randn((2, B) + tuple(base_in.shape), dtype=torch.float32, device=DEVICE,
                             generator=gen)
-        return ((base_in + 0.01 * noise[0]).contiguous(), (base_out + 0.01 * noise[1]).contiguous(),
-                g_all[:B].contiguous(), pay_all[:B].contiguous())
+        return (base_in + 0.01 * noise[0]).contiguous(), (base_out + 0.01 * noise[1]).contiguous()
 
-    err, cases = 0.0, []
-    for B in FT_GRAD_MEMBERS:
-        t_in, t_out, g, pay = member_inputs(B)
-        e, gin, gout = ft.launch_members(t_in, t_out, rows, csr, g, pay, k, ws, grad=True)
-        singles = [ft.launch(t_in[m].clone(), t_out[m].clone(), rows, csr, g[m].clone(),
-                             pay[m].clone(), k, ws, grad=True) for m in range(B)]
-        for m, (e1, h_in, h_out) in enumerate(singles):
-            if not (same_bits(torch, e[m:m + 1], e1) and same_bits(torch, gin[m], h_in)
-                    and same_bits(torch, gout[m], h_out)):
-                raise AssertionError(f"frozen_tilt_members with the gradient at B={B}: member "
-                                     f"{m} is not the bits of its single launch")
-        te, t_gin, t_gout = ft.reference_members(t_in, t_out, rows, csr, g, pay, k, grad=True)
-        e_err = float(torch.max(torch.abs(e.double() - te.double())))
-        e_scale = float(torch.max(torch.abs(te.double())))
-        g_err = max(float(torch.max(torch.abs(a.double() - b.double())))
-                    for a, b in ((gin, t_gin), (gout, t_gout)))
-        g_scale = max(float(torch.max(torch.abs(b.double()))) for b in (t_gin, t_gout))
-        if not (math.isfinite(e_err) and e_err <= ENERGY_RTOL * e_scale):
-            raise AssertionError(f"frozen_tilt_members at B={B}: energy {e_err!r} from its twin "
-                                 f"(bound {ENERGY_RTOL} x {e_scale!r})")
-        if not (math.isfinite(g_err) and g_err <= GRAD_RTOL * g_scale):
-            raise AssertionError(f"frozen_tilt_members at B={B}: gradient {g_err!r} from its "
-                                 f"twin (bound {GRAD_RTOL} x {g_scale!r})")
-        err = max(err, e_err, g_err)
-        cases.append({"B": B, "energy_max_abs_err": e_err, "grad_max_abs_err": g_err,
-                      "grad_scale": g_scale, "equal_to_single_launches": True})
-    t_in, t_out, g, pay = member_inputs(FT_GRAD_MEMBER_TIMED)
+    def relax_members(x, B):
+        return x[[m % x.shape[0] for m in range(B)]].contiguous()
+
+    cases, errs = check_member_launch(torch, ft, rows, csr, ws, k, member_tilts,
+                                      lambda B: relax_members(g_all, B),
+                                      lambda B: relax_members(pay_all, B))
+    odd_cases, odd_errs = check_odd_member_launch(torch, ft, 47)
+    errs = {key: max(errs[key], odd_errs[key]) for key in errs}
+    t_in, t_out = member_tilts(FT_GRAD_MEMBER_TIMED)
     B, T = FT_GRAD_MEMBER_TIMED, rows.shape[0]
+    g, pay = g_all[:B].contiguous(), pay_all[:B].contiguous()
     inputs = (t_in, t_out, rows, csr.offsets, csr.slots, g, pay, k)
-    flops = (FLOPS_PER_TRI["frozen_tilt_energy"] + FLOPS_PER_TRI["frozen_tilt_grad"]) * T * B
+    e_inputs = (t_in, t_out, rows, g, pay, k)
+    e_flops = FLOPS_PER_TRI["frozen_tilt_energy"] * T * B
+    flops = e_flops + FLOPS_PER_TRI["frozen_tilt_grad"] * T * B
     timing_rows = [
         ("frozen_tilt_members_grad", "kernel",
          lambda: ft.launch_members(t_in, t_out, rows, csr, g, pay, k, ws, grad=True), inputs,
@@ -6330,8 +6433,12 @@ def check_ft_members_grad(torch, ft, mn, snap: dict) -> tuple[dict, list]:
         ("frozen_tilt_members_grad", "twin",
          lambda: ft.reference_members(t_in, t_out, rows, csr, g, pay, k, grad=True), inputs,
          flops),
+        ("frozen_tilt_members_per_member", "kernel",
+         lambda: ft.launch_members(t_in, t_out, rows, csr, g, pay, k, ws), e_inputs, e_flops),
+        ("frozen_tilt_members_per_member", "twin",
+         lambda: ft.reference_members(t_in, t_out, rows, csr, g, pay, k), e_inputs, e_flops),
     ]
-    return {"ft_members_grad": err, "cases": cases}, timing_rows
+    return {**errs, "cases": cases + odd_cases}, timing_rows
 
 
 def phase_reduced_batched_ls(torch, ft, counters, label: str, dtype, base: dict) -> dict:
@@ -6351,7 +6458,7 @@ def phase_reduced_batched_ls(torch, ft, counters, label: str, dtype, base: dict)
            "ms": {"sequential": per_step(seq, "ms"), "batched": per_step(bat, "ms")}}
     if dtype == torch.float32:
         errs, timing_rows = check_ft_members_grad(torch, ft, mn, snap)
-        res["errs"] = {"ft_members_grad": errs["ft_members_grad"]}
+        res["errs"] = {key: errs[key] for key in ("ft_members", "ft_members_grad")}
         say(label + " frozen_tilt_members grad", cases=json.dumps(errs["cases"]),
             launches_per_step=repr(res["per_step"]["frozen_tilt.energy_grad_members"]))
 

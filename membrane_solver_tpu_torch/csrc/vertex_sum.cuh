@@ -68,22 +68,31 @@ __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(
 // Member m = blockIdx.y reads its sources at m * src_rows rows (src_rows =
 // 3T corner rows per member; the weight at m * src_rows / 3) and writes its
 // output at m * n rows; the CSR and the mask are shared.  With one member
-// (gridDim.y = 1) every offset is zero.
-template <typename T, int Wa, int Wb, bool kWeighted>
+// (gridDim.y = 1) every offset is zero.  kPaired: both width-3 sources lie
+// in one array of 6-float corner rows (a's three values, then b's; src_b
+// unused), a corner three 8-byte loads where two 12-byte rows took six, and
+// a row whose ``mask`` entry is set (a null mask: none) is skipped (its sum
+// is written elsewhere: a frozen-tilt member gradient's interior vertices).
+template <typename T, int Wa, int Wb, bool kWeighted, bool kPaired = false>
 __global__ void __launch_bounds__(kRowsPerBlock)
     vertex_sum_kernel(const int32_t* __restrict__ offsets, const int32_t* __restrict__ slots,
                       const T* __restrict__ src_a, T* __restrict__ out_a,
                       const T* __restrict__ src_b, T* __restrict__ out_b,
                       const T* __restrict__ weight, const bool* __restrict__ mask, int n,
                       int64_t src_rows) {
+  static_assert(!kPaired || (Wa == 3 && Wb == 3 && !kWeighted), "pairs are two width-3 rows");
   constexpr int kB = Wb > 0 ? Wb : 1;
+  constexpr int kRowA = kPaired ? 6 : Wa;  // floats between source a's corner rows
   const int v = blockIdx.x * kRowsPerBlock + threadIdx.x;
   if (v >= n) return;
+  if constexpr (kPaired) {
+    if (mask != nullptr && mask[v]) return;
+  }
   const int64_t member = blockIdx.y;
-  src_a += member * src_rows * Wa;
+  src_a += member * src_rows * kRowA;
   out_a += member * n * Wa;
   if constexpr (Wb > 0) {
-    src_b += member * src_rows * Wb;
+    if constexpr (!kPaired) src_b += member * src_rows * Wb;
     out_b += member * n * Wb;
   }
   if constexpr (kWeighted) weight += member * (src_rows / 3);
@@ -114,11 +123,20 @@ __global__ void __launch_bounds__(kRowsPerBlock)
         const T w = keep ? wt : T(0);
 #pragma unroll
         for (int c = 0; c < Wa; ++c) xa[p][c] = mul_rn(w, src_a[at * Wa + c]);
+      } else if constexpr (kPaired) {
+        const float2* row = reinterpret_cast<const float2*>(src_a + at * 6);
+        const float2 x = row[0], y = row[1], z = row[2];
+        xa[p][0] = x.x;
+        xa[p][1] = x.y;
+        xa[p][2] = y.x;
+        xb[p][0] = y.y;
+        xb[p][1] = z.x;
+        xb[p][2] = z.y;
       } else {
 #pragma unroll
         for (int c = 0; c < Wa; ++c) xa[p][c] = src_a[at * Wa + c];
       }
-      if constexpr (Wb > 0) {
+      if constexpr (Wb > 0 && !kPaired) {
 #pragma unroll
         for (int c = 0; c < Wb; ++c) xb[p][c] = src_b[at * Wb + c];
       }
@@ -158,6 +176,20 @@ inline void launch(const int32_t* offsets, const int32_t* slots, const T* src_a,
   if (n > 0 && members > 0) {
     vertex_sum_kernel<T, Wa, Wb, false><<<vertex_grid(n, members), kRowsPerBlock, 0, stream>>>(
         offsets, slots, src_a, out_a, src_b, out_b, nullptr, nullptr, n, src_rows);
+  }
+}
+
+// Two width-3 float sums from one array of paired corner rows (kPaired):
+// ``pairs`` (members, src_rows, 6), out_a and out_b (members, n, 3); the rows
+// where ``skip`` (n,; null: none) is set are left as they are.
+template <typename T>
+inline void launch_pairs(const int32_t* offsets, const int32_t* slots, const T* pairs,
+                         const uint8_t* skip, T* out_a, T* out_b, int n, cudaStream_t stream,
+                         int members = 1, int64_t src_rows = 0) {
+  if (n > 0 && members > 0) {
+    vertex_sum_kernel<T, 3, 3, false, true><<<vertex_grid(n, members), kRowsPerBlock, 0, stream>>>(
+        offsets, slots, pairs, out_a, nullptr, out_b, nullptr,
+        reinterpret_cast<const bool*>(skip), n, src_rows);
   }
 }
 

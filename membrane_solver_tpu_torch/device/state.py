@@ -794,7 +794,7 @@ def problem_from_numpy(
     params: Mapping[str, Any],
     *,
     vertex_tables: Collection[str] = (),
-    device="cpu",
+    device="cuda",
     dtype=torch.float64,
 ) -> Tuple[MeshState, Topology, Dict[str, torch.Tensor]]:
     """Build the port's (state, topo, params) from the JAX package's arrays.
@@ -808,7 +808,12 @@ def problem_from_numpy(
     one row, as an empty table compiles to one invalid row).  The extras
     keys in ``vertex_tables`` hold one row per vertex and keep the live
     vertex rows (an energy module lists its own in ``VERTEX_TABLES``).
+    The tensors go to the card unless ``device`` says otherwise; with no
+    card this raises, as ``Minimizer`` does (``device="cpu"`` for the CPU).
     """
+    from membrane_solver_tpu_torch.runtime.minimizer import resolve_device
+
+    device = resolve_device(device)
     t = lambda a: to_tensor(a, device, dtype)  # noqa: E731
     nv = int(np.sum(topo["vertex_valid"]))
     nf = int(np.sum(topo["tri_valid"]))

@@ -28,8 +28,13 @@ The member axis: :func:`frozen_tilt_energy_members` takes B stacked tilt
 pairs (B, N, 3) with g and the payload shared ((T, 3, 3), (T, 20)) or one
 per member ((B, T, 3, 3), (B, T, 20)), and evaluates every member's energy,
 and with a tilt that requires grad both vertex gradients, in one
-``frozen_tilt_members`` call (the members on the grid's y axis); member m
-is the bits of the single call on member m.  Its backward scales each
+``frozen_tilt_members`` call: a block takes one tile of triangles for a
+group of members (:func:`group_size`), reads the tile's rows once and
+copies shared g and payload slabs once for the group.  With the gradient,
+the block sums its tile's interior vertices itself and sends only the
+other corners through the scratch to the vertex sum (:class:`TileSums`,
+kept per topology on the CSR).  Member m is the bits of the single call on
+member m.  Its backward scales each
 member's gradients.  The member-batched leaflet relax
 (``runtime/tilt_relax``) calls it directly; under ``torch.func.vmap`` over
 the tilts (the batched line search's candidates) the single entry point's
@@ -47,6 +52,7 @@ k_out, kappa_in, kappa_out, ks_in, ks_out].
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -62,6 +68,10 @@ LAUNCHES = {"energy": 0, "energy_grad": 0, "energy_members": 0, "energy_grad_mem
 KERNEL = _build.Source("frozen_tilt")
 SOURCE = KERNEL.path
 BLOCK = 128  # triangles per block: one energy partial each (csrc/frozen_tilt.cu kThreads)
+CORNER = 6  # floats of a corner-gradient row (csrc/frozen_tilt.cu kCorner)
+# members a block of the member launch takes at most (g and the payload shared): the fastest
+# at kozlov L3 on an H100 (PERF.md); the kernel is built for groups of 1 to its kMaxGroup
+MAX_GROUP = 4
 
 _lib = None
 
@@ -178,52 +188,138 @@ def build() -> ctypes.CDLL:
         return _lib
     (lib,) = _build.build(KERNEL)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.frozen_tilt_vertex.argtypes = [ptr] * 15 + [i32, i32, i32, ptr]
+    lib.frozen_tilt_vertex.argtypes = [ptr] * 14 + [i32, i32, i32, ptr]
     lib.frozen_tilt_vertex.restype = i32
-    lib.frozen_tilt_members.argtypes = [ptr] * 15 + [i32, i32, i32, ctypes.c_int64,
+    lib.frozen_tilt_members.argtypes = [ptr] * 18 + [i32, i32, i32, i32, ctypes.c_int64,
                                                       ctypes.c_int64, i32, ptr]
     lib.frozen_tilt_members.restype = i32
     lib.frozen_tilt_block_size.restype = i32
+    lib.frozen_tilt_max_group.restype = i32
     if lib.frozen_tilt_block_size() != BLOCK:
         raise RuntimeError(f"frozen_tilt.cu uses {lib.frozen_tilt_block_size()}-triangle blocks, "
                            f"the wrapper {BLOCK}")
+    if lib.frozen_tilt_max_group() < MAX_GROUP:
+        raise RuntimeError(f"frozen_tilt.cu takes groups of up to {lib.frozen_tilt_max_group()} "
+                           f"members, the wrapper {MAX_GROUP}")
     _lib = lib
     return lib
+
+
+@dataclasses.dataclass(frozen=True)
+class TileSums:
+    """Which vertex sums of a member gradient launch run inside the triangle pass (one topology).
+
+    A vertex whose corners all lie in one ``BLOCK``-triangle tile is interior
+    to it: the tile's block adds its corner gradients from shared memory in
+    the corner CSR's order and writes the vertex rows.  The other (boundary)
+    vertices' corners go through the corner scratch to the vertex sum, which
+    skips interior rows.  ``interior`` (N,) uint8; ``tile_vertices`` (N,)
+    int32: each tile's interior vertices in vertex order, tile by tile, then
+    the boundary ones; ``tile_offsets`` (tiles + 2,) int32: tile x's at
+    ``tile_offsets[x]:tile_offsets[x + 1]`` (the last range is the boundary
+    vertices); ``corner_mask`` (T,) uint8: bit k set where corner k's vertex
+    is a boundary vertex (its row goes to the scratch).
+    """
+
+    interior: torch.Tensor
+    tile_vertices: torch.Tensor
+    tile_offsets: torch.Tensor
+    corner_mask: torch.Tensor
+
+
+_TILE_SUMS = "_frozen_tilt_tile_sums"  # the key of a CSR's TileSums in its __dict__
+
+
+def tile_sums(csr: CornerCSR) -> TileSums:
+    """The :class:`TileSums` of ``csr``'s topology, made at first use and kept on the CSR.
+
+    Plain PyTorch on the CSR's device, fixed-size outputs, no host read.
+    """
+    kept = csr.__dict__.get(_TILE_SUMS)
+    if kept is not None:
+        return kept
+    T, N = csr.rows.shape[0], csr.n_rows
+    device = csr.slots.device
+    tiles = -(-T // BLOCK)
+    degree = (csr.offsets[1:] - csr.offsets[:-1]).long()
+    vertex_of = torch.repeat_interleave(torch.arange(N, device=device), degree,
+                                        output_size=csr.slots.shape[0])
+    tile_of = csr.slots.long() // (3 * BLOCK)
+    lo = torch.full((N,), tiles, dtype=torch.int64, device=device).scatter_reduce(
+        0, vertex_of, tile_of, "amin")
+    hi = torch.full((N,), -1, dtype=torch.int64, device=device).scatter_reduce(
+        0, vertex_of, tile_of, "amax")
+    interior = lo == hi  # a vertex with no corner is a boundary one (the vertex sum writes 0)
+    bucket = torch.where(interior, lo, tiles)
+    counts = torch.zeros(tiles + 1, dtype=torch.int64, device=device).scatter_add_(
+        0, bucket, torch.ones_like(bucket))
+    offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    mask = ((~interior[csr.rows]).long() << torch.arange(3, device=device)).sum(1)
+    kept = TileSums(interior=interior.to(torch.uint8),
+                    tile_vertices=torch.argsort(bucket, stable=True).to(torch.int32),
+                    tile_offsets=offsets.to(torch.int32), corner_mask=mask.to(torch.uint8))
+    csr.__dict__[_TILE_SUMS] = kept
+    return kept
+
+
+def tile_sums_reference(corner_values: torch.Tensor, csr: CornerCSR) -> torch.Tensor:
+    """What a member gradient launch's two passes add, in plain PyTorch: each tile's interior vertices
+    from its own corner rows, then the boundary vertices from the corner rows the mask sends to
+    the scratch (the rest left unread).  ``corner_values`` (T, 3, W); returns (N, W), which is
+    ``vertex_sum.reference`` in bits (the same adds in the same order)."""
+    ts = tile_sums(csr)
+    T = corner_values.shape[0]
+    flat = corner_values.reshape(3 * T, -1)
+    sent = ((ts.corner_mask[:, None].long() >> torch.arange(3, device=flat.device)) & 1).bool()
+    scratch = torch.where(sent.reshape(-1, 1), flat, torch.nan)
+    out = flat.new_zeros((csr.n_rows, flat.shape[1]))
+    offsets, slots = csr.offsets.tolist(), csr.slots.tolist()
+    tiles = ts.tile_offsets.shape[0] - 2
+    bounds = ts.tile_offsets.tolist()
+    order = ts.tile_vertices.tolist()
+    for x in range(tiles + 1):
+        source = flat if x < tiles else scratch
+        for v in order[bounds[x]:bounds[x + 1]]:
+            acc = flat.new_zeros(flat.shape[1])
+            for s in slots[offsets[v]:offsets[v + 1]]:
+                if x < tiles and s // (3 * BLOCK) != x:
+                    raise AssertionError(f"interior vertex {v} of tile {x} has slot {s}")
+                acc = acc + source[s]
+            out[v] = acc
+    return out.reshape((csr.n_rows,) + tuple(corner_values.shape[2:]))
 
 
 class Workspace:
     """Scratch of the CUDA entry point for T triangles, allocated once per relax.
 
-    Two (T, 3, 3) corner-gradient slabs, one double energy partial per block
-    of ``BLOCK`` triangles, and the last-block counter (zeroed here; each
-    launch leaves it at zero).  Calls that share a workspace must run in
-    order on one stream.
+    The (T, 3, 6) corner-gradient rows (per corner dE/dt_in xyz, then dE/dt_out
+    xyz; a member gradient launch writes those of boundary vertices, :class:`TileSums`),
+    one double energy partial per block of ``BLOCK`` triangles, and the
+    last-block counter (zeroed here; each launch leaves it at zero).
+    Calls that share a workspace must run in order on one stream.
     """
 
     def __init__(self, n_triangles: int, device):
-        f32 = {"dtype": torch.float32, "device": device}
         self.n_triangles = n_triangles
-        self.din_c = torch.empty((n_triangles, 3, 3), **f32)
-        self.dout_c = torch.empty((n_triangles, 3, 3), **f32)
+        self.corners = torch.empty((n_triangles, 3, CORNER), dtype=torch.float32, device=device)
         self.partials = torch.empty(-(-n_triangles // BLOCK), dtype=torch.float64, device=device)
         self.counter = torch.zeros(1, dtype=torch.int32, device=device)
         self._members = {}
 
     def member_scratch(self, members: int, grad: bool = False) -> tuple:
-        """(partials (B, blocks), counters (B,), din_c, dout_c) of a ``frozen_tilt_members``
-        launch of B members, made at the first such launch and kept (each launch leaves the
-        counters at zero); the (B, T, 3, 3) corner slabs are None until a gradient launch."""
+        """(partials (B, blocks), counters (B,), corners) of a ``frozen_tilt_members`` launch of
+        B members, made at the first such launch and kept (each launch leaves the counters at
+        zero); the (B, T, 3, 6) corner rows are None until a gradient launch."""
         device = self.partials.device
-        partials, counters, din_c, dout_c = self._members.get(members, (None,) * 4)
+        partials, counters, corners = self._members.get(members, (None,) * 3)
         if partials is None:
             partials = torch.empty((members, self.partials.shape[0]), dtype=torch.float64,
                                    device=device)
             counters = torch.zeros(members, dtype=torch.int32, device=device)
-        if grad and din_c is None:
-            din_c = torch.empty((members,) + tuple(self.din_c.shape), dtype=torch.float32,
-                                device=device)
-            dout_c = torch.empty_like(din_c)
-        self._members[members] = (partials, counters, din_c, dout_c)
+        if grad and corners is None:
+            corners = torch.empty((members,) + tuple(self.corners.shape), dtype=torch.float32,
+                                  device=device)
+        self._members[members] = (partials, counters, corners)
         return self._members[members]
 
 
@@ -256,11 +352,21 @@ def _check_inputs(t_in, t_out, tri_rows, g, payload, k_vec) -> tuple[int, int]:
     return N, T
 
 
+def _tile_pointers(csr: CornerCSR, grad: bool) -> tuple:
+    """A member call's CSR and tile-table pointers (None without ``grad``)."""
+    if not grad:
+        return (None,) * 6
+    ts = tile_sums(csr)
+    return (csr.offsets.data_ptr(), csr.slots.data_ptr(), ts.tile_vertices.data_ptr(),
+            ts.tile_offsets.data_ptr(), ts.corner_mask.data_ptr(), ts.interior.data_ptr())
+
+
 def launch(t_in, t_out, tri_rows, csr: CornerCSR, g, payload, k_vec, ws: Workspace, grad: bool):
-    """(energy (1,), dE/dt_in (N, 3), dE/dt_out (N, 3)) from one call; gradients None without ``grad``."""
+    """(energy (1,), dE/dt_in (N, 3), dE/dt_out (N, 3)) from one call; gradients None without
+    ``grad``.  Every corner row goes through the scratch to the vertex sum."""
     N, T = _check_inputs(t_in, t_out, tri_rows, g, payload, k_vec)
-    if ws.n_triangles != T or ws.din_c.device != t_in.device:
-        raise ValueError(f"the workspace holds {ws.n_triangles} triangles on {ws.din_c.device}")
+    if ws.n_triangles != T or ws.corners.device != t_in.device:
+        raise ValueError(f"the workspace holds {ws.n_triangles} triangles on {ws.corners.device}")
     if grad:
         vs.check_csr(csr, t_in, T)
         if csr.n_rows != N:
@@ -273,8 +379,8 @@ def launch(t_in, t_out, tri_rows, csr: CornerCSR, g, payload, k_vec, ws: Workspa
         t_in, lib.frozen_tilt_vertex,
         t_in.data_ptr(), t_out.data_ptr(), tri_rows.data_ptr(),
         csr.offsets.data_ptr() if grad else None, csr.slots.data_ptr() if grad else None,
-        g.data_ptr(), payload.data_ptr(), k_vec.data_ptr(), ws.din_c.data_ptr(),
-        ws.dout_c.data_ptr(), ws.partials.data_ptr(), ws.counter.data_ptr(), energy.data_ptr(),
+        g.data_ptr(), payload.data_ptr(), k_vec.data_ptr(), ws.corners.data_ptr(),
+        ws.partials.data_ptr(), ws.counter.data_ptr(), energy.data_ptr(),
         gin.data_ptr() if grad else None, gout.data_ptr() if grad else None,
         T, N, int(grad),
     )
@@ -298,13 +404,25 @@ def _member_stride(x, members: int, single: tuple, name: str) -> int:
     return x.stride(0)
 
 
+def group_size(members: int, shared: bool = True) -> int:
+    """Members a block of a B-member launch takes.  With g and the payload shared and B above
+    ``MAX_GROUP``: as few groups of at most ``MAX_GROUP`` as hold B, as even as they go (B = 9:
+    3 x 3; B = 11: 4, 4, 3).  Otherwise one: per-member inputs share only the rows, and a few
+    members fill more of the card one a block (PERF.md)."""
+    if not shared or members <= MAX_GROUP:
+        return 1
+    groups = -(-members // MAX_GROUP)
+    return -(-members // groups)
+
+
 def launch_members(t_in, t_out, tri_rows, csr: CornerCSR, g, payload, k_vec, ws: Workspace,
                    grad: bool = False):
     """((B,) energies, (B, N, 3) dE/dt_in, dE/dt_out) of B stacked tilt pairs (B, N, 3) in one
     ``frozen_tilt_members`` call; the gradients None without ``grad``.
 
     g and the payload are shared ((T, 3, 3), (T, 20)) or one per member ((B, T, 3, 3),
-    (B, T, 20), contiguous).  Member m is the bits of :func:`launch` on member m.
+    (B, T, 20), contiguous).  With the gradient, each tile's interior vertices are summed in
+    the triangle pass (:func:`tile_sums`).  Member m is the bits of :func:`launch` on member m.
     """
     if t_in.dim() != 3 or t_out.shape != t_in.shape:
         raise ValueError(f"member tilts must be two (B, N, 3) tensors, got "
@@ -319,26 +437,26 @@ def launch_members(t_in, t_out, tri_rows, csr: CornerCSR, g, payload, k_vec, ws:
                          payload[0] if pay_stride else payload, k_vec)
     if not (t_in.is_contiguous() and t_out.is_contiguous()):
         raise ValueError("member tilts must be contiguous")
-    if ws.n_triangles != T or ws.din_c.device != t_in.device:
-        raise ValueError(f"the workspace holds {ws.n_triangles} triangles on {ws.din_c.device}")
+    if ws.n_triangles != T or ws.corners.device != t_in.device:
+        raise ValueError(f"the workspace holds {ws.n_triangles} triangles on {ws.corners.device}")
     if grad:
         vs.check_csr(csr, t_in, T)
         if csr.n_rows != N:
             raise ValueError(f"the CSR covers {csr.n_rows} vertex rows, the tilts {N}")
     lib = build()
-    partials, counter, din_c, dout_c = ws.member_scratch(members, grad)
+    partials, counter, corners = ws.member_scratch(members, grad)
     energy = torch.empty(members, dtype=torch.float32, device=t_in.device)
     gin = torch.empty_like(t_in) if grad else None
     gout = torch.empty_like(t_out) if grad else None
     code = _launch.call(
         t_in, lib.frozen_tilt_members,
-        t_in.data_ptr(), t_out.data_ptr(), tri_rows.data_ptr(),
-        csr.offsets.data_ptr() if grad else None, csr.slots.data_ptr() if grad else None,
+        t_in.data_ptr(), t_out.data_ptr(), tri_rows.data_ptr(), *_tile_pointers(csr, grad),
         g.data_ptr(), payload.data_ptr(), k_vec.data_ptr(),
-        din_c.data_ptr() if grad else None, dout_c.data_ptr() if grad else None,
-        partials.data_ptr(), counter.data_ptr(), energy.data_ptr(),
+        corners.data_ptr() if grad else None, partials.data_ptr(), counter.data_ptr(),
+        energy.data_ptr(),
         gin.data_ptr() if grad else None, gout.data_ptr() if grad else None,
-        T, N, members, g_stride, pay_stride, int(grad),
+        T, N, members, group_size(members, g_stride == 0 and pay_stride == 0), g_stride,
+        pay_stride, int(grad),
     )
     if code != 0:
         raise RuntimeError(f"frozen_tilt_members launch failed: cudaError {code}")

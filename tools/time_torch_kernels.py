@@ -29,7 +29,10 @@ too), seeded values, beside ``index_add_`` of the same values.  With
 ``--members B`` (repeatable) it also times the member-axis rows of phase
 34 (``chip_smoke.member_rows``: every member entry, its twin, and
 ``index_add_`` over the members' rows) at kozlov L3 at each dtype, B
-members of the lane's positions scaled by 1 + 0.001 m and seeded tilts.
+members of the lane's positions scaled by 1 + 0.001 m and seeded tilts,
+and at float32 kernel 1's member rows (``chip_smoke.ft_member_rows``: g
+and the payload shared at B = 11, one per member at B = 9, the energy
+alone and with the gradient).
 
 Prints one JSON line per lane and dtype and, last, one JSON object with
 every row; ``-o FILE`` also writes that object there.
@@ -138,7 +141,8 @@ def main() -> int:
                 gen = torch.Generator(device=cs.DEVICE).manual_seed(29)
                 tilts = 0.3 * torch.randn(tuple(pos.shape), dtype=dtype, device=cs.DEVICE,
                                           generator=gen)
-                rows = cs.member_rows(torch, tk, vs, prob.topo, pos, tilts)
+                rows = cs.member_rows(torch, tk, vs, prob.topo, pos, tilts,
+                                      ft if name == "float32" else None)
                 recs = list(cs.measure_members(torch, rows, name).values())
                 for r in recs:
                     r.update(lane=lane, members=B)
