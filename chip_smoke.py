@@ -48,6 +48,15 @@ set ``MEMBRANE_SOLVER_BATCHED_LS`` to compare the two.
      (float32) / 1e-12 (float64), vertex gradients to 2e-5 / 1e-12 and the
      tilt backward to 5e-5 / 1e-12 of max|g|, the divergence to the
      per-triangle kernels' bounds;
+   - kernel 2's member launch (``check_surface_members``), float32 and
+     float64, on seeded triangles (T = 301) and the kozlov lane's own, at
+     every width of ``surface_member_widths`` (1, 2, 3, 8, 9, 10, 11, 72:
+     around the group of 2 and the switch to groups above 9 members, a
+     partial last group, the Armijo tail's 9, the sweep tail's 72), the
+     tension shared, per member and at 1 (the area route's), the energy
+     alone and with the gradient: every member the bits of its single
+     launch and within the whole-call bounds below of its twin
+     (``[3 surface members]``);
    - determinism: two energy-plus-gradient calls of the frozen-tilt and
      the surface entry points, and two forward-plus-backward calls of
      ``curvature_data`` and of ``p1_triangle_divergence``, on the same
@@ -361,14 +370,18 @@ set ``MEMBRANE_SOLVER_BATCHED_LS`` to compare the two.
     call inside the sweep.  The member-axis kernels on the members' final
     states (per-member seeded tilts): each against its member twin with
     phase 3's bounds, and member by member equal in bits to the
-    single-member kernel.  Then ms per sweep step and member-steps per
+    single-member kernel; kernel 2's member launch also at every width of
+    phase 3 on members made from these (``check_surface_members``).  Then
+    ms per sweep step and member-steps per
     second at B = 1, 2, 4 and 8 (three steps each after a warm-up step) and
     the profiler's busy share of a one-step sweep at B = 8, each with the
     card's name and power limit.
 34. kozlov L3 parameter sweep, float32: the same on phase 4's state; the
     members within rel max(2e-3, 2 x the JAX package's own float32
     deviation) of phase 33, the JAX package's own float32 flags; and the
-    member-axis kernels timed at B = 8 (``[34 ... kernel timing]``).
+    member-axis kernels timed at B = 8 (``[34 ... kernel timing]``; kernel
+    2's energy also at the Armijo tail's 9 members, the gradient rows split
+    by launch in ``kernels_ms``, and the divergence's tilt backward).
 35. the multi-disk sweep analysis on the card
     (``analysis.multidisk_sweep.run_sweep``, ``plot=False``): three meshgen
     cube meshes in a temporary directory; every key of every row within
@@ -713,6 +726,10 @@ KERNELS = {
                                        "tri_kernels.curvature_data_bwd_members"),
     "tri_p1_div_members": ("tri_kernels.cu", "pallas_kernels/tri_kernels.py:228",
                            "p1_div_members", "tri_kernels.p1_div_members"),
+    # its tilt backward over the members (phase 41's maps of tilt_splay_twist_in and
+    # bending_tilt)
+    "tri_p1_div_bwd_members": ("tri_kernels.cu", "pallas_kernels/tri_kernels.py:262",
+                               "p1_div_bwd_members", "tri_kernels.p1_div_bwd_members"),
     "vertex_sum_members": ("vertex_sum.cuh", "device/geo.py:95", "vertex_sum_members",
                            "vertex_sum.vertex_sum_members"),
     # the area constraints' energy-and-gradient call over the members (phase
@@ -734,7 +751,8 @@ SINGLE_OF = {"tri_surface_energy_members": "surface_energy",
              "tri_surface_energy_grad_members": "surface_energy_grad",
              "tri_curvature_data_members": "curvature_data",
              "tri_curvature_data_bwd_members": "curvature_data_bwd",
-             "tri_p1_div_members": "p1_div", "vertex_sum_members": "vertex_sum",
+             "tri_p1_div_members": "p1_div", "tri_p1_div_bwd_members": "p1_div_bwd",
+             "vertex_sum_members": "vertex_sum",
              "frozen_tilt_members": "frozen_tilt_energy",
              "frozen_tilt_members_grad": "frozen_tilt_energy_grad"}
 # the per-entry-point error keys of phases 3 and 5
@@ -749,7 +767,9 @@ ERRORS = {"frozen_tilt_energy": ("ft_energy",), "frozen_tilt_energy_grad": ("ft_
           "tri_surface_energy_grad_members": ("surface_energy_members", "surface_grad_members"),
           "tri_curvature_data_members": ("curvature_data_members",),
           "tri_curvature_data_bwd_members": ("curvature_data_bwd_members",),
-          "tri_p1_div_members": ("p1_div_members",), "vertex_sum_members": ("vertex_sum_members",),
+          "tri_p1_div_members": ("p1_div_members",),
+          "tri_p1_div_bwd_members": ("p1_div_bwd_members",),
+          "vertex_sum_members": ("vertex_sum_members",),
           "tri_surface_area_grad_members": ("surface_area_members", "surface_area_grad_members"),
           "frozen_tilt_members": ("ft_members",),
           "frozen_tilt_members_grad": ("ft_members_grad",)}
@@ -909,6 +929,8 @@ def time_call(torch, fn, calls: int = LOOP, warmup: int = 5, profiled: int | Non
       summed from ``torch.profiler`` over a second loop of ``profiled``
       calls (``calls`` when None; no host gaps);
     - ``ops_per_call`` and ``ops``: those operations, by name;
+    - ``kernels_ms``: their device ms per call, by name (the first 40
+      characters): a whole call's split between its launches;
     - ``windows``: the profiled loops it took (``PROFILE_TRIES``).
     """
     profiled = calls if profiled is None else profiled
@@ -948,6 +970,7 @@ def time_call(torch, fn, calls: int = LOOP, warmup: int = 5, profiled: int | Non
         "device_ms": sum(e.self_device_time_total for e in rows) / 1e3 / profiled,
         "ops_per_call": sum(e.count for e in rows) / profiled,
         "ops": {e.key: e.count / profiled for e in rows},
+        "kernels_ms": {e.key[:40]: e.self_device_time_total / 1e3 / profiled for e in rows},
         "windows": windows,
     }
 
@@ -1171,7 +1194,8 @@ def measure(torch, rows: list, lane: str, dtype_name: str) -> list:
         moved = _nbytes(inputs) + _nbytes(outputs)
         bound, bound_by = bound_ms(moved, flops, dtype_name)
         rec = {"name": name, "kind": kind, "lane": lane, "dtype": dtype_name, "calls": calls,
-               **{k: v for k, v in timing.items() if k != "ops"},
+               **{k: v for k, v in timing.items()
+                  if k != "ops" and (k != "kernels_ms" or kind == "kernel")},
                "bytes": moved, "bound_ms": bound, "bound_by": bound_by,
                "ops": {k[:80]: c for k, c in timing["ops"].items()}}
         if kind == "caller":
@@ -1486,6 +1510,60 @@ def check_unaligned_members(torch, tk) -> list:
                 cases.append(f"T=301 {d} member {m} {what}")
     torch.cuda.synchronize()
     return cases
+
+
+def surface_member_widths(tk) -> tuple:
+    """The member counts kernel 2's member launch is held at: 1, 2, a group less one, a group,
+    a group and one (``tri_kernels.GROUP``), the last width without groups, the first with
+    them and the next (``tri_kernels.SOLO``: a partial last group), the sweep's 8, the Armijo
+    tail's 9 and the sweep tail's 72 rows."""
+    M, S = tk.GROUP, tk.SOLO
+    return tuple(sorted({1, 2, M - 1, M, M + 1, S, S + 1, S + 2, 8, ARMIJO_TAIL, 72} - {0}))
+
+
+def check_surface_members(torch, tk, label: str, base, rows, v, tension, csr) -> dict:
+    """Kernel 2's member launch at every width of :func:`surface_member_widths`, on members
+    made from ``base`` (K, Nv, 3): member m is ``base[m % K]`` scaled by 1 + 1e-4 (m // K);
+    the tension shared, one per member (member m's the given one scaled by 1 + 0.01 m) and,
+    with the gradient, at 1 (the area route's); the energy alone and with the vertex
+    gradient.  Every member the bits of its single launch, and within phase 3's bounds of
+    its twin.  Returns the max abs errors and the number of cases."""
+    dtype = base.dtype
+    name = str(dtype).removeprefix("torch.")
+    K, T = base.shape[0], rows.shape[0]
+    one_ws = tk.Workspace(T, dtype, DEVICE)
+    errs = {"surface_energy_members": 0.0, "surface_grad_members": 0.0}
+    cases = 0
+    for B in surface_member_widths(tk):
+        pos = torch.stack([base[m % K] * (1 + 1e-4 * (m // K)) for m in range(B)]).contiguous()
+        ws = tk.MemberWorkspace(B, T, dtype, DEVICE)
+        per_member = torch.stack([tension * (1 + 0.01 * m) for m in range(B)]).contiguous()
+        for kind, gamma, grads in (("shared", tension, (False, True)),
+                                   ("per-member", per_member, (False, True)),
+                                   ("unit", torch.ones_like(tension), (True,))):
+            for grad in grads:
+                e, dpos = tk.launch_surface_energy_members(pos, rows, v, gamma, csr, ws, grad)
+                for m in range(B):
+                    g_m = gamma if gamma.dim() == 1 else gamma[m].contiguous()
+                    e1, d1 = tk.launch_surface_energy(pos[m].contiguous(), rows, v, g_m, csr,
+                                                      one_ws, grad)
+                    if not (same_bits(torch, e[m:m + 1], e1)
+                            and (not grad or same_bits(torch, dpos[m], d1))):
+                        raise AssertionError(f"{label} B={B} {kind} tension grad={grad} member "
+                                             f"{m} ({name}) differs from its single launch")
+                    want_e, want_g = tk.surface_energy_reference(pos[m], rows, v, g_m, csr, grad)
+                    what = f"{label} B={B} {kind} member {m} ({name})"
+                    errs["surface_energy_members"] = max(
+                        errs["surface_energy_members"],
+                        _sum_check(torch, f"{what} energy", e[m], want_e, WC_ENERGY[name]))
+                    if grad:
+                        errs["surface_grad_members"] = max(
+                            errs["surface_grad_members"],
+                            _sum_check(torch, f"{what} gradient", dpos[m], want_g,
+                                       WC_SURFACE_GRAD[name]))
+                cases += 1
+    torch.cuda.synchronize()
+    return {**errs, "cases": cases}
 
 
 def _seeded_triangles(T: int, seed: int):
@@ -1809,6 +1887,8 @@ def time_kernels(torch, ft, tk, kozlov) -> dict:
 
 def phase_kernels(torch, mods, kozlov, vesicle) -> dict:
     """Phase 3 on the two lanes' topologies: checks, determinism, profile check, timing."""
+    from membrane_solver_tpu_torch.device.state import corner_csr
+
     ft, tk, vs = mods
     errs = {}
     for label, rows, nv, seed in (
@@ -1829,6 +1909,24 @@ def phase_kernels(torch, mods, kozlov, vesicle) -> dict:
         chunk=vs.CHUNK, equal=True, cases=len(curv_cases), names=json.dumps(curv_cases))
     odd = check_unaligned_members(torch, tk)
     say("3 unaligned members", T=301, members=3, equal=True, cases=len(odd))
+    for label, (pos, rows_np, valid_np, _tilts), seed in (
+            ("T=301", _seeded_triangles(301, 47), 47),
+            (f"kozlov T={kozlov.n_tris}", _lane_triangles(kozlov, 53), 53)):
+        rows = torch.as_tensor(rows_np, device=DEVICE)
+        v = torch.as_tensor(valid_np, device=DEVICE)
+        csr = corner_csr(rows, pos.shape[0])
+        tension = np.random.default_rng(seed).uniform(0.5, 2.0, rows.shape[0])
+        for dtype in (torch.float64, torch.float32):
+            d = str(dtype).removeprefix("torch.")
+            base = torch.as_tensor(np.stack([pos, pos * (1 + 1e-3)]), dtype=dtype, device=DEVICE)
+            out = check_surface_members(torch, tk, f"3 {label}", base, rows, v,
+                                        torch.as_tensor(tension, dtype=dtype, device=DEVICE), csr)
+            for key in ("surface_energy_members", "surface_grad_members"):
+                errs[key] = max(errs.get(key, 0.0), out[key])
+            say("3 surface members", inputs=repr(label), dtype=d,
+                widths=json.dumps(surface_member_widths(tk)), cases=out["cases"], equal=True,
+                energy_max_abs_err=repr(out["surface_energy_members"]),
+                grad_max_abs_err=repr(out["surface_grad_members"]))
     check_tri_sets(torch, tk, "3 tri kernels", (
         ("T=301", _seeded_triangles(301, 7), 7, False),
         (f"vesicle T={vesicle.n_tris}", _lane_triangles(vesicle, 17), 17, True),
@@ -3924,7 +4022,9 @@ def member_kernel_inputs(torch, states, seed: int):
 
 def check_member_kernels(torch, tk, vs, topo, pos, tilts, seed: int) -> dict:
     """Each member-axis entry against its member twin (phase 3's bounds) and, member by
-    member, against the single-member kernel (equal bits).  Returns the max abs errors.
+    member, against the single-member kernel (equal bits); kernel 2's member launch also at
+    every width of :func:`surface_member_widths` (:func:`check_surface_members`).  Returns
+    the max abs errors.
     """
     dtype = pos.dtype
     name = str(dtype).removeprefix("torch.")
@@ -3953,6 +4053,10 @@ def check_member_kernels(torch, tk, vs, topo, pos, tilts, seed: int) -> dict:
     errs["surface_grad_members"] = max(
         _sum_check(torch, f"member surface gradient {m} ({name})", dpos[m], want_g[m],
                    WC_SURFACE_GRAD[name]) for m in range(B))
+    # kernel 2's member launch at every width on the members' own positions
+    widths = check_surface_members(torch, tk, "members", pos, rows, v, tension, csr)
+    for key in ("surface_energy_members", "surface_grad_members"):
+        errs[key] = max(errs[key], widths[key])
 
     cd = tk.launch_curvature_data_members(pos, rows, v, csr)
     want_cd = tk.curvature_data_members_reference(pos, rows, v, csr)
@@ -4055,9 +4159,17 @@ def ft_member_rows(torch, ft, topo, n_vertices: int) -> list:
     return out
 
 
+# the kozlov single problem's batched Armijo tail: candidates 1-9 of one problem in one member
+# launch of kernel 2 (runtime/jit_core.py's batched line search)
+ARMIJO_TAIL = 9
+
+
 def member_rows(torch, tk, vs, topo, pos, tilts, ft=None) -> list:
     """(name, kind, fn, inputs, flops) of the member-axis kernels, their twins and a library call;
-    with ``ft`` also kernel 1's member rows (``ft_member_rows``)."""
+    with ``ft`` also kernel 1's member rows (``ft_member_rows``).  Kernel 2's energy also at
+    the Armijo tail's width (``ARMIJO_TAIL`` members: member m the positions of member m mod
+    B scaled by 1 + 1e-4 m); the gradient rows' ``kernels_ms`` split a call between the
+    triangle pass and the vertex sum."""
     dtype = pos.dtype
     B, n = pos.shape[0], pos.shape[1]
     rows, v, csr = topo.tri_rows, topo.tri_valid, topo.corner_csr()
@@ -4080,11 +4192,22 @@ def member_rows(torch, tk, vs, topo, pos, tilts, ft=None) -> list:
     s_in, d_in, b_in = (pos, rows, v, tension), (pos, rows, v), (pos, rows, v, g_kvecs, g_varea)
     div_in = (pos, tilts, rows, v)
     e_flops, g_flops = F["surface_energy"] * T * B, (F["surface_energy"] + F["surface_grad"]) * T * B
+    tail = torch.stack([pos[m % B] * (1 + 1e-4 * m) for m in range(ARMIJO_TAIL)]).contiguous()
+    tail_ws = tk.MemberWorkspace(ARMIJO_TAIL, T, dtype, DEVICE)
+    tail_flops = F["surface_energy"] * T * ARMIJO_TAIL
+    shape_g = tk.launch_p1_divergence_members(pos, tilts, rows, v)[2]
+    g_div = torch.as_tensor(rng.standard_normal((B, T)), dtype=dtype, device=DEVICE)
+    bwd_in, bwd_flops = (shape_g, v, g_div, csr.offsets, csr.slots), F["p1_div_bwd"] * T * B
     return [
         ("surface_energy_members", "kernel", lambda: tk.launch_surface_energy_members(
             pos, rows, v, tension, csr, ws, grad=False), s_in, e_flops),
         ("surface_energy_members", "twin", lambda: tk.surface_energy_members_reference(
             pos, rows, v, tension, csr, False), s_in, e_flops),
+        ("surface_energy_armijo_members", "kernel", lambda: tk.launch_surface_energy_members(
+            tail, rows, v, tension, csr, tail_ws, grad=False), (tail, rows, v, tension),
+         tail_flops),
+        ("surface_energy_armijo_members", "twin", lambda: tk.surface_energy_members_reference(
+            tail, rows, v, tension, csr, False), (tail, rows, v, tension), tail_flops),
         ("surface_energy_grad_members", "kernel", lambda: tk.launch_surface_energy_members(
             pos, rows, v, tension, csr, ws, grad=True), s_in, g_flops),
         ("surface_energy_grad_members", "twin", lambda: tk.surface_energy_members_reference(
@@ -4103,6 +4226,10 @@ def member_rows(torch, tk, vs, topo, pos, tilts, ft=None) -> list:
          div_in, F["p1_div"] * T * B),
         ("p1_div_members", "twin", lambda: tk.p1_divergence_members_reference(pos, tilts, rows, v),
          div_in, F["p1_div"] * T * B),
+        ("p1_div_bwd_members", "kernel", lambda: tk.launch_p1_div_bwd_members(
+            shape_g, v, g_div, csr), bwd_in, bwd_flops),
+        ("p1_div_bwd_members", "twin", lambda: tk.p1_div_vjp_members_reference(
+            shape_g, v, g_div, csr), bwd_in, bwd_flops),
         ("vertex_sum_members", "kernel", lambda: vs.launch_members(corners, csr),
          (corners, csr.offsets, csr.slots), 3 * 3 * T * B),
         ("vertex_sum_members", "twin", lambda: vs.members_reference(corners, csr),
@@ -4122,7 +4249,8 @@ def measure_members(torch, rows: list, dtype_name: str) -> dict:
         moved = _nbytes(inputs) + _nbytes(outputs)
         bound, bound_by = bound_ms(moved, flops, dtype_name)
         recs[(name, kind)] = {"name": name, "kind": kind, "dtype": dtype_name,
-                              **{k: v for k, v in timing.items() if k != "ops"},
+                              **{k: v for k, v in timing.items()
+                                 if k != "ops" and (k != "kernels_ms" or kind == "kernel")},
                               "bytes": moved, "bound_ms": bound, "bound_by": bound_by}
     return recs
 

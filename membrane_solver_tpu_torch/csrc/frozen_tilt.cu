@@ -61,7 +61,7 @@
 // 64,512 at L3), and the vertex sum skips interior rows.  The same adds in
 // the same order as the single call's vertex sum, so the same bits.  The
 // tables (each tile's interior vertices, a corner mask per triangle) are
-// made once per topology (kernels/frozen_tilt.tile_sums).
+// made once per topology (kernels/vertex_sum.tile_sums).
 // The wrapper groups shared inputs by up to 4 once B is above 4 (B = 11:
 // 4, 4, 3), one member a block otherwise: measured at B = 3, 9 and 11,
 // larger groups cost occupancy and one member a block fills more of the card
@@ -268,54 +268,6 @@ __device__ __forceinline__ void store_slab(float* __restrict__ dst, const float*
   }
 }
 
-// Corners of an interior vertex read ahead of its sum (kozlov: 3-16 a vertex).
-constexpr int kAhead = 8;
-
-// An interior vertex's two gradient rows, ((0 + c_0) + c_1) + ... over its
-// corners in CSR slot order (the vertex sum's adds), from the block's corner
-// slab: its first kAhead corners' local indices in ``ahead``, the rest read
-// from ``slots`` (less ``base``, the tile's first corner).
-__device__ __forceinline__ void add_interior(const float* s_corner, const int (&ahead)[kAhead],
-                                             const int32_t* __restrict__ slots, int lo, int hi,
-                                             int base, float* __restrict__ gin_v,
-                                             float* __restrict__ gout_v) {
-  float si[3] = {0.0f, 0.0f, 0.0f}, so[3] = {0.0f, 0.0f, 0.0f};
-#pragma unroll
-  for (int q = 0; q < kAhead; ++q) {
-    if (lo + q < hi) {
-      const float* cr = s_corner + ahead[q] * kCorner;
-#pragma unroll
-      for (int x = 0; x < 3; ++x) {
-        si[x] += cr[x];
-        so[x] += cr[3 + x];
-      }
-    }
-  }
-  for (int s = lo + kAhead; s < hi; ++s) {
-    const float* cr = s_corner + (slots[s] - base) * kCorner;
-#pragma unroll
-    for (int x = 0; x < 3; ++x) {
-      si[x] += cr[x];
-      so[x] += cr[3 + x];
-    }
-  }
-#pragma unroll
-  for (int x = 0; x < 3; ++x) {
-    gin_v[x] = si[x];
-    gout_v[x] = so[x];
-  }
-}
-
-// The CSR range and first kAhead local corners of interior vertex v.
-__device__ __forceinline__ void read_interior(int v, const int32_t* __restrict__ offsets,
-                                              const int32_t* __restrict__ slots, int base,
-                                              int& lo, int& hi, int (&ahead)[kAhead]) {
-  lo = offsets[v];
-  hi = offsets[v + 1];
-#pragma unroll
-  for (int q = 0; q < kAhead; ++q) ahead[q] = lo + q < hi ? slots[lo + q] - base : 0;
-}
-
 // Bytes of the g slab at ``g_slab`` (``here`` triangles) that go by bulk
 // copy: the largest multiple of 16 when it starts on a 16-byte boundary,
 // else none (plain loads).
@@ -426,7 +378,7 @@ __global__ void __launch_bounds__(kThreads)
   // with shared inputs also this thread's first interior vertex and its
   // corners, read while the slabs land (the same for every member)
   int interior_lo = 0, interior_hi = 0, iv = -1, i_lo = 0, i_hi = 0;
-  int i_ahead[kAhead];
+  int i_ahead[vertex_sum::kAhead];
   unsigned int mask = 0;
   if constexpr (kGrad) {
     // no tables (a single call): every corner through the scratch
@@ -437,7 +389,7 @@ __global__ void __launch_bounds__(kThreads)
     mask = live && corner_mask != nullptr ? corner_mask[t] : 0u;
     if (kShared && interior_lo + tid < interior_hi) {
       iv = tile_vertices[interior_lo + tid];
-      read_interior(iv, offsets, slots, 3 * first, i_lo, i_hi, i_ahead);
+      vertex_sum::read_interior(iv, offsets, slots, 3 * first, i_lo, i_hi, i_ahead);
     }
   }
 
@@ -491,16 +443,17 @@ __global__ void __launch_bounds__(kThreads)
       float* gin_m = gin + m * nv * 3;
       float* gout_m = gout + m * nv * 3;
       if (iv >= 0) {
-        add_interior(s_corner, i_ahead, slots, i_lo, i_hi, 3 * first, gin_m + 3 * (int64_t)iv,
-                     gout_m + 3 * (int64_t)iv);
+        vertex_sum::add_interior<float, kCorner>(s_corner, i_ahead, slots, i_lo, i_hi, 3 * first,
+                                                 gin_m + 3 * (int64_t)iv,
+                                                 gout_m + 3 * (int64_t)iv);
       }
       for (int j = interior_lo + tid + (iv >= 0 ? kThreads : 0); j < interior_hi;
            j += kThreads) {
         const int v = tile_vertices[j];
-        int lo, hi, ahead[kAhead];
-        read_interior(v, offsets, slots, 3 * first, lo, hi, ahead);
-        add_interior(s_corner, ahead, slots, lo, hi, 3 * first, gin_m + 3 * (int64_t)v,
-                     gout_m + 3 * (int64_t)v);
+        int lo, hi, ahead[vertex_sum::kAhead];
+        vertex_sum::read_interior(v, offsets, slots, 3 * first, lo, hi, ahead);
+        vertex_sum::add_interior<float, kCorner>(s_corner, ahead, slots, lo, hi, 3 * first,
+                                                 gin_m + 3 * (int64_t)v, gout_m + 3 * (int64_t)v);
       }
     }
   }
@@ -611,7 +564,7 @@ extern "C" int frozen_tilt_vertex(const float* tin, const float* tout, const int
 // ``pay_stride`` floats per member (0: shared, copied once a block); partials (members, blocks of 128 triangles), counter (members,)
 // zeroed (left at zero), energy (members,); with ``grad``, corners
 // (members, T, 3, 6) scratch (the boundary corners' rows) and gin / gout
-// (members, nv, 3), and the tile tables (kernels/frozen_tilt.tile_sums):
+// (members, nv, 3), and the tile tables (kernels/vertex_sum.tile_sums):
 // tile_vertices, tile_offsets, corner_mask and interior.  rows, the CSR, the
 // tables and kv are shared.  Member m is the bits of
 // frozen_tilt_vertex on member m alone, at any group.  cudaErrorInvalidValue

@@ -33,7 +33,9 @@
 // - tri_surface_energy: the surface kernel reads tri_valid and the tension
 //   itself, sums the energy into one scalar and, with the gradient, writes
 //   the corner gradients +dE/dv to a (T, 3, 3) scratch that stays in L2; the
-//   vertex-sum kernel (vertex_sum.cuh) adds them into (Nv, 3).
+//   vertex-sum kernel (vertex_sum.cuh) adds them into (Nv, 3).  It is the
+//   one-member case of the member kernel (below), every corner through the
+//   scratch.
 // - tri_curvature_data: one launch, a lane group per vertex row of the
 //   corner CSR (below): each lane recomputes one slot's triangle and writes
 //   that corner's cotangent and Meyer area (outputs); the group adds the
@@ -94,14 +96,37 @@
 // lost there over the member axis and the backward keeps the tiled
 // two-launch form.
 //
-// The member axis (the parameter sweep, parallel/sweep.py): the *_members
-// entries run the same kernels over B stacked members, one block row per
-// member on the grid's y axis (gridDim.y = B); each kernel offsets its
-// per-member pointers by blockIdx.y, and tri_rows, the masks and the CSR
-// are shared.  A member's arithmetic and reduction order are those of a
-// call on that member alone (gridDim.y = 1, every offset zero), so member m
-// of a B-member call is the single call's bits.  The bytes are B times the
-// per-member ones, less B - 1 reads of the shared rows (which stay in L2).
+// The member axis (the parameter sweep, parallel/sweep.py, and the batched
+// line searches' candidates): the *_members entries run the same kernels
+// over B stacked members, and tri_rows, the masks and the CSR are shared.
+// A member's arithmetic and reduction order are those of a call on that
+// member alone, so member m of a B-member call is the single call's bits.
+// - tri_surface_energy_members: block (x, y) takes tile x for a group of
+//   members (the wrapper's group_size: one up to 9 members, 2 above); it
+//   reads the tile's rows, the mask and a shared tension once for the
+//   group, issues the group's corner loads together and carries each
+//   member's energy through its own block tree into the group's last-block
+//   sum (block_sum::grid_sums, each total the bits of a one-member
+//   launch).  With the gradient, each tile's interior vertices (8,344 of
+//   kozlov L3's 10,817) are summed from the block's corner slab in the
+//   corner CSR's order and written, and only the boundary corners go to the
+//   scratch for the vertex sum, which skips interior rows (the tables are
+//   kernel 1's, kernels/vertex_sum.tile_sums, kept once per corner CSR);
+//   where under half the corners are interior vertices' (a triangle order
+//   whose tiles hold few whole fans), every corner goes through the
+//   scratch, as in the single call.
+//   Measured at kozlov L3 on an H100 (PERF.md; tools/time_surface_members.py,
+//   tools/surface_cut_split.py): larger groups lengthen each block's chain
+//   of dependent steps more than they save, except where the blocks exceed
+//   a wave (72 rows); the in-tile sums take 1.5-4.0 us off the vertex sum
+//   and add 0.9-2.6 us to the triangle pass (its blocks are short, so the
+//   sums sit on their critical path), a gain at float64 and none at
+//   float32.  What bounds the energy is its sum's tail (block tree, fence,
+//   counter, last block): without it the B = 8 launch takes half the time.
+// - the others put the members on the grid's y axis (gridDim.y = B); each
+//   kernel offsets its per-member pointers by blockIdx.y.  The bytes are B
+//   times the per-member ones, less B - 1 reads of the shared rows (which
+//   stay in L2).
 
 #include <cuda_runtime.h>
 
@@ -259,59 +284,179 @@ __device__ __forceinline__ T surface_terms(const V3<T>* v, T g, V3<T>* d) {
   return g * area;
 }
 
-// ``valid`` null: every triangle counts.  ``e_tri`` non-null: the
-// per-triangle energies.  kGrad: the corner gradients to ``dc`` (T, 3, 3).
-// ``partials`` non-null: the energies summed into energy[0] (block_sum.cuh).
-template <typename T, bool kGrad>
-__global__ void __launch_bounds__(kTile)
-    surface_kernel(const T* __restrict__ pos, const int64_t* __restrict__ rows,
-                   const bool* __restrict__ valid, const T* __restrict__ gamma,
-                   T* __restrict__ e_tri, T* __restrict__ dc, double* __restrict__ partials,
-                   unsigned int* __restrict__ counter, T* __restrict__ energy, int n, int64_t nv,
-                   int64_t gamma_stride) {
+// One launch of the surface kernel: its inputs and outputs.  ``valid``
+// null: every triangle counts.  ``e_tri`` non-null (one member): the
+// per-triangle energies.  ``dc`` (members, T, 3, 3): the corner gradients of
+// the corners the vertex sum reads (every corner where ``corner_mask`` is
+// null).  ``partials`` non-null: each member's energy summed into its
+// ``energy`` (block_sum.cuh).  With the tile tables (``corner_mask`` non-null,
+// vertex_sum.cuh's in-tile sums) the block sums each interior vertex's
+// gradient into ``dpos`` (members, nv, 3) and ``interior`` tells the vertex
+// sum which rows to skip.
+template <typename T>
+struct Surface {
+  const T* pos;
+  const int64_t* rows;
+  const bool* valid;
+  const T* gamma;
+  int64_t gamma_stride;  // 0: one tension shared by the members
+  T* e_tri;
+  T* dc;
+  const int32_t* offsets;
+  const int32_t* slots;
+  const int32_t* tile_vertices;
+  const int32_t* tile_offsets;
+  const uint8_t* corner_mask;
+  const uint8_t* interior;
+  T* dpos;
+  double* partials;
+  unsigned int* counter;
+  T* energy;
+  int n;
+  int64_t nv;
+  int members;
+};
+
+// Block (x, y): the tile x of kTile triangles for the group of members
+// y * kM .. y * kM + kM - 1 (the last group may hold fewer).  The block reads
+// the tile's rows, the mask and a shared tension once for the group and
+// issues the group's 9 kM corner loads together; each member's energy takes
+// the block tree of a one-member launch into its own partial, and the
+// group's last block adds each member's partials in block order
+// (block_sum::grid_sums), so member m is the bits of a call on it alone.
+// kGrad: each member's corner gradients go through the block's corner slab:
+// to ``dc`` as a coalesced slab (no tables) or only the corners the mask
+// names, and the tile's interior vertices summed from the slab into dpos.
+template <typename T, bool kGrad, int kM>
+__global__ void __launch_bounds__(kTile) surface_kernel(const Surface<T> a) {
   __shared__ alignas(16) int64_t s_rows[3 * kTile];
-  __shared__ alignas(16) T s_dc[kGrad ? 9 * kTile : 4];
-  // member blockIdx.y: its positions, tension (gamma_stride 0: shared),
-  // outputs and partials; the rows and the mask are shared
-  const int64_t member = blockIdx.y;
-  pos += member * nv * 3;
-  gamma += member * gamma_stride;
-  if (e_tri != nullptr) e_tri += member * n;
-  if constexpr (kGrad) dc += member * 9 * (int64_t)n;
-  if (partials != nullptr) {
-    partials += member * gridDim.x;
-    counter += member;
-    energy += member;
-  }
+  __shared__ alignas(16) T s_dc[kGrad ? 9 * kTile : 2];
+  // the group's first member: its positions, tension, outputs and partials;
+  // the group's counter; the rows, the mask, the CSR and the tables shared
+  const int64_t first_member = (int64_t)blockIdx.y * kM;
+  const int here_m = a.members - first_member < kM ? (int)(a.members - first_member) : kM;
+  const int64_t nv = a.nv;
+  const int n = a.n;
+  const T* __restrict__ pos = a.pos + first_member * nv * 3;
+  const T* __restrict__ gamma = a.gamma + first_member * a.gamma_stride;
   const int tid = threadIdx.x;
   const int first = blockIdx.x * kTile;
   const int here = min(kTile, n - first);
-  load_rows(rows, first, here, s_rows);
 
-  double e_thread = 0.0;
-  if (tid < here) {
-    const int t = first + tid;
-    V3<T> v[3], d[3];
-    const bool ok = gather(pos, s_rows + 3 * tid, nv, v);
-    const T g = (valid == nullptr || valid[t]) ? gamma[t] : T(0);
-    T e = surface_terms(v, g, d);
+  // with the tables, this thread's first interior vertex of the tile and its
+  // corners, read while the rows land (the same for every member)
+  int interior_lo = 0, interior_hi = 0, iv = -1, i_lo = 0, i_hi = 0;
+  int i_ahead[vertex_sum::kAhead];
+  unsigned int mask = 0;  // with the tables: bit k set where corner k goes to the scratch
+  if constexpr (kGrad) {
+    if (a.corner_mask != nullptr) {
+      interior_lo = a.tile_offsets[blockIdx.x];
+      interior_hi = a.tile_offsets[blockIdx.x + 1];
+      mask = tid < here ? a.corner_mask[first + tid] : 0u;
+      if (interior_lo + tid < interior_hi) {
+        iv = a.tile_vertices[interior_lo + tid];
+        vertex_sum::read_interior(iv, a.offsets, a.slots, 3 * first, i_lo, i_hi, i_ahead);
+      }
+    }
+  }
+  load_rows(a.rows, first, here, s_rows);
+
+  // the rows once, then every member's corners: 9 kM loads in flight (a bad
+  // row gives NaN)
+  const bool live = tid < here;
+  const int t = first + tid;
+  bool ok = live;
+  int64_t r[3] = {0, 0, 0};
+  if (live) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      r[k] = s_rows[3 * tid + k];
+      if (r[k] < 0 || r[k] >= nv) {
+        ok = false;
+        r[k] = 0;
+      }
+    }
+  }
+  V3<T> v[kM][3];
+#pragma unroll
+  for (int m = 0; m < kM; ++m) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const T* x = pos + m * nv * 3 + 3 * r[k];
+      v[m][k] = ok && m < here_m ? V3<T>{__ldg(x), __ldg(x + 1), __ldg(x + 2)}
+                                 : V3<T>{T(0), T(0), T(0)};
+    }
+  }
+  const bool counted = live && (a.valid == nullptr || a.valid[t]);
+  const T g_shared = counted ? gamma[t] : T(0);
+
+  // each member's energy and corner gradients
+  double e_thread[kM];
+  V3<T> d[kM][3];
+#pragma unroll
+  for (int m = 0; m < kM; ++m) {
+    e_thread[m] = 0.0;
+    if (!live || m >= here_m) continue;
+    const T g = (a.gamma_stride == 0 || m == 0) ? g_shared
+                                                 : (counted ? gamma[m * a.gamma_stride + t] : T(0));
+    T e = surface_terms(v[m], g, d[m]);
     if (!ok) {
       const T q = nan_of<T>();
       const V3<T> qv = {q, q, q};
       e = q;
-      d[0] = d[1] = d[2] = qv;
+      d[m][0] = d[m][1] = d[m][2] = qv;
     }
-    if (e_tri != nullptr) e_tri[t] = e;
-    e_thread = (double)e;
-    if constexpr (kGrad) put_corners(s_dc, tid, d);
+    if (a.e_tri != nullptr) a.e_tri[t] = e;
+    e_thread[m] = (double)e;
   }
   if constexpr (kGrad) {
-    __syncthreads();
-    store_slab(dc + 9 * (int64_t)first, s_dc, 9 * here);
+#pragma unroll
+    for (int m = 0; m < kM; ++m) {
+      if (m >= here_m) break;  // the same for the whole block
+      T* dc = a.dc + (first_member + m) * 9 * (int64_t)n;
+      if (m > 0) __syncthreads();  // the last member's sums have read the corner slab
+      if (live) {
+        put_corners(s_dc, tid, d[m]);
+        if (a.corner_mask != nullptr) {
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            if (mask & (1u << k)) store(dc, 3 * t + k, d[m][k]);
+          }
+        }
+      }
+      __syncthreads();
+      if (a.corner_mask == nullptr) {
+        store_slab(dc + 9 * (int64_t)first, s_dc, 9 * here);
+      } else {
+        // interior vertices: ((0 + c_0) + c_1) + ... over the vertex's
+        // corners in CSR slot order, as the vertex sum adds
+        T* dpos = a.dpos + (first_member + m) * nv * 3;
+        if (iv >= 0) {
+          vertex_sum::add_interior<T, 3>(s_dc, i_ahead, a.slots, i_lo, i_hi, 3 * first,
+                                         dpos + 3 * (int64_t)iv, nullptr);
+        }
+        for (int j = interior_lo + tid + kTile; j < interior_hi; j += kTile) {
+          const int w = a.tile_vertices[j];
+          int lo, hi, ahead[vertex_sum::kAhead];
+          vertex_sum::read_interior(w, a.offsets, a.slots, 3 * first, lo, hi, ahead);
+          vertex_sum::add_interior<T, 3>(s_dc, ahead, a.slots, lo, hi, 3 * first,
+                                         dpos + 3 * (int64_t)w, nullptr);
+        }
+      }
+    }
   }
-  if (partials != nullptr) {
-    double total;
-    if (block_sum::grid_sum<kTile>(e_thread, partials, counter, &total)) energy[0] = (T)total;
+  // each member's energy: block partials, added in block order by the
+  // group's last block (last: the gradient's stores and sums before it
+  // measured faster than after it)
+  if (a.partials != nullptr) {
+    double total[kM];
+    if (block_sum::grid_sums<kTile, kM>(e_thread, here_m, a.partials + first_member * gridDim.x,
+                                        a.counter + blockIdx.y, total)) {
+#pragma unroll
+      for (int m = 0; m < kM; ++m) {
+        if (m < here_m) a.energy[first_member + m] = (T)total[m];
+      }
+    }
   }
 }
 
@@ -722,30 +867,41 @@ inline dim3 tiles_for(int n, int members = 1) {
   return dim3((unsigned int)((n + kTile - 1) / kTile), (unsigned int)members);
 }
 
-template <typename T>
-void surface(const T* pos, const int64_t* rows, const bool* valid, const T* gamma, T* e_tri,
-             T* dc, double* partials, unsigned int* counter, T* energy, int n, int64_t nv,
-             bool grad, cudaStream_t st, int members = 1, int64_t gamma_stride = 0) {
-  if (grad) {
-    surface_kernel<T, true><<<tiles_for(n, members), kTile, 0, st>>>(
-        pos, rows, valid, gamma, e_tri, dc, partials, counter, energy, n, nv, gamma_stride);
-  } else {
-    surface_kernel<T, false><<<tiles_for(n, members), kTile, 0, st>>>(
-        pos, rows, valid, gamma, e_tri, nullptr, partials, counter, energy, n, nv, gamma_stride);
-  }
+// The largest group of members a block of the surface kernel takes.
+constexpr int kMaxGroup = 4;
+
+template <typename T, bool kGrad, int kM>
+void surface_group(const Surface<T>& a, cudaStream_t st) {
+  const dim3 grid((unsigned int)((a.n + kTile - 1) / kTile),
+                  (unsigned int)((a.members + kM - 1) / kM));
+  surface_kernel<T, kGrad, kM><<<grid, kTile, 0, st>>>(a);
 }
 
-template <typename T>
-void surface_energy(const T* pos, const int64_t* rows, const bool* valid, const T* tension,
-                    int64_t tension_stride, const int32_t* offsets, const int32_t* slots,
-                    T* dc_scratch, double* partials, unsigned int* counter, T* energy, T* dpos,
-                    int n, int64_t nv, bool grad, int members, cudaStream_t st) {
-  surface<T>(pos, rows, valid, tension, nullptr, dc_scratch, partials, counter, energy, n, nv,
-             grad, st, members, tension_stride);
-  if (grad) {
-    vertex_sum::launch<T, 3>(offsets, slots, dc_scratch, dpos, nullptr, nullptr, (int)nv, st,
-                             members, 3 * (int64_t)n);
+template <typename T, bool kGrad>
+bool surface_groups(const Surface<T>& a, int group, cudaStream_t st) {
+  switch (group) {
+    case 1: surface_group<T, kGrad, 1>(a, st); break;
+    case 2: surface_group<T, kGrad, 2>(a, st); break;
+    case 3: surface_group<T, kGrad, 3>(a, st); break;
+    case 4: surface_group<T, kGrad, 4>(a, st); break;
+    default: return false;
   }
+  return true;
+}
+
+// The surface kernel in groups of ``group`` members and, with the gradient
+// and the CSR, the vertex sum of each member's rows (the boundary ones with
+// the tables).  cudaErrorInvalidValue for another group.
+template <typename T>
+int surface(const Surface<T>& a, bool grad, int group, cudaStream_t st) {
+  const bool launched = grad ? surface_groups<T, true>(a, group, st)
+                             : surface_groups<T, false>(a, group, st);
+  if (!launched) return (int)cudaErrorInvalidValue;
+  if (grad && a.offsets != nullptr) {
+    vertex_sum::launch<T, 3>(a.offsets, a.slots, a.dc, a.dpos, nullptr, nullptr, (int)a.nv, st,
+                             a.members, 3 * (int64_t)a.n, a.interior);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -762,69 +918,89 @@ extern "C" int tri_tile_size() { return kTile; }
 // Per-triangle energies e (T,) and corner gradients (T, 3, 3), no mask.
 extern "C" int tri_surface_fwd(int f64, const void* pos, const int64_t* rows, const void* gamma,
                                void* energy, void* grads, int n, int64_t nv, void* stream) {
-  if (n > 0) {
-    cudaStream_t st = (cudaStream_t)stream;
-    if (f64) {
-      surface<double>((const double*)pos, rows, nullptr, (const double*)gamma, (double*)energy,
-                      (double*)grads, nullptr, nullptr, nullptr, n, nv, true, st);
-    } else {
-      surface<float>((const float*)pos, rows, nullptr, (const float*)gamma, (float*)energy,
-                     (float*)grads, nullptr, nullptr, nullptr, n, nv, true, st);
-    }
+  if (n < 1) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (f64) {
+    const Surface<double> a{(const double*)pos, rows, nullptr, (const double*)gamma, 0,
+                            (double*)energy, (double*)grads, nullptr, nullptr, nullptr, nullptr,
+                            nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, n, nv, 1};
+    return surface(a, true, 1, st);
   }
-  return (int)cudaGetLastError();
+  const Surface<float> a{(const float*)pos, rows, nullptr, (const float*)gamma, 0,
+                         (float*)energy, (float*)grads, nullptr, nullptr, nullptr, nullptr,
+                         nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, n, nv, 1};
+  return surface(a, true, 1, st);
 }
+
+namespace {
+
+template <typename T>
+int surface_energy(const void* pos, const int64_t* rows, const bool* valid,
+                   const void* tension, int64_t tension_stride, const int32_t* offsets,
+                   const int32_t* slots, const int32_t* tile_vertices,
+                   const int32_t* tile_offsets, const uint8_t* corner_mask,
+                   const uint8_t* interior, void* dc_scratch, double* partials,
+                   unsigned int* counter, void* energy, void* dpos, int n, int64_t nv, int grad,
+                   int members, int group, cudaStream_t st) {
+  const Surface<T> a{(const T*)pos, rows, valid, (const T*)tension, tension_stride, nullptr,
+                     (T*)dc_scratch, offsets, slots, tile_vertices, tile_offsets, corner_mask,
+                     interior, (T*)dpos, partials, counter, (T*)energy, n, nv, members};
+  return surface(a, grad != 0, group, st);
+}
+
+}  // namespace
 
 // The surface energy sum_t [valid_t] tension_t A_t into energy (1,) and,
 // with ``grad``, its gradient dpos (Nv, 3) summed over the corner CSR
-// (offsets (Nv + 1,), slots (3T,)) from the (T, 3, 3) dc_scratch.  partials
-// holds one double per block of tri_tile_size() triangles, counter one
-// zeroed uint32 (left at zero).  cudaErrorInvalidValue for n < 1.
+// (offsets (Nv + 1,), slots (3T,)) from the (T, 3, 3) dc_scratch, every
+// corner through it (one member: a launch of one wave, which the in-tile
+// sums would lengthen).  partials holds one double per block of
+// tri_tile_size() triangles, counter one zeroed uint32 (left at zero).
+// cudaErrorInvalidValue for n < 1.
 extern "C" int tri_surface_energy(int f64, const void* pos, const int64_t* rows,
                                   const bool* valid, const void* tension, const int32_t* offsets,
                                   const int32_t* slots, void* dc_scratch, double* partials,
                                   unsigned int* counter, void* energy, void* dpos, int n,
                                   int64_t nv, int grad, void* stream) {
   if (n < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (f64) {
-    surface_energy<double>((const double*)pos, rows, valid, (const double*)tension, 0, offsets,
-                           slots, (double*)dc_scratch, partials, counter, (double*)energy,
-                           (double*)dpos, n, nv, grad, 1, st);
-  } else {
-    surface_energy<float>((const float*)pos, rows, valid, (const float*)tension, 0, offsets,
-                          slots, (float*)dc_scratch, partials, counter, (float*)energy,
-                          (float*)dpos, n, nv, grad, 1, st);
-  }
-  return (int)cudaGetLastError();
+  const auto fn = f64 ? surface_energy<double> : surface_energy<float>;
+  return fn(pos, rows, valid, tension, 0, offsets, slots, nullptr, nullptr, nullptr, nullptr,
+            dc_scratch, partials, counter, energy, dpos, n, nv, grad, 1, 1,
+            (cudaStream_t)stream);
 }
 
-// The member axis of the parameter sweep: ``members`` stacked members in one
-// call, pos (members, nv, 3), tension (members, n) with tension_stride n or
-// one shared (n,) with tension_stride 0, dc_scratch (members, n, 3, 3),
-// partials (members, tri_tile_size() blocks), counter (members,) zeroed,
-// energy (members,), dpos (members, nv, 3); rows, valid and the CSR shared.
-// Member m's outputs are the bits of tri_surface_energy on member m alone.
+// The member axis: ``members`` stacked members in one call, ``group``
+// members a block (1 to tri_surface_max_group(); the last group may hold
+// fewer): pos (members, nv, 3), tension (members, n) with tension_stride n
+// or one shared (n,) with tension_stride 0, partials (members,
+// tri_tile_size() blocks), counter (one zeroed uint32 a group, left at
+// zero), energy (members,); with ``grad``, dpos (members, nv, 3),
+// dc_scratch (members, n, 3, 3) and either the tile tables of the corner
+// CSR (kernels/vertex_sum.tile_sums: tile_vertices, tile_offsets,
+// corner_mask, interior; only the boundary corners' rows then go through
+// the scratch) or none (null: every corner through it).  rows,
+// valid, the CSR and the tables are shared.  Member m's outputs are the
+// bits of tri_surface_energy on member m alone, at any group.
+// cudaErrorInvalidValue for n < 1, members < 1 or another group.
 extern "C" int tri_surface_energy_members(int f64, const void* pos, const int64_t* rows,
                                           const bool* valid, const void* tension,
                                           int64_t tension_stride, const int32_t* offsets,
-                                          const int32_t* slots, void* dc_scratch,
-                                          double* partials, unsigned int* counter, void* energy,
-                                          void* dpos, int n, int64_t nv, int grad, int members,
+                                          const int32_t* slots, const int32_t* tile_vertices,
+                                          const int32_t* tile_offsets,
+                                          const uint8_t* corner_mask, const uint8_t* interior,
+                                          void* dc_scratch, double* partials,
+                                          unsigned int* counter, void* energy, void* dpos, int n,
+                                          int64_t nv, int grad, int members, int group,
                                           void* stream) {
   if (n < 1 || members < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (f64) {
-    surface_energy<double>((const double*)pos, rows, valid, (const double*)tension,
-                           tension_stride, offsets, slots, (double*)dc_scratch, partials,
-                           counter, (double*)energy, (double*)dpos, n, nv, grad, members, st);
-  } else {
-    surface_energy<float>((const float*)pos, rows, valid, (const float*)tension, tension_stride,
-                          offsets, slots, (float*)dc_scratch, partials, counter, (float*)energy,
-                          (float*)dpos, n, nv, grad, members, st);
-  }
-  return (int)cudaGetLastError();
+  const auto fn = f64 ? surface_energy<double> : surface_energy<float>;
+  return fn(pos, rows, valid, tension, tension_stride, offsets, slots, tile_vertices,
+            tile_offsets, corner_mask, interior, dc_scratch, partials, counter, energy, dpos, n,
+            nv, grad, members, group, (cudaStream_t)stream);
 }
+
+// The largest ``group`` tri_surface_energy_members takes.
+extern "C" int tri_surface_max_group() { return kMaxGroup; }
 
 extern "C" int tri_curvature_fwd(int f64, const void* pos, const int64_t* rows, const bool* valid,
                                  void* cot, void* kv, void* va, void* tri_area, int n, int64_t nv,

@@ -70,9 +70,10 @@ __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(
 // output at m * n rows; the CSR and the mask are shared.  With one member
 // (gridDim.y = 1) every offset is zero.  kPaired: both width-3 sources lie
 // in one array of 6-float corner rows (a's three values, then b's; src_b
-// unused), a corner three 8-byte loads where two 12-byte rows took six, and
-// a row whose ``mask`` entry is set (a null mask: none) is skipped (its sum
-// is written elsewhere: a frozen-tilt member gradient's interior vertices).
+// unused), a corner three 8-byte loads where two 12-byte rows took six.
+// Unweighted, a row whose ``mask`` entry is set (a null mask: none) is
+// skipped: its sum is written elsewhere (a member gradient's interior
+// vertices, summed in the triangle pass: add_interior below).
 template <typename T, int Wa, int Wb, bool kWeighted, bool kPaired = false>
 __global__ void __launch_bounds__(kRowsPerBlock)
     vertex_sum_kernel(const int32_t* __restrict__ offsets, const int32_t* __restrict__ slots,
@@ -85,7 +86,7 @@ __global__ void __launch_bounds__(kRowsPerBlock)
   constexpr int kRowA = kPaired ? 6 : Wa;  // floats between source a's corner rows
   const int v = blockIdx.x * kRowsPerBlock + threadIdx.x;
   if (v >= n) return;
-  if constexpr (kPaired) {
+  if constexpr (!kWeighted) {
     if (mask != nullptr && mask[v]) return;
   }
   const int64_t member = blockIdx.y;
@@ -166,16 +167,18 @@ inline dim3 vertex_grid(int n, int members) {
 }
 
 // Launches on ``stream``; n vertices, ``members`` stacked members of
-// ``src_rows`` corner rows each (src_rows is read only with members > 1).
+// ``src_rows`` corner rows each (src_rows is read only with members > 1);
+// the rows where ``skip`` (n,; null: none) is set are left as they are.
 // Returns nothing: the caller checks cudaGetLastError() once for its whole
 // launch sequence.
 template <typename T, int Wa, int Wb = 0>
 inline void launch(const int32_t* offsets, const int32_t* slots, const T* src_a, T* out_a,
                    const T* src_b, T* out_b, int n, cudaStream_t stream, int members = 1,
-                   int64_t src_rows = 0) {
+                   int64_t src_rows = 0, const uint8_t* skip = nullptr) {
   if (n > 0 && members > 0) {
     vertex_sum_kernel<T, Wa, Wb, false><<<vertex_grid(n, members), kRowsPerBlock, 0, stream>>>(
-        offsets, slots, src_a, out_a, src_b, out_b, nullptr, nullptr, n, src_rows);
+        offsets, slots, src_a, out_a, src_b, out_b, nullptr,
+        reinterpret_cast<const bool*>(skip), n, src_rows);
   }
 }
 
@@ -202,6 +205,64 @@ inline void launch_weighted(const int32_t* offsets, const int32_t* slots, const 
   if (n > 0 && members > 0) {
     vertex_sum_kernel<T, W, 0, true><<<vertex_grid(n, members), kRowsPerBlock, 0, stream>>>(
         offsets, slots, src, out, nullptr, nullptr, weight, mask, n, src_rows);
+  }
+}
+
+// ---------------------------------------------------------------------
+// in-tile sums: a member gradient's interior vertices in the triangle pass
+// ---------------------------------------------------------------------
+// A vertex whose corners all lie in one tile of triangles (kernels/
+// vertex_sum.tile_sums: the tile's interior vertices) is summed by the
+// tile's block from its shared-memory corner slab, W values a corner
+// (local corner k = slot - 3 * first triangle at s_corner + k * W), in the
+// corner CSR's slot order from +0: the adds the vertex sum would make on
+// the same values, so the same bits.  The vertex sum then skips those rows.
+
+// Corners of an interior vertex read ahead of its sum (kozlov: 3-16 a vertex).
+constexpr int kAhead = 8;
+
+// The CSR range and first kAhead local corners of interior vertex v.
+__device__ __forceinline__ void read_interior(int v, const int32_t* __restrict__ offsets,
+                                              const int32_t* __restrict__ slots, int base,
+                                              int& lo, int& hi, int (&ahead)[kAhead]) {
+  lo = offsets[v];
+  hi = offsets[v + 1];
+#pragma unroll
+  for (int q = 0; q < kAhead; ++q) ahead[q] = lo + q < hi ? slots[lo + q] - base : 0;
+}
+
+// An interior vertex's row, ((0 + c_0) + c_1) + ... over its corners in CSR
+// slot order, from the corner slab: its first kAhead corners' local indices
+// in ``ahead``, the rest read from ``slots`` (less ``base``, the tile's first
+// corner).  W = 3: the row to out_a; W = 6: two width-3 rows, values 0-2 to
+// out_a and 3-5 to out_b.
+template <typename T, int W>
+__device__ __forceinline__ void add_interior(const T* s_corner, const int (&ahead)[kAhead],
+                                             const int32_t* __restrict__ slots, int lo, int hi,
+                                             int base, T* __restrict__ out_a,
+                                             T* __restrict__ out_b) {
+  static_assert(W == 3 || W == 6, "one or two width-3 rows");
+  T acc[W];
+#pragma unroll
+  for (int x = 0; x < W; ++x) acc[x] = T(0);
+#pragma unroll
+  for (int q = 0; q < kAhead; ++q) {
+    if (lo + q < hi) {
+      const T* cr = s_corner + ahead[q] * W;
+#pragma unroll
+      for (int x = 0; x < W; ++x) acc[x] += cr[x];
+    }
+  }
+  for (int s = lo + kAhead; s < hi; ++s) {
+    const T* cr = s_corner + (slots[s] - base) * W;
+#pragma unroll
+    for (int x = 0; x < W; ++x) acc[x] += cr[x];
+  }
+#pragma unroll
+  for (int x = 0; x < 3; ++x) out_a[x] = acc[x];
+  if constexpr (W == 6) {
+#pragma unroll
+    for (int x = 0; x < 3; ++x) out_b[x] = acc[3 + x];
   }
 }
 

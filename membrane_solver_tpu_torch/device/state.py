@@ -306,6 +306,9 @@ class CompiledProblem:
 
 
 # Mode-like global parameters captured in the spec (as in the JAX package).
+# No value is checked here: each module reads its key by the JAX package's
+# rule (case and whitespace included), and a value the JAX package rejects
+# raises its ValueError where the JAX package raises it.
 _STATIC_PARAM_KEYS: Tuple[str, ...] = (
     "bending_energy_model",
     "bending_gradient_mode",
@@ -347,97 +350,6 @@ _STATIC_PARAM_KEYS: Tuple[str, ...] = (
     "tilt_rim_source_edge_mode",
 )
 
-# The values of the static options that the port implements: the kozlov
-# coupled-tilt lane's own and its solver options (the reduced-energy line
-# search, the unpreconditioned CG with its GD retry, the per-pass projection
-# cadence, the inner-coupled delta cap, the curved-theta ablation, the
-# reference-exact rim KKT skip, the ring-average, shared-rim staggered and
-# physical-edge rim matching, the axisymmetric tilt projection, the
-# scaffold-trace lane's rejected-step ``trace_z`` fallback, trace-boundary
-# stencil and trace-reconstructed divergence), the single-field tilt
-# lane's, the bending models, the leaflet tilt-field energies' (the consistent
-# and diagonal tilt mass, the splay-twist divergence modes, the rim sources'
-# edge selection), the bending-tilt inner update modes, plus the defaults
-# that select the same branches.  Any other value raises NotImplementedError
-# when the problem is compiled; a value the JAX package rejects raises its
-# ValueError instead (``_VALID_STATIC_VALUES``).
-_PORTED_STATIC_VALUES: Dict[str, Tuple[str, ...]] = {
-    "bending_energy_model": ("helfrich", "willmore"),
-    "bending_gradient_mode": ("analytic",),
-    "tilt_solver": ("cg", "gd"),
-    "tilt_solve_mode": ("coupled", "nested", "fixed"),
-    "tilt_transport_model": ("ambient_v1", "connection_v1"),
-    "shape_scaffold_rejected_step_fallback": ("off", "trace_z"),
-    "rim_slope_match_mode": ("pointwise_radial_v1", "ring_average_radial_v1",
-                             "shared_rim_staggered_v1", "physical_edge_staggered_v1"),
-    # diagonal: the lumped energy, and the frozen-tilt kernel steps aside (the
-    # JAX package's gate reads any value but lumped so)
-    "tilt_mass_mode": ("lumped", "consistent", "diagonal"),
-    "tilt_mass_mode_in": ("lumped", "consistent", "diagonal"),
-    "tilt_mass_mode_out": ("lumped", "consistent", "diagonal"),
-    "tilt_divergence_mode": ("native", "vertex_recovered"),
-    "tilt_divergence_mode_in": ("native", "vertex_recovered"),
-    "tilt_rim_source_edge_mode": ("boundary", "all"),
-    "tilt_projection_cadence": ("per_step", "per_pass"),
-    "inner_coupled_update_mode": ("off", "rim_matched_radial_continuation_v1"),
-    "curved_theta_objective_ablation_mode": ("off", "inner_outer_rescaled"),
-    "bending_tilt_in_update_mode": ("off", "outer_near_divergence_cap_v1",
-                                    "radial_cross_term_off_v1"),
-    "bending_tilt_interface_divergence_mode": ("p1_triangle", "trace_reconstructed_v1"),
-    "bending_tilt_interface_divergence_mode_out": ("p1_triangle", "trace_reconstructed_v1"),
-    "bending_tilt_out_interface_divergence_mode": ("p1_triangle", "trace_reconstructed_v1"),
-    "bending_tilt_in_scaffold_shape_stencil_mode": ("off", "trace_boundary_v1"),
-    # the energy-spike guard of the per-iteration leaflet relax
-    # (tilt_relax_energy_guard_factor > 0)
-    "tilt_guard": ("on",),
-    # tilt_axisymmetric_about_thetaB_center
-    "tilt_axisym": ("on",),
-}
-
-# Values the JAX package accepts but the port does not run yet: a value of
-# these keys outside the ported and the not-yet-ported sets is not a value of
-# the JAX package at all, and raises the ValueError the JAX package raises
-# there (with its text), where the JAX package raises it: the rim mode when
-# the rim module compiles, the cadence when the leaflet relax is built, the
-# ablation when the energy is assembled, the bending-tilt interface
-# divergence, scaffold stencil and inner update modes when the bending-tilt
-# energies are made.
-_VALID_STATIC_VALUES: Dict[str, Tuple[str, ...]] = {
-    "rim_slope_match_mode": (),
-    "tilt_projection_cadence": (),
-    "inner_coupled_update_mode": (),
-    "curved_theta_objective_ablation_mode": (),
-    "bending_tilt_interface_divergence_mode": (),
-    "bending_tilt_interface_divergence_mode_out": (),
-    "bending_tilt_out_interface_divergence_mode": (),
-    "bending_tilt_in_scaffold_shape_stencil_mode": (),
-    "bending_tilt_in_update_mode": (),
-}
-
-# Read by the JAX package only as documentation, by unported modules, or
-# under a rule that gives every value a meaning (a switch that is on for a
-# few words and off otherwise: the reduced line search, the preconditioner,
-# the CG's GD retry, the rim KKT rows; ``theory_parity_lane``, on for any
-# non-empty value: the recovered inner divergence of ``bending_tilt_in``
-# and, on the physical-edge trace lanes, the trace-layer row weights of
-# ``tilt_in``/``tilt_out``; a selector whose unknown values select the
-# default: the ablation's lane gates, the theta_B contact term's legacy
-# penalty (on for legacy, on, true, 1) and field-linear work mode, the
-# bending-tilt flat reference base term (on for flat_reference_zero_J0);
-# tilt_coupling reads an unknown mode as off); the port runs them at every
-# value.  The reduced
-# line search's accept rule raises the JAX package's ValueError when the
-# minimize block is built with the reduced line search on.
-_IGNORED_STATIC_KEYS = frozenset({
-    "tilt_kkt_projection_during_relaxation", "tilt_coupling_mode", "tilt_couping_mode",
-    "line_search_reduced_energy", "line_search_reduced_accept_rule", "tilt_cg_preconditioner",
-    "tilt_cg_rejection_fallback", "rim_slope_match_kkt_rows", "benchmark_geometry_lane",
-    "benchmark_parameterization", "theory_parity_lane", "tilt_thetaB_contact_penalty_mode",
-    "tilt_thetaB_contact_work_mode", "bending_tilt_base_term_reference_mode",
-    "bending_tilt_base_term_reference_mode_in", "bending_tilt_base_term_reference_mode_out",
-})
-
-
 def collect_static_options(gp) -> Tuple[Tuple[str, str], ...]:
     out = []
     for key in _STATIC_PARAM_KEYS:
@@ -450,26 +362,6 @@ def collect_static_options(gp) -> Tuple[Tuple[str, str], ...]:
     if guard is not None and float(guard) > 0.0:
         out.append(("tilt_guard", "on"))
     return tuple(out)
-
-
-def check_ported_options(static_options) -> None:
-    """Raise NotImplementedError for a static option the port does not run.
-
-    Values outside the JAX package's own set pass here for the keys of
-    ``_VALID_STATIC_VALUES``: they raise its ValueError later, where it does.
-    """
-    for key, val in static_options:
-        if key in _IGNORED_STATIC_KEYS:
-            continue
-        allowed = _PORTED_STATIC_VALUES.get(key)
-        v = val.strip().lower()
-        if allowed is not None and v in allowed:
-            continue
-        if key in _VALID_STATIC_VALUES and v not in _VALID_STATIC_VALUES[key]:
-            continue
-        raise NotImplementedError(
-            f"static option {key}={val!r} is not ported to membrane_solver_tpu_torch"
-        )
 
 
 def compile_core_extras(layout: "CompileLayout", tri_rows_np: np.ndarray) -> Dict[str, np.ndarray]:
@@ -624,7 +516,6 @@ def compile_state(
     COMPILES["compile_state"] += 1
     gp = mesh.global_parameters
     static_options = collect_static_options(gp)
-    check_ported_options(static_options)
     energy_names = tuple(mesh.energy_modules if energy_modules is None else energy_modules)
     constraint_names = tuple(
         mesh.constraint_modules if constraint_modules is None else constraint_modules

@@ -32,8 +32,9 @@ and with a tilt that requires grad both vertex gradients, in one
 group of members (:func:`group_size`), reads the tile's rows once and
 copies shared g and payload slabs once for the group.  With the gradient,
 the block sums its tile's interior vertices itself and sends only the
-other corners through the scratch to the vertex sum (:class:`TileSums`,
-kept per topology on the CSR).  Member m is the bits of the single call on
+other corners through the scratch to the vertex sum
+(:func:`~membrane_solver_tpu_torch.kernels.vertex_sum.tile_sums`, kept per
+topology on the CSR).  Member m is the bits of the single call on
 member m.  Its backward scales each
 member's gradients.  The member-batched leaflet relax
 (``runtime/tilt_relax``) calls it directly; under ``torch.func.vmap`` over
@@ -52,7 +53,6 @@ k_out, kappa_in, kappa_out, ks_in, ks_out].
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 
 import torch
 
@@ -67,7 +67,7 @@ LAUNCHES = {"energy": 0, "energy_grad": 0, "energy_members": 0, "energy_grad_mem
 
 KERNEL = _build.Source("frozen_tilt")
 SOURCE = KERNEL.path
-BLOCK = 128  # triangles per block: one energy partial each (csrc/frozen_tilt.cu kThreads)
+BLOCK = vs.TILE  # triangles per block: one energy partial each (csrc/frozen_tilt.cu kThreads)
 CORNER = 6  # floats of a corner-gradient row (csrc/frozen_tilt.cu kCorner)
 # members a block of the member launch takes at most (g and the payload shared): the fastest
 # at kozlov L3 on an H100 (PERF.md); the kernel is built for groups of 1 to its kMaxGroup
@@ -205,95 +205,11 @@ def build() -> ctypes.CDLL:
     return lib
 
 
-@dataclasses.dataclass(frozen=True)
-class TileSums:
-    """Which vertex sums of a member gradient launch run inside the triangle pass (one topology).
-
-    A vertex whose corners all lie in one ``BLOCK``-triangle tile is interior
-    to it: the tile's block adds its corner gradients from shared memory in
-    the corner CSR's order and writes the vertex rows.  The other (boundary)
-    vertices' corners go through the corner scratch to the vertex sum, which
-    skips interior rows.  ``interior`` (N,) uint8; ``tile_vertices`` (N,)
-    int32: each tile's interior vertices in vertex order, tile by tile, then
-    the boundary ones; ``tile_offsets`` (tiles + 2,) int32: tile x's at
-    ``tile_offsets[x]:tile_offsets[x + 1]`` (the last range is the boundary
-    vertices); ``corner_mask`` (T,) uint8: bit k set where corner k's vertex
-    is a boundary vertex (its row goes to the scratch).
-    """
-
-    interior: torch.Tensor
-    tile_vertices: torch.Tensor
-    tile_offsets: torch.Tensor
-    corner_mask: torch.Tensor
-
-
-_TILE_SUMS = "_frozen_tilt_tile_sums"  # the key of a CSR's TileSums in its __dict__
-
-
-def tile_sums(csr: CornerCSR) -> TileSums:
-    """The :class:`TileSums` of ``csr``'s topology, made at first use and kept on the CSR.
-
-    Plain PyTorch on the CSR's device, fixed-size outputs, no host read.
-    """
-    kept = csr.__dict__.get(_TILE_SUMS)
-    if kept is not None:
-        return kept
-    T, N = csr.rows.shape[0], csr.n_rows
-    device = csr.slots.device
-    tiles = -(-T // BLOCK)
-    degree = (csr.offsets[1:] - csr.offsets[:-1]).long()
-    vertex_of = torch.repeat_interleave(torch.arange(N, device=device), degree,
-                                        output_size=csr.slots.shape[0])
-    tile_of = csr.slots.long() // (3 * BLOCK)
-    lo = torch.full((N,), tiles, dtype=torch.int64, device=device).scatter_reduce(
-        0, vertex_of, tile_of, "amin")
-    hi = torch.full((N,), -1, dtype=torch.int64, device=device).scatter_reduce(
-        0, vertex_of, tile_of, "amax")
-    interior = lo == hi  # a vertex with no corner is a boundary one (the vertex sum writes 0)
-    bucket = torch.where(interior, lo, tiles)
-    counts = torch.zeros(tiles + 1, dtype=torch.int64, device=device).scatter_add_(
-        0, bucket, torch.ones_like(bucket))
-    offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
-    mask = ((~interior[csr.rows]).long() << torch.arange(3, device=device)).sum(1)
-    kept = TileSums(interior=interior.to(torch.uint8),
-                    tile_vertices=torch.argsort(bucket, stable=True).to(torch.int32),
-                    tile_offsets=offsets.to(torch.int32), corner_mask=mask.to(torch.uint8))
-    csr.__dict__[_TILE_SUMS] = kept
-    return kept
-
-
-def tile_sums_reference(corner_values: torch.Tensor, csr: CornerCSR) -> torch.Tensor:
-    """What a member gradient launch's two passes add, in plain PyTorch: each tile's interior vertices
-    from its own corner rows, then the boundary vertices from the corner rows the mask sends to
-    the scratch (the rest left unread).  ``corner_values`` (T, 3, W); returns (N, W), which is
-    ``vertex_sum.reference`` in bits (the same adds in the same order)."""
-    ts = tile_sums(csr)
-    T = corner_values.shape[0]
-    flat = corner_values.reshape(3 * T, -1)
-    sent = ((ts.corner_mask[:, None].long() >> torch.arange(3, device=flat.device)) & 1).bool()
-    scratch = torch.where(sent.reshape(-1, 1), flat, torch.nan)
-    out = flat.new_zeros((csr.n_rows, flat.shape[1]))
-    offsets, slots = csr.offsets.tolist(), csr.slots.tolist()
-    tiles = ts.tile_offsets.shape[0] - 2
-    bounds = ts.tile_offsets.tolist()
-    order = ts.tile_vertices.tolist()
-    for x in range(tiles + 1):
-        source = flat if x < tiles else scratch
-        for v in order[bounds[x]:bounds[x + 1]]:
-            acc = flat.new_zeros(flat.shape[1])
-            for s in slots[offsets[v]:offsets[v + 1]]:
-                if x < tiles and s // (3 * BLOCK) != x:
-                    raise AssertionError(f"interior vertex {v} of tile {x} has slot {s}")
-                acc = acc + source[s]
-            out[v] = acc
-    return out.reshape((csr.n_rows,) + tuple(corner_values.shape[2:]))
-
-
 class Workspace:
     """Scratch of the CUDA entry point for T triangles, allocated once per relax.
 
     The (T, 3, 6) corner-gradient rows (per corner dE/dt_in xyz, then dE/dt_out
-    xyz; a member gradient launch writes those of boundary vertices, :class:`TileSums`),
+    xyz; a member gradient launch writes those of boundary vertices, ``vertex_sum.tile_sums``),
     one double energy partial per block of ``BLOCK`` triangles, and the
     last-block counter (zeroed here; each launch leaves it at zero).
     Calls that share a workspace must run in order on one stream.
@@ -356,7 +272,7 @@ def _tile_pointers(csr: CornerCSR, grad: bool) -> tuple:
     """A member call's CSR and tile-table pointers (None without ``grad``)."""
     if not grad:
         return (None,) * 6
-    ts = tile_sums(csr)
+    ts = vs.tile_sums(csr)
     return (csr.offsets.data_ptr(), csr.slots.data_ptr(), ts.tile_vertices.data_ptr(),
             ts.tile_offsets.data_ptr(), ts.corner_mask.data_ptr(), ts.interior.data_ptr())
 
@@ -422,7 +338,7 @@ def launch_members(t_in, t_out, tri_rows, csr: CornerCSR, g, payload, k_vec, ws:
 
     g and the payload are shared ((T, 3, 3), (T, 20)) or one per member ((B, T, 3, 3),
     (B, T, 20), contiguous).  With the gradient, each tile's interior vertices are summed in
-    the triangle pass (:func:`tile_sums`).  Member m is the bits of :func:`launch` on member m.
+    the triangle pass (``vertex_sum.tile_sums``).  Member m is the bits of :func:`launch` on member m.
     """
     if t_in.dim() != 3 or t_out.shape != t_in.shape:
         raise ValueError(f"member tilts must be two (B, N, 3) tensors, got "

@@ -62,9 +62,12 @@ The member axis (the parameter sweep, ``parallel/sweep``): under
 ``torch.func.vmap`` the Functions' ``vmap`` rules call the ``*_members``
 launches (``launch_surface_energy_members``, ``launch_curvature_data_members``
 and its backward, ``launch_p1_divergence_members`` and its tilt backward):
-one call for B members stacked on a leading axis, the members on the
-grid's y axis, ``tri_rows``, the masks and the CSR shared, member m's
-outputs the bits of the single call on member m.  Their twins
+one call for B members stacked on a leading axis, ``tri_rows``, the masks
+and the CSR shared, member m's outputs the bits of the single call on member
+m.  The surface launch takes a group of members a block over one tile
+(:func:`group_size`), and with the gradient sums each tile's interior
+vertices in the triangle pass (``vertex_sum.tile_sums``); the others put
+the members on the grid's y axis.  Their twins
 (``*_members_reference``) run the single twins per member, on the CPU.
 The rules raise when a shared input (``tri_rows``, ``tri_valid``) varies
 over the members.
@@ -97,7 +100,12 @@ LAUNCHES = {"surface_energy": 0, "surface_energy_grad": 0, "curvature_data": 0,
 # the twin's rounding (see the note in the source)
 KERNEL = _build.Source("tri_kernels", extra_flags=("-fmad=false",))
 SOURCE = KERNEL.path
-TILE = 128  # triangles per block of the surface and divergence kernels (csrc kTile)
+TILE = vs.TILE  # triangles per block of the surface and divergence kernels (csrc kTile)
+# members a block of the surface kernel's member launch takes (group_size): one up to SOLO
+# members, GROUP above, the simplest rule near the fastest group at B = 4, 8, 9 and 72, kozlov
+# L3, float32 and float64, on an H100 (PERF.md); the kernel is built for groups of 1 to its
+# kMaxGroup (tri_surface_max_group)
+SOLO, GROUP = 9, 2
 
 _lib = None
 
@@ -118,8 +126,8 @@ def build() -> ctypes.CDLL:
         "tri_curvature_data_bwd": [i32] + [ptr] * 11 + [i32, i64, ptr],
         "tri_p1_div": [i32] + [ptr] * 7 + [i32, i64, ptr],
         "tri_p1_div_bwd": [i32] + [ptr] * 6 + [i64, ptr],
-        "tri_surface_energy_members": [i32, ptr, ptr, ptr, ptr, i64] + [ptr] * 7
-                                      + [i32, i64, i32, i32, ptr],
+        "tri_surface_energy_members": [i32, ptr, ptr, ptr, ptr, i64] + [ptr] * 11
+                                      + [i32, i64, i32, i32, i32, ptr],
         "tri_curvature_data_members": [i32] + [ptr] * 9 + [i32, i64, i32, ptr],
         "tri_curvature_data_bwd_members": [i32] + [ptr] * 11 + [i32, i64, i32, ptr],
         "tri_p1_div_members": [i32] + [ptr] * 7 + [i32, i64, i32, ptr],
@@ -130,9 +138,13 @@ def build() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = i32
     lib.tri_tile_size.restype = i32
+    lib.tri_surface_max_group.restype = i32
     if lib.tri_tile_size() != TILE:
         raise RuntimeError(f"tri_kernels.cu uses {lib.tri_tile_size()}-triangle blocks, "
                            f"the wrapper {TILE}")
+    if lib.tri_surface_max_group() < GROUP:
+        raise RuntimeError(f"tri_kernels.cu takes groups of up to {lib.tri_surface_max_group()} "
+                           f"members, the wrapper {GROUP}")
     _lib = lib
     return lib
 
@@ -422,8 +434,10 @@ class MemberWorkspace:
     """Scratch of ``tri_surface_energy_members`` for B members of T triangles.
 
     :class:`Workspace` with a leading member axis: (B, T, 3, 3) corner
-    gradients, (B, blocks) double partials and B last-block counters.  Kept
-    per topology and member count by :func:`member_workspace`.
+    gradients (a gradient launch writes and reads the boundary corners'
+    rows), (B, blocks) double partials and B last-block counters (one a
+    member group in use).  Kept per topology and member count by
+    :func:`member_workspace`.
     """
 
     def __init__(self, members: int, n_triangles: int, dtype, device):
@@ -445,13 +459,25 @@ def member_workspace(topo, positions) -> MemberWorkspace | None:
                                              positions.device))
 
 
+def group_size(members: int) -> int:
+    """Members a block of a B-member surface launch takes: one up to ``SOLO`` members (more
+    blocks in flight), ``GROUP`` above (the sweep tail's 72 rows: 36 groups of 2)."""
+    return 1 if members <= SOLO else GROUP
+
+
 def launch_surface_energy_members(positions, tri_rows, tri_valid, tension, csr: CornerCSR,
-                                  ws: MemberWorkspace, grad: bool, counter: str | None = None):
+                                  ws: MemberWorkspace, grad: bool, counter: str | None = None,
+                                  group: int | None = None):
     """(energy (B,), dE/dpositions (B, Nv, 3) or None) of B members in one call.
 
     ``tension`` is (T,), shared, or (B, T); member m's outputs are the bits
-    of :func:`launch_surface_energy` on member m.  ``counter`` names the
-    ``LAUNCHES`` key the launch adds to (default: by ``grad``).
+    of :func:`launch_surface_energy` on member m.  A block takes one tile for
+    ``group`` members (default :func:`group_size`); with the gradient it sums
+    the tile's interior vertices itself where most corners are interior
+    vertices' (``vertex_sum.tile_sums``, ``TileSums.in_tile``), and sends
+    every corner through the scratch otherwise.
+    ``counter`` names the ``LAUNCHES`` key the launch adds to (default: by
+    ``grad``).
     """
     members, T = _check_members(positions, tri_rows)
     if T < 1:
@@ -463,8 +489,13 @@ def launch_surface_energy_members(positions, tri_rows, tri_valid, tension, csr: 
             or ws.corners.dtype != positions.dtype):
         raise ValueError(f"the workspace holds {ws.members} x {ws.n_triangles} "
                          f"{ws.corners.dtype} triangles on {ws.corners.device}")
+    tables = (None,) * 6
     if grad:
         _check_csr(positions[0], tri_rows, csr)
+        ts = vs.tile_sums(csr)
+        tables = (csr.offsets.data_ptr(), csr.slots.data_ptr()) + (
+            (ts.tile_vertices.data_ptr(), ts.tile_offsets.data_ptr(), ts.corner_mask.data_ptr(),
+             ts.interior.data_ptr()) if ts.in_tile else (None,) * 4)
     lib = build()
     nv = positions.shape[1]
     energy = torch.empty(members, dtype=positions.dtype, device=positions.device)
@@ -472,9 +503,9 @@ def launch_surface_energy_members(positions, tri_rows, tri_valid, tension, csr: 
     code = _launch.call(
         positions, lib.tri_surface_energy_members,
         _f64(positions), positions.data_ptr(), tri_rows.data_ptr(), tri_valid.data_ptr(),
-        tension.data_ptr(), 0 if shared else T, csr.offsets.data_ptr() if grad else None,
-        csr.slots.data_ptr() if grad else None, ws.corners.data_ptr(), ws.partials.data_ptr(),
-        ws.counter.data_ptr(), energy.data_ptr(), _ptr(dpos), T, nv, int(grad), members,
+        tension.data_ptr(), 0 if shared else T, *tables, ws.corners.data_ptr(),
+        ws.partials.data_ptr(), ws.counter.data_ptr(), energy.data_ptr(), _ptr(dpos), T, nv,
+        int(grad), members, group_size(members) if group is None else group,
     )
     _raise_on(code, "tri_surface_energy_members")
     _count(counter or ("surface_energy_grad_members" if grad else "surface_energy_members"),

@@ -29,12 +29,17 @@ The member axis (the parameter sweep, ``parallel/sweep``): under
 in one :func:`launch_members`, the members on the grid's y axis, each
 member's rows the bits of a launch of its own
 (``LAUNCHES["vertex_sum_members"]``); :func:`members_reference` is its twin.
+The member gradients of kernels 1 and 2 sum each tile's interior vertices
+inside their triangle pass and leave only the other rows to the vertex sum
+(:func:`tile_sums`, kept once per CSR for both; :func:`tile_sums_reference`
+is what the two passes add).
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 
@@ -47,6 +52,9 @@ LAUNCHES = {"vertex_sum": 0, "vertex_sum_members": 0}
 MAX_MEMBERS = 65535
 # corners per chunk: the kernel's kChunk (csrc/vertex_sum.cuh)
 CHUNK = 8
+# triangles per tile of the member gradients' in-tile sums (tile_sums): the
+# block of csrc/frozen_tilt.cu (kThreads) and of csrc/tri_kernels.cu (kTile)
+TILE = 128
 
 KERNEL = _build.Source("vertex_sum")
 SOURCE = KERNEL.path
@@ -83,6 +91,103 @@ def reference(corner_values: torch.Tensor, csr: CornerCSR, weight=None) -> torch
             rows = weight[slot // 3][:, None] * rows
         out = out + torch.where(live[:, None], rows, 0.0)
     return out.reshape((csr.n_rows,) + tuple(width))
+
+
+@dataclasses.dataclass(frozen=True)
+class TileSums:
+    """Which vertex sums of a member gradient launch run inside the triangle pass (one topology).
+
+    Shared by kernel 1's and kernel 2's member gradients (``frozen_tilt_members``,
+    ``tri_surface_energy_members``), whose blocks both take ``TILE`` triangles.
+    A vertex whose corners all lie in one ``TILE``-triangle tile is interior
+    to it: the tile's block adds its corner gradients from shared memory in
+    the corner CSR's order and writes the vertex rows.  The other (boundary)
+    vertices' corners go through the corner scratch to the vertex sum, which
+    skips interior rows.  ``interior`` (N,) uint8; ``tile_vertices`` (N,)
+    int32: each tile's interior vertices in vertex order, tile by tile, then
+    the boundary ones; ``tile_offsets`` (tiles + 2,) int32: tile x's at
+    ``tile_offsets[x]:tile_offsets[x + 1]`` (the last range is the boundary
+    vertices); ``corner_mask`` (T,) uint8: bit k set where corner k's vertex
+    is a boundary vertex (its row goes to the scratch).
+    """
+
+    interior: torch.Tensor
+    tile_vertices: torch.Tensor
+    tile_offsets: torch.Tensor
+    corner_mask: torch.Tensor
+
+    @functools.cached_property
+    def in_tile(self) -> bool:
+        """Whether at least half the corners are interior vertices' (one host read, at first
+        use): kernel 2's member gradient sums in its tiles only then.  A triangle order whose
+        tiles hold few whole vertex fans (the square_to_circle lane's: 13% of corners, against
+        kozlov L3's 77%) sends most corners to the scratch anyway, where the scattered
+        boundary stores cost more than the in-tile sums save (PERF.md)."""
+        mask = self.corner_mask.long()[:, None]
+        boundary = int(((mask >> torch.arange(3, device=mask.device)) & 1).sum())
+        return 2 * boundary <= 3 * mask.shape[0]
+
+
+_TILE_SUMS = "_vertex_sum_tile_sums"  # the key of a CSR's TileSums in its __dict__
+
+
+def tile_sums(csr: CornerCSR) -> TileSums:
+    """The :class:`TileSums` of ``csr``'s topology, made at first use and kept on the CSR.
+
+    Plain PyTorch on the CSR's device, fixed-size outputs, no host read.
+    """
+    kept = csr.__dict__.get(_TILE_SUMS)
+    if kept is not None:
+        return kept
+    T, N = csr.rows.shape[0], csr.n_rows
+    device = csr.slots.device
+    tiles = -(-T // TILE)
+    degree = (csr.offsets[1:] - csr.offsets[:-1]).long()
+    vertex_of = torch.repeat_interleave(torch.arange(N, device=device), degree,
+                                        output_size=csr.slots.shape[0])
+    tile_of = csr.slots.long() // (3 * TILE)
+    lo = torch.full((N,), tiles, dtype=torch.int64, device=device).scatter_reduce(
+        0, vertex_of, tile_of, "amin")
+    hi = torch.full((N,), -1, dtype=torch.int64, device=device).scatter_reduce(
+        0, vertex_of, tile_of, "amax")
+    interior = lo == hi  # a vertex with no corner is a boundary one (the vertex sum writes 0)
+    bucket = torch.where(interior, lo, tiles)
+    counts = torch.zeros(tiles + 1, dtype=torch.int64, device=device).scatter_add_(
+        0, bucket, torch.ones_like(bucket))
+    offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    mask = ((~interior[csr.rows]).long() << torch.arange(3, device=device)).sum(1)
+    kept = TileSums(interior=interior.to(torch.uint8),
+                    tile_vertices=torch.argsort(bucket, stable=True).to(torch.int32),
+                    tile_offsets=offsets.to(torch.int32), corner_mask=mask.to(torch.uint8))
+    csr.__dict__[_TILE_SUMS] = kept
+    return kept
+
+
+def tile_sums_reference(corner_values: torch.Tensor, csr: CornerCSR) -> torch.Tensor:
+    """What a member gradient launch's two passes add, in plain PyTorch: each tile's interior vertices
+    from its own corner rows, then the boundary vertices from the corner rows the mask sends to
+    the scratch (the rest left unread).  ``corner_values`` (T, 3, W); returns (N, W), which is
+    ``vertex_sum.reference`` in bits (the same adds in the same order)."""
+    ts = tile_sums(csr)
+    T = corner_values.shape[0]
+    flat = corner_values.reshape(3 * T, -1)
+    sent = ((ts.corner_mask[:, None].long() >> torch.arange(3, device=flat.device)) & 1).bool()
+    scratch = torch.where(sent.reshape(-1, 1), flat, torch.nan)
+    out = flat.new_zeros((csr.n_rows, flat.shape[1]))
+    offsets, slots = csr.offsets.tolist(), csr.slots.tolist()
+    tiles = ts.tile_offsets.shape[0] - 2
+    bounds = ts.tile_offsets.tolist()
+    order = ts.tile_vertices.tolist()
+    for x in range(tiles + 1):
+        source = flat if x < tiles else scratch
+        for v in order[bounds[x]:bounds[x + 1]]:
+            acc = flat.new_zeros(flat.shape[1])
+            for s in slots[offsets[v]:offsets[v + 1]]:
+                if x < tiles and s // (3 * TILE) != x:
+                    raise AssertionError(f"interior vertex {v} of tile {x} has slot {s}")
+                acc = acc + source[s]
+            out[v] = acc
+    return out.reshape((csr.n_rows,) + tuple(corner_values.shape[2:]))
 
 
 def build() -> ctypes.CDLL:

@@ -131,8 +131,7 @@ class Minimizer:
         """The compiled problem, rebuilt when the mesh or the parameters changed.
 
         A change of dynamic-only parameters alone refreshes the parameters
-        in place.  Building the spec raises NotImplementedError for any
-        module, static option or rim-matching flag outside the ported lane.
+        in place.
         """
         fp = self._fingerprint_params()
         # a host mesh swapped or mutated in place makes the device state

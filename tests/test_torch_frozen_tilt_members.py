@@ -163,9 +163,9 @@ def test_tile_sums_add_as_the_vertex_sum(mesh):
     rows_t = torch.as_tensor(rows)
     n_rows = int(rows.max()) + 2  # one vertex with no corner: a boundary row of zeros
     csr = corner_csr(rows_t, n_rows)
-    ts = ft.tile_sums(csr)
-    assert ft.tile_sums(csr) is ts
-    tiles = -(-rows.shape[0] // ft.BLOCK)
+    ts = vs.tile_sums(csr)
+    assert vs.tile_sums(csr) is ts
+    tiles = -(-rows.shape[0] // vs.TILE)
     assert ts.tile_offsets.shape == (tiles + 2,) and int(ts.tile_offsets[-1]) == n_rows
     assert sorted(ts.tile_vertices.tolist()) == list(range(n_rows))
     interior = ts.interior.bool()
@@ -177,6 +177,6 @@ def test_tile_sums_add_as_the_vertex_sum(mesh):
     rng = np.random.default_rng(5)
     for shape in ((rows.shape[0], 3), (rows.shape[0], 3, 3)):
         vals = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32)
-        got = ft.tile_sums_reference(vals, csr)
+        got = vs.tile_sums_reference(vals, csr)
         want = vs.reference(vals, csr)
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))

@@ -34,11 +34,13 @@ from _torch_port_harness import (
     OPTION_GP,
     assert_close,
     assert_energy_and_gradient_match,
+    assert_steps,
     make_minimizer,
     option_minimizers,
     perturbed_pair,
     port_from_jax,
     seed_host,
+    steps_of,
 )
 
 from membrane_solver_tpu.device.state import build_params as jbuild_params
@@ -151,3 +153,33 @@ def test_unported_values_raise_not_implemented(gp):
     for mn in (jm, tm):
         seed_host(mn, 8)
     assert_energy_and_gradient_match(jm, tm, 1e-12, next(iter(gp)))
+
+
+# values the JAX package runs that the port refused at compile time until its
+# option allow-list went (ROADMAP C17); the last two check that the port reads
+# these keys raw, as the JAX package does: "Consistent" is the lumped mass,
+# and "Connection_V1" transports the smoothness ambiently and the splay-twist
+# term by connection (which lower-cases it)
+RAW_MODULES = ("tilt_smoothness_in", "tilt_splay_twist_in")
+JAX_RUNS = [
+    ({"tilt_solve_mode": "off"}, (), True),
+    ({"bending_energy_model": "Helfrich_v2"}, (), False),
+    ({"tilt_solver": "bfgs"}, (), True),
+    ({"bending_tilt_energy_model": "helfrich"}, (), False),
+    ({"bending_gradient_mode": "finite_difference"}, (), False),
+    ({"tilt_mass_mode": "Consistent"}, RAW_MODULES, False),
+    ({"tilt_transport_model": "Connection_V1"}, RAW_MODULES, False),
+]
+
+
+@pytest.mark.parametrize("gp,modules,steps", JAX_RUNS,
+                         ids=[next(iter(g)) for g, _m, _s in JAX_RUNS])
+def test_every_value_the_jax_package_runs(gp, modules, steps):
+    """Energy and projected gradient on a seeded state as the JAX package's at rel 1e-12;
+    for the values that act inside ``minimize``, also two steps at rel 1e-8."""
+    jm, tm = option_minimizers(gp, modules=modules)
+    for mn in (jm, tm):
+        seed_host(mn, 8)
+    assert_energy_and_gradient_match(jm, tm, 1e-12, next(iter(gp)))
+    if steps:
+        assert_steps(steps_of(jm, tm, 2), jm, tm, 1e-8)

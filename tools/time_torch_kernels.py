@@ -28,7 +28,9 @@ them in the spare row that ``row_sum`` drops and, through
 too), seeded values, beside ``index_add_`` of the same values.  With
 ``--members B`` (repeatable) it also times the member-axis rows of phase
 34 (``chip_smoke.member_rows``: every member entry, its twin, and
-``index_add_`` over the members' rows) at kozlov L3 at each dtype, B
+``index_add_`` over the members' rows; kernel 2's energy also at the
+kozlov single problem's Armijo tail of 9 members; a hand kernel's row split
+by launch in ``kernels_ms``) at kozlov L3 at each dtype, B
 members of the lane's positions scaled by 1 + 0.001 m and seeded tilts,
 and at float32 kernel 1's member rows (``chip_smoke.ft_member_rows``: g
 and the payload shared at B = 11, one per member at B = 9, the energy
