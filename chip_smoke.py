@@ -23,8 +23,9 @@ set ``MEMBRANE_SOLVER_BATCHED_LS`` to compare the two.
    - the vertex-sum kernel against its twin, equal bits (the same
      additions in the same order; ``check_vertex_sum``): float32 and
      float64, widths 1 and 3 and the weighted form on the kozlov L3 corner
-     CSR, the paired form inside the frozen-tilt gradient (and a member
-     call's in-tile sums equal to it), the
+     CSR (and its member form at B = 1, 3, 8 and 72, each member's g or one
+     shared, at every group it takes), the paired form inside the
+     frozen-tilt gradient (and a member call's in-tile sums equal to it), the
      dual-source form inside the curvature data, the member entry at B =
      1, 3 and 8 (member m the bits of a single launch), and a skewed slot
      CSR with rows at the kernel's chunk edges, one of 131 slots and one
@@ -57,6 +58,20 @@ set ``MEMBRANE_SOLVER_BATCHED_LS`` to compare the two.
      alone and with the gradient: every member the bits of its single
      launch and within the whole-call bounds below of its twin
      (``[3 surface members]``);
+   - kernel 4's member launch and its tilt backward (``check_div_members``),
+     float32 and float64, on the same two sets, at every width of
+     ``div_member_widths`` (1, 2, 3, 4, 5, 8, 9, 72: around its largest
+     group of 4, a partial last group, the Armijo tail's 9, the sweep tail's
+     72):
+     every input per member, the positions shared and the tilts shared (one
+     (Nv, 3) array), with g and without; every member's div, area and g
+     (where written) the bits of its single launch (the g-less ones also of
+     the single g-less launch) and within the per-triangle bounds of its
+     twin; the tilt backward over the members' g and over one shared g,
+     each member the bits of its single launch and within the whole-call
+     bound of its twin; the g-less entry with tilts that require grad, its
+     tilt gradient the full entry's bits, alone and under ``vmap``
+     (``[3 divergence members]``);
    - determinism: two energy-plus-gradient calls of the frozen-tilt and
      the surface entry points, and two forward-plus-backward calls of
      ``curvature_data`` and of ``p1_triangle_divergence``, on the same
@@ -370,8 +385,9 @@ set ``MEMBRANE_SOLVER_BATCHED_LS`` to compare the two.
     call inside the sweep.  The member-axis kernels on the members' final
     states (per-member seeded tilts): each against its member twin with
     phase 3's bounds, and member by member equal in bits to the
-    single-member kernel; kernel 2's member launch also at every width of
-    phase 3 on members made from these (``check_surface_members``).  Then
+    single-member kernel; kernels 2 and 4 also at every width and form of
+    phase 3 on members made from these (``check_surface_members``,
+    ``check_div_members``).  Then
     ms per sweep step and member-steps per
     second at B = 1, 2, 4 and 8 (three steps each after a warm-up step) and
     the profiler's busy share of a one-step sweep at B = 8, each with the
@@ -381,7 +397,9 @@ set ``MEMBRANE_SOLVER_BATCHED_LS`` to compare the two.
     deviation) of phase 33, the JAX package's own float32 flags; and the
     member-axis kernels timed at B = 8 (``[34 ... kernel timing]``; kernel
     2's energy also at the Armijo tail's 9 members, the gradient rows split
-    by launch in ``kernels_ms``, and the divergence's tilt backward).
+    by launch in ``kernels_ms``, the divergence without g and with shared
+    positions, and its tilt backward beside the plain vertex sum of the same
+    g).
 35. the multi-disk sweep analysis on the card
     (``analysis.multidisk_sweep.run_sweep``, ``plot=False``): three meshgen
     cube meshes in a temporary directory; every key of every row within
@@ -580,7 +598,11 @@ protocol leaves (phases 4-7, 16-19, 21-24 and 26-31: the five steps; phases 8-9 
 positions, the tilts and the energies, restores the state and runs again;
 a ``[... determinism]`` line prints both digests, and unequal digests fail
 the run.  A ``[phase seconds]`` line gives each phase's seconds, and the
-last line before the kernels line the whole run's.
+last line before the kernels line the whole run's.  A phase of 4-58 that
+calls kernel 4's forward prints a ``[<phase> divergence forms]`` line: its
+calls by form (single or member; every input per member, the positions
+shared or the tilts shared; with g or without it, ``tri_kernels.DIV_FORMS``),
+the kernel checks' own launches not counted.
 
 Phases 4-58 run in seven worker processes side by side (``GROUPS``, each
 ``python3 chip_smoke.py --worker <i>``; a group holds every phase whose state
@@ -1117,9 +1139,9 @@ def tri_rows_of(torch, tk, topo, positions, dtype) -> list:
     ct_div = cts[3]
     div_in = (p, tl, rows, v)
 
-    def div_fwd():
+    def div_fwd():  # the bending-tilt energy's call: no g written
         with torch.no_grad():
-            return tk.p1_triangle_divergence(p, tl, rows, v, csr)
+            return tk.p1_divergence_and_area(p, tl, rows, v, csr)
 
     def div_fwd_bwd():
         t = tl.detach().requires_grad_(True)
@@ -1145,6 +1167,8 @@ def tri_rows_of(torch, tk, topo, positions, dtype) -> list:
          F["p1_div"] * T),
         ("p1_div", "twin", lambda: tilt_ops.p1_triangle_divergence(p, tl, rows, v), div_in,
          F["p1_div"] * T),
+        ("p1_div_no_g", "kernel", lambda: tk.launch_p1_divergence(p, tl, rows, v, grads=False),
+         div_in, F["p1_div"] * T),
         ("p1_div_bwd", "kernel", lambda: tk.launch_p1_div_bwd(g_div, v, ct_div, csr), bwd_in,
          F["p1_div_bwd"] * T),
         ("p1_div_bwd", "twin", lambda: tk.p1_div_vjp_reference(g_div, v, ct_div, csr), bwd_in,
@@ -1286,7 +1310,10 @@ def check_vertex_sum(torch, mods, kozlov) -> dict:
     """The vertex-sum kernel against its twin, equal bits in every launch form.
 
     On the kozlov L3 corner CSR: float32 and float64, widths 1 and 3, and
-    the weighted form with a mask (``tri_p1_div_bwd``); the paired form
+    the weighted form with a mask (``tri_p1_div_bwd``) and over B = 1, 3, 8
+    and 72 members (``tri_p1_div_bwd_members``: each member's g or one
+    shared, the twin, each member the bits of its single launch, every group
+    the kernel takes the default's bits); the paired form
     inside ``frozen_tilt_energy_grad``, whose vertex rows must be the twin's
     sum of the scratch's two halves, and a one-member call's rows (each
     tile's interior vertices summed in the triangle pass) those bits; the
@@ -1334,6 +1361,23 @@ def check_vertex_sum(torch, mods, kozlov) -> dict:
         mask = valid & (torch.rand(T, device=DEVICE, generator=gen) < 0.8)
         expect(f"L3 {d} weighted", tk.launch_p1_div_bwd(g, mask, w, csr),
                tk.p1_div_vjp_reference(g, mask, w, csr))
+        # the weighted member form (kernel 4's tilt backward): each member's g, or one shared;
+        # every group the kernel takes
+        for B in (1, 3, 8, 72):
+            gs, ws_ = seeded((B, T, 3, 3), dtype), seeded((B, T), dtype)
+            for shared in (False, True):
+                src = g if shared else gs
+                got = tk.launch_p1_div_bwd_members(src, mask, ws_, csr)
+                kind = "shared g" if shared else "per member"
+                expect(f"L3 {d} weighted members B={B} {kind}", got,
+                       tk.p1_div_vjp_members_reference(src, mask, ws_, csr))
+                single = [tk.launch_p1_div_bwd(g if shared else gs[m], mask, ws_[m], csr)
+                          for m in range(B)]
+                expect(f"L3 {d} weighted members B={B} {kind} vs single", got,
+                       torch.stack(single))
+                for group in range(1, tk.build().tri_p1_div_bwd_max_group() + 1):
+                    expect(f"L3 {d} weighted members B={B} {kind} group {group}",
+                           tk.launch_p1_div_bwd_members(src, mask, ws_, csr, group=group), got)
     # the paired form inside the frozen-tilt gradient: both leaflets' rows; a member call's
     # tiles sum their interior vertices in the triangle pass, to the same bits
     t_in, t_out, g, pay, k = _ft_inputs(torch, rows, nv, 37)
@@ -1562,6 +1606,121 @@ def check_surface_members(torch, tk, label: str, base, rows, v, tension, csr) ->
                             _sum_check(torch, f"{what} gradient", dpos[m], want_g,
                                        WC_SURFACE_GRAD[name]))
                 cases += 1
+    torch.cuda.synchronize()
+    return {**errs, "cases": cases}
+
+
+def div_member_widths(tk) -> tuple:
+    """The member counts kernel 4's member launch is held at: 1, 2, a group less one, a group
+    and one more (a partial last group) of its largest group (``tri_kernels.DIV_GROUPS``), the
+    sweep's 8, the Armijo tail's 9 and the sweep tail's 72 rows."""
+    M = max(tk.DIV_GROUPS.values())
+    return tuple(sorted({1, 2, M - 1, M, M + 1, 8, ARMIJO_TAIL, 72} - {0}))
+
+
+@contextlib.contextmanager
+def uncounted_forms(tk):
+    """Launches of kernel 4 made inside to check or time it leave ``tri_kernels.DIV_FORMS`` as
+    it was: the phases' divergence-form lines count their paths' own calls."""
+    saved = dict(tk.DIV_FORMS)
+    try:
+        yield
+    finally:
+        tk.DIV_FORMS.update(saved)
+
+
+def check_div_members(torch, tk, label: str, base, tilts, rows, v, csr) -> dict:
+    """Kernel 4's member launch and its tilt backward at every width of
+    :func:`div_member_widths`, on members made from ``base`` and ``tilts`` (K, Nv, 3): member
+    m's positions ``base[m % K]`` scaled by 1 + 1e-4 (m // K), its tilts ``tilts[m % K]``
+    scaled by 1 - 0.01 (m // K).  The forward with every input per member, the positions
+    shared (member 0's, one (Nv, 3) array) and the tilts shared, with g and without: every
+    member's div, area and g (where written) the bits of its single launch, the g-less
+    launch's the bits of the single g-less launch too, and within phase 3's bounds of the
+    twin.  The tilt backward over the members' g and over one g shared by them: every member
+    the bits of its single launch and within phase 3's bound of its twin.  The g-less entry
+    with tilts that require grad: its tilt gradient the full entry's bits, alone and under
+    ``vmap`` in each member form.  Returns the max abs errors and the number of cases."""
+    from membrane_solver_tpu_torch.device import tilt_ops
+
+    dtype = base.dtype
+    name = str(dtype).removeprefix("torch.")
+    K, T = base.shape[0], rows.shape[0]
+    rng = np.random.default_rng(T)
+    errs = {"p1_div_members": 0.0, "p1_div_bwd_members": 0.0}
+    cases = 0
+
+    def expect(what, ok, against="its single launch"):
+        if not ok:
+            raise AssertionError(f"{label} {what} ({name}) differs from {against}")
+
+    with uncounted_forms(tk):
+        for B in div_member_widths(tk):
+            pos = torch.stack([base[m % K] * (1 + 1e-4 * (m // K)) for m in range(B)])
+            tl = torch.stack([tilts[m % K] * (1 - 0.01 * (m // K)) for m in range(B)])
+            pos, tl = pos.contiguous(), tl.contiguous()
+            for form in ("per member", "positions shared", "tilts shared"):
+                p = pos[0].contiguous() if form == "positions shared" else pos
+                t = tl[0].contiguous() if form == "tilts shared" else tl
+                one = p.dim() == 2  # the area and g: one member's
+                for grads in (True, False):
+                    div, area, g = tk.launch_p1_divergence_members(p, t, rows, v, grads)
+                    for m in range(B):
+                        p_m = p if p.dim() == 2 else p[m]
+                        t_m = t if t.dim() == 2 else t[m]
+                        what = f"B={B} {form} g={grads} member {m}"
+                        d1, a1, g1 = tk.launch_p1_divergence(p_m, t_m, rows, v)
+                        expect(what, same_bits(torch, div[m], d1)
+                               and same_bits(torch, area if one else area[m], a1)
+                               and (g is None or same_bits(torch, g if one else g[m], g1)))
+                        if not grads:
+                            d0, a0, g0 = tk.launch_p1_divergence(p_m, t_m, rows, v, grads=False)
+                            expect(f"{what} (single without g)", g0 is None
+                                   and same_bits(torch, div[m], d0)
+                                   and same_bits(torch, area if one else area[m], a0))
+                        elif not one or m == 0:
+                            want = tilt_ops.p1_triangle_divergence(p_m, t_m, rows, v)
+                            errs["p1_div_members"] = max(errs["p1_div_members"], *(
+                                _tk_check(torch, f"{label} member p1 {key} {what}", a, b, dtype,
+                                          "curv")
+                                for a, b, key in zip((div[m], area if one else area[m],
+                                                      g if one else g[m]), want,
+                                                     ("div", "area", "g"))))
+                    cases += 1
+            g_all = tk.launch_p1_divergence_members(pos, tl, rows, v)[2]
+            ct = torch.as_tensor(rng.standard_normal((B, T)), dtype=dtype, device=DEVICE)
+            for shared in (False, True):
+                g_src = g_all[0].contiguous() if shared else g_all
+                got = tk.launch_p1_div_bwd_members(g_src, v, ct, csr)
+                for m in range(B):
+                    g_m = g_src if shared else g_src[m]
+                    what = f"B={B} tilt backward {'shared g' if shared else 'per member'} " \
+                           f"member {m}"
+                    expect(what, same_bits(torch, got[m], tk.launch_p1_div_bwd(g_m, v, ct[m],
+                                                                              csr)))
+                    errs["p1_div_bwd_members"] = max(errs["p1_div_bwd_members"], _sum_check(
+                        torch, f"{label} {what} ({name})", got[m],
+                        tk.p1_div_vjp_reference(g_m, v, ct[m], csr), WC_DIV_BWD[name]))
+                cases += 1
+        # the g-less entry keeps the tilt gradient where the tilts require grad
+        B = 3
+        pos, tl = base[:1].expand(B, -1, -1) * 1.0, tilts[:1].expand(B, -1, -1) * 1.0
+        for p, t, in_dims in ((pos[0], tl[0], None), (pos, tl, (0, 0)), (pos[0], tl, (None, 0)),
+                              (pos, tl[0], (0, None))):
+            ct = torch.as_tensor(rng.standard_normal((T,) if in_dims is None else (B, T)),
+                                 dtype=dtype, device=DEVICE)
+            grads = []
+            for fn in (tk.p1_divergence_and_area, tk.p1_triangle_divergence):
+                a = t.detach().clone().requires_grad_(True)
+                if in_dims is None:
+                    div = fn(p, a, rows, v, csr)[0]
+                else:
+                    div = torch.func.vmap(lambda x, y, fn=fn: fn(x, y, rows, v, csr)[0],
+                                          in_dims=in_dims)(p, a)
+                grads.append(torch.autograd.grad(div, (a,), (ct,))[0])
+            expect(f"g-less entry's tilt gradient, in_dims {in_dims}",
+                   same_bits(torch, grads[0], grads[1]), "the full entry's")
+            cases += 1
     torch.cuda.synchronize()
     return {**errs, "cases": cases}
 
@@ -1909,7 +2068,7 @@ def phase_kernels(torch, mods, kozlov, vesicle) -> dict:
         chunk=vs.CHUNK, equal=True, cases=len(curv_cases), names=json.dumps(curv_cases))
     odd = check_unaligned_members(torch, tk)
     say("3 unaligned members", T=301, members=3, equal=True, cases=len(odd))
-    for label, (pos, rows_np, valid_np, _tilts), seed in (
+    for label, (pos, rows_np, valid_np, tilts), seed in (
             ("T=301", _seeded_triangles(301, 47), 47),
             (f"kozlov T={kozlov.n_tris}", _lane_triangles(kozlov, 53), 53)):
         rows = torch.as_tensor(rows_np, device=DEVICE)
@@ -1927,6 +2086,15 @@ def phase_kernels(torch, mods, kozlov, vesicle) -> dict:
                 widths=json.dumps(surface_member_widths(tk)), cases=out["cases"], equal=True,
                 energy_max_abs_err=repr(out["surface_energy_members"]),
                 grad_max_abs_err=repr(out["surface_grad_members"]))
+            base_t = torch.as_tensor(np.stack([tilts, tilts * (1 - 1e-3)]), dtype=dtype,
+                                     device=DEVICE)
+            out = check_div_members(torch, tk, f"3 {label}", base, base_t, rows, v, csr)
+            for key in ("p1_div_members", "p1_div_bwd_members"):
+                errs[key] = max(errs.get(key, 0.0), out[key])
+            say("3 divergence members", inputs=repr(label), dtype=d,
+                widths=json.dumps(div_member_widths(tk)), cases=out["cases"], equal=True,
+                div_max_abs_err=repr(out["p1_div_members"]),
+                bwd_max_abs_err=repr(out["p1_div_bwd_members"]))
     check_tri_sets(torch, tk, "3 tri kernels", (
         ("T=301", _seeded_triangles(301, 7), 7, False),
         (f"vesicle T={vesicle.n_tris}", _lane_triangles(vesicle, 17), 17, True),
@@ -4057,6 +4225,8 @@ def check_member_kernels(torch, tk, vs, topo, pos, tilts, seed: int) -> dict:
     widths = check_surface_members(torch, tk, "members", pos, rows, v, tension, csr)
     for key in ("surface_energy_members", "surface_grad_members"):
         errs[key] = max(errs[key], widths[key])
+    # kernel 4's member launch and its tilt backward at every width and form
+    div_widths = check_div_members(torch, tk, "members", pos, tilts, rows, v, csr)
 
     cd = tk.launch_curvature_data_members(pos, rows, v, csr)
     want_cd = tk.curvature_data_members_reference(pos, rows, v, csr)
@@ -4120,6 +4290,8 @@ def check_member_kernels(torch, tk, vs, topo, pos, tilts, seed: int) -> dict:
         same_bits("p1 divergence tilt backward", dtl[m], tk.launch_p1_div_bwd(
             want_div[2][m].contiguous(), v, ct[m].contiguous(), csr))
         same_bits("vertex sum", vsum[m], vs.launch(corners[m].contiguous(), csr))
+    for key in ("p1_div_members", "p1_div_bwd_members"):
+        errs[key] = max(errs[key], div_widths[key])
     torch.cuda.synchronize()
     return errs
 
@@ -4169,7 +4341,8 @@ def member_rows(torch, tk, vs, topo, pos, tilts, ft=None) -> list:
     with ``ft`` also kernel 1's member rows (``ft_member_rows``).  Kernel 2's energy also at
     the Armijo tail's width (``ARMIJO_TAIL`` members: member m the positions of member m mod
     B scaled by 1 + 1e-4 m); the gradient rows' ``kernels_ms`` split a call between the
-    triangle pass and the vertex sum."""
+    triangle pass and the vertex sum.  Kernel 4 also without g, with the positions shared,
+    and its tilt backward beside the plain vertex sum of the same g."""
     dtype = pos.dtype
     B, n = pos.shape[0], pos.shape[1]
     rows, v, csr = topo.tri_rows, topo.tri_valid, topo.corner_csr()
@@ -4190,7 +4363,7 @@ def member_rows(torch, tk, vs, topo, pos, tilts, ft=None) -> list:
 
     F = FLOPS_PER_TRI
     s_in, d_in, b_in = (pos, rows, v, tension), (pos, rows, v), (pos, rows, v, g_kvecs, g_varea)
-    div_in = (pos, tilts, rows, v)
+    div_in, shared_in = (pos, tilts, rows, v), (pos[0], tilts, rows, v)
     e_flops, g_flops = F["surface_energy"] * T * B, (F["surface_energy"] + F["surface_grad"]) * T * B
     tail = torch.stack([pos[m % B] * (1 + 1e-4 * m) for m in range(ARMIJO_TAIL)]).contiguous()
     tail_ws = tk.MemberWorkspace(ARMIJO_TAIL, T, dtype, DEVICE)
@@ -4230,6 +4403,19 @@ def member_rows(torch, tk, vs, topo, pos, tilts, ft=None) -> list:
             shape_g, v, g_div, csr), bwd_in, bwd_flops),
         ("p1_div_bwd_members", "twin", lambda: tk.p1_div_vjp_members_reference(
             shape_g, v, g_div, csr), bwd_in, bwd_flops),
+        # kernel 4's other forms: no g written (the bending-tilt energy's call), the positions
+        # shared (g and the area one member's), and the plain vertex sum of the same g, what the
+        # weighted tilt backward adds to (its split)
+        ("p1_div_members_no_g", "kernel", lambda: tk.launch_p1_divergence_members(
+            pos, tilts, rows, v, grads=False), div_in, F["p1_div"] * T * B),
+        ("p1_div_members_no_g", "twin", lambda: tk.p1_divergence_members_reference(
+            pos, tilts, rows, v, grads=False), div_in, F["p1_div"] * T * B),
+        ("p1_div_members_shared_positions", "kernel", lambda: tk.launch_p1_divergence_members(
+            pos[0], tilts, rows, v), shared_in, F["p1_div"] * T * B),
+        ("p1_div_members_shared_positions", "twin", lambda: tk.p1_divergence_members_reference(
+            pos[0], tilts, rows, v), shared_in, F["p1_div"] * T * B),
+        ("p1_div_bwd_members_plain_sum", "kernel", lambda: vs.launch_members(shape_g, csr),
+         (shape_g, csr.offsets, csr.slots), 3 * 3 * T * B),
         ("vertex_sum_members", "kernel", lambda: vs.launch_members(corners, csr),
          (corners, csr.offsets, csr.slots), 3 * 3 * T * B),
         ("vertex_sum_members", "twin", lambda: vs.members_reference(corners, csr),
@@ -4240,6 +4426,13 @@ def member_rows(torch, tk, vs, topo, pos, tilts, ft=None) -> list:
 
 def measure_members(torch, rows: list, dtype_name: str) -> dict:
     """``measure`` for the member rows (the twins, a loop over the members, with fewer calls)."""
+    from membrane_solver_tpu_torch.kernels import tri_kernels as tk
+
+    with uncounted_forms(tk):
+        return _measure_members(torch, rows, dtype_name)
+
+
+def _measure_members(torch, rows: list, dtype_name: str) -> dict:
     recs = {}
     for name, kind, fn, inputs, flops in rows:
         outputs = _flat(fn())
@@ -4506,7 +4699,8 @@ def phase_sweep(torch, tk, vs, counters, label: str, fixture: dict, dtype, snap:
 
     t1 = time.perf_counter()
     pos, tilts = member_kernel_inputs(torch, out["states"], seed=29)
-    errs = check_member_kernels(torch, tk, vs, problem.topo, pos, tilts, seed=31)
+    with uncounted_forms(tk):
+        errs = check_member_kernels(torch, tk, vs, problem.topo, pos, tilts, seed=31)
     parts["kernel_checks"] = time.perf_counter() - t1
     say(label + " parts", setup_s=f"{setup_s:.3f}",
         parts_s=json.dumps({k: round(v, 3) for k, v in parts.items()}))
@@ -6865,7 +7059,18 @@ def drive_phases(torch, mods, fx, todo) -> tuple[dict, dict, dict, dict]:
     counters = {"frozen_tilt": ft.LAUNCHES, "tri_kernels": tk.LAUNCHES,
                 "vertex_sum": vs.LAUNCHES}
     runs, errs, seconds, peaks = {}, {}, {}, {}
-    timed = phase_timer(torch, seconds, peaks)
+    timed_phase = phase_timer(torch, seconds, peaks)
+
+    def timed(phase, fn, *args, **kw):
+        """The phase, then its kernel 4 forward calls by form where it made any
+        (``tri_kernels.DIV_FORMS``; the kernel checks' own launches not counted)."""
+        before = dict(tk.DIV_FORMS)
+        out = timed_phase(phase, fn, *args, **kw)
+        made = {k.replace(" ", "_"): n - before[k] for k, n in tk.DIV_FORMS.items()
+                if n != before[k]}
+        if made:
+            say(f"{phase} divergence forms", **made)
+        return out
 
     shared = ("tri_kernels.surface_energy", "tri_kernels.surface_energy_grad",
               "tri_kernels.curvature_data", "tri_kernels.curvature_data_bwd",

@@ -46,8 +46,11 @@
 //   kernel adds into (Nv, 3).  Any upstream may be null.
 // - tri_p1_div: div zeroed on invalid triangles, the area zeroed where the
 //   triangle is invalid or below the area floor, and the P1 shape gradients
-//   g (T, 3, 3).  tri_p1_div_bwd: dE/dt_v = sum over the CSR slots (t, c) of
-//   v of [valid_t] dE/ddiv_t g[t, c], the weighted vertex sum, one launch.
+//   g (T, 3, 3), written only where the caller asks for them (grads not
+//   null: the tilts take a gradient, or the caller reads g); the one-member
+//   case of the member kernel (below).  tri_p1_div_bwd: dE/dt_v = sum over
+//   the CSR slots (t, c) of v of [valid_t] dE/ddiv_t g[t, c], the weighted
+//   vertex sum (vertex_sum.cuh), one launch.
 //
 // The arithmetic follows the plain twins in device/geo.py and
 // device/tilt_ops.py operation by operation; the file is built with
@@ -66,8 +69,8 @@
 //   the tension), 0.225 us at 3.35 TB/s; with the vertex gradient 0.88 MB,
 //   0.264 us;
 // - P1 divergence 1.74 MB (positions, tilts, tri_rows, the mask in; div,
-//   area, g out), 0.520 us; its tilt backward 1.01 MB (g, the mask, the
-//   upstream in, (Nv, 3) out), 0.302 us;
+//   area, g out), 0.520 us; without g 0.97 MB, 0.289 us; its tilt backward
+//   1.01 MB (g, the mask, the upstream in, (Nv, 3) out), 0.302 us;
 // - curvature data 1.36 MB, 0.405 us; its backward 0.97 MB, 0.290 us.
 // Some 60-140 flops per triangle (320 in the curvature backward), far below
 // either peak.  So the surface, divergence and curvature-backward kernels
@@ -123,10 +126,26 @@
 //   sums sit on their critical path), a gain at float64 and none at
 //   float32.  What bounds the energy is its sum's tail (block tree, fence,
 //   counter, last block): without it the B = 8 launch takes half the time.
-// - the others put the members on the grid's y axis (gridDim.y = B); each
-//   kernel offsets its per-member pointers by blockIdx.y.  The bytes are B
-//   times the per-member ones, less B - 1 reads of the shared rows (which
-//   stay in L2).
+// - tri_p1_div_members: block (x, y) takes tile x for a group of members
+//   (the wrapper's div_group_size: one with per-member positions, 4 (float)
+//   or 3 (double) with shared ones); it reads the tile's rows and the mask
+//   once for the group, a positions or tilts array the members share once
+//   (a member stride of 0; the wrapper no longer copies it B times), and
+//   with shared positions computes g and the area once and writes them once
+//   (one member's, which every member's would equal).  g is written only
+//   where the wrapper asks (the tilts take a gradient, or the caller reads
+//   g); the bending-tilt energy and the face values drop it, and it is 64%
+//   of a member's bytes at float32.  Measured at kozlov L3 on an H100
+//   (PERF.md; tools/time_p1_div_members.py, tools/p1_div_cut_split.py):
+//   with per-member positions larger groups lengthen each block more than
+//   the shared rows save; what bounds a launch is the corner gathers
+//   through L2 (a launch without g at 72 rows moves 9.4 MB and takes
+//   ~35 us), and gathering a corner as one aligned pair and one scalar in
+//   place of three scalars made it slower (+18%).
+// - the curvature launches put the members on the grid's y axis
+//   (gridDim.y = B); each kernel offsets its per-member pointers by
+//   blockIdx.y.  The bytes are B times the per-member ones, less B - 1
+//   reads of the shared rows (which stay in L2).
 
 #include <cuda_runtime.h>
 
@@ -792,67 +811,149 @@ __global__ void __launch_bounds__(kRowThreads)
 // ---------------------------------------------------------------------
 // P1 divergence: g_i = (n x e_i) / |n|^2, div = sum_i t_i . g_i
 // ---------------------------------------------------------------------
+// One triangle's arithmetic, the one of every divergence form, in two parts
+// (each value from the same operations on the same inputs, so the bits do not
+// depend on how a member group schedules them).  The positions' part: the
+// shape gradients g and the area.
 template <typename T>
-__device__ __forceinline__ T p1_terms(const V3<T>* v, const V3<T>* tc, V3<T>* g, T* area) {
+__device__ __forceinline__ void p1_shape(const V3<T>* v, V3<T>* g, T* area) {
   const T eps = T(kEpsArea);
   const V3<T> e[3] = {sub(v[2], v[1]), sub(v[0], v[2]), sub(v[1], v[0])};
   const V3<T> nrm = cross(e[1], e[2]);
   const T sq = dot(nrm, nrm);
   const T n_sq = sq > eps * eps ? sq : eps * eps;
-  T d = T(0);
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     const V3<T> c = cross(nrm, e[k]);
     g[k] = {c.x / n_sq, c.y / n_sq, c.z / n_sq};
-    d = d + dot(tc[k], g[k]);
   }
   *area = T(0.5) * sqrt(sq > T(0) ? sq : T(0));
+}
+
+// The tilts' part: div = ((0 + t_0 . g_0) + t_1 . g_1) + t_2 . g_2.
+template <typename T>
+__device__ __forceinline__ T p1_div_of(const V3<T>* tc, const V3<T>* g) {
+  T d = T(0);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) d = d + dot(tc[k], g[k]);
   return d;
 }
 
-// div zeroed on invalid triangles and the area where the triangle is
-// invalid or 2 * area < EPS_AREA (tilt_ops.mask_divergence); g unmasked.
+// One launch of the divergence kernel.  ``pos_stride`` / ``tilt_stride``:
+// values between two members' positions / tilts, 0 where one array is shared
+// by the members.  ``div`` (members, n); ``area`` and ``grads`` (members, n)
+// and (members, n, 3, 3), or one member's (n,) and (n, 3, 3) where the
+// positions are shared (every member's would be the same bits); ``grads``
+// null: g is not written (kG false).
 template <typename T>
-__global__ void __launch_bounds__(kTile)
-    p1_div_kernel(const T* __restrict__ pos, const T* __restrict__ tilts,
-                  const int64_t* __restrict__ rows, const bool* __restrict__ valid,
-                  T* __restrict__ div, T* __restrict__ area, T* __restrict__ grads, int n,
-                  int64_t nv) {
+struct P1Div {
+  const T* pos;
+  int64_t pos_stride;
+  const T* tilts;
+  int64_t tilt_stride;
+  const int64_t* rows;
+  const bool* valid;
+  T* div;
+  T* area;
+  T* grads;
+  int n;
+  int64_t nv;
+  int members;
+};
+
+// Block (x, y): the tile x of kTile triangles for the group of members
+// y * kM .. y * kM + kM - 1 (the last group may hold fewer).  The block
+// reads the tile's rows and the mask once for the group and issues the
+// group's corner loads together (a shared positions or tilts array once);
+// each member's div, area and g are p1_shape and p1_div_of of its own
+// corners, so member m is the bits of a call on it alone.  div zeroed on
+// invalid triangles and the area where the triangle is invalid or 2 * area
+// < EPS_AREA (tilt_ops.mask_divergence); g unmasked; a row out of range: NaN
+// outputs.
+// kG: each member's g staged in shared memory and stored as a slab.
+template <typename T, bool kG, int kM>
+__global__ void __launch_bounds__(kTile) p1_div_kernel(const P1Div<T> a) {
   __shared__ alignas(16) int64_t s_rows[3 * kTile];
-  __shared__ alignas(16) T s_g[9 * kTile];
-  const int64_t member = blockIdx.y;  // member: its positions, tilts and outputs
-  pos += member * nv * 3;
-  tilts += member * nv * 3;
-  div += member * n;
-  area += member * n;
-  grads += member * 9 * (int64_t)n;
+  __shared__ alignas(16) T s_g[kG ? 9 * kTile : 2];
+  const int64_t first_member = (int64_t)blockIdx.y * kM;
+  const int here_m = a.members - first_member < kM ? (int)(a.members - first_member) : kM;
+  const bool shared_pos = a.pos_stride == 0;
+  const bool shared_tilts = a.tilt_stride == 0;
+  const int64_t nv = a.nv;
+  const int n = a.n;
+  const T* __restrict__ pos = a.pos + first_member * a.pos_stride;
+  const T* __restrict__ tilts = a.tilts + first_member * a.tilt_stride;
   const int tid = threadIdx.x;
   const int first = blockIdx.x * kTile;
   const int here = min(kTile, n - first);
-  load_rows(rows, first, here, s_rows);
+  load_rows(a.rows, first, here, s_rows);
 
-  if (tid < here) {
-    const int t = first + tid;
-    V3<T> v[3], tc[3], g[3];
-    const bool ok_v = gather(pos, s_rows + 3 * tid, nv, v);
-    const bool ok_t = gather(tilts, s_rows + 3 * tid, nv, tc);
-    T a;
-    T d = p1_terms(v, tc, g, &a);
-    const bool live = valid[t];
-    d = live ? d : T(0);
-    a = (live && T(2) * a >= T(kEpsArea)) ? a : T(0);
-    if (!(ok_v && ok_t)) {
-      const T q = nan_of<T>();
-      const V3<T> qv = {q, q, q};
-      d = a = q;
-      g[0] = g[1] = g[2] = qv;
+  // the rows once, then every member's corners: a shared array's once
+  const bool live = tid < here;
+  const int t = first + tid;
+  bool ok = live;
+  int64_t r[3] = {0, 0, 0};
+  if (live) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      r[k] = s_rows[3 * tid + k];
+      if (r[k] < 0 || r[k] >= nv) {
+        ok = false;
+        r[k] = 0;
+      }
     }
-    div[t] = d;
-    area[t] = a;
-    put_corners(s_g, tid, g);
   }
-  __syncthreads();
-  store_slab(grads + 9 * (int64_t)first, s_g, 9 * here);
+  V3<T> v[kM][3], tc[kM][3];
+#pragma unroll
+  for (int m = 0; m < kM; ++m) {
+    const bool load_v = ok && m < here_m && (m == 0 || !shared_pos);
+    const bool load_t = ok && m < here_m && (m == 0 || !shared_tilts);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const T* x = pos + m * a.pos_stride + 3 * r[k];
+      const T* y = tilts + m * a.tilt_stride + 3 * r[k];
+      v[m][k] = load_v ? V3<T>{__ldg(x), __ldg(x + 1), __ldg(x + 2)} : V3<T>{T(0), T(0), T(0)};
+      tc[m][k] = load_t ? V3<T>{__ldg(y), __ldg(y + 1), __ldg(y + 2)} : V3<T>{T(0), T(0), T(0)};
+    }
+  }
+  const bool counted = live && a.valid[t];
+
+  V3<T> g[3];
+  T ar = T(0);
+#pragma unroll
+  for (int m = 0; m < kM; ++m) {
+    if (m >= here_m) break;  // the same for the whole block
+    const int64_t member = first_member + m;
+    // g and the area of this member's positions (of every member's where shared)
+    const bool own = !shared_pos || member == 0;
+    if (m == 0 || !shared_pos) p1_shape(v[m], g, &ar);
+    V3<T> g_out[3] = {g[0], g[1], g[2]};
+    if (live) {
+      // this member's tilts (member 0's where shared), by selects: no indexed local array
+      const V3<T> t3[3] = {shared_tilts ? tc[0][0] : tc[m][0], shared_tilts ? tc[0][1] : tc[m][1],
+                           shared_tilts ? tc[0][2] : tc[m][2]};
+      T d = p1_div_of(t3, g);
+      d = counted ? d : T(0);
+      T am = (counted && T(2) * ar >= T(kEpsArea)) ? ar : T(0);
+      if (!ok) {
+        const T q = nan_of<T>();
+        const V3<T> qv = {q, q, q};
+        d = am = q;
+        g_out[0] = g_out[1] = g_out[2] = qv;
+      }
+      a.div[member * n + t] = d;
+      if (own) a.area[(shared_pos ? 0 : member) * n + t] = am;
+    }
+    if constexpr (kG) {
+      if (own) {
+        if (m > 0) __syncthreads();  // the last member's slab stores have read s_g
+        if (live) put_corners(s_g, tid, g_out);
+        __syncthreads();
+        store_slab(a.grads + (shared_pos ? 0 : member) * 9 * (int64_t)n + 9 * (int64_t)first,
+                   s_g, 9 * here);
+      }
+    }
+  }
 }
 
 // Grids over n triangles: the per-triangle curvature kernels' (one member),
@@ -869,6 +970,30 @@ inline dim3 tiles_for(int n, int members = 1) {
 
 // The largest group of members a block of the surface kernel takes.
 constexpr int kMaxGroup = 4;
+// The largest group of members a block of the divergence kernel takes.
+constexpr int kMaxDivGroup = 4;
+
+template <typename T, bool kG, int kM>
+void p1_div_group(const P1Div<T>& a, cudaStream_t st) {
+  const dim3 grid((unsigned int)((a.n + kTile - 1) / kTile),
+                  (unsigned int)((a.members + kM - 1) / kM));
+  p1_div_kernel<T, kG, kM><<<grid, kTile, 0, st>>>(a);
+}
+
+// The divergence kernel in groups of ``group`` members, g written where
+// ``grads`` is not null.  cudaErrorInvalidValue for another group.
+template <typename T>
+int p1_div(const P1Div<T>& a, int group, cudaStream_t st) {
+  const bool g = a.grads != nullptr;
+  switch (group) {
+    case 1: g ? p1_div_group<T, true, 1>(a, st) : p1_div_group<T, false, 1>(a, st); break;
+    case 2: g ? p1_div_group<T, true, 2>(a, st) : p1_div_group<T, false, 2>(a, st); break;
+    case 3: g ? p1_div_group<T, true, 3>(a, st) : p1_div_group<T, false, 3>(a, st); break;
+    case 4: g ? p1_div_group<T, true, 4>(a, st) : p1_div_group<T, false, 4>(a, st); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
 
 template <typename T, bool kGrad, int kM>
 void surface_group(const Surface<T>& a, cudaStream_t st) {
@@ -1110,42 +1235,45 @@ extern "C" int tri_curvature_data_bwd(int f64, const void* pos, const int64_t* r
   return (int)cudaGetLastError();
 }
 
-// div (T,), area (T,) and g (T, 3, 3) of tilt_ops.p1_triangle_divergence,
-// masked as it masks them.
+namespace {
+
+template <typename T>
+int p1_divergence(const void* pos, int64_t pos_stride, const void* tilts, int64_t tilt_stride,
+                  const int64_t* rows, const bool* valid, void* div, void* area, void* grads,
+                  int n, int64_t nv, int members, int group, cudaStream_t st) {
+  const P1Div<T> a{(const T*)pos, pos_stride, (const T*)tilts, tilt_stride, rows, valid,
+                   (T*)div, (T*)area, (T*)grads, n, nv, members};
+  return p1_div(a, group, st);
+}
+
+}  // namespace
+
+// div (T,), area (T,) and, where ``grads`` is not null, g (T, 3, 3) of
+// tilt_ops.p1_triangle_divergence, masked as it masks them: the one-member
+// case of tri_p1_div_members.
 extern "C" int tri_p1_div(int f64, const void* pos, const void* tilts, const int64_t* rows,
                           const bool* valid, void* div, void* area, void* grads, int n,
                           int64_t nv, void* stream) {
-  if (n > 0) {
-    cudaStream_t st = (cudaStream_t)stream;
-    if (f64) {
-      p1_div_kernel<double><<<tiles_for(n), kTile, 0, st>>>(
-          (const double*)pos, (const double*)tilts, rows, valid, (double*)div, (double*)area,
-          (double*)grads, n, nv);
-    } else {
-      p1_div_kernel<float><<<tiles_for(n), kTile, 0, st>>>(
-          (const float*)pos, (const float*)tilts, rows, valid, (float*)div, (float*)area,
-          (float*)grads, n, nv);
-    }
-  }
-  return (int)cudaGetLastError();
+  if (n < 1) return (int)cudaGetLastError();
+  const auto fn = f64 ? p1_divergence<double> : p1_divergence<float>;
+  return fn(pos, 3 * nv, tilts, 3 * nv, rows, valid, div, area, grads, n, nv, 1, 1,
+            (cudaStream_t)stream);
 }
 
 // The tilt gradient of <g_div, div>: dtilts (Nv, 3), row v the sum over its
-// CSR slots (t, c) of [valid_t] g_div_t g[t, c], from the forward's g.
+// CSR slots (t, c) of [valid_t] g_div_t g[t, c], from the forward's g: the
+// one-member case of tri_p1_div_bwd_members.
 extern "C" int tri_p1_div_bwd(int f64, const int32_t* offsets, const int32_t* slots,
                               const void* grads, const bool* valid, const void* g_div,
                               void* dtilts, int64_t nv, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (f64) {
-    vertex_sum::launch_weighted<double, 3>(offsets, slots, (const double*)grads,
-                                           (const double*)g_div, valid, (double*)dtilts, (int)nv,
-                                           st);
-  } else {
-    vertex_sum::launch_weighted<float, 3>(offsets, slots, (const float*)grads,
-                                          (const float*)g_div, valid, (float*)dtilts, (int)nv,
-                                          st);
-  }
-  return (int)cudaGetLastError();
+  const bool ok = f64 ? vertex_sum::launch_weighted<double, 3>(
+                            offsets, slots, (const double*)grads, 0, (const double*)g_div, 0,
+                            valid, (double*)dtilts, (int)nv, st)
+                      : vertex_sum::launch_weighted<float, 3>(
+                            offsets, slots, (const float*)grads, 0, (const float*)g_div, 0,
+                            valid, (float*)dtilts, (int)nv, st);
+  return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------
@@ -1196,40 +1324,49 @@ extern "C" int tri_curvature_data_bwd_members(int f64, const void* pos, const in
   return (int)cudaGetLastError();
 }
 
-extern "C" int tri_p1_div_members(int f64, const void* pos, const void* tilts,
-                                  const int64_t* rows, const bool* valid, void* div, void* area,
-                                  void* grads, int n, int64_t nv, int members, void* stream) {
+// ``members`` stacked members, ``group`` members a block over one tile (1 to
+// tri_p1_div_max_group(); the last group may hold fewer): pos and tilts
+// (members, nv, 3) with ``pos_shared`` / ``tilts_shared`` 0, or one (nv, 3)
+// array shared by the members with 1; div (members, n); area (members, n) and
+// grads (members, n, 3, 3), or (n,) and (n, 3, 3) with shared positions
+// (every member's are the same); grads null: g is not written.  Member m's
+// outputs are the bits of tri_p1_div on member m alone, at any group.
+// cudaErrorInvalidValue for members < 1 or another group.
+extern "C" int tri_p1_div_members(int f64, const void* pos, int pos_shared, const void* tilts,
+                                  int tilts_shared, const int64_t* rows, const bool* valid,
+                                  void* div, void* area, void* grads, int n, int64_t nv,
+                                  int members, int group, void* stream) {
   if (members < 1) return (int)cudaErrorInvalidValue;
-  if (n > 0) {
-    cudaStream_t st = (cudaStream_t)stream;
-    if (f64) {
-      p1_div_kernel<double><<<tiles_for(n, members), kTile, 0, st>>>(
-          (const double*)pos, (const double*)tilts, rows, valid, (double*)div, (double*)area,
-          (double*)grads, n, nv);
-    } else {
-      p1_div_kernel<float><<<tiles_for(n, members), kTile, 0, st>>>(
-          (const float*)pos, (const float*)tilts, rows, valid, (float*)div, (float*)area,
-          (float*)grads, n, nv);
-    }
-  }
-  return (int)cudaGetLastError();
+  if (n < 1) return (int)cudaGetLastError();
+  const auto fn = f64 ? p1_divergence<double> : p1_divergence<float>;
+  return fn(pos, pos_shared ? 0 : 3 * nv, tilts, tilts_shared ? 0 : 3 * nv, rows, valid, div,
+            area, grads, n, nv, members, group, (cudaStream_t)stream);
 }
 
-// grads (members, n, 3, 3), g_div (members, n), dtilts (members, nv, 3).
+// The largest ``group`` tri_p1_div_members takes.
+extern "C" int tri_p1_div_max_group() { return kMaxDivGroup; }
+
+// grads (members, n, 3, 3), or one (n, 3, 3) shared by the members with
+// ``grads_shared`` 1; g_div (members, n), dtilts (members, nv, 3); ``group``
+// members a thread (1 to tri_p1_div_bwd_max_group()).  Member m's rows are
+// the bits of tri_p1_div_bwd on member m alone, at any group.
 extern "C" int tri_p1_div_bwd_members(int f64, const int32_t* offsets, const int32_t* slots,
-                                      const void* grads, const bool* valid, const void* g_div,
-                                      void* dtilts, int64_t nv, int n, int members,
-                                      void* stream) {
+                                      const void* grads, int grads_shared, const bool* valid,
+                                      const void* g_div, void* dtilts, int64_t nv, int n,
+                                      int members, int group, void* stream) {
   if (members < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (f64) {
-    vertex_sum::launch_weighted<double, 3>(offsets, slots, (const double*)grads,
-                                           (const double*)g_div, valid, (double*)dtilts, (int)nv,
-                                           st, members, 3 * (int64_t)n);
-  } else {
-    vertex_sum::launch_weighted<float, 3>(offsets, slots, (const float*)grads,
-                                          (const float*)g_div, valid, (float*)dtilts, (int)nv,
-                                          st, members, 3 * (int64_t)n);
-  }
-  return (int)cudaGetLastError();
+  const int64_t src_stride = grads_shared ? 0 : 9 * (int64_t)n;
+  const bool ok = f64 ? vertex_sum::launch_weighted<double, 3>(
+                            offsets, slots, (const double*)grads, src_stride,
+                            (const double*)g_div, n, valid, (double*)dtilts, (int)nv, st, members,
+                            group)
+                      : vertex_sum::launch_weighted<float, 3>(
+                            offsets, slots, (const float*)grads, src_stride,
+                            (const float*)g_div, n, valid, (float*)dtilts, (int)nv, st, members,
+                            group);
+  return ok ? (int)cudaGetLastError() : (int)cudaErrorInvalidValue;
 }
+
+// The largest ``group`` tri_p1_div_bwd_members takes.
+extern "C" int tri_p1_div_bwd_max_group() { return vertex_sum::kMaxWeightedGroup; }

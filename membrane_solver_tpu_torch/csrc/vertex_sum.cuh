@@ -13,21 +13,31 @@
 // each triangle in triangle order, then corners 1 and 2).  A source
 // array holds one row of W values per corner slot, (T, 3, W) row-major, and
 // the output one row per vertex, (N, W).  Two sources go through one launch
-// (Wb = 0 for one).  The weighted form (launch_weighted) scales each corner
-// row by a per-triangle weight, zero where a per-triangle mask is false, as
-// it adds it: one launch where a scale pass and a sum would take two.
+// (Wb = 0 for one).  The weighted form (launch_weighted, weighted_sum_kernel:
+// kernel 4's tilt backward) scales each corner row by a per-triangle weight,
+// zero where a per-triangle mask is false, as it adds it: one launch where a
+// scale pass and a sum would take two.
 //
 // Layout: one thread per vertex row, kRowsPerBlock rows per block; the row's
 // corners go in chunks of kChunk.  A chunk's loads are issued before any is
 // used: the row's offsets pair, then every slot of the chunk (contiguous),
 // then every corner's Wa (+ Wb) values and, weighted, its triangle's weight
-// and mask (mul_rn(w, x) formed as the load lands).  So a chunk costs three
-// dependent round trips (offsets, slots, values) where walking the slots one
-// by one cost two per corner.  The adds then take the chunk's corners in
-// slot order into a running sum that starts at +0 and goes on over the
-// row's chunks: the same chain of adds on the same values as walking the
-// slots, never a tree, so the bits are those of the twin
-// (kernels/vertex_sum.reference).
+// and mask.  So a chunk costs three dependent round trips (offsets, slots,
+// values) where walking the slots one by one cost two per corner.  The adds
+// then take the chunk's corners in slot order into a running sum that starts
+// at +0 and goes on over the row's chunks (weighted: each product mul_rn(w,
+// x) formed in that loop): the same chain of adds on the same values as
+// walking the slots, never a tree, so the bits are those of the twin
+// (kernels/vertex_sum.reference).  The weighted form once formed each
+// product in the load loop, as its loads landed: each corner's product then
+// waited on its own loads before the next corner's were issued, and the
+// form took twice the plain sum's time; any per-triangle load cost ~2.3 us
+// of the 5.0 at kozlov L3 (tools/p1_div_cut_split.py, PERF.md §6).  With
+// every load first, the single weighted sum takes ~1.2x the plain one.  Its
+// member form takes a group of members a thread (the wrapper's choice: one
+// with each member's source, where larger groups' chains were slower, three
+// with a shared one), reading the slots, triangle indices (an int32
+// division) and mask once for the group and a shared source's row once.
 //
 // The sizes, kChunk = 8 and kRowsPerBlock = 32, were the fastest at kozlov
 // L3 on an H100 80GB HBM3 at 700 W, against 4 and 16 corners per chunk and
@@ -66,29 +76,26 @@ __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, 
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 
 // Member m = blockIdx.y reads its sources at m * src_rows rows (src_rows =
-// 3T corner rows per member; the weight at m * src_rows / 3) and writes its
-// output at m * n rows; the CSR and the mask are shared.  With one member
-// (gridDim.y = 1) every offset is zero.  kPaired: both width-3 sources lie
-// in one array of 6-float corner rows (a's three values, then b's; src_b
-// unused), a corner three 8-byte loads where two 12-byte rows took six.
-// Unweighted, a row whose ``mask`` entry is set (a null mask: none) is
-// skipped: its sum is written elsewhere (a member gradient's interior
-// vertices, summed in the triangle pass: add_interior below).
-template <typename T, int Wa, int Wb, bool kWeighted, bool kPaired = false>
+// 3T corner rows per member) and writes its output at m * n rows; the CSR
+// is shared.  With one member (gridDim.y = 1) every offset is zero.
+// kPaired: both width-3 sources lie in one array of 6-float corner rows (a's
+// three values, then b's; src_b unused), a corner three 8-byte loads where
+// two 12-byte rows took six.  A row whose ``skip`` entry is set (a null
+// skip: none) is left as it is: its sum is written elsewhere (a member
+// gradient's interior vertices, summed in the triangle pass: add_interior
+// below).
+template <typename T, int Wa, int Wb, bool kPaired = false>
 __global__ void __launch_bounds__(kRowsPerBlock)
     vertex_sum_kernel(const int32_t* __restrict__ offsets, const int32_t* __restrict__ slots,
                       const T* __restrict__ src_a, T* __restrict__ out_a,
                       const T* __restrict__ src_b, T* __restrict__ out_b,
-                      const T* __restrict__ weight, const bool* __restrict__ mask, int n,
-                      int64_t src_rows) {
-  static_assert(!kPaired || (Wa == 3 && Wb == 3 && !kWeighted), "pairs are two width-3 rows");
+                      const uint8_t* __restrict__ skip, int n, int64_t src_rows) {
+  static_assert(!kPaired || (Wa == 3 && Wb == 3), "pairs are two width-3 rows");
   constexpr int kB = Wb > 0 ? Wb : 1;
   constexpr int kRowA = kPaired ? 6 : Wa;  // floats between source a's corner rows
   const int v = blockIdx.x * kRowsPerBlock + threadIdx.x;
   if (v >= n) return;
-  if constexpr (!kWeighted) {
-    if (mask != nullptr && mask[v]) return;
-  }
+  if (skip != nullptr && skip[v]) return;
   const int64_t member = blockIdx.y;
   src_a += member * src_rows * kRowA;
   out_a += member * n * Wa;
@@ -96,7 +103,6 @@ __global__ void __launch_bounds__(kRowsPerBlock)
     if constexpr (!kPaired) src_b += member * src_rows * Wb;
     out_b += member * n * Wb;
   }
-  if constexpr (kWeighted) weight += member * (src_rows / 3);
   const int lo = offsets[v];
   const int hi = offsets[v + 1];
   T a[Wa];
@@ -117,14 +123,7 @@ __global__ void __launch_bounds__(kRowsPerBlock)
     for (int p = 0; p < kChunk; ++p) {
       if (slot[p] < 0) continue;
       const int64_t at = slot[p];
-      if constexpr (kWeighted) {
-        const int64_t tri = at / 3;
-        const bool keep = mask[tri];
-        const T wt = weight[tri];
-        const T w = keep ? wt : T(0);
-#pragma unroll
-        for (int c = 0; c < Wa; ++c) xa[p][c] = mul_rn(w, src_a[at * Wa + c]);
-      } else if constexpr (kPaired) {
+      if constexpr (kPaired) {
         const float2* row = reinterpret_cast<const float2*>(src_a + at * 6);
         const float2 x = row[0], y = row[1], z = row[2];
         xa[p][0] = x.x;
@@ -162,6 +161,87 @@ __global__ void __launch_bounds__(kRowsPerBlock)
   }
 }
 
+// The weighted form: out_m[v] = sum over v's slots s, in slot order from +0,
+// of mul_rn(w, src_m[s]) with w = mask[t] ? weight_m[t] : 0, t = s / 3.
+// Block (x, y): rows x * kRowsPerBlock ... for the group of members
+// y * kM .. y * kM + kM - 1 (the last group may hold fewer); one thread a
+// row.  The thread reads its row's offsets, its chunk's slots, each slot's
+// triangle (an int32 division) and mask once for the group, then every
+// member's weights and corner rows (a shared source's row once), all of a
+// chunk's loads in flight, and keeps one running sum a member: the adds a
+// one-member launch makes on the same products, so the same bits.
+// ``src_stride`` / ``weight_stride``: values between two members' sources /
+// weights (0: shared).
+template <typename T, int W, int kM>
+__global__ void __launch_bounds__(kRowsPerBlock)
+    weighted_sum_kernel(const int32_t* __restrict__ offsets, const int32_t* __restrict__ slots,
+                        const T* __restrict__ src, int64_t src_stride,
+                        const T* __restrict__ weight, int64_t weight_stride,
+                        const bool* __restrict__ mask, T* __restrict__ out, int n, int members) {
+  const int v = blockIdx.x * kRowsPerBlock + threadIdx.x;
+  if (v >= n) return;
+  const int64_t first_member = (int64_t)blockIdx.y * kM;
+  const int here_m = members - first_member < kM ? (int)(members - first_member) : kM;
+  const bool shared_src = src_stride == 0;
+  src += first_member * src_stride;
+  weight += first_member * weight_stride;
+  out += first_member * n * W;
+  const int lo = offsets[v];
+  const int hi = offsets[v + 1];
+  T acc[kM][W];
+#pragma unroll
+  for (int m = 0; m < kM; ++m) {
+#pragma unroll
+    for (int c = 0; c < W; ++c) acc[m][c] = T(0);
+  }
+  for (int first = lo; first < hi; first += kChunk) {
+    int slot[kChunk];
+#pragma unroll
+    for (int p = 0; p < kChunk; ++p) slot[p] = first + p < hi ? slots[first + p] : -1;
+    // every load of the chunk first: each slot's mask, the members' weights and rows (a
+    // shared source's once); no product waits inside this loop
+    bool keep[kChunk];
+    T wt[kM][kChunk];
+    T y[kM][kChunk][W];
+#pragma unroll
+    for (int p = 0; p < kChunk; ++p) {
+      if (slot[p] < 0) continue;
+      const int tri = (int)((unsigned int)slot[p] / 3u);
+      keep[p] = mask[tri];
+#pragma unroll
+      for (int m = 0; m < kM; ++m) {
+        if (m >= here_m) break;
+        wt[m][p] = weight[m * weight_stride + tri];
+        if (m == 0 || !shared_src) {
+          const T* row = src + m * src_stride + (int64_t)slot[p] * W;
+#pragma unroll
+          for (int c = 0; c < W; ++c) y[m][p][c] = row[c];
+        }
+      }
+    }
+    // then the products and the adds, in slot order, each member its own chain
+#pragma unroll
+    for (int p = 0; p < kChunk; ++p) {
+      if (slot[p] < 0) continue;
+#pragma unroll
+      for (int m = 0; m < kM; ++m) {
+        if (m >= here_m) break;
+        const T w = keep[p] ? wt[m][p] : T(0);
+#pragma unroll
+        for (int c = 0; c < W; ++c) {
+          acc[m][c] += mul_rn(w, shared_src ? y[0][p][c] : y[m][p][c]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < kM; ++m) {
+    if (m >= here_m) break;
+#pragma unroll
+    for (int c = 0; c < W; ++c) out[m * (int64_t)n * W + (int64_t)v * W + c] = acc[m][c];
+  }
+}
+
 inline dim3 vertex_grid(int n, int members) {
   return dim3((unsigned int)((n + kRowsPerBlock - 1) / kRowsPerBlock), (unsigned int)members);
 }
@@ -176,9 +256,8 @@ inline void launch(const int32_t* offsets, const int32_t* slots, const T* src_a,
                    const T* src_b, T* out_b, int n, cudaStream_t stream, int members = 1,
                    int64_t src_rows = 0, const uint8_t* skip = nullptr) {
   if (n > 0 && members > 0) {
-    vertex_sum_kernel<T, Wa, Wb, false><<<vertex_grid(n, members), kRowsPerBlock, 0, stream>>>(
-        offsets, slots, src_a, out_a, src_b, out_b, nullptr,
-        reinterpret_cast<const bool*>(skip), n, src_rows);
+    vertex_sum_kernel<T, Wa, Wb><<<vertex_grid(n, members), kRowsPerBlock, 0, stream>>>(
+        offsets, slots, src_a, out_a, src_b, out_b, skip, n, src_rows);
   }
 }
 
@@ -190,22 +269,45 @@ inline void launch_pairs(const int32_t* offsets, const int32_t* slots, const T* 
                          const uint8_t* skip, T* out_a, T* out_b, int n, cudaStream_t stream,
                          int members = 1, int64_t src_rows = 0) {
   if (n > 0 && members > 0) {
-    vertex_sum_kernel<T, 3, 3, false, true><<<vertex_grid(n, members), kRowsPerBlock, 0, stream>>>(
-        offsets, slots, pairs, out_a, nullptr, out_b, nullptr,
-        reinterpret_cast<const bool*>(skip), n, src_rows);
+    vertex_sum_kernel<T, 3, 3, true><<<vertex_grid(n, members), kRowsPerBlock, 0, stream>>>(
+        offsets, slots, pairs, out_a, nullptr, out_b, skip, n, src_rows);
   }
 }
 
-// out[v] = sum over v's slots of w * src[slot], w = mask[tri] ? weight[tri]
-// : 0 with tri = slot / 3.
+// The largest group of members a thread of the weighted form takes.
+constexpr int kMaxWeightedGroup = 4;
+
+template <typename T, int W, int kM>
+inline void weighted_group(const int32_t* offsets, const int32_t* slots, const T* src,
+                           int64_t src_stride, const T* weight, int64_t weight_stride,
+                           const bool* mask, T* out, int n, cudaStream_t stream, int members) {
+  weighted_sum_kernel<T, W, kM><<<vertex_grid(n, (members + kM - 1) / kM), kRowsPerBlock, 0,
+                                  stream>>>(offsets, slots, src, src_stride, weight,
+                                            weight_stride, mask, out, n, members);
+}
+
+// out[m][v] = sum over v's slots of w * src[m][slot], w = mask[tri] ?
+// weight[m][tri] : 0 with tri = slot / 3, in groups of ``group`` members a
+// thread; ``src_stride`` and ``weight_stride`` as weighted_sum_kernel's (with
+// one member: unread).  False (nothing launched) for another group.
 template <typename T, int W>
-inline void launch_weighted(const int32_t* offsets, const int32_t* slots, const T* src,
-                            const T* weight, const bool* mask, T* out, int n,
-                            cudaStream_t stream, int members = 1, int64_t src_rows = 0) {
-  if (n > 0 && members > 0) {
-    vertex_sum_kernel<T, W, 0, true><<<vertex_grid(n, members), kRowsPerBlock, 0, stream>>>(
-        offsets, slots, src, out, nullptr, nullptr, weight, mask, n, src_rows);
+inline bool launch_weighted(const int32_t* offsets, const int32_t* slots, const T* src,
+                            int64_t src_stride, const T* weight, int64_t weight_stride,
+                            const bool* mask, T* out, int n, cudaStream_t stream,
+                            int members = 1, int group = 1) {
+  if (n < 1 || members < 1) return group >= 1 && group <= kMaxWeightedGroup;
+  switch (group) {
+    case 1: weighted_group<T, W, 1>(offsets, slots, src, src_stride, weight, weight_stride, mask,
+                                    out, n, stream, members); break;
+    case 2: weighted_group<T, W, 2>(offsets, slots, src, src_stride, weight, weight_stride, mask,
+                                    out, n, stream, members); break;
+    case 3: weighted_group<T, W, 3>(offsets, slots, src, src_stride, weight, weight_stride, mask,
+                                    out, n, stream, members); break;
+    case 4: weighted_group<T, W, 4>(offsets, slots, src, src_stride, weight, weight_stride, mask,
+                                    out, n, stream, members); break;
+    default: return false;
   }
+  return true;
 }
 
 // ---------------------------------------------------------------------

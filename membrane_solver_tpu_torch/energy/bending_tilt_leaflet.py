@@ -228,7 +228,7 @@ def leaflet_bending_tilt_energy(
         base = _apply_base_overrides(base, zero_base, j0_mask)
 
     # --- corner form at frozen positions: value + exact tilt gradient -----
-    div_tri, _, _ = tri_kernels.p1_triangle_divergence(
+    div_tri, _ = tri_kernels.p1_divergence_and_area(
         positions.detach(), tilts, topo.tri_rows, topo.tri_valid, topo.corner_csr()
     )
     div_term = div_sign * div_tri

@@ -26,6 +26,8 @@ the solver's path, each one ctypes call:
   ``vertex_sum.reference``);
 - ``p1_div``: the masked P1 divergence, the masked area and the P1 shape
   gradients of ``tilt_ops.p1_triangle_divergence`` (its twin);
+  :func:`p1_divergence_and_area` is the call of a caller that drops g: the
+  kernel then writes no g unless the tilts take a gradient;
 - ``p1_div_bwd``: its backward in the tilts, ``[valid_t] dE/ddiv_t g[t, c]``
   summed into vertex rows in corner-CSR order by the weighted vertex sum
   (twin: :func:`p1_div_vjp_reference`).
@@ -66,11 +68,15 @@ one call for B members stacked on a leading axis, ``tri_rows``, the masks
 and the CSR shared, member m's outputs the bits of the single call on member
 m.  The surface launch takes a group of members a block over one tile
 (:func:`group_size`), and with the gradient sums each tile's interior
-vertices in the triangle pass (``vertex_sum.tile_sums``); the others put
-the members on the grid's y axis.  Their twins
-(``*_members_reference``) run the single twins per member, on the CPU.
-The rules raise when a shared input (``tri_rows``, ``tri_valid``) varies
-over the members.
+vertices in the triangle pass (``vertex_sum.tile_sums``); the divergence
+launch takes a group of members a block over one tile too
+(:func:`div_group_size`), reads a positions or tilts array that the members
+share once (not copied B times), and with shared positions writes one
+member's area and g; its tilt backward takes a group of members a thread
+(``DIV_BWD_GROUPS``); the curvature launches put the members on the grid's
+y axis.  Their twins (``*_members_reference``) run the single twins per
+member, on the CPU.  The rules raise when a shared input (``tri_rows``,
+``tri_valid``) varies over the members.
 """
 
 from __future__ import annotations
@@ -95,6 +101,11 @@ LAUNCHES = {"surface_energy": 0, "surface_energy_grad": 0, "curvature_data": 0,
             "surface_area_grad_members": 0,
             "curvature_data_members": 0, "curvature_data_bwd_members": 0,
             "p1_div_members": 0, "p1_div_bwd_members": 0}
+# kernel 4's forward calls by form: single or member, and which input the members share
+# (``div_form``), with the shape gradients written or not
+DIV_FORMS = {f"{form}{suffix}": 0
+             for form in ("single", "per member", "positions shared", "tilts shared")
+             for suffix in ("", " without g")}
 
 # -fmad=false: no contracted multiply-adds, so the obtuse-branch tests see
 # the twin's rounding (see the note in the source)
@@ -106,6 +117,19 @@ TILE = vs.TILE  # triangles per block of the surface and divergence kernels (csr
 # L3, float32 and float64, on an H100 (PERF.md); the kernel is built for groups of 1 to its
 # kMaxGroup (tri_surface_max_group)
 SOLO, GROUP = 9, 2
+# members a block of kernel 4's member launch takes (div_group_size), by (dtype, positions
+# shared): the fastest near every width, kozlov L3 at B = 4, 8, 9 and 72, with g and without, on
+# an H100 (PERF.md): with per-member positions larger groups lengthen each block more than they
+# save, with shared positions a group shares one gather of the positions and one g; the kernel
+# is built for groups of 1 to its kMaxDivGroup (tri_p1_div_max_group)
+DIV_GROUPS = {(torch.float32, False): 1, (torch.float32, True): 4,
+              (torch.float64, False): 1, (torch.float64, True): 3}
+# members a thread of the weighted vertex sum takes (the divergence's member tilt backward), by
+# (dtype, g shared): with each member's g larger groups lengthen each thread's chains more than
+# the shared slots save (B = 8 and 72), with one shared g a group reads each corner row once
+# (B = 8); kozlov L3 on an H100 (PERF.md); vertex_sum.cuh builds groups of 1 to kMaxWeightedGroup
+DIV_BWD_GROUPS = {(torch.float32, False): 1, (torch.float32, True): 3,
+                  (torch.float64, False): 1, (torch.float64, True): 3}
 
 _lib = None
 
@@ -130,21 +154,26 @@ def build() -> ctypes.CDLL:
                                       + [i32, i64, i32, i32, i32, ptr],
         "tri_curvature_data_members": [i32] + [ptr] * 9 + [i32, i64, i32, ptr],
         "tri_curvature_data_bwd_members": [i32] + [ptr] * 11 + [i32, i64, i32, ptr],
-        "tri_p1_div_members": [i32] + [ptr] * 7 + [i32, i64, i32, ptr],
-        "tri_p1_div_bwd_members": [i32] + [ptr] * 6 + [i64, i32, i32, ptr],
+        "tri_p1_div_members": [i32, ptr, i32, ptr, i32] + [ptr] * 5 + [i32, i64, i32, i32, ptr],
+        "tri_p1_div_bwd_members": [i32, ptr, ptr, ptr, i32, ptr, ptr, ptr, i64, i32, i32, i32,
+                                   ptr],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = i32
-    lib.tri_tile_size.restype = i32
-    lib.tri_surface_max_group.restype = i32
+    for name in ("tri_tile_size", "tri_surface_max_group", "tri_p1_div_max_group",
+                 "tri_p1_div_bwd_max_group"):
+        getattr(lib, name).restype = i32
     if lib.tri_tile_size() != TILE:
         raise RuntimeError(f"tri_kernels.cu uses {lib.tri_tile_size()}-triangle blocks, "
                            f"the wrapper {TILE}")
-    if lib.tri_surface_max_group() < GROUP:
-        raise RuntimeError(f"tri_kernels.cu takes groups of up to {lib.tri_surface_max_group()} "
-                           f"members, the wrapper {GROUP}")
+    for name, want in (("tri_surface_max_group", GROUP),
+                       ("tri_p1_div_max_group", max(DIV_GROUPS.values())),
+                       ("tri_p1_div_bwd_max_group", max(DIV_BWD_GROUPS.values()))):
+        if getattr(lib, name)() < want:
+            raise RuntimeError(f"tri_kernels.cu's {name} is {getattr(lib, name)()}, the wrapper "
+                               f"takes {want}")
     _lib = lib
     return lib
 
@@ -374,24 +403,27 @@ def launch_curvature_data_bwd(positions, tri_rows, tri_valid, csr: CornerCSR, g_
     return dpos
 
 
-def launch_p1_divergence(positions, tilts, tri_rows, tri_valid, csr: CornerCSR | None = None):
-    """(div (T,), area (T,), g (T, 3, 3)) from ``tri_p1_div``, masked as
-    ``tilt_ops.p1_triangle_divergence`` masks them; ``csr``, the corner CSR of ``tri_rows``
-    where the caller has it, names the call's launch count (``kernels/_launch.count``)."""
+def launch_p1_divergence(positions, tilts, tri_rows, tri_valid, csr: CornerCSR | None = None,
+                         grads: bool = True):
+    """(div (T,), area (T,), g (T, 3, 3) or None) from ``tri_p1_div``, masked as
+    ``tilt_ops.p1_triangle_divergence`` masks them; ``grads`` False: g is not written (None).
+    ``csr``, the corner CSR of ``tri_rows`` where the caller has it, names the call's launch
+    count (``kernels/_launch.count``)."""
     T = _check_rows(positions, tri_rows)
     _check(positions, positions.dtype, tilts=(tilts, positions.shape, None),
            tri_valid=(tri_valid, (T,), torch.bool))
     lib = build()
     kw = {"dtype": positions.dtype, "device": positions.device}
-    div, area, g = (torch.empty(s, **kw) for s in ((T,), (T,), (T, 3, 3)))
+    div, area = torch.empty(T, **kw), torch.empty(T, **kw)
+    g = torch.empty((T, 3, 3), **kw) if grads else None
     code = _launch.call(
         positions, lib.tri_p1_div,
         _f64(positions), positions.data_ptr(), tilts.data_ptr(), tri_rows.data_ptr(),
-        tri_valid.data_ptr(), div.data_ptr(), area.data_ptr(), g.data_ptr(), T,
-        positions.shape[0],
+        tri_valid.data_ptr(), div.data_ptr(), area.data_ptr(), _ptr(g), T, positions.shape[0],
     )
     _raise_on(code, "tri_p1_div")
     _count("p1_div", positions, csr)
+    DIV_FORMS["single" if grads else "single without g"] += 1
     return div, area, g
 
 
@@ -562,41 +594,82 @@ def launch_curvature_data_bwd_members(positions, tri_rows, tri_valid, csr: Corne
     return dpos
 
 
-def launch_p1_divergence_members(positions, tilts, tri_rows, tri_valid):
-    """(div (B, T), area (B, T), g (B, T, 3, 3)) of B members in one call."""
-    members, T = _check_members(positions, tri_rows)
-    _check(positions, positions.dtype, tilts=(tilts, positions.shape, None),
-           tri_valid=(tri_valid, (T,), torch.bool))
+def div_group_size(dtype, shared_positions: bool) -> int:
+    """Members a block of kernel 4's member launch takes (``DIV_GROUPS``)."""
+    return DIV_GROUPS[(dtype, shared_positions)]
+
+
+def div_form(positions, tilts) -> str:
+    """The member launch's form: which of its inputs the members share (``DIV_FORMS``)."""
+    if positions.dim() == 2:
+        return "positions shared"
+    return "tilts shared" if tilts.dim() == 2 else "per member"
+
+
+def launch_p1_divergence_members(positions, tilts, tri_rows, tri_valid, grads: bool = True,
+                                 group: int | None = None):
+    """(div (B, T), area, g) of B members in one ``tri_p1_div_members`` call.
+
+    ``positions`` and ``tilts`` are (B, Nv, 3), or one (Nv, 3) array that
+    the members share (read once a member group, not copied B times); one of
+    them carries the members.  ``area`` is (B, T) and ``g`` (B, T, 3, 3), or
+    one member's (T,) and (T, 3, 3) where the positions are shared (every
+    member's would be the same bits); ``grads`` False: g is not written
+    (None).  A block takes one tile for ``group`` members (default
+    :func:`div_group_size`).  Member m's outputs are the bits of
+    :func:`launch_p1_divergence` on member m.
+    """
+    batched = positions if positions.dim() == 3 else tilts
+    if batched.dim() != 3 or batched.shape[2] != 3:
+        raise ValueError("member positions or tilts must be (B, Nv, 3), got "
+                         f"{tuple(positions.shape)} and {tuple(tilts.shape)}")
+    members, T = _check_members(batched, tri_rows)
+    nv = batched.shape[1]
+    dtype = batched.dtype
+    for name, x in (("positions", positions), ("tilts", tilts)):
+        shape = (nv, 3) if x.dim() == 2 else (members, nv, 3)
+        _check(batched, dtype, **{name: (x, shape, None)})
+    _check(batched, dtype, tri_valid=(tri_valid, (T,), torch.bool))
+    shared_pos = positions.dim() == 2
     lib = build()
-    kw = {"dtype": positions.dtype, "device": positions.device}
-    div, area, g = (torch.empty((members,) + s, **kw) for s in ((T,), (T,), (T, 3, 3)))
+    kw = {"dtype": dtype, "device": batched.device}
+    lead = () if shared_pos else (members,)
+    div, area = torch.empty((members, T), **kw), torch.empty(lead + (T,), **kw)
+    g = torch.empty(lead + (T, 3, 3), **kw) if grads else None
     code = _launch.call(
-        positions, lib.tri_p1_div_members,
-        _f64(positions), positions.data_ptr(), tilts.data_ptr(), tri_rows.data_ptr(),
-        tri_valid.data_ptr(), div.data_ptr(), area.data_ptr(), g.data_ptr(), T,
-        positions.shape[1], members,
+        batched, lib.tri_p1_div_members,
+        _f64(batched), positions.data_ptr(), int(shared_pos), tilts.data_ptr(),
+        int(tilts.dim() == 2), tri_rows.data_ptr(), tri_valid.data_ptr(), div.data_ptr(),
+        area.data_ptr(), _ptr(g), T, nv, members,
+        div_group_size(dtype, shared_pos) if group is None else group,
     )
     _raise_on(code, "tri_p1_div_members")
-    _count("p1_div_members", positions)
+    _count("p1_div_members", batched)
+    form = div_form(positions, tilts)
+    DIV_FORMS[form if grads else f"{form} without g"] += 1
     return div, area, g
 
 
-def launch_p1_div_bwd_members(g, tri_valid, g_div, csr: CornerCSR):
-    """dE/dtilts (B, Nv, 3) of B members' (B, T, 3, 3) shape gradients in one call."""
-    if g.dim() != 4:
-        raise ValueError(f"member shape gradients must be (B, T, 3, 3), got {tuple(g.shape)}")
-    members, T = g.shape[0], g.shape[1]
+def launch_p1_div_bwd_members(g, tri_valid, g_div, csr: CornerCSR, group: int | None = None):
+    """dE/dtilts (B, Nv, 3) of B members in one call: ``g`` (B, T, 3, 3), or one (T, 3, 3)
+    that the members share (the forward's with shared positions); ``g_div`` (B, T).  A thread
+    takes a vertex row for ``group`` members (default ``DIV_BWD_GROUPS``)."""
+    if g_div.dim() != 2:
+        raise ValueError(f"member upstreams must be (B, T), got {tuple(g_div.shape)}")
+    members, T = g_div.shape
     if not 1 <= members <= vs.MAX_MEMBERS:
         raise ValueError(f"{members} members; the launches take 1 to {vs.MAX_MEMBERS}")
-    _check(g, g.dtype, g=(g, (members, T, 3, 3), None), tri_valid=(tri_valid, (T,), torch.bool),
-           g_div=(g_div, (members, T), None))
+    shared = g.dim() == 3
+    _check(g, g.dtype, g=(g, (T, 3, 3) if shared else (members, T, 3, 3), None),
+           tri_valid=(tri_valid, (T,), torch.bool), g_div=(g_div, (members, T), None))
     vs.check_csr(csr, g, T)
     lib = build()
     dtilts = torch.empty((members, csr.n_rows, 3), dtype=g.dtype, device=g.device)
     code = _launch.call(
         g, lib.tri_p1_div_bwd_members,
-        _f64(g), csr.offsets.data_ptr(), csr.slots.data_ptr(), g.data_ptr(), tri_valid.data_ptr(),
-        g_div.data_ptr(), dtilts.data_ptr(), csr.n_rows, T, members,
+        _f64(g), csr.offsets.data_ptr(), csr.slots.data_ptr(), g.data_ptr(), int(shared),
+        tri_valid.data_ptr(), g_div.data_ptr(), dtilts.data_ptr(), csr.n_rows, T, members,
+        DIV_BWD_GROUPS[(g.dtype, shared)] if group is None else group,
     )
     _raise_on(code, "tri_p1_div_bwd_members")
     _count("p1_div_bwd_members", g, csr)
@@ -698,17 +771,32 @@ def curvature_data_vjp_members_reference(positions, tri_rows, tri_valid, csr: Co
         for m, x in enumerate(positions)])
 
 
-def p1_divergence_members_reference(positions, tilts, tri_rows, tri_valid):
-    """Plain twin of ``tri_p1_div_members``: ``tilt_ops.p1_triangle_divergence`` per member."""
+def p1_divergence_members_reference(positions, tilts, tri_rows, tri_valid, grads: bool = True):
+    """Plain twin of ``tri_p1_div_members``: ``tilt_ops.p1_triangle_divergence`` per member.
+
+    The shapes of :func:`launch_p1_divergence_members`: a shared (Nv, 3)
+    positions or tilts array, one member's area and g where the positions
+    are shared, g None without ``grads``."""
+    members = (positions if positions.dim() == 3 else tilts).shape[0]
     out = [tilt_ops.p1_triangle_divergence(x, t, tri_rows, tri_valid)
-           for x, t in zip(positions, tilts)]
-    return tuple(torch.stack(parts) for parts in zip(*out))
+           for x, t in zip(_members_of(positions, members), _members_of(tilts, members))]
+    div = torch.stack([o[0] for o in out])
+    if positions.dim() == 2:
+        return div, out[0][1], out[0][2] if grads else None
+    g = torch.stack([o[2] for o in out]) if grads else None
+    return div, torch.stack([o[1] for o in out]), g
+
+
+def _members_of(x, members: int) -> list:
+    """The members' (Nv, 3) arrays of a (B, Nv, 3) ``x``, or ``members`` times a shared one."""
+    return list(x) if x.dim() == 3 else [x] * members
 
 
 def p1_div_vjp_members_reference(g, tri_valid, g_div, csr: CornerCSR):
-    """Plain twin of ``tri_p1_div_bwd_members``: :func:`p1_div_vjp_reference` per member."""
+    """Plain twin of ``tri_p1_div_bwd_members``: :func:`p1_div_vjp_reference` per member (``g``
+    (B, T, 3, 3), or one (T, 3, 3) shared by the members)."""
     return torch.stack([p1_div_vjp_reference(gm, tri_valid, dm, csr)
-                        for gm, dm in zip(g, g_div)])
+                        for gm, dm in zip(g if g.dim() == 4 else [g] * g_div.shape[0], g_div)])
 
 
 def _surface_members(positions, tri_rows, tri_valid, tension, csr, ws, grad, counter=None):
@@ -906,74 +994,98 @@ class _CurvatureData(torch.autograd.Function):
         return _MemberCurvatureData.apply(x, tri_rows, tri_valid, csr), (0, 0, 0, 0)
 
 
-def _p1_divergence_members(positions, tilts, tri_rows, tri_valid):
+def _p1_divergence_members(positions, tilts, tri_rows, tri_valid, grads):
     if positions.is_cuda:
         return launch_p1_divergence_members(positions.contiguous(), tilts.contiguous(), tri_rows,
-                                            tri_valid)
-    return p1_divergence_members_reference(positions, tilts, tri_rows, tri_valid)
+                                            tri_valid, grads)
+    return p1_divergence_members_reference(positions, tilts, tri_rows, tri_valid, grads)
+
+
+def _no_shape_gradients(needed: bool) -> None:
+    """Raise where the tilts take a gradient through a call that wrote no g: a dropped
+    gradient is a fault."""
+    if needed:
+        raise RuntimeError("p1_triangle_divergence: the tilts take a gradient, but the call "
+                           "wrote no shape gradients")
 
 
 class _MemberP1Divergence(torch.autograd.Function):
-    """:class:`_P1Divergence` over a leading member axis (its ``vmap`` rule's launches)."""
+    """:class:`_P1Divergence` over a leading member axis (its ``vmap`` rule's launches).
+
+    ``positions`` or ``tilts`` may be one (Nv, 3) array shared by the
+    members; with shared positions ``area`` and ``g`` are one member's.  g
+    is written where ``keep_g`` asks for it or the tilts take a gradient."""
 
     @staticmethod
-    def forward(ctx, positions, tilts, tri_rows, tri_valid, csr):
+    def forward(ctx, positions, tilts, tri_rows, tri_valid, csr, keep_g):
         ctx.set_materialize_grads(False)
-        div, area, g = _p1_divergence_members(positions, tilts, tri_rows, tri_valid)
+        grads = keep_g or ctx.needs_input_grad[1]
+        div, area, g = _p1_divergence_members(positions, tilts, tri_rows, tri_valid, grads)
         ctx.save_for_backward(g, tri_valid)
         ctx.csr = csr
-        ctx.mark_non_differentiable(area, g)
+        ctx.shared_tilts = tilts.dim() == 2
+        ctx.mark_non_differentiable(*(x for x in (area, g) if x is not None))
         return div, area, g
 
     @staticmethod
     def backward(ctx, grad_div, _grad_area, _grad_g):
         if grad_div is None:
-            return None, None, None, None, None
+            return None, None, None, None, None, None
         g, tri_valid = ctx.saved_tensors
+        _no_shape_gradients(g is None)
         if g.is_cuda:
             dtilts = launch_p1_div_bwd_members(g, tri_valid, grad_div.contiguous(), ctx.csr)
         else:
             dtilts = p1_div_vjp_members_reference(g, tri_valid, grad_div, ctx.csr)
-        return None, dtilts, None, None, None
+        # a shared tilts array takes every member's gradient
+        return None, dtilts.sum(0) if ctx.shared_tilts else dtilts, None, None, None, None
 
 
 class _P1Divergence(torch.autograd.Function):
     @staticmethod
-    def forward(positions, tilts, tri_rows, tri_valid, csr):
+    def forward(positions, tilts, tri_rows, tri_valid, csr, keep_g):
         if positions.is_cuda:
             return launch_p1_divergence(positions.contiguous(), tilts.contiguous(), tri_rows,
-                                        tri_valid, csr)
-        return tilt_ops.p1_triangle_divergence(positions, tilts, tri_rows, tri_valid)
+                                        tri_valid, csr, keep_g)
+        div, area, g = tilt_ops.p1_triangle_divergence(positions, tilts, tri_rows, tri_valid)
+        return div, area, g if keep_g else None
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        _positions, _tilts, _tri_rows, tri_valid, csr = inputs
+        _positions, _tilts, _tri_rows, tri_valid, csr, _keep_g = inputs
         _div, area, g = output
+        if g is None:
+            _no_shape_gradients(ctx.needs_input_grad[1])
         ctx.set_materialize_grads(False)  # no upstream of div: no launch
         ctx.save_for_backward(g, tri_valid)
         ctx.csr = csr
-        ctx.mark_non_differentiable(area, g)
+        ctx.mark_non_differentiable(*(x for x in (area, g) if x is not None))
 
     @staticmethod
     def backward(ctx, grad_div, _grad_area, _grad_g):
         if grad_div is None:
-            return None, None, None, None, None
+            return None, None, None, None, None, None
         g, tri_valid = ctx.saved_tensors
+        _no_shape_gradients(g is None)
         if g.is_cuda:
             dtilts = launch_p1_div_bwd(g, tri_valid, grad_div.contiguous(), ctx.csr)
         else:
             dtilts = p1_div_vjp_reference(g, tri_valid, grad_div, ctx.csr)
-        return None, dtilts, None, None, None
+        return None, dtilts, None, None, None, None
 
     @staticmethod
-    def vmap(info, in_dims, positions, tilts, tri_rows, tri_valid, csr):
-        """All members in one launch each way (the positions or the tilts may be shared)."""
+    def vmap(info, in_dims, positions, tilts, tri_rows, tri_valid, csr, keep_g):
+        """All members in one launch each way; a shared positions or tilts array is passed as it
+        is (the launch reads it once a member group), and with shared positions ``area`` and
+        ``g`` come back unbatched (every member's are the same bits)."""
         _shared(in_dims, tri_rows=2, tri_valid=3)
-        x = _member_dim(in_dims, info.batch_size, positions, 0)
-        if x.requires_grad and torch.is_grad_enabled():
+        if positions.requires_grad and torch.is_grad_enabled():
             raise ValueError("p1_triangle_divergence takes frozen positions; detach them first")
-        t = _member_dim(in_dims, info.batch_size, tilts, 1)
-        return _MemberP1Divergence.apply(x, t, tri_rows, tri_valid, csr), (0, 0, 0)
+        x = positions if in_dims[0] is None else positions.movedim(in_dims[0], 0)
+        t = tilts if in_dims[1] is None else tilts.movedim(in_dims[1], 0)
+        out = _MemberP1Divergence.apply(x, t, tri_rows, tri_valid, csr, keep_g)
+        per_member = None if x.dim() == 2 else 0
+        return out, (0, per_member, None if out[2] is None else per_member)
 
 
 # ----------------------------------------------------------------------
@@ -1062,14 +1174,34 @@ def p1_triangle_divergence(positions, tilts, tri_rows, tri_valid, csr: CornerCSR
     (the weighted vertex sum over ``csr``, the corner CSR of ``tri_rows``).
     Differentiable in ``tilts`` only: a call whose positions require grad
     raises instead of dropping their gradient.  A ``csr`` that carries a shard plan runs
-    each shard's triangles on its device.
+    each shard's triangles on its device.  A caller that drops g calls
+    :func:`p1_divergence_and_area`.
     """
+    return _p1_divergence(positions, tilts, tri_rows, tri_valid, csr, True)
+
+
+def p1_divergence_and_area(positions, tilts, tri_rows, tri_valid, csr: CornerCSR):
+    """(div, area) of :func:`p1_triangle_divergence`, for a caller that drops the shape gradients.
+
+    The kernel then writes no g (64% of the forward's bytes at float32)
+    unless the tilts take a gradient, whose backward reads it: where
+    autograd follows ``tilts`` (grad mode on and ``tilts`` requires grad)
+    it is written and kept for the backward, inside and outside
+    ``torch.func.vmap``, so no tilt gradient is dropped.
+    """
+    keep_g = torch.is_grad_enabled() and tilts.requires_grad
+    div, area, _g = _p1_divergence(positions, tilts, tri_rows, tri_valid, csr, keep_g)
+    return div, area
+
+
+def _p1_divergence(positions, tilts, tri_rows, tri_valid, csr: CornerCSR, keep_g: bool):
     if positions.requires_grad and torch.is_grad_enabled():
         raise ValueError("p1_triangle_divergence takes frozen positions; detach them first")
     plan = _shard.plan_of(csr, positions, tri_rows)
     if plan is not None:
-        parts = plan.map(lambda s, x, t, valid: p1_triangle_divergence(
-            x, t, s.topo.tri_rows, valid, s.csr), vertex=(positions, tilts), tri=(tri_valid,))
-        return tuple(plan.join(list(out)) for out in zip(*parts))
+        parts = plan.map(lambda s, x, t, valid: _p1_divergence(
+            x, t, s.topo.tri_rows, valid, s.csr, keep_g), vertex=(positions, tilts),
+            tri=(tri_valid,))
+        return tuple(None if out[0] is None else plan.join(list(out)) for out in zip(*parts))
 
-    return _P1Divergence.apply(positions, tilts, tri_rows, tri_valid, csr)
+    return _P1Divergence.apply(positions, tilts, tri_rows, tri_valid, csr, keep_g)

@@ -10,8 +10,9 @@ matplotlib is imported inside the drawing calls only, so the package and
 :func:`_face_values` import without it.  The facet colour values are a
 function of their own (:func:`_face_values`): the ``div`` modes take the
 per-triangle P1 divergence on a device through
-``kernels/tri_kernels.p1_triangle_divergence`` (the ``tri_p1_div`` kernel on
-the card, its plain twin on the CPU), every triangle valid, as the JAX
+``kernels/tri_kernels.p1_divergence_and_area`` (the ``tri_p1_div`` kernel on
+the card, no shape gradients written; its plain twin on the CPU), every
+triangle valid, as the JAX
 package's ``device.tilt_ops.p1_triangle_divergence`` call does.  The device
 is the caller's: the card unless it asks for the CPU.
 """
@@ -139,9 +140,9 @@ def _tilt_field_for(mesh, color_by):
 def _triangle_divergence(mesh, tilts, device, dtype):
     """(facet ids, P1 divergence per triangle as float64) of ``tilts`` on ``device``.
 
-    One ``tri_kernels.p1_triangle_divergence`` call on the mesh's triangles,
-    every one valid: the ``tri_p1_div`` kernel on a CUDA device, its twin on
-    the CPU.
+    One ``tri_kernels.p1_divergence_and_area`` call on the mesh's triangles,
+    every one valid: the ``tri_p1_div`` kernel (no shape gradients written) on
+    a CUDA device, its twin on the CPU.
     """
     import torch
 
@@ -157,7 +158,7 @@ def _triangle_divergence(mesh, tilts, device, dtype):
     pos = torch.as_tensor(mesh.positions_array(), dtype=dtype, device=dev)
     tri_rows = torch.as_tensor(np.asarray(rows), dtype=torch.int64, device=dev)
     with torch.no_grad():
-        div, _area, _g = tri_kernels.p1_triangle_divergence(
+        div, _area = tri_kernels.p1_divergence_and_area(
             pos, torch.as_tensor(np.asarray(tilts), dtype=dtype, device=dev), tri_rows,
             torch.ones(len(tri_fids), dtype=torch.bool, device=dev),
             corner_csr(tri_rows, pos.shape[0]))
